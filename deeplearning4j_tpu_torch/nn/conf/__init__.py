@@ -1,0 +1,6 @@
+"""Configuration DSL."""
+
+from deeplearning4j_tpu_torch.nn.conf.builder import (  # noqa: F401
+    NeuralNetConfiguration,
+)
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType  # noqa: F401
