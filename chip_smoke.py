@@ -41,7 +41,7 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     NEG_INF, flash_attention, flash_attention_plain,
 )
 
-# H100 SXM published peaks (NVIDIA data sheet; on-chip-measurement guide)
+# H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12       # CUDA cores, no tensor cores: the kernel's path
 
