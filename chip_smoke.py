@@ -4,25 +4,39 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc; builds the
-port's kernels from csrc/ on first use. Phases, each printing JSON lines:
+port's kernels from csrc/ on first use, one nvcc per source, in parallel.
+Phases, each printing JSON lines:
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA
    versions, kernel build time;
 2. kernels — the flash-attention forward kernel against its plain PyTorch
    version on the card in five cases, with kernel / plain / SDPA times and
-   the card's bound at the GPT slice's shape;
+   the card's bound at the GPT slice's shape; the LSTM recurrence kernel
+   against its plain version in five cases (the char-RNN's shape, ragged
+   sizes with a carry, the T=1 streaming step, bf16 over 16 steps, no
+   peepholes), with
+   kernel / plain / cuDNN LSTM times and the bound at the char-RNN's shape;
 3. slice — the full-width GPT decoder (vocab 96, T 256, d_model 512,
    8 heads, 8 layers, f32, seeded random weights) on the card through
    ``ComputationGraph.output`` (with and without a key mask) and
    ``greedy_generate``, checked against the same net on the CPU, with
    its times and a torch.profiler breakdown of one forward and of 16
    decode steps;
-4. a ``{"kernels": [...]}`` summary line;
-5. last line ``{"ok": true, "device": {...}}``.
+4. lstm slice — the char-RNN (``char_rnn_lstm(96, 256, 2)``: two
+   GravesLSTMs of 256, f32, seeded random weights) on the card through
+   ``MultiLayerNetwork.output`` (with and without a mask) and
+   ``rnn_time_step`` over a [32, 64, 96] batch, checked against the same
+   net on the CPU and the stream against the whole-sequence output, with
+   its times and a torch.profiler breakdown of one output() and of 16
+   streaming steps;
+5. a ``{"kernels": [...]}`` summary line;
+6. last line ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, so the script exits non-zero before the last
-line. It imports no JAX. Without a CUDA device it exits 2 and prints no
-result.
+Each slice is driven with every kernel's launch count set to 0 just
+before it and read just after; a kernel of that path that was not
+launched fails the run. Any failed check raises, so the script exits
+non-zero before the last line. It imports no JAX. Without a CUDA device
+it exits 2 and prints no result.
 """
 
 import json
@@ -34,11 +48,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.models.gpt import gpt_decoder, greedy_generate
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops.cuda_build import build_libraries
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     NEG_INF, flash_attention, flash_attention_plain,
+)
+from deeplearning4j_tpu_torch.ops.fused_lstm import (
+    fused_lstm, lstm_recurrence, lstm_recurrence_plain,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet)
@@ -54,9 +73,36 @@ TOL_LSE = 1e-4
 # the slice on the card vs the same net on the CPU: f32 GEMMs in another
 # order through 8 layers (TF32 off), probabilities of a 96-way softmax
 TOL_SLICE = 1e-4
+# LSTM recurrence kernel vs its plain version. f32: the order of the f32
+# sums only (the JAX package's fused-LSTM forward tolerance is 1e-5).
+# bf16: the carry rounds to bf16 on both sides, so a one-ulp flip can feed
+# back through the steps: four bf16 ulps of 1.0. h is bounded by 1; the
+# cell c sums i * g over the steps and is not, so its tolerance scales
+# with its largest magnitude (a relative tolerance where |c| > 1)
+TOL_LSTM_F32 = 1e-5
+TOL_LSTM_BF16 = 3.2e-2
+# the char-RNN on the card vs the CPU, and streamed vs whole-sequence on
+# the card: probabilities of a 96-way softmax after 64 recurrent steps
+# whose GEMMs and sums run in another order (TF32 off)
+TOL_LSTM_SLICE = 1e-4
 
 SLICE = dict(vocab_size=96, seq_len=256, d_model=512, n_heads=8, n_layers=8)
+LSTM_SLICE = dict(vocab_size=96, hidden=256, layers=2)
+LSTM_BATCH = (32, 64)          # B, T: the char-LSTM traffic of bench.py
 SEED = 1234
+
+#: every kernel wrapper of the port, by kernel name
+KERNELS = {"flash_attn_fwd": flash_attention,
+           "lstm_fwd_infer": lstm_recurrence}
+
+
+def reset_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def emit(obj) -> None:
@@ -194,38 +240,100 @@ def kernel_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
     return rec
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def lstm_bound_ms(T, B, H, dtype):
+    """Least time for the recurrence on an H100: xz, rw, pw and the carries
+    read once and hs, c_T written once over HBM, against the multiply-adds
+    of h @ rw over the T steps at the peak rate of the kernel's arithmetic
+    (f32 CUDA cores)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = es * (T * B * 4 * H + H * 4 * H + 3 * H + 2 * B * H
+                   + T * B * H + B * H)
+    flops = 2.0 * B * H * 4 * H * T
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
 
-    # ---- 1. device -------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    t0 = time.perf_counter()
-    build_libraries(["flash_attn_fwd"])
-    build_s = time.perf_counter() - t0
-    emit(dict(phase="device", nvidia_smi=smi,
-              name=torch.cuda.get_device_name(0),
-              torch=torch.__version__, cuda=torch.version.cuda,
-              kernel_build_s=build_s))
 
-    # ---- 2. kernels against their plain versions ---------------------------
-    a = kernel_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
-                    timed=True)
-    kernel_case("b_T300_masked", 2, 8, 300, 64, True, torch.float32,
-                "holes")
-    kernel_case("c_D8_full", 4, 8, 256, 8, False, torch.float32, None)
-    kernel_case("d_bf16", 32, 8, 256, 64, True, torch.bfloat16, None)
-    kernel_case("e_slice_half_keys", 32, 8, 256, 64, True, torch.float32,
-                "half", timed=True)
+def lstm_case(name, T, B, H, dtype, peephole, carry, timed=False,
+              library=False):
+    """K1 against its plain version on the card. ``library``: the inputs
+    come from x [B, T, F] (F = the char-RNN's vocabulary, its first layer's
+    input) through x @ W + b, and the whole fused_lstm (the input GEMM and
+    the kernel) is timed beside torch.nn.LSTM (cuDNN) on the same weights,
+    which has no peepholes."""
+    g = torch.Generator().manual_seed(SEED + T + B + H)
+    rw = torch.randn(H, 4 * H, generator=g) * H ** -0.5
+    pw = (torch.randn(3, H, generator=g) * 0.3 if peephole
+          else torch.zeros(3, H))
+    h0, c0 = ((torch.randn(B, H, generator=g) * 0.5,
+               torch.randn(B, H, generator=g)) if carry
+              else (torch.zeros(B, H), torch.zeros(B, H)))
+    if library:
+        F = LSTM_SLICE["vocab_size"]
+        x = torch.randn(B, T, F, generator=g)
+        w = torch.randn(F, 4 * H, generator=g) * F ** -0.5
+        b = torch.randn(4 * H, generator=g) * 0.1
+        xz = (x @ w + b).transpose(0, 1)
+    else:
+        xz = torch.randn(T, B, 4 * H, generator=g)
+    xz, rw, pw, h0, c0 = (a.to("cuda", dtype).contiguous()
+                          for a in (xz, rw, pw, h0, c0))
+    fb = 1.0
+    hs, hT, cT = lstm_recurrence(xz, rw, pw, h0, c0, forget_bias=fb)
+    ref = lstm_recurrence_plain(xz, rw, pw, h0, c0, forget_bias=fb)
+    torch.cuda.synchronize()
+    errs = [float((a.float() - r.float()).abs().max())
+            for a, r in zip((hs, hT, cT), ref)]
+    tol = TOL_LSTM_F32 if dtype == torch.float32 else TOL_LSTM_BF16
+    c_max = float(ref[2].float().abs().max())
+    tol_c = tol * max(1.0, c_max)
+    bound, bound_by, flops, nbytes = lstm_bound_ms(T, B, H, dtype)
+    rec = dict(phase="kernel", kernel="lstm_fwd_infer", case=name,
+               shape=dict(T=T, B=B, H=H), dtype=str(dtype),
+               peephole=peephole, nonzero_carry=carry,
+               max_abs_err_hs=errs[0], max_abs_err_hT=errs[1],
+               max_abs_err_cT=errs[2], tol=tol, max_abs_cT=c_max,
+               tol_cT=tol_c, bound_ms=bound,
+               bound_by=bound_by, flops=flops, bytes=nbytes)
+    if timed:
+        rec["ms"] = cuda_ms(lambda: lstm_recurrence(xz, rw, pw, h0, c0,
+                                                    forget_bias=fb))
+        rec["plain_ms"] = cuda_ms(lambda: lstm_recurrence_plain(
+            xz, rw, pw, h0, c0, forget_bias=fb), iters=5)
+        rec["achieved_tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+        rec["library_ms"] = None
+    if library:
+        x, w, b = x.cuda(), w.cuda(), b.cuda()
+        # yardstick only: the port never calls cuDNN. Gate order i, f, g, o
+        # as in the port; the forget bias folds into cuDNN's input bias
+        lstm = torch.nn.LSTM(F, H, batch_first=True).cuda().eval()
+        b_fold = b.clone()
+        b_fold[H:2 * H] += fb
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(w.t())
+            lstm.weight_hh_l0.copy_(rw.t())
+            lstm.bias_ih_l0.copy_(b_fold)
+            lstm.bias_hh_l0.zero_()
+            ys_lib, (h_lib, c_lib) = lstm(x, (h0[None], c0[None]))
+            ys, _, c_k = fused_lstm(x, w, rw, b, None, h0, c0,
+                                    forget_bias=fb)
+            rec["library_ms"] = cuda_ms(lambda: lstm(x, (h0[None],
+                                                         c0[None])))
+        rec["kernel_plus_input_gemm_ms"] = cuda_ms(lambda: fused_lstm(
+            x, w, rw, b, None, h0, c0, forget_bias=fb))
+        rec["library"] = "torch.nn.LSTM (cuDNN), input GEMM included"
+        rec["max_abs_diff_vs_library"] = float(max(
+            (ys - ys_lib).abs().max(), (c_k - c_lib[0]).abs().max()))
+    emit(rec)
+    check(max(errs[:2]) <= tol and errs[2] <= tol_c,
+          f"case {name}: LSTM kernel differs by {errs} > ({tol}, {tol}, "
+          f"{tol_c})")
+    return rec
 
-    # ---- 3. the slice: full-width GPT serving on the card ------------------
+
+def gpt_slice(k4_ms):
+    """Full-width GPT serving on the card. Returns the flash kernel's
+    launches on this path."""
     conf = gpt_decoder(**SLICE)
     net = ComputationGraph(conf, device="cuda").init()
     cpu = ComputationGraph(gpt_decoder(**SLICE), device="cpu").init()
@@ -239,7 +347,7 @@ def main() -> int:
     prompts = [rng.integers(0, V, n).tolist() for n in (5, 12, 27, 40)]
     n_new = 32
 
-    flash_attention.launches = 0
+    reset_counts()
     probs = net.output(x)
     torch.cuda.synchronize()
     launches_plain = flash_attention.launches
@@ -247,7 +355,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_masked = flash_attention.launches - launches_plain
     tokens = [greedy_generate(net, p, n_new) for p in prompts]
-    main_path_launches = flash_attention.launches
+    main_path = counts()
+    check(main_path["flash_attn_fwd"] > 0 and
+          main_path["lstm_fwd_infer"] == 0,
+          f"GPT path launches {main_path}")
 
     check(launches_plain == L and launches_masked == L,
           f"flash kernel launches per forward {launches_plain}, "
@@ -271,6 +382,7 @@ def main() -> int:
     emit(dict(phase="slice", config=SLICE, params=net.num_params(),
               batch=[B, T, V], flash_launches_per_forward=[
                   launches_plain, launches_masked],
+              main_path_launches=main_path,
               max_abs_err_vs_cpu=err_cpu, max_abs_err_vs_cpu_masked=err_cpu_m,
               tol=TOL_SLICE, prob_sum_err=err_sum,
               prob_sum_err_masked=err_sum_m,
@@ -288,7 +400,7 @@ def main() -> int:
     emit(dict(phase="slice_timing", forward_ms=fwd_ms,
               forward_tokens_per_s=B * T / (fwd_ms * 1e-3),
               forward_masked_ms=fwd_m_ms,
-              attention_kernel_share_of_forward=L * a["ms"] / fwd_ms,
+              attention_kernel_share_of_forward=L * k4_ms / fwd_ms,
               prefill_plus_first_token_ms=gen1,
               decode_ms_per_step=(gen_n - gen1) / (n_new - 1),
               peak_mem_bytes=torch.cuda.max_memory_allocated()))
@@ -304,15 +416,153 @@ def main() -> int:
                   net.params, net.states, caches, x1,
                   torch.tensor([60 + i], device="cuda"))
                   for i in range(16)])))
+    return main_path["flash_attn_fwd"]
 
-    # ---- 4. summary of every ported kernel ---------------------------------
-    emit({"kernels": [dict(
-        name="flash_attn_fwd", route="cuda",
-        source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
-        replaces="deeplearning4j_tpu/ops/pallas_attention.py:72",
-        launches=main_path_launches, max_abs_err=a["max_abs_err_o"],
-        ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-        bound_by=a["bound_by"], library_ms=a["library_ms"])]})
+
+def lstm_slice(k1_ms):
+    """Full-width char-RNN serving on the card. Returns the LSTM kernel's
+    launches on this path."""
+    net = MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE), device="cuda").init()
+    cpu = MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE), device="cpu").init()
+    (B, T), V, L = LSTM_BATCH, LSTM_SLICE["vocab_size"], \
+        LSTM_SLICE["layers"]
+    rng = np.random.default_rng(SEED + 1)
+    x = np.eye(V, dtype=np.float32)[rng.integers(0, V, (B, T))]
+    lengths = rng.integers(T // 4, T + 1, B)
+    lengths[0] = T
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+
+    reset_counts()
+    probs = net.output(x)
+    torch.cuda.synchronize()
+    n_out = lstm_recurrence.launches
+    probs_m = net.output(x, mask=mask)
+    torch.cuda.synchronize()
+    n_masked = lstm_recurrence.launches - n_out
+    net.rnn_clear_previous_state()
+    stream = torch.stack([net.rnn_time_step(x[:, t]) for t in range(T)], 1)
+    torch.cuda.synchronize()
+    main_path = counts()
+    n_stream = main_path["lstm_fwd_infer"] - n_out - n_masked
+    check(main_path["lstm_fwd_infer"] > 0 and
+          main_path["flash_attn_fwd"] == 0,
+          f"char-RNN path launches {main_path}")
+    check(n_out == L and n_masked == 0 and n_stream == L * T,
+          f"LSTM kernel launches: output {n_out} (want {L}), masked "
+          f"{n_masked} (want 0), stream {n_stream} (want {L * T})")
+    check(tuple(probs.shape) == (B, T, V) and stream.shape == probs.shape,
+          f"output shapes {probs.shape}, {stream.shape}")
+    check(bool(torch.isfinite(probs).all() and torch.isfinite(probs_m).all()
+               and torch.isfinite(stream).all()), "non-finite probabilities")
+    # the head takes no mask (as in the JAX container): every row sums to 1
+    err_sum = float(max((probs.sum(-1) - 1).abs().max(),
+                        (probs_m.sum(-1) - 1).abs().max()))
+    check(err_sum < 1e-5, f"probabilities do not sum to 1: {err_sum}")
+    err_cpu = float((probs.cpu() - cpu.output(x)).abs().max())
+    err_cpu_m = float((probs_m.cpu() - cpu.output(x, mask=mask)).abs().max())
+    err_stream = float((stream - probs).abs().max())
+    emit(dict(phase="lstm_slice", config=LSTM_SLICE,
+              params=net.num_params(), batch=[B, T, V],
+              lstm_launches=dict(output=n_out, output_masked=n_masked,
+                                 stream=n_stream),
+              main_path_launches=main_path,
+              max_abs_err_vs_cpu=err_cpu, max_abs_err_vs_cpu_masked=err_cpu_m,
+              max_abs_err_stream_vs_output=err_stream, tol=TOL_LSTM_SLICE,
+              prob_sum_err=err_sum))
+    check(max(err_cpu, err_cpu_m) <= TOL_LSTM_SLICE,
+          f"card vs CPU output differs: {err_cpu}, {err_cpu_m}")
+    check(err_stream <= TOL_LSTM_SLICE,
+          f"streamed output differs from output(): {err_stream}")
+
+    fwd_ms = host_ms(lambda: net.output(x))
+    fwd_m_ms = host_ms(lambda: net.output(x, mask=mask))
+    net.rnn_clear_previous_state()
+    step32 = host_ms(lambda: net.rnn_time_step(x[:, 0]), iters=32)
+    x1 = x[:1]
+    net.rnn_clear_previous_state()
+    step1 = host_ms(lambda: net.rnn_time_step(x1[:, 0]), iters=32)
+    emit(dict(phase="lstm_slice_timing", output_ms=fwd_ms,
+              sequences_per_s=B / (fwd_ms * 1e-3),
+              tokens_per_s=B * T / (fwd_ms * 1e-3),
+              output_masked_ms=fwd_m_ms,
+              lstm_kernel_share_of_output=L * k1_ms / fwd_ms,
+              rnn_time_step_ms_b32=step32, rnn_time_step_ms_b1=step1,
+              peak_mem_bytes=torch.cuda.max_memory_allocated()))
+
+    emit(dict(phase="profile", window="char-RNN output() of [32, 64, 96]",
+              **device_profile(lambda: net.output(x))))
+    net.rnn_clear_previous_state()
+    emit(dict(phase="profile", window="16 rnn_time_step calls, 32 rows",
+              **device_profile(lambda: [net.rnn_time_step(x[:, t])
+                                        for t in range(16)])))
+    return main_path["lstm_fwd_infer"]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- 1. device -------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build_libraries(list(KERNELS))
+    build_s = time.perf_counter() - t0
+    emit(dict(phase="device", nvidia_smi=smi,
+              name=torch.cuda.get_device_name(0),
+              torch=torch.__version__, cuda=torch.version.cuda,
+              kernel_build_s=build_s))
+
+    # ---- 2. kernels against their plain versions ---------------------------
+    a = kernel_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
+                    timed=True)
+    kernel_case("b_T300_masked", 2, 8, 300, 64, True, torch.float32,
+                "holes")
+    kernel_case("c_D8_full", 4, 8, 256, 8, False, torch.float32, None)
+    kernel_case("d_bf16", 32, 8, 256, 64, True, torch.bfloat16, None)
+    kernel_case("e_slice_half_keys", 32, 8, 256, 64, True, torch.float32,
+                "half", timed=True)
+    (B, T), H = LSTM_BATCH, LSTM_SLICE["hidden"]
+    k1 = lstm_case("a_slice", T, B, H, torch.float32, True, False,
+                   timed=True)
+    lstm_case("b_ragged_carry", 7, 3, 100, torch.float32, True, True)
+    lstm_case("c_stream_T1", 1, B, H, torch.float32, True, True, timed=True)
+    # bf16 over 16 steps: the carry rounds to bf16 every step, so where the
+    # order of the f32 sums flips one rounding, a unit whose forget gate is
+    # near 1 keeps the flip; over all 64 steps c_T drifts by up to 13 bf16
+    # ulps on these inputs, and a CPU emulation of the kernel's summation
+    # order reproduces that drift exactly. 16 steps stay within one ulp
+    lstm_case("d_bf16_T16", 16, B, H, torch.bfloat16, True, False)
+    k1e = lstm_case("e_no_peephole", T, B, H, torch.float32, False, False,
+                    timed=True, library=True)
+
+    # ---- 3. the slice: full-width GPT serving on the card ------------------
+    flash_launches = gpt_slice(a["ms"])
+
+    # ---- 4. the slice: full-width char-RNN serving on the card -------------
+    lstm_launches = lstm_slice(k1["ms"])
+
+    # ---- 5. summary of every ported kernel ---------------------------------
+    emit({"kernels": [
+        dict(name="flash_attn_fwd", route="cuda",
+             source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
+             replaces="deeplearning4j_tpu/ops/pallas_attention.py:72",
+             launches=flash_launches, max_abs_err=a["max_abs_err_o"],
+             ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+             bound_by=a["bound_by"], library_ms=a["library_ms"]),
+        dict(name="lstm_fwd_infer", route="cuda",
+             source="deeplearning4j_tpu_torch/csrc/lstm_fwd_infer.cu",
+             replaces="deeplearning4j_tpu/ops/pallas_kernels.py:99",
+             launches=lstm_launches,
+             max_abs_err=max(k1["max_abs_err_hs"], k1["max_abs_err_hT"]),
+             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=k1e["library_ms"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -15,3 +15,6 @@ from deeplearning4j_tpu_torch.nn.conf import (  # noqa: F401
     NeuralNetConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph  # noqa: F401
+from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: F401
+    MultiLayerNetwork,
+)

@@ -1,22 +1,25 @@
 """Carry weights from the JAX package's nets into the port.
 
-``params_from_jax(conf, params)`` takes a JAX ``ComputationGraph``'s params
-as nested numpy dicts (node -> param name -> array, e.g.
-``jax.tree.map(np.asarray, net.params)``) and returns the port's params for
-the port config ``conf``, so that both nets compute the same function.
+``params_from_jax(conf, params)`` takes a JAX net's params as numpy
+arrays (e.g. ``jax.tree.map(np.asarray, net.params)``): for a
+``ComputationGraph`` a dict node -> param name -> array, for a
+``MultiLayerNetwork`` a list of per-layer dicts. It returns the port's
+params for the port config ``conf`` (a graph or a
+``MultiLayerConfiguration``), so that both nets compute the same function.
 Both packages keep the same names and layouts (``W`` ``[in, out]``,
-attention ``Wq/Wk/Wv`` ``[F, H*D]``), so each tensor is a copy, not a
-transpose. This module imports nothing of the JAX package: it reads
+attention ``Wq/Wk/Wv`` ``[F, H*D]``, GravesLSTM's peepholes ``pW`` flat
+``[3H]``), so each tensor is a copy, not a transpose. This module imports nothing of the JAX package: it reads
 arrays.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence, Union
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayerConf
 
 
@@ -40,9 +43,18 @@ def layer_params_from_jax(layer: BaseLayerConf,
     return {n: _to_tensor(params[n]) for n in names}
 
 
-def params_from_jax(conf, params: Mapping
-                    ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The port's params (CPU tensors) for every layer node of ``conf``."""
+def params_from_jax(conf, params: Union[Mapping, Sequence[Mapping]]
+                    ) -> Union[Dict[str, Dict[str, torch.Tensor]],
+                               List[Dict[str, torch.Tensor]]]:
+    """The port's params (CPU tensors): a list, one dict per layer, for a
+    ``MultiLayerConfiguration``; else a dict for every layer node of the
+    graph config ``conf``."""
+    if isinstance(conf, MultiLayerConfiguration):
+        if len(params) != len(conf.layers):
+            raise ValueError(f"{len(params)} param dicts for "
+                             f"{len(conf.layers)} layers")
+        return [layer_params_from_jax(layer, p)
+                for layer, p in zip(conf.layers, params)]
     out = {}
     for name in conf.topological_order:
         node = conf.nodes[name]

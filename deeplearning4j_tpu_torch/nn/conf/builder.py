@@ -1,18 +1,26 @@
 """Network configuration DSL (the JAX package's ``nn/conf/builder.py``, the
-subset the GPT decoder uses):
+subset the GPT decoder and the char-RNN use):
 
     NeuralNetConfiguration.builder().seed(s).updater("adam", learning_rate=lr)
-        .weight_init("xavier").dropout(p).dtype("float32").graph_builder()
+        .weight_init("xavier").dropout(p).dtype("float32")
+        .graph_builder()            # a DAG (ComputationGraph)
+        .list()                     # or a stack (MultiLayerNetwork)
 
 Global hyperparameters are inherited by every layer at ``build()``. The
-updater settings are stored, not acted on: training is not ported yet.
-JSON serde, the sequential ``list()`` builder and mixed precision wait.
+updater, regularization, gradient normalization and tBPTT settings are
+stored, not acted on: training is not ported yet. JSON serde and mixed
+precision wait.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    InputPreProcessor, auto_preprocessor,
+)
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayerConf, GlobalConf
 from deeplearning4j_tpu_torch.nn.weights import Distribution
 
@@ -56,20 +64,116 @@ class UpdaterConfig:
 
 @dataclass
 class TrainingConfig:
-    """Settings carried beside the layers: the init seed, the (stored)
-    updater and the parameter dtype."""
+    """Settings carried beside the layers: the init seed, the parameter
+    dtype, and the (stored) updater, gradient normalization and backprop
+    style."""
     seed: int = 12345
     updater: UpdaterConfig = field(default_factory=UpdaterConfig)
+    gradient_normalization: str = "none"
+    gradient_normalization_threshold: float = 1.0
+    backprop_type: str = "standard"  # standard | truncated_bptt
+    tbptt_fwd_length: int = 20
+    tbptt_bwd_length: int = 20
     dtype: str = "float32"
 
 
+@dataclass
+class MultiLayerConfiguration:
+    """The fully resolved sequential-network config: layers, the
+    preprocessor in front of each layer index that needs one, and the
+    per-layer input types inferred from ``input_type``."""
+    layers: List[BaseLayerConf]
+    preprocessors: Dict[int, InputPreProcessor] = field(default_factory=dict)
+    input_type: Optional[InputType] = None
+    input_types: List[InputType] = field(default_factory=list)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+
+
 def validate_layer_options(layers) -> None:
-    """Fail at build time on unknown activation names."""
+    """Fail at build time on unknown activation names (the layer's own and
+    a recurrent layer's ``gate_activation``)."""
     from deeplearning4j_tpu_torch.ops.activations import get_activation
     for layer in layers:
-        act = getattr(layer, "activation", None)
-        if act:
-            get_activation(act)
+        for name in ("activation", "gate_activation"):
+            act = getattr(layer, name, None)
+            if act:
+                get_activation(act)
+
+
+class ListBuilder:
+    """Sequential-stack builder (ref: NeuralNetConfiguration.ListBuilder)."""
+
+    def __init__(self, parent: "NeuralNetConfiguration"):
+        self._parent = parent
+        self._layers: List[BaseLayerConf] = []
+        self._preprocessors: Dict[int, InputPreProcessor] = {}
+        self._input_type: Optional[InputType] = None
+
+    def layer(self, layer: BaseLayerConf,
+              index: Optional[int] = None) -> "ListBuilder":
+        if index is not None and index != len(self._layers):
+            raise ValueError("layers must be added in order")
+        self._layers.append(layer)
+        return self
+
+    def input_pre_processor(self, layer_index: int,
+                            p: InputPreProcessor) -> "ListBuilder":
+        self._preprocessors[layer_index] = p
+        return self
+
+    def set_input_type(self, t: InputType) -> "ListBuilder":
+        self._input_type = t
+        return self
+
+    # alias matching the reference naming
+    setInputType = set_input_type
+
+    def backprop_type(self, t: str, fwd: int = 20,
+                      bwd: int = 20) -> "ListBuilder":
+        training = self._parent._training
+        training.backprop_type = t
+        training.tbptt_fwd_length = fwd
+        training.tbptt_bwd_length = bwd
+        return self
+
+    def build(self) -> MultiLayerConfiguration:
+        training = self._parent._training
+        if not self._layers:
+            raise ValueError("No layers added")
+        for layer in self._layers:
+            layer.apply_global_defaults(self._parent._global)
+        validate_layer_options(self._layers)
+        # shape inference + auto preprocessors
+        input_types: List[InputType] = []
+        cur = self._input_type
+        if cur is not None:
+            for i, layer in enumerate(self._layers):
+                if i not in self._preprocessors:
+                    p = auto_preprocessor(cur, expected_input_kind(layer))
+                    if p is not None:
+                        self._preprocessors[i] = p
+                if i in self._preprocessors:
+                    cur = self._preprocessors[i].infer_output_type(cur)
+                layer.set_n_in(cur)  # inference overrides any manual n_in
+                input_types.append(cur)
+                cur = layer.infer_output_type(cur)
+        else:
+            for layer in self._layers:
+                if layer.has_params() and layer.n_in is None:
+                    raise ValueError(
+                        f"Layer {layer}: n_in not set and no input_type "
+                        "given")
+        if (training.backprop_type == "truncated_bptt"
+                and self._input_type is not None and cur.kind != "rnn"):
+            raise ValueError(
+                "truncated_bptt requires a time-distributed output layer "
+                "(e.g. RnnOutputLayer); the final layer "
+                f"{type(self._layers[-1]).__name__} produces "
+                "non-recurrent output")
+        return MultiLayerConfiguration(
+            layers=self._layers, preprocessors=self._preprocessors,
+            input_type=self._input_type, input_types=input_types,
+            training=training)
 
 
 class NeuralNetConfiguration:
@@ -107,6 +211,14 @@ class NeuralNetConfiguration:
         self._global.bias_init = b
         return self
 
+    def l1(self, v: float) -> "NeuralNetConfiguration":
+        self._global.l1 = v
+        return self
+
+    def l2(self, v: float) -> "NeuralNetConfiguration":
+        self._global.l2 = v
+        return self
+
     def dropout(self, retain_prob: float) -> "NeuralNetConfiguration":
         self._global.dropout = retain_prob
         return self
@@ -128,12 +240,22 @@ class NeuralNetConfiguration:
         self._training.updater.learning_rate = lr
         return self
 
+    def gradient_normalization(self, kind: str, threshold: float = 1.0
+                               ) -> "NeuralNetConfiguration":
+        self._training.gradient_normalization = kind.lower()
+        self._training.gradient_normalization_threshold = threshold
+        return self
+
     def dtype(self, dt: str) -> "NeuralNetConfiguration":
         if dt not in self.KNOWN_DTYPES:
             raise ValueError(f"dtype {dt!r}: the port runs "
                              f"{self.KNOWN_DTYPES}")
         self._training.dtype = dt
         return self
+
+    def list(self) -> ListBuilder:
+        """Sequential-stack builder (MultiLayerNetwork)."""
+        return ListBuilder(self)
 
     def graph_builder(self):
         """DAG-network builder (ref: ComputationGraphConfiguration.

@@ -5,12 +5,13 @@ Params are a dict keyed by node name -> {param name -> tensor}, in the
 JAX package's names and layouts, on the net's device. The container runs
 on ``cuda`` unless it is built with ``device="cpu"``; with ``device=None``
 and no card it raises. Training, tBPTT, the paged decode and the
-evaluation/scoring mixins are not ported yet.
+evaluation/scoring mixins are not ported yet. ``rnn_time_step`` threads
+the (h, c) carries of recurrent nodes between calls.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ class ComputationGraph:
         self.params: Optional[Dict[str, Dict[str, Tensor]]] = None
         self.states: Optional[Dict[str, Dict[str, Tensor]]] = None
         self._decode_fns = None
+        self._rnn_carries: Optional[Dict[str, Any]] = None
         self._layer_nodes = [n for n in conf.topological_order
                              if conf.nodes[n].kind == "layer"]
         # weight tying: resolve once, fail loudly at construction
@@ -98,11 +100,18 @@ class ComputationGraph:
 
     # ---------------------------------------------------------------- forward
     def _forward(self, params, states, inputs: Dict[str, Tensor],
-                 masks: Optional[Dict[str, Tensor]] = None):
+                 masks: Optional[Dict[str, Tensor]] = None,
+                 carries: Optional[Dict[str, Any]] = None):
         """Walk the DAG in topological order (inference). Each node takes
-        the mask of its FIRST input. Returns (activations, masks)."""
+        the mask of its FIRST input. Returns (activations, masks).
+
+        ``carries``: optional per-layer-node RNN carry dict
+        (rnn_time_step). When given, layers with ``supports_carry`` run
+        ``scan`` from their carry and the return is (activations, masks,
+        new carries)."""
         acts: Dict[str, Tensor] = {}
         out_masks: Dict[str, Optional[Tensor]] = {}
+        new_carries: Dict[str, Any] = {}
         for name in self.conf.topological_order:
             node = self.conf.nodes[name]
             if node.kind == "input":
@@ -116,14 +125,33 @@ class ComputationGraph:
                 out_masks[name] = in_mask
                 continue
             layer = node.layer
-            acts[name], _ = layer.apply(self._layer_params(params, name),
-                                        in_acts[0], state=states[name],
-                                        mask=in_mask)
+            p = self._layer_params(params, name)
+            if carries is not None and getattr(layer, "supports_carry",
+                                               False):
+                c_in = carries.get(name)
+                if c_in is None:
+                    h = in_acts[0]
+                    c_in = layer.initial_carry(h.shape[0], h.dtype, h.device)
+                acts[name], new_carries[name] = layer.scan(
+                    p, in_acts[0], c_in, in_mask)
+            else:
+                acts[name], _ = layer.apply(p, in_acts[0],
+                                            state=states[name], mask=in_mask)
             out_masks[name] = layer.propagate_mask(in_mask)
+        if carries is not None:
+            return acts, out_masks, new_carries
         return acts, out_masks
 
     def _to_tensor(self, x) -> Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def _to_input_map(self, inputs) -> Dict[str, Tensor]:
+        names = self.conf.network_inputs
+        if isinstance(inputs, dict):
+            return {k: self._to_tensor(v) for k, v in inputs.items()}
+        if isinstance(inputs, (list, tuple)):
+            return {n: self._to_tensor(x) for n, x in zip(names, inputs)}
+        return {names[0]: self._to_tensor(inputs)}
 
     def outputs(self, inputs: Union[Tensor, np.ndarray, Sequence, Dict],
                 mask=None) -> List[Tensor]:
@@ -132,12 +160,7 @@ class ComputationGraph:
         the first input, or a name -> mask dict."""
         self._check_init()
         names = self.conf.network_inputs
-        if isinstance(inputs, dict):
-            in_map = {k: self._to_tensor(v) for k, v in inputs.items()}
-        elif isinstance(inputs, (list, tuple)):
-            in_map = {n: self._to_tensor(x) for n, x in zip(names, inputs)}
-        else:
-            in_map = {names[0]: self._to_tensor(inputs)}
+        in_map = self._to_input_map(inputs)
         masks = None
         if mask is not None:
             masks = ({k: None if v is None else self._to_tensor(v)
@@ -149,6 +172,38 @@ class ComputationGraph:
 
     def output(self, inputs, mask=None) -> Tensor:
         return self.outputs(inputs, mask=mask)[0]
+
+    # ------------------------------------------------------- rnn statefulness
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_carries = None
+
+    def rnn_time_step(self, inputs):
+        """Stateful streaming inference (ref: ComputationGraph.rnnTimeStep
+        — keeps per-vertex carries between calls). Inputs as in
+        ``outputs()``; [B, F] inputs are one timestep and are squeezed
+        back. Returns the single output activation, or a list for
+        multi-output graphs."""
+        self._check_init()
+        in_map = self._to_input_map(inputs)
+        squeeze = all(v.dim() == 2 for v in in_map.values())
+        if squeeze:
+            in_map = {k: v[:, None, :] for k, v in in_map.items()}
+        if self._rnn_carries is None:
+            B = next(iter(in_map.values())).shape[0]
+            self._rnn_carries = {
+                name: self.conf.nodes[name].layer.initial_carry(
+                    B, self.dtype, self.device)
+                for name in self._layer_nodes
+                if getattr(self.conf.nodes[name].layer, "supports_carry",
+                           False)}
+        with torch.no_grad():
+            acts, _, new_carries = self._forward(
+                self.params, self.states, in_map, carries=self._rnn_carries)
+        self._rnn_carries = {**self._rnn_carries, **new_carries}
+        outs = [acts[o] for o in self.conf.network_outputs]
+        if squeeze:
+            outs = [o[:, 0] if o.dim() == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs
 
     # ----------------------------------------------------- incremental decode
     # Token-level serving: per-request KV caches of static

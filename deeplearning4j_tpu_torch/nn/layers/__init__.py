@@ -19,7 +19,13 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (  # noqa: F401
     LayerNormalization,
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
+    GRU,
+    LSTM,
+    GravesBidirectionalLSTM,
+    GravesLSTM,
+    LastTimeStepLayer,
     RnnOutputLayer,
+    SimpleRnn,
 )
 from deeplearning4j_tpu_torch.nn.layers.shape import (  # noqa: F401
     TimeDistributedLayer,

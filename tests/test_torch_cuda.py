@@ -14,9 +14,14 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.models.gpt import gpt_tiny, greedy_generate
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     NEG_INF, flash_attention, flash_attention_plain,
+)
+from deeplearning4j_tpu_torch.ops.fused_lstm import (
+    fused_lstm, lstm_recurrence, lstm_recurrence_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +88,84 @@ def test_gpt_tiny_on_card_matches_cpu(card):
     for prompt in ([1], [3, 4, 5], list(range(9))):
         assert greedy_generate(gpu, prompt, 6) == \
             greedy_generate(cpu, prompt, 6)
+
+
+@pytest.mark.parametrize("T,B,H,dtype,peephole,carry", [
+    (7, 3, 100, "float32", True, True),      # ragged B and H, nonzero carry
+    (1, 32, 256, "float32", True, True),     # the streaming step
+    (16, 32, 256, "bfloat16", True, False),   # see the tolerance note
+    (64, 32, 256, "float32", False, False),  # plain LSTM: pw = 0
+    (5, 201, 64, "float32", True, True),     # 2 rows per block, ragged
+])
+def test_lstm_kernel_matches_plain(card, T, B, H, dtype, peephole, carry):
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(T * B + H)
+    xz = torch.randn(T, B, 4 * H, generator=g)
+    rw = torch.randn(H, 4 * H, generator=g) * H ** -0.5
+    pw = (torch.randn(3, H, generator=g) * 0.3 if peephole
+          else torch.zeros(3, H))
+    h0, c0 = ((torch.randn(B, H, generator=g) * 0.5,
+               torch.randn(B, H, generator=g)) if carry
+              else (torch.zeros(B, H), torch.zeros(B, H)))
+    args = [a.to(card, dt).contiguous() for a in (xz, rw, pw, h0, c0)]
+    before = lstm_recurrence.launches
+    got = lstm_recurrence(*args, forget_bias=1.0)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches == before + 1
+    ref = lstm_recurrence_plain(*args, forget_bias=1.0)
+    # f32: summation order only (the JAX package's forward tolerance);
+    # bf16: the carry rounds to bf16 on both sides, so a one-ulp flip can
+    # feed back: four bf16 ulps of 1.0. Over many steps a unit whose forget
+    # gate is near 1 keeps such flips (13 ulps of c_T over 64 steps in
+    # chip_smoke.py), so bf16 runs 16 steps. c is not bounded by 1: its
+    # tolerance scales with its largest magnitude
+    tol = 1e-5 if dt == torch.float32 else 3.2e-2
+    tol_c = tol * max(1.0, float(ref[2].float().abs().max()))
+    for a, b, t in zip(got, ref, (tol, tol, tol_c)):
+        assert a.dtype == dt
+        torch.testing.assert_close(a.float(), b.float(), atol=t, rtol=0)
+
+
+def test_fused_lstm_wrapper_on_card_matches_cpu(card):
+    """The batch-major wrapper (input GEMM, transposes, kernel) on the
+    card against the same call on the CPU."""
+    g = torch.Generator().manual_seed(5)
+    B, T, F, H = 5, 9, 17, 40
+    cpu = [torch.randn(*s, generator=g) * 0.4 for s in (
+        (B, T, F), (F, 4 * H), (H, 4 * H), (4 * H,), (3 * H,), (B, H),
+        (B, H))]
+    before = lstm_recurrence.launches
+    got = fused_lstm(*[a.to(card) for a in cpu], forget_bias=1.0)
+    assert lstm_recurrence.launches == before + 1
+    want = fused_lstm(*cpu, forget_bias=1.0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+def test_char_rnn_tiny_on_card_matches_cpu(card):
+    """The char-RNN slice at a tiny size: output() through the kernel (one
+    launch per LSTM layer), the masked output through the step loop (no
+    launch), and rnn_time_step (one launch per layer and step), all equal
+    to the CPU net."""
+    V = 13
+    gpu = MultiLayerNetwork(char_rnn_lstm(V, hidden=24, layers=2),
+                            device=card).init()
+    cpu = MultiLayerNetwork(char_rnn_lstm(V, hidden=24, layers=2),
+                            device="cpu").init()
+    rng = np.random.default_rng(0)
+    B, T = 3, 11
+    x = np.eye(V, dtype=np.float32)[rng.integers(0, V, (B, T))]
+    mask = np.ones((B, T), np.float32)
+    mask[1, 6:] = 0.0
+    before = lstm_recurrence.launches
+    got = gpu.output(x)
+    assert lstm_recurrence.launches == before + 2
+    torch.testing.assert_close(got.cpu(), cpu.output(x), atol=1e-5, rtol=0)
+    got_m = gpu.output(x, mask=mask)
+    assert lstm_recurrence.launches == before + 2
+    torch.testing.assert_close(got_m.cpu(), cpu.output(x, mask=mask),
+                               atol=1e-5, rtol=0)
+    steps = [gpu.rnn_time_step(x[:, t]) for t in range(T)]
+    assert lstm_recurrence.launches == before + 2 + 2 * T
+    torch.testing.assert_close(torch.stack(steps, 1).cpu(), got.cpu(),
+                               atol=1e-5, rtol=0)
