@@ -12,11 +12,17 @@
 // hs[t] = h' is written every step and c_T once at the end. The carry
 // (h, c) is rounded to the input type after every step (a no-op in f32),
 // as the TPU kernel's VMEM carry in that type is; all arithmetic is f32.
+// As in the TPU kernel and the plain version, h @ rw is summed first and
+// xz[t] added to the sum: with a bf16 carry, adding xz at the start of the
+// sum instead flips roundings that a unit whose forget gate is near 1
+// keeps for the rest of the sequence (tests/test_torch_lstm.py emulates
+// both orders).
 // Not carried over: the TPU kernel walks a sequential grid of T steps with
 // RW and (h, c) resident in VMEM, and its wrapper pads H to 128 and B to 8
 // with zero gate blocks. Here one launch loops over all T steps inside the
-// kernel, the ragged batch edge is masked in the kernel and H is not
-// padded; the only size limit is the shared-memory carry (H <= 2048).
+// kernel, one block per batch row, and H is not padded. The size limit is
+// the default 48 KB of shared memory a block gets: 4 * (3H + 3 * 4 * 256)
+// bytes, so H <= 3072 (fused_lstm.MAX_HIDDEN); a wider H fails to launch.
 //
 // What bounds it on an H100: at the char-RNN slice's shape (B=32, T=64,
 // H=256, f32) the h @ rw products are 2*32*256*1024*64 = 1.07 GFLOP, or
@@ -24,19 +30,18 @@
 // xz/hs/rw/carry traffic, or 0.0035 ms at 3.35 TB/s: the bound is
 // operations. But the 64 steps depend on each other, each with only
 // 32 x 1024 outputs, and RW (1 MB in f32) does not fit one SM's 227 KB of
-// shared memory, so a block that owns whole rows of h must stream all of
+// shared memory, so a block that owns a whole row of h must stream all of
 // RW from L2 every step. This first, simple design accepts that:
-//   * a block owns ROWS batch rows (ROWS = 1, 2 or 4, chosen so that the
-//     blocks of a batch fill at most the 132 SMs) and all H hidden units,
-//     so a step needs no exchange between blocks;
+//   * a block owns one batch row and all H hidden units, so a step needs
+//     no exchange between blocks;
 //   * thread (x, y) of the block's (256, 4) threads owns hidden unit x
-//     (and x + 256, ...) for all its rows and sums slice y of the H terms
-//     of h @ rw: its four gate columns x, H+x, 2H+x, 3H+x, so the gates
-//     combine in registers; adjacent threads read adjacent columns
-//     (coalesced), each rw value read feeds ROWS FMAs, and the four slices
-//     keep four times as many L2 reads in flight as one thread per unit
-//     would (a first version with 256 threads a block took 2.2 ms, held
-//     by L2 latency); slices 1..3 add their sums through shared memory;
+//     (and x + 256, ...) and sums slice y of the H terms of h @ rw: its
+//     four gate columns x, H+x, 2H+x, 3H+x, so the gates combine in
+//     registers; adjacent threads read adjacent columns (coalesced), and
+//     the four slices keep four times as many L2 reads in flight as one
+//     thread per unit would (a first version with 256 threads a block took
+//     2.2 ms, held by L2 latency); slices 1..3 add their sums through
+//     shared memory;
 //   * h_{t-1} and h_t are two buffers in shared memory (each h value is
 //     read by every thread, a broadcast), c stays in shared memory owned
 //     by one thread, and two __syncthreads() a step order the partial sums
@@ -56,8 +61,6 @@ namespace {
 
 constexpr int MAX_UNITS = 256;  // hidden units a block works on at once
 constexpr int KSPLIT = 4;       // slices of the reduction over k
-constexpr int MAX_HIDDEN = 2048;
-constexpr int NUM_SMS = 132;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -77,10 +80,11 @@ __device__ __forceinline__ float sigmoid_(float x) {
 }
 
 // xz: [Tn, B, 4H]; rw: [H, 4H]; pw: [3, H]; h0, c0, cT: [B, H];
-// hs: [Tn, B, H]; all contiguous, one type T. Block: (units, KSPLIT)
-// threads; thread (x, y) sums slice y of the reduction over k for hidden
-// unit x (and x + blockDim.x, ... in later chunks).
-template <typename T, int ROWS>
+// hs: [Tn, B, H]; all contiguous, one type T. Grid: one block per batch
+// row. Block: (units, KSPLIT) threads; thread (x, y) sums slice y of the
+// reduction over k for hidden unit x (and x + blockDim.x, ... in later
+// chunks).
+template <typename T>
 __global__ void __launch_bounds__(MAX_UNITS * KSPLIT)
 lstm_fwd_infer_kernel(const T* __restrict__ xz, const T* __restrict__ rw,
                       const T* __restrict__ pw, const T* __restrict__ h0,
@@ -89,85 +93,69 @@ lstm_fwd_infer_kernel(const T* __restrict__ xz, const T* __restrict__ rw,
                       float forget_bias) {
   extern __shared__ float smem[];
   const int nx = blockDim.x, tx = threadIdx.x, ks = threadIdx.y;
-  float* sH = smem;                 // [2][ROWS][H]: h_{t-1}, h_t in turns
-  float* sC = sH + 2 * ROWS * H;    // [ROWS][H]
-  float* sP = sC + ROWS * H;        // [KSPLIT-1][ROWS][4][nx] partial sums
-  const int b0 = blockIdx.x * ROWS;
-  const int rows = min(ROWS, B - b0);
+  float* sH = smem;          // [2][H]: h_{t-1} and h_t in turns
+  float* sC = sH + 2 * H;    // [H]
+  float* sP = sC + H;        // [KSPLIT-1][4][nx] partial sums
+  const int b = blockIdx.x;
   const int H4 = 4 * H;
   const int kc = (H + KSPLIT - 1) / KSPLIT;
   const int k_lo = min(H, ks * kc), k_hi = min(H, k_lo + kc);
 
-  for (int i = ks * nx + tx; i < ROWS * H; i += nx * KSPLIT) {
-    const int r = i / H, u = i % H;
-    const size_t g = (size_t)(b0 + r) * H + u;
-    sH[i] = r < rows ? to_f32(h0[g]) : 0.f;
-    sC[i] = r < rows ? to_f32(c0[g]) : 0.f;
+  for (int u = ks * nx + tx; u < H; u += nx * KSPLIT) {
+    sH[u] = to_f32(h0[(size_t)b * H + u]);
+    sC[u] = to_f32(c0[(size_t)b * H + u]);
   }
   __syncthreads();
 
   for (int t = 0; t < Tn; ++t) {
-    const float* hp = sH + (t & 1) * ROWS * H;
-    float* hn = sH + ((t + 1) & 1) * ROWS * H;
-    const T* xzt = xz + ((size_t)t * B + b0) * H4;
+    const float* hp = sH + (t & 1) * H;
+    float* hn = sH + ((t + 1) & 1) * H;
+    const T* xzt = xz + ((size_t)t * B + b) * H4;
     for (int u0 = 0; u0 < H; u0 += nx) {
       const int u = u0 + tx;
       const bool active = u < H;
-      float acc[ROWS][4];
+      const bool owner = ks == 0 && active;  // combines and writes unit u
+      float xv[4], acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[r][q] = (ks == 0 && active && r < rows)
-                          ? to_f32(xzt[(size_t)r * H4 + q * H + u])
-                          : 0.f;
+      for (int q = 0; q < 4; ++q)  // loaded now, added after the sum
+        xv[q] = owner ? to_f32(xzt[q * H + u]) : 0.f;
       if (active) {
         const T* w = rw + u;
 #pragma unroll 4
         for (int k = k_lo; k < k_hi; ++k) {
           const T* wk = w + (size_t)k * H4;
-          const float wi = to_f32(wk[0]), wf = to_f32(wk[H]);
-          const float wg = to_f32(wk[2 * H]), wo = to_f32(wk[3 * H]);
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const float hk = hp[r * H + k];
-            acc[r][0] = fmaf(hk, wi, acc[r][0]);
-            acc[r][1] = fmaf(hk, wf, acc[r][1]);
-            acc[r][2] = fmaf(hk, wg, acc[r][2]);
-            acc[r][3] = fmaf(hk, wo, acc[r][3]);
-          }
+          const float hk = hp[k];
+          acc[0] = fmaf(hk, to_f32(wk[0]), acc[0]);
+          acc[1] = fmaf(hk, to_f32(wk[H]), acc[1]);
+          acc[2] = fmaf(hk, to_f32(wk[2 * H]), acc[2]);
+          acc[3] = fmaf(hk, to_f32(wk[3 * H]), acc[3]);
         }
       }
       if (ks > 0) {
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            sP[(((ks - 1) * ROWS + r) * 4 + q) * nx + tx] = acc[r][q];
+        for (int q = 0; q < 4; ++q) sP[((ks - 1) * 4 + q) * nx + tx] = acc[q];
       }
       __syncthreads();  // the partial sums of this chunk are in
-      if (ks == 0 && active) {
+      if (owner) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int s = 0; s < KSPLIT - 1; ++s)
+            acc[q] += sP[(s * 4 + q) * nx + tx];
+          acc[q] += xv[q];
+        }
         const float pi = to_f32(pw[u]), pf = to_f32(pw[H + u]);
         const float po = to_f32(pw[2 * H + u]);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          if (r >= rows) break;
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-#pragma unroll
-            for (int s = 0; s < KSPLIT - 1; ++s)
-              acc[r][q] += sP[((s * ROWS + r) * 4 + q) * nx + tx];
-          const float c = sC[r * H + u];
-          const float i = sigmoid_(acc[r][0] + c * pi);
-          const float f = sigmoid_(acc[r][1] + c * pf + forget_bias);
-          const float g = tanhf(acc[r][2]);
-          const float c_new = f * c + i * g;
-          const float o = sigmoid_(acc[r][3] + c_new * po);
-          const float h_new = o * tanhf(c_new);
-          sC[r * H + u] = round_to(c_new, T{});
-          hn[r * H + u] = round_to(h_new, T{});
-          store(&hs[((size_t)t * B + b0 + r) * H + u], h_new);
-        }
+        const float c = sC[u];
+        const float i = sigmoid_(acc[0] + c * pi);
+        const float f = sigmoid_(acc[1] + c * pf + forget_bias);
+        const float g = tanhf(acc[2]);
+        const float c_new = f * c + i * g;
+        const float o = sigmoid_(acc[3] + c_new * po);
+        const float h_new = o * tanhf(c_new);
+        sC[u] = round_to(c_new, T{});
+        hn[u] = round_to(h_new, T{});
+        store(&hs[((size_t)t * B + b) * H + u], h_new);
       }
       // the partial sums are read; after the last chunk, h_t is complete
       // and h_{t-1}'s readers are done
@@ -176,45 +164,21 @@ lstm_fwd_infer_kernel(const T* __restrict__ xz, const T* __restrict__ rw,
   }
 
   if (ks == 0)
-    for (int u = tx; u < H; u += nx)
-      for (int r = 0; r < rows; ++r)
-        store(&cT[(size_t)(b0 + r) * H + u], sC[r * H + u]);
+    for (int u = tx; u < H; u += nx) store(&cT[(size_t)b * H + u], sC[u]);
 }
 
-template <typename T, int ROWS>
+template <typename T>
 cudaError_t launch(const void* xz, const void* rw, const void* pw,
                    const void* h0, const void* c0, void* hs, void* cT, int Tn,
                    int B, int H, float forget_bias, cudaStream_t stream) {
   const int nx = min(MAX_UNITS, (H + 31) / 32 * 32);
-  const size_t smem =
-      sizeof(float) * (3 * ROWS * (size_t)H + (KSPLIT - 1) * ROWS * 4 * nx);
-  auto kern = lstm_fwd_infer_kernel<T, ROWS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (B + ROWS - 1) / ROWS;
-  kern<<<blocks, dim3(nx, KSPLIT), smem, stream>>>(
+  const size_t smem = sizeof(float) * (3 * (size_t)H + (KSPLIT - 1) * 4 * nx);
+  lstm_fwd_infer_kernel<T><<<B, dim3(nx, KSPLIT), smem, stream>>>(
       static_cast<const T*>(xz), static_cast<const T*>(rw),
       static_cast<const T*>(pw), static_cast<const T*>(h0),
       static_cast<const T*>(c0), static_cast<T*>(hs), static_cast<T*>(cT), Tn,
       B, H, forget_bias);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_rows(const void* xz, const void* rw, const void* pw,
-                        const void* h0, const void* c0, void* hs, void* cT,
-                        int Tn, int B, int H, float forget_bias,
-                        cudaStream_t stream) {
-  // the fewest rows per block that keep the batch's blocks within the SMs
-  if (B <= NUM_SMS)
-    return launch<T, 1>(xz, rw, pw, h0, c0, hs, cT, Tn, B, H, forget_bias,
-                        stream);
-  if (B <= 2 * NUM_SMS)
-    return launch<T, 2>(xz, rw, pw, h0, c0, hs, cT, Tn, B, H, forget_bias,
-                        stream);
-  return launch<T, 4>(xz, rw, pw, h0, c0, hs, cT, Tn, B, H, forget_bias,
-                      stream);
 }
 
 }  // namespace
@@ -226,13 +190,12 @@ extern "C" int dl4j_lstm_fwd_infer(const void* xz, const void* rw,
                                    const void* c0, void* hs, void* cT, int Tn,
                                    int B, int H, float forget_bias, int dtype,
                                    void* stream) {
-  if (Tn < 1 || B < 1 || H < 1 || H > MAX_HIDDEN ||
-      (dtype != 0 && dtype != 1))
+  if (Tn < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_rows<float>(xz, rw, pw, h0, c0, hs, cT, Tn, B, H,
-                                   forget_bias, s);
-  return (int)launch_rows<__nv_bfloat16>(xz, rw, pw, h0, c0, hs, cT, Tn, B, H,
-                                         forget_bias, s);
+    return (int)launch<float>(xz, rw, pw, h0, c0, hs, cT, Tn, B, H,
+                              forget_bias, s);
+  return (int)launch<__nv_bfloat16>(xz, rw, pw, h0, c0, hs, cT, Tn, B, H,
+                                    forget_bias, s);
 }

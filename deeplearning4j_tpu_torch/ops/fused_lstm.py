@@ -34,10 +34,10 @@ import torch
 
 from deeplearning4j_tpu_torch.ops.cuda_build import load_library
 
-#: the kernel keeps two [rows, H] buffers of h and one of c in shared
-#: memory, for up to 4 batch rows per block (48 * H bytes), beside 48 KB
-#: of partial sums, so H <= 2048 fits the 227 KB a block may use
-MAX_HIDDEN = 2048
+#: the widest H the kernel launches at: its block keeps two buffers of h
+#: and one of c (3H floats) and 3 x 4 x 256 partial sums in shared memory,
+#: within the 48 KB a block gets by default (a wider H fails to launch)
+MAX_HIDDEN = (48 * 1024 // 4 - 3 * 4 * 256) // 3
 #: dtype codes of the C entry point
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

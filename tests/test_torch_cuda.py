@@ -20,8 +20,9 @@ from deeplearning4j_tpu_torch.models.gpt import gpt_tiny, greedy_generate
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     NEG_INF, flash_attention, flash_attention_plain,
 )
+from deeplearning4j_tpu_torch.ops import fused_lstm as fused_lstm_module
 from deeplearning4j_tpu_torch.ops.fused_lstm import (
-    fused_lstm, lstm_recurrence, lstm_recurrence_plain,
+    MAX_HIDDEN, fused_lstm, lstm_recurrence, lstm_recurrence_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -93,12 +94,22 @@ def test_gpt_tiny_on_card_matches_cpu(card):
 @pytest.mark.parametrize("T,B,H,dtype,peephole,carry", [
     (7, 3, 100, "float32", True, True),      # ragged B and H, nonzero carry
     (1, 32, 256, "float32", True, True),     # the streaming step
-    (16, 32, 256, "bfloat16", True, False),   # see the tolerance note
+    (64, 32, 256, "bfloat16", True, False),   # see the tolerance note
     (64, 32, 256, "float32", False, False),  # plain LSTM: pw = 0
-    (5, 201, 64, "float32", True, True),     # 2 rows per block, ragged
+    (5, 201, 64, "float32", True, True),     # more rows than SMs, ragged
+    (2, 2, MAX_HIDDEN, "float32", True, True),  # the widest H
 ])
 def test_lstm_kernel_matches_plain(card, T, B, H, dtype, peephole, carry):
-    dt = getattr(torch, dtype)
+    args = _lstm_args(card, T, B, H, getattr(torch, dtype), peephole, carry)
+    before = lstm_recurrence.launches
+    got = lstm_recurrence(*args, forget_bias=1.0)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches == before + 1
+    ref = lstm_recurrence_plain(*args, forget_bias=1.0)
+    _assert_lstm_close(got, ref)
+
+
+def _lstm_args(card, T, B, H, dt, peephole, carry):
     g = torch.Generator().manual_seed(T * B + H)
     xz = torch.randn(T, B, 4 * H, generator=g)
     rw = torch.randn(H, 4 * H, generator=g) * H ** -0.5
@@ -107,23 +118,54 @@ def test_lstm_kernel_matches_plain(card, T, B, H, dtype, peephole, carry):
     h0, c0 = ((torch.randn(B, H, generator=g) * 0.5,
                torch.randn(B, H, generator=g)) if carry
               else (torch.zeros(B, H), torch.zeros(B, H)))
-    args = [a.to(card, dt).contiguous() for a in (xz, rw, pw, h0, c0)]
-    before = lstm_recurrence.launches
-    got = lstm_recurrence(*args, forget_bias=1.0)
-    torch.cuda.synchronize()
-    assert lstm_recurrence.launches == before + 1
-    ref = lstm_recurrence_plain(*args, forget_bias=1.0)
-    # f32: summation order only (the JAX package's forward tolerance);
-    # bf16: the carry rounds to bf16 on both sides, so a one-ulp flip can
-    # feed back: four bf16 ulps of 1.0. Over many steps a unit whose forget
-    # gate is near 1 keeps such flips (13 ulps of c_T over 64 steps in
-    # chip_smoke.py), so bf16 runs 16 steps. c is not bounded by 1: its
-    # tolerance scales with its largest magnitude
+    return [a.to(card, dt).contiguous() for a in (xz, rw, pw, h0, c0)]
+
+
+def _assert_lstm_close(got, ref):
+    """f32: summation order only (the JAX package's forward tolerance);
+    bf16: the carry rounds to bf16 on both sides, so a one-ulp flip can
+    feed back: four bf16 ulps of 1.0. c is not bounded by 1: its
+    tolerance scales with its largest magnitude."""
+    dt = ref[0].dtype
     tol = 1e-5 if dt == torch.float32 else 3.2e-2
     tol_c = tol * max(1.0, float(ref[2].float().abs().max()))
     for a, b, t in zip(got, ref, (tol, tol, tol_c)):
         assert a.dtype == dt
         torch.testing.assert_close(a.float(), b.float(), atol=t, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_kernel_equals_its_own_steps(card, dtype):
+    """One launch over 64 steps equals 64 one-step launches chained
+    through their carries bit for bit (the carry lives in the input type
+    both ways), and each one-step launch is within the tolerance of the
+    plain step from the same carry. A rounding flip that a unit with its
+    forget gate near 1 keeps can grow over many bf16 steps; held step by
+    step, it cannot hide a fault."""
+    xz, rw, pw, h0, c0 = _lstm_args(card, 64, 32, 256, getattr(torch, dtype),
+                                    True, False)
+    hs, _, cT = lstm_recurrence(xz, rw, pw, h0, c0, forget_bias=1.0)
+    h, c = h0, c0
+    for t in range(xz.shape[0]):
+        step = lstm_recurrence(xz[t:t + 1], rw, pw, h, c, forget_bias=1.0)
+        _assert_lstm_close(step, lstm_recurrence_plain(
+            xz[t:t + 1], rw, pw, h, c, forget_bias=1.0))
+        assert torch.equal(step[0][0], hs[t])
+        _, h, c = step
+    assert torch.equal(c, cT)
+
+
+def test_lstm_kernel_refuses_a_hidden_size_past_its_shared_memory(card):
+    """The wrapper's check stops H > MAX_HIDDEN on every device; past it
+    the kernel's shared memory outgrows a block's default, so the launch
+    itself fails and the wrapper raises rather than returning garbage."""
+    args = _lstm_args(card, 1, 1, MAX_HIDDEN + 1, torch.float32, True, True)
+    with pytest.raises(ValueError):
+        lstm_recurrence(*args)
+    before = lstm_recurrence.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_lstm_module._launch(*args, 0.0)
+    assert lstm_recurrence.launches == before
 
 
 def test_fused_lstm_wrapper_on_card_matches_cpu(card):

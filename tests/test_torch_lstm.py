@@ -166,6 +166,78 @@ def test_bf16_keeps_the_carry_in_bf16_and_tracks_f32():
     assert torch.equal(c, cT)
 
 
+def _bf16_recurrence_in_order(xz, rw, pw, order):
+    """The bf16 contract (f32 arithmetic, carry rounded to bf16 each step,
+    forget bias 1, zero h0/c0) with z = xz[t] + h @ rw summed in a given
+    f32 order, every fused multiply-add and add rounded to f32 exactly
+    (products of f32 values are exact in f64). ``order``: "gemm" sums the
+    product in one sequence and adds xz last (the plain version's
+    structure, a GEMM then an add); "kernel" sums it in the CUDA kernel's
+    four k-slices, each a chain of fmaf, slices added in turn, and adds xz
+    last; "xz_first" is the kernel's order with xz starting slice 0's
+    chain instead. Returns (hs, c_T) as float64 arrays of bf16 values."""
+    f32 = lambda a: a.astype(np.float32).astype(np.float64)
+    bf16 = lambda a: torch.from_numpy(a.astype(np.float32)).to(
+        torch.bfloat16).double().numpy()
+    sig = lambda a: f32(1.0 / (1.0 + np.exp(-a)))
+    Tn, Bn, H4 = xz.shape
+    Hn = H4 // 4
+
+    def chain(h, k0, k1, acc):
+        for k in range(k0, k1):
+            acc = f32(h[:, k:k + 1] * rw[k] + acc)
+        return acc
+
+    h, c = np.zeros((Bn, Hn)), np.zeros((Bn, Hn))
+    hs = []
+    for t in range(Tn):
+        zero = np.zeros((Bn, H4))
+        if order == "gemm":
+            z = f32(chain(h, 0, Hn, zero) + xz[t])
+        else:
+            kc = Hn // 4
+            z = chain(h, 0, kc, xz[t] if order == "xz_first" else zero)
+            for s in range(1, 4):
+                z = f32(z + chain(h, s * kc, (s + 1) * kc, zero))
+            if order == "kernel":
+                z = f32(z + xz[t])
+        zi, zf, zg, zo = (z[:, q * Hn:(q + 1) * Hn] for q in range(4))
+        i = sig(f32(zi + f32(c * pw[0])))
+        f = sig(f32(f32(zf + f32(c * pw[1])) + 1.0))
+        c_new = f32(f32(f * c) + f32(i * f32(np.tanh(zg))))
+        o = sig(f32(zo + f32(c_new * pw[2])))
+        h, c = bf16(f32(o * f32(np.tanh(c_new)))), bf16(c_new)
+        hs.append(h)
+    return np.stack(hs), c
+
+
+def test_bf16_kernel_order_adds_xz_after_the_product():
+    """Why the CUDA kernel adds xz[t] after its sum of h @ rw. On the
+    inputs of chip_smoke.py's bf16 case (T=64, B=32, H=256), the kernel's
+    order stays within the card tolerance of the plain version's (4 bf16
+    ulps of 1.0; c_T scaled by max |c|). Starting the sum at xz instead
+    moves one unit's c_T by more than that, while h stays within it: a
+    bf16 rounding of c that flips, in a unit whose forget gate is near 1,
+    is kept for every later step. The order of an f32 sum alone decides
+    it, so over many bf16 steps the kernel is also held step by step on
+    the card (chip_smoke.py, tests/test_torch_cuda.py)."""
+    Tn, Bn, Hn = 64, 32, 256
+    g = torch.Generator().manual_seed(1234 + Tn + Bn + Hn)
+    rw = torch.randn(Hn, 4 * Hn, generator=g) * Hn ** -0.5
+    pw = torch.randn(3, Hn, generator=g) * 0.3
+    xz = torch.randn(Tn, Bn, 4 * Hn, generator=g)
+    xz, rw, pw = (a.to(torch.bfloat16).double().numpy() for a in (xz, rw, pw))
+    hs_ref, c_ref = _bf16_recurrence_in_order(xz, rw, pw, "gemm")
+    tol = 3.2e-2
+    tol_c = tol * max(1.0, float(np.abs(c_ref).max()))
+    hs, c = _bf16_recurrence_in_order(xz, rw, pw, "kernel")
+    assert np.abs(hs - hs_ref).max() <= tol
+    assert np.abs(c - c_ref).max() <= tol_c
+    hs, c = _bf16_recurrence_in_order(xz, rw, pw, "xz_first")
+    assert np.abs(hs - hs_ref).max() <= tol
+    assert np.abs(c - c_ref).max() > tol_c
+
+
 @pytest.mark.parametrize("bad", ["dtype_mix", "float16", "noncontig",
                                  "rw_shape", "h0_shape", "xz_rank", "T0",
                                  "too_wide"])
