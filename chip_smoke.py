@@ -9,9 +9,13 @@ Phases, each printing JSON lines:
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA
    versions, kernel build time;
-2. kernels — the flash-attention forward kernel against its plain PyTorch
-   version on the card in five cases, with kernel / plain / SDPA times and
-   the card's bound at the GPT slice's shape; the LSTM recurrence kernel
+2. kernels — the flash-attention forward kernel (K4) against its plain
+   PyTorch version on the card in five cases, with kernel / plain / SDPA
+   times and the card's bound at the GPT slice's shape; the backward
+   kernels (K5 dq, K6 dk/dv) against the plain FA2 backward in the same
+   five cases (exact zero grads for rows with no valid key, two launches
+   bitwise equal), with kernel / plain / SDPA-backward times and bounds;
+   the LSTM recurrence kernel
    against its plain version in five cases (the char-RNN's shape, ragged
    sizes with a carry, the T=1 streaming step, bf16 over 64 steps, also
    held step by step, no peepholes), with kernel / plain / cuDNN LSTM
@@ -29,8 +33,16 @@ Phases, each printing JSON lines:
    net on the CPU and the stream against the whole-sequence output, with
    its times and a torch.profiler breakdown of one output() and of 16
    streaming steps (each trace must hold the path's kernel launches);
-5. a ``{"kernels": [...]}`` summary line;
-6. last line ``{"ok": true, "device": {...}}``.
+5. train slice — the same full-width GPT trained on the card
+   (``ComputationGraph.fit_batch``, Adam at lr 3e-4) on ``char_lm_batches``
+   of ``synthetic_char_text`` over a 96-symbol charset, [32, 256] batches:
+   the step-1 loss and every parameter's gradient against the same net on
+   the CPU, then 2 more steps' losses, the exact K4/K5/K6 launches per
+   step, a loss that falls over 20 steps, ms per step and tokens/s, the
+   peak memory, the updater's time, and a torch.profiler breakdown of one
+   step (kernel, GEMM and attention shares);
+6. a ``{"kernels": [...]}`` summary line;
+7. last line ``{"ok": true, "device": {...}}``.
 
 Each slice is driven with every kernel's launch count set to 0 just
 before it and read just after; a kernel of that path that was not
@@ -49,12 +61,17 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
-from deeplearning4j_tpu_torch.models.gpt import gpt_decoder, greedy_generate
+from deeplearning4j_tpu_torch.models.gpt import (
+    char_lm_batches, gpt_decoder, greedy_generate, synthetic_char_text,
+)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.updater import compute_updates, tree_map
 from deeplearning4j_tpu_torch.ops.cuda_build import build_libraries
 from deeplearning4j_tpu_torch.ops.flash_attention import (
-    NEG_INF, flash_attention, flash_attention_plain,
+    NEG_INF, attention_bwd_plain, attention_dvec, flash_attention,
+    flash_attention_bwd_plain, flash_attention_dkv, flash_attention_dq,
+    flash_attention_plain,
 )
 from deeplearning4j_tpu_torch.ops.fused_lstm import (
     fused_lstm, lstm_recurrence, lstm_recurrence_plain,
@@ -70,6 +87,11 @@ F32_FLOPS_PER_S = 67e12       # CUDA cores, no tensor cores: the kernel's path
 TOL_F32 = 2e-5
 TOL_BF16_O = 1.6e-2
 TOL_LSE = 1e-4
+# K5/K6 vs the plain backward, scaled by the largest |g| of each tensor.
+# f32: the reference's own grad tolerance; bf16: grads round to bf16 on
+# both sides, two bf16 ulps
+TOL_GRAD_F32 = 5e-5
+TOL_GRAD_BF16 = 1.6e-2
 # the slice on the card vs the same net on the CPU: f32 GEMMs in another
 # order through 8 layers (TF32 off), probabilities of a 96-way softmax
 TOL_SLICE = 1e-4
@@ -88,14 +110,29 @@ TOL_LSTM_BF16 = 3.2e-2
 # the card: probabilities of a 96-way softmax after 64 recurrent steps
 # whose GEMMs and sums run in another order (TF32 off)
 TOL_LSTM_SLICE = 1e-4
+# training on the card vs the same net on the CPU: the step-1 loss
+# (relative), each gradient tensor against its own largest |g| (f32 GEMMs
+# in another order through 8 layers, TF32 off), the next steps' losses
+# (relative; Adam's m / sqrt(v) amplifies tiny gradient differences)
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 1e-4
+TOL_TRAIN_STEPS = 1e-4
 
 SLICE = dict(vocab_size=96, seq_len=256, d_model=512, n_heads=8, n_layers=8)
 LSTM_SLICE = dict(vocab_size=96, hidden=256, layers=2)
 LSTM_BATCH = (32, 64)          # B, T: the char-LSTM traffic of bench.py
 SEED = 1234
+TRAIN_BATCH = 32               # [32, 256] windows per step
+#: 95 printable ASCII characters and the newline: the 96-symbol vocabulary
+CHARSET = "".join(chr(i) for i in range(32, 127)) + "\n"
+#: kernel-name substrings of the three attention kernels in a trace
+ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
+                     "flash_dkv_kernel")
 
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {"flash_attn_fwd": flash_attention,
+           "flash_attn_dq": flash_attention_dq,
+           "flash_attn_dkv": flash_attention_dkv,
            "lstm_fwd_infer": lstm_recurrence}
 
 
@@ -127,9 +164,10 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def host_ms(fn, iters=5) -> float:
+def host_ms(fn, iters=5, warmup=1) -> float:
     """Median host time of ``fn`` ending in a synchronize."""
-    fn()
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
@@ -140,7 +178,7 @@ def host_ms(fn, iters=5) -> float:
     return float(np.median(times))
 
 
-def device_profile(fn, expect, top=6):
+def device_profile(fn, expect, top=6, groups=None):
     """One traced run of ``fn`` under torch.profiler: the wall time, the
     summed time of the CUDA kernels, their share of the wall time (the
     card's busy share; the trace itself slows the host, so it reads
@@ -148,7 +186,9 @@ def device_profile(fn, expect, top=6):
     ``expect`` maps a kernel's name to the launches ``fn`` makes of it;
     a trace that holds another count (the tracer sometimes drops a
     window's first kernels) is taken again, three times in all, and the
-    run fails if none holds them."""
+    run fails if none holds them. ``groups`` maps a name to kernel-name
+    substrings (lower case); each group's share of the kernel time is
+    returned."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -169,7 +209,11 @@ def device_profile(fn, expect, top=6):
                             f"path's kernels, not {expect}")
     busy_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: -e.self_device_time_total)
+    shares = {g: sum(e.self_device_time_total for e in kernels
+                     if any(n in e.key.lower() for n in names)) / busy_us
+              for g, names in (groups or {}).items()}
     return dict(wall_ms=wall_us / 1e3, kernel_ms=busy_us / 1e3,
+                kernel_shares=shares,
                 busy_share=busy_us / wall_us, traced_path_kernels=traced,
                 attempts=attempt,
                 kernel_launches=sum(e.count for e in kernels),
@@ -203,7 +247,8 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def kernel_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
+def attention_inputs(B, H, T, D, dtype, mask_kind):
+    """q, k, v on the card and the case's key mask (or None)."""
     g = torch.Generator().manual_seed(SEED + T + D)
     q, k, v = (torch.randn(B, H, T, D, generator=g).to("cuda", dtype)
                for _ in range(3))
@@ -217,6 +262,11 @@ def kernel_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
         mask = (torch.rand(B, T, generator=g) < 0.5).float()
     if mask is not None:
         mask = mask.cuda()
+    return q, k, v, mask
+
+
+def kernel_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
+    q, k, v, mask = attention_inputs(B, H, T, D, dtype, mask_kind)
     out, lse = flash_attention(q, k, v, causal=causal, kv_mask=mask,
                                return_lse=True)
     ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
@@ -252,6 +302,104 @@ def kernel_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
     check(err_o <= tol_o, f"case {name}: O differs by {err_o} > {tol_o}")
     check(err_lse <= TOL_LSE,
           f"case {name}: lse differs by {err_lse} > {TOL_LSE}")
+    return rec
+
+
+def bwd_bound_ms(B, H, T, D, dtype, causal, mask, part):
+    """Least time for one backward kernel's work on an H100: q, k, v, dO,
+    lse and Dvec (and the mask) read once and its outputs (dq; or dk and
+    dv) written once over HBM, against its multiply-adds over the (query,
+    key) pairs this input needs (K5: s, dp, dq = 6 D FLOP a pair; K6: s,
+    dp, dv, dk = 8 D) at the f32 CUDA-core peak."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    n_out = 1 if part == "dq" else 2
+    nbytes = (4 + n_out) * B * H * T * D * es + 2 * B * H * T * 4
+    valid = torch.ones(B, T) if mask is None else (mask > 0).float().cpu()
+    if mask is not None:
+        nbytes += B * T * 4
+    per_key = (T - torch.arange(T)).float() if causal else torch.full(
+        (T,), float(T))
+    pairs = H * float((valid * per_key).sum())
+    flops = (6.0 if part == "dq" else 8.0) * D * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+
+
+def sdpa_backward_ms(q, k, v, d_out, causal):
+    """Yardstick only (the port never calls SDPA): the time of SDPA's
+    backward at this shape, without a mask, as forward + backward minus
+    its forward. It computes dq, dk and dv: K5 and K6 together."""
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qg, kg, vg), d_out)
+    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+
+
+def bwd_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
+    """K5 and K6 against the plain FA2 backward on the card, from the K4
+    case's inputs and the K4 kernel's out and lse."""
+    q, k, v, mask = attention_inputs(B, H, T, D, dtype, mask_kind)
+    g = torch.Generator().manual_seed(SEED + 1 + T + D)
+    d_out = torch.randn(B, H, T, D, generator=g).to("cuda", dtype)
+    out, lse = flash_attention(q, k, v, causal=causal, kv_mask=mask,
+                               return_lse=True)
+    dvec = attention_dvec(d_out, out)
+    kw = dict(causal=causal, kv_mask=mask)
+    dq = flash_attention_dq(q, k, v, d_out, lse, dvec, **kw)
+    dk, dv = flash_attention_dkv(q, k, v, d_out, lse, dvec, **kw)
+    dq2 = flash_attention_dq(q, k, v, d_out, lse, dvec, **kw)
+    dk2, dv2 = flash_attention_dkv(q, k, v, d_out, lse, dvec, **kw)
+    ref = flash_attention_bwd_plain(q, k, v, d_out, out, lse, **kw)
+    torch.cuda.synchronize()
+    rel = TOL_GRAD_F32 if dtype == torch.float32 else TOL_GRAD_BF16
+    rec = dict(phase="kernel", kernel="flash_attn_dq+flash_attn_dkv",
+               case=name, shape=[B, H, T, D], causal=causal,
+               dtype=str(dtype), mask=mask_kind,
+               bitwise_repeat=bool(torch.equal(dq, dq2) and
+                                   torch.equal(dk, dk2) and
+                                   torch.equal(dv, dv2)))
+    ok = True
+    for part, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        err = float((got.float() - want.float()).abs().max())
+        tol = rel * max(1.0, float(want.float().abs().max()))
+        rec[f"max_abs_err_{part}"], rec[f"tol_{part}"] = err, tol
+        ok = ok and err <= tol and bool(torch.isfinite(got).all())
+    if mask_kind == "holes":
+        rows_ok = bool(all(torch.all(t[0] == 0) for t in (dq, dk, dv))
+                       and torch.all(dq[1:, :, 0] == 0)
+                       and torch.all(dk[1:, :, 0] == 0)
+                       and torch.all(dv[1:, :, 0] == 0))
+        rec["no_valid_key_grads_exact_zero"] = rows_ok
+        check(rows_ok, f"case {name}: grads of rows / keys with no valid "
+                       "pair are not exactly 0")
+    for part in ("dq", "dkv"):
+        bound, by, flops, nbytes = bwd_bound_ms(B, H, T, D, dtype, causal,
+                                                mask, part)
+        rec.update({f"bound_ms_{part}": bound, f"bound_by_{part}": by,
+                    f"flops_{part}": flops, f"bytes_{part}": nbytes})
+    if timed:
+        rec["ms_dq"] = cuda_ms(lambda: flash_attention_dq(
+            q, k, v, d_out, lse, dvec, **kw))
+        rec["ms_dkv"] = cuda_ms(lambda: flash_attention_dkv(
+            q, k, v, d_out, lse, dvec, **kw))
+        rec["plain_ms_dq"] = cuda_ms(lambda: attention_bwd_plain(
+            q, k, v, d_out, lse, dvec, want_dkv=False, **kw))
+        rec["plain_ms_dkv"] = cuda_ms(lambda: attention_bwd_plain(
+            q, k, v, d_out, lse, dvec, want_dq=False, **kw))
+        rec["library_ms"] = (sdpa_backward_ms(q, k, v, d_out, causal)
+                             if mask is None else None)
+        rec["library_covers"] = "dq + dk + dv (K5 and K6 together)"
+        for part in ("dq", "dkv"):
+            rec[f"achieved_tflops_{part}"] = (
+                rec[f"flops_{part}"] / (rec[f"ms_{part}"] * 1e-3) / 1e12)
+    emit(rec)
+    check(ok, f"case {name}: K5/K6 differ from the plain backward: {rec}")
+    check(rec["bitwise_repeat"], f"case {name}: two launches differ")
     return rec
 
 
@@ -407,7 +555,9 @@ def gpt_slice(k4_ms):
     launches_masked = flash_attention.launches - launches_plain
     tokens = [greedy_generate(net, p, n_new) for p in prompts]
     main_path = counts()
+    # serving runs under no_grad: no backward kernel launches
     check(main_path["flash_attn_fwd"] > 0 and
+          main_path["flash_attn_dq"] == main_path["flash_attn_dkv"] == 0 and
           main_path["lstm_fwd_infer"] == 0,
           f"GPT path launches {main_path}")
 
@@ -499,7 +649,8 @@ def lstm_slice(k1_ms):
     main_path = counts()
     n_stream = main_path["lstm_fwd_infer"] - n_out - n_masked
     check(main_path["lstm_fwd_infer"] > 0 and
-          main_path["flash_attn_fwd"] == 0,
+          main_path["flash_attn_fwd"] == main_path["flash_attn_dq"] ==
+          main_path["flash_attn_dkv"] == 0,
           f"char-RNN path launches {main_path}")
     check(n_out == L and n_masked == 0 and n_stream == L * T,
           f"LSTM kernel launches: output {n_out} (want {L}), masked "
@@ -554,6 +705,106 @@ def lstm_slice(k1_ms):
     return main_path["lstm_fwd_infer"]
 
 
+def train_slice():
+    """Full-width GPT training on the card. Returns the main path's
+    launch counts."""
+    conf = gpt_decoder(**SLICE)
+    net = ComputationGraph(conf, device="cuda").init()
+    cpu = ComputationGraph(gpt_decoder(**SLICE), device="cpu").init()
+    B, T, L = TRAIN_BATCH, SLICE["seq_len"], SLICE["n_layers"]
+    n_batches = 4
+    text = synthetic_char_text(n_batches * B * (T + 1) + 1, seed=SEED)
+    batches = char_lm_batches(text, T, B, charset=CHARSET)
+    check(len(batches) == n_batches and
+          batches[0].features.shape == (B, T, len(CHARSET)),
+          f"char batches: {len(batches)}, {batches[0].features.shape}")
+    per_step = dict(flash_attn_fwd=L, flash_attn_dq=L, flash_attn_dkv=L,
+                    lstm_fwd_infer=0)
+
+    reset_counts()
+    # step 1's gradients at the init params, on the card and the CPU
+    grads, loss, _ = net.compute_gradient_and_score(batches[0])
+    torch.cuda.synchronize()
+    grad_launches = counts()
+    cpu_grads, cpu_loss, _ = cpu.compute_gradient_and_score(batches[0])
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    worst, worst_name = 0.0, None
+    for node, p in cpu_grads.items():
+        for name, want in p.items():
+            got = grads[node][name].cpu()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max()) / max(scale, 1e-30)
+            check(bool(torch.isfinite(got).all()), f"{node}.{name}: "
+                  "non-finite gradient")
+            if err > worst:
+                worst, worst_name = err, f"{node}.{name}"
+    n_grads = sum(len(p) for p in cpu_grads.values())
+    del grads, cpu_grads
+
+    losses, cpu_losses, step_launches = [], [], []
+    for i in range(3):
+        before = counts()
+        losses.append(float(net.fit_batch(batches[i % n_batches])))
+        after = counts()
+        step_launches.append({k: after[k] - before[k] for k in after})
+        cpu_losses.append(float(cpu.fit_batch(batches[i % n_batches])))
+    for i in range(3, 20):
+        net.fit_batch(batches[i % n_batches])
+    after_20 = net.score(batches[0])
+    torch.cuda.synchronize()
+    main_path = counts()
+    steps_rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    emit(dict(phase="train_slice", config=SLICE, params=net.num_params(),
+              batch=[B, T, len(CHARSET)], updater="adam", lr=3e-4,
+              step1_loss=float(loss), step1_loss_cpu=float(cpu_loss),
+              step1_loss_rel_err=loss_rel, tol_loss=TOL_TRAIN_LOSS,
+              grad_tensors=n_grads, worst_grad_rel_err=worst,
+              worst_grad=worst_name, tol_grad=TOL_TRAIN_GRAD,
+              losses=losses, losses_cpu=cpu_losses,
+              steps_rel_err=steps_rel, tol_steps=TOL_TRAIN_STEPS,
+              launches_per_fit_batch=step_launches,
+              launches_per_gradient=grad_launches,
+              loss_after_20_steps=after_20, main_path_launches=main_path))
+    check(grad_launches == per_step,
+          f"launches for one gradient {grad_launches} != {per_step}")
+    check(all(c == per_step for c in step_launches),
+          f"launches per fit_batch {step_launches} != {per_step}")
+    check(loss_rel <= TOL_TRAIN_LOSS,
+          f"step-1 loss {float(loss)} vs CPU {float(cpu_loss)}")
+    check(worst <= TOL_TRAIN_GRAD,
+          f"gradient {worst_name} differs from the CPU's by {worst} of "
+          "its largest |g|")
+    check(max(steps_rel) <= TOL_TRAIN_STEPS,
+          f"losses {losses} vs CPU {cpu_losses}")
+    check(after_20 < losses[0],
+          f"loss after 20 steps {after_20} is not below {losses[0]}")
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = host_ms(lambda: net.fit_batch(batches[1]), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    # the updater alone, on copies of the params and state
+    grads, _, _ = net.compute_gradient_and_score(batches[1])
+    params = tree_map(torch.clone, net.params)
+    state = {k: v if isinstance(v, int) else tree_map(torch.clone, v)
+             for k, v in net.opt_state.items()}
+    layers = [conf.nodes[n].layer for n in net._layer_nodes]
+    upd_ms = cuda_ms(lambda: compute_updates(
+        net._tx, grads, state, params, layers, conf.training), iters=10,
+        warmup=2)
+    del grads, params, state
+    emit(dict(phase="train_timing", ms_per_step=step_ms,
+              tokens_per_s=B * T / (step_ms * 1e-3), updater_ms=upd_ms,
+              updater_share_of_step=upd_ms / step_ms,
+              peak_mem_bytes=peak))
+    emit(dict(phase="profile", window="one fit_batch of [32, 256, 96]",
+              **device_profile(
+                  lambda: net.fit_batch(batches[2]),
+                  {name: L for name in ATTENTION_KERNELS}, top=8,
+                  groups=dict(attention=list(ATTENTION_KERNELS),
+                              gemm=["gemm"]))))
+    return main_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -592,6 +843,13 @@ def main() -> int:
     lstm_case("d_bf16", T, B, H, torch.bfloat16, True, False, stepwise=True)
     k1e = lstm_case("e_no_peephole", T, B, H, torch.float32, False, False,
                     timed=True, library=True)
+    g = bwd_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
+                 timed=True)
+    bwd_case("b_T300_masked", 2, 8, 300, 64, True, torch.float32, "holes")
+    bwd_case("c_D8_full", 4, 8, 256, 8, False, torch.float32, None)
+    bwd_case("d_bf16", 32, 8, 256, 64, True, torch.bfloat16, None)
+    bwd_case("e_slice_half_keys", 32, 8, 256, 64, True, torch.float32,
+             "half", timed=True)
 
     # ---- 3. the slice: full-width GPT serving on the card ------------------
     flash_launches = gpt_slice(a["ms"])
@@ -599,7 +857,10 @@ def main() -> int:
     # ---- 4. the slice: full-width char-RNN serving on the card -------------
     lstm_launches = lstm_slice(k1["ms"])
 
-    # ---- 5. summary of every ported kernel ---------------------------------
+    # ---- 5. the slice: full-width GPT training on the card ----------------
+    train_path = train_slice()
+
+    # ---- 6. summary of every ported kernel ---------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -619,7 +880,24 @@ def main() -> int:
              # the same inputs, not against ms
              library_vs_ms=k1e["kernel_plus_input_gemm_ms"],
              library_case="e_no_peephole: x [32, 64, 96] -> H 256, f32, "
-                          "input GEMM included on both sides")]})
+                          "input GEMM included on both sides"),
+        dict(name="flash_attn_dq", route="cuda",
+             source="deeplearning4j_tpu_torch/csrc/flash_attn_dq.cu",
+             replaces="deeplearning4j_tpu/ops/pallas_attention.py:152",
+             launches=train_path["flash_attn_dq"],
+             max_abs_err=g["max_abs_err_dq"], ms=g["ms_dq"],
+             plain_ms=g["plain_ms_dq"], bound_ms=g["bound_ms_dq"],
+             bound_by=g["bound_by_dq"], library_ms=g["library_ms"],
+             library_covers=g["library_covers"]),
+        dict(name="flash_attn_dkv", route="cuda",
+             source="deeplearning4j_tpu_torch/csrc/flash_attn_dkv.cu",
+             replaces="deeplearning4j_tpu/ops/pallas_attention.py:192",
+             launches=train_path["flash_attn_dkv"],
+             max_abs_err=max(g["max_abs_err_dk"], g["max_abs_err_dv"]),
+             ms=g["ms_dkv"], plain_ms=g["plain_ms_dkv"],
+             bound_ms=g["bound_ms_dkv"], bound_by=g["bound_by_dkv"],
+             library_ms=g["library_ms"],
+             library_covers=g["library_covers"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

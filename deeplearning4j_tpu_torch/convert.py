@@ -8,8 +8,10 @@ params for the port config ``conf`` (a graph or a
 ``MultiLayerConfiguration``), so that both nets compute the same function.
 Both packages keep the same names and layouts (``W`` ``[in, out]``,
 attention ``Wq/Wk/Wv`` ``[F, H*D]``, GravesLSTM's peepholes ``pW`` flat
-``[3H]``), so each tensor is a copy, not a transpose. This module imports nothing of the JAX package: it reads
-arrays.
+``[3H]``), so each tensor is a copy, not a transpose.
+``params_to_numpy(params)`` goes the other way, to numpy arrays in the
+same structure, so tests compare the two nets' params (or gradients) by
+name. This module imports nothing of the JAX package: it reads arrays.
 """
 
 from __future__ import annotations
@@ -62,3 +64,15 @@ def params_from_jax(conf, params: Union[Mapping, Sequence[Mapping]]
             out[name] = layer_params_from_jax(node.layer,
                                               params.get(name, {}))
     return out
+
+
+def params_to_numpy(params):
+    """A port container's params or gradients (a dict node -> name ->
+    tensor, or a list of per-layer dicts) as numpy arrays in the same
+    structure, on the host; bf16 comes back as float32."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
+    t = params.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

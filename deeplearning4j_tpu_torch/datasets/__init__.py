@@ -1,0 +1,12 @@
+"""Host-side data containers and iterators (the JAX package's
+``datasets/``; so far ``DataSet``, ``MultiDataSet`` and the list
+iterator)."""
+
+from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
+    DataSet,
+    MultiDataSet,
+)
+from deeplearning4j_tpu_torch.datasets.iterator import (  # noqa: F401
+    DataSetIterator,
+    ListDataSetIterator,
+)

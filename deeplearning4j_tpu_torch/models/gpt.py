@@ -8,16 +8,21 @@ kernel) and a time-distributed MLP, each wrapped in a residual add
 (``ElementWiseVertex``) with ``LayerNormalization`` in front, and a
 weight-tied LM head (``TiedRnnOutputLayer``).
 
-Not ported yet: ``sample_generate`` (it needs the serving engine's
-``sample_token``), mixed precision and the character data path.
+The character data path (``char_vocab``, ``char_lm_batches``,
+``synthetic_char_text``) is the JAX package's, in numpy: one-hot char
+windows with next-char targets, the batches ``fit`` trains on. Not ported
+yet: ``sample_generate`` (it needs the serving engine's ``sample_token``),
+``char_lm_sources`` (the streaming pipeline) and mixed precision.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.nn.conf.builder import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf.graph import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
@@ -34,6 +39,9 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.shape import TimeDistributedLayer
+
+#: default charset of the synthetic char-LM workloads
+DEFAULT_CHARSET = "abcdefghijklmnopqrstuvwxyz .,;\n"
 
 
 def gpt_decoder(vocab_size: int, seq_len: int, d_model: int = 128,
@@ -137,3 +145,52 @@ def greedy_generate(net, prompt: Sequence[int], max_new_tokens: int
         out.append(int(probs[0].argmax()))
         pos += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# character data path (one-hot char windows, next-char targets)
+# ---------------------------------------------------------------------------
+
+def char_vocab(text: str) -> str:
+    """Sorted unique charset of ``text``: the index IS the token id."""
+    return "".join(sorted(set(text)))
+
+
+def char_lm_batches(text: str, seq_len: int, batch_size: int,
+                    charset: Optional[str] = None,
+                    max_batches: Optional[int] = None) -> List[DataSet]:
+    """One-hot next-char DataSets from raw text: features ``[B, T, V]``
+    are windows of ``text``, labels the same windows shifted one char
+    (per-timestep MCXENT targets). Deterministic (sequential windows);
+    characters outside ``charset`` are dropped."""
+    cs = charset if charset is not None else char_vocab(text)
+    idx = {c: i for i, c in enumerate(cs)}
+    ids = np.asarray([idx[c] for c in text if c in idx], np.int32)
+    window = seq_len + 1
+    n_win = (len(ids) - 1) // window
+    eye = np.eye(len(cs), dtype=np.float32)
+    out, buf = [], []
+    for w in range(n_win):
+        buf.append(ids[w * window:w * window + window])
+        if len(buf) == batch_size:
+            arr = np.stack(buf)
+            out.append(DataSet(eye[arr[:, :-1]], eye[arr[:, 1:]]))
+            buf = []
+            if max_batches is not None and len(out) >= max_batches:
+                break
+    return out
+
+
+def synthetic_char_text(n_chars: int, seed: int = 0,
+                        charset: str = DEFAULT_CHARSET) -> str:
+    """Deterministic synthetic 'prose' with local structure (repeated
+    gram draws) so a small LM has something learnable."""
+    rng = np.random.default_rng(seed)
+    grams = ["the ", "and ", "ing ", "ion ", "ent ", "was ", "are ",
+             "of ", "to ", "in ", "he ", "she ", "it ", ". "]
+    parts, n = [], 0
+    while n < n_chars:
+        gram = grams[int(rng.integers(0, len(grams)))]
+        parts.append(gram)
+        n += len(gram)
+    return "".join(parts)[:n_chars]

@@ -2,14 +2,17 @@
 subset the GPT decoder and the char-RNN use):
 
     NeuralNetConfiguration.builder().seed(s).updater("adam", learning_rate=lr)
-        .weight_init("xavier").dropout(p).dtype("float32")
+        .weight_init("xavier").dropout(p).l2(1e-4).lr_policy("step", ...)
+        .dtype("float32")
         .graph_builder()            # a DAG (ComputationGraph)
         .list()                     # or a stack (MultiLayerNetwork)
 
 Global hyperparameters are inherited by every layer at ``build()``. The
-updater, regularization, gradient normalization and tBPTT settings are
-stored, not acted on: training is not ported yet. JSON serde and mixed
-precision wait.
+training settings (updater and learning-rate policy, regularization,
+gradient normalization, ``minimize``, the optimization algorithm, the
+precision policy, rematerialization, tBPTT) are read by
+``nn/updater.py`` and the containers' ``fit_batch``, which refuse the
+values whose paths are not ported yet. JSON serde waits.
 """
 
 from __future__ import annotations
@@ -52,22 +55,31 @@ def expected_input_kind(layer: BaseLayerConf) -> str:
 
 @dataclass
 class UpdaterConfig:
-    """Updater name + hyperparameters (stored; ref: nn/conf/Updater.java)."""
+    """Updater name + hyperparameters (ref: nn/conf/Updater.java) and the
+    learning-rate policy (ref: nn/conf/LearningRatePolicy.java)."""
     name: str = "sgd"
     learning_rate: float = 0.1
-    momentum: float = 0.9
-    rho: float = 0.95
+    momentum: float = 0.9           # nesterovs
+    rho: float = 0.95               # adadelta / rmsprop decay
     epsilon: float = 1e-8
-    beta1: float = 0.9
+    beta1: float = 0.9              # adam / adamax
     beta2: float = 0.999
+    lr_policy: str = "none"  # none|exponential|inverse|poly|sigmoid|step|schedule
+    lr_policy_decay_rate: float = 0.0
+    lr_policy_power: float = 1.0
+    lr_policy_steps: float = 1.0
+    lr_schedule: Optional[Dict[int, float]] = None  # iteration -> lr
 
 
 @dataclass
 class TrainingConfig:
     """Settings carried beside the layers: the init seed, the parameter
-    dtype, and the (stored) updater, gradient normalization and backprop
-    style."""
+    dtype, the optimizer, gradient normalization, the precision policy and
+    the backprop style."""
     seed: int = 12345
+    # sgd | line_gradient_descent | conjugate_gradient | lbfgs
+    optimization_algo: str = "sgd"
+    minimize: bool = True
     updater: UpdaterConfig = field(default_factory=UpdaterConfig)
     gradient_normalization: str = "none"
     gradient_normalization_threshold: float = 1.0
@@ -75,6 +87,9 @@ class TrainingConfig:
     tbptt_fwd_length: int = 20
     tbptt_bwd_length: int = 20
     dtype: str = "float32"
+    precision: str = "fp32"         # nn/updater.PrecisionPolicy presets
+    loss_scale: Optional[float] = None
+    remat: bool = False             # recompute activations in backward
 
 
 @dataclass
@@ -238,6 +253,39 @@ class NeuralNetConfiguration:
 
     def learning_rate(self, lr: float) -> "NeuralNetConfiguration":
         self._training.updater.learning_rate = lr
+        return self
+
+    def optimization_algo(self, algo: str) -> "NeuralNetConfiguration":
+        self._training.optimization_algo = algo.lower()
+        return self
+
+    def minimize(self, flag: bool = True) -> "NeuralNetConfiguration":
+        self._training.minimize = flag
+        return self
+
+    def lr_policy(self, policy: str, decay_rate: float = 0.0,
+                  power: float = 1.0, steps: float = 1.0,
+                  schedule: Optional[Dict[int, float]] = None
+                  ) -> "NeuralNetConfiguration":
+        u = self._training.updater
+        u.lr_policy = policy.lower()
+        u.lr_policy_decay_rate = decay_rate
+        u.lr_policy_power = power
+        u.lr_policy_steps = steps
+        u.lr_schedule = schedule
+        return self
+
+    def precision(self, policy: str, loss_scale: Optional[float] = None
+                  ) -> "NeuralNetConfiguration":
+        """Training precision policy ("fp32", "bf16", "fp16"); the port
+        trains fp32 only."""
+        self._training.precision = str(policy).lower()
+        self._training.loss_scale = loss_scale
+        return self
+
+    def gradient_checkpointing(self, flag: bool = True
+                               ) -> "NeuralNetConfiguration":
+        self._training.remat = flag
         return self
 
     def gradient_normalization(self, kind: str, threshold: float = 1.0

@@ -1,21 +1,35 @@
 """ComputationGraph: the DAG model container (the JAX package's
-``nn/graph.py``), inference and incremental decode.
+``nn/graph.py``): training, inference and incremental decode.
 
 Params are a dict keyed by node name -> {param name -> tensor}, in the
 JAX package's names and layouts, on the net's device. The container runs
 on ``cuda`` unless it is built with ``device="cpu"``; with ``device=None``
-and no card it raises. Training, tBPTT, the paged decode and the
-evaluation/scoring mixins are not ported yet. ``rnn_time_step`` threads
-the (h, c) carries of recurrent nodes between calls.
+and no card it raises. ``rnn_time_step`` threads the (h, c) carries of
+recurrent nodes between calls.
+
+Training (``fit_batch``, ``fit``, ``score``): the JAX package's
+``jax.value_and_grad`` over one pure forward walk becomes
+``torch.autograd.grad`` over the same walk, with the params' tensors as
+the leaves; the update (``nn/updater.compute_updates``) then runs in place
+under ``torch.no_grad()``. Dropout draws from one ``torch.Generator`` on
+the net's device, seeded from the config. What this container does not
+bring yet raises ``NotImplementedError`` naming its ROADMAP item: tBPTT
+(A3), the line-search solvers, ``scan_window > 1``, ``remat``, mixed
+precision, listeners and the divergence sentinel (A2, deferred). The
+paged decode and the evaluation mixins are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.datasets.iterator import (
+    DataSetIterator, ListDataSetIterator,
+)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.graph import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
@@ -27,6 +41,11 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.shape import TimeDistributedLayer
+from deeplearning4j_tpu_torch.nn.multilayer import _sum_aux_losses
+from deeplearning4j_tpu_torch.nn.updater import (
+    PrecisionPolicy, build_optimizer, compute_updates, l1_l2_penalty,
+    tree_map,
+)
 
 Tensor = torch.Tensor
 
@@ -42,6 +61,15 @@ class ComputationGraph:
         self.dtype = _dtype_of(conf.training.dtype)
         self.params: Optional[Dict[str, Dict[str, Tensor]]] = None
         self.states: Optional[Dict[str, Dict[str, Tensor]]] = None
+        self.opt_state = None
+        self.iteration_count = 0
+        self.epoch_count = 0
+        self.last_batch_size = 0
+        self._score_raw: Any = float("nan")
+        self._tx = build_optimizer(conf.training)
+        # dropout's draws: one generator on the net's device
+        self._rng = torch.Generator(device=self.device).manual_seed(
+            conf.training.seed)
         self._decode_fns = None
         self._rnn_carries: Optional[Dict[str, Any]] = None
         self._layer_nodes = [n for n in conf.topological_order
@@ -79,6 +107,7 @@ class ComputationGraph:
                        for n, p in params.items()}
         self.states = {name: self.conf.nodes[name].layer.init_state()
                        for name in self._layer_nodes}
+        self.opt_state = self._tx.init(self.params)
         return self
 
     def _check_init(self):
@@ -93,6 +122,18 @@ class ComputationGraph:
             return {**params[name], "W_tok": params[tied]["W"]}
         return params[name]
 
+    @property
+    def score_value(self) -> float:
+        """The last minibatch loss as a float; the device value is read
+        (and the device synchronized) on first access only."""
+        if not isinstance(self._score_raw, float):
+            self._score_raw = float(self._score_raw)
+        return self._score_raw
+
+    @score_value.setter
+    def score_value(self, v) -> None:
+        self._score_raw = v
+
     def num_params(self) -> int:
         self._check_init()
         return sum(t.numel() for p in self.params.values()
@@ -101,17 +142,25 @@ class ComputationGraph:
     # ---------------------------------------------------------------- forward
     def _forward(self, params, states, inputs: Dict[str, Tensor],
                  masks: Optional[Dict[str, Tensor]] = None,
-                 carries: Optional[Dict[str, Any]] = None):
-        """Walk the DAG in topological order (inference). Each node takes
-        the mask of its FIRST input. Returns (activations, masks).
+                 carries: Optional[Dict[str, Any]] = None, *,
+                 train: bool = False,
+                 rng: Optional[torch.Generator] = None,
+                 stop_before_loss: bool = False):
+        """Walk the DAG in topological order. Each node takes the mask of
+        its FIRST input. Returns (activations, masks, new states).
 
-        ``carries``: optional per-layer-node RNN carry dict
-        (rnn_time_step). When given, layers with ``supports_carry`` run
-        ``scan`` from their carry and the return is (activations, masks,
-        new carries)."""
+        ``stop_before_loss``: an output node with a loss head stores its
+        INPUT (the head's ``compute_loss`` consumes it), as the JAX
+        container's training walk does. ``train`` turns on dropout (not in
+        frozen layers), drawn from ``rng``. ``carries``: optional
+        per-layer-node RNN carry dict (rnn_time_step, inference only).
+        When given, layers with ``supports_carry`` run ``scan`` from their
+        carry and the new carries come back as a fourth value."""
         acts: Dict[str, Tensor] = {}
         out_masks: Dict[str, Optional[Tensor]] = {}
+        new_states: Dict[str, Dict[str, Tensor]] = {}
         new_carries: Dict[str, Any] = {}
+        output_set = set(self.conf.network_outputs)
         for name in self.conf.topological_order:
             node = self.conf.nodes[name]
             if node.kind == "input":
@@ -125,22 +174,33 @@ class ComputationGraph:
                 out_masks[name] = in_mask
                 continue
             layer = node.layer
+            h = in_acts[0]
+            if (stop_before_loss and name in output_set
+                    and hasattr(layer, "compute_loss")):
+                acts[name] = h          # input to the loss head
+                out_masks[name] = in_mask
+                new_states[name] = states[name]
+                continue
             p = self._layer_params(params, name)
+            layer_train = train and not layer.frozen
+            s = states[name]
             if carries is not None and getattr(layer, "supports_carry",
                                                False):
                 c_in = carries.get(name)
                 if c_in is None:
-                    h = in_acts[0]
                     c_in = layer.initial_carry(h.shape[0], h.dtype, h.device)
-                acts[name], new_carries[name] = layer.scan(
-                    p, in_acts[0], c_in, in_mask)
+                acts[name], new_carries[name] = layer.scan(p, h, c_in,
+                                                           in_mask)
             else:
-                acts[name], _ = layer.apply(p, in_acts[0],
-                                            state=states[name], mask=in_mask)
+                acts[name], s = layer.apply(p, h, state=s, train=layer_train,
+                                            rng=rng, mask=in_mask)
+                if layer.frozen:
+                    s = states[name]
             out_masks[name] = layer.propagate_mask(in_mask)
+            new_states[name] = s
         if carries is not None:
-            return acts, out_masks, new_carries
-        return acts, out_masks
+            return acts, out_masks, new_states, new_carries
+        return acts, out_masks, new_states
 
     def _to_tensor(self, x) -> Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -167,11 +227,179 @@ class ComputationGraph:
                       for k, v in mask.items()} if isinstance(mask, dict)
                      else {names[0]: self._to_tensor(mask)})
         with torch.no_grad():
-            acts, _ = self._forward(self.params, self.states, in_map, masks)
+            acts, _, _ = self._forward(self.params, self.states, in_map,
+                                       masks)
         return [acts[o] for o in self.conf.network_outputs]
 
     def output(self, inputs, mask=None) -> Tensor:
         return self.outputs(inputs, mask=mask)[0]
+
+    # ------------------------------------------------------------------ loss
+    def _data_loss(self, params, acts, out_masks, labels: Dict[str, Tensor],
+                   label_masks) -> Tensor:
+        """Sum of the output heads' losses. A head without a label mask
+        takes its input's time mask when its labels are time-distributed
+        (rank > 2)."""
+        total = 0.0
+        for out_name in self.conf.network_outputs:
+            layer = self.conf.nodes[out_name].layer
+            if not hasattr(layer, "compute_loss"):
+                raise ValueError(f"Output node {out_name!r} has no loss head")
+            lm = (label_masks or {}).get(out_name)
+            if lm is None:
+                lbl = labels[out_name]
+                lm = out_masks.get(out_name) if lbl.dim() > 2 else None
+            total = total + layer.compute_loss(
+                self._layer_params(params, out_name), acts[out_name],
+                labels[out_name], mask=lm)
+        return total
+
+    def _loss_fn(self, params, states, inputs, labels: Dict[str, Tensor],
+                 masks, label_masks, rng, train=True):
+        """(score, new states): the heads' losses + the L1/L2 penalty over
+        every layer's params + the auxiliary losses layers surface in
+        their state."""
+        acts, out_masks, new_states = self._forward(
+            params, states, inputs, masks, train=train, rng=rng,
+            stop_before_loss=True)
+        total = self._data_loss(params, acts, out_masks, labels, label_masks)
+        layer_list = [self.conf.nodes[n].layer for n in self._layer_nodes]
+        param_list = [params[n] for n in self._layer_nodes]
+        total = total + l1_l2_penalty(param_list, layer_list)
+        total = total + _sum_aux_losses(new_states)
+        return total, new_states
+
+    def score(self, data: Union[DataSet, MultiDataSet],
+              train: bool = False) -> float:
+        """The loss of ``data`` at the current params (no update)."""
+        self._check_init()
+        inputs, labels, masks, lmasks = self._split(data)
+        with torch.no_grad():
+            loss, _ = self._loss_fn(self.params, self.states, inputs, labels,
+                                    masks, lmasks, rng=None, train=train)
+        return float(loss)
+
+    def _split(self, data: Union[DataSet, MultiDataSet]):
+        """(inputs, labels, feature masks, label masks) name -> tensor on
+        the net's device: features and masks in the net's dtype, labels
+        as given."""
+        names_in = self.conf.network_inputs
+        names_out = self.conf.network_outputs
+
+        def label(x):
+            return torch.as_tensor(x, device=self.device)
+
+        def opt_map(names, arrays):
+            if arrays is None:
+                return None
+            return {n: None if a is None else self._to_tensor(a)
+                    for n, a in zip(names, arrays)}
+
+        if isinstance(data, DataSet):
+            return ({names_in[0]: self._to_tensor(data.features)},
+                    {names_out[0]: label(data.labels)},
+                    opt_map(names_in[:1], None if data.features_mask is None
+                            else [data.features_mask]),
+                    opt_map(names_out[:1], None if data.labels_mask is None
+                            else [data.labels_mask]))
+        return ({n: self._to_tensor(x)
+                 for n, x in zip(names_in, data.features)},
+                {n: label(x) for n, x in zip(names_out, data.labels)},
+                opt_map(names_in, data.features_masks),
+                opt_map(names_out, data.labels_masks))
+
+    # ------------------------------------------------------------- train step
+    def _check_trainable(self) -> None:
+        """Raise on the training settings whose paths are not ported."""
+        t = self.conf.training
+        if t.optimization_algo not in ("sgd", "stochastic_gradient_descent"):
+            raise NotImplementedError(
+                f"optimization_algo={t.optimization_algo!r}: the line-search "
+                "solvers are not ported yet (ROADMAP A2, deferred)")
+        if t.backprop_type == "truncated_bptt":
+            raise NotImplementedError(
+                "truncated BPTT comes with slice 4 (ROADMAP A3)")
+        if t.remat:
+            raise NotImplementedError(
+                "remat (gradient checkpointing) is not ported yet "
+                "(ROADMAP A2, deferred)")
+        if PrecisionPolicy.parse(t.precision, loss_scale=t.loss_scale).mixed:
+            raise NotImplementedError(
+                f"precision={t.precision!r}: the port trains fp32 only; "
+                "mixed precision is ROADMAP A2, deferred")
+
+    def compute_gradient_and_score(self, data: Union[DataSet, MultiDataSet]
+                                   ) -> Tuple[Dict[str, Dict[str, Tensor]],
+                                              Tensor, Dict]:
+        """(gradients, score, new states) of ``data`` at the current params
+        (ref: ComputationGraph.computeGradientAndScore), training mode
+        (dropout on). Gradients mirror the params; a tied head's gradient
+        lands in the tied node's ``W``."""
+        self._check_init()
+        self._check_trainable()
+        inputs, labels, masks, lmasks = self._split(data)
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), self.params)
+        keys = [(n, k) for n, p in leaves.items() for k in p]
+        with torch.enable_grad():
+            loss, new_states = self._loss_fn(leaves, self.states, inputs,
+                                             labels, masks, lmasks,
+                                             rng=self._rng, train=True)
+            flat = torch.autograd.grad(
+                loss, [leaves[n][k] for n, k in keys], allow_unused=True)
+        grads: Dict[str, Dict[str, Tensor]] = {n: {} for n in leaves}
+        for (n, k), g in zip(keys, flat):
+            grads[n][k] = torch.zeros_like(leaves[n][k]) if g is None else g
+        return grads, loss.detach(), new_states
+
+    def fit_batch(self, data: Union[DataSet, MultiDataSet]):
+        """One optimization step (ref: ComputationGraph.fit). Returns the
+        loss at the step's starting params as a device scalar (reading it
+        synchronizes; ``score_value`` is the same as a float)."""
+        grads, loss, new_states = self.compute_gradient_and_score(data)
+        layer_list = [self.conf.nodes[n].layer for n in self._layer_nodes]
+        compute_updates(self._tx, grads, self.opt_state, self.params,
+                        layer_list, self.conf.training)
+        self.states = tree_map(lambda t: t.detach(), new_states)
+        self.last_batch_size = data.num_examples()
+        self.score_value = loss
+        self.iteration_count += 1
+        return loss
+
+    def fit(self, data, epochs: int = 1, use_async: bool = True,
+            scan_window: int = 1) -> "ComputationGraph":
+        """(ref: ComputationGraph.fit(DataSetIterator)). ``data``: a
+        DataSet, a MultiDataSet or a DataSetIterator, for ``epochs``.
+        Batches are read in order on the calling thread: the asynchronous
+        prefetch that ``use_async`` asks for is not ported (ROADMAP A7) and
+        does not change the results."""
+        self._check_init()
+        if scan_window > 1:
+            raise NotImplementedError(
+                "fit(scan_window > 1) is not ported yet (ROADMAP A2, "
+                "deferred)")
+        if isinstance(data, MultiDataSet):
+            for _ in range(epochs):
+                self.fit_batch(data)
+            return self
+        if isinstance(data, DataSet):
+            data = ListDataSetIterator([data])
+        if not isinstance(data, DataSetIterator):
+            raise TypeError(f"fit takes a DataSet, a MultiDataSet or a "
+                            f"DataSetIterator, not {type(data).__name__}")
+        for _ in range(epochs):
+            for batch in data:
+                self.fit_batch(batch)
+            self.epoch_count += 1
+        return self
+
+    def set_listeners(self, *listeners) -> None:
+        raise NotImplementedError(
+            "training listeners are not ported yet (ROADMAP A2, deferred)")
+
+    def set_divergence_sentinel(self, sentinel) -> None:
+        raise NotImplementedError(
+            "the divergence sentinel is not ported yet (ROADMAP A2, "
+            "deferred)")
 
     # ------------------------------------------------------- rnn statefulness
     def rnn_clear_previous_state(self) -> None:
@@ -197,7 +425,7 @@ class ComputationGraph:
                 if getattr(self.conf.nodes[name].layer, "supports_carry",
                            False)}
         with torch.no_grad():
-            acts, _, new_carries = self._forward(
+            acts, _, _, new_carries = self._forward(
                 self.params, self.states, in_map, carries=self._rnn_carries)
         self._rnn_carries = {**self._rnn_carries, **new_carries}
         outs = [acts[o] for o in self.conf.network_outputs]

@@ -1,8 +1,9 @@
 """Attention layers (the JAX package's ``nn/layers/attention.py``).
 
 ``SelfAttentionLayer.apply`` runs every attention through
-``ops.flash_attention`` (the Hopper kernel on the card); the Q/K/V/O
-projections stay ``torch.matmul``. Incremental decode (``prefill``,
+``ops.flash_attention`` (on the card the Hopper kernels: the forward, and
+the dq and dk/dv backward under autograd); the Q/K/V/O projections stay
+``torch.matmul``. Training drops out the layer's input. Incremental decode (``prefill``,
 ``decode_step``) is plain torch, as the JAX package leaves it to XLA.
 The blockwise and ring (sequence-parallel) paths and the paged-KV helpers
 are not ported yet.
@@ -89,7 +90,8 @@ class SelfAttentionLayer(BaseLayerConf):
         B, H, T, D = out.shape
         return out.transpose(1, 2).reshape(B, T, H * D)
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        x = self._dropout_input(x, train, rng)
         q = self._split_heads(x @ params["Wq"])
         k = self._split_heads(x @ params["Wk"])
         v = self._split_heads(x @ params["Wv"])

@@ -6,13 +6,15 @@ A layer is a dataclass of hyperparameters with plain functions on tensors:
 - ``init_params(gen, dtype)`` — a dict of named tensors drawn from a CPU
   ``torch.Generator``, keyed and ordered by ``param_order()`` exactly as
   in the JAX package, so weights carry across by name;
-- ``apply(params, x, *, state, mask)`` — the inference forward, returning
-  ``(out, state)``.
+- ``apply(params, x, *, state, train=False, rng=None, mask=None)`` — the
+  forward, returning ``(out, state)``; ``train`` turns on input dropout,
+  drawn from ``rng`` (a ``torch.Generator`` on the net's device);
+- ``regularization()`` — param name -> (l1, l2) for the score's penalty;
+- loss heads add ``compute_loss(params, x, labels, *, mask, average)``.
 
 Layouts are the JAX package's: a weight ``W`` is ``[in, out]`` and a
-layer computes ``x @ W``. Training (dropout, regularization, the loss
-heads' ``compute_loss``) is not ported yet; the hyperparameters that drive
-it are kept on the conf so the configs read the same.
+layer computes ``x @ W``. Autograd replaces the JAX package's ``jax.grad``
+over the same pure forward.
 """
 
 from __future__ import annotations
@@ -92,9 +94,34 @@ class BaseLayerConf:
         """Flat-buffer ordering contract (ref: nn/params/*ParamInitializer)."""
         return ["W", "b"]
 
+    def regularization(self) -> Dict[str, Tuple[float, float]]:
+        """param name -> (l1, l2). Weights get l1/l2, biases and norm
+        params l1_bias/l2_bias."""
+        out = {}
+        for p in self.param_order():
+            if p in ("b", "beta", "gamma", "mean", "var"):
+                out[p] = (self.l1_bias or 0.0, self.l2_bias or 0.0)
+            else:
+                out[p] = (self.l1 or 0.0, self.l2 or 0.0)
+        return out
+
     def apply(self, params: Params, x: Tensor, *, state: State,
+              train: bool = False, rng: Optional[torch.Generator] = None,
               mask: Optional[Tensor] = None) -> Tuple[Tensor, State]:
         raise NotImplementedError
+
+    def _dropout_input(self, x: Tensor, train: bool,
+                       rng: Optional[torch.Generator]) -> Tensor:
+        """Inverted dropout on the layer *input* while training. The conf
+        stores DL4J's *retain* probability: each element is kept with
+        that probability and scaled by its inverse. The draw comes from
+        ``rng`` on x's device, so a seed repeats it."""
+        retain = self.dropout
+        if (not train or retain is None or retain <= 0.0 or retain >= 1.0
+                or rng is None):
+            return x
+        keep = torch.rand(x.shape, generator=rng, device=x.device) < retain
+        return torch.where(keep, x / retain, 0.0)
 
     def _init_w(self, gen, shape, fan_in, fan_out, dtype):
         return init_weight(gen, shape, fan_in, fan_out,

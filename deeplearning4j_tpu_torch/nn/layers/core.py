@@ -30,6 +30,7 @@ class DenseLayer(BaseLayerConf):
             "b": self._init_b((self.n_out,), dtype),
         }
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        x = self._dropout_input(x, train, rng)
         return get_activation(self.activation)(
             x @ params["W"] + params["b"]), state

@@ -1,6 +1,6 @@
 """Transformer-LM embedding layers (the JAX package's
 ``nn/layers/embedding.py``): token + learned position embedding, and the
-weight-tied LM head (forward only).
+weight-tied LM head.
 
 Weight tying is resolved by the container: ``TiedRnnOutputLayer`` owns no
 params, and ``ComputationGraph._layer_params`` hands it the tied node's
@@ -20,6 +20,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.ops.activations import get_activation
+from deeplearning4j_tpu_torch.ops.losses import get_loss, promote_loss_dtype
 
 #: GPT-2's positional-embedding init scale
 POSITION_INIT_SCALE = 0.02
@@ -61,7 +62,8 @@ class PositionalEmbeddingLayer(BaseLayerConf):
             "b": self._init_b((self.n_out,), dtype),
         }
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        x = self._dropout_input(x, train, rng)
         T = x.shape[1]
         if T > self.max_timesteps:
             raise ValueError(
@@ -102,8 +104,26 @@ class TiedRnnOutputLayer(RnnOutputLayer):
                 "node with a 'W' param, and the container must thread it")
         return x @ params["W_tok"].T
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
         out = get_activation(self.activation)(self._logits(params, x))
         if mask is not None:
             out = out * mask[..., None]
         return out, state
+
+    def compute_loss(self, params, x, labels, *, mask=None,
+                     average: bool = True):
+        """RnnOutputLayer's loss semantics (per-timestep loss summed over
+        time, mean over the batch) on the rank-3 route, without the
+        ``[B*T, F]`` flatten, as the JAX head does; ``average=False``
+        keeps the per-timestep ``[B, T]`` matrix via the flat route."""
+        preout = self._logits(params, x)
+        preout, labels = promote_loss_dtype(preout, labels)
+        if not average:
+            B, T, F = preout.shape
+            flat_mask = mask.reshape(B * T) if mask is not None else None
+            per = get_loss(self.loss)(labels.reshape(B * T, F),
+                                      preout.reshape(B * T, F),
+                                      self.activation, flat_mask)
+            return per.reshape(B, T)
+        return get_loss(self.loss)(labels, preout, self.activation,
+                                   mask).mean()

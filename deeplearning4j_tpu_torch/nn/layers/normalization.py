@@ -39,7 +39,7 @@ class LayerNormalization(BaseLayerConf):
         return {"gamma": torch.ones((self.n_features,), dtype=dtype),
                 "beta": torch.zeros((self.n_features,), dtype=dtype)}
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
         in_dtype = x.dtype
         xs = x.to(torch.promote_types(in_dtype, torch.float32))
         mean = xs.mean(dim=-1, keepdim=True)

@@ -1,6 +1,6 @@
-"""Recurrent layers (the JAX package's ``nn/layers/recurrent.py``), forward
-only: LSTM / GravesLSTM (peepholes) / GravesBidirectionalLSTM, SimpleRnn,
-GRU, RnnOutputLayer and LastTimeStepLayer.
+"""Recurrent layers (the JAX package's ``nn/layers/recurrent.py``): LSTM /
+GravesLSTM (peepholes) / GravesBidirectionalLSTM, SimpleRnn, GRU,
+RnnOutputLayer (with its loss) and LastTimeStepLayer.
 
 Param layout (the JAX package's contract, so weights carry across as
 copies): W ``[n_in, 4H]``, RW ``[H, 4H]``, b ``[4H]``; Graves peepholes pW
@@ -29,6 +29,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
 )
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.fused_lstm import MAX_HIDDEN, fused_lstm
+from deeplearning4j_tpu_torch.ops.losses import get_loss, promote_loss_dtype
 
 Tensor = torch.Tensor
 
@@ -163,7 +164,8 @@ class LSTM(_RecurrentBase):
             return h2, (h2, c2)
         return _step_loop(cell, x, tuple(carry), mask, reverse)
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        x = self._dropout_input(x, train, rng)
         carry = self.initial_carry(x.shape[0], x.dtype, x.device)
         ys, _ = self.scan(params, x, carry, mask)
         return ys, state
@@ -193,7 +195,8 @@ class GravesBidirectionalLSTM(LSTM):
         fwd.update({f"{k}_bwd": v for k, v in bwd.items()})
         return fwd
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        x = self._dropout_input(x, train, rng)
         carry = self.initial_carry(x.shape[0], x.dtype, x.device)
         fwd_p = {k: params[k] for k in ("W", "RW", "b", "pW")}
         bwd_p = {k: params[f"{k}_bwd"] for k in ("W", "RW", "b", "pW")}
@@ -237,7 +240,8 @@ class SimpleRnn(_RecurrentBase):
         return _step_loop(lambda x_t, h: self.step(params, x_t, h), x, carry,
                           mask, reverse)
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        x = self._dropout_input(x, train, rng)
         ys, _ = self.scan(params, x, self.initial_carry(
             x.shape[0], x.dtype, x.device), mask)
         return ys, state
@@ -301,7 +305,8 @@ class GRU(_RecurrentBase):
         return _step_loop(lambda x_t, h: self.step(params, x_t, h), x, carry,
                           mask, reverse)
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        x = self._dropout_input(x, train, rng)
         ys, _ = self.scan(params, x, self.initial_carry(
             x.shape[0], x.dtype, x.device), mask)
         return ys, state
@@ -310,8 +315,7 @@ class GRU(_RecurrentBase):
 @register_layer
 @dataclass
 class RnnOutputLayer(_RecurrentBase):
-    """Per-timestep dense head over [B, T, F]. ``loss`` names the training
-    objective, which is not ported yet."""
+    """Per-timestep dense head over [B, T, F] with loss ``loss``."""
     n_out: int = 0
     loss: str = "mcxent"
 
@@ -322,11 +326,26 @@ class RnnOutputLayer(_RecurrentBase):
             "b": self._init_b((self.n_out,), dtype),
         }
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
         out = get_activation(self.activation)(x @ params["W"] + params["b"])
         if mask is not None:
             out = out * mask[..., None]
         return out, state
+
+    def compute_loss(self, params, x, labels, *, mask=None,
+                     average: bool = True):
+        """Loss from this head's *input* ``x``: per-timestep loss summed
+        over time, masked steps excluded; the mean over the batch, or the
+        ``[B, T]`` matrix with ``average=False``."""
+        preout = x @ params["W"] + params["b"]
+        preout, labels = promote_loss_dtype(preout, labels)
+        B, T, F = preout.shape
+        flat_mask = mask.reshape(B * T) if mask is not None else None
+        per = get_loss(self.loss)(labels.reshape(B * T, F),
+                                  preout.reshape(B * T, F), self.activation,
+                                  flat_mask)
+        return per.reshape(B, T).sum(dim=1).mean() if average \
+            else per.reshape(B, T)
 
 
 @register_layer
@@ -344,7 +363,7 @@ class LastTimeStepLayer(_RecurrentBase):
     def propagate_mask(self, mask):
         return None  # output is [B, F]; the time mask is consumed here
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
         if mask is None:
             return x[:, -1, :], state
         # index of the LAST step where mask == 1: the first 1 of the

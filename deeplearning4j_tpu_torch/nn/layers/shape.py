@@ -49,11 +49,11 @@ class TimeDistributedLayer(BaseLayerConf):
     def init_state(self):
         return self.inner.init_state()
 
-    def apply(self, params, x, *, state, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
         B, T = x.shape[0], x.shape[1]
         flat = x.reshape((B * T,) + tuple(x.shape[2:]))
         out, new_state = self.inner.apply(params, flat, state=state,
-                                          mask=None)
+                                          train=train, rng=rng, mask=None)
         out = out.reshape((B, T) + tuple(out.shape[1:]))
         if mask is not None:
             out = out * mask[..., None]

@@ -26,6 +26,18 @@ from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
 Tensor = torch.Tensor
 
 
+def _sum_aux_losses(states):
+    """Sum the differentiable auxiliary losses layers surface in their
+    state (``aux_loss``), added to the objective inside the gradient; 0.0
+    when none does."""
+    total = 0.0
+    leaves = states.values() if isinstance(states, dict) else states
+    for st in leaves:
+        if isinstance(st, dict) and "aux_loss" in st:
+            total = total + st["aux_loss"]
+    return total
+
+
 def _dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 

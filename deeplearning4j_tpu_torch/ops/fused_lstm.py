@@ -17,7 +17,11 @@ i, f, g, o), ``rw [H, 4H]``, peepholes ``pw [3, H]`` (rows i, f, o; all
 zeros = no peepholes), carries ``h0, c0 [B, H]``. Per step
 ``z = xz[t] + h @ rw``; i and f read ``c_prev`` through their peepholes,
 o reads ``c_new``; ``forget_bias`` is added to f's pre-activation at every
-step. Returns ``(hs [T, B, H], h_T, c_T)``. Types: float32, or bfloat16
+step. Returns ``(hs [T, B, H], h_T, c_T)``. Forward only: the training
+kernels K2/K3 and their backward come with slice 4 (ROADMAP A3), so both
+entry points raise ``NotImplementedError`` on every device when grad mode
+is on and an input requires grad (the kernel's output would otherwise
+carry no gradient, silently). Types: float32, or bfloat16
 with f32 arithmetic; the carry (h, c) is rounded to the input type after
 every step, as the TPU kernel's VMEM carry in that type is. No padding:
 the JAX package pads H to 128 and B to 8 with zero gate blocks, which is
@@ -40,6 +44,17 @@ from deeplearning4j_tpu_torch.ops.cuda_build import load_library
 MAX_HIDDEN = (48 * 1024 // 4 - 3 * 4 * 256) // 3
 #: dtype codes of the C entry point
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def refuse_grad(*tensors) -> None:
+    """Raise when autograd would need this kernel's backward, which is
+    not ported yet (the CPU refuses what the card would)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the fused LSTM is forward-only: its training kernels K2/K3 and "
+            "their backward come with slice 4 (ROADMAP A3, LSTM training); "
+            "run it under torch.no_grad()")
 
 
 def check_inputs(xz, rw, pw, h0, c0) -> None:
@@ -129,6 +144,7 @@ def lstm_recurrence(xz, rw, pw, h0, c0, *, forget_bias: float = 0.0):
     """The LSTM recurrence over time-major ``xz``: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. Returns
     ``(hs [T, B, H], h_T, c_T)``."""
+    refuse_grad(xz, rw, pw, h0, c0)
     check_inputs(xz, rw, pw, h0, c0)
     if xz.device.type == "cuda":
         return _launch(xz, rw, pw, h0, c0, forget_bias)
@@ -149,6 +165,7 @@ def fused_lstm(x, w, rw, b, pw: Optional[torch.Tensor], h0, c0, *,
     projection as one matmul, then the recurrence. ``pw`` is the flat
     ``[3H]`` peephole vector (rows i, f, o) or None for none. Returns
     ``(ys [B, T, H], h_T [B, H], c_T [B, H])``."""
+    refuse_grad(x, w, rw, b, pw, h0, c0)
     B, T, F = x.shape
     H = rw.shape[0]
     pw = (torch.zeros((3, H), dtype=x.dtype, device=x.device) if pw is None

@@ -16,9 +16,11 @@ import torch
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
+from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.models.gpt import gpt_tiny, greedy_generate
 from deeplearning4j_tpu_torch.ops.flash_attention import (
-    NEG_INF, flash_attention, flash_attention_plain,
+    NEG_INF, attention_dvec, flash_attention, flash_attention_bwd_plain,
+    flash_attention_dkv, flash_attention_dq, flash_attention_plain,
 )
 from deeplearning4j_tpu_torch.ops import fused_lstm as fused_lstm_module
 from deeplearning4j_tpu_torch.ops.fused_lstm import (
@@ -70,6 +72,84 @@ def test_flash_kernel_matches_plain(card, B, H, T, D, causal, dtype):
     assert torch.all(out[0] == 0) and torch.all(lse[0] == NEG_INF)
 
 
+def _bwd_inputs(card, B, H, T, D, causal, dt):
+    """q, k, v, dO and a key mask with a hole and a batch row with no
+    valid key; the forward's out and lse from the K4 kernel."""
+    g = torch.Generator().manual_seed(T * D + B)
+    q, k, v, d_out = (torch.randn(B, H, T, D, generator=g).to(card, dt)
+                      for _ in range(4))
+    mask = torch.ones(B, T)
+    mask[:, T // 3: T // 2] = 0.0
+    mask[0] = 0.0
+    mask = mask.to(card)
+    out, lse = flash_attention(q, k, v, causal=causal, kv_mask=mask,
+                               return_lse=True)
+    return q, k, v, d_out, mask, out, lse
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,dtype", [
+    (2, 3, 300, 64, True, "float32"),
+    (2, 3, 300, 64, True, "bfloat16"),
+    (1, 2, 77, 8, False, "float32"),
+    (1, 2, 130, 128, True, "float32"),
+    (2, 1, 64, 40, False, "bfloat16"),
+])
+def test_flash_bwd_kernels_match_plain(card, B, H, T, D, causal, dtype):
+    """K5 (dq) and K6 (dk, dv) against the plain FA2 backward: ragged T,
+    every head-dim template, a masked hole, and a batch row with no valid
+    key, whose dq, dk and dv are exactly 0. Two launches on the same
+    inputs are bitwise equal (no atomics)."""
+    dt = getattr(torch, dtype)
+    q, k, v, d_out, mask, out, lse = _bwd_inputs(card, B, H, T, D, causal,
+                                                 dt)
+    dvec = attention_dvec(d_out, out)
+    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    dq = flash_attention_dq(q, k, v, d_out, lse, dvec, causal=causal,
+                            kv_mask=mask)
+    dk, dv = flash_attention_dkv(q, k, v, d_out, lse, dvec, causal=causal,
+                                 kv_mask=mask)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = flash_attention_bwd_plain(q, k, v, d_out, out, lse, causal=causal,
+                                    kv_mask=mask)
+    # f32: the reference's own grad tolerance; bf16: the grads round to
+    # bf16 on both sides, two bf16 ulps; both scaled by the largest |g|
+    rel = 5e-5 if dt == torch.float32 else 1.6e-2
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == dt and torch.isfinite(got).all()
+        tol = rel * max(1.0, float(want.float().abs().max()))
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+        assert torch.all(got[0] == 0)
+    again = flash_attention_dq(q, k, v, d_out, lse, dvec, causal=causal,
+                               kv_mask=mask)
+    dk2, dv2 = flash_attention_dkv(q, k, v, d_out, lse, dvec, causal=causal,
+                                   kv_mask=mask)
+    assert torch.equal(again, dq) and torch.equal(dk2, dk) \
+        and torch.equal(dv2, dv)
+
+
+def test_flash_attention_on_card_is_differentiable(card):
+    """Grad-requiring inputs give an output with a grad_fn, and backward
+    runs one K5 and one K6 launch whose grads equal the CPU's."""
+    g = torch.Generator().manual_seed(9)
+    cpu = [torch.randn(2, 2, 70, 16, generator=g) for _ in range(4)]
+    got, want = [], []
+    for dev, out_grads in ((card, got), ("cpu", want)):
+        q, k, v = (t.to(dev).requires_grad_() for t in cpu[:3])
+        out = flash_attention(q, k, v, causal=True)
+        assert out.grad_fn is not None
+        before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+        (out * cpu[3].to(dev)).sum().backward()
+        launched = (flash_attention_dq.launches - before[0],
+                    flash_attention_dkv.launches - before[1])
+        assert launched == ((1, 1) if dev == card else (0, 0))
+        out_grads.extend(t.grad.cpu() for t in (q, k, v))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=0)
+
+
 def test_gpt_tiny_on_card_matches_cpu(card):
     """The whole slice at a tiny size: output() through the kernel (one
     launch per attention layer), greedy tokens equal to the CPU net's."""
@@ -89,6 +169,40 @@ def test_gpt_tiny_on_card_matches_cpu(card):
     for prompt in ([1], [3, 4, 5], list(range(9))):
         assert greedy_generate(gpu, prompt, 6) == \
             greedy_generate(cpu, prompt, 6)
+
+
+def test_gpt_tiny_training_on_card_matches_cpu(card):
+    """The training slice at a tiny size: each step launches K4, K5 and K6
+    once per attention layer (and no LSTM kernel); the step-1 gradients
+    are within 1e-4 of each tensor's largest |g| of the CPU net's (f32
+    GEMMs in another order, TF32 off) and 3 Adam steps' losses within
+    1e-5 relative."""
+    gpu = ComputationGraph(gpt_tiny(vocab_size=16, seq_len=16),
+                           device=card).init()
+    cpu = ComputationGraph(gpt_tiny(vocab_size=16, seq_len=16),
+                           device="cpu").init()
+    rng = np.random.default_rng(1)
+    eye = np.eye(16, dtype=np.float32)
+    tok = rng.integers(0, 16, (3, 17))
+    mask = np.ones((3, 16), np.float32)
+    mask[1, 9:] = 0.0
+    ds = DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]], mask, mask)
+    got, loss, _ = gpu.compute_gradient_and_score(ds)
+    want, cpu_loss, _ = cpu.compute_gradient_and_score(ds)
+    assert float(loss) == pytest.approx(float(cpu_loss), rel=1e-5)
+    for node, p in want.items():
+        for name, w in p.items():
+            tol = 1e-4 * max(float(w.abs().max()), 1e-30)
+            torch.testing.assert_close(got[node][name].cpu(), w, atol=tol,
+                                       rtol=0)
+    wrappers = (flash_attention, flash_attention_dq, flash_attention_dkv,
+                lstm_recurrence)
+    for _ in range(3):
+        before = [f.launches for f in wrappers]
+        a = float(gpu.fit_batch(ds))
+        assert [f.launches - b for f, b in zip(wrappers, before)] == \
+            [2, 2, 2, 0]
+        assert a == pytest.approx(float(cpu.fit_batch(ds)), rel=1e-5)
 
 
 @pytest.mark.parametrize("T,B,H,dtype,peephole,carry", [
