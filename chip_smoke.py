@@ -19,7 +19,13 @@ Phases, each printing JSON lines:
    against its plain version in five cases (the char-RNN's shape, ragged
    sizes with a carry, the T=1 streaming step, bf16 over 64 steps, also
    held step by step, no peepholes), with kernel / plain / cuDNN LSTM
-   times and the bound at the char-RNN's shape;
+   times and the bound at the char-RNN's shape; the LSTM training kernels
+   (K2 forward with residuals, K3 reverse-time backward) against their
+   plain versions in six cases (the char-RNN's tBPTT window, ragged sizes
+   with carries and backward seeds, the short last window, bf16, no
+   peepholes, the widest H), K2's hs and c_T equal to K1's bit for bit and
+   two launches of each bitwise equal, with kernel / plain / cuDNN
+   training-LSTM times and the bounds at the window's shape;
 3. slice — the full-width GPT decoder (vocab 96, T 256, d_model 512,
    8 heads, 8 layers, f32, seeded random weights) on the card through
    ``ComputationGraph.output`` (with and without a key mask) and
@@ -41,8 +47,19 @@ Phases, each printing JSON lines:
    step, a loss that falls over 20 steps, ms per step and tokens/s, the
    peak memory, the updater's time, and a torch.profiler breakdown of one
    step (kernel, GEMM and attention shares);
-6. a ``{"kernels": [...]}`` summary line;
-7. last line ``{"ok": true, "device": {...}}``.
+6. lstm train slice — the full-width char-RNN trained on the card with
+   its own settings (``MultiLayerNetwork.fit_batch``: Adam at lr 1e-3,
+   elementwise clipping at 1.0, tBPTT 50/50) on ``char_lm_batches`` of
+   ``synthetic_char_text``, [32, 200] batches (4 windows, 4 optimizer
+   steps): the first window's loss and every gradient against the same
+   net on the CPU, one ``fit_batch``'s 4 window losses against the CPU's,
+   the exact K2/K3 launches (8 each per [32, 200] batch, 4 per [32, 64]),
+   a ``tbptt_bwd_length = 20`` net whose window heads launch K1, a mean
+   loss that falls over 20 calls, ms per batch and window, characters/s,
+   the peak memory, the updater's time and a torch.profiler breakdown of
+   one ``fit_batch`` (K2+K3 and GEMM shares);
+7. a ``{"kernels": [...]}`` summary line;
+8. last line ``{"ok": true, "device": {...}}``.
 
 Each slice is driven with every kernel's launch count set to 0 just
 before it and read just after; a kernel of that path that was not
@@ -60,6 +77,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.models.gpt import (
     char_lm_batches, gpt_decoder, greedy_generate, synthetic_char_text,
@@ -74,7 +92,8 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from deeplearning4j_tpu_torch.ops.fused_lstm import (
-    fused_lstm, lstm_recurrence, lstm_recurrence_plain,
+    MAX_HIDDEN, fused_lstm, lstm_bwd, lstm_bwd_plain, lstm_fwd_train,
+    lstm_fwd_train_plain, lstm_recurrence, lstm_recurrence_plain,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet)
@@ -117,10 +136,18 @@ TOL_LSTM_SLICE = 1e-4
 TOL_TRAIN_LOSS = 1e-5
 TOL_TRAIN_GRAD = 1e-4
 TOL_TRAIN_STEPS = 1e-4
+# K2 / K3 vs their plain versions: f32 the reference's own tolerances
+# (tests/test_pallas_kernels.py: forward 1e-5, gradients 2e-4); bf16 four
+# bf16 ulps of 1.0, as K1's; each scaled by max(1, max |x|), since c, dz
+# and the backward's carries are not bounded by 1
+TOL_K2_F32 = 1e-5
+TOL_K3_F32 = 2e-4
+TOL_LSTM_TRAIN_BF16 = 3.2e-2
 
 SLICE = dict(vocab_size=96, seq_len=256, d_model=512, n_heads=8, n_layers=8)
 LSTM_SLICE = dict(vocab_size=96, hidden=256, layers=2)
 LSTM_BATCH = (32, 64)          # B, T: the char-LSTM traffic of bench.py
+LSTM_TRAIN_BATCH = (32, 200)   # B, T of a training batch: 4 windows of 50
 SEED = 1234
 TRAIN_BATCH = 32               # [32, 256] windows per step
 #: 95 printable ASCII characters and the newline: the 96-symbol vocabulary
@@ -133,7 +160,9 @@ ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
 KERNELS = {"flash_attn_fwd": flash_attention,
            "flash_attn_dq": flash_attention_dq,
            "flash_attn_dkv": flash_attention_dkv,
-           "lstm_fwd_infer": lstm_recurrence}
+           "lstm_fwd_infer": lstm_recurrence,
+           "lstm_fwd_train": lstm_fwd_train,
+           "lstm_bwd": lstm_bwd}
 
 
 def reset_counts() -> None:
@@ -530,6 +559,143 @@ def lstm_case(name, T, B, H, dtype, peephole, carry, timed=False,
     return rec
 
 
+def lstm_train_bound_ms(T, B, H, dtype, part):
+    """Least time for K2's (``part="fwd"``) or K3's (``"bwd"``) work on an
+    H100: each input read once and each output written once over HBM (K2:
+    xz, rw, pw, h0, c0 in; hs, gates, cs out. K3: eps, gates, cs, c0, rw^T,
+    pw, dh_T, dc_T in; dz, dh0, dc0 out), against the multiply-adds of
+    h @ rw (K2) or dz @ rw^T (K3) over the T steps at the f32 CUDA-core
+    peak."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    if part == "fwd":
+        n = T * B * 4 * H + H * 4 * H + 3 * H + 2 * B * H \
+            + T * B * H + T * B * 4 * H + T * B * H
+    else:
+        n = T * B * H + T * B * 4 * H + T * B * H + B * H + 4 * H * H \
+            + 3 * H + 2 * B * H + T * B * 4 * H + 2 * B * H
+    nbytes = es * n
+    flops = 2.0 * B * H * 4 * H * T
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+
+
+def cudnn_training_ms(B, T, H, g, h0, c0, rw, pw, fb):
+    """Yardstick only (the port never calls cuDNN): torch.nn.LSTM (cuDNN,
+    no peepholes) in training at the window's shape with the char-RNN's
+    first-layer input (F = 96): its forward with grad enabled, and its
+    backward (forward + backward minus forward: dW_ih, dW_hh, the biases).
+    Beside them, on the same x: K2 with the input GEMM x @ W + b, and K3
+    with the weight-gradient GEMMs dRW = h_prev^T dz and dW = x^T dz."""
+    F_in = LSTM_SLICE["vocab_size"]
+    x = torch.randn(B, T, F_in, generator=g).cuda()
+    w = (torch.randn(F_in, 4 * H, generator=g) * F_in ** -0.5).cuda()
+    b = (torch.randn(4 * H, generator=g) * 0.1).cuda()
+    d_out = torch.randn(B, T, H, generator=g).cuda()
+    lstm = torch.nn.LSTM(F_in, H, batch_first=True).cuda().train()
+    params = list(lstm.parameters())
+
+    def lib_fwd():
+        return lstm(x, (h0[None], c0[None]))[0]
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), params, d_out)
+
+    def ours_fwd():
+        xz = (x.reshape(B * T, F_in) @ w + b).reshape(B, T, 4 * H)
+        return lstm_fwd_train(xz.transpose(0, 1).contiguous(), rw, pw, h0,
+                              c0, forget_bias=fb)
+
+    hs, gates, cs = ours_fwd()
+    eps = d_out.transpose(0, 1).contiguous()
+    x_tm = x.transpose(0, 1).reshape(T * B, F_in)
+    zeros = torch.zeros_like(h0)
+
+    def ours_bwd():
+        dz = lstm_bwd(eps, gates, cs, c0, rw, pw, zeros, zeros)[0]
+        h_prev = torch.cat([h0[None], hs[:-1]]).reshape(T * B, H)
+        dz = dz.reshape(T * B, 4 * H)
+        return h_prev.t() @ dz, x_tm.t() @ dz
+
+    lib_f = cuda_ms(lib_fwd)
+    return dict(library_ms_fwd=lib_f,
+                library_ms_bwd=cuda_ms(lib_fwd_bwd) - lib_f,
+                kernel_plus_input_gemm_ms=cuda_ms(ours_fwd),
+                kernel_plus_weight_grad_gemms_ms=cuda_ms(ours_bwd),
+                library="torch.nn.LSTM (cuDNN) in training, no peepholes, "
+                        f"x [{B}, {T}, {F_in}] -> H {H}, f32")
+
+
+def lstm_train_case(name, T, B, H, dtype, peephole, carry, timed=False):
+    """K2 and K3 against their plain versions on the card: K2's hs, gates
+    and cells; K2's hs and c_T against K1's bit for bit; K3, on K2's
+    residuals, seeded with nonzero (dh_T, dc_T) when ``carry``; two
+    launches of each bitwise equal. ``timed``: kernel, plain and cuDNN
+    times (``cudnn_training_ms``)."""
+    g = torch.Generator().manual_seed(SEED + 7 * T + B + H)
+    rw = torch.randn(H, 4 * H, generator=g) * H ** -0.5
+    pw = (torch.randn(3, H, generator=g) * 0.3 if peephole
+          else torch.zeros(3, H))
+    xz = torch.randn(T, B, 4 * H, generator=g)
+    h0, c0, dh_T, dc_T = ((torch.randn(B, H, generator=g) * s
+                           for s in (0.5, 1.0, 1.0, 1.0)) if carry
+                          else (torch.zeros(B, H) for _ in range(4)))
+    eps = torch.randn(T, B, H, generator=g)
+    xz, rw, pw, h0, c0, dh_T, dc_T, eps = (
+        a.to("cuda", dtype).contiguous()
+        for a in (xz, rw, pw, h0, c0, dh_T, dc_T, eps))
+    fb = 1.0
+    fwd = lstm_fwd_train(xz, rw, pw, h0, c0, forget_bias=fb)
+    fwd2 = lstm_fwd_train(xz, rw, pw, h0, c0, forget_bias=fb)
+    with torch.no_grad():
+        hs1, _, cT1 = lstm_recurrence(xz, rw, pw, h0, c0, forget_bias=fb)
+    hs, gates, cs = fwd
+    bwd = lstm_bwd(eps, gates, cs, c0, rw, pw, dh_T, dc_T)
+    bwd2 = lstm_bwd(eps, gates, cs, c0, rw, pw, dh_T, dc_T)
+    ref_f = lstm_fwd_train_plain(xz, rw, pw, h0, c0, forget_bias=fb)
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    ref_b = lstm_bwd_plain(eps, gates, cs, c_prev, rw, pw, dh_T, dc_T)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    rel = {"fwd": TOL_K2_F32 if f32 else TOL_LSTM_TRAIN_BF16,
+           "bwd": TOL_K3_F32 if f32 else TOL_LSTM_TRAIN_BF16}
+    rec = dict(phase="kernel", kernel="lstm_fwd_train+lstm_bwd", case=name,
+               shape=dict(T=T, B=B, H=H), dtype=str(dtype),
+               peephole=peephole, nonzero_carry=carry,
+               k2_equals_k1=bool(torch.equal(hs, hs1) and
+                                 torch.equal(cs[-1], cT1)),
+               bitwise_repeat=bool(
+                   all(torch.equal(a, b) for a, b in zip(fwd, fwd2)) and
+                   all(torch.equal(a, b) for a, b in zip(bwd, bwd2))))
+    ok = True
+    for part, names, got, want in (
+            ("fwd", ("hs", "gates", "cs"), fwd, ref_f),
+            ("bwd", ("dz", "dh0", "dc0"), bwd, ref_b)):
+        for n, a, r in zip(names, got, want):
+            err = float((a.float() - r.float()).abs().max())
+            tol = rel[part] * max(1.0, float(r.float().abs().max()))
+            rec[f"max_abs_err_{n}"], rec[f"tol_{n}"] = err, tol
+            ok = ok and err <= tol and bool(torch.isfinite(a).all())
+        bound, by, flops, nbytes = lstm_train_bound_ms(T, B, H, dtype, part)
+        rec.update({f"bound_ms_{part}": bound, f"bound_by_{part}": by,
+                    f"flops_{part}": flops, f"bytes_{part}": nbytes})
+    if timed:
+        rec["ms_fwd"] = cuda_ms(lambda: lstm_fwd_train(
+            xz, rw, pw, h0, c0, forget_bias=fb))
+        rec["ms_bwd"] = cuda_ms(lambda: lstm_bwd(eps, gates, cs, c0, rw, pw,
+                                                 dh_T, dc_T))
+        rec["plain_ms_fwd"] = cuda_ms(lambda: lstm_fwd_train_plain(
+            xz, rw, pw, h0, c0, forget_bias=fb), iters=5)
+        rec["plain_ms_bwd"] = cuda_ms(lambda: lstm_bwd_plain(
+            eps, gates, cs, c_prev, rw, pw, dh_T, dc_T), iters=5)
+        rec.update(cudnn_training_ms(B, T, H, g, h0, c0, rw, pw, fb))
+    emit(rec)
+    check(ok, f"case {name}: K2/K3 differ from their plain versions: {rec}")
+    check(rec["k2_equals_k1"], f"case {name}: K2's hs / c_T differ from K1's")
+    check(rec["bitwise_repeat"], f"case {name}: two launches differ")
+    return rec
+
+
 def gpt_slice(k4_ms):
     """Full-width GPT serving on the card. Returns the flash kernel's
     launches on this path."""
@@ -558,7 +724,8 @@ def gpt_slice(k4_ms):
     # serving runs under no_grad: no backward kernel launches
     check(main_path["flash_attn_fwd"] > 0 and
           main_path["flash_attn_dq"] == main_path["flash_attn_dkv"] == 0 and
-          main_path["lstm_fwd_infer"] == 0,
+          main_path["lstm_fwd_infer"] == main_path["lstm_fwd_train"] ==
+          main_path["lstm_bwd"] == 0,
           f"GPT path launches {main_path}")
 
     check(launches_plain == L and launches_masked == L,
@@ -650,7 +817,8 @@ def lstm_slice(k1_ms):
     n_stream = main_path["lstm_fwd_infer"] - n_out - n_masked
     check(main_path["lstm_fwd_infer"] > 0 and
           main_path["flash_attn_fwd"] == main_path["flash_attn_dq"] ==
-          main_path["flash_attn_dkv"] == 0,
+          main_path["flash_attn_dkv"] == main_path["lstm_fwd_train"] ==
+          main_path["lstm_bwd"] == 0,
           f"char-RNN path launches {main_path}")
     check(n_out == L and n_masked == 0 and n_stream == L * T,
           f"LSTM kernel launches: output {n_out} (want {L}), masked "
@@ -719,7 +887,7 @@ def train_slice():
           batches[0].features.shape == (B, T, len(CHARSET)),
           f"char batches: {len(batches)}, {batches[0].features.shape}")
     per_step = dict(flash_attn_fwd=L, flash_attn_dq=L, flash_attn_dkv=L,
-                    lstm_fwd_infer=0)
+                    lstm_fwd_infer=0, lstm_fwd_train=0, lstm_bwd=0)
 
     reset_counts()
     # step 1's gradients at the init params, on the card and the CPU
@@ -805,6 +973,157 @@ def train_slice():
     return main_path
 
 
+def step_losses(net) -> list:
+    """Record the loss of each of ``net``'s optimizer steps (each tBPTT
+    window's) until ``del net._step``."""
+    losses = []
+    step = net._step
+
+    def spy(grads, new_states, loss):
+        losses.append(float(loss))
+        step(grads, new_states, loss)
+    net._step = spy
+    return losses
+
+
+def grad_rel_err(grads, cpu_grads):
+    """The worst gradient tensor's max |card - CPU| over its own largest
+    |g|, and its name (layer index, param name)."""
+    worst, worst_name = 0.0, None
+    for i, (got_p, want_p) in enumerate(zip(grads, cpu_grads)):
+        for name, want in want_p.items():
+            got = got_p[name].cpu()
+            check(bool(torch.isfinite(got).all()),
+                  f"layer {i} {name}: non-finite gradient")
+            err = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+            if err > worst:
+                worst, worst_name = err, f"{i}.{name}"
+    return worst, worst_name
+
+
+def lstm_train_slice():
+    """Full-width char-RNN training with tBPTT on the card. Returns the
+    main path's launch counts."""
+    conf = char_rnn_lstm(**LSTM_SLICE)
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    cpu = MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE), device="cpu").init()
+    (B, T), L = LSTM_TRAIN_BATCH, LSTM_SLICE["layers"]
+    win = conf.training.tbptt_fwd_length
+    n_win, n_batches = -(-T // win), 4
+    text = synthetic_char_text(n_batches * B * (T + 1) + 1, seed=SEED + 2)
+    batches = char_lm_batches(text, T, B, charset=CHARSET)
+    check(len(batches) == n_batches and
+          batches[0].features.shape == (B, T, len(CHARSET)),
+          f"char batches: {len(batches)}, {batches[0].features.shape}")
+    first = DataSet(batches[0].features[:, :win], batches[0].labels[:, :win])
+    short = DataSet(batches[1].features[:, :64], batches[1].labels[:, :64])
+    none = dict(flash_attn_fwd=0, flash_attn_dq=0, flash_attn_dkv=0)
+    per_window = dict(none, lstm_fwd_infer=0, lstm_fwd_train=L, lstm_bwd=L)
+    per_fit = {k: n_win * v for k, v in per_window.items()}
+    conf20 = char_rnn_lstm(**LSTM_SLICE)
+    conf20.training.tbptt_bwd_length = 20
+    net20 = MultiLayerNetwork(conf20, device="cuda").init()
+
+    def launched(fn):
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in counts().items()}
+
+    reset_counts()
+    # the first tBPTT window's gradients at the init params
+    (grads, loss, _), grad_launches = launched(
+        lambda: net.compute_gradient_and_score(first))
+    # one fit_batch of [32, 200]: its window losses, on the card and CPU
+    losses = step_losses(net)
+    mean, fit_launches = launched(lambda: float(net.fit_batch(batches[0])))
+    del net._step
+    # a [32, 64] batch: windows of 50 and 14
+    _, short_launches = launched(lambda: net.fit_batch(short))
+    # bwd < fwd: each window's head [0, 30) runs K1, its tail K2/K3
+    loss20, bwd20_launches = launched(
+        lambda: float(net20.fit_batch(batches[0])))
+    means = [float(net.fit_batch(batches[i % n_batches]))
+             for i in range(20)]
+    torch.cuda.synchronize()
+    main_path = counts()
+
+    cpu_grads, cpu_loss, _ = cpu.compute_gradient_and_score(first)
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    worst, worst_name = grad_rel_err(grads, cpu_grads)
+    n_grads = sum(len(p) for p in cpu_grads)
+    del grads, cpu_grads
+    cpu_losses = step_losses(cpu)
+    cpu_mean = float(cpu.fit_batch(batches[0]))
+    windows_rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    emit(dict(phase="lstm_train_slice", config=LSTM_SLICE,
+              params=net.num_params(), batch=[B, T, len(CHARSET)],
+              updater="adam", lr=conf.training.updater.learning_rate,
+              clip=conf.training.gradient_normalization_threshold,
+              tbptt=[win, conf.training.tbptt_bwd_length],
+              window1_loss=float(loss), window1_loss_cpu=float(cpu_loss),
+              window1_loss_rel_err=loss_rel, tol_loss=TOL_TRAIN_LOSS,
+              grad_tensors=n_grads, worst_grad_rel_err=worst,
+              worst_grad=worst_name, tol_grad=TOL_TRAIN_GRAD,
+              window_losses=losses, window_losses_cpu=cpu_losses,
+              windows_rel_err=windows_rel, tol_windows=TOL_TRAIN_STEPS,
+              fit_batch_mean=mean, fit_batch_mean_cpu=cpu_mean,
+              launches_per_gradient=grad_launches,
+              launches_per_fit_batch=fit_launches,
+              launches_per_short_batch=short_launches,
+              bwd20_loss=loss20, bwd20_launches_per_fit_batch=bwd20_launches,
+              means_over_20_calls=means, main_path_launches=main_path))
+    check(grad_launches == per_window,
+          f"launches for one window's gradient {grad_launches} != "
+          f"{per_window}")
+    check(fit_launches == per_fit,
+          f"launches per fit_batch {fit_launches} != {per_fit}")
+    check(short_launches == {k: 2 * v for k, v in per_window.items()},
+          f"launches for a [32, 64] batch {short_launches}")
+    check(bwd20_launches == dict(per_fit, lstm_fwd_infer=n_win * L),
+          f"launches per fit_batch with bwd 20 {bwd20_launches}")
+    check(np.isfinite(loss20), f"bwd 20 loss {loss20}")
+    check(loss_rel <= TOL_TRAIN_LOSS,
+          f"window-1 loss {float(loss)} vs CPU {float(cpu_loss)}")
+    check(worst <= TOL_TRAIN_GRAD,
+          f"gradient {worst_name} differs from the CPU's by {worst} of its "
+          "largest |g|")
+    check(len(losses) == len(cpu_losses) == n_win and
+          max(windows_rel) <= TOL_TRAIN_STEPS,
+          f"window losses {losses} vs CPU {cpu_losses}")
+    check(np.mean(means[-n_batches:]) < np.mean(means[:n_batches]),
+          f"the mean loss did not fall over 20 calls: {means}")
+
+    torch.cuda.reset_peak_memory_stats()
+    fit_ms = host_ms(lambda: net.fit_batch(batches[1]), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    # the updater alone, on copies of the params and state
+    grads, _, _ = net.compute_gradient_and_score(first)
+    params = tree_map(torch.clone, net.params)
+    state = {k: v if isinstance(v, int) else tree_map(torch.clone, v)
+             for k, v in net.opt_state.items()}
+    upd_ms = cuda_ms(lambda: compute_updates(
+        net._tx, grads, state, params, net.layers, conf.training), iters=10,
+        warmup=2)
+    del grads, params, state
+    emit(dict(phase="lstm_train_timing", ms_per_fit_batch=fit_ms,
+              ms_per_window=fit_ms / n_win,
+              chars_per_s=B * T / (fit_ms * 1e-3), updater_ms=upd_ms,
+              updater_share_of_fit_batch=n_win * upd_ms / fit_ms,
+              peak_mem_bytes=peak))
+    emit(dict(phase="profile", window="one fit_batch of [32, 200, 96]",
+              **device_profile(
+                  lambda: net.fit_batch(batches[2]),
+                  {"lstm_fwd_train_kernel": n_win * L,
+                   "lstm_bwd_kernel": n_win * L,
+                   "lstm_fwd_infer_kernel": 0}, top=8,
+                  groups=dict(lstm_k2_k3=["lstm_fwd_train_kernel",
+                                          "lstm_bwd_kernel"],
+                              gemm=["gemm"]))))
+    return main_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -843,6 +1162,16 @@ def main() -> int:
     lstm_case("d_bf16", T, B, H, torch.bfloat16, True, False, stepwise=True)
     k1e = lstm_case("e_no_peephole", T, B, H, torch.float32, False, False,
                     timed=True, library=True)
+    (Bt, Tt), W = LSTM_TRAIN_BATCH, char_rnn_lstm(
+        **LSTM_SLICE).training.tbptt_fwd_length
+    k23 = lstm_train_case("a_slice", W, Bt, H, torch.float32, True, False,
+                          timed=True)
+    lstm_train_case("b_ragged_carry", 7, 3, 100, torch.float32, True, True)
+    lstm_train_case("c_last_window", 64 - W, Bt, H, torch.float32, True,
+                    True)
+    lstm_train_case("d_bf16", W, Bt, H, torch.bfloat16, True, False)
+    lstm_train_case("e_no_peephole", W, Bt, H, torch.float32, False, False)
+    lstm_train_case("f_widest", 3, 2, MAX_HIDDEN, torch.float32, True, True)
     g = bwd_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
                  timed=True)
     bwd_case("b_T300_masked", 2, 8, 300, 64, True, torch.float32, "holes")
@@ -860,7 +1189,10 @@ def main() -> int:
     # ---- 5. the slice: full-width GPT training on the card ----------------
     train_path = train_slice()
 
-    # ---- 6. summary of every ported kernel ---------------------------------
+    # ---- 6. the slice: full-width char-RNN training on the card ----------
+    lstm_train_path = lstm_train_slice()
+
+    # ---- 7. summary of every ported kernel ---------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -871,7 +1203,8 @@ def main() -> int:
         dict(name="lstm_fwd_infer", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/lstm_fwd_infer.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:99",
-             launches=lstm_launches,
+             # serving, and the heads of tBPTT windows when bwd < fwd
+             launches=lstm_launches + lstm_train_path["lstm_fwd_infer"],
              max_abs_err=max(k1["max_abs_err_hs"], k1["max_abs_err_hT"]),
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=k1e["library_ms"],
@@ -897,7 +1230,34 @@ def main() -> int:
              ms=g["ms_dkv"], plain_ms=g["plain_ms_dkv"],
              bound_ms=g["bound_ms_dkv"], bound_by=g["bound_by_dkv"],
              library_ms=g["library_ms"],
-             library_covers=g["library_covers"])]})
+             library_covers=g["library_covers"]),
+        dict(name="lstm_fwd_train", route="cuda",
+             source="deeplearning4j_tpu_torch/csrc/lstm_fwd_train.cu",
+             replaces="deeplearning4j_tpu/ops/pallas_kernels.py:63",
+             launches=lstm_train_path["lstm_fwd_train"],
+             max_abs_err=max(k23["max_abs_err_hs"],
+                             k23["max_abs_err_gates"],
+                             k23["max_abs_err_cs"]),
+             ms=k23["ms_fwd"], plain_ms=k23["plain_ms_fwd"],
+             bound_ms=k23["bound_ms_fwd"], bound_by=k23["bound_by_fwd"],
+             library_ms=k23["library_ms_fwd"],
+             library_vs_ms=k23["kernel_plus_input_gemm_ms"],
+             library_covers="cuDNN LSTM forward with grad enabled, no "
+                            "peepholes, input GEMM included; held against "
+                            "K2 + x @ W + b (library_vs_ms)"),
+        dict(name="lstm_bwd", route="cuda",
+             source="deeplearning4j_tpu_torch/csrc/lstm_bwd.cu",
+             replaces="deeplearning4j_tpu/ops/pallas_kernels.py:161",
+             launches=lstm_train_path["lstm_bwd"],
+             max_abs_err=max(k23["max_abs_err_dz"], k23["max_abs_err_dh0"],
+                             k23["max_abs_err_dc0"]),
+             ms=k23["ms_bwd"], plain_ms=k23["plain_ms_bwd"],
+             bound_ms=k23["bound_ms_bwd"], bound_by=k23["bound_by_bwd"],
+             library_ms=k23["library_ms_bwd"],
+             library_vs_ms=k23["kernel_plus_weight_grad_gemms_ms"],
+             library_covers="cuDNN LSTM backward (dW_ih, dW_hh, biases), no "
+                            "peepholes; held against K3 + the dRW and dW "
+                            "GEMMs (library_vs_ms)")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,7 +8,9 @@ params for the port config ``conf`` (a graph or a
 ``MultiLayerConfiguration``), so that both nets compute the same function.
 Both packages keep the same names and layouts (``W`` ``[in, out]``,
 attention ``Wq/Wk/Wv`` ``[F, H*D]``, GravesLSTM's peepholes ``pW`` flat
-``[3H]``), so each tensor is a copy, not a transpose.
+``[3H]``, GravesBidirectionalLSTM's backward direction as ``W_bwd``,
+``RW_bwd``, ``b_bwd``, ``pW_bwd``: each layer's ``param_order()``), so
+each tensor is a copy, not a transpose.
 ``params_to_numpy(params)`` goes the other way, to numpy arrays in the
 same structure, so tests compare the two nets' params (or gradients) by
 name. This module imports nothing of the JAX package: it reads arrays.

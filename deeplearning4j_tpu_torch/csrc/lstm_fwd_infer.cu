@@ -52,38 +52,12 @@
 // h exchanged through distributed shared memory with a cluster barrier per
 // step) and runs h @ rw on tensor cores.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "lstm_common.cuh"
 
-#include <cmath>
+namespace dl4j_lstm {
 
-namespace {
-
-constexpr int MAX_UNITS = 256;  // hidden units a block works on at once
-constexpr int KSPLIT = 4;       // slices of the reduction over k
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-// x rounded to T and back: the value of x as a carry in the input type
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-__device__ __forceinline__ float sigmoid_(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// xz: [Tn, B, 4H]; rw: [H, 4H]; pw: [3, H]; h0, c0, cT: [B, H];
-// hs: [Tn, B, H]; all contiguous, one type T. Grid: one block per batch
-// row. Block: (units, KSPLIT) threads; thread (x, y) sums slice y of the
-// reduction over k for hidden unit x (and x + blockDim.x, ... in later
-// chunks).
+// The recurrence's body (lstm_fwd_steps) lives in lstm_common.cuh, shared
+// with the training forward K2.
 template <typename T>
 __global__ void __launch_bounds__(MAX_UNITS * KSPLIT)
 lstm_fwd_infer_kernel(const T* __restrict__ xz, const T* __restrict__ rw,
@@ -92,88 +66,16 @@ lstm_fwd_infer_kernel(const T* __restrict__ xz, const T* __restrict__ rw,
                       T* __restrict__ cT, int Tn, int B, int H,
                       float forget_bias) {
   extern __shared__ float smem[];
-  const int nx = blockDim.x, tx = threadIdx.x, ks = threadIdx.y;
-  float* sH = smem;          // [2][H]: h_{t-1} and h_t in turns
-  float* sC = sH + 2 * H;    // [H]
-  float* sP = sC + H;        // [KSPLIT-1][4][nx] partial sums
-  const int b = blockIdx.x;
-  const int H4 = 4 * H;
-  const int kc = (H + KSPLIT - 1) / KSPLIT;
-  const int k_lo = min(H, ks * kc), k_hi = min(H, k_lo + kc);
-
-  for (int u = ks * nx + tx; u < H; u += nx * KSPLIT) {
-    sH[u] = to_f32(h0[(size_t)b * H + u]);
-    sC[u] = to_f32(c0[(size_t)b * H + u]);
-  }
-  __syncthreads();
-
-  for (int t = 0; t < Tn; ++t) {
-    const float* hp = sH + (t & 1) * H;
-    float* hn = sH + ((t + 1) & 1) * H;
-    const T* xzt = xz + ((size_t)t * B + b) * H4;
-    for (int u0 = 0; u0 < H; u0 += nx) {
-      const int u = u0 + tx;
-      const bool active = u < H;
-      const bool owner = ks == 0 && active;  // combines and writes unit u
-      float xv[4], acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int q = 0; q < 4; ++q)  // loaded now, added after the sum
-        xv[q] = owner ? to_f32(xzt[q * H + u]) : 0.f;
-      if (active) {
-        const T* w = rw + u;
-#pragma unroll 4
-        for (int k = k_lo; k < k_hi; ++k) {
-          const T* wk = w + (size_t)k * H4;
-          const float hk = hp[k];
-          acc[0] = fmaf(hk, to_f32(wk[0]), acc[0]);
-          acc[1] = fmaf(hk, to_f32(wk[H]), acc[1]);
-          acc[2] = fmaf(hk, to_f32(wk[2 * H]), acc[2]);
-          acc[3] = fmaf(hk, to_f32(wk[3 * H]), acc[3]);
-        }
-      }
-      if (ks > 0) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) sP[((ks - 1) * 4 + q) * nx + tx] = acc[q];
-      }
-      __syncthreads();  // the partial sums of this chunk are in
-      if (owner) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-#pragma unroll
-          for (int s = 0; s < KSPLIT - 1; ++s)
-            acc[q] += sP[(s * 4 + q) * nx + tx];
-          acc[q] += xv[q];
-        }
-        const float pi = to_f32(pw[u]), pf = to_f32(pw[H + u]);
-        const float po = to_f32(pw[2 * H + u]);
-        const float c = sC[u];
-        const float i = sigmoid_(acc[0] + c * pi);
-        const float f = sigmoid_(acc[1] + c * pf + forget_bias);
-        const float g = tanhf(acc[2]);
-        const float c_new = f * c + i * g;
-        const float o = sigmoid_(acc[3] + c_new * po);
-        const float h_new = o * tanhf(c_new);
-        sC[u] = round_to(c_new, T{});
-        hn[u] = round_to(h_new, T{});
-        store(&hs[((size_t)t * B + b) * H + u], h_new);
-      }
-      // the partial sums are read; after the last chunk, h_t is complete
-      // and h_{t-1}'s readers are done
-      __syncthreads();
-    }
-  }
-
-  if (ks == 0)
-    for (int u = tx; u < H; u += nx) store(&cT[(size_t)b * H + u], sC[u]);
+  lstm_fwd_steps<T, false>(smem, xz, rw, pw, h0, c0, hs, nullptr, nullptr,
+                           cT, Tn, B, H, forget_bias);
 }
 
 template <typename T>
 cudaError_t launch(const void* xz, const void* rw, const void* pw,
                    const void* h0, const void* c0, void* hs, void* cT, int Tn,
                    int B, int H, float forget_bias, cudaStream_t stream) {
-  const int nx = min(MAX_UNITS, (H + 31) / 32 * 32);
-  const size_t smem = sizeof(float) * (3 * (size_t)H + (KSPLIT - 1) * 4 * nx);
-  lstm_fwd_infer_kernel<T><<<B, dim3(nx, KSPLIT), smem, stream>>>(
+  lstm_fwd_infer_kernel<T><<<B, dim3(units_per_block(H), KSPLIT),
+                             fwd_smem_bytes(H), stream>>>(
       static_cast<const T*>(xz), static_cast<const T*>(rw),
       static_cast<const T*>(pw), static_cast<const T*>(h0),
       static_cast<const T*>(c0), static_cast<T*>(hs), static_cast<T*>(cT), Tn,
@@ -181,7 +83,7 @@ cudaError_t launch(const void* xz, const void* rw, const void* pw,
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace dl4j_lstm
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor shares it). Returns the
 // CUDA error of the launch (0 = launched).
@@ -190,6 +92,7 @@ extern "C" int dl4j_lstm_fwd_infer(const void* xz, const void* rw,
                                    const void* c0, void* hs, void* cT, int Tn,
                                    int B, int H, float forget_bias, int dtype,
                                    void* stream) {
+  using namespace dl4j_lstm;
   if (Tn < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

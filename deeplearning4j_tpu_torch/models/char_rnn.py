@@ -1,8 +1,9 @@
 """Character-level LSTM (the JAX package's ``models/char_rnn.py``; BASELINE
 config #4, the GravesLSTM char-RNN): stacked GravesLSTM layers and a
 softmax ``RnnOutputLayer`` over the vocabulary, on the sequential
-MultiLayerNetwork container. The updater, gradient clipping and tBPTT
-settings are stored for the training slice, which is not ported yet."""
+MultiLayerNetwork container, trained with its own settings: Adam at lr
+1e-3, elementwise gradient clipping at 1.0 and truncated BPTT over
+windows of ``tbptt_length`` steps."""
 
 from deeplearning4j_tpu_torch.nn.conf.builder import (
     MultiLayerConfiguration, NeuralNetConfiguration,

@@ -1,9 +1,11 @@
 """ComputationGraph configuration builder (the JAX package's
 ``nn/conf/graph_builder.py``): ``add_inputs`` / ``add_layer`` /
 ``add_vertex`` / ``set_outputs`` / ``set_input_types`` / ``build()``.
-``build()`` applies the global defaults, orders the DAG topologically
-(Kahn's algorithm) and infers every layer's ``n_in``. Input preprocessors
-are not ported yet: a layer whose input kind would need one raises.
+``backprop_type``. ``build()`` applies the global defaults, orders the DAG
+topologically (Kahn's algorithm), infers every layer's ``n_in`` and, under
+truncated BPTT, checks that every output is time-distributed. Input
+preprocessors are not ported yet: a layer whose input kind would need one
+raises.
 """
 
 from __future__ import annotations
@@ -141,6 +143,14 @@ class GraphBuilder:
         self._outputs = list(names)
         return self
 
+    def backprop_type(self, t: str, fwd: int = 20,
+                      bwd: int = 20) -> "GraphBuilder":
+        training = self._parent._training
+        training.backprop_type = t
+        training.tbptt_fwd_length = fwd
+        training.tbptt_bwd_length = bwd
+        return self
+
     def build(self) -> ComputationGraphConfiguration:
         if not self._inputs:
             raise ValueError("addInputs() required")
@@ -161,4 +171,12 @@ class GraphBuilder:
             training=self._parent._training,
         )
         conf._resolve_shapes()
+        if (conf.training.backprop_type == "truncated_bptt"
+                and conf.resolved_types):
+            bad = [o for o in self._outputs
+                   if conf.resolved_types[o].kind != "rnn"]
+            if bad:
+                raise ValueError(
+                    "truncated_bptt requires time-distributed (rnn) "
+                    f"output(s); outputs {bad} resolve to non-rnn types")
         return conf

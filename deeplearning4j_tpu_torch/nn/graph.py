@@ -10,13 +10,17 @@ recurrent nodes between calls.
 Training (``fit_batch``, ``fit``, ``score``): the JAX package's
 ``jax.value_and_grad`` over one pure forward walk becomes
 ``torch.autograd.grad`` over the same walk, with the params' tensors as
-the leaves; the update (``nn/updater.compute_updates``) then runs in place
-under ``torch.no_grad()``. Dropout draws from one ``torch.Generator`` on
-the net's device, seeded from the config. What this container does not
-bring yet raises ``NotImplementedError`` naming its ROADMAP item: tBPTT
-(A3), the line-search solvers, ``scan_window > 1``, ``remat``, mixed
-precision, listeners and the divergence sentinel (A2, deferred). The
-paged decode and the evaluation mixins are not ported yet.
+the leaves (``netcommon.value_and_grad``); the update
+(``nn/updater.compute_updates``) then runs in place under
+``torch.no_grad()``. Truncated BPTT slices the recurrent inputs' time
+axis into windows, one step each, carrying the recurrent nodes' state
+between them, as ``MultiLayerNetwork`` does. Dropout draws from one
+``torch.Generator`` on the net's device, seeded from the config. What
+this container does not bring yet raises ``NotImplementedError`` naming
+its ROADMAP item: the line-search solvers, ``scan_window > 1``,
+``remat``, mixed precision, listeners and the divergence sentinel (A2,
+deferred). The paged decode and the evaluation mixins are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -42,9 +46,11 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.shape import TimeDistributedLayer
 from deeplearning4j_tpu_torch.nn.multilayer import _sum_aux_losses
+from deeplearning4j_tpu_torch.nn.netcommon import (
+    NetCommonMixin, check_trainable, detach, value_and_grad,
+)
 from deeplearning4j_tpu_torch.nn.updater import (
-    PrecisionPolicy, build_optimizer, compute_updates, l1_l2_penalty,
-    tree_map,
+    build_optimizer, compute_updates, l1_l2_penalty,
 )
 
 Tensor = torch.Tensor
@@ -54,7 +60,22 @@ def _dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-class ComputationGraph:
+def _time_slice(d: Optional[Dict[str, Tensor]], lo: int, hi: int,
+                min_ndim: int = 3,
+                only: Optional[set] = None) -> Optional[Dict[str, Tensor]]:
+    """Slice the time axis (dim 1) of every time-distributed tensor in a
+    name -> tensor dict: ``min_ndim=3`` for features and labels ([B, T,
+    ...]; static [B, F] side inputs pass through unsliced), ``min_ndim=2``
+    for masks ([B, T]). ``only`` restricts the slicing to the named keys
+    (the recurrent inputs)."""
+    if d is None:
+        return None
+    return {k: (v if v is None or v.dim() < min_ndim
+                or (only is not None and k not in only) else v[:, lo:hi])
+            for k, v in d.items()}
+
+
+class ComputationGraph(NetCommonMixin):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
         self.device = resolve_device(device)
@@ -65,7 +86,6 @@ class ComputationGraph:
         self.iteration_count = 0
         self.epoch_count = 0
         self.last_batch_size = 0
-        self._score_raw: Any = float("nan")
         self._tx = build_optimizer(conf.training)
         # dropout's draws: one generator on the net's device
         self._rng = torch.Generator(device=self.device).manual_seed(
@@ -122,18 +142,6 @@ class ComputationGraph:
             return {**params[name], "W_tok": params[tied]["W"]}
         return params[name]
 
-    @property
-    def score_value(self) -> float:
-        """The last minibatch loss as a float; the device value is read
-        (and the device synchronized) on first access only."""
-        if not isinstance(self._score_raw, float):
-            self._score_raw = float(self._score_raw)
-        return self._score_raw
-
-    @score_value.setter
-    def score_value(self, v) -> None:
-        self._score_raw = v
-
     def num_params(self) -> int:
         self._check_init()
         return sum(t.numel() for p in self.params.values()
@@ -153,9 +161,10 @@ class ComputationGraph:
         INPUT (the head's ``compute_loss`` consumes it), as the JAX
         container's training walk does. ``train`` turns on dropout (not in
         frozen layers), drawn from ``rng``. ``carries``: optional
-        per-layer-node RNN carry dict (rnn_time_step, inference only).
-        When given, layers with ``supports_carry`` run ``scan`` from their
-        carry and the new carries come back as a fourth value."""
+        per-layer-node RNN carry dict (tBPTT, rnn_time_step). When given,
+        layers with ``supports_carry`` run ``scan`` from their carry, after
+        their input dropout, and the new carries come back as a fourth
+        value."""
         acts: Dict[str, Tensor] = {}
         out_masks: Dict[str, Optional[Tensor]] = {}
         new_states: Dict[str, Dict[str, Tensor]] = {}
@@ -170,7 +179,10 @@ class ComputationGraph:
             in_acts = [acts[i] for i in node.inputs]
             in_mask = out_masks.get(node.inputs[0]) if node.inputs else None
             if node.kind == "vertex":
-                acts[name] = node.vertex.apply(in_acts)
+                ref = getattr(node.vertex, "timesteps", None)
+                acts[name] = (node.vertex.apply(in_acts, acts[ref])
+                              if isinstance(ref, str)
+                              else node.vertex.apply(in_acts))
                 out_masks[name] = in_mask
                 continue
             layer = node.layer
@@ -189,6 +201,9 @@ class ComputationGraph:
                 c_in = carries.get(name)
                 if c_in is None:
                     c_in = layer.initial_carry(h.shape[0], h.dtype, h.device)
+                # scan() bypasses apply(): input dropout must still fire
+                # so tBPTT training regularizes like standard BPTT
+                h = layer._dropout_input(h, layer_train, rng)
                 acts[name], new_carries[name] = layer.scan(p, h, c_in,
                                                            in_mask)
             else:
@@ -254,20 +269,22 @@ class ComputationGraph:
                 labels[out_name], mask=lm)
         return total
 
+    def _regularized(self, params, data_loss, new_states):
+        """The heads' losses + the L1/L2 penalty over every layer's params
+        + the auxiliary losses layers surface in their state."""
+        layer_list = [self.conf.nodes[n].layer for n in self._layer_nodes]
+        param_list = [params[n] for n in self._layer_nodes]
+        return (data_loss + l1_l2_penalty(param_list, layer_list)
+                + _sum_aux_losses(new_states))
+
     def _loss_fn(self, params, states, inputs, labels: Dict[str, Tensor],
                  masks, label_masks, rng, train=True):
-        """(score, new states): the heads' losses + the L1/L2 penalty over
-        every layer's params + the auxiliary losses layers surface in
-        their state."""
+        """(score, new states) of one forward walk."""
         acts, out_masks, new_states = self._forward(
             params, states, inputs, masks, train=train, rng=rng,
             stop_before_loss=True)
         total = self._data_loss(params, acts, out_masks, labels, label_masks)
-        layer_list = [self.conf.nodes[n].layer for n in self._layer_nodes]
-        param_list = [params[n] for n in self._layer_nodes]
-        total = total + l1_l2_penalty(param_list, layer_list)
-        total = total + _sum_aux_losses(new_states)
-        return total, new_states
+        return self._regularized(params, total, new_states), new_states
 
     def score(self, data: Union[DataSet, MultiDataSet],
               train: bool = False) -> float:
@@ -309,25 +326,6 @@ class ComputationGraph:
                 opt_map(names_out, data.labels_masks))
 
     # ------------------------------------------------------------- train step
-    def _check_trainable(self) -> None:
-        """Raise on the training settings whose paths are not ported."""
-        t = self.conf.training
-        if t.optimization_algo not in ("sgd", "stochastic_gradient_descent"):
-            raise NotImplementedError(
-                f"optimization_algo={t.optimization_algo!r}: the line-search "
-                "solvers are not ported yet (ROADMAP A2, deferred)")
-        if t.backprop_type == "truncated_bptt":
-            raise NotImplementedError(
-                "truncated BPTT comes with slice 4 (ROADMAP A3)")
-        if t.remat:
-            raise NotImplementedError(
-                "remat (gradient checkpointing) is not ported yet "
-                "(ROADMAP A2, deferred)")
-        if PrecisionPolicy.parse(t.precision, loss_scale=t.loss_scale).mixed:
-            raise NotImplementedError(
-                f"precision={t.precision!r}: the port trains fp32 only; "
-                "mixed precision is ROADMAP A2, deferred")
-
     def compute_gradient_and_score(self, data: Union[DataSet, MultiDataSet]
                                    ) -> Tuple[Dict[str, Dict[str, Tensor]],
                                               Tensor, Dict]:
@@ -336,34 +334,140 @@ class ComputationGraph:
         (dropout on). Gradients mirror the params; a tied head's gradient
         lands in the tied node's ``W``."""
         self._check_init()
-        self._check_trainable()
+        check_trainable(self.conf.training)
         inputs, labels, masks, lmasks = self._split(data)
-        leaves = tree_map(lambda t: t.detach().requires_grad_(), self.params)
-        keys = [(n, k) for n, p in leaves.items() for k in p]
-        with torch.enable_grad():
-            loss, new_states = self._loss_fn(leaves, self.states, inputs,
-                                             labels, masks, lmasks,
-                                             rng=self._rng, train=True)
-            flat = torch.autograd.grad(
-                loss, [leaves[n][k] for n, k in keys], allow_unused=True)
-        grads: Dict[str, Dict[str, Tensor]] = {n: {} for n in leaves}
-        for (n, k), g in zip(keys, flat):
-            grads[n][k] = torch.zeros_like(leaves[n][k]) if g is None else g
-        return grads, loss.detach(), new_states
+        loss, new_states, grads = value_and_grad(
+            lambda p: self._loss_fn(p, self.states, inputs, labels, masks,
+                                    lmasks, rng=self._rng, train=True),
+            self.params)
+        return grads, loss, new_states
 
-    def fit_batch(self, data: Union[DataSet, MultiDataSet]):
-        """One optimization step (ref: ComputationGraph.fit). Returns the
-        loss at the step's starting params as a device scalar (reading it
-        synchronizes; ``score_value`` is the same as a float)."""
-        grads, loss, new_states = self.compute_gradient_and_score(data)
+    def _step(self, grads, new_states, loss) -> None:
+        """Apply one update and record its loss."""
         layer_list = [self.conf.nodes[n].layer for n in self._layer_nodes]
         compute_updates(self._tx, grads, self.opt_state, self.params,
                         layer_list, self.conf.training)
-        self.states = tree_map(lambda t: t.detach(), new_states)
-        self.last_batch_size = data.num_examples()
+        self.states = detach(new_states)
         self.score_value = loss
         self.iteration_count += 1
+
+    def fit_batch(self, data: Union[DataSet, MultiDataSet]):
+        """One optimization step (ref: ComputationGraph.fit), or one per
+        tBPTT window. Returns the loss at the step's starting params (the
+        mean of the windows' losses under tBPTT) as a device scalar;
+        reading it synchronizes, ``score_value`` is the last step's as a
+        float."""
+        self._check_init()
+        check_trainable(self.conf.training)
+        if self.conf.training.backprop_type == "truncated_bptt":
+            feats = ([data.features] if isinstance(data, DataSet)
+                     else list(data.features))
+            labels = ([data.labels] if isinstance(data, DataSet)
+                      else list(data.labels))
+            types = self.conf.input_types
+            has_rnn_input = any(f.ndim == 3 for f in feats)
+            # every label must be time-distributed, and every rank-3
+            # feature a time series by its declared InputType (a CNN
+            # input's [B, H, W, C] would be sliced on its height axis)
+            rnn_ok = all(
+                (types.get(n) is None and f.ndim == 3)
+                or (types.get(n) is not None
+                    and (types[n].kind == "rnn" or f.ndim != 3))
+                for n, f in zip(self.conf.network_inputs, feats)
+                if f.ndim >= 3)
+            if has_rnn_input and rnn_ok and all(y.ndim == 3 for y in labels):
+                return self._fit_tbptt(data)
+            if has_rnn_input:
+                raise ValueError(
+                    "truncated_bptt requires rank-3 (time-distributed) "
+                    "labels on every output and recurrent InputTypes for "
+                    "every rank-3 input; use backprop_type('standard') "
+                    "for sequence-to-one heads")
+        grads, loss, new_states = self.compute_gradient_and_score(data)
+        self._step(grads, new_states, loss)
+        self.last_batch_size = data.num_examples()
         return loss
+
+    # ------------------------------------------------------------------ tBPTT
+    def _tbptt_rnn_inputs(self) -> set:
+        """Network inputs whose time axis tBPTT may slice: declared-rnn
+        InputTypes, or untyped inputs (``fit_batch`` admits untyped inputs
+        only when they are rank-3 time series)."""
+        return {n for n in self.conf.network_inputs
+                if self.conf.input_types.get(n) is None
+                or self.conf.input_types[n].kind == "rnn"}
+
+    def _tbptt_loss(self, params, inputs, labels, masks, lmasks, carries):
+        """One window's (score, (new states, new carries)); with
+        ``tbptt_bwd_length`` < ``tbptt_fwd_length`` the window's head runs
+        without a graph and still trains the output heads through its
+        loss, as ``MultiLayerNetwork._tbptt_loss`` (ref:
+        ComputationGraph.doTruncatedBPTT:2042)."""
+        t = self.conf.training
+        fwd = t.tbptt_fwd_length
+        bwd = t.tbptt_bwd_length or fwd
+        rnn = self._tbptt_rnn_inputs()
+        T = next(v.shape[1] for n, v in inputs.items() if n in rnn)
+        split = max(T - bwd, 0) if bwd < fwd else 0
+        if split == 0:
+            acts, om, new_states, new_carries = self._forward(
+                params, self.states, inputs, masks, carries, train=True,
+                rng=self._rng, stop_before_loss=True)
+            loss = self._data_loss(params, acts, om, labels, lmasks)
+        else:
+            with torch.no_grad():
+                acts1, om1, states1, carries1 = self._forward(
+                    params, self.states, _time_slice(inputs, 0, split,
+                                                     only=rnn),
+                    _time_slice(masks, 0, split, 2, rnn), carries,
+                    train=True, rng=self._rng, stop_before_loss=True)
+            acts2, om2, new_states, new_carries = self._forward(
+                params, states1, _time_slice(inputs, split, T, only=rnn),
+                _time_slice(masks, split, T, 2, rnn), carries1, train=True,
+                rng=self._rng, stop_before_loss=True)
+            # per-timestep losses sum over time: head + tail is the
+            # window's loss
+            loss = (self._data_loss(params, acts1, om1,
+                                    _time_slice(labels, 0, split),
+                                    _time_slice(lmasks, 0, split, 2))
+                    + self._data_loss(params, acts2, om2,
+                                      _time_slice(labels, split, T),
+                                      _time_slice(lmasks, split, T, 2)))
+        return (self._regularized(params, loss, new_states),
+                (new_states, new_carries))
+
+    def _fit_tbptt(self, data: Union[DataSet, MultiDataSet]):
+        """Truncated BPTT over time windows, carrying per-node RNN state
+        (ref: ComputationGraph.doTruncatedBPTT:2042-2103): one optimizer
+        step a window, the carries starting at zeros in the training dtype
+        and detached between windows. Returns the mean of the windows'
+        losses."""
+        fwd = self.conf.training.tbptt_fwd_length
+        inputs, labels, masks, lmasks = self._split(data)
+        rnn = self._tbptt_rnn_inputs()
+        T = next(v.shape[1] for n, v in inputs.items() if n in rnn)
+        B = next(iter(inputs.values())).shape[0]
+        carries = {name: self.conf.nodes[name].layer.initial_carry(
+                       B, self.dtype, self.device)
+                   for name in self._layer_nodes
+                   if getattr(self.conf.nodes[name].layer, "supports_carry",
+                              False)}
+        total, windows = 0.0, 0
+        for start in range(0, T, fwd):
+            end = min(start + fwd, T)
+            loss, (new_states, new_carries), grads = value_and_grad(
+                lambda p: self._tbptt_loss(
+                    p, _time_slice(inputs, start, end, only=rnn),
+                    _time_slice(labels, start, end),
+                    _time_slice(masks, start, end, 2, rnn),
+                    _time_slice(lmasks, start, end, 2), carries),
+                self.params)
+            self._step(grads, new_states, loss)
+            carries = detach(new_carries)
+            total = total + loss    # on the device: no sync per window
+            windows += 1
+        self.last_batch_size = data.num_examples()
+        return total / max(windows, 1)
 
     def fit(self, data, epochs: int = 1, use_async: bool = True,
             scan_window: int = 1) -> "ComputationGraph":
@@ -391,15 +495,6 @@ class ComputationGraph:
                 self.fit_batch(batch)
             self.epoch_count += 1
         return self
-
-    def set_listeners(self, *listeners) -> None:
-        raise NotImplementedError(
-            "training listeners are not ported yet (ROADMAP A2, deferred)")
-
-    def set_divergence_sentinel(self, sentinel) -> None:
-        raise NotImplementedError(
-            "the divergence sentinel is not ported yet (ROADMAP A2, "
-            "deferred)")
 
     # ------------------------------------------------------- rnn statefulness
     def rnn_clear_previous_state(self) -> None:

@@ -9,11 +9,15 @@ copies): W ``[n_in, 4H]``, RW ``[H, 4H]``, b ``[4H]``; Graves peepholes pW
 pre-activation at every step; ``b`` itself starts at zeros.
 
 ``LSTM.scan`` sends an unmasked sequence with sigmoid gates and a tanh
-activation through the fused kernel path (``ops/fused_lstm``: the CUDA
-kernel on the card, its plain version on the CPU); anything else runs the
-``_lstm_cell`` step loop, where the JAX package runs ``lax.scan``. Masked
-steps carry (h, c) through unchanged and output zeros. ``step`` and
-``scan`` with a carry serve stateful streaming (``rnn_time_step``).
+activation through the fused kernel path (``ops/fused_lstm``: on the card
+the inference kernel K1, or the training kernels K2 and K3 when a
+gradient is needed; their plain versions on the CPU), differentiable in
+the weights and the carry (h0, c0); the reverse direction of the
+bidirectional layer runs it on the flipped sequence. Anything else runs
+the ``_lstm_cell`` step loop, differentiable through autograd, where the
+JAX package runs ``lax.scan``. Masked steps carry (h, c) through
+unchanged and output zeros. ``step`` and ``scan`` with a carry serve
+stateful streaming (``rnn_time_step``) and truncated BPTT.
 """
 
 from __future__ import annotations

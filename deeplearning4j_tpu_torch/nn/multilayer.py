@@ -1,16 +1,31 @@
 """MultiLayerNetwork: the sequential model container (the JAX package's
-``nn/multilayer.py``), inference and stateful streaming.
+``nn/multilayer.py``): training (standard and truncated BPTT), inference
+and stateful streaming.
 
 Params are a list of per-layer dicts {param name -> tensor}, in the JAX
 package's names and layouts, on the net's device. The container runs on
 ``cuda`` unless it is built with ``device="cpu"``; with ``device=None``
-and no card it raises. The JAX container stops its forward before a loss
-head and applies the head afterwards, without the time mask; the port's
-heads have no loss yet, so every layer applies in order and a final loss
-head (a layer with a ``loss``) gets no mask, which computes the same
-output: a masked step's output is the head on its zero activation.
-Training, tBPTT, pretraining, the flat parameter view and the
-evaluation/scoring mixins are not ported yet.
+and no card it raises. As in the JAX container, the forward stops before
+a final loss head: inference then applies the head without the time mask
+(a masked step's output is the head on its zero activation), and training
+hands the head's input to its ``compute_loss`` with the label mask, or the
+feature mask for rank-3 labels.
+
+Training (``fit_batch``, ``fit``, ``score``,
+``compute_gradient_and_score``): the JAX package's ``jax.value_and_grad``
+over one pure forward becomes ``torch.autograd.grad`` over the same walk
+(``netcommon.value_and_grad``), and the update runs in place
+(``nn/updater.compute_updates``). Truncated BPTT slices the time axis into
+``tbptt_fwd_length`` windows, one optimizer step each, with the recurrent
+carries detached between windows; with ``tbptt_bwd_length`` shorter, each
+window's head runs under ``torch.no_grad()`` (the LSTMs then launch the
+inference kernel K1) and still trains the output layer through its loss.
+Dropout draws from one ``torch.Generator`` on the net's device, seeded
+from the config. What this container does not bring yet raises
+``NotImplementedError`` naming its ROADMAP item: the line-search solvers,
+``scan_window > 1``, ``remat``, mixed precision, listeners, the divergence
+sentinel (A2, deferred) and layerwise pretraining (A7). The
+evaluation mixins are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,8 +35,18 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.iterator import (
+    DataSetIterator, ListDataSetIterator,
+)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.netcommon import (
+    NetCommonMixin, check_trainable, detach, value_and_grad,
+)
+from deeplearning4j_tpu_torch.nn.updater import (
+    build_optimizer, compute_updates, l1_l2_penalty,
+)
 
 Tensor = torch.Tensor
 
@@ -42,7 +67,12 @@ def _dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-class MultiLayerNetwork:
+def _window(a, lo: int, hi: int):
+    """Time steps [lo, hi) of a [B, T, ...] array or mask, or None."""
+    return None if a is None else a[:, lo:hi]
+
+
+class MultiLayerNetwork(NetCommonMixin):
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.conf = conf
         self.layers = conf.layers
@@ -50,6 +80,14 @@ class MultiLayerNetwork:
         self.dtype = _dtype_of(conf.training.dtype)
         self.params: Optional[List[Dict[str, Tensor]]] = None
         self.states: Optional[List[Dict[str, Tensor]]] = None
+        self.opt_state = None
+        self.iteration_count = 0
+        self.epoch_count = 0
+        self.last_batch_size = 0
+        self._tx = build_optimizer(conf.training)
+        # dropout's draws: one generator on the net's device
+        self._rng = torch.Generator(device=self.device).manual_seed(
+            conf.training.seed)
         self._rnn_carries: Optional[List[Any]] = None  # rnn_time_step state
 
     # ------------------------------------------------------------------ init
@@ -65,6 +103,7 @@ class MultiLayerNetwork:
         self.params = [{k: t.to(self.device) for k, t in p.items()}
                        for p in params]
         self.states = [layer.init_state() for layer in self.layers]
+        self.opt_state = self._tx.init(self.params)
         return self
 
     def _check_init(self):
@@ -75,16 +114,26 @@ class MultiLayerNetwork:
         self._check_init()
         return sum(t.numel() for p in self.params for t in p.values())
 
-    # ---------------------------------------------------------------- forward
-    def _forward(self, params, states, x, *, mask=None,
-                 carries: Optional[list] = None, collect: bool = False):
-        """Inference forward through preprocessors and layers.
+    def _head(self):
+        """The final loss head (a layer with ``compute_loss``), or None."""
+        last = self.layers[-1]
+        return last if hasattr(last, "compute_loss") else None
 
-        ``carries``: optional per-layer RNN carry list (rnn_time_step);
-        layers with ``supports_carry`` then run ``scan`` from their carry.
-        Returns (output, per-layer activations if ``collect``, new
-        carries)."""
+    # ---------------------------------------------------------------- forward
+    def _forward(self, params, states, x, *, train: bool = False, rng=None,
+                 mask=None, carries: Optional[list] = None,
+                 collect: bool = False):
+        """Forward through preprocessors and layers, stopping before a
+        final loss head (whose input it returns).
+
+        ``carries``: optional per-layer RNN carry list (tBPTT,
+        rnn_time_step); layers with ``supports_carry`` then run ``scan``
+        from their carry, after their input dropout. ``train`` turns on
+        dropout (not in frozen layers), drawn from ``rng``. Returns
+        (activation, per-layer activations if ``collect``, new states, new
+        carries, the mask after the last layer)."""
         acts: List[Tensor] = []
+        new_states: list = []
         new_carries: list = [None] * len(self.layers)
         cur_mask = mask
         in_types = self.conf.input_types
@@ -96,21 +145,38 @@ class MultiLayerNetwork:
                 h = self.conf.preprocessors[i].transform(h, it)
                 cur_mask = self.conf.preprocessors[i].transform_mask(
                     cur_mask, it)
+            if i == last and hasattr(layer, "compute_loss"):
+                new_states.append(states[i])
+                break
+            layer_train = train and not layer.frozen
+            s = states[i]
             if carries is not None and getattr(layer, "supports_carry",
                                                False):
                 c_in = carries[i]
                 if c_in is None:
                     c_in = layer.initial_carry(h.shape[0], h.dtype, h.device)
+                # scan() bypasses apply(): input dropout must still fire
+                # so tBPTT training regularizes like standard BPTT
+                h = layer._dropout_input(h, layer_train, rng)
                 h, new_carries[i] = layer.scan(params[i], h, c_in, cur_mask)
             else:
-                head = i == last and hasattr(layer, "loss")
-                h, _ = layer.apply(params[i], h, state=states[i],
-                                   mask=None if head else cur_mask)
+                h, s = layer.apply(params[i], h, state=s, train=layer_train,
+                                   rng=rng, mask=cur_mask)
+                if layer.frozen:
+                    s = states[i]
             # layers that consume or rearrange the time axis drop the mask
             cur_mask = layer.propagate_mask(cur_mask)
+            new_states.append(s)
             if collect:
                 acts.append(h)
-        return h, acts, new_carries
+        return h, acts, new_states, new_carries, cur_mask
+
+    def _apply_head(self, h):
+        """The final loss head on its input, without the mask."""
+        head = self._head()
+        if head is None:
+            return h
+        return head.apply(self.params[-1], h, state=self.states[-1])[0]
 
     def _to_tensor(self, x) -> Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -119,8 +185,10 @@ class MultiLayerNetwork:
         """All layer activations (ref: MultiLayerNetwork.feedForward)."""
         self._check_init()
         with torch.no_grad():
-            _, acts, _ = self._forward(self.params, self.states,
-                                       self._to_tensor(x), collect=True)
+            h, acts, _, _, _ = self._forward(self.params, self.states,
+                                             self._to_tensor(x), collect=True)
+            if self._head() is not None:
+                acts.append(self._apply_head(h))
         return acts
 
     def output(self, x, mask=None) -> Tensor:
@@ -129,13 +197,191 @@ class MultiLayerNetwork:
         self._check_init()
         mask = None if mask is None else self._to_tensor(mask)
         with torch.no_grad():
-            h, _, _ = self._forward(self.params, self.states,
-                                    self._to_tensor(x), mask=mask)
-        return h
+            h, _, _, _, _ = self._forward(self.params, self.states,
+                                          self._to_tensor(x), mask=mask)
+            return self._apply_head(h)
 
     def predict(self, x) -> np.ndarray:
         """Argmax class predictions (ref: MultiLayerNetwork.predict)."""
         return self.output(x).argmax(dim=-1).cpu().numpy()
+
+    # ------------------------------------------------------------------ loss
+    def _batch(self, ds: DataSet):
+        """(features, labels, feature mask, label mask) on the net's
+        device: features and masks in the net's dtype, labels as given."""
+        opt = (lambda a: None if a is None else self._to_tensor(a))
+        return (self._to_tensor(ds.features),
+                torch.as_tensor(ds.labels, device=self.device),
+                opt(ds.features_mask), opt(ds.labels_mask))
+
+    def _head_loss(self, params, h, labels, lmask, cur_mask):
+        """The head's loss on its input ``h``: the label mask, else the
+        forward's mask when the labels are time-distributed."""
+        head = self._head()
+        if head is None:
+            raise ValueError(
+                "Last layer must be an output/loss layer for fit()")
+        mask = lmask if lmask is not None else (
+            cur_mask if labels.dim() > 2 else None)
+        return head.compute_loss(params[-1], h, labels, mask=mask)
+
+    def _loss_fn(self, params, states, features, labels, fmask, lmask, rng,
+                 train: bool = True, carries: Optional[list] = None):
+        """(score, (new states, new carries)): the head's loss + the L1/L2
+        penalty + the auxiliary losses layers surface in their state."""
+        h, _, new_states, new_carries, cur_mask = self._forward(
+            params, states, features, train=train, rng=rng, mask=fmask,
+            carries=carries)
+        loss = self._head_loss(params, h, labels, lmask, cur_mask)
+        return (loss + l1_l2_penalty(params, self.layers)
+                + _sum_aux_losses(new_states)), (new_states, new_carries)
+
+    def score(self, dataset: Optional[DataSet] = None,
+              train: bool = False) -> float:
+        """Mean per-example loss + regularization of ``dataset`` at the
+        current params (no update); the last minibatch's without one
+        (ref: MultiLayerNetwork.score)."""
+        self._check_init()
+        if dataset is None:
+            return self.score_value
+        with torch.no_grad():
+            loss, _ = self._loss_fn(self.params, self.states,
+                                    *self._batch(dataset), rng=None,
+                                    train=train)
+        return float(loss)
+
+    # ------------------------------------------------------------- train step
+    def compute_gradient_and_score(self, dataset: DataSet):
+        """(gradients, score, new states) of ``dataset`` at the current
+        params over the whole sequence (ref:
+        MultiLayerNetwork.computeGradientAndScore), training mode (dropout
+        on). Gradients mirror the params."""
+        self._check_init()
+        check_trainable(self.conf.training)
+        loss, (new_states, _), grads = value_and_grad(
+            lambda p: self._loss_fn(p, self.states, *self._batch(dataset),
+                                    rng=self._rng), self.params)
+        return grads, loss, new_states
+
+    def _step(self, grads, new_states, loss) -> None:
+        """Apply one update and record its loss."""
+        compute_updates(self._tx, grads, self.opt_state, self.params,
+                        self.layers, self.conf.training)
+        self.states = detach(new_states)
+        self.score_value = loss
+        self.iteration_count += 1
+
+    def fit_batch(self, dataset: DataSet):
+        """One optimization step on one minibatch (ref: fit(DataSet)), or
+        one per tBPTT window. Returns the loss at the step's starting
+        params (the mean of the windows' losses under tBPTT) as a device
+        scalar; reading it synchronizes, ``score_value`` is the last
+        step's as a float."""
+        self._check_init()
+        check_trainable(self.conf.training)
+        if (self.conf.training.backprop_type == "truncated_bptt"
+                and dataset.features.ndim == 3):
+            if dataset.labels.ndim != 3:
+                raise ValueError(
+                    "truncated_bptt requires rank-3 (time-distributed) "
+                    f"labels; got rank-{dataset.labels.ndim}. Use "
+                    "backprop_type('standard') for sequence-to-one heads.")
+            return self._fit_tbptt(dataset)
+        grads, loss, new_states = self.compute_gradient_and_score(dataset)
+        self._step(grads, new_states, loss)
+        self.last_batch_size = dataset.num_examples()
+        return loss
+
+    # ------------------------------------------------------------------ tBPTT
+    def _tbptt_loss(self, params, feats, labels, fmask, lmask, carries):
+        """One window's (score, (new states, new carries)). With
+        ``tbptt_bwd_length`` < ``tbptt_fwd_length`` the reference's
+        backward visits only the window's last bwd steps
+        (MultiLayerNetwork.java:1119, LSTMHelpers.java:333): the head
+        [0, T - bwd) runs without a graph and its activations and carries
+        stop the gradient, while its loss still counts and still trains
+        the output layer; per-timestep losses sum over time, so head +
+        tail is the window's loss."""
+        t = self.conf.training
+        fwd = t.tbptt_fwd_length
+        bwd = t.tbptt_bwd_length or fwd
+        T = feats.shape[1]
+        split = max(T - bwd, 0) if bwd < fwd else 0
+        if split == 0:
+            return self._loss_fn(params, self.states, feats, labels, fmask,
+                                 lmask, self._rng, carries=carries)
+        with torch.no_grad():
+            h1, _, states1, carries1, m1 = self._forward(
+                params, self.states, _window(feats, 0, split), train=True,
+                rng=self._rng, mask=_window(fmask, 0, split),
+                carries=carries)
+        h2, _, new_states, new_carries, m2 = self._forward(
+            params, states1, _window(feats, split, T), train=True,
+            rng=self._rng, mask=_window(fmask, split, T), carries=carries1)
+        loss = (self._head_loss(params, h1, _window(labels, 0, split),
+                                _window(lmask, 0, split), m1)
+                + self._head_loss(params, h2, _window(labels, split, T),
+                                  _window(lmask, split, T), m2))
+        return (loss + l1_l2_penalty(params, self.layers)
+                + _sum_aux_losses(new_states)), (new_states, new_carries)
+
+    def _fit_tbptt(self, dataset: DataSet):
+        """Truncated BPTT over time windows, carrying the RNN state (ref:
+        MultiLayerNetwork.doTruncatedBPTT:1119-1183): one optimizer step a
+        window (the last may be short), the carries starting at zeros in
+        the training dtype and detached between windows. Returns the mean
+        of the windows' losses."""
+        fwd = self.conf.training.tbptt_fwd_length
+        feats, labels, fmask, lmask = self._batch(dataset)
+        B, T = feats.shape[:2]
+        carries = [layer.initial_carry(B, self.dtype, self.device)
+                   if getattr(layer, "supports_carry", False) else None
+                   for layer in self.layers]
+        total, windows = 0.0, 0
+        for start in range(0, T, fwd):
+            end = min(start + fwd, T)
+            loss, (new_states, new_carries), grads = value_and_grad(
+                lambda p: self._tbptt_loss(
+                    p, *(_window(a, start, end)
+                         for a in (feats, labels, fmask, lmask)), carries),
+                self.params)
+            self._step(grads, new_states, loss)
+            carries = detach(new_carries)
+            total = total + loss    # on the device: no sync per window
+            windows += 1
+        self.last_batch_size = dataset.num_examples()
+        return total / max(windows, 1)
+
+    # -------------------------------------------------------------------- fit
+    def fit(self, data, labels=None, epochs: int = 1, use_async: bool = True,
+            scan_window: int = 1) -> "MultiLayerNetwork":
+        """Train (ref: MultiLayerNetwork.fit(DataSetIterator)) on a
+        DataSetIterator, a DataSet or ``(features, labels)`` arrays, for
+        ``epochs``. Batches are read in order on the calling thread: the
+        asynchronous prefetch that ``use_async`` asks for is not ported
+        (ROADMAP A7) and does not change the results."""
+        self._check_init()
+        if scan_window > 1:
+            raise NotImplementedError(
+                "fit(scan_window > 1) is not ported yet (ROADMAP A2, "
+                "deferred)")
+        if labels is not None:
+            data = DataSet(np.asarray(data), np.asarray(labels))
+        if isinstance(data, DataSet):
+            data = ListDataSetIterator([data])
+        if not isinstance(data, DataSetIterator):
+            raise TypeError(f"fit takes a DataSet, a DataSetIterator or "
+                            f"(features, labels), not {type(data).__name__}")
+        for _ in range(epochs):
+            for batch in data:
+                self.fit_batch(batch)
+            self.epoch_count += 1
+        return self
+
+    def pretrain(self, iterator, epochs: int = 1) -> None:
+        raise NotImplementedError(
+            "layerwise pretraining needs the AE/RBM/VAE layers, which are "
+            "not ported yet (ROADMAP A7)")
 
     # ------------------------------------------------------- rnn statefulness
     def rnn_clear_previous_state(self) -> None:
@@ -156,9 +402,38 @@ class MultiLayerNetwork:
                 if getattr(layer, "supports_carry", False) else None
                 for layer in self.layers]
         with torch.no_grad():
-            h, _, new_carries = self._forward(
+            h, _, _, new_carries, _ = self._forward(
                 self.params, self.states, x, carries=self._rnn_carries)
+            h = self._apply_head(h)
         # keep existing carries for non-RNN layers
         self._rnn_carries = [nc if nc is not None else oc
                              for nc, oc in zip(new_carries, self._rnn_carries)]
         return h[:, 0] if squeeze else h
+
+    # ----------------------------------------------------------- param access
+    def params_flat(self) -> np.ndarray:
+        """One flat parameter vector in the documented layer/param order
+        (the coefficients.bin view, ref: MultiLayerNetwork.params());
+        bf16 params come back as float32."""
+        self._check_init()
+        chunks = [p[name].detach().float().cpu().numpy().ravel()
+                  for layer, p in zip(self.layers, self.params)
+                  for name in layer.param_order()]
+        return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+
+    def set_params_flat(self, flat: np.ndarray) -> None:
+        self._check_init()
+        pos = 0
+        new_params = []
+        for layer, p in zip(self.layers, self.params):
+            d = {}
+            for name in layer.param_order():
+                n = p[name].numel()
+                d[name] = torch.as_tensor(
+                    np.asarray(flat[pos:pos + n]).reshape(p[name].shape),
+                    dtype=p[name].dtype, device=self.device)
+                pos += n
+            new_params.append(d)
+        if pos != len(flat):
+            raise ValueError(f"Expected {pos} params, got {len(flat)}")
+        self.params = new_params

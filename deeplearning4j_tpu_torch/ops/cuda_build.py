@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries go into ``deeplearning4j_tpu_torch/_build``
-under a name that hashes the source and the flags, so an edited source is
-rebuilt and an unchanged one is built once per checkout. Nothing is built
+under a name that hashes the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is built once per checkout. Nothing is built
 when a module is imported: the first launch builds what it needs.
 """
 
@@ -40,7 +41,8 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -24,7 +24,8 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
 )
 from deeplearning4j_tpu_torch.ops import fused_lstm as fused_lstm_module
 from deeplearning4j_tpu_torch.ops.fused_lstm import (
-    MAX_HIDDEN, fused_lstm, lstm_recurrence, lstm_recurrence_plain,
+    MAX_HIDDEN, fused_lstm, lstm_bwd, lstm_bwd_plain, lstm_fwd_train,
+    lstm_fwd_train_plain, lstm_recurrence, lstm_recurrence_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -325,3 +326,137 @@ def test_char_rnn_tiny_on_card_matches_cpu(card):
     assert lstm_recurrence.launches == before + 2 + 2 * T
     torch.testing.assert_close(torch.stack(steps, 1).cpu(), got.cpu(),
                                atol=1e-5, rtol=0)
+
+
+def _scaled_close(got, want, rel):
+    """Within ``rel`` times max(1, max |want|) (c, dz and the carries are
+    not bounded by 1)."""
+    assert got.dtype == want.dtype and torch.isfinite(got).all()
+    tol = rel * max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("T,B,H,dtype,peephole,carry", [
+    (7, 3, 100, "float32", True, True),      # ragged B and H, carries, seeds
+    (50, 32, 256, "float32", True, False),   # the char-RNN's tBPTT window
+    (14, 32, 256, "float32", True, True),    # the short last window
+    (50, 32, 256, "bfloat16", True, False),
+    (50, 32, 256, "float32", False, False),  # plain LSTM: pw = 0
+    (5, 201, 64, "float32", True, True),     # more rows than SMs, ragged
+    (3, 2, MAX_HIDDEN, "float32", True, True),  # the widest H: K3 raises
+])                                              # its shared-memory limit
+def test_lstm_train_kernels_match_plain(card, T, B, H, dtype, peephole,
+                                        carry):
+    """K2 against its plain version, and its hs and c_T against K1's bit
+    for bit; K3, seeded with nonzero (dh_T, dc_T), against its plain
+    version on K2's residuals. Two launches of each are bitwise equal (no
+    atomics). Tolerances: f32 the reference's own (forward 1e-5, backward
+    2e-4); bf16 four bf16 ulps of 1.0; each scaled by max(1, max |x|)."""
+    dt = getattr(torch, dtype)
+    xz, rw, pw, h0, c0 = _lstm_args(card, T, B, H, dt, peephole, carry)
+    before = (lstm_fwd_train.launches, lstm_bwd.launches,
+              lstm_recurrence.launches)
+    hs, gates, cs = lstm_fwd_train(xz, rw, pw, h0, c0, forget_bias=1.0)
+    torch.cuda.synchronize()
+    f32 = dt == torch.float32
+    for got, want in zip((hs, gates, cs), lstm_fwd_train_plain(
+            xz, rw, pw, h0, c0, forget_bias=1.0)):
+        _scaled_close(got, want, 1e-5 if f32 else 3.2e-2)
+    with torch.no_grad():
+        hs1, _, cT1 = lstm_recurrence(xz, rw, pw, h0, c0, forget_bias=1.0)
+    assert torch.equal(hs, hs1) and torch.equal(cs[-1], cT1)
+    g = torch.Generator().manual_seed(T + H)
+    eps, dh_T, dc_T = (torch.randn(*s, generator=g).to(card, dt)
+                       for s in ((T, B, H), (B, H), (B, H)))
+    got = lstm_bwd(eps, gates, cs, c0, rw, pw, dh_T, dc_T)
+    torch.cuda.synchronize()
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    for a, b in zip(got, lstm_bwd_plain(eps, gates, cs, c_prev, rw, pw,
+                                        dh_T, dc_T)):
+        _scaled_close(a, b, 2e-4 if f32 else 3.2e-2)
+    again = lstm_bwd(eps, gates, cs, c0, rw, pw, dh_T, dc_T)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(
+        (hs, gates, cs), lstm_fwd_train(xz, rw, pw, h0, c0,
+                                        forget_bias=1.0)))
+    assert (lstm_fwd_train.launches, lstm_bwd.launches,
+            lstm_recurrence.launches) == (before[0] + 2, before[1] + 2,
+                                          before[2] + 1)
+
+
+def test_lstm_train_kernels_refuse_past_the_widest_hidden_size(card):
+    args = _lstm_args(card, 1, 1, MAX_HIDDEN + 1, torch.float32, True, True)
+    with pytest.raises(ValueError):
+        lstm_fwd_train(*args)
+    H = MAX_HIDDEN + 1
+    with pytest.raises(ValueError):
+        lstm_bwd(*(torch.zeros(*s, device=card) for s in (
+            (1, 1, H), (1, 1, 4 * H), (1, 1, H), (1, H), (H, 4 * H), (3, H),
+            (1, H), (1, H))))
+
+
+def test_fused_lstm_on_card_is_differentiable(card):
+    """Grad-requiring inputs run K2 forward and K3 backward once each (and
+    no K1); every gradient, W, RW, b, pW, h0 and c0, equals the CPU's
+    within 1e-4 of its largest |g|. Under no_grad the call runs K1."""
+    g = torch.Generator().manual_seed(11)
+    B, T, F, H = 5, 9, 17, 40
+    cpu = [torch.randn(*s, generator=g) * 0.4 for s in (
+        (B, T, F), (F, 4 * H), (H, 4 * H), (4 * H,), (3 * H,), (B, H),
+        (B, H))]
+    w_out = torch.randn(B, T, H, generator=g)
+    grads = []
+    for dev in (card, "cpu"):
+        x, *params = (a.to(dev) for a in cpu)
+        params = [p.requires_grad_() for p in params]
+        before = (lstm_fwd_train.launches, lstm_bwd.launches,
+                  lstm_recurrence.launches)
+        ys, hT, cT = fused_lstm(x, *params, forget_bias=1.0)
+        assert ys.grad_fn is not None
+        ((ys * w_out.to(dev)).sum() + (hT * 1.7).sum()
+         + (cT * 0.3).sum()).backward()
+        launched = (lstm_fwd_train.launches - before[0],
+                    lstm_bwd.launches - before[1],
+                    lstm_recurrence.launches - before[2])
+        assert launched == ((1, 1, 0) if dev == card else (0, 0, 0))
+        grads.append([p.grad.cpu() for p in params])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    before = (lstm_fwd_train.launches, lstm_recurrence.launches)
+    with torch.no_grad():
+        fused_lstm(*[a.to(card) for a in cpu], forget_bias=1.0)
+    assert (lstm_fwd_train.launches, lstm_recurrence.launches) == \
+        (before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("bwd", [6, 3], ids=["bwd_eq_fwd", "bwd_lt_fwd"])
+def test_char_rnn_tiny_tbptt_on_card_matches_cpu(card, bwd):
+    """The LSTM training slice at a tiny size: a [3, 14] batch in tBPTT
+    windows of 6 (6 + 6 + 2): per window 2 K2 and 2 K3 launches (one per
+    LSTM layer), plus 2 K1 for each window's head when bwd < fwd; the
+    step-1 gradients within 1e-4 of each tensor's largest |g| of the CPU
+    net's, and 2 fit_batch calls' mean losses within 1e-5 relative."""
+    V = 13
+    conf = char_rnn_lstm(V, hidden=24, layers=2, tbptt_length=6)
+    conf.training.tbptt_bwd_length = bwd
+    gpu = MultiLayerNetwork(conf, device=card).init()
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    rng = np.random.default_rng(2)
+    eye = np.eye(V, dtype=np.float32)
+    tok = rng.integers(0, V, (3, 15))
+    ds = DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]])
+    got, loss, _ = gpu.compute_gradient_and_score(ds)
+    want, cpu_loss, _ = cpu.compute_gradient_and_score(ds)
+    assert float(loss) == pytest.approx(float(cpu_loss), rel=1e-5)
+    for p, q in zip(got, want):
+        for name, w in q.items():
+            torch.testing.assert_close(p[name].cpu(), w, rtol=0,
+                                       atol=1e-4 * float(w.abs().max()))
+    wrappers = (lstm_fwd_train, lstm_bwd, lstm_recurrence, flash_attention)
+    for _ in range(2):
+        before = [f.launches for f in wrappers]
+        a = float(gpu.fit_batch(ds))
+        assert [f.launches - b for f, b in zip(wrappers, before)] == \
+            [6, 6, 0 if bwd == 6 else 4, 0]
+        assert a == pytest.approx(float(cpu.fit_batch(ds)), rel=1e-5)

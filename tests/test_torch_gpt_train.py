@@ -15,8 +15,9 @@ kernels (K4 forward, K5/K6 backward) in interpret mode, then
 plus the port's own training contracts: dropout (DL4J's retain
 probability, inverted scaling, a no-op outside training, repeatable under
 one seed; off in cross-framework parity), ``fit`` over a DataSet and an
-iterator, loud refusals of what the slice does not bring, the LSTM
-kernel's refusal of grad-requiring calls, and the char data path.
+iterator, loud refusals of what the slices do not bring (in both
+containers), an LSTM graph that trains through the now differentiable
+LSTM entry points, and the char data path.
 """
 
 import os
@@ -39,11 +40,13 @@ from deeplearning4j_tpu_torch.models import gpt as tgpt
 from deeplearning4j_tpu_torch.nn.conf import (
     InputType, NeuralNetConfiguration,
 )
+from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     LSTM, RnnOutputLayer,
 )
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
 from deeplearning4j_tpu_torch.ops.fused_lstm import (
     fused_lstm, lstm_recurrence,
@@ -227,13 +230,10 @@ def test_dropout_in_the_net_repeats_under_its_seed_and_is_off_in_score():
 
 # ---------------------------------------------- what the slice refuses
 
-@pytest.mark.parametrize("setting", [
-    "tbptt", "solver", "remat", "bf16", "scan_window", "listeners",
-    "sentinel"])
-def test_unported_training_paths_raise(setting):
-    _, net = _nets()
+def _refused(net, setting, ds):
+    """Assert that ``net`` refuses the unported training ``setting``
+    loudly, naming ROADMAP, before any step."""
     t = net.conf.training
-    ds = DataSet(*_arrays(0))
     if setting == "scan_window":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             net.fit(ds, scan_window=4)
@@ -246,9 +246,7 @@ def test_unported_training_paths_raise(setting):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             net.set_divergence_sentinel(object())
         return
-    if setting == "tbptt":
-        t.backprop_type = "truncated_bptt"
-    elif setting == "solver":
+    if setting == "solver":
         t.optimization_algo = "lbfgs"
     elif setting == "remat":
         t.remat = True
@@ -257,6 +255,33 @@ def test_unported_training_paths_raise(setting):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         net.fit_batch(ds)
     assert net.iteration_count == 0
+
+
+UNPORTED = ["solver", "remat", "bf16", "scan_window", "listeners",
+            "sentinel"]
+
+
+@pytest.mark.parametrize("setting", UNPORTED)
+def test_unported_training_paths_raise(setting):
+    _, net = _nets()
+    _refused(net, setting, DataSet(*_arrays(0)))
+
+
+@pytest.mark.parametrize("setting", UNPORTED + ["pretrain"])
+def test_multilayer_unported_training_paths_raise(setting):
+    """The sequential container refuses what the graph refuses (the
+    line-search solvers with ``optimization_algo="lbfgs"`` among them),
+    and layerwise pretraining."""
+    net = MultiLayerNetwork(char_rnn_lstm(5, hidden=4, layers=1),
+                            device="cpu").init()
+    eye = np.eye(5, dtype=np.float32)
+    ds = DataSet(eye[np.arange(12).reshape(2, 6) % 5],
+                 eye[np.arange(1, 13).reshape(2, 6) % 5])
+    if setting == "pretrain":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            net.pretrain(ListDataSetIterator([ds]))
+        return
+    _refused(net, setting, ds)
 
 
 def test_builder_setters_reach_the_training_config():
@@ -288,39 +313,49 @@ def _lstm_graph():
             .build())
 
 
-def test_fit_batch_on_an_lstm_graph_refuses_loudly():
-    """The LSTM kernel is forward-only until slice 4 brings K2/K3: a
-    training step through it (an unmasked tanh/sigmoid LSTM takes the
-    kernel path) raises on every device instead of leaving W/RW without
-    gradient. Serving (no grad) still runs."""
+def test_fit_batch_on_an_lstm_graph_trains():
+    """A training step through the LSTM (an unmasked tanh/sigmoid LSTM
+    takes the kernel path, K2/K3's plain versions here) moves every one
+    of its params and lowers the loss; serving still runs."""
     net = ComputationGraph(_lstm_graph(), device="cpu").init()
     rng = np.random.default_rng(0)
     eye = np.eye(5, dtype=np.float32)
     ds = DataSet(eye[rng.integers(0, 5, (2, 6))], eye[rng.integers(0, 5,
                                                                    (2, 6))])
     before = {k: t.clone() for k, t in net.params["lstm"].items()}
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    first = float(net.fit_batch(ds))
+    assert np.isfinite(first) and net.iteration_count == 1
+    assert not any(torch.equal(before[k], t)
+                   for k, t in net.params["lstm"].items())
+    for _ in range(5):
         net.fit_batch(ds)
-    assert all(torch.equal(before[k], t)
-               for k, t in net.params["lstm"].items())
+    assert net.score(ds) < first
     assert net.output(ds.features).shape == (2, 6, 5)
 
 
-def test_lstm_kernel_entry_points_refuse_grad_requiring_inputs():
+def test_lstm_kernel_entry_points_are_differentiable():
+    """Grad-requiring inputs give outputs with a grad_fn whose backward
+    reaches every input (xz, rw, pw, h0, c0; W of the batch-major entry
+    point); without grad mode the same call records nothing."""
     T_, B_, H = 3, 2, 4
-    xz = torch.randn(T_, B_, 4 * H, requires_grad=True)
-    rest = [torch.zeros(H, 4 * H), torch.zeros(3, H), torch.zeros(B_, H),
-            torch.zeros(B_, H)]
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        lstm_recurrence(xz, *rest)
+    g = torch.Generator().manual_seed(0)
+    args = [torch.randn(*s, generator=g).requires_grad_() for s in (
+        (T_, B_, 4 * H), (H, 4 * H), (3, H), (B_, H), (B_, H))]
+    hs, hT, cT = lstm_recurrence(*args)
+    assert hs.grad_fn is not None and cT.grad_fn is not None
+    (hs.sum() + hT.sum() + cT.sum()).backward()
+    assert all(a.grad is not None and torch.isfinite(a.grad).all()
+               and a.grad.abs().sum() > 0 for a in args)
     with torch.no_grad():
-        hs, _, _ = lstm_recurrence(xz, *rest)
-    assert hs.shape == (T_, B_, H)
-    x = torch.randn(B_, T_, 5)
-    w = torch.randn(5, 4 * H, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        fused_lstm(x, w, rest[0], torch.zeros(4 * H), None, rest[2],
-                   rest[3])
+        hs, _, _ = lstm_recurrence(*args)
+    assert hs.shape == (T_, B_, H) and hs.grad_fn is None
+    x = torch.randn(B_, T_, 5, generator=g)
+    w = torch.randn(5, 4 * H, generator=g, requires_grad=True)
+    ys, _, _ = fused_lstm(x, w, args[1].detach(), torch.zeros(4 * H), None,
+                          args[3].detach(), args[4].detach())
+    assert ys.grad_fn is not None
+    ys.sum().backward()
+    assert w.grad is not None and w.grad.abs().sum() > 0
 
 
 def test_flash_attention_output_has_a_grad_fn_on_cpu():
