@@ -8,13 +8,17 @@ port's kernels from csrc/ on first use, one nvcc per source, in parallel.
 Phases, each printing JSON lines:
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, kernel build time;
+   versions, kernel build time, and the registers and spills ptxas
+   reports for K5 and K6 at each head-dim template (no spill allowed);
 2. kernels — the flash-attention forward kernel (K4) against its plain
    PyTorch version on the card in five cases, with kernel / plain / SDPA
    times and the card's bound at the GPT slice's shape; the backward
-   kernels (K5 dq, K6 dk/dv) against the plain FA2 backward in the same
-   five cases (exact zero grads for rows with no valid key, two launches
-   bitwise equal), with kernel / plain / SDPA-backward times and bounds;
+   kernels (K5 dq, K6 dk/dv, tensor cores in 3xTF32) against the plain
+   FA2 backward in the same five cases and a sixth with padded rows
+   (lengths 64-256: whole key tiles skipped, their dk/dv exactly 0), with
+   exact zero grads for rows with no valid key, two launches bitwise
+   equal, kernel / plain / SDPA-backward times, and bounds at the tensor
+   cores' peak and, as before, at the f32 CUDA-core peak;
    the LSTM recurrence kernel
    against its plain version in five cases (the char-RNN's shape, ragged
    sizes with a carry, the T=1 streaming step, bf16 over 64 steps, also
@@ -69,9 +73,11 @@ it exits 2 and prints no result.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -85,7 +91,9 @@ from deeplearning4j_tpu_torch.models.gpt import (
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.updater import compute_updates, tree_map
-from deeplearning4j_tpu_torch.ops.cuda_build import build_libraries
+from deeplearning4j_tpu_torch.ops.cuda_build import (
+    build_libraries, library_path,
+)
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     NEG_INF, attention_bwd_plain, attention_dvec, flash_attention,
     flash_attention_bwd_plain, flash_attention_dkv, flash_attention_dq,
@@ -98,7 +106,11 @@ from deeplearning4j_tpu_torch.ops.fused_lstm import (
 
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12       # CUDA cores, no tensor cores: the kernel's path
+F32_FLOPS_PER_S = 67e12       # CUDA cores, no tensor cores: K1-K4's path
+# tensor cores: an f32-accurate product is three TF32 products (3xTF32,
+# K5 and K6 on f32 inputs); bf16 inputs could take the bf16 rate
+TF32X3_FLOPS_PER_S = 495e12 / 3
+BF16_FLOPS_PER_S = 989e12
 
 # Tolerances. f32: the kernel and the plain version differ only in the
 # order of the f32 sums (the JAX package's own flash tolerance is 2e-5).
@@ -107,7 +119,9 @@ TOL_F32 = 2e-5
 TOL_BF16_O = 1.6e-2
 TOL_LSE = 1e-4
 # K5/K6 vs the plain backward, scaled by the largest |g| of each tensor.
-# f32: the reference's own grad tolerance; bf16: grads round to bf16 on
+# f32: the reference's own grad tolerance, which the kernels' 3xTF32
+# products meet with room (about 1e-6 emulated, 1xTF32 5e-4 to 8e-4:
+# tests/test_torch_flash_tensorcore.py); bf16: grads round to bf16 on
 # both sides, two bf16 ulps
 TOL_GRAD_F32 = 5e-5
 TOL_GRAD_BF16 = 1.6e-2
@@ -289,6 +303,12 @@ def attention_inputs(B, H, T, D, dtype, mask_kind):
         mask[1:, 130:170] = 0.0
     elif mask_kind == "half":
         mask = (torch.rand(B, T, generator=g) < 0.5).float()
+    elif mask_kind == "padded":
+        # serving rows of lengths 64-256: keys past a row's length are
+        # padding, whole 64-key tiles of them in the shorter rows
+        lengths = torch.randint(64, T + 1, (B,), generator=g)
+        lengths[0] = T
+        mask = (torch.arange(T)[None, :] < lengths[:, None]).float()
     if mask is not None:
         mask = mask.cuda()
     return q, k, v, mask
@@ -339,7 +359,10 @@ def bwd_bound_ms(B, H, T, D, dtype, causal, mask, part):
     lse and Dvec (and the mask) read once and its outputs (dq; or dk and
     dv) written once over HBM, against its multiply-adds over the (query,
     key) pairs this input needs (K5: s, dp, dq = 6 D FLOP a pair; K6: s,
-    dp, dv, dk = 8 D) at the f32 CUDA-core peak."""
+    dp, dv, dk = 8 D) at the peak of the arithmetic: the tensor cores in
+    3xTF32 for f32 inputs, bf16 for bf16. Returns (bound ms, "bytes" or
+    "operations", flops, bytes, the bound at the f32 CUDA-core peak, the
+    peak's name)."""
     es = torch.tensor([], dtype=dtype).element_size()
     n_out = 1 if part == "dq" else 2
     nbytes = (4 + n_out) * B * H * T * D * es + 2 * B * H * T * 4
@@ -350,9 +373,14 @@ def bwd_bound_ms(B, H, T, D, dtype, causal, mask, part):
         (T,), float(T))
     pairs = H * float((valid * per_key).sum())
     flops = (6.0 if part == "dq" else 8.0) * D * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    peak, peak_name = ((TF32X3_FLOPS_PER_S, "3xTF32 tensor cores")
+                       if dtype == torch.float32
+                       else (BF16_FLOPS_PER_S, "bf16 tensor cores"))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    simt = max(t_bytes, flops / F32_FLOPS_PER_S) * 1e3
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
+            simt, peak_name)
 
 
 def sdpa_backward_ms(q, k, v, d_out, causal):
@@ -406,10 +434,19 @@ def bwd_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
         rec["no_valid_key_grads_exact_zero"] = rows_ok
         check(rows_ok, f"case {name}: grads of rows / keys with no valid "
                        "pair are not exactly 0")
+    if mask_kind == "padded":
+        pad = (mask == 0)[:, None, :, None].expand_as(dk)
+        keys_ok = bool(torch.all(dk[pad] == 0) and torch.all(dv[pad] == 0))
+        rec["padded_keys_exact_zero"] = keys_ok
+        rec["padded_key_tiles"] = int((mask.view(B, -1, 64).amax(-1) == 0)
+                                      .sum()) if T % 64 == 0 else None
+        check(keys_ok, f"case {name}: padded keys' dk / dv are not exactly 0")
     for part in ("dq", "dkv"):
-        bound, by, flops, nbytes = bwd_bound_ms(B, H, T, D, dtype, causal,
-                                                mask, part)
+        bound, by, flops, nbytes, simt, peak = bwd_bound_ms(
+            B, H, T, D, dtype, causal, mask, part)
         rec.update({f"bound_ms_{part}": bound, f"bound_by_{part}": by,
+                    f"bound_peak_{part}": peak,
+                    f"bound_ms_simt_{part}": simt,
                     f"flops_{part}": flops, f"bytes_{part}": nbytes})
     if timed:
         rec["ms_dq"] = cuda_ms(lambda: flash_attention_dq(
@@ -430,6 +467,37 @@ def bwd_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
     check(ok, f"case {name}: K5/K6 differ from the plain backward: {rec}")
     check(rec["bitwise_repeat"], f"case {name}: two launches differ")
     return rec
+
+
+def ptxas_report(names):
+    """Registers, stack and spills of every kernel of the named libraries,
+    from nvcc's ``-Xptxas -v`` log beside each library."""
+    out = []
+    for name in names:
+        cur = None
+        log = Path(f"{library_path(name)}.log").read_text()
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = dict(library=name)
+                k = re.search(r"(flash_dq_kernel|flash_dkv_kernel)I"
+                              r"(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
+                if k:
+                    cur.update(kernel=k.group(1), dmax=int(k.group(3)),
+                               dtype="float32" if k.group(2) == "f"
+                               else "bfloat16")
+                out.append(cur)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur.update(stack_bytes=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+    return out
 
 
 def lstm_bound_ms(T, B, H, dtype):
@@ -1144,6 +1212,13 @@ def main() -> int:
               name=torch.cuda.get_device_name(0),
               torch=torch.__version__, cuda=torch.version.cuda,
               kernel_build_s=build_s))
+    ptxas = ptxas_report(["flash_attn_dq", "flash_attn_dkv"])
+    emit(dict(phase="ptxas", kernels=ptxas))
+    check(len(ptxas) == 12 and all(
+        r.get("registers") and r.get("spill_stores") == 0 and
+        r.get("spill_loads") == 0 for r in ptxas),
+        "K5 / K6: ptxas reports a spill, or not 2 kernels x 2 types x 3 "
+        f"head-dim templates: {ptxas}")
 
     # ---- 2. kernels against their plain versions ---------------------------
     a = kernel_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
@@ -1179,6 +1254,8 @@ def main() -> int:
     bwd_case("d_bf16", 32, 8, 256, 64, True, torch.bfloat16, None)
     bwd_case("e_slice_half_keys", 32, 8, 256, 64, True, torch.float32,
              "half", timed=True)
+    bwd_case("f_slice_padded", 32, 8, 256, 64, True, torch.float32,
+             "padded", timed=True)
 
     # ---- 3. the slice: full-width GPT serving on the card ------------------
     flash_launches = gpt_slice(a["ms"])
@@ -1220,7 +1297,9 @@ def main() -> int:
              launches=train_path["flash_attn_dq"],
              max_abs_err=g["max_abs_err_dq"], ms=g["ms_dq"],
              plain_ms=g["plain_ms_dq"], bound_ms=g["bound_ms_dq"],
-             bound_by=g["bound_by_dq"], library_ms=g["library_ms"],
+             bound_by=g["bound_by_dq"], bound_peak=g["bound_peak_dq"],
+             bound_ms_simt=g["bound_ms_simt_dq"],
+             library_ms=g["library_ms"],
              library_covers=g["library_covers"]),
         dict(name="flash_attn_dkv", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_dkv.cu",
@@ -1229,6 +1308,8 @@ def main() -> int:
              max_abs_err=max(g["max_abs_err_dk"], g["max_abs_err_dv"]),
              ms=g["ms_dkv"], plain_ms=g["plain_ms_dkv"],
              bound_ms=g["bound_ms_dkv"], bound_by=g["bound_by_dkv"],
+             bound_peak=g["bound_peak_dkv"],
+             bound_ms_simt=g["bound_ms_simt_dkv"],
              library_ms=g["library_ms"],
              library_covers=g["library_covers"]),
         dict(name="lstm_fwd_train", route="cuda",

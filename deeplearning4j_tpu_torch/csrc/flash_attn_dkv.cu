@@ -1,10 +1,11 @@
 // Flash-attention backward, dk and dv (FlashAttention-2), for Hopper
-// (sm_90a), CUDA cores, f32 accumulation.
+// (sm_90a), tensor cores (mma.sync tf32, 3xTF32 for f32 inputs), f32
+// accumulation.
 //
-// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas_attention.py
-// `_dkv_kernel` (the dk/dv `pallas_call` of `_run_bwd`). Contract kept
-// from it: per KV tile, looping the query tiles from the diagonal (causal)
-// or from 0,
+// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas_attention.py:192
+// `_dkv_kernel` (the dk/dv `pallas_call` of `_run_bwd`, :258). Contract
+// kept from it: per KV tile, looping the query tiles from the diagonal
+// (causal) or from 0,
 //   p  = exp(s - lse), s = (q k^T) / sqrt(D), from the forward's lse;
 //   dv = sum over queries of p^T dO;
 //   ds = p * (dp - Dvec), dp = dO v^T, Dvec = rowsum(dO * O) (f32, outside);
@@ -12,233 +13,291 @@
 //   a query row whose lse is NEG_INF (no valid key) gets p = 0 by a select
 //   taken before any product, so it adds exactly nothing to dk and dv.
 // Not carried over: the TPU kernel's T and D padding to 128 and its
-// sqrt(Dp)/sqrt(D) pre-scale of q; here the scale is 1/sqrt(D), D is a
-// template bound (32/64/128) with the tail zero-filled in shared memory,
-// and the ragged T edge is masked inside the kernel.
+// sqrt(Dp)/sqrt(D) pre-scale of q; here the scale is 1/sqrt(D) on s and on
+// dk, D is a template bound (32/64/128) with the tail zero-filled in
+// shared memory, and the ragged T edge is masked inside the kernel.
 //
 // What bounds it on an H100: at the GPT training shape (B=32, H=8, T=256,
 // D=64, causal, f32) it does 8 D FLOP per causal (query, key) pair (s, dp,
-// dv and dk), ~4.3 GFLOP, against ~101 MB of traffic: ~43 FLOP per byte,
-// above the f32 CUDA-core ridge (20). So the bound is operations, and this
-// first version does them on CUDA cores with FMAs:
-//   * a 256-thread block owns 64 keys; their k and v tiles stay in shared
-//     memory for the whole block, and the two [64, D] f32 accumulators
-//     (dk, dv) live in registers: thread (ty, tx) owns keys ty + 16 i
-//     (i < 4) and columns tx + 16 j (j < D/16) of both, 2 x 4 x 8 = 64
-//     registers at D = 128, where shared memory would need another 64 KB;
-//   * each query tile (q pre-scaled, dO, lse, Dvec) streams through shared
-//     memory; s^T and dp^T come out of one pass over d (s in the forward's
-//     summation order), and p^T and ds^T go through shared memory once for
-//     the two accumulating products;
-//   * shared memory: k, v, q, dO tiles at an odd row stride plus p^T, ds^T:
-//     ~162 KB at D = 128, ~98 KB at D = 64, so the launch raises the
-//     block's dynamic shared-memory limit first and reports a refusal;
-//   * causal blocks are issued longest-first (KV tile 0 first: it sees
-//     every query tile).
+// dv and dk), 4.31 GFLOP, against 101.2 MB of traffic. On tensor cores in
+// 3xTF32 (165 TFLOP/s) the operations take 0.0261 ms and the bytes
+// 0.0302 ms: the bound is bytes, 0.0302 ms (0.0644 ms by operations at
+// the f32 CUDA-core peak). The design (fragment layouts in flash_mma.cuh):
+//   * a block owns 64 keys, 16 per warp group; their k and v tiles stay
+//     in shared memory for the whole block, and a warp's dk and dv
+//     [16, D] f32 accumulators live in mma fragments; s^T = k q^T and
+//     dp^T = v dO^T come out with the keys as rows, so p^T and ds^T are
+//     already the A operands of dv += p^T dO and dk += ds^T q, fed from
+//     registers in the permuted query order. At D = 128 two warps share a
+//     16-key group (256 threads), each holding half of dk's and dv's
+//     columns, 64 registers, where one warp would spill;
+//   * f32 operands are split into two tf32 halves as their fragments are
+//     loaded (3xTF32, big by truncation); bf16 operands are exact in tf32,
+//     and p, ds are rounded to tf32 once; one k step's products go to
+//     independent accumulators in turn;
+//   * the query tiles of 32 rows (q, dO, lse, Dvec) stream through shared
+//     memory, double-buffered with cp.async; 70 KB of shared memory and at
+//     most 170 registers (D = 64, f32) let three blocks share an SM; a
+//     warp skips a tile wholly before its keys' causal diagonal;
+//   * with a key mask, a block whose 64 keys are all invalid writes zeros
+//     and returns (a block vote); causal blocks are scheduled longest-first
+//     (KV tile 0 first: it sees every query tile).
 // One block per (batch x head, KV tile) writes its own dk/dv rows: no
 // atomics, so two launches on the same inputs are bitwise equal.
-// Tensor cores (mma.sync / wgmma) and TMA double-buffering are left to a
-// later version.
+// Measured on an NVIDIA H100 80GB HBM3 at its 700 W power limit
+// (chip_smoke.py, tools/flash_bwd_ab.py; PERF.md): 0.123 ms at the
+// shape above, 4.1x the bound, where the CUDA-core version it replaced
+// took 0.246 ms in the same process; with K5 0.212 ms against 0.31-0.35
+// ms for SDPA's whole backward.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_mma.cuh"
 
 #include <cmath>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per streamed tile
+using namespace flash_mma;
+
+constexpr int BQ = 32;        // query rows per streamed tile
 constexpr int BK = 64;        // keys per block
-constexpr int NT = 256;       // threads per block: a 16 x 16 grid
-constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
+// Warps that share a 16-key group, each accumulating D / DSPLIT columns
+// of its dk and dv: two at DMAX = 128, so that dk and dv take 64
+// registers a thread, not 128.
 template <int DMAX>
+__host__ __device__ constexpr int dsplit() {
+  return DMAX > 64 ? 2 : 1;
+}
+template <int DMAX>
+__host__ __device__ constexpr int threads() {
+  return 128 * dsplit<DMAX>();
+}
+
+// K and V, two stages of q and dO, two of lse and Dvec: 70 KB at D = 64
+// in f32, so three blocks share an SM
+template <typename T, int DMAX>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(2 * BK * (DMAX + 1) + 2 * BQ * (DMAX + 1) +
-                                  2 * BK * (BQ + 1) + 2 * BQ);
+  return sizeof(T) * (size_t)((2 * BK + 4 * BQ) * row_stride<T, DMAX>()) +
+         sizeof(float) * 4 * BQ;
 }
 
 // q, k, v, dO, dk, dv: [BH, T, D] contiguous; kv_mask: [BH / H, T] (> 0 =
 // valid key) or null; lse, dvec: [BH, T] f32.
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(DMAX > 64 ? 256 : 128, DMAX > 64 ? 1 : 3)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ kv_mask,
                  const T* __restrict__ dO, const float* __restrict__ lse,
                  const float* __restrict__ dvec, T* __restrict__ dk,
                  T* __restrict__ dv, int H, int Tn, int D, int causal,
-                 float scale) {
-  constexpr int S = DMAX + 1;   // odd strides: conflict-free column reads
-  constexpr int PQ = BQ + 1;
-  constexpr int DJ = DMAX / 16;  // dk/dv columns per thread
-  extern __shared__ float smem[];
-  float* sK = smem;              // [BK][S]
-  float* sV = sK + BK * S;       // [BK][S]
-  float* sQ = sV + BK * S;       // [BQ][S], pre-scaled by 1/sqrt(D)
-  float* sdO = sQ + BQ * S;      // [BQ][S]
-  float* sP = sdO + BQ * S;      // [BK][PQ] p^T of this query tile
-  float* sdS = sP + BK * PQ;     // [BK][PQ] ds^T of this query tile
-  float* sLse = sdS + BK * PQ;   // [BQ]
-  float* sDvec = sLse + BQ;      // [BQ]
+                 float scale, int vec) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int S = row_stride<T, DMAX>();
+  constexpr int NT = threads<DMAX>();
+  constexpr int NQC = BQ / 8;               // 8-query n-tiles per tile
+  constexpr int NDW = DMAX / 8 / dsplit<DMAX>();  // this warp's column tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);  // [BK][S]
+  T* sV = sK + BK * S;                     // [BK][S]
+  T* sQ = sV + BK * S;                     // [2][BQ][S]
+  T* sdO = sQ + 2 * BQ * S;                // [2][BQ][S]
+  float* sLse = reinterpret_cast<float*>(sdO + 2 * BQ * S);  // [2][BQ]
+  float* sDvec = sLse + 2 * BQ;                              // [2][BQ]
 
   const int bh = blockIdx.x;
   const int k0 = (int)blockIdx.y * BK;
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int kw = warp & 3;              // this warp's 16-key group
+  const int d0 = (warp >> 2) * 8 * NDW;  // and its first dk / dv column
   const size_t base = (size_t)bh * Tn * D;
   const size_t rbase = (size_t)bh * Tn;
   const float* mrow = kv_mask ? kv_mask + (size_t)(bh / H) * Tn : nullptr;
 
-  for (int i = tid; i < BK * DMAX; i += NT) {
-    const int r = i / DMAX, d = i % DMAX, t = k0 + r;
-    const bool in = t < Tn && d < D;
-    const size_t g = base + (size_t)t * D + d;
-    sK[r * S + d] = in ? to_f32(k[g]) : 0.f;
-    sV[r * S + d] = in ? to_f32(v[g]) : 0.f;
-  }
-  bool key_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
-    key_ok[i] = t < Tn && (mrow == nullptr || mrow[t] > 0.f);
+  if (mrow != nullptr &&
+      !__syncthreads_or(tid < BK && k0 + tid < Tn && mrow[k0 + tid] > 0.f)) {
+    // no valid key in this block: its dk and dv rows are exactly 0
+    for (int i = tid; i < BK * D; i += NT) {
+      const int tk = k0 + i / D;
+      if (tk < Tn) {
+        store(&dk[base + (size_t)tk * D + i % D], 0.f);
+        store(&dv[base + (size_t)tk * D + i % D], 0.f);
+      }
+    }
+    return;
   }
 
-  float adk[4][DJ], adv[4][DJ];
+  load_rows<T, DMAX, BK, NT>(sK, k + base, k0, Tn, D, vec, tid);
+  load_rows<T, DMAX, BK, NT>(sV, v + base, k0, Tn, D, vec, tid);
+
+  // this thread's two keys: r0 (accumulator slots 0, 1) and r0 + 8 (2, 3)
+  const int r0 = kw * 16 + g;
+  bool key_ok[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 2; ++h) {
+    const int tk = k0 + r0 + 8 * h;
+    key_ok[h] = tk < Tn && (mrow == nullptr || mrow[tk] > 0.f);
+  }
+
+  float adk[NDW][4], adv[NDW][4];
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) adk[i][j] = adv[i][j] = 0.f;
+  for (int j = 0; j < NDW; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) adk[j][i] = adv[j][i] = 0.f;
+
+  auto prefetch = [&](int qt, int stage) {
+    const int q0 = qt * BQ;
+    load_rows<T, DMAX, BQ, NT>(sQ + stage * BQ * S, q + base, q0, Tn, D, vec,
+                               tid);
+    load_rows<T, DMAX, BQ, NT>(sdO + stage * BQ * S, dO + base, q0, Tn, D,
+                               vec, tid);
+    if (tid < BQ) {
+      const int tq = q0 + tid;
+      sLse[stage * BQ + tid] = tq < Tn ? lse[rbase + tq] : NEG_INF;
+      sDvec[stage * BQ + tid] = tq < Tn ? dvec[rbase + tq] : 0.f;
+    }
+  };
 
   const int n_q = (Tn + BQ - 1) / BQ;
   // causal: query tiles wholly above this KV tile's diagonal never attend
   // to it (positions, not tile indices, decide)
-  const int qt_begin = causal ? k0 / BQ : 0;
-  for (int qt = qt_begin; qt < n_q; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // last tile's readers are done; K and V are in
-    for (int i = tid; i < BQ * DMAX; i += NT) {
-      const int r = i / DMAX, d = i % DMAX, t = q0 + r;
-      const bool in = t < Tn && d < D;
-      const size_t g = base + (size_t)t * D + d;
-      sQ[r * S + d] = in ? to_f32(q[g]) * scale : 0.f;
-      sdO[r * S + d] = in ? to_f32(dO[g]) : 0.f;
-    }
-    if (tid < BQ) {
-      const int t = q0 + tid;
-      sLse[tid] = t < Tn ? lse[rbase + t] : NEG_INF;
-      sDvec[tid] = t < Tn ? dvec[rbase + t] : 0.f;
-    }
+  int qt = causal ? k0 / BQ : 0;
+  prefetch(qt, 0);
+  cp_async_commit();
+  int stage = 0;
+  for (; qt < n_q; ++qt) {
+    if (qt + 1 < n_q) prefetch(qt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this query tile (and K, V) have landed
     __syncthreads();
 
-    // s^T[key][query] and dp^T[key][query]
-    float s[4][4], dp[4][4];
+    const int q0 = qt * BQ;
+    const T* Qs = sQ + stage * BQ * S;
+    const T* dOs = sdO + stage * BQ * S;
+    const float* Ls = sLse + stage * BQ;
+    const float* Ds = sDvec + stage * BQ;
+    // a tile wholly before this warp's first key's diagonal adds nothing
+    if (!causal || q0 + BQ - 1 >= k0 + kw * 16) {
+      // s^T = k q^T and dp^T = v dO^T for the tile's queries
+      float s[NQC][4], dp[NQC][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NQC; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DMAX; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
+        for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = sK[(ty + 16 * i) * S + d];
-        vv[i] = sV[(ty + 16 * i) * S + d];
-      }
+      for (int kk = 0; kk < DMAX; kk += 8) {
+        uint32_t kb[4], ks[4], vb[4], vs[4];
+        load_a<SPLIT>(sK, S, r0, kk, t, kb, ks);
+        load_a<SPLIT>(sV, S, r0, kk, t, vb, vs);
+        uint32_t qb[NQC][2], qs[NQC][2], ob[NQC][2], os[NQC][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * S + d];
-        ov[j] = sdO[(tx + 16 * j) * S + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[j], kv[i], s[i][j]);
-          dp[i][j] = fmaf(ov[j], vv[i], dp[i][j]);
+        for (int j = 0; j < NQC; ++j) {
+          load_bt<SPLIT>(Qs, S, 8 * j, kk, g, t, qb[j], qs[j]);
+          load_bt<SPLIT>(dOs, S, 8 * j, kk, g, t, ob[j], os[j]);
         }
+        if (SPLIT) {
+#pragma unroll
+          for (int j = 0; j < NQC; ++j) {
+            mma_tf32(s[j], ks, qb[j]);
+            mma_tf32(dp[j], vs, ob[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < NQC; ++j) {
+            mma_tf32(s[j], kb, qs[j]);
+            mma_tf32(dp[j], vb, os[j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NQC; ++j) {
+          mma_tf32(s[j], kb, qb[j]);
+          mma_tf32(dp[j], vb, ob[j]);
+        }
+      }
+      // p^T into s, ds^T into dp, gated by a select before any product
+#pragma unroll
+      for (int j = 0; j < NQC; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int h = i >> 1;
+          const int qc = 8 * j + 2 * t + (i & 1);
+          const float l = Ls[qc];
+          const bool ok = key_ok[h] && l > NEG_INF / 2 &&
+                          (!causal || k0 + r0 + 8 * h <= q0 + qc);
+          const float p = ok ? expf(s[j][i] * scale - l) : 0.f;
+          s[j][i] = p;
+          dp[j][i] = p * (dp[j][i] - Ds[qc]);
+        }
+      // dv += p^T dO and dk += ds^T q over the tile's queries, four
+      // column tiles of each in turn
+#pragma unroll
+      for (int j = 0; j < NQC; ++j) {
+        uint32_t pb[4], ps[4], db[4], ds[4];
+        acc_as_a<SPLIT>(s[j], pb, ps);
+        acc_as_a<SPLIT>(dp[j], db, ds);
+#pragma unroll
+        for (int n0 = 0; n0 < NDW; n0 += 4) {
+          uint32_t ob[4][2], os[4][2], qb[4][2], qs[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = d0 + 8 * (n0 + i);
+            mma_pair_b<SPLIT>(dOs, S, 8 * j, col, g, t, ob[i], os[i]);
+            mma_pair_b<SPLIT>(Qs, S, 8 * j, col, g, t, qb[i], qs[i]);
+          }
+          if (SPLIT) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              mma_tf32(adv[n0 + i], ps, ob[i]);
+              mma_tf32(adk[n0 + i], ds, qb[i]);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              mma_tf32(adv[n0 + i], pb, os[i]);
+              mma_tf32(adk[n0 + i], db, qs[i]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            mma_tf32(adv[n0 + i], pb, ob[i]);
+            mma_tf32(adk[n0 + i], db, qb[i]);
+          }
+        }
+      }
     }
+    __syncthreads();  // every warp is done with this stage
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
 
+#pragma unroll
+  for (int n = 0; n < NDW; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float l = sLse[c];
-        const bool ok = key_ok[i] && l > NEG_INF / 2 &&
-                        (!causal || k0 + r <= q0 + c);
-        const float p = ok ? expf(s[i][j] - l) : 0.f;
-        sP[r * PQ + c] = p;
-        sdS[r * PQ + c] = p * (dp[i][j] - sDvec[c]);
+      const int tk = k0 + r0 + 8 * (i >> 1);
+      const int d = d0 + 8 * n + 2 * t + (i & 1);
+      if (tk < Tn && d < D) {
+        store(&dk[base + (size_t)tk * D + d], adk[n][i] * scale);
+        store(&dv[base + (size_t)tk * D + d], adv[n][i]);
       }
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BQ; ++c) {
-      float pv[4], dsv[4], ov[DJ], qv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sP[(ty + 16 * i) * PQ + c];
-        dsv[i] = sdS[(ty + 16 * i) * PQ + c];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        ov[j] = sdO[c * S + tx + 16 * j];
-        qv[j] = sQ[c * S + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          adv[i][j] = fmaf(pv[i], ov[j], adv[i][j]);
-          adk[i][j] = fmaf(dsv[i], qv[j], adk[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
-    if (t >= Tn) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) {
-        // sQ holds q / sqrt(D), so adk is already dk
-        store(&dk[base + (size_t)t * D + d], adk[i][j]);
-        store(&dv[base + (size_t)t * D + d], adv[i][j]);
-      }
-    }
-  }
 }
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_mask, const void* dO, const void* lse,
                    const void* dvec, void* dk, void* dv, int BH, int H,
-                   int Tn, int D, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DMAX>();
+                   int Tn, int D, int causal, int vec, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, DMAX>();
   auto kern = flash_dkv_kernel<T, DMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(BH, (Tn + BK - 1) / BK);
-  kern<<<grid, NT, smem, stream>>>(
+  kern<<<grid, threads<DMAX>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(kv_mask),
       static_cast<const T*>(dO), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<T*>(dk),
-      static_cast<T*>(dv), H, Tn, D, causal, 1.0f / sqrtf((float)D));
+      static_cast<T*>(dv), H, Tn, D, causal, 1.0f / sqrtf((float)D), vec);
   return cudaGetLastError();
 }
 
@@ -247,14 +306,19 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* kv_mask, const void* dO, const void* lse,
                      const void* dvec, void* dk, void* dv, int BH, int H,
                      int Tn, int D, int causal, cudaStream_t stream) {
+  // cp.async moves 16-byte pieces: rows of a whole number of them, and
+  // 16-byte aligned tensors
+  const int vec = (D * (int)sizeof(T)) % 16 == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                   (uintptr_t)dO) % 16 == 0;
   if (D <= 32)
     return launch<T, 32>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H, Tn,
-                         D, causal, stream);
+                         D, causal, vec, stream);
   if (D <= 64)
     return launch<T, 64>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H, Tn,
-                         D, causal, stream);
+                         D, causal, vec, stream);
   return launch<T, 128>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H, Tn, D,
-                        causal, stream);
+                        causal, vec, stream);
 }
 
 }  // namespace

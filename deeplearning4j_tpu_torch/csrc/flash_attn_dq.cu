@@ -1,8 +1,9 @@
 // Flash-attention backward, dq (FlashAttention-2), for Hopper (sm_90a),
-// CUDA cores, f32 accumulation.
+// tensor cores (mma.sync tf32, 3xTF32 for f32 inputs), f32 accumulation.
 //
-// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas_attention.py
-// `_dq_kernel` (the dq `pallas_call` of `_run_bwd`). Contract kept from it:
+// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas_attention.py:152
+// `_dq_kernel` (the dq `pallas_call` of `_run_bwd`, :248). Contract kept
+// from it:
 //   p  = exp(s - lse) with s = (q k^T) / sqrt(D), recomputed per KV tile
 //        from the forward's natural-log lse (f32);
 //   ds = p * (dp - Dvec), dp = dO v^T, Dvec = rowsum(dO * O) (computed
@@ -13,204 +14,254 @@
 //   taken before any product (exp(s - lse) is inf there, and inf * 0 would
 //   be NaN), so its dq is exactly 0.
 // Not carried over: the TPU kernel pads T and D to 128 and pre-scales q by
-// sqrt(Dp)/sqrt(D); here the scale is 1/sqrt(D) directly, D is a template
-// bound (32/64/128) with the tail zero-filled in shared memory, and the
-// ragged T edge is masked inside the kernel.
+// sqrt(Dp)/sqrt(D); here the scale is 1/sqrt(D) on s and on dq, D is a
+// template bound (32/64/128) with the tail zero-filled in shared memory,
+// and the ragged T edge is masked inside the kernel.
 //
 // What bounds it on an H100: at the GPT training shape (B=32, H=8, T=256,
 // D=64, causal, f32) the kernel does 6 D FLOP per causal (query, key) pair
-// (s, dp and dq), ~3.2 GFLOP, against ~84 MB of q/k/v/dO/dq/lse/Dvec
-// traffic: ~38 FLOP per byte, above the f32 CUDA-core ridge (67 TFLOP/s /
-// 3.35 TB/s = 20). So the bound is operations. This first version does the
-// arithmetic on CUDA cores with FMAs; its design mirrors the forward kernel
-// (csrc/flash_attn_fwd.cu) to keep the FMA units fed:
-//   * a 256-thread block owns 64 query rows and walks the KV tiles up to
-//     the diagonal; thread (ty, tx) of the 16 x 16 grid owns rows ty + 16 i
-//     and keys tx + 16 j (i, j < 4) of each score tile, and columns
-//     tx + 16 j of dq, accumulated in registers across the tiles;
-//   * s and dp come out of one pass over d: each value loaded from shared
-//     memory feeds 4 FMAs, and s is summed in the forward's order, so p
-//     matches the forward's lse to the rounding of lse;
-//   * ds goes through shared memory once per tile for the ds k product;
-//   * shared-memory rows are padded to an odd stride (conflict-free column
-//     reads), and causal blocks are issued longest-first.
+// (s, dp and dq), 3.23 GFLOP, against 84.4 MB of q/k/v/dO/dq/lse/Dvec
+// traffic. With the products on tensor cores in 3xTF32 (three TF32
+// products per f32 product: 495 / 3 = 165 TFLOP/s) the operations take
+// 0.0196 ms and the bytes 0.0252 ms at 3.35 TB/s: the bound is bytes,
+// 0.0252 ms (it was 0.0483 ms by operations at the f32 CUDA-core peak).
+// The design (the products' fragment layouts are in flash_mma.cuh):
+//   * a 128-thread block owns 64 query rows, 16 per warp, and walks the
+//     KV tiles of 32 keys up to the diagonal; s = q k^T and dp = dO v^T
+//     are m16n8k8 tf32 mma.sync products from shared memory, and
+//     ds = p (dp - Dvec) feeds dq += ds k from registers (the
+//     accumulator-as-A-operand layout with the permuted key order),
+//     accumulated in registers across the tiles;
+//   * f32 operands are split into two tf32 halves as their fragments are
+//     loaded (3xTF32, big by truncation: the split is two instructions,
+//     where rounding both halves to nearest took a third of the kernel's
+//     time); bf16 operands are exact in tf32, one product each, and p, ds
+//     are rounded to tf32 once;
+//   * one k step's products go to the tile's 8 accumulators in turn, so
+//     consecutive mma.sync never wait on each other;
+//   * K and V tiles are double-buffered with cp.async (zero fill past T
+//     and D), the next tile's copies in flight while this one computes;
+//     70 KB of shared memory and at most 170 registers (D = 64, f32) let
+//     three blocks share an SM;
+//   * with a key mask, a KV tile whose keys are all invalid is skipped (a
+//     block vote), and a warp skips a tile wholly past its rows' causal
+//     diagonal; causal blocks are scheduled longest-first.
 // One block per (batch x head, query tile) writes its own dq rows: no
 // atomics, so two launches on the same inputs are bitwise equal.
-// Tensor cores (mma.sync / wgmma) and TMA double-buffering are left to a
-// later version.
+// Measured on an NVIDIA H100 80GB HBM3 at its 700 W power limit
+// (chip_smoke.py, tools/flash_bwd_ab.py; PERF.md): 0.089 ms at the
+// shape above, 3.5x the bound, where the CUDA-core version it replaced
+// took 0.193 ms in the same process; with K6 0.212 ms against 0.31-0.35
+// ms for SDPA's whole backward.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_mma.cuh"
 
 #include <cmath>
 
 namespace {
 
+using namespace flash_mma;
+
 constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per KV tile
-constexpr int NT = 256;       // threads per block: a 16 x 16 grid
-constexpr float NEG_INF = -1e30f;
+constexpr int BK = 32;        // keys per KV tile
+constexpr int NT = 128;       // threads per block: 4 warps x 16 rows
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <int DMAX>
+// Q and dO, two stages of K and V, two stages of key validity: 70 KB at
+// D = 64 in f32, so three blocks share an SM
+template <typename T, int DMAX>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(2 * BQ * (DMAX + 1) + 2 * BK * (DMAX + 1) +
-                                  BQ * (BK + 1) + BK + 2 * BQ);
+  return sizeof(T) * (size_t)((2 * BQ + 4 * BK) * row_stride<T, DMAX>()) +
+         sizeof(float) * 2 * BK;
+}
+
+// The first KV tile at or after j with a valid key (every tile, without a
+// mask). A block-wide vote: every thread calls it with the same j.
+__device__ __forceinline__ int next_tile(int j, int end,
+                                         const float* __restrict__ mrow,
+                                         int Tn, int tid) {
+  if (mrow == nullptr) return j;
+  for (; j < end; ++j) {
+    const int key = j * BK + tid;
+    if (__syncthreads_or(tid < BK && key < Tn && mrow[key] > 0.f)) break;
+  }
+  return j;
 }
 
 // q, k, v, dO, dq: [BH, T, D] contiguous; kv_mask: [BH / H, T] (> 0 = valid
 // key) or null; lse, dvec: [BH, T] f32.
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, DMAX > 64 ? 1 : 3)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ kv_mask,
                 const T* __restrict__ dO, const float* __restrict__ lse,
                 const float* __restrict__ dvec, T* __restrict__ dq, int H,
-                int Tn, int D, int causal, float scale) {
-  constexpr int S = DMAX + 1;   // odd strides: conflict-free column reads
-  constexpr int PS = BK + 1;
-  constexpr int DJ = DMAX / 16;  // dq columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;              // [BQ][S], pre-scaled by 1/sqrt(D)
-  float* sdO = sQ + BQ * S;      // [BQ][S]
-  float* sK = sdO + BQ * S;      // [BK][S]
-  float* sV = sK + BK * S;       // [BK][S]
-  float* sdS = sV + BK * S;      // [BQ][PS] ds of this tile
-  float* sBias = sdS + BQ * PS;  // [BK] 0 = usable key, NEG_INF = not
-  float* sLse = sBias + BK;      // [BQ]
-  float* sDvec = sLse + BQ;      // [BQ]
+                int Tn, int D, int causal, float scale, int vec) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int S = row_stride<T, DMAX>();
+  constexpr int NKC = BK / 8;     // 8-key n-tiles per tile
+  constexpr int ND = DMAX / 8;    // 8-column n-tiles of dq
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [BQ][S]
+  T* sdO = sQ + BQ * S;                    // [BQ][S]
+  T* sK = sdO + BQ * S;                    // [2][BK][S]
+  T* sV = sK + 2 * BK * S;                 // [2][BK][S]
+  float* sValid = reinterpret_cast<float*>(sV + 2 * BK * S);  // [2][BK]
 
   const int bh = blockIdx.x;
   const int n_q = (Tn + BQ - 1) / BQ;
   const int q0 = (n_q - 1 - (int)blockIdx.y) * BQ;
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const size_t base = (size_t)bh * Tn * D;
   const size_t rbase = (size_t)bh * Tn;
   const float* mrow = kv_mask ? kv_mask + (size_t)(bh / H) * Tn : nullptr;
 
-  for (int i = tid; i < BQ * DMAX; i += NT) {
-    const int r = i / DMAX, d = i % DMAX, t = q0 + r;
-    const bool in = t < Tn && d < D;
-    const size_t g = base + (size_t)t * D + d;
-    sQ[r * S + d] = in ? to_f32(q[g]) * scale : 0.f;
-    sdO[r * S + d] = in ? to_f32(dO[g]) : 0.f;
-  }
-  if (tid < BQ) {
-    const int t = q0 + tid;
-    sLse[tid] = t < Tn ? lse[rbase + t] : NEG_INF;
-    sDvec[tid] = t < Tn ? dvec[rbase + t] : 0.f;
+  load_rows<T, DMAX, BQ, NT>(sQ, q + base, q0, Tn, D, vec, tid);
+  load_rows<T, DMAX, BQ, NT>(sdO, dO + base, q0, Tn, D, vec, tid);
+
+  // this thread's two rows: r0 (accumulator slots 0, 1) and r0 + 8 (2, 3)
+  const int r0 = warp * 16 + g;
+  float row_lse[2], row_dvec[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int tq = q0 + r0 + 8 * h;
+    row_lse[h] = tq < Tn ? lse[rbase + tq] : NEG_INF;
+    row_dvec[h] = tq < Tn ? dvec[rbase + tq] : 0.f;
   }
 
-  float acc[4][DJ];
+  float acc[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < ND; ++j)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  auto prefetch = [&](int kt, int stage) {
+    const int k0 = kt * BK;
+    load_rows<T, DMAX, BK, NT>(sK + stage * BK * S, k + base, k0, Tn, D, vec,
+                               tid);
+    load_rows<T, DMAX, BK, NT>(sV + stage * BK * S, v + base, k0, Tn, D, vec,
+                               tid);
+    if (tid < BK) {
+      const int key = k0 + tid;
+      sValid[stage * BK + tid] =
+          (key < Tn && (mrow == nullptr || mrow[key] > 0.f)) ? 1.f : 0.f;
+    }
+  };
 
   const int n_kv = (Tn + BK - 1) / BK;
   const int kv_end = causal ? min(n_kv, (q0 + BQ - 1) / BK + 1) : n_kv;
-  for (int kt = 0; kt < kv_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // last tile's readers are done; Q and dO are in
-    for (int i = tid; i < BK * DMAX; i += NT) {
-      const int r = i / DMAX, d = i % DMAX, t = k0 + r;
-      const bool in = t < Tn && d < D;
-      const size_t g = base + (size_t)t * D + d;
-      sK[r * S + d] = in ? to_f32(k[g]) : 0.f;
-      sV[r * S + d] = in ? to_f32(v[g]) : 0.f;
-    }
-    if (tid < BK) {
-      const int t = k0 + tid;
-      sBias[tid] = (t < Tn && (mrow == nullptr || mrow[t] > 0.f)) ? 0.f
-                                                                   : NEG_INF;
-    }
+  int kt = next_tile(0, kv_end, mrow, Tn, tid);
+  if (kt < kv_end) prefetch(kt, 0);
+  cp_async_commit();
+  int stage = 0;
+  while (kt < kv_end) {
+    const int kn = next_tile(kt + 1, kv_end, mrow, Tn, tid);
+    if (kn < kv_end) prefetch(kn, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q, dO) have landed
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    const int k0 = kt * BK;
+    const T* Ks = sK + stage * BK * S;
+    const T* Vs = sV + stage * BK * S;
+    const float* valid = sValid + stage * BK;
+    // a tile wholly past this warp's last row's diagonal adds nothing
+    if (!causal || k0 <= q0 + warp * 16 + 15) {
+      // s = q k^T and dp = dO v^T for the tile's keys; the split products
+      // of one k step go to the 2 NKC accumulators in turn
+      float s[NKC][4], dp[NKC][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NKC; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DMAX; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+        for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(ty + 16 * i) * S + d];
-        ov[i] = sdO[(ty + 16 * i) * S + d];
-      }
+      for (int kk = 0; kk < DMAX; kk += 8) {
+        uint32_t qb[4], qs[4], ob[4], os[4];
+        load_a<SPLIT>(sQ, S, r0, kk, t, qb, qs);
+        load_a<SPLIT>(sdO, S, r0, kk, t, ob, os);
+        uint32_t kb[NKC][2], ks[NKC][2], vb[NKC][2], vs[NKC][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(tx + 16 * j) * S + d];
-        vv[j] = sV[(tx + 16 * j) * S + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        for (int j = 0; j < NKC; ++j) {
+          load_bt<SPLIT>(Ks, S, 8 * j, kk, g, t, kb[j], ks[j]);
+          load_bt<SPLIT>(Vs, S, 8 * j, kk, g, t, vb[j], vs[j]);
         }
+        if (SPLIT) {
+#pragma unroll
+          for (int j = 0; j < NKC; ++j) {
+            mma_tf32(s[j], qs, kb[j]);
+            mma_tf32(dp[j], os, vb[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < NKC; ++j) {
+            mma_tf32(s[j], qb, ks[j]);
+            mma_tf32(dp[j], ob, vs[j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NKC; ++j) {
+          mma_tf32(s[j], qb, kb[j]);
+          mma_tf32(dp[j], ob, vb[j]);
+        }
+      }
+      // ds = p (dp - Dvec), gated by a select before any product; kept in s
+#pragma unroll
+      for (int j = 0; j < NKC; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int h = i >> 1;
+          const int key = 8 * j + 2 * t + (i & 1);
+          const bool ok = row_lse[h] > NEG_INF / 2 && valid[key] != 0.f &&
+                          (!causal || k0 + key <= q0 + r0 + 8 * h);
+          const float p = ok ? expf(s[j][i] * scale - row_lse[h]) : 0.f;
+          s[j][i] = p * (dp[j][i] - row_dvec[h]);
+        }
+      // dq += ds k over the tile's keys, ds from registers, four dq
+      // column tiles in turn
+#pragma unroll
+      for (int j = 0; j < NKC; ++j) {
+        uint32_t ab[4], as[4];
+        acc_as_a<SPLIT>(s[j], ab, as);
+#pragma unroll
+        for (int n0 = 0; n0 < ND; n0 += 4) {
+          uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            mma_pair_b<SPLIT>(Ks, S, 8 * j, 8 * (n0 + i), g, t, bb[i],
+                              bs[i]);
+          if (SPLIT) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mma_tf32(acc[n0 + i], as, bb[i]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mma_tf32(acc[n0 + i], ab, bs[i]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(acc[n0 + i], ab, bb[i]);
+        }
+      }
     }
+    __syncthreads();  // every warp is done with this stage
+    kt = kn;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
 
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const float l = sLse[r];
-      const bool row_ok = l > NEG_INF / 2;
-      const float dv = sDvec[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = row_ok && sBias[c] == 0.f &&
-                        (!causal || k0 + c <= q0 + r);
-        const float p = ok ? expf(s[i][j] - l) : 0.f;
-        sdS[r * PS + c] = p * (dp[i][j] - dv);
-      }
+      const int tq = q0 + r0 + 8 * (i >> 1);
+      const int d = 8 * n + 2 * t + (i & 1);
+      if (tq < Tn && d < D)
+        store(&dq[base + (size_t)tq * D + d], acc[n][i] * scale);
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float dsv[4], kk[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sdS[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kk[j] = sK[c * S + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kk[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= Tn) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) store(&dq[base + (size_t)t * D + d], acc[i][j] * scale);
-    }
-  }
 }
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_mask, const void* dO, const void* lse,
                    const void* dvec, void* dq, int BH, int H, int Tn, int D,
-                   int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DMAX>();
+                   int causal, int vec, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, DMAX>();
   auto kern = flash_dq_kernel<T, DMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -221,7 +272,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const float*>(kv_mask),
       static_cast<const T*>(dO), static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<T*>(dq), H, Tn, D, causal,
-      1.0f / sqrtf((float)D));
+      1.0f / sqrtf((float)D), vec);
   return cudaGetLastError();
 }
 
@@ -230,14 +281,19 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* kv_mask, const void* dO, const void* lse,
                      const void* dvec, void* dq, int BH, int H, int Tn, int D,
                      int causal, cudaStream_t stream) {
+  // cp.async moves 16-byte pieces: rows of a whole number of them, and
+  // 16-byte aligned tensors
+  const int vec = (D * (int)sizeof(T)) % 16 == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                   (uintptr_t)dO) % 16 == 0;
   if (D <= 32)
     return launch<T, 32>(q, k, v, kv_mask, dO, lse, dvec, dq, BH, H, Tn, D,
-                         causal, stream);
+                         causal, vec, stream);
   if (D <= 64)
     return launch<T, 64>(q, k, v, kv_mask, dO, lse, dvec, dq, BH, H, Tn, D,
-                         causal, stream);
+                         causal, vec, stream);
   return launch<T, 128>(q, k, v, kv_mask, dO, lse, dvec, dq, BH, H, Tn, D,
-                        causal, stream);
+                        causal, vec, stream);
 }
 
 }  // namespace

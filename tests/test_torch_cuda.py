@@ -94,6 +94,12 @@ def _bwd_inputs(card, B, H, T, D, causal, dt):
     (1, 2, 77, 8, False, "float32"),
     (1, 2, 130, 128, True, "float32"),
     (2, 1, 64, 40, False, "bfloat16"),
+    (32, 8, 256, 64, True, "float32"),     # the GPT training slice's shape
+    (2, 4, 256, 128, True, "float32"),     # the widest template
+    (2, 4, 256, 128, True, "bfloat16"),
+    (2, 2, 99, 32, True, "float32"),       # T = 16 k + 3: a ragged mma edge
+    (2, 2, 35, 6, True, "float32"),        # rows of 24 bytes: no cp.async
+    (2, 2, 35, 20, False, "bfloat16"),     # rows of 40 bytes: no cp.async
 ])
 def test_flash_bwd_kernels_match_plain(card, B, H, T, D, causal, dtype):
     """K5 (dq) and K6 (dk, dv) against the plain FA2 backward: ragged T,
@@ -129,6 +135,40 @@ def test_flash_bwd_kernels_match_plain(card, B, H, T, D, causal, dtype):
                                    kv_mask=mask)
     assert torch.equal(again, dq) and torch.equal(dk2, dk) \
         and torch.equal(dv2, dv)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernels_skip_padded_key_tiles(card, dtype):
+    """Padded rows, as serving batches have them (lengths 64-256 of 256):
+    whole 64-key tiles are invalid, which K5 skips and K6 answers with
+    zeros. The grads match the plain backward, the padded keys' dk and dv
+    are exactly 0, and two launches are bitwise equal."""
+    dt = getattr(torch, dtype)
+    B, H, T, D = 4, 2, 256, 64
+    g = torch.Generator().manual_seed(21)
+    q, k, v, d_out = (torch.randn(B, H, T, D, generator=g).to(card, dt)
+                      for _ in range(4))
+    lengths = [256, 64, 100, 190]
+    mask = (torch.arange(T)[None, :] < torch.tensor(lengths)[:, None]
+            ).float().to(card)
+    out, lse = flash_attention(q, k, v, causal=True, kv_mask=mask,
+                               return_lse=True)
+    dvec = attention_dvec(d_out, out)
+    kw = dict(causal=True, kv_mask=mask)
+    dq = flash_attention_dq(q, k, v, d_out, lse, dvec, **kw)
+    dk, dv = flash_attention_dkv(q, k, v, d_out, lse, dvec, **kw)
+    ref = flash_attention_bwd_plain(q, k, v, d_out, out, lse, **kw)
+    rel = 5e-5 if dt == torch.float32 else 1.6e-2
+    for got, want in zip((dq, dk, dv), ref):
+        tol = rel * max(1.0, float(want.float().abs().max()))
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+    for b, n in enumerate(lengths):
+        assert torch.all(dk[b, :, n:] == 0) and torch.all(dv[b, :, n:] == 0)
+    assert torch.equal(dq, flash_attention_dq(q, k, v, d_out, lse, dvec,
+                                              **kw))
+    dk2, dv2 = flash_attention_dkv(q, k, v, d_out, lse, dvec, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 def test_flash_attention_on_card_is_differentiable(card):
