@@ -9,10 +9,15 @@ Phases, each printing JSON lines:
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA
    versions, kernel build time, and the registers and spills ptxas
-   reports for K5 and K6 at each head-dim template (no spill allowed);
-2. kernels — the flash-attention forward kernel (K4) against its plain
-   PyTorch version on the card in five cases, with kernel / plain / SDPA
-   times and the card's bound at the GPT slice's shape; the backward
+   reports for K4, K5 and K6 at each head-dim template (no spill
+   allowed);
+2. kernels — the flash-attention forward kernel (K4, tensor cores in
+   3xTF32) against its plain PyTorch version on the card in nine cases
+   (the slice's shape, ragged T with a row that has no valid key, D = 8,
+   32 and 128, bf16, half the keys masked, padded rows whose whole key
+   tiles are skipped), two launches bitwise equal, with kernel / plain /
+   SDPA times and the card's bound at the tensor cores' peak and at the
+   f32 CUDA-core peak; the backward
    kernels (K5 dq, K6 dk/dv, tensor cores in 3xTF32) against the plain
    FA2 backward in the same five cases and a sixth with padded rows
    (lengths 64-256: whole key tiles skipped, their dk/dv exactly 0), with
@@ -62,8 +67,19 @@ Phases, each printing JSON lines:
    loss that falls over 20 calls, ms per batch and window, characters/s,
    the peak memory, the updater's time and a torch.profiler breakdown of
    one ``fit_batch`` (K2+K3 and GEMM shares);
-7. a ``{"kernels": [...]}`` summary line;
-8. last line ``{"ok": true, "device": {...}}``.
+7. wide-head slice — a GPT with heads wider than the kernels take
+   (d_model 512 over 2 heads: head dim 256, 2 layers, blocks of 128 keys)
+   through ``output()`` (with and without a key mask) and one
+   ``fit_batch`` on the card: the blockwise attention in plain torch, no
+   K4, K5 or K6 launch, the probabilities within 1e-4 of the same net on
+   the CPU and the loss within 1e-5 (relative);
+8. a ``{"kernels": [...]}`` summary line;
+9. last line ``{"ok": true, "device": {...}}``.
+
+The attention kernels and SDPA are timed by their kernels' durations in a
+profiler trace (``device_ms``): K4 runs in less time than its Python
+wrapper can take to queue a call. The other times are CUDA events over
+back-to-back calls (``cuda_ms``); K4's ``call_ms`` is that too.
 
 Each slice is driven with every kernel's launch count set to 0 just
 before it and read just after; a kernel of that path that was not
@@ -106,9 +122,9 @@ from deeplearning4j_tpu_torch.ops.fused_lstm import (
 
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12       # CUDA cores, no tensor cores: K1-K4's path
+F32_FLOPS_PER_S = 67e12       # CUDA cores, no tensor cores: K1-K3's path
 # tensor cores: an f32-accurate product is three TF32 products (3xTF32,
-# K5 and K6 on f32 inputs); bf16 inputs could take the bf16 rate
+# K4, K5 and K6 on f32 inputs); bf16 inputs could take the bf16 rate
 TF32X3_FLOPS_PER_S = 495e12 / 3
 BF16_FLOPS_PER_S = 989e12
 
@@ -159,6 +175,10 @@ TOL_K3_F32 = 2e-4
 TOL_LSTM_TRAIN_BF16 = 3.2e-2
 
 SLICE = dict(vocab_size=96, seq_len=256, d_model=512, n_heads=8, n_layers=8)
+#: heads wider than the kernels take (head dim 256): blockwise attention
+WIDE_SLICE = dict(vocab_size=96, seq_len=256, d_model=512, n_heads=2,
+                  n_layers=2, block_size=128)
+WIDE_BATCH = 8
 LSTM_SLICE = dict(vocab_size=96, hidden=256, layers=2)
 LSTM_BATCH = (32, 64)          # B, T: the char-LSTM traffic of bench.py
 LSTM_TRAIN_BATCH = (32, 200)   # B, T of a training batch: 4 windows of 50
@@ -205,6 +225,28 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """Device time of one call of ``fn``: each CUDA kernel's mean duration
+    in a torch.profiler trace of ``iters`` calls, times its launches per
+    call. The kernels' own durations, not the host's time to queue them:
+    a Python wrapper can take longer to queue a call than a short kernel
+    takes to run, and then back-to-back events time the host."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(kernels, "the trace holds no kernel")
+    return sum(e.self_device_time_total / e.count
+               * max(1, round(e.count / iters)) for e in kernels) / 1e3
 
 
 def host_ms(fn, iters=5, warmup=1) -> float:
@@ -264,25 +306,39 @@ def device_profile(fn, expect, top=6, groups=None):
                      for e in kernels[:top]])
 
 
-def flash_bound_ms(B, H, T, D, dtype, causal, mask):
-    """Least time for the kernel's work on an H100: each input read once
-    and each output written once over HBM, against the multiply-adds of
-    q k^T and p v over the (query, key) pairs this input needs, at the
-    peak rate of the kernel's arithmetic (f32 CUDA cores)."""
+def attention_bound_ms(B, H, T, D, dtype, causal, mask, n_tensors,
+                       n_stats, flop_per_pair):
+    """Least time for a flash-attention kernel's work on an H100:
+    ``n_tensors`` [B, H, T, D] tensors and ``n_stats`` [B, H, T] f32 rows
+    (and the mask) each read or written once over HBM, against
+    ``flop_per_pair`` x D FLOP over the (query, key) pairs this input
+    needs, at the peak of the kernel's arithmetic: the tensor cores in
+    3xTF32 for f32 inputs, bf16 for bf16. Returns (bound ms, "bytes" or
+    "operations", flops, bytes, the bound at the f32 CUDA-core peak, the
+    peak's name)."""
     es = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4 * B * H * T * D * es + B * H * T * 4
-    if mask is None:
-        valid = torch.ones(B, T)
-    else:
+    nbytes = n_tensors * B * H * T * D * es + n_stats * B * H * T * 4
+    valid = torch.ones(B, T) if mask is None else (mask > 0).float().cpu()
+    if mask is not None:
         nbytes += B * T * 4
-        valid = (mask > 0).float().cpu()
     per_key = (T - torch.arange(T)).float() if causal else torch.full(
         (T,), float(T))
     pairs = H * float((valid * per_key).sum())
-    flops = 4.0 * D * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    flops = flop_per_pair * D * pairs
+    peak, peak_name = ((TF32X3_FLOPS_PER_S, "3xTF32 tensor cores")
+                       if dtype == torch.float32
+                       else (BF16_FLOPS_PER_S, "bf16 tensor cores"))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    simt = max(t_bytes, flops / F32_FLOPS_PER_S) * 1e3
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
+            simt, peak_name)
+
+
+def flash_bound_ms(B, H, T, D, dtype, causal, mask):
+    """K4's bound (``attention_bound_ms``): q, k, v read and o written, lse
+    written; s = q k^T and o += p v, 4 D FLOP a pair."""
+    return attention_bound_ms(B, H, T, D, dtype, causal, mask, 4, 1, 4.0)
 
 
 def check(cond, what):
@@ -296,10 +352,10 @@ def attention_inputs(B, H, T, D, dtype, mask_kind):
     q, k, v = (torch.randn(B, H, T, D, generator=g).to("cuda", dtype)
                for _ in range(3))
     mask = None
-    if mask_kind == "holes":       # batch 0: no valid key; batch 1: key 0
-        mask = torch.ones(B, T)    # masked (query 0 has none under causal)
-        mask[0] = 0.0
-        mask[1, 0] = 0.0
+    if mask_kind == "holes":       # batch 0: no valid key; batches 1+:
+        mask = torch.ones(B, T)    # key 0 masked (query 0 has none under
+        mask[0] = 0.0              # causal)
+        mask[1:, 0] = 0.0
         mask[1:, 130:170] = 0.0
     elif mask_kind == "half":
         mask = (torch.rand(B, T, generator=g) < 0.5).float()
@@ -318,6 +374,8 @@ def kernel_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
     q, k, v, mask = attention_inputs(B, H, T, D, dtype, mask_kind)
     out, lse = flash_attention(q, k, v, causal=causal, kv_mask=mask,
                                return_lse=True)
+    out2, lse2 = flash_attention(q, k, v, causal=causal, kv_mask=mask,
+                                 return_lse=True)
     ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
                                          kv_mask=mask)
     torch.cuda.synchronize()
@@ -327,7 +385,9 @@ def kernel_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
     rec = dict(phase="kernel", kernel="flash_attn_fwd", case=name,
                shape=[B, H, T, D], causal=causal, dtype=str(dtype),
                mask=mask_kind, max_abs_err_o=err_o, tol_o=tol_o,
-               max_abs_err_lse=err_lse, tol_lse=TOL_LSE)
+               max_abs_err_lse=err_lse, tol_lse=TOL_LSE,
+               bitwise_repeat=bool(torch.equal(out, out2) and
+                                   torch.equal(lse, lse2)))
     if mask_kind == "holes":
         rows_ok = bool(torch.all(out[0] == 0) and torch.all(lse[0] == NEG_INF)
                        and torch.all(out[1:, :, 0] == 0)
@@ -335,52 +395,40 @@ def kernel_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
         rec["no_valid_key_rows_exact"] = rows_ok
         check(rows_ok, f"case {name}: rows with no valid key are not "
                        "exactly 0 / NEG_INF")
-    bound, bound_by, flops, nbytes = flash_bound_ms(B, H, T, D, dtype,
-                                                    causal, mask)
-    rec.update(bound_ms=bound, bound_by=bound_by, flops=flops, bytes=nbytes)
+    if mask_kind == "padded":
+        rec["padded_key_tiles"] = int((mask.view(B, -1, 32).amax(-1) == 0)
+                                      .sum())
+    bound, bound_by, flops, nbytes, simt, peak = flash_bound_ms(
+        B, H, T, D, dtype, causal, mask)
+    rec.update(bound_ms=bound, bound_by=bound_by, bound_peak=peak,
+               bound_ms_simt=simt, flops=flops, bytes=nbytes)
     if timed:
-        rec["ms"] = cuda_ms(lambda: flash_attention(
+        rec["ms"] = device_ms(lambda: flash_attention(
+            q, k, v, causal=causal, kv_mask=mask))
+        # the wrapper's calls back to back: the host's queueing included
+        rec["call_ms"] = cuda_ms(lambda: flash_attention(
             q, k, v, causal=causal, kv_mask=mask))
         rec["plain_ms"] = cuda_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal, kv_mask=mask))
         # yardstick only: the port never calls SDPA
-        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        rec["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal)) if mask is None else None
         rec["achieved_tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
     emit(rec)
     check(err_o <= tol_o, f"case {name}: O differs by {err_o} > {tol_o}")
     check(err_lse <= TOL_LSE,
           f"case {name}: lse differs by {err_lse} > {TOL_LSE}")
+    check(rec["bitwise_repeat"], f"case {name}: two launches differ")
     return rec
 
 
 def bwd_bound_ms(B, H, T, D, dtype, causal, mask, part):
-    """Least time for one backward kernel's work on an H100: q, k, v, dO,
-    lse and Dvec (and the mask) read once and its outputs (dq; or dk and
-    dv) written once over HBM, against its multiply-adds over the (query,
-    key) pairs this input needs (K5: s, dp, dq = 6 D FLOP a pair; K6: s,
-    dp, dv, dk = 8 D) at the peak of the arithmetic: the tensor cores in
-    3xTF32 for f32 inputs, bf16 for bf16. Returns (bound ms, "bytes" or
-    "operations", flops, bytes, the bound at the f32 CUDA-core peak, the
-    peak's name)."""
-    es = torch.tensor([], dtype=dtype).element_size()
-    n_out = 1 if part == "dq" else 2
-    nbytes = (4 + n_out) * B * H * T * D * es + 2 * B * H * T * 4
-    valid = torch.ones(B, T) if mask is None else (mask > 0).float().cpu()
-    if mask is not None:
-        nbytes += B * T * 4
-    per_key = (T - torch.arange(T)).float() if causal else torch.full(
-        (T,), float(T))
-    pairs = H * float((valid * per_key).sum())
-    flops = (6.0 if part == "dq" else 8.0) * D * pairs
-    peak, peak_name = ((TF32X3_FLOPS_PER_S, "3xTF32 tensor cores")
-                       if dtype == torch.float32
-                       else (BF16_FLOPS_PER_S, "bf16 tensor cores"))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    simt = max(t_bytes, flops / F32_FLOPS_PER_S) * 1e3
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
-            simt, peak_name)
+    """One backward kernel's bound (``attention_bound_ms``): q, k, v, dO
+    read and its outputs (dq; or dk and dv) written, lse and Dvec read; K5
+    does s, dp, dq = 6 D FLOP a pair, K6 s, dp, dv, dk = 8 D."""
+    if part == "dq":
+        return attention_bound_ms(B, H, T, D, dtype, causal, mask, 5, 2, 6.0)
+    return attention_bound_ms(B, H, T, D, dtype, causal, mask, 6, 2, 8.0)
 
 
 def sdpa_backward_ms(q, k, v, d_out, causal):
@@ -394,7 +442,7 @@ def sdpa_backward_ms(q, k, v, d_out, causal):
 
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qg, kg, vg), d_out)
-    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+    return device_ms(fwd_bwd) - device_ms(fwd)
 
 
 def bwd_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
@@ -449,9 +497,9 @@ def bwd_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
                     f"bound_ms_simt_{part}": simt,
                     f"flops_{part}": flops, f"bytes_{part}": nbytes})
     if timed:
-        rec["ms_dq"] = cuda_ms(lambda: flash_attention_dq(
+        rec["ms_dq"] = device_ms(lambda: flash_attention_dq(
             q, k, v, d_out, lse, dvec, **kw))
-        rec["ms_dkv"] = cuda_ms(lambda: flash_attention_dkv(
+        rec["ms_dkv"] = device_ms(lambda: flash_attention_dkv(
             q, k, v, d_out, lse, dvec, **kw))
         rec["plain_ms_dq"] = cuda_ms(lambda: attention_bwd_plain(
             q, k, v, d_out, lse, dvec, want_dkv=False, **kw))
@@ -480,7 +528,8 @@ def ptxas_report(names):
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 cur = dict(library=name)
-                k = re.search(r"(flash_dq_kernel|flash_dkv_kernel)I"
+                k = re.search(r"(flash_fwd_kernel|flash_dq_kernel|"
+                              r"flash_dkv_kernel)I"
                               r"(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
                 if k:
                     cur.update(kernel=k.group(1), dmax=int(k.group(3)),
@@ -1192,6 +1241,49 @@ def lstm_train_slice():
     return main_path
 
 
+def wide_head_slice():
+    """A GPT whose heads are wider than the kernels take (head dim 256) on
+    the card: ``output()`` with and without a key mask and one
+    ``fit_batch``, through the blockwise attention (plain torch, autograd),
+    held against the same net on the CPU; no attention kernel launches."""
+    net = ComputationGraph(gpt_decoder(**WIDE_SLICE), device="cuda").init()
+    cpu = ComputationGraph(gpt_decoder(**WIDE_SLICE), device="cpu").init()
+    B, T, V = WIDE_BATCH, WIDE_SLICE["seq_len"], WIDE_SLICE["vocab_size"]
+    rng = np.random.default_rng(SEED + 3)
+    x = np.eye(V, dtype=np.float32)[rng.integers(0, V, (B, T))]
+    lengths = rng.integers(T // 4, T + 1, B)
+    lengths[0] = T
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    text = synthetic_char_text(B * (T + 1) + 1, seed=SEED + 3)
+    batch = char_lm_batches(text, T, B, charset=CHARSET)[0]
+
+    reset_counts()
+    probs = net.output(x)
+    probs_m = net.output(x, mask=mask)
+    loss = float(net.fit_batch(batch))
+    torch.cuda.synchronize()
+    launched = counts()
+    err = float((probs.cpu() - cpu.output(x)).abs().max())
+    err_m = float((probs_m.cpu() - cpu.output(x, mask=mask)).abs().max())
+    cpu_loss = float(cpu.fit_batch(batch))
+    loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
+    emit(dict(phase="wide_head_slice", config=WIDE_SLICE,
+              head_dim=WIDE_SLICE["d_model"] // WIDE_SLICE["n_heads"],
+              params=net.num_params(), batch=[B, T, V],
+              main_path_launches=launched, max_abs_err_vs_cpu=err,
+              max_abs_err_vs_cpu_masked=err_m, tol=TOL_SLICE,
+              loss=loss, loss_cpu=cpu_loss, loss_rel_err=loss_rel,
+              tol_loss=TOL_TRAIN_LOSS))
+    check(all(n == 0 for n in launched.values()),
+          f"a head-dim-256 GPT launched kernels: {launched}")
+    check(tuple(probs.shape) == (B, T, V) and
+          bool(torch.isfinite(probs).all() and torch.isfinite(probs_m).all()),
+          f"output {tuple(probs.shape)} or non-finite probabilities")
+    check(err <= TOL_SLICE and err_m <= TOL_SLICE,
+          f"card vs CPU output differs: {err}, {err_m}")
+    check(loss_rel <= TOL_TRAIN_LOSS, f"loss {loss} vs CPU {cpu_loss}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1212,13 +1304,14 @@ def main() -> int:
               name=torch.cuda.get_device_name(0),
               torch=torch.__version__, cuda=torch.version.cuda,
               kernel_build_s=build_s))
-    ptxas = ptxas_report(["flash_attn_dq", "flash_attn_dkv"])
+    ptxas = ptxas_report(["flash_attn_fwd", "flash_attn_dq",
+                          "flash_attn_dkv"])
     emit(dict(phase="ptxas", kernels=ptxas))
-    check(len(ptxas) == 12 and all(
+    check(len(ptxas) == 18 and all(
         r.get("registers") and r.get("spill_stores") == 0 and
         r.get("spill_loads") == 0 for r in ptxas),
-        "K5 / K6: ptxas reports a spill, or not 2 kernels x 2 types x 3 "
-        f"head-dim templates: {ptxas}")
+        "K4 / K5 / K6: ptxas reports a spill, or not 3 kernels x 2 types x "
+        f"3 head-dim templates: {ptxas}")
 
     # ---- 2. kernels against their plain versions ---------------------------
     a = kernel_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
@@ -1229,6 +1322,12 @@ def main() -> int:
     kernel_case("d_bf16", 32, 8, 256, 64, True, torch.bfloat16, None)
     kernel_case("e_slice_half_keys", 32, 8, 256, 64, True, torch.float32,
                 "half", timed=True)
+    f = kernel_case("f_slice_padded", 32, 8, 256, 64, True, torch.float32,
+                    "padded", timed=True)
+    kernel_case("g_D128", 8, 4, 256, 128, True, torch.float32, "holes")
+    kernel_case("g_D128_bf16", 8, 4, 256, 128, True, torch.bfloat16,
+                "holes")
+    kernel_case("h_D32", 8, 8, 200, 32, True, torch.float32, "half")
     (B, T), H = LSTM_BATCH, LSTM_SLICE["hidden"]
     k1 = lstm_case("a_slice", T, B, H, torch.float32, True, False,
                    timed=True)
@@ -1269,14 +1368,21 @@ def main() -> int:
     # ---- 6. the slice: full-width char-RNN training on the card ----------
     lstm_train_path = lstm_train_slice()
 
-    # ---- 7. summary of every ported kernel ---------------------------------
+    # ---- 7. heads wider than the kernels take, on the card -----------------
+    wide_head_slice()
+
+    # ---- 8. summary of every ported kernel ---------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:72",
-             launches=flash_launches, max_abs_err=a["max_abs_err_o"],
+             # serving and training
+             launches=flash_launches + train_path["flash_attn_fwd"],
+             max_abs_err=a["max_abs_err_o"],
              ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-             bound_by=a["bound_by"], library_ms=a["library_ms"]),
+             bound_by=a["bound_by"], bound_peak=a["bound_peak"],
+             bound_ms_simt=a["bound_ms_simt"], library_ms=a["library_ms"],
+             ms_padded=f["ms"]),
         dict(name="lstm_fwd_infer", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/lstm_fwd_infer.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:99",

@@ -45,7 +45,7 @@
 // One block per (batch x head, KV tile) writes its own dk/dv rows: no
 // atomics, so two launches on the same inputs are bitwise equal.
 // Measured on an NVIDIA H100 80GB HBM3 at its 700 W power limit
-// (chip_smoke.py, tools/flash_bwd_ab.py; PERF.md): 0.123 ms at the
+// (chip_smoke.py, tools/flash_ab.py; PERF.md): 0.123 ms at the
 // shape above, 4.1x the bound, where the CUDA-core version it replaced
 // took 0.246 ms in the same process; with K5 0.212 ms against 0.31-0.35
 // ms for SDPA's whole backward.

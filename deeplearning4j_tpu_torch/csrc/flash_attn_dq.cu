@@ -49,7 +49,7 @@
 // One block per (batch x head, query tile) writes its own dq rows: no
 // atomics, so two launches on the same inputs are bitwise equal.
 // Measured on an NVIDIA H100 80GB HBM3 at its 700 W power limit
-// (chip_smoke.py, tools/flash_bwd_ab.py; PERF.md): 0.089 ms at the
+// (chip_smoke.py, tools/flash_ab.py; PERF.md): 0.089 ms at the
 // shape above, 3.5x the bound, where the CUDA-core version it replaced
 // took 0.193 ms in the same process; with K6 0.212 ms against 0.31-0.35
 // ms for SDPA's whole backward.
@@ -72,19 +72,6 @@ template <typename T, int DMAX>
 constexpr size_t smem_bytes() {
   return sizeof(T) * (size_t)((2 * BQ + 4 * BK) * row_stride<T, DMAX>()) +
          sizeof(float) * 2 * BK;
-}
-
-// The first KV tile at or after j with a valid key (every tile, without a
-// mask). A block-wide vote: every thread calls it with the same j.
-__device__ __forceinline__ int next_tile(int j, int end,
-                                         const float* __restrict__ mrow,
-                                         int Tn, int tid) {
-  if (mrow == nullptr) return j;
-  for (; j < end; ++j) {
-    const int key = j * BK + tid;
-    if (__syncthreads_or(tid < BK && key < Tn && mrow[key] > 0.f)) break;
-  }
-  return j;
 }
 
 // q, k, v, dO, dq: [BH, T, D] contiguous; kv_mask: [BH / H, T] (> 0 = valid
@@ -150,12 +137,12 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int n_kv = (Tn + BK - 1) / BK;
   const int kv_end = causal ? min(n_kv, (q0 + BQ - 1) / BK + 1) : n_kv;
-  int kt = next_tile(0, kv_end, mrow, Tn, tid);
+  int kt = next_tile<BK>(0, kv_end, mrow, Tn, tid);
   if (kt < kv_end) prefetch(kt, 0);
   cp_async_commit();
   int stage = 0;
   while (kt < kv_end) {
-    const int kn = next_tile(kt + 1, kv_end, mrow, Tn, tid);
+    const int kn = next_tile<BK>(kt + 1, kv_end, mrow, Tn, tid);
     if (kn < kv_end) prefetch(kn, stage ^ 1);
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q, dO) have landed

@@ -1,224 +1,293 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA cores, f32 accumulation.
+// Flash-attention forward for Hopper (sm_90a), tensor cores (mma.sync tf32,
+// 3xTF32 for f32 inputs), f32 accumulation.
 //
-// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas_attention.py
-// `_fwd_kernel` (launched by `_run_fwd`). Contract kept from it:
+// Replaces the TPU kernel deeplearning4j_tpu/ops/pallas_attention.py:72
+// `_fwd_kernel` (launched by `_run_fwd`, :121). Contract kept from it:
 //   O = softmax(q k^T / sqrt(D) + key-mask bias, causal) v, plus the
-//   log-sum-exp row statistics (lse, f32) the backward pass will need;
+//   natural-log log-sum-exp row statistics (lse, f32) the backward needs;
 //   causal KV tiles past the diagonal are skipped, not masked;
 //   a query row with no valid key writes exactly 0 and lse = NEG_INF
 //   (-1e30). Validity is tested on the running max m, as the TPU kernel
-//   does: for such a row every score is NEG_INF, so m never rises and the
-//   running sum l stays positive (exp(s - m) == 1), which makes l useless
-//   as the test.
+//   does: m never rises off NEG_INF for such a row.
 // Not carried over: the TPU kernel pads T and D to 128 and pre-scales q by
-// sqrt(Dp)/sqrt(D); here D is a template bound (32/64/128) with the tail
-// zero-filled in shared memory, the scale is 1/sqrt(D) directly, and the
+// sqrt(Dp)/sqrt(D); here the scale 1/sqrt(D) goes on s, D is a template
+// bound (32/64/128) with the tail zero-filled in shared memory, and the
 // ragged T edge is masked inside the kernel. There is no residency gate:
-// K and V stream through shared memory one 64-key tile at a time.
+// K and V stream through shared memory one tile at a time.
 //
 // What bounds it on an H100: at the GPT slice's shape (B=32, H=8, T=256,
-// D=64, causal, f32) the work is ~2.2 GFLOP against ~67 MB of q/k/v/o
-// traffic, i.e. ~32 FLOP per byte, above the f32 CUDA-core ridge
-// (67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte). So the bound is operations.
-// This first version does the arithmetic on CUDA cores with FMAs, so its
-// ceiling is the f32 peak, not the tensor cores. The design keeps the
-// FMA units fed from registers and shared memory:
-//   * a 256-thread block owns 64 query rows; thread (ty, tx) of the
-//     16 x 16 grid owns rows ty + 16 i (i < 4), so it computes a 4 x 4
-//     block of scores and a 4 x (D/16) block of the output, and each value
-//     it loads from shared memory feeds 4 FMAs;
-//   * the 16 threads sharing a row sit in one half-warp, so the row max
-//     and row sum of the online softmax are warp shuffles, and the
-//     running (m, l, acc) carry never leaves registers;
-//   * shared-memory rows are padded to an odd stride, so the 16 rows a
-//     half-warp reads at once fall into 16 different banks;
-//   * causal blocks are issued longest-first (last query tile first) so
-//     the short tiles fill the tail of the grid.
-// Tensor cores (mma.sync / wgmma in tf32 or bf16) and TMA double-buffering
-// are left to a later version.
+// D=64, causal, f32) the kernel does 4 D FLOP per causal (query, key) pair
+// (s = q k^T and o += p v), 2.16 GFLOP, against 67.4 MB of q/k/v/o/lse
+// traffic. With the products on tensor cores in 3xTF32 (495 / 3 = 165
+// TFLOP/s) the operations take 0.0131 ms and the bytes 0.0201 ms at 3.35
+// TB/s: the bound is bytes, 0.0201 ms (0.0322 ms by operations at the f32
+// CUDA-core peak, where the kernel this one replaced ran).
+// The design, on the building blocks of the backward kernels (fragment
+// layouts in flash_mma.cuh):
+//   * a 128-thread block owns 64 query rows, 16 per warp, and walks the
+//     KV tiles of 32 keys up to the diagonal; s = q k^T is an m16n8k8 tf32
+//     mma.sync product from shared memory, one k step's products going to
+//     the tile's 4 accumulators in turn;
+//   * the online softmax keeps (m, l) in registers: the row max is a
+//     shuffle over the 4 lanes that share a fragment row, l stays a
+//     per-lane partial sum until the end (every lane of a row rescales by
+//     the same factor);
+//   * p goes to p v from registers: the s accumulator is the A operand
+//     (the permuted key order), V's rows are read in that order, so p
+//     never touches shared memory;
+//   * each tile's p v lands in a fresh accumulator and joins o by one f32
+//     fma (o = alpha o + p v). Accumulating o itself across the tiles in
+//     the mma.sync accumulator biased it: the full GPT's step-1
+//     gradients then missed the card-vs-CPU gate (1.08e-4 of the largest
+//     |g| against 1e-4; 2.3e-5 this way, 3.6e-5 with the CUDA-core kernel
+//     this one replaced), at the same speed;
+//   * f32 operands are split into two tf32 halves as their fragments are
+//     loaded (big by truncation, two instructions); bf16 operands are
+//     exact in tf32, one product each, and p is rounded to tf32 once;
+//   * K and V tiles are double-buffered with cp.async (zero fill past T
+//     and D; rows that are not 16-byte multiples load element by element);
+//     52 KB of shared memory and at most 128 registers (D <= 64) let four
+//     blocks share an SM (three blocks, 140 registers: 6% slower);
+//   * with a key mask, a KV tile whose keys are all invalid is skipped (a
+//     block vote), and a warp skips a tile wholly past its rows' causal
+//     diagonal; causal blocks are scheduled longest-first.
+// One block per (batch x head, query tile) writes its own rows: no
+// atomics, so two launches on the same inputs are bitwise equal.
+// Measured on an NVIDIA H100 80GB HBM3 at its 700 W power limit: see
+// PERF.md (chip_smoke.py, tools/flash_ab.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_mma.cuh"
 
 #include <cmath>
 
 namespace {
 
+using namespace flash_mma;
+
 constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per KV tile
-constexpr int NT = 256;       // threads per block: a 16 x 16 grid
-constexpr float NEG_INF = -1e30f;
+constexpr int BK = 32;        // keys per KV tile
+constexpr int NT = 128;       // threads per block: 4 warps x 16 rows
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Reductions over the 16 lanes that share one query row (one half-warp).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int DMAX>
+// Q, two stages of K and V, two stages of key validity: 52 KB at D = 64
+// in f32, so four blocks share an SM
+template <typename T, int DMAX>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (DMAX + 1) + BK * (DMAX + 1) +
-                                  BK * DMAX + BQ * (BK + 1) + BK);
+  return sizeof(T) * (size_t)((BQ + 4 * BK) * row_stride<T, DMAX>()) +
+         sizeof(float) * 2 * BK;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // q, k, v, o: [BH, T, D] contiguous; kv_mask: [BH / H, T] (> 0 = valid key)
 // or null; lse: [BH, T] f32.
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, DMAX > 64 ? 1 : 4)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ kv_mask,
                  T* __restrict__ o, float* __restrict__ lse, int H, int Tn,
-                 int D, int causal, float scale) {
-  constexpr int QS = DMAX + 1;  // odd strides: conflict-free column reads
-  constexpr int PS = BK + 1;
-  constexpr int DJ = DMAX / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;              // [BQ][QS], pre-scaled by 1/sqrt(D)
-  float* sK = sQ + BQ * QS;      // [BK][QS]
-  float* sV = sK + BK * QS;      // [BK][DMAX]
-  float* sP = sV + BK * DMAX;    // [BQ][PS] probabilities of this tile
-  float* sBias = sP + BQ * PS;   // [BK] 0 = usable key, NEG_INF = not
+                 int D, int causal, float scale, int vec) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int S = row_stride<T, DMAX>();
+  constexpr int NKC = BK / 8;     // 8-key n-tiles per tile
+  constexpr int ND = DMAX / 8;    // 8-column n-tiles of o
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [BQ][S]
+  T* sK = sQ + BQ * S;                     // [2][BK][S]
+  T* sV = sK + 2 * BK * S;                 // [2][BK][S]
+  float* sValid = reinterpret_cast<float*>(sV + 2 * BK * S);  // [2][BK]
 
   const int bh = blockIdx.x;
   const int n_q = (Tn + BQ - 1) / BQ;
   const int q0 = (n_q - 1 - (int)blockIdx.y) * BQ;
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const size_t base = (size_t)bh * Tn * D;
   const float* mrow = kv_mask ? kv_mask + (size_t)(bh / H) * Tn : nullptr;
 
-  for (int i = tid; i < BQ * DMAX; i += NT) {
-    const int r = i / DMAX, d = i % DMAX, t = q0 + r;
-    sQ[r * QS + d] =
-        (t < Tn && d < D) ? to_f32(q[base + (size_t)t * D + d]) * scale : 0.f;
-  }
+  load_rows<T, DMAX, BQ, NT>(sQ, q + base, q0, Tn, D, vec, tid);
 
-  float acc[4][DJ], m[4], l[4];
+  // this thread's two rows: r0 (accumulator slots 0, 1) and r0 + 8 (2, 3)
+  const int r0 = warp * 16 + g;
+  float acc[ND][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int j = 0; j < ND; ++j)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  auto prefetch = [&](int kt, int stage) {
+    const int k0 = kt * BK;
+    load_rows<T, DMAX, BK, NT>(sK + stage * BK * S, k + base, k0, Tn, D, vec,
+                               tid);
+    load_rows<T, DMAX, BK, NT>(sV + stage * BK * S, v + base, k0, Tn, D, vec,
+                               tid);
+    if (tid < BK) {
+      const int key = k0 + tid;
+      sValid[stage * BK + tid] =
+          (key < Tn && (mrow == nullptr || mrow[key] > 0.f)) ? 1.f : 0.f;
+    }
+  };
 
   const int n_kv = (Tn + BK - 1) / BK;
   const int kv_end = causal ? min(n_kv, (q0 + BQ - 1) / BK + 1) : n_kv;
-  for (int kt = 0; kt < kv_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // last tile's readers are done; Q is in on pass 0
-    for (int i = tid; i < BK * DMAX; i += NT) {
-      const int r = i / DMAX, d = i % DMAX, t = k0 + r;
-      const bool in = t < Tn && d < D;
-      const size_t g = base + (size_t)t * D + d;
-      sK[r * QS + d] = in ? to_f32(k[g]) : 0.f;
-      sV[r * DMAX + d] = in ? to_f32(v[g]) : 0.f;
-    }
-    if (tid < BK) {
-      const int t = k0 + tid;
-      sBias[tid] = (t < Tn && (mrow == nullptr || mrow[t] > 0.f)) ? 0.f
-                                                                   : NEG_INF;
-    }
+  int kt = next_tile<BK>(0, kv_end, mrow, Tn, tid);
+  if (kt < kv_end) prefetch(kt, 0);
+  cp_async_commit();
+  int stage = 0;
+  while (kt < kv_end) {
+    const int kn = next_tile<BK>(kt + 1, kv_end, mrow, Tn, tid);
+    if (kn < kv_end) prefetch(kn, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q) have landed
     __syncthreads();
 
-    float s[4][4];
+    const int k0 = kt * BK;
+    const T* Ks = sK + stage * BK * S;
+    const T* Vs = sV + stage * BK * S;
+    const float* valid = sValid + stage * BK;
+    // a tile wholly past this warp's last row's diagonal adds nothing
+    if (!causal || k0 <= q0 + warp * 16 + 15) {
+      float s[NKC][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NKC; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DMAX; ++d) {
-      float qv[4], kv[4];
+        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * QS + d];
+      for (int kk = 0; kk < DMAX; kk += 8) {
+        uint32_t qb[4], qs[4];
+        load_a<SPLIT>(sQ, S, r0, kk, t, qb, qs);
+        uint32_t kb[NKC][2], ks[NKC][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * QS + d];
+        for (int j = 0; j < NKC; ++j)
+          load_bt<SPLIT>(Ks, S, 8 * j, kk, g, t, kb[j], ks[j]);
+        if (SPLIT) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int j = 0; j < NKC; ++j) mma_tf32(s[j], qs, kb[j]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < NKC; ++j) mma_tf32(s[j], qb, ks[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < NKC; ++j) mma_tf32(s[j], qb, kb[j]);
+      }
+      // scale and mask (NEG_INF marks a pair outside the contract), then
+      // the new row max over the 4 lanes of each fragment row
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NKC; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int h = i >> 1;
+          const int key = 8 * j + 2 * t + (i & 1);
+          const bool ok = valid[key] != 0.f &&
+                          (!causal || k0 + key <= q0 + r0 + 8 * h);
+          s[j][i] = ok ? s[j][i] * scale : NEG_INF;
+          mx[h] = fmaxf(mx[h], s[j][i]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = quad_max(mx[h]);
+        alpha[h] = expf(m[h] - mx[h]);
+        m[h] = mx[h];
+      }
+      // p = exp(s - m), 0 off the contract by a select (a row with no
+      // valid key yet has m = NEG_INF, where exp(s - m) would be 1)
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NKC; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int h = i >> 1;
+          const float p =
+              s[j][i] > NEG_INF / 2 ? expf(s[j][i] - m[h]) : 0.f;
+          s[j][i] = p;
+          sum[h] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+      // o = alpha o + p v, four o column tiles at a time: the tile's p v
+      // goes to a fresh accumulator (p from registers) and joins o by one
+      // f32 fma, so o's running sum is not rounded inside the tensor cores
+#pragma unroll
+      for (int n0 = 0; n0 < ND; n0 += 4) {
+        float pv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[i][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NKC; ++j) {
+          uint32_t ab[4], as[4];
+          acc_as_a<SPLIT>(s[j], ab, as);
+          uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            mma_pair_b<SPLIT>(Vs, S, 8 * j, 8 * (n0 + i), g, t, bb[i],
+                              bs[i]);
+          if (SPLIT) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mma_tf32(pv[i], as, bb[i]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mma_tf32(pv[i], ab, bs[i]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(pv[i], ab, bb[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[n0 + i][e] = fmaf(acc[n0 + i][e], alpha[e >> 1], pv[i][e]);
+      }
     }
+    __syncthreads();  // every warp is done with this stage
+    kt = kn;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
 
+  // the row sums over the 4 lanes of each row; a row whose max never rose
+  // off NEG_INF has no valid key: exactly 0 and NEG_INF
+  bool row_ok[2];
+  float l_safe[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_safe[h] = fmaxf(quad_sum(l[h]), 1e-30f);
+    row_ok[h] = m[h] > NEG_INF / 2;
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = sBias[c] == 0.f && (!causal || k0 + c <= qpos);
-        s[i][j] = ok ? s[i][j] : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+      const int h = i >> 1;
+      const int tq = q0 + r0 + 8 * h;
+      const int d = 8 * n + 2 * t + (i & 1);
+      if (tq < Tn && d < D)
+        store(&o[base + (size_t)tq * D + d],
+              row_ok[h] ? acc[n][i] / l_safe[h] : 0.f);
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4], vv[DJ];
+  if (t == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * DMAX + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int tq = q0 + r0 + 8 * h;
+      if (tq < Tn)
+        lse[(size_t)bh * Tn + tq] =
+            row_ok[h] ? m[h] + logf(l_safe[h]) : NEG_INF;
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= Tn) continue;
-    const bool valid = m[i] > NEG_INF / 2;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D)
-        store(&o[base + (size_t)t * D + d], valid ? acc[i][j] / l_safe : 0.f);
-    }
-    if (tx == 0)
-      lse[(size_t)bh * Tn + t] = valid ? m[i] + logf(l_safe) : NEG_INF;
   }
 }
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_mask, void* o, void* lse, int BH, int H,
-                   int Tn, int D, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DMAX>();
+                   int Tn, int D, int causal, int vec, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, DMAX>();
   auto kern = flash_fwd_kernel<T, DMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -228,7 +297,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(kv_mask),
       static_cast<T*>(o), static_cast<float*>(lse), H, Tn, D, causal,
-      1.0f / sqrtf((float)D));
+      1.0f / sqrtf((float)D), vec);
   return cudaGetLastError();
 }
 
@@ -236,13 +305,17 @@ template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* kv_mask, void* o, void* lse, int BH, int H,
                      int Tn, int D, int causal, cudaStream_t stream) {
+  // cp.async moves 16-byte pieces: rows of a whole number of them, and
+  // 16-byte aligned tensors
+  const int vec = (D * (int)sizeof(T)) % 16 == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   if (D <= 32)
-    return launch<T, 32>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal,
+    return launch<T, 32>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal, vec,
                          stream);
   if (D <= 64)
-    return launch<T, 64>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal,
+    return launch<T, 64>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal, vec,
                          stream);
-  return launch<T, 128>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal,
+  return launch<T, 128>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal, vec,
                         stream);
 }
 

@@ -1,7 +1,9 @@
-// Tensor-core building blocks shared by the flash-attention backward
-// kernels (flash_attn_dq.cu, flash_attn_dkv.cu), for Hopper (sm_90a):
+// Tensor-core building blocks shared by the flash-attention kernels
+// (flash_attn_fwd.cu, flash_attn_dq.cu, flash_attn_dkv.cu), for Hopper
+// (sm_90a):
 // mma.sync m16n8k8 tf32 with f32 accumulation, the 3xTF32 split, cp.async
-// tile loads with zero fill, and the shared-memory row stride.
+// tile loads with zero fill, the shared-memory row stride, and the block
+// vote that skips KV tiles with no valid key.
 //
 // Fragment layout of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32,
 // lane = 4 g + t (g = lane / 4 in 0..7, t = lane % 4):
@@ -168,6 +170,21 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The first KV tile of BK keys at or after j with a valid key (every tile,
+// without a mask). A block-wide vote: every thread of the block (at least
+// BK of them) calls it with the same j.
+template <int BK>
+__device__ __forceinline__ int next_tile(int j, int end,
+                                         const float* __restrict__ mrow,
+                                         int Tn, int tid) {
+  if (mrow == nullptr) return j;
+  for (; j < end; ++j) {
+    const int key = j * BK + tid;
+    if (__syncthreads_or(tid < BK && key < Tn && mrow[key] > 0.f)) break;
+  }
+  return j;
 }
 
 // Rows t0 .. t0 + ROWS - 1 of a [Tn, D] tensor into a [ROWS][S] shared

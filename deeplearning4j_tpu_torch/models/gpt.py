@@ -49,13 +49,15 @@ def gpt_decoder(vocab_size: int, seq_len: int, d_model: int = 128,
                 d_ff: Optional[int] = None, seed: int = 12345,
                 learning_rate: float = 3e-4, updater: str = "adam",
                 dropout: Optional[float] = None,
+                block_size: int = 512,
                 tie_weights: bool = True,
                 dtype: str = "float32") -> ComputationGraphConfiguration:
     """Build the decoder LM config. Input: one-hot token windows
     ``[B, T=seq_len, V=vocab_size]``; output: the per-timestep next-token
-    distribution ``[B, T, V]``. The JAX builder's ``precision``,
-    ``loss_scale`` and ``block_size`` (training precision and the
-    blockwise-attention tile) have no counterpart yet."""
+    distribution ``[B, T, V]``. ``block_size`` tiles the blockwise
+    attention of heads wider than the kernels take (d_model / n_heads >
+    128). The JAX gpt_decoder's ``precision`` and ``loss_scale`` (training
+    precision) have no counterpart yet."""
     if d_ff is None:
         d_ff = 4 * d_model
     if d_model % n_heads:
@@ -75,8 +77,8 @@ def gpt_decoder(vocab_size: int, seq_len: int, d_model: int = 128,
         blk = f"b{i}"
         g.add_layer(f"{blk}_ln1", LayerNormalization(), cur)
         g.add_layer(f"{blk}_attn", SelfAttentionLayer(
-            n_heads=n_heads, causal=True, activation="identity"),
-            f"{blk}_ln1")
+            n_heads=n_heads, causal=True, block_size=block_size,
+            activation="identity"), f"{blk}_ln1")
         g.add_vertex(f"{blk}_res1", ElementWiseVertex(op="add"),
                      cur, f"{blk}_attn")
         g.add_layer(f"{blk}_ln2", LayerNormalization(), f"{blk}_res1")
@@ -108,6 +110,7 @@ def gpt_tiny(vocab_size: int = 16, seq_len: int = 8, **kw
     kw.setdefault("n_heads", 2)
     kw.setdefault("n_layers", 2)
     kw.setdefault("d_ff", 32)
+    kw.setdefault("block_size", 4)
     return gpt_decoder(vocab_size, seq_len, **kw)
 
 

@@ -1,12 +1,17 @@
 """Attention layers (the JAX package's ``nn/layers/attention.py``).
 
-``SelfAttentionLayer.apply`` runs every attention through
-``ops.flash_attention`` (on the card the Hopper kernels: the forward, and
-the dq and dk/dv backward under autograd); the Q/K/V/O projections stay
-``torch.matmul``. Training drops out the layer's input. Incremental decode (``prefill``,
-``decode_step``) is plain torch, as the JAX package leaves it to XLA.
-The blockwise and ring (sequence-parallel) paths and the paged-KV helpers
-are not ported yet.
+``SelfAttentionLayer.apply`` runs an attention whose heads fit the
+kernels (``head_dim <= MAX_HEAD_DIM``) through ``ops.flash_attention`` (on
+the card the Hopper kernels: the forward, and the dq and dk/dv backward
+under autograd). Wider heads take ``blockwise_attention`` +
+``finalize_attention`` (``use_blockwise``, the default) or
+``attention_reference``, plain torch under autograd, as the JAX layer does
+where its Pallas kernel is off. The choice is made from the arguments, the
+same on every device. The Q/K/V/O projections stay ``torch.matmul``.
+Training drops out the layer's input. Incremental decode (``prefill``,
+``decode_step``) is plain torch, as the JAX package leaves it to XLA. The
+ring (sequence-parallel) path and the paged-KV helpers are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (
     BaseLayerConf, Params, register_layer,
 )
-from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
+from deeplearning4j_tpu_torch.ops.flash_attention import (
+    MAX_HEAD_DIM, flash_attention,
+)
 
 NEG_INF = -1e30
 
@@ -42,16 +49,70 @@ def attention_reference(q, k, v, causal: bool = False,
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)
 
 
+def blockwise_attention(q, k, v, *, block_size: int = 512,
+                        causal: bool = False, q_offset: int = 0,
+                        kv_mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-style attention over KV blocks of ``block_size`` keys with a
+    running max and sum, returning (unnormalised out, running max, running
+    sum) so partial results compose across ring steps. q, k, v:
+    ``[B, H, T, D]``; ``q_offset`` is the global position of query 0 (a
+    sequence shard's, for causal masking); ``kv_mask`` ``[B, TK]`` marks
+    valid keys (nonzero). The last block is zero-padded and its padding
+    masked, as the JAX package pads it; differentiable by autograd."""
+    B, H, TQ, D = q.shape
+    TK = k.shape[2]
+    bs = min(block_size, TK)
+    n_blocks = -(-TK // bs)
+    pad = n_blocks * bs - TK
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    key_ok = torch.ones((B, n_blocks * bs), dtype=torch.bool,
+                        device=q.device)
+    key_ok[:, TK:] = False
+    if kv_mask is not None:
+        key_ok[:, :TK] = kv_mask != 0
+    scale = 1.0 / math.sqrt(D)
+    q_pos = q_offset + torch.arange(TQ, device=q.device)
+    out = torch.zeros_like(q)
+    m = torch.full(q.shape[:3], NEG_INF, dtype=q.dtype, device=q.device)
+    lse = torch.zeros(q.shape[:3], dtype=q.dtype, device=q.device)
+    for b in range(n_blocks):
+        blk = slice(b * bs, (b + 1) * bs)
+        logits = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, blk]) * scale
+        logits = torch.where(key_ok[:, None, None, blk], logits, NEG_INF)
+        if causal:
+            k_pos = torch.arange(b * bs, (b + 1) * bs, device=q.device)
+            logits = torch.where(q_pos[:, None] >= k_pos[None, :], logits,
+                                 NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        out = out * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                   v[:, :, blk])
+        lse = lse * corr + p.sum(dim=-1)
+        m = m_new
+    return out, m, lse
+
+
+def finalize_attention(out, lse):
+    """Normalise ``blockwise_attention``'s output by its running sum."""
+    return out / torch.clamp_min(lse[..., None], 1e-30)
+
+
 @register_layer
 @dataclass
 class SelfAttentionLayer(BaseLayerConf):
     """Multi-head self attention over [B, T, F] with an optional causal
-    mask. Params: Wq/Wk/Wv [F, H*D], Wo [H*D, F]. (The JAX layer's
-    ``block_size`` tiles its blockwise path, which is not ported; the
-    port's kernel has fixed tiles.)"""
+    mask. Params: Wq/Wk/Wv [F, H*D], Wo [H*D, F]. ``block_size`` and
+    ``use_blockwise`` choose the path of heads wider than the kernels
+    take; heads up to ``MAX_HEAD_DIM`` run the kernels' fixed tiles."""
     n_heads: int = 8
     head_dim: int = 0          # default F // n_heads
     causal: bool = False
+    block_size: int = 512
+    use_blockwise: bool = True
 
     @property
     def supports_kv_cache(self) -> bool:
@@ -95,7 +156,15 @@ class SelfAttentionLayer(BaseLayerConf):
         q = self._split_heads(x @ params["Wq"])
         k = self._split_heads(x @ params["Wk"])
         v = self._split_heads(x @ params["Wv"])
-        out = flash_attention(q, k, v, causal=self.causal, kv_mask=mask)
+        if self.head_dim <= MAX_HEAD_DIM:
+            out = flash_attention(q, k, v, causal=self.causal, kv_mask=mask)
+        elif self.use_blockwise:
+            out, _, lse = blockwise_attention(
+                q, k, v, block_size=self.block_size, causal=self.causal,
+                kv_mask=mask)
+            out = finalize_attention(out, lse)
+        else:
+            out = attention_reference(q, k, v, causal=self.causal, mask=mask)
         out = self._merge_heads(out) @ params["Wo"]
         if mask is not None:
             out = out * mask[..., None]

@@ -17,7 +17,9 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.datasets import DataSet
-from deeplearning4j_tpu_torch.models.gpt import gpt_tiny, greedy_generate
+from deeplearning4j_tpu_torch.models.gpt import (
+    gpt_decoder, gpt_tiny, greedy_generate,
+)
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     NEG_INF, attention_dvec, flash_attention, flash_attention_bwd_plain,
     flash_attention_dkv, flash_attention_dq, flash_attention_plain,
@@ -46,10 +48,16 @@ def card():
     (1, 2, 77, 8, False, "float32"),
     (1, 2, 130, 128, True, "float32"),
     (2, 1, 64, 40, False, "bfloat16"),
+    (32, 8, 256, 64, True, "float32"),     # the GPT slice's shape
+    (2, 4, 256, 128, True, "bfloat16"),    # the widest template
+    (2, 2, 99, 32, True, "float32"),       # T = 16 k + 3: a ragged mma edge
+    (2, 2, 35, 6, True, "float32"),        # rows of 24 bytes: no cp.async
+    (2, 2, 35, 20, False, "bfloat16"),     # rows of 40 bytes: no cp.async
 ])
 def test_flash_kernel_matches_plain(card, B, H, T, D, causal, dtype):
-    """Ragged T, every head-dim template (32/64/128), a key mask with a
-    hole and a batch row with no valid key (exact zeros, NEG_INF lse)."""
+    """Ragged T, every head-dim template (32/64/128), rows that cp.async
+    cannot move, a key mask with a hole and a batch row with no valid key
+    (exact zeros, NEG_INF lse). Two launches are bitwise equal."""
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(T + D)
     q, k, v = (torch.randn(B, H, T, D, generator=g).to(card, dt)
@@ -71,6 +79,34 @@ def test_flash_kernel_matches_plain(card, B, H, T, D, causal, dtype):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
     assert torch.all(out[0] == 0) and torch.all(lse[0] == NEG_INF)
+    out2, lse2 = flash_attention(q, k, v, causal=causal, kv_mask=mask,
+                                 return_lse=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_skips_padded_key_tiles(card, dtype):
+    """Padded rows (lengths 64-256 of 256): whole key tiles are invalid
+    and K4 skips them by a block vote. O and lse match the plain forward,
+    and every row has a valid key, so none is zero."""
+    dt = getattr(torch, dtype)
+    B, H, T, D = 4, 2, 256, 64
+    g = torch.Generator().manual_seed(22)
+    q, k, v = (torch.randn(B, H, T, D, generator=g).to(card, dt)
+               for _ in range(3))
+    lengths = [256, 64, 100, 190]
+    mask = (torch.arange(T)[None, :] < torch.tensor(lengths)[:, None]
+            ).float().to(card)
+    for causal in (True, False):
+        out, lse = flash_attention(q, k, v, causal=causal, kv_mask=mask,
+                                   return_lse=True)
+        ref, ref_lse = flash_attention_plain(q, k, v, causal=causal,
+                                             kv_mask=mask)
+        tol = 2e-5 if dt == torch.float32 else 1.6e-2
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+        assert bool(torch.all(lse > NEG_INF / 2))
 
 
 def _bwd_inputs(card, B, H, T, D, causal, dt):
@@ -210,6 +246,34 @@ def test_gpt_tiny_on_card_matches_cpu(card):
     for prompt in ([1], [3, 4, 5], list(range(9))):
         assert greedy_generate(gpu, prompt, 6) == \
             greedy_generate(cpu, prompt, 6)
+
+
+def test_wide_head_gpt_on_card_matches_cpu(card):
+    """Heads wider than the kernels take (d_model 512 over 2 heads: head
+    dim 256) run the blockwise attention in plain torch on the card too:
+    no attention kernel launches, output() within 1e-5 of the CPU net's
+    and the first fit_batch loss within 1e-5 relative."""
+    kw = dict(vocab_size=16, seq_len=16, d_model=512, n_heads=2,
+              n_layers=1, block_size=6)
+    gpu = ComputationGraph(gpt_decoder(**kw), device=card).init()
+    cpu = ComputationGraph(gpt_decoder(**kw), device="cpu").init()
+    rng = np.random.default_rng(2)
+    eye = np.eye(16, dtype=np.float32)
+    tok = rng.integers(0, 16, (3, 17))
+    x, y = eye[tok[:, :-1]], eye[tok[:, 1:]]
+    mask = np.ones((3, 16), np.float32)
+    mask[1, 9:] = 0.0
+    before = (flash_attention.launches, flash_attention_dq.launches,
+              flash_attention_dkv.launches)
+    got = gpu.output(x, mask=mask)
+    loss = float(gpu.fit_batch(DataSet(x, y)))
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_dq.launches,
+            flash_attention_dkv.launches) == before
+    torch.testing.assert_close(got.cpu(), cpu.output(x, mask=mask),
+                               atol=1e-5, rtol=0)
+    assert loss == pytest.approx(float(cpu.fit_batch(DataSet(x, y))),
+                                 rel=1e-5)
 
 
 def test_gpt_tiny_training_on_card_matches_cpu(card):

@@ -1,6 +1,7 @@
-"""The numerics of the tensor-core flash-attention backward kernels K5
-(``csrc/flash_attn_dq.cu``) and K6 (``csrc/flash_attn_dkv.cu``), proved on
-the CPU, where no CUDA kernel runs.
+"""The numerics of the tensor-core flash-attention kernels, the forward K4
+(``csrc/flash_attn_fwd.cu``) and the backward K5 (``csrc/flash_attn_dq.cu``)
+and K6 (``csrc/flash_attn_dkv.cu``), proved on the CPU, where no CUDA
+kernel runs.
 
 The kernels do every product of the FA2 backward (s = q k^T, dp = dO v^T,
 dq = ds k, dk = ds^T q, dv = p^T dO) on mma.sync tf32 tensor cores with f32
@@ -15,6 +16,13 @@ interpret mode (as tests/test_torch_flash_backward.py runs them), the same
 numpy inputs going to all three, at 5e-5 of each gradient's largest |g|
 (f32) and 1.6e-2 (bf16, the card tests' tolerances). 1xTF32 misses the f32
 tolerance by an order of magnitude, which is why the kernels split.
+
+K4's forward is emulated as the kernel computes it: per KV tile of 32 keys,
+s = q k^T and o += p v through the same products, the online softmax's
+running max and sum in f32, p rounded to tf32 once for bf16 calls. It is
+held against the port's plain forward and the JAX Pallas forward
+(interpret mode) at 2e-5 (O) and 1e-4 (lse), the card tests' tolerances;
+1xTF32 misses 2e-5 there too.
 
 The fragment layout the kernels rely on (an accumulator tile reused as the
 next product's A operand, with the B operand loaded in the permuted k
@@ -38,6 +46,11 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
 
 TOL_F32 = 5e-5
 TOL_BF16 = 1.6e-2
+#: the forward's tolerances: O in f32 and in bf16, lse
+TOL_FWD_O = 2e-5
+TOL_FWD_LSE = 1e-4
+#: keys per KV tile of the forward kernel (BK in csrc/flash_attn_fwd.cu)
+FWD_BK = 32
 
 
 def rna_tf32(x):
@@ -229,6 +242,144 @@ def test_truncating_split_keeps_20_bits():
     assert np.all(np.abs(big + small - r) < 2.0 ** -20 * np.abs(r))
 
 
+# ---- the forward kernel K4 ------------------------------------------------
+
+def emulated_fwd(q, k, v, valid, mode, round_p=None, bk=FWD_BK):
+    """K4's forward in numpy f32: per KV tile of ``bk`` keys, s = q k^T
+    through ``matmul(mode)``, the running max m and sum l (over p before
+    any rounding), o rescaled and o += p v through ``matmul(mode)``;
+    ``round_p`` rounds p before that product (the bf16 calls). A row whose
+    m never rose off NEG_INF gets exactly 0 and lse = NEG_INF."""
+    B, H, T, D = q.shape
+    scale = np.float32(1.0 / math.sqrt(D))
+    neg = np.float32(NEG_INF)
+    m = np.full((B, H, T), neg, np.float32)
+    l = np.zeros((B, H, T), np.float32)
+    acc = np.zeros((B, H, T, D), np.float32)
+    for k0 in range(0, T, bk):
+        kt = slice(k0, k0 + bk)
+        ok = np.broadcast_to(valid[..., kt], (B, H, T, min(bk, T - k0)))
+        s = matmul(q, np.swapaxes(k[..., kt, :], -1, -2), mode) * scale
+        s = np.where(ok, s, neg)
+        m_new = np.maximum(m, s.max(-1))
+        alpha = np.exp(m - m_new)
+        p = np.where(ok, np.exp(s - m_new[..., None]), np.float32(0.0))
+        l = l * alpha + p.sum(-1, dtype=np.float32)
+        if round_p is not None:
+            p = round_p(p)
+        acc = acc * alpha[..., None] + matmul(p, v[..., kt, :], mode)
+        m = m_new
+    row_ok = m > NEG_INF / 2
+    l_safe = np.maximum(l, np.float32(1e-30))
+    out = np.where(row_ok[..., None], acc / l_safe[..., None],
+                   np.float32(0.0))
+    return out, np.where(row_ok, m + np.log(l_safe), neg)
+
+
+def _fwd_case(name, dtype):
+    """Inputs (f32 arrays, bf16-exact for bf16), the key mask, the pair
+    validity and the port's plain forward (O as f32, lse) of case
+    ``name``."""
+    B, H, T, D, mask_kind = CASES[name]
+    rng = np.random.default_rng(T + D + 1)
+    arrs = [rng.normal(size=(B, H, T, D)).astype(np.float32)
+            for _ in range(3)]
+    if dtype == "bfloat16":
+        arrs = [to_bf16(a) for a in arrs]
+    mask = _holes(B, T) if mask_kind == "holes" else None
+    m = None if mask is None else torch.from_numpy(mask)
+    out, lse = flash_attention(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                                 for a in arrs),
+                               causal=True, kv_mask=m, return_lse=True)
+    valid = _valid_pairs(B, T, True, m, "cpu").numpy()
+    return arrs, mask, valid, out.float().numpy(), lse.numpy()
+
+
+def _jax_fwd(q, k, v, mask):
+    """(O, lse) of the JAX forward kernel in interpret mode, causal, on the
+    unpadded problem: the padding and q pre-scale of
+    ``jpa.flash_attention``, then ``_run_fwd``."""
+    B, H, T, D = q.shape
+    Tp, Dp = jpa._round_up(T, 128), jpa._round_up(D, 128)
+
+    def prep(x):
+        x = jnp.pad(jnp.asarray(x), ((0, 0), (0, 0), (0, Tp - T),
+                                     (0, Dp - D)))
+        return x.reshape(B * H, Tp, Dp)
+
+    valid = np.ones((B, T), np.float32) if mask is None else mask
+    valid = np.pad(valid, ((0, 0), (0, Tp - T)))
+    bias = jnp.repeat(jnp.where(jnp.asarray(valid) > 0, 0.0, jpa.NEG_INF)
+                      .astype(jnp.float32), H, axis=0)
+    qs = jnp.asarray(q) * (math.sqrt(Dp) / math.sqrt(D))
+    out, lse = jpa._run_fwd(prep(qs), prep(k), prep(v), bias, True, True)
+    out = np.asarray(out).reshape(B, H, Tp, Dp)[:, :, :T, :D]
+    return out, np.asarray(lse).reshape(B, H, Tp)[:, :, :T]
+
+
+def _fwd_errs(got, want):
+    """max |O - O_ref| and max |lse - lse_ref|."""
+    return (float(np.abs(got[0] - want[0]).max()),
+            float(np.abs(got[1] - want[1]).max()))
+
+
+@pytest.mark.parametrize("mode", ["3xtf32", "3xtf32-rna"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_3xtf32_forward_matches_plain_and_jax(name, mode):
+    """K4's arithmetic (3xTF32 split as the kernel splits it, and as
+    round-to-nearest would; online softmax over 32-key tiles) stays within
+    2e-5 (O) and 1e-4 (lse) of the plain f32 forward and of the JAX Pallas
+    forward; rows with no valid key are exactly 0 with lse = NEG_INF."""
+    arrs, mask, valid, out, lse = _fwd_case(name, "float32")
+    got = emulated_fwd(*arrs, valid, mode)
+    for want in ((out, lse), _jax_fwd(*arrs, mask)):
+        err_o, err_lse = _fwd_errs(got, want)
+        assert err_o <= TOL_FWD_O and err_lse <= TOL_FWD_LSE
+    if mask is not None:
+        assert np.all(got[0][0] == 0) and np.all(got[1][0] == NEG_INF)
+        assert np.all(got[0][1:, :, 0] == 0)
+        assert np.all(got[1][1:, :, 0] == NEG_INF)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_1xtf32_forward_misses_the_f32_tolerance(name):
+    """One tf32 product per f32 product misses 2e-5 on O: s's rounding
+    (~2^-11 of each term) moves p = exp(s - m) by as much. The margins are
+    recorded: 1xTF32 lands between 5e-4 and 2e-3 on O (25-100x the
+    tolerance) and misses lse's 1e-4 too; 3xTF32 stays below 2e-6 on both
+    with either split."""
+    arrs, _, valid, out, lse = _fwd_case(name, "float32")
+    err_o, err_lse = _fwd_errs(emulated_fwd(*arrs, valid, "1xtf32"),
+                               (out, lse))
+    assert TOL_FWD_O < 5e-4 < err_o < 2e-3 and err_lse > TOL_FWD_LSE
+    for mode in ("3xtf32", "3xtf32-rna"):
+        err_o, err_lse = _fwd_errs(emulated_fwd(*arrs, valid, mode),
+                                   (out, lse))
+        assert err_o < 2e-6 and err_lse < 2e-6
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bf16_forward_within_the_bf16_tolerance(name):
+    """bf16 inputs are exact in tf32, so s is an exact product; the kernel
+    rounds p to tf32 once before o += p v. O, rounded to bf16, stays
+    within 1.6e-2 of the plain forward's bf16 O, and lse within 1e-4."""
+    arrs, _, valid, out, lse = _fwd_case(name, "bfloat16")
+    o, l = emulated_fwd(*arrs, valid, "exact", rna_tf32)
+    err_o, err_lse = _fwd_errs((to_bf16(o), l), (out, lse))
+    assert err_o <= TOL_BF16 and err_lse <= TOL_FWD_LSE
+
+
+@pytest.mark.parametrize("bk", [8, 32, 128])
+def test_forward_online_softmax_is_independent_of_the_tile(bk):
+    """Exact products (f64 would do; f32 here): the online softmax over
+    tiles of 8, 32 or 128 keys gives the plain forward within 2e-6, so the
+    kernel's tile size is free to choose."""
+    arrs, _, valid, out, lse = _fwd_case("T300-causal-holes", "float32")
+    err_o, err_lse = _fwd_errs(emulated_fwd(*arrs, valid, "exact", bk=bk),
+                               (out, lse))
+    assert err_o < 2e-6 and err_lse < 2e-6
+
+
 # ---- the fragment layout, lane by lane (PTX m16n8k8 tf32) ----------------
 
 def _lanes():
@@ -293,3 +444,28 @@ def test_row_fragments_compute_q_k_transpose():
     np.testing.assert_allclose(acc, Q @ K.T, rtol=1e-12)
     np.testing.assert_allclose(_acc_frag(acc), _acc_frag(Q @ K.T),
                                rtol=1e-12)
+
+
+def test_s_accumulator_feeds_p_v_in_the_permuted_order():
+    """K4's chain in one warp: s = q k^T accumulated over the k steps of D
+    (``load_a`` / ``load_bt``), its accumulator registers taken as the A
+    operand of p v (``acc_as_a``: a = (c0, c2, c1, c3)) and V's rows read
+    as ``mma_pair_b`` reads them (rows 2t and 2t + 1 of the 8 keys) give
+    (q k^T) v; with V in plain order they do not."""
+    rng = np.random.default_rng(10)
+    D = 16
+    Q = rng.normal(size=(16, D))
+    K = rng.normal(size=(8, D))
+    Vt = rng.normal(size=(8, 8))
+    g, t = _lanes()
+    s = np.zeros((16, 8))
+    for c0 in range(0, D, 8):
+        a = np.stack([Q[g, c0 + t], Q[g + 8, c0 + t], Q[g, c0 + t + 4],
+                      Q[g + 8, c0 + t + 4]], 1)
+        s += _mma(a, np.stack([K[g, c0 + t], K[g, c0 + t + 4]], 1))
+    a = _acc_frag(s)[:, [0, 2, 1, 3]]
+    permuted = np.stack([Vt[2 * t, g], Vt[2 * t + 1, g]], 1)
+    np.testing.assert_allclose(_mma(a, permuted), (Q @ K.T) @ Vt,
+                               rtol=1e-10, atol=1e-12)
+    plain = np.stack([Vt[t, g], Vt[t + 4, g]], 1)
+    assert not np.allclose(_mma(a, plain), (Q @ K.T) @ Vt)
