@@ -12,15 +12,16 @@ Phases, each printing JSON lines:
    reports for K4, K5 and K6 at each head-dim template (no spill
    allowed);
 2. kernels — the flash-attention forward kernel (K4, tensor cores in
-   3xTF32) against its plain PyTorch version on the card in nine cases
+   3xTF32) against its plain PyTorch version on the card in twelve cases
    (the slice's shape, ragged T with a row that has no valid key, D = 8,
-   32 and 128, bf16, half the keys masked, padded rows whose whole key
-   tiles are skipped), two launches bitwise equal, with kernel / plain /
-   SDPA times and the card's bound at the tensor cores' peak and at the
+   32, 128 and 256, bf16, half the keys masked, padded rows whose whole
+   key tiles are skipped), two launches bitwise equal, with kernel / plain
+   / SDPA times and the card's bound at the tensor cores' peak and at the
    f32 CUDA-core peak; the backward
    kernels (K5 dq, K6 dk/dv, tensor cores in 3xTF32) against the plain
-   FA2 backward in the same five cases and a sixth with padded rows
-   (lengths 64-256: whole key tiles skipped, their dk/dv exactly 0), with
+   FA2 backward in the same five cases, a sixth with padded rows
+   (lengths 64-256: whole key tiles skipped, their dk/dv exactly 0) and
+   head dim 256 (f32 masked and not, bf16), with
    exact zero grads for rows with no valid key, two launches bitwise
    equal, kernel / plain / SDPA-backward times, and bounds at the tensor
    cores' peak and, as before, at the f32 CUDA-core peak;
@@ -67,19 +68,21 @@ Phases, each printing JSON lines:
    loss that falls over 20 calls, ms per batch and window, characters/s,
    the peak memory, the updater's time and a torch.profiler breakdown of
    one ``fit_batch`` (K2+K3 and GEMM shares);
-7. wide-head slice — a GPT with heads wider than the kernels take
-   (d_model 512 over 2 heads: head dim 256, 2 layers, blocks of 128 keys)
-   through ``output()`` (with and without a key mask) and one
-   ``fit_batch`` on the card: the blockwise attention in plain torch, no
-   K4, K5 or K6 launch, the probabilities within 1e-4 of the same net on
-   the CPU and the loss within 1e-5 (relative);
+7. wide-head slice — a GPT with heads of 256, the kernels' widest
+   template (d_model 512 over 2 heads, 2 layers), through ``output()``
+   (with and without a key mask), one gradient and two ``fit_batch``
+   calls on the card: the exact K4, K5 and K6 launches, the probabilities
+   within 1e-4 of the same net on the CPU, every gradient within 1e-4 of
+   its largest |g|, the first loss within 1e-5 and the second (after an
+   Adam step) within 1e-4, relative;
 8. a ``{"kernels": [...]}`` summary line;
 9. last line ``{"ok": true, "device": {...}}``.
 
-The attention kernels and SDPA are timed by their kernels' durations in a
-profiler trace (``device_ms``): K4 runs in less time than its Python
-wrapper can take to queue a call. The other times are CUDA events over
-back-to-back calls (``cuda_ms``); K4's ``call_ms`` is that too.
+Every kernel, plain version and library call is timed by its kernels'
+durations in a profiler trace (``device_ms``): K4 runs in less time than
+its Python wrapper can take to queue a call, so back-to-back events
+would time the host. The updater's time is CUDA events over back-to-back
+calls (``cuda_ms``): it is host-bound by design.
 
 Each slice is driven with every kernel's launch count set to 0 just
 before it and read just after; a kernel of that path that was not
@@ -175,9 +178,9 @@ TOL_K3_F32 = 2e-4
 TOL_LSTM_TRAIN_BF16 = 3.2e-2
 
 SLICE = dict(vocab_size=96, seq_len=256, d_model=512, n_heads=8, n_layers=8)
-#: heads wider than the kernels take (head dim 256): blockwise attention
+#: heads of 256, the kernels' widest template
 WIDE_SLICE = dict(vocab_size=96, seq_len=256, d_model=512, n_heads=2,
-                  n_layers=2, block_size=128)
+                  n_layers=2)
 WIDE_BATCH = 8
 LSTM_SLICE = dict(vocab_size=96, hidden=256, layers=2)
 LSTM_BATCH = (32, 64)          # B, T: the char-LSTM traffic of bench.py
@@ -405,10 +408,7 @@ def kernel_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
     if timed:
         rec["ms"] = device_ms(lambda: flash_attention(
             q, k, v, causal=causal, kv_mask=mask))
-        # the wrapper's calls back to back: the host's queueing included
-        rec["call_ms"] = cuda_ms(lambda: flash_attention(
-            q, k, v, causal=causal, kv_mask=mask))
-        rec["plain_ms"] = cuda_ms(lambda: flash_attention_plain(
+        rec["plain_ms"] = device_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal, kv_mask=mask))
         # yardstick only: the port never calls SDPA
         rec["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
@@ -445,12 +445,17 @@ def sdpa_backward_ms(q, k, v, d_out, causal):
     return device_ms(fwd_bwd) - device_ms(fwd)
 
 
+def attention_d_out(B, H, T, D, dtype):
+    """dO on the card for ``attention_inputs``' q, k, v."""
+    g = torch.Generator().manual_seed(SEED + 1 + T + D)
+    return torch.randn(B, H, T, D, generator=g).to("cuda", dtype)
+
+
 def bwd_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
     """K5 and K6 against the plain FA2 backward on the card, from the K4
     case's inputs and the K4 kernel's out and lse."""
     q, k, v, mask = attention_inputs(B, H, T, D, dtype, mask_kind)
-    g = torch.Generator().manual_seed(SEED + 1 + T + D)
-    d_out = torch.randn(B, H, T, D, generator=g).to("cuda", dtype)
+    d_out = attention_d_out(B, H, T, D, dtype)
     out, lse = flash_attention(q, k, v, causal=causal, kv_mask=mask,
                                return_lse=True)
     dvec = attention_dvec(d_out, out)
@@ -501,9 +506,9 @@ def bwd_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
             q, k, v, d_out, lse, dvec, **kw))
         rec["ms_dkv"] = device_ms(lambda: flash_attention_dkv(
             q, k, v, d_out, lse, dvec, **kw))
-        rec["plain_ms_dq"] = cuda_ms(lambda: attention_bwd_plain(
+        rec["plain_ms_dq"] = device_ms(lambda: attention_bwd_plain(
             q, k, v, d_out, lse, dvec, want_dkv=False, **kw))
-        rec["plain_ms_dkv"] = cuda_ms(lambda: attention_bwd_plain(
+        rec["plain_ms_dkv"] = device_ms(lambda: attention_bwd_plain(
             q, k, v, d_out, lse, dvec, want_dq=False, **kw))
         rec["library_ms"] = (sdpa_backward_ms(q, k, v, d_out, causal)
                              if mask is None else None)
@@ -635,9 +640,9 @@ def lstm_case(name, T, B, H, dtype, peephole, carry, timed=False,
                    max_abs_err_step_c=err_c,
                    tol_step_c=tol * max(1.0, c_step))
     if timed:
-        rec["ms"] = cuda_ms(lambda: lstm_recurrence(xz, rw, pw, h0, c0,
-                                                    forget_bias=fb))
-        rec["plain_ms"] = cuda_ms(lambda: lstm_recurrence_plain(
+        rec["ms"] = device_ms(lambda: lstm_recurrence(xz, rw, pw, h0, c0,
+                                                      forget_bias=fb))
+        rec["plain_ms"] = device_ms(lambda: lstm_recurrence_plain(
             xz, rw, pw, h0, c0, forget_bias=fb), iters=5)
         rec["achieved_tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
         rec["library_ms"] = None
@@ -656,9 +661,9 @@ def lstm_case(name, T, B, H, dtype, peephole, carry, timed=False,
             ys_lib, (h_lib, c_lib) = lstm(x, (h0[None], c0[None]))
             ys, _, c_k = fused_lstm(x, w, rw, b, None, h0, c0,
                                     forget_bias=fb)
-            rec["library_ms"] = cuda_ms(lambda: lstm(x, (h0[None],
-                                                         c0[None])))
-        rec["kernel_plus_input_gemm_ms"] = cuda_ms(lambda: fused_lstm(
+            rec["library_ms"] = device_ms(lambda: lstm(x, (h0[None],
+                                                           c0[None])))
+        rec["kernel_plus_input_gemm_ms"] = device_ms(lambda: fused_lstm(
             x, w, rw, b, None, h0, c0, forget_bias=fb))
         rec["library"] = "torch.nn.LSTM (cuDNN), input GEMM included"
         rec["max_abs_diff_vs_library"] = float(max(
@@ -734,11 +739,11 @@ def cudnn_training_ms(B, T, H, g, h0, c0, rw, pw, fb):
         dz = dz.reshape(T * B, 4 * H)
         return h_prev.t() @ dz, x_tm.t() @ dz
 
-    lib_f = cuda_ms(lib_fwd)
+    lib_f = device_ms(lib_fwd)
     return dict(library_ms_fwd=lib_f,
-                library_ms_bwd=cuda_ms(lib_fwd_bwd) - lib_f,
-                kernel_plus_input_gemm_ms=cuda_ms(ours_fwd),
-                kernel_plus_weight_grad_gemms_ms=cuda_ms(ours_bwd),
+                library_ms_bwd=device_ms(lib_fwd_bwd) - lib_f,
+                kernel_plus_input_gemm_ms=device_ms(ours_fwd),
+                kernel_plus_weight_grad_gemms_ms=device_ms(ours_bwd),
                 library="torch.nn.LSTM (cuDNN) in training, no peepholes, "
                         f"x [{B}, {T}, {F_in}] -> H {H}, f32")
 
@@ -797,13 +802,13 @@ def lstm_train_case(name, T, B, H, dtype, peephole, carry, timed=False):
         rec.update({f"bound_ms_{part}": bound, f"bound_by_{part}": by,
                     f"flops_{part}": flops, f"bytes_{part}": nbytes})
     if timed:
-        rec["ms_fwd"] = cuda_ms(lambda: lstm_fwd_train(
+        rec["ms_fwd"] = device_ms(lambda: lstm_fwd_train(
             xz, rw, pw, h0, c0, forget_bias=fb))
-        rec["ms_bwd"] = cuda_ms(lambda: lstm_bwd(eps, gates, cs, c0, rw, pw,
-                                                 dh_T, dc_T))
-        rec["plain_ms_fwd"] = cuda_ms(lambda: lstm_fwd_train_plain(
+        rec["ms_bwd"] = device_ms(lambda: lstm_bwd(eps, gates, cs, c0, rw,
+                                                   pw, dh_T, dc_T))
+        rec["plain_ms_fwd"] = device_ms(lambda: lstm_fwd_train_plain(
             xz, rw, pw, h0, c0, forget_bias=fb), iters=5)
-        rec["plain_ms_bwd"] = cuda_ms(lambda: lstm_bwd_plain(
+        rec["plain_ms_bwd"] = device_ms(lambda: lstm_bwd_plain(
             eps, gates, cs, c_prev, rw, pw, dh_T, dc_T), iters=5)
         rec.update(cudnn_training_ms(B, T, H, g, h0, c0, rw, pw, fb))
     emit(rec)
@@ -1013,16 +1018,7 @@ def train_slice():
     grad_launches = counts()
     cpu_grads, cpu_loss, _ = cpu.compute_gradient_and_score(batches[0])
     loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
-    worst, worst_name = 0.0, None
-    for node, p in cpu_grads.items():
-        for name, want in p.items():
-            got = grads[node][name].cpu()
-            scale = float(want.abs().max())
-            err = float((got - want).abs().max()) / max(scale, 1e-30)
-            check(bool(torch.isfinite(got).all()), f"{node}.{name}: "
-                  "non-finite gradient")
-            if err > worst:
-                worst, worst_name = err, f"{node}.{name}"
+    worst, worst_name = grad_rel_err(grads, cpu_grads)
     n_grads = sum(len(p) for p in cpu_grads.values())
     del grads, cpu_grads
 
@@ -1105,17 +1101,20 @@ def step_losses(net) -> list:
 
 def grad_rel_err(grads, cpu_grads):
     """The worst gradient tensor's max |card - CPU| over its own largest
-    |g|, and its name (layer index, param name)."""
+    |g|, and its name (layer index or graph node, param name). ``grads``
+    and ``cpu_grads``: a list of per-layer dicts or a dict of them."""
+    keys = (list(cpu_grads) if isinstance(cpu_grads, dict)
+            else range(len(cpu_grads)))
     worst, worst_name = 0.0, None
-    for i, (got_p, want_p) in enumerate(zip(grads, cpu_grads)):
-        for name, want in want_p.items():
-            got = got_p[name].cpu()
+    for key in keys:
+        for name, want in cpu_grads[key].items():
+            got = grads[key][name].cpu()
             check(bool(torch.isfinite(got).all()),
-                  f"layer {i} {name}: non-finite gradient")
+                  f"{key}.{name}: non-finite gradient")
             err = float((got - want).abs().max()) / max(
                 float(want.abs().max()), 1e-30)
             if err > worst:
-                worst, worst_name = err, f"{i}.{name}"
+                worst, worst_name = err, f"{key}.{name}"
     return worst, worst_name
 
 
@@ -1242,13 +1241,14 @@ def lstm_train_slice():
 
 
 def wide_head_slice():
-    """A GPT whose heads are wider than the kernels take (head dim 256) on
-    the card: ``output()`` with and without a key mask and one
-    ``fit_batch``, through the blockwise attention (plain torch, autograd),
-    held against the same net on the CPU; no attention kernel launches."""
+    """A GPT with heads of 256, the kernels' widest template, on the card:
+    ``output()`` with and without a key mask, one gradient and two
+    ``fit_batch`` calls through K4, K5 and K6, held against the same net
+    on the CPU. Returns the path's launch counts."""
     net = ComputationGraph(gpt_decoder(**WIDE_SLICE), device="cuda").init()
     cpu = ComputationGraph(gpt_decoder(**WIDE_SLICE), device="cpu").init()
     B, T, V = WIDE_BATCH, WIDE_SLICE["seq_len"], WIDE_SLICE["vocab_size"]
+    L = WIDE_SLICE["n_layers"]
     rng = np.random.default_rng(SEED + 3)
     x = np.eye(V, dtype=np.float32)[rng.integers(0, V, (B, T))]
     lengths = rng.integers(T // 4, T + 1, B)
@@ -1256,32 +1256,47 @@ def wide_head_slice():
     mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
     text = synthetic_char_text(B * (T + 1) + 1, seed=SEED + 3)
     batch = char_lm_batches(text, T, B, charset=CHARSET)[0]
+    # two forwards, a gradient and two steps: 5 K4 and 3 K5, K6 per layer
+    expect = dict(flash_attn_fwd=5 * L, flash_attn_dq=3 * L,
+                  flash_attn_dkv=3 * L, lstm_fwd_infer=0, lstm_fwd_train=0,
+                  lstm_bwd=0)
 
     reset_counts()
     probs = net.output(x)
     probs_m = net.output(x, mask=mask)
-    loss = float(net.fit_batch(batch))
+    grads, _, _ = net.compute_gradient_and_score(batch)
+    losses = [float(net.fit_batch(batch)) for _ in range(2)]
     torch.cuda.synchronize()
     launched = counts()
     err = float((probs.cpu() - cpu.output(x)).abs().max())
     err_m = float((probs_m.cpu() - cpu.output(x, mask=mask)).abs().max())
-    cpu_loss = float(cpu.fit_batch(batch))
-    loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
+    cpu_grads, _, _ = cpu.compute_gradient_and_score(batch)
+    worst, worst_name = grad_rel_err(grads, cpu_grads)
+    del grads, cpu_grads
+    cpu_losses = [float(cpu.fit_batch(batch)) for _ in range(2)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
     emit(dict(phase="wide_head_slice", config=WIDE_SLICE,
               head_dim=WIDE_SLICE["d_model"] // WIDE_SLICE["n_heads"],
               params=net.num_params(), batch=[B, T, V],
-              main_path_launches=launched, max_abs_err_vs_cpu=err,
-              max_abs_err_vs_cpu_masked=err_m, tol=TOL_SLICE,
-              loss=loss, loss_cpu=cpu_loss, loss_rel_err=loss_rel,
-              tol_loss=TOL_TRAIN_LOSS))
-    check(all(n == 0 for n in launched.values()),
-          f"a head-dim-256 GPT launched kernels: {launched}")
+              main_path_launches=launched, expected_launches=expect,
+              max_abs_err_vs_cpu=err, max_abs_err_vs_cpu_masked=err_m,
+              tol=TOL_SLICE, worst_grad_rel_err=worst, worst_grad=worst_name,
+              tol_grad=TOL_TRAIN_GRAD, losses=losses, losses_cpu=cpu_losses,
+              loss_rel_err=rel, tol_loss=TOL_TRAIN_LOSS,
+              tol_steps=TOL_TRAIN_STEPS))
+    check(launched == expect,
+          f"head-dim-256 GPT launches {launched} != {expect}")
     check(tuple(probs.shape) == (B, T, V) and
           bool(torch.isfinite(probs).all() and torch.isfinite(probs_m).all()),
           f"output {tuple(probs.shape)} or non-finite probabilities")
     check(err <= TOL_SLICE and err_m <= TOL_SLICE,
           f"card vs CPU output differs: {err}, {err_m}")
-    check(loss_rel <= TOL_TRAIN_LOSS, f"loss {loss} vs CPU {cpu_loss}")
+    check(worst <= TOL_TRAIN_GRAD,
+          f"gradient {worst_name} differs from the CPU's by {worst} of "
+          "its largest |g|")
+    check(rel[0] <= TOL_TRAIN_LOSS and rel[1] <= TOL_TRAIN_STEPS,
+          f"losses {losses} vs CPU {cpu_losses}")
+    return launched
 
 
 def main() -> int:
@@ -1307,11 +1322,11 @@ def main() -> int:
     ptxas = ptxas_report(["flash_attn_fwd", "flash_attn_dq",
                           "flash_attn_dkv"])
     emit(dict(phase="ptxas", kernels=ptxas))
-    check(len(ptxas) == 18 and all(
+    check(len(ptxas) == 24 and all(
         r.get("registers") and r.get("spill_stores") == 0 and
         r.get("spill_loads") == 0 for r in ptxas),
         "K4 / K5 / K6: ptxas reports a spill, or not 3 kernels x 2 types x "
-        f"3 head-dim templates: {ptxas}")
+        f"4 head-dim templates: {ptxas}")
 
     # ---- 2. kernels against their plain versions ---------------------------
     a = kernel_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
@@ -1328,6 +1343,11 @@ def main() -> int:
     kernel_case("g_D128_bf16", 8, 4, 256, 128, True, torch.bfloat16,
                 "holes")
     kernel_case("h_D32", 8, 8, 200, 32, True, torch.float32, "half")
+    wide = (WIDE_BATCH, WIDE_SLICE["n_heads"], 256, 256, True)
+    kernel_case("i_D256_masked", *wide, torch.float32, "holes")
+    kernel_case("i_D256_bf16", *wide, torch.bfloat16, "padded")
+    i = kernel_case("i_D256_wide_slice", *wide, torch.float32, None,
+                    timed=True)
     (B, T), H = LSTM_BATCH, LSTM_SLICE["hidden"]
     k1 = lstm_case("a_slice", T, B, H, torch.float32, True, False,
                    timed=True)
@@ -1355,6 +1375,10 @@ def main() -> int:
              "half", timed=True)
     bwd_case("f_slice_padded", 32, 8, 256, 64, True, torch.float32,
              "padded", timed=True)
+    bwd_case("g_D256_masked", *wide, torch.float32, "holes")
+    bwd_case("g_D256_bf16", *wide, torch.bfloat16, "padded")
+    gi = bwd_case("g_D256_wide_slice", *wide, torch.float32, None,
+                  timed=True)
 
     # ---- 3. the slice: full-width GPT serving on the card ------------------
     flash_launches = gpt_slice(a["ms"])
@@ -1368,8 +1392,8 @@ def main() -> int:
     # ---- 6. the slice: full-width char-RNN training on the card ----------
     lstm_train_path = lstm_train_slice()
 
-    # ---- 7. heads wider than the kernels take, on the card -----------------
-    wide_head_slice()
+    # ---- 7. heads of 256, the kernels' widest template, on the card -------
+    wide_path = wide_head_slice()
 
     # ---- 8. summary of every ported kernel ---------------------------------
     emit({"kernels": [
@@ -1378,11 +1402,13 @@ def main() -> int:
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:72",
              # serving and training
              launches=flash_launches + train_path["flash_attn_fwd"],
+             launches_d256=wide_path["flash_attn_fwd"],
              max_abs_err=a["max_abs_err_o"],
              ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
              bound_by=a["bound_by"], bound_peak=a["bound_peak"],
              bound_ms_simt=a["bound_ms_simt"], library_ms=a["library_ms"],
-             ms_padded=f["ms"]),
+             ms_padded=f["ms"], ms_d256=i["ms"],
+             bound_ms_d256=i["bound_ms"], library_ms_d256=i["library_ms"]),
         dict(name="lstm_fwd_infer", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/lstm_fwd_infer.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:99",
@@ -1401,6 +1427,9 @@ def main() -> int:
              source="deeplearning4j_tpu_torch/csrc/flash_attn_dq.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:152",
              launches=train_path["flash_attn_dq"],
+             launches_d256=wide_path["flash_attn_dq"],
+             ms_d256=gi["ms_dq"], bound_ms_d256=gi["bound_ms_dq"],
+             library_ms_d256=gi["library_ms"],
              max_abs_err=g["max_abs_err_dq"], ms=g["ms_dq"],
              plain_ms=g["plain_ms_dq"], bound_ms=g["bound_ms_dq"],
              bound_by=g["bound_by_dq"], bound_peak=g["bound_peak_dq"],
@@ -1411,6 +1440,9 @@ def main() -> int:
              source="deeplearning4j_tpu_torch/csrc/flash_attn_dkv.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:192",
              launches=train_path["flash_attn_dkv"],
+             launches_d256=wide_path["flash_attn_dkv"],
+             ms_d256=gi["ms_dkv"], bound_ms_d256=gi["bound_ms_dkv"],
+             library_ms_d256=gi["library_ms"],
              max_abs_err=max(g["max_abs_err_dk"], g["max_abs_err_dv"]),
              ms=g["ms_dkv"], plain_ms=g["plain_ms_dkv"],
              bound_ms=g["bound_ms_dkv"], bound_by=g["bound_by_dkv"],

@@ -14,7 +14,7 @@
 //   taken before any product, so it adds exactly nothing to dk and dv.
 // Not carried over: the TPU kernel's T and D padding to 128 and its
 // sqrt(Dp)/sqrt(D) pre-scale of q; here the scale is 1/sqrt(D) on s and on
-// dk, D is a template bound (32/64/128) with the tail zero-filled in
+// dk, D is a template bound (32/64/128/256) with the tail zero-filled in
 // shared memory, and the ragged T edge is masked inside the kernel.
 //
 // What bounds it on an H100: at the GPT training shape (B=32, H=8, T=256,
@@ -30,7 +30,10 @@
 //     already the A operands of dv += p^T dO and dk += ds^T q, fed from
 //     registers in the permuted query order. At D = 128 two warps share a
 //     16-key group (256 threads), each holding half of dk's and dv's
-//     columns, 64 registers, where one warp would spill;
+//     columns, 64 registers, where one warp would spill. At D = 256 four
+//     warps share a group and a block owns 32 keys (256 threads, 195 KB
+//     of shared memory); each warp computes its group's whole s^T and
+//     dp^T: 20 D FLOP a pair, not 8;
 //   * f32 operands are split into two tf32 halves as their fragments are
 //     loaded (3xTF32, big by truncation); bf16 operands are exact in tf32,
 //     and p, ds are rounded to tf32 once; one k step's products go to
@@ -59,32 +62,38 @@ namespace {
 using namespace flash_mma;
 
 constexpr int BQ = 32;        // query rows per streamed tile
-constexpr int BK = 64;        // keys per block
+constexpr int BK_MIN = 32;    // the fewest keys a block owns (DMAX = 256)
 
+// Keys per block: 64, four 16-key groups; 32 at DMAX = 256.
+template <int DMAX>
+__host__ __device__ constexpr int kv_block() {
+  return DMAX > 128 ? 32 : 64;
+}
 // Warps that share a 16-key group, each accumulating D / DSPLIT columns
-// of its dk and dv: two at DMAX = 128, so that dk and dv take 64
-// registers a thread, not 128.
+// of its dk and dv: two at DMAX = 128 and four at 256, so that dk and dv
+// take 64 registers a thread, not 128 or 256.
 template <int DMAX>
 __host__ __device__ constexpr int dsplit() {
-  return DMAX > 64 ? 2 : 1;
+  return DMAX > 128 ? 4 : DMAX > 64 ? 2 : 1;
 }
 template <int DMAX>
 __host__ __device__ constexpr int threads() {
-  return 128 * dsplit<DMAX>();
+  return 2 * kv_block<DMAX>() * dsplit<DMAX>();  // 32 per 16-key group
 }
 
 // K and V, two stages of q and dO, two of lse and Dvec: 70 KB at D = 64
-// in f32, so three blocks share an SM
+// in f32, so three blocks share an SM; 195 KB at D = 256
 template <typename T, int DMAX>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * (size_t)((2 * BK + 4 * BQ) * row_stride<T, DMAX>()) +
+  return sizeof(T) * (size_t)((2 * kv_block<DMAX>() + 4 * BQ) *
+                              row_stride<T, DMAX>()) +
          sizeof(float) * 4 * BQ;
 }
 
 // q, k, v, dO, dk, dv: [BH, T, D] contiguous; kv_mask: [BH / H, T] (> 0 =
 // valid key) or null; lse, dvec: [BH, T] f32.
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(DMAX > 64 ? 256 : 128, DMAX > 64 ? 1 : 3)
+__global__ void __launch_bounds__(threads<DMAX>(), DMAX > 64 ? 1 : 3)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ kv_mask,
                  const T* __restrict__ dO, const float* __restrict__ lse,
@@ -94,6 +103,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int S = row_stride<T, DMAX>();
   constexpr int NT = threads<DMAX>();
+  constexpr int BK = kv_block<DMAX>();
+  constexpr int NKW = BK / 16;              // 16-key groups
   constexpr int NQC = BQ / 8;               // 8-query n-tiles per tile
   constexpr int NDW = DMAX / 8 / dsplit<DMAX>();  // this warp's column tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -108,8 +119,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = (int)blockIdx.y * BK;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int kw = warp & 3;              // this warp's 16-key group
-  const int d0 = (warp >> 2) * 8 * NDW;  // and its first dk / dv column
+  const int kw = warp % NKW;              // this warp's 16-key group
+  const int d0 = (warp / NKW) * 8 * NDW;  // and its first dk / dv column
   const size_t base = (size_t)bh * Tn * D;
   const size_t rbase = (size_t)bh * Tn;
   const float* mrow = kv_mask ? kv_mask + (size_t)(bh / H) * Tn : nullptr;
@@ -291,7 +302,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tn + BK - 1) / BK);
+  const dim3 grid(BH, (Tn + kv_block<DMAX>() - 1) / kv_block<DMAX>());
   kern<<<grid, threads<DMAX>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(kv_mask),
@@ -317,7 +328,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   if (D <= 64)
     return launch<T, 64>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H, Tn,
                          D, causal, vec, stream);
-  return launch<T, 128>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H, Tn, D,
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H, Tn,
+                          D, causal, vec, stream);
+  return launch<T, 256>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H, Tn, D,
                         causal, vec, stream);
 }
 
@@ -331,8 +345,9 @@ extern "C" int dl4j_flash_attn_dkv(const void* q, const void* k,
                                    const void* dvec, void* dk, void* dv,
                                    int BH, int H, int Tn, int D, int causal,
                                    int dtype, void* stream) {
-  if (BH < 1 || H < 1 || BH % H || Tn < 1 || (Tn + BK - 1) / BK > 65535 ||
-      D < 1 || D > 128 || (dtype != 0 && dtype != 1))
+  if (BH < 1 || H < 1 || BH % H || Tn < 1 ||
+      (Tn + BK_MIN - 1) / BK_MIN > 65535 || D < 1 || D > 256 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

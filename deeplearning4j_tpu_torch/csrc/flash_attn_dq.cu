@@ -15,7 +15,8 @@
 //   be NaN), so its dq is exactly 0.
 // Not carried over: the TPU kernel pads T and D to 128 and pre-scales q by
 // sqrt(Dp)/sqrt(D); here the scale is 1/sqrt(D) on s and on dq, D is a
-// template bound (32/64/128) with the tail zero-filled in shared memory,
+// template bound (32/64/128/256) with the tail zero-filled in shared
+// memory,
 // and the ragged T edge is masked inside the kernel.
 //
 // What bounds it on an H100: at the GPT training shape (B=32, H=8, T=256,
@@ -43,6 +44,10 @@
 //     and D), the next tile's copies in flight while this one computes;
 //     70 KB of shared memory and at most 170 registers (D = 64, f32) let
 //     three blocks share an SM;
+//   * at D = 256 two warps share 16 rows, each holding half of dq's
+//     columns (64 registers, as at D = 128), and a block owns 32 rows
+//     (128 threads, 195 KB of shared memory); both warps compute the
+//     rows' whole s and dp: 10 D FLOP a pair, not 6;
 //   * with a key mask, a KV tile whose keys are all invalid is skipped (a
 //     block vote), and a warp skips a tile wholly past its rows' causal
 //     diagonal; causal blocks are scheduled longest-first.
@@ -62,22 +67,44 @@ namespace {
 
 using namespace flash_mma;
 
-constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 32;        // keys per KV tile
-constexpr int NT = 128;       // threads per block: 4 warps x 16 rows
+constexpr int BQ_MIN = 32;    // the fewest query rows a block owns
+
+// Warps that share 16 query rows, each accumulating DMAX / DSPLIT of dq's
+// columns: two at DMAX = 256, so that dq takes 64 registers a thread
+template <int DMAX>
+__host__ __device__ constexpr int dsplit() {
+  return DMAX > 128 ? 2 : 1;
+}
+// Warps of 16 query rows a block: 4 (64 rows); 2 at DMAX = 256, so that
+// the tiles fit in shared memory and a short batch still spreads over
+// the SMs
+template <int DMAX>
+__host__ __device__ constexpr int row_warps() {
+  return DMAX > 128 ? 2 : 4;
+}
+template <int DMAX>
+__host__ __device__ constexpr int q_rows() {
+  return 16 * row_warps<DMAX>();
+}
+template <int DMAX>
+__host__ __device__ constexpr int threads() {
+  return 32 * row_warps<DMAX>() * dsplit<DMAX>();
+}
 
 // Q and dO, two stages of K and V, two stages of key validity: 70 KB at
-// D = 64 in f32, so three blocks share an SM
+// D = 64 in f32, so three blocks share an SM; 195 KB at D = 256
 template <typename T, int DMAX>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * (size_t)((2 * BQ + 4 * BK) * row_stride<T, DMAX>()) +
+  return sizeof(T) * (size_t)((2 * q_rows<DMAX>() + 4 * BK) *
+                              row_stride<T, DMAX>()) +
          sizeof(float) * 2 * BK;
 }
 
 // q, k, v, dO, dq: [BH, T, D] contiguous; kv_mask: [BH / H, T] (> 0 = valid
 // key) or null; lse, dvec: [BH, T] f32.
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(NT, DMAX > 64 ? 1 : 3)
+__global__ void __launch_bounds__(threads<DMAX>(), DMAX > 64 ? 1 : 3)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ kv_mask,
                 const T* __restrict__ dO, const float* __restrict__ lse,
@@ -85,8 +112,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 int Tn, int D, int causal, float scale, int vec) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int S = row_stride<T, DMAX>();
+  constexpr int NT = threads<DMAX>();
+  constexpr int BQ = q_rows<DMAX>();
+  constexpr int RW = row_warps<DMAX>();
   constexpr int NKC = BK / 8;     // 8-key n-tiles per tile
-  constexpr int ND = DMAX / 8;    // 8-column n-tiles of dq
+  constexpr int NDW = DMAX / 8 / dsplit<DMAX>();  // this warp's dq n-tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);  // [BQ][S]
   T* sdO = sQ + BQ * S;                    // [BQ][S]
@@ -99,6 +129,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (n_q - 1 - (int)blockIdx.y) * BQ;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int rw = warp % RW;               // this warp's 16 rows
+  const int d0 = (warp / RW) * 8 * NDW;  // and its first dq column
   const size_t base = (size_t)bh * Tn * D;
   const size_t rbase = (size_t)bh * Tn;
   const float* mrow = kv_mask ? kv_mask + (size_t)(bh / H) * Tn : nullptr;
@@ -107,7 +139,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_rows<T, DMAX, BQ, NT>(sdO, dO + base, q0, Tn, D, vec, tid);
 
   // this thread's two rows: r0 (accumulator slots 0, 1) and r0 + 8 (2, 3)
-  const int r0 = warp * 16 + g;
+  const int r0 = rw * 16 + g;
   float row_lse[2], row_dvec[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -116,9 +148,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_dvec[h] = tq < Tn ? dvec[rbase + tq] : 0.f;
   }
 
-  float acc[ND][4];
+  float acc[NDW][4];
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+  for (int j = 0; j < NDW; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
@@ -153,7 +185,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* Vs = sV + stage * BK * S;
     const float* valid = sValid + stage * BK;
     // a tile wholly past this warp's last row's diagonal adds nothing
-    if (!causal || k0 <= q0 + warp * 16 + 15) {
+    if (!causal || k0 <= q0 + rw * 16 + 15) {
       // s = q k^T and dp = dO v^T for the tile's keys; the split products
       // of one k step go to the 2 NKC accumulators in turn
       float s[NKC][4], dp[NKC][4];
@@ -209,11 +241,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         uint32_t ab[4], as[4];
         acc_as_a<SPLIT>(s[j], ab, as);
 #pragma unroll
-        for (int n0 = 0; n0 < ND; n0 += 4) {
+        for (int n0 = 0; n0 < NDW; n0 += 4) {
           uint32_t bb[4][2], bs[4][2];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            mma_pair_b<SPLIT>(Ks, S, 8 * j, 8 * (n0 + i), g, t, bb[i],
+            mma_pair_b<SPLIT>(Ks, S, 8 * j, d0 + 8 * (n0 + i), g, t, bb[i],
                               bs[i]);
           if (SPLIT) {
 #pragma unroll
@@ -233,11 +265,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int n = 0; n < NDW; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int tq = q0 + r0 + 8 * (i >> 1);
-      const int d = 8 * n + 2 * t + (i & 1);
+      const int d = d0 + 8 * n + 2 * t + (i & 1);
       if (tq < Tn && d < D)
         store(&dq[base + (size_t)tq * D + d], acc[n][i] * scale);
     }
@@ -253,8 +285,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tn + BQ - 1) / BQ);
-  kern<<<grid, NT, smem, stream>>>(
+  const dim3 grid(BH, (Tn + q_rows<DMAX>() - 1) / q_rows<DMAX>());
+  kern<<<grid, threads<DMAX>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(kv_mask),
       static_cast<const T*>(dO), static_cast<const float*>(lse),
@@ -279,7 +311,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   if (D <= 64)
     return launch<T, 64>(q, k, v, kv_mask, dO, lse, dvec, dq, BH, H, Tn, D,
                          causal, vec, stream);
-  return launch<T, 128>(q, k, v, kv_mask, dO, lse, dvec, dq, BH, H, Tn, D,
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, kv_mask, dO, lse, dvec, dq, BH, H, Tn, D,
+                          causal, vec, stream);
+  return launch<T, 256>(q, k, v, kv_mask, dO, lse, dvec, dq, BH, H, Tn, D,
                         causal, vec, stream);
 }
 
@@ -292,8 +327,9 @@ extern "C" int dl4j_flash_attn_dq(const void* q, const void* k, const void* v,
                                   const void* lse, const void* dvec, void* dq,
                                   int BH, int H, int Tn, int D, int causal,
                                   int dtype, void* stream) {
-  if (BH < 1 || H < 1 || BH % H || Tn < 1 || (Tn + BQ - 1) / BQ > 65535 ||
-      D < 1 || D > 128 || (dtype != 0 && dtype != 1))
+  if (BH < 1 || H < 1 || BH % H || Tn < 1 ||
+      (Tn + BQ_MIN - 1) / BQ_MIN > 65535 ||
+      D < 1 || D > 256 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -11,9 +11,9 @@
 //   does: m never rises off NEG_INF for such a row.
 // Not carried over: the TPU kernel pads T and D to 128 and pre-scales q by
 // sqrt(Dp)/sqrt(D); here the scale 1/sqrt(D) goes on s, D is a template
-// bound (32/64/128) with the tail zero-filled in shared memory, and the
-// ragged T edge is masked inside the kernel. There is no residency gate:
-// K and V stream through shared memory one tile at a time.
+// bound (32/64/128/256) with the tail zero-filled in shared memory, and
+// the ragged T edge is masked inside the kernel. There is no residency
+// gate: K and V stream through shared memory one tile at a time.
 //
 // What bounds it on an H100: at the GPT slice's shape (B=32, H=8, T=256,
 // D=64, causal, f32) the kernel does 4 D FLOP per causal (query, key) pair
@@ -48,6 +48,13 @@
 //     and D; rows that are not 16-byte multiples load element by element);
 //     52 KB of shared memory and at most 128 registers (D <= 64) let four
 //     blocks share an SM (three blocks, 140 registers: 6% slower);
+//   * at D = 256 two warps share 16 rows, each holding half of o's
+//     columns (64 registers, as at D = 128, where one warp would need
+//     128); both compute the rows' whole s, so (m, l) agree bit for bit,
+//     and s = q k^T is done twice: 1.5x the FLOP of one warp. A block
+//     owns 32 rows and walks 16-key tiles there (128 threads, 98 KB of
+//     shared memory, two blocks an SM), so a short batch still spreads
+//     over the SMs;
 //   * with a key mask, a KV tile whose keys are all invalid is skipped (a
 //     block vote), and a warp skips a tile wholly past its rows' causal
 //     diagonal; causal blocks are scheduled longest-first.
@@ -64,16 +71,40 @@ namespace {
 
 using namespace flash_mma;
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 32;        // keys per KV tile
-constexpr int NT = 128;       // threads per block: 4 warps x 16 rows
+constexpr int BQ_MIN = 32;    // the fewest query rows a block owns
+
+// Warps that share 16 query rows, each accumulating DMAX / DSPLIT of o's
+// columns: two at DMAX = 256, so that o takes 64 registers a thread
+template <int DMAX>
+__host__ __device__ constexpr int dsplit() {
+  return DMAX > 128 ? 2 : 1;
+}
+// Warps of 16 query rows a block: 4 (64 rows); 2 at DMAX = 256, so that
+// a short batch still spreads over the SMs
+template <int DMAX>
+__host__ __device__ constexpr int row_warps() {
+  return DMAX > 128 ? 2 : 4;
+}
+template <int DMAX>
+__host__ __device__ constexpr int q_rows() {
+  return 16 * row_warps<DMAX>();
+}
+template <int DMAX>
+__host__ __device__ constexpr int threads() {
+  return 32 * row_warps<DMAX>() * dsplit<DMAX>();
+}
+template <int DMAX>
+__host__ __device__ constexpr int kv_tile() {  // keys per KV tile
+  return DMAX > 128 ? 16 : 32;
+}
 
 // Q, two stages of K and V, two stages of key validity: 52 KB at D = 64
-// in f32, so four blocks share an SM
+// in f32, so four blocks share an SM; 98 KB at D = 256, two blocks
 template <typename T, int DMAX>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * (size_t)((BQ + 4 * BK) * row_stride<T, DMAX>()) +
-         sizeof(float) * 2 * BK;
+  return sizeof(T) * (size_t)((q_rows<DMAX>() + 4 * kv_tile<DMAX>()) *
+                              row_stride<T, DMAX>()) +
+         sizeof(float) * 2 * kv_tile<DMAX>();
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -88,15 +119,20 @@ __device__ __forceinline__ float quad_sum(float x) {
 // q, k, v, o: [BH, T, D] contiguous; kv_mask: [BH / H, T] (> 0 = valid key)
 // or null; lse: [BH, T] f32.
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(NT, DMAX > 64 ? 1 : 4)
+__global__ void __launch_bounds__(threads<DMAX>(),
+                                  DMAX > 128 ? 2 : DMAX > 64 ? 1 : 4)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ kv_mask,
                  T* __restrict__ o, float* __restrict__ lse, int H, int Tn,
                  int D, int causal, float scale, int vec) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int S = row_stride<T, DMAX>();
+  constexpr int NT = threads<DMAX>();
+  constexpr int BQ = q_rows<DMAX>();
+  constexpr int BK = kv_tile<DMAX>();
   constexpr int NKC = BK / 8;     // 8-key n-tiles per tile
-  constexpr int ND = DMAX / 8;    // 8-column n-tiles of o
+  constexpr int RW = row_warps<DMAX>();
+  constexpr int NDW = DMAX / 8 / dsplit<DMAX>();  // this warp's o n-tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);  // [BQ][S]
   T* sK = sQ + BQ * S;                     // [2][BK][S]
@@ -108,16 +144,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (n_q - 1 - (int)blockIdx.y) * BQ;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int rw = warp % RW;               // this warp's 16 rows
+  const int d0 = (warp / RW) * 8 * NDW;  // and its first o column
   const size_t base = (size_t)bh * Tn * D;
   const float* mrow = kv_mask ? kv_mask + (size_t)(bh / H) * Tn : nullptr;
 
   load_rows<T, DMAX, BQ, NT>(sQ, q + base, q0, Tn, D, vec, tid);
 
   // this thread's two rows: r0 (accumulator slots 0, 1) and r0 + 8 (2, 3)
-  const int r0 = warp * 16 + g;
-  float acc[ND][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int r0 = rw * 16 + g;
+  float acc[NDW][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+  for (int j = 0; j < NDW; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
@@ -152,7 +190,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* Vs = sV + stage * BK * S;
     const float* valid = sValid + stage * BK;
     // a tile wholly past this warp's last row's diagonal adds nothing
-    if (!causal || k0 <= q0 + warp * 16 + 15) {
+    if (!causal || k0 <= q0 + rw * 16 + 15) {
       float s[NKC][4];
 #pragma unroll
       for (int j = 0; j < NKC; ++j)
@@ -215,7 +253,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // goes to a fresh accumulator (p from registers) and joins o by one
       // f32 fma, so o's running sum is not rounded inside the tensor cores
 #pragma unroll
-      for (int n0 = 0; n0 < ND; n0 += 4) {
+      for (int n0 = 0; n0 < NDW; n0 += 4) {
         float pv[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -228,8 +266,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           uint32_t bb[4][2], bs[4][2];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            mma_pair_b<SPLIT>(Vs, S, 8 * j, 8 * (n0 + i), g, t, bb[i],
-                              bs[i]);
+            mma_pair_b<SPLIT>(Vs, S, 8 * j, d0 + 8 * (n0 + i), g, t,
+                              bb[i], bs[i]);
           if (SPLIT) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) mma_tf32(pv[i], as, bb[i]);
@@ -262,17 +300,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_ok[h] = m[h] > NEG_INF / 2;
   }
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int n = 0; n < NDW; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int h = i >> 1;
       const int tq = q0 + r0 + 8 * h;
-      const int d = 8 * n + 2 * t + (i & 1);
+      const int d = d0 + 8 * n + 2 * t + (i & 1);
       if (tq < Tn && d < D)
         store(&o[base + (size_t)tq * D + d],
               row_ok[h] ? acc[n][i] / l_safe[h] : 0.f);
     }
-  if (t == 0) {
+  if (t == 0 && d0 == 0) {  // one warp of the row group writes lse
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int tq = q0 + r0 + 8 * h;
@@ -292,8 +330,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tn + BQ - 1) / BQ);
-  kern<<<grid, NT, smem, stream>>>(
+  const dim3 grid(BH, (Tn + q_rows<DMAX>() - 1) / q_rows<DMAX>());
+  kern<<<grid, threads<DMAX>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(kv_mask),
       static_cast<T*>(o), static_cast<float*>(lse), H, Tn, D, causal,
@@ -315,7 +353,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   if (D <= 64)
     return launch<T, 64>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal, vec,
                          stream);
-  return launch<T, 128>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal, vec,
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal,
+                          vec, stream);
+  return launch<T, 256>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal, vec,
                         stream);
 }
 
@@ -328,8 +369,9 @@ extern "C" int dl4j_flash_attn_fwd(const void* q, const void* k,
                                    void* o, void* lse, int BH, int H, int Tn,
                                    int D, int causal, int dtype,
                                    void* stream) {
-  if (BH < 1 || H < 1 || BH % H || Tn < 1 || (Tn + BQ - 1) / BQ > 65535 ||
-      D < 1 || D > 128 || (dtype != 0 && dtype != 1))
+  if (BH < 1 || H < 1 || BH % H || Tn < 1 ||
+      (Tn + BQ_MIN - 1) / BQ_MIN > 65535 ||
+      D < 1 || D > 256 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

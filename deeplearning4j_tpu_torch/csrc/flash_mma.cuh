@@ -61,7 +61,7 @@ __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
 
 // Shared-memory row stride in elements: 16 bytes past DMAX, so a row
 // starts 16-byte aligned (cp.async) and its stride in 32-bit words is 4
-// mod 8 (DMAX = 32, 64, 128). A warp's fragment reads, (row g, col t) and
+// mod 8 (DMAX = 32, 64, 128, 256). A warp's fragment reads, (row g, col t) and
 // the permuted (row 2t or 2t + 1, col g), then fall in different banks
 // (bf16 lanes that share a word read it together).
 template <typename T, int DMAX>

@@ -55,8 +55,8 @@ def gpt_decoder(vocab_size: int, seq_len: int, d_model: int = 128,
     """Build the decoder LM config. Input: one-hot token windows
     ``[B, T=seq_len, V=vocab_size]``; output: the per-timestep next-token
     distribution ``[B, T, V]``. ``block_size`` tiles the blockwise
-    attention of heads wider than the kernels take (d_model / n_heads >
-    128). The JAX gpt_decoder's ``precision`` and ``loss_scale`` (training
+    attention of heads that neither the kernels (d_model / n_heads >
+    256) nor the reference's kernel take. The JAX gpt_decoder's ``precision`` and ``loss_scale`` (training
     precision) have no counterpart yet."""
     if d_ff is None:
         d_ff = 4 * d_model

@@ -1,13 +1,15 @@
 """Attention layers (the JAX package's ``nn/layers/attention.py``).
 
-``SelfAttentionLayer.apply`` runs an attention whose heads fit the
-kernels (``head_dim <= MAX_HEAD_DIM``) through ``ops.flash_attention`` (on
-the card the Hopper kernels: the forward, and the dq and dk/dv backward
-under autograd). Wider heads take ``blockwise_attention`` +
-``finalize_attention`` (``use_blockwise``, the default) or
-``attention_reference``, plain torch under autograd, as the JAX layer does
-where its Pallas kernel is off. The choice is made from the arguments, the
-same on every device. The Q/K/V/O projections stay ``torch.matmul``.
+``SelfAttentionLayer.apply`` runs attention through ``ops.flash_attention``
+(on the card the Hopper kernels: the forward, and the dq and dk/dv backward
+under autograd) wherever the kernels take its heads (``head_dim <=
+MAX_HEAD_DIM``) or the JAX layer runs its Pallas kernel (``flash_ok``; a
+head wider than the kernels is refused there). Elsewhere it takes
+``blockwise_attention`` + ``finalize_attention`` (``use_blockwise``, the
+default) or ``attention_reference``, plain torch under autograd, as the
+JAX layer does where ``flash_ok`` fails. The choice is made from the
+arguments, the same on every device. The Q/K/V/O projections stay
+``torch.matmul``.
 Training drops out the layer's input. Incremental decode (``prefill``,
 ``decode_step``) is plain torch, as the JAX package leaves it to XLA. The
 ring (sequence-parallel) path and the paged-KV helpers are not ported
@@ -27,7 +29,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
     BaseLayerConf, Params, register_layer,
 )
 from deeplearning4j_tpu_torch.ops.flash_attention import (
-    MAX_HEAD_DIM, flash_attention,
+    MAX_HEAD_DIM, flash_attention, flash_ok,
 )
 
 NEG_INF = -1e30
@@ -106,8 +108,9 @@ def finalize_attention(out, lse):
 class SelfAttentionLayer(BaseLayerConf):
     """Multi-head self attention over [B, T, F] with an optional causal
     mask. Params: Wq/Wk/Wv [F, H*D], Wo [H*D, F]. ``block_size`` and
-    ``use_blockwise`` choose the path of heads wider than the kernels
-    take; heads up to ``MAX_HEAD_DIM`` run the kernels' fixed tiles."""
+    ``use_blockwise`` choose the path where neither the kernels nor the
+    reference's kernel take the heads; elsewhere the kernels' own tiles
+    apply."""
     n_heads: int = 8
     head_dim: int = 0          # default F // n_heads
     causal: bool = False
@@ -156,7 +159,8 @@ class SelfAttentionLayer(BaseLayerConf):
         q = self._split_heads(x @ params["Wq"])
         k = self._split_heads(x @ params["Wk"])
         v = self._split_heads(x @ params["Wv"])
-        if self.head_dim <= MAX_HEAD_DIM:
+        if self.head_dim <= MAX_HEAD_DIM or flash_ok(x.shape[1],
+                                                     self.head_dim):
             out = flash_attention(q, k, v, causal=self.causal, kv_mask=mask)
         elif self.use_blockwise:
             out, _, lse = blockwise_attention(

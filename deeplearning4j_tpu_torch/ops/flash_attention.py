@@ -28,7 +28,10 @@ where ``lse <= NEG_INF / 2``, ``ds = p (dp - Dvec)``, and returns
 ``dq = ds k / sqrt(D)``, ``dk = ds^T q / sqrt(D)``, ``dv = p^T dO`` in the
 input dtype: a row with no valid key gets exactly 0 dq and adds nothing
 to dk/dv. The mask gets no gradient. Types: float32, or bfloat16 with f32
-accumulation; head dims up to 128.
+accumulation; head dims up to 256 (``MAX_HEAD_DIM``), on every device.
+
+``flash_ok`` is the JAX package's gate for its Pallas kernel, kept so the
+attention layer runs a kernel at every shape where the reference does.
 """
 
 from __future__ import annotations
@@ -42,9 +45,21 @@ import torch
 from deeplearning4j_tpu_torch.ops.cuda_build import load_library
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+#: the widest head dim the kernels have a template for
+MAX_HEAD_DIM = 256
 #: dtype codes of the C entry point
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_ok(T: int, D: int = 128, vmem_budget: int = 6 * 2 ** 20) -> bool:
+    """The reference's test for running its Pallas kernel: the K and V
+    panels of one (batch, head), T and D each padded to 128, f32, fit a
+    6 MiB VMEM budget. The port's kernels stream K and V, so they have no
+    such limit; the layer sends a head wider than ``MAX_HEAD_DIM`` to
+    them (which refuse it) wherever this passes, and to blockwise
+    attention, as the reference does, wherever it fails."""
+    Tp, Dp = -(-T // 128) * 128, -(-D // 128) * 128
+    return 2 * Tp * Dp * 4 <= vmem_budget
 
 
 def check_inputs(q, k, v, kv_mask=None) -> None:
@@ -62,7 +77,7 @@ def check_inputs(q, k, v, kv_mask=None) -> None:
     B, _, T, D = q.shape
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(
-            f"head dim {D} outside the kernel's 1..{MAX_HEAD_DIM}")
+            f"head dim {D} outside the kernels' 1..{MAX_HEAD_DIM}")
     if T < 1:
         raise ValueError("flash_attention needs T >= 1")
     if kv_mask is not None and tuple(kv_mask.shape) != (B, T):

@@ -1,16 +1,20 @@
-"""Attention heads wider than the flash kernels take (head_dim > 128): the
-port's ``blockwise_attention`` / ``finalize_attention`` and
-``SelfAttentionLayer``'s routing, against the JAX package on the CPU.
+"""Wide attention heads: the port's ``blockwise_attention`` /
+``finalize_attention``, ``SelfAttentionLayer``'s routing, heads of 256
+(the kernels' widest template) and a head-dim-256 GPT, against the JAX
+package on the CPU.
 
-The JAX layer runs with its Pallas kernel off (``DL4J_TPU_PALLAS=off``, as
-on any machine without a TPU), so it takes ``blockwise_attention`` +
+The JAX layer runs its Pallas kernel in interpret mode
+(``DL4J_TPU_PALLAS=interpret``), so it routes as it does on a TPU: the
+kernel wherever ``flash_ok`` passes, else ``blockwise_attention`` +
 ``finalize_attention`` (``use_blockwise``, the default) or
-``attention_reference``. The port makes the same choice from the head
-width alone. Inputs come from numpy with a seed; weights are drawn by the
-JAX side and carried across (``convert.layer_params_from_jax``,
-``convert.params_from_jax``). Tolerances: the forward 2e-5 and the weight
-gradients 5e-5, the reference's flash-attention tolerances; losses 1e-5
-relative, as the GPT training parity holds them.
+``attention_reference``. The port runs its kernels' plain versions where
+the JAX layer runs its kernel (and wherever the head fits the kernels),
+and the same plain torch functions elsewhere. Inputs come from numpy with
+a seed; weights are drawn by the JAX side and carried across
+(``convert.layer_params_from_jax``, ``convert.params_from_jax``).
+Tolerances: the forward 2e-5 and the weight gradients 5e-5, the
+reference's flash-attention tolerances; losses 1e-5 relative, as the GPT
+training parity holds them.
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ from deeplearning4j_tpu.models import gpt as jgpt
 from deeplearning4j_tpu.nn.conf.inputs import InputType as JInputType
 from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
 from deeplearning4j_tpu.nn.layers import attention as jatt
+from deeplearning4j_tpu.ops import pallas_attention as jpa
 
 from deeplearning4j_tpu_torch.convert import (
     layer_params_from_jax, params_from_jax,
@@ -34,7 +39,9 @@ from deeplearning4j_tpu_torch.models import gpt as tgpt
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.layers import attention as tatt
-from deeplearning4j_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
+from deeplearning4j_tpu_torch.ops.flash_attention import (
+    MAX_HEAD_DIM, flash_ok,
+)
 
 TOL_FWD = 2e-5
 TOL_GRAD = 5e-5
@@ -42,10 +49,9 @@ LOSS_RTOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
-def _pallas_off(monkeypatch):
-    """The JAX layer's Pallas kernel is off, as on a machine without a
-    TPU: wide heads there take the blockwise or reference path."""
-    monkeypatch.setenv("DL4J_TPU_PALLAS", "off")
+def _pallas_interpret(monkeypatch):
+    """The JAX layer routes as on a TPU, its Pallas kernel interpreted."""
+    monkeypatch.setenv("DL4J_TPU_PALLAS", "interpret")
 
 
 def _x(seed, *shape, scale=1.0):
@@ -118,19 +124,21 @@ def test_blockwise_attention_equals_reference_on_rows_with_keys():
         torch.testing.assert_close(got[:2], ref[:2], atol=TOL_FWD, rtol=0)
 
 
-# ---- the layer at head_dim 256 ---------------------------------------------
+# ---- the layer: head dim 256, and past the reference's kernel -------------
 
 B, T, F, HEADS = 3, 20, 512, 2
+#: a head dim whose K and V panels (T = 20 padded to 128) overflow the
+#: reference kernel's 6 MiB budget: both sides take the blockwise path
+BLOCKWISE_D = 6272
 
 
-def _layers(causal, use_blockwise):
-    kw = dict(n_heads=HEADS, causal=causal, block_size=8,
-              use_blockwise=use_blockwise, activation="identity",
-              weight_init="xavier")
+def _layers(causal, use_blockwise, head_dim=0, n_in=F, n_heads=HEADS):
+    kw = dict(n_heads=n_heads, head_dim=head_dim, causal=causal,
+              block_size=8, use_blockwise=use_blockwise,
+              activation="identity", weight_init="xavier")
     jl, tl = jatt.SelfAttentionLayer(**kw), tatt.SelfAttentionLayer(**kw)
-    jl.set_n_in(JInputType.recurrent(F, T))
-    tl.set_n_in(InputType.recurrent(F, T))
-    assert jl.head_dim == tl.head_dim == 256 > MAX_HEAD_DIM
+    jl.set_n_in(JInputType.recurrent(n_in, T))
+    tl.set_n_in(InputType.recurrent(n_in, T))
     jp = jl.init_params(jax.random.PRNGKey(0))
     tp = layer_params_from_jax(tl, {k: np.asarray(a) for k, a in jp.items()})
     return jl, tl, jp, tp
@@ -140,13 +148,13 @@ LAYER_CASES = [(c, m, u) for u in (True, False) for c in (True, False)
                for m in (False, True)]
 
 
-@pytest.mark.parametrize("causal,masked,use_blockwise", LAYER_CASES)
-def test_wide_head_layer_matches_jax(causal, masked, use_blockwise):
-    """Forward within 2e-5 and the gradients of Wq, Wk, Wv and Wo
-    (torch autograd against ``jax.grad``) within 5e-5; a masked query's
-    output is exactly 0."""
-    jl, tl, jp, tp = _layers(causal, use_blockwise)
-    x, w = _x(7, B, T, F), _x(8, B, T, F)
+def _layer_parity(layers, causal, masked):
+    """Forward within 2e-5 and the gradients of Wq, Wk, Wv and Wo (torch
+    autograd against ``jax.grad``) within 5e-5; a masked query's output is
+    exactly 0."""
+    jl, tl, jp, tp = layers
+    n_in = tl.n_in
+    x, w = _x(7, B, T, n_in), _x(8, B, T, n_in)
     mask = _holes(B, T) if masked else None
     jm = None if mask is None else jnp.asarray(mask)
 
@@ -170,16 +178,40 @@ def test_wide_head_layer_matches_jax(causal, masked, use_blockwise):
         assert torch.all(out[2] == 0) and torch.all(out[1, T - 4:] == 0)
 
 
+@pytest.mark.parametrize("causal,masked,use_blockwise", LAYER_CASES)
+def test_wide_head_layer_matches_jax(causal, masked, use_blockwise):
+    """Head dim 256, the kernels' widest template: the port's flash path
+    (its plain version here) against the JAX layer's Pallas kernel, which
+    ``flash_ok`` admits whatever ``use_blockwise`` says."""
+    layers = _layers(causal, use_blockwise)
+    assert layers[1].head_dim == 256 == MAX_HEAD_DIM and flash_ok(T, 256)
+    _layer_parity(layers, causal, masked)
+
+
+@pytest.mark.parametrize("causal,masked,use_blockwise", LAYER_CASES)
+def test_blockwise_layer_matches_jax(causal, masked, use_blockwise):
+    """A head past the reference kernel's gate: blockwise attention over
+    blocks of 8 keys (T = 20, the last block ragged), or
+    ``attention_reference``, on both sides."""
+    assert not flash_ok(T, BLOCKWISE_D)
+    assert not jpa.flash_ok(T, BLOCKWISE_D)
+    _layer_parity(_layers(causal, use_blockwise, head_dim=BLOCKWISE_D,
+                          n_in=16, n_heads=1), causal, masked)
+
+
 @pytest.mark.parametrize("head_dim,use_blockwise,path", [
     (64, True, "flash"), (MAX_HEAD_DIM, True, "flash"),
-    (MAX_HEAD_DIM, False, "flash"), (MAX_HEAD_DIM + 1, True, "blockwise"),
-    (256, False, "reference")])
+    (MAX_HEAD_DIM, False, "flash"), (MAX_HEAD_DIM + 1, True, "refused"),
+    (BLOCKWISE_D, True, "blockwise"), (BLOCKWISE_D, False, "reference")])
 def test_layer_routes_on_its_head_width(monkeypatch, head_dim,
                                         use_blockwise, path):
-    """``head_dim <= MAX_HEAD_DIM`` goes to ``flash_attention`` (the
-    kernels on the card), wider heads to ``blockwise_attention`` or, with
-    ``use_blockwise=False``, to ``attention_reference``: one call of the
-    chosen path and none of the others, decided from the arguments."""
+    """Heads the kernels take (``head_dim <= MAX_HEAD_DIM``) go to
+    ``flash_attention`` (the kernels on the card); so do wider heads
+    where the reference runs its kernel (``flash_ok``), and the kernels'
+    contract refuses them there, on every device. Past ``flash_ok``, heads
+    go to ``blockwise_attention`` or, with ``use_blockwise=False``, to
+    ``attention_reference``. One call of the chosen path and none of the
+    others, decided from the arguments."""
     calls = []
     for name in ("flash_attention", "blockwise_attention",
                  "attention_reference"):
@@ -196,8 +228,13 @@ def test_layer_routes_on_its_head_width(monkeypatch, head_dim,
     params = layer.init_params(torch.Generator().manual_seed(0))
     mask = torch.ones(2, 6)
     mask[1, 4:] = 0.0
-    out, _ = layer.apply(params, torch.from_numpy(_x(9, 2, 6, 8)), state={},
-                         mask=mask)
+    x = torch.from_numpy(_x(9, 2, 6, 8))
+    if path == "refused":
+        with pytest.raises(ValueError, match="head dim"):
+            layer.apply(params, x, state={}, mask=mask)
+        assert calls == ["flash_attention"]
+        return
+    out, _ = layer.apply(params, x, state={}, mask=mask)
     assert out.shape == (2, 6, 8) and torch.isfinite(out).all()
     assert calls == [{"flash": "flash_attention",
                       "blockwise": "blockwise_attention",
@@ -234,7 +271,9 @@ def _batch(seed, masked):
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
 def test_wide_head_gpt_output_matches_jax(block_size, masked):
     """``output`` of a ``gpt_decoder`` with d_model 512 over 2 heads (head
-    dim 256): one KV block, or blocks of 6 that do not divide T = 16."""
+    dim 256). Both sides run their flash kernel (the port's plain version,
+    the reference's interpreted), so ``block_size`` (one block of 512, or
+    6, which does not divide T = 16) leaves the result as it is."""
     jnet, tnet = _nets(block_size=block_size)
     a = _batch(1, masked)
     mask = a[2] if masked else None
@@ -248,7 +287,7 @@ def test_wide_head_gpt_output_matches_jax(block_size, masked):
 def test_wide_head_gpt_fit_batch_losses_match_jax(masked):
     """Two ``fit_batch`` losses of the head-dim-256 GPT (Adam at its
     default 3e-4): the first is the loss at the carried weights, the
-    second follows one step of the blockwise path's gradients."""
+    second follows one step of the flash backward's gradients."""
     jnet, tnet = _nets(block_size=6)
     a = _batch(2, masked)
     ref = [float(jnet.fit_batch(JDataSet(*a))) for _ in range(2)]

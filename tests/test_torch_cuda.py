@@ -49,13 +49,16 @@ def card():
     (1, 2, 130, 128, True, "float32"),
     (2, 1, 64, 40, False, "bfloat16"),
     (32, 8, 256, 64, True, "float32"),     # the GPT slice's shape
-    (2, 4, 256, 128, True, "bfloat16"),    # the widest template
+    (2, 4, 256, 128, True, "bfloat16"),    # the 128 template
     (2, 2, 99, 32, True, "float32"),       # T = 16 k + 3: a ragged mma edge
     (2, 2, 35, 6, True, "float32"),        # rows of 24 bytes: no cp.async
     (2, 2, 35, 20, False, "bfloat16"),     # rows of 40 bytes: no cp.async
+    (2, 2, 200, 256, True, "float32"),     # the widest template: two
+    (2, 2, 200, 256, True, "bfloat16"),    # warps share each row's o
+    (1, 2, 70, 200, False, "float32"),     # a head between 128 and 256
 ])
 def test_flash_kernel_matches_plain(card, B, H, T, D, causal, dtype):
-    """Ragged T, every head-dim template (32/64/128), rows that cp.async
+    """Ragged T, every head-dim template (32/64/128/256), rows that cp.async
     cannot move, a key mask with a hole and a batch row with no valid key
     (exact zeros, NEG_INF lse). Two launches are bitwise equal."""
     dt = getattr(torch, dtype)
@@ -131,11 +134,14 @@ def _bwd_inputs(card, B, H, T, D, causal, dt):
     (1, 2, 130, 128, True, "float32"),
     (2, 1, 64, 40, False, "bfloat16"),
     (32, 8, 256, 64, True, "float32"),     # the GPT training slice's shape
-    (2, 4, 256, 128, True, "float32"),     # the widest template
+    (2, 4, 256, 128, True, "float32"),     # the 128 template
     (2, 4, 256, 128, True, "bfloat16"),
     (2, 2, 99, 32, True, "float32"),       # T = 16 k + 3: a ragged mma edge
     (2, 2, 35, 6, True, "float32"),        # rows of 24 bytes: no cp.async
     (2, 2, 35, 20, False, "bfloat16"),     # rows of 40 bytes: no cp.async
+    (2, 2, 200, 256, True, "float32"),     # the widest template: warps
+    (2, 2, 200, 256, True, "bfloat16"),    # share rows (dq) or keys (dk/dv)
+    (1, 2, 70, 200, False, "float32"),     # a head between 128 and 256
 ])
 def test_flash_bwd_kernels_match_plain(card, B, H, T, D, causal, dtype):
     """K5 (dq) and K6 (dk, dv) against the plain FA2 backward: ragged T,
@@ -249,10 +255,11 @@ def test_gpt_tiny_on_card_matches_cpu(card):
 
 
 def test_wide_head_gpt_on_card_matches_cpu(card):
-    """Heads wider than the kernels take (d_model 512 over 2 heads: head
-    dim 256) run the blockwise attention in plain torch on the card too:
-    no attention kernel launches, output() within 1e-5 of the CPU net's
-    and the first fit_batch loss within 1e-5 relative."""
+    """Heads of dim 256 (d_model 512 over 2 heads) run the kernels' widest
+    template: output() launches K4 once, within 1e-5 of the CPU net's;
+    one gradient and one fit_batch launch K4, K5 and K6 once each, every
+    gradient within 1e-4 of its largest |g| of the CPU's, the fit_batch
+    loss within 1e-5 relative."""
     kw = dict(vocab_size=16, seq_len=16, d_model=512, n_heads=2,
               n_layers=1, block_size=6)
     gpu = ComputationGraph(gpt_decoder(**kw), device=card).init()
@@ -266,12 +273,20 @@ def test_wide_head_gpt_on_card_matches_cpu(card):
     before = (flash_attention.launches, flash_attention_dq.launches,
               flash_attention_dkv.launches)
     got = gpu.output(x, mask=mask)
+    grads, _, _ = gpu.compute_gradient_and_score(DataSet(x, y))
     loss = float(gpu.fit_batch(DataSet(x, y)))
     torch.cuda.synchronize()
     assert (flash_attention.launches, flash_attention_dq.launches,
-            flash_attention_dkv.launches) == before
+            flash_attention_dkv.launches) == (before[0] + 3, before[1] + 2,
+                                              before[2] + 2)
     torch.testing.assert_close(got.cpu(), cpu.output(x, mask=mask),
                                atol=1e-5, rtol=0)
+    cpu_grads, _, _ = cpu.compute_gradient_and_score(DataSet(x, y))
+    for node, p in cpu_grads.items():
+        for name, want in p.items():
+            torch.testing.assert_close(
+                grads[node][name].cpu(), want, rtol=0,
+                atol=1e-4 * float(want.abs().max()))
     assert loss == pytest.approx(float(cpu.fit_batch(DataSet(x, y))),
                                  rel=1e-5)
 

@@ -13,12 +13,14 @@ Each ``--other NAME=DIR`` names a directory holding a ``flash_attn_fwd.cu``,
 include); each is compiled with the port's nvcc flags into ``--build``
 under its own library name and called through the same C entry points as
 this checkout's kernels, with the same inputs: B=32, H=8, T=256, D=64,
-causal, f32 (the GPT slice's shape), and the same with padded rows
-(lengths 64-256). Each version is held against the plain forward (O 2e-5,
+causal, f32 (the GPT slice's shape; ``--shape B,H,T,D`` for another),
+and the same with padded rows (lengths 64-T). Each version is held against the plain forward (O 2e-5,
 lse 1e-4) or the plain backward (5e-5 of each gradient's largest |g|)
-first, and the run fails if one is off. Prints one JSON line per kernel
-and case (every round's times and their medians) and the card's name and
-power limit. Needs a CUDA card and nvcc; imports no JAX.
+first, and the run fails if one is off. Inputs, tolerances and the
+timing (each kernel's device time in a profiler trace) are chip_smoke.py's.
+Prints one JSON line per kernel and case (every round's times and their
+medians) and the card's name and power limit. Needs a CUDA card and nvcc;
+imports no JAX.
 """
 
 import argparse
@@ -34,6 +36,10 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from chip_smoke import (  # noqa: E402
+    TOL_F32, TOL_GRAD_F32, TOL_LSE, attention_d_out, attention_inputs,
+    device_ms,
+)
 from deeplearning4j_tpu_torch.ops.cuda_build import (  # noqa: E402
     BUILD_DIR, NVCC_FLAGS, build_libraries, find_nvcc, load_library,
 )
@@ -45,7 +51,6 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (  # noqa: E402
 #: each kernel's C entry takes this many pointers before its int arguments
 N_PTR = {"flash_attn_fwd": 6, "flash_attn_dq": 8, "flash_attn_dkv": 9}
 NAMES = tuple(N_PTR)
-TOL_O, TOL_LSE, TOL_GRAD = 2e-5, 1e-4, 5e-5
 
 
 def build_others(others: dict, out: Path) -> dict:
@@ -74,33 +79,12 @@ def entry(lib, name):
     return fn
 
 
-def cuda_ms(fn, iters, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def inputs(padded, seed=1234):
-    """q, k, v, dO at the slice's shape and the padded rows' key mask (or
-    None)."""
-    B, H, T, D = 32, 8, 256, 64
-    g = torch.Generator().manual_seed(seed)
-    q, k, v, d_out = (torch.randn(B, H, T, D, generator=g).cuda()
-                      for _ in range(4))
-    mask = None
-    if padded:
-        lengths = torch.randint(64, T + 1, (B,), generator=g)
-        lengths[0] = T
-        mask = (torch.arange(T)[None, :] < lengths[:, None]).float().cuda()
-    return q, k, v, d_out, mask
+def inputs(shape, padded):
+    """q, k, v, dO of ``shape`` (B, H, T, D), f32, and the padded rows' key
+    mask (or None), as chip_smoke.py makes them."""
+    shape = (*shape, torch.float32)
+    q, k, v, mask = attention_inputs(*shape, "padded" if padded else None)
+    return q, k, v, attention_d_out(*shape), mask
 
 
 def in_turns(runs, rounds, iters, library=None):
@@ -114,7 +98,7 @@ def in_turns(runs, rounds, iters, library=None):
         for other in (v for v in runs if v != "this"):
             for ver in (other, "this", "this", other):
                 for part, fn in runs[ver].items():
-                    times[f"{ver}_{part}"].append(cuda_ms(fn, iters))
+                    times[f"{ver}_{part}"].append(device_ms(fn, iters))
         if library is not None:   # yardstick only: the port never calls it
             times[library[0]].append(library[1]())
     return times
@@ -128,45 +112,45 @@ def record(rec, times):
     return rec
 
 
-def fwd_case(name, libs, padded, rounds, iters):
+def fwd_case(name, libs, shape, padded, rounds, iters):
     """K4 of every version against the plain forward, then in turns."""
-    q, k, v, _, mask = inputs(padded)
+    q, k, v, _, mask = inputs(shape, padded)
     B, H, T, D = q.shape
     ref, ref_lse = flash_attention_plain(q, k, v, causal=True, kv_mask=mask)
     stream = torch.cuda.current_stream().cuda_stream
     ins = [t.data_ptr() for t in (q, k, v)] + [
         None if mask is None else mask.data_ptr()]
-    shape = [B * H, H, T, D, 1, 0, stream]
+    dims = [B * H, H, T, D, 1, 0, stream]
     rec = dict(kernel="flash_attn_fwd", case=name, shape=[B, H, T, D],
                causal=True, dtype="float32",
-               mask="padded rows, lengths 64-256" if padded else None)
+               mask="padded rows, lengths 64-T" if padded else None)
     runs = {}
     for ver, ver_libs in libs.items():
         out, lse = torch.empty_like(q), torch.empty_like(ref_lse)
         fn = entry(ver_libs["flash_attn_fwd"], "flash_attn_fwd")
 
         def run(f=fn, o=out, s=lse):
-            assert f(*ins, o.data_ptr(), s.data_ptr(), *shape) == 0
+            assert f(*ins, o.data_ptr(), s.data_ptr(), *dims) == 0
         run()
         torch.cuda.synchronize()
         err_o = float((out - ref).abs().max())
         err_lse = float((lse - ref_lse).abs().max())
         rec[f"max_abs_err_o_{ver}"] = err_o
         rec[f"max_abs_err_lse_{ver}"] = err_lse
-        if not (err_o <= TOL_O and err_lse <= TOL_LSE):
+        if not (err_o <= TOL_F32 and err_lse <= TOL_LSE):
             raise AssertionError(f"{ver} K4 differs from the plain forward: "
                                  f"O {err_o}, lse {err_lse}")
         runs[ver] = {"fwd": run}
-    library = None if mask is not None else ("sdpa_fwd", lambda: cuda_ms(
+    library = None if mask is not None else ("sdpa_fwd", lambda: device_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
         iters))
     return record(rec, in_turns(runs, rounds, iters, library))
 
 
-def bwd_case(name, libs, padded, rounds, iters):
+def bwd_case(name, libs, shape, padded, rounds, iters):
     """K5 and K6 of every version against the plain backward, from this
     checkout's K4 out and lse, then in turns."""
-    q, k, v, d_out, mask = inputs(padded)
+    q, k, v, d_out, mask = inputs(shape, padded)
     B, H, T, D = q.shape
     out, lse = flash_attention(q, k, v, causal=True, kv_mask=mask,
                                return_lse=True)
@@ -177,10 +161,10 @@ def bwd_case(name, libs, padded, rounds, iters):
     ins = [t.data_ptr() for t in (q, k, v)] + [
         None if mask is None else mask.data_ptr()] + [
         t.data_ptr() for t in (d_out, lse, dvec)]
-    shape = [B * H, H, T, D, 1, 0, stream]
+    dims = [B * H, H, T, D, 1, 0, stream]
     rec = dict(kernel="flash_attn_dq+flash_attn_dkv", case=name,
                shape=[B, H, T, D], causal=True, dtype="float32",
-               mask="padded rows, lengths 64-256" if padded else None)
+               mask="padded rows, lengths 64-T" if padded else None)
     runs = {}
     for ver, ver_libs in libs.items():
         dq = torch.empty_like(q)
@@ -189,17 +173,17 @@ def bwd_case(name, libs, padded, rounds, iters):
         f_dkv = entry(ver_libs["flash_attn_dkv"], "flash_attn_dkv")
 
         def run_dq(f=f_dq, o=dq):
-            assert f(*ins, o.data_ptr(), *shape) == 0
+            assert f(*ins, o.data_ptr(), *dims) == 0
 
         def run_dkv(f=f_dkv, a=dk, b=dv):
-            assert f(*ins, a.data_ptr(), b.data_ptr(), *shape) == 0
+            assert f(*ins, a.data_ptr(), b.data_ptr(), *dims) == 0
         run_dq()
         run_dkv()
         torch.cuda.synchronize()
         err = max(float((a - r).abs().max() / r.abs().max())
                   for a, r in zip((dq, dk, dv), ref))
         rec[f"max_rel_err_{ver}"] = err
-        if not err <= TOL_GRAD:
+        if not err <= TOL_GRAD_F32:
             raise AssertionError(f"{ver} K5/K6 differ from the plain "
                                  f"backward by {err} of the largest |g|")
         runs[ver] = {"dq": run_dq, "dkv": run_dkv}
@@ -212,8 +196,8 @@ def bwd_case(name, libs, padded, rounds, iters):
 
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), d_out)
-        library = ("sdpa_bwd", lambda: cuda_ms(sdpa_fwd_bwd, iters)
-                   - cuda_ms(sdpa_fwd, iters))
+        library = ("sdpa_bwd", lambda: device_ms(sdpa_fwd_bwd, iters)
+                   - device_ms(sdpa_fwd, iters))
     rec = record(rec, in_turns(runs, rounds, iters, library))
     med = rec["median_ms"]
     rec["dq_plus_dkv_ms"] = {v: med[f"{v}_dq"] + med[f"{v}_dkv"]
@@ -229,8 +213,10 @@ def main() -> int:
                          "flash_attn_dkv.cu")
     ap.add_argument("--build", type=Path, default=BUILD_DIR / "other",
                     help="where the other builds go")
+    ap.add_argument("--shape", default="32,8,256,64",
+                    help="B,H,T,D of the inputs (causal, f32)")
     ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device; nothing was run", file=sys.stderr)
@@ -245,9 +231,10 @@ def main() -> int:
     libs = {**build_others(others, args.build),
             "this": {n: load_library(n) for n in NAMES}}
     summary = {}
+    shape = tuple(int(x) for x in args.shape.split(","))
     for padded, case in ((False, "slice"), (True, "slice_padded")):
-        f = fwd_case(case, libs, padded, args.rounds, args.iters)
-        b = bwd_case(case, libs, padded, args.rounds, args.iters)
+        f = fwd_case(case, libs, shape, padded, args.rounds, args.iters)
+        b = bwd_case(case, libs, shape, padded, args.rounds, args.iters)
         summary[case] = dict(
             fwd=f["median_ms"],
             dq_plus_dkv=b["dq_plus_dkv_ms"],
