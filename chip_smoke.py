@@ -9,33 +9,39 @@ Phases, each printing JSON lines:
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA
    versions, kernel build time, and the registers and spills ptxas
-   reports for K4, K5 and K6 at each head-dim template (no spill
-   allowed);
+   reports for K4, K5 and K6 at each head-dim template (32, 64, 128, 256
+   and the wide one) and for K1 and K2 at each body (streaming,
+   resident); no spill allowed;
 2. kernels — the flash-attention forward kernel (K4, tensor cores in
-   3xTF32) against its plain PyTorch version on the card in twelve cases
+   3xTF32) against its plain PyTorch version on the card in sixteen cases
    (the slice's shape, ragged T with a row that has no valid key, D = 8,
    32, 128 and 256, bf16, half the keys masked, padded rows whose whole
-   key tiles are skipped), two launches bitwise equal, with kernel / plain
-   / SDPA times and the card's bound at the tensor cores' peak and at the
-   f32 CUDA-core peak; the backward
-   kernels (K5 dq, K6 dk/dv, tensor cores in 3xTF32) against the plain
-   FA2 backward in the same five cases, a sixth with padded rows
-   (lengths 64-256: whole key tiles skipped, their dk/dv exactly 0) and
-   head dim 256 (f32 masked and not, bf16), with
-   exact zero grads for rows with no valid key, two launches bitwise
-   equal, kernel / plain / SDPA-backward times, and bounds at the tensor
-   cores' peak and, as before, at the f32 CUDA-core peak;
-   the LSTM recurrence kernel
-   against its plain version in five cases (the char-RNN's shape, ragged
-   sizes with a carry, the T=1 streaming step, bf16 over 64 steps, also
-   held step by step, no peepholes), with kernel / plain / cuDNN LSTM
-   times and the bound at the char-RNN's shape; the LSTM training kernels
-   (K2 forward with residuals, K3 reverse-time backward) against their
-   plain versions in six cases (the char-RNN's tBPTT window, ragged sizes
-   with carries and backward seeds, the short last window, bf16, no
-   peepholes, the widest H), K2's hs and c_T equal to K1's bit for bit and
-   two launches of each bitwise equal, with kernel / plain / cuDNN
-   training-LSTM times and the bounds at the window's shape;
+   key tiles are skipped; heads of 320, 512 and 1024 on the wide
+   template), two launches bitwise equal, with kernel / plain / SDPA
+   times and the card's bound at the tensor cores' peak and at the f32
+   CUDA-core peak; the backward kernels (K5 dq, K6 dk/dv, tensor cores in
+   3xTF32) against the plain FA2 backward in the same five cases, a sixth
+   with padded rows (lengths 64-256: whole key tiles skipped, their dk/dv
+   exactly 0), head dim 256 (f32 masked and not, bf16) and the wide
+   template's four cases, with exact zero grads for rows with no valid
+   key, two launches bitwise equal, kernel / plain / SDPA-backward times,
+   and bounds at the tensor cores' peak and at the f32 CUDA-core peak;
+   the LSTM recurrence kernel (K1) against its plain version in nine
+   cases (the char-RNN's shape, ragged sizes with a carry, the T=1
+   streaming step at 32 rows and at 1, bf16 over 64 steps, also held step
+   by step, no peepholes, the resident body's widest H in f32 and bf16
+   and the first H past it), two launches bitwise equal, each record
+   naming the body and cluster shape the library runs (resident up to
+   ``RESIDENT_MAX_HIDDEN``), with kernel / plain / cuDNN LSTM times and
+   the bound at the tensor cores' peak (3xTF32 for f32) and at the f32
+   CUDA-core peak the kernel runs at;
+   the LSTM training kernels (K2 forward with residuals, K3 reverse-time
+   backward) against their plain versions in eight cases (the char-RNN's
+   tBPTT window, ragged sizes with carries and backward seeds, the short
+   last window, bf16, no peepholes, the widest H, the resident body's
+   widest H and the first past it), K2's hs and c_T equal to K1's bit for
+   bit and two launches of each bitwise equal, with kernel / plain /
+   cuDNN training-LSTM times and the bounds at the window's shape;
 3. slice — the full-width GPT decoder (vocab 96, T 256, d_model 512,
    8 heads, 8 layers, f32, seeded random weights) on the card through
    ``ComputationGraph.output`` (with and without a key mask) and
@@ -68,13 +74,14 @@ Phases, each printing JSON lines:
    loss that falls over 20 calls, ms per batch and window, characters/s,
    the peak memory, the updater's time and a torch.profiler breakdown of
    one ``fit_batch`` (K2+K3 and GEMM shares);
-7. wide-head slice — a GPT with heads of 256, the kernels' widest
-   template (d_model 512 over 2 heads, 2 layers), through ``output()``
-   (with and without a key mask), one gradient and two ``fit_batch``
-   calls on the card: the exact K4, K5 and K6 launches, the probabilities
-   within 1e-4 of the same net on the CPU, every gradient within 1e-4 of
-   its largest |g|, the first loss within 1e-5 and the second (after an
-   Adam step) within 1e-4, relative;
+7. wide-head slices — a GPT with heads of 256, the kernels' widest
+   register template (d_model 512 over 2 heads, 2 layers), and one with
+   heads of 512, their wide template (d_model 1024 over 2 heads, 2
+   layers), each through ``output()`` (with and without a key mask), one
+   gradient and two ``fit_batch`` calls on the card: the exact K4, K5 and
+   K6 launches, the probabilities within 1e-4 of the same net on the CPU,
+   every gradient within 1e-4 of its largest |g|, the first loss within
+   1e-5 and the second (after an Adam step) within 1e-4, relative;
 8. a ``{"kernels": [...]}`` summary line;
 9. last line ``{"ok": true, "device": {...}}``.
 
@@ -119,13 +126,14 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from deeplearning4j_tpu_torch.ops.fused_lstm import (
-    MAX_HIDDEN, fused_lstm, lstm_bwd, lstm_bwd_plain, lstm_fwd_train,
-    lstm_fwd_train_plain, lstm_recurrence, lstm_recurrence_plain,
+    MAX_HIDDEN, RESIDENT_MAX_HIDDEN, fused_lstm, fwd_plan, lstm_bwd,
+    lstm_bwd_plain, lstm_fwd_train, lstm_fwd_train_plain,
+    lstm_recurrence, lstm_recurrence_plain,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12       # CUDA cores, no tensor cores: K1-K3's path
+F32_FLOPS_PER_S = 67e12       # CUDA cores: the units K1-K3 run on
 # tensor cores: an f32-accurate product is three TF32 products (3xTF32,
 # K4, K5 and K6 on f32 inputs); bf16 inputs could take the bf16 rate
 TF32X3_FLOPS_PER_S = 495e12 / 3
@@ -178,9 +186,12 @@ TOL_K3_F32 = 2e-4
 TOL_LSTM_TRAIN_BF16 = 3.2e-2
 
 SLICE = dict(vocab_size=96, seq_len=256, d_model=512, n_heads=8, n_layers=8)
-#: heads of 256, the kernels' widest template
+#: heads of 256, the kernels' widest register template
 WIDE_SLICE = dict(vocab_size=96, seq_len=256, d_model=512, n_heads=2,
                   n_layers=2)
+#: heads of 512, the kernels' wide template (flash_ok passes at T = 256)
+WIDE512_SLICE = dict(vocab_size=96, seq_len=256, d_model=1024, n_heads=2,
+                     n_layers=2)
 WIDE_BATCH = 8
 LSTM_SLICE = dict(vocab_size=96, hidden=256, layers=2)
 LSTM_BATCH = (32, 64)          # B, T: the char-LSTM traffic of bench.py
@@ -235,18 +246,23 @@ def device_ms(fn, iters=20, warmup=3) -> float:
     in a torch.profiler trace of ``iters`` calls, times its launches per
     call. The kernels' own durations, not the host's time to queue them:
     a Python wrapper can take longer to queue a call than a short kernel
-    takes to run, and then back-to-back events time the host."""
+    takes to run, and then back-to-back events time the host. A trace
+    that holds no kernel (the tracer sometimes drops a whole window) is
+    taken again, three times in all."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
     check(kernels, "the trace holds no kernel")
     return sum(e.self_device_time_total / e.count
                * max(1, round(e.count / iters)) for e in kernels) / 1e3
@@ -524,7 +540,10 @@ def bwd_case(name, B, H, T, D, causal, dtype, mask_kind, timed=False):
 
 def ptxas_report(names):
     """Registers, stack and spills of every kernel of the named libraries,
-    from nvcc's ``-Xptxas -v`` log beside each library."""
+    from nvcc's ``-Xptxas -v`` log beside each library: the attention
+    kernels' head-dim template (``dmax``, and ``wide`` for the template
+    that splits o's columns across blocks), the LSTM forward kernels' body
+    (streaming or resident)."""
     out = []
     for name in names:
         cur = None
@@ -535,9 +554,19 @@ def ptxas_report(names):
                 cur = dict(library=name)
                 k = re.search(r"(flash_fwd_kernel|flash_dq_kernel|"
                               r"flash_dkv_kernel)I"
-                              r"(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
+                              r"(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
+                              m.group(1))
                 if k:
                     cur.update(kernel=k.group(1), dmax=int(k.group(3)),
+                               wide=k.group(4) == "1",
+                               dtype="float32" if k.group(2) == "f"
+                               else "bfloat16")
+                k = re.search(r"(lstm_fwd_infer_kernel|lstm_fwd_train_kernel)"
+                              r"I(f|13__nv_bfloat16)Lb([01])E", m.group(1))
+                if k:
+                    cur.update(kernel=k.group(1),
+                               body="resident" if k.group(3) == "1"
+                               else "streaming",
                                dtype="float32" if k.group(2) == "f"
                                else "bfloat16")
                 out.append(cur)
@@ -554,18 +583,34 @@ def ptxas_report(names):
     return out
 
 
+def lstm_bounds(nbytes, flops, dtype):
+    """(bound ms, "bytes" or "operations", the peak's name, the bound at
+    the f32 CUDA-core peak) for K1-K3's work, as ``attention_bound_ms``
+    counts it: the products at the card's fastest peak for the input type
+    (the tensor cores in 3xTF32 for f32, bf16 for bf16), whatever units
+    the kernel runs them on (K1-K3 run theirs as f32 FMAs on CUDA cores,
+    the figure kept beside it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    peak, peak_name = ((TF32X3_FLOPS_PER_S, "3xTF32 tensor cores")
+                       if dtype == torch.float32
+                       else (BF16_FLOPS_PER_S, "bf16 tensor cores"))
+    t_ops = flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", peak_name,
+            max(t_bytes, flops / F32_FLOPS_PER_S) * 1e3)
+
+
 def lstm_bound_ms(T, B, H, dtype):
     """Least time for the recurrence on an H100: xz, rw, pw and the carries
     read once and hs, c_T written once over HBM, against the multiply-adds
-    of h @ rw over the T steps at the peak rate of the kernel's arithmetic
-    (f32 CUDA cores)."""
+    of h @ rw over the T steps (``lstm_bounds``). Returns (bound ms, by,
+    flops, bytes, peak, bound at the f32 CUDA-core peak)."""
     es = torch.tensor([], dtype=dtype).element_size()
     nbytes = es * (T * B * 4 * H + H * 4 * H + 3 * H + 2 * B * H
                    + T * B * H + B * H)
     flops = 2.0 * B * H * 4 * H * T
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+    bound, by, peak, simt = lstm_bounds(nbytes, flops, dtype)
+    return bound, by, flops, nbytes, peak, simt
 
 
 def lstm_stepwise(xz, rw, pw, h0, c0, hs, cT, fb):
@@ -592,13 +637,10 @@ def lstm_stepwise(xz, rw, pw, h0, c0, hs, cT, fb):
     return equal and torch.equal(c, cT), err_h, err_c, c_max
 
 
-def lstm_case(name, T, B, H, dtype, peephole, carry, timed=False,
-              library=False, stepwise=False):
-    """K1 against its plain version on the card. ``library``: the inputs
-    come from x [B, T, F] (F = the char-RNN's vocabulary, its first layer's
-    input) through x @ W + b, and the whole fused_lstm (the input GEMM and
-    the kernel) is timed beside torch.nn.LSTM (cuDNN) on the same weights,
-    which has no peepholes. ``stepwise``: also ``lstm_stepwise``."""
+def lstm_inputs(T, B, H, dtype, peephole, carry, library=False):
+    """K1's inputs on the card, ``(xz, rw, pw, h0, c0)``, and with
+    ``library`` the (x, w, b) they come from (x [B, T, F] through
+    x @ W + b, F = the char-RNN's vocabulary)."""
     g = torch.Generator().manual_seed(SEED + T + B + H)
     rw = torch.randn(H, 4 * H, generator=g) * H ** -0.5
     pw = (torch.randn(3, H, generator=g) * 0.3 if peephole
@@ -606,16 +648,41 @@ def lstm_case(name, T, B, H, dtype, peephole, carry, timed=False,
     h0, c0 = ((torch.randn(B, H, generator=g) * 0.5,
                torch.randn(B, H, generator=g)) if carry
               else (torch.zeros(B, H), torch.zeros(B, H)))
+    src = None
     if library:
         F = LSTM_SLICE["vocab_size"]
         x = torch.randn(B, T, F, generator=g)
         w = torch.randn(F, 4 * H, generator=g) * F ** -0.5
         b = torch.randn(4 * H, generator=g) * 0.1
         xz = (x @ w + b).transpose(0, 1)
+        src = tuple(a.cuda() for a in (x, w, b))
     else:
         xz = torch.randn(T, B, 4 * H, generator=g)
-    xz, rw, pw, h0, c0 = (a.to("cuda", dtype).contiguous()
-                          for a in (xz, rw, pw, h0, c0))
+    return tuple(a.to("cuda", dtype).contiguous()
+                 for a in (xz, rw, pw, h0, c0)), src
+
+
+def lstm_plan(name, B, H, dtype):
+    """The body and launch shape K1 or K2 (``name``) runs for (B, H,
+    dtype), from the built library; it must be the resident body up to
+    ``RESIDENT_MAX_HIDDEN`` and the streaming body past it."""
+    plan = fwd_plan(name, B, H, dtype)
+    want = "resident" if H <= RESIDENT_MAX_HIDDEN[dtype] else "streaming"
+    check(plan["body"] == want,
+          f"{name} at B={B}, H={H}, {dtype}: the library runs the "
+          f"{plan['body']} body, RESIDENT_MAX_HIDDEN says {want}")
+    return plan
+
+
+def lstm_case(name, T, B, H, dtype, peephole, carry, timed=False,
+              library=False, stepwise=False):
+    """K1 against its plain version on the card. ``library``: the inputs
+    come from x [B, T, F] (F = the char-RNN's vocabulary, its first layer's
+    input) through x @ W + b, and the whole fused_lstm (the input GEMM and
+    the kernel) is timed beside torch.nn.LSTM (cuDNN) on the same weights,
+    which has no peepholes. ``stepwise``: also ``lstm_stepwise``."""
+    (xz, rw, pw, h0, c0), src = lstm_inputs(T, B, H, dtype, peephole, carry,
+                                            library)
     fb = 1.0
     hs, hT, cT = lstm_recurrence(xz, rw, pw, h0, c0, forget_bias=fb)
     ref = lstm_recurrence_plain(xz, rw, pw, h0, c0, forget_bias=fb)
@@ -625,14 +692,20 @@ def lstm_case(name, T, B, H, dtype, peephole, carry, timed=False,
     tol = TOL_LSTM_F32 if dtype == torch.float32 else TOL_LSTM_BF16
     c_max = float(ref[2].float().abs().max())
     tol_c = tol * max(1.0, c_max)
-    bound, bound_by, flops, nbytes = lstm_bound_ms(T, B, H, dtype)
+    bound, bound_by, flops, nbytes, peak, simt = lstm_bound_ms(
+        T, B, H, dtype)
     rec = dict(phase="kernel", kernel="lstm_fwd_infer", case=name,
                shape=dict(T=T, B=B, H=H), dtype=str(dtype),
                peephole=peephole, nonzero_carry=carry,
+               plan=lstm_plan("lstm_fwd_infer", B, H, dtype),
                max_abs_err_hs=errs[0], max_abs_err_hT=errs[1],
                max_abs_err_cT=errs[2], tol=tol, max_abs_cT=c_max,
-               tol_cT=tol_c, bound_ms=bound,
-               bound_by=bound_by, flops=flops, bytes=nbytes)
+               tol_cT=tol_c, bound_ms=bound, bound_by=bound_by,
+               bound_peak=peak, bound_ms_simt=simt, flops=flops,
+               bytes=nbytes, bitwise_repeat=bool(all(
+                   torch.equal(a, b) for a, b in zip(
+                       (hs, cT), lstm_recurrence(xz, rw, pw, h0, c0,
+                                                 forget_bias=fb)[::2]))))
     if stepwise:
         equal, err_h, err_c, c_step = lstm_stepwise(xz, rw, pw, h0, c0, hs,
                                                     cT, fb)
@@ -647,7 +720,8 @@ def lstm_case(name, T, B, H, dtype, peephole, carry, timed=False,
         rec["achieved_tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
         rec["library_ms"] = None
     if library:
-        x, w, b = x.cuda(), w.cuda(), b.cuda()
+        x, w, b = src
+        F = LSTM_SLICE["vocab_size"]
         # yardstick only: the port never calls cuDNN. Gate order i, f, g, o
         # as in the port; the forget bias folds into cuDNN's input bias
         lstm = torch.nn.LSTM(F, H, batch_first=True).cuda().eval()
@@ -672,6 +746,7 @@ def lstm_case(name, T, B, H, dtype, peephole, carry, timed=False,
     check(max(errs[:2]) <= tol and errs[2] <= tol_c,
           f"case {name}: LSTM kernel differs by {errs} > ({tol}, {tol}, "
           f"{tol_c})")
+    check(rec["bitwise_repeat"], f"case {name}: two launches differ")
     if stepwise:
         check(rec["steps_equal_launch"], f"case {name}: the {T}-step "
               "launch differs from its own one-step launches")
@@ -686,8 +761,8 @@ def lstm_train_bound_ms(T, B, H, dtype, part):
     H100: each input read once and each output written once over HBM (K2:
     xz, rw, pw, h0, c0 in; hs, gates, cs out. K3: eps, gates, cs, c0, rw^T,
     pw, dh_T, dc_T in; dz, dh0, dc0 out), against the multiply-adds of
-    h @ rw (K2) or dz @ rw^T (K3) over the T steps at the f32 CUDA-core
-    peak."""
+    h @ rw (K2) or dz @ rw^T (K3) over the T steps at the peak of their
+    (``lstm_bounds``)."""
     es = torch.tensor([], dtype=dtype).element_size()
     if part == "fwd":
         n = T * B * 4 * H + H * 4 * H + 3 * H + 2 * B * H \
@@ -697,9 +772,8 @@ def lstm_train_bound_ms(T, B, H, dtype, part):
             + 3 * H + 2 * B * H + T * B * 4 * H + 2 * B * H
     nbytes = es * n
     flops = 2.0 * B * H * 4 * H * T
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+    bound, by, peak, simt = lstm_bounds(nbytes, flops, dtype)
+    return bound, by, flops, nbytes, peak, simt
 
 
 def cudnn_training_ms(B, T, H, g, h0, c0, rw, pw, fb):
@@ -784,6 +858,7 @@ def lstm_train_case(name, T, B, H, dtype, peephole, carry, timed=False):
     rec = dict(phase="kernel", kernel="lstm_fwd_train+lstm_bwd", case=name,
                shape=dict(T=T, B=B, H=H), dtype=str(dtype),
                peephole=peephole, nonzero_carry=carry,
+               plan=lstm_plan("lstm_fwd_train", B, H, dtype),
                k2_equals_k1=bool(torch.equal(hs, hs1) and
                                  torch.equal(cs[-1], cT1)),
                bitwise_repeat=bool(
@@ -798,8 +873,11 @@ def lstm_train_case(name, T, B, H, dtype, peephole, carry, timed=False):
             tol = rel[part] * max(1.0, float(r.float().abs().max()))
             rec[f"max_abs_err_{n}"], rec[f"tol_{n}"] = err, tol
             ok = ok and err <= tol and bool(torch.isfinite(a).all())
-        bound, by, flops, nbytes = lstm_train_bound_ms(T, B, H, dtype, part)
+        bound, by, flops, nbytes, peak, simt = lstm_train_bound_ms(
+            T, B, H, dtype, part)
         rec.update({f"bound_ms_{part}": bound, f"bound_by_{part}": by,
+                    f"bound_peak_{part}": peak,
+                    f"bound_ms_simt_{part}": simt,
                     f"flops_{part}": flops, f"bytes_{part}": nbytes})
     if timed:
         rec["ms_fwd"] = device_ms(lambda: lstm_fwd_train(
@@ -986,7 +1064,9 @@ def lstm_slice(k1_ms):
 
     emit(dict(phase="profile", window="char-RNN output() of [32, 64, 96]",
               **device_profile(lambda: net.output(x),
-                               {"lstm_fwd_infer_kernel": L})))
+                               {"lstm_fwd_infer_kernel": L},
+                               groups=dict(lstm_k1=["lstm_fwd_infer_kernel"],
+                                           gemm=["gemm"]))))
     net.rnn_clear_previous_state()
     emit(dict(phase="profile", window="16 rnn_time_step calls, 32 rows",
               **device_profile(lambda: [net.rnn_time_step(x[:, t])
@@ -1236,19 +1316,22 @@ def lstm_train_slice():
                    "lstm_fwd_infer_kernel": 0}, top=8,
                   groups=dict(lstm_k2_k3=["lstm_fwd_train_kernel",
                                           "lstm_bwd_kernel"],
+                              lstm_k2=["lstm_fwd_train_kernel"],
+                              lstm_k3=["lstm_bwd_kernel"],
                               gemm=["gemm"]))))
     return main_path
 
 
-def wide_head_slice():
-    """A GPT with heads of 256, the kernels' widest template, on the card:
-    ``output()`` with and without a key mask, one gradient and two
-    ``fit_batch`` calls through K4, K5 and K6, held against the same net
-    on the CPU. Returns the path's launch counts."""
-    net = ComputationGraph(gpt_decoder(**WIDE_SLICE), device="cuda").init()
-    cpu = ComputationGraph(gpt_decoder(**WIDE_SLICE), device="cpu").init()
-    B, T, V = WIDE_BATCH, WIDE_SLICE["seq_len"], WIDE_SLICE["vocab_size"]
-    L = WIDE_SLICE["n_layers"]
+def wide_head_slice(config):
+    """A GPT with wide heads on the card (``WIDE_SLICE``: heads of 256, the
+    kernels' widest register template; ``WIDE512_SLICE``: heads of 512,
+    their wide template): ``output()`` with and without a key mask, one
+    gradient and two ``fit_batch`` calls through K4, K5 and K6, held
+    against the same net on the CPU. Returns the path's launch counts."""
+    net = ComputationGraph(gpt_decoder(**config), device="cuda").init()
+    cpu = ComputationGraph(gpt_decoder(**config), device="cpu").init()
+    B, T, V = WIDE_BATCH, config["seq_len"], config["vocab_size"]
+    L = config["n_layers"]
     rng = np.random.default_rng(SEED + 3)
     x = np.eye(V, dtype=np.float32)[rng.integers(0, V, (B, T))]
     lengths = rng.integers(T // 4, T + 1, B)
@@ -1275,8 +1358,8 @@ def wide_head_slice():
     del grads, cpu_grads
     cpu_losses = [float(cpu.fit_batch(batch)) for _ in range(2)]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
-    emit(dict(phase="wide_head_slice", config=WIDE_SLICE,
-              head_dim=WIDE_SLICE["d_model"] // WIDE_SLICE["n_heads"],
+    emit(dict(phase="wide_head_slice", config=config,
+              head_dim=config["d_model"] // config["n_heads"],
               params=net.num_params(), batch=[B, T, V],
               main_path_launches=launched, expected_launches=expect,
               max_abs_err_vs_cpu=err, max_abs_err_vs_cpu_masked=err_m,
@@ -1285,7 +1368,7 @@ def wide_head_slice():
               loss_rel_err=rel, tol_loss=TOL_TRAIN_LOSS,
               tol_steps=TOL_TRAIN_STEPS))
     check(launched == expect,
-          f"head-dim-256 GPT launches {launched} != {expect}")
+          f"wide-head GPT launches {launched} != {expect}")
     check(tuple(probs.shape) == (B, T, V) and
           bool(torch.isfinite(probs).all() and torch.isfinite(probs_m).all()),
           f"output {tuple(probs.shape)} or non-finite probabilities")
@@ -1321,12 +1404,18 @@ def main() -> int:
               kernel_build_s=build_s))
     ptxas = ptxas_report(["flash_attn_fwd", "flash_attn_dq",
                           "flash_attn_dkv"])
-    emit(dict(phase="ptxas", kernels=ptxas))
-    check(len(ptxas) == 24 and all(
-        r.get("registers") and r.get("spill_stores") == 0 and
-        r.get("spill_loads") == 0 for r in ptxas),
-        "K4 / K5 / K6: ptxas reports a spill, or not 3 kernels x 2 types x "
-        f"4 head-dim templates: {ptxas}")
+    ptxas_lstm = ptxas_report(["lstm_fwd_infer", "lstm_fwd_train"])
+    emit(dict(phase="ptxas", kernels=ptxas + ptxas_lstm))
+
+    def no_spill(recs):
+        return all(r.get("registers") and r.get("spill_stores") == 0 and
+                   r.get("spill_loads") == 0 for r in recs)
+    check(len(ptxas) == 30 and no_spill(ptxas),
+          "K4 / K5 / K6: ptxas reports a spill, or not 3 kernels x 2 types "
+          f"x 5 head-dim templates (32, 64, 128, 256, wide): {ptxas}")
+    check(len(ptxas_lstm) == 8 and no_spill(ptxas_lstm),
+          "K1 / K2: ptxas reports a spill, or not 2 kernels x 2 types x "
+          f"2 bodies (streaming, resident): {ptxas_lstm}")
 
     # ---- 2. kernels against their plain versions ---------------------------
     a = kernel_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
@@ -1348,6 +1437,16 @@ def main() -> int:
     kernel_case("i_D256_bf16", *wide, torch.bfloat16, "padded")
     i = kernel_case("i_D256_wide_slice", *wide, torch.float32, None,
                     timed=True)
+    # heads past 256: the wide template (o's columns in chunks of 256)
+    kernel_case("j_D320_masked", 2, 4, 256, 320, True, torch.float32,
+                "holes", timed=True)
+    kernel_case("j_D512_bf16", WIDE_BATCH, 2, 256, 512, True,
+                torch.bfloat16, "padded", timed=True)
+    kernel_case("j_D1024_T128", 4, 2, 128, 1024, True, torch.float32, None,
+                timed=True)
+    w512 = (WIDE_BATCH, WIDE512_SLICE["n_heads"], 256, 512, True)
+    j = kernel_case("j_D512_wide_slice", *w512, torch.float32, None,
+                    timed=True)
     (B, T), H = LSTM_BATCH, LSTM_SLICE["hidden"]
     k1 = lstm_case("a_slice", T, B, H, torch.float32, True, False,
                    timed=True)
@@ -1356,6 +1455,17 @@ def main() -> int:
     lstm_case("d_bf16", T, B, H, torch.bfloat16, True, False, stepwise=True)
     k1e = lstm_case("e_no_peephole", T, B, H, torch.float32, False, False,
                     timed=True, library=True)
+    # the resident body's widest H, and the first H past it (streaming)
+    res = RESIDENT_MAX_HIDDEN[torch.float32]
+    lstm_case("f_resident_widest", 9, 11, res, torch.float32, True, True,
+              timed=True)
+    lstm_case("f_resident_widest_bf16", 9, 11,
+              RESIDENT_MAX_HIDDEN[torch.bfloat16], torch.bfloat16, True,
+              True)
+    lstm_case("g_streaming_narrowest", 9, 11, res + 1, torch.float32, True,
+              True, timed=True)
+    lstm_case("h_stream_T1_B1", 1, 1, H, torch.float32, True, True,
+              timed=True)
     (Bt, Tt), W = LSTM_TRAIN_BATCH, char_rnn_lstm(
         **LSTM_SLICE).training.tbptt_fwd_length
     k23 = lstm_train_case("a_slice", W, Bt, H, torch.float32, True, False,
@@ -1366,6 +1476,10 @@ def main() -> int:
     lstm_train_case("d_bf16", W, Bt, H, torch.bfloat16, True, False)
     lstm_train_case("e_no_peephole", W, Bt, H, torch.float32, False, False)
     lstm_train_case("f_widest", 3, 2, MAX_HIDDEN, torch.float32, True, True)
+    lstm_train_case("g_resident_widest", 9, 11, res, torch.float32, True,
+                    True, timed=True)
+    lstm_train_case("h_streaming_narrowest", 9, 11, res + 1, torch.float32,
+                    True, True, timed=True)
     g = bwd_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
                  timed=True)
     bwd_case("b_T300_masked", 2, 8, 300, 64, True, torch.float32, "holes")
@@ -1378,6 +1492,14 @@ def main() -> int:
     bwd_case("g_D256_masked", *wide, torch.float32, "holes")
     bwd_case("g_D256_bf16", *wide, torch.bfloat16, "padded")
     gi = bwd_case("g_D256_wide_slice", *wide, torch.float32, None,
+                  timed=True)
+    bwd_case("h_D320_masked", 2, 4, 256, 320, True, torch.float32, "holes",
+             timed=True)
+    bwd_case("h_D512_bf16", WIDE_BATCH, 2, 256, 512, True, torch.bfloat16,
+             "padded", timed=True)
+    bwd_case("h_D1024_T128", 4, 2, 128, 1024, True, torch.float32, None,
+             timed=True)
+    gj = bwd_case("h_D512_wide_slice", *w512, torch.float32, None,
                   timed=True)
 
     # ---- 3. the slice: full-width GPT serving on the card ------------------
@@ -1392,8 +1514,10 @@ def main() -> int:
     # ---- 6. the slice: full-width char-RNN training on the card ----------
     lstm_train_path = lstm_train_slice()
 
-    # ---- 7. heads of 256, the kernels' widest template, on the card -------
-    wide_path = wide_head_slice()
+    # ---- 7. wide heads on the card: 256 (the widest register template),
+    # 512 (the wide template) --------------------------------------------
+    wide_path = wide_head_slice(WIDE_SLICE)
+    wide512_path = wide_head_slice(WIDE512_SLICE)
 
     # ---- 8. summary of every ported kernel ---------------------------------
     emit({"kernels": [
@@ -1408,7 +1532,10 @@ def main() -> int:
              bound_by=a["bound_by"], bound_peak=a["bound_peak"],
              bound_ms_simt=a["bound_ms_simt"], library_ms=a["library_ms"],
              ms_padded=f["ms"], ms_d256=i["ms"],
-             bound_ms_d256=i["bound_ms"], library_ms_d256=i["library_ms"]),
+             bound_ms_d256=i["bound_ms"], library_ms_d256=i["library_ms"],
+             launches_wide=wide512_path["flash_attn_fwd"], ms_wide=j["ms"],
+             bound_ms_wide=j["bound_ms"], library_ms_wide=j["library_ms"],
+             wide_case="heads of 512: B=8, H=2, T=256, causal, f32"),
         dict(name="lstm_fwd_infer", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/lstm_fwd_infer.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:99",
@@ -1416,7 +1543,10 @@ def main() -> int:
              launches=lstm_launches + lstm_train_path["lstm_fwd_infer"],
              max_abs_err=max(k1["max_abs_err_hs"], k1["max_abs_err_hT"]),
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=k1e["library_ms"],
+             bound_by=k1["bound_by"], bound_peak=k1["bound_peak"],
+             bound_ms_simt=k1["bound_ms_simt"],
+             body=k1["plan"]["body"], plan=k1["plan"],
+             library_ms=k1e["library_ms"],
              # cuDNN has no peepholes and computes the input projection
              # too: its time is held against the kernel plus x @ W + b on
              # the same inputs, not against ms
@@ -1430,6 +1560,8 @@ def main() -> int:
              launches_d256=wide_path["flash_attn_dq"],
              ms_d256=gi["ms_dq"], bound_ms_d256=gi["bound_ms_dq"],
              library_ms_d256=gi["library_ms"],
+             launches_wide=wide512_path["flash_attn_dq"], ms_wide=gj["ms_dq"],
+             bound_ms_wide=gj["bound_ms_dq"], library_ms_wide=gj["library_ms"],
              max_abs_err=g["max_abs_err_dq"], ms=g["ms_dq"],
              plain_ms=g["plain_ms_dq"], bound_ms=g["bound_ms_dq"],
              bound_by=g["bound_by_dq"], bound_peak=g["bound_peak_dq"],
@@ -1443,6 +1575,9 @@ def main() -> int:
              launches_d256=wide_path["flash_attn_dkv"],
              ms_d256=gi["ms_dkv"], bound_ms_d256=gi["bound_ms_dkv"],
              library_ms_d256=gi["library_ms"],
+             launches_wide=wide512_path["flash_attn_dkv"],
+             ms_wide=gj["ms_dkv"], bound_ms_wide=gj["bound_ms_dkv"],
+             library_ms_wide=gj["library_ms"],
              max_abs_err=max(g["max_abs_err_dk"], g["max_abs_err_dv"]),
              ms=g["ms_dkv"], plain_ms=g["plain_ms_dkv"],
              bound_ms=g["bound_ms_dkv"], bound_by=g["bound_by_dkv"],
@@ -1459,6 +1594,9 @@ def main() -> int:
                              k23["max_abs_err_cs"]),
              ms=k23["ms_fwd"], plain_ms=k23["plain_ms_fwd"],
              bound_ms=k23["bound_ms_fwd"], bound_by=k23["bound_by_fwd"],
+             bound_peak=k23["bound_peak_fwd"],
+             bound_ms_simt=k23["bound_ms_simt_fwd"],
+             body=k23["plan"]["body"], plan=k23["plan"],
              library_ms=k23["library_ms_fwd"],
              library_vs_ms=k23["kernel_plus_input_gemm_ms"],
              library_covers="cuDNN LSTM forward with grad enabled, no "
@@ -1472,6 +1610,8 @@ def main() -> int:
                              k23["max_abs_err_dc0"]),
              ms=k23["ms_bwd"], plain_ms=k23["plain_ms_bwd"],
              bound_ms=k23["bound_ms_bwd"], bound_by=k23["bound_by_bwd"],
+             bound_peak=k23["bound_peak_bwd"],
+             bound_ms_simt=k23["bound_ms_simt_bwd"],
              library_ms=k23["library_ms_bwd"],
              library_vs_ms=k23["kernel_plus_weight_grad_gemms_ms"],
              library_covers="cuDNN LSTM backward (dW_ih, dW_hh, biases), no "

@@ -14,8 +14,9 @@
 //   taken before any product, so it adds exactly nothing to dk and dv.
 // Not carried over: the TPU kernel's T and D padding to 128 and its
 // sqrt(Dp)/sqrt(D) pre-scale of q; here the scale is 1/sqrt(D) on s and on
-// dk, D is a template bound (32/64/128/256) with the tail zero-filled in
-// shared memory, and the ragged T edge is masked inside the kernel.
+// dk, D is a template bound (32/64/128/256, or the wide template past 256)
+// with the tail zero-filled in shared memory, and the ragged T edge is
+// masked inside the kernel.
 //
 // What bounds it on an H100: at the GPT training shape (B=32, H=8, T=256,
 // D=64, causal, f32) it does 8 D FLOP per causal (query, key) pair (s, dp,
@@ -44,9 +45,15 @@
 //     warp skips a tile wholly before its keys' causal diagonal;
 //   * with a key mask, a block whose 64 keys are all invalid writes zeros
 //     and returns (a block vote); causal blocks are scheduled longest-first
-//     (KV tile 0 first: it sees every query tile).
-// One block per (batch x head, KV tile) writes its own dk/dv rows: no
-// atomics, so two launches on the same inputs are bitwise equal.
+//     (KV tile 0 first: it sees every query tile);
+//   * the wide template (D > 256): a third grid axis cuts dk's and dv's
+//     columns into chunks of 256; for each query tile a block sums s^T and
+//     dp^T over all of D, chunk by chunk of its keys' k, v and the tile's
+//     q, dO through shared memory (the same order in every block), then
+//     dv += p^T dO and dk += ds^T q for its chunk of q and dO. s and dp are
+//     recomputed once per chunk, nothing is double-buffered.
+// One block per (batch x head, KV tile, column chunk) writes its own dk/dv
+// rows: no atomics, so two launches on the same inputs are bitwise equal.
 // Measured on an NVIDIA H100 80GB HBM3 at its 700 W power limit
 // (chip_smoke.py, tools/flash_ab.py; PERF.md): 0.123 ms at the
 // shape above, 4.1x the bound, where the CUDA-core version it replaced
@@ -91,8 +98,10 @@ constexpr size_t smem_bytes() {
 }
 
 // q, k, v, dO, dk, dv: [BH, T, D] contiguous; kv_mask: [BH / H, T] (> 0 =
-// valid key) or null; lse, dvec: [BH, T] f32.
-template <typename T, int DMAX>
+// valid key) or null; lse, dvec: [BH, T] f32. WIDE (DMAX = 256, D > 256):
+// the block owns dk's and dv's columns blockIdx.z * DMAX onwards, one chunk
+// of DMAX, and sums s^T and dp^T over all of D chunk by chunk.
+template <typename T, int DMAX, bool WIDE>
 __global__ void __launch_bounds__(threads<DMAX>(), DMAX > 64 ? 1 : 3)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ kv_mask,
@@ -121,6 +130,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int kw = warp % NKW;              // this warp's 16-key group
   const int d0 = (warp / NKW) * 8 * NDW;  // and its first dk / dv column
+  const int dc = WIDE ? (int)blockIdx.z * DMAX : 0;  // of the block's chunk
   const size_t base = (size_t)bh * Tn * D;
   const size_t rbase = (size_t)bh * Tn;
   const float* mrow = kv_mask ? kv_mask + (size_t)(bh / H) * Tn : nullptr;
@@ -128,18 +138,20 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (mrow != nullptr &&
       !__syncthreads_or(tid < BK && k0 + tid < Tn && mrow[k0 + tid] > 0.f)) {
     // no valid key in this block: its dk and dv rows are exactly 0
-    for (int i = tid; i < BK * D; i += NT) {
-      const int tk = k0 + i / D;
-      if (tk < Tn) {
-        store(&dk[base + (size_t)tk * D + i % D], 0.f);
-        store(&dv[base + (size_t)tk * D + i % D], 0.f);
+    for (int i = tid; i < BK * DMAX; i += NT) {
+      const int tk = k0 + i / DMAX, d = dc + i % DMAX;
+      if (tk < Tn && d < D) {
+        store(&dk[base + (size_t)tk * D + d], 0.f);
+        store(&dv[base + (size_t)tk * D + d], 0.f);
       }
     }
     return;
   }
 
-  load_rows<T, DMAX, BK, NT>(sK, k + base, k0, Tn, D, vec, tid);
-  load_rows<T, DMAX, BK, NT>(sV, v + base, k0, Tn, D, vec, tid);
+  if (!WIDE) {
+    load_rows<T, DMAX, BK, NT>(sK, k + base, k0, Tn, D, vec, tid);
+    load_rows<T, DMAX, BK, NT>(sV, v + base, k0, Tn, D, vec, tid);
+  }
 
   // this thread's two keys: r0 (accumulator slots 0, 1) and r0 + 8 (2, 3)
   const int r0 = kw * 16 + g;
@@ -156,12 +168,14 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) adk[j][i] = adv[j][i] = 0.f;
 
+  // query tile qt's q and dO (columns dc onwards) and its lse and Dvec
+  // into stage `stage`
   auto prefetch = [&](int qt, int stage) {
     const int q0 = qt * BQ;
     load_rows<T, DMAX, BQ, NT>(sQ + stage * BQ * S, q + base, q0, Tn, D, vec,
-                               tid);
+                               tid, dc);
     load_rows<T, DMAX, BQ, NT>(sdO + stage * BQ * S, dO + base, q0, Tn, D,
-                               vec, tid);
+                               vec, tid, dc);
     if (tid < BQ) {
       const int tq = q0 + tid;
       sLse[stage * BQ + tid] = tq < Tn ? lse[rbase + tq] : NEG_INF;
@@ -170,60 +184,136 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   const int n_q = (Tn + BQ - 1) / BQ;
+  // s^T += k q^T and dp^T += v dO^T over the DMAX columns of the tiles in
+  // shared memory
+  auto add_s_dp = [&](const T* Qs, const T* dOs, float (&s)[NQC][4],
+                      float (&dp)[NQC][4]) {
+#pragma unroll
+    for (int kk = 0; kk < DMAX; kk += 8) {
+      uint32_t kb[4], ks[4], vb[4], vs[4];
+      load_a<SPLIT>(sK, S, r0, kk, t, kb, ks);
+      load_a<SPLIT>(sV, S, r0, kk, t, vb, vs);
+      uint32_t qb[NQC][2], qs[NQC][2], ob[NQC][2], os[NQC][2];
+#pragma unroll
+      for (int j = 0; j < NQC; ++j) {
+        load_bt<SPLIT>(Qs, S, 8 * j, kk, g, t, qb[j], qs[j]);
+        load_bt<SPLIT>(dOs, S, 8 * j, kk, g, t, ob[j], os[j]);
+      }
+      if (SPLIT) {
+#pragma unroll
+        for (int j = 0; j < NQC; ++j) {
+          mma_tf32(s[j], ks, qb[j]);
+          mma_tf32(dp[j], vs, ob[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < NQC; ++j) {
+          mma_tf32(s[j], kb, qs[j]);
+          mma_tf32(dp[j], vb, os[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NQC; ++j) {
+        mma_tf32(s[j], kb, qb[j]);
+        mma_tf32(dp[j], vb, ob[j]);
+      }
+    }
+  };
+  // The wide template's product, one at a time (fewer registers):
+  // acc += A B^T over columns [kk0, kk1), A this warp's 16 keys of k or v,
+  // B the tile's queries of q or dO
+  auto add_abt = [&](const T* As, const T* Bs, float (&acc)[NQC][4],
+                     int kk0, int kk1) {
+#pragma unroll
+    for (int kk = kk0; kk < kk1; kk += 8) {
+      uint32_t ab[4], as[4];
+      load_a<SPLIT>(As, S, r0, kk, t, ab, as);
+      uint32_t bb[NQC][2], bs[NQC][2];
+#pragma unroll
+      for (int j = 0; j < NQC; ++j)
+        load_bt<SPLIT>(Bs, S, 8 * j, kk, g, t, bb[j], bs[j]);
+      if (SPLIT) {
+#pragma unroll
+        for (int j = 0; j < NQC; ++j) mma_tf32(acc[j], as, bb[j]);
+#pragma unroll
+        for (int j = 0; j < NQC; ++j) mma_tf32(acc[j], ab, bs[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < NQC; ++j) mma_tf32(acc[j], ab, bb[j]);
+    }
+  };
+
   // causal: query tiles wholly above this KV tile's diagonal never attend
   // to it (positions, not tile indices, decide)
   int qt = causal ? k0 / BQ : 0;
-  prefetch(qt, 0);
+  if (!WIDE) prefetch(qt, 0);
   cp_async_commit();
   int stage = 0;
   for (; qt < n_q; ++qt) {
-    if (qt + 1 < n_q) prefetch(qt + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this query tile (and K, V) have landed
-    __syncthreads();
-
     const int q0 = qt * BQ;
+    // a tile wholly before this warp's first key's diagonal adds nothing
+    const bool active = !causal || q0 + BQ - 1 >= k0 + kw * 16;
+    float s[NQC][4], dp[NQC][4];
+#pragma unroll
+    for (int j = 0; j < NQC; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+    if (WIDE) {
+      // s^T and dp^T over all of D: chunk c of the block's k, v and the
+      // tile's q, dO through shared memory, c = 0, 1, ... in every block;
+      // for f32, every WIDE_SPAN columns' products in fresh accumulators,
+      // joined by f32 adds (as K4's); bf16 sums in s and dp themselves
+      // (as K4's; the fresh accumulator's registers spilled there)
+      const int nch = n_chunks<DMAX>(D);
+      for (int c = 0; c < nch; ++c) {
+        const int c0 = c * DMAX;
+        load_rows<T, DMAX, BK, NT>(sK, k + base, k0, Tn, D, vec, tid, c0);
+        load_rows<T, DMAX, BK, NT>(sV, v + base, k0, Tn, D, vec, tid, c0);
+        load_rows<T, DMAX, BQ, NT>(sQ, q + base, q0, Tn, D, vec, tid, c0);
+        load_rows<T, DMAX, BQ, NT>(sdO, dO + base, q0, Tn, D, vec, tid, c0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (active && !SPLIT) {
+          add_abt(sK, sQ, s, 0, DMAX);
+          add_abt(sV, sdO, dp, 0, DMAX);
+        } else if (active) {
+#pragma unroll
+          for (int kk = 0; kk < DMAX; kk += WIDE_SPAN) {
+            float pc[NQC][4] = {};
+            add_abt(sK, sQ, pc, kk, kk + WIDE_SPAN);
+#pragma unroll
+            for (int j = 0; j < NQC; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                s[j][i] += pc[j][i];
+                pc[j][i] = 0.f;
+              }
+            add_abt(sV, sdO, pc, kk, kk + WIDE_SPAN);
+#pragma unroll
+            for (int j = 0; j < NQC; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) dp[j][i] += pc[j][i];
+          }
+        }
+        __syncthreads();  // every warp is done with this chunk
+      }
+      prefetch(qt, 0);  // this block's chunk of q and dO, lse and Dvec
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      if (qt + 1 < n_q) prefetch(qt + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this query tile (and K, V) have landed
+      __syncthreads();
+      if (active) add_s_dp(sQ + stage * BQ * S, sdO + stage * BQ * S, s, dp);
+    }
+
     const T* Qs = sQ + stage * BQ * S;
     const T* dOs = sdO + stage * BQ * S;
     const float* Ls = sLse + stage * BQ;
     const float* Ds = sDvec + stage * BQ;
-    // a tile wholly before this warp's first key's diagonal adds nothing
-    if (!causal || q0 + BQ - 1 >= k0 + kw * 16) {
-      // s^T = k q^T and dp^T = v dO^T for the tile's queries
-      float s[NQC][4], dp[NQC][4];
-#pragma unroll
-      for (int j = 0; j < NQC; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DMAX; kk += 8) {
-        uint32_t kb[4], ks[4], vb[4], vs[4];
-        load_a<SPLIT>(sK, S, r0, kk, t, kb, ks);
-        load_a<SPLIT>(sV, S, r0, kk, t, vb, vs);
-        uint32_t qb[NQC][2], qs[NQC][2], ob[NQC][2], os[NQC][2];
-#pragma unroll
-        for (int j = 0; j < NQC; ++j) {
-          load_bt<SPLIT>(Qs, S, 8 * j, kk, g, t, qb[j], qs[j]);
-          load_bt<SPLIT>(dOs, S, 8 * j, kk, g, t, ob[j], os[j]);
-        }
-        if (SPLIT) {
-#pragma unroll
-          for (int j = 0; j < NQC; ++j) {
-            mma_tf32(s[j], ks, qb[j]);
-            mma_tf32(dp[j], vs, ob[j]);
-          }
-#pragma unroll
-          for (int j = 0; j < NQC; ++j) {
-            mma_tf32(s[j], kb, qs[j]);
-            mma_tf32(dp[j], vb, os[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NQC; ++j) {
-          mma_tf32(s[j], kb, qb[j]);
-          mma_tf32(dp[j], vb, ob[j]);
-        }
-      }
+    if (active) {
       // p^T into s, ds^T into dp, gated by a select before any product
 #pragma unroll
       for (int j = 0; j < NQC; ++j)
@@ -275,7 +365,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();  // every warp is done with this stage
-    stage ^= 1;
+    if (!WIDE) stage ^= 1;
   }
   cp_async_wait<0>();
 
@@ -284,7 +374,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int tk = k0 + r0 + 8 * (i >> 1);
-      const int d = d0 + 8 * n + 2 * t + (i & 1);
+      const int d = dc + d0 + 8 * n + 2 * t + (i & 1);
       if (tk < Tn && d < D) {
         store(&dk[base + (size_t)tk * D + d], adk[n][i] * scale);
         store(&dv[base + (size_t)tk * D + d], adv[n][i]);
@@ -292,17 +382,18 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool WIDE = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_mask, const void* dO, const void* lse,
                    const void* dvec, void* dk, void* dv, int BH, int H,
                    int Tn, int D, int causal, int vec, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, DMAX>();
-  auto kern = flash_dkv_kernel<T, DMAX>;
+  auto kern = flash_dkv_kernel<T, DMAX, WIDE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tn + kv_block<DMAX>() - 1) / kv_block<DMAX>());
+  const dim3 grid(BH, (Tn + kv_block<DMAX>() - 1) / kv_block<DMAX>(),
+                  WIDE ? n_chunks<DMAX>(D) : 1);
   kern<<<grid, threads<DMAX>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(kv_mask),
@@ -331,8 +422,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   if (D <= 128)
     return launch<T, 128>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H, Tn,
                           D, causal, vec, stream);
-  return launch<T, 256>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H, Tn, D,
-                        causal, vec, stream);
+  if (D <= 256)
+    return launch<T, 256>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H, Tn,
+                          D, causal, vec, stream);
+  return launch<T, 256, true>(q, k, v, kv_mask, dO, lse, dvec, dk, dv, BH, H,
+                              Tn, D, causal, vec, stream);
 }
 
 }  // namespace
@@ -346,8 +440,8 @@ extern "C" int dl4j_flash_attn_dkv(const void* q, const void* k,
                                    int BH, int H, int Tn, int D, int causal,
                                    int dtype, void* stream) {
   if (BH < 1 || H < 1 || BH % H || Tn < 1 ||
-      (Tn + BK_MIN - 1) / BK_MIN > 65535 || D < 1 || D > 256 ||
-      (dtype != 0 && dtype != 1))
+      (Tn + BK_MIN - 1) / BK_MIN > 65535 || D < 1 ||
+      n_chunks<256>(D) > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -13,7 +13,8 @@
 // sqrt(Dp)/sqrt(D); here the scale 1/sqrt(D) goes on s, D is a template
 // bound (32/64/128/256) with the tail zero-filled in shared memory, and
 // the ragged T edge is masked inside the kernel. There is no residency
-// gate: K and V stream through shared memory one tile at a time.
+// gate: K and V stream through shared memory one tile at a time, so any
+// D runs: a head wider than 256 takes the wide template (below).
 //
 // What bounds it on an H100: at the GPT slice's shape (B=32, H=8, T=256,
 // D=64, causal, f32) the kernel does 4 D FLOP per causal (query, key) pair
@@ -57,9 +58,19 @@
 //     over the SMs;
 //   * with a key mask, a KV tile whose keys are all invalid is skipped (a
 //     block vote), and a warp skips a tile wholly past its rows' causal
-//     diagonal; causal blocks are scheduled longest-first.
-// One block per (batch x head, query tile) writes its own rows: no
-// atomics, so two launches on the same inputs are bitwise equal.
+//     diagonal; causal blocks are scheduled longest-first;
+//   * the wide template (D > 256, DMAX = 256, WIDE): a third grid axis
+//     cuts o's columns into chunks of 256 (the last one ragged), and a
+//     block keeps the D = 256 template's rows and register layout for its
+//     chunk. For each KV tile it sums s over all of D, chunk by chunk of
+//     q and k through shared memory, in the same order in every block, so
+//     every chunk's block computes the same s and (m, l) bit for bit; then
+//     p v for its own chunk of v. The first chunk's block writes lse. It
+//     is simple, not fast: s is recomputed once per chunk (2x at D = 512)
+//     and nothing is double-buffered (PERF.md).
+// One block per (batch x head, query tile, column chunk) writes its own
+// outputs: no atomics, so two launches on the same inputs are bitwise
+// equal.
 // Measured on an NVIDIA H100 80GB HBM3 at its 700 W power limit: see
 // PERF.md (chip_smoke.py, tools/flash_ab.py).
 
@@ -117,8 +128,10 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // q, k, v, o: [BH, T, D] contiguous; kv_mask: [BH / H, T] (> 0 = valid key)
-// or null; lse: [BH, T] f32.
-template <typename T, int DMAX>
+// or null; lse: [BH, T] f32. WIDE (DMAX = 256, D > 256): the block owns o's
+// columns blockIdx.z * DMAX onwards, one chunk of DMAX, and sums s over all
+// of D chunk by chunk.
+template <typename T, int DMAX, bool WIDE>
 __global__ void __launch_bounds__(threads<DMAX>(),
                                   DMAX > 128 ? 2 : DMAX > 64 ? 1 : 4)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -146,10 +159,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int rw = warp % RW;               // this warp's 16 rows
   const int d0 = (warp / RW) * 8 * NDW;  // and its first o column
+  const int dc = WIDE ? (int)blockIdx.z * DMAX : 0;  // of the block's chunk
   const size_t base = (size_t)bh * Tn * D;
   const float* mrow = kv_mask ? kv_mask + (size_t)(bh / H) * Tn : nullptr;
 
-  load_rows<T, DMAX, BQ, NT>(sQ, q + base, q0, Tn, D, vec, tid);
+  if (!WIDE) load_rows<T, DMAX, BQ, NT>(sQ, q + base, q0, Tn, D, vec, tid);
 
   // this thread's two rows: r0 (accumulator slots 0, 1) and r0 + 8 (2, 3)
   const int r0 = rw * 16 + g;
@@ -172,47 +186,95 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
+  // s += q k^T over columns [kk0, kk1) of the tiles in shared memory
+  auto add_qk = [&](const T* Ks, float (&s)[NKC][4], int kk0, int kk1) {
+#pragma unroll
+    for (int kk = kk0; kk < kk1; kk += 8) {
+      uint32_t qb[4], qs[4];
+      load_a<SPLIT>(sQ, S, r0, kk, t, qb, qs);
+      uint32_t kb[NKC][2], ks[NKC][2];
+#pragma unroll
+      for (int j = 0; j < NKC; ++j)
+        load_bt<SPLIT>(Ks, S, 8 * j, kk, g, t, kb[j], ks[j]);
+      if (SPLIT) {
+#pragma unroll
+        for (int j = 0; j < NKC; ++j) mma_tf32(s[j], qs, kb[j]);
+#pragma unroll
+        for (int j = 0; j < NKC; ++j) mma_tf32(s[j], qb, ks[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < NKC; ++j) mma_tf32(s[j], qb, kb[j]);
+    }
+  };
+
   const int n_kv = (Tn + BK - 1) / BK;
   const int kv_end = causal ? min(n_kv, (q0 + BQ - 1) / BK + 1) : n_kv;
   int kt = next_tile<BK>(0, kv_end, mrow, Tn, tid);
-  if (kt < kv_end) prefetch(kt, 0);
+  if (!WIDE && kt < kv_end) prefetch(kt, 0);
   cp_async_commit();
   int stage = 0;
   while (kt < kv_end) {
     const int kn = next_tile<BK>(kt + 1, kv_end, mrow, Tn, tid);
-    if (kn < kv_end) prefetch(kn, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and Q) have landed
-    __syncthreads();
-
     const int k0 = kt * BK;
-    const T* Ks = sK + stage * BK * S;
+    // a tile wholly past this warp's last row's diagonal adds nothing
+    const bool active = !causal || k0 <= q0 + rw * 16 + 15;
+    float s[NKC][4];
+#pragma unroll
+    for (int j = 0; j < NKC; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+    if (WIDE) {
+      // s over all of D: chunk c of q and of the tile's keys through shared
+      // memory, c = 0, 1, ... in every block, so every column chunk's block
+      // computes the same s, bit for bit, and the same (m, l). For f32,
+      // every WIDE_SPAN columns' product goes to a fresh accumulator and
+      // joins s by an f32 add; bf16, whose tolerance is 300x wider than
+      // the tensor cores' drift, sums in s itself
+      const int nch = n_chunks<DMAX>(D);
+      for (int c = 0; c < nch; ++c) {
+        load_rows<T, DMAX, BQ, NT>(sQ, q + base, q0, Tn, D, vec, tid,
+                                   c * DMAX);
+        load_rows<T, DMAX, BK, NT>(sK, k + base, k0, Tn, D, vec, tid,
+                                   c * DMAX);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (active && !SPLIT) {
+          add_qk(sK, s, 0, DMAX);
+        } else if (active) {
+#pragma unroll
+          for (int kk = 0; kk < DMAX; kk += WIDE_SPAN) {
+            float sc[NKC][4] = {};
+            add_qk(sK, sc, kk, kk + WIDE_SPAN);
+#pragma unroll
+            for (int j = 0; j < NKC; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) s[j][i] += sc[j][i];
+          }
+        }
+        __syncthreads();  // every warp is done with this chunk
+      }
+      // this block's chunk of v, and the tile's key validity
+      load_rows<T, DMAX, BK, NT>(sV, v + base, k0, Tn, D, vec, tid, dc);
+      if (tid < BK) {
+        const int key = k0 + tid;
+        sValid[tid] =
+            (key < Tn && (mrow == nullptr || mrow[key] > 0.f)) ? 1.f : 0.f;
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      if (kn < kv_end) prefetch(kn, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this tile (and Q) have landed
+      __syncthreads();
+      if (active) add_qk(sK + stage * BK * S, s, 0, DMAX);
+    }
+
     const T* Vs = sV + stage * BK * S;
     const float* valid = sValid + stage * BK;
-    // a tile wholly past this warp's last row's diagonal adds nothing
-    if (!causal || k0 <= q0 + rw * 16 + 15) {
-      float s[NKC][4];
-#pragma unroll
-      for (int j = 0; j < NKC; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DMAX; kk += 8) {
-        uint32_t qb[4], qs[4];
-        load_a<SPLIT>(sQ, S, r0, kk, t, qb, qs);
-        uint32_t kb[NKC][2], ks[NKC][2];
-#pragma unroll
-        for (int j = 0; j < NKC; ++j)
-          load_bt<SPLIT>(Ks, S, 8 * j, kk, g, t, kb[j], ks[j]);
-        if (SPLIT) {
-#pragma unroll
-          for (int j = 0; j < NKC; ++j) mma_tf32(s[j], qs, kb[j]);
-#pragma unroll
-          for (int j = 0; j < NKC; ++j) mma_tf32(s[j], qb, ks[j]);
-        }
-#pragma unroll
-        for (int j = 0; j < NKC; ++j) mma_tf32(s[j], qb, kb[j]);
-      }
+    if (active) {
       // scale and mask (NEG_INF marks a pair outside the contract), then
       // the new row max over the 4 lanes of each fragment row
       float mx[2] = {m[0], m[1]};
@@ -286,7 +348,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();  // every warp is done with this stage
     kt = kn;
-    stage ^= 1;
+    if (!WIDE) stage ^= 1;
   }
   cp_async_wait<0>();
 
@@ -305,12 +367,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int h = i >> 1;
       const int tq = q0 + r0 + 8 * h;
-      const int d = d0 + 8 * n + 2 * t + (i & 1);
+      const int d = dc + d0 + 8 * n + 2 * t + (i & 1);
       if (tq < Tn && d < D)
         store(&o[base + (size_t)tq * D + d],
               row_ok[h] ? acc[n][i] / l_safe[h] : 0.f);
     }
-  if (t == 0 && d0 == 0) {  // one warp of the row group writes lse
+  // one warp of the row group (of the first column chunk) writes lse
+  if (t == 0 && d0 == 0 && dc == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int tq = q0 + r0 + 8 * h;
@@ -321,16 +384,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool WIDE = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_mask, void* o, void* lse, int BH, int H,
                    int Tn, int D, int causal, int vec, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, DMAX>();
-  auto kern = flash_fwd_kernel<T, DMAX>;
+  auto kern = flash_fwd_kernel<T, DMAX, WIDE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tn + q_rows<DMAX>() - 1) / q_rows<DMAX>());
+  const dim3 grid(BH, (Tn + q_rows<DMAX>() - 1) / q_rows<DMAX>(),
+                  WIDE ? n_chunks<DMAX>(D) : 1);
   kern<<<grid, threads<DMAX>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(kv_mask),
@@ -356,8 +420,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   if (D <= 128)
     return launch<T, 128>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal,
                           vec, stream);
-  return launch<T, 256>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal, vec,
-                        stream);
+  if (D <= 256)
+    return launch<T, 256>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal,
+                          vec, stream);
+  return launch<T, 256, true>(q, k, v, kv_mask, o, lse, BH, H, Tn, D, causal,
+                              vec, stream);
 }
 
 }  // namespace
@@ -370,8 +437,8 @@ extern "C" int dl4j_flash_attn_fwd(const void* q, const void* k,
                                    int D, int causal, int dtype,
                                    void* stream) {
   if (BH < 1 || H < 1 || BH % H || Tn < 1 ||
-      (Tn + BQ_MIN - 1) / BQ_MIN > 65535 ||
-      D < 1 || D > 256 || (dtype != 0 && dtype != 1))
+      (Tn + BQ_MIN - 1) / BQ_MIN > 65535 || D < 1 ||
+      n_chunks<256>(D) > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -187,29 +187,45 @@ __device__ __forceinline__ int next_tile(int j, int end,
   return j;
 }
 
-// Rows t0 .. t0 + ROWS - 1 of a [Tn, D] tensor into a [ROWS][S] shared
-// tile, zero past Tn and past D up to DMAX. vec: D * sizeof(T) is a
-// multiple of 16 and the tensor 16-byte aligned, so the copy is
-// asynchronous (cp.async, zero fill); otherwise element by element.
+// Rows t0 .. t0 + ROWS - 1 of a [Tn, D] tensor, columns c0 .. c0 + DMAX - 1
+// (c0 = 0, or a multiple of DMAX in the wide template), into a [ROWS][S]
+// shared tile, zero past Tn and past D. vec: D * sizeof(T) is a multiple
+// of 16 and the tensor 16-byte aligned, so the copy is asynchronous
+// (cp.async, zero fill); otherwise element by element.
 template <typename T, int DMAX, int ROWS, int NT>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int t0,
-                                          int Tn, int D, bool vec, int tid) {
+                                          int Tn, int D, bool vec, int tid,
+                                          int c0 = 0) {
   constexpr int S = row_stride<T, DMAX>();
+  src += c0;
+  const int DC = D - c0;  // columns left from c0 on
   if (vec) {
     constexpr int V = 16 / (int)sizeof(T);
     constexpr int CPR = DMAX / V;
     for (int i = tid; i < ROWS * CPR; i += NT) {
       const int r = i / CPR, d = (i % CPR) * V, t = t0 + r;
-      const bool in = t < Tn && d < D;
+      const bool in = t < Tn && d < DC;
       cp_async16(dst + r * S + d, in ? src + (size_t)t * D + d : src,
                  in ? 16 : 0);
     }
   } else {
     for (int i = tid; i < ROWS * DMAX; i += NT) {
       const int r = i / DMAX, d = i % DMAX, t = t0 + r;
-      dst[r * S + d] = (t < Tn && d < D) ? src[(size_t)t * D + d] : zero<T>();
+      dst[r * S + d] =
+          (t < Tn && d < DC) ? src[(size_t)t * D + d] : zero<T>();
     }
   }
 }
+
+// Column chunks of DMAX that a head of D columns spans (the wide template
+// sums s = q k^T over all of them, one at a time, in this order)
+template <int DMAX>
+__host__ __device__ constexpr int n_chunks(int D) {
+  return (D + DMAX - 1) / DMAX;
+}
+// Columns the wide template sums (f32 inputs) in one mma accumulator before
+// joining the product to s by an f32 add: the tensor cores' accumulation over
+// a wide head drifted (4e-5 in O at D = 1024 against the 2e-5 gate)
+constexpr int WIDE_SPAN = 64;
 
 }  // namespace flash_mma

@@ -7,6 +7,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -177,6 +178,313 @@ __device__ __forceinline__ void lstm_fwd_steps(
 inline size_t fwd_smem_bytes(int H) {
   return sizeof(float) *
          (3 * (size_t)H + (KSPLIT - 1) * 4 * units_per_block(H));
+}
+
+// ------------------------------------------------------- the resident body
+//
+// A cluster of CLUSTER CTAs owns RES_ROWS batch rows; CTA r of the cluster owns
+// hidden units [r U, r U + U), U = ceil(H / CLUSTER), and their four gate
+// columns (NC = 4 U), and keeps its slice of rw, [Hp, NC], in its shared
+// memory for all T steps (Hp = H padded to a multiple of 4 RES_KSPLIT with
+// zero rows). A step: z = h_{t-1} @ rw_slice for the cluster's rows, each
+// thread summing two columns over one of RES_KSPLIT slices of k in
+// registers; the slices' partial sums meet in shared memory; then one
+// thread per (row, unit) adds them in slice order, adds xz[t] (loaded into
+// registers while the product ran), applies the gates, keeps c in a
+// register, and writes h_t into every CTA's next h buffer through
+// distributed shared memory; one cluster barrier ends the step.
+
+constexpr int CLUSTER = 8;            // CTAs of a cluster (portable size)
+constexpr int RES_THREADS = 512;      // threads of a CTA
+constexpr int RES_KSPLIT = 8;         // slices of each column's sum over k
+constexpr int RES_PAIRS = RES_THREADS / RES_KSPLIT;  // column pairs a pass
+// Batch rows a cluster. tools/lstm_ab.py --rows builds other values with
+// -DDL4J_LSTM_RES_ROWS=n to time them; every row's arithmetic is the same
+// whatever the rows a cluster, so the outputs are too, bit for bit.
+#ifndef DL4J_LSTM_RES_ROWS
+#define DL4J_LSTM_RES_ROWS 4
+#endif
+constexpr int RES_ROWS = DL4J_LSTM_RES_ROWS;
+constexpr size_t MAX_SMEM = 227 * 1024;  // a CTA's shared memory on an H100
+
+inline int res_units(int H) { return (H + CLUSTER - 1) / CLUSTER; }
+inline int res_hp(int H) {
+  return (H + 4 * RES_KSPLIT - 1) / (4 * RES_KSPLIT) * (4 * RES_KSPLIT);
+}
+
+// Dynamic shared memory of a resident CTA: its slice of rw in the input
+// type, two buffers of h [RES_ROWS][Hp] and the partial sums
+// [RES_KSPLIT][RES_ROWS][NC] in f32. 152 KiB at H = 256 in f32.
+inline size_t resident_smem_bytes(int H, size_t elem) {
+  const size_t hp = res_hp(H), nc = 4 * res_units(H);
+  return elem * hp * nc + sizeof(float) * (2 * RES_ROWS * hp +
+                                           (size_t)RES_KSPLIT * RES_ROWS * nc);
+}
+
+// The body a forward launch takes, from (H, input type) alone: the
+// resident body wherever hidden size H fits a cluster (H <= 312 in f32,
+// 424 in bf16: fused_lstm.RESIDENT_MAX_HIDDEN), else the streaming body.
+inline bool resident_fits(int H, size_t elem) {
+  return resident_smem_bytes(H, elem) <= MAX_SMEM &&
+         RES_ROWS * res_units(H) <= RES_THREADS;
+}
+
+#ifdef DL4J_LSTM_PHASES
+// Cycles (clock64) of each phase of the resident body's steps, summed over
+// the steps by thread 0 of the first CTA, then T: read by
+// tools/lstm_ab.py --phases from a build with -DDL4J_LSTM_PHASES.
+__device__ long long lstm_phases[6];
+#endif
+
+// The resident body's phase clock: a no-op unless built with
+// -DDL4J_LSTM_PHASES.
+struct PhaseClock {
+#ifdef DL4J_LSTM_PHASES
+  bool on;
+  long long sum[5], last;
+  __device__ void start() {
+    on = blockIdx.x == 0 && threadIdx.x == 0;
+    for (int i = 0; i < 5; ++i) sum[i] = 0;
+    last = clock64();
+  }
+  __device__ void mark(int i) {
+    if (!on) return;
+    const long long now = clock64();
+    sum[i] += now - last;
+    last = now;
+  }
+  __device__ void flush(int Tn) {
+    if (!on) return;
+    for (int i = 0; i < 5; ++i) lstm_phases[i] = sum[i];
+    lstm_phases[5] = Tn;
+  }
+#else
+  __device__ void start() {}
+  __device__ void mark(int) {}
+  __device__ void flush(int) {}
+#endif
+};
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Same arguments and outputs as lstm_fwd_steps. Grid: CLUSTER x
+// ceil(B / RES_ROWS) CTAs in clusters of CLUSTER; RES_THREADS threads a
+// CTA.
+template <typename T, bool kSave>
+__device__ __forceinline__ void lstm_fwd_steps_resident(
+    float* smem, const T* __restrict__ xz, const T* __restrict__ rw,
+    const T* __restrict__ pw, const T* __restrict__ h0,
+    const T* __restrict__ c0, T* __restrict__ hs, T* __restrict__ gates,
+    T* __restrict__ cs, T* __restrict__ cT, int Tn, int B, int H,
+    float forget_bias) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int U = (H + CLUSTER - 1) / CLUSTER, NC = 4 * U;
+  const int Hp = (H + 4 * RES_KSPLIT - 1) / (4 * RES_KSPLIT) * (4 * RES_KSPLIT);
+  const int u0 = rank * U;                            // this CTA's units
+  const int b0 = (int)(blockIdx.x / CLUSTER) * RES_ROWS;  // cluster's rows
+  const int H4 = 4 * H;
+  T* sW = reinterpret_cast<T*>(smem);                        // [Hp][NC]
+  // [2][RES_ROWS][Hp], then [RES_KSPLIT][RES_ROWS][NC]
+  float* sH = reinterpret_cast<float*>(sW + (size_t)Hp * NC);
+  float* sP = sH + 2 * RES_ROWS * Hp;
+
+  // rw's slice: column c = q U + j of this CTA is rw's column q H + u0 + j
+  for (int i = tid; i < Hp * NC; i += RES_THREADS) {
+    const int k = i / NC, c = i % NC, u = u0 + c % U;
+    store(&sW[i],
+          (k < H && u < H) ? to_f32(rw[(size_t)k * H4 + (c / U) * H + u])
+                           : 0.f);
+  }
+  for (int i = tid; i < RES_ROWS * Hp; i += RES_THREADS) {
+    const int r = i / Hp, k = i % Hp, b = b0 + r;
+    sH[i] = (k < H && b < B) ? to_f32(h0[(size_t)b * H + k]) : 0.f;
+    sH[RES_ROWS * Hp + i] = 0.f;  // the padding of the second buffer stays 0
+  }
+  // the thread of (row r, unit u) for the gates, c and h
+  const bool gate = tid < RES_ROWS * U;
+  const int r = gate ? tid / U : 0, j = tid % U, u = u0 + j, b = b0 + r;
+  const bool valid = gate && u < H && b < B;
+  float c = 0.f, pi = 0.f, pf = 0.f, po = 0.f, xn[4] = {0.f, 0.f, 0.f, 0.f};
+  if (valid) {
+    c = to_f32(c0[(size_t)b * H + u]);
+    pi = to_f32(pw[u]);
+    pf = to_f32(pw[H + u]);
+    po = to_f32(pw[2 * H + u]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xn[q] = to_f32(xz[(size_t)b * H4 + q * H + u]);
+  }
+  const int ks = tid / RES_PAIRS, pair = tid % RES_PAIRS;
+  const int kc = Hp / RES_KSPLIT, k_lo = ks * kc;
+  cluster.sync();  // every CTA's buffers are ready before any remote write
+
+  PhaseClock clock;  // product, barrier, gates, exchange, cluster barrier
+  clock.start();
+  for (int t = 0; t < Tn; ++t) {
+    const int cur = t & 1;
+    // the partial sums over slice ks of k, one fmaf chain per column in k
+    // order, for columns (col, col + 1) and every row
+    const float* hb = sH + cur * RES_ROWS * Hp;
+    for (int col = 2 * pair; col < NC; col += 2 * RES_PAIRS) {
+      float acc[RES_ROWS][2];
+#pragma unroll
+      for (int i = 0; i < RES_ROWS; ++i) acc[i][0] = acc[i][1] = 0.f;
+      for (int k = k_lo; k < k_lo + kc; k += 4) {
+        float2 w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[e] = load2(sW + (k + e) * NC + col);
+#pragma unroll
+        for (int i = 0; i < RES_ROWS; ++i) {
+          const float4 h4 = *reinterpret_cast<const float4*>(hb + i * Hp + k);
+          acc[i][0] = fmaf(h4.x, w[0].x, acc[i][0]);
+          acc[i][1] = fmaf(h4.x, w[0].y, acc[i][1]);
+          acc[i][0] = fmaf(h4.y, w[1].x, acc[i][0]);
+          acc[i][1] = fmaf(h4.y, w[1].y, acc[i][1]);
+          acc[i][0] = fmaf(h4.z, w[2].x, acc[i][0]);
+          acc[i][1] = fmaf(h4.z, w[2].y, acc[i][1]);
+          acc[i][0] = fmaf(h4.w, w[3].x, acc[i][0]);
+          acc[i][1] = fmaf(h4.w, w[3].y, acc[i][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RES_ROWS; ++i)
+        *reinterpret_cast<float2*>(sP + (ks * RES_ROWS + i) * NC + col) =
+            make_float2(acc[i][0], acc[i][1]);
+    }
+    clock.mark(0);
+    __syncthreads();  // the partial sums are in
+    clock.mark(1);
+
+    if (gate) {
+      float z[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* p = sP + r * NC + q * U + j;
+        z[q] = p[0];
+#pragma unroll
+        for (int s = 1; s < RES_KSPLIT; ++s) z[q] += p[s * RES_ROWS * NC];
+        z[q] += xn[q];  // the product first, then xz[t]
+      }
+      const float gi = sigmoid_(z[0] + c * pi);
+      const float gf = sigmoid_(z[1] + c * pf + forget_bias);
+      const float gg = tanhf(z[2]);
+      const float c_new = gf * c + gi * gg;
+      const float go = sigmoid_(z[3] + c_new * po);
+      const float h_new = go * tanhf(c_new);
+      c = round_to(c_new, T{});
+      clock.mark(2);
+      if (u < H) {  // into slot (r, u) of every CTA's next h buffer
+        const float h_carry = round_to(h_new, T{});
+        float* slot = sH + ((cur ^ 1) * RES_ROWS + r) * Hp + u;
+#pragma unroll
+        for (int d = 0; d < CLUSTER; ++d)
+          *cluster.map_shared_rank(slot, d) = h_carry;
+      }
+      if (valid) {  // the step's outputs, and xz[t + 1] for the next
+        const size_t row = (size_t)t * B + b;
+        store(&hs[row * H + u], h_new);
+        if (kSave) {
+          T* gt = gates + row * H4 + u;
+          store(&gt[0], gi);
+          store(&gt[H], gf);
+          store(&gt[2 * H], gg);
+          store(&gt[3 * H], go);
+          store(&cs[row * H + u], c);
+        }
+        if (t + 1 < Tn) {
+          const T* x1 = xz + (row + B) * H4 + u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xn[q] = to_f32(x1[q * H]);
+        }
+      }
+    }
+    clock.mark(3);
+    // h_t is in every CTA's buffer, and every read of h_{t-1} and of the
+    // partial sums is done
+    cluster.sync();
+    clock.mark(4);
+  }
+  clock.flush(Tn);
+  if (!kSave && valid) store(&cT[(size_t)b * H + u], c);
+}
+
+// Launch of the streaming body: one block of (units, KSPLIT) threads per
+// batch row.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_streaming(void (*kern)(KArgs...), int B, int H,
+                             cudaStream_t stream, Args... args) {
+  kern<<<B, dim3(units_per_block(H), KSPLIT), fwd_smem_bytes(H), stream>>>(
+      args...);
+  return cudaGetLastError();
+}
+
+// The resident body's launch configuration (clusters of CLUSTER CTAs, one
+// cluster per RES_ROWS batch rows); `attr` must outlive `cfg`.
+template <typename... KArgs>
+cudaError_t resident_config(void (*kern)(KArgs...), int B, int H, size_t elem,
+                            cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                            cudaLaunchAttribute& attr) {
+  if (!resident_fits(H, elem)) return cudaErrorInvalidValue;
+  const size_t smem = resident_smem_bytes(H, elem);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(CLUSTER * ((B + RES_ROWS - 1) / RES_ROWS));
+  cfg.blockDim = dim3(RES_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename... KArgs, typename... Args>
+cudaError_t launch_resident(void (*kern)(KArgs...), int B, int H,
+                            size_t elem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = resident_config(kern, B, H, elem, stream, cfg, attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// What a forward launch for (B, H, elem) runs, `kern` being its resident
+// kernel: out[0] rows a cluster (0 = the streaming body), out[1] CTAs a
+// cluster (0 = no cluster), out[2] blocks, out[3] threads a block, out[4]
+// dynamic shared memory bytes, out[5] clusters that fit on the card at
+// once (cudaOccupancyMaxActiveClusters; -1 for the streaming body).
+template <typename... KArgs>
+cudaError_t describe(void (*kern)(KArgs...), int B, int H, size_t elem,
+                     int* out) {
+  if (!resident_fits(H, elem)) {
+    const int plan[6] = {0, 0, B, units_per_block(H) * KSPLIT,
+                         (int)fwd_smem_bytes(H), -1};
+    for (int i = 0; i < 6; ++i) out[i] = plan[i];
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = resident_config(kern, B, H, elem, 0, cfg, attr);
+  if (err != cudaSuccess) return err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  const int plan[6] = {RES_ROWS, CLUSTER, (int)cfg.gridDim.x, RES_THREADS,
+                       (int)cfg.dynamicSmemBytes, n};
+  for (int i = 0; i < 6; ++i) out[i] = plan[i];
+  return err;
 }
 
 }  // namespace dl4j_lstm

@@ -20,67 +20,97 @@
 // Not carried over: the TPU kernel walks a sequential grid of T steps with
 // RW and (h, c) resident in VMEM, and its wrapper pads H to 128 and B to 8
 // with zero gate blocks. Here one launch loops over all T steps inside the
-// kernel, one block per batch row, and H is not padded. The size limit is
-// the default 48 KB of shared memory a block gets: 4 * (3H + 3 * 4 * 256)
-// bytes, so H <= 3072 (fused_lstm.MAX_HIDDEN); a wider H fails to launch.
+// kernel, and H is not padded (the resident body pads its own slice of
+// RW with zero rows).
 //
 // What bounds it on an H100: at the char-RNN slice's shape (B=32, T=64,
 // H=256, f32) the h @ rw products are 2*32*256*1024*64 = 1.07 GFLOP, or
-// 0.016 ms at the f32 CUDA-core peak of 67 TFLOP/s, against ~11.6 MB of
-// xz/hs/rw/carry traffic, or 0.0035 ms at 3.35 TB/s: the bound is
-// operations. But the 64 steps depend on each other, each with only
-// 32 x 1024 outputs, and RW (1 MB in f32) does not fit one SM's 227 KB of
-// shared memory, so a block that owns a whole row of h must stream all of
-// RW from L2 every step. This first, simple design accepts that:
-//   * a block owns one batch row and all H hidden units, so a step needs
-//     no exchange between blocks;
-//   * thread (x, y) of the block's (256, 4) threads owns hidden unit x
-//     (and x + 256, ...) and sums slice y of the H terms of h @ rw: its
-//     four gate columns x, H+x, 2H+x, 3H+x, so the gates combine in
-//     registers; adjacent threads read adjacent columns (coalesced), and
-//     the four slices keep four times as many L2 reads in flight as one
-//     thread per unit would (a first version with 256 threads a block took
-//     2.2 ms, held by L2 latency); slices 1..3 add their sums through
-//     shared memory;
-//   * h_{t-1} and h_t are two buffers in shared memory (each h value is
-//     read by every thread, a broadcast), c stays in shared memory owned
-//     by one thread, and two __syncthreads() a step order the partial sums
-//     and the new h.
-// Its ceiling is each SM's L2 read rate for the 1 MB of rw per step, well
-// above the bound. The planned redesign (ROADMAP B, K1) keeps rw on chip
-// across a thread-block cluster (each CTA owns a slice of the 4H columns,
-// h exchanged through distributed shared memory with a cluster barrier per
-// step) and runs h @ rw on tensor cores.
+// 0.0065 ms at the 3xTF32 tensor-core peak, the card's fastest f32
+// products (0.016 ms at the f32 CUDA-core peak of 67 TFLOP/s, the units
+// this kernel uses), against ~11.6 MB of xz/hs/rw/carry traffic, or
+// 0.0035 ms at 3.35 TB/s: the bound is operations. But the 64 steps
+// depend on each other, each with only 32 x 1024 outputs, and RW (1 MB in
+// f32) is more than one SM's 227 KB of shared memory.
+//
+// Two bodies (lstm_common.cuh), picked in the C entry from (H, dtype)
+// alone (resident_fits):
+//   * the resident body, wherever RW's slices fit a cluster (H <= 312 in
+//     f32, 424 in bf16: fused_lstm.RESIDENT_MAX_HIDDEN). The Hopper
+//     counterpart of the TPU kernel's VMEM residency: a cluster of 8 CTAs
+//     (launched with cudaLaunchKernelEx and a cluster dimension), CTA r
+//     owning hidden units [r H/8, (r+1) H/8) and their four gate columns,
+//     keeps its slice of RW ([H, H/2], 128 KiB at H = 256 in f32) in
+//     shared memory for all T steps. One cluster takes 4 batch rows, so
+//     B = 32 runs 8 clusters on 64 SMs, each reading RW once a launch (a
+//     larger batch runs more clusters, in waves past the ones the card
+//     holds at once; 8 rows a cluster was 1.5x slower at B = 32,
+//     tools/lstm_ab.py --rows). A step: each of 512 threads sums two
+//     columns of h @ rw_slice over one of 8 slices of k for every row,
+//     an fmaf chain in k order; the slices meet in shared memory; one
+//     thread per (row, unit) adds them in slice order, then
+//     xz[t] (loaded while the previous step finished), applies the gates,
+//     keeps c in a register and writes h_t into every CTA's next h buffer
+//     through distributed shared memory; one cluster barrier ends the
+//     step. The products stay on CUDA cores: 3xTF32 mma.sync on a step's
+//     [4 x 256] x [256 x 128] (M padded to 16) takes ~1,536 tensor-core
+//     cycles a CTA against ~1,024 cycles of FMAs, and keeps the plain
+//     fmaf chains' numerics;
+//   * the streaming body, past that up to H = 3072 (fused_lstm.MAX_HIDDEN,
+//     the default 48 KB of shared memory a block gets: 4 * (3H + 3 * 4 *
+//     256) bytes): a block owns one batch row and all H hidden units, and
+//     streams all of RW from L2 every step; thread (x, y) of its (256, 4)
+//     threads owns unit x (and x + 256, ...) and sums slice y of the H
+//     terms of its four gate columns, slices 1..3 through shared memory;
+//     h_{t-1} and h_t are two shared buffers, and two __syncthreads() a
+//     step order the partial sums and the new h.
+// Both sum each column over k in slices, then add xz[t].
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py,
+// tools/lstm_ab.py; PERF.md): see PERF.md's kernel table. A per-phase
+// clock count of one step at 4 rows (tools/lstm_ab.py --phases): the
+// product ~2,800 cycles (bound by shared-memory reads of rw and h, 2.7x
+// its FMAs' time), the gates ~770, the DSMEM exchange ~300, the cluster
+// barrier ~900.
 
 #include "lstm_common.cuh"
 
 namespace dl4j_lstm {
 
-// The recurrence's body (lstm_fwd_steps) lives in lstm_common.cuh, shared
-// with the training forward K2.
-template <typename T>
-__global__ void __launch_bounds__(MAX_UNITS * KSPLIT)
+// kResident = false: the streaming body (lstm_fwd_steps); true: the
+// resident body (lstm_fwd_steps_resident). Both live in lstm_common.cuh,
+// shared with the training forward K2.
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(kResident ? RES_THREADS : MAX_UNITS * KSPLIT)
 lstm_fwd_infer_kernel(const T* __restrict__ xz, const T* __restrict__ rw,
                       const T* __restrict__ pw, const T* __restrict__ h0,
                       const T* __restrict__ c0, T* __restrict__ hs,
                       T* __restrict__ cT, int Tn, int B, int H,
                       float forget_bias) {
-  extern __shared__ float smem[];
-  lstm_fwd_steps<T, false>(smem, xz, rw, pw, h0, c0, hs, nullptr, nullptr,
-                           cT, Tn, B, H, forget_bias);
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (kResident)
+    lstm_fwd_steps_resident<T, false>(smem, xz, rw, pw, h0, c0, hs, nullptr,
+                                      nullptr, cT, Tn, B, H, forget_bias);
+  else
+    lstm_fwd_steps<T, false>(smem, xz, rw, pw, h0, c0, hs, nullptr, nullptr,
+                             cT, Tn, B, H, forget_bias);
 }
 
+// The resident body wherever H fits it (resident_fits), else the streaming
+// body.
 template <typename T>
 cudaError_t launch(const void* xz, const void* rw, const void* pw,
                    const void* h0, const void* c0, void* hs, void* cT, int Tn,
                    int B, int H, float forget_bias, cudaStream_t stream) {
-  lstm_fwd_infer_kernel<T><<<B, dim3(units_per_block(H), KSPLIT),
-                             fwd_smem_bytes(H), stream>>>(
-      static_cast<const T*>(xz), static_cast<const T*>(rw),
-      static_cast<const T*>(pw), static_cast<const T*>(h0),
-      static_cast<const T*>(c0), static_cast<T*>(hs), static_cast<T*>(cT), Tn,
-      B, H, forget_bias);
-  return cudaGetLastError();
+  auto xz_ = static_cast<const T*>(xz), rw_ = static_cast<const T*>(rw),
+       pw_ = static_cast<const T*>(pw), h0_ = static_cast<const T*>(h0),
+       c0_ = static_cast<const T*>(c0);
+  auto hs_ = static_cast<T*>(hs), cT_ = static_cast<T*>(cT);
+  if (resident_fits(H, sizeof(T)))
+    return launch_resident(lstm_fwd_infer_kernel<T, true>, B, H, sizeof(T),
+                           stream, xz_, rw_, pw_, h0_, c0_, hs_, cT_, Tn, B,
+                           H, forget_bias);
+  return launch_streaming(lstm_fwd_infer_kernel<T, false>, B, H, stream, xz_,
+                          rw_, pw_, h0_, c0_, hs_, cT_, Tn, B, H,
+                          forget_bias);
 }
 
 }  // namespace dl4j_lstm
@@ -102,3 +132,23 @@ extern "C" int dl4j_lstm_fwd_infer(const void* xz, const void* rw,
   return (int)launch<__nv_bfloat16>(xz, rw, pw, h0, c0, hs, cT, Tn, B, H,
                                     forget_bias, s);
 }
+
+// The launch dl4j_lstm_fwd_infer makes for (B, H, dtype): out[6] as
+// `describe` fills it.
+extern "C" int dl4j_lstm_fwd_infer_plan(int B, int H, int dtype, int* out) {
+  using namespace dl4j_lstm;
+  if (B < 1 || H < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)describe(lstm_fwd_infer_kernel<float, true>, B, H, 4, out);
+  return (int)describe(lstm_fwd_infer_kernel<__nv_bfloat16, true>, B, H, 2,
+                       out);
+}
+
+#ifdef DL4J_LSTM_PHASES
+// The resident body's phase cycles of the last launch (lstm_phases).
+extern "C" int dl4j_lstm_phases_read(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, dl4j_lstm::lstm_phases,
+                                   6 * sizeof(long long));
+}
+#endif

@@ -2,9 +2,10 @@
 
 ``SelfAttentionLayer.apply`` runs attention through ``ops.flash_attention``
 (on the card the Hopper kernels: the forward, and the dq and dk/dv backward
-under autograd) wherever the kernels take its heads (``head_dim <=
-MAX_HEAD_DIM``) or the JAX layer runs its Pallas kernel (``flash_ok``; a
-head wider than the kernels is refused there). Elsewhere it takes
+under autograd) wherever the kernels' register templates take its heads
+(``head_dim <= MAX_HEAD_DIM``) or the JAX layer runs its Pallas kernel
+(``flash_ok``; a head wider than 256 runs the kernels' wide template
+there). Elsewhere it takes
 ``blockwise_attention`` + ``finalize_attention`` (``use_blockwise``, the
 default) or ``attention_reference``, plain torch under autograd, as the
 JAX layer does where ``flash_ok`` fails. The choice is made from the

@@ -28,7 +28,11 @@ where ``lse <= NEG_INF / 2``, ``ds = p (dp - Dvec)``, and returns
 ``dq = ds k / sqrt(D)``, ``dk = ds^T q / sqrt(D)``, ``dv = p^T dO`` in the
 input dtype: a row with no valid key gets exactly 0 dq and adds nothing
 to dk/dv. The mask gets no gradient. Types: float32, or bfloat16 with f32
-accumulation; head dims up to 256 (``MAX_HEAD_DIM``), on every device.
+accumulation; any head dim D >= 1, on every device. The kernels keep a
+row's accumulators in registers up to ``MAX_HEAD_DIM`` (templates of 32,
+64, 128 and 256 columns); a wider head runs their wide template, which
+splits the output columns into chunks of 256 across blocks and sums
+``q k^T`` (and ``dO v^T``) over the whole head chunk by chunk.
 
 ``flash_ok`` is the JAX package's gate for its Pallas kernel, kept so the
 attention layer runs a kernel at every shape where the reference does.
@@ -45,7 +49,9 @@ import torch
 from deeplearning4j_tpu_torch.ops.cuda_build import load_library
 
 NEG_INF = -1e30
-#: the widest head dim the kernels have a template for
+#: the widest head dim whose output row one block holds in registers (the
+#: kernels' widest register template); wider heads run the wide template,
+#: which splits the output columns into chunks of this width across blocks
 MAX_HEAD_DIM = 256
 #: dtype codes of the C entry point
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,7 +62,7 @@ def flash_ok(T: int, D: int = 128, vmem_budget: int = 6 * 2 ** 20) -> bool:
     panels of one (batch, head), T and D each padded to 128, f32, fit a
     6 MiB VMEM budget. The port's kernels stream K and V, so they have no
     such limit; the layer sends a head wider than ``MAX_HEAD_DIM`` to
-    them (which refuse it) wherever this passes, and to blockwise
+    them (their wide template) wherever this passes, and to blockwise
     attention, as the reference does, wherever it fails."""
     Tp, Dp = -(-T // 128) * 128, -(-D // 128) * 128
     return 2 * Tp * Dp * 4 <= vmem_budget
@@ -75,9 +81,8 @@ def check_inputs(q, k, v, kv_mask=None) -> None:
             f"flash_attention takes float32 or bfloat16 q/k/v of one "
             f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     B, _, T, D = q.shape
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"head dim {D} outside the kernels' 1..{MAX_HEAD_DIM}")
+    if D < 1:
+        raise ValueError(f"flash_attention needs a head dim >= 1, got {D}")
     if T < 1:
         raise ValueError("flash_attention needs T >= 1")
     if kv_mask is not None and tuple(kv_mask.shape) != (B, T):

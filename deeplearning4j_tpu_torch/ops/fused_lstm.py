@@ -12,6 +12,17 @@ Three hand-written Hopper kernels, each built with nvcc on first use (see
 - K3 ``csrc/lstm_bwd.cu`` (``_lstm_bwd_kernel``): the reverse-time
   sweep; wrapper ``lstm_bwd``.
 
+K1 and K2 share two bodies (``csrc/lstm_common.cuh``), and the C entry
+picks one from (H, dtype) alone, the same on every call: the resident
+body wherever RW's slices fit the shared memory of a cluster of 8 CTAs
+(H <= ``RESIDENT_MAX_HIDDEN``: 312 in f32, 424 in bf16), else the
+streaming body, up to ``MAX_HIDDEN``. The resident body keeps RW on chip
+for all T steps, split by hidden unit across the cluster, one cluster per
+4 batch rows, and exchanges h through distributed shared memory with one
+cluster barrier a step; the streaming body reads RW from L2 every step,
+one block per batch row. A cluster launch the card refuses raises, as
+any refused launch does.
+
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors
 it runs the plain version of the same contract (``lstm_recurrence_plain``,
 ``lstm_fwd_train_plain``, ``lstm_bwd_plain``: f32 step loops), which the
@@ -49,13 +60,19 @@ import torch
 
 from deeplearning4j_tpu_torch.ops.cuda_build import load_library
 
-#: the widest H the kernels launch at: K1/K2 keep two buffers of h and one
-#: of c (3H floats) and 3 x 4 x 256 partial sums in shared memory, within
-#: the 48 KB a block gets by default (a wider H fails to launch); K3 raises
-#: its block's limit for its 6H + 3 x 256 floats
+#: the widest H the kernels launch at: K1/K2's streaming body keeps two
+#: buffers of h and one of c (3H floats) and 3 x 4 x 256 partial sums in
+#: shared memory, within the 48 KB a block gets by default (a wider H fails
+#: to launch); K3 raises its block's limit for its 6H + 3 x 256 floats
 MAX_HIDDEN = (48 * 1024 // 4 - 3 * 4 * 256) // 3
 #: dtype codes of the C entry points
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the widest H K1/K2's resident body takes, per input type: the largest H
+#: whose CTA fits an H100's 227 KB of shared memory (csrc/lstm_common.cuh
+#: ``resident_smem_bytes``): its slice of RW, [Hp, 4U] in the input type,
+#: two h buffers [4, Hp] and the partial sums [8, 4, 4U] in f32, with
+#: U = ceil(H / 8) units a CTA and Hp = H rounded up to a multiple of 32
+RESIDENT_MAX_HIDDEN = {torch.float32: 312, torch.bfloat16: 424}
 
 
 def _check_tensors(what: str, tensors: dict, dtype) -> None:
@@ -231,6 +248,26 @@ def _launch(xz, rw, pw, h0, c0, forget_bias):
           (xz, rw, pw, h0, c0, hs, cT), (T, B, H), (float(forget_bias),), xz)
     lstm_recurrence.launches += 1
     return hs, hs[-1], cT
+
+
+def fwd_plan(name: str, B: int, H: int, dtype) -> dict:
+    """The launch the C entry of K1 (``name="lstm_fwd_infer"``) or K2
+    (``"lstm_fwd_train"``) makes for B rows of hidden size H, as the built
+    library reports it: the body, rows and CTAs a cluster, blocks,
+    threads, shared memory and the clusters the card holds at once. Builds
+    the library; needs a card."""
+    fn = getattr(load_library(name), f"dl4j_{name}_plan")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(B, H, _KERNEL_DTYPES[dtype], out)
+    if err != 0:
+        raise RuntimeError(f"{name} has no launch for B={B}, H={H}, "
+                           f"{dtype}: CUDA error {err}")
+    return dict(body="resident" if out[0] else "streaming",
+                rows_per_cluster=out[0], cluster=out[1], blocks=out[2],
+                threads=out[3], smem_bytes=out[4],
+                max_active_clusters=out[5])
 
 
 def lstm_fwd_train(xz, rw, pw, h0, c0, *, forget_bias: float = 0.0):

@@ -1,7 +1,8 @@
 """Wide attention heads: the port's ``blockwise_attention`` /
 ``finalize_attention``, ``SelfAttentionLayer``'s routing, heads of 256
-(the kernels' widest template) and a head-dim-256 GPT, against the JAX
-package on the CPU.
+(the kernels' widest register template), heads of 320 and 512 (their wide
+template), a head-dim-256 GPT and a GPT with 2 heads of 512, against the
+JAX package on the CPU.
 
 The JAX layer runs its Pallas kernel in interpret mode
 (``DL4J_TPU_PALLAS=interpret``), so it routes as it does on a TPU: the
@@ -188,6 +189,20 @@ def test_wide_head_layer_matches_jax(causal, masked, use_blockwise):
     _layer_parity(layers, causal, masked)
 
 
+@pytest.mark.parametrize("head_dim", [320, 512])
+@pytest.mark.parametrize("causal,masked", [(True, False), (True, True),
+                                           (False, True)])
+def test_wider_head_layer_matches_jax(head_dim, causal, masked):
+    """Heads of 320 and 512, past the kernels' register templates, where
+    the reference runs its Pallas kernel (``flash_ok``): the port's flash
+    path (the kernels' wide template on the card, its plain version here)
+    against the JAX layer's kernel, with and without a key mask."""
+    assert head_dim > MAX_HEAD_DIM and flash_ok(T, head_dim)
+    assert jpa.flash_ok(T, head_dim)
+    _layer_parity(_layers(causal, True, head_dim=head_dim, n_in=64),
+                  causal, masked)
+
+
 @pytest.mark.parametrize("causal,masked,use_blockwise", LAYER_CASES)
 def test_blockwise_layer_matches_jax(causal, masked, use_blockwise):
     """A head past the reference kernel's gate: blockwise attention over
@@ -201,17 +216,17 @@ def test_blockwise_layer_matches_jax(causal, masked, use_blockwise):
 
 @pytest.mark.parametrize("head_dim,use_blockwise,path", [
     (64, True, "flash"), (MAX_HEAD_DIM, True, "flash"),
-    (MAX_HEAD_DIM, False, "flash"), (MAX_HEAD_DIM + 1, True, "refused"),
+    (MAX_HEAD_DIM, False, "flash"), (MAX_HEAD_DIM + 1, True, "flash"),
     (BLOCKWISE_D, True, "blockwise"), (BLOCKWISE_D, False, "reference")])
 def test_layer_routes_on_its_head_width(monkeypatch, head_dim,
                                         use_blockwise, path):
-    """Heads the kernels take (``head_dim <= MAX_HEAD_DIM``) go to
-    ``flash_attention`` (the kernels on the card); so do wider heads
-    where the reference runs its kernel (``flash_ok``), and the kernels'
-    contract refuses them there, on every device. Past ``flash_ok``, heads
-    go to ``blockwise_attention`` or, with ``use_blockwise=False``, to
-    ``attention_reference``. One call of the chosen path and none of the
-    others, decided from the arguments."""
+    """Heads the kernels' register templates take (``head_dim <=
+    MAX_HEAD_DIM``) go to ``flash_attention`` (the kernels on the card);
+    so do wider heads where the reference runs its kernel (``flash_ok``),
+    which the kernels' wide template runs, on every device, with a finite
+    result. Past ``flash_ok``, heads go to ``blockwise_attention`` or, with
+    ``use_blockwise=False``, to ``attention_reference``. One call of the
+    chosen path and none of the others, decided from the arguments."""
     calls = []
     for name in ("flash_attention", "blockwise_attention",
                  "attention_reference"):
@@ -229,11 +244,6 @@ def test_layer_routes_on_its_head_width(monkeypatch, head_dim,
     mask = torch.ones(2, 6)
     mask[1, 4:] = 0.0
     x = torch.from_numpy(_x(9, 2, 6, 8))
-    if path == "refused":
-        with pytest.raises(ValueError, match="head dim"):
-            layer.apply(params, x, state={}, mask=mask)
-        assert calls == ["flash_attention"]
-        return
     out, _ = layer.apply(params, x, state={}, mask=mask)
     assert out.shape == (2, 6, 8) and torch.isfinite(out).all()
     assert calls == [{"flash": "flash_attention",
@@ -294,3 +304,31 @@ def test_wide_head_gpt_fit_batch_losses_match_jax(masked):
     got = [float(tnet.fit_batch(DataSet(*a))) for _ in range(2)]
     np.testing.assert_allclose(got, ref, rtol=LOSS_RTOL)
     assert got[1] != got[0]
+
+
+# ---- a GPT with 2 heads of 512 ---------------------------------------------
+
+GPT512 = dict(vocab_size=V, seq_len=TS, d_model=1024, n_heads=2, n_layers=1)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+def test_head_dim_512_gpt_matches_jax(masked):
+    """A 1-layer ``gpt_decoder`` with d_model 1024 over 2 heads (head dim
+    512, where ``flash_ok`` passes at T = 16): its ``output`` within 2e-5
+    and one ``fit_batch`` loss within 1e-5 relative of the JAX package's,
+    which runs its Pallas kernel interpreted; the port runs the wide
+    template's plain version."""
+    assert flash_ok(TS, 512) and jpa.flash_ok(TS, 512)
+    jnet = JGraph(jgpt.gpt_decoder(**GPT512)).init()
+    conf = tgpt.gpt_decoder(**GPT512)
+    tnet = ComputationGraph(conf, device="cpu").init(
+        params_from_jax(conf, jax.tree.map(np.asarray, jnet.params)))
+    a = _batch(3, masked)
+    mask = a[2] if masked else None
+    got = tnet.output(a[0], mask=mask).numpy()
+    assert got.shape == (BS, TS, V) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(jnet.output(a[0], mask=mask)),
+                               atol=TOL_FWD)
+    np.testing.assert_allclose(float(tnet.fit_batch(DataSet(*a))),
+                               float(jnet.fit_batch(JDataSet(*a))),
+                               rtol=LOSS_RTOL)

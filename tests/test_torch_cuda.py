@@ -26,9 +26,14 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
 )
 from deeplearning4j_tpu_torch.ops import fused_lstm as fused_lstm_module
 from deeplearning4j_tpu_torch.ops.fused_lstm import (
-    MAX_HIDDEN, fused_lstm, lstm_bwd, lstm_bwd_plain, lstm_fwd_train,
-    lstm_fwd_train_plain, lstm_recurrence, lstm_recurrence_plain,
+    MAX_HIDDEN, RESIDENT_MAX_HIDDEN, fused_lstm, fwd_plan, lstm_bwd,
+    lstm_bwd_plain, lstm_fwd_train, lstm_fwd_train_plain, lstm_recurrence,
+    lstm_recurrence_plain,
 )
+
+#: the resident body's widest H in f32 and bf16, and the first H past it
+RES_F32 = RESIDENT_MAX_HIDDEN[torch.float32]
+RES_BF16 = RESIDENT_MAX_HIDDEN[torch.bfloat16]
 
 pytestmark = pytest.mark.cuda
 
@@ -56,11 +61,16 @@ def card():
     (2, 2, 200, 256, True, "float32"),     # the widest template: two
     (2, 2, 200, 256, True, "bfloat16"),    # warps share each row's o
     (1, 2, 70, 200, False, "float32"),     # a head between 128 and 256
+    (2, 2, 150, 320, True, "float32"),     # the wide template: o's columns
+    (2, 2, 130, 512, True, "bfloat16"),    # in chunks of 256 across blocks
+    (2, 1, 128, 1024, False, "float32"),
+    (2, 1, 40, 300, True, "bfloat16"),     # a ragged last chunk, no cp.async
 ])
 def test_flash_kernel_matches_plain(card, B, H, T, D, causal, dtype):
-    """Ragged T, every head-dim template (32/64/128/256), rows that cp.async
-    cannot move, a key mask with a hole and a batch row with no valid key
-    (exact zeros, NEG_INF lse). Two launches are bitwise equal."""
+    """Ragged T, every head-dim template (32/64/128/256 and the wide one),
+    rows that cp.async cannot move, a key mask with a hole and a batch row
+    with no valid key (exact zeros, NEG_INF lse). Two launches are bitwise
+    equal."""
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(T + D)
     q, k, v = (torch.randn(B, H, T, D, generator=g).to(card, dt)
@@ -142,6 +152,10 @@ def _bwd_inputs(card, B, H, T, D, causal, dt):
     (2, 2, 200, 256, True, "float32"),     # the widest template: warps
     (2, 2, 200, 256, True, "bfloat16"),    # share rows (dq) or keys (dk/dv)
     (1, 2, 70, 200, False, "float32"),     # a head between 128 and 256
+    (2, 2, 150, 320, True, "float32"),     # the wide template: dq, dk, dv
+    (2, 2, 130, 512, True, "bfloat16"),    # in column chunks of 256
+    (2, 1, 128, 1024, False, "float32"),
+    (2, 1, 40, 300, True, "bfloat16"),     # a ragged last chunk, no cp.async
 ])
 def test_flash_bwd_kernels_match_plain(card, B, H, T, D, causal, dtype):
     """K5 (dq) and K6 (dk, dv) against the plain FA2 backward: ragged T,
@@ -291,6 +305,43 @@ def test_wide_head_gpt_on_card_matches_cpu(card):
                                  rel=1e-5)
 
 
+def test_head_dim_512_gpt_on_card_matches_cpu(card):
+    """Heads of 512 (d_model 1024 over 2 heads) run the kernels' wide
+    template: output() launches K4 once, within 1e-5 of the CPU net's; one
+    gradient and one fit_batch launch K4, K5 and K6 once each, every
+    gradient within 1e-4 of its largest |g| of the CPU's, the fit_batch
+    loss within 1e-5 relative."""
+    kw = dict(vocab_size=16, seq_len=16, d_model=1024, n_heads=2,
+              n_layers=1)
+    gpu = ComputationGraph(gpt_decoder(**kw), device=card).init()
+    cpu = ComputationGraph(gpt_decoder(**kw), device="cpu").init()
+    rng = np.random.default_rng(4)
+    eye = np.eye(16, dtype=np.float32)
+    tok = rng.integers(0, 16, (3, 17))
+    x, y = eye[tok[:, :-1]], eye[tok[:, 1:]]
+    mask = np.ones((3, 16), np.float32)
+    mask[1, 9:] = 0.0
+    before = (flash_attention.launches, flash_attention_dq.launches,
+              flash_attention_dkv.launches)
+    got = gpu.output(x, mask=mask)
+    grads, _, _ = gpu.compute_gradient_and_score(DataSet(x, y))
+    loss = float(gpu.fit_batch(DataSet(x, y)))
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_dq.launches,
+            flash_attention_dkv.launches) == (before[0] + 3, before[1] + 2,
+                                              before[2] + 2)
+    torch.testing.assert_close(got.cpu(), cpu.output(x, mask=mask),
+                               atol=1e-5, rtol=0)
+    cpu_grads, _, _ = cpu.compute_gradient_and_score(DataSet(x, y))
+    for node, p in cpu_grads.items():
+        for name, want in p.items():
+            torch.testing.assert_close(
+                grads[node][name].cpu(), want, rtol=0,
+                atol=1e-4 * float(want.abs().max()))
+    assert loss == pytest.approx(float(cpu.fit_batch(DataSet(x, y))),
+                                 rel=1e-5)
+
+
 def test_gpt_tiny_training_on_card_matches_cpu(card):
     """The training slice at a tiny size: each step launches K4, K5 and K6
     once per attention layer (and no LSTM kernel); the step-1 gradients
@@ -332,6 +383,10 @@ def test_gpt_tiny_training_on_card_matches_cpu(card):
     (64, 32, 256, "float32", False, False),  # plain LSTM: pw = 0
     (5, 201, 64, "float32", True, True),     # more rows than SMs, ragged
     (2, 2, MAX_HIDDEN, "float32", True, True),  # the widest H
+    (1, 1, 256, "float32", True, True),      # one row: one cluster, 7 idle
+    (9, 11, RES_F32, "float32", True, True),      # the resident body's
+    (9, 11, RES_BF16, "bfloat16", True, True),    # widest H, and just
+    (9, 11, RES_F32 + 1, "float32", True, True),  # past it (streaming)
 ])
 def test_lstm_kernel_matches_plain(card, T, B, H, dtype, peephole, carry):
     args = _lstm_args(card, T, B, H, getattr(torch, dtype), peephole, carry)
@@ -387,6 +442,30 @@ def test_lstm_kernel_equals_its_own_steps(card, dtype):
         assert torch.equal(step[0][0], hs[t])
         _, h, c = step
     assert torch.equal(c, cT)
+
+
+@pytest.mark.parametrize("name", ["lstm_fwd_infer", "lstm_fwd_train"])
+def test_lstm_fwd_kernels_pick_their_body_from_h_and_dtype(card, name):
+    """The C entry runs the resident body (clusters of 8 CTAs, one per 4
+    batch rows) up to ``RESIDENT_MAX_HIDDEN``, else the streaming body,
+    and the card holds at least 8 clusters at once."""
+    for B, H, dt in ((32, 256, torch.float32), (1, 256, torch.float32),
+                     (64, 256, torch.bfloat16), (200, 256, torch.float32),
+                     (32, RES_F32, torch.float32),
+                     (32, RES_BF16, torch.bfloat16),
+                     (32, RES_F32 + 1, torch.float32),
+                     (32, MAX_HIDDEN, torch.float32)):
+        plan = fwd_plan(name, B, H, dt)
+        resident = H <= RESIDENT_MAX_HIDDEN[dt]
+        assert plan["body"] == ("resident" if resident else "streaming"), \
+            (B, H, dt, plan)
+        assert plan["rows_per_cluster"] == (4 if resident else 0)
+        if resident:
+            clusters = -(-B // 4)
+            assert plan["cluster"] == 8 and plan["blocks"] == 8 * clusters
+            assert plan["max_active_clusters"] >= min(clusters, 8)
+        else:
+            assert plan["blocks"] == B
 
 
 def test_lstm_kernel_refuses_a_hidden_size_past_its_shared_memory(card):
@@ -463,7 +542,11 @@ def _scaled_close(got, want, rel):
     (50, 32, 256, "float32", False, False),  # plain LSTM: pw = 0
     (5, 201, 64, "float32", True, True),     # more rows than SMs, ragged
     (3, 2, MAX_HIDDEN, "float32", True, True),  # the widest H: K3 raises
-])                                              # its shared-memory limit
+                                                # its shared-memory limit
+    (9, 11, RES_F32, "float32", True, True),      # the resident body's
+    (9, 11, RES_BF16, "bfloat16", True, True),    # widest H, and just
+    (9, 11, RES_F32 + 1, "float32", True, True),  # past it (streaming)
+])
 def test_lstm_train_kernels_match_plain(card, T, B, H, dtype, peephole,
                                         carry):
     """K2 against its plain version, and its hs and c_T against K1's bit

@@ -76,10 +76,13 @@ def _hole_mask(B, T, lo, hi):
     # T=300 spans three 128-row blocks of the TPU kernel: the online-softmax
     # carry across blocks, causal block skipping and a masked hole in block 2
     dict(causal=True, T=300, D=8, mask="hole"),
-    # the widest head the kernels take
+    # the kernels' widest register template
     dict(causal=True, T=20, D=256, mask="random"),
+    # wider heads: the kernels' wide template (output columns in chunks)
+    dict(causal=True, T=20, D=320, mask="random"),
+    dict(causal=False, T=24, D=512, mask=None),
 ], ids=["causal", "full", "masked", "causal-masked", "T300-causal-hole",
-        "D256-causal-masked"])
+        "D256-causal-masked", "D320-causal-masked", "D512-full"])
 def test_plain_matches_jax_kernel(case):
     q, k, v = _qkv(1, T=case["T"], D=case["D"])
     B, T = q.shape[0], q.shape[2]
@@ -149,12 +152,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("bad", ["D257", "float16", "shape", "mask", "T0"])
+@pytest.mark.parametrize("bad", ["D0", "float16", "shape", "mask", "T0"])
 def test_inputs_outside_the_contract_raise(bad):
     q = torch.zeros(2, 2, 8, 16)
     k, v, mask = q.clone(), q.clone(), None
-    if bad == "D257":
-        q = k = v = torch.zeros(1, 1, 4, 257)
+    if bad == "D0":
+        q = k = v = torch.zeros(1, 1, 4, 0)
     elif bad == "float16":
         q, k, v = (x.half() for x in (q, k, v))
     elif bad == "shape":

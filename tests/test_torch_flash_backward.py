@@ -76,7 +76,11 @@ def _hole(B, T, lo, hi):
     # T and D off every tile edge, no causal skip
     dict(B=2, H=2, T=37, D=24, causal=False, mask=None, tol=5e-5),
     dict(B=2, H=1, T=20, D=16, causal=True, mask="random", tol=5e-5),
-], ids=["T300-causal-hole", "T37-D24-full", "T20-causal-masked"])
+    # heads past the register templates: the kernels' wide template
+    dict(B=1, H=2, T=20, D=320, causal=True, mask="random", tol=5e-5),
+    dict(B=1, H=1, T=24, D=512, causal=False, mask=None, tol=5e-5),
+], ids=["T300-causal-hole", "T37-D24-full", "T20-causal-masked",
+        "D320-causal-masked", "D512-full"])
 def test_plain_backward_matches_jax_kernels(case):
     B, H, T, D = case["B"], case["H"], case["T"], case["D"]
     q, k, v, d_out = _inputs(1, B, H, T, D)
