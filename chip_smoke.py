@@ -10,7 +10,7 @@ Phases, each printing JSON lines:
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA
    versions, kernel build time, and the registers and spills ptxas
    reports for K4, K5 and K6 at each head-dim template (32, 64, 128, 256
-   and the wide one) and for K1 and K2 at each body (streaming,
+   and the wide one) and for K1, K2 and K3 at each body (streaming,
    resident); no spill allowed;
 2. kernels — the flash-attention forward kernel (K4, tensor cores in
    3xTF32) against its plain PyTorch version on the card in sixteen cases
@@ -36,12 +36,15 @@ Phases, each printing JSON lines:
    the bound at the tensor cores' peak (3xTF32 for f32) and at the f32
    CUDA-core peak the kernel runs at;
    the LSTM training kernels (K2 forward with residuals, K3 reverse-time
-   backward) against their plain versions in eight cases (the char-RNN's
+   backward) against their plain versions in ten cases (the char-RNN's
    tBPTT window, ragged sizes with carries and backward seeds, the short
-   last window, bf16, no peepholes, the widest H, the resident body's
-   widest H and the first past it), K2's hs and c_T equal to K1's bit for
-   bit and two launches of each bitwise equal, with kernel / plain /
-   cuDNN training-LSTM times and the bounds at the window's shape;
+   last window, bf16, no peepholes, the widest H, the resident bodies'
+   widest H and the first past it in f32, and K3's in bf16, where its
+   limit is below K2's), K2's hs and c_T equal to K1's bit for bit and
+   two launches of each bitwise equal, each record naming the body K2
+   and K3 run (resident up to ``RESIDENT_MAX_HIDDEN`` and
+   ``BWD_RESIDENT_MAX_HIDDEN``), with kernel / plain / cuDNN
+   training-LSTM times and the bounds at the window's shape;
 3. slice — the full-width GPT decoder (vocab 96, T 256, d_model 512,
    8 heads, 8 layers, f32, seeded random weights) on the card through
    ``ComputationGraph.output`` (with and without a key mask) and
@@ -126,7 +129,8 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from deeplearning4j_tpu_torch.ops.fused_lstm import (
-    MAX_HIDDEN, RESIDENT_MAX_HIDDEN, fused_lstm, fwd_plan, lstm_bwd,
+    BWD_RESIDENT_MAX_HIDDEN, MAX_HIDDEN, RESIDENT_MAX_HIDDEN, fused_lstm,
+    launch_plan, lstm_bwd,
     lstm_bwd_plain, lstm_fwd_train, lstm_fwd_train_plain,
     lstm_recurrence, lstm_recurrence_plain,
 )
@@ -542,7 +546,7 @@ def ptxas_report(names):
     """Registers, stack and spills of every kernel of the named libraries,
     from nvcc's ``-Xptxas -v`` log beside each library: the attention
     kernels' head-dim template (``dmax``, and ``wide`` for the template
-    that splits o's columns across blocks), the LSTM forward kernels' body
+    that splits o's columns across blocks), the LSTM kernels' body
     (streaming or resident)."""
     out = []
     for name in names:
@@ -561,8 +565,9 @@ def ptxas_report(names):
                                wide=k.group(4) == "1",
                                dtype="float32" if k.group(2) == "f"
                                else "bfloat16")
-                k = re.search(r"(lstm_fwd_infer_kernel|lstm_fwd_train_kernel)"
-                              r"I(f|13__nv_bfloat16)Lb([01])E", m.group(1))
+                k = re.search(r"(lstm_fwd_infer_kernel|lstm_fwd_train_kernel|"
+                              r"lstm_bwd_kernel)I(f|13__nv_bfloat16)Lb([01])E",
+                              m.group(1))
                 if k:
                     cur.update(kernel=k.group(1),
                                body="resident" if k.group(3) == "1"
@@ -663,14 +668,19 @@ def lstm_inputs(T, B, H, dtype, peephole, carry, library=False):
 
 
 def lstm_plan(name, B, H, dtype):
-    """The body and launch shape K1 or K2 (``name``) runs for (B, H,
+    """The body and launch shape K1, K2 or K3 (``name``) runs for (B, H,
     dtype), from the built library; it must be the resident body up to
-    ``RESIDENT_MAX_HIDDEN`` and the streaming body past it."""
-    plan = fwd_plan(name, B, H, dtype)
-    want = "resident" if H <= RESIDENT_MAX_HIDDEN[dtype] else "streaming"
-    check(plan["body"] == want,
-          f"{name} at B={B}, H={H}, {dtype}: the library runs the "
-          f"{plan['body']} body, RESIDENT_MAX_HIDDEN says {want}")
+    ``RESIDENT_MAX_HIDDEN`` (K1, K2) or ``BWD_RESIDENT_MAX_HIDDEN`` (K3)
+    and the streaming body past it, and a resident body runs clusters of
+    8 CTAs, 4 rows a cluster."""
+    plan = launch_plan(name, B, H, dtype)
+    limits = BWD_RESIDENT_MAX_HIDDEN if name == "lstm_bwd" \
+        else RESIDENT_MAX_HIDDEN
+    want = "resident" if H <= limits[dtype] else "streaming"
+    check(plan["body"] == want and (want == "streaming" or (
+        plan["cluster"], plan["rows_per_cluster"]) == (8, 4)),
+          f"{name} at B={B}, H={H}, {dtype}: the library runs {plan}, "
+          f"the limit {limits[dtype]} says the {want} body")
     return plan
 
 
@@ -859,6 +869,7 @@ def lstm_train_case(name, T, B, H, dtype, peephole, carry, timed=False):
                shape=dict(T=T, B=B, H=H), dtype=str(dtype),
                peephole=peephole, nonzero_carry=carry,
                plan=lstm_plan("lstm_fwd_train", B, H, dtype),
+               plan_bwd=lstm_plan("lstm_bwd", B, H, dtype),
                k2_equals_k1=bool(torch.equal(hs, hs1) and
                                  torch.equal(cs[-1], cT1)),
                bitwise_repeat=bool(
@@ -1404,7 +1415,8 @@ def main() -> int:
               kernel_build_s=build_s))
     ptxas = ptxas_report(["flash_attn_fwd", "flash_attn_dq",
                           "flash_attn_dkv"])
-    ptxas_lstm = ptxas_report(["lstm_fwd_infer", "lstm_fwd_train"])
+    ptxas_lstm = ptxas_report(["lstm_fwd_infer", "lstm_fwd_train",
+                               "lstm_bwd"])
     emit(dict(phase="ptxas", kernels=ptxas + ptxas_lstm))
 
     def no_spill(recs):
@@ -1413,9 +1425,9 @@ def main() -> int:
     check(len(ptxas) == 30 and no_spill(ptxas),
           "K4 / K5 / K6: ptxas reports a spill, or not 3 kernels x 2 types "
           f"x 5 head-dim templates (32, 64, 128, 256, wide): {ptxas}")
-    check(len(ptxas_lstm) == 8 and no_spill(ptxas_lstm),
-          "K1 / K2: ptxas reports a spill, or not 2 kernels x 2 types x "
-          f"2 bodies (streaming, resident): {ptxas_lstm}")
+    check(len(ptxas_lstm) == 12 and no_spill(ptxas_lstm),
+          "K1 / K2 / K3: ptxas reports a spill, or not 3 kernels x 2 types "
+          f"x 2 bodies (streaming, resident): {ptxas_lstm}")
 
     # ---- 2. kernels against their plain versions ---------------------------
     a = kernel_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
@@ -1480,6 +1492,12 @@ def main() -> int:
                     True, timed=True)
     lstm_train_case("h_streaming_narrowest", 9, 11, res + 1, torch.float32,
                     True, True, timed=True)
+    # K3's widest resident H in bf16 (below K2's) and the first past it
+    res3 = BWD_RESIDENT_MAX_HIDDEN[torch.bfloat16]
+    lstm_train_case("i_bwd_resident_widest_bf16", 9, 11, res3,
+                    torch.bfloat16, True, True)
+    lstm_train_case("j_bwd_streaming_narrowest_bf16", 9, 11, res3 + 1,
+                    torch.bfloat16, True, True)
     g = bwd_case("a_slice", 32, 8, 256, 64, True, torch.float32, None,
                  timed=True)
     bwd_case("b_T300_masked", 2, 8, 300, 64, True, torch.float32, "holes")
@@ -1612,6 +1630,7 @@ def main() -> int:
              bound_ms=k23["bound_ms_bwd"], bound_by=k23["bound_by_bwd"],
              bound_peak=k23["bound_peak_bwd"],
              bound_ms_simt=k23["bound_ms_simt_bwd"],
+             body=k23["plan_bwd"]["body"], plan=k23["plan_bwd"],
              library_ms=k23["library_ms_bwd"],
              library_vs_ms=k23["kernel_plus_weight_grad_gemms_ms"],
              library_covers="cuDNN LSTM backward (dW_ih, dW_hh, biases), no "

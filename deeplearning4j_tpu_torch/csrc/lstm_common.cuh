@@ -1,9 +1,11 @@
 // Shared by the LSTM kernels (lstm_fwd_infer.cu K1, lstm_fwd_train.cu K2,
-// lstm_bwd.cu K3): the type helpers and the body of the forward
+// lstm_bwd.cu K3): the type helpers, the bodies of the forward
 // recurrence, which K1's and K2's kernels inline from the same source so
 // that K2's hs and c_T equal K1's bit for bit (each kernel keeps its own
-// name, so a profiler trace tells them apart). See lstm_fwd_infer.cu for
-// the contract, the design and what bounds it.
+// name, so a profiler trace tells them apart), and the cluster launch
+// helpers and phase clock that K1-K3's resident bodies share. See
+// lstm_fwd_infer.cu for the forward's contract, design and bound, and
+// lstm_bwd.cu for the backward's.
 
 #pragma once
 
@@ -207,7 +209,9 @@ constexpr int RES_PAIRS = RES_THREADS / RES_KSPLIT;  // column pairs a pass
 constexpr int RES_ROWS = DL4J_LSTM_RES_ROWS;
 constexpr size_t MAX_SMEM = 227 * 1024;  // a CTA's shared memory on an H100
 
-inline int res_units(int H) { return (H + CLUSTER - 1) / CLUSTER; }
+__host__ __device__ inline int res_units(int H) {
+  return (H + CLUSTER - 1) / CLUSTER;
+}
 inline int res_hp(int H) {
   return (H + 4 * RES_KSPLIT - 1) / (4 * RES_KSPLIT) * (4 * RES_KSPLIT);
 }
@@ -230,14 +234,17 @@ inline bool resident_fits(int H, size_t elem) {
 }
 
 #ifdef DL4J_LSTM_PHASES
-// Cycles (clock64) of each phase of the resident body's steps, summed over
+// Cycles (clock64) of each phase of a resident body's steps, summed over
 // the steps by thread 0 of the first CTA, then T: read by
 // tools/lstm_ab.py --phases from a build with -DDL4J_LSTM_PHASES.
 __device__ long long lstm_phases[6];
 #endif
 
-// The resident body's phase clock: a no-op unless built with
-// -DDL4J_LSTM_PHASES.
+// A resident body's phase clock: a no-op unless built with
+// -DDL4J_LSTM_PHASES. Phases: 0 the product, 1 the block barriers, 2 the
+// gates (K3: dz and the dc carry), 3 the DSMEM exchange and the step's
+// stores, 4 the cluster barrier (K3: the wait for the step's partials);
+// mark(i) adds the cycles since the last mark to phase i.
 struct PhaseClock {
 #ifdef DL4J_LSTM_PHASES
   bool on;
@@ -425,14 +432,14 @@ cudaError_t launch_streaming(void (*kern)(KArgs...), int B, int H,
   return cudaGetLastError();
 }
 
-// The resident body's launch configuration (clusters of CLUSTER CTAs, one
-// cluster per RES_ROWS batch rows); `attr` must outlive `cfg`.
+// A resident body's launch configuration (clusters of CLUSTER CTAs, one
+// cluster per RES_ROWS batch rows, `smem` bytes of dynamic shared memory a
+// CTA); `attr` must outlive `cfg`. The caller has checked that the body
+// fits.
 template <typename... KArgs>
-cudaError_t resident_config(void (*kern)(KArgs...), int B, int H, size_t elem,
+cudaError_t resident_config(void (*kern)(KArgs...), int B, size_t smem,
                             cudaStream_t stream, cudaLaunchConfig_t& cfg,
                             cudaLaunchAttribute& attr) {
-  if (!resident_fits(H, elem)) return cudaErrorInvalidValue;
-  const size_t smem = resident_smem_bytes(H, elem);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -451,33 +458,34 @@ cudaError_t resident_config(void (*kern)(KArgs...), int B, int H, size_t elem,
 }
 
 template <typename... KArgs, typename... Args>
-cudaError_t launch_resident(void (*kern)(KArgs...), int B, int H,
-                            size_t elem, cudaStream_t stream, Args... args) {
+cudaError_t launch_resident(void (*kern)(KArgs...), int B, size_t smem,
+                            cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = resident_config(kern, B, H, elem, stream, cfg, attr);
+  cudaError_t err = resident_config(kern, B, smem, stream, cfg, attr);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, kern, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// What a forward launch for (B, H, elem) runs, `kern` being its resident
-// kernel: out[0] rows a cluster (0 = the streaming body), out[1] CTAs a
-// cluster (0 = no cluster), out[2] blocks, out[3] threads a block, out[4]
-// dynamic shared memory bytes, out[5] clusters that fit on the card at
-// once (cudaOccupancyMaxActiveClusters; -1 for the streaming body).
+// What a launch for B rows runs, `kern` being its resident kernel and
+// `res_smem` that kernel's shared memory (0: the launch takes the
+// streaming body, one block of `stream_threads` threads and `stream_smem`
+// bytes a row): out[0] rows a cluster (0 = the streaming body), out[1]
+// CTAs a cluster (0 = no cluster), out[2] blocks, out[3] threads a block,
+// out[4] dynamic shared memory bytes, out[5] clusters that fit on the card
+// at once (cudaOccupancyMaxActiveClusters; -1 for the streaming body).
 template <typename... KArgs>
-cudaError_t describe(void (*kern)(KArgs...), int B, int H, size_t elem,
-                     int* out) {
-  if (!resident_fits(H, elem)) {
-    const int plan[6] = {0, 0, B, units_per_block(H) * KSPLIT,
-                         (int)fwd_smem_bytes(H), -1};
+cudaError_t describe(void (*kern)(KArgs...), int B, size_t res_smem,
+                     int stream_threads, size_t stream_smem, int* out) {
+  if (res_smem == 0) {
+    const int plan[6] = {0, 0, B, stream_threads, (int)stream_smem, -1};
     for (int i = 0; i < 6; ++i) out[i] = plan[i];
     return cudaSuccess;
   }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = resident_config(kern, B, H, elem, 0, cfg, attr);
+  cudaError_t err = resident_config(kern, B, res_smem, 0, cfg, attr);
   if (err != cudaSuccess) return err;
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
@@ -487,4 +495,21 @@ cudaError_t describe(void (*kern)(KArgs...), int B, int H, size_t elem,
   return err;
 }
 
+// `describe` for a forward launch (K1, K2) for (B, H, elem).
+template <typename... KArgs>
+cudaError_t describe_fwd(void (*kern)(KArgs...), int B, int H, size_t elem,
+                         int* out) {
+  return describe(kern, B,
+                  resident_fits(H, elem) ? resident_smem_bytes(H, elem) : 0,
+                  units_per_block(H) * KSPLIT, fwd_smem_bytes(H), out);
+}
+
 }  // namespace dl4j_lstm
+
+#ifdef DL4J_LSTM_PHASES
+// The resident body's phase cycles of the last launch (lstm_phases).
+extern "C" int dl4j_lstm_phases_read(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, dl4j_lstm::lstm_phases,
+                                   6 * sizeof(long long));
+}
+#endif

@@ -105,9 +105,10 @@ cudaError_t launch(const void* xz, const void* rw, const void* pw,
        c0_ = static_cast<const T*>(c0);
   auto hs_ = static_cast<T*>(hs), cT_ = static_cast<T*>(cT);
   if (resident_fits(H, sizeof(T)))
-    return launch_resident(lstm_fwd_infer_kernel<T, true>, B, H, sizeof(T),
-                           stream, xz_, rw_, pw_, h0_, c0_, hs_, cT_, Tn, B,
-                           H, forget_bias);
+    return launch_resident(lstm_fwd_infer_kernel<T, true>, B,
+                           resident_smem_bytes(H, sizeof(T)), stream, xz_,
+                           rw_, pw_, h0_, c0_, hs_, cT_, Tn, B, H,
+                           forget_bias);
   return launch_streaming(lstm_fwd_infer_kernel<T, false>, B, H, stream, xz_,
                           rw_, pw_, h0_, c0_, hs_, cT_, Tn, B, H,
                           forget_bias);
@@ -140,15 +141,8 @@ extern "C" int dl4j_lstm_fwd_infer_plan(int B, int H, int dtype, int* out) {
   if (B < 1 || H < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)describe(lstm_fwd_infer_kernel<float, true>, B, H, 4, out);
-  return (int)describe(lstm_fwd_infer_kernel<__nv_bfloat16, true>, B, H, 2,
-                       out);
+    return (int)describe_fwd(lstm_fwd_infer_kernel<float, true>, B, H, 4,
+                             out);
+  return (int)describe_fwd(lstm_fwd_infer_kernel<__nv_bfloat16, true>, B, H,
+                           2, out);
 }
-
-#ifdef DL4J_LSTM_PHASES
-// The resident body's phase cycles of the last launch (lstm_phases).
-extern "C" int dl4j_lstm_phases_read(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, dl4j_lstm::lstm_phases,
-                                   6 * sizeof(long long));
-}
-#endif

@@ -64,9 +64,10 @@ cudaError_t launch(const void* xz, const void* rw, const void* pw,
   auto hs_ = static_cast<T*>(hs), gates_ = static_cast<T*>(gates),
        cs_ = static_cast<T*>(cs);
   if (resident_fits(H, sizeof(T)))
-    return launch_resident(lstm_fwd_train_kernel<T, true>, B, H, sizeof(T),
-                           stream, xz_, rw_, pw_, h0_, c0_, hs_, gates_, cs_,
-                           Tn, B, H, forget_bias);
+    return launch_resident(lstm_fwd_train_kernel<T, true>, B,
+                           resident_smem_bytes(H, sizeof(T)), stream, xz_,
+                           rw_, pw_, h0_, c0_, hs_, gates_, cs_, Tn, B, H,
+                           forget_bias);
   return launch_streaming(lstm_fwd_train_kernel<T, false>, B, H, stream, xz_,
                           rw_, pw_, h0_, c0_, hs_, gates_, cs_, Tn, B, H,
                           forget_bias);
@@ -100,7 +101,8 @@ extern "C" int dl4j_lstm_fwd_train_plan(int B, int H, int dtype, int* out) {
   if (B < 1 || H < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)describe(lstm_fwd_train_kernel<float, true>, B, H, 4, out);
-  return (int)describe(lstm_fwd_train_kernel<__nv_bfloat16, true>, B, H, 2,
-                       out);
+    return (int)describe_fwd(lstm_fwd_train_kernel<float, true>, B, H, 4,
+                             out);
+  return (int)describe_fwd(lstm_fwd_train_kernel<__nv_bfloat16, true>, B, H,
+                           2, out);
 }

@@ -20,8 +20,14 @@ streaming body, up to ``MAX_HIDDEN``. The resident body keeps RW on chip
 for all T steps, split by hidden unit across the cluster, one cluster per
 4 batch rows, and exchanges h through distributed shared memory with one
 cluster barrier a step; the streaming body reads RW from L2 every step,
-one block per batch row. A cluster launch the card refuses raises, as
-any refused launch does.
+one block per batch row. K3 has the mirror image of both bodies, picked
+the same way up to its own limit (``BWD_RESIDENT_MAX_HIDDEN``: 312 in
+f32, 420 in bf16): each CTA keeps the rows of RW^T for its units' four
+gate columns of dz, sums its partial dh_prev over them for every k, and
+sends each partial to the CTA that owns k through distributed shared
+memory, where the 8 partials are added in rank order. ``launch_plan``
+asks the built library which body a launch of any of the three takes. A
+cluster launch the card refuses raises, as any refused launch does.
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors
 it runs the plain version of the same contract (``lstm_recurrence_plain``,
@@ -63,7 +69,8 @@ from deeplearning4j_tpu_torch.ops.cuda_build import load_library
 #: the widest H the kernels launch at: K1/K2's streaming body keeps two
 #: buffers of h and one of c (3H floats) and 3 x 4 x 256 partial sums in
 #: shared memory, within the 48 KB a block gets by default (a wider H fails
-#: to launch); K3 raises its block's limit for its 6H + 3 x 256 floats
+#: to launch); K3's streaming body raises its block's limit for its
+#: 6H + 3 x 256 floats. Both resident bodies stop well below it.
 MAX_HIDDEN = (48 * 1024 // 4 - 3 * 4 * 256) // 3
 #: dtype codes of the C entry points
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,6 +80,13 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: two h buffers [4, Hp] and the partial sums [8, 4, 4U] in f32, with
 #: U = ceil(H / 8) units a CTA and Hp = H rounded up to a multiple of 32
 RESIDENT_MAX_HIDDEN = {torch.float32: 312, torch.bfloat16: 424}
+#: the widest H K3's resident body takes, per input type: the largest H
+#: whose CTA fits 227 KB (csrc/lstm_bwd.cu ``bwd_resident_smem_bytes``):
+#: its rows of RW^T, [NCp, Hp] in the input type (NCp = 4U padded to a
+#: multiple of 16, Hp = H padded to even), dz [4, NCp], the partial sums
+#: [4, 4, Hp] and two receive buffers [2, 8, 4, U] in f32, and the
+#: buffers' two mbarriers
+BWD_RESIDENT_MAX_HIDDEN = {torch.float32: 312, torch.bfloat16: 420}
 
 
 def _check_tensors(what: str, tensors: dict, dtype) -> None:
@@ -250,12 +264,12 @@ def _launch(xz, rw, pw, h0, c0, forget_bias):
     return hs, hs[-1], cT
 
 
-def fwd_plan(name: str, B: int, H: int, dtype) -> dict:
-    """The launch the C entry of K1 (``name="lstm_fwd_infer"``) or K2
-    (``"lstm_fwd_train"``) makes for B rows of hidden size H, as the built
-    library reports it: the body, rows and CTAs a cluster, blocks,
-    threads, shared memory and the clusters the card holds at once. Builds
-    the library; needs a card."""
+def launch_plan(name: str, B: int, H: int, dtype) -> dict:
+    """The launch the C entry of K1 (``name="lstm_fwd_infer"``), K2
+    (``"lstm_fwd_train"``) or K3 (``"lstm_bwd"``) makes for B rows of
+    hidden size H, as the built library reports it: the body, rows and
+    CTAs a cluster, blocks, threads, shared memory and the clusters the
+    card holds at once. Builds the library; needs a card."""
     fn = getattr(load_library(name), f"dl4j_{name}_plan")
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int

@@ -26,7 +26,8 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
 )
 from deeplearning4j_tpu_torch.ops import fused_lstm as fused_lstm_module
 from deeplearning4j_tpu_torch.ops.fused_lstm import (
-    MAX_HIDDEN, RESIDENT_MAX_HIDDEN, fused_lstm, fwd_plan, lstm_bwd,
+    BWD_RESIDENT_MAX_HIDDEN, MAX_HIDDEN, RESIDENT_MAX_HIDDEN, fused_lstm,
+    launch_plan, lstm_bwd,
     lstm_bwd_plain, lstm_fwd_train, lstm_fwd_train_plain, lstm_recurrence,
     lstm_recurrence_plain,
 )
@@ -34,6 +35,8 @@ from deeplearning4j_tpu_torch.ops.fused_lstm import (
 #: the resident body's widest H in f32 and bf16, and the first H past it
 RES_F32 = RESIDENT_MAX_HIDDEN[torch.float32]
 RES_BF16 = RESIDENT_MAX_HIDDEN[torch.bfloat16]
+#: K3's resident body's widest H in bf16, below K1/K2's
+RES3_BF16 = BWD_RESIDENT_MAX_HIDDEN[torch.bfloat16]
 
 pytestmark = pytest.mark.cuda
 
@@ -444,19 +447,20 @@ def test_lstm_kernel_equals_its_own_steps(card, dtype):
     assert torch.equal(c, cT)
 
 
-@pytest.mark.parametrize("name", ["lstm_fwd_infer", "lstm_fwd_train"])
-def test_lstm_fwd_kernels_pick_their_body_from_h_and_dtype(card, name):
-    """The C entry runs the resident body (clusters of 8 CTAs, one per 4
-    batch rows) up to ``RESIDENT_MAX_HIDDEN``, else the streaming body,
-    and the card holds at least 8 clusters at once."""
+def _assert_body_follows_the_limit(name, limits):
+    """The C entry of ``name`` runs the resident body (clusters of 8 CTAs,
+    one per 4 batch rows) up to ``limits``, else the streaming body, and
+    the card holds at least 8 clusters at once."""
     for B, H, dt in ((32, 256, torch.float32), (1, 256, torch.float32),
                      (64, 256, torch.bfloat16), (200, 256, torch.float32),
                      (32, RES_F32, torch.float32),
                      (32, RES_BF16, torch.bfloat16),
+                     (32, RES3_BF16, torch.bfloat16),
+                     (32, RES3_BF16 + 1, torch.bfloat16),
                      (32, RES_F32 + 1, torch.float32),
                      (32, MAX_HIDDEN, torch.float32)):
-        plan = fwd_plan(name, B, H, dt)
-        resident = H <= RESIDENT_MAX_HIDDEN[dt]
+        plan = launch_plan(name, B, H, dt)
+        resident = H <= limits[dt]
         assert plan["body"] == ("resident" if resident else "streaming"), \
             (B, H, dt, plan)
         assert plan["rows_per_cluster"] == (4 if resident else 0)
@@ -466,6 +470,18 @@ def test_lstm_fwd_kernels_pick_their_body_from_h_and_dtype(card, name):
             assert plan["max_active_clusters"] >= min(clusters, 8)
         else:
             assert plan["blocks"] == B
+
+
+@pytest.mark.parametrize("name", ["lstm_fwd_infer", "lstm_fwd_train"])
+def test_lstm_fwd_kernels_pick_their_body_from_h_and_dtype(card, name):
+    """K1 and K2: resident up to ``RESIDENT_MAX_HIDDEN``."""
+    _assert_body_follows_the_limit(name, RESIDENT_MAX_HIDDEN)
+
+
+def test_lstm_bwd_kernel_picks_its_body_from_h_and_dtype(card):
+    """K3: resident up to ``BWD_RESIDENT_MAX_HIDDEN`` (312 in f32, as
+    K1/K2; 420 in bf16, below their 424)."""
+    _assert_body_follows_the_limit("lstm_bwd", BWD_RESIDENT_MAX_HIDDEN)
 
 
 def test_lstm_kernel_refuses_a_hidden_size_past_its_shared_memory(card):
@@ -546,6 +562,10 @@ def _scaled_close(got, want, rel):
     (9, 11, RES_F32, "float32", True, True),      # the resident body's
     (9, 11, RES_BF16, "bfloat16", True, True),    # widest H, and just
     (9, 11, RES_F32 + 1, "float32", True, True),  # past it (streaming)
+    (9, 11, RES3_BF16, "bfloat16", True, True),      # K3's widest resident
+    (9, 11, RES3_BF16 + 1, "bfloat16", True, True),  # H in bf16 and past it
+    (6, 5, 7, "float32", True, True),    # CTAs that own no unit: K3's
+    (4, 9, 33, "float32", True, True),   # receive no partials
 ])
 def test_lstm_train_kernels_match_plain(card, T, B, H, dtype, peephole,
                                         carry):

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Time the port's LSTM forward kernels, K1 (inference) and K2 (training
-forward), against other builds of the same sources, in one process on one
-card, in turns (other, this, this, other), beside cuDNN's LSTM.
+"""Time the port's LSTM kernels, K1 (inference) and K2 (training forward),
+or K3 (the backward sweep) with ``--kernel bwd``, against other builds of
+the same sources, in one process on one card, in turns (other, this,
+this, other), beside cuDNN's LSTM.
 
     git archive <commit> deeplearning4j_tpu_torch/csrc | tar -x -C <dir>
-    python3 tools/lstm_ab.py \
+    python3 tools/lstm_ab.py [--kernel bwd] \
         --other parent=<dir>/deeplearning4j_tpu_torch/csrc
 
 Each ``--other NAME=DIR`` names a directory holding an
-``lstm_fwd_infer.cu`` and ``lstm_fwd_train.cu`` (and the headers they
-include); each is compiled with the port's nvcc flags into ``--build`` and
-called through its own C entry points. ``--rows 2,8`` also times this
+``lstm_fwd_infer.cu`` and ``lstm_fwd_train.cu`` (``lstm_bwd.cu`` for
+``--kernel bwd``; and the headers they include); each is compiled with
+the port's nvcc flags into ``--build`` and called through its own C entry
+points. ``--rows 2,8`` also times this
 checkout's sources built with ``-DDL4J_LSTM_RES_ROWS=n``: the resident
 body with n batch rows a cluster in place of its 4. Shapes: the
 char-RNN's, K1 at T=64, B=32, H=256 and K2 at its tBPTT window T=50, f32
-(``--shape T,B,H`` for K1's, with K2 at T=50). Each version is held
-against the plain version (1e-5, c scaled by max(1, |c|)) first, and the
-run fails if one is off. Inputs, tolerances and the timing (each kernel's
+(``--shape T,B,H`` for K1's, with K2 at T=50); K3 at the window, T=50,
+on K2's residuals of the same weights, beside cuDNN's backward
+(forward + backward minus forward). Each version is held against the
+plain version (K1/K2 1e-5, K3 2e-4, scaled by max(1, max |x|)) first, and
+the run fails if one is off. Inputs, tolerances and the timing (each kernel's
 device time in a profiler trace) are chip_smoke.py's. Prints one JSON
 line per kernel (every round's times and their medians) and the card's
 name and power limit.
@@ -31,7 +35,11 @@ prints the clock64 cycles
 of each phase (the product h @ rw_slice, the block barrier after it, the
 gates, the DSMEM exchange with the step's stores, the cluster barrier),
 summed over the steps by thread 0 of the first CTA, per step, and the
-card's SM clock. Needs a CUDA card and nvcc; imports no JAX.
+card's SM clock. With ``--kernel bwd`` it does the same for K3's resident
+body (``csrc/lstm_bwd.cu``) at T=50 and T=1: the product dz @ rw^T's
+rows, its two block barriers, dz and the dc carry with the step's stores,
+the DSMEM exchange of the partial sums, the wait for the last step's
+partials. Needs a CUDA card and nvcc; imports no JAX.
 """
 
 import argparse
@@ -47,49 +55,57 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from chip_smoke import (  # noqa: E402
-    TOL_K2_F32, TOL_LSTM_F32, device_ms, lstm_inputs,
+    SEED, TOL_K2_F32, TOL_K3_F32, TOL_LSTM_F32, cudnn_training_ms,
+    device_ms, lstm_inputs,
 )
 from deeplearning4j_tpu_torch.ops.cuda_build import (  # noqa: E402
     BUILD_DIR, CSRC_DIR, NVCC_FLAGS, build_libraries, find_nvcc,
     load_library,
 )
 from deeplearning4j_tpu_torch.ops.fused_lstm import (  # noqa: E402
-    fused_lstm, fwd_plan, lstm_fwd_train_plain, lstm_recurrence_plain,
+    fused_lstm, launch_plan, lstm_bwd_plain, lstm_fwd_train,
+    lstm_fwd_train_plain, lstm_recurrence_plain,
 )
 from flash_ab import in_turns, record  # noqa: E402
 
 #: each kernel's C entry takes this many pointers before its int arguments
-N_PTR = {"lstm_fwd_infer": 7, "lstm_fwd_train": 8}
-NAMES = tuple(N_PTR)
-#: the resident body's step phases, in the order its phase clock sums them
-PHASES = ("product", "block_barrier", "gates", "exchange_and_stores",
-          "cluster_barrier")
+N_PTR = {"lstm_fwd_infer": 7, "lstm_fwd_train": 8, "lstm_bwd": 11}
+#: the kernels each ``--kernel`` times
+NAMES = {"fwd": ("lstm_fwd_infer", "lstm_fwd_train"), "bwd": ("lstm_bwd",)}
+#: the resident bodies' step phases, in the order their phase clock sums
+#: them (csrc/lstm_common.cuh PhaseClock)
+PHASES = {"fwd": ("product", "block_barrier", "gates", "exchange_and_stores",
+                  "cluster_barrier"),
+          "bwd": ("product", "block_barriers", "dz", "exchange_and_stores",
+                  "partials_wait")}
 
 
-def build_others(others: dict, out: Path) -> dict:
-    """nvcc every other version's sources into ``out``, all at once;
-    ``others``: name -> (source directory, extra nvcc flags). Returns
-    name -> {kernel: library}."""
+def build_others(others: dict, out: Path, names) -> dict:
+    """nvcc every other version's sources of the kernels ``names`` into
+    ``out``, all at once; ``others``: name -> (source directory, extra
+    nvcc flags). Returns name -> {kernel: library}."""
     out.mkdir(parents=True, exist_ok=True)
     procs = {(v, n): subprocess.Popen(
         [find_nvcc(), *NVCC_FLAGS, *flags, "-o",
          str(out / f"lib{v}_{n}.so"), str(src / f"{n}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for v, (src, flags) in others.items() for n in NAMES}
+        for v, (src, flags) in others.items() for n in names}
     for (v, n), p in procs.items():
         log = p.communicate()[0]
         (out / f"lib{v}_{n}.so.log").write_text(log)
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {v} {n}:\n{log[-4000:]}")
-    return {v: {n: ctypes.CDLL(str(out / f"lib{v}_{n}.so")) for n in NAMES}
+    return {v: {n: ctypes.CDLL(str(out / f"lib{v}_{n}.so")) for n in names}
             for v in others}
 
 
 def entry(lib, name):
-    """The C entry: pointers, T, B, H, forget bias, dtype, stream."""
+    """The C entry: pointers, T, B, H, the forget bias (K1, K2), dtype,
+    stream."""
     fn = getattr(lib, f"dl4j_{name}")
+    fb = [] if name == "lstm_bwd" else [ctypes.c_float]
     fn.argtypes = ([ctypes.c_void_p] * N_PTR[name] + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + fb + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -116,7 +132,7 @@ def case(name, vers, T, B, H, rounds, iters):
         refs, tol = lstm_fwd_train_plain(xz, rw, pw, h0, c0,
                                          forget_bias=fb), TOL_K2_F32
     rec = dict(kernel=name, shape=dict(T=T, B=B, H=H), dtype="float32",
-               plan=fwd_plan(name, B, H, torch.float32))
+               plan=launch_plan(name, B, H, torch.float32))
     runs = {}
     for ver, ver_libs in vers.items():
         fn = entry(ver_libs[name], name)
@@ -161,34 +177,93 @@ def case(name, vers, T, B, H, rounds, iters):
     return record(rec, in_turns(runs, rounds, iters, library))
 
 
-def phases(out: Path, rows_list) -> None:
-    """K1 built with its phase clock: cycles per step of each phase, at
-    the char-RNN's shape, with each of ``rows_list`` batch rows a cluster,
-    T = 64 and 1."""
+def bwd_case(vers, T, B, H, rounds, iters):
+    """K3 of every version against its plain version on K2's residuals
+    (this checkout's K2; peepholes, zero seeds as on the training path),
+    then in turns, beside cuDNN's backward (no peepholes; its input and
+    weight gradients), which the record also holds against this
+    checkout's K3 with the dRW and dW GEMMs."""
+    name = "lstm_bwd"
+    (xz, rw, pw, h0, c0), _ = lstm_inputs(T, B, H, torch.float32, True,
+                                          False)
+    _, gates, cs = lstm_fwd_train(xz, rw, pw, h0, c0, forget_bias=1.0)
+    g = torch.Generator().manual_seed(SEED + 7 * T + B + H)
+    eps = torch.randn(T, B, H, generator=g).cuda()
+    dh_T, dc_T = torch.zeros(B, H, device="cuda"), torch.zeros(
+        B, H, device="cuda")
+    rwT = rw.t().contiguous()
+    refs = lstm_bwd_plain(eps, gates, cs, torch.cat([c0[None], cs[:-1]]),
+                          rw, pw, dh_T, dc_T)
+    stream = torch.cuda.current_stream().cuda_stream
+    ins = [t.data_ptr() for t in (eps, gates, cs, c0, rwT, pw, dh_T, dc_T)]
+    rec = dict(kernel=name, shape=dict(T=T, B=B, H=H), dtype="float32",
+               plan=launch_plan(name, B, H, torch.float32))
+    runs = {}
+    for ver, ver_libs in vers.items():
+        fn = entry(ver_libs[name], name)
+        outs = [torch.empty_like(r) for r in refs]
+
+        def run(f=fn, o=outs):
+            assert f(*ins, *[t.data_ptr() for t in o], T, B, H, 0,
+                     stream) == 0
+        run()
+        torch.cuda.synchronize()
+        err = max(float((a - r).abs().max()) / max(1.0, float(r.abs().max()))
+                  for a, r in zip(outs, refs))
+        rec[f"max_scaled_err_{ver}"] = err
+        if not err <= TOL_K3_F32:
+            raise AssertionError(f"{ver} {name} differs from its plain "
+                                 f"version by {err}")
+        runs[ver] = {"kernel": run}
+    rec.update(cudnn_training_ms(B, T, H, g, h0, c0, rw, pw, 1.0))
+    library = ("cudnn_lstm_backward", lambda: cudnn_training_ms(
+        B, T, H, g, h0, c0, rw, pw, 1.0)["library_ms_bwd"])
+    return record(rec, in_turns(runs, rounds, iters, library))
+
+
+def phases(out: Path, rows_list, kernel: str) -> None:
+    """K1 (``kernel="fwd"``) or K3 (``"bwd"``) built with its phase
+    clock: cycles per step of each phase, at the char-RNN's shape, with
+    each of ``rows_list`` batch rows a cluster, T = 64 (K3: 50) and 1."""
+    name = "lstm_fwd_infer" if kernel == "fwd" else "lstm_bwd"
     libs = build_others({f"phases_rows{r}": (
         CSRC_DIR, ["-DDL4J_LSTM_PHASES", *rows_flags(r)])
-        for r in rows_list}, out)
+        for r in rows_list}, out, (name,))
     stream = torch.cuda.current_stream().cuda_stream
     B, H = 32, 256
     for rows in rows_list:
-        lib = libs[f"phases_rows{rows}"]["lstm_fwd_infer"]
-        fn = entry(lib, "lstm_fwd_infer")
+        lib = libs[f"phases_rows{rows}"][name]
+        fn = entry(lib, name)
         read = lib.dl4j_lstm_phases_read
-        for T in (64, 1):
+        for T in ((64, 1) if kernel == "fwd" else (50, 1)):
             (xz, rw, pw, h0, c0), _ = lstm_inputs(T, B, H, torch.float32,
                                                   True, False)
-            hs = torch.empty(T, B, H, device="cuda")
-            cT = torch.empty(B, H, device="cuda")
-            ptrs = [t.data_ptr() for t in (xz, rw, pw, h0, c0, hs, cT)]
+            if kernel == "fwd":
+                outs = [torch.empty(T, B, H, device="cuda"),
+                        torch.empty(B, H, device="cuda")]
+                ptrs = [t.data_ptr() for t in (xz, rw, pw, h0, c0, *outs)]
+                extra = [1.0]
+            else:
+                _, gates, cs = lstm_fwd_train(xz, rw, pw, h0, c0)
+                eps = torch.randn(T, B, H, device="cuda")
+                seeds = [torch.zeros_like(h0), torch.zeros_like(c0)]
+                rwT = rw.t().contiguous()
+                outs = [torch.empty_like(gates), torch.empty_like(h0),
+                        torch.empty_like(c0)]
+                ptrs = [t.data_ptr() for t in (eps, gates, cs, c0, rwT, pw,
+                                               *seeds, *outs)]
+                extra = []
             for _ in range(3):   # the last launch's counts are read
-                assert fn(*ptrs, T, B, H, 1.0, 0, stream) == 0
+                assert fn(*ptrs, T, B, H, *extra, 0, stream) == 0
             torch.cuda.synchronize()
             buf = (ctypes.c_longlong * 6)()
             assert read(buf) == 0
             print(json.dumps(dict(
-                shape=dict(T=T, B=B, H=H), rows_per_cluster=rows,
+                kernel=name, shape=dict(T=T, B=B, H=H),
+                rows_per_cluster=rows,
                 cycles_per_step={p: buf[i] / buf[5]
-                                 for i, p in enumerate(PHASES)})), flush=True)
+                                 for i, p in enumerate(PHASES[kernel])})),
+                flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
@@ -196,9 +271,12 @@ def phases(out: Path, rows_list) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("fwd", "bwd"), default="fwd",
+                    help="fwd: K1 and K2; bwd: K3")
     ap.add_argument("--other", action="append", default=[],
                     help="NAME=DIR: a directory with another "
-                         "lstm_fwd_infer.cu and lstm_fwd_train.cu")
+                         "lstm_fwd_infer.cu and lstm_fwd_train.cu "
+                         "(lstm_bwd.cu for --kernel bwd)")
     ap.add_argument("--rows", default="",
                     help="comma-separated batch rows a cluster of the "
                          "resident body to build this checkout with and "
@@ -206,7 +284,8 @@ def main() -> int:
     ap.add_argument("--build", type=Path, default=BUILD_DIR / "other_lstm",
                     help="where the other builds go")
     ap.add_argument("--shape", default="64,32,256",
-                    help="T,B,H of K1's inputs (f32); K2 runs T=50")
+                    help="T,B,H of K1's inputs (f32); K2 and K3 run "
+                         "T=50")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--phases", action="store_true",
@@ -223,18 +302,26 @@ def main() -> int:
     print(smi, flush=True)
     rows = [int(r) for r in args.rows.split(",") if r]
     if args.phases:
-        phases(args.build.parent / "phases", [4, *rows])
+        phases(args.build.parent / "phases", [4, *rows], args.kernel)
         return 0
     others = {name: (Path(src), []) for name, _, src in
               (spec.partition("=") for spec in args.other)}
     others.update({f"this_rows{r}": (CSRC_DIR, rows_flags(r))
                    for r in rows})
-    build_libraries(list(NAMES))
-    vers = {**build_others(others, args.build),
-            "this": {n: load_library(n) for n in NAMES}}
+    names = NAMES[args.kernel]
+    build_libraries(["lstm_fwd_train", *names])
+    vers = {**build_others(others, args.build, names),
+            "this": {n: load_library(n) for n in names}}
     T, B, H = (int(v) for v in args.shape.split(","))
     summary = {}
-    for name, t in (("lstm_fwd_infer", T), ("lstm_fwd_train", 50)):
+    if args.kernel == "bwd":
+        rec = bwd_case(vers, 50, B, H, args.rounds, args.iters)
+        summary["lstm_bwd"] = dict(
+            rec["median_ms"], shape=rec["shape"], plan=rec["plan"],
+            this_kernel_plus_weight_grad_gemms_ms=rec[
+                "kernel_plus_weight_grad_gemms_ms"])
+    for name, t in (() if args.kernel == "bwd" else
+                    (("lstm_fwd_infer", T), ("lstm_fwd_train", 50))):
         rec = case(name, vers, t, B, H, args.rounds, args.iters)
         summary[name] = dict(rec["median_ms"], shape=rec["shape"],
                              plan=rec["plan"],
