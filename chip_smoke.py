@@ -85,8 +85,28 @@ Phases, each printing JSON lines:
    K6 launches, the probabilities within 1e-4 of the same net on the CPU,
    every gradient within 1e-4 of its largest |g|, the first loss within
    1e-5 and the second (after an Adam step) within 1e-4, relative;
-8. a ``{"kernels": [...]}`` summary line;
-9. last line ``{"ok": true, "device": {...}}``.
+8. cnn slice — the CNN classifiers on the card, through the containers'
+   entry points, each against the same net on the CPU: LeNet-5
+   (``lenet_mnist()``, Adam at lr 1e-3) on [64, 28, 28, 1] batches of the
+   MNIST stand-in (the step-1 loss; every gradient against the CPU's f64
+   one; the next two losses, a loss that falls over 50 steps,
+   ``evaluate()`` on 1,024 unseen training-split examples above 0.5
+   accuracy, ms per step and images/s); VGG-16-CIFAR
+   (``vgg16_cifar10()``, f32) on one [64, 32, 32, 3] batch (``output()``,
+   one gradient and ``fit_batch``, ms per ``output()`` and per step);
+   ResNet-50 (224x224x3, 1000 classes): an f32 twin at batch 4 (the
+   step-1 loss; the loss, gradients and BN states run in f64 on the card
+   against the same on the CPU; the f32 gradients and BN states against
+   the f64 ones; ``output()`` after a Nesterov step), then the config as
+   users get it (bf16, Nesterov at lr 0.1) and
+   the same in f32 at [64, 224, 224, 3]: ``output()`` and 20
+   ``fit_batch`` calls on a fixed batch with a falling loss, images/s for
+   serving and training, ms per step, the peak memory, the updater's
+   time and a torch.profiler breakdown of one bf16 step (convolution,
+   batch norm and layout-transpose shares). No kernel of K1-K6 is
+   launched on this path;
+9. a ``{"kernels": [...]}`` summary line;
+10. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -112,13 +132,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.datasets import (
+    DataSet, ListDataSetIterator, MnistDataSetIterator,
+)
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
+from deeplearning4j_tpu_torch.models.lenet import lenet_mnist
+from deeplearning4j_tpu_torch.models.resnet import resnet50
+from deeplearning4j_tpu_torch.models.vgg import vgg16_cifar10
 from deeplearning4j_tpu_torch.models.gpt import (
     char_lm_batches, gpt_decoder, greedy_generate, synthetic_char_text,
 )
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.netcommon import value_and_grad
 from deeplearning4j_tpu_torch.nn.updater import compute_updates, tree_map
 from deeplearning4j_tpu_torch.ops.cuda_build import (
     build_libraries, library_path,
@@ -188,6 +214,32 @@ TOL_TRAIN_STEPS = 1e-4
 TOL_K2_F32 = 1e-5
 TOL_K3_F32 = 2e-4
 TOL_LSTM_TRAIN_BF16 = 3.2e-2
+# the CNN slice on the card vs the same net on the CPU (f32 convolutions
+# in other algorithms, TF32 off for matmuls and cuDNN): the step-1 loss
+# (relative), each gradient tensor against its own largest |g|, the next
+# steps' losses (relative), probabilities, and BN's running state after
+# a step (times max(1, max |s|): a running variance sits near 1)
+TOL_CNN_LOSS = 1e-5
+TOL_CNN_GRAD = 1e-4
+TOL_CNN_STEPS = 1e-4
+TOL_CNN_PROBS = 1e-4
+# ResNet-50 run in f64 on the card against the same in f64 on the CPU:
+# the loss (relative), every gradient against its largest |g|, the BN
+# states; both sides' rounding is ~1e-16 (measured: 4e-13 of the largest
+# |g|, states 2e-14)
+TOL_CNN_F64 = 1e-9
+# ResNet-50's f32 gradients against the f64 ones: 53 BN layers in
+# training mode at random init leave the card's and the CPU's f32
+# gradients each 2.4-2.8% from f64 in relative L2, some tensors 18-23%
+# of their largest |g|, every tensor's cosine above 0.9992 (this script's
+# resnet50_f32_twin record); a wrong gradient (a pad off by one, a
+# transposed kernel) falls far below
+TOL_RESNET_GRAD_L2 = 0.1
+TOL_RESNET_GRAD_COS = 0.99
+# ResNet-50's f32 BN states after a step against f64, times max(1, max
+# |s|): 1.0e-5 on the card and 8.3e-6 on the CPU (the same record),
+# above the 1e-5 of the smaller nets
+TOL_RESNET_STATE = 1e-4
 
 SLICE = dict(vocab_size=96, seq_len=256, d_model=512, n_heads=8, n_layers=8)
 #: heads of 256, the kernels' widest register template
@@ -201,6 +253,26 @@ LSTM_SLICE = dict(vocab_size=96, hidden=256, layers=2)
 LSTM_BATCH = (32, 64)          # B, T: the char-LSTM traffic of bench.py
 LSTM_TRAIN_BATCH = (32, 200)   # B, T of a training batch: 4 windows of 50
 SEED = 1234
+#: the CNN slice: LeNet-5 on the MNIST stand-in (50 steps of 64, then
+#: 1,024 unseen training-split examples), VGG-16-CIFAR at [64, 32, 32, 3],
+#: ResNet-50 at 224x224x3 and 1000 classes (an f32 twin at batch 4 against
+#: the CPU; bf16 and f32 at batch 64, timed)
+LENET_BATCH, LENET_STEPS, LENET_HELD_OUT = 64, 50, 1024
+VGG_BATCH = 64
+RESNET_TWIN_BATCH, RESNET_BATCH, RESNET_STEPS = 4, 64, 20
+RESNET_HW, RESNET_CLASSES = 224, 1000     # resnet50()'s input and classes
+#: kernel-name substrings (lower case) of the CNN step's groups
+CNN_GROUPS = dict(
+    # cuDNN runs some convolutions as GEMMs (cuBLAS's nvjet and CUTLASS
+    # kernels among them); the dense head is one GEMM
+    conv_and_gemm=["fprop", "dgrad", "wgrad", "conv", "gemm", "nvjet",
+                   "cutlass", "xmma"],
+    batch_norm=["batch_norm"],
+    layout_transpose=["nchwtonhwc", "nhwctonchw", "transpose"],
+    pooling=["pool"],
+    input_copy=["memcpy"],
+    elementwise=["elementwise"],
+)
 TRAIN_BATCH = 32               # [32, 256] windows per step
 #: 95 printable ASCII characters and the newline: the 96-symbol vocabulary
 CHARSET = "".join(chr(i) for i in range(32, 127)) + "\n"
@@ -1393,6 +1465,320 @@ def wide_head_slice(config):
     return launched
 
 
+def state_rel_err(states, ref_states):
+    """The worst BN state tensor's max |s - ref| over max(1, its largest
+    |ref|), and its name."""
+    worst, worst_name = 0.0, None
+    for key, st in ref_states.items():
+        for name, want in st.items():
+            got = states[key][name].detach().cpu().double()
+            want = want.detach().cpu().double()
+            err = float((got - want).abs().max()) / max(
+                1.0, float(want.abs().max()))
+            if err > worst:
+                worst, worst_name = err, f"{key}.{name}"
+    return worst, worst_name
+
+
+def f64_reference(net, batch, device):
+    """(loss, gradients, new states) of ``batch`` at ``net``'s params and
+    states cast to f64 on ``device``, the batch cast too: a reference whose
+    own rounding (~1e-16) is far below f32's, for gradients f32 cannot
+    pin down."""
+    p64 = tree_map(lambda t: t.to(device, torch.float64), net.params)
+    s64 = tree_map(lambda t: t.to(device, torch.float64), net.states)
+    x = torch.from_numpy(batch.features).to(device, torch.float64)
+    y = torch.from_numpy(batch.labels).to(device, torch.float64)
+    graph = isinstance(net, ComputationGraph)
+    args = (({net.conf.network_inputs[0]: x},
+             {net.conf.network_outputs[0]: y}) if graph else (x, y))
+    loss, aux, grads = value_and_grad(
+        lambda p: net._loss_fn(p, s64, *args, None, None, None), p64)
+    return float(loss), grads, aux if graph else aux[0]
+
+
+def grad_agreement(grads, ref):
+    """How far ``grads`` lie from ``ref`` (a list of per-layer dicts or a
+    dict of them): the worst tensor's max |g - ref| over its largest
+    |ref|, the whole gradient's relative L2 distance, and the lowest
+    cosine of any tensor with its reference."""
+    worst, worst_name = grad_rel_err(grads, tree_map(
+        lambda t: t.detach().cpu().double(), ref))
+    num = den = 0.0
+    cos, cos_name = 1.0, None
+    keys = list(ref) if isinstance(ref, dict) else range(len(ref))
+    for key in keys:
+        for name, r in ref[key].items():
+            g = grads[key][name].detach().cpu().double()
+            r = r.detach().cpu().double()
+            num += float(((g - r) ** 2).sum())
+            den += float((r ** 2).sum())
+            c = float((g * r).sum() / ((g * g).sum() * (r * r).sum()).sqrt()
+                      .clamp(min=1e-300))
+            if c < cos:
+                cos, cos_name = c, f"{key}.{name}"
+    return dict(worst_rel=worst, worst=worst_name,
+                global_rel_l2=(num / max(den, 1e-300)) ** 0.5,
+                min_cos=cos, min_cos_tensor=cos_name)
+
+
+def lenet_case(device="cuda"):
+    """LeNet-5 trained on the card: the step-1 loss against the same net
+    on the CPU and every gradient against the CPU's f64 gradient (the
+    CPU's f32 conv2 gradient is 5.6e-4 of its largest |g| from the f64
+    one, the card's 4e-7), its next losses, a loss that falls over 50
+    Adam steps, ``evaluate()`` on unseen training-split examples, ms per
+    step and images/s."""
+    net = MultiLayerNetwork(lenet_mnist(), device=device).init()
+    cpu = MultiLayerNetwork(lenet_mnist(), device="cpu").init()
+    mnist = MnistDataSetIterator(
+        LENET_BATCH, num_examples=LENET_BATCH * LENET_STEPS + LENET_HELD_OUT,
+        flatten=False, seed=SEED)
+    batches = list(mnist)
+    train, held_out = batches[:LENET_STEPS], batches[LENET_STEPS:]
+    grads, loss, _ = net.compute_gradient_and_score(train[0])
+    cpu_grads, cpu_loss, _ = cpu.compute_gradient_and_score(train[0])
+    _, ref, _ = f64_reference(cpu, train[0], "cpu")
+    vs_f64 = grad_agreement(grads, ref)
+    vs_cpu = grad_agreement(grads, cpu_grads)
+    cpu_vs_f64 = grad_agreement(cpu_grads, ref)
+    del grads, cpu_grads, ref
+    losses = [float(net.fit_batch(b)) for b in train[:3]]
+    cpu_losses = [float(cpu.fit_batch(b)) for b in train[:3]]
+    for b in train[3:]:
+        net.fit_batch(b)
+    after = net.score(train[0])
+    evaluation = net.evaluate(ListDataSetIterator(held_out))
+    step_ms = host_ms(lambda: net.fit_batch(train[1]), iters=10, warmup=2)
+    return dict(config="lenet_mnist()", batch=[LENET_BATCH, 28, 28, 1],
+                updater="adam", lr=1e-3, synthetic=mnist.is_synthetic,
+                step1_loss=float(loss), step1_loss_cpu=float(cpu_loss),
+                step1_loss_rel_err=abs(float(loss) - float(cpu_loss))
+                / abs(float(cpu_loss)),
+                grads_vs_cpu_f64=vs_f64, grads_vs_cpu_f32=vs_cpu,
+                cpu_f32_grads_vs_f64=cpu_vs_f64,
+                losses=losses, losses_cpu=cpu_losses,
+                steps_rel_err=[abs(a - b) / abs(b)
+                               for a, b in zip(losses, cpu_losses)],
+                loss_after_50_steps=after,
+                held_out_examples=evaluation.examples,
+                held_out_accuracy=evaluation.accuracy(),
+                ms_per_step=step_ms,
+                images_per_s=LENET_BATCH / (step_ms * 1e-3))
+
+
+def vgg_case(device="cuda"):
+    """VGG-16-CIFAR (f32) at [64, 32, 32, 3]: ``output()``, one gradient
+    and one ``fit_batch`` against the same net on the CPU; ms per
+    ``output()`` and per step."""
+    net = MultiLayerNetwork(vgg16_cifar10(), device=device).init()
+    cpu = MultiLayerNetwork(vgg16_cifar10(), device="cpu").init()
+    rng = np.random.default_rng(SEED + 5)
+    x = rng.random((VGG_BATCH, 32, 32, 3), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, VGG_BATCH)]
+    batch = DataSet(x, y)
+    probs = net.output(x)
+    err = float((probs.cpu() - cpu.output(x)).abs().max())
+    grads, loss, _ = net.compute_gradient_and_score(batch)
+    cpu_grads, cpu_loss, _ = cpu.compute_gradient_and_score(batch)
+    worst, worst_name = grad_rel_err(grads, cpu_grads)
+    del grads, cpu_grads
+    step_loss = float(net.fit_batch(batch))
+    cpu_step_loss = float(cpu.fit_batch(batch))
+    check(tuple(probs.shape) == (VGG_BATCH, 10)
+          and bool(torch.isfinite(probs).all()), "VGG: output")
+    return dict(config="vgg16_cifar10()", batch=[VGG_BATCH, 32, 32, 3],
+                params=net.num_params(), max_abs_err_vs_cpu=err,
+                step1_loss=float(loss), step1_loss_cpu=float(cpu_loss),
+                step1_loss_rel_err=abs(float(loss) - float(cpu_loss))
+                / abs(float(cpu_loss)),
+                worst_grad_rel_err=worst, worst_grad=worst_name,
+                fit_batch_loss=step_loss, fit_batch_loss_cpu=cpu_step_loss,
+                fit_batch_loss_rel_err=abs(step_loss - cpu_step_loss)
+                / abs(cpu_step_loss),
+                output_ms=host_ms(lambda: net.output(x), iters=10),
+                ms_per_step=host_ms(lambda: net.fit_batch(batch), iters=10,
+                                    warmup=2))
+
+
+def resnet_twin_case(device="cuda"):
+    """ResNet-50 in f32 (``resnet50(dtype="float32")``) at batch 4 on the
+    card and the CPU. f32 cannot pin its gradients down: 53 BN layers in
+    training mode at random init leave the card's and the CPU's f32
+    gradients each ~2.5% (relative L2) from the f64 one, some tensors 18-23%
+    of their largest |g|. So the net is run in f64 on both (params,
+    states and batch cast): the card's f64 gradients, loss and BN states
+    against the CPU's show that the card computes the same function; the
+    card's f32 ones are held to the CPU's f64 ones at f32's reach. Then
+    one Nesterov step on both, and ``output()`` with the running states
+    it left."""
+    conf = resnet50(dtype="float32")
+    net = ComputationGraph(conf, device=device).init()
+    cpu = ComputationGraph(resnet50(dtype="float32"), device="cpu").init()
+    rng = np.random.default_rng(SEED + 6)
+    B, S, C = RESNET_TWIN_BATCH, RESNET_HW, RESNET_CLASSES
+    x = rng.random((B, S, S, 3), dtype=np.float32)
+    y = np.eye(C, dtype=np.float32)[rng.integers(0, C, B)]
+    batch = DataSet(x, y)
+    loss64, ref, ref_states = f64_reference(cpu, batch, "cpu")
+    card64, grads64, states64 = f64_reference(net, batch, device)
+    f64_grads = grad_agreement(grads64, ref)
+    f64_states, _ = state_rel_err(states64, ref_states)
+    del grads64, states64
+    grads, loss, states = net.compute_gradient_and_score(batch)
+    cpu_grads, cpu_loss, cpu_states = cpu.compute_gradient_and_score(batch)
+    vs_f64 = grad_agreement(grads, ref)
+    cpu_vs_f64 = grad_agreement(cpu_grads, ref)
+    state_err, state_name = state_rel_err(states, ref_states)
+    cpu_state_err, _ = state_rel_err(cpu_states, ref_states)
+    del grads, cpu_grads, ref
+    step_loss = float(net.fit_batch(batch))
+    cpu_step_loss = float(cpu.fit_batch(batch))
+    probs = net.output(x)
+    err = float((probs.cpu() - cpu.output(x)).abs().max())
+    check(tuple(probs.shape) == (B, C)
+          and bool(torch.isfinite(probs).all()), "ResNet-50 twin: output")
+    return dict(config="resnet50(dtype='float32')", batch=[B, S, S, 3],
+                params=net.num_params(),
+                f64_loss_rel_err=abs(card64 - loss64) / abs(loss64),
+                f64_grads_vs_cpu_f64=f64_grads,
+                f64_states_rel_err=f64_states,
+                step1_loss=float(loss), step1_loss_cpu=float(cpu_loss),
+                loss_f64=loss64,
+                step1_loss_rel_err=abs(float(loss) - float(cpu_loss))
+                / abs(float(cpu_loss)),
+                step1_loss_rel_err_vs_f64=abs(float(loss) - loss64) / loss64,
+                grads_vs_cpu_f64=vs_f64, cpu_f32_grads_vs_f64=cpu_vs_f64,
+                worst_state_rel_err_vs_f64=state_err,
+                worst_state=state_name,
+                cpu_f32_worst_state_rel_err_vs_f64=cpu_state_err,
+                fit_batch_loss=step_loss, fit_batch_loss_cpu=cpu_step_loss,
+                max_abs_err_vs_cpu=err)
+
+
+def resnet_timed_case(dtype, device="cuda"):
+    """ResNet-50 at [64, 224, 224, 3] as users get it (bf16, Nesterov at
+    lr 0.1) or in f32: ``output()`` and 20 ``fit_batch`` calls on a fixed
+    batch, timed; the peak memory and the updater's time. Returns the
+    record and the net, batch and data for the profile."""
+    net = ComputationGraph(resnet50(dtype=dtype), device=device).init()
+    rng = np.random.default_rng(SEED + 7)
+    B, S, C = RESNET_BATCH, RESNET_HW, RESNET_CLASSES
+    x = rng.random((B, S, S, 3), dtype=np.float32)
+    y = np.eye(C, dtype=np.float32)[rng.integers(0, C, B)]
+    batch = DataSet(x, y)
+    probs = net.output(x)
+    check(tuple(probs.shape) == (B, C)
+          and bool(torch.isfinite(probs).all()),
+          f"ResNet-50 {dtype}: output")
+    output_ms = host_ms(lambda: net.output(x), iters=5)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [net.fit_batch(batch) for _ in range(RESNET_STEPS)]
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = host_ms(lambda: net.fit_batch(batch), iters=5)
+    grads, _, _ = net.compute_gradient_and_score(batch)
+    params = tree_map(torch.clone, net.params)
+    state = {k: v if isinstance(v, int) else tree_map(torch.clone, v)
+             for k, v in net.opt_state.items()}
+    layers = [net.conf.nodes[n].layer for n in net._layer_nodes]
+    upd_ms = cuda_ms(lambda: compute_updates(
+        net._tx, grads, state, params, layers, net.conf.training), iters=10,
+        warmup=2)
+    del grads, params, state
+    rec = dict(config=f"resnet50(dtype='{dtype}')", batch=[B, S, S, 3],
+               updater="nesterovs", lr=0.1, params=net.num_params(),
+               output_ms=output_ms, output_images_per_s=B / (output_ms * 1e-3),
+               losses=losses, steps_20_s=steps_s,
+               ms_per_step=step_ms,
+               train_images_per_s=B / (step_ms * 1e-3),
+               updater_ms=upd_ms, updater_share_of_step=upd_ms / step_ms,
+               peak_mem_bytes=peak)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"ResNet-50 {dtype}: the loss does not fall: {losses}")
+    return rec, net, batch
+
+
+def cnn_slice():
+    """The CNN classifiers on the card: LeNet-5, VGG-16-CIFAR and
+    ResNet-50 (an f32 twin against the CPU, then bf16 and f32 at batch 64,
+    timed, with a profile of one bf16 step). No kernel of K1-K6 lies on
+    this path. Returns the launch counts of the path."""
+    reset_counts()
+    lenet = lenet_case()
+    emit(dict(phase="cnn_slice", model="lenet", tol_loss=TOL_CNN_LOSS,
+              tol_grad=TOL_CNN_GRAD, tol_steps=TOL_CNN_STEPS, **lenet))
+    check(lenet["step1_loss_rel_err"] <= TOL_CNN_LOSS,
+          f"LeNet step-1 loss {lenet['step1_loss']} vs CPU "
+          f"{lenet['step1_loss_cpu']}")
+    check(lenet["grads_vs_cpu_f64"]["worst_rel"] <= TOL_CNN_GRAD,
+          f"LeNet gradients vs the CPU's f64: {lenet['grads_vs_cpu_f64']}")
+    check(max(lenet["steps_rel_err"][1:]) <= TOL_CNN_STEPS,
+          f"LeNet losses {lenet['losses']} vs CPU {lenet['losses_cpu']}")
+    check(lenet["loss_after_50_steps"] < lenet["step1_loss"],
+          "LeNet: the loss does not fall over 50 steps")
+    check(lenet["held_out_accuracy"] > 0.5,
+          f"LeNet accuracy {lenet['held_out_accuracy']} on unseen "
+          "training-split examples")
+
+    vgg = vgg_case()
+    emit(dict(phase="cnn_slice", model="vgg", tol_probs=TOL_CNN_PROBS,
+              tol_loss=TOL_CNN_LOSS, tol_grad=TOL_CNN_GRAD, **vgg))
+    check(vgg["max_abs_err_vs_cpu"] <= TOL_CNN_PROBS,
+          f"VGG output differs from the CPU's by {vgg['max_abs_err_vs_cpu']}")
+    check(vgg["step1_loss_rel_err"] <= TOL_CNN_LOSS
+          and vgg["fit_batch_loss_rel_err"] <= TOL_CNN_LOSS,
+          f"VGG loss {vgg['step1_loss']} vs CPU {vgg['step1_loss_cpu']}")
+    check(vgg["worst_grad_rel_err"] <= TOL_CNN_GRAD,
+          f"VGG gradient {vgg['worst_grad']} differs from the CPU's by "
+          f"{vgg['worst_grad_rel_err']} of its largest |g|")
+
+    twin = resnet_twin_case()
+    emit(dict(phase="cnn_slice", model="resnet50_f32_twin",
+              tol_f64=TOL_CNN_F64, tol_loss=TOL_CNN_LOSS,
+              tol_grad_rel_l2=TOL_RESNET_GRAD_L2,
+              tol_grad_cos=TOL_RESNET_GRAD_COS,
+              tol_state=TOL_RESNET_STATE, tol_probs=TOL_CNN_PROBS, **twin))
+    check(twin["f64_loss_rel_err"] <= TOL_CNN_F64
+          and twin["f64_grads_vs_cpu_f64"]["worst_rel"] <= TOL_CNN_F64
+          and twin["f64_states_rel_err"] <= TOL_CNN_F64,
+          "ResNet-50 in f64: the card's loss, gradients or BN states differ "
+          f"from the CPU's: {twin['f64_loss_rel_err']}, "
+          f"{twin['f64_grads_vs_cpu_f64']}, {twin['f64_states_rel_err']}")
+    check(twin["step1_loss_rel_err"] <= TOL_CNN_LOSS
+          and twin["step1_loss_rel_err_vs_f64"] <= TOL_CNN_LOSS,
+          f"ResNet-50 step-1 loss {twin['step1_loss']} vs CPU "
+          f"{twin['step1_loss_cpu']}, f64 {twin['loss_f64']}")
+    check(twin["grads_vs_cpu_f64"]["global_rel_l2"] <= TOL_RESNET_GRAD_L2
+          and twin["grads_vs_cpu_f64"]["min_cos"] >= TOL_RESNET_GRAD_COS,
+          f"ResNet-50 f32 gradients vs f64: {twin['grads_vs_cpu_f64']}")
+    check(twin["worst_state_rel_err_vs_f64"] <= TOL_RESNET_STATE,
+          f"ResNet-50 BN state {twin['worst_state']} differs from f64 by "
+          f"{twin['worst_state_rel_err_vs_f64']}")
+    check(twin["max_abs_err_vs_cpu"] <= TOL_CNN_PROBS,
+          f"ResNet-50 output differs from the CPU's by "
+          f"{twin['max_abs_err_vs_cpu']}")
+
+    bf16, net, batch = resnet_timed_case("bfloat16")
+    emit(dict(phase="cnn_slice", model="resnet50_bf16", **bf16))
+    emit(dict(phase="profile", window="one ResNet-50 bf16 fit_batch of "
+                                      "[64, 224, 224, 3]",
+              **device_profile(lambda: net.fit_batch(batch), {}, top=30,
+                               groups=CNN_GROUPS)))
+    del net, batch
+    f32, net, batch = resnet_timed_case("float32")
+    emit(dict(phase="cnn_slice", model="resnet50_f32", **f32))
+    del net, batch
+    torch.cuda.synchronize()
+    launched = counts()
+    check(all(v == 0 for v in launched.values()),
+          f"the CNN path launched a kernel of K1-K6: {launched}")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1537,7 +1923,11 @@ def main() -> int:
     wide_path = wide_head_slice(WIDE_SLICE)
     wide512_path = wide_head_slice(WIDE512_SLICE)
 
-    # ---- 8. summary of every ported kernel ---------------------------------
+    # ---- 8. the CNN classifiers on the card: LeNet-5, VGG-16-CIFAR,
+    # ResNet-50 (no kernel of K1-K6 on this path) ---------------------------
+    cnn_slice()
+
+    # ---- 9. summary of every ported kernel ---------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",

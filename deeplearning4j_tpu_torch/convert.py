@@ -10,10 +10,14 @@ Both packages keep the same names and layouts (``W`` ``[in, out]``,
 attention ``Wq/Wk/Wv`` ``[F, H*D]``, GravesLSTM's peepholes ``pW`` flat
 ``[3H]``, GravesBidirectionalLSTM's backward direction as ``W_bwd``,
 ``RW_bwd``, ``b_bwd``, ``pW_bwd``: each layer's ``param_order()``), so
-each tensor is a copy, not a transpose.
-``params_to_numpy(params)`` goes the other way, to numpy arrays in the
-same structure, so tests compare the two nets' params (or gradients) by
-name. This module imports nothing of the JAX package: it reads arrays.
+each tensor is a copy, not a transpose: a conv kernel stays HWIO
+``[kh, kw, in, out]``, since the port's activations stay NHWC.
+``states_from_jax(conf, states)`` carries the layers' state (batch norm's
+running ``mean`` and ``var``) the same way, so an inference-mode
+``output()`` compares too. ``params_to_numpy`` (and ``states_to_numpy``)
+go the other way, to numpy arrays in the same structure, so tests
+compare the two nets' params, gradients or states by name. This module
+imports nothing of the JAX package: it reads arrays.
 """
 
 from __future__ import annotations
@@ -68,6 +72,30 @@ def params_from_jax(conf, params: Union[Mapping, Sequence[Mapping]]
     return out
 
 
+def states_from_jax(conf, states: Union[Mapping, Sequence[Mapping]]
+                    ) -> Union[Dict[str, Dict[str, torch.Tensor]],
+                               List[Dict[str, torch.Tensor]]]:
+    """The port's layer states (CPU tensors) from a JAX net's, in the
+    structure of ``params_from_jax``: each layer's state must hold the
+    names its ``init_state()`` holds."""
+    def layer_state(layer, state):
+        if sorted(state) != sorted(layer.init_state()):
+            raise ValueError(
+                f"{type(layer).__name__} {layer.name!r}: state "
+                f"{sorted(state)} does not match init_state()")
+        return {n: _to_tensor(a) for n, a in state.items()}
+
+    if isinstance(conf, MultiLayerConfiguration):
+        if len(states) != len(conf.layers):
+            raise ValueError(f"{len(states)} state dicts for "
+                             f"{len(conf.layers)} layers")
+        return [layer_state(layer, s)
+                for layer, s in zip(conf.layers, states)]
+    return {name: layer_state(conf.nodes[name].layer, states.get(name, {}))
+            for name in conf.topological_order
+            if conf.nodes[name].kind == "layer"}
+
+
 def params_to_numpy(params):
     """A port container's params or gradients (a dict node -> name ->
     tensor, or a list of per-layer dicts) as numpy arrays in the same
@@ -78,3 +106,7 @@ def params_to_numpy(params):
         return [params_to_numpy(v) for v in params]
     t = params.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+#: a container's states as numpy arrays, in the same structure
+states_to_numpy = params_to_numpy

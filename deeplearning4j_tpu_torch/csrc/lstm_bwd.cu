@@ -33,8 +33,8 @@
 // Two bodies, picked in the C entry from (H, dtype) alone
 // (bwd_resident_fits):
 //   * the resident body, wherever rw^T's slices fit a cluster (H <= 312 in
-//     f32, 420 in bf16: fused_lstm.BWD_RESIDENT_MAX_HIDDEN), the mirror
-//     image of K1/K2's. A cluster of 8 CTAs takes 4 batch rows; CTA r owns
+//     f32, 420 in bf16: fused_lstm.BWD_RESIDENT_MAX_HIDDEN) and every CTA
+//     of the cluster owns a unit, the mirror image of K1/K2's. A cluster of 8 CTAs takes 4 batch rows; CTA r owns
 //     hidden units [r U, r U + U), U = ceil(H / 8), and their four gate
 //     columns of dz (column q U + j of the CTA is dz's column q H + r U +
 //     j), and keeps the matching rows of rw^T ([4U, H], 128 KiB at H = 256
@@ -226,12 +226,17 @@ inline size_t bwd_resident_smem_bytes(int H, size_t elem) {
 
 // The body a backward launch takes, from (H, input type) alone: the
 // resident body wherever hidden size H fits a cluster (H <= 312 in f32,
-// 420 in bf16: fused_lstm.BWD_RESIDENT_MAX_HIDDEN), else the streaming
-// body.
+// 420 in bf16: fused_lstm.BWD_RESIDENT_MAX_HIDDEN) and every CTA of the
+// cluster owns a unit, else the streaming body. A CTA without a unit
+// receives no partials, so no wait holds it to the others' pace: it can
+// send a step's partials two steps ahead, into a receive buffer its owner
+// has not read, and count them on the wrong phase of the owner's
+// mbarrier, which then never completes (H = 7 and 33 trapped so).
 inline bool bwd_resident_fits(int H, size_t elem) {
   return bwd_resident_smem_bytes(H, elem) <= MAX_SMEM &&
          RES_ROWS * res_units(H) <= RES_THREADS &&
-         RES_ROWS * H <= BWD_SENDS * RES_THREADS;
+         RES_ROWS * H <= BWD_SENDS * RES_THREADS &&
+         (CLUSTER - 1) * res_units(H) < H;
 }
 
 // The partials' exchange: st.async writes a value into another CTA's

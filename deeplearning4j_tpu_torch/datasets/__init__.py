@@ -1,6 +1,6 @@
 """Host-side data containers and iterators (the JAX package's
-``datasets/``; so far ``DataSet``, ``MultiDataSet`` and the list
-iterator)."""
+``datasets/``; so far ``DataSet``, ``MultiDataSet``, the list iterator
+and MNIST)."""
 
 from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
     DataSet,
@@ -9,4 +9,8 @@ from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
 from deeplearning4j_tpu_torch.datasets.iterator import (  # noqa: F401
     DataSetIterator,
     ListDataSetIterator,
+)
+from deeplearning4j_tpu_torch.datasets.mnist import (  # noqa: F401
+    MnistDataSetIterator,
+    load_mnist,
 )

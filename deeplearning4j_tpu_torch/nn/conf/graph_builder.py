@@ -3,9 +3,10 @@
 ``add_vertex`` / ``set_outputs`` / ``set_input_types`` / ``build()``.
 ``backprop_type``. ``build()`` applies the global defaults, orders the DAG
 topologically (Kahn's algorithm), infers every layer's ``n_in`` and, under
-truncated BPTT, checks that every output is time-distributed. Input
-preprocessors are not ported yet: a layer whose input kind would need one
-raises.
+truncated BPTT, checks that every output is time-distributed. Where a layer's
+input kind differs from what it expects, an input preprocessor goes in
+front of it, as in the JAX package (``add_layer(..., preprocessor=)``
+sets one by hand).
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
 )
 from deeplearning4j_tpu_torch.nn.conf.graph import GraphVertex
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    InputPreProcessor, auto_preprocessor,
+)
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayerConf
 
 
@@ -30,14 +34,7 @@ class NodeConf:
     inputs: List[str] = field(default_factory=list)
     layer: Optional[BaseLayerConf] = None
     vertex: Optional[GraphVertex] = None
-
-
-def _check_input_kind(name: str, cur: InputType, want: str) -> None:
-    kind = "ff" if cur.kind == "cnnflat" else cur.kind
-    if want not in ("any", kind):
-        raise NotImplementedError(
-            f"node {name!r}: its {cur.kind} input needs a {want} input "
-            "preprocessor, which the port does not have yet")
+    preprocessor: Optional[InputPreProcessor] = None
 
 
 @dataclass
@@ -75,7 +72,9 @@ class ComputationGraphConfiguration:
         return order
 
     def _resolve_shapes(self) -> None:
-        """Infer every node's output InputType and fill layer n_in."""
+        """Infer every node's output InputType, put a preprocessor in
+        front of each layer whose input kind needs one, and fill layer
+        n_in."""
         self.topological_order = self._topo_sort()
         if not self.input_types:
             return
@@ -87,10 +86,14 @@ class ComputationGraphConfiguration:
                 continue
             in_ts = [types[i] for i in node.inputs]
             if node.kind == "layer":
-                _check_input_kind(name, in_ts[0],
-                                  expected_input_kind(node.layer))
-                node.layer.set_n_in(in_ts[0])
-                types[name] = node.layer.infer_output_type(in_ts[0])
+                cur = in_ts[0]
+                if node.preprocessor is None:
+                    node.preprocessor = auto_preprocessor(
+                        cur, expected_input_kind(node.layer))
+                if node.preprocessor is not None:
+                    cur = node.preprocessor.infer_output_type(cur)
+                node.layer.set_n_in(cur)
+                types[name] = node.layer.infer_output_type(cur)
             else:
                 want = node.vertex.n_inputs()
                 if want is not None and len(in_ts) != want:
@@ -122,13 +125,15 @@ class GraphBuilder:
         self._input_types = dict(zip(self._inputs, types))
         return self
 
-    def add_layer(self, name: str, layer: BaseLayerConf,
-                  *inputs: str) -> "GraphBuilder":
+    def add_layer(self, name: str, layer: BaseLayerConf, *inputs: str,
+                  preprocessor: Optional[InputPreProcessor] = None
+                  ) -> "GraphBuilder":
         if name in self._nodes:
             raise ValueError(f"Duplicate node name {name!r}")
         layer.name = name
         self._nodes[name] = NodeConf(name=name, kind="layer",
-                                     inputs=list(inputs), layer=layer)
+                                     inputs=list(inputs), layer=layer,
+                                     preprocessor=preprocessor)
         return self
 
     def add_vertex(self, name: str, vertex: GraphVertex,

@@ -19,8 +19,8 @@ between them, as ``MultiLayerNetwork`` does. Dropout draws from one
 this container does not bring yet raises ``NotImplementedError`` naming
 its ROADMAP item: the line-search solvers, ``scan_window > 1``,
 ``remat``, mixed precision, listeners and the divergence sentinel (A2,
-deferred). The paged decode and the evaluation mixins are not ported
-yet.
+deferred). ``evaluate(iterator)`` drives ``output()`` over an iterator
+into an ``Evaluation``. The paged decode is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +35,9 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
     DataSetIterator, ListDataSetIterator,
 )
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.nn.conf.graph import ElementWiseVertex
+from deeplearning4j_tpu_torch.nn.conf.graph import (
+    ElementWiseVertex, LastTimeStepVertex,
+)
 from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
     ComputationGraphConfiguration,
 )
@@ -47,7 +49,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.shape import TimeDistributedLayer
 from deeplearning4j_tpu_torch.nn.multilayer import _sum_aux_losses
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    NetCommonMixin, check_trainable, detach, value_and_grad,
+    EvalMixin, NetCommonMixin, check_trainable, detach, value_and_grad,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer, compute_updates, l1_l2_penalty,
@@ -75,7 +77,7 @@ def _time_slice(d: Optional[Dict[str, Tensor]], lo: int, hi: int,
             for k, v in d.items()}
 
 
-class ComputationGraph(NetCommonMixin):
+class ComputationGraph(NetCommonMixin, EvalMixin):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
         self.device = resolve_device(device)
@@ -111,11 +113,12 @@ class ComputationGraph(NetCommonMixin):
                     "tie to")
 
     # ------------------------------------------------------------------ init
-    def init(self, params=None) -> "ComputationGraph":
+    def init(self, params=None, states=None) -> "ComputationGraph":
         """Draw params from a CPU ``torch.Generator`` seeded with the
         config's seed (the same weights on every device), or take
-        ``params`` (e.g. ``convert.params_from_jax``); either way they
-        are moved to the net's device."""
+        ``params`` (e.g. ``convert.params_from_jax``), and the layers'
+        initial states, or ``states`` (``convert.states_from_jax``);
+        either way they are moved to the net's device."""
         if params is None:
             gen = torch.Generator().manual_seed(self.conf.training.seed)
             params = {}
@@ -123,10 +126,13 @@ class ComputationGraph(NetCommonMixin):
                 layer = self.conf.nodes[name].layer
                 params[name] = (layer.init_params(gen, self.dtype)
                                 if layer.has_params() else {})
+        if states is None:
+            states = {name: self.conf.nodes[name].layer.init_state()
+                      for name in self._layer_nodes}
         self.params = {n: {k: t.to(self.device) for k, t in p.items()}
                        for n, p in params.items()}
-        self.states = {name: self.conf.nodes[name].layer.init_state()
-                       for name in self._layer_nodes}
+        self.states = {n: {k: t.to(self.device) for k, t in s.items()}
+                       for n, s in states.items()}
         self.opt_state = self._tx.init(self.params)
         return self
 
@@ -179,6 +185,10 @@ class ComputationGraph(NetCommonMixin):
             in_acts = [acts[i] for i in node.inputs]
             in_mask = out_masks.get(node.inputs[0]) if node.inputs else None
             if node.kind == "vertex":
+                if isinstance(node.vertex, LastTimeStepVertex):
+                    acts[name] = node.vertex.apply_masked(in_acts, in_mask)
+                    out_masks[name] = None
+                    continue
                 ref = getattr(node.vertex, "timesteps", None)
                 acts[name] = (node.vertex.apply(in_acts, acts[ref])
                               if isinstance(ref, str)
@@ -187,6 +197,9 @@ class ComputationGraph(NetCommonMixin):
                 continue
             layer = node.layer
             h = in_acts[0]
+            if node.preprocessor is not None:
+                h = node.preprocessor.transform(h, None)
+                in_mask = node.preprocessor.transform_mask(in_mask, None)
             if (stop_before_loss and name in output_set
                     and hasattr(layer, "compute_loss")):
                 acts[name] = h          # input to the loss head
@@ -626,6 +639,8 @@ class ComputationGraph(NetCommonMixin):
                 continue
             layer = node.layer
             h = in_acts[0]
+            if node.preprocessor is not None:
+                h = node.preprocessor.transform(h, None)
             p = self._layer_params(params, name)
             if getattr(layer, "supports_kv_cache", False):
                 cache = caches[name]

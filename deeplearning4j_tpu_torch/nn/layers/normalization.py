@@ -1,5 +1,10 @@
-"""Normalization layers (the JAX package's ``nn/layers/normalization.py``;
-so far only ``LayerNormalization``)."""
+"""Normalization layers (the JAX package's ``nn/layers/normalization.py``):
+batch norm, DL4J's local response normalization and layer norm.
+
+Batch norm's running statistics are layer *state*, returned anew by
+``apply`` and threaded through the container, as in the JAX package; they
+are f32 whatever the net's dtype.
+"""
 
 from __future__ import annotations
 
@@ -7,11 +12,113 @@ from dataclasses import dataclass
 from typing import List
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (
-    BaseLayerConf, Params, register_layer,
+    BaseLayerConf, Params, State, register_layer,
 )
+
+
+@register_layer
+@dataclass
+class BatchNormalization(BaseLayerConf):
+    """Batch norm over the channel / feature axis (the last one). In
+    training (``is_minibatch``) it normalizes with the batch's mean and
+    *population* variance and returns the running state ``decay * old +
+    (1 - decay) * batch``; otherwise with the running state. Statistics
+    are taken in at least f32 and the output is cast back to the input's
+    dtype. With ``lock_gamma_beta`` it holds no params and scales by the
+    constants ``gamma`` and ``beta``.
+
+    The normalization is ``torch.native_batch_norm`` over a channels-first
+    view (one fused pass; it also returns the batch mean and 1 /
+    sqrt(var + eps), from which the new state is computed): PyTorch's
+    running-buffer update would use the unbiased variance, in place."""
+    decay: float = 0.9
+    eps: float = 1e-5
+    is_minibatch: bool = True
+    lock_gamma_beta: bool = False
+    gamma: float = 1.0
+    beta: float = 0.0
+    # filled by builder:
+    n_features: int = 0
+
+    def set_n_in(self, in_type: InputType) -> None:
+        self.n_in = in_type.flat_size()
+        self.n_features = (in_type.channels if in_type.kind == "cnn"
+                           else in_type.flat_size())
+
+    def infer_output_type(self, in_type: InputType) -> InputType:
+        return in_type
+
+    def param_order(self) -> List[str]:
+        return [] if self.lock_gamma_beta else ["gamma", "beta"]
+
+    def init_params(self, gen, dtype=torch.float32) -> Params:
+        if self.lock_gamma_beta:
+            return {}
+        return {"gamma": torch.full((self.n_features,), self.gamma,
+                                    dtype=dtype),
+                "beta": torch.full((self.n_features,), self.beta,
+                                   dtype=dtype)}
+
+    def init_state(self) -> State:
+        return {"mean": torch.zeros((self.n_features,)),
+                "var": torch.ones((self.n_features,))}
+
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        if self.lock_gamma_beta:
+            gamma = torch.full((self.n_features,), self.gamma, dtype=acc,
+                               device=x.device)
+            beta = torch.full_like(gamma, self.beta)
+        else:
+            gamma, beta = params["gamma"].to(acc), params["beta"].to(acc)
+        xc = x.movedim(-1, 1)   # a view: channels first, as torch wants
+        if train and self.is_minibatch:
+            out, mean, invstd = torch.native_batch_norm(
+                xc, gamma, beta, None, None, True, 0.0, self.eps)
+            var = invstd.detach() ** -2 - self.eps
+            new_state = {
+                "mean": self.decay * state["mean"]
+                + (1 - self.decay) * mean.detach(),
+                "var": self.decay * state["var"] + (1 - self.decay) * var,
+            }
+        else:
+            out, _, _ = torch.native_batch_norm(
+                xc, gamma, beta, state["mean"], state["var"], False, 0.0,
+                self.eps)
+            new_state = state
+        return out.movedim(1, -1), new_state
+
+
+@register_layer
+@dataclass
+class LocalResponseNormalization(BaseLayerConf):
+    """Cross-channel LRN, DL4J's formula: ``x / (k + alpha * sum x^2) **
+    beta``, the sum over a window of ``n`` channels centred on each (zeros
+    past the edges). ``alpha`` is not divided by ``n``, so this is not
+    ``F.local_response_norm`` with the same arguments."""
+    k: float = 2.0
+    n: float = 5.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def set_n_in(self, in_type: InputType) -> None:
+        self.n_in = in_type.flat_size()
+
+    def infer_output_type(self, in_type: InputType) -> InputType:
+        return in_type
+
+    def param_order(self) -> List[str]:
+        return []
+
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        half = int(self.n // 2)
+        sq = F.pad(x * x, (half, half))
+        summed = sq.unfold(-1, int(self.n), 1).sum(-1)
+        return x / (self.k + self.alpha * summed) ** self.beta, state
 
 
 @register_layer

@@ -24,8 +24,10 @@ Dropout draws from one ``torch.Generator`` on the net's device, seeded
 from the config. What this container does not bring yet raises
 ``NotImplementedError`` naming its ROADMAP item: the line-search solvers,
 ``scan_window > 1``, ``remat``, mixed precision, listeners, the divergence
-sentinel (A2, deferred) and layerwise pretraining (A7). The
-evaluation mixins are not ported yet.
+sentinel (A2, deferred) and layerwise pretraining (A7).
+``evaluate(iterator)`` drives ``output()`` over an iterator into an
+``Evaluation``. A ``CenterLossOutputLayer`` head's centers move by their
+moving average after each update, outside the gradient.
 """
 
 from __future__ import annotations
@@ -41,8 +43,9 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
 )
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.layers.core import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    NetCommonMixin, check_trainable, detach, value_and_grad,
+    EvalMixin, NetCommonMixin, check_trainable, detach, value_and_grad,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer, compute_updates, l1_l2_penalty,
@@ -72,7 +75,7 @@ def _window(a, lo: int, hi: int):
     return None if a is None else a[:, lo:hi]
 
 
-class MultiLayerNetwork(NetCommonMixin):
+class MultiLayerNetwork(NetCommonMixin, EvalMixin):
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.conf = conf
         self.layers = conf.layers
@@ -91,18 +94,23 @@ class MultiLayerNetwork(NetCommonMixin):
         self._rnn_carries: Optional[List[Any]] = None  # rnn_time_step state
 
     # ------------------------------------------------------------------ init
-    def init(self, params=None) -> "MultiLayerNetwork":
+    def init(self, params=None, states=None) -> "MultiLayerNetwork":
         """Draw params from a CPU ``torch.Generator`` seeded with the
         config's seed, layer by layer (the same weights on every device),
-        or take ``params`` (e.g. ``convert.params_from_jax``); either way
-        they are moved to the net's device."""
+        or take ``params`` (e.g. ``convert.params_from_jax``), and the
+        layers' initial states, or ``states``
+        (``convert.states_from_jax``); either way they are moved to the
+        net's device."""
         if params is None:
             gen = torch.Generator().manual_seed(self.conf.training.seed)
             params = [layer.init_params(gen, self.dtype)
                       if layer.has_params() else {} for layer in self.layers]
+        if states is None:
+            states = [layer.init_state() for layer in self.layers]
         self.params = [{k: t.to(self.device) for k, t in p.items()}
                        for p in params]
-        self.states = [layer.init_state() for layer in self.layers]
+        self.states = [{k: t.to(self.device) for k, t in s.items()}
+                       for s in states]
         self.opt_state = self._tx.init(self.params)
         return self
 
@@ -227,14 +235,15 @@ class MultiLayerNetwork(NetCommonMixin):
 
     def _loss_fn(self, params, states, features, labels, fmask, lmask, rng,
                  train: bool = True, carries: Optional[list] = None):
-        """(score, (new states, new carries)): the head's loss + the L1/L2
-        penalty + the auxiliary losses layers surface in their state."""
+        """(score, (new states, new carries, the head's input)): the
+        head's loss + the L1/L2 penalty + the auxiliary losses layers
+        surface in their state."""
         h, _, new_states, new_carries, cur_mask = self._forward(
             params, states, features, train=train, rng=rng, mask=fmask,
             carries=carries)
         loss = self._head_loss(params, h, labels, lmask, cur_mask)
         return (loss + l1_l2_penalty(params, self.layers)
-                + _sum_aux_losses(new_states)), (new_states, new_carries)
+                + _sum_aux_losses(new_states)), (new_states, new_carries, h)
 
     def score(self, dataset: Optional[DataSet] = None,
               train: bool = False) -> float:
@@ -256,12 +265,18 @@ class MultiLayerNetwork(NetCommonMixin):
         params over the whole sequence (ref:
         MultiLayerNetwork.computeGradientAndScore), training mode (dropout
         on). Gradients mirror the params."""
+        grads, loss, new_states, _ = self._gradient(self._batch(dataset))
+        return grads, loss, new_states
+
+    def _gradient(self, batch):
+        """(gradients, score, new states, the head's input) of ``batch``
+        (``_batch``'s tuple) at the current params, training mode."""
         self._check_init()
         check_trainable(self.conf.training)
-        loss, (new_states, _), grads = value_and_grad(
-            lambda p: self._loss_fn(p, self.states, *self._batch(dataset),
-                                    rng=self._rng), self.params)
-        return grads, loss, new_states
+        loss, (new_states, _, h), grads = value_and_grad(
+            lambda p: self._loss_fn(p, self.states, *batch, rng=self._rng),
+            self.params)
+        return grads, loss, new_states, h
 
     def _step(self, grads, new_states, loss) -> None:
         """Apply one update and record its loss."""
@@ -287,8 +302,18 @@ class MultiLayerNetwork(NetCommonMixin):
                     f"labels; got rank-{dataset.labels.ndim}. Use "
                     "backprop_type('standard') for sequence-to-one heads.")
             return self._fit_tbptt(dataset)
-        grads, loss, new_states = self.compute_gradient_and_score(dataset)
+        batch = self._batch(dataset)
+        grads, loss, new_states, h = self._gradient(batch)
+        head = self.layers[-1]
+        if isinstance(head, CenterLossOutputLayer):
+            # the centers' moving average, from the params before the
+            # update, outside the gradient
+            with torch.no_grad():
+                centers = head.updated_centers(self.params[-1], h.detach(),
+                                               batch[1])
         self._step(grads, new_states, loss)
+        if isinstance(head, CenterLossOutputLayer):
+            self.params[-1]["cL"].copy_(centers)
         self.last_batch_size = dataset.num_examples()
         return loss
 
@@ -308,8 +333,10 @@ class MultiLayerNetwork(NetCommonMixin):
         T = feats.shape[1]
         split = max(T - bwd, 0) if bwd < fwd else 0
         if split == 0:
-            return self._loss_fn(params, self.states, feats, labels, fmask,
-                                 lmask, self._rng, carries=carries)
+            loss, (new_states, new_carries, _) = self._loss_fn(
+                params, self.states, feats, labels, fmask, lmask, self._rng,
+                carries=carries)
+            return loss, (new_states, new_carries)
         with torch.no_grad():
             h1, _, states1, carries1, m1 = self._forward(
                 params, self.states, _window(feats, 0, split), train=True,

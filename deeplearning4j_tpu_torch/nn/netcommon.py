@@ -85,3 +85,20 @@ class NetCommonMixin:
         raise NotImplementedError(
             "the divergence sentinel is not ported yet (ROADMAP A2, "
             "deferred)")
+
+
+class EvalMixin:
+    """``evaluate(iterator)`` for both containers: ``output()`` of each
+    batch (with its feature mask, so padded steps do not run as data)
+    into one ``Evaluation``, with the label mask. ROC and regression
+    evaluation wait for ROADMAP A7."""
+
+    def evaluate(self, iterator):
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        evaluation = Evaluation()
+        iterator.reset()
+        for batch in iterator:
+            out = self.output(batch.features, mask=batch.features_mask)
+            evaluation.eval(batch.labels, out.float().cpu().numpy(),
+                            mask=batch.labels_mask)
+        return evaluation

@@ -22,7 +22,9 @@ for all T steps, split by hidden unit across the cluster, one cluster per
 cluster barrier a step; the streaming body reads RW from L2 every step,
 one block per batch row. K3 has the mirror image of both bodies, picked
 the same way up to its own limit (``BWD_RESIDENT_MAX_HIDDEN``: 312 in
-f32, 420 in bf16): each CTA keeps the rows of RW^T for its units' four
+f32, 420 in bf16) wherever every CTA of the cluster owns a unit (not
+below 8, nor at H = 9-14, 17-21, 25-28, 33-35, 41-42 or 49, where
+ceil(H / 8) units a CTA leave the last CTA none): each CTA keeps the rows of RW^T for its units' four
 gate columns of dz, sums its partial dh_prev over them for every k, and
 sends each partial to the CTA that owns k through distributed shared
 memory, where the 8 partials are added in rank order. ``launch_plan``

@@ -9,11 +9,25 @@ card's machine, which has none:
 (``--noconftest``: tests/conftest.py sets up JAX.)
 """
 
+import ast
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.convert import params_to_numpy
+from deeplearning4j_tpu_torch.models.resnet import resnet_tiny
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.layers.convolution import (
+    ConvolutionLayer, SubsamplingLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.normalization import (
+    BatchNormalization, LocalResponseNormalization,
+)
+from deeplearning4j_tpu_torch.nn.netcommon import value_and_grad
+from deeplearning4j_tpu_torch.nn.updater import tree_map
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.datasets import DataSet
@@ -32,6 +46,7 @@ from deeplearning4j_tpu_torch.ops.fused_lstm import (
     lstm_recurrence_plain,
 )
 
+ROOT = Path(__file__).resolve().parent.parent
 #: the resident body's widest H in f32 and bf16, and the first H past it
 RES_F32 = RESIDENT_MAX_HIDDEN[torch.float32]
 RES_BF16 = RESIDENT_MAX_HIDDEN[torch.bfloat16]
@@ -484,6 +499,38 @@ def test_lstm_bwd_kernel_picks_its_body_from_h_and_dtype(card):
     _assert_body_follows_the_limit("lstm_bwd", BWD_RESIDENT_MAX_HIDDEN)
 
 
+def test_lstm_bwd_is_resident_only_where_every_cta_owns_a_unit(card):
+    """K3's resident body holds each CTA to the others' pace by the
+    partials it receives every step; a CTA that owns no unit receives
+    none, ran ahead into a receive buffer not yet read and trapped (H = 7
+    and 33, after ``chip_smoke.py`` on the same card), so such H take the
+    streaming body. Every H up to 64 takes the body that rule gives, and
+    100 launches at H = 7, 8, 33 and 36 (the last CTA owning none, one,
+    none and one unit) each equal the first, within 2e-4 of the plain
+    sweep."""
+    for H in range(1, 65):
+        resident = 7 * -(-H // 8) < H
+        assert launch_plan("lstm_bwd", 5, H, torch.float32)["body"] == (
+            "resident" if resident else "streaming"), H
+    for H in (7, 8, 33, 36):
+        xz, rw, pw, h0, c0 = _lstm_args(card, 6, 5, H, torch.float32, True,
+                                        True)
+        _, gates, cs = lstm_fwd_train(xz, rw, pw, h0, c0, forget_bias=1.0)
+        g = torch.Generator().manual_seed(H)
+        eps, dh_T, dc_T = (torch.randn(*s, generator=g).to(card)
+                           for s in ((6, 5, H), (5, H), (5, H)))
+        args = (eps, gates, cs, c0, rw, pw, dh_T, dc_T)
+        first = lstm_bwd(*args)
+        for _ in range(100):
+            again = lstm_bwd(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), H
+        c_prev = torch.cat([c0[None], cs[:-1]])
+        for got, want in zip(first, lstm_bwd_plain(
+                eps, gates, cs, c_prev, rw, pw, dh_T, dc_T)):
+            _scaled_close(got, want, 2e-4)
+
+
 def test_lstm_kernel_refuses_a_hidden_size_past_its_shared_memory(card):
     """The wrapper's check stops H > MAX_HIDDEN on every device; past it
     the kernel's shared memory outgrows a block's default, so the launch
@@ -564,8 +611,8 @@ def _scaled_close(got, want, rel):
     (9, 11, RES_F32 + 1, "float32", True, True),  # past it (streaming)
     (9, 11, RES3_BF16, "bfloat16", True, True),      # K3's widest resident
     (9, 11, RES3_BF16 + 1, "bfloat16", True, True),  # H in bf16 and past it
-    (6, 5, 7, "float32", True, True),    # CTAs that own no unit: K3's
-    (4, 9, 33, "float32", True, True),   # receive no partials
+    (6, 5, 7, "float32", True, True),    # CTAs that own no unit: K1/K2
+    (4, 9, 33, "float32", True, True),   # resident, K3 streaming
 ])
 def test_lstm_train_kernels_match_plain(card, T, B, H, dtype, peephole,
                                         carry):
@@ -682,3 +729,216 @@ def test_char_rnn_tiny_tbptt_on_card_matches_cpu(card, bwd):
         assert [f.launches - b for f, b in zip(wrappers, before)] == \
             [6, 6, 0 if bwd == 6 else 4, 0]
         assert a == pytest.approx(float(cpu.fit_batch(ds)), rel=1e-5)
+
+
+# ------------------------------------------------- the CNN slice's layers
+# cuDNN's convolution and pooling and PyTorch's batch norm on the card
+# against the same port code on the CPU (TF32 off). f32: 1e-5 x max(1,
+# max |y|), gradients 1e-4 of each tensor's largest |g|; bf16: two bf16
+# ulps (2^-7) x max(1, max |y|), since both sides round sums taken in
+# another order to bf16.
+
+def _layer_on_card_and_cpu(card, layer, in_type, x, dtype, train=False,
+                           state=None):
+    """``layer`` shaped for ``in_type`` on [B, ...] input ``x``: its
+    output (and new state) on the card and on the CPU, and for f32 the
+    gradients of a fixed projection with respect to the input and every
+    param on each."""
+    layer.set_n_in(in_type)
+    dt = getattr(torch, dtype)
+    params = {k: v.to(dt) for k, v in layer.init_params(
+        torch.Generator().manual_seed(3), torch.float32).items()}
+    if isinstance(layer, BatchNormalization):      # not the identity init
+        g = torch.Generator().manual_seed(4)
+        params = {k: (torch.rand(v.shape, generator=g) + 0.5).to(dt)
+                  for k, v in params.items()}
+    state = state if state is not None else layer.init_state()
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        xx = torch.from_numpy(x).to(dev, dt).requires_grad_()
+        y, new = layer.apply(p, xx, state={k: v.to(dev)
+                                           for k, v in state.items()},
+                             train=train)
+        r = torch.randn(y.shape, generator=torch.Generator().manual_seed(6))
+        (y.float() * r.to(dev)).sum().backward()
+        out[dev.type] = (y.detach().float().cpu(),
+                         {k: v.cpu() for k, v in new.items()},
+                         {"x": xx.grad.float().cpu(),
+                          **{k: v.grad.float().cpu() for k, v in p.items()}})
+    return out["cuda"], out["cpu"]
+
+
+def _assert_layer_close(got, want, dtype):
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    (y, s, g), (y0, s0, g0) = got, want
+    torch.testing.assert_close(y, y0, rtol=0,
+                               atol=tol * max(1.0, float(y0.abs().max())))
+    for k in s0:
+        assert s[k].dtype == torch.float32
+        torch.testing.assert_close(s[k], s0[k], rtol=0, atol=1e-5 * max(
+            1.0, float(s0[k].abs().max())))
+    if dtype == "float32":
+        for k in g0:
+            torch.testing.assert_close(g[k], g0[k], rtol=0, atol=1e-4 * max(
+                float(g0[k].abs().max()), 1e-30), msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["stem_7x7s2_224", "3x3s2_56", "1x1s2_56",
+                                  "3x3_dilated_truncate"])
+def test_conv_on_card_matches_cpu(card, case, dtype):
+    """ResNet-50's stem (7x7/2 ``same`` on 224: XLA pads (2, 3)), its
+    3x3/2 and 1x1/2 convolutions at 56, and a dilated truncate one."""
+    k, s, size, cin, cout, mode, d = {
+        "stem_7x7s2_224": (7, 2, 224, 3, 64, "same", 1),
+        "3x3s2_56": (3, 2, 56, 32, 32, "same", 1),
+        "1x1s2_56": (1, 2, 56, 32, 64, "same", 1),
+        "3x3_dilated_truncate": (3, 1, 30, 16, 24, "truncate", 2)}[case]
+    layer = ConvolutionLayer(n_out=cout, kernel_size=(k, k), stride=(s, s),
+                             dilation=(d, d), convolution_mode=mode,
+                             activation="identity", weight_init="relu",
+                             has_bias=case.endswith("truncate"))
+    x = np.random.default_rng(7).random((2, size, size, cin),
+                                        dtype=np.float32)
+    got, want = _layer_on_card_and_cpu(
+        card, layer, InputType.convolutional(size, size, cin), x, dtype)
+    _assert_layer_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("kind", ["max", "avg", "sum", "pnorm"])
+def test_same_pool_on_card_matches_cpu(card, kind):
+    """ResNet-50's 3x3/2 ``same`` pool on 112 (pads (0, 1): -inf for max,
+    the unpadded count for avg)."""
+    layer = SubsamplingLayer(pooling_type=kind, kernel_size=(3, 3),
+                             stride=(2, 2), convolution_mode="same")
+    x = np.random.default_rng(8).normal(size=(2, 112, 112, 16)).astype(
+        np.float32)
+    got, want = _layer_on_card_and_cpu(
+        card, layer, InputType.convolutional(112, 112, 16), x, "float32")
+    _assert_layer_close(got, want, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("train", [True, False], ids=["train", "infer"])
+def test_batch_norm_on_card_matches_cpu(card, train, dtype):
+    """Training: the batch's population variance and the new f32 state;
+    inference: a non-trivial running state."""
+    layer = BatchNormalization()
+    g = torch.Generator().manual_seed(9)
+    state = {"mean": torch.randn(64, generator=g),
+             "var": torch.rand(64, generator=g) + 0.5}
+    x = (np.random.default_rng(10).normal(size=(8, 28, 28, 64)) * 2 + 0.5
+         ).astype(np.float32)
+    got, want = _layer_on_card_and_cpu(
+        card, layer, InputType.convolutional(28, 28, 64), x, dtype,
+        train=train, state=state)
+    _assert_layer_close(got, want, dtype)
+
+
+def test_lrn_on_card_matches_cpu(card):
+    layer = LocalResponseNormalization(k=2.0, n=5, alpha=1e-2, beta=0.75)
+    x = (np.random.default_rng(11).normal(size=(2, 13, 13, 96)) * 3
+         ).astype(np.float32)
+    got, want = _layer_on_card_and_cpu(
+        card, layer, InputType.convolutional(13, 13, 96), x, "float32")
+    _assert_layer_close(got, want, "float32")
+
+
+def _f64_gradient(net, x, y, device):
+    """The loss, gradients and new BN states of ``net`` with its params,
+    states and the batch cast to f64 on ``device``."""
+    p64 = tree_map(lambda t: t.to(device, torch.float64), net.params)
+    s64 = tree_map(lambda t: t.to(device, torch.float64), net.states)
+    loss, states, grads = value_and_grad(lambda p: net._loss_fn(
+        p, s64, {"in": torch.from_numpy(x).to(device, torch.float64)},
+        {"out": torch.from_numpy(y).to(device, torch.float64)}, None, None,
+        None), p64)
+    return float(loss), params_to_numpy(grads), params_to_numpy(states)
+
+
+def test_resnet_tiny_on_card_matches_cpu(card):
+    """The full-depth ResNet-50 body at 64x64 (batch 4): ``output()``;
+    in f64 (params, states and batch cast) the card's loss, every
+    gradient and the BN states against the CPU's within 1e-9; in f32 the
+    loss and the BN states of a step within 1e-4 and the gradients within
+    10% relative L2 and a cosine of 0.99 of each tensor's f64 one (53 BN
+    layers in training mode at random init leave f32 gradients on the
+    card and on the CPU alike a few percent from f64: chip_smoke.py's
+    ResNet-50 twin, ROADMAP C7); then ``output()`` with the running
+    states the step left."""
+    conf = resnet_tiny(height=64, width=64)
+    gpu = ComputationGraph(conf, device=card).init()
+    cpu = ComputationGraph(conf, device="cpu").init()
+    rng = np.random.default_rng(12)
+    x = rng.random((4, 64, 64, 3), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 4)]
+    ds = DataSet(x, y)
+    torch.testing.assert_close(gpu.output(x).cpu(), cpu.output(x), rtol=0,
+                               atol=1e-5)
+    loss64, ref, ref_states = _f64_gradient(cpu, x, y, "cpu")
+    card64, got64, states64 = _f64_gradient(gpu, x, y, card)
+    assert card64 == pytest.approx(loss64, rel=1e-9)
+    for node in ref:
+        for name, w in ref[node].items():
+            scale = max(float(np.abs(w).max()), 1e-30)
+            np.testing.assert_allclose(got64[node][name], w, rtol=0,
+                                       atol=1e-9 * scale)
+    for node in ref_states:
+        for name, w in ref_states[node].items():
+            np.testing.assert_allclose(states64[node][name], w, rtol=0,
+                                       atol=1e-9)
+    got, loss, states = gpu.compute_gradient_and_score(ds)
+    assert float(loss) == pytest.approx(loss64, rel=1e-4)
+    got = params_to_numpy(got)
+    num = sum(float(((got[n][k] - w) ** 2).sum())
+              for n in ref for k, w in ref[n].items())
+    den = sum(float((w ** 2).sum()) for n in ref for w in ref[n].values())
+    assert (num / den) ** 0.5 <= 0.1
+    for node in ref:
+        for name, w in ref[node].items():
+            g = got[node][name].astype(np.float64)
+            cos = (g * w).sum() / max(np.sqrt((g * g).sum() * (w * w).sum()),
+                                      1e-300)
+            assert cos >= 0.99, (node, name, cos)
+    states = params_to_numpy(states)
+    for node in ref_states:
+        for name, w in ref_states[node].items():
+            np.testing.assert_allclose(states[node][name], w, rtol=0,
+                                       atol=1e-4 * max(1.0,
+                                                       np.abs(w).max()))
+    assert float(gpu.fit_batch(ds)) == pytest.approx(
+        float(cpu.fit_batch(ds)), rel=1e-4)
+    torch.testing.assert_close(gpu.output(x).cpu(), cpu.output(x), rtol=0,
+                               atol=1e-4)
+
+
+# --------------------------------------------------------------- imports
+# (no card needed: this runs wherever the file does)
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Every module of the port, the CNN slice's among them, and
+    chip_smoke.py import neither JAX nor the JAX package."""
+    files = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("nn/layers/convolution.py", "nn/layers/pooling.py",
+                   "nn/layers/normalization.py", "nn/layers/core.py",
+                   "nn/layers/shape.py", "nn/conf/preprocessors.py",
+                   "nn/conf/graph.py", "nn/conf/graph_builder.py",
+                   "nn/netcommon.py", "convert.py", "eval/evaluation.py",
+                   "datasets/mnist.py", "models/lenet.py", "models/vgg.py",
+                   "models/resnet.py"):
+        assert f"deeplearning4j_tpu_torch/{module}" in names, module
+    banned = ("jax", "jaxlib", "deeplearning4j_tpu")
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f) if m.split(".")[0] in banned]
+    assert not bad, bad

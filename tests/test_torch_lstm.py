@@ -47,8 +47,9 @@ from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.nn.conf.builder import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
-    FeedForwardToRnnPreProcessor, RnnToFeedForwardPreProcessor,
-    auto_preprocessor,
+    CnnToFeedForwardPreProcessor, CnnToRnnPreProcessor,
+    FeedForwardToCnnPreProcessor, FeedForwardToRnnPreProcessor,
+    RnnToFeedForwardPreProcessor, auto_preprocessor,
 )
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.layers import core as tcore
@@ -611,11 +612,15 @@ def test_auto_preprocessor_choices():
                       RnnToFeedForwardPreProcessor)
     assert isinstance(auto_preprocessor(ff, "rnn"),
                       FeedForwardToRnnPreProcessor)
-    for cur, want in ((InputType.convolutional(2, 2, 1), "ff"),
-                      (ff, "cnn"),
-                      (InputType.convolutional_flat(2, 2, 1), "cnn")):
-        with pytest.raises(NotImplementedError):
-            auto_preprocessor(cur, want)
+    cnn, flat = (InputType.convolutional(2, 2, 1),
+                 InputType.convolutional_flat(2, 2, 1))
+    assert isinstance(auto_preprocessor(cnn, "ff"),
+                      CnnToFeedForwardPreProcessor)
+    assert isinstance(auto_preprocessor(cnn, "rnn"), CnnToRnnPreProcessor)
+    assert auto_preprocessor(flat, "cnn") == FeedForwardToCnnPreProcessor(
+        2, 2, 1)
+    with pytest.raises(ValueError, match="Cannot infer CNN shape"):
+        auto_preprocessor(ff, "cnn")
 
 
 def test_list_builder_checks():
