@@ -105,8 +105,27 @@ Phases, each printing JSON lines:
    time and a torch.profiler breakdown of one bf16 step (convolution,
    batch norm and layout-transpose shares). No kernel of K1-K6 is
    launched on this path;
-9. a ``{"kernels": [...]}`` summary line;
-10. last line ``{"ok": true, "device": {...}}``.
+9. serve engine — the full-width GPT behind the token-level serving
+   engine (``GenerationScheduler(max_rows=8)``: continuous batching over
+   a block-paged KV pool of 64-token pages, a CUDA graph per prefill and
+   decode bucket): 16 requests (prompts of 5-128 tokens, 32 new tokens,
+   4 sampled, two sharing a 64-token prefix page, an ``evict_page``
+   fault mid-wave) from 16 staggered threads, then the same 16 again,
+   and one request whose 140 new tokens let an ``evict_page`` fault drop
+   a page it then replays. Every request's tokens against its singleton
+   ``greedy_generate`` / ``sample_generate`` on the card, 4 of them
+   against the same engine on the CPU; the shared prefix page mapped
+   once; no capture in the second wave; each decode bucket's graph (1,
+   2, 4, 8 rows) and one prefill bucket's against the eager step from
+   the same state, bit for bit; the same 8 rows decoded in buckets of
+   1, 2, 4 and 8 (bitwise or not, max |dprob|); tokens/s and time to
+   first token per wave, captures per bucket, the graphs' and the
+   pool's bytes, and graphed against eager decode ms per step at 1, 2,
+   4 and 8 rows (host time, in turns) with their kernels, host launches
+   and busy share from torch.profiler. No kernel of K1-K6 is launched on
+   this path;
+10. a ``{"kernels": [...]}`` summary line;
+11. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -125,6 +144,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -139,8 +159,10 @@ from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.models.lenet import lenet_mnist
 from deeplearning4j_tpu_torch.models.resnet import resnet50
 from deeplearning4j_tpu_torch.models.vgg import vgg16_cifar10
+from deeplearning4j_tpu_torch.keras.generation import GenerationScheduler
 from deeplearning4j_tpu_torch.models.gpt import (
-    char_lm_batches, gpt_decoder, greedy_generate, synthetic_char_text,
+    char_lm_batches, gpt_decoder, greedy_generate, sample_generate,
+    synthetic_char_text,
 )
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -160,6 +182,14 @@ from deeplearning4j_tpu_torch.ops.fused_lstm import (
     lstm_bwd_plain, lstm_fwd_train, lstm_fwd_train_plain,
     lstm_recurrence, lstm_recurrence_plain,
 )
+from deeplearning4j_tpu_torch.profiling.metrics import (
+    MetricsRegistry, set_registry,
+)
+from deeplearning4j_tpu_torch.resilience import faultinject
+from deeplearning4j_tpu_torch.resilience.faultinject import (
+    Fault, FaultSchedule,
+)
+from deeplearning4j_tpu_torch.resilience.service import Deadline
 
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -273,6 +303,29 @@ CNN_GROUPS = dict(
     input_copy=["memcpy"],
     elementwise=["elementwise"],
 )
+#: the serving engine's traffic on the full-width GPT (SLICE, 8 rows):
+#: 16 requests, prompt lengths drawn (seed 23) from SERVE_LENGTHS, 32 new
+#: tokens each, submitted from 16 threads staggered by 0-20 ms; requests
+#: whose index is a multiple of 4 sample at temperature 0.8 with their
+#: index as seed; the first two prompts longer than 64 tokens share their
+#: first 64 (one page); an evict_page fault at wave one's 10th decode
+#: iteration; then the same 16 requests again
+SERVE_ROWS, SERVE_REQUESTS, SERVE_NEW = 8, 16, 32
+SERVE_LENGTHS = (5, 17, 33, 64, 100, 128)
+SERVE_TEMP, SERVE_PREFIX, SERVE_STAGGER_S = 0.8, 64, 0.020
+SERVE_EVICT_AT = 10
+#: a page replay at full width: 32 new tokens never fill a 64-token page
+#: with decode content alone, so one more request (5 prompt tokens, 140
+#: new) takes an evict_page fault at its 130th step, when page 1 (64-127)
+#: is decode-written and behind its position
+REPLAY_PROMPT, REPLAY_NEW, REPLAY_EVICT_AT = 5, 140, 130
+#: requests also run through an engine on the CPU, against the card's
+SERVE_CPU_REQUESTS = 4
+#: calls per block of the graphed / eager decode timing (in turns)
+SERVE_TIMED_CALLS = 30
+#: host-side CUDA runtime calls that launch work, in a profiler trace
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
 TRAIN_BATCH = 32               # [32, 256] windows per step
 #: 95 printable ASCII characters and the newline: the 96-symbol vocabulary
 CHARSET = "".join(chr(i) for i in range(32, 127)) + "\n"
@@ -1779,6 +1832,388 @@ def cnn_slice():
     return launched
 
 
+def serve_traffic():
+    """The 16 requests: prompts, stagger (s), sampling configs, and the
+    two requests that share a 64-token prefix."""
+    V = SLICE["vocab_size"]
+    rng = np.random.default_rng(23)
+    lengths = rng.choice(SERVE_LENGTHS, SERVE_REQUESTS)
+    stagger = rng.uniform(0.0, SERVE_STAGGER_S, SERVE_REQUESTS)
+    prompts = [rng.integers(0, V, int(n)).tolist() for n in lengths]
+    shared = [i for i, n in enumerate(lengths) if n > SERVE_PREFIX][:2]
+    check(len(shared) == 2, f"fewer than two prompts past {SERVE_PREFIX}")
+    a, b = shared
+    prompts[b][:SERVE_PREFIX] = prompts[a][:SERVE_PREFIX]
+    sampling = [{"temperature": SERVE_TEMP, "seed": i} if i % 4 == 0
+                else None for i in range(SERVE_REQUESTS)]
+    return prompts, stagger, sampling, shared
+
+
+def singleton_tokens(net, prompt, n_new, sampling):
+    if sampling is None:
+        return greedy_generate(net, prompt, n_new)
+    return sample_generate(net, prompt, n_new, sampling["temperature"],
+                           sampling["seed"])
+
+
+def serve_wave(sched, net, lock, prompts, stagger, sampling, n_new,
+               key="gpt"):
+    """Submit every request from its own thread after its stagger; wait
+    for all. Returns (results by index, wall seconds)."""
+    results, res_lock = {}, threading.Lock()
+
+    def one(i):
+        time.sleep(stagger[i])
+        try:
+            r = sched.submit(key, net, lock, prompts[i], n_new,
+                             Deadline(600.0), sampling=sampling[i])
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            r = e
+        with res_lock:
+            results[i] = r
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a request never ended")
+    bad = {i: repr(r) for i, r in results.items() if isinstance(r, Exception)}
+    check(not bad, f"requests failed: {bad}")
+    return results, wall
+
+
+def wave_record(results, wall):
+    ttft = sorted(r["ttft_ms"] for r in results.values())
+    n_tok = sum(len(r["tokens"]) for r in results.values())
+    return dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                ttft_p50_ms=float(np.percentile(ttft, 50)),
+                ttft_p99_ms=float(np.percentile(ttft, 99)),
+                ttft_max_ms=ttft[-1],
+                reprefills=sum(r["reprefills"] for r in results.values()))
+
+
+def clone_pool(pool):
+    return {n: {k: v.clone() for k, v in kv.items()} for n, kv in pool.items()}
+
+
+def restore_pool(pool, snapshot):
+    for n, kv in pool.items():
+        for k, v in kv.items():
+            v.copy_(snapshot[n][k])
+
+
+def pool_max_abs_diff(a, b):
+    return max(float((a[n][k] - b[n][k]).abs().max()) for n in a for k in a[n])
+
+
+def decode_inputs(rows, eng, rng):
+    """x, positions, table (numpy, as the engine builds them) for
+    ``rows`` rows over the engine's pool: each row maps a distinct chain
+    of pages, at a position past its first page."""
+    V, ppr = eng.vocab, eng.pages_per_row
+    chains = rng.permutation(np.arange(1, eng.total_pages))
+    table = chains[:rows * ppr].reshape(rows, ppr).astype(np.int64)
+    positions = rng.integers(eng.page_len, eng.max_len, rows).astype(np.int64)
+    x = np.eye(V, dtype=np.float32)[rng.integers(0, V, rows)][:, None, :]
+    return x, positions, table
+
+
+def step_profile(fn, calls):
+    """``calls`` calls of ``fn`` under torch.profiler: per call the wall
+    ms, the kernels' ms, the kernels launched on the card, the host's
+    launch calls (kernel and graph launches, LAUNCH_CALLS) and its
+    copies; and the card's busy share of the wall time (the trace slows
+    the host, so it reads low)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.key.lower()
+               and "memset" not in e.key.lower()]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    host = {e.key: e.count for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    return dict(wall_ms_per_call=wall_us / 1e3 / calls,
+                kernel_ms_per_call=busy_us / 1e3 / calls,
+                kernels_per_call=sum(e.count for e in kernels) / calls,
+                host_launch_calls_per_call=sum(
+                    host.get(k, 0) for k in LAUNCH_CALLS) / calls,
+                graph_launches_per_call=host.get("cudaGraphLaunch", 0)
+                / calls,
+                host_copies_per_call=sum(
+                    n for k, n in host.items() if k.startswith("cudaMemcpy"))
+                / calls,
+                busy_share=busy_us / wall_us if kernels else None)
+
+
+def serve_graph_checks(net, eng, runners):
+    """On the engine's own state after the traffic: each decode bucket's
+    graph and one prefill bucket's against the eager step from the same
+    state (bitwise), the same 8 rows decoded in buckets of 1, 2, 4 and 8
+    (bitwise or not, max |dprob|), and graphed against eager decode
+    time, launches and busy share at 1, 2, 4 and 8 rows."""
+    pool = eng.pool
+    snapshot = clone_pool(pool)
+    step = net.paged_decode_fn(eng.page_len)
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+
+    def eager(x, positions, table):
+        probs, _ = step(net.params, net.states, pool,
+                        torch.from_numpy(x).to(dev),
+                        torch.from_numpy(positions).to(dev),
+                        torch.from_numpy(table).to(dev))
+        return probs.cpu().numpy()
+
+    def graphed(rows, x, positions, table):
+        return runners[("decode", rows)](net.params, net.states, pool, x,
+                                         positions, table)[0]
+
+    bitwise = {}
+    for rows in (1, 2, 4, 8):
+        x, positions, table = decode_inputs(rows, eng, rng)
+        if rows > 1:
+            table[-1] = 0                  # an unmapped row: scratch page 0
+        pe = eager(x, positions, table)
+        pool_e = clone_pool(pool)
+        restore_pool(pool, snapshot)
+        pg = graphed(rows, x, positions, table)
+        bitwise[f"decode_{rows}"] = dict(
+            probs_equal=bool(np.array_equal(pe, pg)),
+            pool_equal=all(torch.equal(pool[n][k], pool_e[n][k])
+                           for n in pool for k in pool[n]),
+            max_abs_prob_diff=float(np.abs(pe - pg).max()),
+            max_abs_pool_diff=pool_max_abs_diff(pool, pool_e))
+        restore_pool(pool, snapshot)
+    prefill, _ = net.decode_fns()
+    bucket = max(b for kind, b in runners if kind == "prefill")
+    L = bucket - 3
+    x = np.zeros((1, bucket, eng.vocab), np.float32)
+    x[0, :L] = np.eye(eng.vocab, dtype=np.float32)[
+        rng.integers(0, eng.vocab, L)]
+    lengths = np.asarray([L], np.int64)
+    pe, ce = prefill(net.params, net.states, net.init_decode_cache(1),
+                     torch.from_numpy(x).to(dev),
+                     torch.from_numpy(lengths).to(dev))
+    pg, cg = runners[("prefill", bucket)](net.params, net.states, x, lengths)
+    bitwise[f"prefill_{bucket}"] = dict(
+        probs_equal=bool(np.array_equal(pe.cpu().numpy(), pg)),
+        cache_equal=all(torch.equal(ce[n][k], cg[n][k])
+                        for n in ce for k in ce[n]),
+        max_abs_prob_diff=float(np.abs(pe.cpu().numpy() - pg).max()),
+        max_abs_cache_diff=pool_max_abs_diff(ce, cg))
+
+    # the same 8 rows in buckets of 1, 2, 4 and 8 (graphed)
+    x, positions, table = decode_inputs(8, eng, rng)
+    by_bucket = {}
+    for rows in (1, 2, 4, 8):
+        parts = []
+        for lo in range(0, 8, rows):
+            sl = slice(lo, lo + rows)
+            parts.append(graphed(rows, x[sl], positions[sl], table[sl]))
+            restore_pool(pool, snapshot)
+        by_bucket[rows] = np.concatenate(parts)
+    batch_vs_single = {
+        f"rows_{rows}_vs_1": dict(
+            bitwise=bool(np.array_equal(by_bucket[rows], by_bucket[1])),
+            max_abs_prob_diff=float(np.abs(by_bucket[rows]
+                                           - by_bucket[1]).max()),
+            argmax_equal=bool((by_bucket[rows].argmax(-1)
+                               == by_bucket[1].argmax(-1)).all()))
+        for rows in (2, 4, 8)}
+
+    timing = {}
+    for rows in (1, 2, 4, 8):
+        x, positions, table = decode_inputs(rows, eng, rng)
+
+        def run_eager():
+            eager(x, positions, table)
+
+        def run_graph():
+            graphed(rows, x, positions, table)
+        turns = [host_ms(fn, iters=SERVE_TIMED_CALLS, warmup=3)
+                 for fn in (run_eager, run_graph, run_graph, run_eager)]
+        timing[rows] = dict(eager_ms=[turns[0], turns[3]],
+                            graphed_ms=[turns[1], turns[2]],
+                            eager_profile=step_profile(run_eager, 16),
+                            graphed_profile=step_profile(run_graph, 16))
+        restore_pool(pool, snapshot)
+    return bitwise, batch_vs_single, timing
+
+
+def page_replay_case(sched, net, lock):
+    """One request whose 140 new tokens fill page 1 with decode content
+    alone; an evict_page fault at its 130th step drops that page, the row
+    replays it, and its tokens must be the singleton's."""
+    rng = np.random.default_rng(SEED + 1)
+    prompt = rng.integers(0, SLICE["vocab_size"], REPLAY_PROMPT).tolist()
+    ref = greedy_generate(net, prompt, REPLAY_NEW)
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    try:
+        faultinject.set_schedule(FaultSchedule(
+            [Fault("evict_page", at_call=REPLAY_EVICT_AT)]))
+        r = sched.submit("gpt", net, lock, prompt, REPLAY_NEW,
+                         Deadline(600.0))
+    finally:
+        faultinject.clear()
+        set_registry(prev)
+    ev = reg.get("serving_kv_page_evictions_total")
+    return dict(prompt_len=REPLAY_PROMPT, new_tokens=REPLAY_NEW,
+                evict_at_iteration=REPLAY_EVICT_AT,
+                page_evictions=0 if ev is None else ev.value,
+                reprefills=r["reprefills"],
+                tokens_equal_singleton=r["tokens"] == ref)
+
+
+def serve_engine():
+    """The token-level serving engine on the card (ROADMAP A5): the
+    full-width GPT behind ``GenerationScheduler(max_rows=8)``, two waves
+    of the same 16 requests, a page replay, then the graph checks and
+    timings on the engine's own state, and 4 of the requests through an
+    engine on the CPU. No kernel of K1-K6 lies on this path (the
+    engine's prefill and decode are plain torch, as the JAX engine's
+    are). Returns the launch counts of the path."""
+    net = ComputationGraph(gpt_decoder(**SLICE), device="cuda").init()
+    prompts, stagger, sampling, shared = serve_traffic()
+    refs = [singleton_tokens(net, p, SERVE_NEW, s)
+            for p, s in zip(prompts, sampling)]
+    lock = threading.Lock()
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    # the decode ladder is captured at engine build, so wave one holds
+    # every decode bucket whatever its row counts were
+    sched = GenerationScheduler(max_rows=SERVE_ROWS,
+                                prewarm_decode_ladder=True)
+    try:
+        reset_counts()
+        faultinject.set_schedule(FaultSchedule(
+            [Fault("evict_page", at_call=SERVE_EVICT_AT)]))
+        wave1, wall1 = serve_wave(sched, net, lock, prompts, stagger,
+                                  sampling, SERVE_NEW)
+        faultinject.clear()
+        st1 = sched.stats()
+        eng = sched._engines["gpt"]
+        a, b = shared
+        bucket = eng.prefill_bucket(len(prompts[a]))
+        pid = eng.prefix_pages.get((bucket, tuple(prompts[a][:SERVE_PREFIX])))
+        entries = [eng.prompt_registry.get(
+            (eng.prefill_bucket(len(prompts[i])), tuple(prompts[i])))
+            for i in shared]
+        prefix = dict(requests=shared, bucket=bucket, page=pid,
+                      buckets_equal=bucket == eng.prefill_bucket(
+                          len(prompts[b])),
+                      refcount=None if pid is None else eng.page_ref[pid],
+                      both_map_it=all(e is not None and e["pages"][0] == pid
+                                      for e in entries))
+        page_ev = reg.get("serving_kv_page_evictions_total")
+        row_ev = reg.get("serving_kv_evictions_total")
+        evicted = dict(
+            fault_fired=reg.get("resilience_faults_injected_total").value,
+            page_evictions=0 if page_ev is None else page_ev.value,
+            row_evictions=0 if row_ev is None else row_ev.value,
+            victims=[i for i, r in wave1.items() if r["reprefills"]])
+        wave2, wall2 = serve_wave(sched, net, lock, prompts, stagger,
+                                  sampling, SERVE_NEW)
+        torch.cuda.synchronize()
+        st2 = sched.stats()
+        main_path = counts()
+        replay = page_replay_case(sched, net, lock)
+        runners = {(k[2], k[3]): sched._compiled.get(k)
+                   for k in sched._compiled.keys()
+                   if k[0] == sched._cache_owner and k[1] == "gpt"}
+        bitwise, batch_vs_single, timing = serve_graph_checks(net, eng,
+                                                              runners)
+        pool_tensor_bytes = sum(v.numel() * v.element_size()
+                                for kv in eng.pool.values()
+                                for v in kv.values())
+        graph_bytes = {f"{k}:{b}": r.nbytes for (k, b), r in runners.items()}
+    finally:
+        faultinject.clear()
+        sched.stop()
+        set_registry(prev)
+
+    # 4 of the requests through the same engine on the CPU
+    cpu = ComputationGraph(gpt_decoder(**SLICE), device="cpu").init()
+    cpu_sched = GenerationScheduler(max_rows=SERVE_ROWS)
+    idx = list(range(SERVE_CPU_REQUESTS))
+    try:
+        cpu_res, _ = serve_wave(cpu_sched, cpu, threading.Lock(),
+                                [prompts[i] for i in idx], [0.0] * len(idx),
+                                [sampling[i] for i in idx], SERVE_NEW)
+    finally:
+        cpu_sched.stop()
+    cpu_equal = all(cpu_res[j]["tokens"] == wave1[i]["tokens"]
+                    for j, i in enumerate(idx))
+
+    mismatch = {w: [i for i in range(SERVE_REQUESTS)
+                    if res[i]["tokens"] != refs[i]]
+                for w, res in (("wave1", wave1), ("wave2", wave2))}
+    rec = dict(
+        phase="serve_engine", config=SLICE, params=net.num_params(),
+        max_rows=SERVE_ROWS, page_len=eng.page_len,
+        pages_per_row=eng.pages_per_row, page_groups=eng.total_pages,
+        page_group_bytes=eng.page_group_bytes, pool_bytes=eng.pool_bytes,
+        pool_tensor_bytes=pool_tensor_bytes,
+        requests=SERVE_REQUESTS, new_tokens=SERVE_NEW,
+        prompt_lens=[len(p) for p in prompts],
+        sampled=[i for i, s in enumerate(sampling) if s],
+        wave1=wave_record(wave1, wall1), wave2=wave_record(wave2, wall2),
+        captures_wave1=st1["compiles"],
+        captures_wave2=st2["compiles"] - st1["compiles"],
+        capture_s=st2["compile_s"],
+        captures_per_bucket=st2["bucket_compiles"],
+        graph_pool_bytes=graph_bytes, bucket_mix=st2["bucket_mix"],
+        prefix_hits=st2["prefix_hits"], prefill_steps=st2["prefill_steps"],
+        shared_prefix=prefix, evict_page=evicted, page_replay=replay,
+        tokens_mismatch_singleton=mismatch, cpu_requests=idx,
+        cpu_tokens_equal_card=cpu_equal, main_path_launches=main_path)
+    emit(rec)
+    emit(dict(phase="serve_engine_bitwise", graphed_vs_eager=bitwise,
+              batched_vs_singleton=batch_vs_single))
+    emit(dict(phase="serve_engine_timing", calls_per_block=SERVE_TIMED_CALLS,
+              turns="eager, graphed, graphed, eager",
+              decode={str(r): t for r, t in timing.items()}))
+
+    check(all(v == 0 for v in main_path.values()),
+          f"the serving engine launched a kernel of K1-K6: {main_path}")
+    check(not mismatch["wave1"] and not mismatch["wave2"],
+          f"engine tokens differ from the singleton's: {mismatch}")
+    check(evicted["fault_fired"] == 1 and (evicted["page_evictions"]
+                                           + evicted["row_evictions"]) >= 1,
+          f"the evict_page fault did not evict: {evicted}")
+    check(replay["page_evictions"] >= 1 and replay["reprefills"] == 0
+          and replay["tokens_equal_singleton"],
+          f"page replay at full width: {replay}")
+    check(prefix["buckets_equal"] and prefix["both_map_it"]
+          and prefix["refcount"] == 2 and st2["prefix_hits"] >= 1,
+          f"shared prefix not mapped once with refcount 2: {prefix}, "
+          f"prefix_hits {st2['prefix_hits']}")
+    check(rec["captures_wave2"] == 0,
+          f"the second wave captured {rec['captures_wave2']} steps")
+    check(eng.pool_bytes == pool_tensor_bytes ==
+          eng.total_pages * eng.page_group_bytes,
+          f"pool bytes {eng.pool_bytes} vs its tensors' {pool_tensor_bytes}")
+    check(all(v["probs_equal"] and v.get("pool_equal", v.get("cache_equal"))
+              for v in bitwise.values()),
+          f"graphed steps differ from the eager ones: {bitwise}")
+    check(cpu_equal, "the CPU engine's tokens differ from the card's")
+    return main_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1927,7 +2362,11 @@ def main() -> int:
     # ResNet-50 (no kernel of K1-K6 on this path) ---------------------------
     cnn_slice()
 
-    # ---- 9. summary of every ported kernel ---------------------------------
+    # ---- 9. the token-level serving engine on the card: CUDA graphs per
+    # bucket over the block-paged KV pool (no kernel of K1-K6 on this path)
+    serve_engine()
+
+    # ---- 10. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",

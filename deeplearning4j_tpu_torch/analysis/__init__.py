@@ -1,0 +1,2 @@
+"""Analysis (the JAX package's ``analysis/``): so far the KV page-length
+rule of ``memory``."""

@@ -11,8 +11,7 @@ weight-tied LM head (``TiedRnnOutputLayer``).
 The character data path (``char_vocab``, ``char_lm_batches``,
 ``synthetic_char_text``) is the JAX package's, in numpy: one-hot char
 windows with next-char targets, the batches ``fit`` trains on. Not ported
-yet: ``sample_generate`` (it needs the serving engine's ``sample_token``),
-``char_lm_sources`` (the streaming pipeline) and mixed precision.
+yet: ``char_lm_sources`` (the streaming pipeline) and mixed precision.
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.shape import TimeDistributedLayer
+from deeplearning4j_tpu_torch.util.math_utils import next_pow_of_2
 
 #: default charset of the synthetic char-LM workloads
 DEFAULT_CHARSET = "abcdefghijklmnopqrstuvwxyz .,;\n"
@@ -114,17 +114,11 @@ def gpt_tiny(vocab_size: int = 16, seq_len: int = 8, **kw
     return gpt_decoder(vocab_size, seq_len, **kw)
 
 
-def next_pow_of_2(v: int) -> int:
-    """Smallest power of two >= v."""
-    return 1 if v <= 0 else 1 << (int(v - 1).bit_length())
-
-
-def greedy_generate(net, prompt: Sequence[int], max_new_tokens: int
-                    ) -> List[int]:
-    """SINGLETON greedy decode through ``net.decode_fns()``: the prompt is
-    prefilled at its pow2 length bucket, then one token per decode step.
-    ``net`` is an initialized ComputationGraph (e.g. ``gpt_decoder``); the
-    decode runs on the net's device."""
+def _singleton_decode(net, prompt: Sequence[int], max_new_tokens: int,
+                      select) -> List[int]:
+    """SINGLETON decode through ``net.decode_fns()``: the prompt is
+    prefilled at its pow2 length bucket, then one token per dense decode
+    step; ``select(probs [V], index)`` picks each next token."""
     prompt = list(prompt)
     V, max_len = net.decode_vocab(), net.decode_max_len()
     if not 0 < len(prompt) < max_len:
@@ -139,15 +133,39 @@ def greedy_generate(net, prompt: Sequence[int], max_new_tokens: int
     caches = net.init_decode_cache(1)
     probs, caches = prefill(net.params, net.states, caches, x,
                             torch.tensor([len(prompt)], device=dev))
-    out = [int(probs[0].argmax())]
+    out = [select(probs[0], 0)]
     pos = len(prompt)
     while len(out) < max_new:
         xt = eye[out[-1]][None, None, :]
         probs, caches = decode(net.params, net.states, caches, xt,
                                torch.tensor([pos], device=dev))
-        out.append(int(probs[0].argmax()))
+        out.append(select(probs[0], len(out)))
         pos += 1
     return out
+
+
+def greedy_generate(net, prompt: Sequence[int], max_new_tokens: int
+                    ) -> List[int]:
+    """SINGLETON greedy decode through ``net.decode_fns()``: the prompt is
+    prefilled at its pow2 length bucket, then one token per decode step.
+    ``net`` is an initialized ComputationGraph (e.g. ``gpt_decoder``); the
+    decode runs on the net's device."""
+    return _singleton_decode(net, prompt, max_new_tokens,
+                             lambda p, _: int(p.argmax()))
+
+
+def sample_generate(net, prompt: Sequence[int], max_new_tokens: int,
+                    temperature: float, seed: int) -> List[int]:
+    """SINGLETON seeded-sampling decode — the reference side of the
+    batched == singleton gate for temperature sampling: the same steps
+    as ``greedy_generate``, with next-token selection through the
+    engine's own ``sample_token`` at draw index = tokens generated so
+    far. A fixed seed pins the exact token stream the serving engine
+    must reproduce under batching, churn, page eviction, and replay."""
+    from deeplearning4j_tpu_torch.keras.generation import sample_token
+    return _singleton_decode(
+        net, prompt, max_new_tokens,
+        lambda p, i: sample_token(p.cpu().numpy(), temperature, seed, i))
 
 
 # ---------------------------------------------------------------------------

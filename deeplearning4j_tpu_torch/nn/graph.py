@@ -20,7 +20,10 @@ this container does not bring yet raises ``NotImplementedError`` naming
 its ROADMAP item: the line-search solvers, ``scan_window > 1``,
 ``remat``, mixed precision, listeners and the divergence sentinel (A2,
 deferred). ``evaluate(iterator)`` drives ``output()`` over an iterator
-into an ``Evaluation``. The paged decode is not ported yet.
+into an ``Evaluation``. Incremental decode has the dense step
+(``decode_fns``) and the block-paged one the serving engine runs
+(``paged_decode_fn`` over ``init_kv_page_pool``), both updating their KV
+state in place.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.analysis.memory import default_kv_page_len
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterator import (
     DataSetIterator, ListDataSetIterator,
@@ -41,7 +45,9 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (
 from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
     ComputationGraphConfiguration,
 )
-from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
+from deeplearning4j_tpu_torch.nn.layers.attention import (
+    SelfAttentionLayer, gather_kv_pages, scatter_kv_token,
+)
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
     LayerNormalization,
 )
@@ -93,6 +99,7 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
         self._rng = torch.Generator(device=self.device).manual_seed(
             conf.training.seed)
         self._decode_fns = None
+        self._paged_decode_fns: Dict[int, Any] = {}
         self._rnn_carries: Optional[Dict[str, Any]] = None
         self._layer_nodes = [n for n in conf.topological_order
                              if conf.nodes[n].kind == "layer"]
@@ -622,6 +629,19 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
                       for kv in ("k", "v")}
         return out
 
+    def decode_cache_bytes(self, rows: int,
+                           max_len: Optional[int] = None) -> int:
+        """Device footprint of a ``rows``-row bucket's KV caches — what
+        the serving engine budgets eviction against."""
+        if max_len is None:
+            max_len = self.decode_max_len()
+        itemsize = torch.tensor([], dtype=self.dtype).element_size()
+        total = 0
+        for n in self.kv_cache_nodes():
+            shape = self.conf.nodes[n].layer.cache_shape(rows, max_len)
+            total += 2 * int(np.prod(shape)) * itemsize
+        return total
+
     def _incremental_forward(self, params, states, x, caches, positions,
                              lengths=None):
         """One DAG walk shared by prefill (``lengths`` given, x the padded
@@ -686,3 +706,78 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
 
             self._decode_fns = (prefill, decode)
         return self._decode_fns
+
+    # ------------------------------------------------- block-paged decode
+    # The serving engine stores KV state as a fixed pool of
+    # [n_pages, H, page_len, D] pages per attention node plus a per-row
+    # page table. The paged step gathers each row's pages into the EXACT
+    # dense [rows, H, max_len, D] shape the unmodified decode path
+    # expects (page_len must divide max_len), runs it, and scatters the
+    # one new K/V token per row back into its write page, in place.
+
+    def kv_page_len(self, page_len: Optional[int] = None) -> int:
+        """Resolve (and validate) the KV page length: must divide the
+        static ``decode_max_len`` so pages tile a row exactly."""
+        ml = self.decode_max_len()
+        if page_len is None:
+            return default_kv_page_len(ml)
+        page_len = int(page_len)
+        if page_len < 1 or ml % page_len:
+            raise ValueError(
+                f"kv_page_len={page_len} must divide the static decode "
+                f"max_len {ml} (pages must tile a cache row exactly)")
+        return page_len
+
+    def init_kv_page_pool(self, n_pages: int, page_len: int
+                          ) -> Dict[str, Dict[str, Tensor]]:
+        """Fresh zeroed page pool on the net's device — one {k, v} pair
+        of ``[n_pages, H, page_len, D]`` tensors per causal-attention
+        node. A physical page id addresses ONE page group: the same slot
+        across every node's k and v tensors."""
+        out = {}
+        for n in self.kv_cache_nodes():
+            shape = self.conf.nodes[n].layer.cache_shape(n_pages, page_len)
+            out[n] = {kv: torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device)
+                      for kv in ("k", "v")}
+        return out
+
+    def kv_page_group_bytes(self, page_len: int) -> int:
+        """Device footprint of ONE page group (k + v, ``page_len``
+        positions, across every causal-attention node) — the eviction
+        granularity the paged serving engine budgets against."""
+        return self.decode_cache_bytes(1, page_len)
+
+    def paged_decode_fn(self, page_len: Optional[int] = None):
+        """The paged decode step the serving engine captures per row
+        bucket:
+
+        ``paged_decode(params, states, pool, x, positions, page_table)
+        -> (probs [rows, V], pool)`` — ``page_table`` ``[rows, max_len //
+        page_len]`` int64, ``positions`` ``[rows]`` int64. Gather -> the
+        dense ``decode`` -> scatter of each row's one new K/V token keeps
+        the attention math untouched. The pool is updated IN PLACE (the
+        JAX step donates it and returns a new one): the returned pool is
+        the same tensors."""
+        page_len = self.kv_page_len(page_len)
+        cached = self._paged_decode_fns.get(page_len)
+        if cached is not None:
+            return cached
+        _, decode = self.decode_fns()   # validates decodability
+
+        @torch.no_grad()
+        def paged_decode(params, states, pool, x, positions, page_table):
+            caches = {n: {k: gather_kv_pages(v, page_table)
+                          for k, v in kv.items()}
+                      for n, kv in pool.items()}
+            probs, new_caches = decode(params, states, caches, x,
+                                       positions)
+            rows = torch.arange(x.shape[0], device=x.device)
+            for n, kv in pool.items():
+                for k, v in kv.items():
+                    scatter_kv_token(v, new_caches[n][k][rows, :, positions],
+                                     page_table, positions)
+            return probs, pool
+
+        self._paged_decode_fns[page_len] = paged_decode
+        return paged_decode

@@ -12,9 +12,9 @@ JAX layer does where ``flash_ok`` fails. The choice is made from the
 arguments, the same on every device. The Q/K/V/O projections stay
 ``torch.matmul``.
 Training drops out the layer's input. Incremental decode (``prefill``,
-``decode_step``) is plain torch, as the JAX package leaves it to XLA. The
-ring (sequence-parallel) path and the paged-KV helpers are not ported
-yet.
+``decode_step``) and the paged-KV helpers (``gather_kv_pages``,
+``scatter_kv_token``) are plain torch, as the JAX package leaves them to
+XLA. The ring (sequence-parallel) path is not ported yet.
 """
 
 from __future__ import annotations
@@ -102,6 +102,46 @@ def blockwise_attention(q, k, v, *, block_size: int = 512,
 def finalize_attention(out, lse):
     """Normalise ``blockwise_attention``'s output by its running sum."""
     return out / torch.clamp_min(lse[..., None], 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# block-paged KV caches: the page-table indirection seam
+# ---------------------------------------------------------------------------
+
+def gather_kv_pages(pages, page_table):
+    """Materialize per-row dense KV state from a block-paged pool.
+
+    ``pages``: the pool, ``[n_pages, H, page_len, D]``. ``page_table``:
+    ``[rows, pages_per_row]`` int64 physical page ids per row. Returns
+    the dense ``[rows, H, pages_per_row * page_len, D]`` cache (a copy)
+    the unmodified attention ``decode_step`` expects — when ``page_len``
+    divides ``max_len`` this is shape- and VALUE-identical to the
+    whole-row cache, so the paged decode step computes what the dense
+    one does (content in unmapped or stale pages is finite and sits only
+    at masked positions, where softmax contributes exact zeros)."""
+    rows, ppr = page_table.shape
+    _, H, page_len, D = pages.shape
+    g = pages[page_table]                       # [rows, ppr, H, pl, D]
+    g = g.permute(0, 2, 1, 3, 4)                # [rows, H, ppr, pl, D]
+    return g.reshape(rows, H, ppr * page_len, D)
+
+
+def scatter_kv_token(pages, new_kv, page_table, positions):
+    """Write one decode step's K (or V) into the paged pool IN PLACE and
+    return the pool (the same tensor; the JAX function returns a new
+    array).
+
+    ``new_kv``: ``[rows, H, D]`` — each row's K/V at its current write
+    position. The write lands in page ``page_table[row, pos // pl]`` at
+    offset ``pos % pl``. Live rows' write pages are EXCLUSIVE by
+    construction (the engine only shares fully-prefilled prompt pages),
+    so their targets never collide; rows without a mapped write page
+    alias scratch page 0, where several writes may meet (one wins)."""
+    page_len = pages.shape[2]
+    rows = torch.arange(page_table.shape[0], device=page_table.device)
+    phys = page_table[rows, positions // page_len]
+    pages[phys, :, positions % page_len, :] = new_kv
+    return pages
 
 
 @register_layer

@@ -10,6 +10,8 @@ card's machine, which has none:
 """
 
 import ast
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -17,6 +19,9 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.convert import params_to_numpy
+from deeplearning4j_tpu_torch.keras.generation import (
+    GenerationScheduler, StepRunner,
+)
 from deeplearning4j_tpu_torch.models.resnet import resnet_tiny
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
@@ -28,6 +33,7 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
 )
 from deeplearning4j_tpu_torch.nn.netcommon import value_and_grad
 from deeplearning4j_tpu_torch.nn.updater import tree_map
+from deeplearning4j_tpu_torch.resilience.service import Deadline
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.datasets import DataSet
@@ -913,6 +919,196 @@ def test_resnet_tiny_on_card_matches_cpu(card):
                                atol=1e-4)
 
 
+# ------------------------------------------- the serving engine's graphs
+
+SERVE_V, SERVE_T, SERVE_NEW = 13, 16, 6
+
+
+def _serving_net(card, **kw):
+    return ComputationGraph(gpt_tiny(vocab_size=SERVE_V, seq_len=SERVE_T,
+                                     **kw), device=card).init()
+
+
+def _serving_prompts(seed=23):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, SERVE_V, k).tolist() for k in (3, 7, 2, 5, 4, 6)]
+
+
+def _serve(sched, net, prompts, lock=None):
+    results, res_lock = {}, threading.Lock()
+
+    def one(i):
+        r = sched.submit("m", net, lock or threading.Lock(), prompts[i],
+                         SERVE_NEW, Deadline(120))
+        with res_lock:
+            results[i] = r["tokens"]
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120.0)
+    assert not any(t.is_alive() for t in threads)
+    return [results[i] for i in range(len(prompts))]
+
+
+def _clone_pool(pool):
+    return {n: {k: v.clone() for k, v in kv.items()} for n, kv in pool.items()}
+
+
+def _restore_pool(pool, snapshot):
+    for n, kv in pool.items():
+        for k, v in kv.items():
+            v.copy_(snapshot[n][k])
+
+
+def _pools_equal(a, b):
+    return all(torch.equal(a[n][k], b[n][k]) for n in a for k in a[n])
+
+
+def test_graphed_steps_equal_eager_steps_bitwise(card):
+    """For every decode bucket (1, 2, 4, 8 rows) and every prefill bucket
+    (1 to 16 positions): the CUDA-graph runner's probabilities and the
+    pool (or the prefill's cache) it leaves are bitwise equal to the
+    eager step's from the same state. Each decode bucket maps distinct
+    pages per row, a row without pages aliasing scratch page 0."""
+    net = _serving_net(card)
+    pl = net.kv_page_len()
+    ppr = SERVE_T // pl
+    gen = torch.Generator(device=card).manual_seed(0)
+    pool = net.init_kv_page_pool(8 * ppr + 1, pl)
+    for kv in pool.values():
+        for v in kv.values():
+            v.copy_(torch.randn(v.shape, generator=gen, device=card))
+    snapshot = _clone_pool(pool)
+    step = net.paged_decode_fn(pl)
+    rng = np.random.default_rng(4)
+    eye = np.eye(SERVE_V, dtype=np.float32)
+    for rows in (1, 2, 4, 8):
+        runner = StepRunner(net, "decode", rows, pl, pool=pool)
+        assert runner.graphed and runner.nbytes > 0
+        table = rng.permutation(np.arange(1, 8 * ppr + 1))[:rows * ppr] \
+            .reshape(rows, ppr).astype(np.int64)
+        if rows > 1:
+            table[-1] = 0
+        positions = rng.integers(0, SERVE_T, rows).astype(np.int64)
+        x = eye[rng.integers(0, SERVE_V, rows)][:, None, :]
+        eager = _clone_pool(snapshot)
+        probs_e, _ = step(net.params, net.states, eager,
+                          torch.from_numpy(x).to(card),
+                          torch.from_numpy(positions).to(card),
+                          torch.from_numpy(table).to(card))
+        _restore_pool(pool, snapshot)      # undo the warm-up's page-0 write
+        probs_g, out = runner(net.params, net.states, pool, x, positions,
+                              table)
+        assert out is pool
+        assert np.array_equal(probs_g, probs_e.cpu().numpy()), rows
+        assert _pools_equal(pool, eager), rows
+        _restore_pool(pool, snapshot)
+    prefill, _ = net.decode_fns()
+    for bucket in (1, 2, 4, 8, 16):
+        runner = StepRunner(net, "prefill", bucket, pl)
+        L = max(1, bucket - 1)
+        x = np.zeros((1, bucket, SERVE_V), np.float32)
+        x[0, :L] = eye[rng.integers(0, SERVE_V, L)]
+        lengths = np.asarray([L], np.int64)
+        probs_e, caches_e = prefill(
+            net.params, net.states, net.init_decode_cache(1),
+            torch.from_numpy(x).to(card), torch.from_numpy(lengths).to(card))
+        probs_g, caches_g = runner(net.params, net.states, x, lengths)
+        assert np.array_equal(probs_g, probs_e.cpu().numpy()), bucket
+        assert _pools_equal(caches_g, caches_e), bucket
+
+
+def test_engine_serves_new_weights_after_fit_batch_and_reinit(card):
+    """A ``fit_batch`` between two waves updates the params in place: the
+    graphs read the new weights without a capture, and the second wave's
+    tokens are the card's singleton references on them. Params REPLACED
+    by ``init(params=...)`` move to new addresses: the next call of each
+    bucket re-captures (counted), never replays the old weights. Each
+    wave brings new prompts (the prompt registry keeps prefills of the
+    old weights, ROADMAP C9). The decode loop is kept alive between the
+    waves (the first ``fit_batch`` builds the kernels): a retired loop's
+    engine leaves with its pool, and a new pool is new addresses, which
+    the decode graphs would rightly capture again."""
+    net = _serving_net(card, learning_rate=0.05)
+    waves = [[[(t + s) % SERVE_V for t in p] for p in _serving_prompts()]
+             for s in range(3)]
+    sched = GenerationScheduler(max_rows=8, prewarm_decode_ladder=True,
+                                idle_thread_s=600.0)
+    try:
+        assert _serve(sched, net, waves[0]) == \
+            [greedy_generate(net, p, SERVE_NEW) for p in waves[0]]
+        compiles = sched.stats()["compiles"]
+        old = [greedy_generate(net, p, SERVE_NEW) for p in waves[1]]
+        rng = np.random.default_rng(5)
+        tok = rng.integers(0, SERVE_V, (4, SERVE_T + 1))
+        eye = np.eye(SERVE_V, dtype=np.float32)
+        for _ in range(3):
+            net.fit_batch(DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]]))
+        new = [greedy_generate(net, p, SERVE_NEW) for p in waves[1]]
+        assert new != old
+        assert _serve(sched, net, waves[1]) == new
+        assert sched.stats()["compiles"] == compiles
+        net.init(params={n: {k: v.cpu() * 1.5 for k, v in p.items()}
+                         for n, p in net.params.items()})
+        assert _serve(sched, net, waves[2]) == \
+            [greedy_generate(net, p, SERVE_NEW) for p in waves[2]]
+        assert sched.stats()["compiles"] > compiles
+        assert max(sched.stats()["bucket_compiles"].values()) == 2
+    finally:
+        sched.stop()
+
+
+def test_capture_while_another_thread_holds_the_model_lock(card):
+    """The engine captures its graphs on its own thread, outside the
+    model lock: while another thread holds that lock and keeps the card
+    busy on the default stream, the first request's buckets are captured
+    (thread-local capture on a side stream), and the request completes
+    with its singleton tokens once the lock is free."""
+    net = _serving_net(card)
+    other = _serving_net(card)
+    prompt = _serving_prompts()[1]
+    ref = greedy_generate(net, prompt, SERVE_NEW)
+    x = np.eye(SERVE_V, dtype=np.float32)[np.zeros((8, SERVE_T), int)]
+    lock = threading.Lock()
+    release = threading.Event()
+    held = threading.Event()
+
+    def hold():
+        with lock:
+            held.set()
+            while not release.is_set():
+                other.output(x)
+                torch.cuda.current_stream().synchronize()
+
+    holder = threading.Thread(target=hold, daemon=True)
+    holder.start()
+    assert held.wait(30.0)
+    sched = GenerationScheduler(max_rows=2)
+    out = {}
+    try:
+        client = threading.Thread(target=lambda: out.setdefault(
+            "r", sched.submit("m", net, lock, prompt, SERVE_NEW,
+                              Deadline(120))), daemon=True)
+        client.start()
+        t_end = time.monotonic() + 60.0
+        while sched.stats()["compiles"] < 1 and time.monotonic() < t_end:
+            time.sleep(0.01)
+        captured_while_held = sched.stats()["compiles"]
+        assert "r" not in out             # still waiting for the lock
+        release.set()
+        holder.join(60.0)
+        client.join(120.0)
+        assert not holder.is_alive() and not client.is_alive()
+        assert captured_while_held >= 1
+        assert out["r"]["tokens"] == ref
+    finally:
+        release.set()
+        sched.stop()
+
+
 # --------------------------------------------------------------- imports
 # (no card needed: this runs wherever the file does)
 
@@ -925,8 +1121,9 @@ def _imported_modules(path: Path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """Every module of the port, the CNN slice's among them, and
-    chip_smoke.py import neither JAX nor the JAX package."""
+    """Every module of the port, the CNN slice's and the serving
+    engine's among them, and chip_smoke.py import neither JAX nor the
+    JAX package."""
     files = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     names = {str(f.relative_to(ROOT)) for f in files}
@@ -936,7 +1133,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "nn/conf/graph.py", "nn/conf/graph_builder.py",
                    "nn/netcommon.py", "convert.py", "eval/evaluation.py",
                    "datasets/mnist.py", "models/lenet.py", "models/vgg.py",
-                   "models/resnet.py"):
+                   "models/resnet.py", "util/math_utils.py",
+                   "profiling/metrics.py", "profiling/tracer.py",
+                   "profiling/flightrec.py", "profiling/watchdog.py",
+                   "resilience/service.py", "resilience/faultinject.py",
+                   "resilience/sentinel.py", "analysis/memory.py",
+                   "keras/batching.py", "keras/generation.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     banned = ("jax", "jaxlib", "deeplearning4j_tpu")
     bad = [(str(f.relative_to(ROOT)), m) for f in files
