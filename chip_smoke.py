@@ -124,8 +124,26 @@ Phases, each printing JSON lines:
    4 and 8 rows (host time, in turns) with their kernels, host launches
    and busy share from torch.profiler. No kernel of K1-K6 is launched on
    this path;
-10. a ``{"kernels": [...]}`` summary line;
-11. last line ``{"ok": true, "device": {...}}``.
+10. checkpoint — ``ModelSerializer`` zip archives on the card: the
+   full-width GPT (3 ``fit_batch`` calls of [32, 256], Adam), the
+   char-RNN (3 tBPTT ``fit_batch`` calls of [32, 200]) and the f32
+   ResNet-50 at batch 4 (one Nesterov step; archived without its updater
+   state, which the source then restarts) are written, verified and
+   restored with ``restore_model`` (``device=None``: onto the card); the
+   restored params, layer states and updater leaves equal the source's
+   bit for bit, ``output()`` and the next ``fit_batch`` (loss and params)
+   too (ResNet-50's with cuDNN in deterministic mode), and the restored
+   GPT and char-RNN launch K4/K5/K6 and K1/K2/K3 exactly as often as the
+   nets they were written from; a served GPT reloaded with
+   ``restore_weights`` between two waves of the serving engine answers
+   new prompts with the restored net's singleton tokens, and the
+   re-captures that causes are counted; a truncated ``coefficients.bin``
+   and a flipped byte in ``updaterState.bin`` of the full-width GPT's
+   archive each raise ``CheckpointError`` naming the member. Archive
+   bytes (raw and compressed, per member), write / verify / restore
+   seconds and the host-to-card copy of the coefficients are reported;
+11. a ``{"kernels": [...]}`` summary line;
+12. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -142,10 +160,13 @@ it exits 2 and prints no result.
 
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -189,7 +210,9 @@ from deeplearning4j_tpu_torch.resilience import faultinject
 from deeplearning4j_tpu_torch.resilience.faultinject import (
     Fault, FaultSchedule,
 )
+from deeplearning4j_tpu_torch.resilience.atomic import CheckpointError
 from deeplearning4j_tpu_torch.resilience.service import Deadline
+from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
 
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -327,6 +350,11 @@ SERVE_TIMED_CALLS = 30
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch")
 TRAIN_BATCH = 32               # [32, 256] windows per step
+#: the checkpoint phase: fit_batch calls before the GPT's and the
+#: char-RNN's archives are written (one for ResNet-50), the served
+#: reload's requests per wave (prompt lengths, new tokens)
+CKPT_STEPS = 3
+RELOAD_LENGTHS, RELOAD_NEW = (5, 17, 33, 64, 100, 128, 9, 40), 16
 #: 95 printable ASCII characters and the newline: the 96-symbol vocabulary
 CHARSET = "".join(chr(i) for i in range(32, 127)) + "\n"
 #: kernel-name substrings of the three attention kernels in a trace
@@ -2214,6 +2242,277 @@ def serve_engine():
     return main_path
 
 
+def archive_record(path) -> dict:
+    """An archive's bytes on disk, and each member's raw and compressed
+    bytes."""
+    with zipfile.ZipFile(path) as z:
+        members = {i.filename: dict(raw=i.file_size,
+                                    compressed=i.compress_size)
+                   for i in z.infolist()}
+    return dict(file_bytes=Path(path).stat().st_size,
+                raw_bytes=sum(m["raw"] for m in members.values()),
+                members=members)
+
+
+def updater_leaves_equal(a, b) -> bool:
+    la, lb = a._tx.optax_leaves(a.opt_state), b._tx.optax_leaves(b.opt_state)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def states_equal(a, b) -> bool:
+    sa = a.states.items() if isinstance(a.states, dict) else enumerate(
+        a.states)
+    sb = dict(b.states.items() if isinstance(b.states, dict)
+              else enumerate(b.states))
+    return all(sorted(s) == sorted(sb[i]) and all(
+        torch.equal(v, sb[i][k]) for k, v in s.items()) for i, s in sa)
+
+
+def round_trip_case(name, net, batches, x, path, expect,
+                    save_updater=True):
+    """Train ``net`` one ``fit_batch`` per batch but the last, write,
+    verify and restore it onto the card; hold the restored net's params,
+    states, updater, output() and next fit_batch (on the last batch)
+    against the source bit for bit (params, states, updater and count
+    right after the restore), and its launches of ``expect`` (the
+    kernels of that path) against the source's. Without
+    ``save_updater`` the archive holds no updater state, and the source
+    restarts its updater too, so the next steps still compare. Returns
+    (record, restored net)."""
+    for batch in batches[:-1]:
+        net.fit_batch(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ModelSerializer.write_model(net, path, save_updater=save_updater)
+    write_s = time.perf_counter() - t0
+    if not save_updater:
+        net.opt_state = net._tx.init(net.params)
+    t0 = time.perf_counter()
+    ModelSerializer.verify(path)
+    verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ModelSerializer.restore_model(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    flat = net.params_flat()
+    h2d = torch.from_numpy(flat)
+    t0 = time.perf_counter()
+    h2d.to("cuda")
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    check(back.device.type == "cuda", f"{name}: restored on {back.device}")
+    # held right after the restore, before either net steps again; with
+    # no updater in the archive both states are fresh, so there is
+    # nothing to compare (None)
+    params_equal = bool(np.array_equal(back.params_flat(), flat))
+    states_eq = states_equal(back, net)
+    updater_eq = updater_leaves_equal(back, net) if save_updater else None
+    count = ([int(net.opt_state["count"]), int(back.opt_state["count"])]
+             if save_updater else None)
+    launches = {}
+    outs, losses = {}, {}
+    for who, n in (("source", net), ("restored", back)):
+        reset_counts()
+        outs[who] = n.output(x)
+        losses[who] = n.fit_batch(batches[-1])
+        torch.cuda.synchronize()
+        launches[who] = counts()
+    rec = dict(
+        phase="checkpoint", model=name, params=net.num_params(),
+        updater_saved=save_updater,
+        archive=archive_record(path), write_s=write_s, verify_s=verify_s,
+        restore_s=restore_s, h2d_coefficients_s=h2d_s,
+        h2d_bytes=flat.nbytes, params_equal=params_equal,
+        states_equal=states_eq, updater_equal=updater_eq, count=count,
+        output_equal=bool(torch.equal(outs["source"], outs["restored"])),
+        output_shape=list(outs["source"].shape),
+        output_finite=bool(torch.isfinite(outs["source"]).all()),
+        next_loss=[float(losses["source"]), float(losses["restored"])],
+        next_loss_equal=bool(torch.equal(losses["source"],
+                                         losses["restored"])),
+        next_params_equal=bool(np.array_equal(back.params_flat(),
+                                              net.params_flat())),
+        launches=launches)
+    emit(rec)
+    check(params_equal and states_eq and (
+              not save_updater or (updater_eq and count[0] == count[1])),
+          f"{name}: the restore differs from the archive's source: "
+          f"params {params_equal}, states {rec['states_equal']}, updater "
+          f"{rec['updater_equal']}, count {rec['count']}")
+    check(rec["output_equal"] and rec["output_finite"],
+          f"{name}: restored output() differs from the source's")
+    check(rec["next_loss_equal"] and rec["next_params_equal"],
+          f"{name}: the next fit_batch after the restore differs: "
+          f"{rec['next_loss']}, params {rec['next_params_equal']}")
+    check(launches["source"] == launches["restored"]
+          and all(launches["restored"][k] > 0 for k in expect),
+          f"{name}: launches {launches}, expected each of {expect}")
+    return rec, back
+
+
+def served_reload_case(path):
+    """A GPT behind the serving engine: one wave, then ``restore_weights``
+    of another archive (``path``, the trained GPT's) into the served net
+    under its lock, then a wave of new prompts of the same lengths (the
+    prompt registry keeps prefills of the old weights, ROADMAP C9). Each
+    request's tokens against its singleton ``greedy_generate`` on the net
+    as served (the restored one for wave two); the captures the reload
+    causes are counted."""
+    net = ComputationGraph(gpt_decoder(**SLICE), device="cuda").init()
+    with zipfile.ZipFile(path) as z:
+        archived = np.frombuffer(z.read(ModelSerializer.COEFFICIENTS_NAME),
+                                 dtype="<f4")
+    V = SLICE["vocab_size"]
+    rng = np.random.default_rng(SEED + 11)
+    waves = [[rng.integers(0, V, n).tolist() for n in RELOAD_LENGTHS]
+             for _ in range(2)]
+    zero = [0.0] * len(RELOAD_LENGTHS)
+    none = [None] * len(RELOAD_LENGTHS)
+    lock = threading.Lock()
+    sched = GenerationScheduler(max_rows=SERVE_ROWS,
+                                prewarm_decode_ladder=True)
+    try:
+        refs1 = [greedy_generate(net, p, RELOAD_NEW) for p in waves[0]]
+        wave1, _ = serve_wave(sched, net, lock, waves[0], zero, none,
+                              RELOAD_NEW)
+        before = sched.stats()["compiles"]
+        old = net.params_flat()
+        ptrs = [t.data_ptr() for t in net._flat_order()]
+        t0 = time.perf_counter()
+        with lock:
+            ModelSerializer.restore_weights(path, net)
+            torch.cuda.synchronize()
+        reload_s = time.perf_counter() - t0
+        same_addresses = [t.data_ptr() for t in net._flat_order()] == ptrs
+        refs2 = [greedy_generate(net, p, RELOAD_NEW) for p in waves[1]]
+        wave2, _ = serve_wave(sched, net, lock, waves[1], zero, none,
+                              RELOAD_NEW)
+        recaptures = sched.stats()["compiles"] - before
+    finally:
+        sched.stop()
+    new = net.params_flat()
+    mismatch = {w: [i for i, r in enumerate(refs) if res[i]["tokens"] != r]
+                for w, res, refs in (("wave1", wave1, refs1),
+                                     ("wave2", wave2, refs2))}
+    rec = dict(phase="checkpoint_served_reload", requests=len(waves[0]),
+               new_tokens=RELOAD_NEW, prompt_lens=list(RELOAD_LENGTHS),
+               reload_s=reload_s, recaptures=recaptures,
+               same_param_addresses=same_addresses,
+               weights_changed=not np.array_equal(old, new),
+               restored_equals_archive=bool(np.array_equal(new, archived)),
+               tokens_mismatch_singleton=mismatch)
+    emit(rec)
+    check(rec["weights_changed"] and rec["restored_equals_archive"]
+          and same_addresses,
+          f"served reload: changed {rec['weights_changed']}, equal to the "
+          f"archive {rec['restored_equals_archive']}, addresses kept "
+          f"{same_addresses}")
+    check(not mismatch["wave1"] and not mismatch["wave2"],
+          f"served reload: tokens differ from the singleton's: {mismatch}")
+    check(recaptures == 0, f"served reload re-captured {recaptures} steps")
+    return rec
+
+
+def integrity_case(path, tmp):
+    """A truncated coefficients.bin and a flipped byte in
+    updaterState.bin of a full-width archive (rebuilt stored, with the
+    original checksums manifest): ``verify`` raises ``CheckpointError``
+    naming each member."""
+    with zipfile.ZipFile(path) as z:
+        members = {n: z.read(n) for n in z.namelist()}
+    out = {}
+    for k, (member, damage) in enumerate((
+            (ModelSerializer.COEFFICIENTS_NAME, lambda b: b[:-4096]),
+            (ModelSerializer.UPDATER_NAME,
+             lambda b: b[:len(b) // 2] + bytes([b[len(b) // 2] ^ 0x10])
+             + b[len(b) // 2 + 1:]))):
+        bad = tmp / f"damaged_{k}.zip"   # a name that names no member
+        with zipfile.ZipFile(bad, "w", zipfile.ZIP_STORED) as z:
+            for n, data in members.items():
+                z.writestr(n, damage(data) if n == member else data)
+        try:
+            ModelSerializer.verify(bad)
+            out[member] = "no error"
+        except CheckpointError as e:
+            out[member] = str(e)
+        bad.unlink()
+    emit(dict(phase="checkpoint_integrity", errors=out))
+    for member, msg in out.items():
+        check(repr(member) in msg, f"a damaged {member} was not named: {msg}")
+    return out
+
+
+def checkpoint_phase():
+    """ModelSerializer on the card (ROADMAP A4.4): the GPT, the char-RNN
+    and ResNet-50 round trips, a served net reloaded between two waves,
+    and the integrity checks on a full-width archive. Returns the
+    restored nets' launch counts."""
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_checkpoint_"))
+    try:
+        B, T = TRAIN_BATCH, SLICE["seq_len"]
+        text = synthetic_char_text((CKPT_STEPS + 1) * B * (T + 1) + 1,
+                                   seed=SEED + 9)
+        batches = char_lm_batches(text, T, B, charset=CHARSET)
+        check(len(batches) == CKPT_STEPS + 1, f"{len(batches)} GPT batches")
+        gpt = ComputationGraph(gpt_decoder(**SLICE), device="cuda").init()
+        gpt_rec, _ = round_trip_case(
+            "gpt", gpt, batches, batches[0].features, tmp / "gpt.zip",
+            ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"))
+
+        (Bl, Tl) = LSTM_TRAIN_BATCH
+        text = synthetic_char_text((CKPT_STEPS + 1) * Bl * (Tl + 1) + 1,
+                                   seed=SEED + 10)
+        lbatches = char_lm_batches(text, Tl, Bl, charset=CHARSET)
+        check(len(lbatches) == CKPT_STEPS + 1,
+              f"{len(lbatches)} char-RNN batches")
+        rnn = MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE),
+                                device="cuda").init()
+        rnn_rec, _ = round_trip_case(
+            "char_rnn", rnn, lbatches, lbatches[0].features,
+            tmp / "char_rnn.zip",
+            ("lstm_fwd_infer", "lstm_fwd_train", "lstm_bwd"))
+
+        # one Nesterov step before the write, at lr 0.01: at the
+        # config's 0.1 on random images a random-init ResNet can turn
+        # non-finite within two steps, and a NaN equals nothing. Its
+        # updater state stays out of the archive, to keep the phase's
+        # time (deflate runs on the host at ~14 MB/s)
+        rng = np.random.default_rng(SEED + 12)
+        S, C = RESNET_HW, RESNET_CLASSES
+        rbatches = [DataSet(rng.random((RESNET_TWIN_BATCH, S, S, 3),
+                                       dtype=np.float32),
+                            np.eye(C, dtype=np.float32)[rng.integers(
+                                0, C, RESNET_TWIN_BATCH)])
+                    for _ in range(2)]
+        resnet = ComputationGraph(resnet50(dtype="float32",
+                                           learning_rate=0.01),
+                                  device="cuda").init()
+        n_bn = sum(1 for s in resnet.states.values() if "mean" in s)
+        # cuDNN's default algorithms may sum in a run-dependent order;
+        # its deterministic ones make the two nets' steps comparable bit
+        # for bit
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            res_rec, _ = round_trip_case(
+                "resnet50_f32", resnet, rbatches, rbatches[0].features,
+                tmp / "resnet50.zip", (), save_updater=False)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        check(n_bn == 53, f"ResNet-50 has {n_bn} batch-norm states, not 53")
+
+        reload_rec = served_reload_case(tmp / "gpt.zip")
+        integrity = integrity_case(tmp / "gpt.zip", tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(gpt=gpt_rec["launches"]["restored"],
+                char_rnn=rnn_rec["launches"]["restored"],
+                resnet=res_rec["launches"]["restored"],
+                recaptures=reload_rec["recaptures"], integrity=integrity)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2366,7 +2665,11 @@ def main() -> int:
     # bucket over the block-paged KV pool (no kernel of K1-K6 on this path)
     serve_engine()
 
-    # ---- 10. summary of every ported kernel -------------------------------
+    # ---- 10. ModelSerializer archives on the card: the GPT, the char-RNN
+    # and ResNet-50 round trips, a served reload, integrity ------------------
+    checkpoint_phase()
+
+    # ---- 11. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",

@@ -16,7 +16,12 @@ each tensor is a copy, not a transpose: a conv kernel stays HWIO
 running ``mean`` and ``var``) the same way, so an inference-mode
 ``output()`` compares too. ``params_to_numpy`` (and ``states_to_numpy``)
 go the other way, to numpy arrays in the same structure, so tests
-compare the two nets' params, gradients or states by name. This module
+compare the two nets' params, gradients or states by name.
+``opt_state_from_jax(net, leaves)`` writes a JAX net's optax state, given
+as its flattened leaves (``jax.tree_util.tree_leaves(opt_state)`` as
+numpy), into a port net's updater state, and ``opt_state_to_jax(net)``
+gives a port net's state as those leaves, for ``tree_unflatten`` with the
+JAX net's treedef (``Updater.optax_layout`` holds the map). This module
 imports nothing of the JAX package: it reads arrays.
 """
 
@@ -99,14 +104,28 @@ def states_from_jax(conf, states: Union[Mapping, Sequence[Mapping]]
 def params_to_numpy(params):
     """A port container's params or gradients (a dict node -> name ->
     tensor, or a list of per-layer dicts) as numpy arrays in the same
-    structure, on the host; bf16 comes back as float32."""
+    structure, on the host; bf16 comes back as float32. The arrays are
+    copies: a snapshot that later in-place updates of the params (a
+    training step, ``set_params_flat``) leave as it was."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return [params_to_numpy(v) for v in params]
     t = params.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())
 
 
 #: a container's states as numpy arrays, in the same structure
 states_to_numpy = params_to_numpy
+
+
+def opt_state_from_jax(net, leaves: Sequence) -> None:
+    """Write optax's flattened leaves (numpy arrays, in
+    ``jax.tree_util.tree_leaves`` order) into ``net.opt_state`` in place."""
+    net._tx.load_optax_leaves(net.opt_state, [_to_tensor(a) for a in leaves])
+
+
+def opt_state_to_jax(net) -> List[np.ndarray]:
+    """``net.opt_state`` as optax's flattened leaves (numpy arrays; bf16
+    moments as float32)."""
+    return [params_to_numpy(t) for t in net._tx.optax_leaves(net.opt_state)]

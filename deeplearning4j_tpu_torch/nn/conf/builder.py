@@ -12,11 +12,18 @@ training settings (updater and learning-rate policy, regularization,
 gradient normalization, ``minimize``, the optimization algorithm, the
 precision policy, rematerialization, tBPTT) are read by
 ``nn/updater.py`` and the containers' ``fit_batch``, which refuse the
-values whose paths are not ported yet. JSON serde waits.
+values whose paths are not ported yet.
+
+Serde: ``conf.to_json()`` / ``MultiLayerConfiguration.from_json`` and the
+YAML twins write and read the JAX package's documents (the same
+``format`` tag, fields and type tags), so a config crosses between the
+two packages in either direction. PyYAML is imported only inside
+``to_yaml`` / ``from_yaml``.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -24,7 +31,9 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     InputPreProcessor, auto_preprocessor,
 )
-from deeplearning4j_tpu_torch.nn.layers.base import BaseLayerConf, GlobalConf
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    BaseLayerConf, GlobalConf, layer_from_dict,
+)
 from deeplearning4j_tpu_torch.nn.weights import Distribution
 
 # Layer-family classification: which input kind a layer expects, as in the
@@ -70,19 +79,42 @@ class UpdaterConfig:
     lr_policy_steps: float = 1.0
     lr_schedule: Optional[Dict[int, float]] = None  # iteration -> lr
 
+    def to_dict(self) -> dict:
+        d = {k: v for k, v in self.__dict__.items() if v is not None}
+        if self.lr_schedule is not None:   # JSON keys are strings
+            d["lr_schedule"] = {str(k): v
+                                for k, v in self.lr_schedule.items()}
+        return d
+
+    @staticmethod
+    def from_dict(d: dict) -> "UpdaterConfig":
+        d = dict(d)
+        if d.get("lr_schedule"):
+            d["lr_schedule"] = {int(k): v
+                                for k, v in d["lr_schedule"].items()}
+        return UpdaterConfig(**d)
+
 
 @dataclass
 class TrainingConfig:
     """Settings carried beside the layers: the init seed, the parameter
     dtype, the optimizer, gradient normalization, the precision policy and
-    the backprop style."""
+    the backprop style. ``iterations``, ``max_num_line_search_iterations``,
+    ``minibatch``, ``backprop`` and ``pretrain`` are carried so the JAX
+    package's configs load; the containers refuse their non-default
+    values (``netcommon.check_trainable``)."""
     seed: int = 12345
     # sgd | line_gradient_descent | conjugate_gradient | lbfgs
     optimization_algo: str = "sgd"
+    iterations: int = 1             # outer solver iterations per fit
+    max_num_line_search_iterations: int = 5
     minimize: bool = True
+    minibatch: bool = True
     updater: UpdaterConfig = field(default_factory=UpdaterConfig)
     gradient_normalization: str = "none"
     gradient_normalization_threshold: float = 1.0
+    backprop: bool = True
+    pretrain: bool = False
     backprop_type: str = "standard"  # standard | truncated_bptt
     tbptt_fwd_length: int = 20
     tbptt_bwd_length: int = 20
@@ -90,6 +122,17 @@ class TrainingConfig:
     precision: str = "fp32"         # nn/updater.PrecisionPolicy presets
     loss_scale: Optional[float] = None
     remat: bool = False             # recompute activations in backward
+
+    def to_dict(self) -> dict:
+        d = dict(self.__dict__)
+        d["updater"] = self.updater.to_dict()
+        return d
+
+    @staticmethod
+    def from_dict(d: dict) -> "TrainingConfig":
+        d = dict(d)
+        d["updater"] = UpdaterConfig.from_dict(d["updater"])
+        return TrainingConfig(**d)
 
 
 @dataclass
@@ -102,6 +145,51 @@ class MultiLayerConfiguration:
     input_type: Optional[InputType] = None
     input_types: List[InputType] = field(default_factory=list)
     training: TrainingConfig = field(default_factory=TrainingConfig)
+
+    def to_dict(self) -> dict:
+        return {
+            "format": "deeplearning4j_tpu/MultiLayerConfiguration",
+            "version": 1,
+            "training": self.training.to_dict(),
+            "input_type": (self.input_type.to_dict()
+                           if self.input_type else None),
+            "input_types": [t.to_dict() for t in self.input_types],
+            "preprocessors": {str(i): p.to_dict()
+                              for i, p in self.preprocessors.items()},
+            "layers": [layer.to_dict() for layer in self.layers],
+        }
+
+    def to_json(self, indent: int = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    @staticmethod
+    def from_dict(d: dict) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration(
+            layers=[layer_from_dict(ld) for ld in d["layers"]],
+            preprocessors={int(i): InputPreProcessor.from_dict(pd)
+                           for i, pd in d.get("preprocessors", {}).items()},
+            input_type=(InputType.from_dict(d["input_type"])
+                        if d.get("input_type") else None),
+            input_types=[InputType.from_dict(t)
+                         for t in d.get("input_types", [])],
+            training=TrainingConfig.from_dict(d["training"]),
+        )
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration.from_dict(json.loads(s))
+
+    def to_yaml(self) -> str:
+        """YAML twin of ``to_json``: the dict goes through JSON first, so
+        both documents carry the same data (tuples as lists, keys as
+        strings)."""
+        import yaml
+        return yaml.safe_dump(json.loads(self.to_json()), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "MultiLayerConfiguration":
+        import yaml
+        return MultiLayerConfiguration.from_dict(yaml.safe_load(s))
 
 
 def validate_layer_options(layers) -> None:

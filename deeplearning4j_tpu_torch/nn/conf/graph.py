@@ -3,7 +3,9 @@ package's ``nn/conf/graph.py``): merge, elementwise, subset, stack and
 unstack, L2 normalize, L2 distance, scale, shift, reshape, last time step
 and duplicate-to-time-series. The graph walk hands ``LastTimeStepVertex``
 its input's mask (``apply_masked``) and ``DuplicateToTimeSeriesVertex``
-its reference node's activation."""
+its reference node's activation. Each vertex registers under its class
+name in ``VERTEX_REGISTRY`` for JSON serde (``to_dict`` /
+``from_dict``)."""
 
 from __future__ import annotations
 
@@ -34,6 +36,22 @@ class GraphVertex:
 
     def apply(self, inputs: List[torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
+
+    def to_dict(self) -> dict:
+        d = {"@type": type(self).__name__}
+        d.update({k: v for k, v in self.__dict__.items() if v is not None})
+        return d
+
+    @staticmethod
+    def from_dict(d: dict) -> "GraphVertex":
+        """The vertex a ``to_dict`` result describes, by its ``@type``
+        tag in ``VERTEX_REGISTRY``; lists come back as tuples."""
+        d = dict(d)
+        cls = VERTEX_REGISTRY[d.pop("@type")]
+        for k, v in list(d.items()):
+            if isinstance(v, list):
+                d[k] = tuple(v)
+        return cls(**d)
 
 
 @register_vertex

@@ -6,11 +6,14 @@ topologically (Kahn's algorithm), infers every layer's ``n_in`` and, under
 truncated BPTT, checks that every output is time-distributed. Where a layer's
 input kind differs from what it expects, an input preprocessor goes in
 front of it, as in the JAX package (``add_layer(..., preprocessor=)``
-sets one by hand).
+sets one by hand). ``to_json`` / ``from_json`` and the YAML twins write
+and read the JAX package's documents: the nodes in topological order,
+shapes resolved again on load.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -23,7 +26,9 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     InputPreProcessor, auto_preprocessor,
 )
-from deeplearning4j_tpu_torch.nn.layers.base import BaseLayerConf
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    BaseLayerConf, layer_from_dict,
+)
 
 
 @dataclass
@@ -46,6 +51,72 @@ class ComputationGraphConfiguration:
     resolved_types: Dict[str, InputType] = field(default_factory=dict)
     topological_order: List[str] = field(default_factory=list)
     training: TrainingConfig = field(default_factory=TrainingConfig)
+
+    def to_dict(self) -> dict:
+        def node_dict(n: NodeConf) -> dict:
+            d = {"name": n.name, "kind": n.kind, "inputs": n.inputs}
+            if n.layer is not None:
+                d["layer"] = n.layer.to_dict()
+            if n.vertex is not None:
+                d["vertex"] = n.vertex.to_dict()
+            if n.preprocessor is not None:
+                d["preprocessor"] = n.preprocessor.to_dict()
+            return d
+
+        return {
+            "format": "deeplearning4j_tpu/ComputationGraphConfiguration",
+            "version": 1,
+            "training": self.training.to_dict(),
+            "network_inputs": self.network_inputs,
+            "network_outputs": self.network_outputs,
+            "input_types": {k: v.to_dict()
+                            for k, v in self.input_types.items()},
+            "nodes": [node_dict(self.nodes[name])
+                      for name in self.topological_order],
+            "topological_order": self.topological_order,
+        }
+
+    def to_json(self, indent: int = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    @staticmethod
+    def from_dict(d: dict) -> "ComputationGraphConfiguration":
+        nodes: Dict[str, NodeConf] = {}
+        for nd in d["nodes"]:
+            nodes[nd["name"]] = NodeConf(
+                name=nd["name"], kind=nd["kind"], inputs=list(nd["inputs"]),
+                layer=(layer_from_dict(nd["layer"]) if "layer" in nd
+                       else None),
+                vertex=(GraphVertex.from_dict(nd["vertex"])
+                        if "vertex" in nd else None),
+                preprocessor=(InputPreProcessor.from_dict(nd["preprocessor"])
+                              if "preprocessor" in nd else None))
+        conf = ComputationGraphConfiguration(
+            nodes=nodes,
+            network_inputs=list(d["network_inputs"]),
+            network_outputs=list(d["network_outputs"]),
+            input_types={k: InputType.from_dict(v)
+                         for k, v in d.get("input_types", {}).items()},
+            topological_order=list(d["topological_order"]),
+            training=TrainingConfig.from_dict(d["training"]),
+        )
+        conf._resolve_shapes()
+        return conf
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        return ComputationGraphConfiguration.from_dict(json.loads(s))
+
+    def to_yaml(self) -> str:
+        """YAML twin of ``to_json``, normalized through JSON first so both
+        documents carry the same data."""
+        import yaml
+        return yaml.safe_dump(json.loads(self.to_json()), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "ComputationGraphConfiguration":
+        import yaml
+        return ComputationGraphConfiguration.from_dict(yaml.safe_load(s))
 
     def _topo_sort(self) -> List[str]:
         """Kahn's algorithm (ref: ComputationGraph.topologicalSortOrder)."""

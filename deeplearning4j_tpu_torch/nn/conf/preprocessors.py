@@ -4,17 +4,26 @@
 kind differs from what it expects. CNN tensors are NHWC ``[B, H, W, C]``
 and RNN tensors ``[B, T, F]``, as in the JAX package, so a CNN flattens
 in ``h, w, c`` order with c fastest: a dense layer's ``W`` copied from the
-JAX net reads the same features.
+JAX net reads the same features. Each preprocessor registers under its
+class name in ``PREPROCESSOR_REGISTRY`` for JSON serde (``to_dict`` /
+``from_dict``, the JAX package's dicts).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Type
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+
+PREPROCESSOR_REGISTRY: Dict[str, Type["InputPreProcessor"]] = {}
+
+
+def register_preprocessor(cls):
+    PREPROCESSOR_REGISTRY[cls.__name__] = cls
+    return cls
 
 
 @dataclass
@@ -29,7 +38,19 @@ class InputPreProcessor:
                        in_type: InputType):
         return mask
 
+    def to_dict(self) -> dict:
+        d = {"@type": type(self).__name__}
+        d.update({k: v for k, v in self.__dict__.items() if v is not None})
+        return d
 
+    @staticmethod
+    def from_dict(d: dict) -> "InputPreProcessor":
+        d = dict(d)
+        tag = d.pop("@type")
+        return PREPROCESSOR_REGISTRY[tag](**d)
+
+
+@register_preprocessor
 @dataclass
 class CnnToFeedForwardPreProcessor(InputPreProcessor):
     """[B, H, W, C] -> [B, H * W * C]."""
@@ -41,6 +62,7 @@ class CnnToFeedForwardPreProcessor(InputPreProcessor):
         return InputType.feed_forward(in_type.flat_size())
 
 
+@register_preprocessor
 @dataclass
 class FeedForwardToCnnPreProcessor(InputPreProcessor):
     """[B, H * W * C] -> [B, H, W, C]."""
@@ -55,6 +77,7 @@ class FeedForwardToCnnPreProcessor(InputPreProcessor):
         return InputType.convolutional(self.height, self.width, self.channels)
 
 
+@register_preprocessor
 @dataclass
 class RnnToFeedForwardPreProcessor(InputPreProcessor):
     """[B, T, F] kept as-is; downstream feed-forward layers broadcast over
@@ -67,6 +90,7 @@ class RnnToFeedForwardPreProcessor(InputPreProcessor):
         return InputType.feed_forward(in_type.size)
 
 
+@register_preprocessor
 @dataclass
 class FeedForwardToRnnPreProcessor(InputPreProcessor):
     def transform(self, x, in_type):
@@ -76,6 +100,7 @@ class FeedForwardToRnnPreProcessor(InputPreProcessor):
         return InputType.recurrent(in_type.flat_size())
 
 
+@register_preprocessor
 @dataclass
 class CnnToRnnPreProcessor(InputPreProcessor):
     """[B, H, W, C] -> [B, 1, H * W * C]: the whole volume is one time
@@ -88,6 +113,7 @@ class CnnToRnnPreProcessor(InputPreProcessor):
         return InputType.recurrent(in_type.flat_size(), 1)
 
 
+@register_preprocessor
 @dataclass
 class RnnToCnnPreProcessor(InputPreProcessor):
     """[B, T, H * W * C] -> [B * T, H, W, C]."""

@@ -55,7 +55,8 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.shape import TimeDistributedLayer
 from deeplearning4j_tpu_torch.nn.multilayer import _sum_aux_losses
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    EvalMixin, NetCommonMixin, check_trainable, detach, value_and_grad,
+    EvalMixin, NetCommonMixin, check_trainable, detach, flat_params,
+    set_flat_params, value_and_grad,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer, compute_updates, l1_l2_penalty,
@@ -159,6 +160,29 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
         self._check_init()
         return sum(t.numel() for p in self.params.values()
                    for t in p.values())
+
+    def _flat_order(self) -> List[Tensor]:
+        """The param tensors in topological layer order, then each
+        layer's ``param_order()`` (a tied head has none of its own)."""
+        return [self.params[name][pname] for name in self._layer_nodes
+                for pname in self.conf.nodes[name].layer.param_order()]
+
+    def params_flat(self) -> np.ndarray:
+        """Flat param vector in topological order / param order (the
+        coefficients.bin contract for graphs); bf16 params come back as
+        float32."""
+        self._check_init()
+        return flat_params(self._flat_order())
+
+    def set_params_flat(self, flat: np.ndarray) -> None:
+        """Write ``flat`` (``params_flat``'s order) into the params in
+        place; a wrong length raises and leaves the net untouched."""
+        self._check_init()
+        set_flat_params(self._flat_order(), flat)
+
+    def predict(self, inputs) -> np.ndarray:
+        """Argmax over the first output's last axis."""
+        return self.output(inputs).argmax(dim=-1).cpu().numpy()
 
     # ---------------------------------------------------------------- forward
     def _forward(self, params, states, inputs: Dict[str, Tensor],

@@ -157,6 +157,10 @@ class SelfAttentionLayer(BaseLayerConf):
     causal: bool = False
     block_size: int = 512
     use_blockwise: bool = True
+    # the JAX layer's ring-attention switch for a sequence-parallel
+    # scope; kept so configs carry across, inert until the parallel
+    # trainers bring that scope (ROADMAP A6)
+    sequence_parallel: bool = True
 
     @property
     def supports_kv_cache(self) -> bool:

@@ -10,7 +10,10 @@ A layer is a dataclass of hyperparameters with plain functions on tensors:
   forward, returning ``(out, state)``; ``train`` turns on input dropout,
   drawn from ``rng`` (a ``torch.Generator`` on the net's device);
 - ``regularization()`` — param name -> (l1, l2) for the score's penalty;
-- loss heads add ``compute_loss(params, x, labels, *, mask, average)``.
+- loss heads add ``compute_loss(params, x, labels, *, mask, average)``;
+- ``to_dict`` / ``from_dict`` — JSON serde under the class's type tag
+  (``layer_from_dict`` resolves it through ``LAYER_REGISTRY``), the same
+  dict the JAX package writes.
 
 Layouts are the JAX package's: a weight ``W`` is ``[in, out]`` and a
 layer computes ``x @ W``. Autograd replaces the JAX package's ``jax.grad``
@@ -19,6 +22,7 @@ over the same pure forward.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple, Type
 
@@ -64,6 +68,35 @@ class BaseLayerConf:
     @classmethod
     def type_tag(cls) -> str:
         return cls.__name__
+
+    def to_dict(self) -> dict:
+        """The JSON dict: ``@type`` and every field that is not None
+        (tuples as lists, ``dist`` as its own dict)."""
+        d = {"@type": self.type_tag()}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if v is None:
+                continue
+            if isinstance(v, Distribution):
+                v = v.to_dict()
+            elif isinstance(v, tuple):
+                v = list(v)
+            d[f.name] = v
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BaseLayerConf":
+        d = dict(d)
+        d.pop("@type", None)
+        if isinstance(d.get("dist"), dict):
+            d["dist"] = Distribution.from_dict(d["dist"])
+        # tuples come back from JSON as lists
+        for f in dataclasses.fields(cls):
+            if f.name in d and isinstance(d[f.name], list):
+                hint = str(f.type)
+                if "Tuple" in hint or "tuple" in hint:
+                    d[f.name] = tuple(d[f.name])
+        return cls(**d)
 
     def apply_global_defaults(self, g: "GlobalConf") -> None:
         """Fill inherited fields from the global conf (ref:
@@ -149,3 +182,11 @@ class GlobalConf:
     l1_bias: float = 0.0
     l2_bias: float = 0.0
     dropout: float = 0.0
+
+
+def layer_from_dict(d: dict) -> BaseLayerConf:
+    """The layer a ``to_dict`` result describes, by its ``@type`` tag."""
+    tag = d.get("@type")
+    if tag not in LAYER_REGISTRY:
+        raise ValueError(f"Unknown layer type tag {tag!r}")
+    return LAYER_REGISTRY[tag].from_dict(d)

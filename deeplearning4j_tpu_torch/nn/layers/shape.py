@@ -12,7 +12,7 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (
-    BaseLayerConf, register_layer,
+    BaseLayerConf, layer_from_dict, register_layer,
 )
 
 
@@ -117,6 +117,11 @@ class TimeDistributedLayer(BaseLayerConf):
     [B, T, ...] -> flatten time into batch -> inner -> unflatten."""
     inner: Optional[BaseLayerConf] = None
 
+    def __post_init__(self):
+        # JSON round trip: inner arrives as a plain dict
+        if isinstance(self.inner, dict):
+            self.inner = layer_from_dict(self.inner)
+
     def apply_global_defaults(self, g) -> None:
         super().apply_global_defaults(g)
         self.inner.apply_global_defaults(g)
@@ -154,6 +159,11 @@ class TimeDistributedLayer(BaseLayerConf):
         if mask is not None:
             out = out * mask[..., None]
         return out, new_state
+
+    def to_dict(self) -> dict:
+        d = super().to_dict()
+        d["inner"] = self.inner.to_dict()
+        return d
 
 
 @register_layer

@@ -45,7 +45,8 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.core import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    EvalMixin, NetCommonMixin, check_trainable, detach, value_and_grad,
+    EvalMixin, NetCommonMixin, check_trainable, detach, flat_params,
+    set_flat_params, value_and_grad,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer, compute_updates, l1_l2_penalty,
@@ -438,29 +439,31 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
         return h[:, 0] if squeeze else h
 
     # ----------------------------------------------------------- param access
+    def _flat_order(self) -> List[Tensor]:
+        """The param tensors in the documented layer / param order."""
+        return [p[name] for layer, p in zip(self.layers, self.params)
+                for name in layer.param_order()]
+
     def params_flat(self) -> np.ndarray:
         """One flat parameter vector in the documented layer/param order
         (the coefficients.bin view, ref: MultiLayerNetwork.params());
         bf16 params come back as float32."""
         self._check_init()
-        chunks = [p[name].detach().float().cpu().numpy().ravel()
-                  for layer, p in zip(self.layers, self.params)
-                  for name in layer.param_order()]
-        return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+        return flat_params(self._flat_order())
 
     def set_params_flat(self, flat: np.ndarray) -> None:
+        """Write ``flat`` (``params_flat``'s order) into the params in
+        place; a wrong length raises and leaves the net untouched."""
         self._check_init()
-        pos = 0
-        new_params = []
-        for layer, p in zip(self.layers, self.params):
-            d = {}
-            for name in layer.param_order():
-                n = p[name].numel()
-                d[name] = torch.as_tensor(
-                    np.asarray(flat[pos:pos + n]).reshape(p[name].shape),
-                    dtype=p[name].dtype, device=self.device)
-                pos += n
-            new_params.append(d)
-        if pos != len(flat):
-            raise ValueError(f"Expected {pos} params, got {len(flat)}")
-        self.params = new_params
+        set_flat_params(self._flat_order(), flat)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A new net on the same config and device with copies of the
+        params and layer states: it shares no tensor with this one. Its
+        updater state starts fresh, as the JAX package's clone's does."""
+        self._check_init()
+        net = MultiLayerNetwork(self.conf, device=self.device)
+        return net.init(params=[{k: t.detach().clone() for k, t in p.items()}
+                                for p in self.params],
+                        states=[{k: t.detach().clone() for k, t in s.items()}
+                                for s in self.states])

@@ -1,13 +1,15 @@
 """What the two containers share in training (the JAX package's
 ``nn/netcommon.py`` and the training-step helpers of its containers): the
 lazily read score, the gradient of a loss over a params container, the
-refusal of the training settings whose paths are not ported, and the
+refusal of the training settings whose paths are not ported, the flat
+parameter vector both containers read and write in place, and the
 training hooks that wait for ROADMAP A2."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.builder import TrainingConfig
@@ -22,6 +24,21 @@ def check_trainable(training: TrainingConfig) -> None:
         raise NotImplementedError(
             f"optimization_algo={training.optimization_algo!r}: the "
             "line-search solvers are not ported yet (ROADMAP A2, deferred)")
+    if (training.iterations != 1
+            or training.max_num_line_search_iterations != 5):
+        raise NotImplementedError(
+            f"iterations={training.iterations}, "
+            "max_num_line_search_iterations="
+            f"{training.max_num_line_search_iterations}: the solvers' "
+            "outer loop is not ported yet (ROADMAP A2, deferred)")
+    if not training.minibatch:
+        raise NotImplementedError(
+            "minibatch=False (full-batch scoring) is not ported yet "
+            "(ROADMAP A2, deferred)")
+    if training.pretrain or not training.backprop:
+        raise NotImplementedError(
+            f"pretrain={training.pretrain}, backprop={training.backprop}: "
+            "layerwise pretraining is not ported yet (ROADMAP A7)")
     if training.remat:
         raise NotImplementedError(
             "remat (gradient checkpointing) is not ported yet "
@@ -31,6 +48,34 @@ def check_trainable(training: TrainingConfig) -> None:
         raise NotImplementedError(
             f"precision={training.precision!r}: the port trains fp32 only; "
             "mixed precision is ROADMAP A2, deferred")
+
+
+def flat_params(tensors: Sequence[torch.Tensor]) -> np.ndarray:
+    """``tensors`` raveled and joined into one float32 host vector (bf16
+    comes back as float32), copied off the device once."""
+    if not tensors:
+        return np.zeros(0, np.float32)
+    return torch.cat([t.detach().reshape(-1).float()
+                      for t in tensors]).cpu().numpy()
+
+
+@torch.no_grad()
+def set_flat_params(tensors: List[torch.Tensor], flat) -> None:
+    """Write ``flat`` into ``tensors`` in order, **in place**: each tensor
+    keeps its storage (and its address, so a CUDA graph that reads it
+    stays valid) and its dtype. The length is checked before anything is
+    written, so a wrong one leaves every tensor as it was."""
+    total = sum(t.numel() for t in tensors)
+    if len(flat) != total:
+        raise ValueError(f"Expected {total} params, got {len(flat)}")
+    if not tensors:
+        return
+    src = torch.as_tensor(np.asarray(flat)).to(tensors[0].device)
+    pos = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(src[pos:pos + n].view(t.shape))
+        pos += n
 
 
 def value_and_grad(loss_fn: Callable, params) -> Tuple[torch.Tensor, Any,

@@ -22,7 +22,9 @@ per-layer dicts (``MultiLayerNetwork``). The state is a dict
 ``{"count": updates taken, <slot>: a container mirroring the params}``.
 Unlike the JAX package, which returns new trees, :func:`compute_updates`
 updates the params and the state **in place** under ``torch.no_grad()``,
-so a step holds no second copy of either.
+so a step holds no second copy of either. ``Updater.optax_leaves`` /
+``load_optax_leaves`` map the state to and from optax's flattened leaves,
+the layout of a checkpoint's ``updaterState.bin``.
 
 ``PrecisionPolicy`` is ported as ``parse`` and the fp32 path: a bf16 or
 fp16 policy is read and validated, and the containers refuse to train
@@ -245,6 +247,61 @@ class Updater:
             return step * g
 
         return tree_map(leaf, grads, *slots)
+
+
+    # ------------------------------------------------ optax's leaf order
+    def optax_layout(self) -> List[str]:
+        """The state's entries in the order ``jax.tree_util`` flattens the
+        JAX package's optax state (optax 0.2.6): ``"count"`` for each
+        int32 step count, a slot name for each moment tree. Adam and
+        Adamax keep their own count before the moments, and every
+        schedule's ``scale_by_learning_rate`` keeps one after them;
+        Adadelta runs at a float learning rate of 1.0, so it keeps no
+        count. ``minimize=False``'s ``scale(-1.0)`` adds no leaf."""
+        if self.name in ("adam", "adamax"):
+            return ["count", "mu", "nu", "count"]
+        if self.name == "adadelta":
+            return ["e_g", "e_x"]
+        return [*self.SLOTS[self.name], "count"]
+
+    def optax_leaves(self, state: Dict) -> List[Tensor]:
+        """``state`` as optax's leaves: each count an int32 scalar, each
+        moment tree's tensors in ``tree_leaves`` order (dict keys sorted
+        at every level)."""
+        out = []
+        for entry in self.optax_layout():
+            if entry == "count":
+                out.append(torch.tensor(state["count"], dtype=torch.int32))
+            else:
+                out.extend(tree_leaves(state[entry]))
+        return out
+
+    @torch.no_grad()
+    def load_optax_leaves(self, state: Dict, leaves: List[Tensor]) -> None:
+        """The inverse of :meth:`optax_leaves`: the moments are written
+        into ``state``'s tensors in place, and ``state["count"]`` is read
+        from the first count leaf (0 where the layout keeps none). The
+        leaf count and every leaf's size are checked before anything is
+        written."""
+        targets = []
+        for entry in self.optax_layout():
+            targets.extend([None] if entry == "count"
+                           else tree_leaves(state[entry]))
+        if len(leaves) != len(targets):
+            raise ValueError(f"{self.name}: {len(leaves)} updater leaves, "
+                             f"the state has {len(targets)}")
+        for leaf, dst in zip(leaves, targets):
+            want = 1 if dst is None else dst.numel()
+            if leaf.numel() != want:
+                raise ValueError(f"{self.name}: an updater leaf of "
+                                 f"{leaf.numel()} values where the state "
+                                 f"has {want}")
+        counts = [int(leaf.reshape(())) for leaf, dst in zip(leaves, targets)
+                  if dst is None]
+        for leaf, dst in zip(leaves, targets):
+            if dst is not None:
+                dst.copy_(leaf.reshape(dst.shape))
+        state["count"] = counts[0] if counts else 0
 
 
 def build_optimizer(training: TrainingConfig) -> Updater:

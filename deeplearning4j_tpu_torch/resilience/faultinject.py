@@ -1,7 +1,17 @@
 """Deterministic fault injection for the generation engine (the JAX
 package's ``resilience/faultinject.py``: the schedule and the engine's
-five hooks). The training, network, input-pipeline, elastic and fleet
-kinds wait for the paths they test (ROADMAP A5 part 2, A6).
+five hooks, and its checkpoint-commit hook). The training, network,
+input-pipeline, elastic and fleet kinds wait for the paths they test
+(ROADMAP A5 part 2, A6).
+
+Checkpoint fault kind:
+
+- ``truncate_checkpoint`` — tear the ``at_call``-th checkpoint commit.
+  ``mode="crash"`` truncates the tmp file and raises ``KilledByFault``
+  before the rename (a SIGKILL mid-write: the final path never
+  appears). ``mode="torn"`` lets a truncated file land at the final
+  path (a torn write that the rename protocol cannot see: checksum
+  verification must catch it on restore).
 
 Token-level decode fault kinds:
 
@@ -33,6 +43,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import List, Optional
 
 from deeplearning4j_tpu_torch.profiling.flightrec import (
@@ -42,7 +53,13 @@ from deeplearning4j_tpu_torch.profiling.metrics import get_registry
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
 _KINDS = ("poison_decode", "evict_cache", "evict_page",
-          "corrupt_page_table")
+          "corrupt_page_table", "truncate_checkpoint")
+
+
+class KilledByFault(RuntimeError):
+    """A scheduled simulated process death (``truncate_checkpoint``
+    crash mode) — NOT retryable: the "process" is gone; a fresh run must
+    resume from the last valid checkpoint."""
 
 
 @dataclass
@@ -51,12 +68,14 @@ class Fault:
     (``poison_decode``) or decode iteration (the others), 1-based;
     ``step`` is the poisoned request's decode step; ``rank`` the target
     row's age rank (``evict_page``, ``corrupt_page_table``; -1 = the
-    oldest)."""
+    oldest); ``mode`` how a ``truncate_checkpoint`` tears its commit
+    (``"crash"`` or ``"torn"``)."""
 
     kind: str
     step: int = 0
     at_call: int = 1
     rank: int = -1
+    mode: str = "crash"
     fired: bool = False
 
     def __post_init__(self):
@@ -79,18 +98,21 @@ _gen_submits = 0
 _decode_iters = 0
 _page_iters = 0
 _pt_iters = 0
+_commit_calls = 0
 
 
 def set_schedule(schedule: Optional[FaultSchedule]) -> None:
     """Arm a schedule (or disarm with ``None``). Resets call counters so
     ``at_call`` indices are relative to arming time."""
     global _schedule, _gen_submits, _decode_iters, _page_iters, _pt_iters
+    global _commit_calls
     with _lock:
         _schedule = schedule
         _gen_submits = 0
         _decode_iters = 0
         _page_iters = 0
         _pt_iters = 0
+        _commit_calls = 0
 
 
 def clear() -> None:
@@ -186,3 +208,36 @@ def check_corrupt_page_table() -> Optional[int]:
                 _fire(f, iteration=_pt_iters, rank=f.rank)
                 return max(0, f.rank)
         return None
+
+
+def on_checkpoint_commit(tmp: Path, final: Path) -> None:
+    """Called by ``atomic.atomic_path`` between fsync and rename.
+
+    crash mode: truncate the tmp file and raise ``KilledByFault`` — the
+    rename never happens, the final path never appears (exactly what a
+    SIGKILL between write and rename leaves behind).
+    torn mode: truncate the tmp file and let the rename proceed — a
+    complete-looking file with half its bytes, catchable only by
+    checksum verification.
+    """
+    global _commit_calls
+    with _lock:
+        if _schedule is None:
+            return
+        _commit_calls += 1
+        hit = None
+        for f in _schedule.pending():
+            if (f.kind == "truncate_checkpoint"
+                    and f.at_call == _commit_calls):
+                hit = f
+                break
+        if hit is None:
+            return
+        _fire(hit, file=str(final), mode=hit.mode)
+    size = tmp.stat().st_size
+    with open(tmp, "r+b") as fh:
+        fh.truncate(max(size // 2, 1))
+    if hit.mode == "crash":
+        raise KilledByFault(
+            f"simulated SIGKILL mid-checkpoint write of {final}")
+    # torn mode: fall through — the caller renames the stump

@@ -34,6 +34,7 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
 from deeplearning4j_tpu_torch.nn.netcommon import value_and_grad
 from deeplearning4j_tpu_torch.nn.updater import tree_map
 from deeplearning4j_tpu_torch.resilience.service import Deadline
+from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.datasets import DataSet
@@ -1109,6 +1110,65 @@ def test_capture_while_another_thread_holds_the_model_lock(card):
         sched.stop()
 
 
+# ---------------------------------------------------- zip checkpoints
+
+def test_gpt_checkpoint_round_trip_on_card_is_bitwise(card, tmp_path):
+    """A GPT trained on the card, written and restored onto the card
+    (``device=None``): its outputs, its next step's loss and params and
+    its updater state equal the source's bit for bit, and the restored
+    net launches K4/K5/K6 as often as the source."""
+    net = _serving_net(card, learning_rate=0.05)
+    rng = np.random.default_rng(9)
+    eye = np.eye(SERVE_V, dtype=np.float32)
+
+    def batch(seed):
+        tok = np.random.default_rng(seed).integers(0, SERVE_V,
+                                                   (4, SERVE_T + 1))
+        return DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]])
+
+    for s in range(2):
+        net.fit_batch(batch(s))
+    path = tmp_path / "gpt.zip"
+    ModelSerializer.write_model(net, path)
+    back = ModelSerializer.restore_model(path)
+    ModelSerializer.verify(path)
+    assert back.device.type == "cuda"
+    x = eye[rng.integers(0, SERVE_V, (4, SERVE_T))]
+    assert torch.equal(back.output(x), net.output(x))
+    kernels = (flash_attention, flash_attention_dq, flash_attention_dkv)
+    launches, losses = [], []
+    for n in (net, back):
+        for fn in kernels:
+            fn.launches = 0
+        losses.append(n.fit_batch(batch(5)))
+        launches.append([fn.launches for fn in kernels])
+    assert launches[0] == launches[1] and min(launches[0]) > 0
+    assert torch.equal(losses[0], losses[1])
+    assert np.array_equal(back.params_flat(), net.params_flat())
+    assert back.opt_state["count"] == net.opt_state["count"]
+    for a, b in zip(back._tx.optax_leaves(back.opt_state),
+                    net._tx.optax_leaves(net.opt_state)):
+        assert torch.equal(a, b)
+
+
+def test_set_params_flat_keeps_every_tensor_address(card, tmp_path):
+    """``set_params_flat`` and ``restore_weights`` write in place on the
+    card: every param tensor keeps its ``data_ptr``."""
+    net = _serving_net(card)
+    ptrs = [t.data_ptr() for t in net._flat_order()]
+    flat = np.random.default_rng(2).normal(
+        size=net.num_params()).astype(np.float32)
+    net.set_params_flat(flat)
+    assert [t.data_ptr() for t in net._flat_order()] == ptrs
+    assert np.array_equal(net.params_flat(), flat)
+    path = tmp_path / "m.zip"
+    ModelSerializer.write_model(_serving_net(card), path)
+    ModelSerializer.restore_weights(path, net)
+    assert [t.data_ptr() for t in net._flat_order()] == ptrs
+    assert np.array_equal(net.params_flat(),
+                          _serving_net(card).params_flat())
+
+
 # --------------------------------------------------------------- imports
 # (no card needed: this runs wherever the file does)
 
@@ -1121,9 +1181,9 @@ def _imported_modules(path: Path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """Every module of the port, the CNN slice's and the serving
-    engine's among them, and chip_smoke.py import neither JAX nor the
-    JAX package."""
+    """Every module of the port, the CNN slice's, the serving engine's
+    and the checkpoint's among them, and chip_smoke.py import neither JAX
+    nor the JAX package."""
     files = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     names = {str(f.relative_to(ROOT)) for f in files}
@@ -1138,7 +1198,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "profiling/flightrec.py", "profiling/watchdog.py",
                    "resilience/service.py", "resilience/faultinject.py",
                    "resilience/sentinel.py", "analysis/memory.py",
-                   "keras/batching.py", "keras/generation.py"):
+                   "keras/batching.py", "keras/generation.py",
+                   "resilience/atomic.py", "util/serializer.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     banned = ("jax", "jaxlib", "deeplearning4j_tpu")
     bad = [(str(f.relative_to(ROOT)), m) for f in files

@@ -157,7 +157,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("ops/flash_attention.py", "ops/losses.py",
                    "nn/updater.py", "nn/graph.py", "datasets/dataset.py",
-                   "datasets/iterator.py", "convert.py"):
+                   "datasets/iterator.py", "convert.py",
+                   "nn/conf/builder.py", "nn/conf/graph_builder.py",
+                   "resilience/atomic.py", "util/serializer.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     banned = ("jax", "jaxlib", "deeplearning4j_tpu")
     bad = [(str(f.relative_to(ROOT)), m) for f in files
