@@ -142,8 +142,32 @@ Phases, each printing JSON lines:
    archive each raise ``CheckpointError`` naming the member. Archive
    bytes (raw and compressed, per member), write / verify / restore
    seconds and the host-to-card copy of the coefficients are reported;
-11. a ``{"kernels": [...]}`` summary line;
-12. last line ``{"ok": true, "device": {...}}``.
+11. serve server — ``KerasServer(max_batch=32, max_wait_ms=5.0,
+   keep_models=4)`` on the card (admitting 16 at once) serving ``.zip``
+   archives of the full-width char-RNN, GPT and f32 ResNet-50 to 16
+   ``KerasClient`` threads over TCP: per model a ladder (one request per
+   bucket, 1-32 rows, alone), then two waves (64 and 64 requests; 64 and
+   32 for ResNet-50) of seeded feature files of 1, 2, 3, 5 or 8 rows, one
+   in four ``bulk``. Each predict bucket is one CUDA graph over the
+   container's ``_infer_fn()`` (the char-RNN's replay K1, the GPT's K4).
+   Every answer against its singleton ``output()`` on the card (C2:
+   argmax equal, max |dprob| <= 1e-5); each bucket's replay bit for bit
+   an eager ``output()`` of the same padded batch; a traced replay holds
+   exactly 2 K1 (char-RNN) or 8 K4 (GPT) kernels; no capture in wave two;
+   no batch falls back to singletons; the server's ``generate`` (4
+   prompts, one sampled) against ``greedy_generate`` /
+   ``sample_generate``; a ``fit`` op (two [32, 200] batch files, K2 and
+   K3) then a wave that captures nothing and answers the fitted weights;
+   ``evaluate`` against ``net.evaluate``; a ``poison_row`` request alone
+   ``NONFINITE`` in a full batch; ``health`` / ``readyz`` / ``debug``
+   answering under a ``slow_batch`` fault; threads back to their
+   baseline after ``drain`` and ``stop``. Per model and wave: requests/s,
+   rows/s, round trip and server p50/p99, batch-size mix, flush reasons,
+   captures and their seconds, graph pool bytes per bucket, the
+   ``serve:batch`` span against the round trip, and the GPT answer's
+   JSON cost apart;
+12. a ``{"kernels": [...]}`` summary line;
+13. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -158,6 +182,7 @@ non-zero before the last line. It imports no JAX. Without a CUDA device
 it exits 2 and prints no result.
 """
 
+import collections
 import json
 import re
 import shutil
@@ -180,7 +205,11 @@ from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.models.lenet import lenet_mnist
 from deeplearning4j_tpu_torch.models.resnet import resnet50
 from deeplearning4j_tpu_torch.models.vgg import vgg16_cifar10
+from deeplearning4j_tpu_torch.keras.batching import (
+    PredictRunner, _LatencyWindow,
+)
 from deeplearning4j_tpu_torch.keras.generation import GenerationScheduler
+from deeplearning4j_tpu_torch.keras.server import KerasClient, KerasServer
 from deeplearning4j_tpu_torch.models.gpt import (
     char_lm_batches, gpt_decoder, greedy_generate, sample_generate,
     synthetic_char_text,
@@ -204,7 +233,10 @@ from deeplearning4j_tpu_torch.ops.fused_lstm import (
     lstm_recurrence, lstm_recurrence_plain,
 )
 from deeplearning4j_tpu_torch.profiling.metrics import (
-    MetricsRegistry, set_registry,
+    MetricsRegistry, get_registry, set_registry,
+)
+from deeplearning4j_tpu_torch.profiling.tracer import (
+    Tracer, get_tracer, set_tracer,
 )
 from deeplearning4j_tpu_torch.resilience import faultinject
 from deeplearning4j_tpu_torch.resilience.faultinject import (
@@ -357,6 +389,33 @@ CKPT_STEPS = 3
 RELOAD_LENGTHS, RELOAD_NEW = (5, 17, 33, 64, 100, 128, 9, 40), 16
 #: 95 printable ASCII characters and the newline: the 96-symbol vocabulary
 CHARSET = "".join(chr(i) for i in range(32, 127)) + "\n"
+#: the predict server: one KerasServer(max_batch=32, max_wait_ms=5.0,
+#: keep_models=4) on the card serving the full-width char-RNN, GPT and f32
+#: ResNet-50 from .zip archives; 16 client threads; request rows drawn
+#: (seeded) from SERVER_ROWS over a pool of SERVER_FILES feature files per
+#: model; one request in four "bulk"; wave one opens with one request per
+#: bucket of SERVER_LADDER, alone, so it captures every bucket wave two
+#: can form; requests per wave per model in SERVER_WAVES
+SERVER_MAX_BATCH, SERVER_WAIT_MS, SERVER_CLIENTS = 32, 5.0, 16
+SERVER_ROWS = (1, 2, 3, 5, 8)
+SERVER_LADDER = (1, 2, 4, 8, 16, 32)
+SERVER_FILES = 24
+SERVER_WAVES = {"char_rnn": (64, 64), "gpt": (64, 64), "resnet50": (64, 32)}
+#: ROADMAP C2: a batched row against its singleton — argmax equal and
+#: max |dprob| within this (probabilities are <= 1, so also relative)
+TOL_C2 = 1e-5
+#: ROADMAP C12: the f32 ResNet-50 at random init moves its probabilities
+#: by up to 1.4e-4 between batch sizes (cuDNN picks its algorithms by
+#: batch; 53 conv + BN layers amplify f32 rounding, C7), so its answers
+#: are held to argmax equal and max |dprob| within this instead
+TOL_C2_RESNET = 1e-3
+#: the server's generate (prompt lengths, new tokens; the last sampled)
+SERVER_GEN_LENGTHS, SERVER_GEN_NEW, SERVER_GEN_TEMP = (5, 17, 33, 64), 16, 0.8
+#: the fit op's batch files ([32, 200] windows) and the predict wave after
+SERVER_FIT_BATCHES, SERVER_AFTER_FIT = 2, 32
+#: the launch counter of each TPU kernel the predict graphs replay
+SERVER_KERNEL_COUNTERS = {"lstm_fwd_infer_kernel": "lstm_fwd_infer",
+                          "flash_fwd_kernel": "flash_attn_fwd"}
 #: kernel-name substrings of the three attention kernels in a trace
 ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
                      "flash_dkv_kernel")
@@ -2513,6 +2572,614 @@ def checkpoint_phase():
                 recaptures=reload_rec["recaptures"], integrity=integrity)
 
 
+def server_models():
+    """The predict server's models, full width with seeded random
+    weights on the card: (name, net, feature row shape, one-hot?, the
+    symbol of the TPU kernel its predict graphs replay, its launches a
+    replay). ResNet-50 runs no TPU kernel."""
+    V = SLICE["vocab_size"]
+    return [
+        ("char_rnn", MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE),
+                                       device="cuda").init(),
+         (LSTM_BATCH[1], V), True, "lstm_fwd_infer_kernel",
+         LSTM_SLICE["layers"]),
+        ("gpt", ComputationGraph(gpt_decoder(**SLICE), device="cuda").init(),
+         (SLICE["seq_len"], V), True, "flash_fwd_kernel",
+         SLICE["n_layers"]),
+        ("resnet50", ComputationGraph(resnet50(dtype="float32"),
+                                      device="cuda").init(),
+         (RESNET_HW, RESNET_HW, 3), False, None, 0)]
+
+
+def server_features(rng, row, onehot, rows):
+    """``rows`` seeded feature rows: one-hot windows, or images."""
+    if onehot:
+        return np.eye(row[-1], dtype=np.float32)[
+            rng.integers(0, row[-1], (rows,) + row[:-1])]
+    return rng.random((rows,) + row, dtype=np.float32)
+
+
+def server_counts(reg) -> dict:
+    """The registry's flush reasons and fallbacks so far."""
+    fam = reg.get("serving_batch_flushes_total")
+    fb = reg.get("serving_batch_fallbacks_total")
+    return dict(flush={r: 0.0 if fam is None else fam.labels(reason=r).value
+                       for r in ("full", "deadline", "idle")},
+                fallbacks=0.0 if fb is None else fb.value)
+
+
+def server_requests(srv, model, files, picks, bulk, clients):
+    """``picks`` (a feature file index per request) from ``clients``
+    threads, each on its own connection, one request at a time: returns
+    ({request: (answer, round trip s)}, {request: error}, wall s). Every
+    client connects before the clock starts (the server's listen backlog
+    is socketserver's 5: a burst of connects waits out a SYN retry)."""
+    todo = collections.deque(range(len(picks)))
+    lock = threading.Lock()
+    out, errors = {}, {}
+    n = min(clients, len(picks))
+    ready, go = threading.Barrier(n + 1), threading.Event()
+
+    def worker():
+        cli = KerasClient(srv.host, srv.port)
+        try:
+            ready.wait(120.0)
+            go.wait(120.0)
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    i = todo.popleft()
+                t0 = time.perf_counter()
+                try:
+                    resp = cli.request(
+                        op="predict", features=files[picks[i]], model=model,
+                        priority="bulk" if bulk[i] else "interactive")
+                    y = np.asarray(resp["predictions"], np.float32)
+                    with lock:
+                        out[i] = (y, time.perf_counter() - t0)
+                except Exception as e:  # noqa: BLE001 — gated below
+                    with lock:
+                        errors[i] = repr(e)
+        finally:
+            cli.close()
+
+    threads = [threading.Thread(target=worker, daemon=True)
+               for _ in range(n)]
+    for t in threads:
+        t.start()
+    ready.wait(120.0)
+    t0 = time.perf_counter()
+    go.set()
+    for t in threads:
+        t.join(600.0)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client never ended")
+    return out, errors, wall
+
+
+def server_wave(srv, reg, name, model, files, rows, picks, bulk,
+                clients=SERVER_CLIENTS):
+    """One wave against the running server, with a fresh latency window
+    and tracer: its answers, and its record (requests/s, rows/s, round
+    trip and server p50/p99, batch-size mix, flush reasons, captures and
+    their seconds, the serve:batch span against the round trip)."""
+    sched = srv._batcher
+    sched.latency = _LatencyWindow()
+    tracer = Tracer()
+    prev_tracer = set_tracer(tracer)
+    st0, c0 = sched.stats(), server_counts(reg)
+    try:
+        out, errors, wall = server_requests(srv, model, files, picks, bulk,
+                                            clients)
+    finally:
+        set_tracer(prev_tracer)
+    st1, c1 = sched.stats(), server_counts(reg)
+    rt = sorted(v[1] * 1e3 for v in out.values())
+    spans = sorted(e["dur"] / 1e3 for e in tracer.export()["traceEvents"]
+                   if e["name"] == "serve:batch")
+    p50, p99 = sched.latency.quantiles()
+    n_rows = sum(rows[picks[i]] for i in out)
+    mix = {k: v - st0["batch_size_mix"].get(k, 0)
+           for k, v in st1["batch_size_mix"].items()
+           if v - st0["batch_size_mix"].get(k, 0)}
+    rec = dict(model=name, requests=len(picks), served=len(out),
+               errors=errors, bulk=int(sum(bulk)), rows=n_rows, wall_s=wall,
+               requests_per_s=len(out) / wall, rows_per_s=n_rows / wall,
+               round_trip_p50_ms=float(np.percentile(rt, 50)) if rt else None,
+               round_trip_p99_ms=float(np.percentile(rt, 99)) if rt else None,
+               server_p50_ms=None if p50 is None else p50 * 1e3,
+               server_p99_ms=None if p99 is None else p99 * 1e3,
+               batch_size_mix=mix,
+               flush={r: c1["flush"][r] - c0["flush"][r]
+                      for r in c1["flush"]},
+               fallbacks=c1["fallbacks"] - c0["fallbacks"],
+               captures=st1["compiles"] - st0["compiles"],
+               capture_s=st1["compile_s"] - st0["compile_s"],
+               serve_batch_spans=len(spans),
+               serve_batch_p50_ms=(float(np.percentile(spans, 50))
+                                   if spans else None),
+               serve_batch_p99_ms=(float(np.percentile(spans, 99))
+                                   if spans else None))
+    return out, rec
+
+
+def c2_record(answers, picks, refs) -> dict:
+    """Each answer against its singleton: argmax equal everywhere, max
+    |dprob|, and how many were bitwise equal."""
+    diffs, argmax_ok, bitwise, top = [], True, 0, 0.0
+    for i, (y, _) in answers.items():
+        ref = refs[picks[i]]
+        diffs.append(float(np.abs(y - ref).max()))
+        argmax_ok &= bool((y.argmax(-1) == ref.argmax(-1)).all())
+        bitwise += int(np.array_equal(y, ref))
+        top = max(top, float(ref.max()))
+    return dict(answers=len(diffs), argmax_equal=argmax_ok,
+                max_abs_prob_diff=max(diffs) if diffs else None,
+                bitwise=bitwise, max_prob=top)
+
+
+def server_bucket_checks(srv, path, net, row, files, rows, ladder, symbol,
+                         per_replay):
+    """For each captured bucket of one model, on the card: the graph's
+    replay against an eager ``output()`` of the same padded batch (bit
+    for bit), its rows against each member's singleton (C2, or bitwise),
+    the graph pool's bytes, and one traced replay's kernels (the TPU
+    kernel by symbol)."""
+    sched = srv._batcher
+    runners = {k[2]: sched._compiled.get(k) for k in sched._compiled.keys()
+               if k[0] == sched._cache_owner and k[1] == path
+               and k[3][0] == row}
+    lock = srv._model_locks[path]
+    out = {}
+    for bucket, runner in sorted(runners.items()):
+        fs, members, used = list(files), [], 0
+        for j, r in enumerate(rows):
+            if used + r <= bucket:
+                members.append(j)
+                used += r
+        if not members:          # no pool file this small: its ladder file
+            fs.append(ladder[SERVER_LADDER.index(bucket)])
+            members, used = [len(fs) - 1], bucket
+        x = np.concatenate([np.load(fs[j]) for j in members])
+        x = np.concatenate([x, np.zeros((bucket - used,) + row,
+                                        np.float32)])
+        with lock:
+            got = runner(net, x)
+            eager = net.output(x).float().cpu().numpy()
+            singles = [net.output(np.load(fs[j])).float().cpu().numpy()
+                       for j in members]
+            expect = {symbol: per_replay} if symbol else {}
+            prof = device_profile(lambda: runner._graph.replay(), expect)
+        ref = np.concatenate(singles)
+        out[str(bucket)] = dict(
+            graphed=runner.graphed, pool_bytes=runner.nbytes,
+            members=[len(np.load(fs[j])) for j in members],
+            graph_equals_eager=bool(np.array_equal(got, eager)),
+            rows_bitwise_singleton=bool(np.array_equal(got[:used], ref)),
+            max_abs_prob_diff_singleton=float(np.abs(got[:used]
+                                                     - ref).max()),
+            argmax_equal_singleton=bool((got[:used].argmax(-1)
+                                         == ref.argmax(-1)).all()),
+            replay_kernels=prof["kernel_launches"],
+            replay_traced=prof["traced_path_kernels"],
+            replay_kernel_ms=prof["kernel_ms"])
+    return out
+
+
+def server_wire_costs(files, rows) -> dict:
+    """Host costs inside a round trip, apart from the card, for the
+    largest file of the pool: np.load of its features, the JSON encode
+    of an answer as large as the GPT's for its rows (tolist + dumps), and
+    the client's decode."""
+    j = int(np.argmax(rows))
+    t0 = time.perf_counter()
+    np.load(files[j])
+    load_ms = (time.perf_counter() - t0) * 1e3
+    y = np.random.default_rng(SEED).random(
+        (rows[j], SLICE["seq_len"], SLICE["vocab_size"]), dtype=np.float32)
+    t0 = time.perf_counter()
+    text = json.dumps({"ok": True, "predictions": y.tolist()})
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    np.asarray(json.loads(text)["predictions"], np.float32)
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    return dict(rows=rows[j], floats=int(y.size), json_bytes=len(text),
+                np_load_ms=load_ms, json_encode_ms=enc_ms,
+                json_decode_ms=dec_ms)
+
+
+def server_chaos(srv, path, net, row, tmp):
+    """On the char-RNN: a poison_row request in a full batch of 8 fails
+    alone while its 7 batchmates are served (each against its singleton,
+    C2); then health, readyz and debug answer while a slow_batch fault
+    holds a batch."""
+    rng = np.random.default_rng(SEED + 31)
+    files = []
+    for k in range(8):
+        files.append(str(tmp / f"poison_{k}.npy"))
+        np.save(files[-1], server_features(rng, row, True, 4))
+    sched = srv._batcher
+    wait = sched.max_wait_s
+    sched.max_wait_s = 5.0       # the 8 requests meet in one full batch
+    reg_counts = server_counts(get_registry())
+    mix0 = dict(sched.stats()["batch_size_mix"])
+    outcomes, answers, lock = {}, {}, threading.Lock()
+    start = threading.Barrier(8)
+
+    def one(k):
+        cli = KerasClient(srv.host, srv.port)
+        try:
+            start.wait(30.0)
+            y = cli.predict(files[k], model=path)
+            with lock:
+                outcomes[k], answers[k] = "ok", y
+        except RuntimeError as e:
+            with lock:
+                outcomes[k] = str(e).split(":")[0]
+        finally:
+            cli.close()
+
+    faultinject.set_schedule(FaultSchedule([Fault("poison_row", at_call=3)]))
+    try:
+        threads = [threading.Thread(target=one, args=(k,), daemon=True)
+                   for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120.0)
+    finally:
+        faultinject.clear()
+        sched.max_wait_s = wait
+    after = server_counts(get_registry())
+    mix1 = sched.stats()["batch_size_mix"]
+    diffs = [float(np.abs(answers[k] - net.output(
+        np.load(files[k])).float().cpu().numpy()).max()) for k in answers]
+    poison = dict(outcomes=[outcomes.get(k) for k in range(8)],
+                  full_flushes=after["flush"]["full"]
+                  - reg_counts["flush"]["full"],
+                  batches_of_8=mix1.get("8", 0) - mix0.get("8", 0),
+                  batchmates_max_abs_prob_diff=max(diffs) if diffs else None)
+
+    # a batch held 2 s by slow_batch; the probes answer meanwhile
+    faultinject.set_schedule(FaultSchedule(
+        [Fault("slow_batch", at_call=1, duration=2.0)]))
+    held = {}
+
+    def hold():
+        c = KerasClient(srv.host, srv.port)
+        try:
+            held["y"] = c.predict(files[0], model=path)
+        finally:
+            c.close()
+
+    holder = threading.Thread(target=hold, daemon=True)
+    try:
+        holder.start()
+        t_end = time.monotonic() + 10.0
+        while ("serve:batch" not in get_tracer().open_span_stack()
+               and time.monotonic() < t_end):
+            time.sleep(0.01)
+        probes = {}
+        cli = KerasClient(srv.host, srv.port)
+        for op in ("health", "readyz", "debug"):
+            t0 = time.perf_counter()
+            resp = cli.request(op=op)
+            probes[op] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                              ok=bool(resp.get("ok")))
+            if op == "debug":
+                spans = [sp["name"] for st in resp["bundle"]["open_spans"]
+                         .values() for sp in st]
+                probes[op]["open_serve_batch"] = "serve:batch" in spans
+        cli.close()
+        holder_alive = holder.is_alive()
+        holder.join(60.0)
+    finally:
+        faultinject.clear()
+    probes.update(held_during_probes=holder_alive,
+                  held_request_served="y" in held)
+    return poison, probes
+
+
+def server_fit_case(srv, path, net, row, files, rows, tmp):
+    """On the char-RNN: a ``fit`` op over two [32, 200] batch-file pairs
+    (K2 and K3 run), then a predict wave that must capture nothing and
+    answer the fitted weights (each answer against the fitted net's
+    singleton, C2), and an ``evaluate`` op against ``net.evaluate``."""
+    Bt, Tt = LSTM_TRAIN_BATCH
+    text = synthetic_char_text(SERVER_FIT_BATCHES * Bt * (Tt + 1) + 1,
+                               seed=SEED + 32)
+    batches = char_lm_batches(text, Tt, Bt, charset=CHARSET)
+    check(len(batches) == SERVER_FIT_BATCHES, f"{len(batches)} fit batches")
+    fdir, ldir = tmp / "fit_features", tmp / "fit_labels"
+    fdir.mkdir()
+    ldir.mkdir()
+    for k, b in enumerate(batches):
+        np.save(fdir / f"{k:03d}.npy", b.features)
+        np.save(ldir / f"{k:03d}.npy", b.labels)
+    before = {j: net.output(np.load(f)).float().cpu().numpy()
+              for j, f in enumerate(files)}
+    cli = KerasClient(srv.host, srv.port)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        resp = cli.fit(path, str(fdir), str(ldir), nb_epoch=1)
+        fit_s = time.perf_counter() - t0
+        fit_launches = counts()
+        ev = cli.request(op="evaluate", model=path, features_dir=str(fdir),
+                         labels_dir=str(ldir))
+    finally:
+        cli.close()
+    want = net.evaluate(ListDataSetIterator(batches))
+    rng = np.random.default_rng(SEED + 33)
+    picks = rng.integers(0, len(files), SERVER_AFTER_FIT).tolist()
+    bulk = [i % 4 == 3 for i in range(SERVER_AFTER_FIT)]
+    answers, rec = server_wave(srv, get_registry(), "char_rnn_after_fit",
+                               path, files, rows, picks, bulk)
+    refs = {j: net.output(np.load(f)).float().cpu().numpy()
+            for j, f in enumerate(files)}
+    moved = max(float(np.abs(refs[j] - before[j]).max()) for j in refs)
+    return dict(fit_s=fit_s, score=resp["score"],
+                fit_launches=fit_launches,
+                evaluate=dict(accuracy=ev["accuracy"], f1=ev["f1"],
+                              net_accuracy=want.accuracy(),
+                              net_f1=want.f1()),
+                weights_moved_max_abs_prob=moved, wave=rec,
+                c2=c2_record(answers, picks, refs))
+
+
+def serve_server():
+    """The predict server on the card (ROADMAP A5.2): one KerasServer
+    serving the full-width char-RNN, GPT and f32 ResNet-50 from .zip
+    archives to 16 client threads over TCP, each predict bucket one CUDA
+    graph (the char-RNN's replay K1, the GPT's K4). Gates: every answer
+    against its singleton (C2), each bucket's graph bitwise its eager
+    output(), K1/K4 per traced replay, no capture in wave two or after a
+    fit, no fallback, the server's generate against the singleton
+    decode, fit and evaluate against the net, a poisoned row failing
+    alone, probes answering under a held batch, threads back to their
+    baseline. Returns the path's launch counts."""
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_serve_server_"))
+    models, paths = {}, {}
+    try:
+        for name, net, row, onehot, symbol, per_replay in server_models():
+            paths[name] = str(tmp / f"{name}.zip")
+            ModelSerializer.write_model(net, paths[name], save_updater=False)
+            models[name] = (row, onehot, symbol, per_replay)
+            del net
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(SEED + 30)
+        pools = {}
+        for name, (row, onehot, _, _) in models.items():
+            rows = [int(r) for r in rng.choice(SERVER_ROWS, SERVER_FILES)]
+            files = []
+            for j, r in enumerate(rows):
+                files.append(str(tmp / f"{name}_{j}.npy"))
+                np.save(files[-1], server_features(rng, row, onehot, r))
+            ladder = []
+            for b in SERVER_LADDER:
+                ladder.append(str(tmp / f"{name}_ladder_{b}.npy"))
+                np.save(ladder[-1], server_features(rng, row, onehot, b))
+            pools[name] = (files, rows, ladder)
+
+        reg = MetricsRegistry()
+        prev_reg = set_registry(reg)
+        base_threads = set(threading.enumerate())
+        srv = KerasServer(max_batch=SERVER_MAX_BATCH,
+                          max_wait_ms=SERVER_WAIT_MS, keep_models=4,
+                          max_concurrency=SERVER_CLIENTS,
+                          queue_depth=2 * SERVER_CLIENTS)
+        waves, c2, buckets, ladder_recs, captured = {}, {}, {}, {}, {}
+        # the launches of the server's own work: the captures (warm-ups
+        # and the captured call) count, replays never do; the singleton
+        # references and the bucket checks below are comparisons and are
+        # left out
+        main_path, path_by_model = collections.Counter(), {}
+        try:
+            for name, (row, onehot, symbol, per_replay) in models.items():
+                files, rows, ladder = pools[name]
+                n1, n2 = SERVER_WAVES[name]
+                reset_counts()
+                # wave one: the ladder, one bucket a request, alone
+                lad, lad_rec = server_wave(
+                    srv, reg, f"{name}_ladder", paths[name], ladder,
+                    list(SERVER_LADDER), list(range(len(ladder))),
+                    [False] * len(ladder), clients=1)
+                check(not lad_rec["errors"], f"{name} ladder: {lad_rec}")
+                ladder_recs[name] = lad_rec
+                t_end = time.monotonic() + 300.0
+                recs, answers, picks_all = [], [], []
+                for n in (n1, n2):
+                    if recs:     # wave two starts after the prewarms
+                        while (srv._prewarm_inflight
+                               and time.monotonic() < t_end):
+                            time.sleep(0.05)
+                    picks = rng.integers(0, len(files), n).tolist()
+                    bulk = [i % 4 == 3 for i in range(n)]
+                    ans, rec = server_wave(srv, reg, name, paths[name],
+                                           files, rows, picks, bulk)
+                    recs.append(rec)
+                    answers.append(ans)
+                    picks_all.append(picks)
+                launched = counts()
+                main_path.update(launched)
+                path_by_model[name] = launched
+                net = srv._models[paths[name]]
+                refs = {j: net.output(np.load(f)).float().cpu().numpy()
+                        for j, f in enumerate(files)}
+                refs.update({("ladder", b): net.output(np.load(f)).float()
+                             .cpu().numpy()
+                             for b, f in zip(SERVER_LADDER, ladder)})
+                lad_c2 = c2_record(
+                    {i: v for i, v in lad.items()},
+                    [("ladder", b) for b in SERVER_LADDER], refs)
+                c2[name] = dict(ladder=lad_c2, **{
+                    f"wave{k + 1}": c2_record(a, p, refs)
+                    for k, (a, p) in enumerate(zip(answers, picks_all))})
+                waves[name] = recs
+                buckets[name] = server_bucket_checks(
+                    srv, paths[name], net, row, files, rows, ladder, symbol,
+                    per_replay)
+                batches = sum(sum(r["batch_size_mix"].values())
+                              for r in [lad_rec] + recs)
+                captured[name] = sum(r["captures"] for r in [lad_rec] + recs)
+                emit(dict(phase="serve_server_model", model=name,
+                          params=net.num_params(), ladder=lad_rec,
+                          waves=recs, c2=c2[name], buckets=buckets[name],
+                          launches=launched, captures=captured[name],
+                          graph_batches=batches,
+                          kernel_replays={symbol: batches * per_replay}
+                          if symbol else {}))
+            rnn = srv._models[paths["char_rnn"]]
+            gpt = srv._models[paths["gpt"]]
+            wire = server_wire_costs(*pools["gpt"][:2])
+            # generate: 4 prompts at once, the last sampled
+            grng = np.random.default_rng(SEED + 34)
+            V = SLICE["vocab_size"]
+            prompts = [grng.integers(0, V, n).tolist()
+                       for n in SERVER_GEN_LENGTHS]
+            sampling = [None] * (len(prompts) - 1) + [
+                {"temperature": SERVER_GEN_TEMP, "seed": 5}]
+            gen_out, gen_lock = {}, threading.Lock()
+
+            def gen_one(k):
+                cli = KerasClient(srv.host, srv.port)
+                try:
+                    r = cli.generate(prompts[k], SERVER_GEN_NEW,
+                                     model=paths["gpt"],
+                                     **({"sampling": sampling[k]}
+                                        if sampling[k] else {}))
+                    with gen_lock:
+                        gen_out[k] = r["tokens"]
+                finally:
+                    cli.close()
+
+            gthreads = [threading.Thread(target=gen_one, args=(k,),
+                                         daemon=True)
+                        for k in range(len(prompts))]
+            reset_counts()
+            t0 = time.perf_counter()
+            for t in gthreads:
+                t.start()
+            for t in gthreads:
+                t.join(300.0)
+            gen_s = time.perf_counter() - t0
+            main_path.update(counts())
+            gen_refs = [greedy_generate(gpt, p, SERVER_GEN_NEW) if s is None
+                        else sample_generate(gpt, p, SERVER_GEN_NEW,
+                                             s["temperature"], s["seed"])
+                        for p, s in zip(prompts, sampling)]
+            generate = dict(prompt_lens=list(SERVER_GEN_LENGTHS),
+                            new_tokens=SERVER_GEN_NEW, wall_s=gen_s,
+                            sampled=[k for k, s in enumerate(sampling) if s],
+                            tokens_equal_singleton=[
+                                gen_out.get(k) == r
+                                for k, r in enumerate(gen_refs)])
+            main_path = {k: main_path[k] for k in KERNELS}
+            files, rows, _ = pools["char_rnn"]
+            fit = server_fit_case(srv, paths["char_rnn"], rnn,
+                                  models["char_rnn"][0], files, rows, tmp)
+            poison, probes = server_chaos(srv, paths["char_rnn"], rnn,
+                                          models["char_rnn"][0], tmp)
+            stats = srv._batcher.stats()
+            cache = dict(srv._batcher._compiled.stats(),
+                         max_entries=srv._batcher._compiled.max_entries,
+                         max_bytes=srv._batcher._compiled.max_bytes)
+            total = server_counts(reg)
+            ev = reg.get("serving_compile_cache_evictions_total")
+            evictions = 0.0 if ev is None else ev.value
+        finally:
+            drained = srv.drain(10.0)
+            srv.stop()
+            set_registry(prev_reg)
+        t_end = time.monotonic() + 15.0
+        while (set(threading.enumerate()) - base_threads
+               and time.monotonic() < t_end):
+            time.sleep(0.05)
+        leaked = sorted(t.name for t in
+                        set(threading.enumerate()) - base_threads)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rec = dict(phase="serve_server", max_batch=SERVER_MAX_BATCH,
+               max_wait_ms=SERVER_WAIT_MS, clients=SERVER_CLIENTS,
+               rows=list(SERVER_ROWS), ladder=list(SERVER_LADDER),
+               main_path_launches=main_path, fit=fit, generate=generate,
+               poison_row=poison, probes_under_slow_batch=probes,
+               wire_costs_gpt=wire, stats=stats, compile_cache=cache,
+               fallbacks_total=total["fallbacks"],
+               cache_evictions=evictions, drained=drained,
+               leaked_threads=leaked,
+               phase_s=time.perf_counter() - t_phase)
+    emit(rec)
+
+    for name in models:
+        w1, w2 = waves[name]
+        tol = TOL_C2_RESNET if name == "resnet50" else TOL_C2
+        check(not w1["errors"] and not w2["errors"],
+              f"{name}: requests failed: {w1['errors']} {w2['errors']}")
+        for wave, r in c2[name].items():
+            check(r["argmax_equal"] and r["max_abs_prob_diff"] <= tol,
+                  f"{name} {wave}: answers against their singletons "
+                  f"past the C2 gate ({tol}): {r}")
+        check(w2["captures"] == 0,
+              f"{name}: wave two captured {w2['captures']} buckets")
+        check(set(buckets[name]) == {str(b) for b in SERVER_LADDER},
+              f"{name}: captured buckets {sorted(buckets[name])}")
+        symbol, per_replay = models[name][2:]
+        if symbol:
+            # each capture launched its kernel in the 2 warm-ups and the
+            # captured call; the graph's replays launched it on the card
+            # without a count
+            kernel = SERVER_KERNEL_COUNTERS[symbol]
+            want = (PredictRunner.WARMUP + 1) * per_replay * captured[name]
+            check(path_by_model[name][kernel] == want,
+                  f"{name}: {path_by_model[name][kernel]} {kernel} launches "
+                  f"counted, want {want} for {captured[name]} captures")
+        for b, r in buckets[name].items():
+            check(r["graphed"] and r["graph_equals_eager"],
+                  f"{name} bucket {b}: graph differs from eager: {r}")
+            check(r["argmax_equal_singleton"]
+                  and r["max_abs_prob_diff_singleton"] <= tol,
+                  f"{name} bucket {b}: rows against singletons: {r}")
+            if symbol:
+                check(r["replay_traced"] == {symbol: per_replay},
+                      f"{name} bucket {b}: a traced replay holds "
+                      f"{r['replay_traced']}, not {per_replay} {symbol}")
+    check(all(generate["tokens_equal_singleton"]),
+          f"server generate differs from the singleton decode: {generate}")
+    check(fit["fit_launches"]["lstm_fwd_train"] > 0
+          and fit["fit_launches"]["lstm_bwd"] > 0,
+          f"the fit op launched {fit['fit_launches']}")
+    check(fit["wave"]["captures"] == 0 and not fit["wave"]["errors"],
+          f"the predict wave after fit: {fit['wave']}")
+    check(fit["c2"]["argmax_equal"]
+          and fit["c2"]["max_abs_prob_diff"] <= TOL_C2
+          and fit["weights_moved_max_abs_prob"] > TOL_C2,
+          f"answers after fit against the fitted net: {fit['c2']}, moved "
+          f"{fit['weights_moved_max_abs_prob']}")
+    check(fit["evaluate"]["accuracy"] == fit["evaluate"]["net_accuracy"],
+          f"evaluate op against net.evaluate: {fit['evaluate']}")
+    check(sorted(poison["outcomes"]) == ["NONFINITE"] + ["ok"] * 7
+          and poison["full_flushes"] == 1 and poison["batches_of_8"] == 1
+          and poison["batchmates_max_abs_prob_diff"] <= TOL_C2,
+          f"poison_row in a full batch: {poison}")
+    check(all(probes[op]["ok"] for op in ("health", "readyz", "debug"))
+          and probes["held_during_probes"]
+          and probes["debug"]["open_serve_batch"]
+          and probes["held_request_served"],
+          f"probes under a held batch: {probes}")
+    check(total["fallbacks"] == 0,
+          f"{total['fallbacks']} batches fell back to singletons")
+    check(evictions == 0,
+          f"the compile cache evicted {evictions} graphs: {cache}")
+    check(drained and not leaked, f"drain {drained}, leaked {leaked}")
+    check(main_path["lstm_fwd_infer"] > 0 and main_path["flash_attn_fwd"] > 0,
+          f"the predict path launched {main_path}")
+    return dict(main_path=main_path, fit=fit["fit_launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2669,13 +3336,22 @@ def main() -> int:
     # and ResNet-50 round trips, a served reload, integrity ------------------
     checkpoint_phase()
 
-    # ---- 11. summary of every ported kernel -------------------------------
+    # ---- 11. the predict server on the card: KerasServer / KerasClient
+    # over TCP, a CUDA graph per predict bucket replaying K1 and K4 ---------
+    server_path = serve_server()
+    served, fitted = server_path["main_path"], server_path["fit"]
+
+    # ---- 12. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:72",
-             # serving and training
-             launches=flash_launches + train_path["flash_attn_fwd"],
+             # serving, training and the predict server's captures (a
+             # captured launch replays with every batch of its bucket)
+             launches=flash_launches + train_path["flash_attn_fwd"]
+             + served["flash_attn_fwd"],
+             launches_serve_server=served["flash_attn_fwd"],
+             replays_per_bucket_serve_server=SLICE["n_layers"],
              launches_d256=wide_path["flash_attn_fwd"],
              max_abs_err=a["max_abs_err_o"],
              ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
@@ -2689,8 +3365,12 @@ def main() -> int:
         dict(name="lstm_fwd_infer", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/lstm_fwd_infer.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:99",
-             # serving, and the heads of tBPTT windows when bwd < fwd
-             launches=lstm_launches + lstm_train_path["lstm_fwd_infer"],
+             # serving, the heads of tBPTT windows when bwd < fwd, and
+             # the predict server's captures
+             launches=lstm_launches + lstm_train_path["lstm_fwd_infer"]
+             + served["lstm_fwd_infer"],
+             launches_serve_server=served["lstm_fwd_infer"],
+             replays_per_bucket_serve_server=LSTM_SLICE["layers"],
              max_abs_err=max(k1["max_abs_err_hs"], k1["max_abs_err_hT"]),
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], bound_peak=k1["bound_peak"],
@@ -2738,7 +3418,9 @@ def main() -> int:
         dict(name="lstm_fwd_train", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/lstm_fwd_train.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:63",
-             launches=lstm_train_path["lstm_fwd_train"],
+             launches=lstm_train_path["lstm_fwd_train"]
+             + fitted["lstm_fwd_train"],
+             launches_serve_server_fit=fitted["lstm_fwd_train"],
              max_abs_err=max(k23["max_abs_err_hs"],
                              k23["max_abs_err_gates"],
                              k23["max_abs_err_cs"]),
@@ -2755,7 +3437,8 @@ def main() -> int:
         dict(name="lstm_bwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/lstm_bwd.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:161",
-             launches=lstm_train_path["lstm_bwd"],
+             launches=lstm_train_path["lstm_bwd"] + fitted["lstm_bwd"],
+             launches_serve_server_fit=fitted["lstm_bwd"],
              max_abs_err=max(k23["max_abs_err_dz"], k23["max_abs_err_dh0"],
                              k23["max_abs_err_dc0"]),
              ms=k23["ms_bwd"], plain_ms=k23["plain_ms_bwd"],

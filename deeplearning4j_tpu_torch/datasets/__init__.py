@@ -1,6 +1,6 @@
 """Host-side data containers and iterators (the JAX package's
-``datasets/``; so far ``DataSet``, ``MultiDataSet``, the list iterator
-and MNIST)."""
+``datasets/``; so far ``DataSet``, ``MultiDataSet``, the list iterator,
+MNIST and Iris)."""
 
 from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
     DataSet,
@@ -9,6 +9,10 @@ from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
 from deeplearning4j_tpu_torch.datasets.iterator import (  # noqa: F401
     DataSetIterator,
     ListDataSetIterator,
+)
+from deeplearning4j_tpu_torch.datasets.iris import (  # noqa: F401
+    IrisDataSetIterator,
+    load_iris,
 )
 from deeplearning4j_tpu_torch.datasets.mnist import (  # noqa: F401
     MnistDataSetIterator,

@@ -1,5 +1,5 @@
-"""Serving (the JAX package's ``keras/``): so far the token-level
-generation engine (``generation``) and the queue and compile-cache
-helpers it shares with the predict scheduler (``batching``). The predict
-``BatchScheduler``, ``KerasServer`` / ``KerasClient`` and the fleet wait
-for ROADMAP A5 (part 2)."""
+"""Serving (the JAX package's ``keras/``): the gateway ``KerasServer`` /
+``KerasClient`` (``server``), its predict ``BatchScheduler`` with a CUDA
+graph per bucket (``batching``) and the token-level generation engine
+(``generation``). The fleet waits for ROADMAP A5.3, the Keras import and
+its HDF5 reader for A7.1."""

@@ -103,8 +103,8 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.keras.batching import (
-    CompileCache, _LatencyWindow, get_compile_cache, next_cache_owner,
-    priority_insert, priority_rank,
+    CAPTURE_LOCK, CompileCache, _LatencyWindow, _signature,
+    get_compile_cache, next_cache_owner, priority_insert, priority_rank,
 )
 from deeplearning4j_tpu_torch.profiling.flightrec import (
     record as flight_record,
@@ -145,23 +145,6 @@ def sample_token(probs, temperature: float = 0.0, seed: int = 0,
     z /= z.sum()
     u = np.random.default_rng([int(seed), int(draw_index)]).random()
     return int(min(np.searchsorted(np.cumsum(z), u), p.size - 1))
-
-
-def _leaves(tree):
-    """The tensors of a nested dict (params, states, a page pool)."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-
-
-def _signature(*trees) -> tuple:
-    """Where each tensor a captured step reads lives: its address,
-    shape, strides and dtype. A graph replays against addresses, so a
-    tensor replaced since the capture shows here as a changed entry."""
-    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                 for tree in trees for t in _leaves(tree))
 
 
 class StepRunner:
@@ -233,6 +216,12 @@ class StepRunner:
     def capture(self, params, states, pool) -> None:
         """(Re-)capture the step's graph against these tensors."""
         t0 = time.perf_counter()
+        with CAPTURE_LOCK:
+            self._capture_locked(params, states, pool)
+        if self.on_capture is not None:
+            self.on_capture(time.perf_counter() - t0)
+
+    def _capture_locked(self, params, states, pool) -> None:
         self._graph = None           # release a stale graph's pool first
         # the warm-up runs for real: inputs of a prefill length of 1, and
         # decode position 0 on table 0, keep its writes in the runner's
@@ -259,8 +248,6 @@ class StepRunner:
         self._graph = graph
         self._sig = _signature(params, states, pool)
         self.nbytes = max(0, torch.cuda.memory_reserved() - reserved)
-        if self.on_capture is not None:
-            self.on_capture(time.perf_counter() - t0)
 
     def __call__(self, params, states, *args):
         if self.kind == "prefill":

@@ -102,6 +102,7 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
         self._decode_fns = None
         self._paged_decode_fns: Dict[int, Any] = {}
         self._rnn_carries: Optional[Dict[str, Any]] = None
+        self._infer_traces = 0   # CUDA-graph captures of _infer_fn
         self._layer_nodes = [n for n in conf.topological_order
                              if conf.nodes[n].kind == "layer"]
         # weight tying: resolve once, fail loudly at construction
@@ -272,6 +273,19 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
             return {n: self._to_tensor(x) for n, x in zip(names, inputs)}
         return {names[0]: self._to_tensor(inputs)}
 
+    def _infer_fn(self):
+        """The inference forward as one function on tensors, ``(params,
+        states, in_map, masks) -> [output per network output]`` (the JAX
+        container's jitted ``_infer_fn`` seam, ref: CG.java:1006). It
+        reads nothing but its arguments, makes no host copy and no host
+        sync, so the predict scheduler can capture it into a CUDA graph;
+        ``outputs()`` runs it eagerly. ``_infer_traces`` counts those
+        captures (the JAX container counts its traces)."""
+        def infer(params, states, in_map, masks):
+            acts, _, _ = self._forward(params, states, in_map, masks)
+            return [acts[o] for o in self.conf.network_outputs]
+        return infer
+
     def outputs(self, inputs: Union[Tensor, np.ndarray, Sequence, Dict],
                 mask=None) -> List[Tensor]:
         """Final activations of all output nodes (ref:
@@ -286,9 +300,7 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
                       for k, v in mask.items()} if isinstance(mask, dict)
                      else {names[0]: self._to_tensor(mask)})
         with torch.no_grad():
-            acts, _, _ = self._forward(self.params, self.states, in_map,
-                                       masks)
-        return [acts[o] for o in self.conf.network_outputs]
+            return self._infer_fn()(self.params, self.states, in_map, masks)
 
     def output(self, inputs, mask=None) -> Tensor:
         return self.outputs(inputs, mask=mask)[0]

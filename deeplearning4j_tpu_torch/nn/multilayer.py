@@ -93,6 +93,7 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
         self._rng = torch.Generator(device=self.device).manual_seed(
             conf.training.seed)
         self._rnn_carries: Optional[List[Any]] = None  # rnn_time_step state
+        self._infer_traces = 0   # CUDA-graph captures of _infer_fn
 
     # ------------------------------------------------------------------ init
     def init(self, params=None, states=None) -> "MultiLayerNetwork":
@@ -200,15 +201,30 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
                 acts.append(self._apply_head(h))
         return acts
 
+    def _infer_fn(self):
+        """The inference forward as one function on tensors, ``(params,
+        states, x, mask) -> the head's output`` (the JAX container's
+        jitted ``_infer_fn`` seam, ref: MultiLayerNetwork.java:1512-1594).
+        It reads nothing but its arguments, makes no host copy and no
+        host sync, so the predict scheduler can capture it into a CUDA
+        graph; ``output()`` runs it eagerly. ``_infer_traces`` counts
+        those captures (the JAX container counts its traces)."""
+        def infer(params, states, x, mask):
+            h, _, _, _, _ = self._forward(params, states, x, mask=mask)
+            head = self._head()
+            if head is not None:
+                h = head.apply(params[-1], h, state=states[-1])[0]
+            return h
+        return infer
+
     def output(self, x, mask=None) -> Tensor:
         """Final network output (ref: MultiLayerNetwork.output). ``mask``:
         a [B, T] feature mask for recurrent input."""
         self._check_init()
         mask = None if mask is None else self._to_tensor(mask)
         with torch.no_grad():
-            h, _, _, _, _ = self._forward(self.params, self.states,
-                                          self._to_tensor(x), mask=mask)
-            return self._apply_head(h)
+            return self._infer_fn()(self.params, self.states,
+                                    self._to_tensor(x), mask)
 
     def predict(self, x) -> np.ndarray:
         """Argmax class predictions (ref: MultiLayerNetwork.predict)."""

@@ -1,4 +1,5 @@
 """Profiling (the JAX package's ``profiling/``): the span tracer, the
-metrics registry, the flight recorder and the watchdog's heartbeats, the
-parts the serving engine emits into. The cost analysis, the compile
-watchers and ``StallWatchdog`` are not ported yet (ROADMAP A7)."""
+metrics registry, the flight recorder, and the watchdog's heartbeats and
+diagnostic bundle, the parts the serving edge emits into. The cost
+analysis and the compile watchers wait for ROADMAP A7, ``StallWatchdog``
+for A5.3."""

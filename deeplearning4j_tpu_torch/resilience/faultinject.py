@@ -1,8 +1,38 @@
-"""Deterministic fault injection for the generation engine (the JAX
-package's ``resilience/faultinject.py``: the schedule and the engine's
-five hooks, and its checkpoint-commit hook). The training, network,
-input-pipeline, elastic and fleet kinds wait for the paths they test
-(ROADMAP A5 part 2, A6).
+"""Deterministic fault injection (the JAX package's
+``resilience/faultinject.py``: the schedule, the hooks of the generation
+engine, of a checkpoint's commit, of the Keras gateway and its predict
+batching, and the replica kinds a gateway consults). The training,
+broker, input-pipeline and elastic kinds, and the rest of the fleet
+kinds, wait for the paths they test (ROADMAP A2, A5.3, A6, A7).
+
+Gateway fault kinds (the serving edge's chaos seams):
+
+- ``hang_backend``     — the Nth KerasServer model dispatch sleeps
+  ``duration`` seconds (a hung card or model); deadline budgets must
+  expire and the circuit breaker must count it.
+- ``burst``            — declarative burst size for chaos harnesses:
+  ``burst_size()`` hands the scheduled ``count`` to the test driver,
+  which fires that many concurrent requests.
+- ``poison_row``       — NaN-poison the Nth predict request's features
+  at the batching seam, so ONE request in a coalesced batch produces a
+  nonfinite row block; the per-row sentinel must fail it alone while
+  its batchmates are served.
+- ``slow_batch``       — the Nth *batched* dispatch stalls ``duration``
+  seconds before execution (a hung card under a formed batch);
+  deadline-blown members must fail alone, the rest succeed late or on
+  their own budget.
+
+Replica fault kinds (a gateway built with a ``replica_rank``):
+
+- ``kill_replica``     — hard-kill replica ``rank`` at its
+  ``at_call``-th admitted request: its listener and every established
+  connection close abruptly. With ``step`` > 0 the kill fires
+  mid-STREAM instead, at the replica's ``step``-th streamed token.
+- ``partition_replica``— from replica ``rank``'s ``at_call``-th admitted
+  request, suppress ITS heartbeat for ``duration`` seconds (0 = until
+  the schedule is cleared) while it keeps serving.
+- ``slow_replica``     — replica ``rank``'s ``at_call``-th admitted
+  request stalls ``duration`` seconds before dispatch.
 
 Checkpoint fault kind:
 
@@ -42,9 +72,12 @@ is armed.
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from deeplearning4j_tpu_torch.profiling.flightrec import (
     record as flight_record,
@@ -53,7 +86,9 @@ from deeplearning4j_tpu_torch.profiling.metrics import get_registry
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
 _KINDS = ("poison_decode", "evict_cache", "evict_page",
-          "corrupt_page_table", "truncate_checkpoint")
+          "corrupt_page_table", "truncate_checkpoint", "hang_backend",
+          "burst", "poison_row", "slow_batch", "kill_replica",
+          "partition_replica", "slow_replica")
 
 
 class KilledByFault(RuntimeError):
@@ -65,17 +100,23 @@ class KilledByFault(RuntimeError):
 @dataclass
 class Fault:
     """One scheduled fault. ``at_call`` arms it at the Nth request
-    (``poison_decode``) or decode iteration (the others), 1-based;
-    ``step`` is the poisoned request's decode step; ``rank`` the target
-    row's age rank (``evict_page``, ``corrupt_page_table``; -1 = the
-    oldest); ``mode`` how a ``truncate_checkpoint`` tears its commit
-    (``"crash"`` or ``"torn"``)."""
+    (``poison_decode``, ``poison_row``, the replica kinds), dispatch
+    (``hang_backend``, ``slow_batch``), commit or decode iteration (the
+    others), 1-based; ``step`` is the poisoned request's decode step (or
+    a mid-stream ``kill_replica``'s token); ``rank`` the target row's age
+    rank (``evict_page``, ``corrupt_page_table``; -1 = the oldest) or the
+    target replica; ``mode`` how a ``truncate_checkpoint`` tears its
+    commit (``"crash"`` or ``"torn"``); ``duration`` the stall of
+    ``hang_backend`` / ``slow_batch`` / ``slow_replica`` and the window
+    of ``partition_replica``; ``count`` a ``burst``'s size."""
 
     kind: str
     step: int = 0
     at_call: int = 1
     rank: int = -1
     mode: str = "crash"
+    duration: float = 0.0
+    count: int = 0
     fired: bool = False
 
     def __post_init__(self):
@@ -99,15 +140,32 @@ _decode_iters = 0
 _page_iters = 0
 _pt_iters = 0
 _commit_calls = 0
+_dispatch_calls = 0
+_predict_loads = 0
+_batch_dispatches = 0
+#: per-replica-rank admitted-request counters (``kill_replica`` /
+#: ``partition_replica`` / ``slow_replica`` at_call addressing)
+_replica_requests: Dict[int, int] = {}
+#: per-replica-rank streamed-token counters (``kill_replica`` with
+#: ``step`` > 0 — the mid-stream kill address)
+_replica_tokens: Dict[int, int] = {}
+#: per-replica-rank heartbeat-suppression windows (``partition_replica``)
+_replica_partition_until: Dict[int, float] = {}
 
 
 def set_schedule(schedule: Optional[FaultSchedule]) -> None:
     """Arm a schedule (or disarm with ``None``). Resets call counters so
     ``at_call`` indices are relative to arming time."""
     global _schedule, _gen_submits, _decode_iters, _page_iters, _pt_iters
-    global _commit_calls
+    global _commit_calls, _dispatch_calls, _predict_loads, _batch_dispatches
     with _lock:
         _schedule = schedule
+        _replica_requests.clear()
+        _replica_tokens.clear()
+        _replica_partition_until.clear()
+        _dispatch_calls = 0
+        _predict_loads = 0
+        _batch_dispatches = 0
         _gen_submits = 0
         _decode_iters = 0
         _page_iters = 0
@@ -241,3 +299,153 @@ def on_checkpoint_commit(tmp: Path, final: Path) -> None:
         raise KilledByFault(
             f"simulated SIGKILL mid-checkpoint write of {final}")
     # torn mode: fall through — the caller renames the stump
+
+
+def on_backend_dispatch(op: str = "") -> None:
+    """Called by KerasServer immediately before the model op; a
+    scheduled ``hang_backend`` fault stalls this dispatch for
+    ``duration`` seconds (the sleep happens OUTSIDE the harness lock —
+    a hung backend must not freeze the whole chaos schedule)."""
+    global _dispatch_calls
+    with _lock:
+        hit = None
+        if _schedule is not None:
+            _dispatch_calls += 1
+            for f in _schedule.pending():
+                if f.kind == "hang_backend" and f.at_call == _dispatch_calls:
+                    hit = f
+                    break
+            if hit is not None:
+                _fire(hit, op=op, dispatch=_dispatch_calls)
+    if hit is not None:
+        time.sleep(max(0.0, hit.duration))
+
+
+def poison_predict(features: np.ndarray) -> np.ndarray:
+    """Called by KerasServer per loaded predict payload (the batching
+    seam); a scheduled ``poison_row`` fault NaN-poisons the Nth
+    request's features — so one member of a coalesced batch turns
+    nonfinite while its batchmates stay clean. The input array is
+    never mutated."""
+    global _predict_loads
+    with _lock:
+        if _schedule is None:
+            return features
+        _predict_loads += 1
+        hit = None
+        for f in _schedule.pending():
+            if f.kind == "poison_row" and f.at_call == _predict_loads:
+                hit = f
+                break
+        if hit is None:
+            return features
+        _fire(hit, request=_predict_loads)
+    poisoned = np.array(features, copy=True)
+    if not np.issubdtype(poisoned.dtype, np.floating):
+        poisoned = poisoned.astype(np.float32)
+    poisoned.flat[0] = np.nan
+    return poisoned
+
+
+def on_batch_dispatch(key: str = "") -> None:
+    """Called by the batching scheduler immediately before executing a
+    coalesced batch; a scheduled ``slow_batch`` fault stalls this
+    dispatch for ``duration`` seconds (sleep OUTSIDE the harness lock —
+    a stalled batch must not freeze the chaos schedule)."""
+    global _batch_dispatches
+    with _lock:
+        hit = None
+        if _schedule is not None:
+            _batch_dispatches += 1
+            for f in _schedule.pending():
+                if f.kind == "slow_batch" and f.at_call == _batch_dispatches:
+                    hit = f
+                    break
+            if hit is not None:
+                _fire(hit, key=key, dispatch=_batch_dispatches)
+    if hit is not None:
+        time.sleep(max(0.0, hit.duration))
+
+
+def burst_size() -> int:
+    """Hand a chaos driver the scheduled ``burst`` fault's ``count``
+    (0 when none is armed) — the driver fires that many concurrent
+    requests."""
+    with _lock:
+        if _schedule is None:
+            return 0
+        for f in _schedule.pending():
+            if f.kind == "burst":
+                _fire(f, count=f.count)
+                return int(f.count)
+        return 0
+
+
+def heartbeat_suppressed(rank: Optional[int] = None) -> bool:
+    """True while a ``partition_replica`` window for ``rank`` is open:
+    the replica's heartbeat write is silently dropped while it keeps
+    serving. (The JAX package's host-wide ``partition_host`` window
+    waits for the elastic trainer, ROADMAP A6.)"""
+    if rank is None:
+        return False
+    with _lock:
+        until = _replica_partition_until.get(int(rank))
+        return until is not None and time.monotonic() < until
+
+
+def on_replica_request(rank: int) -> Tuple[float, bool]:
+    """Called by a replica's server per ADMITTED request (probes —
+    health/readyz/debug — don't count, so ``at_call`` stays predictable
+    under polling). Increments the rank's request counter once and fires
+    every replica kind addressed at it:
+
+    - ``slow_replica``      → first element: stall seconds (caller
+      sleeps OUTSIDE the harness lock, before dispatch)
+    - ``partition_replica`` → opens the rank's heartbeat-suppression
+      window (``duration`` seconds, 0 = until cleared)
+    - ``kill_replica`` (``step`` == 0) → second element True: the caller
+      must hard-kill itself (close listener + connections)
+
+    Returns ``(stall_s, kill)``."""
+    rank = int(rank)
+    stall = 0.0
+    kill = False
+    with _lock:
+        if _schedule is None:
+            return 0.0, False
+        n = _replica_requests.get(rank, 0) + 1
+        _replica_requests[rank] = n
+        for f in _schedule.pending():
+            if f.rank != rank or f.at_call != n:
+                continue
+            if f.kind == "slow_replica":
+                _fire(f, rank=rank, request=n, duration=f.duration)
+                stall = max(stall, f.duration)
+            elif f.kind == "partition_replica":
+                _fire(f, rank=rank, request=n, duration=f.duration)
+                _replica_partition_until[rank] = (
+                    float("inf") if f.duration <= 0
+                    else time.monotonic() + f.duration)
+            elif f.kind == "kill_replica" and f.step <= 0:
+                _fire(f, rank=rank, request=n)
+                kill = True
+    return stall, kill
+
+
+def check_kill_replica_token(rank: int) -> bool:
+    """Called by a replica's server per streamed generation token
+    (before the partial hits the wire): True when a ``kill_replica``
+    fault with ``step`` > 0 is addressed at this rank's ``step``-th
+    token since arming — the caller hard-kills itself MID-STREAM."""
+    rank = int(rank)
+    with _lock:
+        if _schedule is None:
+            return False
+        n = _replica_tokens.get(rank, 0) + 1
+        _replica_tokens[rank] = n
+        for f in _schedule.pending():
+            if (f.kind == "kill_replica" and f.rank == rank
+                    and f.step > 0 and f.step == n):
+                _fire(f, rank=rank, token=n)
+                return True
+        return False

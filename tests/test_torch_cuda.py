@@ -1110,6 +1110,91 @@ def test_capture_while_another_thread_holds_the_model_lock(card):
         sched.stop()
 
 
+# ------------------------------------------------- predict CUDA graphs
+
+def _predict_case(card, which):
+    """A small char-RNN (its LSTMs launch K1) or the 2-layer GPT (its
+    attention launches K4) on the card, the K1/K4 wrapper, the kernel
+    launches of one forward, and a feature row shape."""
+    if which == "char_rnn":
+        net = MultiLayerNetwork(char_rnn_lstm(16, 32, 2),
+                                device=card).init()
+        return net, lstm_recurrence, 2, (8, 16)
+    return _serving_net(card), flash_attention, 2, (SERVE_T, SERVE_V)
+
+
+@pytest.mark.parametrize("which", ["char_rnn", "gpt"])
+def test_predict_graphs_equal_eager_output_bitwise(card, which):
+    """Each predict bucket's CUDA graph (1, 2, 4, 8 rows) captures the
+    container's ``_infer_fn()`` with K1 or K4 inside, and its replay is
+    bitwise equal to an eager ``output()`` of the same padded batch. The
+    wrapper's launch counter counts the capture (the warm-ups and the
+    captured call), not the replays: replays add nothing to it."""
+    from deeplearning4j_tpu_torch.keras.batching import PredictRunner
+    net, kernel, per_call, row = _predict_case(card, which)
+    rng = np.random.default_rng(11)
+    eye = np.eye(row[-1], dtype=np.float32)
+    for bucket in (1, 2, 4, 8):
+        kernel.launches = 0
+        traces = net._infer_traces
+        runner = PredictRunner(net, bucket, (row, "float32"))
+        assert runner.graphed and runner.nbytes > 0
+        assert net._infer_traces == traces + 1
+        assert kernel.launches == (PredictRunner.WARMUP + 1) * per_call
+        x = eye[rng.integers(0, row[-1], (bucket, row[0]))]
+        eager = net.output(x).cpu().numpy()
+        kernel.launches = 0
+        for _ in range(3):
+            got = runner(net, x)
+            assert np.array_equal(got, eager), (which, bucket)
+        assert kernel.launches == 0            # replays are not counted
+
+
+def test_server_fit_leaves_the_predict_graphs_current(card, tmp_path):
+    """A ``KerasServer`` on the card (``device=None``): a char-RNN's
+    predict bucket is captured once; a ``fit`` op (tBPTT, K2 and K3)
+    updates the params in place, so the next predicts replay the same
+    graph (no capture) and answer the fitted weights: bitwise the served
+    net's eager ``output()`` of the same padded batch."""
+    from deeplearning4j_tpu_torch.keras.server import (KerasClient,
+                                                       KerasServer)
+    net = MultiLayerNetwork(char_rnn_lstm(16, 32, 2, tbptt_length=4),
+                            device=card).init()
+    path = str(tmp_path / "rnn.zip")
+    ModelSerializer.write_model(net, path)
+    rng = np.random.default_rng(12)
+    eye = np.eye(16, dtype=np.float32)
+    fdir, ldir = tmp_path / "f", tmp_path / "l"
+    fdir.mkdir()
+    ldir.mkdir()
+    for i in range(2):
+        ids = rng.integers(0, 16, (4, 9))
+        np.save(fdir / f"{i}.npy", eye[ids[:, :-1]])
+        np.save(ldir / f"{i}.npy", eye[ids[:, 1:]])
+    x = eye[rng.integers(0, 16, (3, 8))]
+    np.save(tmp_path / "x.npy", x)
+    srv = KerasServer(max_batch=8, max_wait_ms=2.0, prewarm=False)
+    try:
+        cli = KerasClient(srv.host, srv.port)
+        before = cli.predict(str(tmp_path / "x.npy"), model=path)
+        served = srv._models[path]
+        compiles = srv._batcher.stats()["compiles"]
+        assert served._infer_traces == 1 and compiles == 1
+        lstm_fwd_train.launches = lstm_bwd.launches = 0
+        cli.fit(path, str(fdir), str(ldir), nb_epoch=1)
+        assert lstm_fwd_train.launches > 0 and lstm_bwd.launches > 0
+        after = cli.predict(str(tmp_path / "x.npy"), model=path)
+        assert srv._batcher.stats()["compiles"] == compiles
+        assert served._infer_traces == 1
+        padded = np.concatenate([x, np.zeros((1, 8, 16), np.float32)])
+        want = served.output(padded).cpu().numpy()[:3]
+        assert np.array_equal(after, want)
+        assert not np.array_equal(after, before)
+        cli.close()
+    finally:
+        srv.drain(grace_s=5.0)
+
+
 # ---------------------------------------------------- zip checkpoints
 
 def test_gpt_checkpoint_round_trip_on_card_is_bitwise(card, tmp_path):
@@ -1199,7 +1284,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "resilience/service.py", "resilience/faultinject.py",
                    "resilience/sentinel.py", "analysis/memory.py",
                    "keras/batching.py", "keras/generation.py",
-                   "resilience/atomic.py", "util/serializer.py"):
+                   "resilience/atomic.py", "util/serializer.py",
+                   "keras/server.py", "datasets/iris.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     banned = ("jax", "jaxlib", "deeplearning4j_tpu")
     bad = [(str(f.relative_to(ROOT)), m) for f in files

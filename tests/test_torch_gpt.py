@@ -159,7 +159,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "nn/updater.py", "nn/graph.py", "datasets/dataset.py",
                    "datasets/iterator.py", "convert.py",
                    "nn/conf/builder.py", "nn/conf/graph_builder.py",
-                   "resilience/atomic.py", "util/serializer.py"):
+                   "resilience/atomic.py", "util/serializer.py",
+                   "resilience/service.py", "resilience/faultinject.py",
+                   "profiling/watchdog.py", "keras/batching.py",
+                   "keras/server.py", "datasets/iris.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     banned = ("jax", "jaxlib", "deeplearning4j_tpu")
     bad = [(str(f.relative_to(ROOT)), m) for f in files
