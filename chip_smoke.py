@@ -166,8 +166,31 @@ Phases, each printing JSON lines:
    captures and their seconds, graph pool bytes per bucket, the
    ``serve:batch`` span against the round trip, and the GPT answer's
    JSON cost apart;
-12. a ``{"kernels": [...]}`` summary line;
-13. last line ``{"ok": true, "device": {...}}``.
+12. train features — the single-card training features (ROADMAP A2) at
+   full width: the GPT with ``precision="bf16"`` (bf16 compute, f32
+   masters; K4, K5, K6 as bf16 instantiations, read from a traced
+   step's kernel symbols) through ``fit`` for 20 steps from a
+   ``DevicePrefetchIterator`` under ``ScoreIterationListener``,
+   ``PerformanceListener``, ``CollectScoresIterationListener`` and a
+   skip_batch ``DivergenceSentinel`` (lag 1), one batch with a NaN
+   feature: exactly one skip, the params, moments and device count
+   bitwise unchanged across it, 8 launches of each kernel a step; the
+   first gradient against the CPU's bf16 plain versions (8 rows); the f32
+   twin's distance, bf16 against f32 ms a step in turns, GEMM shares and
+   peak memory. remat on and off (dropout on every layer, bf16): bitwise
+   gradients, K4 16 a step. The bf16 char-RNN's tBPTT (K2, K3 in bf16, 8
+   each a [32, 200] ``fit_batch``, 16 K2 under remat): the first window
+   against the CPU, a NaN in the second window skipped with the carries
+   guarded, clean guarded steps under
+   ``torch.cuda.set_sync_debug_mode("error")``. ``fit(scan_window=4)`` of
+   the f32 GPT bitwise 8 ``fit_batch`` calls, with their launches and the
+   burst's 8 losses. The bf16 ResNet-50 step fed by
+   ``DevicePrefetchIterator`` against the pageable copy in turns
+   (images/s, ``data_wait`` share, busy share). An Iris MLP under L-BFGS
+   and ``evaluate_roc`` / ``evaluate_regression`` against the CPU;
+13. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+   bounds and library times at this slice's shapes);
+14. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -199,7 +222,8 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.datasets import (
-    DataSet, ListDataSetIterator, MnistDataSetIterator,
+    DataSet, DevicePrefetchIterator, IrisDataSetIterator,
+    ListDataSetIterator, MnistDataSetIterator,
 )
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.models.lenet import lenet_mnist
@@ -214,10 +238,22 @@ from deeplearning4j_tpu_torch.models.gpt import (
     char_lm_batches, gpt_decoder, greedy_generate, sample_generate,
     synthetic_char_text,
 )
+from deeplearning4j_tpu_torch.nn.conf import (
+    InputType, NeuralNetConfiguration,
+)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.netcommon import value_and_grad
-from deeplearning4j_tpu_torch.nn.updater import compute_updates, tree_map
+from deeplearning4j_tpu_torch.nn.updater import (
+    compute_updates, tree_leaves, tree_map,
+)
+from deeplearning4j_tpu_torch.optimize.listeners import (
+    CollectScoresIterationListener, PerformanceListener,
+    ScoreIterationListener,
+)
+from deeplearning4j_tpu_torch.optimize.solvers import Solver
+from deeplearning4j_tpu_torch.optimize.training_stats import TrainingStats
 from deeplearning4j_tpu_torch.ops.cuda_build import (
     build_libraries, library_path,
 )
@@ -243,6 +279,7 @@ from deeplearning4j_tpu_torch.resilience.faultinject import (
     Fault, FaultSchedule,
 )
 from deeplearning4j_tpu_torch.resilience.atomic import CheckpointError
+from deeplearning4j_tpu_torch.resilience.sentinel import DivergenceSentinel
 from deeplearning4j_tpu_torch.resilience.service import Deadline
 from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
 
@@ -1001,16 +1038,18 @@ def lstm_train_bound_ms(T, B, H, dtype, part):
 def cudnn_training_ms(B, T, H, g, h0, c0, rw, pw, fb):
     """Yardstick only (the port never calls cuDNN): torch.nn.LSTM (cuDNN,
     no peepholes) in training at the window's shape with the char-RNN's
-    first-layer input (F = 96): its forward with grad enabled, and its
-    backward (forward + backward minus forward: dW_ih, dW_hh, the biases).
-    Beside them, on the same x: K2 with the input GEMM x @ W + b, and K3
-    with the weight-gradient GEMMs dRW = h_prev^T dz and dW = x^T dz."""
-    F_in = LSTM_SLICE["vocab_size"]
-    x = torch.randn(B, T, F_in, generator=g).cuda()
-    w = (torch.randn(F_in, 4 * H, generator=g) * F_in ** -0.5).cuda()
-    b = (torch.randn(4 * H, generator=g) * 0.1).cuda()
-    d_out = torch.randn(B, T, H, generator=g).cuda()
-    lstm = torch.nn.LSTM(F_in, H, batch_first=True).cuda().train()
+    first-layer input (F = 96), in the inputs' type: its forward with
+    grad enabled, and its backward (forward + backward minus forward:
+    dW_ih, dW_hh, the biases). Beside them, on the same x: K2 with the
+    input GEMM x @ W + b, and K3 with the weight-gradient GEMMs
+    dRW = h_prev^T dz and dW = x^T dz."""
+    F_in, dt = LSTM_SLICE["vocab_size"], rw.dtype
+    x = torch.randn(B, T, F_in, generator=g).to("cuda", dt)
+    w = (torch.randn(F_in, 4 * H, generator=g) * F_in ** -0.5).to("cuda",
+                                                                   dt)
+    b = (torch.randn(4 * H, generator=g) * 0.1).to("cuda", dt)
+    d_out = torch.randn(B, T, H, generator=g).to("cuda", dt)
+    lstm = torch.nn.LSTM(F_in, H, batch_first=True).to("cuda", dt).train()
     params = list(lstm.parameters())
 
     def lib_fwd():
@@ -1041,7 +1080,8 @@ def cudnn_training_ms(B, T, H, g, h0, c0, rw, pw, fb):
                 kernel_plus_input_gemm_ms=device_ms(ours_fwd),
                 kernel_plus_weight_grad_gemms_ms=device_ms(ours_bwd),
                 library="torch.nn.LSTM (cuDNN) in training, no peepholes, "
-                        f"x [{B}, {T}, {F_in}] -> H {H}, f32")
+                        f"x [{B}, {T}, {F_in}] -> H {H}, "
+                        f"{str(dt).split('.')[-1]}")
 
 
 def lstm_train_case(name, T, B, H, dtype, peephole, carry, timed=False):
@@ -2200,10 +2240,17 @@ def serve_engine():
         entries = [eng.prompt_registry.get(
             (eng.prefill_bucket(len(prompts[i])), tuple(prompts[i])))
             for i in shared]
+        # after the wave no row is live, so the page's holders are the
+        # registry entries that map it: the two prompts', and the
+        # re-prefilled history's when the evict_page fault's victim was
+        # one of them (its history shares the first 64 tokens)
+        holders = sum(pid is not None and pid in e["pages"]
+                      for e in eng.prompt_registry.values())
         prefix = dict(requests=shared, bucket=bucket, page=pid,
                       buckets_equal=bucket == eng.prefill_bucket(
                           len(prompts[b])),
                       refcount=None if pid is None else eng.page_ref[pid],
+                      registry_holders=holders,
                       both_map_it=all(e is not None and e["pages"][0] == pid
                                       for e in entries))
         page_ev = reg.get("serving_kv_page_evictions_total")
@@ -2286,9 +2333,10 @@ def serve_engine():
           and replay["tokens_equal_singleton"],
           f"page replay at full width: {replay}")
     check(prefix["buckets_equal"] and prefix["both_map_it"]
-          and prefix["refcount"] == 2 and st2["prefix_hits"] >= 1,
-          f"shared prefix not mapped once with refcount 2: {prefix}, "
-          f"prefix_hits {st2['prefix_hits']}")
+          and prefix["refcount"] == prefix["registry_holders"] >= 2
+          and st2["prefix_hits"] >= 1,
+          f"shared prefix not mapped once with a refcount of its holders: "
+          f"{prefix}, prefix_hits {st2['prefix_hits']}")
     check(rec["captures_wave2"] == 0,
           f"the second wave captured {rec['captures_wave2']} steps")
     check(eng.pool_bytes == pool_tensor_bytes ==
@@ -3180,6 +3228,587 @@ def serve_server():
     return dict(main_path=main_path, fit=fit["fit_launches"])
 
 
+# --------------------------------------------------------------------------
+# 12. the single-card training features (ROADMAP A2)
+# --------------------------------------------------------------------------
+
+#: the train_features phase: 20 fit steps of the bf16 GPT, the batch of
+#: step TF_NAN_STEP with a NaN feature; the card-vs-CPU gradient gate on
+#: the first TF_CPU_ROWS rows of the first batch (a full-width bf16
+#: backward on the CPU's plain versions: the rows cut its time, not its
+#: widths); remat's dropout (DL4J's retain probability: 10% dropped);
+#: the scan window and its batches; the ResNet-50 input path's batches
+#: and its turns; the solver's iterations (parity, then training)
+TF_STEPS, TF_NAN_STEP, TF_CPU_ROWS = 20, 7, 8
+TF_RETAIN = 0.9
+TF_SCAN_WINDOW, TF_SCAN_BATCHES = 4, 8
+TF_INPUT_BATCHES, TF_INPUT_TURNS = 8, ("pageable", "prefetch", "prefetch",
+                                       "pageable")
+TF_SOLVER_PARITY_ITERS, TF_SOLVER_ITERS = 10, 60
+#: bf16 on the card against bf16 on the CPU's plain versions: the loss
+#: (relative) and each gradient tensor against its largest |g|: two and
+#: four bf16 ulps of 1.0, as the bf16 kernel cases
+TOL_BF16_LOSS, TOL_BF16_GRAD = 1.6e-2, 3.2e-2
+#: the solver on the card against the CPU after TF_SOLVER_PARITY_ITERS
+#: iterations (f32 objectives; past ~10 iterations f32 rounding steers
+#: Armijo line searches apart on any two devices)
+TOL_SOLVER = 1e-5
+#: ROC AUC and regression metrics on the card against the CPU (the
+#: probabilities differ by f32 rounding only; 100 thresholds)
+TOL_EVAL = 1e-4
+
+
+def kernel_dtypes(fn, names, expect_total):
+    """One traced call of ``fn``: for each kernel name, its launches per
+    instantiated input type, read from the kernels' symbols in the trace
+    (``flash_fwd_kernel<__nv_bfloat16, 64, false>``). A trace that misses
+    launches (the tracer sometimes drops a window's first kernels) is
+    taken again, three times in all."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {n: {"bfloat16": 0, "float32": 0} for n in names}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for n in names:
+                if n in e.key:
+                    dt = "bfloat16" if "bfloat16" in e.key else "float32"
+                    out[n][dt] += e.count
+        if sum(sum(v.values()) for v in out.values()) == expect_total:
+            break
+    return out
+
+
+class GuardProbe:
+    """A listener that copies the params, the optimizer's moments and its
+    count after step ``at - 1`` and, after step ``at`` (the bad one),
+    records whether they are bitwise what they were."""
+
+    def __init__(self, at: int):
+        self.at, self.saved, self.unchanged = at, None, None
+
+    @staticmethod
+    def _written(model):
+        return (tree_leaves(model.params)
+                + [t for k, v in model.opt_state.items() if k != "count"
+                   for t in tree_leaves(v)]
+                + [torch.as_tensor(model.opt_state["count"])])
+
+    def iteration_done(self, model, iteration, score):
+        if iteration == self.at - 1:
+            self.saved = [t.clone() for t in self._written(model)]
+        elif iteration == self.at and self.saved is not None:
+            self.unchanged = all(torch.equal(a, b) for a, b in
+                                 zip(self.saved, self._written(model)))
+            self.saved = None
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over two lists of tensors."""
+    num = sum(float(((x.float() - y.float()) ** 2).sum())
+              for x, y in zip(a, b))
+    den = sum(float((y.float() ** 2).sum()) for y in b)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def bf16_vs_cpu(net, cpu, batch):
+    """The first gradient of ``batch`` on the card and on the CPU (bf16
+    compute, f32 masters): (loss rel err, worst gradient rel err, its
+    name, card loss, CPU loss)."""
+    grads, loss, _ = net.compute_gradient_and_score(batch)
+    cpu_grads, cpu_loss, _ = cpu.compute_gradient_and_score(batch)
+    check(all(g.dtype == torch.float32 for g in tree_leaves(grads)),
+          "bf16 policy: the gradients are not f32")
+    rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    worst, name = grad_rel_err(grads, cpu_grads)
+    return rel, worst, name, float(loss), float(cpu_loss)
+
+
+def tf_gpt_bf16(text_batches):
+    """The bf16 GPT: its first gradient against the CPU's, 20 ``fit``
+    steps from a ``DevicePrefetchIterator`` under four listeners and a
+    skip_batch sentinel (one NaN batch), the f32 twin's distance, bf16
+    against f32 step time in turns, a traced step's kernel symbols and
+    GEMM share, peak memory. Returns the fit's launch counts."""
+    L = SLICE["n_layers"]
+    conf = gpt_decoder(**SLICE, precision="bf16")
+    net = ComputationGraph(conf, device="cuda").init()
+    cpu = ComputationGraph(gpt_decoder(**SLICE, precision="bf16"),
+                           device="cpu").init()
+    first = text_batches[0]
+    rows = DataSet(first.features[:TF_CPU_ROWS], first.labels[:TF_CPU_ROWS])
+    loss_rel, worst, worst_name, loss, cpu_loss = bf16_vs_cpu(net, cpu, rows)
+    del cpu
+
+    batches = list(text_batches[:TF_STEPS])
+    bad = DataSet(np.array(batches[TF_NAN_STEP - 1].features),
+                  batches[TF_NAN_STEP - 1].labels)
+    bad.features[1, 5, 5] = np.nan
+    batches[TF_NAN_STEP - 1] = bad
+    scores = CollectScoresIterationListener()
+    perf = PerformanceListener(frequency=1)
+    probe = GuardProbe(TF_NAN_STEP)
+    sentinel = DivergenceSentinel("skip_batch", lag=1)
+    net.set_listeners(ScoreIterationListener(5), perf, scores, probe)
+    net.set_divergence_sentinel(sentinel)
+    reset_counts()
+    t0 = time.perf_counter()
+    net.fit(DevicePrefetchIterator(ListDataSetIterator(batches),
+                                   dtype="bfloat16"))
+    sentinel.flush()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launched = counts()
+    count_fit = int(net.opt_state["count"])
+    losses = [s for _, s in scores.scores]
+    params_bf16 = [t.clone() for t in tree_leaves(net.params)]
+
+    # the same 20 steps in f32 (same init, same batches, same sentinel)
+    f32 = ComputationGraph(gpt_decoder(**SLICE), device="cuda").init()
+    f32_scores = CollectScoresIterationListener()
+    f32.set_listeners(f32_scores)
+    f32.set_divergence_sentinel(DivergenceSentinel("skip_batch", lag=1))
+    f32.fit(ListDataSetIterator(batches))
+    f32._sentinel.flush()
+    dist = rel_l2(params_bf16, tree_leaves(f32.params))
+    net.set_listeners()
+    f32.set_listeners()
+    clean = text_batches[1]
+
+    # step time in turns, each with its peak memory: unguarded, then
+    # both nets under a sentinel again (the guard's copies and selects)
+    times, peaks = {}, {}
+    for guard in ("", "_guarded"):
+        for model in (net, f32):
+            model.set_divergence_sentinel(
+                DivergenceSentinel("skip_batch", lag=1) if guard else None)
+        for name in ("bf16", "f32", "f32", "bf16"):
+            model = net if name == "bf16" else f32
+            torch.cuda.reset_peak_memory_stats()
+            times.setdefault(name + guard, []).append(host_ms(
+                lambda: model.fit_batch(clean), iters=8, warmup=2))
+            peaks[name + guard] = torch.cuda.max_memory_allocated()
+    for model in (net, f32):
+        model.set_divergence_sentinel(None)
+    symbols = kernel_dtypes(lambda: net.fit_batch(clean),
+                            ATTENTION_KERNELS, 3 * L)
+    prof = device_profile(lambda: net.fit_batch(clean),
+                          {k: L for k in ATTENTION_KERNELS}, top=8,
+                          groups=dict(attention=list(ATTENTION_KERNELS),
+                                      gemm=["gemm", "nvjet", "cutlass",
+                                            "xmma"]))
+    prof_f32 = device_profile(lambda: f32.fit_batch(clean),
+                              {k: L for k in ATTENTION_KERNELS}, top=4,
+                              groups=dict(gemm=["gemm", "nvjet", "cutlass",
+                                                "xmma"]))
+    rec = dict(phase="train_features", case="gpt_bf16", config=SLICE,
+               precision="bf16", batch=[TRAIN_BATCH, SLICE["seq_len"],
+                                        len(CHARSET)],
+               cpu_gate_rows=TF_CPU_ROWS, loss=loss, loss_cpu=cpu_loss,
+               loss_rel_err=loss_rel, tol_loss=TOL_BF16_LOSS,
+               worst_grad_rel_err=worst, worst_grad=worst_name,
+               tol_grad=TOL_BF16_GRAD, fit_steps=TF_STEPS,
+               nan_step=TF_NAN_STEP, skipped=sentinel.skipped_batches,
+               bad_step_unchanged=probe.unchanged, losses=losses,
+               losses_f32=[s for _, s in f32_scores.scores],
+               fit_s=fit_s, samples_per_s_listener=[
+                   h[1] for h in perf.history],
+               params_rel_l2_bf16_vs_f32=dist,
+               fit_launches=launched, kernel_symbols=symbols,
+               ms_per_step=times, peak_mem_bytes=peaks, profile_bf16=prof,
+               profile_f32=prof_f32, count_after_fit=count_fit)
+    emit(rec)
+    check(loss_rel <= TOL_BF16_LOSS,
+          f"bf16 GPT loss {loss} vs the CPU's {cpu_loss}")
+    check(worst <= TOL_BF16_GRAD,
+          f"bf16 GPT gradient {worst_name} differs from the CPU's by "
+          f"{worst} of its largest |g|")
+    check(sentinel.skipped_batches == 1 and probe.unchanged is True,
+          f"the sentinel skipped {sentinel.skipped_batches} steps; the bad "
+          f"step left the params, moments and count unchanged: "
+          f"{probe.unchanged}")
+    check(len(losses) == TF_STEPS and not np.isfinite(
+        losses[TF_NAN_STEP - 1]) and all(np.isfinite(
+            losses[:TF_NAN_STEP - 1] + losses[TF_NAN_STEP:])),
+          f"bf16 GPT losses {losses}")
+    check(count_fit == TF_STEPS - 1,
+          f"the device count {count_fit} != {TF_STEPS - 1}")
+    per_fit = dict(flash_attn_fwd=L * TF_STEPS, flash_attn_dq=L * TF_STEPS,
+                   flash_attn_dkv=L * TF_STEPS, lstm_fwd_infer=0,
+                   lstm_fwd_train=0, lstm_bwd=0)
+    check(launched == per_fit, f"bf16 fit launches {launched} != {per_fit}")
+    check(all(symbols[k] == {"bfloat16": L, "float32": 0}
+              for k in ATTENTION_KERNELS),
+          f"a traced bf16 step's attention kernels: {symbols}")
+    check(np.mean(losses[-4:]) < losses[0], f"bf16 GPT losses {losses}")
+    return launched
+
+
+def tf_gpt_remat(batch):
+    """bf16 GPT with dropout on every layer that takes it, remat on and
+    off from the same seed: bitwise gradients, K4 twice per layer under
+    remat, peak memory of a step each."""
+    L = SLICE["n_layers"]
+    nets = {}
+    for remat in (False, True):
+        conf = gpt_decoder(**SLICE, precision="bf16", dropout=TF_RETAIN)
+        conf.training.remat = remat
+        nets[remat] = ComputationGraph(conf, device="cuda").init()
+    grads, launched, peak, losses = {}, {}, {}, {}
+    for remat, net in nets.items():
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        g, loss, _ = net.compute_gradient_and_score(batch)
+        torch.cuda.synchronize()
+        launched[remat] = counts()
+        peak[remat] = torch.cuda.max_memory_allocated()
+        grads[remat], losses[remat] = tree_leaves(g), loss
+    bitwise = bool(torch.equal(losses[True], losses[False]) and all(
+        torch.equal(a, b) for a, b in zip(grads[True], grads[False])))
+    rec = dict(phase="train_features", case="gpt_remat", retain=TF_RETAIN,
+               grads_bitwise=bitwise, launches_remat=launched[True],
+               launches_no_remat=launched[False],
+               peak_mem_bytes_remat=peak[True],
+               peak_mem_bytes_no_remat=peak[False])
+    emit(rec)
+    check(bitwise, "remat on and off: the gradients differ")
+    check(launched[True]["flash_attn_fwd"] == 2 * L
+          and launched[True]["flash_attn_dq"] == L
+          and launched[True]["flash_attn_dkv"] == L
+          and launched[False]["flash_attn_fwd"] == L,
+          f"remat launches {launched}")
+    return launched[True]
+
+
+def tf_char_rnn_bf16(text_batches):
+    """The bf16 char-RNN's tBPTT: the first window's loss and gradients
+    against the CPU's, a fit_batch's K2/K3 launches and symbols, the
+    distance from the f32 run, a NaN in the second window under the
+    sentinel, clean guarded steps without a host sync. Returns the main
+    path's launch counts."""
+    Lr = LSTM_SLICE["layers"]
+    conf = char_rnn_lstm(**LSTM_SLICE)
+    conf.training.precision = "bf16"
+    win = conf.training.tbptt_fwd_length
+    n_win = -(-LSTM_TRAIN_BATCH[1] // win)
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    cpu_conf = char_rnn_lstm(**LSTM_SLICE)
+    cpu_conf.training.precision = "bf16"
+    cpu = MultiLayerNetwork(cpu_conf, device="cpu").init()
+    b0 = text_batches[0]
+    first = DataSet(b0.features[:, :win], b0.labels[:, :win])
+    loss_rel, worst, worst_name, loss, cpu_loss = bf16_vs_cpu(net, cpu,
+                                                              first)
+    del cpu
+    f32 = MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE), device="cuda").init()
+    reset_counts()
+    mean = float(net.fit_batch(b0))
+    torch.cuda.synchronize()
+    launched = counts()
+    f32_mean = float(f32.fit_batch(b0))
+    dist = rel_l2(tree_leaves(net.params), tree_leaves(f32.params))
+    symbols = kernel_dtypes(lambda: net.fit_batch(text_batches[1]),
+                            ("lstm_fwd_train_kernel", "lstm_bwd_kernel"),
+                            2 * n_win * Lr)
+
+    # a NaN in the second window, under a skip_batch sentinel
+    sentinel = DivergenceSentinel("skip_batch", lag=1)
+    net.set_divergence_sentinel(sentinel)
+    probe = GuardProbe(net.iteration_count + 2)
+    net.set_listeners(probe)
+    bad = DataSet(np.array(text_batches[2].features),
+                  text_batches[2].labels)
+    bad.features[1, win + 3, 3] = np.nan
+    net.fit_batch(bad)
+    net.set_listeners()
+    after_bad = float(net.fit_batch(text_batches[3]))
+    sentinel.flush()
+    finite = bool(all(torch.isfinite(t).all() for t in
+                      tree_leaves(net.params)))
+
+    # clean guarded steps with no listener: no host sync (the batches
+    # already on the card; the flag of each step read a step late)
+    staged = [DataSet(b.features, b.labels) for b in text_batches[4:7]]
+    staged = list(DevicePrefetchIterator(ListDataSetIterator(staged)))
+    net.fit_batch(staged[0])
+    torch.cuda.synchronize()
+    sync_error = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in staged[1:]:
+            net.fit_batch(b)
+    except RuntimeError as e:
+        sync_error = str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sentinel.flush()
+    rec = dict(phase="train_features", case="char_rnn_bf16_tbptt",
+               config=LSTM_SLICE, precision="bf16",
+               batch=[*LSTM_TRAIN_BATCH, len(CHARSET)], tbptt=win,
+               window1_loss=loss, window1_loss_cpu=cpu_loss,
+               loss_rel_err=loss_rel, tol_loss=TOL_BF16_LOSS,
+               worst_grad_rel_err=worst, worst_grad=worst_name,
+               tol_grad=TOL_BF16_GRAD, fit_batch_mean=mean,
+               fit_batch_mean_f32=f32_mean,
+               params_rel_l2_bf16_vs_f32_after_one_fit_batch=dist,
+               launches_per_fit_batch=launched, kernel_symbols=symbols,
+               nan_window_skipped=sentinel.skipped_batches,
+               bad_window_unchanged=probe.unchanged,
+               loss_after_bad_batch=after_bad, params_finite=finite,
+               guarded_steps_sync_error=sync_error)
+    emit(rec)
+    per_fit = dict(flash_attn_fwd=0, flash_attn_dq=0, flash_attn_dkv=0,
+                   lstm_fwd_infer=0, lstm_fwd_train=n_win * Lr,
+                   lstm_bwd=n_win * Lr)
+    check(loss_rel <= TOL_BF16_LOSS,
+          f"bf16 char-RNN window-1 loss {loss} vs the CPU's {cpu_loss}")
+    check(worst <= TOL_BF16_GRAD,
+          f"bf16 char-RNN gradient {worst_name} differs from the CPU's by "
+          f"{worst} of its largest |g|")
+    check(launched == per_fit, f"bf16 char-RNN launches {launched}")
+    check(all(symbols[k] == {"bfloat16": n_win * Lr, "float32": 0}
+              for k in symbols), f"bf16 char-RNN kernel symbols {symbols}")
+    check(sentinel.skipped_batches == 1 and probe.unchanged is True
+          and finite and np.isfinite(after_bad),
+          f"the NaN window: skipped {sentinel.skipped_batches}, unchanged "
+          f"{probe.unchanged}, finite {finite}, next loss {after_bad}")
+    check(sync_error is None, f"a clean guarded step synced: {sync_error}")
+    return launched
+
+
+def tf_remat_char_rnn(batch):
+    """The bf16 char-RNN's fit_batch under remat: K2 twice per layer and
+    window (forward and recompute), K3 once."""
+    Lr = LSTM_SLICE["layers"]
+    conf = char_rnn_lstm(**LSTM_SLICE)
+    conf.training.precision = "bf16"
+    conf.training.remat = True
+    n_win = -(-LSTM_TRAIN_BATCH[1] // conf.training.tbptt_fwd_length)
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    reset_counts()
+    net.fit_batch(batch)
+    torch.cuda.synchronize()
+    launched = counts()
+    emit(dict(phase="train_features", case="char_rnn_remat",
+              launches_per_fit_batch=launched))
+    check(launched["lstm_fwd_train"] == 2 * n_win * Lr
+          and launched["lstm_bwd"] == n_win * Lr,
+          f"char-RNN remat launches {launched}")
+    return launched
+
+
+def tf_scan_window(text_batches):
+    """fit(scan_window=4) of the f32 GPT over 8 batches against 8
+    fit_batch calls: bitwise params, the same launches, the burst's 8
+    losses."""
+    L = SLICE["n_layers"]
+    batches = list(text_batches[:TF_SCAN_BATCHES])
+    loop = ComputationGraph(gpt_decoder(**SLICE), device="cuda").init()
+    scan = ComputationGraph(gpt_decoder(**SLICE), device="cuda").init()
+    reset_counts()
+    loop_losses = [float(loop.fit_batch(b)) for b in batches]
+    torch.cuda.synchronize()
+    loop_launches = counts()
+    col = CollectScoresIterationListener()
+    scan.set_listeners(col)
+    reset_counts()
+    t0 = time.perf_counter()
+    scan.fit(ListDataSetIterator(batches), scan_window=TF_SCAN_WINDOW)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    scan_launches = counts()
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(tree_leaves(scan.params), tree_leaves(loop.params)))
+    burst = [s for _, s in col.scores]
+    emit(dict(phase="train_features", case="scan_window",
+              window=TF_SCAN_WINDOW, batches=TF_SCAN_BATCHES,
+              params_bitwise=bitwise, burst_losses=burst,
+              loop_losses=loop_losses, loop_launches=loop_launches,
+              scan_launches=scan_launches, scan_fit_s=scan_s))
+    check(bitwise, "fit(scan_window=4) differs from 8 fit_batch calls")
+    check(burst == loop_losses,
+          f"the burst's losses {burst} != the loop's {loop_losses}")
+    check(scan_launches == loop_launches and
+          scan_launches["flash_attn_fwd"] == L * TF_SCAN_BATCHES,
+          f"scan launches {scan_launches} vs loop {loop_launches}")
+    return scan_launches
+
+
+def tf_input_path():
+    """The bf16 ResNet-50 fit_batch of [64, 224, 224, 3] fed by
+    DevicePrefetchIterator against the pageable copy, in turns: images/s,
+    the data_wait share, the busy share of a traced window."""
+    from torch.profiler import ProfilerActivity, profile
+    net = ComputationGraph(resnet50(dtype="bfloat16"), device="cuda").init()
+    rng = np.random.default_rng(SEED + 11)
+    B, S, C = RESNET_BATCH, RESNET_HW, RESNET_CLASSES
+    batches = [DataSet(rng.random((B, S, S, 3), dtype=np.float32),
+                       np.eye(C, dtype=np.float32)[rng.integers(0, C, B)])
+               for _ in range(TF_INPUT_BATCHES)]
+    net.fit_batch(batches[0])   # cuDNN's algorithms picked
+
+    def source(kind):
+        base = ListDataSetIterator(batches)
+        return (DevicePrefetchIterator(base, dtype="bfloat16")
+                if kind == "prefetch" else base)
+
+    def batches_of(it):
+        # has_next / next, as a training loop reads a fresh iterator (a
+        # for loop's reset would restart the prefetch it has begun)
+        while it.has_next():
+            yield it.next()
+
+    def run(kind):
+        stats = TrainingStats()
+        torch.cuda.synchronize()
+        it = source(kind)
+        t0 = time.perf_counter()
+        for ds in stats.timed_iter(batches_of(it)):
+            with stats.phase("step"):
+                net.fit_batch(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if kind == "prefetch":
+            it.close()
+        e = stats.export()
+        return dict(images_per_s=B * TF_INPUT_BATCHES / wall, wall_s=wall,
+                    data_wait_s=e["input_stall_s"],
+                    data_wait_share=e["input_stall_s"] / wall)
+
+    turns = [dict(kind=k, **run(k)) for k in TF_INPUT_TURNS]
+    busy = {}
+    for kind in ("pageable", "prefetch"):
+        run(kind)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(kind)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy[kind] = dict(
+            busy_share=sum(e.self_device_time_total for e in dev) / wall_us,
+            memcpy_ms=sum(e.self_device_time_total for e in dev
+                          if "memcpy" in e.key.lower()) / 1e3)
+    emit(dict(phase="train_features", case="input_path",
+              config="resnet50(dtype='bfloat16')", batch=[B, S, S, 3],
+              batches=TF_INPUT_BATCHES, turns=turns, traced=busy))
+    check(all(np.isfinite(t["images_per_s"]) for t in turns),
+          f"input path turns {turns}")
+
+
+def tf_solver_and_eval():
+    """An Iris MLP under L-BFGS on the card against the CPU (the scores
+    after the parity iterations, then a longer run that trains), and
+    evaluate_roc / evaluate_regression on the card against the CPU."""
+    ds = next(iter(IrisDataSetIterator(150)))
+
+    def mlp(device, params=None):
+        conf = (NeuralNetConfiguration.builder().seed(1)
+                .optimization_algo("lbfgs").list()
+                .layer(DenseLayer(n_out=12, activation="tanh"))
+                .layer(OutputLayer(n_out=3, activation="softmax"))
+                .set_input_type(InputType.feed_forward(4)).build())
+        return MultiLayerNetwork(conf, device=device).init(params)
+
+    card, cpu = mlp("cuda"), mlp("cpu")
+    s_card = Solver(card, max_iterations=TF_SOLVER_PARITY_ITERS).optimize(ds)
+    s_cpu = Solver(cpu, max_iterations=TF_SOLVER_PARITY_ITERS).optimize(ds)
+    solver_rel = abs(s_card - s_cpu) / abs(s_cpu)
+    trained = mlp("cuda")
+    s0 = trained.score(ds)
+    s1 = Solver(trained, max_iterations=TF_SOLVER_ITERS).optimize(ds)
+    acc = trained.evaluate(IrisDataSetIterator(150)).accuracy()
+
+    rng = np.random.default_rng(SEED + 13)
+    x = rng.normal(size=(256, 4)).astype(np.float32)
+    y2 = np.eye(2, dtype=np.float32)[(x.sum(1) > 0).astype(int)]
+    yr = (x @ rng.normal(size=(4, 2))).astype(np.float32)
+
+    def head(n_out, act, loss, device, params=None):
+        conf = (NeuralNetConfiguration.builder().seed(1)
+                .updater("adam", learning_rate=0.05).weight_init("xavier")
+                .list().layer(DenseLayer(n_out=16, activation="tanh"))
+                .layer(OutputLayer(n_out=n_out, activation=act, loss=loss))
+                .set_input_type(InputType.feed_forward(4)).build())
+        return MultiLayerNetwork(conf, device=device).init(params)
+
+    evals = {}
+    for kind, (y, args) in {"roc": (y2, (2, "softmax", "mcxent")),
+                            "regression": (yr, (2, "identity", "mse"))
+                            }.items():
+        src = head(*args, "cpu")
+        it = ListDataSetIterator([DataSet(x, y)])
+        src.fit(it, epochs=30, use_async=False)
+        params = [{k: t.clone() for k, t in p.items()} for p in src.params]
+        on_card = head(*args, "cuda", params)
+        if kind == "roc":
+            a, b = on_card.evaluate_roc(it), src.evaluate_roc(it)
+            m = on_card.evaluate_roc_multi_class(it)
+            evals[kind] = dict(auc_card=a.calculate_auc(),
+                               auc_cpu=b.calculate_auc(),
+                               auc_class1_card=m.calculate_auc(1))
+            evals[kind]["diff"] = abs(evals[kind]["auc_card"]
+                                      - evals[kind]["auc_cpu"])
+        else:
+            a, b = on_card.evaluate_regression(it), src.evaluate_regression(it)
+            evals[kind] = dict(mse_card=a.average_mean_squared_error(),
+                               mse_cpu=b.average_mean_squared_error(),
+                               r_card=[a.correlation_r2(c) for c in (0, 1)])
+            evals[kind]["diff"] = abs(evals[kind]["mse_card"]
+                                      - evals[kind]["mse_cpu"]) / abs(
+                evals[kind]["mse_cpu"])
+    emit(dict(phase="train_features", case="solver_and_eval",
+              solver="lbfgs", parity_iterations=TF_SOLVER_PARITY_ITERS,
+              score_card=s_card, score_cpu=s_cpu, score_rel_err=solver_rel,
+              tol_solver=TOL_SOLVER, trained_iterations=TF_SOLVER_ITERS,
+              score_before=s0, score_after=s1, iris_accuracy=acc,
+              eval=evals, tol_eval=TOL_EVAL))
+    check(solver_rel <= TOL_SOLVER,
+          f"L-BFGS on the card {s_card} vs the CPU {s_cpu}")
+    check(s1 < 0.5 * s0 and acc > 0.9,
+          f"L-BFGS on the card: score {s0} -> {s1}, accuracy {acc}")
+    check(evals["roc"]["diff"] <= TOL_EVAL
+          and evals["regression"]["diff"] <= TOL_EVAL
+          and evals["roc"]["auc_card"] > 0.9,
+          f"evaluation on the card vs the CPU: {evals}")
+
+
+def train_features():
+    """The single-card training features on the card: the bf16 GPT (K4,
+    K5, K6 in bf16) through fit, a prefetching iterator, listeners and a
+    sentinel; remat; the bf16 char-RNN's tBPTT (K2, K3 in bf16); a scan
+    window; the input path; a solver and the ROC / regression
+    evaluators. Returns the main path's launch counts: the bf16 fit's
+    (K4-K6) and the bf16 char-RNN fit_batch's (K2, K3)."""
+    B, T = TRAIN_BATCH, SLICE["seq_len"]
+    n = max(TF_STEPS, TF_SCAN_BATCHES)
+    text = synthetic_char_text(n * B * (T + 1) + 1, seed=SEED + 21)
+    gpt_batches = char_lm_batches(text, T, B, charset=CHARSET)
+    check(len(gpt_batches) >= n, f"{len(gpt_batches)} GPT batches")
+    (Bl, Tl) = LSTM_TRAIN_BATCH
+    text = synthetic_char_text(8 * Bl * (Tl + 1) + 1, seed=SEED + 22)
+    lstm_batches = char_lm_batches(text, Tl, Bl, charset=CHARSET)
+    t0 = time.perf_counter()
+    gpt = tf_gpt_bf16(gpt_batches)
+    remat = tf_gpt_remat(gpt_batches[2])
+    lstm = tf_char_rnn_bf16(lstm_batches)
+    lstm_remat = tf_remat_char_rnn(lstm_batches[0])
+    scan = tf_scan_window(gpt_batches)
+    tf_input_path()
+    tf_solver_and_eval()
+    emit(dict(phase="train_features", case="summary",
+              seconds=time.perf_counter() - t0))
+    return dict(gpt=gpt, char_rnn=lstm, gpt_remat=remat,
+                char_rnn_remat=lstm_remat, scan=scan)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3222,7 +3851,9 @@ def main() -> int:
     kernel_case("b_T300_masked", 2, 8, 300, 64, True, torch.float32,
                 "holes")
     kernel_case("c_D8_full", 4, 8, 256, 8, False, torch.float32, None)
-    kernel_case("d_bf16", 32, 8, 256, 64, True, torch.bfloat16, None)
+    # the bf16 GPT's shape (train_features): timed beside SDPA in bf16
+    a16 = kernel_case("d_bf16", 32, 8, 256, 64, True, torch.bfloat16, None,
+                      timed=True)
     kernel_case("e_slice_half_keys", 32, 8, 256, 64, True, torch.float32,
                 "half", timed=True)
     f = kernel_case("f_slice_padded", 32, 8, 256, 64, True, torch.float32,
@@ -3272,7 +3903,10 @@ def main() -> int:
     lstm_train_case("b_ragged_carry", 7, 3, 100, torch.float32, True, True)
     lstm_train_case("c_last_window", 64 - W, Bt, H, torch.float32, True,
                     True)
-    lstm_train_case("d_bf16", W, Bt, H, torch.bfloat16, True, False)
+    # the bf16 char-RNN's window (train_features): timed beside cuDNN's
+    # bf16 LSTM
+    k23b = lstm_train_case("d_bf16", W, Bt, H, torch.bfloat16, True, False,
+                           timed=True)
     lstm_train_case("e_no_peephole", W, Bt, H, torch.float32, False, False)
     lstm_train_case("f_widest", 3, 2, MAX_HIDDEN, torch.float32, True, True)
     lstm_train_case("g_resident_widest", 9, 11, res, torch.float32, True,
@@ -3289,7 +3923,8 @@ def main() -> int:
                  timed=True)
     bwd_case("b_T300_masked", 2, 8, 300, 64, True, torch.float32, "holes")
     bwd_case("c_D8_full", 4, 8, 256, 8, False, torch.float32, None)
-    bwd_case("d_bf16", 32, 8, 256, 64, True, torch.bfloat16, None)
+    g16 = bwd_case("d_bf16", 32, 8, 256, 64, True, torch.bfloat16, None,
+                   timed=True)
     bwd_case("e_slice_half_keys", 32, 8, 256, 64, True, torch.float32,
              "half", timed=True)
     bwd_case("f_slice_padded", 32, 8, 256, 64, True, torch.float32,
@@ -3341,7 +3976,13 @@ def main() -> int:
     server_path = serve_server()
     served, fitted = server_path["main_path"], server_path["fit"]
 
-    # ---- 12. summary of every ported kernel -------------------------------
+    # ---- 12. the single-card training features: bf16 GPT (K4-K6 in bf16)
+    # and char-RNN (K2/K3 in bf16), listeners, sentinel, remat, scan
+    # windows, the prefetching iterator, solvers, ROC / regression --------
+    tf_path = train_features()
+    tf_gpt, tf_lstm = tf_path["gpt"], tf_path["char_rnn"]
+
+    # ---- 13. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -3349,7 +3990,12 @@ def main() -> int:
              # serving, training and the predict server's captures (a
              # captured launch replays with every batch of its bucket)
              launches=flash_launches + train_path["flash_attn_fwd"]
-             + served["flash_attn_fwd"],
+             + served["flash_attn_fwd"] + tf_gpt["flash_attn_fwd"],
+             launches_bf16_train_features=tf_gpt["flash_attn_fwd"],
+             ms_bf16=a16["ms"], plain_ms_bf16=a16["plain_ms"],
+             bound_ms_bf16=a16["bound_ms"], bound_by_bf16=a16["bound_by"],
+             library_ms_bf16=a16["library_ms"],
+             max_abs_err_bf16=a16["max_abs_err_o"],
              launches_serve_server=served["flash_attn_fwd"],
              replays_per_bucket_serve_server=SLICE["n_layers"],
              launches_d256=wide_path["flash_attn_fwd"],
@@ -3386,7 +4032,13 @@ def main() -> int:
         dict(name="flash_attn_dq", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_dq.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:152",
-             launches=train_path["flash_attn_dq"],
+             launches=train_path["flash_attn_dq"] + tf_gpt["flash_attn_dq"],
+             launches_bf16_train_features=tf_gpt["flash_attn_dq"],
+             ms_bf16=g16["ms_dq"], plain_ms_bf16=g16["plain_ms_dq"],
+             bound_ms_bf16=g16["bound_ms_dq"],
+             bound_by_bf16=g16["bound_by_dq"],
+             library_ms_bf16=g16["library_ms"],
+             max_abs_err_bf16=g16["max_abs_err_dq"],
              launches_d256=wide_path["flash_attn_dq"],
              ms_d256=gi["ms_dq"], bound_ms_d256=gi["bound_ms_dq"],
              library_ms_d256=gi["library_ms"],
@@ -3401,7 +4053,15 @@ def main() -> int:
         dict(name="flash_attn_dkv", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_dkv.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:192",
-             launches=train_path["flash_attn_dkv"],
+             launches=train_path["flash_attn_dkv"]
+             + tf_gpt["flash_attn_dkv"],
+             launches_bf16_train_features=tf_gpt["flash_attn_dkv"],
+             ms_bf16=g16["ms_dkv"], plain_ms_bf16=g16["plain_ms_dkv"],
+             bound_ms_bf16=g16["bound_ms_dkv"],
+             bound_by_bf16=g16["bound_by_dkv"],
+             library_ms_bf16=g16["library_ms"],
+             max_abs_err_bf16=max(g16["max_abs_err_dk"],
+                                  g16["max_abs_err_dv"]),
              launches_d256=wide_path["flash_attn_dkv"],
              ms_d256=gi["ms_dkv"], bound_ms_d256=gi["bound_ms_dkv"],
              library_ms_d256=gi["library_ms"],
@@ -3419,7 +4079,16 @@ def main() -> int:
              source="deeplearning4j_tpu_torch/csrc/lstm_fwd_train.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:63",
              launches=lstm_train_path["lstm_fwd_train"]
-             + fitted["lstm_fwd_train"],
+             + fitted["lstm_fwd_train"] + tf_lstm["lstm_fwd_train"],
+             launches_bf16_train_features=tf_lstm["lstm_fwd_train"],
+             ms_bf16=k23b["ms_fwd"], plain_ms_bf16=k23b["plain_ms_fwd"],
+             bound_ms_bf16=k23b["bound_ms_fwd"],
+             bound_by_bf16=k23b["bound_by_fwd"],
+             library_ms_bf16=k23b["library_ms_fwd"],
+             library_vs_ms_bf16=k23b["kernel_plus_input_gemm_ms"],
+             max_abs_err_bf16=max(k23b["max_abs_err_hs"],
+                                  k23b["max_abs_err_gates"],
+                                  k23b["max_abs_err_cs"]),
              launches_serve_server_fit=fitted["lstm_fwd_train"],
              max_abs_err=max(k23["max_abs_err_hs"],
                              k23["max_abs_err_gates"],
@@ -3437,7 +4106,17 @@ def main() -> int:
         dict(name="lstm_bwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/lstm_bwd.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:161",
-             launches=lstm_train_path["lstm_bwd"] + fitted["lstm_bwd"],
+             launches=lstm_train_path["lstm_bwd"] + fitted["lstm_bwd"]
+             + tf_lstm["lstm_bwd"],
+             launches_bf16_train_features=tf_lstm["lstm_bwd"],
+             ms_bf16=k23b["ms_bwd"], plain_ms_bf16=k23b["plain_ms_bwd"],
+             bound_ms_bf16=k23b["bound_ms_bwd"],
+             bound_by_bf16=k23b["bound_by_bwd"],
+             library_ms_bf16=k23b["library_ms_bwd"],
+             library_vs_ms_bf16=k23b["kernel_plus_weight_grad_gemms_ms"],
+             max_abs_err_bf16=max(k23b["max_abs_err_dz"],
+                                  k23b["max_abs_err_dh0"],
+                                  k23b["max_abs_err_dc0"]),
              launches_serve_server_fit=fitted["lstm_bwd"],
              max_abs_err=max(k23["max_abs_err_dz"], k23["max_abs_err_dh0"],
                              k23["max_abs_err_dc0"]),

@@ -11,7 +11,7 @@ weight-tied LM head (``TiedRnnOutputLayer``).
 The character data path (``char_vocab``, ``char_lm_batches``,
 ``synthetic_char_text``) is the JAX package's, in numpy: one-hot char
 windows with next-char targets, the batches ``fit`` trains on. Not ported
-yet: ``char_lm_sources`` (the streaming pipeline) and mixed precision.
+yet: ``char_lm_sources`` (the streaming pipeline).
 """
 
 from __future__ import annotations
@@ -49,6 +49,8 @@ def gpt_decoder(vocab_size: int, seq_len: int, d_model: int = 128,
                 d_ff: Optional[int] = None, seed: int = 12345,
                 learning_rate: float = 3e-4, updater: str = "adam",
                 dropout: Optional[float] = None,
+                precision: Optional[str] = None,
+                loss_scale: Optional[float] = None,
                 block_size: int = 512,
                 tie_weights: bool = True,
                 dtype: str = "float32") -> ComputationGraphConfiguration:
@@ -56,8 +58,9 @@ def gpt_decoder(vocab_size: int, seq_len: int, d_model: int = 128,
     ``[B, T=seq_len, V=vocab_size]``; output: the per-timestep next-token
     distribution ``[B, T, V]``. ``block_size`` tiles the blockwise
     attention of heads that neither the kernels (d_model / n_heads >
-    256) nor the reference's kernel take. The JAX gpt_decoder's ``precision`` and ``loss_scale`` (training
-    precision) have no counterpart yet."""
+    256) nor the reference's kernel take. ``precision`` (with
+    ``loss_scale``) sets the training precision policy, e.g. ``"bf16"``:
+    bf16 compute over f32 master params."""
     if d_ff is None:
         d_ff = 4 * d_model
     if d_model % n_heads:
@@ -69,6 +72,8 @@ def gpt_decoder(vocab_size: int, seq_len: int, d_model: int = 128,
          .weight_init("xavier"))
     if dropout is not None:
         b = b.dropout(dropout)
+    if precision is not None:
+        b = b.precision(precision, loss_scale=loss_scale)
     g = b.dtype(dtype).graph_builder().add_inputs("tokens")
     g.add_layer("embed", PositionalEmbeddingLayer(
         n_out=d_model, activation="identity"), "tokens")

@@ -365,8 +365,9 @@ class NeuralNetConfiguration:
 
     def precision(self, policy: str, loss_scale: Optional[float] = None
                   ) -> "NeuralNetConfiguration":
-        """Training precision policy ("fp32", "bf16", "fp16"); the port
-        trains fp32 only."""
+        """Training precision policy ("fp32", "bf16", "fp16"): the
+        compute dtype of the forward and backward over f32 master params
+        (``nn/updater.PrecisionPolicy``)."""
         self._training.precision = str(policy).lower()
         self._training.loss_scale = loss_scale
         return self

@@ -15,12 +15,13 @@ the leaves (``netcommon.value_and_grad``); the update
 ``torch.no_grad()``. Truncated BPTT slices the recurrent inputs' time
 axis into windows, one step each, carrying the recurrent nodes' state
 between them, as ``MultiLayerNetwork`` does. Dropout draws from one
-``torch.Generator`` on the net's device, seeded from the config. What
-this container does not bring yet raises ``NotImplementedError`` naming
-its ROADMAP item: the line-search solvers, ``scan_window > 1``,
-``remat``, mixed precision, listeners and the divergence sentinel (A2,
-deferred). ``evaluate(iterator)`` drives ``output()`` over an iterator
-into an ``Evaluation``. Incremental decode has the dense step
+``torch.Generator`` on the net's device, seeded from the config. The
+single-card training features are those of ``MultiLayerNetwork``: the
+precision policy (bf16 compute on f32 masters), ``remat``, listeners,
+the divergence sentinel, ``fit(scan_window=N)``, ``fit``'s asynchronous
+prefetch and the line-search solvers. ``evaluate``, ``evaluate_roc``,
+``evaluate_roc_multi_class`` and ``evaluate_regression`` drive
+``output()`` over an iterator. Incremental decode has the dense step
 (``decode_fns``) and the block-paged one the serving engine runs
 (``paged_decode_fn`` over ``init_kv_page_pool``), both updating their KV
 state in place.
@@ -36,7 +37,7 @@ import torch
 from deeplearning4j_tpu_torch.analysis.memory import default_kv_page_len
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterator import (
-    DataSetIterator, ListDataSetIterator,
+    AsyncDataSetIterator, DataSetIterator, ListDataSetIterator,
 )
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.graph import (
@@ -55,12 +56,14 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.shape import TimeDistributedLayer
 from deeplearning4j_tpu_torch.nn.multilayer import _sum_aux_losses
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    EvalMixin, NetCommonMixin, check_trainable, detach, flat_params,
-    set_flat_params, value_and_grad,
+    SGD_ALGOS, EvalMixin, NetCommonMixin, ScanFitMixin, cast_batch,
+    check_trainable, compute_dtype, flat_params, policy_value_and_grad,
+    remat_call, set_flat_params,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
-    build_optimizer, compute_updates, l1_l2_penalty,
+    build_optimizer, l1_l2_penalty,
 )
+from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
 Tensor = torch.Tensor
 
@@ -84,7 +87,7 @@ def _time_slice(d: Optional[Dict[str, Tensor]], lo: int, hi: int,
             for k, v in d.items()}
 
 
-class ComputationGraph(NetCommonMixin, EvalMixin):
+class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
         self.device = resolve_device(device)
@@ -95,6 +98,7 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
         self.iteration_count = 0
         self.epoch_count = 0
         self.last_batch_size = 0
+        self.listeners: list = []
         self._tx = build_optimizer(conf.training)
         # dropout's draws: one generator on the net's device
         self._rng = torch.Generator(device=self.device).manual_seed(
@@ -198,7 +202,9 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
         ``stop_before_loss``: an output node with a loss head stores its
         INPUT (the head's ``compute_loss`` consumes it), as the JAX
         container's training walk does. ``train`` turns on dropout (not in
-        frozen layers), drawn from ``rng``. ``carries``: optional
+        frozen layers), drawn from ``rng``, and, with ``training.remat``,
+        runs each layer's apply (a recurrent layer's sequence pass) under
+        ``remat_call``. ``carries``: optional
         per-layer-node RNN carry dict (tBPTT, rnn_time_step). When given,
         layers with ``supports_carry`` run ``scan`` from their carry, after
         their input dropout, and the new carries come back as a fourth
@@ -208,6 +214,7 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
         new_states: Dict[str, Dict[str, Tensor]] = {}
         new_carries: Dict[str, Any] = {}
         output_set = set(self.conf.network_outputs)
+        remat = train and self.conf.training.remat
         for name in self.conf.topological_order:
             node = self.conf.nodes[name]
             if node.kind == "input":
@@ -249,11 +256,20 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
                 # scan() bypasses apply(): input dropout must still fire
                 # so tBPTT training regularizes like standard BPTT
                 h = layer._dropout_input(h, layer_train, rng)
-                acts[name], new_carries[name] = layer.scan(p, h, c_in,
-                                                           in_mask)
+                if remat:
+                    acts[name], new_carries[name] = remat_call(
+                        lambda _, *a, _l=layer: _l.scan(*a), None, p, h,
+                        c_in, in_mask)
+                else:
+                    acts[name], new_carries[name] = layer.scan(p, h, c_in,
+                                                               in_mask)
             else:
-                acts[name], s = layer.apply(p, h, state=s, train=layer_train,
-                                            rng=rng, mask=in_mask)
+                def apply_fn(r, pp, hh, s_in, m, _l=layer, _t=layer_train):
+                    return _l.apply(pp, hh, state=s_in, train=_t, rng=r,
+                                    mask=m)
+                acts[name], s = (remat_call(apply_fn, rng, p, h, s, in_mask)
+                                 if remat else apply_fn(rng, p, h, s,
+                                                        in_mask))
                 if layer.frozen:
                     s = states[name]
             out_masks[name] = layer.propagate_mask(in_mask)
@@ -355,7 +371,8 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
     def _split(self, data: Union[DataSet, MultiDataSet]):
         """(inputs, labels, feature masks, label masks) name -> tensor on
         the net's device: features and masks in the net's dtype, labels
-        as given."""
+        as given. Tensors already there (``DevicePrefetchIterator``'s) are
+        taken as they are, or cast on the device."""
         names_in = self.conf.network_inputs
         names_out = self.conf.network_outputs
 
@@ -391,30 +408,45 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
         lands in the tied node's ``W``."""
         self._check_init()
         check_trainable(self.conf.training)
-        inputs, labels, masks, lmasks = self._split(data)
-        loss, new_states, grads = value_and_grad(
+        inputs, labels, masks, lmasks = cast_batch(self.conf.training,
+                                                   self._split(data))
+        loss, new_states, grads = policy_value_and_grad(
             lambda p: self._loss_fn(p, self.states, inputs, labels, masks,
                                     lmasks, rng=self._rng, train=True),
-            self.params)
+            self.params, self.conf.training)
         return grads, loss, new_states
 
-    def _step(self, grads, new_states, loss) -> None:
-        """Apply one update and record its loss."""
+    def _step(self, grads, new_states, loss):
+        """Apply one update (guarded under a sentinel) and take the new
+        layer states. Returns the step's bad flag, or None."""
         layer_list = [self.conf.nodes[n].layer for n in self._layer_nodes]
-        compute_updates(self._tx, grads, self.opt_state, self.params,
-                        layer_list, self.conf.training)
-        self.states = detach(new_states)
-        self.score_value = loss
-        self.iteration_count += 1
+        bad = self._update(grads, loss, layer_list)
+        self.states = self._guard_tree(bad, self.states, new_states)
+        return bad
+
+    def _train_batch(self, data: Union[DataSet, MultiDataSet]):
+        """One SGD-family step on ``data`` (the step ``fit_batch`` and a
+        scan window run). Returns (loss, bad flag or None)."""
+        grads, loss, new_states = self.compute_gradient_and_score(data)
+        bad = self._step(grads, new_states, loss)
+        self.last_grads = grads if self._collect_grads else None
+        return loss, bad
 
     def fit_batch(self, data: Union[DataSet, MultiDataSet]):
         """One optimization step (ref: ComputationGraph.fit), or one per
-        tBPTT window. Returns the loss at the step's starting params (the
-        mean of the windows' losses under tBPTT) as a device scalar;
-        reading it synchronizes, ``score_value`` is the last step's as a
-        float."""
+        tBPTT window, or a line-search solver's run when
+        ``optimization_algo`` is not SGD. Returns the loss at the step's
+        starting params (the mean of the windows' losses under tBPTT) as a
+        device scalar; reading it synchronizes, ``score_value`` is the
+        last step's as a float. Listeners hear of each step, and the
+        sentinel gets each step's flag."""
         self._check_init()
         check_trainable(self.conf.training)
+        if self.conf.training.optimization_algo not in SGD_ALGOS:
+            from deeplearning4j_tpu_torch.optimize.solvers import (
+                solver_fit_batch,
+            )
+            return solver_fit_batch(self, data)
         if self.conf.training.backprop_type == "truncated_bptt":
             feats = ([data.features] if isinstance(data, DataSet)
                      else list(data.features))
@@ -439,9 +471,14 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
                     "labels on every output and recurrent InputTypes for "
                     "every rank-3 input; use backprop_type('standard') "
                     "for sequence-to-one heads")
-        grads, loss, new_states = self.compute_gradient_and_score(data)
-        self._step(grads, new_states, loss)
+        # host-side span: the step's dispatch (see MultiLayerNetwork)
+        with get_tracer().span("fit_batch", it=self.iteration_count + 1):
+            loss, bad = self._train_batch(data)
         self.last_batch_size = data.num_examples()
+        self.score_value = loss
+        self.iteration_count += 1
+        self._observe_sentinel(bad)
+        self._notify_iteration()
         return loss
 
     # ------------------------------------------------------------------ tBPTT
@@ -496,47 +533,52 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
         """Truncated BPTT over time windows, carrying per-node RNN state
         (ref: ComputationGraph.doTruncatedBPTT:2042-2103): one optimizer
         step a window, the carries starting at zeros in the training dtype
-        and detached between windows. Returns the mean of the windows'
-        losses."""
-        fwd = self.conf.training.tbptt_fwd_length
-        inputs, labels, masks, lmasks = self._split(data)
+        (the compute dtype under a mixed policy, ROADMAP C14; see
+        ``MultiLayerNetwork._fit_tbptt``) and detached between windows, a
+        bad window under a sentinel leaving them as they were. Returns the
+        mean of the windows' losses."""
+        training = self.conf.training
+        fwd = training.tbptt_fwd_length
+        inputs, labels, masks, lmasks = cast_batch(training,
+                                                   self._split(data))
         rnn = self._tbptt_rnn_inputs()
         T = next(v.shape[1] for n, v in inputs.items() if n in rnn)
         B = next(iter(inputs.values())).shape[0]
+        dt = compute_dtype(training, self.dtype)
         carries = {name: self.conf.nodes[name].layer.initial_carry(
-                       B, self.dtype, self.device)
+                       B, dt, self.device)
                    for name in self._layer_nodes
                    if getattr(self.conf.nodes[name].layer, "supports_carry",
                               False)}
+        self.last_grads = None   # the tBPTT step collects no gradients
         total, windows = 0.0, 0
         for start in range(0, T, fwd):
             end = min(start + fwd, T)
-            loss, (new_states, new_carries), grads = value_and_grad(
+            loss, (new_states, new_carries), grads = policy_value_and_grad(
                 lambda p: self._tbptt_loss(
                     p, _time_slice(inputs, start, end, only=rnn),
                     _time_slice(labels, start, end),
                     _time_slice(masks, start, end, 2, rnn),
                     _time_slice(lmasks, start, end, 2), carries),
-                self.params)
-            self._step(grads, new_states, loss)
-            carries = detach(new_carries)
+                self.params, training)
+            bad = self._step(grads, new_states, loss)
+            carries = self._guard_tree(bad, carries, new_carries)
             total = total + loss    # on the device: no sync per window
             windows += 1
+            self.iteration_count += 1
+            self.score_value = loss
+            self._observe_sentinel(bad)
+            self._notify_iteration()
         self.last_batch_size = data.num_examples()
         return total / max(windows, 1)
 
     def fit(self, data, epochs: int = 1, use_async: bool = True,
             scan_window: int = 1) -> "ComputationGraph":
-        """(ref: ComputationGraph.fit(DataSetIterator)). ``data``: a
-        DataSet, a MultiDataSet or a DataSetIterator, for ``epochs``.
-        Batches are read in order on the calling thread: the asynchronous
-        prefetch that ``use_async`` asks for is not ported (ROADMAP A7) and
-        does not change the results."""
+        """(ref: ComputationGraph.fit(DataSetIterator):701-771). ``data``:
+        a DataSet, a MultiDataSet or a DataSetIterator, for ``epochs``;
+        ``use_async`` and ``scan_window`` as in
+        ``MultiLayerNetwork.fit``."""
         self._check_init()
-        if scan_window > 1:
-            raise NotImplementedError(
-                "fit(scan_window > 1) is not ported yet (ROADMAP A2, "
-                "deferred)")
         if isinstance(data, MultiDataSet):
             for _ in range(epochs):
                 self.fit_batch(data)
@@ -546,10 +588,21 @@ class ComputationGraph(NetCommonMixin, EvalMixin):
         if not isinstance(data, DataSetIterator):
             raise TypeError(f"fit takes a DataSet, a MultiDataSet or a "
                             f"DataSetIterator, not {type(data).__name__}")
-        for _ in range(epochs):
-            for batch in data:
-                self.fit_batch(batch)
-            self.epoch_count += 1
+        it = (AsyncDataSetIterator(data)
+              if use_async and data.async_supported() else data)
+        try:
+            for _ in range(epochs):
+                self._notify_epoch("on_epoch_start")
+                if scan_window > 1:
+                    self._fit_epoch_scan(it, scan_window)
+                else:
+                    for batch in it:  # __iter__ resets the iterator
+                        self.fit_batch(batch)
+                self.epoch_count += 1
+                self._notify_epoch("on_epoch_end")
+        finally:
+            if it is not data:
+                it.close()
         return self
 
     # ------------------------------------------------------- rnn statefulness

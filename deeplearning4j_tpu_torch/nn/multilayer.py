@@ -14,20 +14,29 @@ feature mask for rank-3 labels.
 Training (``fit_batch``, ``fit``, ``score``,
 ``compute_gradient_and_score``): the JAX package's ``jax.value_and_grad``
 over one pure forward becomes ``torch.autograd.grad`` over the same walk
-(``netcommon.value_and_grad``), and the update runs in place
+(``netcommon.value_and_grad``, under the precision policy: with
+``precision("bf16")`` the params and float features are cast to bf16 at
+the step boundary, the loss and the gradients come back in f32 and the
+f32 masters are updated), and the update runs in place
 (``nn/updater.compute_updates``). Truncated BPTT slices the time axis into
 ``tbptt_fwd_length`` windows, one optimizer step each, with the recurrent
 carries detached between windows; with ``tbptt_bwd_length`` shorter, each
 window's head runs under ``torch.no_grad()`` (the LSTMs then launch the
 inference kernel K1) and still trains the output layer through its loss.
 Dropout draws from one ``torch.Generator`` on the net's device, seeded
-from the config. What this container does not bring yet raises
-``NotImplementedError`` naming its ROADMAP item: the line-search solvers,
-``scan_window > 1``, ``remat``, mixed precision, listeners, the divergence
-sentinel (A2, deferred) and layerwise pretraining (A7).
-``evaluate(iterator)`` drives ``output()`` over an iterator into an
-``Evaluation``. A ``CenterLossOutputLayer`` head's centers move by their
-moving average after each update, outside the gradient.
+from the config. ``training.remat`` recomputes each layer's activations
+in the backward (``netcommon.remat_call``). ``set_listeners`` /
+``add_listener`` take the ``optimize/listeners`` API,
+``set_divergence_sentinel`` guards every step, ``fit(scan_window=N)``
+runs windows of N steps with one host read, ``fit`` prefetches through an
+``AsyncDataSetIterator`` (``use_async``), and an ``optimization_algo``
+other than SGD trains through the line-search solvers
+(``optimize/solvers``). Layerwise pretraining raises
+``NotImplementedError`` naming ROADMAP A7. ``evaluate``,
+``evaluate_roc``, ``evaluate_roc_multi_class`` and
+``evaluate_regression`` drive ``output()`` over an iterator. A
+``CenterLossOutputLayer`` head's centers move by their moving average
+after each update, outside the gradient.
 """
 
 from __future__ import annotations
@@ -39,18 +48,20 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterator import (
-    DataSetIterator, ListDataSetIterator,
+    AsyncDataSetIterator, DataSetIterator, ListDataSetIterator,
 )
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.core import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    EvalMixin, NetCommonMixin, check_trainable, detach, flat_params,
-    set_flat_params, value_and_grad,
+    SGD_ALGOS, EvalMixin, NetCommonMixin, ScanFitMixin, cast_batch,
+    check_trainable, compute_dtype, flat_params, policy_value_and_grad,
+    remat_call, set_flat_params,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
-    build_optimizer, compute_updates, l1_l2_penalty,
+    build_optimizer, l1_l2_penalty,
 )
+from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
 Tensor = torch.Tensor
 
@@ -76,7 +87,7 @@ def _window(a, lo: int, hi: int):
     return None if a is None else a[:, lo:hi]
 
 
-class MultiLayerNetwork(NetCommonMixin, EvalMixin):
+class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.conf = conf
         self.layers = conf.layers
@@ -88,6 +99,7 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
         self.iteration_count = 0
         self.epoch_count = 0
         self.last_batch_size = 0
+        self.listeners: list = []
         self._tx = build_optimizer(conf.training)
         # dropout's draws: one generator on the net's device
         self._rng = torch.Generator(device=self.device).manual_seed(
@@ -139,7 +151,9 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
         ``carries``: optional per-layer RNN carry list (tBPTT,
         rnn_time_step); layers with ``supports_carry`` then run ``scan``
         from their carry, after their input dropout. ``train`` turns on
-        dropout (not in frozen layers), drawn from ``rng``. Returns
+        dropout (not in frozen layers), drawn from ``rng``, and, with
+        ``training.remat``, runs each layer's apply (a recurrent layer's
+        sequence pass) under ``remat_call``. Returns
         (activation, per-layer activations if ``collect``, new states, new
         carries, the mask after the last layer)."""
         acts: List[Tensor] = []
@@ -149,6 +163,7 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
         in_types = self.conf.input_types
         h = x
         last = len(self.layers) - 1
+        remat = train and self.conf.training.remat
         for i, layer in enumerate(self.layers):
             if i in self.conf.preprocessors:
                 it = in_types[i] if in_types else None
@@ -168,10 +183,20 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
                 # scan() bypasses apply(): input dropout must still fire
                 # so tBPTT training regularizes like standard BPTT
                 h = layer._dropout_input(h, layer_train, rng)
-                h, new_carries[i] = layer.scan(params[i], h, c_in, cur_mask)
+                if remat:
+                    h, new_carries[i] = remat_call(
+                        lambda _, *a, _l=layer: _l.scan(*a), None,
+                        params[i], h, c_in, cur_mask)
+                else:
+                    h, new_carries[i] = layer.scan(params[i], h, c_in,
+                                                   cur_mask)
             else:
-                h, s = layer.apply(params[i], h, state=s, train=layer_train,
-                                   rng=rng, mask=cur_mask)
+                def apply_fn(r, p, hh, s_in, m, _l=layer, _t=layer_train):
+                    return _l.apply(p, hh, state=s_in, train=_t, rng=r,
+                                    mask=m)
+                h, s = (remat_call(apply_fn, rng, params[i], h, s, cur_mask)
+                        if remat else apply_fn(rng, params[i], h, s,
+                                               cur_mask))
                 if layer.frozen:
                     s = states[i]
             # layers that consume or rearrange the time axis drop the mask
@@ -233,7 +258,9 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
     # ------------------------------------------------------------------ loss
     def _batch(self, ds: DataSet):
         """(features, labels, feature mask, label mask) on the net's
-        device: features and masks in the net's dtype, labels as given."""
+        device: features and masks in the net's dtype, labels as given.
+        Tensors already there (``DevicePrefetchIterator``'s) are taken as
+        they are, or cast on the device."""
         opt = (lambda a: None if a is None else self._to_tensor(a))
         return (self._to_tensor(ds.features),
                 torch.as_tensor(ds.labels, device=self.device),
@@ -287,30 +314,58 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
 
     def _gradient(self, batch):
         """(gradients, score, new states, the head's input) of ``batch``
-        (``_batch``'s tuple) at the current params, training mode."""
+        (``_batch``'s tuple) at the current params, training mode, under
+        the precision policy (gradients and score in f32)."""
         self._check_init()
         check_trainable(self.conf.training)
-        loss, (new_states, _, h), grads = value_and_grad(
+        batch = cast_batch(self.conf.training, batch)
+        loss, (new_states, _, h), grads = policy_value_and_grad(
             lambda p: self._loss_fn(p, self.states, *batch, rng=self._rng),
-            self.params)
+            self.params, self.conf.training)
         return grads, loss, new_states, h
 
-    def _step(self, grads, new_states, loss) -> None:
-        """Apply one update and record its loss."""
-        compute_updates(self._tx, grads, self.opt_state, self.params,
-                        self.layers, self.conf.training)
-        self.states = detach(new_states)
-        self.score_value = loss
-        self.iteration_count += 1
+    def _step(self, grads, new_states, loss):
+        """Apply one update (guarded under a sentinel) and take the new
+        layer states. Returns the step's bad flag, or None."""
+        bad = self._update(grads, loss, self.layers)
+        self.states = self._guard_tree(bad, self.states, new_states)
+        return bad
+
+    def _train_batch(self, dataset: DataSet):
+        """One SGD-family step on ``dataset`` (the step ``fit_batch`` and
+        a scan window run). Returns (loss, bad flag or None)."""
+        batch = self._batch(dataset)
+        grads, loss, new_states, h = self._gradient(batch)
+        head = self.layers[-1]
+        if isinstance(head, CenterLossOutputLayer):
+            # the centers' moving average, from the params before the
+            # update, outside the gradient
+            with torch.no_grad():
+                centers = head.updated_centers(
+                    self.params[-1], h.detach().to(self.dtype), batch[1])
+        bad = self._step(grads, new_states, loss)
+        if isinstance(head, CenterLossOutputLayer):
+            cl = self.params[-1]["cL"]
+            cl.copy_(centers if bad is None
+                     else torch.where(bad, cl, centers))
+        self.last_grads = grads if self._collect_grads else None
+        return loss, bad
 
     def fit_batch(self, dataset: DataSet):
         """One optimization step on one minibatch (ref: fit(DataSet)), or
-        one per tBPTT window. Returns the loss at the step's starting
-        params (the mean of the windows' losses under tBPTT) as a device
-        scalar; reading it synchronizes, ``score_value`` is the last
-        step's as a float."""
+        one per tBPTT window, or a line-search solver's run when
+        ``optimization_algo`` is not SGD. Returns the loss at the step's
+        starting params (the mean of the windows' losses under tBPTT) as a
+        device scalar; reading it synchronizes, ``score_value`` is the
+        last step's as a float. Listeners hear of each step, and the
+        sentinel gets each step's flag."""
         self._check_init()
         check_trainable(self.conf.training)
+        if self.conf.training.optimization_algo not in SGD_ALGOS:
+            from deeplearning4j_tpu_torch.optimize.solvers import (
+                solver_fit_batch,
+            )
+            return solver_fit_batch(self, dataset)
         if (self.conf.training.backprop_type == "truncated_bptt"
                 and dataset.features.ndim == 3):
             if dataset.labels.ndim != 3:
@@ -319,19 +374,16 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
                     f"labels; got rank-{dataset.labels.ndim}. Use "
                     "backprop_type('standard') for sequence-to-one heads.")
             return self._fit_tbptt(dataset)
-        batch = self._batch(dataset)
-        grads, loss, new_states, h = self._gradient(batch)
-        head = self.layers[-1]
-        if isinstance(head, CenterLossOutputLayer):
-            # the centers' moving average, from the params before the
-            # update, outside the gradient
-            with torch.no_grad():
-                centers = head.updated_centers(self.params[-1], h.detach(),
-                                               batch[1])
-        self._step(grads, new_states, loss)
-        if isinstance(head, CenterLossOutputLayer):
-            self.params[-1]["cL"].copy_(centers)
+        # host-side span: the step's dispatch, which is what hangs when a
+        # kernel build or a transfer wedges
+        with get_tracer().span("fit_batch", it=self.iteration_count + 1):
+            loss, bad = self._train_batch(dataset)
         self.last_batch_size = dataset.num_examples()
+        self.last_input = dataset.features
+        self.score_value = loss
+        self.iteration_count += 1
+        self._observe_sentinel(bad)
+        self._notify_iteration()
         return loss
 
     # ------------------------------------------------------------------ tBPTT
@@ -372,43 +424,59 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
     def _fit_tbptt(self, dataset: DataSet):
         """Truncated BPTT over time windows, carrying the RNN state (ref:
         MultiLayerNetwork.doTruncatedBPTT:1119-1183): one optimizer step a
-        window (the last may be short), the carries starting at zeros in
-        the training dtype and detached between windows. Returns the mean
-        of the windows' losses."""
-        fwd = self.conf.training.tbptt_fwd_length
-        feats, labels, fmask, lmask = self._batch(dataset)
+        window (the last may be short), the carries starting at zeros and
+        detached between windows. They start in the training dtype, or
+        under a mixed policy in the compute dtype (ROADMAP C14: the fused
+        LSTM takes one dtype, and its contract rounds the carries to the
+        input type every step, as the TPU kernel's scratch of that type
+        would). Under a sentinel a bad window leaves the carries as they
+        were too. Returns the mean of the windows' losses."""
+        training = self.conf.training
+        fwd = training.tbptt_fwd_length
+        feats, labels, fmask, lmask = cast_batch(training,
+                                                 self._batch(dataset))
         B, T = feats.shape[:2]
-        carries = [layer.initial_carry(B, self.dtype, self.device)
+        dt = compute_dtype(training, self.dtype)
+        carries = [layer.initial_carry(B, dt, self.device)
                    if getattr(layer, "supports_carry", False) else None
                    for layer in self.layers]
+        self.last_grads = None   # the tBPTT step collects no gradients
         total, windows = 0.0, 0
         for start in range(0, T, fwd):
             end = min(start + fwd, T)
-            loss, (new_states, new_carries), grads = value_and_grad(
+            loss, (new_states, new_carries), grads = policy_value_and_grad(
                 lambda p: self._tbptt_loss(
                     p, *(_window(a, start, end)
                          for a in (feats, labels, fmask, lmask)), carries),
-                self.params)
-            self._step(grads, new_states, loss)
-            carries = detach(new_carries)
+                self.params, training)
+            bad = self._step(grads, new_states, loss)
+            carries = self._guard_tree(bad, carries, new_carries)
             total = total + loss    # on the device: no sync per window
             windows += 1
+            self.iteration_count += 1
+            self.score_value = loss
+            self._observe_sentinel(bad)
+            self._notify_iteration()
         self.last_batch_size = dataset.num_examples()
         return total / max(windows, 1)
 
     # -------------------------------------------------------------------- fit
     def fit(self, data, labels=None, epochs: int = 1, use_async: bool = True,
             scan_window: int = 1) -> "MultiLayerNetwork":
-        """Train (ref: MultiLayerNetwork.fit(DataSetIterator)) on a
-        DataSetIterator, a DataSet or ``(features, labels)`` arrays, for
-        ``epochs``. Batches are read in order on the calling thread: the
-        asynchronous prefetch that ``use_async`` asks for is not ported
-        (ROADMAP A7) and does not change the results."""
+        """Train (ref: MultiLayerNetwork.fit(DataSetIterator):947-1016) on
+        a DataSetIterator, a DataSet or ``(features, labels)`` arrays, for
+        ``epochs``, with a ``TrainingListener``'s epoch hooks around each.
+
+        ``use_async``: the iterator is wrapped in an
+        ``AsyncDataSetIterator`` (a producer thread reads ahead; the
+        batches and their order are the same), closed when ``fit``
+        returns or raises. ``scan_window > 1`` groups that many batches
+        into one window (``fit_batches_scan``): the steps run back to back
+        and their losses are read once, in a listener burst after the
+        window (``model.last_scan_window`` carries {n, wall_s} during the
+        burst); a short tail, or a window the scan cannot take (see
+        ``fit_batches_scan``), trains per batch."""
         self._check_init()
-        if scan_window > 1:
-            raise NotImplementedError(
-                "fit(scan_window > 1) is not ported yet (ROADMAP A2, "
-                "deferred)")
         if labels is not None:
             data = DataSet(np.asarray(data), np.asarray(labels))
         if isinstance(data, DataSet):
@@ -416,10 +484,21 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin):
         if not isinstance(data, DataSetIterator):
             raise TypeError(f"fit takes a DataSet, a DataSetIterator or "
                             f"(features, labels), not {type(data).__name__}")
-        for _ in range(epochs):
-            for batch in data:
-                self.fit_batch(batch)
-            self.epoch_count += 1
+        it = (AsyncDataSetIterator(data)
+              if use_async and data.async_supported() else data)
+        try:
+            for _ in range(epochs):
+                self._notify_epoch("on_epoch_start")
+                if scan_window > 1:
+                    self._fit_epoch_scan(it, scan_window)
+                else:
+                    for batch in it:  # __iter__ resets the iterator
+                        self.fit_batch(batch)
+                self.epoch_count += 1
+                self._notify_epoch("on_epoch_end")
+        finally:
+            if it is not data:
+                it.close()
         return self
 
     def pretrain(self, iterator, epochs: int = 1) -> None:

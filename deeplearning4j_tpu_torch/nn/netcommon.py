@@ -1,53 +1,43 @@
 """What the two containers share in training (the JAX package's
 ``nn/netcommon.py`` and the training-step helpers of its containers): the
-lazily read score, the gradient of a loss over a params container, the
-refusal of the training settings whose paths are not ported, the flat
-parameter vector both containers read and write in place, and the
-training hooks that wait for ROADMAP A2."""
+lazily read score, the gradient of a loss over a params container (under
+the precision policy), remat of one layer call, the refusal of the
+training settings whose paths are not ported (layerwise pretraining), the
+flat parameter vector both containers read and write in place, the
+listeners, the divergence sentinel's guarded update, ``fit(scan_window >
+1)`` and the evaluation loops."""
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.nn.conf.builder import TrainingConfig
-from deeplearning4j_tpu_torch.nn.updater import PrecisionPolicy, tree_map
+from deeplearning4j_tpu_torch.nn.updater import (
+    PrecisionPolicy, Updater, cast_floats, compute_updates,
+    precision_value_and_grad, tree_leaves, tree_map,
+)
+from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+
+#: optimization_algo names the per-batch SGD-family step takes; every
+#: other one goes through the line-search solvers
+SGD_ALGOS = ("sgd", "stochastic_gradient_descent")
 
 
 def check_trainable(training: TrainingConfig) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, on a training
-    setting whose path is not ported."""
-    if training.optimization_algo not in ("sgd",
-                                          "stochastic_gradient_descent"):
-        raise NotImplementedError(
-            f"optimization_algo={training.optimization_algo!r}: the "
-            "line-search solvers are not ported yet (ROADMAP A2, deferred)")
-    if (training.iterations != 1
-            or training.max_num_line_search_iterations != 5):
-        raise NotImplementedError(
-            f"iterations={training.iterations}, "
-            "max_num_line_search_iterations="
-            f"{training.max_num_line_search_iterations}: the solvers' "
-            "outer loop is not ported yet (ROADMAP A2, deferred)")
-    if not training.minibatch:
-        raise NotImplementedError(
-            "minibatch=False (full-batch scoring) is not ported yet "
-            "(ROADMAP A2, deferred)")
+    setting whose path is not ported: layerwise pretraining. (The JAX
+    package reads ``iterations`` and ``max_num_line_search_iterations``
+    in its solvers only, and ``minibatch`` nowhere outside its builder;
+    the port does the same.)"""
     if training.pretrain or not training.backprop:
         raise NotImplementedError(
             f"pretrain={training.pretrain}, backprop={training.backprop}: "
             "layerwise pretraining is not ported yet (ROADMAP A7)")
-    if training.remat:
-        raise NotImplementedError(
-            "remat (gradient checkpointing) is not ported yet "
-            "(ROADMAP A2, deferred)")
-    if PrecisionPolicy.parse(training.precision,
-                             loss_scale=training.loss_scale).mixed:
-        raise NotImplementedError(
-            f"precision={training.precision!r}: the port trains fp32 only; "
-            "mixed precision is ROADMAP A2, deferred")
 
 
 def flat_params(tensors: Sequence[torch.Tensor]) -> np.ndarray:
@@ -100,6 +90,69 @@ def value_and_grad(loss_fn: Callable, params) -> Tuple[torch.Tensor, Any,
     return loss.detach(), aux, grads
 
 
+def policy_value_and_grad(loss_fn: Callable, params,
+                          training: TrainingConfig):
+    """``value_and_grad`` under ``training``'s precision policy
+    (``nn/updater.precision_value_and_grad``): the fp32 preset is the
+    plain call."""
+    return precision_value_and_grad(loss_fn, params,
+                                    PrecisionPolicy.of(training),
+                                    value_and_grad)
+
+
+def cast_batch(training: TrainingConfig, batch):
+    """A step's (features, labels, feature masks, label masks) with the
+    features and feature masks (tensors or name -> tensor dicts) cast to
+    the compute dtype under a mixed precision policy: the step boundary's
+    cast seam. As it is under fp32."""
+    policy = PrecisionPolicy.of(training)
+    if not policy.mixed:
+        return batch
+    features, labels, fmask, lmask = batch
+    return (cast_floats(features, policy.compute_dtype), labels,
+            cast_floats(fmask, policy.compute_dtype), lmask)
+
+
+def compute_dtype(training: TrainingConfig, dtype: torch.dtype
+                  ) -> torch.dtype:
+    """The dtype a training step computes in: the policy's compute dtype
+    under a mixed policy, else the net's own ``dtype``."""
+    policy = PrecisionPolicy.of(training)
+    return getattr(torch, policy.compute_dtype) if policy.mixed else dtype
+
+
+def remat_call(fn: Callable, rng, *args):
+    """``fn(rng, *args)`` under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint``): its activations are not kept but
+    recomputed in the backward. ``checkpoint`` restores only the global
+    RNG states, and the port draws dropout from the net's own generator,
+    so the recompute would draw new masks: instead ``fn`` gets a private
+    generator set to ``rng``'s state at the call, in the forward and again
+    in the recompute, and ``rng`` is then moved to where that generator
+    ended, as if ``fn`` had drawn from it. Outside a gradient (no grad
+    mode) ``fn`` runs as it is."""
+    if not torch.is_grad_enabled():
+        return fn(rng, *args)
+    if rng is None:
+        return checkpoint(fn, None, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    start = rng.get_state()
+    end = []
+
+    def replay(*a):
+        gen = torch.Generator(device=rng.device)
+        gen.set_state(start)
+        out = fn(gen, *a)
+        if not end:
+            end.append(gen.get_state())
+        return out
+
+    out = checkpoint(replay, *args, use_reentrant=False,
+                     preserve_rng_state=False)
+    rng.set_state(end[0])
+    return out
+
+
 def detach(tree):
     """A container of tensors (None leaves kept) cut from autograd."""
     return tree_map(lambda t: None if t is None else t.detach(), tree)
@@ -107,8 +160,17 @@ def detach(tree):
 
 class NetCommonMixin:
     """``score_value`` (the last minibatch loss as a float; a device value
-    is read, and the device synchronized, on first access only) and the
-    training hooks that are not ported yet."""
+    is read, and the device synchronized, on first access only), the
+    listeners (``set_listeners`` / ``add_listener``; a listener with
+    ``collects_gradients`` makes each step keep its gradients in
+    ``last_grads``), the divergence sentinel (``set_divergence_sentinel``:
+    every step from then on is guarded) and the guarded update."""
+
+    _sentinel = None
+    _collect_grads = False
+    last_grads = None
+    last_input = None
+    last_scan_window = None
 
     _score_raw: Any = float("nan")
 
@@ -122,28 +184,223 @@ class NetCommonMixin:
     def score_value(self, v) -> None:
         self._score_raw = v
 
+    # ------------------------------------------------------------ listeners
     def set_listeners(self, *listeners) -> None:
-        raise NotImplementedError(
-            "training listeners are not ported yet (ROADMAP A2, deferred)")
+        self.listeners = list(listeners)
+        self._on_listeners_changed()
 
-    def set_divergence_sentinel(self, sentinel) -> None:
-        raise NotImplementedError(
-            "the divergence sentinel is not ported yet (ROADMAP A2, "
-            "deferred)")
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+        self._on_listeners_changed()
+
+    def _on_listeners_changed(self) -> None:
+        # a gradient-collecting listener (ParamAndGradientIteration-
+        # Listener) needs each step's gradients kept; no one else pays
+        # for a param-sized set of tensors held between steps
+        self._collect_grads = any(getattr(l, "collects_gradients", False)
+                                  for l in self.listeners)
+
+    def _notify_iteration(self) -> None:
+        for listener in self.listeners:
+            listener.iteration_done(self, self.iteration_count,
+                                    self.score_value)
+
+    def _notify_epoch(self, hook: str) -> None:
+        for listener in self.listeners:
+            if isinstance(listener, TrainingListener):
+                getattr(listener, hook)(self)
+
+    # ------------------------------------------------------------- sentinel
+    def set_divergence_sentinel(self, sentinel):
+        """Attach (or, with None, detach) a ``DivergenceSentinel``. A
+        guarded step keeps the optimizer's count on the device (see
+        ``nn/updater``); detaching reads it back once."""
+        self._sentinel = sentinel
+        if sentinel is None and self.opt_state is not None:
+            Updater.host_count(self.opt_state)
+        return self
+
+    def _observe_sentinel(self, flag) -> None:
+        """Hand the just-completed step's flag to the sentinel (which may
+        raise per its policy)."""
+        if self._sentinel is not None and flag is not None:
+            self._sentinel.observe(flag, self.iteration_count)
+
+    def _update(self, grads, loss, layers) -> Any:
+        """Apply one update to the params and the optimizer state in
+        place. Under a sentinel the update is guarded: the count lives on
+        the device, and where the loss or the gradients are non-finite
+        the params, the moments and the count are written back as they
+        were (``resilience/sentinel.guarded_in_place``). Returns the
+        step's bad flag (a device bool), or None without a sentinel."""
+        training = self.conf.training
+        if self._sentinel is None:
+            compute_updates(self._tx, grads, self.opt_state, self.params,
+                            layers, training)
+            return None
+        from deeplearning4j_tpu_torch.resilience.sentinel import (
+            guarded_in_place, nonfinite_flag,
+        )
+        Updater.device_count(self.opt_state, self.device)
+        bad = nonfinite_flag(loss, grads)
+        written = tree_leaves(self.params) + [
+            self.opt_state["count"]] + [
+            t for k, v in self.opt_state.items() if k != "count"
+            for t in tree_leaves(v)]
+        guarded_in_place(bad, written, lambda: compute_updates(
+            self._tx, grads, self.opt_state, self.params, layers, training))
+        return bad
+
+    def _guard_tree(self, bad, old, new):
+        """``new`` (detached), or ``old`` where the guarded step's ``bad``
+        flag is set: the layer states and the tBPTT carries a bad step
+        must leave as they were."""
+        new = detach(new)
+        if bad is None:
+            return new
+        from deeplearning4j_tpu_torch.resilience.sentinel import _select
+        return _select(bad, old, new)
+
+
+# ---------------------------------------------------------------------------
+# scan windows
+# ---------------------------------------------------------------------------
+
+def emit_scan_burst(net, losses, n, t0, stats=None):
+    """The post-window listener burst: one iteration event per step of the
+    window, with that step's loss. The window's losses are read from the
+    card once, here. ``net.last_scan_window`` carries {n, wall_s} for the
+    burst, so time-based listeners (PerformanceListener) amortize the
+    window's wall time per step; try/finally keeps a raising listener
+    from leaving it behind."""
+    host = losses.detach().float().cpu().numpy()
+    net.last_scan_window = {"n": n, "wall_s": time.perf_counter() - t0}
+    t_l = time.perf_counter()
+    try:
+        for i in range(n):
+            net.iteration_count += 1
+            # listeners reading model.score_value must see THIS
+            # iteration's loss, not the window's last one
+            net.score_value = float(host[i])
+            for listener in net.listeners:
+                listener.iteration_done(net, net.iteration_count,
+                                        net.score_value)
+    finally:
+        net.last_scan_window = None
+    if stats:
+        stats.record("listener", time.perf_counter() - t_l)
+
+
+class ScanFitMixin:
+    """``fit_batches_scan(datasets)`` and ``fit(scan_window=N)`` for both
+    containers. The JAX package runs a window as one ``lax.scan`` program;
+    the port runs the window's per-batch steps back to back (the same
+    steps ``fit_batch`` runs, so the window is bitwise that many
+    ``fit_batch`` calls), keeps their losses on the card and reads them
+    once, in the listener burst after the window."""
+
+    def _fit_epoch_scan(self, it, scan_window: int) -> None:
+        """One epoch's batches grouped into windows; the short tail (and
+        any window ``fit_batches_scan`` cannot take) trains per batch."""
+        window: list = []
+        for batch in it:
+            window.append(batch)
+            if len(window) == scan_window:
+                self.fit_batches_scan(window)
+                window = []
+        for batch in window:
+            self.fit_batch(batch)
+
+    def fit_batches_scan(self, datasets):
+        """One optimization step per DataSet as one window. Requirements:
+        an SGD-family optimizer, standard backprop, uniform batch shapes,
+        no masks, no gradient-collecting listener, no sentinel; anything
+        else falls back to the per-batch ``fit_batch`` loop (whose losses
+        come back as a host array). Returns the per-step losses, on the
+        card for a window."""
+        self._check_init()
+        datasets = list(datasets)
+        if not datasets:
+            return np.zeros((0,), np.float32)
+
+        def has_mask(d):
+            # DataSet: singular attrs; MultiDataSet: plural lists
+            for attr in ("features_mask", "labels_mask",
+                         "features_masks", "labels_masks"):
+                m = getattr(d, attr, None)
+                if isinstance(m, (list, tuple)):
+                    if any(x is not None for x in m):
+                        return True
+                elif m is not None:
+                    return True
+            return False
+
+        def shape_sig(d):
+            f, l = d.features, d.labels
+            if isinstance(f, (list, tuple)):  # MultiDataSet
+                return (tuple(tuple(x.shape) for x in f),
+                        tuple(tuple(y.shape) for y in l))
+            return (tuple(f.shape), tuple(l.shape))
+
+        training = self.conf.training
+        scannable = (
+            training.optimization_algo in SGD_ALGOS
+            and training.backprop_type != "truncated_bptt"
+            and not self._collect_grads
+            # a divergence sentinel needs each step's flag observed (its
+            # raise / rollback policies act per step)
+            and self._sentinel is None
+            and not any(has_mask(d) for d in datasets)
+            # a ragged batch (a dataset's short tail) cannot share the
+            # window: loop it
+            and len({shape_sig(d) for d in datasets}) == 1)
+        if not scannable:
+            return np.asarray([float(self.fit_batch(d))
+                               for d in datasets], np.float32)
+        t0 = time.perf_counter()
+        losses = torch.stack([self._train_batch(d)[0] for d in datasets])
+        self.last_batch_size = datasets[-1].num_examples()
+        self.last_grads = None
+        self.last_input = datasets[-1].features
+        if self.listeners:
+            emit_scan_burst(self, losses, len(datasets), t0)
+        else:
+            self.iteration_count += len(datasets)
+        self.score_value = losses[-1]
+        return losses
 
 
 class EvalMixin:
-    """``evaluate(iterator)`` for both containers: ``output()`` of each
+    """The evaluation loops of both containers (ref:
+    MultiLayerNetwork.evaluate / evaluateROC:2436 /
+    evaluateROCMultiClass:2449 / evaluateRegression): ``output()`` of each
     batch (with its feature mask, so padded steps do not run as data)
-    into one ``Evaluation``, with the label mask. ROC and regression
-    evaluation wait for ROADMAP A7."""
+    into one evaluator, with the label mask; one drive loop for all
+    four."""
 
-    def evaluate(self, iterator):
-        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
-        evaluation = Evaluation()
+    def _drive_eval(self, evaluator, iterator):
         iterator.reset()
         for batch in iterator:
             out = self.output(batch.features, mask=batch.features_mask)
-            evaluation.eval(batch.labels, out.float().cpu().numpy(),
-                            mask=batch.labels_mask)
-        return evaluation
+            evaluator.eval(batch.labels, out.float().cpu().numpy(),
+                           mask=batch.labels_mask)
+        return evaluator
+
+    def evaluate(self, iterator):
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        return self._drive_eval(Evaluation(), iterator)
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 100):
+        from deeplearning4j_tpu_torch.eval.roc import ROC
+        return self._drive_eval(ROC(threshold_steps), iterator)
+
+    def evaluate_roc_multi_class(self, iterator,
+                                 threshold_steps: int = 100):
+        from deeplearning4j_tpu_torch.eval.roc import ROCMultiClass
+        return self._drive_eval(ROCMultiClass(threshold_steps), iterator)
+
+    def evaluate_regression(self, iterator):
+        from deeplearning4j_tpu_torch.eval.regression import (
+            RegressionEvaluation,
+        )
+        return self._drive_eval(RegressionEvaluation(), iterator)

@@ -26,10 +26,24 @@ so a step holds no second copy of either. ``Updater.optax_leaves`` /
 ``load_optax_leaves`` map the state to and from optax's flattened leaves,
 the layout of a checkpoint's ``updaterState.bin``.
 
-``PrecisionPolicy`` is ported as ``parse`` and the fp32 path: a bf16 or
-fp16 policy is read and validated, and the containers refuse to train
-under it (ROADMAP A2). The ZeRO helpers wait for the parallel trainers
-(ROADMAP A6).
+Mixed precision is the JAX package's policy: :class:`PrecisionPolicy`
+names the compute and master dtypes, :func:`cast_floats` casts a
+container's float tensors, and :func:`precision_value_and_grad` folds the
+step's cast seams into the gradient: params cast to the compute dtype at
+the step boundary, the loss cast back to f32 before it leaves the loss
+function (and scaled by ``loss_scale`` around the differentiation), the
+gradients cast to f32 the moment autograd returns them. The f32 masters
+stay the tensors :func:`compute_updates` updates in place. The fp32
+preset adds no cast: its step is the plain ``value_and_grad``.
+
+The step count is a host int, so an unguarded step reads no device
+value. Under a divergence sentinel it is an int32 device scalar instead
+(:meth:`Updater.device_count`): a guarded step that went non-finite
+must not advance it, and the host learns that only ``lag`` steps later,
+so the count, the learning-rate schedule and the bias corrections are
+then computed on the device and the guard restores the count in place
+with the params and moments. The ZeRO helpers wait for the parallel
+trainers (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -75,7 +89,7 @@ def tree_leaves(tree) -> List[Tensor]:
 
 
 # ---------------------------------------------------------------------------
-# precision policy (the fp32 path)
+# precision policy
 # ---------------------------------------------------------------------------
 
 _FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
@@ -84,8 +98,9 @@ _FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
 @dataclass(frozen=True)
 class PrecisionPolicy:
     """The matmul/update precision policy. ``compute_dtype`` is what the
-    forward and backward run in, ``params_dtype`` the master weights'.
-    The port trains only the pure-fp32 policy (``mixed`` False)."""
+    forward and backward run in, ``params_dtype`` the master weights'
+    (and the gradients' and the loss's), ``loss_scale`` an optional
+    static scale of the loss around the differentiation."""
 
     compute_dtype: str = "float32"
     params_dtype: str = "float32"
@@ -131,13 +146,73 @@ class PrecisionPolicy:
         return PrecisionPolicy(compute_dtype=compute, params_dtype=params,
                                loss_scale=loss_scale)
 
+    @staticmethod
+    def of(training: TrainingConfig) -> "PrecisionPolicy":
+        """The policy ``training.precision`` and ``training.loss_scale``
+        name."""
+        return PrecisionPolicy.parse(training.precision,
+                                     loss_scale=training.loss_scale)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A float dtype's name -> the torch dtype."""
+    return getattr(torch, name)
+
+
+def cast_floats(tree, dtype):
+    """Every floating tensor of ``tree`` cast to ``dtype``; integer and
+    bool tensors (labels as ids, step counts) and None pass through."""
+    dtype = torch_dtype(dtype) if isinstance(dtype, str) else dtype
+
+    def cast(x):
+        if isinstance(x, Tensor) and x.is_floating_point():
+            return x.to(dtype)
+        return x
+
+    return tree_map(cast, tree)
+
+
+def precision_value_and_grad(loss_fn, params, policy: PrecisionPolicy,
+                             value_and_grad):
+    """``value_and_grad(loss_fn, params)`` with the policy's cast seams
+    folded in: ``loss_fn(leaves) -> (loss, aux)`` runs on the params cast
+    to the compute dtype, its loss is cast to the master dtype before it
+    leaves (so the backward's seed, the reported loss and the sentinel
+    see f32), the loss is multiplied by ``loss_scale`` for the
+    differentiation, and the gradients come back in the master dtype,
+    divided by the scale. Returns ``(loss, aux, grads)``.
+
+    A pure-fp32 policy calls ``value_and_grad`` as it is: no cast, the
+    step bitwise the one before the policy existed."""
+    if not policy.mixed:
+        return value_and_grad(loss_fn, params)
+    cdt = torch_dtype(policy.compute_dtype)
+    pdt = torch_dtype(policy.params_dtype)
+    scale = policy.loss_scale
+    reported = []
+
+    def seamed(leaves):
+        loss, aux = loss_fn(leaves)
+        loss = loss.to(pdt)
+        reported.append(loss.detach())
+        return (loss * scale if scale else loss), aux
+
+    _, aux, grads = value_and_grad(seamed, cast_floats(params, cdt))
+    grads = cast_floats(grads, pdt)
+    if scale:
+        grads = tree_map(lambda g: g / scale, grads)
+    return reported[-1], aux, grads
+
 
 # ---------------------------------------------------------------------------
 # learning-rate policies and update rules
 # ---------------------------------------------------------------------------
 
-def make_lr_schedule(u: UpdaterConfig) -> Callable[[int], float]:
-    """updates taken -> learning rate (DL4J's LearningRatePolicy)."""
+def make_lr_schedule(u: UpdaterConfig) -> Callable:
+    """updates taken -> learning rate (DL4J's LearningRatePolicy). The
+    count is a host int (a Python float comes back) or an int32 device
+    scalar under a guard (an f64 device scalar comes back, computed as the
+    host computes it and without a host read)."""
     base = u.learning_rate
     policy = (u.lr_policy or "none").lower()
     rate, power, steps = (u.lr_policy_decay_rate, u.lr_policy_power,
@@ -145,24 +220,52 @@ def make_lr_schedule(u: UpdaterConfig) -> Callable[[int], float]:
     if policy == "none":
         return lambda step: base
     if policy == "exponential":
-        return lambda step: base * rate ** step
+        return lambda step: base * rate ** _f64(step)
     if policy == "inverse":
-        return lambda step: base / (1.0 + rate * step) ** power
+        return lambda step: base / (1.0 + rate * _f64(step)) ** power
     if policy == "poly":
-        return lambda step: base * max(1.0 - step / max(steps, 1.0),
-                                       0.0) ** power
+        def poly(step):
+            left = 1.0 - _f64(step) / max(steps, 1.0)
+            left = (left.clamp(min=0.0) if isinstance(left, Tensor)
+                    else max(left, 0.0))
+            return base * left ** power
+        return poly
     if policy == "sigmoid":
-        return lambda step: base / (1.0 + math.exp(-rate * (step - steps)))
+        def sigmoid(step):
+            z = -rate * (_f64(step) - steps)
+            return base / (1.0 + (torch.exp(z) if isinstance(z, Tensor)
+                                  else math.exp(z)))
+        return sigmoid
     if policy == "step":
-        return lambda step: base * rate ** math.floor(step / steps)
+        def stepwise(step):
+            n = _f64(step) / steps
+            return base * rate ** (torch.floor(n) if isinstance(n, Tensor)
+                                   else math.floor(n))
+        return stepwise
     if policy == "schedule":
         sched = sorted((u.lr_schedule or {}).items())
         if not sched:
             return lambda step: base
         bounds = [k for k, _ in sched]
         values = [base] + [v for _, v in sched]
-        return lambda step: values[bisect.bisect_right(bounds, step)]
+
+        def scheduled(step):
+            if not isinstance(step, Tensor):
+                return values[bisect.bisect_right(bounds, step)]
+            # values[number of bounds <= step], as bisect_right counts
+            lr = torch.full((), base, dtype=torch.float64,
+                            device=step.device)
+            for k, v in sched:
+                lr = torch.where(step >= k, v, lr)
+            return lr
+        return scheduled
     raise ValueError(f"Unknown lr policy {policy!r}")
+
+
+def _f64(step):
+    """A device count as f32 (JAX's int32 count promotes so); a host int
+    as it is."""
+    return step.float() if isinstance(step, Tensor) else step
 
 
 def _moment(t: Tensor, g: Tensor, decay: float) -> Tensor:
@@ -170,10 +273,24 @@ def _moment(t: Tensor, g: Tensor, decay: float) -> Tensor:
     return t.mul_(decay).add_((1 - decay) * g)
 
 
-def _bias_corrected(t: Tensor, decay: float, count: int) -> Tensor:
-    """``t / (1 - decay ** count)``, the correction taken in f32 as optax
-    takes it."""
-    corr = 1 - torch.tensor(decay, dtype=torch.float32) ** count
+def _bias_correction(decay: float, count) -> Tensor:
+    """``1 - decay ** count``, taken in f32 as optax takes it, once a step:
+    on the host (a CPU scalar) for an int count, on the device for a
+    device count."""
+    if isinstance(count, Tensor):
+        # the host's f32 power: ATen squares and cubes by products, and
+        # otherwise rounds the power (taken here in f64) to f32
+        base = torch.full((), decay, dtype=torch.float32,
+                          device=count.device)
+        power = (base.double() ** count.double()).float()
+        power = torch.where(count == 2, base * base, torch.where(
+            count == 3, base * base * base, power))
+        return 1 - power
+    return 1 - torch.tensor(decay, dtype=torch.float32) ** count
+
+
+def _bias_corrected(t: Tensor, corr: Tensor) -> Tensor:
+    """``t`` over a moment's bias correction (``_bias_correction``)."""
     return t / corr.to(t.dtype)
 
 
@@ -201,14 +318,39 @@ class Updater:
             state[slot] = tree_map(lambda p: torch.full_like(p, fill), params)
         return state
 
+    @staticmethod
+    def device_count(state: Dict, device) -> None:
+        """Hold ``state``'s count as an int32 scalar on ``device`` (a
+        guarded step's), in place of a host int."""
+        if not isinstance(state["count"], Tensor):
+            state["count"] = torch.full((), state["count"],
+                                        dtype=torch.int32, device=device)
+
+    @staticmethod
+    def host_count(state: Dict) -> None:
+        """Hold ``state``'s count as a host int again (reads the device
+        once)."""
+        if isinstance(state["count"], Tensor):
+            state["count"] = int(state["count"])
+
     def update(self, grads, state: Dict):
-        """The updates to add to the params for ``grads``."""
+        """The updates to add to the params for ``grads``. A device count
+        is advanced in place, so a guard that restores it restores the
+        schedule's position too."""
         u, count = self.u, state["count"]
         # adadelta runs at lr 1.0 and takes no schedule, as optax.adadelta
         # with learning_rate=1.0 does
         step = -1.0 if self.name == "adadelta" else -self.lr(count)
-        state["count"] = count + 1
+        if isinstance(count, Tensor):
+            count = count + 0        # this step's count, before the advance
+            state["count"].add_(1)
+        else:
+            state["count"] = count + 1
         slots = [state[s] for s in self.SLOTS[self.name]]
+        if self.name in ("adam", "adamax"):   # once a step, not a tensor
+            corr1 = _bias_correction(u.beta1, count + 1)
+        if self.name == "adam":
+            corr2 = _bias_correction(u.beta2, count + 1)
 
         def leaf(g, *st):
             if not self.minimize:
@@ -221,14 +363,14 @@ class Updater:
                 mu, nu = st
                 _moment(mu, g, u.beta1)
                 _moment(nu, g ** 2, u.beta2)
-                g = _bias_corrected(mu, u.beta1, count + 1) / (
-                    torch.sqrt(_bias_corrected(nu, u.beta2, count + 1))
+                g = _bias_corrected(mu, corr1) / (
+                    torch.sqrt(_bias_corrected(nu, corr2))
                     + u.epsilon)
             elif self.name == "adamax":
                 mu, nu = st
                 _moment(mu, g, u.beta1)
                 torch.maximum(g.abs() + u.epsilon, u.beta2 * nu, out=nu)
-                g = _bias_corrected(mu, u.beta1, count + 1) / nu
+                g = _bias_corrected(mu, corr1) / nu
             elif self.name == "adagrad":
                 (sos,) = st
                 sos.add_(g * g)
@@ -265,13 +407,14 @@ class Updater:
         return [*self.SLOTS[self.name], "count"]
 
     def optax_leaves(self, state: Dict) -> List[Tensor]:
-        """``state`` as optax's leaves: each count an int32 scalar, each
-        moment tree's tensors in ``tree_leaves`` order (dict keys sorted
-        at every level)."""
+        """``state`` as optax's leaves: each count an int32 scalar (a
+        device count is copied to the host), each moment tree's tensors in
+        ``tree_leaves`` order (dict keys sorted at every level)."""
         out = []
         for entry in self.optax_layout():
             if entry == "count":
-                out.append(torch.tensor(state["count"], dtype=torch.int32))
+                out.append(torch.as_tensor(state["count"]).to(
+                    "cpu", torch.int32).reshape(()))
             else:
                 out.extend(tree_leaves(state[entry]))
         return out
@@ -280,9 +423,9 @@ class Updater:
     def load_optax_leaves(self, state: Dict, leaves: List[Tensor]) -> None:
         """The inverse of :meth:`optax_leaves`: the moments are written
         into ``state``'s tensors in place, and ``state["count"]`` is read
-        from the first count leaf (0 where the layout keeps none). The
-        leaf count and every leaf's size are checked before anything is
-        written."""
+        from the first count leaf (0 where the layout keeps none; a device
+        count is written in place). The leaf count and every leaf's size
+        are checked before anything is written."""
         targets = []
         for entry in self.optax_layout():
             targets.extend([None] if entry == "count"
@@ -301,7 +444,11 @@ class Updater:
         for leaf, dst in zip(leaves, targets):
             if dst is not None:
                 dst.copy_(leaf.reshape(dst.shape))
-        state["count"] = counts[0] if counts else 0
+        count = counts[0] if counts else 0
+        if isinstance(state["count"], Tensor):
+            state["count"].fill_(count)
+        else:
+            state["count"] = count
 
 
 def build_optimizer(training: TrainingConfig) -> Updater:

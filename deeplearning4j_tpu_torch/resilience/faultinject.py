@@ -1,9 +1,16 @@
 """Deterministic fault injection (the JAX package's
 ``resilience/faultinject.py``: the schedule, the hooks of the generation
 engine, of a checkpoint's commit, of the Keras gateway and its predict
-batching, and the replica kinds a gateway consults). The training,
+batching, the replica kinds a gateway consults, and the ``nan`` kind of
+a training loop, ``poison_batch``). The trainers' ``raise`` kind, the
 broker, input-pipeline and elastic kinds, and the rest of the fleet
-kinds, wait for the paths they test (ROADMAP A2, A5.3, A6, A7).
+kinds, wait for the paths they test (ROADMAP A5.3, A6, A7).
+
+Training fault kind:
+
+- ``nan``              — ``poison_batch(batch, step)`` returns a copy of
+  the batch whose first feature is NaN at the scheduled ``step``; the
+  divergence sentinel's guard must keep the update from landing.
 
 Gateway fault kinds (the serving edge's chaos seams):
 
@@ -85,7 +92,7 @@ from deeplearning4j_tpu_torch.profiling.flightrec import (
 from deeplearning4j_tpu_torch.profiling.metrics import get_registry
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
-_KINDS = ("poison_decode", "evict_cache", "evict_page",
+_KINDS = ("nan", "poison_decode", "evict_cache", "evict_page",
           "corrupt_page_table", "truncate_checkpoint", "hang_backend",
           "burst", "poison_row", "slow_batch", "kill_replica",
           "partition_replica", "slow_replica")
@@ -188,6 +195,39 @@ def _fire(fault: Fault, **args) -> None:
         help="faults injected by the chaos harness").inc()
     get_tracer().instant("fault_injected", kind=fault.kind, **args)
     flight_record("faultinject", "fired", fault=fault.kind, **args)
+
+
+def poison_batch(batch, step: int):
+    """``batch`` with NaN-poisoned features if a ``nan`` fault is
+    scheduled for ``step``, else ``batch`` unchanged. Works on a DataSet
+    (``features`` an array) and a MultiDataSet (a list of arrays); the
+    original batch is never mutated."""
+    with _lock:
+        hit = None
+        if _schedule is not None:
+            for f in _schedule.pending():
+                if f.kind == "nan" and f.step == step:
+                    hit = f
+                    break
+        if hit is None:
+            return batch
+        _fire(hit, step=step)
+    import copy
+
+    def _poison(f):
+        a = np.array(f, copy=True)
+        if not np.issubdtype(a.dtype, np.floating):
+            a = a.astype(np.float32)
+        a.flat[0] = np.nan
+        return a
+
+    poisoned = copy.copy(batch)
+    feats = batch.features
+    if isinstance(feats, (list, tuple)):
+        poisoned.features = type(feats)(_poison(f) for f in feats)
+    else:
+        poisoned.features = _poison(feats)
+    return poisoned
 
 
 def on_generate_submit() -> int:

@@ -4,8 +4,8 @@ First the port's counterpart of each case of ``tests/test_conf_serde.py``
 (JSON and YAML round trips of an MLP, a CNN, an RNN and the newer layers,
 preprocessor auto-insertion kept through a load, a restored conf that
 builds a working net, the graph YAML case). That file's
-``test_gradient_checkpointing_same_result`` has no counterpart yet: remat
-waits for ROADMAP A2, and the port refuses ``remat=True`` in training.
+``test_gradient_checkpointing_same_result``'s counterpart is
+``tests/test_torch_train_features.py``'s remat cases.
 
 Then the cross-framework cases, parametrised over the GPT decoder, the
 char-RNN, LeNet-5, VGG-16-CIFAR, ResNet-50 and a graph with every vertex:
@@ -255,7 +255,10 @@ def test_lr_schedule_keys_round_trip_as_ints():
 ])
 def test_jax_only_training_fields_load_and_are_refused(field, value, item):
     """A JAX config with a solver or pretraining setting loads into the
-    port; training it raises, naming the ROADMAP item."""
+    port. The solver settings train (the port reads them as the JAX
+    package does: ``iterations`` and ``max_num_line_search_iterations``
+    in the line-search solvers only, ``minibatch`` nowhere); training
+    with a pretraining setting raises, naming ROADMAP A7."""
     jconf = _mlp_conf(JAX)
     setattr(jconf.training, field, value)
     conf = MultiLayerConfiguration.from_json(jconf.to_json())
@@ -263,8 +266,12 @@ def test_jax_only_training_fields_load_and_are_refused(field, value, item):
     net = MultiLayerNetwork(conf, device="cpu").init()
     x = np.zeros((2, 8), np.float32)
     y = np.eye(3, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match=item):
-        net.fit_batch(DataSet(x, y))
+    if item == "A7":
+        with pytest.raises(NotImplementedError, match=item):
+            net.fit_batch(DataSet(x, y))
+        return
+    assert np.isfinite(float(net.fit_batch(DataSet(x, y))))
+    assert net.iteration_count == 1
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,7 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
     BatchNormalization, LocalResponseNormalization,
 )
 from deeplearning4j_tpu_torch.nn.netcommon import value_and_grad
-from deeplearning4j_tpu_torch.nn.updater import tree_map
+from deeplearning4j_tpu_torch.nn.updater import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.resilience.service import Deadline
 from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -1254,6 +1254,145 @@ def test_set_params_flat_keeps_every_tensor_address(card, tmp_path):
                           _serving_net(card).params_flat())
 
 
+# ------------------------------------------ single-card training features
+
+def _prefetch_batches(n=3, B=4, T=16, V=16, seed=0):
+    rng = np.random.default_rng(seed)
+    eye = np.eye(V, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        tok = rng.integers(0, V, (B, T + 1))
+        out.append(DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]],
+                           np.ones((B, T), np.float32), None))
+    return out
+
+
+def test_prefetch_stream_stages_batches_on_the_card(card):
+    """``DevicePrefetchIterator`` copies from pinned memory on its own
+    stream from the producer thread: each batch arrives on the card equal
+    to its host arrays (floats cast to bf16 on the host first, masks
+    not), the consumer's stream waits on the copy, and a step on it
+    trains bitwise as the pageable batch."""
+    from deeplearning4j_tpu_torch.datasets import (
+        DevicePrefetchIterator, ListDataSetIterator,
+    )
+    batches = _prefetch_batches()
+    it = DevicePrefetchIterator(ListDataSetIterator(batches),
+                                dtype="bfloat16")
+    got = []
+    while it.has_next():
+        ds = it.next()
+        # read at once on the consumer's stream: the copy must be there
+        got.append((ds.features.float().cpu(), ds.labels.dtype,
+                    ds.features_mask.dtype, ds.features.device.type))
+    it.close()
+    for (feats, ldt, mdt, dev), ref in zip(got, batches):
+        assert dev == "cuda" and ldt == torch.bfloat16
+        assert mdt == torch.float32
+        assert torch.equal(feats, torch.from_numpy(ref.features))
+    a = ComputationGraph(gpt_tiny(vocab_size=16, seq_len=16),
+                         device=card).init()
+    b = ComputationGraph(gpt_tiny(vocab_size=16, seq_len=16),
+                         device=card).init()
+    plain = [DataSet(x.features, x.labels) for x in batches]
+    a.fit(ListDataSetIterator(plain), use_async=False)
+    b.fit(DevicePrefetchIterator(ListDataSetIterator(plain)))
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert torch.equal(x, y)
+
+
+def test_bf16_training_launches_bf16_kernels(card):
+    """Under ``precision("bf16")`` the GPT's step launches K4, K5 and K6
+    once per layer each (K4 twice under remat) and the char-RNN's tBPTT
+    step K2 and K3 once per layer and window (K2 twice under remat), on
+    bf16 inputs; the gradients are f32 and within bf16 tolerances of the
+    same net on the CPU."""
+    ds = _prefetch_batches(1)[0]
+    ds = DataSet(ds.features, ds.labels)
+    for remat in (False, True):
+        conf = gpt_tiny(vocab_size=16, seq_len=16, precision="bf16")
+        conf.training.remat = remat
+        net = ComputationGraph(conf, device=card).init()
+        before = (flash_attention.launches, flash_attention_dq.launches,
+                  flash_attention_dkv.launches)
+        grads, loss, _ = net.compute_gradient_and_score(ds)
+        torch.cuda.synchronize()
+        L = 2
+        assert (flash_attention.launches - before[0],
+                flash_attention_dq.launches - before[1],
+                flash_attention_dkv.launches - before[2]) == (
+            (2 if remat else 1) * L, L, L)
+        cpu = ComputationGraph(conf, device="cpu").init()
+        cgrads, closs, _ = cpu.compute_gradient_and_score(ds)
+        assert abs(float(loss) - float(closs)) <= 1.6e-2 * abs(float(closs))
+        for node, p in cgrads.items():
+            for k, want in p.items():
+                got = grads[node][k]
+                assert got.dtype == torch.float32
+                err = float((got.cpu() - want).abs().max())
+                assert err <= 3.2e-2 * max(float(want.abs().max()), 1e-30)
+    rng = np.random.default_rng(1)
+    eye = np.eye(12, dtype=np.float32)
+    tok = rng.integers(0, 12, (4, 13))
+    cds = DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]])
+    for remat in (False, True):
+        conf = char_rnn_lstm(12, hidden=16, layers=2, tbptt_length=4)
+        conf.training.precision = "bf16"
+        conf.training.remat = remat
+        net = MultiLayerNetwork(conf, device=card).init()
+        before = (lstm_fwd_train.launches, lstm_bwd.launches)
+        net.fit_batch(cds)
+        torch.cuda.synchronize()
+        assert (lstm_fwd_train.launches - before[0],
+                lstm_bwd.launches - before[1]) == (
+            (2 if remat else 1) * 6, 6)
+        assert all(p.dtype == torch.float32
+                   for p in tree_leaves(net.params))
+
+
+def test_guarded_step_runs_without_a_host_sync(card):
+    """Clean steps of a sentinel-guarded bf16 char-RNN on batches already
+    on the card make no synchronizing call (``set_sync_debug_mode``
+    "error"); a NaN window is then skipped with the params, moments and
+    count bitwise unchanged."""
+    from deeplearning4j_tpu_torch.resilience.sentinel import (
+        DivergenceSentinel,
+    )
+    conf = char_rnn_lstm(12, hidden=16, layers=2, tbptt_length=4)
+    conf.training.precision = "bf16"
+    net = MultiLayerNetwork(conf, device=card).init()
+    sentinel = DivergenceSentinel("skip_batch", lag=1)
+    net.set_divergence_sentinel(sentinel)
+    rng = np.random.default_rng(2)
+    eye = torch.eye(12, device=card)
+    staged = []
+    for _ in range(3):
+        tok = torch.as_tensor(rng.integers(0, 12, (4, 13)), device=card)
+        staged.append(DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]]))
+    net.fit_batch(staged[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for ds in staged[1:]:
+            net.fit_batch(ds)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sentinel.flush()
+    assert sentinel.skipped_batches == 0
+    def written():
+        return (tree_leaves(net.params)
+                + [t for k, v in net.opt_state.items() if k != "count"
+                   for t in tree_leaves(v)] + [net.opt_state["count"]])
+
+    before = [t.clone() for t in written()]
+    bad = staged[0].features.clone()
+    bad[1, 2, 3] = float("nan")
+    net.fit_batch(DataSet(bad[:, :4], staged[0].labels[:, :4]))
+    sentinel.flush()
+    assert sentinel.skipped_batches == 1
+    assert all(torch.equal(a, b) for a, b in zip(before, written()))
+
+
 # --------------------------------------------------------------- imports
 # (no card needed: this runs wherever the file does)
 
@@ -1285,7 +1424,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "resilience/sentinel.py", "analysis/memory.py",
                    "keras/batching.py", "keras/generation.py",
                    "resilience/atomic.py", "util/serializer.py",
-                   "keras/server.py", "datasets/iris.py"):
+                   "keras/server.py", "datasets/iris.py",
+                   "datasets/iterator.py", "eval/roc.py",
+                   "eval/regression.py", "optimize/listeners.py",
+                   "optimize/training_stats.py", "optimize/solvers.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     banned = ("jax", "jaxlib", "deeplearning4j_tpu")
     bad = [(str(f.relative_to(ROOT)), m) for f in files

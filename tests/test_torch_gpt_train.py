@@ -15,8 +15,8 @@ kernels (K4 forward, K5/K6 backward) in interpret mode, then
 plus the port's own training contracts: dropout (DL4J's retain
 probability, inverted scaling, a no-op outside training, repeatable under
 one seed; off in cross-framework parity), ``fit`` over a DataSet and an
-iterator, loud refusals of what the slices do not bring (in both
-containers), an LSTM graph that trains through the now differentiable
+iterator, the settings ROADMAP A2 brought (in both containers; layerwise
+pretraining still refused), an LSTM graph that trains through the now differentiable
 LSTM entry points, and the char data path.
 """
 
@@ -228,33 +228,43 @@ def test_dropout_in_the_net_repeats_under_its_seed_and_is_off_in_score():
     assert float(loss) != net.score(DataSet(*_arrays(6)))
 
 
-# ---------------------------------------------- what the slice refuses
+# ------------------------- the training settings ROADMAP A2 brought
 
 def _refused(net, setting, ds):
-    """Assert that ``net`` refuses the unported training ``setting``
-    loudly, naming ROADMAP, before any step."""
+    """``net`` takes the training ``setting`` it refused until the
+    single-card training features (ROADMAP A2) were ported, and trains
+    with it: a finite loss, and the step counted."""
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener,
+    )
+    from deeplearning4j_tpu_torch.resilience.sentinel import (
+        DivergenceSentinel,
+    )
     t = net.conf.training
     if setting == "scan_window":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            net.fit(ds, scan_window=4)
+        net.fit(ListDataSetIterator([ds] * 4), scan_window=4,
+                use_async=False)
+        assert net.iteration_count >= 4
+        assert np.isfinite(net.score_value)
         return
     if setting == "listeners":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            net.set_listeners(object())
-        return
-    if setting == "sentinel":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            net.set_divergence_sentinel(object())
-        return
-    if setting == "solver":
+        col = CollectScoresIterationListener()
+        net.set_listeners(col)
+    elif setting == "sentinel":
+        net.set_divergence_sentinel(DivergenceSentinel("raise", lag=0))
+    elif setting == "solver":
         t.optimization_algo = "lbfgs"
+        t.iterations = 2
     elif setting == "remat":
         t.remat = True
     elif setting == "bf16":
         t.precision = "bf16"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net.fit_batch(ds)
-    assert net.iteration_count == 0
+    loss = float(net.fit_batch(ds))
+    assert np.isfinite(loss)
+    assert net.iteration_count >= 1
+    if setting == "listeners":
+        assert [it for it, _ in col.scores] == list(
+            range(1, net.iteration_count + 1))
 
 
 UNPORTED = ["solver", "remat", "bf16", "scan_window", "listeners",
@@ -263,22 +273,24 @@ UNPORTED = ["solver", "remat", "bf16", "scan_window", "listeners",
 
 @pytest.mark.parametrize("setting", UNPORTED)
 def test_unported_training_paths_raise(setting):
+    """The graph refused these settings until ROADMAP A2; each now
+    trains."""
     _, net = _nets()
     _refused(net, setting, DataSet(*_arrays(0)))
 
 
 @pytest.mark.parametrize("setting", UNPORTED + ["pretrain"])
 def test_multilayer_unported_training_paths_raise(setting):
-    """The sequential container refuses what the graph refuses (the
-    line-search solvers with ``optimization_algo="lbfgs"`` among them),
-    and layerwise pretraining."""
+    """The sequential container takes what the graph takes (the
+    line-search solvers with ``optimization_algo="lbfgs"`` among them);
+    layerwise pretraining still raises, naming ROADMAP A7."""
     net = MultiLayerNetwork(char_rnn_lstm(5, hidden=4, layers=1),
                             device="cpu").init()
     eye = np.eye(5, dtype=np.float32)
     ds = DataSet(eye[np.arange(12).reshape(2, 6) % 5],
                  eye[np.arange(1, 13).reshape(2, 6) % 5])
     if setting == "pretrain":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             net.pretrain(ListDataSetIterator([ds]))
         return
     _refused(net, setting, ds)
