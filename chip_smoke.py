@@ -113,7 +113,7 @@ Phases, each printing JSON lines:
    fault mid-wave) from 16 staggered threads, then the same 16 again,
    and one request whose 140 new tokens let an ``evict_page`` fault drop
    a page it then replays. Every request's tokens against its singleton
-   ``greedy_generate`` / ``sample_generate`` on the card, 4 of them
+   ``greedy_generate`` / ``sample_generate`` on the card, 2 of them
    against the same engine on the CPU; the shared prefix page mapped
    once; no capture in the second wave; each decode bucket's graph (1,
    2, 4, 8 rows) and one prefill bucket's against the eager step from
@@ -138,17 +138,16 @@ Phases, each printing JSON lines:
    ``restore_weights`` between two waves of the serving engine answers
    new prompts with the restored net's singleton tokens, and the
    re-captures that causes are counted; a truncated ``coefficients.bin``
-   and a flipped byte in ``updaterState.bin`` of the full-width GPT's
-   archive each raise ``CheckpointError`` naming the member. Archive
+   and a flipped byte in ``updaterState.bin`` of the full-width
+   char-RNN's archive each raise ``CheckpointError`` naming the member. Archive
    bytes (raw and compressed, per member), write / verify / restore
    seconds and the host-to-card copy of the coefficients are reported;
 11. serve server — ``KerasServer(max_batch=32, max_wait_ms=5.0,
    keep_models=4)`` on the card (admitting 16 at once) serving ``.zip``
    archives of the full-width char-RNN, GPT and f32 ResNet-50 to 16
    ``KerasClient`` threads over TCP: per model a ladder (one request per
-   bucket, 1-32 rows, alone), then two waves (64 and 64 requests; 64 and
-   32 for ResNet-50) of seeded feature files of 1, 2, 3, 5 or 8 rows, one
-   in four ``bulk``. Each predict bucket is one CUDA graph over the
+   bucket, 1-32 rows, alone), then two waves of 32 requests of seeded
+   feature files of 1, 2, 3, 5 or 8 rows, one in four ``bulk``. Each predict bucket is one CUDA graph over the
    container's ``_infer_fn()`` (the char-RNN's replay K1, the GPT's K4).
    Every answer against its singleton ``output()`` on the card (C2:
    argmax equal, max |dprob| <= 1e-5); each bucket's replay bit for bit
@@ -188,9 +187,33 @@ Phases, each printing JSON lines:
    ``DevicePrefetchIterator`` against the pageable copy in turns
    (images/s, ``data_wait`` share, busy share). An Iris MLP under L-BFGS
    and ``evaluate_roc`` / ``evaluate_regression`` against the CPU;
-13. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+13. serve fleet — the serving fleet (ROADMAP A5.3) on the card: three
+   ``FleetReplica(max_batch=32)`` gateways of the GPT's and the
+   char-RNN's ``.zip`` behind one ``FleetRouter``, in this process,
+   over TCP. A predict storm of both models from 16 clients (1-8 rows,
+   one in four ``bulk``) while ``kill_replica`` hard-kills one replica:
+   no client failure, failovers counted, the corpse removed in under
+   15 s, every answer against its singleton ``output()`` (C2). A traced
+   wave per model through the router: 2 K1 per char-RNN batch and 8 K4
+   per GPT batch replayed; the router's hop (the same char-RNN wave
+   through it and straight to a replica, in turns); a traced failover
+   (both engines warm) with its K4 launches. A streamed generate whose
+   replica dies at its 3rd token while a survivor joins: the tokens equal
+   the singleton ``greedy_generate`` (C2). A rolling drain-restart of
+   every replica under char-RNN load: no failure, no capture by the
+   survivors, each successor's seconds to admission and captures. An
+   undersized router (``max_concurrency=2``) with a ``FleetAutoscaler``
+   (max 3) under ``slow_replica`` stalls: the pool grows, brownout at the
+   maximum sheds ``bulk`` with a structured ``SHED`` on a live connection
+   while interactive is served on the same one, the pool drains to its
+   floor, a ``flap_replica`` rank is quarantined and released. The
+   router's ``/api/metrics`` and ``/readyz``; a ``StallWatchdog`` writing
+   one bundle under ``hang_backend``; 0 compile-cache evictions, the
+   graph pools' bytes against the card's reserved memory; threads back
+   to their baseline;
+14. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-14. last line ``{"ok": true, "device": {...}}``.
+15. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -209,11 +232,14 @@ import collections
 import json
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 import zipfile
 from pathlib import Path
 
@@ -229,9 +255,11 @@ from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.models.lenet import lenet_mnist
 from deeplearning4j_tpu_torch.models.resnet import resnet50
 from deeplearning4j_tpu_torch.models.vgg import vgg16_cifar10
+from deeplearning4j_tpu_torch.keras.autoscale import FleetAutoscaler
 from deeplearning4j_tpu_torch.keras.batching import (
-    PredictRunner, _LatencyWindow,
+    CompileCache, PredictRunner, _LatencyWindow,
 )
+from deeplearning4j_tpu_torch.keras.fleet import FleetReplica, FleetRouter
 from deeplearning4j_tpu_torch.keras.generation import GenerationScheduler
 from deeplearning4j_tpu_torch.keras.server import KerasClient, KerasServer
 from deeplearning4j_tpu_torch.models.gpt import (
@@ -273,6 +301,9 @@ from deeplearning4j_tpu_torch.profiling.metrics import (
 )
 from deeplearning4j_tpu_torch.profiling.tracer import (
     Tracer, get_tracer, set_tracer,
+)
+from deeplearning4j_tpu_torch.profiling.watchdog import (
+    BUNDLE_FORMAT, StallWatchdog,
 )
 from deeplearning4j_tpu_torch.resilience import faultinject
 from deeplearning4j_tpu_torch.resilience.faultinject import (
@@ -412,7 +443,7 @@ SERVE_EVICT_AT = 10
 #: is decode-written and behind its position
 REPLAY_PROMPT, REPLAY_NEW, REPLAY_EVICT_AT = 5, 140, 130
 #: requests also run through an engine on the CPU, against the card's
-SERVE_CPU_REQUESTS = 4
+SERVE_CPU_REQUESTS = 2
 #: calls per block of the graphed / eager decode timing (in turns)
 SERVE_TIMED_CALLS = 30
 #: host-side CUDA runtime calls that launch work, in a profiler trace
@@ -437,7 +468,7 @@ SERVER_MAX_BATCH, SERVER_WAIT_MS, SERVER_CLIENTS = 32, 5.0, 16
 SERVER_ROWS = (1, 2, 3, 5, 8)
 SERVER_LADDER = (1, 2, 4, 8, 16, 32)
 SERVER_FILES = 24
-SERVER_WAVES = {"char_rnn": (64, 64), "gpt": (64, 64), "resnet50": (64, 32)}
+SERVER_WAVES = {"char_rnn": (32, 32), "gpt": (32, 32), "resnet50": (32, 32)}
 #: ROADMAP C2: a batched row against its singleton — argmax equal and
 #: max |dprob| within this (probabilities are <= 1, so also relative)
 TOL_C2 = 1e-5
@@ -477,6 +508,21 @@ def counts() -> dict:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+#: when the script started: each phase's line carries the seconds since
+T_START = time.perf_counter()
+
+
+def timed(name, fn, *args):
+    """Run one phase and print its wall seconds (and the run's so far)
+    when it ends."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    t1 = time.perf_counter()
+    emit(dict(phase="phase_seconds", name=name, seconds=t1 - t0,
+              run_seconds=t1 - T_START))
+    return out
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -2210,7 +2256,7 @@ def serve_engine():
     """The token-level serving engine on the card (ROADMAP A5): the
     full-width GPT behind ``GenerationScheduler(max_rows=8)``, two waves
     of the same 16 requests, a page replay, then the graph checks and
-    timings on the engine's own state, and 4 of the requests through an
+    timings on the engine's own state, and 2 of the requests through an
     engine on the CPU. No kernel of K1-K6 lies on this path (the
     engine's prefill and decode are plain torch, as the JAX engine's
     are). Returns the launch counts of the path."""
@@ -2280,7 +2326,7 @@ def serve_engine():
         sched.stop()
         set_registry(prev)
 
-    # 4 of the requests through the same engine on the CPU
+    # 2 of the requests through the same engine on the CPU
     cpu = ComputationGraph(gpt_decoder(**SLICE), device="cpu").init()
     cpu_sched = GenerationScheduler(max_rows=SERVE_ROWS)
     idx = list(range(SERVE_CPU_REQUESTS))
@@ -2611,7 +2657,7 @@ def checkpoint_phase():
         check(n_bn == 53, f"ResNet-50 has {n_bn} batch-norm states, not 53")
 
         reload_rec = served_reload_case(tmp / "gpt.zip")
-        integrity = integrity_case(tmp / "gpt.zip", tmp)
+        integrity = integrity_case(tmp / "char_rnn.zip", tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return dict(gpt=gpt_rec["launches"]["restored"],
@@ -2620,23 +2666,29 @@ def checkpoint_phase():
                 recaptures=reload_rec["recaptures"], integrity=integrity)
 
 
-def server_models():
+def server_models(names=("char_rnn", "gpt", "resnet50")):
     """The predict server's models, full width with seeded random
-    weights on the card: (name, net, feature row shape, one-hot?, the
-    symbol of the TPU kernel its predict graphs replay, its launches a
-    replay). ResNet-50 runs no TPU kernel."""
+    weights on the card, each built when the caller reaches it: (name,
+    net, feature row shape, one-hot?, the symbol of the TPU kernel its
+    predict graphs replay, its launches a replay). ResNet-50 runs no TPU
+    kernel."""
     V = SLICE["vocab_size"]
-    return [
-        ("char_rnn", MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE),
-                                       device="cuda").init(),
-         (LSTM_BATCH[1], V), True, "lstm_fwd_infer_kernel",
-         LSTM_SLICE["layers"]),
-        ("gpt", ComputationGraph(gpt_decoder(**SLICE), device="cuda").init(),
-         (SLICE["seq_len"], V), True, "flash_fwd_kernel",
-         SLICE["n_layers"]),
-        ("resnet50", ComputationGraph(resnet50(dtype="float32"),
-                                      device="cuda").init(),
-         (RESNET_HW, RESNET_HW, 3), False, None, 0)]
+    build = {
+        "char_rnn": lambda: (
+            MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE),
+                              device="cuda").init(),
+            (LSTM_BATCH[1], V), True, "lstm_fwd_infer_kernel",
+            LSTM_SLICE["layers"]),
+        "gpt": lambda: (
+            ComputationGraph(gpt_decoder(**SLICE), device="cuda").init(),
+            (SLICE["seq_len"], V), True, "flash_fwd_kernel",
+            SLICE["n_layers"]),
+        "resnet50": lambda: (
+            ComputationGraph(resnet50(dtype="float32"),
+                             device="cuda").init(),
+            (RESNET_HW, RESNET_HW, 3), False, None, 0)}
+    for name in names:
+        yield (name,) + build[name]()
 
 
 def server_features(rng, row, onehot, rows):
@@ -2656,20 +2708,21 @@ def server_counts(reg) -> dict:
                 fallbacks=0.0 if fb is None else fb.value)
 
 
-def server_requests(srv, model, files, picks, bulk, clients):
-    """``picks`` (a feature file index per request) from ``clients``
-    threads, each on its own connection, one request at a time: returns
-    ({request: (answer, round trip s)}, {request: error}, wall s). Every
-    client connects before the clock starts (the server's listen backlog
-    is socketserver's 5: a burst of connects waits out a SYN retry)."""
-    todo = collections.deque(range(len(picks)))
+def server_requests(host, port, reqs, clients):
+    """Predicts ``reqs`` (model path, features file, bulk?) from
+    ``clients`` threads, each on its own connection, one request at a
+    time: returns ({request: (answer, round trip s)}, {request: error},
+    wall s). Every client connects before the clock starts (a server's
+    listen backlog is socketserver's 5: a burst of connects waits out a
+    SYN retry)."""
+    todo = collections.deque(range(len(reqs)))
     lock = threading.Lock()
     out, errors = {}, {}
-    n = min(clients, len(picks))
+    n = min(clients, len(reqs))
     ready, go = threading.Barrier(n + 1), threading.Event()
 
     def worker():
-        cli = KerasClient(srv.host, srv.port)
+        cli = KerasClient(host, port)
         try:
             ready.wait(120.0)
             go.wait(120.0)
@@ -2678,11 +2731,12 @@ def server_requests(srv, model, files, picks, bulk, clients):
                     if not todo:
                         return
                     i = todo.popleft()
+                model, f, bulk = reqs[i]
                 t0 = time.perf_counter()
                 try:
                     resp = cli.request(
-                        op="predict", features=files[picks[i]], model=model,
-                        priority="bulk" if bulk[i] else "interactive")
+                        op="predict", features=f, model=model,
+                        priority="bulk" if bulk else "interactive")
                     y = np.asarray(resp["predictions"], np.float32)
                     with lock:
                         out[i] = (y, time.perf_counter() - t0)
@@ -2701,9 +2755,8 @@ def server_requests(srv, model, files, picks, bulk, clients):
     go.set()
     for t in threads:
         t.join(600.0)
-    wall = time.perf_counter() - t0
     check(not any(t.is_alive() for t in threads), "a client never ended")
-    return out, errors, wall
+    return out, errors, time.perf_counter() - t0
 
 
 def server_wave(srv, reg, name, model, files, rows, picks, bulk,
@@ -2718,8 +2771,9 @@ def server_wave(srv, reg, name, model, files, rows, picks, bulk,
     prev_tracer = set_tracer(tracer)
     st0, c0 = sched.stats(), server_counts(reg)
     try:
-        out, errors, wall = server_requests(srv, model, files, picks, bulk,
-                                            clients)
+        out, errors, wall = server_requests(
+            srv.host, srv.port,
+            [(model, files[p], b) for p, b in zip(picks, bulk)], clients)
     finally:
         set_tracer(prev_tracer)
     st1, c1 = sched.stats(), server_counts(reg)
@@ -3809,6 +3863,910 @@ def train_features():
                 char_rnn_remat=lstm_remat, scan=scan)
 
 
+# --------------------------------------------------------------------------
+# 13. the serving fleet (ROADMAP A5.3)
+# --------------------------------------------------------------------------
+
+#: the fleet: replicas behind the router; the kill storm's requests per
+#: model (one in four bulk); the kill's address (rank 0's 3rd admitted
+#: request); the mid-stream kill's token; the streamed generate's prompt
+#: length and new tokens; the traced failover's new tokens (the victim
+#: dies at its FLEET_KILL_TOKEN-th token, the survivor streams the rest,
+#: fewer than that, and lives); the router-hop wave; the rolling
+#: restart's loaders; the watchdog's deadline and the hung dispatch
+FLEET_REPLICAS, FLEET_STORM, FLEET_KILL_AT = 3, 32, 3
+FLEET_KILL_TOKEN, FLEET_PROMPT, FLEET_NEW = 3, 17, 16
+FLEET_TRACED_NEW = 4
+FLEET_HOP_REQUESTS, FLEET_ROLL_LOADERS = 16, 4
+FLEET_WATCH_S, FLEET_HANG_S = 0.5, 2.0
+#: the autoscale stage: stalls a request on every rank the controller
+#: may spawn (the sustained overload), its loaders (interactive, bulk)
+FLEET_STALL_S, FLEET_LOADERS = 0.15, (6, 3)
+#: small kernels that open a traced window, ahead of the counted ones
+TRACE_PAD = 256
+#: the metric families the router's /api/metrics must carry
+FLEET_METRICS = ("fleet_replicas", "fleet_epoch", "fleet_dispatches_total",
+                 "fleet_failovers_total", "fleet_admissions_total",
+                 "fleet_removals_total", "fleet_generate_resumes_total",
+                 "fleet_hedges_total", "fleet_retry_budget_tokens",
+                 "fleet_brownout", "fleet_brownout_sheds_total",
+                 "fleet_quarantines_total", "fleet_autoscale_up_total",
+                 "fleet_autoscale_down_total",
+                 "fleet_autoscale_decisions_total",
+                 "fleet_target_replicas")
+
+
+def fleet_replica(fdir, rank, model):
+    """One replica as the gateway phase runs its server, on the card
+    (``device=None``)."""
+    return FleetReplica(fdir, rank, model=model,
+                        max_batch=SERVER_MAX_BATCH,
+                        max_wait_ms=SERVER_WAIT_MS, keep_models=4,
+                        max_concurrency=SERVER_CLIENTS,
+                        queue_depth=2 * SERVER_CLIENTS,
+                        default_deadline_ms=120_000)
+
+
+def wait_for(cond, timeout_s, what):
+    """Poll ``cond`` until it holds; fails the run after ``timeout_s``.
+    Returns the seconds it took."""
+    t0 = time.monotonic()
+    while not cond():
+        check(time.monotonic() - t0 < timeout_s, f"timed out: {what}")
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
+def spawn_admitted(router, fdir, rank, model, timeout_s=120.0):
+    """Spawn a replica and wait for the router to admit it: (replica,
+    seconds from spawn to admission, the replica's captures before it)."""
+    t0 = time.monotonic()
+    rep = fleet_replica(fdir, rank, model)
+    wait_for(lambda: rank in router.replicas(), timeout_s,
+             f"replica {rank} admitted")
+    admit_s = time.monotonic() - t0
+    st = rep.server._batcher.stats()
+    return rep, dict(rank=rank, spawn_to_admission_s=admit_s,
+                     captures_before_admission=st["compiles"],
+                     capture_s_before_admission=st["compile_s"])
+
+
+def warm_ladder(rep, paths, ladders, names):
+    """One request per bucket and model, straight to the replica: every
+    predict bucket of each model captured before the router's traffic."""
+    cli = KerasClient(rep.host, rep.port)
+    try:
+        for name in names:
+            for f in ladders[name]:
+                cli.predict(f, model=paths[name])
+    finally:
+        cli.close()
+
+
+def latency_record(out, errors, wall) -> dict:
+    rt = sorted(v[1] * 1e3 for v in out.values())
+    return dict(served=len(out), errors=errors, wall_s=wall,
+                requests_per_s=len(out) / wall,
+                round_trip_p50_ms=float(np.percentile(rt, 50)) if rt else None,
+                round_trip_p99_ms=float(np.percentile(rt, 99)) if rt else None,
+                round_trip_max_ms=rt[-1] if rt else None)
+
+
+def fleet_c2(out, reqs, refs) -> dict:
+    """Each answer against its singleton ``output()`` on the card (C2),
+    per model."""
+    by_model = collections.defaultdict(dict)
+    for i, v in out.items():
+        by_model[reqs[i][0]][i] = v
+    return {m: c2_record(a, {i: reqs[i][1] for i in a}, refs)
+            for m, a in by_model.items()}
+
+
+def stream_generate(host, port, tokens, max_new, model):
+    """A raw streaming generate: (partial tokens, final answer)."""
+    partials = []
+    with socket.create_connection((host, port), timeout=300) as s:
+        f = s.makefile("rwb")
+        f.write((json.dumps({"op": "generate", "tokens": tokens,
+                             "max_new_tokens": max_new, "model": model,
+                             "stream": True}) + "\n").encode())
+        f.flush()
+        while True:
+            line = f.readline()
+            check(line, "the router closed a streamed generate")
+            resp = json.loads(line)
+            if resp.get("partial"):
+                partials.append(int(resp["t"]))
+                continue
+            f.close()
+            return partials, resp
+
+
+def raw_exchange(host, port, reqs):
+    """Several requests on ONE connection: each answer, in order."""
+    out = []
+    with socket.create_connection((host, port), timeout=120) as s:
+        f = s.makefile("rwb")
+        for req in reqs:
+            f.write((json.dumps(req) + "\n").encode())
+            f.flush()
+            line = f.readline()
+            check(line, f"the router hung up on {req}")
+            out.append(json.loads(line))
+        f.close()
+    return out
+
+
+def batches_by_model(reps, rows) -> dict:
+    """Predict batches dispatched so far by the live replicas, per model
+    (a model's feature row shape keys its bucket mix)."""
+    out = collections.Counter()
+    for rep in reps:
+        for key, n in rep.server._batcher.stats()["bucket_mix"].items():
+            for name, row in rows.items():
+                if key.startswith(f"{row}:"):
+                    out[name] += n
+    return out
+
+
+def traced_kernels(fn, names):
+    """One torch.profiler trace of ``fn`` (every thread's kernels on the
+    card): the launches of each kernel-name substring, and of all
+    kernels under ``"all"``. The window opens with a burst of small
+    kernels: the tracer sometimes drops a window's first kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    pad = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PAD):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        result = fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    found = {n: sum(e.count for e in kernels if n in e.key) for n in names}
+    found["all"] = sum(e.count for e in kernels)
+    return result, found
+
+
+def uncounted(fn, *args):
+    """Run a comparison (a singleton reference) with the kernel wrappers'
+    counts left as they were: its launches are not the path's."""
+    saved = counts()
+    try:
+        return fn(*args)
+    finally:
+        for name, wrapper in KERNELS.items():
+            wrapper.launches = saved[name]
+
+
+def traced_waves(router, reps, paths, pools, rows):
+    """A wave per model through the router under a trace: the K1 (char-
+    RNN) and K4 (GPT) replays against the batches the replicas
+    dispatched. A trace that drops a window's first kernels is taken
+    again, five times in all."""
+    rng = np.random.default_rng(SEED + 61)
+    out = {}
+    for name, symbol, per in (("char_rnn", "lstm_fwd_infer_kernel",
+                               LSTM_SLICE["layers"]),
+                              ("gpt", "flash_fwd_kernel",
+                               SLICE["n_layers"])):
+        files = pools[name][0]
+        for attempt in range(1, 6):
+            reqs = [(paths[name], files[j], False)
+                    for j in rng.integers(0, len(files), 16)]
+            b0 = batches_by_model(reps, rows)
+            (_, errors, _), traced = traced_kernels(
+                lambda: server_requests(router.host, router.port, reqs,
+                                        SERVER_CLIENTS), [symbol])
+            batches = batches_by_model(reps, rows)[name] - b0[name]
+            check(not errors, f"traced {name} wave: {errors}")
+            if traced[symbol] == per * batches:
+                break
+        out[name] = dict(symbol=symbol, batches=batches,
+                         traced=traced[symbol], per_batch=per,
+                         attempts=attempt)
+    return out
+
+
+def router_hop(router, rep, paths, pools):
+    """The same char-RNN wave through the router and straight to one
+    replica, in turns: requests/s and round trip."""
+    rng = np.random.default_rng(SEED + 62)
+    files = pools["char_rnn"][0]
+    picks = rng.integers(0, len(files), FLEET_HOP_REQUESTS)
+    reqs = [(paths["char_rnn"], files[j], i % 4 == 3)
+            for i, j in enumerate(picks)]
+    out = {}
+    via = ("router", router.host, router.port)
+    direct = ("replica", rep.host, rep.port)
+    for where, host, port in (via, direct, direct, via):
+        rec = latency_record(*server_requests(host, port, reqs,
+                                              SERVER_CLIENTS))
+        check(not rec["errors"], f"router hop wave ({where}): {rec}")
+        out.setdefault(where, []).append(rec)
+    return out
+
+
+def fleet_pool_bytes(reps) -> dict:
+    """The compile cache's bytes per live replica (its graphs' pools:
+    predict buckets and the engine's steps), by the cache's owner."""
+    cache = reps[0].server._batcher._compiled
+    entries = cache.keys()
+    out = {}
+    for rep in reps:
+        owners = (rep.server._batcher._cache_owner,
+                  rep.server._gen._cache_owner)
+        out[rep.rank] = sum(
+            CompileCache.compiled_nbytes(cache.get(k))
+            for k in entries if k[0] in owners and cache.get(k) is not None)
+    return out
+
+
+def fleet_memory(reps) -> dict:
+    cache = reps[0].server._batcher._compiled
+    per = fleet_pool_bytes(reps)
+    return dict(pool_bytes_per_replica=per,
+                pool_bytes_sum=sum(per.values()),
+                cache=cache.stats(), cache_budget_bytes=cache.max_bytes,
+                memory_reserved=torch.cuda.memory_reserved(),
+                memory_allocated=torch.cuda.memory_allocated())
+
+
+def fleet_kill_storm(router, reps, paths, pools, refs):
+    """Stage 1: a predict storm on both models while ``kill_replica``
+    hard-kills rank 0 at its FLEET_KILL_AT-th admitted request. Returns
+    the record; the gates read it."""
+    rng = np.random.default_rng(SEED + 60)
+    reqs = []
+    for i in range(2 * FLEET_STORM):
+        name = ("char_rnn", "gpt")[i % 2]
+        files = pools[name][0]
+        reqs.append((paths[name], files[int(rng.integers(0, len(files)))],
+                     i % 4 == 3))
+    kill = Fault("kill_replica", rank=0, at_call=FLEET_KILL_AT)
+    captures0 = {r.rank: r.server._batcher.stats()["compiles"] for r in reps}
+    failovers0 = fleet_counter("fleet_failovers_total")
+    dead, removed = {}, {}
+    stop = threading.Event()
+
+    def watch():
+        # when the corpse died, and when the router let it go
+        while not stop.is_set() and "t" not in removed:
+            if "t" not in dead and not reps[0].alive:
+                dead["t"] = time.monotonic()
+            if "t" in dead and 0 not in router.replicas():
+                removed["t"] = time.monotonic()
+            time.sleep(0.005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    faultinject.set_schedule(FaultSchedule([kill]))
+    watcher.start()
+    try:
+        out, errors, wall = server_requests(router.host, router.port,
+                                            reqs, SERVER_CLIENTS)
+        wait_for(lambda: "t" in removed, 30.0, "the corpse removed")
+    finally:
+        stop.set()
+        watcher.join(5.0)
+        faultinject.clear()
+    rec = latency_record(out, errors, wall)
+    rec.update(requests=len(reqs), kill_fired=kill.fired,
+               failovers=fleet_counter("fleet_failovers_total") - failovers0,
+               removal_s=removed["t"] - dead["t"],
+               members_after=router.replicas(),
+               captures={r.rank: r.server._batcher.stats()["compiles"]
+                         - captures0[r.rank] for r in reps if r.alive},
+               c2=fleet_c2(out, reqs, refs))
+    return rec
+
+
+def fleet_counter(name) -> float:
+    m = get_registry().get(name)
+    return 0.0 if m is None else m.value
+
+
+def fleet_traced_failover(router, reps, paths, prompt_rng):
+    """A failover under a trace, both engines warm: every member dies at
+    its FLEET_KILL_TOKEN-th streamed token; the first replica the router
+    picks does, the survivor streams the FLEET_TRACED_NEW - 2 tokens
+    left and lives. Returns the trace's K4 launches and all its kernels:
+    the victim's prefill, the survivor's re-prefill and the decode steps
+    (the engine's prefill attends through ``attention_reference``, as the
+    JAX engine's does, so a re-prefill launches no K4)."""
+    V = SLICE["vocab_size"]
+    for rep in reps:             # warm each engine straight, not routed
+        cli = KerasClient(rep.host, rep.port)
+        try:
+            cli.generate(prompt_rng.integers(0, V, FLEET_PROMPT).tolist(),
+                         FLEET_TRACED_NEW, model=paths["gpt"])
+        finally:
+            cli.close()
+    prompt = prompt_rng.integers(0, V, FLEET_PROMPT).tolist()
+    faultinject.set_schedule(FaultSchedule(
+        [Fault("kill_replica", rank=r.rank, step=FLEET_KILL_TOKEN)
+         for r in reps]))
+    try:
+        (partials, final), traced = traced_kernels(
+            lambda: stream_generate(router.host, router.port, prompt,
+                                    FLEET_TRACED_NEW, paths["gpt"]),
+            ["flash_fwd_kernel"])
+    finally:
+        faultinject.clear()
+    return prompt, partials, final, traced
+
+
+def fleet_midstream(router, fdir, victim, paths, prompt):
+    """Stage 2: the victim alone serves a streamed generate and dies at
+    its FLEET_KILL_TOKEN-th token; a survivor spawned after the stream
+    began joins behind the readyz gate and re-prefills from prompt +
+    tokens so far. Returns (survivor, its admission record, partials,
+    final answer)."""
+    wait_for(lambda: router.replicas() == [victim.rank], 30.0,
+             "the victim alone in the fleet")
+    kill = Fault("kill_replica", rank=victim.rank, step=FLEET_KILL_TOKEN)
+    resumes0 = fleet_counter("fleet_generate_resumes_total")
+    res = {}
+
+    def gen():
+        try:
+            res["out"] = stream_generate(router.host, router.port, prompt,
+                                         FLEET_NEW, paths["gpt"])
+        except Exception as e:  # noqa: BLE001 — gated below
+            res["error"] = repr(e)
+
+    faultinject.set_schedule(FaultSchedule([kill]))
+    t = threading.Thread(target=gen, daemon=True)
+    try:
+        t.start()
+        survivor, adm = spawn_admitted(router, fdir, 10, paths["gpt"])
+        t.join(300.0)
+    finally:
+        faultinject.clear()
+    check(not t.is_alive() and "out" in res,
+          f"the mid-stream generate: {res}")
+    partials, final = res["out"]
+    return survivor, adm, partials, final, dict(
+        kill_fired=kill.fired,
+        resumes=fleet_counter("fleet_generate_resumes_total") - resumes0)
+
+
+def fleet_rolling(router, fdir, olds, paths, pools):
+    """Stage 3: replace every replica (admit the successor, then drain
+    the predecessor) under continuous char-RNN load from
+    FLEET_ROLL_LOADERS clients, one request in four bulk."""
+    rng = np.random.default_rng(SEED + 63)
+    files = pools["char_rnn"][0]
+    stop = threading.Event()
+    lock = threading.Lock()
+    rts, failures = [], []
+
+    def load(i):
+        cli = KerasClient(router.host, router.port)
+        k = 0
+        try:
+            while not stop.is_set():
+                with lock:
+                    f = files[int(rng.integers(0, len(files)))]
+                t0 = time.perf_counter()
+                try:
+                    cli.request(op="predict", features=f,
+                                model=paths["char_rnn"],
+                                priority="bulk" if k % 4 == 3
+                                else "interactive")
+                except Exception as e:  # noqa: BLE001 — gated below
+                    with lock:
+                        failures.append(f"loader {i}: {e!r}")
+                    return
+                with lock:
+                    rts.append((time.perf_counter() - t0) * 1e3)
+                k += 1
+        finally:
+            cli.close()
+
+    olds = list(olds)
+    captures0 = {r.rank: r.server._batcher.stats()["compiles"]
+                 for r in olds}
+    f0 = fleet_counter("fleet_failovers_total")
+    r0 = fleet_counter("fleet_retries_total")
+    loaders = [threading.Thread(target=load, args=(i,), daemon=True)
+               for i in range(FLEET_ROLL_LOADERS)]
+    for t in loaders:
+        t.start()
+    news, admissions, drains = [], [], []
+    try:
+        time.sleep(0.5)
+        for old in olds:
+            new, adm = spawn_admitted(router, fdir, old.rank + 10,
+                                      paths["gpt"])
+            news.append(new)
+            t0 = time.monotonic()
+            emptied = old.drain(grace_s=15.0)
+            wait_for(lambda: old.rank not in router.replicas(), 15.0,
+                     f"drained replica {old.rank} removed")
+            drains.append(dict(rank=old.rank, emptied=emptied,
+                               drain_to_removal_s=time.monotonic() - t0,
+                               captures_while_serving=old.server._batcher
+                               .stats()["compiles"] - captures0[old.rank]))
+            admissions.append(adm)
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for t in loaders:
+            t.join(60.0)
+    succ = {r.rank: r.server._batcher.stats() for r in news}
+    rt = sorted(rts)
+    return news, dict(
+        requests=len(rts), failures=failures, admissions=admissions,
+        drains=drains, members_after=router.replicas(),
+        failovers=fleet_counter("fleet_failovers_total") - f0,
+        reroutes=fleet_counter("fleet_retries_total") - r0,
+        successor_captures={k: v["compiles"] for k, v in succ.items()},
+        successor_capture_s={k: v["compile_s"] for k, v in succ.items()},
+        round_trip_p50_ms=float(np.percentile(rt, 50)) if rt else None,
+        round_trip_p99_ms=float(np.percentile(rt, 99)) if rt else None,
+        round_trip_max_ms=rt[-1] if rt else None)
+
+
+def fleet_autoscale(tmp, paths, pools):
+    """Stage 4 on the char-RNN: an undersized router (max_concurrency
+    2) over one replica, a FleetAutoscaler (max 3) and ``slow_replica``
+    stalls on every rank it may spawn; the pool grows, sustained breach
+    at the maximum flips brownout (bulk SHED on a live connection,
+    interactive served on the same one), the storm ends and the fleet
+    drains back to its floor; then a ``flap_replica`` rank is
+    quarantined and released. Returns (router, seed replica, autoscaler,
+    flapper, record) for the observability stage."""
+    fdir = str(tmp / "fleet_auto")
+    router = FleetRouter(fdir, poll_s=0.1, heartbeat_timeout_s=1.5,
+                         max_concurrency=2, queue_depth=24,
+                         max_queue_wait_s=10.0, metrics_port=0,
+                         default_deadline_ms=60_000, flap_window_s=10.0,
+                         flap_strikes=2, flap_quarantine_base_s=1.5,
+                         flap_quarantine_max_s=6.0)
+    rep0 = fleet_replica(fdir, 0, paths["char_rnn"])
+    auto = FleetAutoscaler(
+        router, lambda rank: fleet_replica(fdir, rank, paths["char_rnn"]),
+        min_replicas=1, max_replicas=FLEET_REPLICAS, queue_high=2,
+        up_ticks=2, down_ticks=4, up_cooldown_s=1.0, down_cooldown_s=1.0,
+        tick_s=0.25, brownout=True, brownout_enter_ticks=6,
+        brownout_exit_ticks=4, drain_grace_s=15.0)
+    files = pools["char_rnn"][0]
+    model = paths["char_rnn"]
+    stop = threading.Event()
+    lock = threading.Lock()
+    failures, sheds, served = [], {"n": 0, "structured": True}, {"n": 0}
+    rec = {}
+
+    def interactive(i):
+        cli = KerasClient(router.host, router.port)
+        try:
+            while not stop.is_set():
+                try:
+                    cli.predict(files[i % len(files)], model=model)
+                except Exception as e:  # noqa: BLE001 — gated below
+                    with lock:
+                        failures.append(f"interactive {i}: {e!r}")
+                    return
+                with lock:
+                    served["n"] += 1
+        finally:
+            cli.close()
+
+    def bulk(i):
+        try:
+            with socket.create_connection((router.host, router.port),
+                                          timeout=120) as s:
+                f = s.makefile("rwb")
+                while not stop.is_set():
+                    f.write((json.dumps(
+                        {"op": "predict", "features": files[i],
+                         "model": model, "priority": "bulk"})
+                        + "\n").encode())
+                    f.flush()
+                    line = f.readline()
+                    if not line:
+                        raise ConnectionError("hangup on a bulk request")
+                    resp = json.loads(line)
+                    if resp.get("error") == "SHED":
+                        with lock:
+                            sheds["n"] += 1
+                            if resp.get("retry_after_ms") is None:
+                                sheds["structured"] = False
+                        time.sleep(0.05)
+                    elif resp.get("error") not in (None, "DEADLINE"):
+                        raise RuntimeError(str(resp))
+                f.close()
+        except Exception as e:  # noqa: BLE001 — gated below
+            with lock:
+                failures.append(f"bulk {i}: {e!r}")
+
+    loaders = []
+    try:
+        wait_for(lambda: router.replicas() == [0], 60.0, "seed admitted")
+        faultinject.set_schedule(FaultSchedule([
+            Fault("slow_replica", rank=r, at_call=i, duration=FLEET_STALL_S)
+            for r in range(FLEET_REPLICAS + 3) for i in range(1, 400)]))
+        n_int, n_bulk = FLEET_LOADERS
+        loaders = ([threading.Thread(target=interactive, args=(i,),
+                                     daemon=True) for i in range(n_int)]
+                   + [threading.Thread(target=bulk, args=(i,), daemon=True)
+                      for i in range(n_bulk)])
+        t0 = time.monotonic()
+        for t in loaders:
+            t.start()
+        rec["scale_up_s"] = wait_for(
+            lambda: len(router.replicas()) >= FLEET_REPLICAS, 90.0,
+            "the autoscaler grew the pool to its maximum")
+        rec["max_members"] = router.replicas()
+        rec["brownout_s"] = wait_for(lambda: router.brownout, 60.0,
+                                     "brownout at the maximum") \
+            + rec["scale_up_s"]
+        rz = router._readyz()
+        rec["readyz_in_brownout"] = dict(ready=rz["ready"],
+                                         brownout=rz["brownout"],
+                                         reasons=rz["reasons"])
+        # a bulk SHED and an interactive answer on ONE connection
+        shed, ok = raw_exchange(router.host, router.port, [
+            {"op": "predict", "features": files[0], "model": model,
+             "priority": "bulk"},
+            {"op": "predict", "features": files[0], "model": model,
+             "priority": "interactive"}])
+        rec["same_connection"] = dict(
+            bulk_error=shed.get("error"),
+            retry_after_ms=shed.get("retry_after_ms"),
+            interactive_ok=bool(ok.get("ok")))
+        time.sleep(2.0)                 # serve a while inside brownout
+        faultinject.clear()
+        stop.set()
+        for t in loaders:
+            t.join(120.0)
+        rec["storm_s"] = time.monotonic() - t0
+        rec["brownout_exit_s"] = wait_for(lambda: not router.brownout,
+                                          60.0, "brownout exits")
+        rec["scale_down_s"] = wait_for(lambda: router.replicas() == [0],
+                                       90.0, "the pool drains to its floor")
+        rec.update(failures=failures, served_interactive=served["n"],
+                   sheds=sheds["n"], sheds_structured=sheds["structured"],
+                   ups=fleet_counter("fleet_autoscale_up_total"),
+                   downs=fleet_counter("fleet_autoscale_down_total"),
+                   handles_after=sorted(auto.handles()))
+        # the flap quarantine: rank 5 crash-loops twice, then is healthy
+        faultinject.set_schedule(FaultSchedule([
+            Fault("flap_replica", rank=5, count=2, duration=0.2)]))
+        q0 = fleet_counter("fleet_quarantines_total")
+        flapper = fleet_replica(fdir, 5, model)
+        spawns = 1
+        t_end = time.monotonic() + 60.0
+        while (fleet_counter("fleet_quarantines_total") == q0
+               and time.monotonic() < t_end):
+            # the launcher restarts a dead incarnation once the router
+            # dropped it: a successor that read the dead one's lease
+            # world would start its kill clock before its own admission
+            if not flapper.alive and 5 not in router.replicas():
+                flapper = fleet_replica(fdir, 5, model)
+                spawns += 1
+            time.sleep(0.05)
+        rec["quarantined"] = router.quarantined(5)
+        if not flapper.alive:
+            wait_for(lambda: 5 not in router.replicas(), 30.0,
+                     "the dead incarnation dropped")
+            flapper = fleet_replica(fdir, 5, model)
+            spawns += 1
+        rec["released_s"] = wait_for(lambda: 5 in router.replicas(), 60.0,
+                                     "the healthy incarnation admitted")
+        rec.update(flap_spawns=spawns, flapper_alive=flapper.alive,
+                   quarantines=fleet_counter("fleet_quarantines_total") - q0)
+        return router, rep0, auto, flapper, rec
+    except BaseException:
+        stop.set()
+        faultinject.clear()
+        for t in loaders:
+            t.join(10.0)
+        auto.drain(drain_owned=True)
+        router.close()
+        rep0.drain(grace_s=5.0)
+        raise
+
+
+def fleet_observability(router, tmp, paths, pools):
+    """Stage 5: the router's /api/metrics and /readyz, and a
+    StallWatchdog over ``keras_server`` while a ``hang_backend`` fault
+    holds one dispatch."""
+    base = f"http://{router.host}:{router.metrics_port}"
+    with urllib.request.urlopen(f"{base}/api/metrics", timeout=30) as r:
+        text = r.read().decode()
+    with urllib.request.urlopen(f"{base}/api/metrics.json",
+                                timeout=30) as r:
+        as_json = json.loads(r.read())
+    try:
+        with urllib.request.urlopen(f"{base}/readyz", timeout=30) as r:
+            readyz_status = r.status
+    except urllib.error.HTTPError as e:  # a 503 is an answer too
+        readyz_status = e.code
+    names = {line.split("{")[0].split(" ")[0] for line in text.splitlines()
+             if line and not line.startswith("#")}
+    bundle_dir = tmp / "bundles"
+    tracer = Tracer()
+    prev_tracer = set_tracer(tracer)
+    wd = StallWatchdog(str(bundle_dir), interval_s=0.05)
+    try:
+        wd.watch("keras_server", FLEET_WATCH_S)
+        faultinject.set_schedule(FaultSchedule([
+            Fault("hang_backend", at_call=1, duration=FLEET_HANG_S)]))
+        cli = KerasClient(router.host, router.port)
+        try:
+            hung = cli.predict(pools["char_rnn"][0][0],
+                               model=paths["char_rnn"])
+        finally:
+            cli.close()
+        time.sleep(5 * 0.05)
+    finally:
+        faultinject.clear()
+        wd.close()
+        set_tracer(prev_tracer)
+    bundles = sorted(bundle_dir.glob("*.json"))
+    bundle = json.loads(bundles[0].read_text()) if bundles else {}
+    return dict(metrics_missing=[n for n in FLEET_METRICS
+                                 if n not in names],
+                metrics_json_has_replicas="fleet_replicas" in as_json,
+                readyz_status=readyz_status, bundles=len(bundles),
+                bundle_format=bundle.get("format"),
+                bundle_stale=(bundle.get("stale") or {}).get("subsystem"),
+                culprit=bundle.get("culprit"),
+                hung_request_answered=bool(len(hung)))
+
+
+def serve_fleet():
+    """The serving fleet on the card (ROADMAP A5.3): FleetReplica
+    gateways of the full-width GPT and char-RNN, three at a time on the
+    one card, behind a FleetRouter, over TCP. Stages: a replica killed
+    under a predict storm; a traced failover and the router's hop; a
+    mid-stream generate failover; a rolling drain-restart; autoscaling,
+    brownout and the flap quarantine; metrics, readiness and a stall
+    bundle. Returns the path's launch counts (captures; the replays are
+    read from traces)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_serve_fleet_"))
+    reg = MetricsRegistry()
+    prev_reg = set_registry(reg)
+    base_threads = set(threading.enumerate())
+    paths, pools, refs, rows = {}, {}, {}, {}
+    live, routers, rec = [], [], {}
+    auto_parts = None
+    try:
+        rng = np.random.default_rng(SEED + 59)
+        for name, net, row, onehot, _, _ in server_models(("char_rnn",
+                                                           "gpt")):
+            paths[name] = str(tmp / f"{name}.zip")
+            ModelSerializer.write_model(net, paths[name], save_updater=False)
+            rows[name] = row
+            rws = [int(r) for r in rng.choice(SERVER_ROWS, SERVER_FILES)]
+            files = []
+            for j, r in enumerate(rws):
+                files.append(str(tmp / f"{name}_{j}.npy"))
+                np.save(files[-1], server_features(rng, row, onehot, r))
+            ladder = []
+            for b in SERVER_LADDER:
+                ladder.append(str(tmp / f"{name}_ladder_{b}.npy"))
+                np.save(ladder[-1], server_features(rng, row, onehot, b))
+            pools[name] = (files, rws, ladder)
+            del net
+        torch.cuda.empty_cache()
+        reset_counts()
+        ev0 = fleet_counter("serving_compile_cache_evictions_total")
+        fdir = str(tmp / "fleet")
+        router = FleetRouter(fdir, poll_s=0.1, heartbeat_timeout_s=1.5,
+                             max_concurrency=SERVER_CLIENTS,
+                             queue_depth=4 * SERVER_CLIENTS,
+                             empty_pool_wait_s=60.0, metrics_port=0,
+                             default_deadline_ms=300_000)
+        routers.append(router)
+        spawned = []
+        for r in range(FLEET_REPLICAS):
+            rep, adm = spawn_admitted(router, fdir, r, paths["gpt"])
+            live.append(rep)
+            spawned.append(adm)
+        t0 = time.perf_counter()
+        for rep in live:
+            # one at a time (their captures would take turns on
+            # CAPTURE_LOCK anyway); the char-RNN first: its load must not
+            # prewarm on the GPT's bucket mix
+            warm_ladder(rep, paths, {k: v[2] for k, v in pools.items()},
+                        ("char_rnn", "gpt"))
+        warm = dict(seconds=time.perf_counter() - t0,
+                    captures={r.rank: r.server._batcher.stats()["compiles"]
+                              for r in live},
+                    capture_s={r.rank: r.server._batcher.stats()["compile_s"]
+                               for r in live},
+                    memory=fleet_memory(live))
+        for name in paths:
+            net = ModelSerializer.restore_model(paths[name])
+            refs.update(uncounted(lambda: {
+                f: net.output(np.load(f)).float().cpu().numpy()
+                for f in pools[name][0]}))
+            if name == "gpt":
+                gpt_ref = net
+            del net
+        rec["spawn"] = spawned
+        rec["warm"] = warm
+
+        # ---- 1. a replica killed under a predict storm --------------
+        rec["kill"] = fleet_kill_storm(router, live, paths, pools, refs)
+        emit(dict(phase="serve_fleet", stage="kill", **rec["kill"]))
+        live = [r for r in live if r.alive]
+
+        # ---- 6. kernels through the router; the router's hop ---------
+        rec["traced"] = traced_waves(router, live, paths, pools, rows)
+        rec["hop"] = router_hop(router, live[0], paths, pools)
+        prng = np.random.default_rng(SEED + 64)
+        prompt, partials, final, traced = fleet_traced_failover(
+            router, live, paths, prng)
+        rec["traced_failover"] = dict(
+            prompt_len=len(prompt), new=FLEET_TRACED_NEW,
+            tokens=final.get("tokens"), partials=partials,
+            failovers=final.get("failovers"),
+            k4_launches=traced["flash_fwd_kernel"],
+            kernels_traced=traced["all"],
+            tokens_equal_singleton=(
+                final.get("tokens") == partials == uncounted(
+                    greedy_generate, gpt_ref, prompt, FLEET_TRACED_NEW)))
+        emit(dict(phase="serve_fleet", stage="traced",
+                  traced=rec["traced"], hop=rec["hop"],
+                  traced_failover=rec["traced_failover"]))
+        live = [r for r in live if r.alive]
+
+        # ---- 2. mid-stream generate failover on the GPT --------------
+        prompt = prng.integers(0, SLICE["vocab_size"],
+                               FLEET_PROMPT).tolist()
+        ref = uncounted(greedy_generate, gpt_ref, prompt, FLEET_NEW)
+        survivor, adm, partials, final, mid = fleet_midstream(
+            router, fdir, live[0], paths, prompt)
+        live = [r for r in live if r.alive] + [survivor]
+        rec["midstream"] = dict(
+            prompt_len=FLEET_PROMPT, new=FLEET_NEW, survivor=adm,
+            ok=bool(final.get("ok")), tokens=final.get("tokens"),
+            partials=partials, reference=ref,
+            failovers=final.get("failovers"),
+            tokens_equal_singleton=final.get("tokens") == partials == ref,
+            **mid)
+        emit(dict(phase="serve_fleet", stage="midstream",
+                  **rec["midstream"]))
+
+        # ---- 3. a rolling drain-restart under load -------------------
+        for r in range(1, FLEET_REPLICAS):
+            rep, adm = spawn_admitted(router, fdir, 10 + r, paths["gpt"])
+            live.append(rep)
+        for rep in live:
+            warm_ladder(rep, paths, {k: v[2] for k, v in pools.items()},
+                        ("char_rnn",))
+        news, rec["rolling"] = fleet_rolling(router, fdir, live, paths,
+                                             pools)
+        live = news
+        rec["rolling"]["memory"] = fleet_memory(live)
+        emit(dict(phase="serve_fleet", stage="rolling", **rec["rolling"]))
+
+        # ---- 4. autoscale, brownout and the flap quarantine ----------
+        auto_parts = fleet_autoscale(tmp, paths, pools)
+        router4, rep0, auto, flapper, rec["autoscale"] = auto_parts
+        emit(dict(phase="serve_fleet", stage="autoscale",
+                  **rec["autoscale"]))
+
+        # ---- 5. observability ----------------------------------------
+        rec["observability"] = fleet_observability(router4, tmp, paths,
+                                                   pools)
+        rec["memory_end"] = fleet_memory(live + [rep0])
+        rec["evictions"] = (fleet_counter(
+            "serving_compile_cache_evictions_total") - ev0)
+        rec["counters"] = {n: fleet_counter(n) for n in (
+            "fleet_dispatches_total", "fleet_failovers_total",
+            "fleet_retries_total", "fleet_hedges_total",
+            "fleet_hedge_wins_total", "fleet_admissions_total",
+            "fleet_removals_total", "fleet_generate_resumes_total")}
+        launched = counts()
+    finally:
+        faultinject.clear()
+        if auto_parts is not None:
+            router4, rep0, auto, flapper, _ = auto_parts
+            auto.drain(drain_owned=True)
+            router4.close()
+            flapper.drain(grace_s=5.0)
+            rep0.drain(grace_s=5.0)
+        for router in routers:
+            router.close()
+        for rep in live:
+            rep.drain(grace_s=10.0)
+        set_registry(prev_reg)
+        t_end = time.monotonic() + 20.0
+        while (set(threading.enumerate()) - base_threads
+               and time.monotonic() < t_end):
+            time.sleep(0.05)
+        leaked = sorted(t.name for t in
+                        set(threading.enumerate()) - base_threads)
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["leaked_threads"] = leaked
+    rec["launches"] = launched
+    rec["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(dict(phase="serve_fleet", stage="summary",
+              **{k: rec[k] for k in ("spawn", "warm", "memory_end",
+                                     "evictions", "counters",
+                                     "observability", "leaked_threads",
+                                     "launches", "peak_memory_allocated",
+                                     "phase_s")}))
+
+    kill = rec["kill"]
+    check(kill["kill_fired"] and not kill["errors"]
+          and kill["served"] == kill["requests"] and kill["failovers"] > 0,
+          f"kill under load: {kill['errors']}, fired {kill['kill_fired']}, "
+          f"failovers {kill['failovers']}")
+    check(kill["removal_s"] < 15.0 and 0 not in kill["members_after"],
+          f"the corpse left the fleet in {kill['removal_s']} s")
+    for model, c2 in kill["c2"].items():
+        check(c2["argmax_equal"] and c2["max_abs_prob_diff"] <= TOL_C2,
+              f"fleet answers against singletons past C2: {model} {c2}")
+    check(not any(kill["captures"].values()),
+          f"the storm captured {kill['captures']}")
+    for name, t in rec["traced"].items():
+        check(t["batches"] > 0 and t["traced"] == t["per_batch"]
+              * t["batches"], f"traced {name} wave through the router: {t}")
+    tf = rec["traced_failover"]
+    check(tf["tokens_equal_singleton"] and (tf["failovers"] or 0) >= 1,
+          f"the traced failover's tokens: {tf}")
+    check(tf["kernels_traced"] > 0 and tf["k4_launches"] == 0,
+          f"the traced failover's kernels: {tf} (a prefill attends "
+          f"through attention_reference: no K4)")
+    mid = rec["midstream"]
+    check(mid["ok"] and mid["kill_fired"] and mid["resumes"] >= 1
+          and (mid["failovers"] or 0) >= 1,
+          f"mid-stream failover: {mid}")
+    check(mid["tokens_equal_singleton"],
+          f"mid-stream failover tokens differ from the singleton "
+          f"greedy_generate on the card (ROADMAP C2): {mid}")
+    roll = rec["rolling"]
+    check(not roll["failures"] and roll["requests"] > 0
+          and all(d["emptied"] for d in roll["drains"])
+          and roll["members_after"] == sorted(r.rank for r in live),
+          f"rolling restart: {roll['failures']}, {roll['drains']}")
+    check(not any(d["captures_while_serving"] for d in roll["drains"]),
+          f"a survivor captured during the roll: {roll['drains']}")
+    au = rec["autoscale"]
+    check(not au["failures"] and au["ups"] >= 2 and au["downs"] >= 2
+          and au["handles_after"] == [],
+          f"autoscale: failures {au['failures'][:3]}, ups {au['ups']}, "
+          f"downs {au['downs']}, owned {au['handles_after']}")
+    check(au["readyz_in_brownout"]["brownout"]
+          and au["readyz_in_brownout"]["ready"]
+          and au["sheds"] > 0 and au["sheds_structured"]
+          and au["same_connection"]["bulk_error"] == "SHED"
+          and au["same_connection"]["retry_after_ms"] is not None
+          and au["same_connection"]["interactive_ok"],
+          f"brownout: {au}")
+    check(au["quarantined"] and au["quarantines"] >= 1
+          and au["flapper_alive"], f"flap quarantine: {au}")
+    ob = rec["observability"]
+    check(not ob["metrics_missing"] and ob["metrics_json_has_replicas"]
+          and ob["readyz_status"] == 200,
+          f"the router's metrics and readyz: {ob}")
+    check(ob["bundles"] == 1 and ob["bundle_format"] == BUNDLE_FORMAT
+          and ob["bundle_stale"] == "keras_server"
+          and (ob["culprit"] or {}).get("span") == "serve:predict",
+          f"the stall watchdog's bundle: {ob}")
+    mem = rec["memory_end"]
+    check(rec["evictions"] == 0,
+          f"the compile cache evicted {rec['evictions']} graphs: {mem}")
+    check(mem["pool_bytes_sum"] <= mem["memory_reserved"]
+          and mem["cache"]["bytes"] <= mem["memory_reserved"],
+          f"the graph pools' bytes past what the card reserved: {mem}")
+    check(not leaked, f"threads leaked past the fleet's teardown: {leaked}")
+    check(launched["lstm_fwd_infer"] > 0 and launched["flash_attn_fwd"] > 0,
+          f"the fleet's path launched {launched}")
+    return dict(launched=launched, traced=rec["traced"],
+                reprefill_k4=tf["k4_launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3943,46 +4901,52 @@ def main() -> int:
                   timed=True)
 
     # ---- 3. the slice: full-width GPT serving on the card ------------------
-    flash_launches = gpt_slice(a["ms"])
+    flash_launches = timed("slice", gpt_slice, a["ms"])
 
     # ---- 4. the slice: full-width char-RNN serving on the card -------------
-    lstm_launches = lstm_slice(k1["ms"])
+    lstm_launches = timed("lstm_slice", lstm_slice, k1["ms"])
 
     # ---- 5. the slice: full-width GPT training on the card ----------------
-    train_path = train_slice()
+    train_path = timed("train_slice", train_slice)
 
     # ---- 6. the slice: full-width char-RNN training on the card ----------
-    lstm_train_path = lstm_train_slice()
+    lstm_train_path = timed("lstm_train_slice", lstm_train_slice)
 
     # ---- 7. wide heads on the card: 256 (the widest register template),
     # 512 (the wide template) --------------------------------------------
-    wide_path = wide_head_slice(WIDE_SLICE)
-    wide512_path = wide_head_slice(WIDE512_SLICE)
+    wide_path = timed("wide_head_256", wide_head_slice, WIDE_SLICE)
+    wide512_path = timed("wide_head_512", wide_head_slice,
+                         WIDE512_SLICE)
 
     # ---- 8. the CNN classifiers on the card: LeNet-5, VGG-16-CIFAR,
     # ResNet-50 (no kernel of K1-K6 on this path) ---------------------------
-    cnn_slice()
+    timed("cnn_slice", cnn_slice)
 
     # ---- 9. the token-level serving engine on the card: CUDA graphs per
     # bucket over the block-paged KV pool (no kernel of K1-K6 on this path)
-    serve_engine()
+    timed("serve_engine", serve_engine)
 
     # ---- 10. ModelSerializer archives on the card: the GPT, the char-RNN
     # and ResNet-50 round trips, a served reload, integrity ------------------
-    checkpoint_phase()
+    timed("checkpoint", checkpoint_phase)
 
     # ---- 11. the predict server on the card: KerasServer / KerasClient
     # over TCP, a CUDA graph per predict bucket replaying K1 and K4 ---------
-    server_path = serve_server()
+    server_path = timed("serve_server", serve_server)
     served, fitted = server_path["main_path"], server_path["fit"]
 
     # ---- 12. the single-card training features: bf16 GPT (K4-K6 in bf16)
     # and char-RNN (K2/K3 in bf16), listeners, sentinel, remat, scan
     # windows, the prefetching iterator, solvers, ROC / regression --------
-    tf_path = train_features()
+    tf_path = timed("train_features", train_features)
     tf_gpt, tf_lstm = tf_path["gpt"], tf_path["char_rnn"]
 
-    # ---- 13. summary of every ported kernel -------------------------------
+    # ---- 13. the serving fleet: FleetRouter over three FleetReplica
+    # gateways, failover, rolling restart, autoscale and brownout ---------
+    fleet = timed("serve_fleet", serve_fleet)
+    fleet_launched = fleet["launched"]
+
+    # ---- 14. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -3990,7 +4954,11 @@ def main() -> int:
              # serving, training and the predict server's captures (a
              # captured launch replays with every batch of its bucket)
              launches=flash_launches + train_path["flash_attn_fwd"]
-             + served["flash_attn_fwd"] + tf_gpt["flash_attn_fwd"],
+             + served["flash_attn_fwd"] + tf_gpt["flash_attn_fwd"]
+             + fleet_launched["flash_attn_fwd"],
+             launches_serve_fleet=fleet_launched["flash_attn_fwd"],
+             replays_serve_fleet_traced_wave=fleet["traced"]["gpt"],
+             launches_serve_fleet_traced_failover=fleet["reprefill_k4"],
              launches_bf16_train_features=tf_gpt["flash_attn_fwd"],
              ms_bf16=a16["ms"], plain_ms_bf16=a16["plain_ms"],
              bound_ms_bf16=a16["bound_ms"], bound_by_bf16=a16["bound_by"],
@@ -4014,7 +4982,9 @@ def main() -> int:
              # serving, the heads of tBPTT windows when bwd < fwd, and
              # the predict server's captures
              launches=lstm_launches + lstm_train_path["lstm_fwd_infer"]
-             + served["lstm_fwd_infer"],
+             + served["lstm_fwd_infer"] + fleet_launched["lstm_fwd_infer"],
+             launches_serve_fleet=fleet_launched["lstm_fwd_infer"],
+             replays_serve_fleet_traced_wave=fleet["traced"]["char_rnn"],
              launches_serve_server=served["lstm_fwd_infer"],
              replays_per_bucket_serve_server=LSTM_SLICE["layers"],
              max_abs_err=max(k1["max_abs_err_hs"], k1["max_abs_err_hT"]),

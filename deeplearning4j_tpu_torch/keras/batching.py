@@ -793,7 +793,8 @@ class BatchScheduler:
             self._count_compile(time.perf_counter() - t0)
         with self._cond:
             current = self._backends.get(key)
-            if current is not None and current[0] is model:
+            if (current is not None and current[0] is model
+                    and not self._stopping):
                 # put UNDER the cond: an evict_model racing between the
                 # check and the put could otherwise land a stale runner
                 # for a gone model (the cache's own lock is a leaf — no
@@ -802,7 +803,11 @@ class BatchScheduler:
             # else: the key was evicted (or swapped to a fresh load)
             # while we captured — serve this batch with the uncached
             # runner and let the next batch capture against the
-            # current object, rather than caching for a gone model
+            # current object, rather than caching for a gone model. A
+            # stopped scheduler caches nothing: its stop() released its
+            # slice of the global cache, and a capture that outlived the
+            # stop's join (a killed replica's dispatcher waiting on
+            # CAPTURE_LOCK) must not put a dead owner's pool back
         return runner
 
     def _aot_compile(self, model, bucket: int, shape_key):

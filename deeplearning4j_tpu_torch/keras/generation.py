@@ -422,11 +422,13 @@ class _Engine:
             sched._count_capture(self.key, kind, bucket, 0.0)
         with sched._cond:
             cur = sched._backends.get(self.key)
-            if cur is not None and cur[0] is self.model:
+            if (cur is not None and cur[0] is self.model
+                    and not sched._stopping):
                 # cache only while the key still maps to THIS model
                 # object — an evict (purge serializes on this cond) or
                 # a swap-to-fresh-load while we captured must not get
-                # a stale runner re-landed behind it
+                # a stale runner re-landed behind it — and only while
+                # the scheduler lives: stop() released its slice
                 sched._compiled.put(
                     cache_key, runner,
                     CompileCache.compiled_nbytes(runner))

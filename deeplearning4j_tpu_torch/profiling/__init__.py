@@ -1,5 +1,9 @@
 """Profiling (the JAX package's ``profiling/``): the span tracer, the
-metrics registry, the flight recorder, and the watchdog's heartbeats and
-diagnostic bundle, the parts the serving edge emits into. The cost
-analysis and the compile watchers wait for ROADMAP A7, ``StallWatchdog``
-for A5.3."""
+metrics registry, the flight recorder, and the watchdog — its heartbeats,
+the diagnostic bundle and the ``StallWatchdog`` that writes one when a
+heartbeat goes stale. The cost analysis and the compile watchers wait
+for ROADMAP A7."""
+
+from deeplearning4j_tpu_torch.profiling.watchdog import (  # noqa: F401
+    StallWatchdog, assemble_bundle, beat, heartbeat_ages,
+)

@@ -1,8 +1,12 @@
 """Crash-safe file primitives: atomic write + checksums (the JAX
 package's ``resilience/atomic.py``: it imports no JAX, and the port keeps
-its own copy of the parts a path here uses — ``crc32_file``,
-``atomic_write_bytes`` and ``atomic_path(unique=True)`` come with their
-first caller).
+its own copy of the parts a path here uses — ``crc32_file`` and
+``atomic_path(unique=True)`` come with their first caller).
+
+``replace_bytes`` is the light form for records that are rewritten
+sub-second or superseded by the next write (the elastic lease, join
+requests, heartbeats): tmp + rename, so a reader never sees a prefix,
+without the fsyncs and without the checkpoint fault hook.
 
 Every durable artifact goes through the same commit protocol:
 
@@ -90,6 +94,35 @@ def atomic_path(path: Union[str, Path]):
             tmp.unlink(missing_ok=True)
         raise
     fsync_dir(path.parent)
+
+
+def atomic_write_bytes(path: Union[str, Path], data: bytes) -> int:
+    """Atomically replace ``path`` with ``data``; returns the CRC-32.
+
+    The fault-injection commit hook runs between write and rename, so a
+    scheduled ``truncate_checkpoint`` fault exercises exactly the window
+    a real SIGKILL would hit.
+    """
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    _commit_hook(tmp, path)
+    os.replace(tmp, path)
+    fsync_dir(path.parent)
+    return crc32_bytes(data)
+
+
+def replace_bytes(path: Union[str, Path], data: bytes) -> None:
+    """Write ``data`` to ``<path>.tmp`` and rename it over ``path``:
+    atomic for readers, not durable (no fsync). A torn or lost write
+    reads as the previous record."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_bytes(data)
+    os.replace(tmp, path)
 
 
 def _commit_hook(tmp: Path, final: Path) -> None:

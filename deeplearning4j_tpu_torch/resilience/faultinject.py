@@ -2,9 +2,10 @@
 ``resilience/faultinject.py``: the schedule, the hooks of the generation
 engine, of a checkpoint's commit, of the Keras gateway and its predict
 batching, the replica kinds a gateway consults, and the ``nan`` kind of
-a training loop, ``poison_batch``). The trainers' ``raise`` kind, the
-broker, input-pipeline and elastic kinds, and the rest of the fleet
-kinds, wait for the paths they test (ROADMAP A5.3, A6, A7).
+a training loop, ``poison_batch``), and the fleet's overload kinds
+(``flap_replica``, ``load_spike``). The trainers' ``raise`` kind, the
+broker, input-pipeline and elastic kinds wait for the paths they test
+(ROADMAP A6, A7).
 
 Training fault kind:
 
@@ -41,6 +42,19 @@ Replica fault kinds (a gateway built with a ``replica_rank``):
 - ``slow_replica``     — replica ``rank``'s ``at_call``-th admitted
   request stalls ``duration`` seconds before dispatch.
 
+Fleet overload kinds (the autoscaler's and the flap quarantine's seams):
+
+- ``flap_replica``     — replica ``rank`` becomes a crash-looper: each
+  of its next ``count`` incarnations (spawns since arming, starting at
+  the ``at_call``-th) hard-kills itself ``duration`` seconds AFTER the
+  router admits it. ``check_flap_spawn(rank)`` is the per-spawn hook
+  ``FleetReplica`` consults at construction; the router's flap
+  quarantine is the defense under test.
+- ``load_spike``       — declarative burst against the ROUTER:
+  ``load_spike_spec()`` hands the scheduled ``count`` (and
+  ``duration``, the window to spread it over) to the chaos harness,
+  which fires that many concurrent requests.
+
 Checkpoint fault kind:
 
 - ``truncate_checkpoint`` — tear the ``at_call``-th checkpoint commit.
@@ -72,8 +86,8 @@ Token-level decode fault kinds:
   decode iteration. Host-side validation must fail THAT row with a
   structured ``PAGE_TABLE`` error before the mapping reaches a step.
 
-Faults fire once each; ``at_call`` counters restart whenever a schedule
-is armed.
+Faults fire once each (``flap_replica`` once per incarnation, up to
+``count``); ``at_call`` counters restart whenever a schedule is armed.
 """
 
 from __future__ import annotations
@@ -95,7 +109,8 @@ from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 _KINDS = ("nan", "poison_decode", "evict_cache", "evict_page",
           "corrupt_page_table", "truncate_checkpoint", "hang_backend",
           "burst", "poison_row", "slow_batch", "kill_replica",
-          "partition_replica", "slow_replica")
+          "partition_replica", "slow_replica", "flap_replica",
+          "load_spike")
 
 
 class KilledByFault(RuntimeError):
@@ -115,7 +130,10 @@ class Fault:
     target replica; ``mode`` how a ``truncate_checkpoint`` tears its
     commit (``"crash"`` or ``"torn"``); ``duration`` the stall of
     ``hang_backend`` / ``slow_batch`` / ``slow_replica`` and the window
-    of ``partition_replica``; ``count`` a ``burst``'s size."""
+    of ``partition_replica``, a ``flap_replica`` incarnation's life after
+    admission and a ``load_spike``'s spread; ``count`` a ``burst``'s or
+    ``load_spike``'s size and a ``flap_replica``'s incarnations;
+    ``fires`` the incarnations a ``flap_replica`` consumed."""
 
     kind: str
     step: int = 0
@@ -125,6 +143,7 @@ class Fault:
     duration: float = 0.0
     count: int = 0
     fired: bool = False
+    fires: int = 0
 
     def __post_init__(self):
         if self.kind not in _KINDS:
@@ -158,6 +177,9 @@ _replica_requests: Dict[int, int] = {}
 _replica_tokens: Dict[int, int] = {}
 #: per-replica-rank heartbeat-suppression windows (``partition_replica``)
 _replica_partition_until: Dict[int, float] = {}
+#: per-replica-rank spawn counters since arming (``flap_replica``
+#: at_call addressing: the Nth incarnation of that rank)
+_replica_spawns: Dict[int, int] = {}
 
 
 def set_schedule(schedule: Optional[FaultSchedule]) -> None:
@@ -170,6 +192,7 @@ def set_schedule(schedule: Optional[FaultSchedule]) -> None:
         _replica_requests.clear()
         _replica_tokens.clear()
         _replica_partition_until.clear()
+        _replica_spawns.clear()
         _dispatch_calls = 0
         _predict_loads = 0
         _batch_dispatches = 0
@@ -489,3 +512,59 @@ def check_kill_replica_token(rank: int) -> bool:
                 _fire(f, rank=rank, token=n)
                 return True
         return False
+
+
+def check_flap_spawn(rank: int) -> Optional[float]:
+    """Called by ``FleetReplica`` at construction: when a
+    ``flap_replica`` fault targets this rank, this incarnation is the
+    ``at_call``-th-or-later spawn since arming, and fires remain (of
+    ``count``, default 1), returns the post-ADMISSION kill delay
+    (``duration`` seconds): the replica arms a watcher that hard-kills
+    it that long after the router admits it. None = live normally.
+
+    Counts once per spawn; the fault disarms (``fired``) when its last
+    incarnation is consumed, so the rank's NEXT spawn comes up healthy:
+    the crash-loop-then-recover shape the quarantine's release path
+    needs."""
+    rank = int(rank)
+    with _lock:
+        if _schedule is None:
+            return None
+        n = _replica_spawns.get(rank, 0) + 1
+        _replica_spawns[rank] = n
+        for f in _schedule.faults:
+            if f.kind != "flap_replica" or f.rank != rank or f.fired:
+                continue
+            if n < f.at_call:
+                continue
+            total = max(1, int(f.count) or 1)
+            f.fires += 1
+            # every incarnation counts and stamps; fired flips only when
+            # the loop is spent
+            get_registry().counter(
+                "resilience_faults_injected_total",
+                help="faults injected by the chaos harness").inc()
+            get_tracer().instant("fault_injected", kind="flap_replica",
+                                 rank=rank, spawn=n, fire=f.fires)
+            flight_record("faultinject", "fired", fault="flap_replica",
+                          rank=rank, spawn=n, fire=f.fires)
+            if f.fires >= total:
+                f.fired = True
+            return max(0.0, f.duration)
+        return None
+
+
+def load_spike_spec() -> Optional[dict]:
+    """Hand a chaos harness the scheduled ``load_spike`` burst: a
+    ``{"count": N, "duration": seconds}`` spec (fires once; None when
+    nothing is armed). The harness fires ``count`` concurrent requests
+    at the ROUTER, spread over ``duration``."""
+    with _lock:
+        if _schedule is None:
+            return None
+        for f in _schedule.pending():
+            if f.kind == "load_spike":
+                _fire(f, count=f.count, duration=f.duration)
+                return {"count": int(f.count),
+                        "duration": max(0.0, float(f.duration))}
+        return None

@@ -1195,6 +1195,170 @@ def test_server_fit_leaves_the_predict_graphs_current(card, tmp_path):
         srv.drain(grace_s=5.0)
 
 
+# ------------------------------------------------------ the fleet
+
+def test_fleet_on_card_answers_singletons_and_fails_over(card, tmp_path):
+    """Two ``FleetReplica`` gateways on the card (``device=None``) behind
+    a ``FleetRouter``: a 1-row char-RNN and a 1-row GPT predict through
+    the router equal the replica's eager singleton ``output()`` bit for
+    bit (the bucket-1 graph replays K1 / K4); a streamed generate whose
+    replica dies at its 3rd token (every member is armed, so whichever
+    the router picks dies, and the survivor streams the last token)
+    resumes by re-prefill with the singleton's greedy tokens; threads
+    return to their baseline after the drains and ``close()``."""
+    from deeplearning4j_tpu_torch.keras.fleet import (FleetReplica,
+                                                      FleetRouter)
+    from deeplearning4j_tpu_torch.keras.server import KerasClient
+    from deeplearning4j_tpu_torch.resilience import faultinject
+    from deeplearning4j_tpu_torch.resilience.faultinject import (
+        Fault, FaultSchedule)
+    rnn = MultiLayerNetwork(char_rnn_lstm(16, 32, 2), device=card).init()
+    paths = {"char_rnn": str(tmp_path / "rnn.zip"),
+             "gpt": str(tmp_path / "gpt.zip")}
+    ModelSerializer.write_model(rnn, paths["char_rnn"])
+    ModelSerializer.write_model(_serving_net(card), paths["gpt"])
+    rng = np.random.default_rng(14)
+    xs = {"char_rnn": np.eye(16, dtype=np.float32)[rng.integers(0, 16,
+                                                               (1, 8))],
+          "gpt": np.eye(SERVE_V, dtype=np.float32)[
+              rng.integers(0, SERVE_V, (1, SERVE_T))]}
+    for name, x in xs.items():
+        np.save(tmp_path / f"{name}.npy", x)
+    base = set(threading.enumerate())
+    fdir = str(tmp_path / "fleet")
+    router = FleetRouter(fdir, poll_s=0.1, heartbeat_timeout_s=1.5,
+                         metrics_port=None, empty_pool_wait_s=60.0)
+    reps = [FleetReplica(fdir, r, model=paths["gpt"], max_batch=8)
+            for r in (0, 1)]
+    try:
+        assert router.wait_for_replicas(2, timeout_s=120.0)
+        cli = KerasClient(router.host, router.port)
+        try:
+            for name, x in xs.items():
+                got = cli.predict(str(tmp_path / f"{name}.npy"),
+                                  model=paths[name])
+                served = reps[0].server._models[paths[name]]
+                want = served.output(x).float().cpu().numpy()
+                assert np.array_equal(got, want), name
+            gpt = reps[0].server._models[paths["gpt"]]
+            prompt = _serving_prompts(29)[1]
+            ref = greedy_generate(gpt, prompt, 4)
+            for rep in reps:           # warm each engine, not routed
+                direct = KerasClient(rep.host, rep.port)
+                direct.generate(_serving_prompts(31)[0], 4,
+                                model=paths["gpt"])
+                direct.close()
+            faultinject.set_schedule(FaultSchedule(
+                [Fault("kill_replica", rank=r, step=3) for r in (0, 1)]))
+            resp = cli.request(op="generate", tokens=prompt,
+                               max_new_tokens=4, model=paths["gpt"],
+                               stream=True)
+        finally:
+            faultinject.clear()
+            cli.close()
+        assert resp["tokens"] == ref and resp["failovers"] >= 1
+        assert sum(not rep.alive for rep in reps) == 1
+    finally:
+        router.close()
+        for rep in reps:
+            rep.drain(grace_s=5.0)
+    t_end = time.monotonic() + 15.0
+    while set(threading.enumerate()) - base and time.monotonic() < t_end:
+        time.sleep(0.05)
+    assert not set(threading.enumerate()) - base
+
+
+def test_fleet_kill_and_capture_lock_in_both_orders(card, tmp_path):
+    """Replicas in one process share ``CAPTURE_LOCK``. (1) A replica
+    killed while another holds the lock (mid-capture) is torn down and
+    removed without waiting for it. (2) A replica killed while its own
+    dispatcher waits on the lock to capture: its ``stop(2.0)`` join times
+    out and releases its cache slice; once the lock is free the capture
+    ends, serves nothing and caches nothing for the dead owner. Threads
+    return to their baseline."""
+    from deeplearning4j_tpu_torch.keras.batching import CAPTURE_LOCK
+    from deeplearning4j_tpu_torch.keras.fleet import (FleetReplica,
+                                                      FleetRouter)
+    from deeplearning4j_tpu_torch.keras.server import KerasClient
+    from deeplearning4j_tpu_torch.resilience import faultinject
+    from deeplearning4j_tpu_torch.resilience.faultinject import (
+        Fault, FaultSchedule)
+    net = MultiLayerNetwork(char_rnn_lstm(16, 32, 2), device=card).init()
+    path = str(tmp_path / "rnn.zip")
+    ModelSerializer.write_model(net, path)
+    eye = np.eye(16, dtype=np.float32)
+    rng = np.random.default_rng(15)
+    for rows in (1, 3):
+        np.save(tmp_path / f"x{rows}.npy",
+                eye[rng.integers(0, 16, (rows, 8))])
+    base = set(threading.enumerate())
+    fdir = str(tmp_path / "fleet")
+    router = FleetRouter(fdir, poll_s=0.1, heartbeat_timeout_s=1.5,
+                         metrics_port=None)
+    reps = [FleetReplica(fdir, r, model=path, max_batch=8, prewarm=False)
+            for r in (0, 1, 2)]
+
+    def direct(rep, rows, out):
+        cli = KerasClient(rep.host, rep.port)
+        try:
+            out.append(cli.predict(str(tmp_path / f"x{rows}.npy"),
+                                   model=path))
+        except (RuntimeError, OSError, ValueError) as e:
+            out.append(e)
+        finally:
+            cli.close()
+
+    try:
+        assert router.wait_for_replicas(3, timeout_s=120.0)
+        # (1) killed while another replica holds the lock
+        with CAPTURE_LOCK:
+            faultinject.set_schedule(FaultSchedule(
+                [Fault("kill_replica", rank=0, at_call=1)]))
+            out = []
+            direct(reps[0], 1, out)
+            t_end = time.monotonic() + 15.0
+            while 0 in router.replicas() and time.monotonic() < t_end:
+                time.sleep(0.05)
+            assert not reps[0].alive and 0 not in router.replicas()
+        faultinject.clear()
+        # (2) killed while its own capture waits on the lock
+        cache = reps[1].server._batcher._compiled
+        owner = reps[1].server._batcher._cache_owner
+        out = []
+        with CAPTURE_LOCK:
+            t = threading.Thread(target=direct, args=(reps[1], 3, out),
+                                 daemon=True)
+            t.start()
+            time.sleep(1.0)             # its dispatcher waits on the lock
+            reps[1].kill()
+            t.join(30.0)
+            time.sleep(3.0)             # the reaper's 2 s join timed out
+            assert not [k for k in cache.keys() if k[0] == owner]
+        t_end = time.monotonic() + 30.0
+        while (any(th.name.startswith("batch-dispatch")
+                   for th in threading.enumerate())
+               and time.monotonic() < t_end):
+            time.sleep(0.05)
+        assert isinstance(out[0], Exception)
+        assert not [k for k in cache.keys() if k[0] == owner]
+        # the survivor still serves, through the router
+        cli = KerasClient(router.host, router.port)
+        try:
+            cli.predict(str(tmp_path / "x3.npy"), model=path)
+        finally:
+            cli.close()
+        assert router.replicas() == [2]
+    finally:
+        faultinject.clear()
+        router.close()
+        for rep in reps:
+            rep.drain(grace_s=5.0)
+    t_end = time.monotonic() + 15.0
+    while set(threading.enumerate()) - base and time.monotonic() < t_end:
+        time.sleep(0.05)
+    assert not set(threading.enumerate()) - base
+
+
 # ---------------------------------------------------- zip checkpoints
 
 def test_gpt_checkpoint_round_trip_on_card_is_bitwise(card, tmp_path):
@@ -1427,7 +1591,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "keras/server.py", "datasets/iris.py",
                    "datasets/iterator.py", "eval/roc.py",
                    "eval/regression.py", "optimize/listeners.py",
-                   "optimize/training_stats.py", "optimize/solvers.py"):
+                   "optimize/training_stats.py", "optimize/solvers.py",
+                   "keras/fleet.py", "keras/autoscale.py",
+                   "resilience/elastic.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     banned = ("jax", "jaxlib", "deeplearning4j_tpu")
     bad = [(str(f.relative_to(ROOT)), m) for f in files

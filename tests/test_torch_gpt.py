@@ -162,7 +162,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "resilience/atomic.py", "util/serializer.py",
                    "resilience/service.py", "resilience/faultinject.py",
                    "profiling/watchdog.py", "keras/batching.py",
-                   "keras/server.py", "datasets/iris.py"):
+                   "keras/server.py", "datasets/iris.py",
+                   "keras/fleet.py", "keras/autoscale.py",
+                   "resilience/elastic.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     banned = ("jax", "jaxlib", "deeplearning4j_tpu")
     bad = [(str(f.relative_to(ROOT)), m) for f in files
