@@ -7,7 +7,10 @@ Needs one CUDA card (an H100 for the sm_90a kernels) and nvcc; builds the
 port's kernels from csrc/ on first use, one nvcc per source, in parallel.
 Phases, each printing JSON lines:
 
-1. device — the card's name and power limit (nvidia-smi), torch and CUDA
+1. device — the import rule (an AST walk: no module of the port, the
+   data-parallel package's included, and not this script imports JAX or
+   the JAX package), the card's name and power limit (nvidia-smi), torch
+   and CUDA
    versions, kernel build time, and the registers and spills ptxas
    reports for K4, K5 and K6 at each head-dim template (32, 64, 128, 256
    and the wide one) and for K1, K2 and K3 at each body (streaming,
@@ -211,9 +214,34 @@ Phases, each printing JSON lines:
    one bundle under ``hang_backend``; 0 compile-cache evictions, the
    graph pools' bytes against the card's reserved memory; threads back
    to their baseline;
-14. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+14. train parallel — the data-parallel trainers (ROADMAP A6.1) at full
+   width. World 1 over NCCL in this process: ``ParallelTrainer`` on the
+   GPT ([32, 256]) for 3 steps bit for bit its twin's ``fit_batch``;
+   gradient accumulation 4 within 2e-4 / 2e-5 of the plain step (SGD
+   twins), its peak allocation at most one and a half gradients above a
+   step on its [8, 256] microbatch (one accumulator);
+   ``DelayedSyncTrainer(sync_frequency=1)`` bit for bit
+   ``ParallelTrainer``, on the GPT and on the char-RNN's tBPTT windows;
+   the char-RNN's tBPTT ([32, 200]) through ``ParallelTrainer`` bit for
+   bit its ``fit_batch``;
+   ``ParallelWrapper(workers=2, averaging_frequency=2)`` on the char-RNN
+   within 1e-5 of two hand-run workers averaged; traced launches per step
+   (8 K4/K5/K6 a GPT step, 8 K2/K3 a char-RNN step, 16 a wrapper
+   iteration of two workers); ms a step against the plain fit_batch in
+   turns; ``FaultTolerantTrainer`` over ``ParallelTrainer`` with sharded
+   checkpoints: a ``raise`` fault retried, a cut run resumed by a fresh
+   net bit for bit the uninterrupted one, a NaN batch rolled back, the
+   checkpoint's write and restore seconds. World 2 in two processes of
+   this script (``--parallel-rank``) on this one card over gloo with CUDA
+   tensors: the GPT in the off, zero1 and zero2 modes, zero1 and zero2
+   bit for bit the replicated mode and the ranks equal, each rank's
+   updater state half the replicated bytes (and freed), ms a step, and
+   ms of each collective alone on a gradient-sized buffer; their
+   zero1 checkpoint restored at world 1, its next step within 2e-4 /
+   2e-5 of theirs;
+15. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-15. last line ``{"ok": true, "device": {...}}``.
+16. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -229,6 +257,7 @@ it exits 2 and prints no result.
 """
 
 import collections
+import hashlib
 import json
 import re
 import shutil
@@ -662,6 +691,40 @@ def flash_bound_ms(B, H, T, D, dtype, causal, mask):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+#: port modules the import rule must find (the data-parallel package's)
+IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
+                        "parallel/multihost.py", "parallel/trainer.py",
+                        "parallel/wrapper.py", "parallel/delayed.py",
+                        "parallel/strategy.py", "parallel/checkpoint.py",
+                        "resilience/manager.py", "resilience/trainer.py")
+
+
+def import_rule() -> dict:
+    """The port's import rule, read from its sources: no module of the
+    port and not this script imports JAX or anything of the JAX package
+    (an AST walk of every ``import`` and absolute ``from`` import)."""
+    import ast
+    root = Path(__file__).resolve().parent
+    files = sorted((root / "deeplearning4j_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    names = {str(f.relative_to(root)) for f in files}
+    missing = [m for m in IMPORT_RULE_REQUIRED
+               if f"deeplearning4j_tpu_torch/{m}" not in names]
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import) else
+                    [node.module] if isinstance(node, ast.ImportFrom)
+                    and node.level == 0 else [])
+            bad += [(str(f.relative_to(root)), m) for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib",
+                                           "deeplearning4j_tpu")]
+    check(not missing and not bad,
+          f"import rule: missing {missing}, banned imports {bad}")
+    return dict(files=len(files), banned_imports=bad)
 
 
 def attention_inputs(B, H, T, D, dtype, mask_kind):
@@ -4767,6 +4830,490 @@ def serve_fleet():
                 reprefill_k4=tf["k4_launches"])
 
 
+# ---------------------------------------------------------------------------
+# 14. the data-parallel trainers (ROADMAP A6.1)
+# ---------------------------------------------------------------------------
+
+#: the train_parallel phase: 3 synchronized steps of [32, 256] per mode;
+#: world 2 runs as two processes on this one card over gloo with CUDA
+#: tensors (NCCL refuses two ranks on one device)
+PAR_STEPS, PAR_WORLD = 3, 2
+#: gradient accumulation 4 against the plain step (SGD twins, as
+#: tests/test_parallel.py:58-80), and the world-1 restore's next step
+#: against the world-2 run's: rtol / atol on every param
+TOL_PAR_RTOL, TOL_PAR_ATOL = 2e-4, 2e-5
+#: ParallelWrapper against hand-run workers averaged, times max(1, |p|)
+TOL_WRAPPER = 1e-5
+#: the kernels a step of the parallel trainers launches, by symbol
+PAR_KERNELS = ATTENTION_KERNELS + ("lstm_fwd_train_kernel",
+                                   "lstm_bwd_kernel")
+#: the fault-tolerant runs: batches of the GPT, a checkpoint every 2 steps
+FT_BATCHES, FT_EVERY = 4, 2
+
+
+def text_batches(n, B, T, seed):
+    """``n`` one-hot [B, T] batches of the synthetic text."""
+    text = synthetic_char_text(n * B * (T + 1) + 1, seed=seed)
+    out = char_lm_batches(text, T, B, charset=CHARSET)[:n]
+    check(len(out) == n, f"{len(out)} text batches of {B} x {T}")
+    return out
+
+
+def par_gpt(**kw):
+    return ComputationGraph(gpt_decoder(**SLICE, **kw), device="cuda").init()
+
+
+def par_char_rnn():
+    return MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE),
+                             device="cuda").init()
+
+
+def params_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params),
+                                                 tree_leaves(b.params)))
+
+
+def params_close(a, b, rtol, atol):
+    """Whether every param of ``a`` lies within atol + rtol |b| of ``b``'s,
+    and the largest |a - b|."""
+    ok, worst = True, 0.0
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        d = (x - y).abs()
+        ok = ok and bool((d <= atol + rtol * y.abs()).all())
+        worst = max(worst, float(d.max()))
+    return ok, worst
+
+
+def peak_excess_bytes(fn) -> int:
+    """The most bytes allocated on the card while ``fn`` runs, above what
+    was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def moment_bytes(net) -> int:
+    return sum(t.numel() * t.element_size() for k, v in
+               net.opt_state.items() if k != "count" for t in tree_leaves(v))
+
+
+def par_world1(mesh):
+    """World 1 over NCCL in this process: ParallelTrainer on the GPT
+    against the plain fit_batch, accumulation 4 (and its peak memory
+    against one microbatch's step), DelayedSyncTrainer (k=1), the
+    char-RNN's tBPTT through ParallelTrainer, DelayedSyncTrainer (k=1)
+    and ParallelWrapper(workers=2, averaging_frequency=2) against
+    hand-run workers, launches per step from traces, ms a step in
+    turns."""
+    from deeplearning4j_tpu_torch.parallel import (
+        DelayedSyncTrainer, ParallelTrainer, ParallelWrapper,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import take_rows
+    rec = dict(backend=mesh.backend, world=mesh.world)
+    batches = text_batches(PAR_STEPS, TRAIN_BATCH, SLICE["seq_len"], SEED)
+    plain, par = par_gpt(), par_gpt()
+    tp = ParallelTrainer(par, mesh)
+    rec["losses"] = [float(tp.fit_batch(b)) for b in batches]
+    rec["losses_plain"] = uncounted(
+        lambda: [float(plain.fit_batch(b)) for b in batches])
+    rec["gpt_bitwise_plain"] = (rec["losses"] == rec["losses_plain"]
+                                and params_equal(par, plain))
+    dly = par_gpt()
+    td = DelayedSyncTrainer(dly, mesh, sync_frequency=1)
+    rec["delayed_losses"] = [float(td.fit_batch(b)) for b in batches]
+    rec["delayed_k1_bitwise"] = (rec["delayed_losses"] == rec["losses"]
+                                 and params_equal(dly, par))
+    del dly, td
+    sgd_plain = par_gpt(updater="sgd", learning_rate=0.1)
+    sgd_acc = par_gpt(updater="sgd", learning_rate=0.1)
+    uncounted(sgd_plain.fit_batch, batches[0])
+    t4 = ParallelTrainer(sgd_acc, mesh, gradient_accumulation=4)
+    t4.fit_batch(batches[0])
+    rec["accum4_within_gate"], rec["accum4_max_abs_diff"] = params_close(
+        sgd_acc, sgd_plain, TOL_PAR_RTOL, TOL_PAR_ATOL)
+    # peak memory: accumulation 4 holds one accumulator beside what one
+    # step on its [8, 256] microbatch holds, never the 4 gradient trees
+    quarter = take_rows(batches[0], slice(0, TRAIN_BATCH // 4))
+    t1 = ParallelTrainer(sgd_acc, mesh)
+    rec["gradient_bytes"] = sum(t.numel() * t.element_size()
+                                for t in tree_leaves(sgd_acc.params))
+    rec["accum4_peak_excess_bytes"] = peak_excess_bytes(
+        lambda: t4.fit_batch(batches[1]))
+    rec["quarter_step_peak_excess_bytes"] = peak_excess_bytes(
+        lambda: t1.fit_batch(quarter))
+    del sgd_plain, sgd_acc, t4, t1
+    _, rec["gpt_step_trace"] = traced_kernels(
+        lambda: tp.fit_batch(batches[0]), PAR_KERNELS)
+    rec["ms_per_step_in_turns"] = [dict(
+        plain=uncounted(host_ms, lambda: plain.fit_batch(batches[1]), 3, 1),
+        parallel=host_ms(lambda: tp.fit_batch(batches[1]), 3, 1))
+        for _ in range(3)]
+    del plain, par, tp
+
+    Bt, Tt = LSTM_TRAIN_BATCH
+    lbatches = text_batches(2, Bt, Tt, SEED + 1)
+    rnn_plain, rnn_par = par_char_rnn(), par_char_rnn()
+    trnn = ParallelTrainer(rnn_par, mesh)
+    rnn_losses = [float(trnn.fit_batch(b)) for b in lbatches]
+    rnn_plain_losses = uncounted(
+        lambda: [float(rnn_plain.fit_batch(b)) for b in lbatches])
+    rec["char_rnn_tbptt_bitwise_plain"] = (
+        rnn_losses == rnn_plain_losses and params_equal(rnn_par, rnn_plain))
+    _, rec["char_rnn_step_trace"] = traced_kernels(
+        lambda: trnn.fit_batch(lbatches[0]), PAR_KERNELS)
+    rnn_dly, rnn_twin = par_char_rnn(), par_char_rnn()
+    td, tt = (DelayedSyncTrainer(rnn_dly, mesh, sync_frequency=1),
+              ParallelTrainer(rnn_twin, mesh))
+    rec["char_rnn_delayed_k1_bitwise"] = (
+        [float(td.fit_batch(b)) for b in lbatches]
+        == [float(tt.fit_batch(b)) for b in lbatches]
+        and params_equal(rnn_dly, rnn_twin))
+    del rnn_dly, rnn_twin, td, tt
+
+    wrapped = par_char_rnn()
+    manual = [par_char_rnn() for _ in range(2)]
+    pw = ParallelWrapper(wrapped, workers=2, averaging_frequency=2,
+                         mesh=mesh)
+    for b in lbatches:
+        pw.fit_batch(b)
+        uncounted(lambda: [m.fit_batch(h) for m, h in
+                           zip(manual, b.batch_by(Bt // 2))])
+    worst, scale = 0.0, 1.0
+    for got, m0, m1 in zip(tree_leaves(wrapped.params),
+                           tree_leaves(manual[0].params),
+                           tree_leaves(manual[1].params)):
+        want = (m0 + m1) / 2
+        worst = max(worst, float((got - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+    rec["wrapper_max_abs_diff"] = worst
+    rec["wrapper_within_gate"] = worst <= TOL_WRAPPER * scale
+    rec["wrapper_replicas_equal"] = params_equal(pw.replica(0),
+                                                 pw.replica(1))
+    _, rec["wrapper_fit_batch_trace"] = traced_kernels(
+        lambda: pw.fit_batch(lbatches[0]), PAR_KERNELS)
+    return rec
+
+
+def par_fault_tolerant(mesh, tmp):
+    """FaultTolerantTrainer over ParallelTrainer on the GPT, sharded
+    checkpoints every FT_EVERY steps: a ``raise`` fault retried; a run cut
+    before its 4th step resumed by a fresh net from the cursor, bit for
+    bit the uninterrupted run; a NaN batch under a rollback sentinel
+    rolled back to the last checkpoint. Checkpoint write and restore
+    seconds."""
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+    from deeplearning4j_tpu_torch.resilience import (
+        CheckpointManager, FaultInjected, FaultTolerantTrainer,
+    )
+    batches = text_batches(FT_BATCHES, TRAIN_BATCH, SLICE["seq_len"],
+                           SEED + 2)
+    prev = set_registry(MetricsRegistry())
+
+    def run(name, net=None, max_retries=3, sentinel=None):
+        net = net or par_gpt()
+        mgr = CheckpointManager(tmp / name, sharded=True, mesh_ctx=mesh,
+                                keep_last=2)
+        FaultTolerantTrainer(net, mgr, trainer=ParallelTrainer(net, mesh),
+                             checkpoint_every=FT_EVERY, sentinel=sentinel,
+                             max_retries=max_retries, backoff_base=0.001,
+                             backoff_max=0.01).fit(batches, epochs=1)
+        return net, mgr
+
+    rec = {}
+    try:
+        faultinject.set_schedule(FaultSchedule([Fault("raise", step=2)]))
+        whole, mgr = run("whole")
+        faultinject.clear()
+        rec["retries"] = get_registry().snapshot("resilience_")[
+            "resilience_retries_total"]
+        faultinject.set_schedule(FaultSchedule([Fault("raise", step=4)]))
+        try:
+            run("cut", max_retries=0)
+            rec["cut_raised"] = False
+        except FaultInjected:
+            rec["cut_raised"] = True
+        faultinject.clear()
+        resumed, _ = run("cut", net=par_gpt(seed=7))
+        rec["resumed_iterations"] = resumed.iteration_count
+        rec["resumed_bitwise"] = params_equal(resumed, whole)
+        del resumed
+        faultinject.set_schedule(FaultSchedule([Fault("nan", step=3)]))
+        rolled, _ = run("nan", sentinel=DivergenceSentinel("rollback",
+                                                           lag=0))
+        faultinject.clear()
+        rec["rollbacks"] = get_registry().snapshot("resilience_")[
+            "resilience_rollbacks_total"]
+        rec["rolled_finite"] = all(bool(torch.isfinite(t).all())
+                                   for t in tree_leaves(rolled.params))
+        rec["rolled_iterations"] = rolled.iteration_count
+        del rolled
+        t0 = time.perf_counter()
+        path = mgr.save(whole, step=99)
+        rec["checkpoint_write_s"] = time.perf_counter() - t0
+        rec["checkpoint_bytes"] = sum(f.stat().st_size
+                                      for f in path.iterdir())
+        fresh = par_gpt(seed=7)
+        t0 = time.perf_counter()
+        mgr.restore(fresh, mgr.latest_valid())
+        torch.cuda.synchronize()
+        rec["checkpoint_restore_s"] = time.perf_counter() - t0
+        rec["restore_bitwise"] = params_equal(fresh, whole)
+    finally:
+        faultinject.clear()
+        set_registry(prev)
+    return rec
+
+
+def par_rank(rank, world, init, out):
+    """One rank of the world-2 group (this script run with
+    ``--parallel-rank``): the GPT through ParallelTrainer in the off,
+    zero1 and zero2 modes, PAR_STEPS steps each; the updater state's
+    bytes before and after sharding; ms a step; zero1 saves a sharded
+    checkpoint after its second step, and rank 0 keeps the third step's
+    loss and params for the world-1 restore. Writes its record to
+    ``<out>/rank<r>.json``."""
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshContext, ParallelTrainer, multihost,
+    )
+    from deeplearning4j_tpu_torch.resilience import CheckpointManager
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out)
+    multihost.initialize(init, world, rank, backend="gloo")
+    rec = dict(rank=rank, world=world)
+    try:
+        mesh = MeshContext.create()
+        rec["backend"] = mesh.backend
+        batches = text_batches(PAR_STEPS, TRAIN_BATCH, SLICE["seq_len"],
+                               SEED)
+        ref = None
+        for mode in ("off", "zero1", "zero2"):
+            net = par_gpt()
+            full = moment_bytes(net)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            tr = ParallelTrainer(net, mesh, weight_update_sharding=mode)
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            reset_counts()
+            losses, ms = [], []
+            for i, b in enumerate(batches):
+                if mode == "zero1" and i == PAR_STEPS - 1:
+                    mgr = CheckpointManager(
+                        out / "ckpt", sharded=True, mesh_ctx=mesh,
+                        weight_update_sharding=mode)
+                    t0 = time.perf_counter()
+                    mgr.save(net)
+                    rec["zero1_checkpoint_write_s"] = \
+                        time.perf_counter() - t0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(tr.fit_batch(b)))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            flat = torch.cat([p.reshape(-1) for p in
+                              tree_leaves(net.params)]).cpu().numpy()
+            rec[mode] = dict(
+                losses=losses, ms_per_step=ms, launches=counts(),
+                params_sha256=hashlib.sha256(flat.tobytes()).hexdigest(),
+                state_bytes_replicated=full,
+                state_bytes_rank=moment_bytes(net),
+                allocated_before_sharding=before,
+                allocated_after_sharding=after,
+                bitwise_off=(None if ref is None else
+                             losses == ref[0] and params_equal(net, ref[1])))
+            if mode == "off":
+                ref = (losses, net)
+            if mode == "zero1" and rank == 0:
+                np.save(out / "zero1_last_params.npy", flat)
+            del tr
+            if mode != "off":
+                del net
+        rec["collective_ms"] = par_collective_ms(mesh, ref[1])
+    finally:
+        multihost.shutdown()
+    (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def par_collective_ms(mesh, net) -> dict:
+    """ms of each collective a step issues, alone, on a buffer of the
+    net's gradient size (fp32; padded to divide by the world), 3 times
+    each: what a world-2 step spends in the transport."""
+    n = sum(t.numel() for t in tree_leaves(net.params))
+    flat = torch.zeros(-(-n // mesh.world) * mesh.world, device="cuda")
+    row = torch.zeros(flat.numel() // mesh.world, device="cuda")
+
+    def ms(fn):
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return dict(gradient_bytes=4 * n,
+                all_reduce=ms(lambda: mesh.all_reduce_(flat)),
+                reduce_scatter=ms(lambda: mesh.reduce_scatter(flat)),
+                all_gather=ms(lambda: mesh.all_gather(row)))
+
+
+def par_world2(tmp):
+    """The world-2 group: two processes of this script on this card; the
+    world-1 restore of their zero1 checkpoint, and its next step against
+    theirs."""
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshContext, ParallelTrainer,
+    )
+    from deeplearning4j_tpu_torch.resilience import CheckpointManager
+    out = tmp / "world2"
+    out.mkdir()
+    init = f"file://{tmp}/rdv_world2"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parallel-rank",
+         str(r), str(PAR_WORLD), init, str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(PAR_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0,
+              f"world-2 rank {r} exited {p.returncode}: {logs[r][-3000:]}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(PAR_WORLD)]
+    rec = dict(group_seconds=time.perf_counter() - t0, ranks=ranks)
+    net = par_gpt(seed=7)
+    mesh = MeshContext.create()
+    mgr = CheckpointManager(out / "ckpt", sharded=True, mesh_ctx=mesh)
+    t0 = time.perf_counter()
+    cursor = mgr.restore(net, reshard=True)
+    torch.cuda.synchronize()
+    rec["world1_restore_s"] = time.perf_counter() - t0
+    rec["restored_step"] = None if cursor is None else cursor.step
+    batch = text_batches(PAR_STEPS, TRAIN_BATCH, SLICE["seq_len"],
+                         SEED)[PAR_STEPS - 1]
+    loss = float(ParallelTrainer(net, mesh).fit_batch(batch))
+    want = torch.from_numpy(np.load(out / "zero1_last_params.npy")).cuda()
+    got = torch.cat([p.reshape(-1) for p in tree_leaves(net.params)])
+    diff = (got - want).abs()
+    rec["world1_next_loss"] = loss
+    rec["world2_next_loss"] = ranks[0]["zero1"]["losses"][-1]
+    rec["world1_next_within_gate"] = bool(
+        (diff <= TOL_PAR_ATOL + TOL_PAR_RTOL * want.abs()).all())
+    rec["world1_next_max_abs_diff"] = float(diff.max())
+    return rec
+
+
+def train_parallel(smi):
+    """The data-parallel trainers on the card (ROADMAP A6.1): world 1
+    over NCCL in this process (ParallelTrainer, DelayedSyncTrainer,
+    ParallelWrapper, FaultTolerantTrainer), then world 2 over gloo in two
+    processes on this one card (zero1 / zero2 bitwise the replicated
+    mode, the sharded state's bytes, a checkpoint restored at world 1).
+    Returns this process's launch counts on the path."""
+    from deeplearning4j_tpu_torch.parallel import MeshContext, multihost
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_parallel_"))
+    try:
+        check(multihost.initialize(f"file://{tmp}/rdv_world1", 1, 0)
+              == "nccl", "a world-1 group on the card runs nccl")
+        try:
+            mesh = MeshContext.create()
+            reset_counts()
+            w1 = par_world1(mesh)
+            ft = par_fault_tolerant(mesh, tmp)
+        finally:
+            multihost.shutdown()
+        w2 = par_world2(tmp)
+        launched = counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    L, W = SLICE["n_layers"], LSTM_SLICE["layers"]
+    n_win = LSTM_TRAIN_BATCH[1] // char_rnn_lstm(
+        **LSTM_SLICE).training.tbptt_fwd_length
+    emit(dict(phase="train_parallel", nvidia_smi=smi, world1=w1,
+              fault_tolerant=ft, world2=w2, main_path_launches=launched))
+    gpt_step = {k: L for k in ATTENTION_KERNELS}
+    gpt_step.update(lstm_fwd_train_kernel=0, lstm_bwd_kernel=0)
+    rnn_step = {k: 0 for k in ATTENTION_KERNELS}
+    rnn_step.update(lstm_fwd_train_kernel=n_win * W,
+                    lstm_bwd_kernel=n_win * W)
+    wrap_step = dict(rnn_step, lstm_fwd_train_kernel=2 * n_win * W,
+                     lstm_bwd_kernel=2 * n_win * W)
+    for name, want in (("gpt_step_trace", gpt_step),
+                       ("char_rnn_step_trace", rnn_step),
+                       ("wrapper_fit_batch_trace", wrap_step)):
+        got = {k: w1[name][k] for k in want}
+        check(got == want, f"{name}: {got} != {want}")
+    check(w1["backend"] == "nccl" and w1["world"] == 1,
+          f"world 1: {w1['backend']}, {w1['world']}")
+    check(w1["gpt_bitwise_plain"], "ParallelTrainer (world 1) is not the "
+          f"plain fit_batch bit for bit: {w1['losses']} vs "
+          f"{w1['losses_plain']}")
+    check(w1["delayed_k1_bitwise"], "DelayedSyncTrainer(k=1) is not "
+          "ParallelTrainer bit for bit")
+    check(w1["accum4_within_gate"], "accumulation 4 off the plain step by "
+          f"{w1['accum4_max_abs_diff']}")
+    check(w1["accum4_peak_excess_bytes"]
+          <= w1["quarter_step_peak_excess_bytes"]
+          + 1.5 * w1["gradient_bytes"],
+          f"accumulation 4 peaks at {w1['accum4_peak_excess_bytes']} bytes "
+          f"against {w1['quarter_step_peak_excess_bytes']} for one "
+          "microbatch's step: more than one accumulator")
+    check(w1["char_rnn_delayed_k1_bitwise"], "DelayedSyncTrainer(k=1) on "
+          "the char-RNN's tBPTT windows is not ParallelTrainer bit for bit")
+    check(w1["char_rnn_tbptt_bitwise_plain"], "the char-RNN's tBPTT "
+          "through ParallelTrainer is not its fit_batch bit for bit")
+    check(w1["wrapper_within_gate"] and w1["wrapper_replicas_equal"],
+          "ParallelWrapper against hand-run workers: "
+          f"{w1['wrapper_max_abs_diff']}")
+    check(ft["retries"] == 1 and ft["cut_raised"]
+          and ft["resumed_iterations"] == FT_BATCHES
+          and ft["resumed_bitwise"], f"fault-tolerant resume: {ft}")
+    check(ft["rollbacks"] == 1 and ft["rolled_finite"]
+          and ft["rolled_iterations"] == FT_BATCHES and
+          ft["restore_bitwise"], f"fault-tolerant rollback: {ft}")
+    r0, r1 = w2["ranks"]
+    for r in (r0, r1):
+        check(r["backend"] == "gloo", f"world 2 runs {r['backend']}")
+        for mode in ("zero1", "zero2"):
+            check(r[mode]["bitwise_off"], f"rank {r['rank']}: {mode} is "
+                  "not the replicated mode bit for bit")
+            check(r[mode]["state_bytes_rank"]
+                  <= 0.51 * r[mode]["state_bytes_replicated"],
+                  f"rank {r['rank']} {mode}: {r[mode]['state_bytes_rank']}"
+                  " updater bytes, not half")
+            freed = (r[mode]["allocated_before_sharding"]
+                     - r[mode]["allocated_after_sharding"])
+            check(freed >= 0.9 * (r[mode]["state_bytes_replicated"]
+                                  - r[mode]["state_bytes_rank"]),
+                  f"rank {r['rank']} {mode}: sharding freed {freed} bytes")
+        for mode in ("off", "zero1", "zero2"):
+            check(r[mode]["launches"]["flash_attn_fwd"] == PAR_STEPS * L,
+                  f"rank {r['rank']} {mode}: {r[mode]['launches']}")
+    for mode in ("off", "zero1", "zero2"):
+        check(r0[mode]["params_sha256"] == r1[mode]["params_sha256"]
+              and r0[mode]["losses"] == r1[mode]["losses"],
+              f"{mode}: the two ranks' params differ")
+    check(w2["restored_step"] == PAR_STEPS - 1
+          and w2["world1_next_within_gate"]
+          and abs(w2["world1_next_loss"] - w2["world2_next_loss"])
+          <= TOL_PAR_RTOL * abs(w2["world2_next_loss"]),
+          f"the world-1 restore's next step: {w2}")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4783,6 +5330,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build_libraries(list(KERNELS))
     build_s = time.perf_counter() - t0
+    emit(dict(phase="import_rule", **import_rule()))
     emit(dict(phase="device", nvidia_smi=smi,
               name=torch.cuda.get_device_name(0),
               torch=torch.__version__, cuda=torch.version.cuda,
@@ -4946,7 +5494,11 @@ def main() -> int:
     fleet = timed("serve_fleet", serve_fleet)
     fleet_launched = fleet["launched"]
 
-    # ---- 14. summary of every ported kernel -------------------------------
+    # ---- 14. the data-parallel trainers: world 1 over NCCL here, world 2
+    # over gloo in two processes on this card, sharded checkpoints ---------
+    par = timed("train_parallel", train_parallel, smi)
+
+    # ---- 15. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -4955,7 +5507,8 @@ def main() -> int:
              # captured launch replays with every batch of its bucket)
              launches=flash_launches + train_path["flash_attn_fwd"]
              + served["flash_attn_fwd"] + tf_gpt["flash_attn_fwd"]
-             + fleet_launched["flash_attn_fwd"],
+             + fleet_launched["flash_attn_fwd"] + par["flash_attn_fwd"],
+             launches_train_parallel=par["flash_attn_fwd"],
              launches_serve_fleet=fleet_launched["flash_attn_fwd"],
              replays_serve_fleet_traced_wave=fleet["traced"]["gpt"],
              launches_serve_fleet_traced_failover=fleet["reprefill_k4"],
@@ -5002,7 +5555,9 @@ def main() -> int:
         dict(name="flash_attn_dq", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_dq.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:152",
-             launches=train_path["flash_attn_dq"] + tf_gpt["flash_attn_dq"],
+             launches=train_path["flash_attn_dq"] + tf_gpt["flash_attn_dq"]
+             + par["flash_attn_dq"],
+             launches_train_parallel=par["flash_attn_dq"],
              launches_bf16_train_features=tf_gpt["flash_attn_dq"],
              ms_bf16=g16["ms_dq"], plain_ms_bf16=g16["plain_ms_dq"],
              bound_ms_bf16=g16["bound_ms_dq"],
@@ -5024,7 +5579,8 @@ def main() -> int:
              source="deeplearning4j_tpu_torch/csrc/flash_attn_dkv.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:192",
              launches=train_path["flash_attn_dkv"]
-             + tf_gpt["flash_attn_dkv"],
+             + tf_gpt["flash_attn_dkv"] + par["flash_attn_dkv"],
+             launches_train_parallel=par["flash_attn_dkv"],
              launches_bf16_train_features=tf_gpt["flash_attn_dkv"],
              ms_bf16=g16["ms_dkv"], plain_ms_bf16=g16["plain_ms_dkv"],
              bound_ms_bf16=g16["bound_ms_dkv"],
@@ -5049,7 +5605,9 @@ def main() -> int:
              source="deeplearning4j_tpu_torch/csrc/lstm_fwd_train.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:63",
              launches=lstm_train_path["lstm_fwd_train"]
-             + fitted["lstm_fwd_train"] + tf_lstm["lstm_fwd_train"],
+             + fitted["lstm_fwd_train"] + tf_lstm["lstm_fwd_train"]
+             + par["lstm_fwd_train"],
+             launches_train_parallel=par["lstm_fwd_train"],
              launches_bf16_train_features=tf_lstm["lstm_fwd_train"],
              ms_bf16=k23b["ms_fwd"], plain_ms_bf16=k23b["plain_ms_fwd"],
              bound_ms_bf16=k23b["bound_ms_fwd"],
@@ -5077,7 +5635,8 @@ def main() -> int:
              source="deeplearning4j_tpu_torch/csrc/lstm_bwd.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:161",
              launches=lstm_train_path["lstm_bwd"] + fitted["lstm_bwd"]
-             + tf_lstm["lstm_bwd"],
+             + tf_lstm["lstm_bwd"] + par["lstm_bwd"],
+             launches_train_parallel=par["lstm_bwd"],
              launches_bf16_train_features=tf_lstm["lstm_bwd"],
              ms_bf16=k23b["ms_bwd"], plain_ms_bf16=k23b["plain_ms_bwd"],
              bound_ms_bf16=k23b["bound_ms_bwd"],
@@ -5107,4 +5666,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        # one rank of train_parallel's world-2 group
+        sys.exit(par_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                          sys.argv[5]))
     sys.exit(main())

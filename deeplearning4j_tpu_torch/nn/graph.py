@@ -447,30 +447,8 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
                 solver_fit_batch,
             )
             return solver_fit_batch(self, data)
-        if self.conf.training.backprop_type == "truncated_bptt":
-            feats = ([data.features] if isinstance(data, DataSet)
-                     else list(data.features))
-            labels = ([data.labels] if isinstance(data, DataSet)
-                      else list(data.labels))
-            types = self.conf.input_types
-            has_rnn_input = any(f.ndim == 3 for f in feats)
-            # every label must be time-distributed, and every rank-3
-            # feature a time series by its declared InputType (a CNN
-            # input's [B, H, W, C] would be sliced on its height axis)
-            rnn_ok = all(
-                (types.get(n) is None and f.ndim == 3)
-                or (types.get(n) is not None
-                    and (types[n].kind == "rnn" or f.ndim != 3))
-                for n, f in zip(self.conf.network_inputs, feats)
-                if f.ndim >= 3)
-            if has_rnn_input and rnn_ok and all(y.ndim == 3 for y in labels):
-                return self._fit_tbptt(data)
-            if has_rnn_input:
-                raise ValueError(
-                    "truncated_bptt requires rank-3 (time-distributed) "
-                    "labels on every output and recurrent InputTypes for "
-                    "every rank-3 input; use backprop_type('standard') "
-                    "for sequence-to-one heads")
+        if self._tbptt_applies(data):
+            return self._fit_tbptt(data)
         # host-side span: the step's dispatch (see MultiLayerNetwork)
         with get_tracer().span("fit_batch", it=self.iteration_count + 1):
             loss, bad = self._train_batch(data)
@@ -482,6 +460,61 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
         return loss
 
     # ------------------------------------------------------------------ tBPTT
+    def _tbptt_applies(self, data: Union[DataSet, MultiDataSet]) -> bool:
+        """True when ``data`` trains by truncated BPTT: the config asks for
+        it, some input is a [B, T, F] series, every label is
+        time-distributed and every rank-3 input a time series by its
+        declared InputType. A series input that misses the rest raises."""
+        if self.conf.training.backprop_type != "truncated_bptt":
+            return False
+        feats = ([data.features] if isinstance(data, DataSet)
+                 else list(data.features))
+        labels = ([data.labels] if isinstance(data, DataSet)
+                  else list(data.labels))
+        types = self.conf.input_types
+        has_rnn_input = any(f.ndim == 3 for f in feats)
+        # every label must be time-distributed, and every rank-3
+        # feature a time series by its declared InputType (a CNN
+        # input's [B, H, W, C] would be sliced on its height axis)
+        rnn_ok = all(
+            (types.get(n) is None and f.ndim == 3)
+            or (types.get(n) is not None
+                and (types[n].kind == "rnn" or f.ndim != 3))
+            for n, f in zip(self.conf.network_inputs, feats)
+            if f.ndim >= 3)
+        if has_rnn_input and rnn_ok and all(y.ndim == 3 for y in labels):
+            return True
+        if has_rnn_input:
+            raise ValueError(
+                "truncated_bptt requires rank-3 (time-distributed) "
+                "labels on every output and recurrent InputTypes for "
+                "every rank-3 input; use backprop_type('standard') "
+                "for sequence-to-one heads")
+        return False
+
+    def _tbptt_windows(self, batch, start: int, end: int):
+        """Time steps [start, end) of ``_split``'s tuple (only the
+        recurrent inputs are sliced)."""
+        rnn = self._tbptt_rnn_inputs()
+        inputs, labels, masks, lmasks = batch
+        return (_time_slice(inputs, start, end, only=rnn),
+                _time_slice(labels, start, end),
+                _time_slice(masks, start, end, 2, rnn),
+                _time_slice(lmasks, start, end, 2))
+
+    def _tbptt_length(self, batch) -> int:
+        """The time length of ``_split``'s tuple (its recurrent inputs')."""
+        rnn = self._tbptt_rnn_inputs()
+        return next(v.shape[1] for n, v in batch[0].items() if n in rnn)
+
+    def _initial_carries(self, B: int, dtype):
+        """Zero carries for a tBPTT batch of ``B`` rows."""
+        return {name: self.conf.nodes[name].layer.initial_carry(
+                    B, dtype, self.device)
+                for name in self._layer_nodes
+                if getattr(self.conf.nodes[name].layer, "supports_carry",
+                           False)}
+
     def _tbptt_rnn_inputs(self) -> set:
         """Network inputs whose time axis tBPTT may slice: declared-rnn
         InputTypes, or untyped inputs (``fit_batch`` admits untyped inputs
@@ -541,25 +574,18 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
         fwd = training.tbptt_fwd_length
         inputs, labels, masks, lmasks = cast_batch(training,
                                                    self._split(data))
-        rnn = self._tbptt_rnn_inputs()
-        T = next(v.shape[1] for n, v in inputs.items() if n in rnn)
+        batch = (inputs, labels, masks, lmasks)
+        T = self._tbptt_length(batch)
         B = next(iter(inputs.values())).shape[0]
-        dt = compute_dtype(training, self.dtype)
-        carries = {name: self.conf.nodes[name].layer.initial_carry(
-                       B, dt, self.device)
-                   for name in self._layer_nodes
-                   if getattr(self.conf.nodes[name].layer, "supports_carry",
-                              False)}
+        carries = self._initial_carries(
+            B, compute_dtype(training, self.dtype))
         self.last_grads = None   # the tBPTT step collects no gradients
         total, windows = 0.0, 0
         for start in range(0, T, fwd):
             end = min(start + fwd, T)
             loss, (new_states, new_carries), grads = policy_value_and_grad(
                 lambda p: self._tbptt_loss(
-                    p, _time_slice(inputs, start, end, only=rnn),
-                    _time_slice(labels, start, end),
-                    _time_slice(masks, start, end, 2, rnn),
-                    _time_slice(lmasks, start, end, 2), carries),
+                    p, *self._tbptt_windows(batch, start, end), carries),
                 self.params, training)
             bad = self._step(grads, new_states, loss)
             carries = self._guard_tree(bad, carries, new_carries)

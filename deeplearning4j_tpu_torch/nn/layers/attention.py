@@ -158,8 +158,8 @@ class SelfAttentionLayer(BaseLayerConf):
     block_size: int = 512
     use_blockwise: bool = True
     # the JAX layer's ring-attention switch for a sequence-parallel
-    # scope; kept so configs carry across, inert until the parallel
-    # trainers bring that scope (ROADMAP A6)
+    # scope; kept so configs carry across, inert until sequence
+    # parallelism brings that scope (ROADMAP A6.2)
     sequence_parallel: bool = True
 
     @property

@@ -366,13 +366,7 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
                 solver_fit_batch,
             )
             return solver_fit_batch(self, dataset)
-        if (self.conf.training.backprop_type == "truncated_bptt"
-                and dataset.features.ndim == 3):
-            if dataset.labels.ndim != 3:
-                raise ValueError(
-                    "truncated_bptt requires rank-3 (time-distributed) "
-                    f"labels; got rank-{dataset.labels.ndim}. Use "
-                    "backprop_type('standard') for sequence-to-one heads.")
+        if self._tbptt_applies(dataset):
             return self._fit_tbptt(dataset)
         # host-side span: the step's dispatch, which is what hangs when a
         # kernel build or a transfer wedges
@@ -387,6 +381,34 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
         return loss
 
     # ------------------------------------------------------------------ tBPTT
+    def _tbptt_applies(self, dataset: DataSet) -> bool:
+        """True when ``dataset`` trains by truncated BPTT: the config asks
+        for it and the features are a [B, T, F] series (whose labels must
+        then be time-distributed too)."""
+        if (self.conf.training.backprop_type != "truncated_bptt"
+                or dataset.features.ndim != 3):
+            return False
+        if dataset.labels.ndim != 3:
+            raise ValueError(
+                "truncated_bptt requires rank-3 (time-distributed) "
+                f"labels; got rank-{dataset.labels.ndim}. Use "
+                "backprop_type('standard') for sequence-to-one heads.")
+        return True
+
+    def _tbptt_windows(self, batch, start: int, end: int):
+        """Time steps [start, end) of ``_batch``'s tuple."""
+        return tuple(_window(a, start, end) for a in batch)
+
+    def _tbptt_length(self, batch) -> int:
+        """The time length of ``_batch``'s tuple."""
+        return batch[0].shape[1]
+
+    def _initial_carries(self, B: int, dtype):
+        """Zero carries for a tBPTT batch of ``B`` rows."""
+        return [layer.initial_carry(B, dtype, self.device)
+                if getattr(layer, "supports_carry", False) else None
+                for layer in self.layers]
+
     def _tbptt_loss(self, params, feats, labels, fmask, lmask, carries):
         """One window's (score, (new states, new carries)). With
         ``tbptt_bwd_length`` < ``tbptt_fwd_length`` the reference's
@@ -436,10 +458,8 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
         feats, labels, fmask, lmask = cast_batch(training,
                                                  self._batch(dataset))
         B, T = feats.shape[:2]
-        dt = compute_dtype(training, self.dtype)
-        carries = [layer.initial_carry(B, dt, self.device)
-                   if getattr(layer, "supports_carry", False) else None
-                   for layer in self.layers]
+        carries = self._initial_carries(
+            B, compute_dtype(training, self.dtype))
         self.last_grads = None   # the tBPTT step collects no gradients
         total, windows = 0.0, 0
         for start in range(0, T, fwd):

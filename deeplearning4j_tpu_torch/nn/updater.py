@@ -42,8 +42,16 @@ value. Under a divergence sentinel it is an int32 device scalar instead
 must not advance it, and the host learns that only ``lag`` steps later,
 so the count, the learning-rate schedule and the bias corrections are
 then computed on the device and the guard restores the count in place
-with the params and moments. The ZeRO helpers wait for the parallel
-trainers (ROADMAP A6).
+with the params and moments.
+
+The ZeRO helpers (:class:`ZeroLayout`, :func:`shard_updater_state`,
+:func:`gather_updater_state`, :func:`compute_updates_sharded`) serve the
+parallel trainers' ``weight_update_sharding="zero1"/"zero2"``: each
+state leaf becomes this rank's row of its flattened, pad-to-divisible
+``(dp, chunk)`` view, and the update runs on those rows with the values
+:func:`compute_updates` computes on the whole tensors (every rule is
+elementwise; the clipping norms are sums of squares all-reduced over the
+rows).
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from __future__ import annotations
 import bisect
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -406,6 +414,21 @@ class Updater:
             return ["e_g", "e_x"]
         return [*self.SLOTS[self.name], "count"]
 
+    def optax_paths(self) -> List[str]:
+        """Each ``optax_layout`` entry's path in the JAX package's optax
+        state, as its sharded checkpoint keys them (``parallel/
+        checkpoint.py``'s ``_leaf_key``): the chain element, then the
+        state field. ``minimize=False`` chains ``scale(-1.0)`` in front,
+        so every path moves under element 1."""
+        if self.name in ("adam", "adamax"):
+            paths = ["0/.count", "0/.mu", "0/.nu", "1/.count"]
+        elif self.name == "adadelta":
+            paths = ["1/.e_g", "1/.e_x"]
+        else:
+            paths = [f"0/.{slot}" for slot in self.SLOTS[self.name]]
+            paths.append("1/.count")
+        return paths if self.minimize else ["1/" + p for p in paths]
+
     def optax_leaves(self, state: Dict) -> List[Tensor]:
         """``state`` as optax's leaves: each count an int32 scalar (a
         device count is copied to the host), each moment tree's tensors in
@@ -570,4 +593,198 @@ def compute_updates(tx: Updater, grads, opt_state, params, layers,
     updates = per_layer_lr_scale(updates, layers,
                                  training.updater.learning_rate)
     tree_map(lambda p, u: p.add_(u), params, updates)
+    return params, opt_state
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1/2 weight-update sharding (the parallel trainers' zero1 / zero2)
+# ---------------------------------------------------------------------------
+
+class ZeroLayout:
+    """Where each leaf of a params-shaped container lives in this rank's
+    row: leaf ``i`` (in ``tree_leaves`` order) is flattened, padded to
+    ``n * chunk_i`` and viewed as ``(n, chunk_i)`` (``parallel/mesh.
+    zero1_shard_leaf``); rank ``r`` owns row ``r`` of every leaf, and its
+    rows lie side by side in one ``row``-element buffer. A ``(n, row)``
+    packing of every rank's rows is what one reduce-scatter turns into
+    this rank's row, and one all-gather of the rows gives every leaf
+    back."""
+
+    def __init__(self, tree, n: int, rank: int):
+        from deeplearning4j_tpu_torch.parallel.mesh import zero1_chunk
+        self.n, self.rank = int(n), int(rank)
+        self.shapes = [tuple(t.shape) for t in tree_leaves(tree)]
+        self.sizes = [math.prod(s) for s in self.shapes]
+        self.chunks = [zero1_chunk(s, self.n) for s in self.sizes]
+        self.offsets = [sum(self.chunks[:i])
+                        for i in range(len(self.chunks))]
+        self.row = sum(self.chunks)
+
+    def pack(self, tree, out: Optional[Tensor] = None) -> Tensor:
+        """Every rank's rows of ``tree``: a ``(n, row)`` tensor (written
+        into ``out`` when given), the padding zeros."""
+        from deeplearning4j_tpu_torch.parallel.mesh import zero1_shard_leaf
+        parts = [zero1_shard_leaf(t, self.n) for t in tree_leaves(tree)]
+        if out is None:
+            return torch.cat(parts, dim=1)
+        return torch.cat(parts, dim=1, out=out)
+
+    def take_row(self, tree) -> Tensor:
+        """This rank's row of ``tree`` (a copy)."""
+        parts = []
+        for t, size, chunk in zip(tree_leaves(tree), self.sizes,
+                                  self.chunks):
+            lo = min(self.rank * chunk, size)
+            piece = t.reshape(-1)[lo:min(lo + chunk, size)]
+            if piece.numel() < chunk:
+                piece = torch.nn.functional.pad(
+                    piece, (0, chunk - piece.numel()))
+            parts.append(piece)
+        return torch.cat(parts)
+
+    def views(self, row: Tensor, like) -> Any:
+        """``like``'s structure with each leaf replaced by its ``[1,
+        chunk]`` view into ``row`` (writes land in ``row``)."""
+        index = {id(t): i for i, t in enumerate(tree_leaves(like))}
+
+        def view(t):
+            i = index[id(t)]
+            o, c = self.offsets[i], self.chunks[i]
+            return row[o:o + c].view(1, c)
+        return tree_map(view, like)
+
+    def whole_leaves(self, gathered: Tensor) -> List[Tensor]:
+        """Each leaf, whole, from the all-gathered rows (``n * row``
+        elements in rank order), the padding dropped."""
+        full = gathered.view(self.n, self.row)
+        return [full[:, o:o + c].reshape(-1)[:size].reshape(shape)
+                for o, c, size, shape in zip(self.offsets, self.chunks,
+                                             self.sizes, self.shapes)]
+
+    @torch.no_grad()
+    def unpack_into(self, gathered: Tensor, tree) -> None:
+        """Write the all-gathered rows into ``tree``'s leaves in place."""
+        for t, v in zip(tree_leaves(tree), self.whole_leaves(gathered)):
+            t.copy_(v)
+
+
+def _slots(opt_state: Dict) -> List[str]:
+    return [k for k in opt_state if k != "count"]
+
+
+def shard_updater_state(opt_state: Dict, mesh_ctx, axis=None):
+    """Re-lay an updater state into the ZeRO layout: every moment leaf
+    becomes this rank's ``[1, chunk]`` row of its flattened,
+    pad-to-divisible view (the count stays as it is; the accumulated
+    moments are kept). Returns ``(sharded_state, template)``: the template
+    (a :class:`ZeroLayout`, None for a state without moments) is what
+    :func:`gather_updater_state` needs to restore the whole tensors."""
+    slots = _slots(opt_state)
+    if not slots:
+        return dict(opt_state), None
+    layout = ZeroLayout(opt_state[slots[0]], mesh_ctx.zero1_shards(axis),
+                        mesh_ctx.rank)
+    out = {"count": opt_state["count"]}
+    for slot in slots:
+        out[slot] = layout.views(layout.take_row(opt_state[slot]),
+                                 opt_state[slot])
+    return out, layout
+
+
+def gather_updater_state(opt_state: Dict, template: Optional[ZeroLayout],
+                         mesh_ctx) -> Dict:
+    """Inverse of :func:`shard_updater_state`: every rank's rows
+    all-gathered (one collective per moment tree, so every rank calls it
+    together) and each leaf restored to its whole shape."""
+    if template is None:
+        return dict(opt_state)
+    out = {"count": opt_state["count"]}
+    for slot in _slots(opt_state):
+        row = torch.cat([v.reshape(-1)
+                         for v in tree_leaves(opt_state[slot])])
+        whole = iter(template.whole_leaves(mesh_ctx.all_gather(row)))
+        out[slot] = tree_map(lambda _t: next(whole), opt_state[slot])
+    return out
+
+
+_NORM_KINDS = ("renormalizel2perlayer", "clipl2perlayer",
+               "renormalizel2perparamtype", "clipl2perparamtype")
+
+
+def normalize_gradients_sharded(fgrads, training: TrainingConfig, mesh_ctx):
+    """:func:`normalize_gradients` on this rank's rows: the elementwise
+    clip as it is, and every norm the square root of a sum of squares
+    all-reduced over the ranks (one collective for all of them; the
+    padding adds zeros). Those sums run in another order than on the
+    whole tensors, so a norm-based kind agrees within rounding, not bit
+    for bit."""
+    kind = (training.gradient_normalization or "none").lower()
+    if kind not in _NORM_KINDS:
+        return normalize_gradients(fgrads, training)
+    t = training.gradient_normalization_threshold
+    per_layer = kind.endswith("perlayer")
+    if not per_layer:
+        groups = [[x] for x in tree_leaves(fgrads)]
+    elif isinstance(fgrads, list):
+        groups = [tree_leaves(g) for g in fgrads]
+    else:
+        groups = [tree_leaves(fgrads)]
+    zero = torch.zeros((), device=mesh_ctx.device)
+    sums = torch.stack([sum(((x * x).sum() for x in g), zero)
+                        for g in groups])
+    norms = torch.sqrt(mesh_ctx.all_reduce_(sums) + 1e-12)
+    if kind.startswith("renormalize"):
+        def apply(x, i):
+            return x / norms[i]
+    else:
+        scale = torch.where(norms > t, t / norms, 1.0)
+
+        def apply(x, i):
+            return x * scale[i]
+    if not per_layer:
+        index = {id(x): i for i, x in enumerate(tree_leaves(fgrads))}
+        return tree_map(lambda x: apply(x, index[id(x)]), fgrads)
+    if isinstance(fgrads, list):
+        return [tree_map(lambda x, i=i: apply(x, i), g)
+                for i, g in enumerate(fgrads)]
+    return tree_map(lambda x: apply(x, 0), fgrads)
+
+
+@torch.no_grad()
+def compute_updates_sharded(tx: Updater, fgrads, opt_state, params, layers,
+                            training: TrainingConfig, mesh_ctx,
+                            layout: ZeroLayout,
+                            bad: Optional[Tensor] = None):
+    """The ZeRO counterpart of :func:`compute_updates`. ``fgrads`` mirrors
+    the params with this rank's ``[1, chunk]`` rows of the reduced
+    gradient; ``opt_state``'s moments live in the same layout. The
+    pipeline (freeze-mask, normalization, update rule, per-layer lr
+    scale) runs on this rank's row of the params, and the updated rows
+    are all-gathered into ``params`` in place. Under a sentinel (``bad``,
+    the step's flag, the same on every rank) the row, the moments and the
+    count are guarded (``resilience/sentinel.guarded_in_place``) before
+    the gather, so a bad step gathers the old rows back. Returns
+    ``(params, opt_state)``."""
+    row = layout.take_row(params)
+    fparams = layout.views(row, params)
+
+    def update():
+        g = mask_frozen(fgrads, layers)
+        g = normalize_gradients_sharded(g, training, mesh_ctx)
+        updates = tx.update(g, opt_state)
+        updates = per_layer_lr_scale(updates, layers,
+                                     training.updater.learning_rate)
+        tree_map(lambda p, u: p.add_(u), fparams, updates)
+
+    if bad is None:
+        update()
+    else:
+        from deeplearning4j_tpu_torch.resilience.sentinel import (
+            guarded_in_place,
+        )
+        written = [row, opt_state["count"]] + [
+            t for slot in _slots(opt_state)
+            for t in tree_leaves(opt_state[slot])]
+        guarded_in_place(bad, written, update)
+    layout.unpack_into(mesh_ctx.all_gather(row), params)
     return params, opt_state

@@ -20,9 +20,10 @@ ones an MFU hunt on a chip actually needs:
 - ``listener``    TrainingListener callbacks
 - ``checkpoint``  saver/serializer work recorded by whoever performs it
 
-The parallel trainers that record these phases themselves wait for
-ROADMAP A6; until then a training loop wraps its iterator in
-``timed_iter`` and its steps in ``phase("step")``, and reads
+``ParallelTrainer(collect_training_stats=True)`` records ``shard``,
+``step``, ``listener`` and ``data_wait`` itself (``parallel/trainer.py``,
+synchronizing the card each step); any other training loop wraps its
+iterator in ``timed_iter`` and its steps in ``phase("step")``, and reads
 ``export()`` afterwards.
 """
 

@@ -1,7 +1,7 @@
 """Crash-safe file primitives: atomic write + checksums (the JAX
 package's ``resilience/atomic.py``: it imports no JAX, and the port keeps
-its own copy of the parts a path here uses — ``crc32_file`` and
-``atomic_path(unique=True)`` come with their first caller).
+its own copy of the parts a path here uses — ``atomic_path(unique=True)``
+comes with its first caller).
 
 ``replace_bytes`` is the light form for records that are rewritten
 sub-second or superseded by the next write (the elastic lease, join
@@ -48,6 +48,18 @@ class CheckpointError(IOError):
 
 def crc32_bytes(data: bytes) -> int:
     return zlib.crc32(data) & 0xFFFFFFFF
+
+
+def crc32_file(path: Union[str, Path], chunk: int = 1 << 20) -> int:
+    """A file's CRC-32, read in ``chunk``-byte pieces."""
+    acc = 0
+    with open(path, "rb") as f:
+        while True:
+            buf = f.read(chunk)
+            if not buf:
+                break
+            acc = zlib.crc32(buf, acc)
+    return acc & 0xFFFFFFFF
 
 
 def fsync_dir(path: Union[str, Path]) -> None:

@@ -1,8 +1,8 @@
 """Elastic membership: the lease and heartbeat half of the JAX package's
 ``resilience/elastic.py`` (its ``:140-441``), which the serving fleet
 (``keras/fleet.py``) runs on. ``ElasticTrainer``, the preemption-tolerant
-multi-host trainer of the other half, waits for the parallel trainers
-(ROADMAP A6).
+multi-host trainer of the other half, wraps the data-parallel trainers
+(``parallel/``) and waits for ROADMAP A6.3.
 
 **Coordination is an epoch-numbered, lease-based rendezvous over a
 shared directory.** The files are the JAX package's, name for name and
@@ -307,10 +307,12 @@ def read_heartbeats(directory: Union[str, Path]
 
 
 class ElasticTrainer:
-    """The preemption-tolerant multi-host trainer: waits for the
-    parallel trainers it wraps (ROADMAP A6)."""
+    """The preemption-tolerant multi-host trainer over the data-parallel
+    trainers: waits for ROADMAP A6.3 (with ``multihost``'s elastic
+    runtime)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "ElasticTrainer wraps the data-parallel trainers, which are not "
-            "ported yet (ROADMAP A6)")
+            "ElasticTrainer (host-loss detection, resize and reshard "
+            "restore over the parallel trainers) is not ported yet "
+            "(ROADMAP A6.3)")

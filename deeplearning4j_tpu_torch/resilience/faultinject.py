@@ -2,13 +2,17 @@
 ``resilience/faultinject.py``: the schedule, the hooks of the generation
 engine, of a checkpoint's commit, of the Keras gateway and its predict
 batching, the replica kinds a gateway consults, and the ``nan`` kind of
-a training loop, ``poison_batch``), and the fleet's overload kinds
-(``flap_replica``, ``load_spike``). The trainers' ``raise`` kind, the
-broker, input-pipeline and elastic kinds wait for the paths they test
-(ROADMAP A6, A7).
+a training loop, ``poison_batch``, and the fault-tolerant trainer's
+``raise``), and the fleet's overload kinds (``flap_replica``,
+``load_spike``). The broker, input-pipeline and elastic kinds wait for
+the paths they test (ROADMAP A6.3, A7).
 
-Training fault kind:
+Training fault kinds:
 
+- ``raise``            — ``check_raise(step)`` raises ``FaultInjected`` (a
+  transient host failure: a preemption, a flaky RPC) just before the
+  scheduled training ``step`` dispatches; the FaultTolerantTrainer's
+  bounded-backoff retry must absorb it.
 - ``nan``              — ``poison_batch(batch, step)`` returns a copy of
   the batch whose first feature is NaN at the scheduled ``step``; the
   divergence sentinel's guard must keep the update from landing.
@@ -106,11 +110,15 @@ from deeplearning4j_tpu_torch.profiling.flightrec import (
 from deeplearning4j_tpu_torch.profiling.metrics import get_registry
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
-_KINDS = ("nan", "poison_decode", "evict_cache", "evict_page",
+_KINDS = ("raise", "nan", "poison_decode", "evict_cache", "evict_page",
           "corrupt_page_table", "truncate_checkpoint", "hang_backend",
           "burst", "poison_row", "slow_batch", "kill_replica",
           "partition_replica", "slow_replica", "flap_replica",
           "load_spike")
+
+
+class FaultInjected(RuntimeError):
+    """A scheduled transient fault (retryable by FaultTolerantTrainer)."""
 
 
 class KilledByFault(RuntimeError):
@@ -124,8 +132,9 @@ class Fault:
     """One scheduled fault. ``at_call`` arms it at the Nth request
     (``poison_decode``, ``poison_row``, the replica kinds), dispatch
     (``hang_backend``, ``slow_batch``), commit or decode iteration (the
-    others), 1-based; ``step`` is the poisoned request's decode step (or
-    a mid-stream ``kill_replica``'s token); ``rank`` the target row's age
+    others), 1-based; ``step`` is the training step of ``raise`` and
+    ``nan``, the poisoned request's decode step (or a mid-stream
+    ``kill_replica``'s token); ``rank`` the target row's age
     rank (``evict_page``, ``corrupt_page_table``; -1 = the oldest) or the
     target replica; ``mode`` how a ``truncate_checkpoint`` tears its
     commit (``"crash"`` or ``"torn"``); ``duration`` the stall of
@@ -218,6 +227,18 @@ def _fire(fault: Fault, **args) -> None:
         help="faults injected by the chaos harness").inc()
     get_tracer().instant("fault_injected", kind=fault.kind, **args)
     flight_record("faultinject", "fired", fault=fault.kind, **args)
+
+
+def check_raise(step: int) -> None:
+    """Raise a scheduled transient fault for this training step."""
+    with _lock:
+        if _schedule is None:
+            return
+        for f in _schedule.pending():
+            if f.kind == "raise" and f.step == step:
+                _fire(f, step=step)
+                raise FaultInjected(f"injected transient fault at step "
+                                    f"{step}")
 
 
 def poison_batch(batch, step: int):
@@ -448,7 +469,7 @@ def heartbeat_suppressed(rank: Optional[int] = None) -> bool:
     """True while a ``partition_replica`` window for ``rank`` is open:
     the replica's heartbeat write is silently dropped while it keeps
     serving. (The JAX package's host-wide ``partition_host`` window
-    waits for the elastic trainer, ROADMAP A6.)"""
+    waits for the elastic trainer, ROADMAP A6.3.)"""
     if rank is None:
         return False
     with _lock:

@@ -12,7 +12,12 @@ and the old params, optimizer state and layer states selected when it is
 set, with ``torch.where`` on the device. The port's update runs in place,
 so :func:`guarded_in_place` keeps a copy of the tensors the update writes
 and writes the old values back where the flag is set: no host read, and a
-non-finite update never lands, whatever the host policy.
+non-finite update never lands, whatever the host policy. Under the
+data-parallel trainers (``parallel/``) the flag is read from the
+all-reduced loss and gradient (under ZeRO the all-reduced sum of squares
+over the ranks' gradient rows; the wrapper's per-worker flags are
+all-reduced with MAX), so every rank skips the same step, and the guard
+covers this rank's rows of the params and moments.
 
 **On the host** (:class:`DivergenceSentinel`): the step hands over its
 flag. Reading it at once would make the host wait for the step, so the
@@ -24,7 +29,7 @@ step has long finished. Policies:
 - ``skip_batch`` - count it (the guard already skipped the update) and
   keep training;
 - ``rollback``   - raise :class:`RollbackRequested` for a fault-tolerant
-  trainer to reload its last checkpoint (ROADMAP A6).
+  trainer (``resilience/trainer.py``) to reload its last checkpoint.
 
 ``lag=0`` reads each flag at once (tests).
 """

@@ -1557,6 +1557,55 @@ def test_guarded_step_runs_without_a_host_sync(card):
     assert all(torch.equal(a, b) for a, b in zip(before, written()))
 
 
+def test_parallel_trainers_at_world_1_over_nccl(card, tmp_path):
+    """A world-1 NCCL group on the card (``multihost.initialize`` with
+    ``device=None``): ``ParallelTrainer`` on ``gpt_tiny`` and on a tBPTT
+    char-RNN equals each net's own ``fit_batch`` bit for bit, as does
+    ``DelayedSyncTrainer(sync_frequency=1)``; ``ParallelWrapper``'s
+    replicas average to one net; the group is gone after ``shutdown``."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import (
+        DelayedSyncTrainer, MeshContext, ParallelTrainer, ParallelWrapper,
+        multihost,
+    )
+    rng = np.random.default_rng(5)
+    eye = np.eye(16, dtype=np.float32)
+    tok = rng.integers(0, 16, (4, 17))
+    ds = DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]])
+    assert multihost.initialize(f"file://{tmp_path}/rdv", 1, 0) == "nccl"
+    try:
+        mesh = MeshContext.create()
+        assert mesh.distributed and mesh.device.type == "cuda"
+        for build in (lambda: ComputationGraph(gpt_tiny(16, 16),
+                                               device=card).init(),
+                      lambda: MultiLayerNetwork(char_rnn_lstm(
+                          16, hidden=16, layers=2, tbptt_length=5),
+                          device=card).init()):
+            plain, par, dly = build(), build(), build()
+            tp = ParallelTrainer(par, mesh)
+            td = DelayedSyncTrainer(dly, mesh, sync_frequency=1)
+            for _ in range(2):
+                want = float(plain.fit_batch(ds))
+                assert float(tp.fit_batch(ds)) == want
+                td.fit_batch(ds)
+            ref = plain.params_flat().tobytes()
+            assert par.params_flat().tobytes() == ref
+            if isinstance(dly, ComputationGraph):
+                assert dly.params_flat().tobytes() == ref
+        net = MultiLayerNetwork(char_rnn_lstm(16, hidden=16, layers=2,
+                                              tbptt_length=5),
+                                device=card).init()
+        pw = ParallelWrapper(net, workers=2, mesh=mesh)
+        pw.fit_batch(ds)
+        assert pw.replica(0).params_flat().tobytes() == \
+            pw.replica(1).params_flat().tobytes() == \
+            net.params_flat().tobytes()
+    finally:
+        multihost.shutdown()
+    assert not dist.is_initialized()
+
+
 # --------------------------------------------------------------- imports
 # (no card needed: this runs wherever the file does)
 
@@ -1593,7 +1642,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "eval/regression.py", "optimize/listeners.py",
                    "optimize/training_stats.py", "optimize/solvers.py",
                    "keras/fleet.py", "keras/autoscale.py",
-                   "resilience/elastic.py"):
+                   "resilience/elastic.py", "parallel/mesh.py",
+                   "parallel/multihost.py", "parallel/trainer.py",
+                   "parallel/wrapper.py", "parallel/delayed.py",
+                   "parallel/strategy.py", "parallel/checkpoint.py",
+                   "resilience/manager.py", "resilience/trainer.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     banned = ("jax", "jaxlib", "deeplearning4j_tpu")
     bad = [(str(f.relative_to(ROOT)), m) for f in files

@@ -164,7 +164,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "profiling/watchdog.py", "keras/batching.py",
                    "keras/server.py", "datasets/iris.py",
                    "keras/fleet.py", "keras/autoscale.py",
-                   "resilience/elastic.py"):
+                   "resilience/elastic.py", "parallel/__init__.py",
+                   "parallel/mesh.py", "parallel/multihost.py",
+                   "parallel/trainer.py", "parallel/wrapper.py",
+                   "parallel/delayed.py", "parallel/strategy.py",
+                   "parallel/checkpoint.py", "resilience/manager.py",
+                   "resilience/trainer.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     banned = ("jax", "jaxlib", "deeplearning4j_tpu")
     bad = [(str(f.relative_to(ROOT)), m) for f in files
