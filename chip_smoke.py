@@ -238,7 +238,18 @@ Phases, each printing JSON lines:
    updater state half the replicated bytes (and freed), ms a step, and
    ms of each collective alone on a gradient-sized buffer; their
    zero1 checkpoint restored at world 1, its next step within 2e-4 /
-   2e-5 of theirs;
+   2e-5 of theirs. Then the same two processes join an elastic group
+   (ROADMAP A6.3) and train the GPT under ``ElasticTrainer`` (zero1, a
+   checkpoint every 2 steps, 5 steps); ``kill_host`` ends rank 1 at step
+   3: rank 0 decides the loss from its heartbeats, elects itself, resizes
+   in process to world 1, reshard-restores the zero1 checkpoint and
+   consumes the unconsumed tail once, its losses and params bit for bit
+   a clean world-1 restart from the same checkpoints (here, uncounted);
+   the lease reads epoch 1, coordinator 0, world [0]; the seconds from
+   the kill to the resume, the heartbeat window among them, and the
+   restore; the survivor's K4-K6 launches join the path's. The
+   ``device_profile`` windows of every phase open with the same pad
+   burst as ``traced_kernels``', taken out of their numbers;
 15. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
 16. last line ``{"ok": true, "device": {...}}``.
@@ -610,47 +621,104 @@ def host_ms(fn, iters=5, warmup=1) -> float:
     return float(np.median(times))
 
 
+#: the pad's tensor and its launches per kernel name (``pad_counts``)
+_PAD = {}
+
+
+def trace_pad():
+    """TRACE_PAD small kernels on an int16 tensor that no path of the port
+    touches: the burst that opens a profile window (the tracer sometimes
+    drops a window's first kernels). The tensor is allocated once, by
+    ``pad_counts``, outside every window: a window holds the adds alone."""
+    pad = _PAD["tensor"]
+    for _ in range(TRACE_PAD):
+        pad.add_(1)
+
+
+def pad_counts() -> dict:
+    """The pad's launches per kernel name, from a trace of the pad alone,
+    taken once (``main`` takes it first, while nothing else runs on the
+    card). A trace that holds other than TRACE_PAD launches is taken
+    again, three times in all."""
+    from torch.profiler import ProfilerActivity, profile
+    if not _PAD:
+        _PAD["tensor"] = torch.zeros(1, dtype=torch.int16, device="cuda")
+        trace_pad()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                trace_pad()
+                torch.cuda.synchronize()
+            counts = {e.key: e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA}
+            if sum(counts.values()) == TRACE_PAD:
+                break
+        check(sum(counts.values()) == TRACE_PAD,
+              f"a trace of the pad alone holds {counts}")
+        _PAD["counts"] = counts
+    return _PAD["counts"]
+
+
+def traced_window(fn):
+    """One torch.profiler trace of ``fn`` (every thread's kernels on the
+    card), its window opened with ``trace_pad``'s burst: (``fn``'s
+    result, its wall time in us, [(kernel name, launches, device us)]),
+    each name's launches less the pad's count of it and its time cut in
+    proportion."""
+    from torch.profiler import ProfilerActivity, profile
+    pad = pad_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trace_pad()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n = e.count - pad.get(e.key, 0)
+        if n > 0:
+            kernels.append((e.key, n, e.self_device_time_total * n
+                            / e.count))
+    return result, wall_us, kernels
+
+
 def device_profile(fn, expect, top=6, groups=None):
     """One traced run of ``fn`` under torch.profiler: the wall time, the
     summed time of the CUDA kernels, their share of the wall time (the
     card's busy share; the trace itself slows the host, so it reads
     low), the kernel count and the kernels that took the most time.
-    ``expect`` maps a kernel's name to the launches ``fn`` makes of it;
-    a trace that holds another count (the tracer sometimes drops a
-    window's first kernels) is taken again, three times in all, and the
-    run fails if none holds them. ``groups`` maps a name to kernel-name
-    substrings (lower case); each group's share of the kernel time is
-    returned."""
-    from torch.profiler import ProfilerActivity, profile
+    The trace is a ``traced_window``: the pad that opens it is taken out
+    of every number here. ``expect`` maps a kernel's name to the launches ``fn`` makes
+    of it; a trace that holds another count is taken again, three times
+    in all, and the run fails if none holds them. ``groups`` maps a name
+    to kernel-name substrings (lower case); each group's share of the
+    kernel time is returned."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, 4):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        traced = {name: sum(e.count for e in kernels if name in e.key)
+        _, wall_us, kernels = traced_window(fn)
+        traced = {name: sum(n for k, n, _ in kernels if name in k)
                   for name in expect}
         if traced == expect:
             break
     check(traced == expect, f"the trace holds {traced} launches of the "
                             f"path's kernels, not {expect}")
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    shares = {g: sum(e.self_device_time_total for e in kernels
-                     if any(n in e.key.lower() for n in names)) / busy_us
+    busy_us = sum(us for _, _, us in kernels)
+    kernels.sort(key=lambda k: -k[2])
+    shares = {g: sum(us for k, _, us in kernels
+                     if any(n in k.lower() for n in names)) / busy_us
               for g, names in (groups or {}).items()}
     return dict(wall_ms=wall_us / 1e3, kernel_ms=busy_us / 1e3,
                 kernel_shares=shares,
                 busy_share=busy_us / wall_us, traced_path_kernels=traced,
                 attempts=attempt,
-                kernel_launches=sum(e.count for e in kernels),
-                top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
-                     for e in kernels[:top]])
+                kernel_launches=sum(n for _, n, _ in kernels),
+                top=[(k[:60], n, us / 1e3) for k, n, us in kernels[:top]])
 
 
 def attention_bound_ms(B, H, T, D, dtype, causal, mask, n_tensors,
@@ -3378,25 +3446,19 @@ TOL_EVAL = 1e-4
 def kernel_dtypes(fn, names, expect_total):
     """One traced call of ``fn``: for each kernel name, its launches per
     instantiated input type, read from the kernels' symbols in the trace
-    (``flash_fwd_kernel<__nv_bfloat16, 64, false>``). A trace that misses
-    launches (the tracer sometimes drops a window's first kernels) is
-    taken again, three times in all."""
-    from torch.profiler import ProfilerActivity, profile
+    (``flash_fwd_kernel<__nv_bfloat16, 64, false>``), in a
+    ``traced_window``. A trace that misses launches is taken again,
+    three times in all."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        _, _, kernels = traced_window(fn)
         out = {n: {"bfloat16": 0, "float32": 0} for n in names}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
+        for key, count, _ in kernels:
             for n in names:
-                if n in e.key:
-                    dt = "bfloat16" if "bfloat16" in e.key else "float32"
-                    out[n][dt] += e.count
+                if n in key:
+                    dt = "bfloat16" if "bfloat16" in key else "float32"
+                    out[n][dt] += count
         if sum(sum(v.values()) for v in out.values()) == expect_total:
             break
     return out
@@ -4073,23 +4135,12 @@ def batches_by_model(reps, rows) -> dict:
 
 
 def traced_kernels(fn, names):
-    """One torch.profiler trace of ``fn`` (every thread's kernels on the
-    card): the launches of each kernel-name substring, and of all
-    kernels under ``"all"``. The window opens with a burst of small
-    kernels: the tracer sometimes drops a window's first kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    pad = torch.zeros(1, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_PAD):
-            pad.add_(1.0)
-        torch.cuda.synchronize()
-        result = fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    found = {n: sum(e.count for e in kernels if n in e.key) for n in names}
-    found["all"] = sum(e.count for e in kernels)
+    """One ``traced_window`` of ``fn``: the launches of each kernel-name
+    substring, and of all its kernels (the pad's taken out) under
+    ``"all"``."""
+    result, _, kernels = traced_window(fn)
+    found = {n: sum(c for k, c, _ in kernels if n in k) for n in names}
+    found["all"] = sum(c for _, c, _ in kernels)
     return result, found
 
 
@@ -4849,6 +4900,10 @@ PAR_KERNELS = ATTENTION_KERNELS + ("lstm_fwd_train_kernel",
                                    "lstm_bwd_kernel")
 #: the fault-tolerant runs: batches of the GPT, a checkpoint every 2 steps
 FT_BATCHES, FT_EVERY = 4, 2
+#: the elastic case (ROADMAP A6.3): the GPT under zero1 on two gloo ranks,
+#: kill_host on rank 1 at step ELASTIC_KILL of ELASTIC_STEPS, a checkpoint
+#: every ELASTIC_EVERY steps, a heartbeat stale after ELASTIC_HB_S
+ELASTIC_STEPS, ELASTIC_KILL, ELASTIC_EVERY, ELASTIC_HB_S = 5, 3, 2, 2.0
 
 
 def text_batches(n, B, T, seed):
@@ -5074,7 +5129,8 @@ def par_rank(rank, world, init, out):
     bytes before and after sharding; ms a step; zero1 saves a sharded
     checkpoint after its second step, and rank 0 keeps the third step's
     loss and params for the world-1 restore. Writes its record to
-    ``<out>/rank<r>.json``."""
+    ``<out>/rank<r>.json``, then runs the elastic case in the same
+    process (``par_elastic_rank``: rank 1 ends there, killed)."""
     from deeplearning4j_tpu_torch.parallel import (
         MeshContext, ParallelTrainer, multihost,
     )
@@ -5135,7 +5191,149 @@ def par_rank(rank, world, init, out):
     finally:
         multihost.shutdown()
     (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    del ref
+    return par_elastic_rank(rank, world, init, out / "elastic")
+
+
+def elastic_trainer(ckpt):
+    """The elastic case's trainer over ``ckpt`` (the full-width GPT, zero1
+    asked for: replicated at world 1)."""
+    from deeplearning4j_tpu_torch.resilience import ElasticTrainer
+    return ElasticTrainer(par_gpt, ckpt, weight_update_sharding="zero1",
+                          checkpoint_every=ELASTIC_EVERY, keep_last=10,
+                          step_timeout_s=120.0, heartbeat_interval_s=0.2,
+                          heartbeat_timeout_s=ELASTIC_HB_S,
+                          commit_timeout_s=120.0)
+
+
+def elastic_batches():
+    return text_batches(ELASTIC_STEPS, TRAIN_BATCH, SLICE["seq_len"],
+                        SEED + 3)
+
+
+def flat_params(net) -> np.ndarray:
+    return torch.cat([p.reshape(-1) for p in
+                      tree_leaves(net.params)]).cpu().numpy()
+
+
+def par_elastic_rank(rank, world, init, out):
+    """One rank of the elastic case, after the world-2 modes in the same
+    process: an elastic gloo group on this card (its store is the file
+    ``<init>.rdv0``, not the plain group's), the GPT through
+    ElasticTrainer, rank 1 killed by ``kill_host`` at step ELASTIC_KILL
+    (it stamps the time first). The survivor writes its trajectory,
+    counters, launches, params and the times of the kill's detection, of
+    its resume and of its checkpoint restores."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.resilience import (
+        CheckpointManager, ElasticTrainer,
+    )
+    out = Path(out)
+    out.mkdir(exist_ok=True)
+    multihost.initialize(init, world, rank, backend="gloo", elastic=True,
+                         timeout_s=120.0)
+    marks, restores = {}, []
+    if rank == 1:
+        kill = faultinject.check_kill
+
+        def stamped(step):
+            if step == ELASTIC_KILL:
+                (out / "kill_time").write_text(repr(time.time()))
+            kill(step)
+        faultinject.check_kill = stamped
+        faultinject.set_schedule(FaultSchedule([Fault("kill_host",
+                                                      step=ELASTIC_KILL)]))
+    restore = CheckpointManager.restore
+
+    def timed_restore(self, *args, **kw):
+        t0 = time.perf_counter()
+        cursor = restore(self, *args, **kw)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+        return cursor
+    CheckpointManager.restore = timed_restore
+    lost = ElasticTrainer._on_hosts_lost
+
+    def on_lost(self, verdict):
+        marks["detected"] = time.time()
+        lost(self, verdict)
+        marks["resumed"] = time.time()
+    ElasticTrainer._on_hosts_lost = on_lost
+    reset_counts()
+    trainer = elastic_trainer(out / "ckpt")
+    try:
+        trainer.fit(elastic_batches(), epochs=1)
+    finally:
+        trainer.close()
+    np.save(out / f"elastic_params_r{rank}.npy", flat_params(trainer.net))
+    reg = get_registry()
+    rec = dict(rank=rank, trajectory=trainer.trajectory, world=trainer.world,
+               dp=trainer.dp_width, launches=counts(), marks=marks,
+               restore_s=restores,
+               cursor_step=None if trainer._cursor is None
+               else trainer._cursor.step,
+               runtime_faults=multihost.runtime_fault_count(),
+               quarantined=multihost.group_quarantined(),
+               topology=trainer.manager.topology(),
+               metrics=dict(reg.snapshot("elastic_"),
+                            **reg.snapshot("resilience_host")))
+    multihost.shutdown()
+    (out / f"elastic_r{rank}.json").write_text(json.dumps(rec))
     return 0
+
+
+def par_elastic(tmp):
+    """The elastic case's verdict, after the world-2 group ended: rank 1
+    died at step ELASTIC_KILL and rank 0 resized to world 1 and resumed.
+    Then, uncounted, a clean world-1 ElasticTrainer restart from the
+    checkpoints the survivor resumed from: its losses and params against
+    the survivor's, bit for bit. Returns the record and the survivor's
+    launches."""
+    from deeplearning4j_tpu_torch.resilience import read_lease
+    out = tmp / "world2" / "elastic"
+    surv = json.loads((out / "elastic_r0.json").read_text())
+    cut = surv["cursor_step"]
+    check(cut is not None and 0 < cut < ELASTIC_KILL,
+          f"the survivor resumed from step {cut}")
+    ref = tmp / "elastic_clean"
+    shutil.copytree(out / "ckpt", ref,
+                    ignore=shutil.ignore_patterns("heartbeats"))
+    for d in ref.glob("ckpt-*"):
+        if int(d.name.split("-")[1]) > cut:
+            shutil.rmtree(d)
+
+    def clean_restart():
+        trainer = elastic_trainer(ref)
+        try:
+            trainer.fit(elastic_batches(), epochs=1)
+        finally:
+            trainer.close()
+        return trainer
+    clean = uncounted(clean_restart)
+    from deeplearning4j_tpu_torch.parallel import multihost
+    multihost.set_rendezvous_epoch(0)
+    tail = [e["loss"] for e in surv["trajectory"] if e["step"] > cut]
+    lease = read_lease(out / "ckpt" / "heartbeats")
+    kill_t = float((out / "kill_time").read_text())
+    rec = dict(
+        resumed_from_step=cut,
+        consumed=[e["index"] for e in surv["trajectory"]],
+        world=surv["world"], dp=surv["dp"], metrics=surv["metrics"],
+        runtime_faults=surv["runtime_faults"],
+        quarantined=surv["quarantined"], topology=surv["topology"],
+        lease={k: lease[k] for k in ("epoch", "coordinator", "world")},
+        tail_losses=tail,
+        clean_losses=[e["loss"] for e in clean.trajectory],
+        tail_bitwise=tail == [e["loss"] for e in clean.trajectory],
+        params_bitwise=np.load(out / "elastic_params_r0.npy").tobytes()
+        == flat_params(clean.net).tobytes(),
+        kill_to_detect_s=surv["marks"]["detected"] - kill_t,
+        kill_to_resume_s=surv["marks"]["resumed"] - kill_t,
+        heartbeat_window_s=ELASTIC_HB_S,
+        restore_s=surv["restore_s"][-1],
+        survivor_launches=surv["launches"])
+    del clean
+    return rec
 
 
 def par_collective_ms(mesh, net) -> dict:
@@ -5162,8 +5360,9 @@ def par_collective_ms(mesh, net) -> dict:
 
 
 def par_world2(tmp):
-    """The world-2 group: two processes of this script on this card; the
-    world-1 restore of their zero1 checkpoint, and its next step against
+    """The world-2 group: two processes of this script on this card (the
+    elastic case after it: rank 1 ends by its fault); the world-1
+    restore of their zero1 checkpoint, and its next step against
     theirs."""
     from deeplearning4j_tpu_torch.parallel import (
         MeshContext, ParallelTrainer,
@@ -5188,9 +5387,12 @@ def par_world2(tmp):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    # rank 1 ends in the elastic case, by its kill_host fault
     for r, p in enumerate(procs):
-        check(p.returncode == 0,
-              f"world-2 rank {r} exited {p.returncode}: {logs[r][-3000:]}")
+        want = faultinject.KILL_HOST_EXIT_CODE if r == 1 else 0
+        check(p.returncode == want,
+              f"world-2 rank {r} exited {p.returncode}, not {want}: "
+              f"{logs[r][-3000:]}")
     ranks = [json.loads((out / f"rank{r}.json").read_text())
              for r in range(PAR_WORLD)]
     rec = dict(group_seconds=time.perf_counter() - t0, ranks=ranks)
@@ -5221,8 +5423,11 @@ def train_parallel(smi):
     over NCCL in this process (ParallelTrainer, DelayedSyncTrainer,
     ParallelWrapper, FaultTolerantTrainer), then world 2 over gloo in two
     processes on this one card (zero1 / zero2 bitwise the replicated
-    mode, the sharded state's bytes, a checkpoint restored at world 1).
-    Returns this process's launch counts on the path."""
+    mode, the sharded state's bytes, a checkpoint restored at world 1),
+    then the elastic case in those processes (ROADMAP A6.3: a kill, a
+    resize to world 1, a resume bit for bit a clean restart). Returns
+    the path's launch counts: this process's and the elastic
+    survivor's."""
     from deeplearning4j_tpu_torch.parallel import MeshContext, multihost
     tmp = Path(tempfile.mkdtemp(prefix="dl4j_parallel_"))
     try:
@@ -5236,7 +5441,11 @@ def train_parallel(smi):
         finally:
             multihost.shutdown()
         w2 = par_world2(tmp)
+        el = par_elastic(tmp)
         launched = counts()
+        # the survivor's launches (its own process): the elastic run's
+        for k, n in el.pop("survivor_launches").items():
+            launched[k] += n
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     L, W = SLICE["n_layers"], LSTM_SLICE["layers"]
@@ -5244,6 +5453,15 @@ def train_parallel(smi):
         **LSTM_SLICE).training.tbptt_fwd_length
     emit(dict(phase="train_parallel", nvidia_smi=smi, world1=w1,
               fault_tolerant=ft, world2=w2, main_path_launches=launched))
+    emit(dict(phase="train_parallel_elastic", nvidia_smi=smi,
+              kill_to_resume_s=el["kill_to_resume_s"],
+              kill_to_detect_s=el["kill_to_detect_s"],
+              heartbeat_window_s=el["heartbeat_window_s"],
+              restore_s=el["restore_s"],
+              elastic_resizes_total=el["metrics"]["elastic_resizes_total"],
+              **{k: v for k, v in el.items() if k not in (
+                  "kill_to_resume_s", "kill_to_detect_s",
+                  "heartbeat_window_s", "restore_s")}))
     gpt_step = {k: L for k in ATTENTION_KERNELS}
     gpt_step.update(lstm_fwd_train_kernel=0, lstm_bwd_kernel=0)
     rnn_step = {k: 0 for k in ATTENTION_KERNELS}
@@ -5306,6 +5524,27 @@ def train_parallel(smi):
         check(r0[mode]["params_sha256"] == r1[mode]["params_sha256"]
               and r0[mode]["losses"] == r1[mode]["losses"],
               f"{mode}: the two ranks' params differ")
+    m = el["metrics"]
+    check(m["elastic_resizes_total"] == 1
+          and m["elastic_elections_total"] == 1
+          and m["resilience_host_failures_total"] == 1
+          and m["elastic_reshard_restores_total"] == 1
+          and el["world"] == [0] and el["dp"] == 1 and el["quarantined"],
+          f"the elastic survivor did not resize to world 1: {el}")
+    check(el["consumed"] == list(range(ELASTIC_STEPS)),
+          f"the elastic run consumed {el['consumed']}, not each batch once")
+    check(el["lease"] == {"epoch": 1, "coordinator": 0, "world": [0]},
+          f"the lease after the kill: {el['lease']}")
+    check(el["topology"]["rendezvous_epoch"] == 1
+          and el["topology"]["dp"] == 1, f"topology {el['topology']}")
+    check(el["tail_bitwise"] and el["params_bitwise"],
+          "the survivor's tail is not a clean world-1 restart bit for bit: "
+          f"{el['tail_losses']} vs {el['clean_losses']}")
+    # the verdict waits for the victim's heartbeat to go stale: its last
+    # beat (up to one 0.2 s interval before the kill) plus the window
+    check(el["kill_to_detect_s"] >= ELASTIC_HB_S - 0.5,
+          f"the loss was decided {el['kill_to_detect_s']} s after the "
+          f"kill, inside the {ELASTIC_HB_S} s heartbeat window")
     check(w2["restored_step"] == PAR_STEPS - 1
           and w2["world1_next_within_gate"]
           and abs(w2["world1_next_loss"] - w2["world2_next_loss"])
@@ -5327,6 +5566,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    pad_counts()
     t0 = time.perf_counter()
     build_libraries(list(KERNELS))
     build_s = time.perf_counter() - t0

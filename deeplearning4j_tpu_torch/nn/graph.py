@@ -56,9 +56,9 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.shape import TimeDistributedLayer
 from deeplearning4j_tpu_torch.nn.multilayer import _sum_aux_losses
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    SGD_ALGOS, EvalMixin, NetCommonMixin, ScanFitMixin, cast_batch,
-    check_trainable, compute_dtype, flat_params, policy_value_and_grad,
-    remat_call, set_flat_params,
+    SGD_ALGOS, EvalMixin, NetCommonMixin, ScanFitMixin, batch_sum_kwargs,
+    cast_batch, check_trainable, compute_dtype, flat_params,
+    policy_value_and_grad, remat_call, set_flat_params,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer, l1_l2_penalty,
@@ -215,6 +215,7 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
         new_carries: Dict[str, Any] = {}
         output_set = set(self.conf.network_outputs)
         remat = train and self.conf.training.remat
+        batch_sum_for = batch_sum_kwargs(self._batch_sum)
         for name in self.conf.topological_order:
             node = self.conf.nodes[name]
             if node.kind == "input":
@@ -266,7 +267,7 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
             else:
                 def apply_fn(r, pp, hh, s_in, m, _l=layer, _t=layer_train):
                     return _l.apply(pp, hh, state=s_in, train=_t, rng=r,
-                                    mask=m)
+                                    mask=m, **batch_sum_for(_l))
                 acts[name], s = (remat_call(apply_fn, rng, p, h, s, in_mask)
                                  if remat else apply_fn(rng, p, h, s,
                                                         in_mask))

@@ -65,6 +65,11 @@ class BaseLayerConf:
     # filled by the builder:
     n_in: Optional[int] = None
 
+    #: True where ``apply`` takes ``batch_sum``: the sum over the ranks a
+    #: training batch norm takes its statistics through, which the
+    #: containers hand it from the net (``netcommon.global_batch_stats``)
+    takes_batch_sum = False
+
     @classmethod
     def type_tag(cls) -> str:
         return cls.__name__

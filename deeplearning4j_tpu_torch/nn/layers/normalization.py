@@ -4,6 +4,15 @@ batch norm, DL4J's local response normalization and layer norm.
 Batch norm's running statistics are layer *state*, returned anew by
 ``apply`` and threaded through the container, as in the JAX package; they
 are f32 whatever the net's dtype.
+
+A data-parallel step over several ranks (``parallel.ParallelTrainer``)
+runs its loss under ``netcommon.global_batch_stats``: the net's container
+then hands each training batch norm the sum over the ranks (the mesh's
+differentiable all-reduce, ``batch_sum``), and the layer takes its
+statistics over the whole global batch, as the JAX package's one SPMD
+step does. The sum belongs to the net, not to the module: the layer
+holds no process group, and a net built afresh (an elastic survivor's)
+never sees another mesh's sum.
 """
 
 from __future__ import annotations
@@ -34,7 +43,10 @@ class BatchNormalization(BaseLayerConf):
     The normalization is ``torch.native_batch_norm`` over a channels-first
     view (one fused pass; it also returns the batch mean and 1 /
     sqrt(var + eps), from which the new state is computed): PyTorch's
-    running-buffer update would use the unbiased variance, in place."""
+    running-buffer update would use the unbiased variance, in place.
+    Given ``batch_sum`` (the sum over the ranks, differentiable) the
+    training statistics are the global batch's: ``E[x]`` and ``E[x^2] -
+    E[x]^2`` over the summed counts."""
     decay: float = 0.9
     eps: float = 1e-5
     is_minibatch: bool = True
@@ -43,6 +55,9 @@ class BatchNormalization(BaseLayerConf):
     beta: float = 0.0
     # filled by builder:
     n_features: int = 0
+
+    #: the containers hand ``apply`` the net's ``batch_sum``
+    takes_batch_sum = True
 
     def set_n_in(self, in_type: InputType) -> None:
         self.n_in = in_type.flat_size()
@@ -67,7 +82,8 @@ class BatchNormalization(BaseLayerConf):
         return {"mean": torch.zeros((self.n_features,)),
                 "var": torch.ones((self.n_features,))}
 
-    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None,
+              batch_sum=None):
         acc = torch.promote_types(x.dtype, torch.float32)
         if self.lock_gamma_beta:
             gamma = torch.full((self.n_features,), self.gamma, dtype=acc,
@@ -76,6 +92,16 @@ class BatchNormalization(BaseLayerConf):
         else:
             gamma, beta = params["gamma"].to(acc), params["beta"].to(acc)
         xc = x.movedim(-1, 1)   # a view: channels first, as torch wants
+        if train and self.is_minibatch and batch_sum is not None:
+            out, mean, var = self._global_batch_norm(x, gamma, beta, acc,
+                                                     batch_sum)
+            new_state = {
+                "mean": self.decay * state["mean"]
+                + (1 - self.decay) * mean.detach(),
+                "var": self.decay * state["var"]
+                + (1 - self.decay) * var.detach(),
+            }
+            return out, new_state
         if train and self.is_minibatch:
             out, mean, invstd = torch.native_batch_norm(
                 xc, gamma, beta, None, None, True, 0.0, self.eps)
@@ -91,6 +117,22 @@ class BatchNormalization(BaseLayerConf):
                 self.eps)
             new_state = state
         return out.movedim(1, -1), new_state
+
+    def _global_batch_norm(self, x, gamma, beta, acc, batch_sum):
+        """(output, global mean, global population variance): one sum over
+        the ranks of [sum, sum of squares, count] per channel."""
+        xs = x.to(acc)
+        rows = tuple(range(x.ndim - 1))
+        C = x.shape[-1]
+        count = torch.full((1,), float(xs.numel() // C), dtype=acc,
+                           device=x.device)
+        tot = batch_sum(torch.cat([xs.sum(rows), (xs * xs).sum(rows),
+                                    count]))
+        n = tot[2 * C]
+        mean = tot[:C] / n
+        var = (tot[C:2 * C] / n - mean * mean).clamp_min(0.0)
+        out = (xs - mean) * torch.rsqrt(var + self.eps) * gamma + beta
+        return out.to(x.dtype), mean, var
 
 
 @register_layer

@@ -150,11 +150,17 @@ class TimeDistributedLayer(BaseLayerConf):
     def init_state(self):
         return self.inner.init_state()
 
-    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+    @property
+    def takes_batch_sum(self) -> bool:
+        return self.inner.takes_batch_sum
+
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None,
+              **batch_sum):
         B, T = x.shape[0], x.shape[1]
         flat = x.reshape((B * T,) + tuple(x.shape[2:]))
         out, new_state = self.inner.apply(params, flat, state=state,
-                                          train=train, rng=rng, mask=None)
+                                          train=train, rng=rng, mask=None,
+                                          **batch_sum)
         out = out.reshape((B, T) + tuple(out.shape[1:]))
         if mask is not None:
             out = out * mask[..., None]

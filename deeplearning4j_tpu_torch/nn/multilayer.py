@@ -54,9 +54,9 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.core import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    SGD_ALGOS, EvalMixin, NetCommonMixin, ScanFitMixin, cast_batch,
-    check_trainable, compute_dtype, flat_params, policy_value_and_grad,
-    remat_call, set_flat_params,
+    SGD_ALGOS, EvalMixin, NetCommonMixin, ScanFitMixin, batch_sum_kwargs,
+    cast_batch, check_trainable, compute_dtype, flat_params,
+    policy_value_and_grad, remat_call, set_flat_params,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer, l1_l2_penalty,
@@ -164,6 +164,7 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
         h = x
         last = len(self.layers) - 1
         remat = train and self.conf.training.remat
+        batch_sum_for = batch_sum_kwargs(self._batch_sum)
         for i, layer in enumerate(self.layers):
             if i in self.conf.preprocessors:
                 it = in_types[i] if in_types else None
@@ -193,7 +194,7 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
             else:
                 def apply_fn(r, p, hh, s_in, m, _l=layer, _t=layer_train):
                     return _l.apply(p, hh, state=s_in, train=_t, rng=r,
-                                    mask=m)
+                                    mask=m, **batch_sum_for(_l))
                 h, s = (remat_call(apply_fn, rng, params[i], h, s, cur_mask)
                         if remat else apply_fn(rng, params[i], h, s,
                                                cur_mask))

@@ -9,8 +9,11 @@ listeners, the divergence sentinel's guarded update, ``fit(scan_window >
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import struct
 import time
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -153,6 +156,57 @@ def remat_call(fn: Callable, rng, *args):
     return out
 
 
+def stream_seed(net, index: int, step: int) -> int:
+    """A 63-bit seed derived from the net's dropout stream (its
+    generator's state), a stream index (a rank, or a global worker) and a
+    step: the data-parallel trainers' per-rank streams. Every rank can
+    compute every other rank's, so the checkpoint cursor records them."""
+    h = hashlib.blake2b(net._rng.get_state().numpy().tobytes(),
+                        digest_size=8)
+    h.update(struct.pack("<qq", int(index), int(step)))
+    return int.from_bytes(h.digest(), "little") >> 1
+
+
+@contextlib.contextmanager
+def derived_stream(net, index: int, gen: torch.Generator) -> Iterator:
+    """Within the block the net draws its dropout masks from ``gen``,
+    seeded with ``stream_seed(net, index, net.iteration_count)``; the
+    net's own generator is left as it was."""
+    gen.manual_seed(stream_seed(net, index, net.iteration_count))
+    own, net._rng = net._rng, gen
+    try:
+        yield
+    finally:
+        net._rng = own
+
+
+@contextlib.contextmanager
+def global_batch_stats(net, sum_over_ranks: Callable) -> Iterator:
+    """Within the block a training batch norm of ``net`` normalizes by the
+    mean and variance of the global batch: the net's containers hand each
+    one ``sum_over_ranks`` (differentiable), through which it sums its
+    rows' per-channel sum, sum of squares and count. The sum is the net's
+    own: a net built afresh never inherits it, even while a thread
+    abandoned inside this block (an elastic step stuck on a dead peer)
+    never leaves it."""
+    saved, net._batch_sum = net._batch_sum, sum_over_ranks
+    try:
+        yield
+    finally:
+        net._batch_sum = saved
+
+
+def batch_sum_kwargs(batch_sum: Callable) -> Callable:
+    """``layer -> {"batch_sum": batch_sum}`` for a layer that takes it
+    (``{}`` for the rest, and for every layer without a sum). A
+    container's forward binds the net's sum once, so remat's recompute
+    inside the backward hands the layer the same one."""
+    def kwargs(layer) -> dict:
+        return ({"batch_sum": batch_sum}
+                if batch_sum is not None and layer.takes_batch_sum else {})
+    return kwargs
+
+
 def detach(tree):
     """A container of tensors (None leaves kept) cut from autograd."""
     return tree_map(lambda t: None if t is None else t.detach(), tree)
@@ -168,6 +222,9 @@ class NetCommonMixin:
 
     _sentinel = None
     _collect_grads = False
+    #: the sum over the ranks a training batch norm takes its statistics
+    #: through (``global_batch_stats``); None: this rank's rows alone
+    _batch_sum = None
     last_grads = None
     last_input = None
     last_scan_window = None

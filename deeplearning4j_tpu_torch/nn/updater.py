@@ -707,6 +707,41 @@ def gather_updater_state(opt_state: Dict, template: Optional[ZeroLayout],
     return out
 
 
+def updater_state_template(opt_state: Dict) -> Optional[ZeroLayout]:
+    """The layout record of an updater state in the replicated (whole
+    tensor) layout: a one-row :class:`ZeroLayout` of its moments' shapes,
+    what :func:`reshard_updater_state` needs to read whole moments (a
+    checkpoint un-padded by ``restore_sharded_into(reshard_zero1=True)``).
+    None for a state without moments."""
+    slots = _slots(opt_state)
+    if not slots:
+        return None
+    return ZeroLayout(opt_state[slots[0]], 1, 0)
+
+
+def reshard_updater_state(opt_state: Dict, template: Optional[ZeroLayout],
+                          mesh_ctx, axis=None):
+    """Re-lay an updater state laid out by ``template`` onto ``mesh_ctx``'s
+    width, with no collective: each moment leaf is a whole ``(template.n,
+    chunk)`` view (every rank's rows, as a sharded checkpoint holds them;
+    a one-row template reads whole tensors), un-padded to its shape and
+    re-flattened to this rank's ``[1, chunk']`` row of ``(dp_new,
+    chunk')``. Returns ``(sharded_state, new_template)`` as
+    :func:`shard_updater_state` does. Exact: the un-padded values are
+    bitwise those a :func:`gather_updater_state` would give, and the new
+    padding is zeros the row's update never reads."""
+    if template is None:
+        return dict(opt_state), None
+    from deeplearning4j_tpu_torch.parallel.mesh import zero1_unshard_leaf
+    whole = {"count": opt_state["count"]}
+    for slot in _slots(opt_state):
+        shape = {id(t): s for t, s in zip(tree_leaves(opt_state[slot]),
+                                          template.shapes)}
+        whole[slot] = tree_map(lambda t: zero1_unshard_leaf(t, shape[id(t)]),
+                               opt_state[slot])
+    return shard_updater_state(whole, mesh_ctx, axis)
+
+
 _NORM_KINDS = ("renormalizel2perlayer", "clipl2perlayer",
                "renormalizel2perparamtype", "clipl2perparamtype")
 

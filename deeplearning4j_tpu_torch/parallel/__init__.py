@@ -11,9 +11,11 @@ Spark tier's parameter averaging) map onto:
 - ``DelayedSyncTrainer`` — local accumulation, one all-reduce every k;
 
 with ``strategy.create_trainer`` over them, ``multihost`` to join the
-group, and ``checkpoint``'s sharded format. Tensor, sequence, pipeline
-and expert parallelism wait for ROADMAP A6.2; the elastic trainer for
-A6.3.
+group (its elastic half too: ``initialize(..., elastic=True)``,
+``serve_coordination``, the topology override), and ``checkpoint``'s
+sharded format. ``resilience.ElasticTrainer`` runs ``ParallelTrainer``
+through host losses. Tensor, sequence, pipeline and expert parallelism
+wait for ROADMAP A6.2.
 """
 
 from deeplearning4j_tpu_torch.nn.updater import PrecisionPolicy  # noqa: F401

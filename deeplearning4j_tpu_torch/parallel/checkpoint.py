@@ -110,8 +110,8 @@ def _full_index(shape) -> list:
 
 def _world() -> Tuple[int, int]:
     from deeplearning4j_tpu_torch.parallel import multihost
-    return (multihost.process_index(),
-            multihost.process_count())
+    return (multihost.effective_process_index(),
+            multihost.effective_process_count())
 
 
 def save_sharded(ckpt_dir: Union[str, Path], pytree: Any, mesh_ctx=None,

@@ -15,6 +15,12 @@ rank's rows carrying their recurrent state between windows, as
 ``ParallelTrainer`` and the net's own ``fit_batch`` step it: so
 ``sync_frequency`` counts windows, and at 1 this trainer is
 ``ParallelTrainer``. The JAX trainer steps the whole sequence (ROADMAP C).
+
+Each rank is a vmapped worker of the JAX trainer: its batch norm keeps
+its rows' statistics (the states are averaged every step), and at world
+> 1 it draws its dropout masks from a stream of its own, derived from
+the net's stream, its rank and the step (``netcommon.derived_stream``;
+the JAX trainer splits a key per worker).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
     AsyncDataSetIterator, DataSetIterator,
 )
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    check_trainable, detach, value_and_grad,
+    check_trainable, derived_stream, detach, value_and_grad,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     compute_updates, tree_leaves,
@@ -58,12 +64,22 @@ class DelayedSyncTrainer:
         net.states = self.mesh.shard_params(net.states)
         self._gbuf: Optional[torch.Tensor] = None   # flat, this rank's sum
         self._since_sync = 0
+        self._stream = None
+        if self.mesh.world > 1:
+            self._stream = torch.Generator(device=net.device)
+            net._rank_streams = self.mesh.world
 
     def fit_batch(self, batch) -> torch.Tensor:
         """One local gradient on this rank's rows (one a time window under
         tBPTT); an update every ``sync_frequency`` of them. Returns the
         loss, averaged over the workers (under tBPTT the mean of the
         windows'), as a device scalar."""
+        if self._stream is None:
+            return self._fit_batch(batch)
+        with derived_stream(self.net, self.mesh.rank, self._stream):
+            return self._fit_batch(batch)
+
+    def _fit_batch(self, batch) -> torch.Tensor:
         net = self.net
         check_trainable(net.conf.training)
         rows = self.mesh.local_rows(batch)

@@ -6,9 +6,16 @@ lets XLA insert the collectives. The port runs one process per rank: a
 ``MeshContext``'s ``data`` axis is the world of a ``torch.distributed``
 process group, and this module is the one place that issues its
 collectives (``all_reduce``, ``reduce_scatter_tensor``,
-``all_gather_into_tensor``, ``broadcast``). With no process group
+``all_gather_into_tensor``, ``broadcast``, and the differentiable sum
+batch norm takes its global statistics with). With no process group
 initialized the mesh is world 1 and issues no collective at all; a group
 of world 1 (NCCL on one card) issues them, and each is an identity.
+``create`` reads the surviving world (``multihost.
+effective_process_count``): after an elastic sole-survivor resize it is
+world 1 with no group, though the dead group still exists, and a
+collective on that quarantined group raises at once. A collective that
+fails in elastic mode is counted (``multihost.runtime_fault_count``)
+before its error goes on.
 
 Tensor and sequence parallelism (``n_model > 1``, ``n_seq > 1``) are not
 ported (ROADMAP A6.2).
@@ -142,10 +149,58 @@ def zero1_unshard_leaf(y: Tensor, shape: Tuple[int, ...]) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def _group_world(group) -> Tuple[int, int, bool]:
-    """(world, rank, a group is initialized)."""
+    """(world, rank, the mesh reduces through a group): the surviving
+    world when an elastic resize installed one (a sole survivor has no
+    group to reduce through; more survivors re-form in a restart), else
+    the group's."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+    override = multihost.topology_override()
+    if override is not None:
+        if override[0] != 1:
+            raise ValueError(
+                f"a resized world of {override[0]} processes re-forms "
+                "through a restart (ElasticRestartRequired), not in "
+                "process")
+        return 1, 0, False
     if not dist.is_available() or not dist.is_initialized():
         return 1, 0, False
     return dist.get_world_size(group), dist.get_rank(group), True
+
+
+def _collective(fn, *args, **kwargs):
+    """Run one ``torch.distributed`` collective; a failure in elastic mode
+    is counted before it goes on. None is issued once an elastic resize
+    quarantined the group: that raises at once, where the collective
+    would wait on a dead peer for the group's timeout."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+    if multihost.group_quarantined():
+        raise RuntimeError(
+            "the process group was quarantined by an elastic resize: no "
+            "collective runs on it again")
+    try:
+        return fn(*args, **kwargs)
+    except Exception as e:
+        multihost.note_runtime_fault(e)
+        raise
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """``t`` summed over the group, differentiable: the gradient of every
+    rank's loss with respect to the sum reaches each rank's ``t`` through
+    the same all-reduce in the backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        _collective(dist.all_reduce, out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        _collective(dist.all_reduce, grad, group=ctx.group)
+        return grad, None
 
 
 @dataclass
@@ -251,10 +306,17 @@ class MeshContext:
         """``t`` reduced over the data axis, in place (``op``: "sum" or
         "max")."""
         if self.distributed:
-            dist.all_reduce(t, op=(dist.ReduceOp.MAX if op == "max"
-                                   else dist.ReduceOp.SUM),
-                            group=self.group)
+            _collective(dist.all_reduce, t,
+                        op=(dist.ReduceOp.MAX if op == "max"
+                            else dist.ReduceOp.SUM), group=self.group)
         return t
+
+    def sum_over_ranks(self, t: Tensor) -> Tensor:
+        """``t`` summed over the data axis, differentiably (the backward
+        all-reduces the gradient); ``t`` itself without a group."""
+        if not self.distributed:
+            return t
+        return _SumOverRanks.apply(t, self.group)
 
     def reduce_scatter(self, flat: Tensor) -> Tensor:
         """The sum over the data axis of ``flat`` (``world * n``
@@ -263,7 +325,7 @@ class MeshContext:
         if not self.distributed:
             return flat.clone()
         out = torch.empty(n, dtype=flat.dtype, device=flat.device)
-        _REDUCE_SCATTER(out, flat, group=self.group)
+        _collective(_REDUCE_SCATTER, out, flat, group=self.group)
         return out
 
     def all_gather(self, row: Tensor) -> Tensor:
@@ -272,15 +334,16 @@ class MeshContext:
             return row.clone()
         out = torch.empty(row.numel() * self.world, dtype=row.dtype,
                           device=row.device)
-        _ALL_GATHER(out, row.contiguous(), group=self.group)
+        _collective(_ALL_GATHER, out, row.contiguous(), group=self.group)
         return out
 
     def broadcast_(self, t: Tensor, src: int = 0) -> Tensor:
         """``t`` from rank ``src`` on every rank, in place."""
         if self.distributed:
-            dist.broadcast(t, src=dist.get_global_rank(self.group, src)
-                           if self.group is not None else src,
-                           group=self.group)
+            _collective(dist.broadcast, t,
+                        src=dist.get_global_rank(self.group, src)
+                        if self.group is not None else src,
+                        group=self.group)
         return t
 
     def any_flag(self, flag: Tensor) -> Tensor:

@@ -32,6 +32,19 @@ microbatch keeping its carries; the JAX trainer instead takes one update
 over the whole sequence (it calls the net's ``_loss_fn``), so the two
 agree where a batch is one window (ROADMAP C).
 
+At world > 1 the step is the JAX package's one SPMD step over the global
+batch in two more ways. Batch norm takes its statistics over the global
+batch (the loss runs under ``netcommon.global_batch_stats`` with the
+mesh's differentiable sum), so its running states come out equal on
+every rank and are not averaged after the step. And each rank draws its
+dropout masks from a stream of its own, derived from the net's stream,
+its rank and the step (``netcommon.derived_stream``): no two ranks draw
+the same mask for their rows, and the net's own generator, which the
+checkpoint cursor records with the derived seeds, stays as it was, so a
+resumed run draws what the uninterrupted one would. The JAX masks are
+bits of a JAX PRNG: the port holds their structure, not their bits. At
+world 1 the step is the net's own ``fit_batch`` bit for bit.
+
 ``precision`` (a ``PrecisionPolicy``, a preset name like ``"bf16"``, or
 None for the net's own) casts the params and float features to the
 compute dtype at the step boundary, with f32 gradients, loss and masters
@@ -51,6 +64,7 @@ compiled program (``analysis/shardcheck``) and are not ported.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional, Union
 
@@ -62,7 +76,8 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
     AsyncDataSetIterator, DataSetIterator,
 )
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    ScanFitMixin, check_trainable, detach, emit_scan_burst, value_and_grad,
+    ScanFitMixin, check_trainable, derived_stream, emit_scan_burst,
+    global_batch_stats, value_and_grad,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     PrecisionPolicy, Updater, ZeroLayout, cast_floats, compute_updates,
@@ -148,6 +163,11 @@ class ParallelTrainer:
         self._layers = layers_of(net)
         net.params = self.mesh.shard_params(net.params)
         net.states = self.mesh.shard_params(net.states)
+        self._stream = None
+        if self.mesh.world > 1:
+            # this rank's dropout stream; the cursor records every rank's
+            self._stream = torch.Generator(device=net.device)
+            net._rank_streams = self.mesh.world
         self._sharded = False
         self._opt_template = None
         self._layout: Optional[ZeroLayout] = None
@@ -299,11 +319,10 @@ class ParallelTrainer:
         return loss, self._apply(acc, loss)
 
     def _settle_states(self, bad, new_states) -> None:
-        """The step's layer states, their floats averaged over the ranks,
-        guarded under a sentinel."""
-        new_states = detach(new_states)
-        if self.mesh.world > 1:
-            self.mesh.mean_(tree_leaves(new_states))
+        """The step's layer states, guarded under a sentinel. They need no
+        average over the ranks: the only layer state, batch norm's running
+        statistics, is taken over the global batch, equal on every
+        rank."""
         self.net.states = self.net._guard_tree(bad, self.net.states,
                                                new_states)
 
@@ -363,6 +382,17 @@ class ParallelTrainer:
     def _tbptt(self, batch) -> bool:
         return self.net._tbptt_applies(batch)
 
+    @contextlib.contextmanager
+    def _rank_step(self):
+        """At world > 1: batch norm over the global batch, dropout from
+        this rank's stream. At world 1: the net's own step."""
+        if self._stream is None:
+            yield
+            return
+        with global_batch_stats(self.net, self.mesh.sum_over_ranks), \
+                derived_stream(self.net, self.mesh.rank, self._stream):
+            yield
+
     # -------------------------------------------------------------------- fit
     def _train(self, batch):
         """Shard ``batch`` and run its step (no bookkeeping). Returns
@@ -382,7 +412,7 @@ class ParallelTrainer:
             if stats:
                 self._sync()
                 stats.record("shard", time.perf_counter() - t0)
-        with tracer.span("step"):
+        with tracer.span("step"), self._rank_step():
             t0 = time.perf_counter()
             if tbptt:
                 loss, bad = self._tbptt_step(micro), None

@@ -15,6 +15,12 @@ trains alone); an average is a local sum over the rank's replicas, one
 all-reduce of the sums and a division by ``workers``. ``workers`` must
 divide by the world. The replicas are ``replica(w)`` (a global worker
 index this rank owns), as the JAX tests read ``_stacked_params[...][w]``.
+With more than one worker each replica draws its dropout masks from a
+stream of its own, reseeded every parallel iteration from the net's
+stream, its global worker index and the step (``netcommon.stream_seed``;
+the JAX wrapper splits a key per worker): no two workers draw the same
+mask, and the net's generator, which a checkpoint's cursor records, is
+left as it was.
 
 ``weight_update_sharding="zero1"/"zero2"`` is the JAX wrapper's
 placement: each device holds only its own workers' replicas and updater
@@ -37,6 +43,7 @@ from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterator import (
     AsyncDataSetIterator, DataSetIterator, ListDataSetIterator,
 )
+from deeplearning4j_tpu_torch.nn.netcommon import stream_seed
 from deeplearning4j_tpu_torch.nn.updater import (
     PrecisionPolicy, tree_leaves, tree_map,
 )
@@ -112,6 +119,7 @@ class ParallelWrapper:
         self._local = self.workers // world
         self._first = self.mesh.rank * self._local
         self._replicas = [self._twin(net) for _ in range(self._local)]
+        net._rank_streams = self.workers if self.workers > 1 else None
         self._iter_since_avg = 0
         self._collector: Optional[_FlagCollector] = None
 
@@ -181,6 +189,10 @@ class ParallelWrapper:
         net = self.net
         self._attach_sentinels()
         with get_tracer().span("parallel_iteration", workers=self.workers):
+            if self.workers > 1:
+                for j, r in enumerate(self._replicas):
+                    r._rng.manual_seed(stream_seed(
+                        net, self._first + j, net.iteration_count))
             losses = [r.fit_batch(batches[self._first + j])
                       for j, r in enumerate(self._replicas)]
             self._iter_since_avg += 1

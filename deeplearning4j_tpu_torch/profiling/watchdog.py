@@ -3,7 +3,8 @@ heartbeat-fed daemon that turns a silent hang into a diagnostic bundle
 on disk.
 
 Subsystems call ``beat("serving_decode")`` at their liveness seams (the
-decode loop's dispatch, the gateway's admission); ``heartbeat_ages()``
+decode loop's dispatch, the gateway's admission, ``"elastic"`` before an
+elastic training step's barrier); ``heartbeat_ages()``
 reads how long ago each beat last fired. A ``StallWatchdog`` watches
 named heartbeats against per-subsystem deadlines; when one goes stale it
 writes a **diagnostic bundle** — every thread's Python stack

@@ -4,20 +4,21 @@ sentinel, ``CheckpointManager`` and ``TrainingCursor`` (``manager``), the
 ``FaultTolerantTrainer`` (``trainer``: resume, retry, rollback), the
 serving edge's kit (``service``: structured errors, deadlines, circuit
 breakers, admission and drain), the fault-injection hooks of the
-trainers, the gateway, the fleet, the generation engine and a
-checkpoint's commit, and the lease and heartbeat half of ``elastic``
-that the serving fleet runs on. ``ElasticTrainer`` waits for ROADMAP
-A6.3."""
+trainers, the elastic trainer's hosts, the gateway, the fleet, the
+generation engine and a checkpoint's commit, and ``elastic``: the lease
+and heartbeat records the serving fleet runs on and ``ElasticTrainer``,
+the preemption-tolerant trainer over the data-parallel trainers."""
 
 from deeplearning4j_tpu_torch.resilience.atomic import (  # noqa: F401
     CheckpointError, atomic_write_bytes, crc32_bytes, crc32_file,
 )
 from deeplearning4j_tpu_torch.resilience.elastic import (  # noqa: F401
-    ElasticError, ElasticRestartRequired, ElasticTrainer, HostHeartbeat,
-    read_heartbeat_ages,
+    ElasticError, ElasticFenced, ElasticRestartRequired, ElasticTrainer,
+    HostHeartbeat, read_heartbeat_ages, read_lease, request_join,
+    write_lease,
 )
 from deeplearning4j_tpu_torch.resilience.faultinject import (  # noqa: F401
-    Fault, FaultInjected, FaultSchedule, KilledByFault,
+    KILL_HOST_EXIT_CODE, Fault, FaultInjected, FaultSchedule, KilledByFault,
 )
 from deeplearning4j_tpu_torch.resilience.manager import (  # noqa: F401
     CheckpointInfo, CheckpointManager, TrainingCursor,

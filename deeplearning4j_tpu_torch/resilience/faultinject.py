@@ -3,9 +3,9 @@
 engine, of a checkpoint's commit, of the Keras gateway and its predict
 batching, the replica kinds a gateway consults, and the ``nan`` kind of
 a training loop, ``poison_batch``, and the fault-tolerant trainer's
-``raise``), and the fleet's overload kinds (``flap_replica``,
-``load_spike``). The broker, input-pipeline and elastic kinds wait for
-the paths they test (ROADMAP A6.3, A7).
+``raise``), the fleet's overload kinds (``flap_replica``,
+``load_spike``) and the elastic trainer's host kinds. The broker and
+input-pipeline kinds wait for the paths they test (ROADMAP A7).
 
 Training fault kinds:
 
@@ -16,6 +16,23 @@ Training fault kinds:
 - ``nan``              — ``poison_batch(batch, step)`` returns a copy of
   the batch whose first feature is NaN at the scheduled ``step``; the
   divergence sentinel's guard must keep the update from landing.
+
+Host fault kinds (``ElasticTrainer``'s seams, consulted before every
+step's dispatch):
+
+- ``kill_host``        — ``check_kill(step)`` hard-exits THIS process
+  with ``KILL_HOST_EXIT_CODE`` at the scheduled ``step``: no flush, no
+  cleanup, nothing a handler could catch (a preemption).
+- ``kill_coordinator`` — the same mechanics, armed on the lease holder.
+- ``slow_host``        — ``host_step_stall(step)`` returns ``duration``
+  seconds this host's ``step`` stalls before dispatch (a straggler:
+  its heartbeats keep landing).
+- ``rejoin_host``      — ``check_rejoin(step)`` returns the rank a
+  replacement host announces itself as (``rank``; -1: the lowest rank
+  not in the world); the trainer writes the join request.
+- ``partition_host``   — ``check_partition(step)`` opens a window of
+  ``duration`` seconds (0: until cleared) in which this process's
+  heartbeats do not land while it keeps running.
 
 Gateway fault kinds (the serving edge's chaos seams):
 
@@ -112,9 +129,14 @@ from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
 _KINDS = ("raise", "nan", "poison_decode", "evict_cache", "evict_page",
           "corrupt_page_table", "truncate_checkpoint", "hang_backend",
-          "burst", "poison_row", "slow_batch", "kill_replica",
-          "partition_replica", "slow_replica", "flap_replica",
-          "load_spike")
+          "burst", "poison_row", "slow_batch", "kill_host", "slow_host",
+          "kill_coordinator", "rejoin_host", "partition_host",
+          "kill_replica", "partition_replica", "slow_replica",
+          "flap_replica", "load_spike")
+
+#: the exit code of a ``kill_host`` hard exit: distinct, so a launcher can
+#: tell a victim that died by the fault from one that died of a bug
+KILL_HOST_EXIT_CODE = 117
 
 
 class FaultInjected(RuntimeError):
@@ -132,17 +154,19 @@ class Fault:
     """One scheduled fault. ``at_call`` arms it at the Nth request
     (``poison_decode``, ``poison_row``, the replica kinds), dispatch
     (``hang_backend``, ``slow_batch``), commit or decode iteration (the
-    others), 1-based; ``step`` is the training step of ``raise`` and
-    ``nan``, the poisoned request's decode step (or a mid-stream
-    ``kill_replica``'s token); ``rank`` the target row's age
-    rank (``evict_page``, ``corrupt_page_table``; -1 = the oldest) or the
-    target replica; ``mode`` how a ``truncate_checkpoint`` tears its
-    commit (``"crash"`` or ``"torn"``); ``duration`` the stall of
-    ``hang_backend`` / ``slow_batch`` / ``slow_replica`` and the window
-    of ``partition_replica``, a ``flap_replica`` incarnation's life after
-    admission and a ``load_spike``'s spread; ``count`` a ``burst``'s or
-    ``load_spike``'s size and a ``flap_replica``'s incarnations;
-    ``fires`` the incarnations a ``flap_replica`` consumed."""
+    others), 1-based; ``step`` is the training step of ``raise``, ``nan``
+    and the host kinds, the poisoned request's decode step (or a
+    mid-stream ``kill_replica``'s token); ``rank`` the target row's age
+    rank (``evict_page``, ``corrupt_page_table``; -1 = the oldest), the
+    target replica, or the rank a ``rejoin_host`` joins as; ``mode`` how
+    a ``truncate_checkpoint`` tears its commit (``"crash"`` or
+    ``"torn"``); ``duration`` the stall of ``hang_backend`` /
+    ``slow_batch`` / ``slow_replica`` / ``slow_host``, the window of
+    ``partition_replica`` / ``partition_host``, a ``flap_replica``
+    incarnation's life after admission and a ``load_spike``'s spread;
+    ``count`` a ``burst``'s or ``load_spike``'s size and a
+    ``flap_replica``'s incarnations; ``fires`` the incarnations a
+    ``flap_replica`` consumed."""
 
     kind: str
     step: int = 0
@@ -184,6 +208,8 @@ _replica_requests: Dict[int, int] = {}
 #: per-replica-rank streamed-token counters (``kill_replica`` with
 #: ``step`` > 0 — the mid-stream kill address)
 _replica_tokens: Dict[int, int] = {}
+#: the host-wide heartbeat-suppression window (``partition_host``)
+_partition_until: Optional[float] = None
 #: per-replica-rank heartbeat-suppression windows (``partition_replica``)
 _replica_partition_until: Dict[int, float] = {}
 #: per-replica-rank spawn counters since arming (``flap_replica``
@@ -196,8 +222,10 @@ def set_schedule(schedule: Optional[FaultSchedule]) -> None:
     ``at_call`` indices are relative to arming time."""
     global _schedule, _gen_submits, _decode_iters, _page_iters, _pt_iters
     global _commit_calls, _dispatch_calls, _predict_loads, _batch_dispatches
+    global _partition_until
     with _lock:
         _schedule = schedule
+        _partition_until = None
         _replica_requests.clear()
         _replica_tokens.clear()
         _replica_partition_until.clear()
@@ -465,16 +493,92 @@ def burst_size() -> int:
         return 0
 
 
-def heartbeat_suppressed(rank: Optional[int] = None) -> bool:
-    """True while a ``partition_replica`` window for ``rank`` is open:
-    the replica's heartbeat write is silently dropped while it keeps
-    serving. (The JAX package's host-wide ``partition_host`` window
-    waits for the elastic trainer, ROADMAP A6.3.)"""
-    if rank is None:
-        return False
+def check_kill(step: int) -> None:
+    """Called by ElasticTrainer per training step (before dispatch): a
+    ``kill_host`` (or ``kill_coordinator``) fault scheduled for ``step``
+    hard-exits this process with ``KILL_HOST_EXIT_CODE``: no flush, no
+    cleanup, no exception a handler could catch. The ``fault_injected``
+    instant and counter land first and die with the process; the
+    survivors' detection counters are the record."""
     with _lock:
+        hit = None
+        if _schedule is not None:
+            for f in _schedule.pending():
+                if f.kind in ("kill_host", "kill_coordinator") \
+                        and f.step == step:
+                    hit = f
+                    break
+            if hit is not None:
+                _fire(hit, step=step)
+    if hit is not None:
+        import os
+        import sys
+        print(f"faultinject: {hit.kind} at step {step}: os._exit",
+              file=sys.stderr, flush=True)
+        os._exit(KILL_HOST_EXIT_CODE)
+
+
+def host_step_stall(step: int) -> float:
+    """Called by ElasticTrainer per training step (before dispatch): the
+    seconds a ``slow_host`` fault scheduled for ``step`` stalls it (0.0:
+    run normally). The caller sleeps in a tracer span of its own; its
+    heartbeats keep beating from their thread."""
+    with _lock:
+        if _schedule is None:
+            return 0.0
+        for f in _schedule.pending():
+            if f.kind == "slow_host" and f.step == step:
+                _fire(f, step=step, duration=f.duration)
+                return max(0.0, f.duration)
+        return 0.0
+
+
+def check_rejoin(step: int) -> Optional[int]:
+    """Called by ElasticTrainer per training step: the rank a
+    ``rejoin_host`` fault scheduled for ``step`` joins as (``Fault.rank``;
+    -1: the caller picks the lowest rank not in its world), or None. The
+    caller writes the join request a real replacement would."""
+    with _lock:
+        if _schedule is None:
+            return None
+        for f in _schedule.pending():
+            if f.kind == "rejoin_host" and f.step == step:
+                _fire(f, step=step, rank=f.rank)
+                return int(f.rank)
+        return None
+
+
+def check_partition(step: int) -> None:
+    """Called by ElasticTrainer per training step: a ``partition_host``
+    fault scheduled for ``step`` opens the host-wide heartbeat
+    suppression window (``duration`` seconds; 0: until the schedule is
+    cleared). The process keeps running; only its liveness signal
+    stops, the signature of a partition rather than a crash."""
+    global _partition_until
+    with _lock:
+        if _schedule is None:
+            return
+        for f in _schedule.pending():
+            if f.kind == "partition_host" and f.step == step:
+                _fire(f, step=step, duration=f.duration)
+                _partition_until = (float("inf") if f.duration <= 0
+                                    else time.monotonic() + f.duration)
+                return
+
+
+def heartbeat_suppressed(rank: Optional[int] = None) -> bool:
+    """Consulted by ``HostHeartbeat.beat`` before every write: True while
+    the host-wide ``partition_host`` window is open (with or without a
+    ``rank``), or a ``partition_replica`` window for ``rank``: the beat
+    is dropped while the process keeps running."""
+    with _lock:
+        now = time.monotonic()
+        if _partition_until is not None and now < _partition_until:
+            return True
+        if rank is None:
+            return False
         until = _replica_partition_until.get(int(rank))
-        return until is not None and time.monotonic() < until
+        return until is not None and now < until
 
 
 def on_replica_request(rank: int) -> Tuple[float, bool]:

@@ -17,9 +17,13 @@ by the JAX tree paths (the updater state by optax's,
 ``Updater.optax_paths``), and a cursor is the same JSON. A JAX cursor's
 ``rng_key`` names a JAX PRNG key, which the port cannot use; the port
 keeps its generator's state in ``extra["torch_rng"]`` and writes
-``rng_key`` as null. A ZeRO trainer's moments are saved as this rank's
-rows (``RowShard``); restored into a net with whole moments at another
-width through ``restore(..., reshard=True)``.
+``rng_key`` as null; a data-parallel net's per-rank dropout streams, the
+seeds each rank draws its next step's masks with, ride beside it in
+``extra["torch_rng_ranks"]``. A ZeRO trainer's moments are saved as this
+rank's rows (``RowShard``); restored at another width through
+``restore(..., reshard=True)``, into whole moments or, through
+``nn/updater.shard_updater_state``, into the rows of a net a ZeRO
+trainer holds.
 """
 
 from __future__ import annotations
@@ -57,7 +61,10 @@ class TrainingCursor:
     ``topology`` records the mesh the checkpoint was cut on ({"dp",
     "weight_update_sharding", "process_count", "rendezvous_epoch"});
     ``extra["torch_rng"]`` the net's generator state, so a resumed run
-    draws the dropout masks the uninterrupted one would have."""
+    draws the dropout masks the uninterrupted one would have, and under
+    a data-parallel trainer ``extra["torch_rng_ranks"]`` the seed of each
+    rank's (or worker's) stream for the next step
+    (``netcommon.stream_seed``)."""
 
     epoch: int = 0
     step: int = 0
@@ -92,6 +99,14 @@ class TrainingCursor:
         gen = getattr(net, "_rng", None)
         if gen is not None:
             cur.extra["torch_rng"] = gen.get_state().tolist()
+            streams = getattr(net, "_rank_streams", None)
+            if streams:
+                from deeplearning4j_tpu_torch.nn.netcommon import (
+                    stream_seed,
+                )
+                cur.extra["torch_rng_ranks"] = [
+                    stream_seed(net, r, net.iteration_count)
+                    for r in range(streams)]
         return cur
 
     def apply(self, net) -> None:
@@ -113,11 +128,14 @@ class CheckpointInfo:
     verified: bool = False
 
 
-def checkpoint_tree(net, with_updater: bool = True) -> Dict[str, Any]:
+def checkpoint_tree(net, with_updater: bool = True,
+                    moments: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
     """``{"params", "opt_state", "states"}`` keyed as the JAX package's
     sharded checkpoint keys a net: the updater state as optax's tree
     (``Updater.optax_paths``; one count tensor or int under every count
-    path), a ZeRO trainer's moments as this rank's rows."""
+    path), a ZeRO trainer's moments as this rank's rows (or ``moments``'
+    trees, by updater slot, when given)."""
     from deeplearning4j_tpu_torch.parallel.checkpoint import RowShard
     tree: Dict[str, Any] = {"params": net.params, "states": net.states}
     if not with_updater or net.opt_state is None:
@@ -132,6 +150,8 @@ def checkpoint_tree(net, with_updater: bool = True) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         if entry == "count":
             node[parts[-1]] = net.opt_state["count"]
+        elif moments is not None:
+            node[parts[-1]] = moments[entry]
         else:
             node[parts[-1]] = (net.opt_state[entry] if zero is None else
                                tree_map(lambda t: RowShard(t, *zero),
@@ -230,14 +250,26 @@ class CheckpointManager:
     # --------------------------------------------------------------- topology
     def topology(self) -> Dict[str, Any]:
         """The mesh checkpoints cut by this manager run on: data-parallel
-        width, weight-update-sharding mode, process count and the
-        rendezvous epoch (0: the elastic runtime is ROADMAP A6.3)."""
+        width, weight-update-sharding mode, the surviving process count
+        and the rendezvous epoch of the elastic lease (0 outside elastic
+        runs), so a restore can tell which incarnation of the world cut
+        it."""
         from deeplearning4j_tpu_torch.parallel import multihost
         dp = int(self.mesh_ctx.n_data) if self.mesh_ctx is not None else 1
         return {"dp": dp,
                 "weight_update_sharding": self.weight_update_sharding,
-                "process_count": multihost.process_count(),
-                "rendezvous_epoch": 0}
+                "process_count": multihost.effective_process_count(),
+                "rendezvous_epoch": multihost.rendezvous_epoch()}
+
+    @staticmethod
+    def _saved_topology(info: CheckpointInfo) -> Optional[Dict[str, Any]]:
+        saved = info.cursor.topology if info.cursor is not None else None
+        if saved is None:
+            from deeplearning4j_tpu_torch.parallel.checkpoint import (
+                read_topology,
+            )
+            saved = read_topology(info.path)
+        return saved
 
     def _check_topology(self, info: CheckpointInfo, reshard: bool) -> bool:
         """True when the restore must un-pad ZeRO rows into whole-shape
@@ -245,12 +277,7 @@ class CheckpointManager:
         caller did not ask for that."""
         if not self.sharded:
             return False   # a zip holds whole moments: any width
-        saved = info.cursor.topology if info.cursor is not None else None
-        if saved is None:
-            from deeplearning4j_tpu_torch.parallel.checkpoint import (
-                read_topology,
-            )
-            saved = read_topology(info.path)
+        saved = self._saved_topology(info)
         if not saved:
             return bool(reshard)
         saved_mode = str(saved.get("weight_update_sharding", "off"))
@@ -308,7 +335,7 @@ class CheckpointManager:
             # cursor on disk always describes a committed checkpoint
             from deeplearning4j_tpu_torch.parallel import multihost
             if not self.sharded or \
-                    multihost.process_index() == 0:
+                    multihost.effective_process_index() == 0:
                 atomic_write_bytes(self._cursor_path(path),
                                    cursor.to_json().encode())
         self._c_saved.inc()
@@ -317,7 +344,7 @@ class CheckpointManager:
 
     def _rotate(self, keep: Path) -> None:
         from deeplearning4j_tpu_torch.parallel import multihost
-        if self.sharded and multihost.process_index() != 0:
+        if self.sharded and multihost.effective_process_index() != 0:
             return   # rank 0 rotates the shared directory
         for info in self.checkpoints()[:-self.keep_last]:
             if info.path == keep:
@@ -371,14 +398,22 @@ class CheckpointManager:
         """Load ``info`` (default: the latest valid) into an initialized
         ``net``, in place, and apply its cursor. Returns the cursor (None
         when no valid checkpoint exists: the caller starts fresh).
-        ``reshard=True`` restores a ZeRO checkpoint cut at another width
-        into a net holding whole moments (not one attached to a ZeRO
-        trainer); without it a width change raises up front."""
+        ``reshard=True`` restores a ZeRO checkpoint cut at another width:
+        into whole moments, or into the rows of a net a ZeRO trainer
+        holds (``nn/updater.shard_updater_state`` re-lays them at this
+        mesh's width); without it a width change raises up front."""
         if info is None:
             info = self.latest_valid()
             if info is None:
                 return None
         needs_reshard = self._check_topology(info, reshard)
+        zero = getattr(net, "_zero_shards", None)
+        if needs_reshard and zero is not None and load_updater and int(
+                (self._saved_topology(info) or {}).get("dp", zero[1])) \
+                != zero[1]:
+            cursor = self._restore_into_rows(net, info)
+            cursor.apply(net)
+            return cursor
         with get_tracer().span("checkpoint_restore", step=info.step,
                                reshard=needs_reshard):
             if self.sharded:
@@ -399,3 +434,36 @@ class CheckpointManager:
         cursor = info.cursor or TrainingCursor(step=info.step)
         cursor.apply(net)
         return cursor
+
+    def _restore_into_rows(self, net, info: CheckpointInfo
+                           ) -> TrainingCursor:
+        """A ZeRO checkpoint cut at another width, restored into a net
+        whose moments are this rank's rows: the saved ``(dp_old, chunk)``
+        views are un-padded into whole moments, then re-laid at this
+        width (``shard_updater_state``) and written into the rows in
+        place. No collective."""
+        from deeplearning4j_tpu_torch.nn.updater import (
+            shard_updater_state, tree_leaves,
+        )
+        from deeplearning4j_tpu_torch.parallel.checkpoint import (
+            restore_sharded_into,
+        )
+        slots = [k for k in net.opt_state if k != "count"]
+        moments = {k: tree_map(lambda r, p: torch.empty(
+            p.shape, dtype=r.dtype, device=r.device),
+            net.opt_state[k], net.params) for k in slots}
+        with get_tracer().span("checkpoint_restore", step=info.step,
+                               reshard=True):
+            tpl = checkpoint_tree(net, True, moments=moments)
+            out = restore_sharded_into(info.path, tpl, self.mesh_ctx,
+                                       verify=not info.verified,
+                                       reshard_zero1=True)
+            _write_back(net, tpl, out)
+            whole = dict(moments, count=net.opt_state["count"])
+            rows, _ = shard_updater_state(whole, self.mesh_ctx)
+            with torch.no_grad():
+                for k in slots:
+                    for dst, src in zip(tree_leaves(net.opt_state[k]),
+                                        tree_leaves(rows[k])):
+                        dst.copy_(src)
+        return info.cursor or TrainingCursor(step=info.step)

@@ -12,7 +12,8 @@ CPU (``deeplearning4j_tpu_torch/resilience/elastic.py``,
     ``tools/postmortem.py`` reading a port bundle;
 (c) the teardown cases of ``tests/test_thread_hygiene.py`` for the
     watchdog, the fleet router and the autoscaler;
-(d) ``ElasticTrainer`` refusing, naming ROADMAP A6.
+(d) ``ElasticTrainer`` no longer refusing (ROADMAP A6.3 is ported; its
+    cases are ``tests/test_torch_elastic.py``).
 """
 
 import json
@@ -186,9 +187,25 @@ def test_rendezvous_files_cross_between_the_packages(tmp_path, writer):
     assert r.read_heartbeats(tmp_path) == {}
 
 
-def test_elastic_trainer_waits_for_a6():
-    with pytest.raises(NotImplementedError, match="A6"):
-        ElasticTrainer(lambda: None, "/nonexistent")
+def test_elastic_trainer_waits_for_a6(tmp_path):
+    """ROADMAP A6.3 is ported: the trainer no longer refuses. At world 1
+    it founds the epoch-0 lease, trains and stops its heartbeat thread at
+    ``close`` (its cases: ``tests/test_torch_elastic.py``)."""
+    import numpy as np
+
+    import torch_parallel_worker as W
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    trainer = ElasticTrainer(W.elastic_net, tmp_path, checkpoint_every=1)
+    try:
+        rng = np.random.default_rng(0)
+        trainer.fit([DataSet(rng.normal(size=(4, 4)).astype(np.float32),
+                             np.eye(3, dtype=np.float32)[[0, 1, 2, 0]])],
+                    epochs=1)
+        assert trainer.consumed_indices(0) == [0]
+        assert read_lease(trainer.heartbeat_dir)["world"] == [0]
+    finally:
+        trainer.close()
+    assert trainer._hb._thread is None
 
 
 # ------------------------------------------------------- stall watchdog

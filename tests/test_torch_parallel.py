@@ -30,10 +30,21 @@ are ROADMAP C1). Held:
   NaN worker under the wrapper's sentinel (``tests/test_resilience.py:
   449``).
 
+- batch norm over the global batch (the JAX trainer's one SPMD step): a
+  LeNet-5 stack with batch norm at world 2 against the JAX
+  ``ParallelTrainer`` on copied weights, losses at 1e-5, params at 2e-4 /
+  2e-5, running states at 1e-5, both ranks bit for bit;
+- distinct dropout streams: with dropout 0.5 and the same rows on every
+  rank, the ranks' masks differ under ``ParallelTrainer`` and
+  ``DelayedSyncTrainer``, the four workers' under ``ParallelWrapper``; a
+  run cut after two steps resumes bit for bit, its cursor carrying the
+  per-rank seeds.
+
 In this process (world 1, no group): the trainers against the plain
-``fit_batch`` bit for bit, ``device=None`` raising without a card,
-``multihost``'s helpers and refusals, and a teardown back to the thread
-baseline with no process group left.
+``fit_batch`` bit for bit (batch norm and dropout too), ``device=None``
+raising without a card, ``multihost``'s helpers, its elastic half's
+single-process seams, and a teardown back to the thread baseline with no
+process group left.
 """
 
 import threading
@@ -53,8 +64,11 @@ from deeplearning4j_tpu.datasets.iris import IrisDataSetIterator
 from deeplearning4j_tpu.models import gpt as jgpt
 from deeplearning4j_tpu.models.char_rnn import char_rnn_lstm as jchar_rnn
 from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
+from deeplearning4j_tpu.nn.layers import BatchNormalization as JBatchNorm
+from deeplearning4j_tpu.nn.layers import ConvolutionLayer as JConv
 from deeplearning4j_tpu.nn.layers import DenseLayer as JDense
 from deeplearning4j_tpu.nn.layers import OutputLayer as JOutput
+from deeplearning4j_tpu.nn.layers import SubsamplingLayer as JSubsampling
 from deeplearning4j_tpu.parallel import DelayedSyncTrainer as JDelayed
 from deeplearning4j_tpu.parallel import MeshContext as JMesh
 from deeplearning4j_tpu.parallel import ParallelTrainer as JTrainer
@@ -88,9 +102,29 @@ def jax_mlp(seed=12345, lr=0.05, updater="adam", hidden=16, n_in=4,
                 ).init()
 
 
+def jax_lenet_bn(seed=12345, lr=0.01):
+    """``torch_parallel_worker.lenet_bn_conf``'s stack."""
+    return JNet(JNNC.builder().seed(seed).updater("adam", learning_rate=lr)
+                .weight_init("xavier").list()
+                .layer(JConv(n_out=6, kernel_size=(5, 5), activation="relu"))
+                .layer(JBatchNorm())
+                .layer(JSubsampling(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+                .layer(JConv(n_out=16, kernel_size=(5, 5),
+                             activation="relu"))
+                .layer(JSubsampling(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+                .layer(JDense(n_out=32, activation="relu"))
+                .layer(JOutput(n_out=10, activation="softmax", loss="mcxent"))
+                .set_input_type(JInputType.convolutional(16, 16, 1))
+                .build()).init()
+
+
 def jax_net(kind, **kw):
     if kind == "mlp":
         return jax_mlp(**kw)
+    if kind == "lenet_bn":
+        return jax_lenet_bn(**kw)
     if kind == "gpt":
         return JGraph(jgpt.gpt_tiny(**kw)).init()
     return JNet(jchar_rnn(**kw)).init()
@@ -123,11 +157,29 @@ def seq_batches(n, V, T, rows, seed=0):
     return out
 
 
+def image_batches(n, rows=8, seed=0):
+    """[rows, 16, 16, 1] images (channel mean 0.5, so batch norm's
+    statistics matter), 10 classes."""
+    rng = np.random.default_rng(seed)
+    return [[(rng.normal(size=(rows, 16, 16, 1)) + 0.5).astype(np.float32),
+             np.eye(10, dtype=np.float32)[rng.integers(0, 10, rows)]]
+            for _ in range(n)]
+
+
+def twin_rows(rows=8, seed=9):
+    """One MLP batch whose 2-row chunks are all the same rows: every rank
+    (and every worker of four) is fed the same examples."""
+    x, y = mlp_batches(1, rows=2, seed=seed)[0]
+    return [[np.tile(x, (rows // 2, 1)), np.tile(y, (rows // 2, 1))]]
+
+
 def iris_batches(batch, n):
     return [[np.asarray(b.features), np.asarray(b.labels)]
             for b in IrisDataSetIterator(batch_size=batch, num_examples=n)]
 
 
+#: LeNet-5 with batch norm over three steps of one batch
+BN_BATCHES = image_batches(1, seed=10)
 #: the parity cases: kind, net kwargs, batches, gradient accumulation
 PARITY = {
     "mlp": ("mlp", {}, mlp_batches(1), 1),
@@ -145,7 +197,7 @@ TBPTT_KW = dict(RNN_KW, tbptt_length=5)
 TBPTT_BATCHES = seq_batches(1, 12, 12, 8, seed=8)
 
 
-def _cases():
+def _cases(tmp):
     cases = []
     for name, (kind, kw, batches, accum) in PARITY.items():
         cases.append(dict(name=name, fn="trainer", args=dict(
@@ -168,13 +220,23 @@ def _cases():
              args=dict(batches=mlp_batches(1, rows=8))),
         dict(name="stats", fn="stats",
              args=dict(batches=mlp_batches(6, rows=8, seed=7))),
+        dict(name="bn", fn="trainer", args=dict(
+            kind="lenet_bn", net_kw={},
+            params=numpy_params(jax_lenet_bn()), batches=BN_BATCHES,
+            steps=3)),
+        dict(name="dropout_streams", fn="dropout_streams",
+             args=dict(batches=twin_rows())),
+        dict(name="dropout_resume", fn="dropout_resume",
+             args=dict(ckpt_root=str(tmp / "dropout_ckpt"),
+                       batches=twin_rows() + mlp_batches(1, seed=11))),
     ]
     return cases
 
 
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
-    return W.run_group(_cases(), tmp_path_factory.mktemp("parallel"))
+    tmp = tmp_path_factory.mktemp("parallel")
+    return W.run_group(_cases(tmp), tmp)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +263,78 @@ def test_parallel_trainer_matches_jax_at_world_2(group, name):
     assert other["params"].tobytes() == got["params"].tobytes()
     assert other["loss_bytes"] == got["loss_bytes"]
     assert got["iterations"] == 3
+
+
+def test_batch_norm_takes_global_batch_statistics_at_world_2(group):
+    """Batch norm under ParallelTrainer at world 2 normalizes by the whole
+    global batch's statistics, as the JAX trainer's one SPMD step does:
+    losses, params and the running states agree with it, and the ranks
+    hold the same states bit for bit."""
+    jnet = jax_lenet_bn()
+    tr = JTrainer(jnet, JMesh.create(n_data=2))
+    want = [float(tr.fit_batch(JDataSet(*BN_BATCHES[0]))) for _ in range(3)]
+    got = W.result(group, "bn")
+    np.testing.assert_allclose(got["losses"], want, rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["params"],
+                               np.asarray(jnet.params_flat()), rtol=P_RTOL,
+                               atol=P_ATOL)
+    jstates = [np.asarray(t) for t in jax.tree_util.tree_leaves(
+        jnet.states)]
+    assert len(got["states"]) == len(jstates) == 2
+    for a, b in zip(got["states"], jstates):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    other = W.result(group, "bn", rank=1)
+    assert other["params"].tobytes() == got["params"].tobytes()
+    for a, b in zip(other["states"], got["states"]):
+        assert a.tobytes() == b.tobytes()
+
+
+def _first_layer(masks, layers=3):
+    """The masks drawn on the features (the first of each step's
+    ``layers`` draws)."""
+    return masks[::layers]
+
+
+@pytest.mark.parametrize("trainer", ["trainer", "delayed"])
+def test_ranks_draw_distinct_dropout_masks_at_world_2(group, trainer):
+    """Fed the same rows, the two ranks draw other masks at every step
+    (the JAX trainer draws one mask over the global batch), and a rank's
+    masks change from step to step."""
+    m0, m1 = (_first_layer(W.result(group, "dropout_streams", r)[trainer])
+              for r in (0, 1))
+    assert len(m0) == len(m1) == 2
+    for a, b in zip(m0, m1):
+        assert a.shape == b.shape and not np.array_equal(a, b)
+        assert 0.2 < a.mean() < 0.8
+    assert not np.array_equal(m0[0], m0[1])
+
+
+def test_wrapper_workers_draw_distinct_dropout_masks(group):
+    """Four workers, two a rank, fed the same rows: every worker's mask
+    differs from every other's (the JAX wrapper splits a key per
+    worker)."""
+    masks = []
+    for r in (0, 1):
+        per_rank = _first_layer(W.result(group, "dropout_streams",
+                                          r)["wrapper"])
+        masks += per_rank[:2]   # the first iteration's two workers
+    assert len(masks) == 4
+    for i in range(4):
+        for j in range(i + 1, 4):
+            assert not np.array_equal(masks[i], masks[j]), (i, j)
+
+
+def test_cut_dropout_run_resumes_bit_for_bit_with_the_rank_seeds(group):
+    """A world-2 run with dropout saved after two steps and resumed by a
+    net of another seed takes the uninterrupted run's steps bit for bit:
+    the cursor carries the net's stream and each rank's derived seed."""
+    for rank in (0, 1):
+        got = W.result(group, "dropout_resume", rank)
+        assert got["got"] == got["want"]
+        assert got["resumed"].tobytes() == got["whole"].tobytes()
+        seeds = got["seeds"]
+        assert isinstance(seeds, list) and len(seeds) == 2
+        assert seeds[0] != seeds[1] and got["net_stream"]
 
 
 # ---------------------------------------------------------------------------
@@ -375,17 +509,22 @@ def _ds(arrays):
     return W.datasets([arrays])[0]
 
 
-@pytest.mark.parametrize("kind", ["mlp", "gpt", "char_rnn"])
+@pytest.mark.parametrize("kind", ["mlp", "gpt", "char_rnn", "lenet_bn",
+                                  "mlp_dropout"])
 def test_world_1_trainer_is_the_plain_step_bitwise(kind):
     """No group: world 1, no collective; the trainer's steps are the
     net's own ``fit_batch`` bit for bit (the char-RNN's over three tBPTT
-    windows)."""
+    windows; batch norm's statistics and dropout's masks too)."""
     from deeplearning4j_tpu_torch.parallel import ParallelTrainer
     kw = {"mlp": {}, "gpt": GPT_KW,
-          "char_rnn": dict(RNN_KW, tbptt_length=5)}[kind]
+          "char_rnn": dict(RNN_KW, tbptt_length=5), "lenet_bn": {},
+          "mlp_dropout": dict(dropout=0.5)}[kind]
     arrays = {"mlp": mlp_batches(1)[0],
               "gpt": seq_batches(1, 16, 16, 4)[0],
-              "char_rnn": seq_batches(1, 12, 12, 4)[0]}[kind]
+              "char_rnn": seq_batches(1, 12, 12, 4)[0],
+              "lenet_bn": BN_BATCHES[0],
+              "mlp_dropout": mlp_batches(1)[0]}[kind]
+    kind = {"mlp_dropout": "mlp"}.get(kind, kind)
     a, b = W.build(kind, **kw), W.build(kind, **kw)
     tr = ParallelTrainer(b, device="cpu")
     for _ in range(2):
@@ -393,6 +532,23 @@ def test_world_1_trainer_is_the_plain_step_bitwise(kind):
         assert float(la) == float(lb)
     assert a.params_flat().tobytes() == b.params_flat().tobytes()
     assert a.iteration_count == b.iteration_count
+
+
+@pytest.mark.parametrize("strategy", ["delayed_sync", "param_averaging"])
+def test_world_1_other_trainers_keep_the_plain_dropout_stream(strategy):
+    """World 1: DelayedSyncTrainer (k=1) and a one-worker ParallelWrapper
+    train a dropout net bit for bit as its own ``fit_batch`` does (no
+    derived stream, no recorded seeds)."""
+    from deeplearning4j_tpu_torch.parallel.strategy import create_trainer
+    a, b = W.build("mlp", dropout=0.5), W.build("mlp", dropout=0.5)
+    kw = ({"sync_frequency": 1} if strategy == "delayed_sync"
+          else {"workers": 1})
+    tr = create_trainer(strategy, b, device="cpu", **kw)
+    for arrays in mlp_batches(3, seed=4):
+        assert float(a.fit_batch(_ds(arrays))) == float(tr.fit_batch(
+            _ds(arrays)))
+    assert a.params_flat().tobytes() == b.params_flat().tobytes()
+    assert not getattr(b, "_rank_streams", None)
 
 
 def test_world_1_accumulation_4_holds_the_plain_step_gate():
@@ -479,21 +635,22 @@ def test_multihost_helpers_and_refusals():
     assert multihost.local_batch_slice(7) == slice(0, 7)
     assert multihost.effective_process_count() == 1
     assert multihost.effective_process_index() == 0
-    assert not hasattr(multihost, "set_topology_override")   # A6.3
-    with pytest.raises(NotImplementedError, match="A6.3"):
+    # the elastic half (ROADMAP A6.3): nothing set outside an elastic run
+    assert multihost.rendezvous_epoch() == 0
+    assert multihost.topology_override() is None
+    assert not multihost.elastic_mode() and not multihost.group_quarantined()
+    assert not multihost.gloo_collectives_active()
+    with pytest.raises(ValueError, match="host_service"):
         multihost.initialize("file:///nowhere", 1, 0, device="cpu",
-                             elastic=True)
-    with pytest.raises(NotImplementedError, match="A6.3"):
-        multihost.serve_coordination(1, 2)
+                             host_service=False)
+    with pytest.raises(ValueError, match="tcp:// or file://"):
+        multihost.initialize("env://", 1, 0, device="cpu", elastic=True)
     for fn in (multihost.shard_sources, multihost.input_pipeline):
         with pytest.raises(NotImplementedError, match="A7.6"):
             fn([])
     tr = multihost.data_parallel_trainer(_port_mlp(),
                                          gradient_accumulation=2)
     assert tr.mesh.n_data == 1 and tr.gradient_accumulation == 2
-    from deeplearning4j_tpu_torch.resilience import ElasticTrainer
-    with pytest.raises(NotImplementedError, match="A6.3"):
-        ElasticTrainer()
 
 
 def test_teardown_leaves_no_group_and_no_thread(tmp_path):

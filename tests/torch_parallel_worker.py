@@ -11,10 +11,20 @@ whole test module; each test reads its case's results.
 
 Run alone: ``python tests/torch_parallel_worker.py <spec> <rank>
 <world> <init_method> <out>``.
+
+``run_elastic(spec, tmp, world)`` starts ``world`` ranks of an
+``ElasticTrainer`` run instead (``python tests/torch_parallel_worker.py
+elastic <spec.json> <rank> <world> <init_method> <out_dir>``): each joins
+an elastic group, arms the spec's host fault on its victim rank, trains
+the elastic MLP and writes ``elastic_r<rank>.json`` (its trajectory,
+world, counters, a restart request) and ``params_r<rank>.npy``. A rank a
+``kill_host`` fault ends writes nothing and exits with
+``KILL_HOST_EXIT_CODE``.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 import subprocess
@@ -70,6 +80,81 @@ def run_group(cases, tmp, world: int = 2, timeout: float = 300.0):
     return out
 
 
+def _reap(procs) -> None:
+    for p in procs:
+        if p is not None and p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def spawn_coordination(port: int, world: int, timeout: float = 60.0):
+    """``multihost.serve_coordination`` in a process of its own; returns
+    it once it printed READY (killed and raised if it does not)."""
+    import time
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.parallel.multihost",
+         "serve", str(port), str(world)], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + timeout
+    try:
+        line = b""
+        while time.monotonic() < deadline and proc.poll() is None:
+            line = proc.stdout.readline()
+            if line.startswith(b"READY"):
+                return proc
+        raise RuntimeError(f"the coordination store never got ready "
+                           f"(rc={proc.poll()}): {line!r}")
+    except BaseException:
+        _reap([proc])
+        raise
+
+
+def run_elastic(spec: dict, tmp, world: int, timeout: float = 180.0,
+                init_method: str = None):
+    """Run ``world`` ranks of the elastic case ``spec`` (see
+    ``elastic_rank``); returns (return codes, {rank: record}). A rank a
+    ``freeze`` fault stops is not waited for: it is killed once the
+    others ended. Every process is reaped on every path."""
+    import json
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    spec_path = tmp / f"elastic_spec_{spec.get('tag', 'run')}.json"
+    spec_path.write_text(json.dumps(spec))
+    init = init_method or "file://" + str(
+        tmp / f"rdv_{spec.get('tag', 'run')}")
+    out = tmp / f"out_{spec.get('tag', 'run')}"
+    out.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    try:
+        for r in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "elastic", str(spec_path),
+                 str(r), str(world), init, str(out)], cwd=str(ROOT),
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        fault = spec.get("fault") or {}
+        frozen = fault.get("victim") if fault.get("kind") == "freeze" \
+            else None
+        logs = [None if r == frozen else
+                p.communicate(timeout=timeout)[0].decode(errors="replace")
+                for r, p in enumerate(procs)]
+    finally:
+        _reap(procs)
+    logs = [log if log is not None
+            else p.communicate()[0].decode(errors="replace")
+            for log, p in zip(logs, procs)]
+    records = {}
+    for r in range(world):
+        path = out / f"elastic_r{r}.json"
+        if path.exists():
+            records[r] = json.loads(path.read_text())
+            records[r]["params"] = np.load(out / f"params_r{r}.npy")
+        records.setdefault(r, {})["log"] = logs[r][-4000:]
+    return [p.returncode for p in procs], records
+
+
 def result(results, name: str, rank: int = 0):
     """One case's value on one rank (raises its ``RankError``)."""
     value = results[rank][name]
@@ -83,7 +168,7 @@ def result(results, name: str, rank: int = 0):
 # ---------------------------------------------------------------------------
 
 def mlp_conf(seed=12345, lr=0.05, updater="adam", hidden=16, n_in=4,
-             n_out=3, clip=None, frozen=False, layer_lr=None):
+             n_out=3, clip=None, frozen=False, layer_lr=None, dropout=None):
     from deeplearning4j_tpu_torch.nn.conf.builder import (
         NeuralNetConfiguration,
     )
@@ -93,6 +178,8 @@ def mlp_conf(seed=12345, lr=0.05, updater="adam", hidden=16, n_in=4,
     )
     b = (NeuralNetConfiguration.builder().seed(seed)
          .updater(updater, learning_rate=lr).weight_init("xavier"))
+    if dropout is not None:
+        b = b.dropout(dropout)
     if clip is not None:
         b = b.gradient_normalization(clip, threshold=0.5)
     first = DenseLayer(n_out=hidden, activation="relu")
@@ -106,15 +193,51 @@ def mlp_conf(seed=12345, lr=0.05, updater="adam", hidden=16, n_in=4,
             .set_input_type(InputType.feed_forward(n_in)).build())
 
 
+def lenet_bn_conf(seed=12345, lr=0.01):
+    """LeNet-5's stack at 16 x 16 x 1, narrowed, with batch norm after the
+    first convolution."""
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.convolution import (
+        ConvolutionLayer, SubsamplingLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.core import (
+        DenseLayer, OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.normalization import (
+        BatchNormalization,
+    )
+    return (NeuralNetConfiguration.builder().seed(seed)
+            .updater("adam", learning_rate=lr).weight_init("xavier").list()
+            .layer(ConvolutionLayer(n_out=6, kernel_size=(5, 5),
+                                    activation="relu"))
+            .layer(BatchNormalization())
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(ConvolutionLayer(n_out=16, kernel_size=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(DenseLayer(n_out=32, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.convolutional(16, 16, 1)).build())
+
+
 def build(kind: str, params=None, **kw):
-    """A port net on the CPU: ``kind`` "mlp", "gpt" (``gpt_tiny``) or
-    "char_rnn" (``char_rnn_lstm``), with ``params`` (numpy, the JAX net's
-    layout) carried in when given."""
+    """A port net on the CPU: ``kind`` "mlp", "lenet_bn"
+    (``lenet_bn_conf``), "gpt" (``gpt_tiny``) or "char_rnn"
+    (``char_rnn_lstm``), with ``params`` (numpy, the JAX net's layout)
+    carried in when given."""
     from deeplearning4j_tpu_torch.convert import params_from_jax
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     if kind == "mlp":
         conf, cls = mlp_conf(**kw), MultiLayerNetwork
+    elif kind == "lenet_bn":
+        conf, cls = lenet_bn_conf(**kw), MultiLayerNetwork
     elif kind == "gpt":
         from deeplearning4j_tpu_torch.models.gpt import gpt_tiny
         conf, cls = gpt_tiny(**kw), ComputationGraph
@@ -172,7 +295,8 @@ def case_trainer(kind, net_kw, params, batches, steps=3, accum=1,
                     if k != "count" for t in _leaves(v))
     out = dict(losses=[float(x) for x in losses],
                loss_bytes=f32_bytes(losses), params=flat(net),
-               opt_shapes=shapes, iterations=net.iteration_count)
+               opt_shapes=shapes, iterations=net.iteration_count,
+               states=[t.numpy().copy() for t in _leaves(net.states)])
     if sentinel is not None:
         net._sentinel.flush()
         out["skipped"] = net._sentinel.skipped_batches
@@ -182,6 +306,96 @@ def case_trainer(kind, net_kw, params, batches, steps=3, accum=1,
 def _leaves(tree):
     from deeplearning4j_tpu_torch.nn.updater import tree_leaves
     return tree_leaves(tree)
+
+
+class MaskSpy:
+    """Records the keep mask of every dropout a layer draws on its input
+    (the elements a dropout zeroed), while installed."""
+
+    def __init__(self):
+        from deeplearning4j_tpu_torch.nn.layers.base import BaseLayerConf
+        self.cls, self.masks = BaseLayerConf, []
+        self.orig = BaseLayerConf._dropout_input
+
+    def __enter__(self):
+        spy = self
+
+        def record(layer, x, train, rng):
+            y = spy.orig(layer, x, train, rng)
+            if train and y is not x:
+                spy.masks.append(((y != 0) | (x == 0)).numpy().copy())
+            return y
+        self.cls._dropout_input = record
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._dropout_input = self.orig
+        return False
+
+
+def case_dropout_streams(batches, steps=2):
+    """Dropout 0.5 on the MLP, every rank fed the same rows: the masks
+    ParallelTrainer, DelayedSyncTrainer and ParallelWrapper (workers=4,
+    two a rank) draw, by step (and by worker)."""
+    from deeplearning4j_tpu_torch.parallel import (
+        DelayedSyncTrainer, MeshContext, ParallelTrainer, ParallelWrapper,
+    )
+    ds = datasets(batches)
+    out = {}
+    for name, make in (
+            ("trainer", lambda n: ParallelTrainer(
+                n, MeshContext.create(device="cpu"))),
+            ("delayed", lambda n: DelayedSyncTrainer(
+                n, MeshContext.create(device="cpu"), sync_frequency=1))):
+        tr = make(build("mlp", dropout=0.5))
+        with MaskSpy() as spy:
+            for _ in range(steps):
+                for b in ds:
+                    tr.fit_batch(b)
+        out[name] = spy.masks
+    pw = ParallelWrapper(build("mlp", dropout=0.5), workers=4,
+                         mesh=MeshContext.create(device="cpu"))
+    with MaskSpy() as spy:
+        for _ in range(steps):
+            for b in ds:
+                pw.fit_batch(b)
+    # each iteration: this rank's two workers in turn, three layers each
+    out["wrapper"] = spy.masks
+    return out
+
+
+def case_dropout_resume(ckpt_root, batches, steps=4, cut=2):
+    """Dropout 0.5 under ParallelTrainer: ``steps`` steps straight, and a
+    run saved after ``cut`` steps and resumed by a net of another seed;
+    the cursor's per-rank stream seeds."""
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshContext, ParallelTrainer,
+    )
+    from deeplearning4j_tpu_torch.resilience.manager import (
+        CheckpointManager,
+    )
+    ds = datasets(batches)
+    mesh = MeshContext.create(device="cpu")
+    whole = build("mlp", dropout=0.5)
+    tw = ParallelTrainer(whole, mesh)
+    want = [float(tw.fit_batch(ds[i % len(ds)])) for i in range(steps)]
+    first = build("mlp", dropout=0.5)
+    tf = ParallelTrainer(first, mesh)
+    for i in range(cut):
+        tf.fit_batch(ds[i % len(ds)])
+    mgr = CheckpointManager(ckpt_root, sharded=True, mesh_ctx=mesh)
+    mgr.save(first)
+    import torch.distributed as dist
+    dist.barrier()   # rank 0's COMMIT lands before any rank restores
+    resumed = build("mlp", dropout=0.5, seed=777)
+    tr = ParallelTrainer(resumed, mesh)
+    cursor = mgr.restore(resumed)
+    got = [float(tr.fit_batch(ds[i % len(ds)])) for i in range(cut, steps)]
+    return dict(want=want[cut:], got=got, whole=flat(whole),
+                resumed=flat(resumed),
+                seeds=cursor.extra.get("torch_rng_ranks"),
+                net_stream=cursor.extra.get("torch_rng") ==
+                first._rng.get_state().tolist())
 
 
 def case_gather_roundtrip(net_kw, batches, mode="zero1"):
@@ -628,6 +842,119 @@ def sigkill_mid_checkpoint(ckpt_root: str, out: str) -> None:
         os.kill(os.getpid(), signal.SIGKILL)
 
 
+# ---------------------------------------------------------------------------
+# the elastic trainer's ranks
+# ---------------------------------------------------------------------------
+
+def elastic_net(seed=99, kind="mlp"):
+    """The elastic cases' net: the MLP with Adam, so zero1 has moments to
+    move across widths, or (``kind="lenet_bn"``) LeNet with batch norm,
+    whose training forward sums its statistics over the ranks."""
+    if kind == "lenet_bn":
+        return build("lenet_bn", seed=seed)
+    return build("mlp", hidden=8, seed=seed)
+
+
+def elastic_batches(n=6, rows=8, kind="mlp"):
+    """The same global batches on every rank (for ``elastic_net(kind)``)."""
+    rng = np.random.default_rng(0)
+    shape, classes = (((16, 16, 1), 10) if kind == "lenet_bn"
+                      else ((4,), 3))
+    return datasets([(rng.normal(size=(rows,) + shape).astype(np.float32),
+                      np.eye(classes, dtype=np.float32)[
+                          rng.integers(0, classes, rows)])
+                     for _ in range(n)])
+
+
+def freeze_at(step: int) -> None:
+    """Arm this process to stop (SIGSTOP) before its step ``step``: a host
+    that hangs or is preempted without closing its sockets. Every thread
+    stops, its heartbeat's too, and a peer's collective waits on it
+    until the group's timeout: no connection reset tells the peer."""
+    import signal
+
+    from deeplearning4j_tpu_torch.resilience import faultinject
+    check_kill = faultinject.check_kill
+
+    def check(step_id):
+        if step_id == step:
+            os.kill(os.getpid(), signal.SIGSTOP)
+        check_kill(step_id)
+    faultinject.check_kill = check
+
+
+def elastic_rank(spec_path, rank, world, init_method, out_dir) -> int:
+    """One rank of an elastic case: ``spec`` names the checkpoint
+    directory, the fault (kind, step, victim rank, duration, join rank),
+    the epochs, the trainer's windows, whether the ranks join an external
+    coordination store (``host_service: false``) and the rendezvous
+    epoch."""
+    import json
+
+    import torch
+    torch.set_num_threads(1)
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.profiling.metrics import get_registry
+    from deeplearning4j_tpu_torch.resilience import faultinject
+    from deeplearning4j_tpu_torch.resilience.elastic import (
+        ElasticRestartRequired, ElasticTrainer,
+    )
+    from deeplearning4j_tpu_torch.resilience.faultinject import (
+        Fault, FaultSchedule,
+    )
+    spec = json.loads(Path(spec_path).read_text())
+    rank, world = int(rank), int(world)
+    if world > 1:
+        multihost.initialize(
+            init_method, world, rank, device="cpu", elastic=True,
+            timeout_s=spec.get("group_timeout_s", 30.0),
+            host_service=spec.get("host_service"),
+            rendezvous_epoch=spec.get("rendezvous_epoch", 0))
+    fault = spec.get("fault")
+    if fault and rank == fault.get("victim", 1):
+        if fault["kind"] == "freeze":
+            freeze_at(fault["step"])
+        else:
+            faultinject.set_schedule(FaultSchedule([Fault(
+                kind=fault["kind"], step=fault["step"],
+                duration=fault.get("duration", 0.0),
+                rank=fault.get("rank", -1))]))
+    kind = spec.get("net", "mlp")
+    trainer = ElasticTrainer(
+        functools.partial(elastic_net, kind=kind), spec["ckpt"],
+        weight_update_sharding=spec.get("mode", "zero1"),
+        checkpoint_every=1, keep_last=50,
+        step_timeout_s=spec.get("step_timeout_s", 5.0),
+        heartbeat_interval_s=0.1,
+        heartbeat_timeout_s=spec.get("heartbeat_timeout_s", 1.0),
+        commit_timeout_s=30.0)
+    restart = None
+    try:
+        trainer.fit(elastic_batches(kind=kind),
+                    epochs=spec.get("epochs", 1))
+    except ElasticRestartRequired as e:
+        restart = dict(survivors=e.survivors, coordinator=e.coordinator,
+                       epoch=e.epoch, grow=e.grow)
+    finally:
+        trainer.close()
+    reg = get_registry()
+    out = Path(out_dir)
+    np.save(out / f"params_r{rank}.npy", flat(trainer.net))
+    (out / f"elastic_r{rank}.json").write_text(json.dumps(dict(
+        trajectory=trainer.trajectory, world=trainer.world,
+        dp=trainer.dp_width, restart=restart,
+        cursor_step=None if trainer._cursor is None
+        else trainer._cursor.step,
+        runtime_faults=multihost.runtime_fault_count(),
+        quarantined=multihost.group_quarantined(),
+        abandoned_step_threads=len(trainer._step_threads),
+        topology=trainer.manager.topology(),
+        metrics=dict(reg.snapshot("elastic_"),
+                     **reg.snapshot("resilience_host")))))
+    multihost.shutdown()
+    return 0
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
@@ -656,6 +983,8 @@ def main(spec_path, rank, world, init_method, out_path) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1] == "elastic":
+        sys.exit(elastic_rank(*sys.argv[2:7]))
     if sys.argv[1] == "sigkill":
         sigkill_mid_checkpoint(sys.argv[2], sys.argv[3])
         sys.exit(0)
