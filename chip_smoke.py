@@ -8,8 +8,8 @@ port's kernels from csrc/ on first use, one nvcc per source, in parallel.
 Phases, each printing JSON lines:
 
 1. device — the import rule (an AST walk: no module of the port, the
-   data-parallel package's included, and not this script imports JAX or
-   the JAX package), the card's name and power limit (nvidia-smi), torch
+   data-parallel package's and the Keras import's included, and not
+   this script imports JAX, the JAX package or h5py), the card's name and power limit (nvidia-smi), torch
    and CUDA
    versions, kernel build time, and the registers and spills ptxas
    reports for K4, K5 and K6 at each head-dim template (32, 64, 128, 256
@@ -147,9 +147,12 @@ Phases, each printing JSON lines:
    seconds and the host-to-card copy of the coefficients are reported;
 11. serve server — ``KerasServer(max_batch=32, max_wait_ms=5.0,
    keep_models=4)`` on the card (admitting 16 at once) serving ``.zip``
-   archives of the full-width char-RNN, GPT and f32 ResNet-50 to 16
+   archives of the full-width char-RNN, GPT and f32 ResNet-50, and the
+   char-RNN's Keras twin from its ``.h5`` path (imported by the server,
+   fed ``.h5`` batch files), to 16
    ``KerasClient`` threads over TCP: per model a ladder (one request per
-   bucket, 1-32 rows, alone), then two waves of 32 requests of seeded
+   bucket, 1-32 rows, alone), then two waves (one for the Keras twin) of
+   32 requests of seeded
    feature files of 1, 2, 3, 5 or 8 rows, one in four ``bulk``. Each predict bucket is one CUDA graph over the
    container's ``_infer_fn()`` (the char-RNN's replay K1, the GPT's K4).
    Every answer against its singleton ``output()`` on the card (C2:
@@ -160,6 +163,8 @@ Phases, each printing JSON lines:
    prompts, one sampled) against ``greedy_generate`` /
    ``sample_generate``; a ``fit`` op (two [32, 200] batch files, K2 and
    K3) then a wave that captures nothing and answers the fitted weights;
+   a ``fit`` op on the Keras path (two [32, 64] ``.h5`` pairs: 4 K2, 4
+   K3);
    ``evaluate`` against ``net.evaluate``; a ``poison_row`` request alone
    ``NONFINITE`` in a full batch; ``health`` / ``readyz`` / ``debug``
    answering under a ``slow_batch`` fault; threads back to their
@@ -168,7 +173,23 @@ Phases, each printing JSON lines:
    captures and their seconds, graph pool bytes per bucket, the
    ``serve:batch`` span against the round trip, and the GPT answer's
    JSON cost apart;
-12. train features — the single-card training features (ROADMAP A2) at
+12. keras transfer — the Keras import (ROADMAP A7.1, A7.2): the
+   char-RNN's Keras twin (``Sequential``: ``Input((None, 96))`` ->
+   ``LSTM(256, return_sequences=True)`` x2 -> ``Dense(96, softmax)``,
+   911,456 params, seeded Keras-style weights) written in Keras's ``.h5``
+   layout by the port's ``Hdf5Writer``, imported onto the card and onto
+   the CPU (params bit for bit; the import's seconds: read, build,
+   weights), ``output()`` on [32, 64, 96] against the CPU (1e-4), a traced
+   ``output()`` holding 2 K1, every committed golden fixture imported on
+   the card at its own tolerance; ``TransferLearning`` freezing layer 0
+   (Adam 1e-3) under an ``EarlyStoppingTrainer`` (3 epochs of 2 [32, 64]
+   batches, scored on 2 held out): the first loss (1e-5) and gradients
+   (1e-4 of their largest |g|) against the CPU, 2 K2 and 2 K3 a
+   ``fit_batch``, the frozen layer bit for bit, the best score
+   reproduced by the calculator; the same run through
+   ``EarlyStoppingParallelTrainer`` at world 1 over NCCL bit for bit;
+   ``output()`` ms and ms a fine-tune step;
+13. train features — the single-card training features (ROADMAP A2) at
    full width: the GPT with ``precision="bf16"`` (bf16 compute, f32
    masters; K4, K5, K6 as bf16 instantiations, read from a traced
    step's kernel symbols) through ``fit`` for 20 steps from a
@@ -190,7 +211,7 @@ Phases, each printing JSON lines:
    ``DevicePrefetchIterator`` against the pageable copy in turns
    (images/s, ``data_wait`` share, busy share). An Iris MLP under L-BFGS
    and ``evaluate_roc`` / ``evaluate_regression`` against the CPU;
-13. serve fleet — the serving fleet (ROADMAP A5.3) on the card: three
+14. serve fleet — the serving fleet (ROADMAP A5.3) on the card: three
    ``FleetReplica(max_batch=32)`` gateways of the GPT's and the
    char-RNN's ``.zip`` behind one ``FleetRouter``, in this process,
    over TCP. A predict storm of both models from 16 clients (1-8 rows,
@@ -214,7 +235,7 @@ Phases, each printing JSON lines:
    one bundle under ``hang_backend``; 0 compile-cache evictions, the
    graph pools' bytes against the card's reserved memory; threads back
    to their baseline;
-14. train parallel — the data-parallel trainers (ROADMAP A6.1) at full
+15. train parallel — the data-parallel trainers (ROADMAP A6.1) at full
    width. World 1 over NCCL in this process: ``ParallelTrainer`` on the
    GPT ([32, 256]) for 3 steps bit for bit its twin's ``fit_batch``;
    gradient accumulation 4 within 2e-4 / 2e-5 of the plain step (SGD
@@ -250,9 +271,9 @@ Phases, each printing JSON lines:
    restore; the survivor's K4-K6 launches join the path's. The
    ``device_profile`` windows of every phase open with the same pad
    burst as ``traced_kernels``', taken out of their numbers;
-15. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+16. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-16. last line ``{"ok": true, "device": {...}}``.
+17. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -291,6 +312,11 @@ from deeplearning4j_tpu_torch.datasets import (
     DataSet, DevicePrefetchIterator, IrisDataSetIterator,
     ListDataSetIterator, MnistDataSetIterator,
 )
+from deeplearning4j_tpu_torch.earlystopping import (
+    DataSetLossCalculator, EarlyStoppingConfiguration,
+    EarlyStoppingParallelTrainer, EarlyStoppingTrainer, InMemoryModelSaver,
+    MaxEpochsTerminationCondition,
+)
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.models.lenet import lenet_mnist
 from deeplearning4j_tpu_torch.models.resnet import resnet50
@@ -301,7 +327,11 @@ from deeplearning4j_tpu_torch.keras.batching import (
 )
 from deeplearning4j_tpu_torch.keras.fleet import FleetReplica, FleetRouter
 from deeplearning4j_tpu_torch.keras.generation import GenerationScheduler
-from deeplearning4j_tpu_torch.keras.server import KerasClient, KerasServer
+from deeplearning4j_tpu_torch.keras.hdf5 import Hdf5Archive, Hdf5Writer
+from deeplearning4j_tpu_torch.keras.keras_import import KerasModelImport
+from deeplearning4j_tpu_torch.keras.server import (
+    KerasClient, KerasServer, _load_array,
+)
 from deeplearning4j_tpu_torch.models.gpt import (
     char_lm_batches, gpt_decoder, greedy_generate, sample_generate,
     synthetic_char_text,
@@ -313,6 +343,9 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.netcommon import value_and_grad
+from deeplearning4j_tpu_torch.nn.transferlearning import (
+    FineTuneConfiguration, TransferLearning,
+)
 from deeplearning4j_tpu_torch.nn.updater import (
     compute_updates, tree_leaves, tree_map,
 )
@@ -508,7 +541,8 @@ SERVER_MAX_BATCH, SERVER_WAIT_MS, SERVER_CLIENTS = 32, 5.0, 16
 SERVER_ROWS = (1, 2, 3, 5, 8)
 SERVER_LADDER = (1, 2, 4, 8, 16, 32)
 SERVER_FILES = 24
-SERVER_WAVES = {"char_rnn": (32, 32), "gpt": (32, 32), "resnet50": (32, 32)}
+SERVER_WAVES = {"char_rnn": (32, 32), "gpt": (32, 32), "resnet50": (32, 32),
+                "keras_lstm": (32,)}
 #: ROADMAP C2: a batched row against its singleton — argmax equal and
 #: max |dprob| within this (probabilities are <= 1, so also relative)
 TOL_C2 = 1e-5
@@ -761,18 +795,27 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-#: port modules the import rule must find (the data-parallel package's)
+#: port modules the import rule must find (the data-parallel package's,
+#: the Keras import's and the transfer-learning modules')
 IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
                         "parallel/multihost.py", "parallel/trainer.py",
                         "parallel/wrapper.py", "parallel/delayed.py",
                         "parallel/strategy.py", "parallel/checkpoint.py",
-                        "resilience/manager.py", "resilience/trainer.py")
+                        "resilience/manager.py", "resilience/trainer.py",
+                        "keras/hdf5.py", "keras/keras_import.py",
+                        "nn/transferlearning.py",
+                        "earlystopping/__init__.py",
+                        "earlystopping/config.py",
+                        "earlystopping/trainer.py",
+                        "earlystopping/parallel_trainer.py",
+                        "gradientcheck/__init__.py",
+                        "gradientcheck/check.py")
 
 
 def import_rule() -> dict:
     """The port's import rule, read from its sources: no module of the
-    port and not this script imports JAX or anything of the JAX package
-    (an AST walk of every ``import`` and absolute ``from`` import)."""
+    port and not this script imports JAX, anything of the JAX package or
+    h5py (an AST walk of every ``import`` and absolute ``from`` import)."""
     import ast
     root = Path(__file__).resolve().parent
     files = sorted((root / "deeplearning4j_tpu_torch").rglob("*.py"))
@@ -788,7 +831,7 @@ def import_rule() -> dict:
                     [node.module] if isinstance(node, ast.ImportFrom)
                     and node.level == 0 else [])
             bad += [(str(f.relative_to(root)), m) for m in mods
-                    if m.split(".")[0] in ("jax", "jaxlib",
+                    if m.split(".")[0] in ("jax", "jaxlib", "h5py",
                                            "deeplearning4j_tpu")]
     check(not missing and not bad,
           f"import rule: missing {missing}, banned imports {bad}")
@@ -2974,20 +3017,19 @@ def server_bucket_checks(srv, path, net, row, files, rows, ladder, symbol,
         if not members:          # no pool file this small: its ladder file
             fs.append(ladder[SERVER_LADDER.index(bucket)])
             members, used = [len(fs) - 1], bucket
-        x = np.concatenate([np.load(fs[j]) for j in members])
-        x = np.concatenate([x, np.zeros((bucket - used,) + row,
-                                        np.float32)])
+        batch = [_load_array(Path(fs[j])) for j in members]
+        x = np.concatenate(batch + [np.zeros((bucket - used,) + row,
+                                             np.float32)])
         with lock:
             got = runner(net, x)
             eager = net.output(x).float().cpu().numpy()
-            singles = [net.output(np.load(fs[j])).float().cpu().numpy()
-                       for j in members]
+            singles = [net.output(b).float().cpu().numpy() for b in batch]
             expect = {symbol: per_replay} if symbol else {}
             prof = device_profile(lambda: runner._graph.replay(), expect)
         ref = np.concatenate(singles)
         out[str(bucket)] = dict(
             graphed=runner.graphed, pool_bytes=runner.nbytes,
-            members=[len(np.load(fs[j])) for j in members],
+            members=[len(b) for b in batch],
             graph_equals_eager=bool(np.array_equal(got, eager)),
             rows_bitwise_singleton=bool(np.array_equal(got[:used], ref)),
             max_abs_prob_diff_singleton=float(np.abs(got[:used]
@@ -3161,17 +3203,44 @@ def server_fit_case(srv, path, net, row, files, rows, tmp):
                 c2=c2_record(answers, picks, refs))
 
 
+def server_keras_fit(srv, path, tmp):
+    """A ``fit`` op on the Keras path: SERVER_FIT_BATCHES [32, 64]
+    feature / label pairs written as ``.h5`` by the port's writer. The
+    imported twin trains by standard backprop: one step a batch, K2 and
+    K3 once a layer."""
+    B, T = LSTM_BATCH
+    batches = text_batches(SERVER_FIT_BATCHES, B, T, SEED + 44)
+    fdir, ldir = tmp / "keras_fit_features", tmp / "keras_fit_labels"
+    fdir.mkdir()
+    ldir.mkdir()
+    for k, b in enumerate(batches):
+        write_batch_h5(fdir / f"{k:03d}.h5", b.features)
+        write_batch_h5(ldir / f"{k:03d}.h5", b.labels)
+    cli = KerasClient(srv.host, srv.port)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        resp = cli.fit(path, str(fdir), str(ldir), nb_epoch=1)
+        fit_s = time.perf_counter() - t0
+        launched = counts()
+    finally:
+        cli.close()
+    return dict(fit_s=fit_s, score=resp["score"], fit_launches=launched)
+
+
 def serve_server():
     """The predict server on the card (ROADMAP A5.2): one KerasServer
     serving the full-width char-RNN, GPT and f32 ResNet-50 from .zip
-    archives to 16 client threads over TCP, each predict bucket one CUDA
-    graph (the char-RNN's replay K1, the GPT's K4). Gates: every answer
-    against its singleton (C2), each bucket's graph bitwise its eager
-    output(), K1/K4 per traced replay, no capture in wave two or after a
-    fit, no fallback, the server's generate against the singleton
-    decode, fit and evaluate against the net, a poisoned row failing
-    alone, probes answering under a held batch, threads back to their
-    baseline. Returns the path's launch counts."""
+    archives, and the char-RNN's Keras twin from its .h5 path (ROADMAP
+    A7.1, fed .h5 batch files), to 16 client threads over TCP, each
+    predict bucket one CUDA graph (the char-RNNs' replay K1, the GPT's
+    K4). Gates: every answer against its singleton (C2), each bucket's
+    graph bitwise its eager output(), K1/K4 per traced replay, no capture
+    in wave two or after a fit, no fallback, the server's generate
+    against the singleton decode, fit and evaluate against the net, a
+    fit on the Keras path launching 2 K2 and 2 K3 a batch, a poisoned row
+    failing alone, probes answering under a held batch, threads back to
+    their baseline. Returns the path's launch counts."""
     t_phase = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="dl4j_serve_server_"))
     models, paths = {}, {}
@@ -3182,18 +3251,27 @@ def serve_server():
             models[name] = (row, onehot, symbol, per_replay)
             del net
         torch.cuda.empty_cache()
+        # the fourth model: the char-RNN's Keras twin, an .h5 the server
+        # imports, fed .h5 batch files
+        paths["keras_lstm"] = str(tmp / "keras_lstm.h5")
+        write_keras_char_rnn(paths["keras_lstm"], **KERAS_TWIN,
+                             seed=SEED + 43)
+        models["keras_lstm"] = ((LSTM_BATCH[1], KERAS_TWIN["vocab"]), True,
+                                "lstm_fwd_infer_kernel", KERAS_TWIN["layers"])
         rng = np.random.default_rng(SEED + 30)
         pools = {}
         for name, (row, onehot, _, _) in models.items():
+            save = (write_batch_h5, ".h5") if name == "keras_lstm" else (
+                np.save, ".npy")
             rows = [int(r) for r in rng.choice(SERVER_ROWS, SERVER_FILES)]
             files = []
             for j, r in enumerate(rows):
-                files.append(str(tmp / f"{name}_{j}.npy"))
-                np.save(files[-1], server_features(rng, row, onehot, r))
+                files.append(str(tmp / f"{name}_{j}{save[1]}"))
+                save[0](files[-1], server_features(rng, row, onehot, r))
             ladder = []
             for b in SERVER_LADDER:
-                ladder.append(str(tmp / f"{name}_ladder_{b}.npy"))
-                np.save(ladder[-1], server_features(rng, row, onehot, b))
+                ladder.append(str(tmp / f"{name}_ladder_{b}{save[1]}"))
+                save[0](ladder[-1], server_features(rng, row, onehot, b))
             pools[name] = (files, rows, ladder)
 
         reg = MetricsRegistry()
@@ -3212,7 +3290,6 @@ def serve_server():
         try:
             for name, (row, onehot, symbol, per_replay) in models.items():
                 files, rows, ladder = pools[name]
-                n1, n2 = SERVER_WAVES[name]
                 reset_counts()
                 # wave one: the ladder, one bucket a request, alone
                 lad, lad_rec = server_wave(
@@ -3223,7 +3300,7 @@ def serve_server():
                 ladder_recs[name] = lad_rec
                 t_end = time.monotonic() + 300.0
                 recs, answers, picks_all = [], [], []
-                for n in (n1, n2):
+                for n in SERVER_WAVES[name]:
                     if recs:     # wave two starts after the prewarms
                         while (srv._prewarm_inflight
                                and time.monotonic() < t_end):
@@ -3239,10 +3316,10 @@ def serve_server():
                 main_path.update(launched)
                 path_by_model[name] = launched
                 net = srv._models[paths[name]]
-                refs = {j: net.output(np.load(f)).float().cpu().numpy()
-                        for j, f in enumerate(files)}
-                refs.update({("ladder", b): net.output(np.load(f)).float()
-                             .cpu().numpy()
+                refs = {j: net.output(_load_array(Path(f))).float().cpu()
+                        .numpy() for j, f in enumerate(files)}
+                refs.update({("ladder", b): net.output(_load_array(Path(f)))
+                             .float().cpu().numpy()
                              for b, f in zip(SERVER_LADDER, ladder)})
                 lad_c2 = c2_record(
                     {i: v for i, v in lad.items()},
@@ -3315,6 +3392,7 @@ def serve_server():
                                   models["char_rnn"][0], files, rows, tmp)
             poison, probes = server_chaos(srv, paths["char_rnn"], rnn,
                                           models["char_rnn"][0], tmp)
+            keras_fit = server_keras_fit(srv, paths["keras_lstm"], tmp)
             stats = srv._batcher.stats()
             cache = dict(srv._batcher._compiled.stats(),
                          max_entries=srv._batcher._compiled.max_entries,
@@ -3338,7 +3416,8 @@ def serve_server():
     rec = dict(phase="serve_server", max_batch=SERVER_MAX_BATCH,
                max_wait_ms=SERVER_WAIT_MS, clients=SERVER_CLIENTS,
                rows=list(SERVER_ROWS), ladder=list(SERVER_LADDER),
-               main_path_launches=main_path, fit=fit, generate=generate,
+               main_path_launches=main_path, fit=fit, keras_fit=keras_fit,
+               generate=generate,
                poison_row=poison, probes_under_slow_batch=probes,
                wire_costs_gpt=wire, stats=stats, compile_cache=cache,
                fallbacks_total=total["fallbacks"],
@@ -3348,16 +3427,16 @@ def serve_server():
     emit(rec)
 
     for name in models:
-        w1, w2 = waves[name]
+        recs = waves[name]
         tol = TOL_C2_RESNET if name == "resnet50" else TOL_C2
-        check(not w1["errors"] and not w2["errors"],
-              f"{name}: requests failed: {w1['errors']} {w2['errors']}")
+        check(not any(r["errors"] for r in recs),
+              f"{name}: requests failed: {[r['errors'] for r in recs]}")
         for wave, r in c2[name].items():
             check(r["argmax_equal"] and r["max_abs_prob_diff"] <= tol,
                   f"{name} {wave}: answers against their singletons "
                   f"past the C2 gate ({tol}): {r}")
-        check(w2["captures"] == 0,
-              f"{name}: wave two captured {w2['captures']} buckets")
+        check(len(recs) < 2 or recs[-1]["captures"] == 0,
+              f"{name}: wave two captured {recs[-1]['captures']} buckets")
         check(set(buckets[name]) == {str(b) for b in SERVER_LADDER},
               f"{name}: captured buckets {sorted(buckets[name])}")
         symbol, per_replay = models[name][2:]
@@ -3385,6 +3464,11 @@ def serve_server():
     check(fit["fit_launches"]["lstm_fwd_train"] > 0
           and fit["fit_launches"]["lstm_bwd"] > 0,
           f"the fit op launched {fit['fit_launches']}")
+    n_keras = KERAS_TWIN["layers"] * SERVER_FIT_BATCHES
+    check(keras_fit["fit_launches"]["lstm_fwd_train"] == n_keras
+          and keras_fit["fit_launches"]["lstm_bwd"] == n_keras
+          and np.isfinite(keras_fit["score"]),
+          f"the fit op on the Keras path: {keras_fit}")
     check(fit["wave"]["captures"] == 0 and not fit["wave"]["errors"],
           f"the predict wave after fit: {fit['wave']}")
     check(fit["c2"]["argmax_equal"]
@@ -3410,11 +3494,344 @@ def serve_server():
     check(drained and not leaked, f"drain {drained}, leaked {leaked}")
     check(main_path["lstm_fwd_infer"] > 0 and main_path["flash_attn_fwd"] > 0,
           f"the predict path launched {main_path}")
-    return dict(main_path=main_path, fit=fit["fit_launches"])
+    return dict(main_path=main_path, fit=fit["fit_launches"],
+                fit_keras=keras_fit["fit_launches"])
 
 
 # --------------------------------------------------------------------------
-# 12. the single-card training features (ROADMAP A2)
+# 12. the Keras import, transfer learning and early stopping (ROADMAP A7)
+# --------------------------------------------------------------------------
+
+#: the char-RNN's Keras twin: Sequential Input((None, 96)) -> LSTM(256,
+#: return_sequences=True) x 2 -> Dense(96, softmax), in the Keras-2 .h5
+#: layout of tests/fixtures/keras_lstm.h5, written by the port's writer;
+#: imported, its LSTMs run K1 (output) and K2/K3 (fine-tuning)
+KERAS_TWIN = dict(vocab=96, hidden=256, layers=2)
+KERAS_PARAMS = 911_456
+#: keras_transfer: output() on LSTM_BATCH; TransferLearning freezing
+#: layer 0, then an EarlyStoppingTrainer of KERAS_EPOCHS epochs over
+#: KERAS_TRAIN_BATCHES [32, 64] batches (Adam at KERAS_LR), scored by a
+#: DataSetLossCalculator on KERAS_HELD_OUT batches
+KERAS_EPOCHS, KERAS_TRAIN_BATCHES, KERAS_HELD_OUT, KERAS_LR = 3, 2, 2, 1e-3
+#: the imported twin's probabilities on the card against the CPU
+TOL_KERAS = 1e-4
+#: the committed golden fixtures (tests/test_keras_golden.py): file, the
+#: inputs' keys in keras_goldens.npz, the outputs' key, the tolerance
+KERAS_GOLDENS = (
+    ("keras_mlp.h5", ("mlp_x",), "mlp_y", 1e-5),
+    ("keras_cnn.h5", ("cnn_x",), "cnn_y", 1e-4),
+    ("keras_lstm.h5", ("lstm_x",), "lstm_y", 1e-4),
+    ("keras_functional.h5", ("functional_x",), "functional_y", 1e-4),
+    ("keras_two_input.h5", ("two_xa", "two_xb"), "two_y", 1e-5),
+    ("keras_gru.h5", ("gru_x",), "gru_y", 1e-4),
+    ("keras_shapes.h5", ("shapes_x",), "shapes_y", 1e-4),
+    ("keras_repeat.h5", ("repeat_x",), "repeat_y", 1e-4),
+    ("keras_nested.h5", ("nested_x",), "nested_y", 1e-5))
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+
+
+def write_keras_char_rnn(path, vocab, hidden, layers, seed):
+    """Write the char-RNN's Keras twin as Keras 2 saves it (``model_config``
+    JSON, ``/model_weights/<layer>`` groups with ``weight_names``, the
+    weights under ``<model>/<layer>/<cell>/``), with seeded weights drawn
+    as Keras initializes them: Glorot-uniform kernels, orthogonal
+    recurrent kernels, zero biases but the forget gate's ones
+    (``unit_forget_bias``)."""
+    rng = np.random.default_rng(seed)
+
+    def glorot(n_in, n_out):
+        lim = np.sqrt(6.0 / (n_in + n_out))
+        return rng.uniform(-lim, lim, (n_in, n_out)).astype(np.float32)
+
+    def orthogonal(rows, cols):
+        q, r = np.linalg.qr(rng.normal(size=(cols, rows)))
+        return (q * np.sign(np.diag(r))).T.astype(np.float32)
+
+    names = [f"lstm_{i + 1}" for i in range(layers)] + ["out"]
+    lstm = dict(units=hidden, activation="tanh",
+                recurrent_activation="sigmoid", use_bias=True,
+                return_sequences=True, return_state=False,
+                go_backwards=False, stateful=False, unroll=False,
+                unit_forget_bias=True, dropout=0.0, recurrent_dropout=0.0)
+    config = {"class_name": "Sequential", "config": {
+        "name": "char_rnn", "trainable": True, "layers": [
+            {"class_name": "InputLayer", "config": {
+                "batch_shape": [None, None, vocab], "dtype": "float32",
+                "name": "chars"}}]
+        + [{"class_name": "LSTM", "config": dict(lstm, name=n)}
+           for n in names[:-1]]
+        + [{"class_name": "Dense", "config": {
+            "name": "out", "units": vocab, "activation": "softmax",
+            "use_bias": True}}],
+        "build_input_shape": [None, None, vocab]}}
+    weights = {}
+    n_in = vocab
+    for n in names[:-1]:
+        bias = np.zeros(4 * hidden, np.float32)
+        bias[hidden:2 * hidden] = 1.0
+        weights[n] = ("lstm_cell", {
+            "kernel": glorot(n_in, 4 * hidden),
+            "recurrent_kernel": orthogonal(hidden, 4 * hidden),
+            "bias": bias})
+        n_in = hidden
+    weights["out"] = (None, {"kernel": glorot(hidden, vocab),
+                             "bias": np.zeros(vocab, np.float32)})
+    with Hdf5Writer(str(path)) as w:
+        for obj in ("/", "/model_weights"):
+            if obj != "/":
+                w.create_group(obj)
+            w.write_attr_str(obj, "backend", "torch")
+            w.write_attr_str(obj, "keras_version", "3.13.1")
+        w.write_attr_str("/", "model_config", json.dumps(config))
+        w.write_attr_strlist("/model_weights", "layer_names", names)
+        for n, (cell, arrays) in weights.items():
+            prefix = f"char_rnn/{n}" + (f"/{cell}" if cell else "")
+            group = f"/model_weights/{n}"
+            w.create_group(group)
+            path_so_far = group
+            for part in prefix.split("/"):
+                path_so_far += "/" + part
+                w.create_group(path_so_far)
+            for an, a in arrays.items():
+                w.write_dataset(f"{group}/{prefix}/{an}", a)
+            w.write_attr_strlist(group, "weight_names",
+                                 [f"{prefix}/{an}" for an in arrays])
+        w.create_group("/model_weights/top_level_model_weights")
+        w.write_attr_strlist("/model_weights/top_level_model_weights",
+                             "weight_names", [])
+
+
+def write_batch_h5(path, array):
+    """One batch file as the gateway reads it: a single dataset."""
+    with Hdf5Writer(str(path)) as w:
+        w.write_dataset("/data", np.asarray(array, np.float32))
+
+
+def keras_import_seconds(path):
+    """The import's seconds onto the card in parts: reading the file
+    (parse and every dataset), building the net on the card (config and
+    init), loading the weights (read and host-to-card copy), and the
+    whole public call; returns (the imported net, the record)."""
+    rec = {}
+    t0 = time.perf_counter()
+    with Hdf5Archive(str(path)) as h5:
+        cfg = json.loads(h5.read_attribute_as_string("model_config"))
+        n_bytes = 0
+
+        def walk(p):
+            nonlocal n_bytes
+            for kind, name in h5.list_children(p):
+                child = f"{p.rstrip('/')}/{name}"
+                if kind == "g":
+                    walk(child)
+                else:
+                    n_bytes += h5.read_dataset(child).nbytes
+        walk("/")
+    rec["read_s"] = time.perf_counter() - t0
+    rec["weight_bytes"] = n_bytes
+    t0 = time.perf_counter()
+    net = KerasModelImport._build_sequential(cfg["config"]["layers"], None)
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with Hdf5Archive(str(path)) as h5:
+        KerasModelImport._load_sequential_weights(h5, net)
+    torch.cuda.synchronize()
+    rec["weights_read_and_copy_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = KerasModelImport.import_keras_model_and_weights(str(path))
+    torch.cuda.synchronize()
+    rec["import_s"] = time.perf_counter() - t0
+    return net, rec
+
+
+def keras_goldens():
+    """Each committed golden fixture imported onto the card against its
+    Keras outputs, at its own tolerance."""
+    goldens = np.load(FIXTURES / "keras_goldens.npz")
+    out = {}
+    for name, xs, y, tol in KERAS_GOLDENS:
+        net = KerasModelImport.import_keras_model_and_weights(
+            str(FIXTURES / name))
+        x = [goldens[k] for k in xs]
+        got = net.output(x if len(x) > 1 else x[0]).float().cpu().numpy()
+        out[name] = dict(max_abs_err=float(np.abs(got - goldens[y]).max()),
+                         tol=tol, device=str(net.device))
+    return out
+
+
+def keras_transfer_net(base):
+    """TransferLearning on the imported twin: layer 0 frozen, Adam at
+    KERAS_LR."""
+    return (TransferLearning.builder(base)
+            .fine_tune_configuration(FineTuneConfiguration(
+                updater="adam", learning_rate=KERAS_LR))
+            .set_feature_extractor(0).build())
+
+
+def keras_early_stopping(net, train, held_out, parallel=False):
+    """An EarlyStoppingTrainer (or, ``parallel``, an
+    EarlyStoppingParallelTrainer on the running group) over ``train`` for
+    KERAS_EPOCHS epochs, scored on ``held_out``; returns (result, the
+    calculator, the loss of every step)."""
+    calc = DataSetLossCalculator(ListDataSetIterator(held_out))
+    cfg = EarlyStoppingConfiguration(
+        epoch_termination_conditions=[
+            MaxEpochsTerminationCondition(KERAS_EPOCHS)],
+        score_calculator=calc, model_saver=InMemoryModelSaver())
+    it = ListDataSetIterator(train)
+    trainer = (EarlyStoppingParallelTrainer(cfg, net, it) if parallel
+               else EarlyStoppingTrainer(cfg, net, it))
+    # the step each batch goes through: the net's, or the ParallelTrainer's
+    stepper = trainer.trainer if parallel else net
+    step, losses = stepper.fit_batch, []
+
+    def spy(batch):
+        loss = step(batch)
+        losses.append(float(loss))
+        return loss
+    stepper.fit_batch = spy
+    try:
+        result = trainer.fit()
+    finally:
+        del stepper.fit_batch
+    return result, calc, losses
+
+
+def keras_transfer(smi):
+    """The Keras import and transfer learning on the card (ROADMAP A7.1,
+    A7.2): the char-RNN's Keras twin written by the port's HDF5 writer,
+    imported onto the card and onto the CPU (params bit for bit),
+    output() against the CPU and a traced one holding 2 K1, each golden
+    fixture on the card at its tolerance; TransferLearning freezing layer
+    0 and an EarlyStoppingTrainer (first loss and gradients against the
+    CPU, 2 K2 and 2 K3 a fit_batch, the frozen layer bit for bit, the
+    best score reproduced), and an EarlyStoppingParallelTrainer at world
+    1 over NCCL bit for bit the same run. Returns the path's launch
+    counts."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_keras_"))
+    try:
+        path = tmp / "char_rnn_twin.h5"
+        write_keras_char_rnn(path, **KERAS_TWIN, seed=SEED + 40)
+        reset_counts()
+        net, seconds = keras_import_seconds(path)
+        cpu = KerasModelImport.import_keras_model_and_weights(
+            str(path), device="cpu")
+        rec = dict(phase="keras_transfer", nvidia_smi=smi,
+                   params=net.num_params(), import_seconds=seconds,
+                   file_bytes=path.stat().st_size,
+                   layers=[type(layer).__name__ for layer in net.layers],
+                   params_bitwise_cpu=bool(np.array_equal(
+                       net.params_flat(), cpu.params_flat())))
+        (B, T), V = LSTM_BATCH, KERAS_TWIN["vocab"]
+        rng = np.random.default_rng(SEED + 41)
+        x = np.eye(V, dtype=np.float32)[rng.integers(0, V, (B, T))]
+        probs = net.output(x)
+        rec["output_shape"] = list(probs.shape)
+        rec["max_abs_err_vs_cpu"] = float(
+            (probs.cpu() - uncounted(cpu.output, x)).abs().max())
+        rec["output_ms"] = uncounted(host_ms, lambda: net.output(x))
+        rec["output_profile"] = uncounted(
+            device_profile, lambda: net.output(x),
+            {"lstm_fwd_infer_kernel": KERAS_TWIN["layers"]})
+        rec["goldens"] = keras_goldens()
+
+        batches = text_batches(KERAS_TRAIN_BATCHES + KERAS_HELD_OUT, B, T,
+                               SEED + 42)
+        train, held = (batches[:KERAS_TRAIN_BATCHES],
+                       batches[KERAS_TRAIN_BATCHES:])
+        tl = keras_transfer_net(net)
+        tl_cpu = keras_transfer_net(cpu)
+        grads, loss, _ = uncounted(tl.compute_gradient_and_score, train[0])
+        cpu_grads, cpu_loss, _ = tl_cpu.compute_gradient_and_score(train[0])
+        rec["first_loss"], rec["first_loss_cpu"] = float(loss), float(
+            cpu_loss)
+        rec["grad_rel_err"], rec["grad_worst"] = grad_rel_err(grads,
+                                                              cpu_grads)
+        frozen0 = {k: t.clone() for k, t in tl.params[0].items()}
+        before = counts()
+        result, calc, losses = keras_early_stopping(tl, train, held)
+        after = counts()
+        steps = len(losses)
+        es_launches = {k: after[k] - before[k] for k in after}
+        rec.update(
+            losses=losses, steps=steps, es_launches=es_launches,
+            termination=result.termination_reason,
+            total_epochs=result.total_epochs,
+            best_epoch=result.best_model_epoch,
+            best_score=result.best_model_score,
+            score_vs_epoch=result.score_vs_epoch,
+            frozen_bitwise=all(torch.equal(frozen0[k], tl.params[0][k])
+                               for k in frozen0),
+            best_score_recomputed=uncounted(calc.calculate_score,
+                                            result.best_model))
+        path_counts = counts()
+
+        # the same run through EarlyStoppingParallelTrainer at world 1
+        check(multihost.initialize(f"file://{tmp}/rdv_keras", 1, 0)
+              == "nccl", "a world-1 group on the card runs nccl")
+        try:
+            par = keras_transfer_net(net)
+            pres, _, plosses = uncounted(keras_early_stopping, par, train,
+                                         held, True)
+        finally:
+            multihost.shutdown()
+        rec.update(parallel_losses=plosses,
+                   parallel_bitwise=(plosses == losses
+                                     and params_equal(par, tl)
+                                     and pres.score_vs_epoch
+                                     == result.score_vs_epoch
+                                     and pres.best_model_epoch
+                                     == result.best_model_epoch))
+        step_net = keras_transfer_net(net)
+        rec["fine_tune_ms_per_step"] = uncounted(
+            host_ms, lambda: step_net.fit_batch(train[0]))
+        rec["main_path_launches"] = path_counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(rec)
+
+    L = KERAS_TWIN["layers"]
+    check(rec["params"] == KERAS_PARAMS and rec["params_bitwise_cpu"],
+          f"imported twin: {rec['params']} params, bitwise CPU "
+          f"{rec['params_bitwise_cpu']}")
+    check(rec["output_shape"] == [B, T, V]
+          and rec["max_abs_err_vs_cpu"] <= TOL_KERAS,
+          f"imported twin's output against the CPU: {rec['output_shape']}, "
+          f"{rec['max_abs_err_vs_cpu']}")
+    check(rec["output_profile"]["traced_path_kernels"]
+          == {"lstm_fwd_infer_kernel": L},
+          f"a traced output() holds {rec['output_profile']}")
+    for name, g in rec["goldens"].items():
+        check(g["max_abs_err"] <= g["tol"] and g["device"] == "cuda",
+              f"golden {name} on the card: {g}")
+    check(abs(rec["first_loss"] - rec["first_loss_cpu"])
+          <= TOL_TRAIN_LOSS * abs(rec["first_loss_cpu"])
+          and rec["grad_rel_err"] <= TOL_TRAIN_GRAD,
+          f"fine-tune step against the CPU: loss {rec['first_loss']} vs "
+          f"{rec['first_loss_cpu']}, gradient {rec['grad_rel_err']} at "
+          f"{rec['grad_worst']}")
+    check(steps == KERAS_EPOCHS * KERAS_TRAIN_BATCHES
+          and es_launches["lstm_fwd_train"] == L * steps
+          and es_launches["lstm_bwd"] == L * steps,
+          f"early stopping: {steps} steps launched {es_launches}")
+    check(rec["frozen_bitwise"], "the frozen layer moved")
+    check(rec["termination"] == "EpochTerminationCondition"
+          and rec["total_epochs"] == KERAS_EPOCHS
+          and abs(rec["best_score_recomputed"] - rec["best_score"])
+          <= 1e-6 * abs(rec["best_score"]),
+          f"early stopping result: {rec['termination']}, epochs "
+          f"{rec['total_epochs']}, best {rec['best_score']} recomputed "
+          f"{rec['best_score_recomputed']}")
+    check(rec["parallel_bitwise"],
+          f"EarlyStoppingParallelTrainer at world 1: {plosses} vs {losses}")
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    return rec["main_path_launches"]
+
+
+# --------------------------------------------------------------------------
+# 13. the single-card training features (ROADMAP A2)
 # --------------------------------------------------------------------------
 
 #: the train_features phase: 20 fit steps of the bf16 GPT, the batch of
@@ -3989,7 +4406,7 @@ def train_features():
 
 
 # --------------------------------------------------------------------------
-# 13. the serving fleet (ROADMAP A5.3)
+# 14. the serving fleet (ROADMAP A5.3)
 # --------------------------------------------------------------------------
 
 #: the fleet: replicas behind the router; the kill storm's requests per
@@ -4882,7 +5299,7 @@ def serve_fleet():
 
 
 # ---------------------------------------------------------------------------
-# 14. the data-parallel trainers (ROADMAP A6.1)
+# 15. the data-parallel trainers (ROADMAP A6.1)
 # ---------------------------------------------------------------------------
 
 #: the train_parallel phase: 3 synchronized steps of [32, 256] per mode;
@@ -5722,23 +6139,28 @@ def main() -> int:
     # over TCP, a CUDA graph per predict bucket replaying K1 and K4 ---------
     server_path = timed("serve_server", serve_server)
     served, fitted = server_path["main_path"], server_path["fit"]
+    fitted_keras = server_path["fit_keras"]
 
-    # ---- 12. the single-card training features: bf16 GPT (K4-K6 in bf16)
+    # ---- 12. the Keras import: the char-RNN's Keras twin on the card (K1),
+    # TransferLearning and early stopping (K2/K3), the golden fixtures ----
+    keras = timed("keras_transfer", keras_transfer, smi)
+
+    # ---- 13. the single-card training features: bf16 GPT (K4-K6 in bf16)
     # and char-RNN (K2/K3 in bf16), listeners, sentinel, remat, scan
     # windows, the prefetching iterator, solvers, ROC / regression --------
     tf_path = timed("train_features", train_features)
     tf_gpt, tf_lstm = tf_path["gpt"], tf_path["char_rnn"]
 
-    # ---- 13. the serving fleet: FleetRouter over three FleetReplica
+    # ---- 14. the serving fleet: FleetRouter over three FleetReplica
     # gateways, failover, rolling restart, autoscale and brownout ---------
     fleet = timed("serve_fleet", serve_fleet)
     fleet_launched = fleet["launched"]
 
-    # ---- 14. the data-parallel trainers: world 1 over NCCL here, world 2
+    # ---- 15. the data-parallel trainers: world 1 over NCCL here, world 2
     # over gloo in two processes on this card, sharded checkpoints ---------
     par = timed("train_parallel", train_parallel, smi)
 
-    # ---- 15. summary of every ported kernel -------------------------------
+    # ---- 16. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -5772,10 +6194,13 @@ def main() -> int:
         dict(name="lstm_fwd_infer", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/lstm_fwd_infer.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:99",
-             # serving, the heads of tBPTT windows when bwd < fwd, and
-             # the predict server's captures
+             # serving, the heads of tBPTT windows when bwd < fwd, the
+             # predict server's captures (the Keras twin's among them)
+             # and the imported Keras models
              launches=lstm_launches + lstm_train_path["lstm_fwd_infer"]
-             + served["lstm_fwd_infer"] + fleet_launched["lstm_fwd_infer"],
+             + served["lstm_fwd_infer"] + fleet_launched["lstm_fwd_infer"]
+             + keras["lstm_fwd_infer"],
+             launches_keras_transfer=keras["lstm_fwd_infer"],
              launches_serve_fleet=fleet_launched["lstm_fwd_infer"],
              replays_serve_fleet_traced_wave=fleet["traced"]["char_rnn"],
              launches_serve_server=served["lstm_fwd_infer"],
@@ -5846,7 +6271,10 @@ def main() -> int:
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:63",
              launches=lstm_train_path["lstm_fwd_train"]
              + fitted["lstm_fwd_train"] + tf_lstm["lstm_fwd_train"]
-             + par["lstm_fwd_train"],
+             + par["lstm_fwd_train"] + keras["lstm_fwd_train"]
+             + fitted_keras["lstm_fwd_train"],
+             launches_keras_transfer=keras["lstm_fwd_train"],
+             launches_serve_server_keras_fit=fitted_keras["lstm_fwd_train"],
              launches_train_parallel=par["lstm_fwd_train"],
              launches_bf16_train_features=tf_lstm["lstm_fwd_train"],
              ms_bf16=k23b["ms_fwd"], plain_ms_bf16=k23b["plain_ms_fwd"],
@@ -5875,7 +6303,10 @@ def main() -> int:
              source="deeplearning4j_tpu_torch/csrc/lstm_bwd.cu",
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:161",
              launches=lstm_train_path["lstm_bwd"] + fitted["lstm_bwd"]
-             + tf_lstm["lstm_bwd"] + par["lstm_bwd"],
+             + tf_lstm["lstm_bwd"] + par["lstm_bwd"] + keras["lstm_bwd"]
+             + fitted_keras["lstm_bwd"],
+             launches_keras_transfer=keras["lstm_bwd"],
+             launches_serve_server_keras_fit=fitted_keras["lstm_bwd"],
              launches_train_parallel=par["lstm_bwd"],
              launches_bf16_train_features=tf_lstm["lstm_bwd"],
              ms_bf16=k23b["ms_bwd"], plain_ms_bf16=k23b["plain_ms_bwd"],

@@ -3,5 +3,5 @@
 graph per bucket (``batching``), the token-level generation engine
 (``generation``), the serving fleet — ``FleetRouter`` over
 ``FleetReplica`` gateways (``fleet``) — and its ``FleetAutoscaler``
-(``autoscale``). The Keras import and its HDF5 reader wait for ROADMAP
-A7.1."""
+(``autoscale``), and the Keras model import (``keras_import``) over a
+plain-Python HDF5 reader and writer (``hdf5``)."""

@@ -46,10 +46,13 @@ Where the port differs from the JAX gateway:
 - ``device=None`` (the default) serves on the card and raises without
   one; ``device="cpu"`` serves on the CPU. The device is handed to
   ``ModelSerializer.restore_model``.
-- Models load from ``.zip`` archives only, and batch files are ``.npy``
-  only: a Keras model path or an ``.h5`` batch file raises
-  ``NotImplementedError`` until the Keras import and the HDF5 reader are
-  ported (ROADMAP A7.1). ``tuned=`` raises until the autotuner is
+- A ``.zip`` model restores through ``ModelSerializer``; any other model
+  path imports through ``KerasModelImport.import_keras_model_and_weights``
+  (a Keras ``.h5`` or ``.keras`` file), on the server's device. Batch
+  files are ``.npy`` or ``.h5``: an ``.h5`` file holds one array, its
+  first dataset under ``/`` in name order, read by the port's own HDF5
+  reader (the JAX gateway's ``.h5`` path calls a method its reader lacks
+  and raises, ROADMAP C17). ``tuned=`` raises until the autotuner is
   ported (A7.4).
 - A ``fit`` answers the last minibatch's ``score_value`` on either
   container (the JAX gateway's ``score()`` takes no data on a
@@ -74,6 +77,8 @@ from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.keras.batching import BatchScheduler, _host
 from deeplearning4j_tpu_torch.keras.generation import GenerationScheduler
+from deeplearning4j_tpu_torch.keras.hdf5 import Hdf5Archive
+from deeplearning4j_tpu_torch.keras.keras_import import KerasModelImport
 from deeplearning4j_tpu_torch.profiling.flightrec import (
     record as flight_record,
 )
@@ -92,18 +97,21 @@ from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
 
 
 def _load_array(path: Path) -> np.ndarray:
+    """A batch file's array: ``.npy``, or an ``.h5`` file's first dataset
+    under ``/`` in name order (one array per file)."""
     if path.suffix == ".npy":
         return np.load(path)
-    raise NotImplementedError(
-        f"{path}: only .npy batch files are served; .h5 needs the HDF5 "
-        "reader, which is not ported yet (ROADMAP A7.1)")
+    with Hdf5Archive(str(path)) as h5:
+        names = sorted(n for k, n in h5.list_children("/") if k == "d")
+        if not names:
+            raise ValueError(f"{path}: no datasets")
+        return h5.read_dataset("/" + names[0])
 
 
 class HDF5MiniBatchDataSetIterator(DataSetIterator):
     """One file per minibatch, features/labels in parallel directories,
     loaded lazily per next() — the dataset need not fit in RAM
-    (ref: HDF5MiniBatchDataSetIterator.java). ``.h5`` files are listed,
-    as in the JAX package, and refused when loaded (A7.1)."""
+    (ref: HDF5MiniBatchDataSetIterator.java)."""
 
     def __init__(self, features_dir: str, labels_dir: str):
         self._f_files = sorted(p for p in Path(features_dir).iterdir()
@@ -379,14 +387,14 @@ class KerasServer:
         must ``_unpin(key)`` when the op finishes."""
         with self._state_lock:
             if key not in self._models:
-                if not key.endswith(".zip"):
-                    raise NotImplementedError(
-                        f"{key}: only .zip archives load; a Keras model "
-                        "needs the Keras import, which is not ported yet "
-                        "(ROADMAP A7.1)")
                 # container-agnostic: MLN or ComputationGraph
-                model = ModelSerializer.restore_model(key,
-                                                      device=self._device)
+                if key.endswith(".zip"):
+                    model = ModelSerializer.restore_model(
+                        key, device=self._device)
+                else:
+                    model = (KerasModelImport
+                             .import_keras_model_and_weights(
+                                 key, device=self._device))
                 self._models[key] = model
                 if self._prewarm and self._batcher is not None:
                     # speculative bucket prewarming: capture the

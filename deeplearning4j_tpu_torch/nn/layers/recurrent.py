@@ -138,19 +138,22 @@ class LSTM(_RecurrentBase):
                             self.forget_gate_bias_init, self._peephole)
         return h2, (h2, c2)
 
-    def _fused_kernel_ok(self, mask) -> bool:
+    def _fused_kernel_ok(self, mask, dtype=torch.float32) -> bool:
         """The kernel path is taken iff the configuration is what the kernel
-        hardcodes: no mask, sigmoid gates, tanh activation, and a hidden
-        size within the kernel's shared-memory carry (``MAX_HIDDEN``). The
-        decision reads the arguments only, the same on every device."""
+        hardcodes: no mask, sigmoid gates, tanh activation, a hidden size
+        within the kernel's shared-memory carry (``MAX_HIDDEN``) and an
+        input of one of its types (f32, bf16; a float64 net, such as a
+        gradient check's, takes the step loop). The decision reads the
+        arguments only, the same on every device."""
         return (mask is None and self.gate_activation == "sigmoid"
                 and (self.activation or "tanh") == "tanh"
-                and self.n_out <= MAX_HIDDEN)
+                and self.n_out <= MAX_HIDDEN
+                and dtype in (torch.float32, torch.bfloat16))
 
     def scan(self, params: Params, x: Tensor, carry,
              mask: Optional[Tensor], reverse: bool = False):
         """Run the full sequence [B, T, F] -> ([B, T, H], final carry)."""
-        if self._fused_kernel_ok(mask):
+        if self._fused_kernel_ok(mask, x.dtype):
             h0, c0 = carry
             xin = torch.flip(x, dims=[1]) if reverse else x
             ys, hT, cT = fused_lstm(

@@ -169,9 +169,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "parallel/trainer.py", "parallel/wrapper.py",
                    "parallel/delayed.py", "parallel/strategy.py",
                    "parallel/checkpoint.py", "resilience/manager.py",
-                   "resilience/trainer.py"):
+                   "resilience/trainer.py", "keras/hdf5.py",
+                   "keras/keras_import.py", "nn/transferlearning.py",
+                   "earlystopping/trainer.py",
+                   "earlystopping/parallel_trainer.py",
+                   "gradientcheck/check.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
-    banned = ("jax", "jaxlib", "deeplearning4j_tpu")
+    # h5py too: the port reads HDF5 itself (keras/hdf5.py)
+    banned = ("jax", "jaxlib", "deeplearning4j_tpu", "h5py")
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in banned]

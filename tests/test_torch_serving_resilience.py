@@ -16,7 +16,8 @@ protocol and ui cases wait for ROADMAP A7), and what the port adds:
 (c) the port's own contract — ``fit``, ``evaluate`` and ``generate``
     (greedy, sampled, streamed) over the wire against the served net's
     own answers, a ``fit`` followed by predicts that see the new weights,
-    the paths that wait for A7 refusing with ``NotImplementedError``,
+    ``tuned=`` (A7.4) refusing with ``NotImplementedError`` while ``.h5``
+    batch files and Keras ``.h5`` models are served,
     ``device=None`` raising without a card, threads back to baseline
     after ``drain`` and ``stop``, ``tools/lockcheck.py`` clean on
     ``keras/`` and ``resilience/``;
@@ -64,6 +65,7 @@ from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iris import (IrisDataSetIterator,
                                                     load_iris)
+from deeplearning4j_tpu_torch.keras.hdf5 import Hdf5Writer
 from deeplearning4j_tpu_torch.keras.server import KerasClient, KerasServer
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.models.gpt import (gpt_tiny, greedy_generate,
@@ -814,20 +816,28 @@ def test_batch_level_failure_falls_back_to_singletons(iris_zip, tmp_path):
 
 def test_unported_paths_raise_naming_their_roadmap_item(tmp_path,
                                                         iris_zip):
+    """``tuned=`` still waits for the autotuner (A7.4); the two ``.h5``
+    requests that once refused naming A7.1 are served: an ``.h5`` batch
+    file (its first dataset, written by the port's ``Hdf5Writer``)
+    answers as its ``.npy`` twin does, and a Keras ``.h5`` model path
+    imports and answers its golden outputs."""
     model, x = iris_zip
     with pytest.raises(NotImplementedError, match="A7.4"):
         Server(tuned=object())
     h5 = tmp_path / "x.h5"
-    h5.write_bytes(b"\x89HDF")
-    keras_model = tmp_path / "model.h5"
-    keras_model.write_bytes(b"\x89HDF")
+    with Hdf5Writer(str(h5)) as w:
+        w.write_dataset("/features", np.load(x))
+    fixtures = Path(__file__).resolve().parent / "fixtures"
+    goldens = np.load(fixtures / "keras_goldens.npz")
+    keras_x = tmp_path / "keras_x.npy"
+    np.save(keras_x, goldens["mlp_x"])
     srv = Server()
     try:
         cli = KerasClient(srv.host, srv.port)
-        with pytest.raises(RuntimeError, match="A7.1"):
-            cli.request(op="predict", features=str(h5), model=model)
-        with pytest.raises(RuntimeError, match="A7.1"):
-            cli.request(op="predict", features=x, model=str(keras_model))
+        np.testing.assert_array_equal(cli.predict(str(h5), model=model),
+                                      cli.predict(x, model=model))
+        got = cli.predict(str(keras_x), model=str(fixtures / "keras_mlp.h5"))
+        np.testing.assert_allclose(got, goldens["mlp_y"], atol=1e-5)
         cli.close()
     finally:
         srv.stop()

@@ -653,6 +653,38 @@ def case_strategies(batches):
                          DelayedSyncTrainer.__name__))
 
 
+def case_early_stopping_parallel(params, batches, held_out, epochs=3):
+    """``EarlyStoppingParallelTrainer`` over ``ParallelTrainer`` on the
+    MLP: ``epochs`` epochs of ``batches``, scored on ``held_out`` by a
+    ``DataSetLossCalculator``; the result's fields and the params after
+    (the best epoch's, restored by the in-memory saver)."""
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingParallelTrainer, InMemoryModelSaver,
+        MaxEpochsTerminationCondition,
+    )
+    from deeplearning4j_tpu_torch.parallel import MeshContext
+    net = build("mlp", params)
+    cfg = EarlyStoppingConfiguration(
+        epoch_termination_conditions=[MaxEpochsTerminationCondition(epochs)],
+        score_calculator=DataSetLossCalculator(
+            ListDataSetIterator(datasets(held_out))),
+        model_saver=InMemoryModelSaver())
+    trainer = EarlyStoppingParallelTrainer(
+        cfg, net, ListDataSetIterator(datasets(batches)),
+        mesh=MeshContext.create(device="cpu"))
+    res = trainer.fit()
+    return dict(reason=res.termination_reason, epochs=res.total_epochs,
+                best_epoch=res.best_model_epoch,
+                best_score=res.best_model_score,
+                scores={int(k): float(v)
+                        for k, v in res.score_vs_epoch.items()},
+                params=flat(net), iterations=net.iteration_count)
+
+
 def case_stats(batches):
     """ParallelTrainer(collect_training_stats=True) over an iterator."""
     from deeplearning4j_tpu_torch.datasets.iterator import (
