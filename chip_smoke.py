@@ -5321,6 +5321,25 @@ FT_BATCHES, FT_EVERY = 4, 2
 #: kill_host on rank 1 at step ELASTIC_KILL of ELASTIC_STEPS, a checkpoint
 #: every ELASTIC_EVERY steps, a heartbeat stale after ELASTIC_HB_S
 ELASTIC_STEPS, ELASTIC_KILL, ELASTIC_EVERY, ELASTIC_HB_S = 5, 3, 2, 2.0
+#: the world-2 group's model- and sp-axis modes (ROADMAP A6.2a), after
+#: off / zero1 / zero2: PAR_STEPS steps of [PAR_MESH_BATCH, 256] each on
+#: the full-width GPT (rows cut from TRAIN_BATCH's 32 so that each rank
+#: also runs the world-1 plain reference; widths and T as SLICE), held
+#: to the plain steps at loss rtol TOL_MESH_LOSS and TOL_PAR_* params
+PAR_MESH_BATCH = 8
+PAR_MESH_MODES = {"tp": dict(n_data=1, n_model=2),
+                  "sp": dict(n_data=1, n_seq=2)}
+TOL_MESH_LOSS = 1e-5
+#: Adam's first update of an element is lr * sign(g) (bias-corrected m /
+#: sqrt(v)): an element whose gradient sums to rounding noise takes the
+#: sign its summation order gives it, and a model- or sp-axis step sums
+#: in another order (ROADMAP C23). So the Adam path's params may hold up
+#: to PAR_MESH_FLIPS elements (of 25.4M) outside TOL_PAR_* of the plain
+#: steps, each by at most 2 lr a step; its SGD twins, whose update is
+#: linear in g, are held to TOL_PAR_* on every element
+PAR_MESH_FLIPS = 64
+#: the SGD twins' learning rate (3e-4 diverges by the third step)
+PAR_MESH_SGD_LR = 1e-4
 
 
 def text_batches(n, B, T, seed):
@@ -5331,8 +5350,22 @@ def text_batches(n, B, T, seed):
     return out
 
 
+#: each seed's initial GPT params, drawn once a process (the host draw
+#: of 25.4M params takes seconds; the copies are the same tensors)
+_PAR_GPT_PARAMS: dict = {}
+
+
 def par_gpt(**kw):
-    return ComputationGraph(gpt_decoder(**SLICE, **kw), device="cuda").init()
+    """The full-width GPT on the card (``kw``: gpt_decoder's options),
+    its params the config seed's draw, taken once a process."""
+    conf = gpt_decoder(**SLICE, **kw)
+    seed = conf.training.seed
+    if seed not in _PAR_GPT_PARAMS:
+        net = ComputationGraph(conf, device="cuda").init()
+        _PAR_GPT_PARAMS[seed] = {k: {n: t.cpu() for n, t in v.items()}
+                                 for k, v in net.params.items()}
+        return net
+    return ComputationGraph(conf, device="cuda").init(_PAR_GPT_PARAMS[seed])
 
 
 def par_char_rnn():
@@ -5539,10 +5572,141 @@ def par_fault_tolerant(mesh, tmp):
     return rec
 
 
+def param_bytes(net) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(net.params))
+
+
+def par_mesh_collective_ms(mesh, mode) -> dict:
+    """ms of each model- or sp-axis collective a step of ``mode`` issues,
+    alone, 3 times each, at the GPT's activation sizes (fp32, [8, 256,
+    d]): the model axis' gather of a [.., 256] column shard to 512 and
+    of a [.., 1024] one to 2048 (the MLP's), and the all-reduce of a
+    512-wide gradient (``copy_to_model``'s backward); the sp ring's shift
+    of one layer's stacked K/V shard ([2, 8, 8, 128, 64])."""
+    B, T, D = PAR_MESH_BATCH, SLICE["seq_len"], SLICE["d_model"]
+
+    def ms(fn):
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+    with torch.no_grad():
+        if mode == "tp":
+            half = torch.zeros(B, T, D // 2, device="cuda")
+            ff = torch.zeros(B, T, 2 * D, device="cuda")
+            whole = torch.zeros(B, T, D, device="cuda")
+            return dict(
+                gather_512_bytes=whole.numel() * 4,
+                gather_512=ms(lambda: mesh.gather_model(half)),
+                gather_2048=ms(lambda: mesh.gather_model(ff)),
+                all_reduce_512=ms(lambda: mesh.all_reduce_(whole,
+                                                           axis="model")))
+        H = SLICE["n_heads"]
+        kv = torch.zeros(2, B, H, T // 2, D // H, device="cuda")
+        return dict(shift_bytes=kv.numel() * 4,
+                    ring_shift=ms(lambda: mesh.ring_shift(kv)))
+
+
+def par_mesh_mode(mode, batches, plain) -> dict:
+    """One rank's run of ``mode`` (PAR_MESH_MODES): a ParallelTrainer on
+    that mesh over the world-2 group, PAR_STEPS steps of the full-width
+    GPT. The losses and (after ``gather_params``) the params against
+    ``plain["adam"]`` (the world-1 plain steps' losses and net), and an
+    uncounted SGD twin's against ``plain["sgd"]``; the kernel
+    wrappers' launches over the run and, in a traced_window of step 2,
+    the attention kernels by symbol; the head count of every q the
+    layers handed K4; the sp ring's shifts; the param and moment bytes
+    this rank holds against world 1's; ms a step (step 2, the traced
+    one, left out) and the collectives' ms alone."""
+    from deeplearning4j_tpu_torch.nn.layers import attention as attn_mod
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshContext, ParallelTrainer,
+    )
+    mesh = MeshContext.create(**PAR_MESH_MODES[mode])
+    net = par_gpt()
+    whole_p, whole_m = param_bytes(net), moment_bytes(net)
+    tr = ParallelTrainer(net, mesh)
+    heads, shifts = [], [0]
+    flash, shift = attn_mod.flash_attention, MeshContext.ring_shift
+
+    def flash_heads(q, *a, **kw):
+        heads.append(int(q.shape[1]))
+        return flash(q, *a, **kw)
+
+    def counted_shift(self, t):
+        shifts[0] += 1
+        return shift(self, t)
+    attn_mod.flash_attention = flash_heads
+    MeshContext.ring_shift = counted_shift
+    losses, ms, traced = [], [], None
+    reset_counts()
+    try:
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 1:
+                loss, traced = traced_kernels(lambda: tr.fit_batch(b),
+                                              ATTENTION_KERNELS)
+            else:
+                loss = tr.fit_batch(b)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            if i != 1:
+                ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        attn_mod.flash_attention = flash
+        MeshContext.ring_shift = shift
+    launches = counts()
+    rank_p, rank_m = param_bytes(net), moment_bytes(net)
+    coll = par_mesh_collective_ms(mesh, mode)
+    tr.gather_params()
+    flat = torch.cat([p.reshape(-1) for p in
+                      tree_leaves(net.params)]).cpu().numpy()
+    rec = dict(layout=list(mesh.coords),
+               **mesh_parity(losses, net, *plain["adam"]),
+               params_sha256=hashlib.sha256(flat.tobytes()).hexdigest(),
+               launches=launches, traced_step=traced,
+               q_heads=sorted(set(heads)), k4_calls=len(heads),
+               ring_shifts_forward=shifts[0],
+               param_bytes_rank=rank_p, param_bytes_world1=whole_p,
+               moment_bytes_rank=rank_m, moment_bytes_world1=whole_m,
+               ms_per_step=ms, collective_ms=coll)
+    del tr, net
+
+    def sgd_twin():
+        twin = par_gpt(updater="sgd", learning_rate=PAR_MESH_SGD_LR)
+        tr = ParallelTrainer(twin, mesh)
+        losses = [float(tr.fit_batch(b)) for b in batches]
+        tr.gather_params()
+        return mesh_parity(losses, twin, *plain["sgd"])
+    rec["sgd"] = uncounted(sgd_twin)
+    return rec
+
+
+def mesh_parity(losses, net, plain_losses, plain_net) -> dict:
+    """A mesh run's losses and (gathered) params against the plain
+    steps': the largest relative loss gap, the elements outside TOL_PAR_*
+    and the largest |diff|."""
+    outside, worst = 0, 0.0
+    for x, y in zip(tree_leaves(net.params), tree_leaves(plain_net.params)):
+        d = (x - y).abs()
+        outside += int((d > TOL_PAR_ATOL + TOL_PAR_RTOL * y.abs()).sum())
+        worst = max(worst, float(d.max()))
+    return dict(losses=losses, plain_losses=plain_losses,
+                loss_max_rel=max(abs(a - b) / abs(b) for a, b in
+                                 zip(losses, plain_losses)),
+                params_outside_gate=outside, params_max_abs_diff=worst)
+
+
 def par_rank(rank, world, init, out):
     """One rank of the world-2 group (this script run with
     ``--parallel-rank``): the GPT through ParallelTrainer in the off,
-    zero1 and zero2 modes, PAR_STEPS steps each; the updater state's
+    zero1 and zero2 modes, PAR_STEPS steps each, then on a model axis
+    and on an sp axis (``par_mesh_mode``); the updater state's
     bytes before and after sharding; ms a step; zero1 saves a sharded
     checkpoint after its second step, and rank 0 keeps the third step's
     loss and params for the world-1 restore. Writes its record to
@@ -5605,10 +5769,21 @@ def par_rank(rank, world, init, out):
             if mode != "off":
                 del net
         rec["collective_ms"] = par_collective_ms(mesh, ref[1])
+        del ref
+        mesh_batches = [b for b in text_batches(
+            PAR_STEPS, PAR_MESH_BATCH, SLICE["seq_len"], SEED + 5)]
+
+        def plain_steps(updater):
+            net = par_gpt(updater=updater) if updater == "adam" else \
+                par_gpt(updater=updater, learning_rate=PAR_MESH_SGD_LR)
+            return [float(net.fit_batch(b)) for b in mesh_batches], net
+        plain = {u: uncounted(plain_steps, u) for u in ("adam", "sgd")}
+        for mode in PAR_MESH_MODES:
+            rec[mode] = par_mesh_mode(mode, mesh_batches, plain)
+        del plain
     finally:
         multihost.shutdown()
     (out / f"rank{rank}.json").write_text(json.dumps(rec))
-    del ref
     return par_elastic_rank(rank, world, init, out / "elastic")
 
 
@@ -5840,7 +6015,9 @@ def train_parallel(smi):
     over NCCL in this process (ParallelTrainer, DelayedSyncTrainer,
     ParallelWrapper, FaultTolerantTrainer), then world 2 over gloo in two
     processes on this one card (zero1 / zero2 bitwise the replicated
-    mode, the sharded state's bytes, a checkpoint restored at world 1),
+    mode, the sharded state's bytes, a checkpoint restored at world 1;
+    tensor and sequence parallelism, ROADMAP A6.2a: the tp and sp modes
+    against the plain steps, K4-K6 on 4 heads and none on the ring),
     then the elastic case in those processes (ROADMAP A6.3: a kill, a
     resize to world 1, a resume bit for bit a clean restart). Returns
     the path's launch counts: this process's and the elastic
@@ -5860,9 +6037,13 @@ def train_parallel(smi):
         w2 = par_world2(tmp)
         el = par_elastic(tmp)
         launched = counts()
-        # the survivor's launches (its own process): the elastic run's
+        # the survivor's launches (its own process): the elastic run's,
+        # and rank 0's model- and sp-axis runs
         for k, n in el.pop("survivor_launches").items():
             launched[k] += n
+        for mode in PAR_MESH_MODES:
+            for k, n in w2["ranks"][0][mode]["launches"].items():
+                launched[k] += n
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     L, W = SLICE["n_layers"], LSTM_SLICE["layers"]
@@ -5879,6 +6060,15 @@ def train_parallel(smi):
               **{k: v for k, v in el.items() if k not in (
                   "kill_to_resume_s", "kill_to_detect_s",
                   "heartbeat_window_s", "restore_s")}))
+    emit(dict(phase="train_parallel_mesh", nvidia_smi=smi,
+              **{mode: {k: w2["ranks"][0][mode][k] for k in (
+                  "losses", "plain_losses", "loss_max_rel",
+                  "params_outside_gate", "params_max_abs_diff", "sgd",
+                  "traced_step", "q_heads",
+                  "ring_shifts_forward", "param_bytes_rank",
+                  "param_bytes_world1", "moment_bytes_rank",
+                  "moment_bytes_world1", "ms_per_step", "collective_ms")}
+                 for mode in PAR_MESH_MODES}))
     gpt_step = {k: L for k in ATTENTION_KERNELS}
     gpt_step.update(lstm_fwd_train_kernel=0, lstm_bwd_kernel=0)
     rnn_step = {k: 0 for k in ATTENTION_KERNELS}
@@ -5941,6 +6131,45 @@ def train_parallel(smi):
         check(r0[mode]["params_sha256"] == r1[mode]["params_sha256"]
               and r0[mode]["losses"] == r1[mode]["losses"],
               f"{mode}: the two ranks' params differ")
+    for r in (r0, r1):
+        for mode, heads, per_step in (("tp", SLICE["n_heads"] // 2, L),
+                                      ("sp", None, 0)):
+            got = r[mode]
+            lr = gpt_decoder(**SLICE).training.updater.learning_rate
+            check(got["loss_max_rel"] <= TOL_MESH_LOSS
+                  and got["params_outside_gate"] <= PAR_MESH_FLIPS
+                  and got["params_max_abs_diff"]
+                  <= 2 * lr * PAR_STEPS + TOL_PAR_ATOL,
+                  f"rank {r['rank']} {mode}: {got['losses']} vs the plain "
+                  f"{got['plain_losses']}, {got['params_outside_gate']} "
+                  f"params outside the gate, off by up to "
+                  f"{got['params_max_abs_diff']}")
+            twin = got["sgd"]
+            check(twin["loss_max_rel"] <= TOL_MESH_LOSS
+                  and twin["params_outside_gate"] == 0,
+                  f"rank {r['rank']} {mode} (SGD twin): {twin}")
+            want = {k: per_step for k in ATTENTION_KERNELS}
+            traced = {k: got["traced_step"][k] for k in ATTENTION_KERNELS}
+            check(traced == want, f"rank {r['rank']} {mode}: a step "
+                  f"launched {traced}, not {want}")
+            for k in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
+                check(got["launches"][k] == PAR_STEPS * per_step,
+                      f"rank {r['rank']} {mode}: {got['launches']}")
+            if heads is not None:
+                check(got["q_heads"] == [heads],
+                      f"rank {r['rank']} tp: K4 ran on {got['q_heads']} "
+                      f"heads, not {heads}")
+                check(got["param_bytes_rank"]
+                      <= 0.51 * got["param_bytes_world1"],
+                      f"rank {r['rank']} tp: {got['param_bytes_rank']} "
+                      f"param bytes of {got['param_bytes_world1']}")
+            else:
+                check(got["ring_shifts_forward"] == PAR_STEPS * L,
+                      f"rank {r['rank']} sp: {got['ring_shifts_forward']} "
+                      f"ring shifts in {PAR_STEPS} steps")
+    for mode in PAR_MESH_MODES:
+        check(r0[mode]["params_sha256"] == r1[mode]["params_sha256"],
+              f"{mode}: gather_params() differs between the ranks")
     m = el["metrics"]
     check(m["elastic_resizes_total"] == 1
           and m["elastic_elections_total"] == 1

@@ -63,6 +63,7 @@ from deeplearning4j_tpu_torch.nn.netcommon import (
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer, l1_l2_penalty,
 )
+from deeplearning4j_tpu_torch.parallel import tensor as _tp
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
 Tensor = torch.Tensor
@@ -161,6 +162,14 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
             return {**params[name], "W_tok": params[tied]["W"]}
         return params[name]
 
+    def _shard_params(self, name: str, layer, p):
+        """A layer node's params in a sharded step: its model-sharded
+        leaves gathered whole where it does not consume them
+        column-parallel (a tied head's embedding too)."""
+        tied = getattr(layer, "tied_to", None)
+        return _tp.layer_params(self, name, layer, p,
+                                tied=(tied, "W_tok") if tied else None)
+
     def num_params(self) -> int:
         self._check_init()
         return sum(t.numel() for p in self.params.values()
@@ -216,14 +225,34 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
         output_set = set(self.conf.network_outputs)
         remat = train and self.conf.training.remat
         batch_sum_for = batch_sum_kwargs(self._batch_sum)
+        # a step on a mesh's model / sp axes (parallel/tensor.py):
+        # `shard[name]` marks an activation as this rank's time shard
+        mesh = _tp.step_mesh(self)
+        split = _tp.seq_split(mesh)
+        shard: Dict[str, bool] = {}
         for name in self.conf.topological_order:
             node = self.conf.nodes[name]
             if node.kind == "input":
                 acts[name] = inputs[name]
                 out_masks[name] = (masks or {}).get(name)
+                shard[name] = split and acts[name].dim() == 3
                 continue
             in_acts = [acts[i] for i in node.inputs]
             in_mask = out_masks.get(node.inputs[0]) if node.inputs else None
+            sh = bool(node.inputs) and shard[node.inputs[0]]
+            if mesh is not None and any(shard[i] for i in node.inputs) and (
+                    node.kind == "vertex"
+                    and not isinstance(node.vertex, ElementWiseVertex)
+                    or not all(shard[i] for i in node.inputs)):
+                # a vertex that mixes time steps, or inputs of both kinds:
+                # every input whole
+                in_acts = [_tp.whole_sequence(mesh, a, None)[0]
+                           if shard[i] else a
+                           for i, a in zip(node.inputs, in_acts)]
+                if sh and in_mask is not None:
+                    in_mask = mesh.gather_seq(in_mask)
+                sh = False
+            shard[name] = sh
             if node.kind == "vertex":
                 if isinstance(node.vertex, LastTimeStepVertex):
                     acts[name] = node.vertex.apply_masked(in_acts, in_mask)
@@ -238,6 +267,9 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
             layer = node.layer
             h = in_acts[0]
             if node.preprocessor is not None:
+                if sh:
+                    h, in_mask, _ = _tp.whole_sequence(mesh, h, in_mask)
+                    sh = shard[name] = False
                 h = node.preprocessor.transform(h, None)
                 in_mask = node.preprocessor.transform_mask(in_mask, None)
             if (stop_before_loss and name in output_set
@@ -247,6 +279,13 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
                 new_states[name] = states[name]
                 continue
             p = self._layer_params(params, name)
+            whole_T = None
+            if mesh is not None:
+                p = self._shard_params(name, layer, p)
+                if sh and not _tp.sequence_local(layer):
+                    h, in_mask, whole_T = _tp.whole_sequence(mesh, h,
+                                                             in_mask)
+            seq_kw = _tp.seq_kwargs(layer, sh and whole_T is None)
             layer_train = train and not layer.frozen
             s = states[name]
             if carries is not None and getattr(layer, "supports_carry",
@@ -265,15 +304,19 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
                     acts[name], new_carries[name] = layer.scan(p, h, c_in,
                                                                in_mask)
             else:
-                def apply_fn(r, pp, hh, s_in, m, _l=layer, _t=layer_train):
+                def apply_fn(r, pp, hh, s_in, m, _l=layer, _t=layer_train,
+                             _kw=seq_kw):
                     return _l.apply(pp, hh, state=s_in, train=_t, rng=r,
-                                    mask=m, **batch_sum_for(_l))
+                                    mask=m, **batch_sum_for(_l), **_kw)
                 acts[name], s = (remat_call(apply_fn, rng, p, h, s, in_mask)
                                  if remat else apply_fn(rng, p, h, s,
                                                         in_mask))
                 if layer.frozen:
                     s = states[name]
             out_masks[name] = layer.propagate_mask(in_mask)
+            if whole_T is not None:
+                acts[name], out_masks[name], shard[name] = _tp.own_steps(
+                    mesh, acts[name], out_masks[name], whole_T)
             new_states[name] = s
         if carries is not None:
             return acts, out_masks, new_states, new_carries
@@ -328,6 +371,7 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
         """Sum of the output heads' losses. A head without a label mask
         takes its input's time mask when its labels are time-distributed
         (rank > 2)."""
+        mesh = _tp.step_mesh(self)
         total = 0.0
         for out_name in self.conf.network_outputs:
             layer = self.conf.nodes[out_name].layer
@@ -337,9 +381,15 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
             if lm is None:
                 lbl = labels[out_name]
                 lm = out_masks.get(out_name) if lbl.dim() > 2 else None
+            p = self._layer_params(params, out_name)
+            if mesh is None:
+                total = total + layer.compute_loss(
+                    p, acts[out_name], labels[out_name], mask=lm)
+                continue
             total = total + layer.compute_loss(
-                self._layer_params(params, out_name), acts[out_name],
-                labels[out_name], mask=lm)
+                self._shard_params(out_name, layer, p), acts[out_name],
+                labels[out_name], mask=lm) * _tp.head_scale(
+                    mesh, labels[out_name])
         return total
 
     def _regularized(self, params, data_loss, new_states):
@@ -347,8 +397,14 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
         + the auxiliary losses layers surface in their state."""
         layer_list = [self.conf.nodes[n].layer for n in self._layer_nodes]
         param_list = [params[n] for n in self._layer_nodes]
-        return (data_loss + l1_l2_penalty(param_list, layer_list)
-                + _sum_aux_losses(new_states))
+        mesh = _tp.step_mesh(self)
+        if mesh is None:
+            return (data_loss + l1_l2_penalty(param_list, layer_list)
+                    + _sum_aux_losses(new_states))
+        return (data_loss
+                + _tp.penalty(self, mesh, list(zip(self._layer_nodes,
+                                                   param_list)), layer_list)
+                + _sum_aux_losses(new_states) * _tp.replicated_scale(mesh))
 
     def _loss_fn(self, params, states, inputs, labels: Dict[str, Tensor],
                  masks, label_masks, rng, train=True):

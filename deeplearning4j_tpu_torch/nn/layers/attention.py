@@ -14,7 +14,18 @@ arguments, the same on every device. The Q/K/V/O projections stay
 Training drops out the layer's input. Incremental decode (``prefill``,
 ``decode_step``) and the paged-KV helpers (``gather_kv_pages``,
 ``scatter_kv_token``) are plain torch, as the JAX package leaves them to
-XLA. The ring (sequence-parallel) path is not ported yet.
+XLA.
+
+In a training step on a mesh (``parallel/tensor.py``) two more routes
+open. On a sequence axis whose step split the batch on T, attention runs
+as a ring over the sp ranks (``parallel/sequence.ring_attention_sharded``,
+blockwise attention, no flash kernel, as the JAX ring) unless
+``sequence_parallel`` is off, when the layer sees the whole sequence. On
+a model axis, when the heads divide by it, Wq/Wk/Wv's column shards are
+this rank's contiguous heads: q, k and v come out ``[B, H/n_model, T,
+D]`` and the kernels run on those heads alone; the heads are then
+gathered on the last axis and projected by Wo's column shard
+(``column_linear``). Heads that do not divide take the weights whole.
 """
 
 from __future__ import annotations
@@ -157,10 +168,21 @@ class SelfAttentionLayer(BaseLayerConf):
     causal: bool = False
     block_size: int = 512
     use_blockwise: bool = True
-    # the JAX layer's ring-attention switch for a sequence-parallel
-    # scope; kept so configs carry across, inert until sequence
-    # parallelism brings that scope (ROADMAP A6.2)
+    # route through ring attention inside a sequence-parallel step
     sequence_parallel: bool = True
+
+    takes_seq_shard = True
+
+    @property
+    def sequence_local(self) -> bool:
+        """A sequence-parallel step runs the layer on its time shard
+        (as a ring) unless ``sequence_parallel`` is off."""
+        return self.sequence_parallel
+
+    def column_parallel_params(self, n_model: int) -> set:
+        if self.n_heads % n_model:
+            return set()
+        return {"Wq", "Wk", "Wv", "Wo"}
 
     @property
     def supports_kv_cache(self) -> bool:
@@ -192,20 +214,57 @@ class SelfAttentionLayer(BaseLayerConf):
         }
 
     def _split_heads(self, x):
-        B, T, _ = x.shape
-        return x.reshape(B, T, self.n_heads, self.head_dim).transpose(1, 2)
+        """[B, T, h*D] -> [B, h, T, D] (h: this rank's heads under a
+        model axis, else all of them)."""
+        B, T, HD = x.shape
+        return x.reshape(B, T, HD // self.head_dim,
+                         self.head_dim).transpose(1, 2)
 
     def _merge_heads(self, out):
         B, H, T, D = out.shape
         return out.transpose(1, 2).reshape(B, T, H * D)
 
-    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+    def _ring_context(self, x, mask, seq_shard: bool = True):
+        """The active MeshContext when this apply runs as ring attention:
+        ``sequence_parallel`` set, ``x`` a time shard of a step whose
+        batch the sp axis splits on T (a T that does not divide, or a
+        step outside any scope, keeps the local path). A padding mask
+        rides the ring with its K/V shard."""
+        if not self.sequence_parallel or not seq_shard:
+            return None
+        from deeplearning4j_tpu_torch.parallel.mesh import (
+            active_sequence_context,
+        )
+        return active_sequence_context()
+
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None,
+              seq_shard: bool = False):
+        """``seq_shard``: ``x`` is this rank's time shard of a
+        sequence-parallel step (the ring then attends over the whole
+        sequence)."""
         x = self._dropout_input(x, train, rng)
-        q = self._split_heads(x @ params["Wq"])
-        k = self._split_heads(x @ params["Wk"])
-        v = self._split_heads(x @ params["Wv"])
-        if self.head_dim <= MAX_HEAD_DIM or flash_ok(x.shape[1],
-                                                     self.head_dim):
+        ring = self._ring_context(x, mask, seq_shard)
+        HD = self.n_heads * self.head_dim
+        Wq, Wk, Wv = params["Wq"], params["Wk"], params["Wv"]
+        local_heads = Wq.shape[-1] != HD
+        if local_heads:     # this rank's heads: the columns of its shards
+            from deeplearning4j_tpu_torch.parallel.mesh import (
+                active_model_context,
+            )
+            tp = active_model_context()
+            x = tp.copy_to_model(x)
+        q = self._split_heads(x @ Wq)
+        k = self._split_heads(x @ Wk)
+        v = self._split_heads(x @ Wv)
+        if ring is not None:
+            from deeplearning4j_tpu_torch.parallel.sequence import (
+                ring_attention_sharded,
+            )
+            out = ring_attention_sharded(
+                q, k, v, ring, causal=self.causal,
+                block_size=self.block_size, kv_mask=mask)
+        elif self.head_dim <= MAX_HEAD_DIM or flash_ok(x.shape[1],
+                                                       self.head_dim):
             out = flash_attention(q, k, v, causal=self.causal, kv_mask=mask)
         elif self.use_blockwise:
             out, _, lse = blockwise_attention(
@@ -214,7 +273,11 @@ class SelfAttentionLayer(BaseLayerConf):
             out = finalize_attention(out, lse)
         else:
             out = attention_reference(q, k, v, causal=self.causal, mask=mask)
-        out = self._merge_heads(out) @ params["Wo"]
+        out = self._merge_heads(out)
+        if local_heads:
+            out = tp.gather_model(out)
+        from deeplearning4j_tpu_torch.parallel.tensor import column_linear
+        out = column_linear(out, params["Wo"], None, self.n_in)
         if mask is not None:
             out = out * mask[..., None]
         return out, state

@@ -70,6 +70,15 @@ class BaseLayerConf:
     #: containers hand it from the net (``netcommon.global_batch_stats``)
     takes_batch_sum = False
 
+    #: True where the layer works token by token, so a sequence-parallel
+    #: step runs it on this rank's time shard as it is; any other layer
+    #: sees the whole sequence there (``parallel/tensor.py``)
+    sequence_local = False
+
+    #: True where ``apply`` takes ``seq_shard``: its input is this rank's
+    #: time shard of a sequence-parallel step
+    takes_seq_shard = False
+
     @classmethod
     def type_tag(cls) -> str:
         return cls.__name__
@@ -172,6 +181,13 @@ class BaseLayerConf:
 
     def has_params(self) -> bool:
         return bool(self.param_order())
+
+    def column_parallel_params(self, n_model: int) -> set:
+        """The params this layer consumes as this rank's column shard
+        under a model axis of ``n_model`` (``parallel/tensor.
+        column_linear``); every other sharded param is gathered whole on
+        use."""
+        return set()
 
 
 @dataclass

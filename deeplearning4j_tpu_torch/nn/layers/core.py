@@ -4,6 +4,11 @@ pretraining layers (AutoEncoder, RBM) wait for ROADMAP A7.
 
 Loss heads compute their loss from the layer's *input* (``compute_loss``),
 as the containers hand it over; dropout never fires inside a loss.
+
+Under a model axis the Dense family consumes its ``W`` column shard
+(``parallel/tensor.column_linear``): the product on this rank's columns,
+the all-gather of the last axis, then the replicated bias and the
+activation (an output layer's softmax too) on the whole activation.
 """
 
 from __future__ import annotations
@@ -21,11 +26,21 @@ from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.losses import get_loss, promote_loss_dtype
 
 
+def _linear(x, params, n_out):
+    from deeplearning4j_tpu_torch.parallel.tensor import column_linear
+    return column_linear(x, params["W"], params["b"], n_out)
+
+
 @register_layer
 @dataclass
 class DenseLayer(BaseLayerConf):
     """Fully connected: act(x @ W + b), W ``[n_in, n_out]``."""
     n_out: int = 0
+
+    sequence_local = True
+
+    def column_parallel_params(self, n_model: int) -> set:
+        return {"W"}
 
     def infer_output_type(self, in_type: InputType) -> InputType:
         return InputType.feed_forward(self.n_out)
@@ -40,7 +55,7 @@ class DenseLayer(BaseLayerConf):
     def apply(self, params, x, *, state, train=False, rng=None, mask=None):
         x = self._dropout_input(x, train, rng)
         return get_activation(self.activation)(
-            x @ params["W"] + params["b"]), state
+            _linear(x, params, self.n_out)), state
 
 
 @register_layer
@@ -53,7 +68,7 @@ class OutputLayer(DenseLayer):
                      average: bool = True):
         """The mean per-example loss (or the ``[B]`` vector with
         ``average=False``) from this layer's input ``x``."""
-        preout = x @ params["W"] + params["b"]
+        preout = _linear(x, params, self.n_out)
         preout, labels = promote_loss_dtype(preout, labels)
         if preout.shape != labels.shape:
             raise ValueError(
@@ -71,6 +86,8 @@ class LossLayer(BaseLayerConf):
     """Loss-only head without params: the activation of its input is the
     network's output."""
     loss: str = "mcxent"
+
+    sequence_local = True
 
     def infer_output_type(self, in_type: InputType) -> InputType:
         return in_type
@@ -93,6 +110,8 @@ class LossLayer(BaseLayerConf):
 class ActivationLayer(BaseLayerConf):
     """The activation alone, without params."""
 
+    sequence_local = True
+
     def infer_output_type(self, in_type: InputType) -> InputType:
         return in_type
 
@@ -107,6 +126,8 @@ class ActivationLayer(BaseLayerConf):
 @dataclass
 class DropoutLayer(BaseLayerConf):
     """Dropout alone; ``dropout`` holds DL4J's *retain* probability."""
+
+    sequence_local = True
 
     def infer_output_type(self, in_type: InputType) -> InputType:
         return in_type
@@ -125,6 +146,11 @@ class EmbeddingLayer(BaseLayerConf):
     The input holds the indices, ``[B]`` or ``[B, 1]``."""
     n_out: int = 0
 
+    sequence_local = True
+
+    def column_parallel_params(self, n_model: int) -> set:
+        return {"W"}
+
     def infer_output_type(self, in_type: InputType) -> InputType:
         return InputType.feed_forward(self.n_out)
 
@@ -139,7 +165,13 @@ class EmbeddingLayer(BaseLayerConf):
         idx = x.long()
         if idx.dim() == 2 and idx.shape[-1] == 1:
             idx = idx[:, 0]
-        out = params["W"][idx] + params["b"]
+        out = params["W"][idx]
+        if out.shape[-1] != self.n_out:     # this rank's column shard
+            from deeplearning4j_tpu_torch.parallel.mesh import (
+                active_model_context,
+            )
+            out = active_model_context().gather_model(out)
+        out = out + params["b"]
         return get_activation(self.activation)(out), state
 
 
@@ -157,6 +189,9 @@ class CenterLossOutputLayer(OutputLayer):
 
     def param_order(self) -> List[str]:
         return ["W", "b", "cL"]
+
+    def column_parallel_params(self, n_model: int) -> set:
+        return set()
 
     def init_params(self, gen, dtype=torch.float32) -> Params:
         p = super().init_params(gen, dtype)

@@ -35,6 +35,9 @@ class PositionalEmbeddingLayer(BaseLayerConf):
     n_out: int = 0
     max_timesteps: int = 0
 
+    sequence_local = True
+    takes_seq_shard = True
+
     def set_n_in(self, in_type: InputType) -> None:
         if in_type.kind != "rnn":
             raise ValueError(
@@ -62,14 +65,26 @@ class PositionalEmbeddingLayer(BaseLayerConf):
             "b": self._init_b((self.n_out,), dtype),
         }
 
-    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None,
+              seq_shard: bool = False):
+        """``seq_shard``: ``x`` is this rank's time shard of a
+        sequence-parallel step, so its positions start at the shard's
+        offset (sp index x T_local)."""
         x = self._dropout_input(x, train, rng)
         T = x.shape[1]
-        if T > self.max_timesteps:
+        start = 0
+        if seq_shard:
+            from deeplearning4j_tpu_torch.parallel.mesh import (
+                active_sequence_context,
+            )
+            start = active_sequence_context().seq_index * T
+        if start + T > self.max_timesteps:
             raise ValueError(
-                f"sequence length {T} exceeds the learned position table "
-                f"({self.max_timesteps}); rebuild with max_timesteps>={T}")
-        out = x @ params["W"] + params["b"] + params["P"][None, :T, :]
+                f"sequence length {start + T} exceeds the learned position "
+                f"table ({self.max_timesteps}); rebuild with "
+                f"max_timesteps>={start + T}")
+        out = (x @ params["W"] + params["b"]
+               + params["P"][None, start:start + T, :])
         out = get_activation(self.activation or "identity")(out)
         if mask is not None:
             out = out * mask[..., None]

@@ -173,6 +173,8 @@ class LayerNormalization(BaseLayerConf):
     # filled by builder:
     n_features: int = 0
 
+    sequence_local = True
+
     def set_n_in(self, in_type: InputType) -> None:
         self.n_in = in_type.flat_size()
         self.n_features = (in_type.channels if in_type.kind == "cnn"

@@ -326,6 +326,15 @@ class RnnOutputLayer(_RecurrentBase):
     n_out: int = 0
     loss: str = "mcxent"
 
+    sequence_local = True
+
+    def column_parallel_params(self, n_model: int) -> set:
+        return {"W"}
+
+    def _preout(self, params, x):
+        from deeplearning4j_tpu_torch.parallel.tensor import column_linear
+        return column_linear(x, params["W"], params["b"], self.n_out)
+
     def init_params(self, gen, dtype=torch.float32) -> Params:
         return {
             "W": self._init_w(gen, (self.n_in, self.n_out), self.n_in,
@@ -334,7 +343,7 @@ class RnnOutputLayer(_RecurrentBase):
         }
 
     def apply(self, params, x, *, state, train=False, rng=None, mask=None):
-        out = get_activation(self.activation)(x @ params["W"] + params["b"])
+        out = get_activation(self.activation)(self._preout(params, x))
         if mask is not None:
             out = out * mask[..., None]
         return out, state
@@ -344,7 +353,7 @@ class RnnOutputLayer(_RecurrentBase):
         """Loss from this head's *input* ``x``: per-timestep loss summed
         over time, masked steps excluded; the mean over the batch, or the
         ``[B, T]`` matrix with ``average=False``."""
-        preout = x @ params["W"] + params["b"]
+        preout = self._preout(params, x)
         preout, labels = promote_loss_dtype(preout, labels)
         B, T, F = preout.shape
         flat_mask = mask.reshape(B * T) if mask is not None else None

@@ -154,6 +154,13 @@ class TimeDistributedLayer(BaseLayerConf):
     def takes_batch_sum(self) -> bool:
         return self.inner.takes_batch_sum
 
+    @property
+    def sequence_local(self) -> bool:
+        return self.inner.sequence_local
+
+    def column_parallel_params(self, n_model: int) -> set:
+        return self.inner.column_parallel_params(n_model)
+
     def apply(self, params, x, *, state, train=False, rng=None, mask=None,
               **batch_sum):
         B, T = x.shape[0], x.shape[1]

@@ -61,6 +61,7 @@ from deeplearning4j_tpu_torch.nn.netcommon import (
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer, l1_l2_penalty,
 )
+from deeplearning4j_tpu_torch.parallel import tensor as _tp
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
 Tensor = torch.Tensor
@@ -165,8 +166,15 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
         last = len(self.layers) - 1
         remat = train and self.conf.training.remat
         batch_sum_for = batch_sum_kwargs(self._batch_sum)
+        # a step on a mesh's model / sp axes (parallel/tensor.py): `sh`
+        # marks h as this rank's time shard
+        mesh = _tp.step_mesh(self)
+        sh = _tp.seq_split(mesh) and h.dim() == 3
         for i, layer in enumerate(self.layers):
             if i in self.conf.preprocessors:
+                if sh:
+                    h, cur_mask, _ = _tp.whole_sequence(mesh, h, cur_mask)
+                    sh = False
                 it = in_types[i] if in_types else None
                 h = self.conf.preprocessors[i].transform(h, it)
                 cur_mask = self.conf.preprocessors[i].transform_mask(
@@ -176,6 +184,12 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
                 break
             layer_train = train and not layer.frozen
             s = states[i]
+            p_i = params[i] if mesh is None else _tp.layer_params(
+                self, i, layer, params[i])
+            whole_T = None
+            if sh and not _tp.sequence_local(layer):
+                h, cur_mask, whole_T = _tp.whole_sequence(mesh, h, cur_mask)
+            seq_kw = _tp.seq_kwargs(layer, sh and whole_T is None)
             if carries is not None and getattr(layer, "supports_carry",
                                                False):
                 c_in = carries[i]
@@ -187,21 +201,22 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
                 if remat:
                     h, new_carries[i] = remat_call(
                         lambda _, *a, _l=layer: _l.scan(*a), None,
-                        params[i], h, c_in, cur_mask)
+                        p_i, h, c_in, cur_mask)
                 else:
-                    h, new_carries[i] = layer.scan(params[i], h, c_in,
-                                                   cur_mask)
+                    h, new_carries[i] = layer.scan(p_i, h, c_in, cur_mask)
             else:
-                def apply_fn(r, p, hh, s_in, m, _l=layer, _t=layer_train):
+                def apply_fn(r, p, hh, s_in, m, _l=layer, _t=layer_train,
+                             _kw=seq_kw):
                     return _l.apply(p, hh, state=s_in, train=_t, rng=r,
-                                    mask=m, **batch_sum_for(_l))
-                h, s = (remat_call(apply_fn, rng, params[i], h, s, cur_mask)
-                        if remat else apply_fn(rng, params[i], h, s,
-                                               cur_mask))
+                                    mask=m, **batch_sum_for(_l), **_kw)
+                h, s = (remat_call(apply_fn, rng, p_i, h, s, cur_mask)
+                        if remat else apply_fn(rng, p_i, h, s, cur_mask))
                 if layer.frozen:
                     s = states[i]
             # layers that consume or rearrange the time axis drop the mask
             cur_mask = layer.propagate_mask(cur_mask)
+            if whole_T is not None:
+                h, cur_mask, sh = _tp.own_steps(mesh, h, cur_mask, whole_T)
             new_states.append(s)
             if collect:
                 acts.append(h)
@@ -276,7 +291,24 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
                 "Last layer must be an output/loss layer for fit()")
         mask = lmask if lmask is not None else (
             cur_mask if labels.dim() > 2 else None)
-        return head.compute_loss(params[-1], h, labels, mask=mask)
+        mesh = _tp.step_mesh(self)
+        if mesh is None:
+            return head.compute_loss(params[-1], h, labels, mask=mask)
+        p = _tp.layer_params(self, len(self.layers) - 1, head, params[-1])
+        return head.compute_loss(p, h, labels, mask=mask) * \
+            _tp.head_scale(mesh, labels)
+
+    def _regularized(self, params, loss, new_states):
+        """``loss`` + the L1/L2 penalty + the auxiliary losses layers
+        surface in their state (each counted once over a sharded step's
+        ranks)."""
+        mesh = _tp.step_mesh(self)
+        if mesh is None:
+            return (loss + l1_l2_penalty(params, self.layers)
+                    + _sum_aux_losses(new_states))
+        return (loss + _tp.penalty(self, mesh, list(enumerate(params)),
+                                   self.layers)
+                + _sum_aux_losses(new_states) * _tp.replicated_scale(mesh))
 
     def _loss_fn(self, params, states, features, labels, fmask, lmask, rng,
                  train: bool = True, carries: Optional[list] = None):
@@ -287,8 +319,8 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
             params, states, features, train=train, rng=rng, mask=fmask,
             carries=carries)
         loss = self._head_loss(params, h, labels, lmask, cur_mask)
-        return (loss + l1_l2_penalty(params, self.layers)
-                + _sum_aux_losses(new_states)), (new_states, new_carries, h)
+        return self._regularized(params, loss, new_states), (
+            new_states, new_carries, h)
 
     def score(self, dataset: Optional[DataSet] = None,
               train: bool = False) -> float:
@@ -441,8 +473,8 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
                                 _window(lmask, 0, split), m1)
                 + self._head_loss(params, h2, _window(labels, split, T),
                                   _window(lmask, split, T), m2))
-        return (loss + l1_l2_penalty(params, self.layers)
-                + _sum_aux_losses(new_states)), (new_states, new_carries)
+        return self._regularized(params, loss, new_states), (
+            new_states, new_carries)
 
     def _fit_tbptt(self, dataset: DataSet):
         """Truncated BPTT over time windows, carrying the RNN state (ref:

@@ -582,13 +582,18 @@ def per_layer_lr_scale(updates, layers, base_lr: float):
 
 @torch.no_grad()
 def compute_updates(tx: Updater, grads, opt_state, params, layers,
-                    training: TrainingConfig):
+                    training: TrainingConfig, model=None):
     """The post-gradient pipeline every training path uses: freeze-mask ->
     gradient normalization/clipping -> update rule -> per-layer LR
     scaling -> ``params += updates``. Updates ``params`` and ``opt_state``
-    in place and returns them."""
+    in place and returns them. ``model``: (mesh, which leaves are column
+    shards) under a model axis, whose norms sum over it."""
     grads = mask_frozen(grads, layers)
-    grads = normalize_gradients(grads, training)
+    if model is None:
+        grads = normalize_gradients(grads, training)
+    else:
+        grads = normalize_gradients_sharded(grads, training, model[0],
+                                            model=model[1])
     updates = tx.update(grads, opt_state)
     updates = per_layer_lr_scale(updates, layers,
                                  training.updater.learning_rate)
@@ -683,7 +688,7 @@ def shard_updater_state(opt_state: Dict, mesh_ctx, axis=None):
     if not slots:
         return dict(opt_state), None
     layout = ZeroLayout(opt_state[slots[0]], mesh_ctx.zero1_shards(axis),
-                        mesh_ctx.rank)
+                        mesh_ctx.data_index)
     out = {"count": opt_state["count"]}
     for slot in slots:
         out[slot] = layout.views(layout.take_row(opt_state[slot]),
@@ -746,28 +751,44 @@ _NORM_KINDS = ("renormalizel2perlayer", "clipl2perlayer",
                "renormalizel2perparamtype", "clipl2perparamtype")
 
 
-def normalize_gradients_sharded(fgrads, training: TrainingConfig, mesh_ctx):
-    """:func:`normalize_gradients` on this rank's rows: the elementwise
-    clip as it is, and every norm the square root of a sum of squares
-    all-reduced over the ranks (one collective for all of them; the
-    padding adds zeros). Those sums run in another order than on the
-    whole tensors, so a norm-based kind agrees within rounding, not bit
-    for bit."""
+def normalize_gradients_sharded(fgrads, training: TrainingConfig, mesh_ctx,
+                                model=None):
+    """:func:`normalize_gradients` on a gradient cut over the ranks: the
+    elementwise clip as it is, and every norm the square root of a sum of
+    squares summed over the ranks (one collective for all of them). Under
+    ZeRO (``model`` None) ``fgrads`` holds this rank's rows and every sum
+    is all-reduced over the data axis (the padding adds zeros); under a
+    model axis (``model``: ``fgrads``' structure with True at each column
+    shard) the column shards' sums are all-reduced over the model axis
+    and the replicated leaves' added as they are. Those sums run in
+    another order than on the whole tensors, so a norm-based kind agrees
+    within rounding, not bit for bit."""
     kind = (training.gradient_normalization or "none").lower()
     if kind not in _NORM_KINDS:
         return normalize_gradients(fgrads, training)
     t = training.gradient_normalization_threshold
     per_layer = kind.endswith("perlayer")
+    leaves = tree_leaves(fgrads)
+    flags = ([False] * len(leaves) if model is None
+             else [bool(f) for f in tree_leaves(model)])
+    index = {id(x): i for i, x in enumerate(leaves)}
     if not per_layer:
-        groups = [[x] for x in tree_leaves(fgrads)]
+        groups = [[x] for x in leaves]
     elif isinstance(fgrads, list):
         groups = [tree_leaves(g) for g in fgrads]
     else:
-        groups = [tree_leaves(fgrads)]
+        groups = [leaves]
     zero = torch.zeros((), device=mesh_ctx.device)
-    sums = torch.stack([sum(((x * x).sum() for x in g), zero)
-                        for g in groups])
-    norms = torch.sqrt(mesh_ctx.all_reduce_(sums) + 1e-12)
+
+    def sums(shard: bool):
+        return torch.stack([sum(((x * x).sum() for x in g
+                                 if flags[index[id(x)]] == shard), zero)
+                            for g in groups])
+    if model is None:
+        total = mesh_ctx.all_reduce_(sums(False))
+    else:
+        total = mesh_ctx.all_reduce_(sums(True), axis="model") + sums(False)
+    norms = torch.sqrt(total + 1e-12)
     if kind.startswith("renormalize"):
         def apply(x, i):
             return x / norms[i]
@@ -777,7 +798,6 @@ def normalize_gradients_sharded(fgrads, training: TrainingConfig, mesh_ctx):
         def apply(x, i):
             return x * scale[i]
     if not per_layer:
-        index = {id(x): i for i, x in enumerate(tree_leaves(fgrads))}
         return tree_map(lambda x: apply(x, index[id(x)]), fgrads)
     if isinstance(fgrads, list):
         return [tree_map(lambda x, i=i: apply(x, i), g)

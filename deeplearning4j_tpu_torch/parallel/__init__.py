@@ -1,4 +1,4 @@
-"""Data-parallel training over ``torch.distributed`` (the JAX package's
+"""Parallel training over ``torch.distributed`` (the JAX package's
 ``parallel/``), one process per rank.
 
 The reference's three data-parallel tiers (SURVEY §2.3: ParallelWrapper's
@@ -14,8 +14,12 @@ with ``strategy.create_trainer`` over them, ``multihost`` to join the
 group (its elastic half too: ``initialize(..., elastic=True)``,
 ``serve_coordination``, the topology override), and ``checkpoint``'s
 sharded format. ``resilience.ElasticTrainer`` runs ``ParallelTrainer``
-through host losses. Tensor, sequence, pipeline and expert parallelism
-wait for ROADMAP A6.2.
+through host losses. ``ParallelTrainer`` also trains on a mesh with a
+``model`` axis (tensor parallelism: column-parallel layers, the rest of
+the sharded leaves gathered on use, ``parallel/tensor.py``) and an
+``sp`` axis (sequence parallelism: ring attention, ``parallel/
+sequence.py``), alone or with the data axis. Pipeline and expert
+parallelism wait for ROADMAP A6.2b.
 """
 
 from deeplearning4j_tpu_torch.nn.updater import PrecisionPolicy  # noqa: F401

@@ -18,10 +18,14 @@ never assembles a half-written step; a bit-flipped or truncated shard
 file raises ``CheckpointError`` naming it.
 
 A leaf is a tensor, a numpy array or a number, written whole by process
-0 (the replicated params, the counts); or a :class:`RowShard`, this
+0 (the replicated params, the counts); a :class:`RowShard`, this
 rank's ``[1, chunk]`` row of a ``(dp, chunk)`` ZeRO leaf, written by
 every rank with the JAX package's spec ``["data", None]`` and index
-``[[r, r + 1], [0, chunk]]``. Leaf keys are the JAX package's
+``[[r, r + 1], [0, chunk]]``; or a :class:`ColumnShard`, a model axis
+rank's columns of a tensor-parallel leaf (or of its updater moment),
+written by the ranks of data and sp index 0 with the spec ``[None, ...,
+"model"]`` and its columns' index, as the JAX package writes a
+``model``-sharded array. Leaf keys are the JAX package's
 ``"/"``-joined tree paths (``_leaf_key``): list indices and dict keys;
 ``CheckpointManager`` keys the updater state by optax's paths
 (``Updater.optax_paths``: ``opt_state/0/.mu/<layer>/<param>``,
@@ -65,6 +69,27 @@ class RowShard:
     @property
     def shape(self) -> Tuple[int, int]:
         return (self.n, int(self.local.shape[-1]))
+
+
+class ColumnShard:
+    """Model rank ``index``'s columns ``local`` (``[..., c]``) of a leaf of
+    ``n * c`` columns sharded over the model axis; ``writer``: this rank
+    writes them to a checkpoint (one rank of each model index does)."""
+
+    def __init__(self, local: torch.Tensor, index: int, n: int,
+                 writer: bool = True):
+        self.local, self.index, self.n = local, int(index), int(n)
+        self.writer = bool(writer)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.local.shape[:-1]) + (
+            int(self.local.shape[-1]) * self.n,)
+
+    def columns(self, arr: np.ndarray) -> np.ndarray:
+        """This rank's columns of the whole leaf ``arr``."""
+        c = int(self.local.shape[-1])
+        return arr[..., self.index * c:(self.index + 1) * c]
 
 
 def _paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -157,6 +182,16 @@ def save_sharded(ckpt_dir: Union[str, Path], pytree: Any, mesh_ctx=None,
             shape = leaf.shape
             spec = ["data", None]
             index = [[leaf.rank, leaf.rank + 1], [0, shape[1]]]
+        elif isinstance(leaf, ColumnShard):
+            shape = leaf.shape
+            spec = [None] * (len(shape) - 1) + ["model"]
+            if not leaf.writer:
+                continue   # another rank of this model index writes it
+            data = _host(leaf.local)
+            c = data.shape[-1]
+            index = _full_index(shape)[:-1] + [[leaf.index * c,
+                                                (leaf.index + 1) * c]]
+            skey = f"{key}|{leaf.index}"
         else:
             if proc != 0:
                 continue   # a whole leaf is process 0's to write
@@ -320,9 +355,12 @@ def restore_sharded(ckpt_dir: Union[str, Path], mesh_ctx=None,
         arr = _assemble(ckpt_dir, meta, cache)
         if mesh_ctx is not None:
             t = torch.from_numpy(arr).to(mesh_ctx.device)
-            if ((meta.get("spec") or [None])[0] == "data"
-                    and t.dim() == 2 and t.shape[0] == mesh_ctx.world):
-                t = t[mesh_ctx.rank:mesh_ctx.rank + 1].clone()
+            spec = meta.get("spec") or [None]
+            if (spec[0] == "data" and t.dim() == 2
+                    and t.shape[0] == mesh_ctx.n_data):
+                t = t[mesh_ctx.data_index:mesh_ctx.data_index + 1].clone()
+            elif spec[-1] == "model" and mesh_ctx.n_model > 1:
+                t = mesh_ctx.model_columns(t)
             arr = t
         flat[key] = arr
     return _nest(flat)
@@ -356,7 +394,7 @@ def _reshard_flat_leaf(key: str, arr: np.ndarray, shape, dtype
 
 
 def _np_dtype(leaf) -> np.dtype:
-    if isinstance(leaf, RowShard):
+    if isinstance(leaf, (RowShard, ColumnShard)):
         leaf = leaf.local
     if isinstance(leaf, torch.Tensor):
         return np.dtype("float32" if leaf.dtype == torch.bfloat16
@@ -385,7 +423,8 @@ def restore_sharded_into(ckpt_dir: Union[str, Path], template: Any,
         shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
         arr = _assemble(ckpt_dir, meta, cache)
         if tuple(meta["shape"]) != shape:
-            if not reshard_zero1 or isinstance(leaf, RowShard):
+            if not reshard_zero1 or isinstance(leaf, (RowShard,
+                                                      ColumnShard)):
                 raise ValueError(
                     f"Leaf {key!r}: checkpoint shape "
                     f"{tuple(meta['shape'])} != template shape {shape}")
@@ -396,6 +435,11 @@ def restore_sharded_into(ckpt_dir: Union[str, Path], template: Any,
             values[key] = RowShard(row.to(leaf.local.device,
                                           leaf.local.dtype),
                                    leaf.rank, leaf.n)
+        elif isinstance(leaf, ColumnShard):
+            cols = torch.from_numpy(np.ascontiguousarray(leaf.columns(arr)))
+            values[key] = ColumnShard(cols.to(leaf.local.device,
+                                              leaf.local.dtype),
+                                      leaf.index, leaf.n, leaf.writer)
         elif isinstance(leaf, torch.Tensor):
             values[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
                 leaf.device, leaf.dtype)

@@ -41,7 +41,7 @@ from deeplearning4j_tpu_torch.nn.updater import (
 )
 from deeplearning4j_tpu_torch.parallel.mesh import MeshContext
 from deeplearning4j_tpu_torch.parallel.trainer import (
-    check_mesh_device, layers_of, unflatten,
+    check_data_mesh, check_mesh_device, layers_of, unflatten,
 )
 
 
@@ -56,6 +56,7 @@ class DelayedSyncTrainer:
         self.mesh = mesh if mesh is not None else MeshContext.create(
             device=device)
         check_mesh_device(net, self.mesh)
+        check_data_mesh(self.mesh, "DelayedSyncTrainer")
         self.sync_frequency = max(1, int(sync_frequency))
         self.workers = self.mesh.n_data
         self._is_graph = not hasattr(net, "layers")

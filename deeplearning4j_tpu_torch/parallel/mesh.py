@@ -1,42 +1,56 @@
-"""The data-parallel mesh over ``torch.distributed`` (the JAX package's
+"""The device mesh over ``torch.distributed`` (the JAX package's
 ``parallel/mesh.py``), and the collectives the parallel trainers issue.
 
-The JAX package names a device mesh with ``data`` and ``model`` axes and
-lets XLA insert the collectives. The port runs one process per rank: a
-``MeshContext``'s ``data`` axis is the world of a ``torch.distributed``
-process group, and this module is the one place that issues its
-collectives (``all_reduce``, ``reduce_scatter_tensor``,
-``all_gather_into_tensor``, ``broadcast``, and the differentiable sum
-batch norm takes its global statistics with). With no process group
-initialized the mesh is world 1 and issues no collective at all; a group
-of world 1 (NCCL on one card) issues them, and each is an identity.
-``create`` reads the surviving world (``multihost.
+The JAX package names a device mesh with ``data``, ``model`` and ``sp``
+axes and lets XLA insert the collectives. The port runs one process per
+rank: a ``MeshContext`` lays the world of a ``torch.distributed`` process
+group out as the JAX mesh's ``reshape(n_data, n_model, n_seq)`` (rank =
+(d * n_model + m) * n_seq + s), builds one sub-group per axis and the
+data x sp group ("replicas"), and this module is the one place that
+issues collectives: ``all_reduce``, ``reduce_scatter_tensor``,
+``all_gather_into_tensor``, ``broadcast``, the sp ring's point-to-point
+shift, and the differentiable ones a sharded step's autograd runs:
+
+- ``sum_over_ranks``: the sum batch norm takes its global statistics
+  with (all-reduce, backward all-reduce);
+- ``gather_model``: the model axis' gather of column shards on the last
+  axis (backward: this rank's columns, since what follows runs
+  replicated on every model rank);
+- ``copy_to_model``: the identity whose backward all-reduces over the
+  model axis (Megatron's ``f``, in front of a column-parallel product);
+- ``gather_seq``: the sp axis' gather of time shards (backward:
+  reduce-scatter, since each sp rank's loss sees only its own tokens);
+- ``ring_shift``: the pass to the next sp rank (backward: the pass the
+  other way). gloo refuses point-to-point sends of CUDA tensors (its
+  collectives stage them, its sends do not), so a gloo group over the
+  card stages the shift through host buffers, chosen from the backend.
+
+With no process group initialized the mesh is world 1 and issues no
+collective at all; a group of world 1 (NCCL on one card) issues them, and
+each is an identity. ``create`` reads the surviving world (``multihost.
 effective_process_count``): after an elastic sole-survivor resize it is
 world 1 with no group, though the dead group still exists, and a
 collective on that quarantined group raises at once. A collective that
 fails in elastic mode is counted (``multihost.runtime_fault_count``)
 before its error goes on.
 
-Tensor and sequence parallelism (``n_model > 1``, ``n_seq > 1``) are not
-ported (ROADMAP A6.2).
-
-Each rank trains on its ``local_batch_slice`` of the global batch (the
-JAX package's multi-process contract): ``shard_batch`` and
-``local_rows`` take this rank's rows, ``shard_params`` keeps a full
-replica on the rank. A batch whose rows do not divide by the world is
-refused: each rank's mean over its B/dp rows, averaged over the ranks,
-is the global mean only because the ranks hold equal rows.
+Each rank trains on its data index's rows of the global batch (the JAX
+package's multi-process contract; the model and sp ranks of one data
+index hold the same rows), and with an sp axis on its time steps of a
+batch whose T divides the axis. A batch whose rows do not divide by the
+data axis is refused: each rank's mean over its B/dp rows, averaged over
+the ranks, is the global mean only because the ranks hold equal rows.
 
 The weight-update layout (``WeightUpdateSharding``) and its per-leaf
 helpers (``zero1_chunk`` / ``zero1_shard_leaf`` / ``zero1_unshard_leaf``)
 are the JAX package's: each leaf flattened, padded to a multiple of dp
-and viewed as ``(dp, chunk)``, row ``r`` owned by rank ``r``.
+and viewed as ``(dp, chunk)``, row ``r`` owned by data index ``r``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -203,10 +217,195 @@ class _SumOverRanks(torch.autograd.Function):
         return grad, None
 
 
+class _SumForward(torch.autograd.Function):
+    """``t`` summed over the group, its gradient passed through as it is:
+    a value every rank of the group counts once (a sharded leaf's share
+    of the L1/L2 penalty)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone()
+        _collective(dist.all_reduce, out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """The identity, whose backward all-reduces the gradient over the group
+    (Megatron's ``f``): the input of a column-parallel product, whose
+    ranks each see the gradient of their own columns only."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        _collective(dist.all_reduce, grad, group=ctx.group)
+        return grad, None
+
+
+def _gather_dim(t: Tensor, dim: int, group, n: int) -> Tensor:
+    """Every rank's ``t`` concatenated on ``dim`` in group-rank order."""
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    _collective(_ALL_GATHER, out, src, group=group)
+    return out.movedim(0, dim)
+
+
+class _GatherDim(torch.autograd.Function):
+    """All-gather on ``dim`` whose backward takes this rank's slice of the
+    gradient: what follows the gather runs replicated on every rank of
+    the group, so each already holds the whole gradient (the model axis'
+    gather of column shards)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, n, index):
+        ctx.dim, ctx.index, ctx.size = dim, index, t.shape[dim]
+        return _gather_dim(t, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size)
+                .contiguous(), None, None, None, None)
+
+
+class _GatherReduceScatter(torch.autograd.Function):
+    """All-gather on ``dim`` whose backward reduce-scatters the gradient:
+    each rank's loss sees its own slice of what follows only (the
+    sequence axis' gather of time shards), so the gradient of the whole
+    is the sum over the ranks."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _gather_dim(t, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.movedim(ctx.dim, 0).contiguous()
+        out = torch.empty((g.shape[0] // ctx.n,) + tuple(g.shape[1:]),
+                          dtype=g.dtype, device=g.device)
+        _collective(_REDUCE_SCATTER, out, g, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None, None
+
+
+def _shift(t: Tensor, group, send_to: int, recv_from: int,
+           stage: bool) -> Tensor:
+    """``t`` sent to rank ``send_to`` while ``recv_from``'s arrives (global
+    ranks). ``stage``: through host buffers, for a gloo group over CUDA
+    tensors (gloo's collectives stage CUDA tensors themselves, its
+    point-to-point sends do not)."""
+    src = t.detach().contiguous()
+    if stage:
+        src = src.cpu()
+    buf = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, send_to, group=group),
+           dist.P2POp(dist.irecv, buf, recv_from, group=group)]
+    for work in _collective(dist.batch_isend_irecv, ops):
+        work.wait()
+    return buf.to(t.device) if stage else buf
+
+
+class _RingShift(torch.autograd.Function):
+    """``t`` passed to the next rank of the ring; the backward passes the
+    gradient to the previous one."""
+
+    @staticmethod
+    def forward(ctx, t, group, send_to, recv_from, stage):
+        ctx.args = (group, recv_from, send_to, stage)
+        return _shift(t, group, send_to, recv_from, stage)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, *ctx.args), None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# the mesh's layout: ranks and sub-groups
+# ---------------------------------------------------------------------------
+
+#: the axes a rank's collectives run over; "replicas" is the data and sp
+#: axes together (the ranks that hold the same columns of every leaf)
+AXES = ("data", "model", "sp", "replicas")
+
+#: each layout's sub-groups of the default group, this rank's by axis
+_GROUPS: Dict[tuple, Dict[str, Any]] = {}
+
+
+def mesh_coords(rank: int, n_model: int, n_seq: int) -> Tuple[int, int, int]:
+    """(data, model, sp) index of ``rank`` in the JAX mesh's
+    ``reshape(n_data, n_model, n_seq)``: rank = (d * n_model + m) * n_seq
+    + s."""
+    return (rank // (n_model * n_seq), (rank // n_seq) % n_model,
+            rank % n_seq)
+
+
+def axis_ranks(shape: Tuple[int, int, int], axis: str,
+               coords: Tuple[int, int, int]) -> List[int]:
+    """The ranks that share every index of ``coords`` but ``axis``'s, in
+    rank order (so a rank's place in its axis group is its index on the
+    axis)."""
+    nd, nm, ns = shape
+    d, m, s = coords
+
+    def rank(i, j, k):
+        return (i * nm + j) * ns + k
+    if axis == "data":
+        return [rank(i, m, s) for i in range(nd)]
+    if axis == "model":
+        return [rank(d, j, s) for j in range(nm)]
+    if axis == "sp":
+        return [rank(d, m, k) for k in range(ns)]
+    return [rank(i, m, k) for i in range(nd) for k in range(ns)]
+
+
+def _layout_groups(shape: Tuple[int, int, int], rank: int) -> Dict[str, Any]:
+    """This rank's sub-group on each axis that spans more than one rank
+    and less than the world ("world" for an axis that is the whole
+    default group). Every rank calls ``dist.new_group`` for every group
+    of the layout in the same order, or the rendezvous hangs; the groups
+    are built once a layout and a default group."""
+    key = (id(dist.group.WORLD), shape)
+    if key in _GROUPS:
+        return _GROUPS[key]
+    world = shape[0] * shape[1] * shape[2]
+    mine: Dict[str, Any] = {}
+    for axis in AXES:
+        seen = set()
+        for r in range(world):
+            ranks = tuple(axis_ranks(shape, axis,
+                                     mesh_coords(r, shape[1], shape[2])))
+            if ranks in seen or len(ranks) == 1:
+                continue
+            seen.add(ranks)
+            if len(ranks) == world:
+                mine[axis] = "world"
+                continue
+            g = dist.new_group(list(ranks))
+            if rank in ranks:
+                mine[axis] = g
+    _GROUPS[key] = mine
+    return mine
+
+
+def forget_groups() -> None:
+    """Drop the cached sub-groups (the default group they belong to is
+    being destroyed)."""
+    _GROUPS.clear()
+
+
 @dataclass
 class MeshContext:
-    """The data axis over a ``torch.distributed`` group, and the device
-    this rank trains on. ``group=None`` is the default group."""
+    """The mesh over a ``torch.distributed`` group: ``world`` ranks laid out
+    as the JAX mesh's ``(n_data, n_model, n_seq)``, one device a rank.
+    ``group=None`` is the default group."""
 
     world: int = 1
     rank: int = 0
@@ -214,45 +413,121 @@ class MeshContext:
     group: Any = None
     distributed: bool = False
     data_axis: str = "data"
+    n_model: int = 1
+    n_seq: int = 1
+    # shard a param's last axis over `model` only when it is at least
+    # this big (the JAX package's policy)
+    min_shard_size: int = 1024
+    groups: Dict[str, Any] = field(default_factory=dict, repr=False)
 
     @staticmethod
     def create(n_data: Optional[int] = None, n_model: int = 1,
                n_seq: int = 1, device=None, group=None) -> "MeshContext":
-        """The data axis over ``group`` (the default process group), on
+        """The mesh over ``group`` (the default process group), on
         ``device`` (``None``: the CUDA card, raising without one;
-        ``"cpu"`` for the CPU): one rank, one device. ``n_data`` must be
-        the group's world when given. ``n_model > 1`` / ``n_seq > 1``
-        raise: tensor and sequence parallelism are not ported (ROADMAP
-        A6.2)."""
-        if n_model > 1 or n_seq > 1:
-            raise NotImplementedError(
-                f"n_model={n_model}, n_seq={n_seq}: tensor and sequence "
-                "parallelism are not ported yet (ROADMAP A6.2)")
+        ``"cpu"`` for the CPU). The world is ``n_data * n_model * n_seq``
+        ranks; ``n_data`` defaults to world // (n_model * n_seq), and a
+        world the axes cannot split raises. ``n_seq > 1`` adds the 'sp'
+        axis: ``SelfAttentionLayer`` routes through ring attention over
+        it when ``ParallelTrainer`` trains the net."""
+        if n_model < 1 or n_seq < 1 or (n_data is not None and n_data < 1):
+            raise ValueError(f"mesh axes must be >= 1, got n_data="
+                             f"{n_data}, n_model={n_model}, n_seq={n_seq}")
         device = resolve_device(device)
         world, rank, distributed = _group_world(group)
-        if n_data is not None and n_data != world:
+        per = n_model * n_seq
+        if n_data is None:
+            if world % per:
+                raise ValueError(
+                    f"a world of {world} ranks cannot be laid out as "
+                    f"n_model={n_model} x n_seq={n_seq}")
+            n_data = world // per
+        if n_data * per != world:
             raise ValueError(
-                f"n_data={n_data}, but the process group has world "
-                f"{world}: one rank is one data replica")
+                f"n_data={n_data} x n_model={n_model} x n_seq={n_seq} = "
+                f"{n_data * per} ranks, but the process group has world "
+                f"{world}: one rank is one device of the mesh")
         if distributed and device.type == "cpu" and \
                 dist.get_backend(group) == "nccl":
             raise ValueError("an nccl process group cannot reduce CPU "
                              "tensors; initialize a gloo group for "
                              "device='cpu'")
+        groups = {}
+        shape = (n_data, n_model, n_seq)
+        if distributed and sum(a > 1 for a in shape) > 1:
+            if group is not None:
+                raise ValueError(
+                    f"a mesh of {shape} needs sub-groups, which are laid "
+                    "out over the default process group; pass group=None")
+            groups = _layout_groups(shape, rank)
         return MeshContext(world=world, rank=rank, device=device,
-                           group=group, distributed=distributed)
+                           group=group, distributed=distributed,
+                           n_model=n_model, n_seq=n_seq, groups=groups)
 
+    # ----------------------------------------------------------------- layout
     @property
     def n_data(self) -> int:
-        return self.world
+        return self.world // (self.n_model * self.n_seq)
+
+    @property
+    def model_axis(self) -> Optional[str]:
+        """'model' when params shard over a model axis, else None."""
+        return "model" if self.n_model > 1 else None
+
+    @property
+    def seq_axis(self) -> Optional[str]:
+        """'sp' when the mesh has a sequence axis, else None."""
+        return "sp" if self.n_seq > 1 else None
+
+    @property
+    def coords(self) -> Tuple[int, int, int]:
+        """This rank's (data, model, sp) index."""
+        return mesh_coords(self.rank, self.n_model, self.n_seq)
+
+    @property
+    def data_index(self) -> int:
+        return self.coords[0]
+
+    @property
+    def model_index(self) -> int:
+        return self.coords[1]
+
+    @property
+    def seq_index(self) -> int:
+        return self.coords[2]
+
+    @property
+    def n_replicas(self) -> int:
+        """Ranks that hold the same columns (the data x sp group)."""
+        return self.n_data * self.n_seq
+
+    @property
+    def replica_index(self) -> int:
+        d, _, s = self.coords
+        return d * self.n_seq + s
 
     @property
     def backend(self) -> Optional[str]:
         return dist.get_backend(self.group) if self.distributed else None
 
+    def _axis(self, axis: str) -> Tuple[bool, Any, int]:
+        """(a collective runs, its group, the axis' size). An axis as wide
+        as the world runs over the mesh's group (a world-1 group too, as
+        an identity); one of a single rank inside a wider world runs
+        nothing."""
+        n = {"data": self.n_data, "model": self.n_model, "sp": self.n_seq,
+             "replicas": self.n_replicas}[axis]
+        if not self.distributed:
+            return False, None, n
+        if n == self.world:
+            return True, self.group, n
+        if n == 1:
+            return False, None, 1
+        return True, self.groups[axis], n
+
     def zero1_shards(self, axis: Optional[str] = None) -> int:
         """Number of weight-update shards = the data axis' size."""
-        return self.world
+        return self.n_data
 
     def validate_weight_update_sharding(
             self, wus: WeightUpdateSharding) -> None:
@@ -264,94 +539,179 @@ class MeshContext:
             raise ValueError(
                 f"weight_update_sharding axis {wus.axis!r} is not a mesh "
                 f"axis (have ({self.data_axis!r},))")
-        if self.world < 2:
+        if self.n_data < 2:
             raise ValueError(
                 f"{wus.mode} weight-update sharding needs at least 2 "
-                f"replicas on axis {wus.axis!r} (mesh has {self.world}) "
+                f"replicas on axis {wus.axis!r} (mesh has {self.n_data}) "
                 "— with dp=1 there is nothing to shard; use mode='off'")
+        if self.n_model > 1:
+            raise ValueError(
+                f"{wus.mode} weight-update sharding composes with pure "
+                "data parallelism only; this mesh tensor-shards params "
+                f"over 'model' ({self.n_model} ways) — the updater state "
+                "of a model-sharded kernel is already distributed")
+
+    # -------------------------------------------------------------- policies
+    def param_spec(self, name: str, shape: Tuple[int, ...]) -> tuple:
+        """Tensor-parallel policy (the JAX package's): shard the last axis
+        of a tensor of at least 2 dims over 'model' when it divides by
+        ``n_model`` and the tensor has at least ``min_shard_size``
+        elements; replicate everything else. The spec as a tuple
+        (``(None, "model")``; ``()`` replicated)."""
+        shape = tuple(shape)
+        if (self.model_axis is not None and len(shape) >= 2
+                and shape[-1] % self.n_model == 0
+                and int(np.prod(shape)) >= self.min_shard_size):
+            return (None,) * (len(shape) - 1) + (self.model_axis,)
+        return ()
+
+    def param_sharding(self, name: str, shape) -> tuple:
+        """The placement of a leaf: its :meth:`param_spec`."""
+        return self.param_spec(name, tuple(shape))
+
+    def model_columns(self, t: Tensor) -> Tensor:
+        """This rank's columns of a model-sharded leaf (a copy)."""
+        c = t.shape[-1] // self.n_model
+        return t.narrow(-1, self.model_index * c, c).clone()
+
+    def batch_sharding(self, ndim: int,
+                       shape: Optional[Tuple[int, ...]] = None) -> tuple:
+        """The batch's spec: rows over 'data'; with a seq axis a rank-3
+        ``[B, T, F]`` batch whose T divides the axis is split on T over
+        'sp' too (a non-divisible T stays whole: the sp ranks then hold
+        the same tokens)."""
+        if (self.seq_axis is not None and ndim == 3
+                and (shape is None or shape[1] % self.n_seq == 0)):
+            return (self.data_axis, self.seq_axis, None)
+        return (self.data_axis,) + (None,) * (ndim - 1)
 
     # -------------------------------------------------------------- placement
     def shard_params(self, params):
-        """Replicate on the rank: every tensor on this rank's device (a
-        tensor already there is kept as it is, in place)."""
+        """Every tensor on this rank's device (a tensor already there is
+        kept as it is, in place). The trainer cuts model-sharded leaves to
+        this rank's columns (:meth:`model_columns`)."""
         from deeplearning4j_tpu_torch.nn.updater import tree_map
         return tree_map(lambda t: t.to(self.device), params)
 
     def batch_slice(self, global_batch: int) -> slice:
-        """This rank's rows of a global batch of ``global_batch`` rows."""
-        if global_batch % self.world:
+        """This rank's rows of a global batch of ``global_batch`` rows: the
+        rows of its data index (the model and sp ranks of one data index
+        hold the same rows)."""
+        if global_batch % self.n_data:
             raise ValueError(
                 f"global batch {global_batch} not divisible by the "
-                f"{self.world}-way data axis")
-        per = global_batch // self.world
-        return slice(self.rank * per, (self.rank + 1) * per)
+                f"{self.n_data}-way data axis")
+        per = global_batch // self.n_data
+        d = self.data_index
+        return slice(d * per, (d + 1) * per)
+
+    def seq_slice(self, T: int) -> slice:
+        """This rank's time steps of a sequence of ``T`` split over 'sp'."""
+        per = T // self.n_seq
+        return slice(self.seq_index * per, (self.seq_index + 1) * per)
 
     def shard_batch(self, *arrays):
-        """This rank's rows of each array (None passes through)."""
+        """This rank's part of each array (None passes through): its rows,
+        and its time steps where :meth:`batch_sharding` splits T."""
         out = []
         for a in arrays:
-            out.append(None if a is None
-                       else a[self.batch_slice(int(a.shape[0]))])
+            if a is not None:
+                a = a[self.batch_slice(int(a.shape[0]))]
+                if self.batch_sharding(a.ndim, a.shape)[1:2] == ("sp",):
+                    a = a[:, self.seq_slice(int(a.shape[1]))]
+            out.append(a)
         return tuple(out) if len(out) > 1 else out[0]
 
-    def local_rows(self, batch):
-        """``batch`` (a DataSet or MultiDataSet) cut to this rank's rows;
-        the batch itself at world 1."""
+    def seq_length(self, batch) -> Optional[int]:
+        """The T a batch is split on over 'sp' (its first feature's, a
+        rank-3 series whose T divides the axis), or None when it stays
+        whole."""
+        if self.seq_axis is None:
+            return None
+        feats = batch.features
+        f = feats[0] if isinstance(feats, (list, tuple)) else feats
+        if f is None or len(f.shape) != 3 or f.shape[1] % self.n_seq:
+            return None
+        return int(f.shape[1])
+
+    def local_rows(self, batch, seq: bool = True):
+        """``batch`` (a DataSet or MultiDataSet) cut to this rank's rows
+        and, with ``seq`` where it splits on T, time steps (its rank-3
+        arrays and the ``[B, T]`` masks of that T); the batch itself on a
+        mesh of one rank."""
         if self.world == 1:
             return batch
-        return take_rows(batch, self.batch_slice(batch.num_examples()))
+        if self.n_data > 1:
+            batch = take_rows(batch, self.batch_slice(batch.num_examples()))
+        T = self.seq_length(batch) if seq else None
+        return batch if T is None else take_steps(batch, T,
+                                                  self.seq_slice(T))
 
     # ------------------------------------------------------------ collectives
-    def all_reduce_(self, t: Tensor, op: str = "sum") -> Tensor:
-        """``t`` reduced over the data axis, in place (``op``: "sum" or
-        "max")."""
-        if self.distributed:
+    def all_reduce_(self, t: Tensor, op: str = "sum",
+                    axis: str = "data") -> Tensor:
+        """``t`` reduced over ``axis`` (default the data axis), in place
+        (``op``: "sum" or "max")."""
+        run, group, _ = self._axis(axis)
+        if run:
             _collective(dist.all_reduce, t,
                         op=(dist.ReduceOp.MAX if op == "max"
-                            else dist.ReduceOp.SUM), group=self.group)
+                            else dist.ReduceOp.SUM), group=group)
         return t
 
-    def sum_over_ranks(self, t: Tensor) -> Tensor:
-        """``t`` summed over the data axis, differentiably (the backward
+    def sum_over_ranks(self, t: Tensor, axis: str = "data") -> Tensor:
+        """``t`` summed over ``axis``, differentiably (the backward
         all-reduces the gradient); ``t`` itself without a group."""
-        if not self.distributed:
+        run, group, _ = self._axis(axis)
+        if not run:
             return t
-        return _SumOverRanks.apply(t, self.group)
+        return _SumOverRanks.apply(t, group)
 
-    def reduce_scatter(self, flat: Tensor) -> Tensor:
-        """The sum over the data axis of ``flat`` (``world * n``
-        elements), this rank's ``n``-element slice of it."""
-        n = flat.numel() // self.world
-        if not self.distributed:
+    def sum_over_replicas(self, t: Tensor) -> Tensor:
+        """:meth:`sum_over_ranks` over the data x sp group: a global-batch
+        statistic (the model ranks of a replica hold the same rows and
+        are not counted twice)."""
+        return self.sum_over_ranks(t, "replicas")
+
+    def reduce_scatter(self, flat: Tensor, axis: str = "data") -> Tensor:
+        """The sum over ``axis`` of ``flat`` (``n * k`` elements), this
+        rank's ``k``-element slice of it."""
+        run, group, n = self._axis(axis)
+        if not run:
             return flat.clone()
-        out = torch.empty(n, dtype=flat.dtype, device=flat.device)
-        _collective(_REDUCE_SCATTER, out, flat, group=self.group)
+        out = torch.empty(flat.numel() // n, dtype=flat.dtype,
+                          device=flat.device)
+        _collective(_REDUCE_SCATTER, out, flat, group=group)
         return out
 
-    def all_gather(self, row: Tensor) -> Tensor:
-        """Every rank's ``row`` concatenated in rank order."""
-        if not self.distributed:
+    def all_gather(self, row: Tensor, axis: str = "data") -> Tensor:
+        """Every rank's ``row`` on ``axis`` concatenated in index order."""
+        run, group, n = self._axis(axis)
+        if not run:
             return row.clone()
-        out = torch.empty(row.numel() * self.world, dtype=row.dtype,
+        out = torch.empty(row.numel() * n, dtype=row.dtype,
                           device=row.device)
-        _collective(_ALL_GATHER, out, row.contiguous(), group=self.group)
+        _collective(_ALL_GATHER, out, row.contiguous(), group=group)
         return out
 
     def broadcast_(self, t: Tensor, src: int = 0) -> Tensor:
-        """``t`` from rank ``src`` on every rank, in place."""
-        if self.distributed:
+        """``t`` from rank ``src`` of the data axis on every rank of it, in
+        place."""
+        run, group, _ = self._axis("data")
+        if run:
             _collective(dist.broadcast, t,
-                        src=dist.get_global_rank(self.group, src)
-                        if self.group is not None else src,
-                        group=self.group)
+                        src=dist.get_global_rank(group, src)
+                        if group is not None else src,
+                        group=group)
         return t
 
-    def any_flag(self, flag: Tensor) -> Tensor:
-        """A bool flag set on any rank, on every rank (all-reduce MAX)."""
-        if not self.distributed:
+    def any_flag(self, flag: Tensor, axis: str = "data") -> Tensor:
+        """A bool flag set on any rank of ``axis``, on every rank of it
+        (all-reduce MAX)."""
+        if not self._axis(axis)[0]:
             return flag
         x = flag.to(torch.uint8).reshape(1)
-        self.all_reduce_(x, "max")
+        self.all_reduce_(x, "max", axis)
         return x.reshape(()).bool()
 
     def mean_(self, tensors: Sequence[Tensor]) -> None:
@@ -359,11 +719,116 @@ class MeshContext:
         through one all-reduce of their concatenation (a no-op at world
         1)."""
         tensors = [t for t in tensors if t.is_floating_point()]
-        if not self.distributed or not tensors:
+        run, _, n = self._axis("data")
+        if not run or not tensors:
             return
         flat = torch.cat([t.reshape(-1).float() for t in tensors])
-        self.all_reduce_(flat).div_(self.world)
+        self.all_reduce_(flat).div_(n)
         copy_flat_into(flat, tensors)
+
+    # ------------------------------- the model and sp axes, differentiable
+    def gather_model(self, t: Tensor) -> Tensor:
+        """The model axis' column shards of ``t`` gathered on its last
+        axis (the backward keeps this rank's columns of the gradient)."""
+        run, group, n = self._axis("model")
+        if not run:
+            return t
+        return _GatherDim.apply(t, t.dim() - 1, group, n, self.model_index)
+
+    def copy_to_model(self, t: Tensor) -> Tensor:
+        """``t`` as it is; its gradient all-reduced over the model axis."""
+        run, group, _ = self._axis("model")
+        return _CopyToGroup.apply(t, group) if run else t
+
+    def model_sum_value(self, t: Tensor) -> Tensor:
+        """``t`` summed over the model axis, its gradient passed through."""
+        run, group, _ = self._axis("model")
+        return _SumForward.apply(t, group) if run else t
+
+    def gather_seq(self, t: Tensor, dim: int = 1) -> Tensor:
+        """The sp axis' time shards of ``t`` gathered on ``dim`` (the
+        backward reduce-scatters the gradient)."""
+        run, group, n = self._axis("sp")
+        if not run:
+            return t
+        return _GatherReduceScatter.apply(t, dim, group, n)
+
+    def take_seq(self, t: Tensor, dim: int = 1) -> Tensor:
+        """This rank's time steps of a whole sequence on ``dim``."""
+        return t.narrow(dim, self.seq_index * (t.shape[dim] // self.n_seq),
+                        t.shape[dim] // self.n_seq)
+
+    def ring_shift(self, t: Tensor) -> Tensor:
+        """``t`` from the previous rank of the sp ring (this rank's goes
+        to the next), differentiable. A gloo group over CUDA tensors
+        stages the send through host buffers: gloo refuses point-to-point
+        sends of device memory."""
+        run, group, n = self._axis("sp")
+        if not run:
+            return t
+        ring = axis_ranks((self.n_data, self.n_model, self.n_seq), "sp",
+                          self.coords)
+        if self.group is not None:     # ranks of the mesh's own group
+            ring = [dist.get_global_rank(self.group, r) for r in ring]
+        s = self.seq_index
+        stage = t.is_cuda and self.backend == "gloo"
+        return _RingShift.apply(t, group, ring[(s + 1) % n],
+                                ring[(s - 1) % n], stage)
+
+
+# ---------------------------------------------------------------------------
+# the active step's sharded axes (the seam the layers read)
+# ---------------------------------------------------------------------------
+
+_ACTIVE_SEQ_CTX: list = []
+
+
+class sequence_parallel_scope:
+    """While active, a training forward runs on the mesh's model and sp
+    axes: ``SelfAttentionLayer.apply`` routes attention through
+    ``ring_attention_sharded`` over 'sp' (when ``seq_split``: this step's
+    batch is split on T), and model-sharded leaves are consumed on this
+    rank's columns. A no-op for meshes without either axis.
+    ``ParallelTrainer`` enters it around its step, so single-device
+    paths (parity references, inference) stay unrouted."""
+
+    def __init__(self, ctx: "MeshContext", seq_split: bool = True):
+        sharded = ctx is not None and (
+            getattr(ctx, "seq_axis", None) or getattr(ctx, "model_axis",
+                                                      None))
+        self._entry = (ctx, bool(seq_split)) if sharded else None
+
+    def __enter__(self):
+        if self._entry is not None:
+            _ACTIVE_SEQ_CTX.append(self._entry)
+        return self
+
+    def __exit__(self, *exc):
+        if self._entry is not None:
+            _ACTIVE_SEQ_CTX.pop()
+        return False
+
+
+def active_sequence_context() -> Optional["MeshContext"]:
+    """The MeshContext of the innermost scope when its batch is split on T
+    over 'sp' (its ``seq_axis`` is set), else None."""
+    if not _ACTIVE_SEQ_CTX:
+        return None
+    ctx, split = _ACTIVE_SEQ_CTX[-1]
+    return ctx if split and ctx.seq_axis is not None else None
+
+
+def active_model_context() -> Optional["MeshContext"]:
+    """The MeshContext of the innermost scope when it has a model axis."""
+    if not _ACTIVE_SEQ_CTX:
+        return None
+    ctx = _ACTIVE_SEQ_CTX[-1][0]
+    return ctx if ctx.model_axis is not None else None
+
+
+def active_mesh() -> Optional["MeshContext"]:
+    """The MeshContext of the innermost scope (None outside any)."""
+    return _ACTIVE_SEQ_CTX[-1][0] if _ACTIVE_SEQ_CTX else None
 
 
 def copy_flat_into(flat: Tensor, tensors: Sequence[Tensor]) -> None:
@@ -375,22 +840,43 @@ def copy_flat_into(flat: Tensor, tensors: Sequence[Tensor]) -> None:
             t.copy_(p.view(t.shape))
 
 
-def take_rows(batch, rows: slice):
-    """A DataSet's or MultiDataSet's rows ``rows`` (masks too)."""
+def _map_batch(batch, features, labels, masks):
+    """A DataSet or MultiDataSet with ``features`` / ``labels`` / ``masks``
+    applied to its arrays (None passes through)."""
     from deeplearning4j_tpu_torch.datasets.dataset import (
         DataSet, MultiDataSet,
     )
 
-    def cut(a):
-        return None if a is None else a[rows]
+    def opt(fn, a):
+        return None if a is None else fn(a)
 
     if isinstance(batch, DataSet):
-        return DataSet(cut(batch.features), cut(batch.labels),
-                       cut(batch.features_mask), cut(batch.labels_mask))
+        return DataSet(opt(features, batch.features),
+                       opt(labels, batch.labels),
+                       opt(masks, batch.features_mask),
+                       opt(masks, batch.labels_mask))
     if isinstance(batch, MultiDataSet):
-        lists = (None if m is None else [cut(a) for a in m]
-                 for m in (batch.features_masks, batch.labels_masks))
-        fm, lm = lists
-        return MultiDataSet([cut(a) for a in batch.features],
-                            [cut(a) for a in batch.labels], fm, lm)
-    raise TypeError(f"cannot take rows of {type(batch).__name__}")
+        fm, lm = (None if m is None else [opt(masks, a) for a in m]
+                  for m in (batch.features_masks, batch.labels_masks))
+        return MultiDataSet([opt(features, a) for a in batch.features],
+                            [opt(labels, a) for a in batch.labels], fm, lm)
+    raise TypeError(f"cannot cut a {type(batch).__name__}")
+
+
+def take_rows(batch, rows: slice):
+    """A DataSet's or MultiDataSet's rows ``rows`` (masks too)."""
+    def cut(a):
+        return a[rows]
+    return _map_batch(batch, cut, cut, cut)
+
+
+def take_steps(batch, T: int, steps: slice):
+    """A batch's time steps ``steps`` of its length-``T`` series: the
+    rank-3 features and labels of that T and its ``[B, T]`` masks; every
+    other array whole."""
+    def series(a):
+        return a[:, steps] if len(a.shape) == 3 and a.shape[1] == T else a
+
+    def mask(a):
+        return a[:, steps] if len(a.shape) == 2 and a.shape[1] == T else a
+    return _map_batch(batch, series, series, mask)

@@ -180,6 +180,8 @@ def shutdown() -> None:
     one of its collectives, and it goes with the process."""
     global _elastic
     if dist.is_initialized() and not _quarantined:
+        from deeplearning4j_tpu_torch.parallel.mesh import forget_groups
+        forget_groups()
         dist.destroy_process_group()
         _elastic = False
 
@@ -337,9 +339,10 @@ def data_parallel_trainer(net, n_model: int = 1,
                           precision=None, tuned=None, device=None,
                           **kwargs):
     """A ``ParallelTrainer`` over the default process group (call
-    :func:`initialize` first; without a group it is world 1). ``device``
-    defaults to the net's. Every rank then feeds the same global batch to
-    ``fit_batch``."""
+    :func:`initialize` first; without a group it is world 1), its mesh
+    ``n_model`` ranks wide on the model axis (tensor parallelism) and the
+    rest of the world on the data axis. ``device`` defaults to the net's.
+    Every rank then feeds the same global batch to ``fit_batch``."""
     from deeplearning4j_tpu_torch.parallel.mesh import MeshContext
     from deeplearning4j_tpu_torch.parallel.trainer import ParallelTrainer
     ctx = MeshContext.create(n_model=n_model,

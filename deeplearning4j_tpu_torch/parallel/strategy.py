@@ -11,7 +11,7 @@ The registry maps strategy names onto the trainers:
 - ``"delayed_sync"``    -> ``DelayedSyncTrainer``: local accumulation with
   one param-sized all-reduce every ``sync_frequency`` steps;
 - ``"pipeline"``        -> pipeline parallelism, not ported (ROADMAP
-  A6.2).
+  A6.2b).
 
 ``create_trainer(strategy, net, ...)`` is the factory; ``hooks`` wrap the
 trainer's ``fit_batch`` in ``TrainingHook`` pre/post calls. A trainer
@@ -81,7 +81,7 @@ def _param_averaging(net, mesh: Optional[MeshContext] = None, **kw):
 def _pipeline(net, mesh: Optional[MeshContext] = None, **kw):
     raise NotImplementedError(
         "pipeline parallelism (parallel/pipeline.py) is not ported yet "
-        "(ROADMAP A6.2)")
+        "(ROADMAP A6.2b)")
 
 
 @register_strategy("delayed_sync")

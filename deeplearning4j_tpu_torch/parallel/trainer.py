@@ -56,6 +56,25 @@ step. ``collect_training_stats`` records the
 ``shard`` / ``step`` / ``listener`` / ``data_wait`` phases, synchronizing
 the card each step.
 
+On a mesh with a ``model`` or ``sp`` axis (``MeshContext.create(n_model=,
+n_seq=)``; ROADMAP A6.2a) the step is the JAX trainer's GSPMD step
+written out per rank (``parallel/tensor.py``). While the trainer is
+attached, each leaf ``param_spec`` shards over 'model' holds this rank's
+columns, and its updater moments too (``gather_params`` puts the whole
+tensors back; ``output`` / ``score`` / the zip serializer refuse a net
+holding columns). The rows are cut by the data index and, on an sp axis,
+a batch whose T divides the axis by the sp index too. Each microbatch's
+loss and gradient run inside ``mesh.sequence_parallel_scope``; the
+gradients (column shards as they are) are all-reduced over the data x sp
+group and divided by the data axis' width, so the model ranks of a
+replica reduce nothing; the sentinel's flag is taken over the model ranks
+too, and the norm-based gradient normalizations sum a column shard's
+squares over the model axis. Batch norm sums over the data x sp group,
+and the dropout stream is the replica's (data and sp index): the model
+ranks of a replica draw the same masks. ZeRO composes with an sp axis
+(the gradient summed over it first, then reduce-scattered over the data
+axis), not with a model axis, as in the JAX package.
+
 The port's trainer updates the net's tensors in place, so
 ``donate_params`` changes nothing. ``tuned=`` waits for the autotuner
 (ROADMAP A7.4). ``step_program`` / ``shardcheck`` analyse the JAX step's
@@ -88,8 +107,10 @@ from deeplearning4j_tpu_torch.optimize.training_stats import (
     TrainingStats, maybe_phase,
 )
 from deeplearning4j_tpu_torch.parallel.mesh import (
-    MeshContext, WeightUpdateSharding, take_rows,
+    MeshContext, WeightUpdateSharding, sequence_parallel_scope, take_rows,
+    take_steps,
 )
+from deeplearning4j_tpu_torch.parallel.tensor import ModelShards
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 from deeplearning4j_tpu_torch.resilience.sentinel import (
     guarded_in_place, nonfinite_flag,
@@ -119,6 +140,15 @@ def unflatten(flat: torch.Tensor, like):
     return tree_map(lambda t: parts[index[id(t)]].view(t.shape), like)
 
 
+def check_data_mesh(mesh: MeshContext, who: str) -> None:
+    """Refuse a mesh with a model or sp axis: ``who`` trains data-parallel
+    only, as the JAX package's does."""
+    if mesh.n_model > 1 or mesh.n_seq > 1:
+        raise ValueError(
+            f"{who} trains data-parallel only; this mesh has n_model="
+            f"{mesh.n_model}, n_seq={mesh.n_seq} (use ParallelTrainer)")
+
+
 def check_mesh_device(net, mesh: MeshContext) -> None:
     if net.device.type != mesh.device.type:
         raise ValueError(
@@ -132,7 +162,10 @@ class ParallelTrainer:
     ZeRO mode is attached, ``net.opt_state`` holds this rank's rows of the
     moments (sharded checkpoints save them as they are); call
     :meth:`gather_opt_state` on every rank before handing the net to the
-    zip serializer or a replicated trainer."""
+    zip serializer or a replicated trainer. On a model axis the net's
+    sharded leaves hold this rank's columns while the trainer is attached;
+    call :meth:`gather_params` on every rank before ``output``, ``score``
+    or the zip serializer."""
 
     def __init__(self, net, mesh: Optional[MeshContext] = None,
                  gradient_accumulation: int = 1,
@@ -164,25 +197,30 @@ class ParallelTrainer:
         net.params = self.mesh.shard_params(net.params)
         net.states = self.mesh.shard_params(net.states)
         self._stream = None
-        if self.mesh.world > 1:
-            # this rank's dropout stream; the cursor records every rank's
+        if self.mesh.n_replicas > 1:
+            # this replica's dropout stream (the model ranks of a replica
+            # share it: they compute the same activations); the cursor
+            # records every replica's
             self._stream = torch.Generator(device=net.device)
-            net._rank_streams = self.mesh.world
+            net._rank_streams = self.mesh.n_replicas
         self._sharded = False
         self._opt_template = None
         self._layout: Optional[ZeroLayout] = None
         self._anchor: Optional[torch.Tensor] = None
         if self.weight_update_sharding.enabled:
             self._shard_opt_state()
+        self._model_sharded = False
+        if self.mesh.n_model > 1:
+            self._shard_model()
 
     # -------------------------------------------------------- the ZeRO layout
     def _shard_opt_state(self) -> None:
         net, mesh = self.net, self.mesh
         net.opt_state, self._opt_template = shard_updater_state(
             net.opt_state, mesh)
-        self._layout = ZeroLayout(net.params, mesh.world, mesh.rank)
+        self._layout = ZeroLayout(net.params, mesh.n_data, mesh.data_index)
         # the sharded checkpoint reads the moments as rows of (dp, chunk)
-        net._zero_shards = (mesh.rank, mesh.world)
+        net._zero_shards = (mesh.data_index, mesh.n_data)
         self._sharded = True
 
     def gather_opt_state(self):
@@ -197,26 +235,91 @@ class ParallelTrainer:
             self.net._zero_shards = None
         return self.net.opt_state
 
+    # ------------------------------------------------------ the model axis
+    def _param_keys(self) -> list:
+        params = self.net.params
+        return list(range(len(params))) if isinstance(params, list) \
+            else list(params)
+
+    def _shard_model(self) -> None:
+        """Cut every leaf ``mesh.param_spec`` shards over 'model' (and its
+        updater moments) to this rank's columns."""
+        net, mesh = self.net, self.mesh
+        if getattr(net, "_model_shards", None) is not None:
+            raise ValueError(
+                "the net already holds column shards of another trainer; "
+                "call its gather_params() first")
+        spec = {k: {n: bool(mesh.param_spec(n, tuple(t.shape)))
+                    for n, t in net.params[k].items()}
+                for k in self._param_keys()}
+        slots = [s for s in net.opt_state if s != "count"]
+        with torch.no_grad():
+            for k, names in spec.items():
+                for n, sharded in names.items():
+                    if not sharded:
+                        continue
+                    net.params[k][n] = mesh.model_columns(net.params[k][n])
+                    for slot in slots:
+                        net.opt_state[slot][k][n] = mesh.model_columns(
+                            net.opt_state[slot][k][n])
+        d, m, s = mesh.coords
+        net._model_shards = ModelShards(m, mesh.n_model, spec,
+                                        writer=d == 0 and s == 0)
+        self._model_sharded = True
+
+    def gather_params(self):
+        """Put the whole tensors of every model-sharded leaf (and its
+        updater moments) back on the net (a collective: every rank calls
+        it) and return ``net.params``, for ``output``, ``score`` and the
+        zip serializer. A no-op without a model axis; the next
+        ``fit_batch`` shards again."""
+        net, mesh = self.net, self.mesh
+        shards = getattr(net, "_model_shards", None)
+        if not self._model_sharded or shards is None:
+            return net.params
+        slots = [s for s in net.opt_state if s != "count"]
+        with torch.no_grad():
+            for k, names in shards.spec.items():
+                for n, sharded in names.items():
+                    if not sharded:
+                        continue
+                    net.params[k][n] = mesh.gather_model(net.params[k][n])
+                    for slot in slots:
+                        net.opt_state[slot][k][n] = mesh.gather_model(
+                            net.opt_state[slot][k][n])
+        net._model_shards = None
+        self._model_sharded = False
+        return net.params
+
     # --------------------------------------------------------------- batches
-    def _micro_rows(self, batch) -> list:
-        """This rank's rows of each microbatch of the global ``batch``."""
-        k, world, rank = (self.gradient_accumulation, self.mesh.world,
-                          self.mesh.rank)
+    def _micro_batches(self, batch, tbptt: bool = False) -> list:
+        """(this rank's part, split on T) of each microbatch of the
+        global ``batch``: the rows of its data index and, on an sp axis,
+        its time steps of a batch whose T divides the axis (not under
+        tBPTT, whose windows cut the whole sequence)."""
+        mesh = self.mesh
+        k, n_data, d = (self.gradient_accumulation, mesh.n_data,
+                        mesh.data_index)
         B = batch.num_examples()
         if B % k:
             raise ValueError(f"batch size {B} not divisible by "
                              f"gradient_accumulation={k}")
         mb = B // k
-        if mb % world:
+        if mb % n_data:
             raise ValueError(
-                f"microbatch of {mb} rows not divisible by the {world}-way "
-                "data axis")
-        if k == 1 and world == 1:
-            return [batch]
-        per = mb // world
-        return [take_rows(batch, slice(i * mb + rank * per,
-                                       i * mb + (rank + 1) * per))
-                for i in range(k)]
+                f"microbatch of {mb} rows not divisible by the "
+                f"{n_data}-way data axis")
+        if k == 1 and n_data == 1:
+            micro = [batch]
+        else:
+            per = mb // n_data
+            micro = [take_rows(batch, slice(i * mb + d * per,
+                                            i * mb + (d + 1) * per))
+                     for i in range(k)]
+        T = None if tbptt else mesh.seq_length(batch)
+        if T is None:
+            return [(m, False) for m in micro]
+        return [(take_steps(m, T, mesh.seq_slice(T)), True) for m in micro]
 
     def _to_device(self, rows):
         """(features, labels, feature mask, label mask) on the card (dicts
@@ -242,29 +345,36 @@ class ParallelTrainer:
                                         self.precision, value_and_grad)
 
     def _reduce(self, grads) -> torch.Tensor:
-        """This microbatch's gradient summed over the ranks and divided by
-        the world: one flat buffer (replicated mode) or this rank's row
-        (ZeRO)."""
+        """This microbatch's gradient summed over the data x sp ranks (the
+        model ranks of a replica hold the same replicated gradients and
+        each its own columns) and divided by the data axis' width: one
+        flat buffer (replicated mode) or this rank's row (ZeRO; on an sp
+        axis summed over it first)."""
         mesh = self.mesh
         if not self._sharded:
             flat = torch.cat([g.reshape(-1) for g in tree_leaves(grads)])
-            return mesh.all_reduce_(flat).div_(mesh.world)
+            return mesh.all_reduce_(flat, axis="replicas").div_(mesh.n_data)
         if self.weight_update_sharding.zero2:
             packed = self._layout.pack(grads)
         else:
             if self._anchor is None:
                 self._anchor = torch.empty(
-                    mesh.world, self._layout.row,
+                    mesh.n_data, self._layout.row,
                     dtype=tree_leaves(grads)[0].dtype, device=mesh.device)
             packed = self._layout.pack(grads, out=self._anchor)
-        return mesh.reduce_scatter(packed.view(-1)).div_(mesh.world)
+        packed = mesh.all_reduce_(packed, axis="sp")
+        return mesh.reduce_scatter(packed.view(-1)).div_(mesh.n_data)
 
     def _flag(self, loss, acc) -> torch.Tensor:
         """The step's non-finite flag, the same on every rank: ``loss`` is
         all-reduced and so is ``acc`` in replicated mode; under ZeRO the
         rows' sums of squares are."""
         if not self._sharded:
-            return nonfinite_flag(loss, unflatten(acc, self.net.params))
+            flag = nonfinite_flag(loss, unflatten(acc, self.net.params))
+            if self.mesh.n_model > 1:
+                # a model rank sees its own columns: any rank's flag counts
+                flag = self.mesh.any_flag(flag, "model")
+            return flag
         gsq = self.mesh.all_reduce_((acc.float() ** 2).sum().reshape(1))
         return ~(torch.isfinite(loss) & torch.isfinite(gsq[0]))
 
@@ -284,10 +394,14 @@ class ParallelTrainer:
                 bad)
             return bad
 
+        shards = getattr(net, "_model_shards", None)
+        model = None if shards is None else (self.mesh,
+                                             shards.mirror(net.params))
+
         def update():
             compute_updates(net._tx, unflatten(acc, net.params),
                             net.opt_state, net.params, self._layers,
-                            training)
+                            training, model=model)
         if bad is None:
             update()
         else:
@@ -312,8 +426,8 @@ class ParallelTrainer:
         Returns (loss over the ranks and microbatches, bad flag)."""
         if k > 1:
             acc.div_(k)
-        loss = self.mesh.all_reduce_(total.reshape(1)).reshape(()) \
-            .div(self.mesh.world)
+        loss = self.mesh.all_reduce_(total.reshape(1), axis="replicas") \
+            .reshape(()).div(self.mesh.n_data)
         if k > 1:
             loss = loss / k
         return loss, self._apply(acc, loss)
@@ -330,10 +444,11 @@ class ParallelTrainer:
         """One update on the microbatches' whole sequences."""
         net = self.net
         states, acc, total = net.states, None, None
-        for f, l, fm, lm in micro:
-            loss, aux, grads = self._value_and_grad(
-                lambda p, s=states: net._loss_fn(p, s, f, l, fm, lm,
-                                                 rng=net._rng, train=True))
+        for (f, l, fm, lm), split in micro:
+            with sequence_parallel_scope(self.mesh, seq_split=split):
+                loss, aux, grads = self._value_and_grad(
+                    lambda p, s=states: net._loss_fn(
+                        p, s, f, l, fm, lm, rng=net._rng, train=True))
             states = aux if self._is_graph else aux[0]
             acc, total = self._accumulate(acc, total, loss, grads)
             del grads
@@ -350,6 +465,7 @@ class ParallelTrainer:
         fwd = net.conf.training.tbptt_fwd_length
         dt = (torch_dtype(self.precision.compute_dtype)
               if self.precision.mixed else net.dtype)
+        micro = [m for m, _ in micro]
         T = net._tbptt_length(micro[0])
         carries = [net._initial_carries(
             tree_leaves(m[1])[0].shape[0], dt) for m in micro]
@@ -360,8 +476,10 @@ class ParallelTrainer:
             acc = wtotal = None
             for i, m in enumerate(micro):
                 window = net._tbptt_windows(m, start, end)
-                loss, (states, nc), grads = self._value_and_grad(
-                    lambda p, c=carries[i]: net._tbptt_loss(p, *window, c))
+                with sequence_parallel_scope(self.mesh, seq_split=False):
+                    loss, (states, nc), grads = self._value_and_grad(
+                        lambda p, c=carries[i]: net._tbptt_loss(p, *window,
+                                                                c))
                 net.states = states   # the next microbatch's _tbptt_loss
                 acc, wtotal = self._accumulate(acc, wtotal, loss, grads)
                 del grads
@@ -384,13 +502,16 @@ class ParallelTrainer:
 
     @contextlib.contextmanager
     def _rank_step(self):
-        """At world > 1: batch norm over the global batch, dropout from
-        this rank's stream. At world 1: the net's own step."""
+        """With more than one replica (data x sp ranks): batch norm over
+        the global batch, dropout from this replica's stream (the model
+        ranks of a replica draw the same masks). With one: the net's own
+        step."""
         if self._stream is None:
             yield
             return
-        with global_batch_stats(self.net, self.mesh.sum_over_ranks), \
-                derived_stream(self.net, self.mesh.rank, self._stream):
+        with global_batch_stats(self.net, self.mesh.sum_over_replicas), \
+                derived_stream(self.net, self.mesh.replica_index,
+                               self._stream):
             yield
 
     # -------------------------------------------------------------------- fit
@@ -402,13 +523,15 @@ class ParallelTrainer:
         if self.weight_update_sharding.enabled and not self._sharded:
             # a gather_opt_state() between fits: shard again
             self._shard_opt_state()
+        if self.mesh.n_model > 1 and not self._model_sharded:
+            self._shard_model()     # a gather_params() between fits
         stats = self.training_stats
         tracer = get_tracer()
         tbptt = self._tbptt(batch)
         with tracer.span("shard"):
             t0 = time.perf_counter()
-            micro = [self._to_device(rows)
-                     for rows in self._micro_rows(batch)]
+            micro = [(self._to_device(rows), split) for rows, split
+                     in self._micro_batches(batch, tbptt)]
             if stats:
                 self._sync()
                 stats.record("shard", time.perf_counter() - t0)

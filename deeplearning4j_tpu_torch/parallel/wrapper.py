@@ -51,7 +51,7 @@ from deeplearning4j_tpu_torch.parallel.mesh import (
     MeshContext, WeightUpdateSharding, copy_flat_into,
 )
 from deeplearning4j_tpu_torch.parallel.trainer import (
-    check_mesh_device, tuned_not_ported,
+    check_data_mesh, check_mesh_device, tuned_not_ported,
 )
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
@@ -98,6 +98,7 @@ class ParallelWrapper:
         self.mesh = mesh if mesh is not None else MeshContext.create(
             device=device)
         check_mesh_device(net, self.mesh)
+        check_data_mesh(self.mesh, "ParallelWrapper")
         self.workers = int(workers or self.mesh.n_data)
         self.prefetch_buffer = prefetch_buffer
         self.averaging_frequency = max(1, averaging_frequency)

@@ -136,8 +136,20 @@ def checkpoint_tree(net, with_updater: bool = True,
     (``Updater.optax_paths``; one count tensor or int under every count
     path), a ZeRO trainer's moments as this rank's rows (or ``moments``'
     trees, by updater slot, when given)."""
-    from deeplearning4j_tpu_torch.parallel.checkpoint import RowShard
-    tree: Dict[str, Any] = {"params": net.params, "states": net.states}
+    from deeplearning4j_tpu_torch.parallel.checkpoint import (
+        ColumnShard, RowShard,
+    )
+    shards = getattr(net, "_model_shards", None)
+
+    def columns(tree):
+        """A params-shaped tree with its column shards marked."""
+        if shards is None:
+            return tree
+        return tree_map(lambda t, c: ColumnShard(t, shards.index, shards.n,
+                                                 shards.writer) if c else t,
+                        tree, shards.mirror(net.params))
+    tree: Dict[str, Any] = {"params": columns(net.params),
+                            "states": net.states}
     if not with_updater or net.opt_state is None:
         return tree
     zero = getattr(net, "_zero_shards", None)
@@ -153,9 +165,9 @@ def checkpoint_tree(net, with_updater: bool = True,
         elif moments is not None:
             node[parts[-1]] = moments[entry]
         else:
-            node[parts[-1]] = (net.opt_state[entry] if zero is None else
-                               tree_map(lambda t: RowShard(t, *zero),
-                                        net.opt_state[entry]))
+            node[parts[-1]] = (columns(net.opt_state[entry]) if zero is None
+                               else tree_map(lambda t: RowShard(t, *zero),
+                                             net.opt_state[entry]))
     tree["opt_state"] = opt
     return tree
 
@@ -164,12 +176,14 @@ def checkpoint_tree(net, with_updater: bool = True,
 def _write_back(net, template: Dict[str, Any], out: Dict[str, Any]) -> None:
     """Copy a restored tree into the net's own tensors in place (a served
     net's CUDA graphs and a ZeRO trainer's row views stay valid)."""
-    from deeplearning4j_tpu_torch.parallel.checkpoint import RowShard, _paths
+    from deeplearning4j_tpu_torch.parallel.checkpoint import (
+        ColumnShard, RowShard, _paths,
+    )
     got = dict(_paths(out))
     count = None
     for key, dst in _paths(template):
         src = got[key]
-        if isinstance(dst, RowShard):
+        if isinstance(dst, (RowShard, ColumnShard)):
             dst.local.copy_(src.local)
         elif isinstance(dst, torch.Tensor):
             if key.endswith("/.count"):

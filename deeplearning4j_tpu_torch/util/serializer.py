@@ -74,6 +74,8 @@ class ModelSerializer:
         """(ref: ModelSerializer.writeModel:79-110) — atomic commit: the
         previous archive at ``path`` stays intact until the new one is
         fully on disk."""
+        from deeplearning4j_tpu_torch.parallel.tensor import step_mesh
+        step_mesh(net)    # a net holding column shards raises
         members = {
             ModelSerializer.CONFIG_NAME: net.conf.to_json().encode(),
             ModelSerializer.COEFFICIENTS_NAME:

@@ -475,7 +475,8 @@ def test_create_trainer_builds_each_strategy_and_runs_hooks(group):
     ("workers", "ValueError", "3 workers"),
     ("zero_workers", "ValueError", "3 workers"),
     ("tuned", "NotImplementedError", "A7.4"),
-    ("n_model", "NotImplementedError", "A6.2"),
+    ("n_model", "ValueError", "n_model=3"),
+    ("zero1_model", "ValueError", "zero1 weight-update sharding"),
     ("n_data", "ValueError", "world 2"),
     ("rows", "ValueError", "not divisible"),
     ("local_slice", "ValueError", "not divisible by process count 2"),

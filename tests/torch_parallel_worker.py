@@ -9,6 +9,11 @@ rank's results: ``{case name: value}``, a case that raised carrying its
 traceback (``result`` raises it as ``RankError``). One group serves a
 whole test module; each test reads its case's results.
 
+The tensor- and sequence-parallel cases (``case_mesh_*``, ``case_ring``,
+``case_scope_routing``) run at world 4, each on a mesh of the layout
+they are given (``mesh_for``: over all four ranks, or over each part of
+the world cut to the layout's size).
+
 Run alone: ``python tests/torch_parallel_worker.py <spec> <rank>
 <world> <init_method> <out>``.
 
@@ -226,6 +231,26 @@ def lenet_bn_conf(seed=12345, lr=0.01):
             .set_input_type(InputType.convolutional(16, 16, 1)).build())
 
 
+def attn_conf(seed=5, causal=False, T=16, F=8, K=5, lr=0.05):
+    """``tests/test_attention_sequence.py``'s container: self attention
+    (2 heads, blocks of 4) and a per-timestep softmax head, SGD."""
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        SelfAttentionLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+    return (NeuralNetConfiguration.builder().seed(seed)
+            .updater("sgd", learning_rate=lr).weight_init("xavier").list()
+            .layer(SelfAttentionLayer(n_heads=2, causal=causal,
+                                      block_size=4))
+            .layer(RnnOutputLayer(n_out=K, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(InputType.recurrent(F, T)).build())
+
+
 def build(kind: str, params=None, **kw):
     """A port net on the CPU: ``kind`` "mlp", "lenet_bn"
     (``lenet_bn_conf``), "gpt" (``gpt_tiny``) or "char_rnn"
@@ -244,6 +269,8 @@ def build(kind: str, params=None, **kw):
     elif kind == "char_rnn":
         from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
         conf, cls = char_rnn_lstm(**kw), MultiLayerNetwork
+    elif kind == "attn":
+        conf, cls = attn_conf(**kw), MultiLayerNetwork
     else:
         raise ValueError(kind)
     net = cls(conf, device="cpu")
@@ -632,8 +659,11 @@ def case_strategies(batches):
                 weight_update_sharding="zero1")),
             ("tuned", lambda: ParallelTrainer(build("mlp"), mesh,
                                               tuned=object())),
-            ("n_model", lambda: MeshContext.create(n_model=2,
+            ("n_model", lambda: MeshContext.create(n_model=3,
                                                    device="cpu")),
+            ("zero1_model", lambda: ParallelTrainer(
+                build("mlp"), MeshContext.create(n_model=2, device="cpu"),
+                weight_update_sharding="zero1")),
             ("n_data", lambda: MeshContext.create(n_data=4,
                                                   device="cpu")),
             ("rows", lambda: ParallelTrainer(build("mlp"), mesh).fit_batch(
@@ -839,6 +869,217 @@ def case_ft_parallel(ckpt_root, batches, mode="off"):
 # ---------------------------------------------------------------------------
 # a run killed mid-checkpoint (one process, no group)
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# cases: the model and sp axes (tensor and sequence parallelism)
+# ---------------------------------------------------------------------------
+
+_HALVES: dict = {}
+
+
+def mesh_for(layout, min_shard=None):
+    """A CPU mesh of ``layout`` (n_data, n_model, n_seq): over the default
+    group when it spans the world, else over this rank's part of the
+    world cut into groups of its size (every rank builds every part, in
+    the same order)."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import MeshContext
+    nd, nm, ns = layout
+    size, world = nd * nm * ns, dist.get_world_size()
+    group = None
+    if size < world:
+        if size not in _HALVES:
+            parts = [dist.new_group(list(range(i, i + size)))
+                     for i in range(0, world, size)]
+            _HALVES[size] = parts[dist.get_rank() // size]
+        group = _HALVES[size]
+    mesh = MeshContext.create(n_data=nd, n_model=nm, n_seq=ns, device="cpu",
+                              group=group)
+    if min_shard is not None:
+        mesh.min_shard_size = min_shard
+    return mesh
+
+
+def _err(fn):
+    try:
+        fn()
+        return None
+    except Exception as e:   # the type and message are the result
+        return (type(e).__name__, str(e))
+
+
+def case_mesh_train(kind, net_kw, params, batches, layout, steps=1,
+                    min_shard=16, mode="off", accum=1, save=None):
+    """``steps`` passes over ``batches`` through ``ParallelTrainer`` on a
+    mesh of ``layout``: the losses, the leaves it shards, the param and
+    moment bytes this rank holds (sharded and whole), the refusal of
+    ``score`` while the shards are attached, and after ``gather_params``
+    the whole params. ``save``: a directory a sharded CheckpointManager
+    writes after the last step (before the gather)."""
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+    from deeplearning4j_tpu_torch.resilience.manager import (
+        CheckpointManager,
+    )
+    net = build(kind, params, **net_kw)
+    whole = sum(t.numel() * t.element_size() for t in _leaves(net.params))
+    mesh = mesh_for(layout, min_shard)
+    tr = ParallelTrainer(net, mesh, weight_update_sharding=mode,
+                         gradient_accumulation=accum)
+    shards = getattr(net, "_model_shards", None)
+    sharded = sorted(f"{k}/{n}" for k, v in
+                     (shards.spec.items() if shards else ())
+                     for n, f in v.items() if f)
+    rank_bytes = sum(t.numel() * t.element_size()
+                     for t in _leaves(net.params))
+    losses = [tr.fit_batch(b) for _ in range(steps)
+              for b in datasets(batches)]
+    out = dict(losses=[float(x) for x in losses], coords=mesh.coords,
+               sharded=sharded, param_bytes=rank_bytes, whole_bytes=whole,
+               moment_bytes=sum(t.numel() * t.element_size()
+                                for k, v in net.opt_state.items()
+                                if k != "count" for t in _leaves(v)),
+               score_refused=_err(lambda: net.score(datasets(batches)[0])))
+    if save is not None:
+        mgr = CheckpointManager(save, sharded=True, mesh_ctx=mesh)
+        out["saved"] = str(mgr.save(net))
+    tr.gather_params()
+    out["params"] = flat(net)
+    out["leaves"] = {f"{k}/{n}": t.numpy().copy()
+                     for k, v in (enumerate(net.params)
+                                  if isinstance(net.params, list)
+                                  else net.params.items())
+                     for n, t in v.items()}
+    out["score"] = net.score(datasets(batches)[0])
+    first = (net.params[0] if isinstance(net.params, list)
+             else net.params["embed"])
+    out["bias0"] = first["b"].numpy().copy() if "b" in first else None
+    return out
+
+
+def case_mesh_roundtrip(kind, net_kw, batches, layout, min_shard=16):
+    """Two steps with a ``gather_params`` between them against two steps
+    without: the gather re-shards on the next step, bit for bit."""
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+    runs = []
+    for gather_between in (False, True):
+        net = build(kind, **net_kw)
+        tr = ParallelTrainer(net, mesh_for(layout, min_shard))
+        tr.fit_batch(datasets(batches)[0])
+        if gather_between:
+            tr.gather_params()
+            mid = flat(net)
+        tr.fit_batch(datasets(batches)[0])
+        tr.gather_params()
+        runs.append(flat(net))
+    return dict(straight=runs[0], gathered=runs[1], mid=mid)
+
+
+def case_mesh_restore(ckpt, kind, net_kw, layout, batches, min_shard=16):
+    """A fresh net (another seed) under a trainer on ``layout`` restores
+    the sharded checkpoint ``ckpt`` (its column shards), then gathers;
+    and one step after the restore."""
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+    from deeplearning4j_tpu_torch.resilience.manager import (
+        CheckpointManager, checkpoint_tree,
+    )
+    from deeplearning4j_tpu_torch.parallel.checkpoint import (
+        restore_sharded_into,
+    )
+    net = build(kind, seed=777, **net_kw)
+    mesh = mesh_for(layout, min_shard)
+    tr = ParallelTrainer(net, mesh)
+    tpl = checkpoint_tree(net, True)
+    from deeplearning4j_tpu_torch.resilience.manager import _write_back
+    _write_back(net, tpl, restore_sharded_into(ckpt, tpl, mesh))
+    loss = float(tr.fit_batch(datasets(batches)[0]))
+    tr.gather_params()
+    return dict(params=flat(net), loss=loss,
+                mu=[t.numpy().copy() for t in _leaves(net.opt_state["mu"])])
+
+
+def case_mesh_refusals(layouts):
+    """The mesh layouts' refusals (each an error or None)."""
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshContext, ParallelTrainer,
+    )
+    out = {}
+    out["n_model_3"] = _err(lambda: MeshContext.create(n_model=3,
+                                                       device="cpu"))
+    out["zero1_model"] = _err(lambda: ParallelTrainer(
+        build("mlp"), mesh_for((2, 2, 1)), weight_update_sharding="zero1"))
+    out["zero2_model_dp1"] = _err(lambda: ParallelTrainer(
+        build("mlp"), mesh_for((1, 4, 1)), weight_update_sharding="zero2"))
+    for layout in layouts:
+        m = mesh_for(layout, 16)
+        out[str(tuple(layout))] = dict(
+            coords=m.coords, n_data=m.n_data, model_axis=m.model_axis,
+            seq_axis=m.seq_axis, rows=(m.batch_slice(8).start,
+                                       m.batch_slice(8).stop),
+            spec=m.param_spec("l1/W", (8, 64)))
+    return out
+
+
+def case_ring(arrays, layout, causal, block_size, masked):
+    """``ring_self_attention`` on this rank's shard of ``x`` (and of the
+    mask) over ``layout``'s sp axis, its output shard and the gradients
+    of sum(out**2) with respect to the weights (summed over the ranks)."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.sequence import (
+        ring_self_attention,
+    )
+    mesh = mesh_for(layout)
+    x, mask = arrays["x"], arrays.get("mask")
+    params = {k: torch.tensor(arrays[k], requires_grad=True)
+              for k in ("Wq", "Wk", "Wv", "Wo")}
+    rows = mesh.batch_slice(x.shape[0])
+    steps = mesh.seq_slice(x.shape[1])
+    xl = torch.tensor(x[rows][:, steps])
+    ml = None if mask is None else torch.tensor(mask[rows][:, steps])
+    out = ring_self_attention(xl, params, mesh, n_heads=arrays["H"],
+                              head_dim=arrays["D"], causal=causal,
+                              block_size=block_size,
+                              mask=ml if masked else None)
+    (out ** 2).sum().backward()
+    grads = {k: mesh.sum_over_ranks(v.grad, "replicas").numpy().copy()
+             for k, v in params.items()}
+    return dict(out=out.detach().numpy().copy(), rows=(rows.start, rows.stop),
+                steps=(steps.start, steps.stop), grads=grads)
+
+
+def case_scope_routing():
+    """``_ring_context`` inside and outside ``sequence_parallel_scope``,
+    with the opt-out flag, and ``batch_sharding`` / ``shard_batch`` for
+    a T that divides the sp axis and one that does not."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        SelfAttentionLayer,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import (
+        sequence_parallel_scope,
+    )
+    mesh = mesh_for((1, 1, 4))
+    layer = SelfAttentionLayer(n_heads=2, sequence_parallel=False)
+    layer.set_n_in(InputType.recurrent(8, 16))
+    x = torch.zeros((2, 4, 8))
+    out = {}
+    with sequence_parallel_scope(mesh):
+        out["opt_out"] = layer._ring_context(x, None)
+        layer.sequence_parallel = True
+        out["ring"] = layer._ring_context(x, None) is mesh
+        out["masked_ring"] = layer._ring_context(
+            x, torch.ones((2, 4))) is mesh
+    with sequence_parallel_scope(mesh, seq_split=False):
+        out["not_split"] = layer._ring_context(x, None)
+    out["exited"] = layer._ring_context(x, None)
+    a15 = np.zeros((4, 15, 8), np.float32)
+    a16 = np.arange(4 * 16 * 8, dtype=np.float32).reshape(4, 16, 8)
+    out["spec15"] = mesh.batch_sharding(3, a15.shape)
+    out["spec16"] = mesh.batch_sharding(3, a16.shape)
+    out["shape15"] = tuple(mesh.shard_batch(a15).shape)
+    out["piece16"] = mesh.shard_batch(a16)
+    return out
+
 
 def sigkill_mid_checkpoint(ckpt_root: str, out: str) -> None:
     """Train three checkpointed steps, write the intact params to ``out``,
