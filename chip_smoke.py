@@ -257,7 +257,20 @@ Phases, each printing JSON lines:
    tensors: the GPT in the off, zero1 and zero2 modes, zero1 and zero2
    bit for bit the replicated mode and the ranks equal, each rank's
    updater state half the replicated bytes (and freed), ms a step, and
-   ms of each collective alone on a gradient-sized buffer; their
+   ms of each collective alone on a gradient-sized buffer; the
+   ``train_parallel_pipeline`` line (ROADMAP A6.2b): the full-width GPT
+   through ``GraphPipelineTrainer`` over two stages (cut at
+   ``b3_res2``, the tied head's embedding sent from stage 0 each step)
+   at M = 1 and 4 against the plain steps (losses within 1e-5, SGD
+   twins within 2e-4 / 2e-5, Adam within the C23 allowance), exactly
+   4 M K4/K5/K6 a rank a step, half the params and moments a rank, the
+   sends and their bytes, ms a step and of one staged 4 MiB send alone;
+   the char-RNN through ``PipelineTrainer`` (stages [[0], [1]], M = 2,
+   tBPTT 50 over [32, 200]) against the plain windowed ``fit_batch``,
+   its first window's LSTM gradients within 2e-4, exactly 8 K2 and 8 K3
+   a rank; the MoE FFN at the GPT's widths (8192 tokens, 8 experts of
+   2048) on the card against the CPU and with its experts split over
+   the two ranks' 'ep' axis against world 1, within 1e-5; their
    zero1 checkpoint restored at world 1, its next step within 2e-4 /
    2e-5 of theirs. Then the same two processes join an elastic group
    (ROADMAP A6.3) and train the GPT under ``ElasticTrainer`` (zero1, a
@@ -798,6 +811,8 @@ def check(cond, what):
 #: port modules the import rule must find (the data-parallel package's,
 #: the Keras import's and the transfer-learning modules')
 IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
+                        "parallel/pipeline.py", "parallel/expert.py",
+                        "analysis/graphcheck.py",
                         "parallel/multihost.py", "parallel/trainer.py",
                         "parallel/wrapper.py", "parallel/delayed.py",
                         "parallel/strategy.py", "parallel/checkpoint.py",
@@ -5340,6 +5355,22 @@ TOL_MESH_LOSS = 1e-5
 PAR_MESH_FLIPS = 64
 #: the SGD twins' learning rate (3e-4 diverges by the third step)
 PAR_MESH_SGD_LR = 1e-4
+#: the world-2 group's pipeline modes (ROADMAP A6.2b), after tp / sp:
+#: GraphPipelineTrainer on the full-width GPT over 2 stages at M
+#: microbatches, PAR_STEPS steps of [PAR_MESH_BATCH, 256], held to the
+#: plain steps at the tp / sp modes' gates
+PP_GPT_MODES = {"pp_gpt_m1": 1, "pp_gpt_m4": 4}
+#: the attention layers a GPT stage holds (8 blocks over 2 stages)
+PP_STAGE_LAYERS = SLICE["n_layers"] // 2
+#: PipelineTrainer on the char-RNN: stages [[0], [1]], PP_RNN_M
+#: microbatches of one LSTM_TRAIN_BATCH batch (4 tBPTT windows of 50);
+#: its first window's LSTM gradients against the plain window's, and
+#: its SGD twin's learning rate
+PP_RNN_M, TOL_PP_RNN_GRAD, PP_RNN_SGD_LR = 2, 2e-4, 0.1
+#: the MoE FFN at the GPT's widths: EP_TOKENS tokens of d_model, EP_EXPERTS
+#: experts of hidden EP_HIDDEN; world 1 on the card against the CPU, and
+#: the experts split over the two ranks' 'ep' axis against world 1
+EP_TOKENS, EP_EXPERTS, EP_HIDDEN, TOL_EP = 8192, 8, 2048, 1e-5
 
 
 def text_batches(n, B, T, seed):
@@ -5702,6 +5733,244 @@ def mesh_parity(losses, net, plain_losses, plain_net) -> dict:
                 params_outside_gate=outside, params_max_abs_diff=worst)
 
 
+def par_pp_gpt(M, batches, plain) -> dict:
+    """One rank's run of a pipeline mode (PP_GPT_MODES): a
+    GraphPipelineTrainer over the world-2 group's 'pp' axis, PAR_STEPS
+    steps of the full-width GPT at M microbatches (embedding and blocks
+    0-3 on stage 0, blocks 4-7, ln_f and the tied head on stage 1). The
+    losses and (after ``gather_params``) the params against
+    ``plain["adam"]``, an uncounted SGD twin's against ``plain["sgd"]``;
+    the kernel wrappers' launches and, in a traced_window of step 2, the
+    attention kernels by symbol; the sends a step and their bytes; the
+    param and moment bytes this rank holds against world 1's; ms a
+    step (step 2, the traced one, left out)."""
+    from deeplearning4j_tpu_torch.parallel import MeshContext
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        GraphPipelineTrainer,
+    )
+    mesh = MeshContext.create(n_pipe=2)
+    net = par_gpt()
+    whole_p, whole_m = param_bytes(net), moment_bytes(net)
+    tr = GraphPipelineTrainer(net, mesh, n_microbatches=M)
+    rank_p, rank_m = param_bytes(net), moment_bytes(net)
+    sent, post = [], MeshContext._post
+
+    def counted_post(self, t, peer, tag):
+        sent.append(t.numel() * t.element_size())
+        return post(self, t, peer, tag)
+    MeshContext._post = counted_post
+    losses, ms, traced = [], [], None
+    reset_counts()
+    try:
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 1:
+                loss, traced = traced_kernels(lambda: tr.fit_batch(b),
+                                              ATTENTION_KERNELS)
+            else:
+                loss = tr.fit_batch(b)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            if i != 1:
+                ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        MeshContext._post = post
+    launches = counts()
+    stages = [len(st) for st in tr.stages]
+    tr.gather_params()
+    flat = torch.cat([p.reshape(-1) for p in
+                      tree_leaves(net.params)]).cpu().numpy()
+    rec = dict(stage=mesh.pipe_index, stage_nodes=stages,
+               boundary=tr.boundaries[1],
+               **mesh_parity(losses, net, *plain["adam"]),
+               params_sha256=hashlib.sha256(flat.tobytes()).hexdigest(),
+               launches=launches, traced_step=traced,
+               sends_per_step=len(sent) / len(batches),
+               send_bytes=sorted(set(sent)),
+               activation_bytes=(PAR_MESH_BATCH // M) * SLICE["seq_len"]
+               * SLICE["d_model"] * 4,
+               param_bytes_rank=rank_p, param_bytes_world1=whole_p,
+               moment_bytes_rank=rank_m, moment_bytes_world1=whole_m,
+               ms_per_step=ms)
+    del tr, net
+
+    def sgd_twin():
+        twin = par_gpt(updater="sgd", learning_rate=PAR_MESH_SGD_LR)
+        tr = GraphPipelineTrainer(twin, mesh, n_microbatches=M)
+        losses = [float(tr.fit_batch(b)) for b in batches]
+        tr.gather_params()
+        return mesh_parity(losses, twin, *plain["sgd"])
+    rec["sgd"] = uncounted(sgd_twin)
+    return rec
+
+
+def par_p2p_ms() -> dict:
+    """ms of one staged send of a GPT activation ([8, 256, 512] f32, 4
+    MiB) from stage 0 to stage 1 alone, through host buffers (gloo), 3
+    times after a warm-up, each after a barrier: the sender's post and
+    wait, the receiver's receive."""
+    from deeplearning4j_tpu_torch.parallel import MeshContext
+    mesh = MeshContext.create(n_pipe=2)
+    t = torch.zeros(PAR_MESH_BATCH, SLICE["seq_len"], SLICE["d_model"],
+                    device="cuda")
+    out = []
+    with torch.no_grad():
+        for i in range(4):
+            mesh.all_reduce_(torch.zeros(1, device="cuda"), axis="pp")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mesh.pipe_index == 0:
+                mesh.send_stage(t, 1, 1000 + i)
+                mesh.wait_sends()
+            else:
+                mesh.recv_stage(t.shape, t.dtype, 0, 1000 + i)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return dict(bytes=t.numel() * t.element_size(),
+                side="send" if mesh.pipe_index == 0 else "receive",
+                ms=out[1:])
+
+
+def par_pp_char_rnn() -> dict:
+    """One rank's run of the pp_char_rnn mode: PipelineTrainer over the
+    'pp' axis on the char-RNN, stages [[0], [1]], PP_RNN_M microbatches of
+    one [32, 200] batch (4 tBPTT windows). Each window's loss and (after
+    ``gather_params``) the params against the plain windowed
+    ``fit_batch``; this stage's LSTM gradients of the first window
+    against the plain window's; an uncounted SGD twin; the K2 / K3
+    launches; ms the batch."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import MeshContext
+    from deeplearning4j_tpu_torch.parallel.pipeline import PipelineTrainer
+    B, T = LSTM_TRAIN_BATCH
+    batch = text_batches(1, B, T, SEED + 9)[0]
+    mesh = MeshContext.create(n_pipe=2)
+
+    def pipelined(net):
+        scores = CollectScoresIterationListener()
+        net.set_listeners(scores)
+        tr = PipelineTrainer(net, mesh, stages=[[0], [1]],
+                             n_microbatches=PP_RNN_M)
+        return tr, scores
+
+    net = par_char_rnn()
+    tr, scores = pipelined(net)
+    first, apply = [], tr._apply
+
+    def keep_first(grads, loss):
+        if not first:
+            first.append(tree_map(lambda t: t.detach().clone(), grads))
+        return apply(grads, loss)
+    tr._apply = keep_first
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.fit_batch(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    own = tr._stage_keys(mesh.pipe_index)
+    tr.gather_params()
+    fwd = net.conf.training.tbptt_fwd_length
+
+    def plain_run(updater, lr):
+        ref = MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE, updater=updater,
+                                              learning_rate=lr),
+                                device="cuda").init()
+        grads, _, _ = ref.compute_gradient_and_score(DataSet(
+            batch.features[:, :fwd], batch.labels[:, :fwd]))
+        losses = step_losses(ref)
+        ref.fit_batch(batch)
+        del ref._step
+        return grads, losses, ref
+    conf = char_rnn_lstm(**LSTM_SLICE)
+    grads, plain_losses, ref = uncounted(
+        plain_run, conf.training.updater.name,
+        conf.training.updater.learning_rate)
+    err, worst = grad_rel_err(
+        {k: first[0][k] for k in own},
+        {k: {n: g.cpu() for n, g in grads[k].items()} for k in own})
+    rec = dict(stage=mesh.pipe_index, own_layers=own,
+               **mesh_parity([s for _, s in scores.scores], net,
+                             plain_losses, ref),
+               grad_rel_err=err, grad_worst=worst, launches=launches,
+               ms_per_batch=ms)
+    del tr, net, ref
+
+    def sgd_twin():
+        twin = MultiLayerNetwork(char_rnn_lstm(
+            **LSTM_SLICE, updater="sgd", learning_rate=PP_RNN_SGD_LR),
+            device="cuda").init()
+        ttr, tscores = pipelined(twin)
+        ttr.fit_batch(batch)
+        ttr.gather_params()
+        _, losses, ref = plain_run("sgd", PP_RNN_SGD_LR)
+        return mesh_parity([s for _, s in tscores.scores], twin, losses, ref)
+    rec["sgd"] = uncounted(sgd_twin)
+    return rec
+
+
+def par_ep() -> dict:
+    """One rank's run of the ep mode: the MoE FFN (``parallel/expert.
+    moe_ffn``) at the GPT's widths (EP_TOKENS tokens of 512, EP_EXPERTS
+    experts of EP_HIDDEN), the gradients of sum(out**2) + aux. World 1 on
+    the card against the same on the CPU; then each rank holding its
+    half of the experts on the world-2 group's 'ep' axis (the same
+    tokens) against world 1: the output's and every gradient's max |diff|
+    over its largest |value|, and ms of each on the card."""
+    import math
+    from deeplearning4j_tpu_torch.parallel import MeshContext
+    from deeplearning4j_tpu_torch.parallel.expert import (
+        EXPERT_PARAMS, expert_rows, expert_span, moe_ffn,
+    )
+    gen = torch.Generator().manual_seed(SEED + 11)
+    N, Fd, E, H = EP_TOKENS, SLICE["d_model"], EP_EXPERTS, EP_HIDDEN
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen) / math.sqrt(shape[-2])
+    params = {"Wg": w(Fd, E), "W1": w(E, Fd, H),
+              "b1": 0.1 * torch.randn(E, H, generator=gen),
+              "W2": w(E, H, Fd), "b2": 0.1 * torch.randn(E, Fd, generator=gen)}
+    x = torch.randn(N, Fd, generator=gen)
+
+    def run(p, x, mesh=None):
+        p = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+        x = x.detach().clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux = moe_ffn(p, x, "relu", 1.25, mesh=mesh)
+        ((out ** 2).sum() + aux).backward()
+        torch.cuda.synchronize()
+        grads = {k: v.grad for k, v in p.items()}
+        grads["x"] = x.grad
+        return (out.detach(), aux.detach(), grads,
+                (time.perf_counter() - t0) * 1e3)
+
+    def rel(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def gaps(got, want, rows=None):
+        g = {"out": rel(got[0], want[0]), "aux": rel(got[1], want[1])}
+        for k, v in got[2].items():
+            ref = want[2][k]
+            g[k] = rel(v, ref[rows] if rows is not None and
+                       k in EXPERT_PARAMS else ref)
+        return g
+    cpu = run(params, x)
+    dev = {k: v.cuda() for k, v in params.items()}
+    world1 = run(dev, x.cuda())
+    mesh = MeshContext.create(n_expert=2)
+    span = expert_span(E, mesh)
+    sharded = run(expert_rows(dev, mesh), x.cuda(), mesh)
+    return dict(tokens=N, d_model=Fd, experts=E, hidden=H,
+                span=[span.start, span.stop],
+                world1_vs_cpu=gaps(world1, cpu),
+                ep_vs_world1=gaps(sharded, world1, span),
+                ms_world1=world1[3], ms_ep=sharded[3], ms_cpu=cpu[3])
+
+
 def par_rank(rank, world, init, out):
     """One rank of the world-2 group (this script run with
     ``--parallel-rank``): the GPT through ParallelTrainer in the off,
@@ -5780,7 +6049,12 @@ def par_rank(rank, world, init, out):
         plain = {u: uncounted(plain_steps, u) for u in ("adam", "sgd")}
         for mode in PAR_MESH_MODES:
             rec[mode] = par_mesh_mode(mode, mesh_batches, plain)
+        for mode, M in PP_GPT_MODES.items():
+            rec[mode] = par_pp_gpt(M, mesh_batches, plain)
         del plain
+        rec["pp_p2p"] = par_p2p_ms()
+        rec["pp_char_rnn"] = par_pp_char_rnn()
+        rec["ep"] = par_ep()
     finally:
         multihost.shutdown()
     (out / f"rank{rank}.json").write_text(json.dumps(rec))
@@ -6017,7 +6291,10 @@ def train_parallel(smi):
     processes on this one card (zero1 / zero2 bitwise the replicated
     mode, the sharded state's bytes, a checkpoint restored at world 1;
     tensor and sequence parallelism, ROADMAP A6.2a: the tp and sp modes
-    against the plain steps, K4-K6 on 4 heads and none on the ring),
+    against the plain steps, K4-K6 on 4 heads and none on the ring;
+    pipeline and expert parallelism, ROADMAP A6.2b: the GPT's two
+    stages at M = 1 and 4, the char-RNN's two stages under tBPTT, the
+    MoE FFN's experts split over the ranks),
     then the elastic case in those processes (ROADMAP A6.3: a kill, a
     resize to world 1, a resume bit for bit a clean restart). Returns
     the path's launch counts: this process's and the elastic
@@ -6038,10 +6315,10 @@ def train_parallel(smi):
         el = par_elastic(tmp)
         launched = counts()
         # the survivor's launches (its own process): the elastic run's,
-        # and rank 0's model- and sp-axis runs
+        # and rank 0's model-, sp- and pp-axis runs
         for k, n in el.pop("survivor_launches").items():
             launched[k] += n
-        for mode in PAR_MESH_MODES:
+        for mode in (*PAR_MESH_MODES, *PP_GPT_MODES, "pp_char_rnn"):
             for k, n in w2["ranks"][0][mode]["launches"].items():
                 launched[k] += n
     finally:
@@ -6069,6 +6346,19 @@ def train_parallel(smi):
                   "param_bytes_world1", "moment_bytes_rank",
                   "moment_bytes_world1", "ms_per_step", "collective_ms")}
                  for mode in PAR_MESH_MODES}))
+    emit(dict(phase="train_parallel_pipeline", nvidia_smi=smi,
+              **{f"rank{r['rank']}": {
+                  **{mode: {k: r[mode][k] for k in (
+                      "stage", "stage_nodes", "boundary", "losses",
+                      "plain_losses", "loss_max_rel", "params_outside_gate",
+                      "params_max_abs_diff", "sgd", "traced_step",
+                      "launches", "sends_per_step", "send_bytes",
+                      "activation_bytes", "param_bytes_rank",
+                      "param_bytes_world1", "moment_bytes_rank",
+                      "moment_bytes_world1", "ms_per_step")}
+                     for mode in PP_GPT_MODES},
+                  "pp_p2p": r["pp_p2p"], "pp_char_rnn": r["pp_char_rnn"],
+                  "ep": r["ep"]} for r in w2["ranks"]}))
     gpt_step = {k: L for k in ATTENTION_KERNELS}
     gpt_step.update(lstm_fwd_train_kernel=0, lstm_bwd_kernel=0)
     rnn_step = {k: 0 for k in ATTENTION_KERNELS}
@@ -6167,9 +6457,71 @@ def train_parallel(smi):
                 check(got["ring_shifts_forward"] == PAR_STEPS * L,
                       f"rank {r['rank']} sp: {got['ring_shifts_forward']} "
                       f"ring shifts in {PAR_STEPS} steps")
-    for mode in PAR_MESH_MODES:
+    for mode in (*PAR_MESH_MODES, *PP_GPT_MODES):
         check(r0[mode]["params_sha256"] == r1[mode]["params_sha256"],
               f"{mode}: gather_params() differs between the ranks")
+    gpt_lr = gpt_decoder(**SLICE).training.updater.learning_rate
+    rnn_conf = char_rnn_lstm(**LSTM_SLICE)
+    rnn_lr = rnn_conf.training.updater.learning_rate
+    for r in (r0, r1):
+        for mode, M in PP_GPT_MODES.items():
+            got = r[mode]
+            check(got["stage"] == r["rank"] and got["stage_nodes"] == [29, 29]
+                  and got["boundary"] == ["b3_res2"],
+                  f"rank {r['rank']} {mode}: stage {got['stage']} of "
+                  f"{got['stage_nodes']} nodes, cut at {got['boundary']}")
+            check(got["loss_max_rel"] <= TOL_MESH_LOSS
+                  and got["params_outside_gate"] <= PAR_MESH_FLIPS
+                  and got["params_max_abs_diff"]
+                  <= 2 * gpt_lr * PAR_STEPS + TOL_PAR_ATOL,
+                  f"rank {r['rank']} {mode}: {got['losses']} vs the plain "
+                  f"{got['plain_losses']}, {got['params_outside_gate']} "
+                  f"params outside the gate, off by up to "
+                  f"{got['params_max_abs_diff']}")
+            twin = got["sgd"]
+            check(twin["loss_max_rel"] <= TOL_MESH_LOSS
+                  and twin["params_outside_gate"] == 0,
+                  f"rank {r['rank']} {mode} (SGD twin): {twin}")
+            want = {k: PP_STAGE_LAYERS * M for k in ATTENTION_KERNELS}
+            traced = {k: got["traced_step"][k] for k in ATTENTION_KERNELS}
+            check(traced == want, f"rank {r['rank']} {mode}: a step "
+                  f"launched {traced}, not {want}")
+            for k in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
+                check(got["launches"][k] == PAR_STEPS * PP_STAGE_LAYERS * M,
+                      f"rank {r['rank']} {mode}: {got['launches']}")
+            check(got["param_bytes_rank"] <= 0.55 * got["param_bytes_world1"]
+                  and got["moment_bytes_rank"]
+                  <= 0.55 * got["moment_bytes_world1"],
+                  f"rank {r['rank']} {mode}: {got['param_bytes_rank']} "
+                  f"param / {got['moment_bytes_rank']} moment bytes of "
+                  f"{got['param_bytes_world1']} / "
+                  f"{got['moment_bytes_world1']}")
+            check(got["activation_bytes"] in got["send_bytes"]
+                  and got["sends_per_step"] == M + 1,
+                  f"rank {r['rank']} {mode}: sends {got['send_bytes']}, "
+                  f"{got['sends_per_step']} a step")
+        got = r["pp_char_rnn"]
+        n_win = LSTM_TRAIN_BATCH[1] // rnn_conf.training.tbptt_fwd_length
+        for k in ("lstm_fwd_train", "lstm_bwd"):
+            check(got["launches"][k] == n_win * PP_RNN_M,
+                  f"rank {r['rank']} pp_char_rnn: {got['launches']}")
+        check(got["own_layers"] == ([0] if r["rank"] == 0 else [1, 2]),
+              f"rank {r['rank']} pp_char_rnn holds {got['own_layers']}")
+        check(got["loss_max_rel"] <= TOL_MESH_LOSS
+              and len(got["losses"]) == n_win
+              and got["params_outside_gate"] <= PAR_MESH_FLIPS
+              and got["params_max_abs_diff"]
+              <= 2 * rnn_lr * n_win + TOL_PAR_ATOL
+              and got["grad_rel_err"] <= TOL_PP_RNN_GRAD,
+              f"rank {r['rank']} pp_char_rnn: {got}")
+        check(got["sgd"]["loss_max_rel"] <= TOL_MESH_LOSS
+              and got["sgd"]["params_outside_gate"] == 0,
+              f"rank {r['rank']} pp_char_rnn (SGD twin): {got['sgd']}")
+        ep = r["ep"]
+        check(max(ep["world1_vs_cpu"].values()) <= TOL_EP
+              and max(ep["ep_vs_world1"].values()) <= TOL_EP
+              and ep["span"] == [4 * r["rank"], 4 * r["rank"] + 4],
+              f"rank {r['rank']} ep: {ep}")
     m = el["metrics"]
     check(m["elastic_resizes_total"] == 1
           and m["elastic_elections_total"] == 1

@@ -582,18 +582,24 @@ def per_layer_lr_scale(updates, layers, base_lr: float):
 
 @torch.no_grad()
 def compute_updates(tx: Updater, grads, opt_state, params, layers,
-                    training: TrainingConfig, model=None):
+                    training: TrainingConfig, model=None, pipe=None):
     """The post-gradient pipeline every training path uses: freeze-mask ->
     gradient normalization/clipping -> update rule -> per-layer LR
     scaling -> ``params += updates``. Updates ``params`` and ``opt_state``
     in place and returns them. ``model``: (mesh, which leaves are column
-    shards) under a model axis, whose norms sum over it."""
+    shards) under a model axis, whose norms sum over it. ``pipe``: the
+    mesh of a pipeline stage that holds its part of a graph's tree,
+    whose whole-tree norms sum over the 'pp' axis."""
     grads = mask_frozen(grads, layers)
-    if model is None:
-        grads = normalize_gradients(grads, training)
-    else:
+    if model is not None:
         grads = normalize_gradients_sharded(grads, training, model[0],
                                             model=model[1])
+    elif pipe is not None and (training.gradient_normalization or ""
+                               ).lower().endswith("perlayer"):
+        grads = normalize_gradients_sharded(grads, training, pipe,
+                                            axis="pp")
+    else:
+        grads = normalize_gradients(grads, training)
     updates = tx.update(grads, opt_state)
     updates = per_layer_lr_scale(updates, layers,
                                  training.updater.learning_rate)
@@ -752,7 +758,7 @@ _NORM_KINDS = ("renormalizel2perlayer", "clipl2perlayer",
 
 
 def normalize_gradients_sharded(fgrads, training: TrainingConfig, mesh_ctx,
-                                model=None):
+                                model=None, axis: str = "data"):
     """:func:`normalize_gradients` on a gradient cut over the ranks: the
     elementwise clip as it is, and every norm the square root of a sum of
     squares summed over the ranks (one collective for all of them). Under
@@ -760,9 +766,12 @@ def normalize_gradients_sharded(fgrads, training: TrainingConfig, mesh_ctx,
     is all-reduced over the data axis (the padding adds zeros); under a
     model axis (``model``: ``fgrads``' structure with True at each column
     shard) the column shards' sums are all-reduced over the model axis
-    and the replicated leaves' added as they are. Those sums run in
-    another order than on the whole tensors, so a norm-based kind agrees
-    within rounding, not bit for bit."""
+    and the replicated leaves' added as they are. ``axis``: the axis
+    ``model`` None's sums are all-reduced over (the data axis; "pp" for
+    a pipeline stage's part of a graph's tree, whose per-layer kinds
+    take one norm over the whole tree). Those sums run in another order
+    than on the whole tensors, so a norm-based kind agrees within
+    rounding, not bit for bit."""
     kind = (training.gradient_normalization or "none").lower()
     if kind not in _NORM_KINDS:
         return normalize_gradients(fgrads, training)
@@ -785,7 +794,7 @@ def normalize_gradients_sharded(fgrads, training: TrainingConfig, mesh_ctx,
                                  if flags[index[id(x)]] == shard), zero)
                             for g in groups])
     if model is None:
-        total = mesh_ctx.all_reduce_(sums(False))
+        total = mesh_ctx.all_reduce_(sums(False), axis=axis)
     else:
         total = mesh_ctx.all_reduce_(sums(True), axis="model") + sums(False)
     norms = torch.sqrt(total + 1e-12)

@@ -18,8 +18,11 @@ through host losses. ``ParallelTrainer`` also trains on a mesh with a
 ``model`` axis (tensor parallelism: column-parallel layers, the rest of
 the sharded leaves gathered on use, ``parallel/tensor.py``) and an
 ``sp`` axis (sequence parallelism: ring attention, ``parallel/
-sequence.py``), alone or with the data axis. Pipeline and expert
-parallelism wait for ROADMAP A6.2b.
+sequence.py``), alone or with the data axis. ``parallel/pipeline.py``
+trains over a ``pp`` axis (``PipelineTrainer``, ``GraphPipelineTrainer``:
+GPipe stages, one a rank, alone or with the data axis), and
+``parallel/expert.py`` holds the mixture-of-experts layer, whose experts
+an ``ep`` axis splits.
 """
 
 from deeplearning4j_tpu_torch.nn.updater import PrecisionPolicy  # noqa: F401

@@ -2,11 +2,15 @@
 ``parallel/mesh.py``), and the collectives the parallel trainers issue.
 
 The JAX package names a device mesh with ``data``, ``model`` and ``sp``
-axes and lets XLA insert the collectives. The port runs one process per
-rank: a ``MeshContext`` lays the world of a ``torch.distributed`` process
-group out as the JAX mesh's ``reshape(n_data, n_model, n_seq)`` (rank =
-(d * n_model + m) * n_seq + s), builds one sub-group per axis and the
-data x sp group ("replicas"), and this module is the one place that
+axes and lets XLA insert the collectives; its pipeline and expert tests
+name ``("dp", "pp")`` and ``("ep",)`` meshes. The port runs one process
+per rank: a ``MeshContext`` lays the world of a ``torch.distributed``
+process group out as the JAX mesh's ``reshape(n_data, n_model, n_seq)``
+(rank = (d * n_model + m) * n_seq + s), or with a pipeline axis as
+``reshape(n_data, n_pipe)`` (rank = d * n_pipe + p; 'pp' composes with
+the data axis only, as the JAX pipeline knows 'dp' and 'pp' alone), or
+as an expert axis alone (rank = e), builds one sub-group per axis and
+the data x sp group ("replicas"), and this module is the one place that
 issues collectives: ``all_reduce``, ``reduce_scatter_tensor``,
 ``all_gather_into_tensor``, ``broadcast``, the sp ring's point-to-point
 shift, and the differentiable ones a sharded step's autograd runs:
@@ -23,7 +27,16 @@ shift, and the differentiable ones a sharded step's autograd runs:
 - ``ring_shift``: the pass to the next sp rank (backward: the pass the
   other way). gloo refuses point-to-point sends of CUDA tensors (its
   collectives stage them, its sends do not), so a gloo group over the
-  card stages the shift through host buffers, chosen from the backend.
+  card stages the shift through host buffers, chosen from the backend;
+- ``send_stage`` / ``recv_stage``: the pipeline's pair to another stage
+  of the 'pp' axis. The send is posted and the step goes on (its work
+  is kept on the mesh until ``wait_sends``); the receive waits. The
+  backward of a send receives the gradient of what it sent, the
+  backward of a receive sends the gradient back. Each message carries a
+  tag (the microbatch), and they stage through host buffers as the
+  shift does;
+- ``copy_to`` / ``sum_value`` on any axis: the expert axis' identity
+  with an all-reduced backward and its forward sum.
 
 With no process group initialized the mesh is world 1 and issues no
 collective at all; a group of world 1 (NCCL on one card) issues them, and
@@ -296,15 +309,20 @@ class _GatherReduceScatter(torch.autograd.Function):
         return out.movedim(0, ctx.dim), None, None, None
 
 
+def _staged(t: Tensor, stage: bool) -> Tensor:
+    """``t`` as a point-to-point op sends it: contiguous, detached, and
+    in host memory when ``stage`` (a gloo group over CUDA tensors: gloo's
+    collectives stage CUDA tensors themselves, its point-to-point sends
+    do not)."""
+    src = t.detach().contiguous()
+    return src.cpu() if stage else src
+
+
 def _shift(t: Tensor, group, send_to: int, recv_from: int,
            stage: bool) -> Tensor:
     """``t`` sent to rank ``send_to`` while ``recv_from``'s arrives (global
-    ranks). ``stage``: through host buffers, for a gloo group over CUDA
-    tensors (gloo's collectives stage CUDA tensors themselves, its
-    point-to-point sends do not)."""
-    src = t.detach().contiguous()
-    if stage:
-        src = src.cpu()
+    ranks), through host buffers when ``stage``."""
+    src = _staged(t, stage)
     buf = torch.empty_like(src)
     ops = [dist.P2POp(dist.isend, src, send_to, group=group),
            dist.P2POp(dist.irecv, buf, recv_from, group=group)]
@@ -325,6 +343,41 @@ class _RingShift(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _shift(grad, *ctx.args), None, None, None, None
+
+
+class _SendStage(torch.autograd.Function):
+    """``t`` posted to the global rank ``peer`` under ``tag``; the output
+    is a zero scalar, the token a stage's backward starts from. Its
+    backward receives the gradient of ``t`` from ``peer``."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, peer, tag):
+        ctx.mesh, ctx.peer, ctx.tag = mesh, peer, tag
+        ctx.meta = (tuple(t.shape), t.dtype, t.device)
+        mesh._post(t, peer, tag)
+        return t.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _token):
+        shape, dtype, device = ctx.meta
+        return (ctx.mesh._take(shape, dtype, device, ctx.peer, ctx.tag),
+                None, None, None)
+
+
+class _RecvStage(torch.autograd.Function):
+    """What the global rank ``peer`` posted under ``tag``; the backward
+    sends its gradient back. ``anchor`` is a scalar that requires grad,
+    so that autograd reaches the backward."""
+
+    @staticmethod
+    def forward(ctx, anchor, mesh, peer, tag, shape, dtype):
+        ctx.mesh, ctx.peer, ctx.tag = mesh, peer, tag
+        return mesh._take(shape, dtype, anchor.device, peer, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.mesh._post(grad, ctx.peer, ctx.tag)
+        return None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -366,22 +419,47 @@ def axis_ranks(shape: Tuple[int, int, int], axis: str,
     return [rank(i, m, k) for i in range(nd) for k in range(ns)]
 
 
-def _layout_groups(shape: Tuple[int, int, int], rank: int) -> Dict[str, Any]:
+def pipe_axis_ranks(shape: Tuple[int, int], axis: str,
+                    rank: int) -> List[int]:
+    """The ranks of ``rank``'s group on ``axis`` ("pp", or "data" /
+    "replicas") in the pipeline layout ``(n_data, n_pipe)``: rank = d *
+    n_pipe + p, the JAX tests' ``reshape(n_dp, n_pp)``."""
+    nd, npp = shape
+    d, p = divmod(rank, npp)
+    if axis == "pp":
+        return [d * npp + j for j in range(npp)]
+    return [i * npp + p for i in range(nd)]
+
+
+def _layout_groups(shape: Tuple[int, ...], rank: int,
+                   pipe: bool = False) -> Dict[str, Any]:
     """This rank's sub-group on each axis that spans more than one rank
     and less than the world ("world" for an axis that is the whole
-    default group). Every rank calls ``dist.new_group`` for every group
-    of the layout in the same order, or the rendezvous hangs; the groups
-    are built once a layout and a default group."""
-    key = (id(dist.group.WORLD), shape)
+    default group). ``shape``: (n_data, n_model, n_seq), or with
+    ``pipe`` the pipeline layout (n_data, n_pipe). Every rank calls
+    ``dist.new_group`` for every group of the layout in the same order,
+    or the rendezvous hangs; the groups are built once a layout and a
+    default group."""
+    key = (id(dist.group.WORLD), shape, pipe)
     if key in _GROUPS:
         return _GROUPS[key]
-    world = shape[0] * shape[1] * shape[2]
+    world = int(np.prod(shape))
+    if pipe:
+        axes = ("data", "pp", "replicas")
+
+        def ranks_of(axis, r):
+            return pipe_axis_ranks(shape, axis, r)
+    else:
+        axes = AXES
+
+        def ranks_of(axis, r):
+            return axis_ranks(shape, axis, mesh_coords(r, shape[1],
+                                                       shape[2]))
     mine: Dict[str, Any] = {}
-    for axis in AXES:
+    for axis in axes:
         seen = set()
         for r in range(world):
-            ranks = tuple(axis_ranks(shape, axis,
-                                     mesh_coords(r, shape[1], shape[2])))
+            ranks = tuple(ranks_of(axis, r))
             if ranks in seen or len(ranks) == 1:
                 continue
             seen.add(ranks)
@@ -404,8 +482,9 @@ def forget_groups() -> None:
 @dataclass
 class MeshContext:
     """The mesh over a ``torch.distributed`` group: ``world`` ranks laid out
-    as the JAX mesh's ``(n_data, n_model, n_seq)``, one device a rank.
-    ``group=None`` is the default group."""
+    as the JAX mesh's ``(n_data, n_model, n_seq)``, as ``(n_data,
+    n_pipe)`` with a pipeline axis, or as ``(n_expert,)`` with an expert
+    axis; one device a rank. ``group=None`` is the default group."""
 
     world: int = 1
     rank: int = 0
@@ -415,59 +494,89 @@ class MeshContext:
     data_axis: str = "data"
     n_model: int = 1
     n_seq: int = 1
+    n_pipe: int = 1
+    n_expert: int = 1
     # shard a param's last axis over `model` only when it is at least
     # this big (the JAX package's policy)
     min_shard_size: int = 1024
     groups: Dict[str, Any] = field(default_factory=dict, repr=False)
+    # the pipeline's posted sends (work, buffer) until wait_sends()
+    _sends: List[Any] = field(default_factory=list, repr=False,
+                              compare=False)
 
     @staticmethod
     def create(n_data: Optional[int] = None, n_model: int = 1,
-               n_seq: int = 1, device=None, group=None) -> "MeshContext":
+               n_seq: int = 1, device=None, group=None, n_pipe: int = 1,
+               n_expert: int = 1) -> "MeshContext":
         """The mesh over ``group`` (the default process group), on
         ``device`` (``None``: the CUDA card, raising without one;
-        ``"cpu"`` for the CPU). The world is ``n_data * n_model * n_seq``
-        ranks; ``n_data`` defaults to world // (n_model * n_seq), and a
-        world the axes cannot split raises. ``n_seq > 1`` adds the 'sp'
-        axis: ``SelfAttentionLayer`` routes through ring attention over
-        it when ``ParallelTrainer`` trains the net."""
-        if n_model < 1 or n_seq < 1 or (n_data is not None and n_data < 1):
+        ``"cpu"`` for the CPU). The world is ``n_data * n_model * n_seq *
+        n_pipe * n_expert`` ranks; ``n_data`` defaults to the world over
+        the other axes, and a world the axes cannot split raises.
+        ``n_seq > 1`` adds the 'sp' axis: ``SelfAttentionLayer`` routes
+        through ring attention over it when ``ParallelTrainer`` trains
+        the net. ``n_pipe > 1`` adds the pipeline axis 'pp' (for
+        ``PipelineTrainer`` / ``GraphPipelineTrainer``), which composes
+        with the data axis only; ``n_expert > 1`` the expert axis 'ep'
+        (``parallel/expert.moe_ffn``), alone."""
+        if min(n_model, n_seq, n_pipe, n_expert) < 1 or (
+                n_data is not None and n_data < 1):
             raise ValueError(f"mesh axes must be >= 1, got n_data="
-                             f"{n_data}, n_model={n_model}, n_seq={n_seq}")
+                             f"{n_data}, n_model={n_model}, n_seq={n_seq}, "
+                             f"n_pipe={n_pipe}, n_expert={n_expert}")
+        if n_pipe > 1 and max(n_model, n_seq, n_expert) > 1:
+            raise ValueError(
+                "the pipeline axis 'pp' composes with the data axis only "
+                "(the pipeline knows 'dp' and 'pp'); got n_model="
+                f"{n_model}, n_seq={n_seq}, n_expert={n_expert}")
         device = resolve_device(device)
         world, rank, distributed = _group_world(group)
-        per = n_model * n_seq
+        per = n_model * n_seq * n_pipe * n_expert
         if n_data is None:
             if world % per:
                 raise ValueError(
                     f"a world of {world} ranks cannot be laid out as "
-                    f"n_model={n_model} x n_seq={n_seq}")
+                    f"n_model={n_model} x n_seq={n_seq} x n_pipe={n_pipe} "
+                    f"x n_expert={n_expert}")
             n_data = world // per
+        if n_expert > 1 and max(n_data, n_model, n_seq) > 1:
+            raise ValueError(
+                "the expert axis 'ep' stands alone (the expert mesh is "
+                f"('ep',)); got n_data={n_data}, n_model={n_model}, "
+                f"n_seq={n_seq}")
         if n_data * per != world:
             raise ValueError(
-                f"n_data={n_data} x n_model={n_model} x n_seq={n_seq} = "
-                f"{n_data * per} ranks, but the process group has world "
-                f"{world}: one rank is one device of the mesh")
+                f"n_data={n_data} x n_model={n_model} x n_seq={n_seq} x "
+                f"n_pipe={n_pipe} x n_expert={n_expert} = {n_data * per} "
+                f"ranks, but the process group has world {world}: one "
+                "rank is one device of the mesh")
         if distributed and device.type == "cpu" and \
                 dist.get_backend(group) == "nccl":
             raise ValueError("an nccl process group cannot reduce CPU "
                              "tensors; initialize a gloo group for "
                              "device='cpu'")
         groups = {}
-        shape = (n_data, n_model, n_seq)
+        shape = (n_data, n_pipe) if n_pipe > 1 else (n_data, n_model, n_seq)
         if distributed and sum(a > 1 for a in shape) > 1:
             if group is not None:
                 raise ValueError(
                     f"a mesh of {shape} needs sub-groups, which are laid "
                     "out over the default process group; pass group=None")
-            groups = _layout_groups(shape, rank)
+            groups = _layout_groups(shape, rank, pipe=n_pipe > 1)
         return MeshContext(world=world, rank=rank, device=device,
                            group=group, distributed=distributed,
-                           n_model=n_model, n_seq=n_seq, groups=groups)
+                           n_model=n_model, n_seq=n_seq, n_pipe=n_pipe,
+                           n_expert=n_expert, groups=groups)
 
     # ----------------------------------------------------------------- layout
+    #: the port's axes: each is there, of size 1 where the layout has
+    #: none ("pp" is the JAX pipeline's, "data" its "dp")
+    axis_names = ("data", "model", "sp", "pp", "ep")
+
     @property
     def n_data(self) -> int:
-        return self.world // (self.n_model * self.n_seq)
+        return self.world // (self.n_model * self.n_seq * self.n_pipe
+                              * self.n_expert)
 
     @property
     def model_axis(self) -> Optional[str]:
@@ -481,8 +590,23 @@ class MeshContext:
 
     @property
     def coords(self) -> Tuple[int, int, int]:
-        """This rank's (data, model, sp) index."""
+        """This rank's (data, model, sp) index (a pipeline layout's data
+        index; 0 on the expert axis, whose ranks hold the same rows)."""
+        if self.n_pipe > 1:
+            return (self.rank // self.n_pipe, 0, 0)
+        if self.n_expert > 1:
+            return (0, 0, 0)
         return mesh_coords(self.rank, self.n_model, self.n_seq)
+
+    @property
+    def pipe_index(self) -> int:
+        """This rank's stage on the 'pp' axis."""
+        return self.rank % self.n_pipe
+
+    @property
+    def expert_index(self) -> int:
+        """This rank's index on the 'ep' axis."""
+        return self.rank % self.n_expert
 
     @property
     def data_index(self) -> int:
@@ -516,7 +640,8 @@ class MeshContext:
         an identity); one of a single rank inside a wider world runs
         nothing."""
         n = {"data": self.n_data, "model": self.n_model, "sp": self.n_seq,
-             "replicas": self.n_replicas}[axis]
+             "replicas": self.n_replicas, "pp": self.n_pipe,
+             "ep": self.n_expert}[axis]
         if not self.distributed:
             return False, None, n
         if n == self.world:
@@ -694,10 +819,11 @@ class MeshContext:
         _collective(_ALL_GATHER, out, row.contiguous(), group=group)
         return out
 
-    def broadcast_(self, t: Tensor, src: int = 0) -> Tensor:
-        """``t`` from rank ``src`` of the data axis on every rank of it, in
-        place."""
-        run, group, _ = self._axis("data")
+    def broadcast_(self, t: Tensor, src: int = 0,
+                   axis: str = "data") -> Tensor:
+        """``t`` from index ``src`` of ``axis`` (the data axis) on every
+        rank of it, in place."""
+        run, group, _ = self._axis(axis)
         if run:
             _collective(dist.broadcast, t,
                         src=dist.get_global_rank(group, src)
@@ -735,15 +861,24 @@ class MeshContext:
             return t
         return _GatherDim.apply(t, t.dim() - 1, group, n, self.model_index)
 
+    def copy_to(self, t: Tensor, axis: str) -> Tensor:
+        """``t`` as it is; its gradient all-reduced over ``axis``."""
+        run, group, _ = self._axis(axis)
+        return _CopyToGroup.apply(t, group) if run else t
+
+    def sum_value(self, t: Tensor, axis: str) -> Tensor:
+        """``t`` summed over ``axis``, its gradient passed through: a
+        value every rank of the axis goes on with as a replicated one."""
+        run, group, _ = self._axis(axis)
+        return _SumForward.apply(t, group) if run else t
+
     def copy_to_model(self, t: Tensor) -> Tensor:
         """``t`` as it is; its gradient all-reduced over the model axis."""
-        run, group, _ = self._axis("model")
-        return _CopyToGroup.apply(t, group) if run else t
+        return self.copy_to(t, "model")
 
     def model_sum_value(self, t: Tensor) -> Tensor:
         """``t`` summed over the model axis, its gradient passed through."""
-        run, group, _ = self._axis("model")
-        return _SumForward.apply(t, group) if run else t
+        return self.sum_value(t, "model")
 
     def gather_seq(self, t: Tensor, dim: int = 1) -> Tensor:
         """The sp axis' time shards of ``t`` gathered on ``dim`` (the
@@ -774,6 +909,52 @@ class MeshContext:
         stage = t.is_cuda and self.backend == "gloo"
         return _RingShift.apply(t, group, ring[(s + 1) % n],
                                 ring[(s - 1) % n], stage)
+
+    # ------------------------------------------ the pp axis, point to point
+    def stage_peer(self, stage: int) -> int:
+        """The global rank of pipeline stage ``stage`` at this rank's data
+        index."""
+        r = self.data_index * self.n_pipe + stage
+        return dist.get_global_rank(self.group, r) if self.group is not None \
+            else r
+
+    def _stages_via_host(self, device) -> bool:
+        return device.type == "cuda" and self.backend == "gloo"
+
+    def _post(self, t: Tensor, peer: int, tag: int) -> None:
+        """``t`` sent to the global rank ``peer`` under ``tag``, not waited
+        for: the work and its buffer are kept until :meth:`wait_sends`."""
+        src = _staged(t, self._stages_via_host(t.device))
+        work = _collective(dist.isend, src, peer, group=self.group, tag=tag)
+        self._sends.append((work, src))
+
+    def _take(self, shape, dtype, device, peer: int, tag: int) -> Tensor:
+        """What the global rank ``peer`` sent under ``tag`` (waits)."""
+        host = self._stages_via_host(torch.device(device))
+        buf = torch.empty(shape, dtype=dtype,
+                          device="cpu" if host else device)
+        _collective(dist.recv, buf, peer, group=self.group, tag=tag)
+        return buf.to(device) if host else buf
+
+    def wait_sends(self) -> None:
+        """Wait for every send posted since the last call."""
+        sends, self._sends = self._sends, []
+        for work, _buf in sends:
+            work.wait()
+
+    def send_stage(self, t: Tensor, stage: int, tag: int) -> Tensor:
+        """``t`` sent to pipeline stage ``stage`` under ``tag``,
+        differentiably: returns a zero scalar token whose backward
+        receives the gradient of ``t`` from that stage."""
+        return _SendStage.apply(t, self, self.stage_peer(stage), tag)
+
+    def recv_stage(self, shape, dtype, stage: int, tag: int) -> Tensor:
+        """What pipeline stage ``stage`` sent under ``tag`` (a tensor of
+        ``shape`` and ``dtype`` on this rank's device), differentiably:
+        its backward sends the gradient back to that stage."""
+        anchor = torch.zeros((), device=self.device, requires_grad=True)
+        return _RecvStage.apply(anchor, self, self.stage_peer(stage), tag,
+                                tuple(shape), dtype)
 
 
 # ---------------------------------------------------------------------------

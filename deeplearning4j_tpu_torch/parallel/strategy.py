@@ -10,8 +10,9 @@ The registry maps strategy names onto the trainers:
   average-every-k-iterations semantics;
 - ``"delayed_sync"``    -> ``DelayedSyncTrainer``: local accumulation with
   one param-sized all-reduce every ``sync_frequency`` steps;
-- ``"pipeline"``        -> pipeline parallelism, not ported (ROADMAP
-  A6.2b).
+- ``"pipeline"``        -> ``PipelineTrainer`` for a ``MultiLayerNetwork``,
+  ``GraphPipelineTrainer`` for a graph: GPipe stages over the mesh's
+  'pp' axis.
 
 ``create_trainer(strategy, net, ...)`` is the factory; ``hooks`` wrap the
 trainer's ``fit_batch`` in ``TrainingHook`` pre/post calls. A trainer
@@ -79,9 +80,12 @@ def _param_averaging(net, mesh: Optional[MeshContext] = None, **kw):
 
 @register_strategy("pipeline")
 def _pipeline(net, mesh: Optional[MeshContext] = None, **kw):
-    raise NotImplementedError(
-        "pipeline parallelism (parallel/pipeline.py) is not ported yet "
-        "(ROADMAP A6.2b)")
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        GraphPipelineTrainer, PipelineTrainer,
+    )
+    if hasattr(net, "layers"):
+        return PipelineTrainer(net, mesh, **kw)
+    return GraphPipelineTrainer(net, mesh, **kw)
 
 
 @register_strategy("delayed_sync")

@@ -55,6 +55,12 @@ def step_mesh(net) -> Optional[MeshContext]:
             "while a tensor-parallel ParallelTrainer is attached; call "
             "trainer.gather_params() on every rank before output, score "
             "or serialization")
+    if getattr(net, "_pipeline_stage", None) is not None:
+        raise RuntimeError(
+            "the net holds its pipeline stage's params only while a "
+            "PipelineTrainer / GraphPipelineTrainer is attached; call "
+            "trainer.gather_params() on every rank before output, score "
+            "or serialization")
     return mesh
 
 

@@ -141,12 +141,38 @@ def unflatten(flat: torch.Tensor, like):
 
 
 def check_data_mesh(mesh: MeshContext, who: str) -> None:
-    """Refuse a mesh with a model or sp axis: ``who`` trains data-parallel
-    only, as the JAX package's does."""
+    """Refuse a mesh with a model, sp, pp or ep axis: ``who`` trains
+    data-parallel only, as the JAX package's does."""
     if mesh.n_model > 1 or mesh.n_seq > 1:
         raise ValueError(
             f"{who} trains data-parallel only; this mesh has n_model="
             f"{mesh.n_model}, n_seq={mesh.n_seq} (use ParallelTrainer)")
+    check_no_pipe_or_expert(mesh, who)
+
+
+def check_no_pipe_or_expert(mesh: MeshContext, who: str) -> None:
+    """Refuse a mesh with a 'pp' or 'ep' axis: the pipeline trainers
+    train over 'pp', and 'ep' shards ``parallel/expert.moe_ffn``."""
+    if mesh.n_pipe > 1 or mesh.n_expert > 1:
+        raise ValueError(
+            f"{who} does not train over a pipeline or expert axis; this "
+            f"mesh has n_pipe={mesh.n_pipe}, n_expert={mesh.n_expert} "
+            "(use PipelineTrainer / GraphPipelineTrainer for 'pp')")
+
+
+def check_no_moe_over_replicas(net, mesh: MeshContext) -> None:
+    """Refuse a net with a mixture-of-experts layer over more than one
+    replica: the JAX step is one program over the global batch, so an
+    MoE layer's capacity and balancing loss are taken over every row;
+    a per-rank step would take them over this rank's rows alone."""
+    from deeplearning4j_tpu_torch.parallel.expert import MoELayer
+    if mesh.n_replicas > 1 and any(isinstance(l, MoELayer)
+                                   for l in layers_of(net)):
+        raise ValueError(
+            "a net with an MoELayer does not train data-parallel yet: its "
+            "expert capacity and balancing loss are taken over the global "
+            "batch, and this rank's step sees its own rows only "
+            f"({mesh.n_replicas} replicas; ROADMAP A6.2c)")
 
 
 def check_mesh_device(net, mesh: MeshContext) -> None:
@@ -181,6 +207,8 @@ class ParallelTrainer:
         self.mesh = mesh if mesh is not None else MeshContext.create(
             device=device)
         check_mesh_device(net, self.mesh)
+        check_no_pipe_or_expert(self.mesh, "ParallelTrainer")
+        check_no_moe_over_replicas(net, self.mesh)
         self.gradient_accumulation = max(1, int(gradient_accumulation))
         self.weight_update_sharding = WeightUpdateSharding.parse(
             weight_update_sharding)

@@ -168,8 +168,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "parallel/mesh.py", "parallel/multihost.py",
                    "parallel/trainer.py", "parallel/wrapper.py",
                    "parallel/delayed.py", "parallel/strategy.py",
-                   "parallel/checkpoint.py", "resilience/manager.py",
-                   "resilience/trainer.py", "keras/hdf5.py",
+                   "parallel/checkpoint.py", "parallel/pipeline.py",
+                   "parallel/expert.py", "analysis/graphcheck.py",
+                   "resilience/manager.py", "resilience/trainer.py",
+                   "keras/hdf5.py",
                    "keras/keras_import.py", "nn/transferlearning.py",
                    "earlystopping/trainer.py",
                    "earlystopping/parallel_trainer.py",

@@ -465,12 +465,13 @@ def test_create_trainer_builds_each_strategy_and_runs_hooks(group):
     got = W.result(group, "strategies")
     assert got["types"] == {"allreduce": "ParallelTrainer",
                             "param_averaging": "ParallelWrapper",
-                            "delayed_sync": "DelayedSyncTrainer"}
+                            "delayed_sync": "DelayedSyncTrainer",
+                            "pipeline": "PipelineTrainer"}
     assert got["calls"] == ["pre", "post"]
 
 
 @pytest.mark.parametrize("label,kind,words", [
-    ("pipeline", "NotImplementedError", "A6.2"),
+    ("pipeline", "ValueError", "masked DataSets are unsupported"),
     ("unknown", "ValueError", "Unknown training strategy"),
     ("workers", "ValueError", "3 workers"),
     ("zero_workers", "ValueError", "3 workers"),

@@ -642,14 +642,20 @@ def case_strategies(batches):
             calls.append("post")
 
     mesh = MeshContext.create(device="cpu")
-    types = {s: type(create_trainer(s, build("mlp"), mesh)).__name__
-             for s in ("allreduce", "param_averaging", "delayed_sync")}
+    pipe = MeshContext.create(n_pipe=2, device="cpu")
+    types = {s: type(create_trainer(s, build("mlp"),
+                                    pipe if s == "pipeline" else mesh)
+                     ).__name__
+             for s in ("allreduce", "param_averaging", "delayed_sync",
+                       "pipeline")}
     hooked = create_trainer("allreduce", build("mlp"), mesh, hooks=[Hook()])
     hooked.fit_batch(datasets(batches)[0])
     errors = {}
     for label, fn in (
-            ("pipeline", lambda: create_trainer("pipeline", build("mlp"),
-                                                mesh)),
+            ("pipeline", lambda: create_trainer(
+                "pipeline", build("mlp"), pipe).fit_batch(datasets(
+                    [list(batches[0]) + [None, np.ones(
+                        len(batches[0][0]), np.float32)]])[0])),
             ("unknown", lambda: create_trainer("gossip", build("mlp"),
                                                mesh)),
             ("workers", lambda: ParallelWrapper(build("mlp"), workers=3,
@@ -1226,6 +1232,307 @@ def elastic_rank(spec_path, rank, world, init_method, out_dir) -> int:
                      **reg.snapshot("resilience_host")))))
     multihost.shutdown()
     return 0
+
+
+# ---------------------------------------------------------------------------
+# cases: the pipeline and expert axes (pipeline and expert parallelism)
+# ---------------------------------------------------------------------------
+
+_PIPE_PARTS: dict = {}
+
+
+def pipe_mesh(layout):
+    """A CPU mesh of the pipeline ``layout`` (n_data, n_pipe): over the
+    default group when it spans the world, else over this rank's part of
+    the world cut into groups of its size (pp-only meshes)."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import MeshContext
+    nd, npp = layout
+    size, world = nd * npp, dist.get_world_size()
+    group = None
+    if size < world:
+        if size not in _PIPE_PARTS:
+            parts = [dist.new_group(list(range(i, i + size)))
+                     for i in range(0, world, size)]
+            _PIPE_PARTS[size] = parts[dist.get_rank() // size]
+        group = _PIPE_PARTS[size]
+    return MeshContext.create(n_data=nd, n_pipe=npp, device="cpu",
+                              group=group)
+
+
+def conf_net(conf_json, graph=False, params=None):
+    """A port net on the CPU from a JAX config's JSON, with ``params``
+    (numpy, the JAX net's layout) carried in when given."""
+    import deeplearning4j_tpu_torch.parallel.expert  # noqa: F401 (MoELayer)
+    from deeplearning4j_tpu_torch.convert import params_from_jax
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        MultiLayerConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
+        ComputationGraphConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    if graph:
+        conf = ComputationGraphConfiguration.from_json(conf_json)
+        net = ComputationGraph(conf, device="cpu")
+    else:
+        conf = MultiLayerConfiguration.from_json(conf_json)
+        net = MultiLayerNetwork(conf, device="cpu")
+    return net.init(None if params is None else params_from_jax(conf, params))
+
+
+def batches_of(arrays, multi=False):
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    if multi:
+        return [MultiDataSet(list(f), list(l)) for f, l in arrays]
+    return datasets(arrays)
+
+
+def _tree_numpy(tree):
+    from deeplearning4j_tpu_torch.convert import params_to_numpy
+    return params_to_numpy(tree)
+
+
+def case_pp_fit(conf, batches, layout=(1, 2), M=None, steps=1, graph=False,
+                params=None, stages=None, multi=False, sentinel=None,
+                poison=None, save=None):
+    """``steps`` passes over ``batches`` through the pipeline trainer of
+    ``create_trainer("pipeline", ...)`` on a mesh of ``layout``: the
+    losses, the stages, the param and moment bytes this rank holds
+    against the whole net's, ``score`` refused while attached, and after
+    ``gather_params`` the params, states and moments (and, with
+    ``save``, the params a zip written and restored holds). ``poison``:
+    the index of a batch whose features are NaN, under a sentinel."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.strategy import create_trainer
+    net = conf_net(conf, graph, params)
+    if sentinel is not None:
+        from deeplearning4j_tpu_torch.resilience.sentinel import (
+            DivergenceSentinel,
+        )
+        net.set_divergence_sentinel(DivergenceSentinel(sentinel, lag=0))
+    nbytes = [sum(t.numel() * t.element_size() for t in _leaves(tree))
+              for tree in (net.params, {k: v for k, v in
+                                        net.opt_state.items()
+                                        if k != "count"})]
+    mesh = pipe_mesh(layout)
+    kw = {} if stages is None else dict(stages=stages)
+    tr = create_trainer("pipeline", net, mesh, n_microbatches=M, **kw)
+    rank_bytes = [sum(t.numel() * t.element_size() for t in _leaves(tree))
+                  for tree in (net.params, {k: v for k, v in
+                                            net.opt_state.items()
+                                            if k != "count"})]
+    data = batches_of(batches, multi)
+    losses, mid = [], None
+    for step in range(steps):
+        for i, b in enumerate(data):
+            if poison == i and step == 0:
+                b = type(b)(b.features * np.nan, b.labels)
+                before = [t.clone() for t in _leaves(net.params)]
+                losses.append(float(tr.fit_batch(b)))
+                mid = all(torch.equal(a, c) for a, c in
+                          zip(before, _leaves(net.params)))
+                continue
+            losses.append(float(tr.fit_batch(b)))
+    out = dict(losses=losses, type=type(tr).__name__,
+               stages=[list(st) for st in tr.stages], S=tr.S, M=tr.M,
+               coords=(mesh.data_index, mesh.pipe_index),
+               whole_bytes=nbytes, rank_bytes=rank_bytes,
+               iterations=net.iteration_count, poisoned_kept=mid,
+               score_refused=_err(lambda: net.score(data[0])))
+    if sentinel is not None:
+        net._sentinel.flush()
+        out["skipped"] = net._sentinel.skipped_batches
+    tr.gather_params()
+    out["params"] = flat(net)
+    out["leaves"] = _tree_numpy(net.params)
+    out["states"] = _tree_numpy(net.states)
+    out["moments"] = {k: _tree_numpy(v) for k, v in net.opt_state.items()
+                      if k != "count"}
+    out["score"] = net.score(data[0])
+    if save is not None:
+        from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+        path = Path(save) / f"pp_rank{_rank()}.zip"
+        ModelSerializer.write_model(net, str(path))
+        out["zip_params"] = ModelSerializer.restore_model(
+            str(path), device="cpu").params_flat()
+    if out["type"] == "PipelineTrainer" and len(data[0].features.shape) < 3:
+        out["output"] = net.output(data[0].features).numpy()
+    return out
+
+
+def case_pp_repeat(conf, batches, layout=(1, 2), M=2, steps=3, graph=False):
+    """Two trainers from one config seed on the same batches (dropout
+    inside the stages): both runs' losses, and two inference passes
+    after ``gather_params``."""
+    runs = []
+    for _ in range(2):
+        from deeplearning4j_tpu_torch.parallel.strategy import (
+            create_trainer,
+        )
+        net = conf_net(conf, graph)
+        tr = create_trainer("pipeline", net, pipe_mesh(layout),
+                            n_microbatches=M)
+        runs.append([float(tr.fit_batch(b)) for _ in range(steps)
+                     for b in batches_of(batches)])
+        tr.gather_params()
+    x = batches_of(batches)[0].features
+    o = net.output(x)
+    return dict(runs=runs, outputs_equal=bool((o == net.output(x)).all()))
+
+
+def case_pp_refusals(conf, batches, layout=(1, 2), M=None, graph=False,
+                     masked=False, multi_arrays=None, remat=False,
+                     tbptt_bwd=None, dp_layout=None, rank2_labels=False,
+                     full=False):
+    """The pipeline trainers' refusals, each an error or None."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, MultiDataSet,
+    )
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        GraphPipelineTrainer, PipelineTrainer,
+    )
+    cls = GraphPipelineTrainer if graph else PipelineTrainer
+    out = {}
+
+    def fresh():
+        net = conf_net(conf, graph)
+        if remat:
+            net.conf.training.remat = True
+        if tbptt_bwd is not None:
+            net.conf.training.tbptt_bwd_length = tbptt_bwd
+        return net
+    out["construct"] = _err(lambda: cls(fresh(), pipe_mesh(layout),
+                                        n_microbatches=M))
+    out["axis"] = _err(lambda: cls(fresh(), pipe_mesh(layout), axis="x"))
+    if out["construct"] is None:
+        tr = cls(conf_net(conf, graph), pipe_mesh(layout), n_microbatches=M)
+        b = batches_of(batches)[0]
+        if masked:
+            out["masked"] = _err(lambda: tr.fit_batch(DataSet(
+                b.features, b.labels,
+                labels_mask=np.ones((b.features.shape[0],), np.float32))))
+        if rank2_labels:
+            out["rank2"] = _err(lambda: tr.fit_batch(DataSet(
+                b.features, b.labels[:, 0])))
+        if multi_arrays is not None:
+            out["multi"] = [_err(lambda f=f, l=l: tr.fit_batch(
+                MultiDataSet(list(f), list(l)))) for f, l in multi_arrays]
+        out["rows"] = _err(lambda: tr.fit_batch(DataSet(
+            b.features[:-1], b.labels[:-1])))
+        if full:
+            out["full"] = _err(lambda: tr.fit_batch(b))
+        tr.gather_params()
+    if dp_layout is not None:
+        out["dp"] = _err(lambda: cls(fresh(), pipe_mesh(dp_layout),
+                                     n_microbatches=M))
+    return out
+
+
+def case_pp_stats(conf, batches, layout=(1, 2), M=2, graph=False):
+    """``fit`` over an iterator (two epochs) with
+    ``collect_training_stats``: the exported phases and the listener's
+    iteration and epoch events."""
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+    from deeplearning4j_tpu_torch.parallel.strategy import create_trainer
+    events = []
+
+    class Hook(TrainingListener):
+        def on_epoch_start(self, model):
+            events.append("start")
+
+        def on_epoch_end(self, model):
+            events.append("end")
+
+        def iteration_done(self, model, iteration, score):
+            events.append("iter")
+
+    net = conf_net(conf, graph)
+    net.set_listeners(Hook())
+    tr = create_trainer("pipeline", net, pipe_mesh(layout), n_microbatches=M,
+                        collect_training_stats=True)
+    tr.fit(ListDataSetIterator(batches_of(batches)), epochs=2)
+    st = tr.training_stats
+    return dict(export=st.export(), total=st.total_phase_s(),
+                wall=st.wall_s(), events=events, epochs=net.epoch_count)
+
+
+def case_pipeline_apply(stacked, xs, layout):
+    """``pipeline_apply`` of tanh(x @ W + b) stages over ``layout``: the
+    result on this rank and the gradient of sum(out**2) with respect to
+    this rank's row of the stack."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.pipeline import pipeline_apply
+    mesh = pipe_mesh(layout)
+    params = {k: torch.tensor(v, requires_grad=True)
+              for k, v in stacked.items()}
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["W"] + p["b"]) if "b" in p \
+            else torch.tanh(x @ p["W"])
+    out = pipeline_apply(stage_fn, params, torch.tensor(xs), mesh)
+    (out ** 2).sum().backward()
+    mesh.wait_sends()
+    row = mesh.pipe_index
+    return dict(out=out.detach().numpy().copy(), row=row,
+                grads={k: v.grad[row].numpy().copy()
+                       for k, v in params.items()},
+                other_rows_zero=all(
+                    bool((v.grad[[i for i in range(v.shape[0])
+                                  if i != row]] == 0).all())
+                    for v in params.values()))
+
+
+def case_moe_sharded(params, x, n_ep=2, activation="relu",
+                     capacity_factor=1.25):
+    """``moe_ffn`` with the experts sharded over an 'ep' axis of
+    ``n_ep`` ranks (each its rows of W1/b1/W2/b2, the same tokens): the
+    output, the aux loss and the gradients of sum(out**2) + aux with
+    respect to Wg, x and this rank's expert rows (and their span)."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import MeshContext
+    from deeplearning4j_tpu_torch.parallel.expert import (
+        expert_rows, expert_span, moe_ffn,
+    )
+    mesh = MeshContext.create(n_expert=n_ep, device="cpu")
+    full = {k: torch.tensor(v) for k, v in params.items()}
+    mine = {k: v.requires_grad_() for k, v in
+            expert_rows(full, mesh).items()}
+    xt = torch.tensor(x, requires_grad=True)
+    out, aux = moe_ffn(mine, xt, activation, capacity_factor, mesh=mesh)
+    ((out ** 2).sum() + aux).backward()
+    span = expert_span(full["Wg"].shape[-1], mesh)
+    return dict(out=out.detach().numpy().copy(), aux=float(aux.detach()),
+                span=(span.start, span.stop), dx=xt.grad.numpy().copy(),
+                grads={k: v.grad.numpy().copy() for k, v in mine.items()})
+
+
+def case_moe_refusals(conf, batches):
+    """A net with an MoELayer under each data-parallel trainer at world 2
+    (ParallelTrainer refuses; the wrapper and the delayed trainer keep
+    per-worker semantics), and the expert / pipeline axes' refusals."""
+    from deeplearning4j_tpu_torch.parallel import (
+        DelayedSyncTrainer, MeshContext, ParallelTrainer, ParallelWrapper,
+    )
+    mesh = MeshContext.create(device="cpu")
+    b = batches_of(batches)[0]
+    out = dict(
+        parallel=_err(lambda: ParallelTrainer(conf_net(conf), mesh)),
+        wrapper=_err(lambda: ParallelWrapper(conf_net(conf), mesh=mesh,
+                                             workers=2).fit_batch(b)),
+        delayed=_err(lambda: DelayedSyncTrainer(conf_net(conf),
+                                                mesh=mesh).fit_batch(b)),
+        ep_data=_err(lambda: MeshContext.create(n_expert=2, n_data=2,
+                                                device="cpu")),
+        pp_model=_err(lambda: MeshContext.create(n_pipe=2, n_model=2,
+                                                 device="cpu")),
+        pp_in_parallel=_err(lambda: ParallelTrainer(
+            conf_net(conf), MeshContext.create(n_pipe=2, device="cpu"))))
+    return out
 
 
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
