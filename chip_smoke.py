@@ -270,7 +270,14 @@ Phases, each printing JSON lines:
    its first window's LSTM gradients within 2e-4, exactly 8 K2 and 8 K3
    a rank; the MoE FFN at the GPT's widths (8192 tokens, 8 experts of
    2048) on the card against the CPU and with its experts split over
-   the two ranks' 'ep' axis against world 1, within 1e-5; their
+   the two ranks' 'ep' axis against world 1, within 1e-5; the
+   ``train_parallel_moe_dp`` line (ROADMAP A6.2c): an MoE MLP (512 ->
+   8 experts of 2048 -> 96, 17.1M params) through ``ParallelTrainer``
+   on the data axis, replicated and zero1, 3 steps of 8192 global rows
+   against each rank's plain step of the global batch (the same gates),
+   the tokens the global capacity drops on the first batch (at least
+   one) beside those a per-rank capacity would, ms a step against the
+   plain step, and the bytes the dispatch's collectives move; their
    zero1 checkpoint restored at world 1, its next step within 2e-4 /
    2e-5 of theirs. Then the same two processes join an elastic group
    (ROADMAP A6.3) and train the GPT under ``ElasticTrainer`` (zero1, a
@@ -284,9 +291,19 @@ Phases, each printing JSON lines:
    restore; the survivor's K4-K6 launches join the path's. The
    ``device_profile`` windows of every phase open with the same pad
    burst as ``traced_kernels``', taken out of their numbers;
-16. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+16. analysis — the static analysis (ROADMAP A7.3), no step of
+   training: every config the smoke builds (the GPT, the char-RNN,
+   LeNet, VGG, ResNet-50, the Keras twin, the MoE MLP) validates with no
+   ERROR finding at the card's default budget; the full-width GPT's
+   ``memory_report`` equals the live nets exactly (param bytes and Adam
+   moments of the training phase's net, zero1 moments at dp = 2 of
+   world-2 rank 0's) and its estimate for a [32, 256] step stands beside
+   the step's measured peak (ResNet-50's at 64 too, ungated);
+   ``kv_pool_plan`` equals the serving engine's pool, and an engine's
+   under a byte budget; the budget constants equal the card's;
+17. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-17. last line ``{"ok": true, "device": {...}}``.
+18. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -584,6 +601,13 @@ KERNELS = {"flash_attn_fwd": flash_attention,
            "lstm_bwd": lstm_bwd}
 
 
+#: what earlier phases measured on their live nets, for the analysis
+#: phase's memory plan to be held against: the GPT training net's param
+#: and moment bytes and its step's peak, ResNet-50's peaks, the serving
+#: engine's pool, the Keras twin's imported config
+LIVE: dict = {}
+
+
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
@@ -809,10 +833,11 @@ def check(cond, what):
 
 
 #: port modules the import rule must find (the data-parallel package's,
-#: the Keras import's and the transfer-learning modules')
+#: the Keras import's, the transfer-learning and the analysis modules')
 IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
                         "parallel/pipeline.py", "parallel/expert.py",
-                        "analysis/graphcheck.py",
+                        "analysis/graphcheck.py", "analysis/memory.py",
+                        "analysis/findings.py",
                         "parallel/multihost.py", "parallel/trainer.py",
                         "parallel/wrapper.py", "parallel/delayed.py",
                         "parallel/strategy.py", "parallel/checkpoint.py",
@@ -1641,6 +1666,9 @@ def train_slice():
     torch.cuda.reset_peak_memory_stats()
     step_ms = host_ms(lambda: net.fit_batch(batches[1]), iters=10, warmup=2)
     peak = torch.cuda.max_memory_allocated()
+    LIVE["gpt_train"] = dict(param_bytes=param_bytes(net),
+                             moment_bytes=moment_bytes(net),
+                             step_peak_bytes=peak)
     # the updater alone, on copies of the params and state
     grads, _, _ = net.compute_gradient_and_score(batches[1])
     params = tree_map(torch.clone, net.params)
@@ -2094,6 +2122,7 @@ def resnet_timed_case(dtype, device="cuda"):
     steps_s = time.perf_counter() - t0
     losses = [float(v) for v in losses]
     peak = torch.cuda.max_memory_allocated()
+    LIVE[f"resnet50_{dtype}_peak_bytes"] = peak
     step_ms = host_ms(lambda: net.fit_batch(batch), iters=5)
     grads, _, _ = net.compute_gradient_and_score(batch)
     params = tree_map(torch.clone, net.params)
@@ -2510,6 +2539,9 @@ def serve_engine():
                                 for kv in eng.pool.values()
                                 for v in kv.values())
         graph_bytes = {f"{k}:{b}": r.nbytes for (k, b), r in runners.items()}
+        LIVE["engine"] = dict(max_rows=SERVE_ROWS, page_len=eng.page_len,
+                              total_pages=eng.total_pages,
+                              pool_bytes=eng.pool_bytes)
     finally:
         faultinject.clear()
         sched.stop()
@@ -3731,6 +3763,7 @@ def keras_transfer(smi):
         write_keras_char_rnn(path, **KERAS_TWIN, seed=SEED + 40)
         reset_counts()
         net, seconds = keras_import_seconds(path)
+        LIVE["keras_conf"] = net.conf
         cpu = KerasModelImport.import_keras_model_and_weights(
             str(path), device="cpu")
         rec = dict(phase="keras_transfer", nvidia_smi=smi,
@@ -5371,6 +5404,30 @@ PP_RNN_M, TOL_PP_RNN_GRAD, PP_RNN_SGD_LR = 2, 2e-4, 0.1
 #: experts of hidden EP_HIDDEN; world 1 on the card against the CPU, and
 #: the experts split over the two ranks' 'ep' axis against world 1
 EP_TOKENS, EP_EXPERTS, EP_HIDDEN, TOL_EP = 8192, 8, 2048, 1e-5
+#: the MoE MLP over the world-2 group's data axis (ROADMAP A6.2c), after
+#: ep: Dense(512, relu) -> MoELayer(EP_EXPERTS experts of EP_HIDDEN,
+#: capacity factor 1.0, aux weight 1e-2) -> Output(96, softmax) on
+#: feed_forward(512), f32 (17.1M params, the experts at the ep mode's
+#: widths). MOE_DP_STEPS steps of MOE_DP_BATCH global rows (half a rank)
+#: through ParallelTrainer at dp = 2 in each of MOE_DP_MODES, held to each
+#: rank's plain world-1 fit_batch of the global batch at the tp / sp
+#: modes' gates, with an SGD twin at MOE_DP_SGD_LR
+MOE_DP_BATCH, MOE_DP_STEPS, MOE_DP_CLASSES = 8192, 3, 96
+MOE_DP_MODES = ("off", "zero1")
+MOE_DP_LR, MOE_DP_SGD_LR = 1e-3, 0.05
+#: C23's allowance on this net: its Adam path's params may hold up to
+#: MOE_DP_FLIPS elements (of 17.1M) outside TOL_PAR_* of the plain steps,
+#: each by at most 2 lr a step. On an H100 80GB HBM3 at 700 W, 1,087 move
+#: (1,072 in the experts' W1, about two of its 512-element columns),
+#: while the gate routes every row alike before every step and the first
+#: step's gradients agree within 3e-6 of |g| (the record's
+#: routed_apart, flip_grad_rel_err, flip_grad_abs): the split appears in
+#: the later steps, where a rounding-level difference can put an
+#: expert's ReLU pre-activation on the other side of 0 and change a
+#: rarely reached hidden unit's column gradient by a token's share,
+#: which Adam's scale-free update turns into up to lr. The GPT (GELU)
+#: moves 10 of 25.4M; the SGD twins, linear in g, hold every element
+MOE_DP_FLIPS = 2048
 
 
 def text_batches(n, B, T, seed):
@@ -5971,6 +6028,190 @@ def par_ep() -> dict:
                 ms_world1=world1[3], ms_ep=sharded[3], ms_cpu=cpu[3])
 
 
+def moe_dp_conf(updater="adam", lr=MOE_DP_LR):
+    """The moe_dp mode's MoE MLP (MOE_DP_*), the same seed on every rank."""
+    from deeplearning4j_tpu_torch.parallel.expert import MoELayer
+    D = SLICE["d_model"]
+    return (NeuralNetConfiguration.builder().seed(SEED + 60)
+            .updater(updater, learning_rate=lr).weight_init("xavier")
+            .list()
+            .layer(DenseLayer(n_out=D, activation="relu"))
+            .layer(MoELayer(n_experts=EP_EXPERTS, hidden=EP_HIDDEN,
+                            capacity_factor=1.0, aux_loss_weight=1e-2,
+                            activation="relu"))
+            .layer(OutputLayer(n_out=MOE_DP_CLASSES, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.feed_forward(D)).build())
+
+
+def moe_dp_batches():
+    """MOE_DP_STEPS global batches of MOE_DP_BATCH rows (normal features,
+    one-hot labels), drawn from a seed."""
+    rng = np.random.default_rng(SEED + 61)
+    D, C = SLICE["d_model"], MOE_DP_CLASSES
+    return [DataSet(rng.standard_normal((MOE_DP_BATCH, D), dtype=np.float32),
+                    np.eye(C, dtype=np.float32)[
+                        rng.integers(0, C, MOE_DP_BATCH)])
+            for _ in range(MOE_DP_STEPS)]
+
+
+def moe_route(net, batch):
+    """The expert the MoE MLP's gate picks for each row of ``batch`` at
+    ``net``'s params."""
+    x = torch.as_tensor(batch.features, device=net.device)
+    with torch.no_grad():
+        h = torch.relu(x @ net.params[0]["W"] + net.params[0]["b"])
+        return (h @ net.params[1]["Wg"]).argmax(dim=-1)
+
+
+def moe_drops(net, batch, n_data):
+    """(tokens the global capacity drops routing ``batch`` at ``net``'s
+    params, tokens a per-rank capacity would drop with its rows cut over
+    ``n_data`` ranks): the counts past each expert's capacity."""
+    layer = net.layers[1]
+    idx = moe_route(net, batch)
+
+    def dropped(part):
+        cap = max(1, int(layer.capacity_factor * part.numel()
+                         / layer.n_experts))
+        counts = torch.bincount(part, minlength=layer.n_experts)
+        return int((counts - cap).clamp_min(0).sum())
+    return dropped(idx), sum(dropped(p) for p in idx.chunk(n_data))
+
+
+def par_moe_dp() -> dict:
+    """One rank's run of the moe_dp mode: the MoE MLP (MOE_DP_*) through
+    ParallelTrainer over the world-2 group's data axis, replicated and
+    under zero1, each MOE_DP_STEPS steps of the global batches, against
+    this rank's plain world-1 fit_batch of the same batches (losses and
+    params, mesh_parity), with an SGD twin each. Also: the tokens the
+    global capacity drops on the first batch at the init params, and
+    those a per-rank capacity would drop; ms a step of each against the
+    plain step; the bytes the dispatch's collectives (the per-expert
+    counts' all-gather, the gate sums' all-reduce forward and back) move
+    a step; the first step's gradient through the global dispatch against
+    the plain one, element by element; the Adam path's params outside
+    the gate by leaf, and the rows its gate routes apart from the plain
+    steps' before each step."""
+    from deeplearning4j_tpu_torch.nn.netcommon import global_batch_stats
+    from deeplearning4j_tpu_torch.parallel import MeshContext, ParallelTrainer
+    from deeplearning4j_tpu_torch.parallel.mesh import GlobalBatch, take_rows
+    mesh = MeshContext.create()
+    batches = moe_dp_batches()
+
+    def steps(fit, net=None):
+        """(losses, ms a step, and with ``net`` the gate's pick for each
+        batch's rows before its step)"""
+        losses, ms, routes = [], [], []
+        for b in batches:
+            if net is not None:
+                routes.append(moe_route(net, b))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(fit(b)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms, routes
+
+    def net_of(updater, lr):
+        return MultiLayerNetwork(moe_dp_conf(updater, lr),
+                                 device="cuda").init()
+    plain = {}
+    for u, lr in (("adam", MOE_DP_LR), ("sgd", MOE_DP_SGD_LR)):
+        net = net_of(u, lr)
+        losses, ms, routes = steps(net.fit_batch, net)
+        plain[u] = (losses, net, ms, routes)
+    first = net_of("adam", MOE_DP_LR)
+    drops = moe_drops(first, batches[0], mesh.n_data)
+    # the first step's gradient at the init params, whole and through the
+    # global dispatch on this rank's rows (mean over the data axis): each
+    # element's gap over |g|, by leaf
+    plain_g = tree_leaves(first.compute_gradient_and_score(batches[0])[0])
+    rows = take_rows(batches[0], mesh.batch_slice(MOE_DP_BATCH))
+    with global_batch_stats(first, GlobalBatch(mesh)):
+        rank_g = tree_leaves(first.compute_gradient_and_score(rows)[0])
+    flat = torch.cat([g.reshape(-1) for g in rank_g])
+    mesh.all_reduce_(flat).div_(mesh.n_data)
+    grad_abs = [g.abs().reshape(-1) for g in plain_g]
+    gaps = [(a - b.reshape(-1)).abs() / g.clamp_min(1e-30) for a, b, g in
+            zip(flat.split([g.numel() for g in plain_g]), plain_g,
+                grad_abs)]
+    rec = dict(grad_rel_err_median_by_leaf=[float(g.median())
+                                            for g in gaps])
+    del plain_g, rank_g, flat
+    rec.update(params=first.num_params(), global_batch=MOE_DP_BATCH,
+               rows_per_rank=MOE_DP_BATCH // mesh.n_data,
+               experts=EP_EXPERTS, hidden=EP_HIDDEN,
+               capacity_global=int(MOE_DP_BATCH / EP_EXPERTS),
+               capacity_per_rank=int(MOE_DP_BATCH / mesh.n_data
+                                     / EP_EXPERTS),
+               dropped_global_capacity=drops[0],
+               dropped_per_rank_capacity=drops[1],
+               plain_ms_per_step=plain["adam"][2],
+               gradient_bytes=param_bytes(first))
+    del first
+    moved = []
+    counts, total = GlobalBatch.token_counts, GlobalBatch.token_sum
+
+    def counted_counts(self, c):
+        moved.append(("all_gather", c.numel() * 8 * self.mesh.n_data))
+        return counts(self, c)
+
+    def counted_sum(self, t):
+        # the all-reduce forward, and its twin in the backward
+        moved.append(("all_reduce", 2 * t.numel() * t.element_size()))
+        return total(self, t)
+    GlobalBatch.token_counts = counted_counts
+    GlobalBatch.token_sum = counted_sum
+    try:
+        for mode in MOE_DP_MODES:
+            net = net_of("adam", MOE_DP_LR)
+            tr = ParallelTrainer(net, mesh, weight_update_sharding=mode)
+            del moved[:]
+            losses, ms, routes = steps(tr.fit_batch, net)
+            flat = torch.cat([p.reshape(-1) for p in
+                              tree_leaves(net.params)]).cpu().numpy()
+            plain_net = plain["adam"][1]
+            out = [(x - y).abs() > TOL_PAR_ATOL + TOL_PAR_RTOL * y.abs()
+                   for x, y in zip(tree_leaves(net.params),
+                                   tree_leaves(plain_net.params))]
+            flips = torch.cat([g[o.reshape(-1)] for g, o in zip(gaps, out)])
+            flip_abs = torch.cat([g[o.reshape(-1)]
+                                  for g, o in zip(grad_abs, out)])
+            names = [f"{i}/{n}" for i, p in enumerate(plain_net.params)
+                     for n in sorted(p)]
+            q = flips.new_tensor([0.1, 0.5, 0.9])
+            rec[mode] = dict(
+                **mesh_parity(losses, net, *plain["adam"][:2]),
+                outside_by_leaf={n: int(o.sum())
+                                 for n, o in zip(names, out) if o.any()},
+                # rows the gate sends elsewhere than the plain steps' gate
+                # does, before each step
+                routed_apart=[int((a != b).sum()) for a, b in
+                              zip(routes, plain["adam"][3])],
+                # the elements outside: the 10th, 50th and 90th
+                # percentiles of their first-step gradient gaps and |g|
+                flip_grad_rel_err=(flips.quantile(q).tolist()
+                                   if flips.numel() else []),
+                flip_grad_abs=(flip_abs.quantile(q).tolist()
+                               if flips.numel() else []),
+                ms_per_step=ms, aux_loss=float(net.states[1]["aux_loss"]),
+                params_sha256=hashlib.sha256(flat.tobytes()).hexdigest(),
+                dispatch_collectives_per_step=len(moved) / MOE_DP_STEPS,
+                dispatch_bytes_per_step=sum(b for _, b in moved)
+                / MOE_DP_STEPS,
+                moment_bytes_rank=moment_bytes(net))
+            del tr, net
+            twin = net_of("sgd", MOE_DP_SGD_LR)
+            tr = ParallelTrainer(twin, mesh, weight_update_sharding=mode)
+            losses = steps(tr.fit_batch)[0]
+            rec[mode]["sgd"] = mesh_parity(losses, twin, *plain["sgd"][:2])
+            del tr, twin
+    finally:
+        GlobalBatch.token_counts = counts
+        GlobalBatch.token_sum = total
+    return rec
+
+
 def par_rank(rank, world, init, out):
     """One rank of the world-2 group (this script run with
     ``--parallel-rank``): the GPT through ParallelTrainer in the off,
@@ -5980,7 +6221,8 @@ def par_rank(rank, world, init, out):
     checkpoint after its second step, and rank 0 keeps the third step's
     loss and params for the world-1 restore. Writes its record to
     ``<out>/rank<r>.json``, then runs the elastic case in the same
-    process (``par_elastic_rank``: rank 1 ends there, killed)."""
+    process (``par_elastic_rank``: rank 1 ends there, killed). The MoE
+    MLP over the data axis (``par_moe_dp``) runs after the ep mode."""
     from deeplearning4j_tpu_torch.parallel import (
         MeshContext, ParallelTrainer, multihost,
     )
@@ -6055,6 +6297,7 @@ def par_rank(rank, world, init, out):
         rec["pp_p2p"] = par_p2p_ms()
         rec["pp_char_rnn"] = par_pp_char_rnn()
         rec["ep"] = par_ep()
+        rec["moe_dp"] = par_moe_dp()
     finally:
         multihost.shutdown()
     (out / f"rank{rank}.json").write_text(json.dumps(rec))
@@ -6294,7 +6537,8 @@ def train_parallel(smi):
     against the plain steps, K4-K6 on 4 heads and none on the ring;
     pipeline and expert parallelism, ROADMAP A6.2b: the GPT's two
     stages at M = 1 and 4, the char-RNN's two stages under tBPTT, the
-    MoE FFN's experts split over the ranks),
+    MoE FFN's experts split over the ranks; an MoE MLP over the data
+    axis, ROADMAP A6.2c),
     then the elastic case in those processes (ROADMAP A6.3: a kill, a
     resize to world 1, a resume bit for bit a clean restart). Returns
     the path's launch counts: this process's and the elastic
@@ -6312,6 +6556,7 @@ def train_parallel(smi):
         finally:
             multihost.shutdown()
         w2 = par_world2(tmp)
+        LIVE["world2"] = w2
         el = par_elastic(tmp)
         launched = counts()
         # the survivor's launches (its own process): the elastic run's,
@@ -6359,6 +6604,8 @@ def train_parallel(smi):
                      for mode in PP_GPT_MODES},
                   "pp_p2p": r["pp_p2p"], "pp_char_rnn": r["pp_char_rnn"],
                   "ep": r["ep"]} for r in w2["ranks"]}))
+    emit(dict(phase="train_parallel_moe_dp", nvidia_smi=smi,
+              **{f"rank{r['rank']}": r["moe_dp"] for r in w2["ranks"]}))
     gpt_step = {k: L for k in ATTENTION_KERNELS}
     gpt_step.update(lstm_fwd_train_kernel=0, lstm_bwd_kernel=0)
     rnn_step = {k: 0 for k in ATTENTION_KERNELS}
@@ -6522,6 +6769,32 @@ def train_parallel(smi):
               and max(ep["ep_vs_world1"].values()) <= TOL_EP
               and ep["span"] == [4 * r["rank"], 4 * r["rank"] + 4],
               f"rank {r['rank']} ep: {ep}")
+        moe = r["moe_dp"]
+        check(moe["dropped_global_capacity"] >= 1,
+              f"rank {r['rank']} moe_dp: the global capacity drops no "
+              f"token: {moe}")
+        for mode in MOE_DP_MODES:
+            got = moe[mode]
+            check(got["loss_max_rel"] <= TOL_MESH_LOSS
+                  and got["params_outside_gate"] <= MOE_DP_FLIPS
+                  and got["params_max_abs_diff"]
+                  <= 2 * MOE_DP_LR * MOE_DP_STEPS + TOL_PAR_ATOL,
+                  f"rank {r['rank']} moe_dp {mode}: {got['losses']} vs "
+                  f"the plain {got['plain_losses']}, "
+                  f"{got['params_outside_gate']} params outside the gate, "
+                  f"off by up to {got['params_max_abs_diff']}")
+            check(got["sgd"]["loss_max_rel"] <= TOL_MESH_LOSS
+                  and got["sgd"]["params_outside_gate"] == 0,
+                  f"rank {r['rank']} moe_dp {mode} (SGD twin): "
+                  f"{got['sgd']}")
+            check(got["dispatch_collectives_per_step"] == 2,
+                  f"rank {r['rank']} moe_dp {mode}: "
+                  f"{got['dispatch_collectives_per_step']} dispatch "
+                  "collectives a step, not an all-gather and a sum")
+    for mode in MOE_DP_MODES:
+        check(r0["moe_dp"][mode]["params_sha256"]
+              == r1["moe_dp"][mode]["params_sha256"],
+              f"moe_dp {mode}: the two ranks' params differ")
     m = el["metrics"]
     check(m["elastic_resizes_total"] == 1
           and m["elastic_elections_total"] == 1
@@ -6549,6 +6822,117 @@ def train_parallel(smi):
           <= TOL_PAR_RTOL * abs(w2["world2_next_loss"]),
           f"the world-1 restore's next step: {w2}")
     return launched
+
+
+def analysis(smi):
+    """The static analysis on the card's configs (ROADMAP A7.3), no step
+    of training: every config the smoke builds validates with no ERROR
+    finding at the card's default budget; the full-width GPT's
+    memory_report against the live nets of earlier phases, exactly (its
+    param bytes and Adam moments against the training phase's net, the
+    zero1 moments at dp = 2 against world-2 rank 0's), and its estimate
+    for a [32, 256] step beside the step's measured peak (ResNet-50's at
+    64 too, ungated); kv_pool_plan against the serving engine's pool, and
+    against an engine under a byte budget built here for one request;
+    the budget constants against the card."""
+    from deeplearning4j_tpu_torch.analysis import memory as mem
+    from deeplearning4j_tpu_torch.analysis.findings import Severity
+    props = torch.cuda.get_device_properties(0)
+    gpt = gpt_decoder(**SLICE)
+    confs = {
+        "gpt": (gpt, TRAIN_BATCH, None),
+        "char_rnn": (char_rnn_lstm(**LSTM_SLICE), LSTM_TRAIN_BATCH[0], None),
+        "lenet": (lenet_mnist(), LENET_BATCH, None),
+        "vgg16": (vgg16_cifar10(), VGG_BATCH, None),
+        "resnet50": (resnet50(), RESNET_BATCH, None),
+        "keras_twin": (LIVE["keras_conf"], LSTM_BATCH[0], None),
+        "moe_mlp": (moe_dp_conf(), MOE_DP_BATCH, {"dp": PAR_WORLD}),
+    }
+    findings, errors, validate_ms = {}, {}, {}
+    for name, (conf, batch, mesh) in confs.items():
+        t0 = time.perf_counter()
+        got = conf.validate(mesh=mesh, batch_size=batch)
+        validate_ms[name] = (time.perf_counter() - t0) * 1e3
+        findings[name] = [f"{f.rule} {f.severity} {f.location}" for f in got]
+        errors[name] = [str(f) for f in got if f.severity == Severity.ERROR]
+    live = LIVE["gpt_train"]
+    rep = gpt.memory_report(batch_size=TRAIN_BATCH)
+    zero1 = mem.memory_report(gpt, batch_size=TRAIN_BATCH,
+                              weight_update_sharding="zero1", dp=PAR_WORLD)
+    rank0_zero1 = LIVE["world2"]["ranks"][0]["zero1"]["state_bytes_rank"]
+    resnet = {}
+    for dtype in ("float32", "bfloat16"):
+        r = mem.memory_report(resnet50(dtype=dtype), batch_size=RESNET_BATCH)
+        resnet[dtype] = dict(total_hbm_bytes=r.total_hbm_bytes,
+                             measured_peak_bytes=LIVE[
+                                 f"resnet50_{dtype}_peak_bytes"],
+                             params=r.total_params)
+    engine = LIVE["engine"]
+    plan = mem.kv_pool_plan(gpt, engine["max_rows"])
+    # an engine under a byte budget of 20.5 page groups: 20 usable pages
+    pgb = mem.kv_page_group_bytes(gpt)
+    budget = 20 * pgb + pgb // 2
+    net = ComputationGraph(gpt, device="cuda").init()
+    sched = GenerationScheduler(max_rows=SERVE_ROWS,
+                                cache_budget_bytes=budget)
+    try:
+        answer = sched.submit("gpt", net, threading.Lock(), [1, 2, 3, 4, 5],
+                              4, Deadline(120.0))
+        eng = sched._engines["gpt"]
+        budgeted = dict(page_len=eng.page_len, total_pages=eng.total_pages,
+                        pool_bytes=eng.pool_bytes,
+                        tokens=len(answer["tokens"]))
+    finally:
+        sched.stop()
+    del net
+    plan_b = mem.kv_pool_plan(gpt, SERVE_ROWS, budget_bytes=budget)
+    rec = dict(
+        phase="analysis", nvidia_smi=smi, findings=findings,
+        validate_ms=validate_ms,
+        device_total_memory=props.total_memory,
+        default_hbm_bytes=mem.DEFAULT_HBM_BYTES,
+        device_l2_bytes=props.L2_cache_size, l2_bytes=mem.L2_BYTES,
+        gpt=dict(total_params=rep.total_params,
+                 param_bytes=rep.param_bytes,
+                 live_param_bytes=live["param_bytes"],
+                 updater_state_bytes=rep.updater_state_bytes,
+                 live_moment_bytes=live["moment_bytes"],
+                 zero1_updater_state_bytes=zero1.updater_state_bytes,
+                 world2_rank0_zero1_moment_bytes=rank0_zero1,
+                 step=[TRAIN_BATCH, SLICE["seq_len"]],
+                 total_hbm_bytes=rep.total_hbm_bytes,
+                 activation_bytes=rep.activation_bytes,
+                 measured_step_peak_bytes=live["step_peak_bytes"],
+                 vmem_pressure=rep.vmem_pressure()),
+        resnet50=dict(batch=RESNET_BATCH, **resnet),
+        kv_pool=dict(plan=dict(page_len=plan.page_len,
+                               total_pages=plan.total_pages,
+                               total_bytes=plan.total_bytes),
+                     engine=engine, budget_bytes=budget,
+                     plan_budget=dict(page_len=plan_b.page_len,
+                                      total_pages=plan_b.total_pages,
+                                      total_bytes=plan_b.total_bytes),
+                     engine_budget=budgeted))
+    emit(rec)
+    check(not any(errors.values()), f"configs with ERROR findings: {errors}")
+    check(props.total_memory == mem.DEFAULT_HBM_BYTES
+          and props.L2_cache_size == mem.L2_BYTES,
+          f"the card has {props.total_memory} bytes and an L2 of "
+          f"{props.L2_cache_size}; analysis/memory.py assumes "
+          f"{mem.DEFAULT_HBM_BYTES} and {mem.L2_BYTES}")
+    check(rep.total_params == 25_384_448
+          and rep.param_bytes == live["param_bytes"]
+          and rep.updater_state_bytes == live["moment_bytes"]
+          and zero1.updater_state_bytes == rank0_zero1,
+          f"the GPT's memory_report against the live nets: {rec['gpt']}")
+    check(plan.page_len == engine["page_len"]
+          and plan.total_pages == engine["total_pages"]
+          and plan.total_bytes == engine["pool_bytes"]
+          and plan_b.page_len == budgeted["page_len"]
+          and plan_b.total_pages == budgeted["total_pages"]
+          and plan_b.total_bytes == budgeted["pool_bytes"]
+          and plan_b.total_pages < plan.total_pages,
+          f"kv_pool_plan against the engines: {rec['kv_pool']}")
 
 
 def main() -> int:
@@ -6741,7 +7125,11 @@ def main() -> int:
     # over gloo in two processes on this card, sharded checkpoints ---------
     par = timed("train_parallel", train_parallel, smi)
 
-    # ---- 16. summary of every ported kernel -------------------------------
+    # ---- 16. the static analysis: every config validated, the GPT's
+    # memory plan against the live nets and the serving engine's pool -----
+    timed("analysis", analysis, smi)
+
+    # ---- 17. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",

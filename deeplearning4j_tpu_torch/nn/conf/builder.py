@@ -14,6 +14,9 @@ precision policy, rematerialization, tBPTT) are read by
 ``nn/updater.py`` and the containers' ``fit_batch``, which refuse the
 values whose paths are not ported yet.
 
+``conf.validate()`` / ``conf.memory_report()`` (and ``ListBuilder.validate()``
+before ``build()``) run ``analysis/graphcheck`` and ``analysis/memory``.
+
 Serde: ``conf.to_json()`` / ``MultiLayerConfiguration.from_json`` and the
 YAML twins write and read the JAX package's documents (the same
 ``format`` tag, fields and type tags), so a config crosses between the
@@ -179,6 +182,29 @@ class MultiLayerConfiguration:
     def from_json(s: str) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration.from_dict(json.loads(s))
 
+    def validate(self, mesh=None, batch_size: Optional[int] = None,
+                 hbm_bytes: Optional[int] = None,
+                 weight_update_sharding=None, precision=None):
+        """graphcheck over this config (``analysis/graphcheck``): the
+        shape walk, the loss head, the mesh rules (ZeRO legality and the
+        GC015 precision policy too; the config's own
+        ``training.precision`` when ``precision`` is not given) and the
+        memory estimate. Returns the ``Finding``s, empty for a clean
+        config. A metadata walk: no tensor is built."""
+        from deeplearning4j_tpu_torch.analysis.graphcheck import (
+            check_multilayer,
+        )
+        return check_multilayer(
+            self, mesh=mesh, batch_size=batch_size, hbm_bytes=hbm_bytes,
+            weight_update_sharding=weight_update_sharding,
+            precision=precision)
+
+    def memory_report(self, batch_size: int = 32):
+        """Param count and training-memory estimate of this config at
+        ``batch_size`` (``analysis/memory.MemoryReport``)."""
+        from deeplearning4j_tpu_torch.analysis.memory import memory_report
+        return memory_report(self, batch_size=batch_size)
+
     def to_yaml(self) -> str:
         """YAML twin of ``to_json``: the dict goes through JSON first, so
         both documents carry the same data (tuples as lists, keys as
@@ -238,6 +264,26 @@ class ListBuilder:
         training.tbptt_fwd_length = fwd
         training.tbptt_bwd_length = bwd
         return self
+
+    def validate(self, mesh=None, batch_size: Optional[int] = None,
+                 weight_update_sharding=None):
+        """graphcheck without ``build()``: the findings even of a stack
+        ``build()`` raises on (its error becomes a GC005 finding). It
+        builds a deep COPY: ``build()`` writes the current global
+        defaults into the layers, and validating must not freeze them
+        early."""
+        import copy
+        from deeplearning4j_tpu_torch.analysis.findings import (
+            Finding, Severity,
+        )
+        try:
+            conf = copy.deepcopy(self).build()
+        except (ValueError, TypeError) as e:
+            return [Finding("GC005", Severity.ERROR, "<build>", str(e),
+                            "fix the configuration; build() rejects it "
+                            "outright")]
+        return conf.validate(mesh=mesh, batch_size=batch_size,
+                             weight_update_sharding=weight_update_sharding)
 
     def build(self) -> MultiLayerConfiguration:
         training = self._parent._training

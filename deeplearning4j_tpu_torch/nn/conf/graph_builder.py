@@ -8,7 +8,9 @@ input kind differs from what it expects, an input preprocessor goes in
 front of it, as in the JAX package (``add_layer(..., preprocessor=)``
 sets one by hand). ``to_json`` / ``from_json`` and the YAML twins write
 and read the JAX package's documents: the nodes in topological order,
-shapes resolved again on load.
+shapes resolved again on load. ``conf.validate()`` / ``conf.memory_report()``
+(and ``GraphBuilder.validate()`` before ``build()``) run
+``analysis/graphcheck`` and ``analysis/memory``.
 """
 
 from __future__ import annotations
@@ -106,6 +108,27 @@ class ComputationGraphConfiguration:
     @staticmethod
     def from_json(s: str) -> "ComputationGraphConfiguration":
         return ComputationGraphConfiguration.from_dict(json.loads(s))
+
+    def validate(self, mesh=None, batch_size: Optional[int] = None,
+                 hbm_bytes: Optional[int] = None,
+                 weight_update_sharding=None, precision=None):
+        """graphcheck over this DAG (``analysis/graphcheck``): cycles,
+        dangling and dead vertices, the shape walk, the loss heads, the
+        mesh rules (ZeRO legality and the GC015 precision policy too; the
+        config's own ``training.precision`` when ``precision`` is not
+        given) and the memory estimate. Returns the ``Finding``s; never
+        raises on a broken graph, unlike ``_resolve_shapes``."""
+        from deeplearning4j_tpu_torch.analysis.graphcheck import check_graph
+        return check_graph(self, mesh=mesh, batch_size=batch_size,
+                           hbm_bytes=hbm_bytes,
+                           weight_update_sharding=weight_update_sharding,
+                           precision=precision)
+
+    def memory_report(self, batch_size: int = 32):
+        """Param count and training-memory estimate of this graph at
+        ``batch_size`` (``analysis/memory.MemoryReport``)."""
+        from deeplearning4j_tpu_torch.analysis.memory import memory_report
+        return memory_report(self, batch_size=batch_size)
 
     def to_yaml(self) -> str:
         """YAML twin of ``to_json``, normalized through JSON first so both
@@ -226,6 +249,29 @@ class GraphBuilder:
         training.tbptt_fwd_length = fwd
         training.tbptt_bwd_length = bwd
         return self
+
+    def validate(self, mesh=None, batch_size: Optional[int] = None,
+                 weight_update_sharding=None):
+        """graphcheck without ``build()``: a THROWAWAY copy of the config
+        is assembled without the raising shape pass, so cycles and
+        dangling references come back as findings. The copy matters:
+        applying the global defaults to the live nodes would freeze the
+        current ones into the model, and a global setting made after
+        ``validate()`` would be ignored."""
+        import copy
+        nodes = copy.deepcopy(self._nodes)
+        for node in nodes.values():
+            if node.layer is not None:
+                node.layer.apply_global_defaults(self._parent._global)
+        conf = ComputationGraphConfiguration(
+            nodes=nodes,
+            network_inputs=list(self._inputs),
+            network_outputs=list(self._outputs),
+            input_types=dict(self._input_types),
+            training=self._parent._training,
+        )
+        return conf.validate(mesh=mesh, batch_size=batch_size,
+                             weight_update_sharding=weight_update_sharding)
 
     def build(self) -> ComputationGraphConfiguration:
         if not self._inputs:

@@ -266,20 +266,27 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
                 continue
             layer = node.layer
             h = in_acts[0]
+            # whole_T: the T of a whole sequence gathered for this layer
+            # (by its preprocessor, or for a layer that mixes time steps),
+            # whose output goes back to this rank's steps
+            whole_T = None
             if node.preprocessor is not None:
                 if sh:
-                    h, in_mask, _ = _tp.whole_sequence(mesh, h, in_mask)
+                    h, in_mask, whole_T = _tp.whole_sequence(mesh, h,
+                                                             in_mask)
                     sh = shard[name] = False
                 h = node.preprocessor.transform(h, None)
                 in_mask = node.preprocessor.transform_mask(in_mask, None)
             if (stop_before_loss and name in output_set
                     and hasattr(layer, "compute_loss")):
+                if whole_T is not None:
+                    h, in_mask, shard[name] = _tp.own_steps(
+                        mesh, h, in_mask, whole_T)
                 acts[name] = h          # input to the loss head
                 out_masks[name] = in_mask
                 new_states[name] = states[name]
                 continue
             p = self._layer_params(params, name)
-            whole_T = None
             if mesh is not None:
                 p = self._shard_params(name, layer, p)
                 if sh and not _tp.sequence_local(layer):

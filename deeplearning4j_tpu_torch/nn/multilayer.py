@@ -171,22 +171,29 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
         mesh = _tp.step_mesh(self)
         sh = _tp.seq_split(mesh) and h.dim() == 3
         for i, layer in enumerate(self.layers):
+            # whole_T: the T of a whole sequence gathered for this layer
+            # (by its preprocessor, or for a layer that mixes time steps),
+            # whose output goes back to this rank's steps
+            whole_T = None
             if i in self.conf.preprocessors:
                 if sh:
-                    h, cur_mask, _ = _tp.whole_sequence(mesh, h, cur_mask)
+                    h, cur_mask, whole_T = _tp.whole_sequence(mesh, h,
+                                                              cur_mask)
                     sh = False
                 it = in_types[i] if in_types else None
                 h = self.conf.preprocessors[i].transform(h, it)
                 cur_mask = self.conf.preprocessors[i].transform_mask(
                     cur_mask, it)
             if i == last and hasattr(layer, "compute_loss"):
+                if whole_T is not None:
+                    h, cur_mask, sh = _tp.own_steps(mesh, h, cur_mask,
+                                                    whole_T)
                 new_states.append(states[i])
                 break
             layer_train = train and not layer.frozen
             s = states[i]
             p_i = params[i] if mesh is None else _tp.layer_params(
                 self, i, layer, params[i])
-            whole_T = None
             if sh and not _tp.sequence_local(layer):
                 h, cur_mask, whole_T = _tp.whole_sequence(mesh, h, cur_mask)
             seq_kw = _tp.seq_kwargs(layer, sh and whole_T is None)

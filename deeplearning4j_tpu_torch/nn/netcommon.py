@@ -185,7 +185,10 @@ def global_batch_stats(net, sum_over_ranks: Callable) -> Iterator:
     """Within the block a training batch norm of ``net`` normalizes by the
     mean and variance of the global batch: the net's containers hand each
     one ``sum_over_ranks`` (differentiable), through which it sums its
-    rows' per-channel sum, sum of squares and count. The sum is the net's
+    rows' per-channel sum, sum of squares and count. The data-parallel
+    trainer's is a ``parallel.mesh.GlobalBatch``, whose token methods an
+    ``MoELayer`` takes its capacity, positions and balancing loss over
+    (every layer with ``takes_batch_sum`` gets it). The sum is the net's
     own: a net built afresh never inherits it, even while a thread
     abandoned inside this block (an elastic step stuck on a dead peer)
     never leaves it."""

@@ -22,7 +22,8 @@ sequence.py``), alone or with the data axis. ``parallel/pipeline.py``
 trains over a ``pp`` axis (``PipelineTrainer``, ``GraphPipelineTrainer``:
 GPipe stages, one a rank, alone or with the data axis), and
 ``parallel/expert.py`` holds the mixture-of-experts layer, whose experts
-an ``ep`` axis splits.
+an ``ep`` axis splits and which ``ParallelTrainer`` steps over the global
+batch on the data axis.
 """
 
 from deeplearning4j_tpu_torch.nn.updater import PrecisionPolicy  # noqa: F401

@@ -16,6 +16,21 @@ tokens' gradients through the experts reach every rank by an all-reduce
 (``MeshContext.copy_to``), the balancing loss's as it is on each, so
 every rank holds the whole gradient of ``Wg`` and of the tokens, and the
 gradient of its own expert rows.
+
+Over the data axis (``ParallelTrainer`` at more than one replica) the
+JAX step is one program over the global microbatch, so the layer's
+capacity, its tokens' positions in the experts' buffers and its
+balancing loss are the global tokens'. The trainer hands the layer a
+``mesh.GlobalBatch`` (as it hands batch norm its sum over the ranks):
+the capacity counts every rank's tokens, each expert's positions on
+this rank start after the tokens the data ranks before it sent there
+(an all-gather of the per-expert counts, with no gradient), and the
+balancing loss takes its token fractions and mean gates over the whole
+axis (the gate sums through the differentiable sum over the ranks,
+whose backward all-reduces: every rank's loss holds the same term, and
+the trainer's mean over the data axis counts its gradient once). Only
+this rank's tokens go through the experts; the slots the other ranks'
+tokens fill carry zero combine weight here.
 """
 
 from __future__ import annotations
@@ -38,16 +53,23 @@ Tensor = torch.Tensor
 EXPERT_PARAMS = ("W1", "b1", "W2", "b2")
 
 
-def moe_dispatch(gates: Tensor, capacity: int):
+def moe_dispatch(gates: Tensor, capacity: int, batch=None):
     """Top-1 dispatch/combine tensors (Switch-style).
 
     gates: [N, E] softmax scores. Returns (dispatch [N, E, C] one-hot,
-    combine [N, E, C] gate-weighted, aux_loss scalar)."""
+    combine [N, E, C] gate-weighted, aux_loss scalar). ``batch``: a
+    ``mesh.GlobalBatch`` whose data axis splits the global tokens; each
+    expert's positions then start after the tokens the ranks before this
+    one sent it, and the balancing loss is the global tokens'."""
     N, E = gates.shape
     expert_idx = gates.argmax(dim=-1)                             # [N]
     onehot = F.one_hot(expert_idx, E).to(gates.dtype)             # [N, E]
     # position of each token within its expert's buffer
-    pos = (torch.cumsum(onehot, dim=0) - 1.0) * onehot            # [N, E]
+    pos = torch.cumsum(onehot, dim=0) - 1.0                       # [N, E]
+    if batch is not None:
+        before, counts = batch.token_counts(onehot.sum(dim=0))
+        pos = pos + before.to(gates.dtype)
+    pos = pos * onehot
     keep = (pos < capacity).to(gates.dtype) * onehot
     pos_clipped = torch.clamp(pos, max=capacity - 1).to(torch.int64)
     pos_onehot = F.one_hot(pos_clipped, capacity).to(gates.dtype)
@@ -55,8 +77,13 @@ def moe_dispatch(gates: Tensor, capacity: int):
     gate_val = (gates * onehot).sum(dim=-1, keepdim=True)         # [N, 1]
     combine = dispatch * gate_val[..., None]
     # Switch load-balancing loss: E * sum_e (fraction_tokens_e * mean_gate_e)
-    frac = onehot.mean(dim=0)
-    mean_gate = gates.mean(dim=0)
+    if batch is None:
+        frac = onehot.mean(dim=0)
+        mean_gate = gates.mean(dim=0)
+    else:
+        n = batch.n_tokens(N)
+        frac = counts.to(gates.dtype) / n
+        mean_gate = batch.token_sum(gates.sum(dim=0)) / n
     aux = E * (frac * mean_gate).sum()
     return dispatch, combine, aux
 
@@ -81,16 +108,19 @@ def expert_rows(params: Params, mesh) -> Params:
 
 
 def moe_ffn(params: Params, x: Tensor, activation: str = "relu",
-            capacity_factor: float = 1.25, mesh=None):
+            capacity_factor: float = 1.25, mesh=None, batch=None):
     """x: [N, F] tokens. params: Wg [F, E]; W1 [E, F, H]; b1 [E, H];
     W2 [E, H, F]; b2 [E, F]. Returns ([N, F], aux_loss). ``mesh``: a mesh
     with an 'ep' axis whose ranks each hold their rows of the expert
-    weights (:func:`expert_rows`) and the same tokens."""
+    weights (:func:`expert_rows`) and the same tokens. ``batch``: a
+    ``mesh.GlobalBatch`` whose data ranks each hold their part of the
+    global tokens (:func:`moe_dispatch`)."""
     N, Fdim = x.shape
     E = params["Wg"].shape[-1]
-    capacity = max(1, int(capacity_factor * N / E))
+    n = N if batch is None else batch.n_tokens(N)
+    capacity = max(1, int(capacity_factor * n / E))
     gates = torch.softmax(x @ params["Wg"], dim=-1)
-    dispatch, combine, aux = moe_dispatch(gates, capacity)
+    dispatch, combine, aux = moe_dispatch(gates, capacity, batch)
     sharded = mesh is not None and mesh.n_expert > 1
     if sharded:
         # what the experts see of the replicated tokens and gates: each
@@ -119,11 +149,17 @@ class MoELayer(BaseLayerConf):
     rows an 'ep' axis shards (:func:`moe_ffn`). The balancing loss,
     times ``aux_loss_weight``, surfaces in the layer's state as
     ``aux_loss``, which both containers add to the objective inside the
-    gradient."""
+    gradient. In a data-parallel step the containers hand ``apply`` the
+    step's ``mesh.GlobalBatch`` as ``batch_sum``, over whose data axis the
+    capacity, the positions and the balancing loss are taken
+    (:func:`moe_dispatch`)."""
     n_experts: int = 8
     hidden: int = 0           # expert FFN hidden width; default 4*F
     capacity_factor: float = 1.25
     aux_loss_weight: float = 1e-2
+
+    #: the containers hand ``apply`` the net's ``batch_sum``
+    takes_batch_sum = True
 
     def set_n_in(self, in_type: InputType) -> None:
         self.n_in = (in_type.size if in_type.kind == "rnn"
@@ -148,11 +184,12 @@ class MoELayer(BaseLayerConf):
         }
 
     def apply(self, params, x, *, state, train=False,
-              rng: Optional[torch.Generator] = None, mask=None):
+              rng: Optional[torch.Generator] = None, mask=None,
+              batch_sum=None):
         shape = x.shape
         tokens = x.reshape(-1, shape[-1])
         out, aux = moe_ffn(params, tokens, self.activation or "relu",
-                           self.capacity_factor)
+                           self.capacity_factor, batch=batch_sum)
         # the balancing loss surfaces through state for the container
         new_state = dict(state)
         new_state["aux_loss"] = aux * self.aux_loss_weight

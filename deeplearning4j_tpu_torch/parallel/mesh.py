@@ -957,6 +957,43 @@ class MeshContext:
                                 tuple(shape), dtype)
 
 
+class GlobalBatch:
+    """The global batch of a data-parallel step, as the layers that take
+    statistics over it see it (``netcommon.global_batch_stats``). Called,
+    it is the differentiable sum over the data x sp ranks through which a
+    training batch norm takes its per-channel statistics. Its ``token_*``
+    methods are the data axis over which an MoE layer takes its capacity,
+    its tokens' positions and its balancing loss
+    (``parallel/expert.moe_dispatch``): an MoE layer mixes no time steps
+    but is not ``sequence_local``, so on an sp axis it sees the whole
+    sequences of its replica's rows, the sp ranks of a replica hold the
+    same tokens, and the data ranks' runs of tokens follow one another in
+    the global ``[B, T]`` order."""
+
+    def __init__(self, mesh: MeshContext):
+        self.mesh = mesh
+
+    def __call__(self, t: Tensor) -> Tensor:
+        return self.mesh.sum_over_replicas(t)
+
+    def n_tokens(self, n: int) -> int:
+        """The global token count of a step whose data ranks each hold
+        ``n`` (the trainer cuts every microbatch into equal parts)."""
+        return n * self.mesh.n_data
+
+    def token_counts(self, counts: Tensor) -> Tuple[Tensor, Tensor]:
+        """(the sum of ``counts`` over the data ranks before this one,
+        their sum over every data rank): one all-gather, no gradient."""
+        mesh = self.mesh
+        rows = mesh.all_gather(counts.detach().to(torch.float64).reshape(-1),
+                               "data").view(mesh.n_data, -1)
+        return rows[:mesh.data_index].sum(dim=0), rows.sum(dim=0)
+
+    def token_sum(self, t: Tensor) -> Tensor:
+        """``t`` summed over the data axis, differentiably."""
+        return self.mesh.sum_over_ranks(t, "data")
+
+
 # ---------------------------------------------------------------------------
 # the active step's sharded axes (the seam the layers read)
 # ---------------------------------------------------------------------------

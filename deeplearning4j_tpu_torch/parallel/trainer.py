@@ -33,10 +33,14 @@ over the whole sequence (it calls the net's ``_loss_fn``), so the two
 agree where a batch is one window (ROADMAP C).
 
 At world > 1 the step is the JAX package's one SPMD step over the global
-batch in two more ways. Batch norm takes its statistics over the global
+batch in three more ways. Batch norm takes its statistics over the global
 batch (the loss runs under ``netcommon.global_batch_stats`` with the
-mesh's differentiable sum), so its running states come out equal on
-every rank and are not averaged after the step. And each rank draws its
+step's ``mesh.GlobalBatch``, the mesh's differentiable sum), so its
+running states come out equal on every rank and are not averaged after
+the step. An ``MoELayer`` takes its capacity, its tokens' positions in
+the experts' buffers and its balancing loss over the global microbatch
+through the same seam (``parallel/expert.py``), on every mode: the
+replicated one, zero1, zero2, accumulation and an sp axis. And each rank draws its
 dropout masks from a stream of its own, derived from the net's stream,
 its rank and the step (``netcommon.derived_stream``): no two ranks draw
 the same mask for their rows, and the net's own generator, which the
@@ -107,8 +111,8 @@ from deeplearning4j_tpu_torch.optimize.training_stats import (
     TrainingStats, maybe_phase,
 )
 from deeplearning4j_tpu_torch.parallel.mesh import (
-    MeshContext, WeightUpdateSharding, sequence_parallel_scope, take_rows,
-    take_steps,
+    GlobalBatch, MeshContext, WeightUpdateSharding, sequence_parallel_scope,
+    take_rows, take_steps,
 )
 from deeplearning4j_tpu_torch.parallel.tensor import ModelShards
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
@@ -160,21 +164,6 @@ def check_no_pipe_or_expert(mesh: MeshContext, who: str) -> None:
             "(use PipelineTrainer / GraphPipelineTrainer for 'pp')")
 
 
-def check_no_moe_over_replicas(net, mesh: MeshContext) -> None:
-    """Refuse a net with a mixture-of-experts layer over more than one
-    replica: the JAX step is one program over the global batch, so an
-    MoE layer's capacity and balancing loss are taken over every row;
-    a per-rank step would take them over this rank's rows alone."""
-    from deeplearning4j_tpu_torch.parallel.expert import MoELayer
-    if mesh.n_replicas > 1 and any(isinstance(l, MoELayer)
-                                   for l in layers_of(net)):
-        raise ValueError(
-            "a net with an MoELayer does not train data-parallel yet: its "
-            "expert capacity and balancing loss are taken over the global "
-            "batch, and this rank's step sees its own rows only "
-            f"({mesh.n_replicas} replicas; ROADMAP A6.2c)")
-
-
 def check_mesh_device(net, mesh: MeshContext) -> None:
     if net.device.type != mesh.device.type:
         raise ValueError(
@@ -208,7 +197,6 @@ class ParallelTrainer:
             device=device)
         check_mesh_device(net, self.mesh)
         check_no_pipe_or_expert(self.mesh, "ParallelTrainer")
-        check_no_moe_over_replicas(net, self.mesh)
         self.gradient_accumulation = max(1, int(gradient_accumulation))
         self.weight_update_sharding = WeightUpdateSharding.parse(
             weight_update_sharding)
@@ -462,9 +450,9 @@ class ParallelTrainer:
 
     def _settle_states(self, bad, new_states) -> None:
         """The step's layer states, guarded under a sentinel. They need no
-        average over the ranks: the only layer state, batch norm's running
-        statistics, is taken over the global batch, equal on every
-        rank."""
+        average over the ranks: batch norm's running statistics and an MoE
+        layer's balancing loss are taken over the global batch, equal on
+        every rank."""
         self.net.states = self.net._guard_tree(bad, self.net.states,
                                                new_states)
 
@@ -537,7 +525,7 @@ class ParallelTrainer:
         if self._stream is None:
             yield
             return
-        with global_batch_stats(self.net, self.mesh.sum_over_replicas), \
+        with global_batch_stats(self.net, GlobalBatch(self.mesh)), \
                 derived_stream(self.net, self.mesh.replica_index,
                                self._stream):
             yield

@@ -9,11 +9,12 @@ config's JSON both ways. The expert axis runs in one group of two gloo
 processes for the module (``torch_parallel_worker.run_group``): each
 rank holds its half of the stacked expert weights and the same tokens,
 and the output and every gradient equal the unsharded ``moe_ffn``'s
-within 1e-5. There too: ``ParallelTrainer`` refuses an MoE net at two
-data ranks (its capacity and balancing loss would be this rank's rows',
-not the global batch's), ``ParallelWrapper`` and ``DelayedSyncTrainer``
-keep their per-worker semantics, and a mesh refuses an expert axis
-beside another and a pipeline axis beside the model axis.
+within 1e-5. There too: ``ParallelTrainer`` steps an MoE net at two
+data ranks as the single-device step of the global batch does
+(``tests/test_torch_moe_data.py`` holds every mode against the JAX
+package), ``ParallelWrapper`` and ``DelayedSyncTrainer`` keep their
+per-worker semantics, and a mesh refuses an expert axis beside another
+and a pipeline axis beside the model axis.
 """
 
 import jax
@@ -273,11 +274,29 @@ def test_moe_layer_in_network_trains():
 # ---------------------------------------------------------------------------
 
 def test_parallel_trainer_refuses_moe_over_two_data_ranks(group):
-    got = W.result(group, "refusals")
-    err = got["parallel"]
-    assert err[0] == "ValueError" and "MoELayer" in err[1] \
-        and "global batch" in err[1] and "A6.2c" in err[1]
-    assert got["wrapper"] is None and got["delayed"] is None
+    """ParallelTrainer no longer refuses an MoE net at two data ranks: its
+    world-2 step, on each rank, equals the single-device step of the
+    port and of the JAX package on the global batch (the capacity and
+    the balancing loss taken over every row). The wrapper and the
+    delayed trainer train it with their per-worker semantics."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    conf, batch = moe_conf(), ff_batch()
+    net = _port_net(conf)
+    jnet = JNet(conf).init(jax.tree.map(jnp.asarray,
+                                        params_to_numpy(net.params)))
+    loss = float(net.fit_batch(DataSet(*batch)))
+    jloss = float(jnet.fit_batch(JDataSet(*batch)))
+    for rank in (0, 1):
+        got = W.result(group, "refusals", rank)
+        step = got["parallel"]
+        assert abs(step["loss"] - loss) < TOL
+        assert abs(step["loss"] - jloss) < TOL
+        np.testing.assert_allclose(step["params"], net.params_flat(),
+                                   rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(step["params"],
+                                   np.asarray(jnet.params_flat()),
+                                   rtol=2e-4, atol=2e-5)
+        assert got["wrapper"] is None and got["delayed"] is None
 
 
 @pytest.mark.parametrize("key,words", [

@@ -170,6 +170,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "parallel/delayed.py", "parallel/strategy.py",
                    "parallel/checkpoint.py", "parallel/pipeline.py",
                    "parallel/expert.py", "analysis/graphcheck.py",
+                   "analysis/findings.py", "analysis/memory.py",
                    "resilience/manager.py", "resilience/trainer.py",
                    "keras/hdf5.py",
                    "keras/keras_import.py", "nn/transferlearning.py",

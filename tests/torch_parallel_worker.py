@@ -1511,17 +1511,58 @@ def case_moe_sharded(params, x, n_ep=2, activation="relu",
                 grads={k: v.grad.numpy().copy() for k, v in mine.items()})
 
 
+def case_moe_data(conf, params, batches, layout=(2, 1, 1), steps=1,
+                  mode="off", accum=1, graph=False):
+    """A net with an MoELayer through ``ParallelTrainer`` on a mesh of
+    ``layout``, ``steps`` passes over ``batches``: the losses, the params
+    after, the layer's aux-loss state, and what the step's dispatch
+    moved over the data axis (all-gathers, and the differentiable sums
+    forward and back)."""
+    from deeplearning4j_tpu_torch.parallel import MeshContext, ParallelTrainer
+    net = conf_net(conf, graph, params)
+    mesh = mesh_for(layout)
+    gathers, sums = [], []
+    gather, total = MeshContext.all_gather, MeshContext.sum_over_ranks
+
+    def counted_gather(self, row, axis="data"):
+        gathers.append((axis, row.numel() * row.element_size()))
+        return gather(self, row, axis)
+
+    def counted_sum(self, t, axis="data"):
+        sums.append((axis, t.numel() * t.element_size()))
+        return total(self, t, axis)
+    MeshContext.all_gather = counted_gather
+    MeshContext.sum_over_ranks = counted_sum
+    try:
+        tr = ParallelTrainer(net, mesh, weight_update_sharding=mode,
+                             gradient_accumulation=accum)
+        losses = [float(tr.fit_batch(b)) for _ in range(steps)
+                  for b in batches_of(batches)]
+    finally:
+        MeshContext.all_gather = gather
+        MeshContext.sum_over_ranks = total
+    aux = [float(s["aux_loss"]) for s in
+           (net.states.values() if isinstance(net.states, dict)
+            else net.states) if isinstance(s, dict) and "aux_loss" in s]
+    return dict(losses=losses, params=flat(net), aux=aux,
+                coords=mesh.coords, gathers=gathers, sums=sums)
+
+
 def case_moe_refusals(conf, batches):
-    """A net with an MoELayer under each data-parallel trainer at world 2
-    (ParallelTrainer refuses; the wrapper and the delayed trainer keep
-    per-worker semantics), and the expert / pipeline axes' refusals."""
+    """A net with an MoELayer under each data-parallel trainer at world 2:
+    ParallelTrainer's step over the global batch (the losses and the
+    params after one step), the wrapper and the delayed trainer with
+    their per-worker semantics, and the expert / pipeline axes'
+    refusals."""
     from deeplearning4j_tpu_torch.parallel import (
         DelayedSyncTrainer, MeshContext, ParallelTrainer, ParallelWrapper,
     )
     mesh = MeshContext.create(device="cpu")
     b = batches_of(batches)[0]
+    net = conf_net(conf)
+    loss = float(ParallelTrainer(net, mesh).fit_batch(b))
     out = dict(
-        parallel=_err(lambda: ParallelTrainer(conf_net(conf), mesh)),
+        parallel=dict(loss=loss, params=flat(net)),
         wrapper=_err(lambda: ParallelWrapper(conf_net(conf), mesh=mesh,
                                              workers=2).fit_batch(b)),
         delayed=_err(lambda: DelayedSyncTrainer(conf_net(conf),
