@@ -274,7 +274,12 @@ Phases, each printing JSON lines:
    ``train_parallel_moe_dp`` line (ROADMAP A6.2c): an MoE MLP (512 ->
    8 experts of 2048 -> 96, 17.1M params) through ``ParallelTrainer``
    on the data axis, replicated and zero1, 3 steps of 8192 global rows
-   against each rank's plain step of the global batch (the same gates),
+   against each rank's plain step of the global batch (losses within
+   1e-5; the Adam path's params by C31's crossing gate: before each
+   step, the Dense and expert units whose ReLU pre-activation has
+   another sign than the plain run's on tokens both keep, and every
+   W1 / b1 / W2 element outside 2e-4 / 2e-5 in a crossed unit, at most
+   64 in the other leaves, none without a crossing; SGD twins none),
    the tokens the global capacity drops on the first batch (at least
    one) beside those a per-rank capacity would, ms a step against the
    plain step, and the bytes the dispatch's collectives move; their
@@ -301,9 +306,29 @@ Phases, each printing JSON lines:
    the step's measured peak (ResNet-50's at 64 too, ungated);
    ``kv_pool_plan`` equals the serving engine's pool, and an engine's
    under a byte budget; the budget constants equal the card's;
-17. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+17. cost_autotune — the cost model, the watchers and the autotuner
+   (ROADMAP A7.4): the full-width GPT's ``cost_analysis`` at [32, 256]
+   on the card equal, within 0.1%, to 16 times its CPU twin's at
+   [2, 256] (the kernels add their plain versions' FLOPs) and within
+   0.9-1.2 of 6 N tokens + 12 L T d tokens, its analytic MFU at the
+   training phase's measured step; the char-RNN's [32, 200] count equal
+   to its CPU twin's (K2 / K3 counted); ResNet-50 f32 at 64 and its MFU
+   (printed); an autotune of the full-width GPT at world 1 (batch 32,
+   top 2 and the default probed, 2 timed steps each): every
+   shortlisted probe completes, each probe step launches 8 K4, K5 and
+   K6 a microbatch, read by symbol and input type in a trace of its
+   warm-up step (bf16 in a bf16 probe), the winner measures no slower
+   than the default, each probe's predicted and measured seconds and
+   gap printed; the tuned trainer's 2 steps bit for bit a hand-built
+   ``ParallelTrainer(**tuned.trainer_kwargs())``'s, a
+   ``DeviceMemoryWatermark`` over them at least the allocator's peak and
+   its thread gone after ``stop``, ``TunedConfig`` save / load; the
+   ``CompileWatcher`` installed before the build counts exactly the
+   nvcc builds that ran and the CUDA-graph captures the engines and
+   gateways reported over the whole run;
+18. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-18. last line ``{"ok": true, "device": {...}}``.
+19. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -399,6 +424,7 @@ from deeplearning4j_tpu_torch.ops.fused_lstm import (
     lstm_bwd_plain, lstm_fwd_train, lstm_fwd_train_plain,
     lstm_recurrence, lstm_recurrence_plain,
 )
+from deeplearning4j_tpu_torch.profiling.cost import analytic_mfu, peak_flops
 from deeplearning4j_tpu_torch.profiling.metrics import (
     MetricsRegistry, get_registry, set_registry,
 )
@@ -407,6 +433,9 @@ from deeplearning4j_tpu_torch.profiling.tracer import (
 )
 from deeplearning4j_tpu_torch.profiling.watchdog import (
     BUNDLE_FORMAT, StallWatchdog,
+)
+from deeplearning4j_tpu_torch.profiling.watchers import (
+    CompileWatcher, DeviceMemoryWatermark,
 )
 from deeplearning4j_tpu_torch.resilience import faultinject
 from deeplearning4j_tpu_torch.resilience.faultinject import (
@@ -849,7 +878,11 @@ IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
                         "earlystopping/trainer.py",
                         "earlystopping/parallel_trainer.py",
                         "gradientcheck/__init__.py",
-                        "gradientcheck/check.py")
+                        "gradientcheck/check.py",
+                        "profiling/cost.py", "profiling/watchers.py",
+                        "autotune/__init__.py", "autotune/config.py",
+                        "autotune/model.py", "autotune/probe.py",
+                        "autotune/space.py", "autotune/tuner.py")
 
 
 def import_rule() -> dict:
@@ -1668,7 +1701,7 @@ def train_slice():
     peak = torch.cuda.max_memory_allocated()
     LIVE["gpt_train"] = dict(param_bytes=param_bytes(net),
                              moment_bytes=moment_bytes(net),
-                             step_peak_bytes=peak)
+                             step_peak_bytes=peak, step_ms=step_ms)
     # the updater alone, on copies of the params and state
     grads, _, _ = net.compute_gradient_and_score(batches[1])
     params = tree_map(torch.clone, net.params)
@@ -2124,6 +2157,7 @@ def resnet_timed_case(dtype, device="cuda"):
     peak = torch.cuda.max_memory_allocated()
     LIVE[f"resnet50_{dtype}_peak_bytes"] = peak
     step_ms = host_ms(lambda: net.fit_batch(batch), iters=5)
+    LIVE[f"resnet50_{dtype}_step_ms"] = step_ms
     grads, _, _ = net.compute_gradient_and_score(batch)
     params = tree_map(torch.clone, net.params)
     state = {k: v if isinstance(v, int) else tree_map(torch.clone, v)
@@ -5415,19 +5449,14 @@ EP_TOKENS, EP_EXPERTS, EP_HIDDEN, TOL_EP = 8192, 8, 2048, 1e-5
 MOE_DP_BATCH, MOE_DP_STEPS, MOE_DP_CLASSES = 8192, 3, 96
 MOE_DP_MODES = ("off", "zero1")
 MOE_DP_LR, MOE_DP_SGD_LR = 1e-3, 0.05
-#: C23's allowance on this net: its Adam path's params may hold up to
-#: MOE_DP_FLIPS elements (of 17.1M) outside TOL_PAR_* of the plain steps,
-#: each by at most 2 lr a step. On an H100 80GB HBM3 at 700 W, 1,087 move
-#: (1,072 in the experts' W1, about two of its 512-element columns),
-#: while the gate routes every row alike before every step and the first
-#: step's gradients agree within 3e-6 of |g| (the record's
-#: routed_apart, flip_grad_rel_err, flip_grad_abs): the split appears in
-#: the later steps, where a rounding-level difference can put an
-#: expert's ReLU pre-activation on the other side of 0 and change a
-#: rarely reached hidden unit's column gradient by a token's share,
-#: which Adam's scale-free update turns into up to lr. The GPT (GELU)
-#: moves 10 of 25.4M; the SGD twins, linear in g, hold every element
-MOE_DP_FLIPS = 2048
+#: The Adam path's gate names the elements it lets past TOL_PAR_*
+#: (moe_crossing_gate): a rounding-level difference between the mesh
+#: step and the plain one can put a ReLU pre-activation on the other
+#: side of 0 for a token both keep; that unit's gradient then differs by
+#: the token's share, which Adam's scale-free update turns into up to lr
+#: a step. So every W1 / b1 / W2 element outside lies in a crossed
+#: expert unit's column, entry or row, the other leaves hold at most
+#: PAR_MESH_FLIPS (C23), and a run with no crossing holds every element
 
 
 def text_batches(n, B, T, seed):
@@ -6079,6 +6108,91 @@ def moe_drops(net, batch, n_data):
     return dropped(idx), sum(dropped(p) for p in idx.chunk(n_data))
 
 
+def moe_preacts(params, x, n_parts, capacity_factor):
+    """The MoE MLP's ReLU pre-activations at ``params`` (a Dense layer,
+    then an ``MoELayer``) on the global batch ``x``, computed as a step
+    over ``n_parts`` data ranks computes them: each rank's rows through
+    the Dense layer and the gate, the experts' slots at the global
+    positions, one batched product for every slot. Returns (the Dense
+    pre-activations ``[N, D]``, the token in each expert slot ``[E, C]``
+    (-1 where empty), the experts' pre-activations ``[E, C, H]``)."""
+    dense, moe = params[0], params[1]
+    with torch.no_grad():
+        z = torch.cat([xp @ dense["W"] + dense["b"]
+                       for xp in x.chunk(n_parts)])
+        h = torch.relu(z)
+        gates = torch.cat([torch.softmax(hp @ moe["Wg"], dim=-1)
+                           for hp in h.chunk(n_parts)])
+        N, E = gates.shape
+        C = max(1, int(capacity_factor * N / E))
+        idx = gates.argmax(dim=-1)
+        pos = (F.one_hot(idx, E).cumsum(dim=0) - 1).gather(
+            1, idx[:, None])[:, 0]
+        kept = pos < C
+        slot = torch.full((E, C), -1, dtype=torch.int64, device=x.device)
+        slot[idx[kept], pos[kept]] = torch.arange(N, device=x.device)[kept]
+        expert_in = h.new_zeros((E, C, h.shape[-1]))
+        expert_in[idx[kept], pos[kept]] = h[kept]
+        pre = (torch.einsum("ecf,efh->ech", expert_in, moe["W1"])
+               + moe["b1"][:, None, :])
+    return z, slot, pre
+
+
+def moe_crossings(params, plain_params, x, n_parts, capacity_factor):
+    """The units whose ReLU pre-activation has another sign under
+    ``params`` (a mesh step's net over ``n_parts`` data ranks) than under
+    ``plain_params`` (the plain step's), on tokens both keep in the same
+    slot: ``{"dense": bool [D], "expert": bool [E, H]}``."""
+    zm, slot_m, pm = moe_preacts(params, x, n_parts, capacity_factor)
+    zp, slot_p, pp = moe_preacts(plain_params, x, 1, capacity_factor)
+    both = (slot_m == slot_p) & (slot_m >= 0)
+    return dict(dense=((zm > 0) != (zp > 0)).any(dim=0),
+                expert=(((pm > 0) != (pp > 0)) & both[..., None]).any(dim=1))
+
+
+class Crossings:
+    """The units a mesh run crossed (:func:`moe_crossings`) before each of
+    its steps against the plain run's params before the same step (its
+    ``plain`` snapshots, a step each), or-ed over the steps."""
+
+    def __init__(self, plain, n_parts, capacity_factor):
+        self.plain, self.n_parts, self.cf = plain, n_parts, capacity_factor
+        self.units, self.per_step = {}, []
+
+    def before(self, i, params, x) -> None:
+        got = moe_crossings(params, self.plain[i], x, self.n_parts, self.cf)
+        self.per_step.append((int(got["dense"].sum()),
+                              int(got["expert"].sum())))
+        for k, v in got.items():
+            self.units[k] = self.units[k] | v if k in self.units else v
+
+
+def moe_crossing_gate(params, plain_params, crossed) -> dict:
+    """C31's gate on the MoE MLP's params after a mesh run against the
+    plain run's, given the units ``crossed`` before any of its steps
+    (:func:`moe_crossings`, or-ed over the steps): the W1 / b1 / W2
+    elements outside TOL_PAR_* and those of them outside every crossed
+    unit's column, entry or row (``unexplained``), the elements outside
+    in the other leaves, and whether the gate holds."""
+    units = crossed["expert"]
+    allowed = {"W1": units[:, None, :], "b1": units, "W2": units[:, :, None]}
+    expert = unexplained = other = 0
+    for i, (p, q) in enumerate(zip(params, plain_params)):
+        for k in sorted(p):
+            out = (p[k] - q[k]).abs() > TOL_PAR_ATOL + TOL_PAR_RTOL * q[k].abs()
+            if i == 1 and k in allowed:
+                expert += int(out.sum())
+                unexplained += int((out & ~allowed[k]).sum())
+            else:
+                other += int(out.sum())
+    n_dense, n_expert = int(crossed["dense"].sum()), int(units.sum())
+    return dict(crossed_dense_units=n_dense, crossed_expert_units=n_expert,
+                expert_outside=expert, unexplained=unexplained,
+                other_outside=other,
+                holds=(unexplained == 0 and other <= PAR_MESH_FLIPS
+                       and (n_dense + n_expert > 0 or expert + other == 0)))
+
+
 def par_moe_dp() -> dict:
     """One rank's run of the moe_dp mode: the MoE MLP (MOE_DP_*) through
     ParallelTrainer over the world-2 group's data axis, replicated and
@@ -6099,11 +6213,14 @@ def par_moe_dp() -> dict:
     mesh = MeshContext.create()
     batches = moe_dp_batches()
 
-    def steps(fit, net=None):
+    def steps(fit, net=None, before=None):
         """(losses, ms a step, and with ``net`` the gate's pick for each
-        batch's rows before its step)"""
+        batch's rows before its step); ``before(i, b)`` runs before step
+        i, untimed"""
         losses, ms, routes = [], [], []
-        for b in batches:
+        for i, b in enumerate(batches):
+            if before is not None:
+                before(i, b)
             if net is not None:
                 routes.append(moe_route(net, b))
             torch.cuda.synchronize()
@@ -6115,11 +6232,23 @@ def par_moe_dp() -> dict:
     def net_of(updater, lr):
         return MultiLayerNetwork(moe_dp_conf(updater, lr),
                                  device="cuda").init()
-    plain = {}
+    plain, snaps = {}, {}
     for u, lr in (("adam", MOE_DP_LR), ("sgd", MOE_DP_SGD_LR)):
         net = net_of(u, lr)
-        losses, ms, routes = steps(net.fit_batch, net)
+        # the plain params before each step, for the crossings
+        snaps[u] = []
+        losses, ms, routes = steps(
+            net.fit_batch, net, lambda i, b, net=net, u=u: snaps[u].append(
+                tree_map(lambda t: t.detach().clone(), net.params)))
         plain[u] = (losses, net, ms, routes)
+
+    def crossing_run(net, u):
+        """(the step hook that records each step's crossings against the
+        plain ``u`` run's, the ``Crossings`` it fills)"""
+        crossed = Crossings(snaps[u], mesh.n_data,
+                            net.layers[1].capacity_factor)
+        return (lambda i, b: crossed.before(i, net.params, torch.as_tensor(
+            b.features, device=net.device))), crossed
     first = net_of("adam", MOE_DP_LR)
     drops = moe_drops(first, batches[0], mesh.n_data)
     # the first step's gradient at the init params, whole and through the
@@ -6167,7 +6296,8 @@ def par_moe_dp() -> dict:
             net = net_of("adam", MOE_DP_LR)
             tr = ParallelTrainer(net, mesh, weight_update_sharding=mode)
             del moved[:]
-            losses, ms, routes = steps(tr.fit_batch, net)
+            before, crossed = crossing_run(net, "adam")
+            losses, ms, routes = steps(tr.fit_batch, net, before)
             flat = torch.cat([p.reshape(-1) for p in
                               tree_leaves(net.params)]).cpu().numpy()
             plain_net = plain["adam"][1]
@@ -6194,6 +6324,11 @@ def par_moe_dp() -> dict:
                                    if flips.numel() else []),
                 flip_grad_abs=(flip_abs.quantile(q).tolist()
                                if flips.numel() else []),
+                # C31: the units crossed before each step (dense,
+                # expert) and the gate over the elements outside
+                crossings_per_step=crossed.per_step,
+                crossing_gate=moe_crossing_gate(net.params, plain_net.params,
+                                                crossed.units),
                 ms_per_step=ms, aux_loss=float(net.states[1]["aux_loss"]),
                 params_sha256=hashlib.sha256(flat.tobytes()).hexdigest(),
                 dispatch_collectives_per_step=len(moved) / MOE_DP_STEPS,
@@ -6203,8 +6338,11 @@ def par_moe_dp() -> dict:
             del tr, net
             twin = net_of("sgd", MOE_DP_SGD_LR)
             tr = ParallelTrainer(twin, mesh, weight_update_sharding=mode)
-            losses = steps(tr.fit_batch)[0]
+            before, crossed = crossing_run(twin, "sgd")
+            losses = steps(tr.fit_batch, before=before)[0]
             rec[mode]["sgd"] = mesh_parity(losses, twin, *plain["sgd"][:2])
+            rec[mode]["sgd"]["crossing_gate"] = moe_crossing_gate(
+                twin.params, plain["sgd"][1].params, crossed.units)
             del tr, twin
     finally:
         GlobalBatch.token_counts = counts
@@ -6776,15 +6914,18 @@ def train_parallel(smi):
         for mode in MOE_DP_MODES:
             got = moe[mode]
             check(got["loss_max_rel"] <= TOL_MESH_LOSS
-                  and got["params_outside_gate"] <= MOE_DP_FLIPS
+                  and got["crossing_gate"]["holds"]
                   and got["params_max_abs_diff"]
                   <= 2 * MOE_DP_LR * MOE_DP_STEPS + TOL_PAR_ATOL,
                   f"rank {r['rank']} moe_dp {mode}: {got['losses']} vs "
                   f"the plain {got['plain_losses']}, "
-                  f"{got['params_outside_gate']} params outside the gate, "
+                  f"{got['params_outside_gate']} params outside the gate "
+                  f"({got['crossing_gate']}, crossings a step "
+                  f"{got['crossings_per_step']}), "
                   f"off by up to {got['params_max_abs_diff']}")
             check(got["sgd"]["loss_max_rel"] <= TOL_MESH_LOSS
-                  and got["sgd"]["params_outside_gate"] == 0,
+                  and got["sgd"]["params_outside_gate"] == 0
+                  and got["sgd"]["crossing_gate"]["holds"],
                   f"rank {r['rank']} moe_dp {mode} (SGD twin): "
                   f"{got['sgd']}")
             check(got["dispatch_collectives_per_step"] == 2,
@@ -6935,6 +7076,343 @@ def analysis(smi):
           f"kv_pool_plan against the engines: {rec['kv_pool']}")
 
 
+
+# ---------------------------------------------------------------------------
+# the cost model, the watchers and the autotuner (ROADMAP A7.4)
+# ---------------------------------------------------------------------------
+
+#: the GPT's cost batch on the card, and its CPU twin's rows (the count is
+#: linear in the rows: the card's is COST_TWIN_SCALE times the twin's)
+COST_ROWS, COST_TWIN_ROWS = 32, 2
+#: the card's count against the CPU twin's (relative), and the band the
+#: GPT's count must lie in against 6 N tokens + 12 L T d tokens
+TOL_COST_TWIN, COST_BAND = 1e-3, (0.9, 1.2)
+#: the autotune of the full-width GPT at world 1
+AUTOTUNE_TOP_K, AUTOTUNE_PROBE_STEPS = 2, 2
+
+
+class CompileTally:
+    """What the port's compile sites report, counted two ways from
+    ``install``: a ``CompileWatcher`` on a registry of its own, and the
+    compiles the serving engines and gateways count themselves
+    (``GenerationScheduler._count_capture``,
+    ``BatchScheduler._count_compile``), less the eager runners they
+    count for a CPU model (a step runner that is not graphed), which
+    capture nothing; and the kernel sources that had no library when it
+    was installed (the nvcc builds this process runs)."""
+
+    def install(self):
+        from deeplearning4j_tpu_torch.keras.batching import (
+            BatchScheduler, PredictRunner,
+        )
+        from deeplearning4j_tpu_torch.keras.generation import StepRunner
+        self.registry = MetricsRegistry()
+        self.watcher = CompileWatcher(registry=self.registry,
+                                      tracer=Tracer()).install()
+        self.to_build = [n for n in KERNELS if not library_path(n).exists()]
+        self.reported = self.eager = 0
+        self._saved = []
+
+        def tally(cls, name, after):
+            real = getattr(cls, name)
+
+            def counted(obj, *args, **kw):
+                out = real(obj, *args, **kw)
+                after(obj)
+                return out
+            self._saved.append((cls, name, real))
+            setattr(cls, name, counted)
+
+        def reported(_):
+            self.reported += 1
+
+        def eager(runner):
+            self.eager += not runner.graphed
+        tally(GenerationScheduler, "_count_capture", reported)
+        tally(BatchScheduler, "_count_compile", reported)
+        tally(StepRunner, "__init__", eager)
+        tally(PredictRunner, "__init__", eager)
+        return self
+
+    @property
+    def captures(self) -> int:
+        """The captures the engines and gateways reported."""
+        return self.reported - self.eager
+
+    def uninstall(self) -> None:
+        self.watcher.uninstall()
+        for cls, name, real in self._saved:
+            setattr(cls, name, real)
+
+
+COMPILES = CompileTally()
+
+
+def cost_gpt(smi) -> dict:
+    """The full-width GPT's cost on the card at [32, 256] against its CPU
+    twin at [2, 256] and the 6 N tokens + 12 L T d tokens rule, with the
+    analytic MFU at the training phase's measured step."""
+    B, T = COST_ROWS, SLICE["seq_len"]
+    batch = text_batches(1, B, T, SEED + 90)[0]
+    net = par_gpt()
+    t0 = time.perf_counter()
+    card = net.cost_analysis(batch)
+    card_s = time.perf_counter() - t0
+    twin = ComputationGraph(gpt_decoder(**SLICE), device="cpu").init()
+    t0 = time.perf_counter()
+    cpu = twin.cost_analysis(DataSet(batch.features[:COST_TWIN_ROWS],
+                                     batch.labels[:COST_TWIN_ROWS]))
+    cpu_s = time.perf_counter() - t0
+    N, L, d = net.num_params(), SLICE["n_layers"], SLICE["d_model"]
+    tokens = B * T
+    rule = 6 * N * tokens + 12 * L * T * d * tokens
+    step_ms = LIVE["gpt_train"]["step_ms"]
+    scale = B // COST_TWIN_ROWS
+    rec = dict(card=card, cpu_twin=cpu, card_s=card_s, cpu_twin_s=cpu_s,
+               twin_rel=abs(card["flops_per_step"]
+                            - scale * cpu["flops_per_step"])
+               / (scale * cpu["flops_per_step"]),
+               rule_flops=rule, vs_rule=card["flops_per_step"] / rule,
+               params=N, tokens=tokens, train_step_ms=step_ms,
+               analytic_mfu=analytic_mfu(card["flops_per_step"],
+                                         step_ms * 1e-3,
+                                         card["peak_flops_per_chip"]),
+               nvidia_smi=smi)
+    check(card["device_kind"] == torch.cuda.get_device_name(0)
+          and card["peak_flops_per_chip"] == peak_flops(
+              torch.cuda.get_device_name(0)),
+          f"the card's cost names {card['device_kind']} at "
+          f"{card['peak_flops_per_chip']}")
+    check(rec["twin_rel"] <= TOL_COST_TWIN,
+          f"the GPT's FLOPs on the card {card['flops_per_step']} are not "
+          f"{scale} x the CPU twin's {cpu['flops_per_step']}")
+    check(COST_BAND[0] <= rec["vs_rule"] <= COST_BAND[1],
+          f"the GPT's FLOPs {card['flops_per_step']} are {rec['vs_rule']}x "
+          f"6 N tokens + 12 L T d tokens = {rule}")
+    return rec
+
+
+def cost_char_rnn() -> dict:
+    """The char-RNN's [32, 200] cost on the card against its CPU twin's:
+    K2's and K3's formulas counted where the counter sees no kernel."""
+    (B, T) = LSTM_TRAIN_BATCH
+    batch = text_batches(1, B, T, SEED + 91)[0]
+    card = MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE),
+                             device="cuda").init().cost_analysis(batch)
+    cpu = MultiLayerNetwork(char_rnn_lstm(**LSTM_SLICE),
+                            device="cpu").init().cost_analysis(batch)
+    rel = abs(card["flops_per_step"] - cpu["flops_per_step"]) \
+        / cpu["flops_per_step"]
+    check(rel <= TOL_COST_TWIN,
+          f"the char-RNN's FLOPs on the card {card['flops_per_step']} are "
+          f"not the CPU twin's {cpu['flops_per_step']}")
+    return dict(card=card, cpu_twin=cpu, twin_rel=rel)
+
+
+def cost_resnet() -> dict:
+    """ResNet-50 f32 at 64: its cost on the card and the analytic MFU at
+    the CNN phase's measured f32 step (printed, not gated)."""
+    rng = np.random.default_rng(SEED + 92)
+    B, S, C = RESNET_BATCH, RESNET_HW, RESNET_CLASSES
+    batch = DataSet(rng.random((B, S, S, 3), dtype=np.float32),
+                    np.eye(C, dtype=np.float32)[rng.integers(0, C, B)])
+    net = ComputationGraph(resnet50(dtype="float32"), device="cuda").init()
+    c = net.cost_analysis(batch)
+    step_ms = LIVE["resnet50_float32_step_ms"]
+    return dict(card=c, train_step_ms=step_ms,
+                analytic_mfu=analytic_mfu(c["flops_per_step"],
+                                          step_ms * 1e-3,
+                                          c["peak_flops_per_chip"]))
+
+
+def traced_probe(records):
+    """A probe function for ``autotune``: ``measure_candidate`` with each
+    step's K4 / K5 / K6 launches counted and its warm-up step traced,
+    the kernels read by symbol and input type, into ``records`` by the
+    candidate's slug."""
+    from deeplearning4j_tpu_torch.autotune.probe import measure_candidate
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+    names = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
+
+    def probe(net, cand, batch, **kw):
+        rec = records.setdefault(cand.slug(), dict(
+            steps=[], traced=None, accum=cand.gradient_accumulation,
+            precision=cand.precision))
+        fit = ParallelTrainer.fit_batch
+
+        def fit_batch(trainer, b):
+            before = counts()
+            if rec["traced"] is None:
+                out, _, kernels = traced_window(lambda: fit(trainer, b))
+                rec["traced"] = {
+                    n: {dt: sum(c for k, c, _ in kernels if n in k
+                                and ("bfloat16" in k) == (dt == "bfloat16"))
+                        for dt in ("bfloat16", "float32")}
+                    for n in ATTENTION_KERNELS}
+            else:
+                out = fit(trainer, b)
+            after = counts()
+            rec["steps"].append({n: after[n] - before[n] for n in names})
+            return out
+        ParallelTrainer.fit_batch = fit_batch
+        try:
+            return measure_candidate(net, cand, batch, **kw)
+        finally:
+            ParallelTrainer.fit_batch = fit
+    return probe
+
+
+def cost_autotune_gpt(smi) -> dict:
+    """An autotune of the full-width GPT at world 1 (every shortlisted
+    candidate probed, its steps' K4-K6 counted and traced), then the
+    tuned trainer bitwise against a hand-built one for 2 steps (their
+    device memory sampled by a ``DeviceMemoryWatermark``), and the
+    config's save / load."""
+    from deeplearning4j_tpu_torch.autotune import TunedConfig, autotune
+    from deeplearning4j_tpu_torch.autotune import model as cost_model
+    from deeplearning4j_tpu_torch.autotune import tuner as tuner_mod
+    from deeplearning4j_tpu_torch.autotune.space import default_candidate
+    from deeplearning4j_tpu_torch.parallel import MeshContext, ParallelTrainer
+    B, T, L = COST_ROWS, SLICE["seq_len"], SLICE["n_layers"]
+    batch = text_batches(1, B, T, SEED + 93)[0]
+    net = par_gpt()
+    records = {}
+    t0 = time.perf_counter()
+    tuned = autotune(net, batch=batch, global_batch=B, top_k=AUTOTUNE_TOP_K,
+                     probe_steps=AUTOTUNE_PROBE_STEPS,
+                     probe_fn=traced_probe(records))
+    tune_s = time.perf_counter() - t0
+    # the shortlist autotune probes: the analytic top-k and the default
+    survivors, _ = tuner_mod.analytic_search(
+        cost_model.census_from_net(net, batch), 1, B,
+        hardware=cost_model.Hardware.detect(net.device))
+    shortlist = [c.slug() for c, _ in survivors[:AUTOTUNE_TOP_K]]
+    default = default_candidate(1, B).slug()
+    if default not in shortlist:
+        shortlist.append(default)
+    probes = {p.config: p for p in tuned.probes}
+    check(tuned.search["probes"] == len(shortlist)
+          and sorted(probes) == sorted(shortlist),
+          f"autotune probed {sorted(probes)}, not the shortlist "
+          f"{sorted(shortlist)}")
+    for slug, rec in records.items():
+        want = L * rec["accum"]
+        dt = "bfloat16" if rec["precision"] == "bf16" else "float32"
+        check(all(st == dict(flash_attn_fwd=want, flash_attn_dq=want,
+                             flash_attn_dkv=want) for st in rec["steps"])
+              and len(rec["steps"]) == 1 + AUTOTUNE_PROBE_STEPS,
+              f"probe {slug}: K4 / K5 / K6 a step {rec['steps']}, not "
+              f"{L} a microbatch x {rec['accum']}")
+        check(all(v[dt] == want and sum(v.values()) == want
+                  for v in rec["traced"].values()),
+              f"probe {slug}: the traced step holds {rec['traced']}, not "
+              f"{want} {dt} launches of each")
+    check(tuned.measured_step_s <= probes[default].measured_step_s,
+          f"the winner {tuned.candidate.slug()} measured "
+          f"{tuned.measured_step_s} s, slower than the default's "
+          f"{probes[default].measured_step_s}")
+
+    # the tuned trainer against a hand-built one, bit for bit, with the
+    # device memory sampled over the tuned run
+    wm = DeviceMemoryWatermark(registry=MetricsRegistry(), interval_s=0.005)
+
+    def run(build, watch=False):
+        fresh = par_gpt()
+        trainer = build(fresh)
+        if watch:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            wm.start()
+        losses = [trainer.fit_batch(batch) for _ in range(2)]
+        torch.cuda.synchronize()
+        peak = None
+        if watch:
+            wm.sample()
+            peak = torch.cuda.max_memory_allocated()
+            wm.stop()
+        flat = torch.cat([t.reshape(-1) for t in
+                          tree_leaves(fresh.params)]).cpu().numpy()
+        return [float(x) for x in losses], flat, peak
+    before = set(threading.enumerate())
+    tuned_run = run(lambda n: tuned.trainer(n), watch=True)
+    sampler_gone = set(threading.enumerate()) <= before
+    hand_run = run(lambda n: ParallelTrainer(
+        n, MeshContext.create(device="cuda"), **tuned.trainer_kwargs()))
+    bitwise = (tuned_run[0] == hand_run[0]
+               and tuned_run[1].tobytes() == hand_run[1].tobytes())
+    check(bitwise, f"the tuned trainer's losses {tuned_run[0]} (or params) "
+                   f"differ from the hand-built one's {hand_run[0]}")
+    check(wm.watermark_bytes >= tuned_run[2] and sampler_gone,
+          f"the memory watermark {wm.watermark_bytes} is below the step's "
+          f"peak {tuned_run[2]}, or its thread outlived stop()")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "tuned.json")
+        tuned.save(path)
+        round_trip = TunedConfig.load(path) == tuned
+    check(round_trip, "TunedConfig.save then load differs")
+    return dict(
+        winner=tuned.candidate.slug(), tune_s=tune_s, shortlist=shortlist,
+        search=tuned.search, predicted_mfu=tuned.predicted_mfu,
+        probes=[dict(config=p.config, predicted_s=p.predicted_step_s,
+                     measured_s=p.measured_step_s,
+                     gap=p.measured_vs_predicted_gap, warmup_s=p.compile_s,
+                     launches_per_step=records[p.config]["steps"],
+                     traced_warmup=records[p.config]["traced"])
+                for p in tuned.probes],
+        tuned_vs_hand_bitwise=bitwise, losses=tuned_run[0],
+        watermark_bytes=wm.watermark_bytes,
+        max_memory_allocated=tuned_run[2], sampler_gone=sampler_gone,
+        save_load_round_trip=round_trip, nvidia_smi=smi)
+
+
+def cost_autotune(smi) -> dict:
+    """The cost model on the card (the GPT against its CPU twin and the
+    6 N tokens rule, the char-RNN against its twin, ResNet-50), the
+    autotune of the full-width GPT, and the compile watcher's counts
+    since the start of the run against what the engines, the gateways and
+    the builds reported. Returns the phase's K4-K6 launches."""
+    gpt = cost_gpt(smi)
+    rnn = cost_char_rnn()
+    resnet = cost_resnet()
+    reset_counts()
+    tune = cost_autotune_gpt(smi)
+    launched = counts()
+    watched = COMPILES.watcher.counts()
+    COMPILES.uninstall()
+    compiles = dict(watched=watched, reported_captures=COMPILES.captures,
+                    reported_compiles=COMPILES.reported,
+                    eager_runners=COMPILES.eager,
+                    nvcc_builds_expected=len(COMPILES.to_build),
+                    built=COMPILES.to_build,
+                    capture_seconds=COMPILES.registry.counter(
+                        "cuda_graph_capture_seconds_total").value,
+                    nvcc_seconds=COMPILES.registry.counter(
+                        "nvcc_build_seconds_total").value)
+    check(watched["cuda_graph"] == COMPILES.captures
+          and watched["nvcc"] == len(COMPILES.to_build),
+          f"the compile watcher counted {watched}, the engines and gateways "
+          f"reported {COMPILES.captures} captures ({COMPILES.reported} "
+          f"compiles, {COMPILES.eager} of them eager CPU runners) and "
+          f"{len(COMPILES.to_build)} sources were built")
+    check(all(launched[n] > 0 for n in ("flash_attn_fwd", "flash_attn_dq",
+                                        "flash_attn_dkv")),
+          f"the autotune's path launched {launched}")
+    emit(dict(phase="cost_autotune", nvidia_smi=smi, gpt=gpt, char_rnn=rnn,
+              resnet50_f32=resnet, autotune=tune, compiles=compiles,
+              launches=launched))
+    print(f"cost_autotune: {smi}: GPT {gpt['card']['flops_per_step']:.4e} "
+          f"FLOP a [32, 256] step ({gpt['vs_rule']:.3f}x the rule), "
+          f"analytic MFU {gpt['analytic_mfu']:.4f} at the measured "
+          f"{gpt['train_step_ms']:.2f} ms fit_batch; ResNet-50 f32 "
+          f"{resnet['card']['flops_per_step']:.4e} FLOP, MFU "
+          f"{resnet['analytic_mfu']:.4f} at {resnet['train_step_ms']:.2f} "
+          f"ms; autotune winner {tune['winner']}: " + "; ".join(
+              f"{p['config']} predicted {p['predicted_s']:.6f} s, measured "
+              f"{p['measured_s']:.6f} s, gap {p['gap']:.2f}x"
+              for p in tune["probes"]), flush=True)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6948,6 +7426,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    # every compile of the run: the nvcc builds below, the engines' and
+    # gateways' CUDA-graph captures (checked in cost_autotune)
+    COMPILES.install()
     pad_counts()
     t0 = time.perf_counter()
     build_libraries(list(KERNELS))
@@ -7129,7 +7610,12 @@ def main() -> int:
     # memory plan against the live nets and the serving engine's pool -----
     timed("analysis", analysis, smi)
 
-    # ---- 17. summary of every ported kernel -------------------------------
+    # ---- 17. the cost model, the watchers and the autotuner: the GPT's,
+    # the char-RNN's and ResNet-50's counts on the card, an autotune of the
+    # full-width GPT (K4-K6 in each probe, bf16 among them) --------------
+    tuned_launched = timed("cost_autotune", cost_autotune, smi)
+
+    # ---- 18. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -7138,8 +7624,10 @@ def main() -> int:
              # captured launch replays with every batch of its bucket)
              launches=flash_launches + train_path["flash_attn_fwd"]
              + served["flash_attn_fwd"] + tf_gpt["flash_attn_fwd"]
-             + fleet_launched["flash_attn_fwd"] + par["flash_attn_fwd"],
+             + fleet_launched["flash_attn_fwd"] + par["flash_attn_fwd"]
+             + tuned_launched["flash_attn_fwd"],
              launches_train_parallel=par["flash_attn_fwd"],
+             launches_cost_autotune=tuned_launched["flash_attn_fwd"],
              launches_serve_fleet=fleet_launched["flash_attn_fwd"],
              replays_serve_fleet_traced_wave=fleet["traced"]["gpt"],
              launches_serve_fleet_traced_failover=fleet["reprefill_k4"],
@@ -7190,8 +7678,9 @@ def main() -> int:
              source="deeplearning4j_tpu_torch/csrc/flash_attn_dq.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:152",
              launches=train_path["flash_attn_dq"] + tf_gpt["flash_attn_dq"]
-             + par["flash_attn_dq"],
+             + par["flash_attn_dq"] + tuned_launched["flash_attn_dq"],
              launches_train_parallel=par["flash_attn_dq"],
+             launches_cost_autotune=tuned_launched["flash_attn_dq"],
              launches_bf16_train_features=tf_gpt["flash_attn_dq"],
              ms_bf16=g16["ms_dq"], plain_ms_bf16=g16["plain_ms_dq"],
              bound_ms_bf16=g16["bound_ms_dq"],
@@ -7213,8 +7702,10 @@ def main() -> int:
              source="deeplearning4j_tpu_torch/csrc/flash_attn_dkv.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:192",
              launches=train_path["flash_attn_dkv"]
-             + tf_gpt["flash_attn_dkv"] + par["flash_attn_dkv"],
+             + tf_gpt["flash_attn_dkv"] + par["flash_attn_dkv"]
+             + tuned_launched["flash_attn_dkv"],
              launches_train_parallel=par["flash_attn_dkv"],
+             launches_cost_autotune=tuned_launched["flash_attn_dkv"],
              launches_bf16_train_features=tf_gpt["flash_attn_dkv"],
              ms_bf16=g16["ms_dkv"], plain_ms_bf16=g16["plain_ms_dkv"],
              bound_ms_bf16=g16["bound_ms_dkv"],

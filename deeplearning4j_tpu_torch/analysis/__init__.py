@@ -6,10 +6,10 @@ JAX package's ``analysis/``, the config layer of it):
   returns ``Finding``s: shape inference, cycles, dangling and dead
   vertices, duplicate names, loss heads, and the mesh rules (dp
   divisibility, pp balance, MoE expert counts, ZeRO legality, elastic
-  resize plans, the precision policy, the composition of axes); rules
-  GC001-GC015 and GC017. ``python -m
-  deeplearning4j_tpu_torch.analysis.graphcheck model.json`` runs it on a
-  file. GC016 waits for the autotuner (ROADMAP A7.4).
+  resize plans, the precision policy, the composition of axes, and,
+  with ``autotune_devices=``, the autotuner's verdict); rules
+  GC001-GC017. ``python -m deeplearning4j_tpu_torch.analysis.graphcheck
+  model.json`` runs it on a file.
 - ``memory``: ``memory_report`` (param counts, the training footprint
   with the ZeRO terms, the serving KV pool) and ``kv_pool_plan``, the
   sizing rule of the serving engine's page pool.

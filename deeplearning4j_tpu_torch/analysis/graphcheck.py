@@ -49,6 +49,13 @@ Rules (stable ids, the JAX package's; severities in parentheses):
 - GC015 precision-policy  (error)   the policy's compute dtype is not a
                                     float dtype; (warning) half-precision
                                     compute with no fp32 loss scale
+- GC016 config-mistuned   (warning) the validated configuration's
+                                    analytic step time is more than 2x
+                                    the autotuner's best legal config
+                                    for the same model at
+                                    ``autotune_devices=`` ranks (opt-in;
+                                    both sides on the config-only census
+                                    and ``Hardware.reference()``)
 - GC017 composition-legality (error) mesh axes composed in a shape no
                                     trainer runs: pp with sp or tp, or
                                     zero1/zero2 under pp; (warning) an
@@ -56,10 +63,6 @@ Rules (stable ids, the JAX package's; severities in parentheses):
                                     ring-capable attention layer, or a
                                     pp axis deeper than the DAG's
                                     single-tensor cut points
-
-GC016 (config-mistuned: the config's analytic step time against the
-autotuner's best legal config) needs the autotuner, which is not ported
-(ROADMAP A7.4): ``autotune_devices=`` raises ``NotImplementedError``.
 
 Entry points: ``check_multilayer`` / ``check_graph`` / ``validate_config``
 (dispatch), the ``validate()`` hooks of both configuration classes and
@@ -696,11 +699,67 @@ def _check_elastic(findings: List[Finding],
                     "surviving width"))
 
 
-def autotune_not_ported():
-    return NotImplementedError(
-        "autotune_devices= runs GC016, which compares the config's "
-        "analytic step time with the autotuner's best legal config; the "
-        "autotuner is not ported yet (ROADMAP A7.4)")
+#: a config predicted slower than this multiple of the best legal
+#: config for the same model and rank count is GC016's "leaving speed on
+#: the table" territory
+MISTUNE_RATIO = 2.0
+
+
+def _check_mistuned(findings: List[Finding], conf, walk,
+                    axes: Dict[str, int], batch_size: Optional[int],
+                    weight_update_sharding, precision,
+                    autotune_devices) -> None:
+    """GC016: the validated configuration's analytic step time against the
+    autotuner's best legal config for the same model at
+    ``autotune_devices`` ranks. Opt-in (a config alone does not know its
+    fleet). Both sides use the same config-only census
+    (``autotune.model.census_from_conf``) at the fixed reference constants
+    (``Hardware.reference()``), so the verdict does not depend on the box
+    that runs it; the best config is ``autotune.tuner.analytic_best``'s,
+    the tuner's own ranking and legality."""
+    if not autotune_devices or int(autotune_devices) < 2 \
+            or not batch_size:
+        return
+    from deeplearning4j_tpu_torch.autotune import model as _am
+    from deeplearning4j_tpu_torch.autotune.space import Candidate
+    from deeplearning4j_tpu_torch.autotune.tuner import analytic_best
+    census = _am.census_from_conf(conf, walk=walk)
+    if census.param_count <= 0:
+        return  # shape inference failed — GC005 already reported
+    compute, _ = _precision_fields(precision)
+    current = Candidate(
+        dp=_dp_size(axes) or 1,
+        tp=axes.get("model") or axes.get("tp") or 1,
+        pp=axes.get("pp") or 1, sp=axes.get("sp") or 1,
+        precision=compute or "fp32",
+        weight_update_sharding=_wus_mode(weight_update_sharding))
+    hw = _am.Hardware.reference()
+    try:
+        cur = _am.predict(census, current, batch_size, hardware=hw)
+        best = analytic_best(census, int(autotune_devices), batch_size,
+                             hardware=hw)
+    except Exception:  # noqa: BLE001 — an advisory rule must not throw
+        return
+    if best is None:
+        return  # no legal config at that rank count: nothing to beat
+    best_cand, best_cost = best
+    if best_cost["step_s"] <= 0:
+        return
+    ratio = cur["step_s"] / best_cost["step_s"]
+    if ratio > MISTUNE_RATIO:
+        findings.append(Finding(
+            "GC016", Severity.WARNING, current.slug(),
+            f"this configuration's analytic step time is {ratio:.1f}x "
+            f"the best legal config for {autotune_devices} device(s) "
+            f"({best_cand.slug()}: {best_cost['step_s']:.2e}s vs "
+            f"{cur['step_s']:.2e}s per step) — speed is being left on "
+            "the table",
+            f"run deeplearning4j_tpu_torch.autotune.autotune() or adopt "
+            f"{best_cand.slug()} (dp={best_cand.dp}, tp={best_cand.tp}, "
+            f"pp={best_cand.pp}, sp={best_cand.sp}, "
+            f"accum={best_cand.gradient_accumulation}, "
+            f"precision={best_cand.precision}, "
+            f"wus={best_cand.weight_update_sharding})"))
 
 
 def _optimal_max_stage(costs: List[int], n_stages: int) -> int:
@@ -794,11 +853,8 @@ def check_multilayer(conf, *, mesh=None, batch_size: Optional[int] = None,
                      autotune_devices: Optional[int] = None
                      ) -> List[Finding]:
     """Validate a MultiLayerConfiguration: a metadata walk, no tensor is
-    built. ``autotune_devices`` (GC016) raises: the autotuner is not
-    ported yet."""
+    built. ``autotune_devices``: opt into GC016 at that rank count."""
     from deeplearning4j_tpu_torch.analysis.memory import DEFAULT_HBM_BYTES
-    if autotune_devices is not None:
-        raise autotune_not_ported()
     findings: List[Finding] = []
     if not conf.layers:
         findings.append(Finding(
@@ -852,6 +908,13 @@ def check_multilayer(conf, *, mesh=None, batch_size: Optional[int] = None,
                    _mesh_axes(mesh), batch_size, weight_update_sharding,
                    elastic_resize_widths)
     _check_precision(findings, *_conf_precision(conf, precision))
+    if not any(f.severity == Severity.ERROR for f in findings):
+        # advisory only, and the comparison assumes a runnable config —
+        # same gate as the graph path
+        _check_mistuned(findings, conf, walk, _mesh_axes(mesh),
+                        batch_size, weight_update_sharding,
+                        _conf_precision(conf, precision)[0],
+                        autotune_devices)
     _check_hbm(findings, rep, batch_size, hbm_bytes or DEFAULT_HBM_BYTES)
     return findings
 
@@ -981,11 +1044,8 @@ def check_graph(conf, *, mesh=None, batch_size: Optional[int] = None,
     """Validate a ComputationGraphConfiguration — including configs the
     builder itself would refuse to construct (cycles, dangling refs),
     which is why this walk never calls ``_resolve_shapes``.
-    ``autotune_devices`` (GC016) raises: the autotuner is not ported
-    yet."""
+    ``autotune_devices``: opt into GC016 at that rank count."""
     from deeplearning4j_tpu_torch.analysis.memory import DEFAULT_HBM_BYTES
-    if autotune_devices is not None:
-        raise autotune_not_ported()
     findings: List[Finding] = []
     nodes = conf.nodes
     for name, count in getattr(conf, "duplicate_nodes", ()):
@@ -1087,6 +1147,10 @@ def check_graph(conf, *, mesh=None, batch_size: Optional[int] = None,
                    elastic_resize_widths)
     _check_precision(findings, *_conf_precision(conf, precision))
     if not any(f.severity == Severity.ERROR for f in findings):
+        _check_mistuned(findings, conf, walk, _mesh_axes(mesh),
+                        batch_size, weight_update_sharding,
+                        _conf_precision(conf, precision)[0],
+                        autotune_devices)
         _check_hbm(findings, rep, batch_size,
                    hbm_bytes or DEFAULT_HBM_BYTES)
     return findings
@@ -1104,9 +1168,9 @@ def validate_config(conf, *, mesh=None, batch_size: Optional[int] = None,
                     precision=None,
                     autotune_devices: Optional[int] = None
                     ) -> List[Finding]:
-    """Dispatch on configuration type. ``autotune_devices`` (the GC016
-    mistuning comparison) raises until the autotuner is ported
-    (ROADMAP A7.4)."""
+    """Dispatch on configuration type. ``autotune_devices``: opt into the
+    GC016 mistuning comparison against the autotuner's best legal config
+    at that rank count."""
     if hasattr(conf, "nodes"):
         return check_graph(conf, mesh=mesh, batch_size=batch_size,
                            hbm_bytes=hbm_bytes,

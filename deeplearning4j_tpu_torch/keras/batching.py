@@ -57,6 +57,7 @@ import torch
 
 from deeplearning4j_tpu_torch.profiling.metrics import get_registry
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
+from deeplearning4j_tpu_torch.profiling.watchers import report_compile
 from deeplearning4j_tpu_torch.resilience import faultinject
 from deeplearning4j_tpu_torch.resilience.sentinel import host_nonfinite
 from deeplearning4j_tpu_torch.resilience.service import (
@@ -473,8 +474,10 @@ class PredictRunner:
             self._sig = _signature(model.params, model.states)
             self.nbytes = max(0, torch.cuda.memory_reserved(dev) - reserved)
         model._infer_traces += 1
+        seconds = time.perf_counter() - t0
+        report_compile("cuda_graph", seconds, f"predict:{self._x.shape[0]}")
         if self.on_capture is not None:
-            self.on_capture(time.perf_counter() - t0)
+            self.on_capture(seconds)
 
     def __call__(self, model, x) -> np.ndarray:
         if not self.graphed:

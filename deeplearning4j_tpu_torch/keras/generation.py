@@ -112,6 +112,7 @@ from deeplearning4j_tpu_torch.profiling.flightrec import (
 from deeplearning4j_tpu_torch.profiling.metrics import get_registry
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 from deeplearning4j_tpu_torch.profiling.watchdog import beat as watchdog_beat
+from deeplearning4j_tpu_torch.profiling.watchers import report_compile
 from deeplearning4j_tpu_torch.resilience import faultinject
 from deeplearning4j_tpu_torch.resilience.sentinel import host_nonfinite
 from deeplearning4j_tpu_torch.resilience.service import (
@@ -180,6 +181,7 @@ class StepRunner:
     def __init__(self, model, kind: str, bucket: int, page_len: int,
                  pool=None, on_capture=None):
         self.kind = kind
+        self.bucket = bucket
         self.nbytes = 0
         self.on_capture = on_capture
         self.graphed = model.device.type == "cuda"
@@ -218,8 +220,10 @@ class StepRunner:
         t0 = time.perf_counter()
         with CAPTURE_LOCK:
             self._capture_locked(params, states, pool)
+        seconds = time.perf_counter() - t0
+        report_compile("cuda_graph", seconds, f"{self.kind}:{self.bucket}")
         if self.on_capture is not None:
-            self.on_capture(time.perf_counter() - t0)
+            self.on_capture(seconds)
 
     def _capture_locked(self, params, states, pool) -> None:
         self._graph = None           # release a stale graph's pool first

@@ -52,8 +52,9 @@ Where the port differs from the JAX gateway:
   files are ``.npy`` or ``.h5``: an ``.h5`` file holds one array, its
   first dataset under ``/`` in name order, read by the port's own HDF5
   reader (the JAX gateway's ``.h5`` path calls a method its reader lacks
-  and raises, ROADMAP C17). ``tuned=`` raises until the autotuner is
-  ported (A7.4).
+  and raises, ROADMAP C17). ``tuned=`` (an ``autotune.TunedConfig``)
+  sets ``max_batch`` to the tuned bucket set's top, as in the JAX
+  gateway.
 - A ``fit`` answers the last minibatch's ``score_value`` on either
   container (the JAX gateway's ``score()`` takes no data on a
   ``MultiLayerNetwork`` only).
@@ -188,7 +189,8 @@ class KerasServer:
 
     ``device``: where models load and run — ``None`` (the default) is the
     card, and the constructor raises without one; ``"cpu"`` runs the
-    plain versions. ``tuned`` waits for the autotuner (ROADMAP A7.4)."""
+    plain versions. ``tuned``: an ``autotune.TunedConfig`` whose top
+    serving bucket becomes ``max_batch`` unless that is given."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  max_concurrency: int = 4, queue_depth: int = 8,
@@ -208,10 +210,11 @@ class KerasServer:
                  preload: Optional[List[str]] = None,
                  replica_rank: Optional[int] = None,
                  device=None):
-        if tuned is not None:
-            raise NotImplementedError(
-                "KerasServer(tuned=...) needs the autotuner, which is not "
-                "ported yet (ROADMAP A7.4)")
+        # tuned= (an autotune.TunedConfig): the batching scheduler adopts
+        # the tuned serving bucket set, its top bucket the max_batch; an
+        # explicit non-default max_batch wins
+        if tuned is not None and max_batch == 32:
+            max_batch = tuned.serve_max_batch
         self._device = resolve_device(device)
         self._batcher = (BatchScheduler(
             max_batch=max_batch, max_wait_ms=max_wait_ms,

@@ -56,8 +56,8 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.shape import TimeDistributedLayer
 from deeplearning4j_tpu_torch.nn.multilayer import _sum_aux_losses
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    SGD_ALGOS, EvalMixin, NetCommonMixin, ScanFitMixin, batch_sum_kwargs,
-    cast_batch, check_trainable, compute_dtype, flat_params,
+    SGD_ALGOS, CostAnalysisMixin, EvalMixin, NetCommonMixin, ScanFitMixin,
+    batch_sum_kwargs, cast_batch, check_trainable, compute_dtype, flat_params,
     policy_value_and_grad, remat_call, set_flat_params,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
@@ -88,7 +88,8 @@ def _time_slice(d: Optional[Dict[str, Tensor]], lo: int, hi: int,
             for k, v in d.items()}
 
 
-class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin):
+class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin,
+                       CostAnalysisMixin):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
         self.device = resolve_device(device)

@@ -54,8 +54,8 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.core import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    SGD_ALGOS, EvalMixin, NetCommonMixin, ScanFitMixin, batch_sum_kwargs,
-    cast_batch, check_trainable, compute_dtype, flat_params,
+    SGD_ALGOS, CostAnalysisMixin, EvalMixin, NetCommonMixin, ScanFitMixin,
+    batch_sum_kwargs, cast_batch, check_trainable, compute_dtype, flat_params,
     policy_value_and_grad, remat_call, set_flat_params,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
@@ -88,7 +88,8 @@ def _window(a, lo: int, hi: int):
     return None if a is None else a[:, lo:hi]
 
 
-class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin):
+class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin,
+                        CostAnalysisMixin):
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.conf = conf
         self.layers = conf.layers

@@ -430,6 +430,19 @@ class ScanFitMixin:
         return losses
 
 
+class CostAnalysisMixin:
+    """``cost_analysis(batch)`` for both containers: FLOPs and bytes
+    accessed of one training step on ``batch``, counted over a real
+    forward and backward on the net's device (the kernels by their
+    formulas), with the device's peak for an analytic MFU
+    (``profiling/cost.train_step_cost``). Leaves the net as it was; call
+    it once a batch shape, not a step."""
+
+    def cost_analysis(self, batch, peak=None) -> dict:
+        from deeplearning4j_tpu_torch.profiling.cost import train_step_cost
+        return train_step_cost(self, batch, peak=peak)
+
+
 class EvalMixin:
     """The evaluation loops of both containers (ref:
     MultiLayerNetwork.evaluate / evaluateROC:2436 /

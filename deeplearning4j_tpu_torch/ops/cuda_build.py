@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -51,14 +52,18 @@ def build_libraries(names: List[str]) -> Dict[str, Path]:
     """Compile every listed source that has no up-to-date library, one
     ``nvcc`` per source, all started together. The compiler's output
     (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
-    library as ``<library>.log``. Raises if a compile fails."""
+    library as ``<library>.log``, and each build that runs is reported to
+    the compile watchers (``profiling/watchers.report_compile``). Raises
+    if a compile fails."""
     paths = {n: library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
         return paths
+    from deeplearning4j_tpu_torch.profiling.watchers import report_compile
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for n, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
         log = open(f"{p}.log", "w")
@@ -71,6 +76,8 @@ def build_libraries(names: List[str]) -> Dict[str, Path]:
         log.close()
         if rc == 0:
             os.replace(tmp, todo[n])
+            # a build that ran: the compile watchers count it
+            report_compile("nvcc", time.perf_counter() - t0, n)
         else:
             failed.append(f"{n} (rc={rc}): "
                           + Path(f"{todo[n]}.log").read_text()[-4000:])

@@ -47,6 +47,7 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.ops.cuda_build import load_library
+from deeplearning4j_tpu_torch.profiling.cost import count_kernel_flops
 
 NEG_INF = -1e30
 #: the widest head dim whose output row one block holds in registers (the
@@ -169,6 +170,25 @@ def flash_attention_bwd_plain(q, k, v, d_out, out, lse, *,
                                kv_mask=kv_mask)
 
 
+def flash_fwd_flops(B, H, T, D) -> int:
+    """K4's FLOPs: its plain version's two products, ``q k^T`` and
+    ``p v``, over every (query, key) pair (a causal call too), as
+    ``FlopCounterMode`` counts ``flash_attention_plain``."""
+    return 4 * B * H * T * T * D
+
+
+def flash_dq_flops(B, H, T, D) -> int:
+    """K5's FLOPs, as the counter counts ``attention_bwd_plain(...,
+    want_dkv=False)``: the recompute of ``s``, ``dp`` and ``dq``."""
+    return 6 * B * H * T * T * D
+
+
+def flash_dkv_flops(B, H, T, D) -> int:
+    """K6's FLOPs, as the counter counts ``attention_bwd_plain(...,
+    want_dq=False)``: the recompute of ``s``, ``dp``, ``dk`` and ``dv``."""
+    return 8 * B * H * T * T * D
+
+
 def _kernel(name: str, n_ptr: int):
     """The C entry ``dl4j_<name>`` of ``csrc/<name>.cu``: ``n_ptr``
     pointers, then (BH, H, T, D, causal, dtype) and the stream."""
@@ -212,6 +232,7 @@ def _launch(q, k, v, causal, kv_mask):
                                 _ptr(mask), out.data_ptr(), lse.data_ptr()],
           q, causal)
     flash_attention.launches += 1
+    count_kernel_flops("flash_attn_fwd", flash_fwd_flops(B, H, T, D))
     return out, lse
 
 
@@ -257,6 +278,7 @@ def flash_attention_dq(q, k, v, d_out, lse, dvec, *, causal: bool = False,
     _bwd_launch("flash_attn_dq", q, k, v, d_out, lse, dvec, causal, kv_mask,
                 (dq,))
     flash_attention_dq.launches += 1
+    count_kernel_flops("flash_attn_dq", flash_dq_flops(*q.shape))
     return dq
 
 
@@ -274,6 +296,7 @@ def flash_attention_dkv(q, k, v, d_out, lse, dvec, *, causal: bool = False,
     _bwd_launch("flash_attn_dkv", q, k, v, d_out, lse, dvec, causal, kv_mask,
                 (dk, dv))
     flash_attention_dkv.launches += 1
+    count_kernel_flops("flash_attn_dkv", flash_dkv_flops(*q.shape))
     return dk, dv
 
 

@@ -67,6 +67,7 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.ops.cuda_build import load_library
+from deeplearning4j_tpu_torch.profiling.cost import count_kernel_flops
 
 #: the widest H the kernels launch at: K1/K2's streaming body keeps two
 #: buffers of h and one of c (3H floats) and 3 x 4 x 256 partial sums in
@@ -227,6 +228,18 @@ def lstm_bwd_plain(eps, gates, cs, c_prev, rw, pw, dh_T, dc_T):
     return torch.stack(dz).to(dt), dh.to(dt), dc.to(dt)
 
 
+def lstm_recurrence_flops(T, B, H) -> int:
+    """K1's and K2's FLOPs: their plain versions' one product a step,
+    ``h [B, H] @ RW [H, 4H]``, as ``FlopCounterMode`` counts them."""
+    return 8 * T * B * H * H
+
+
+def lstm_bwd_flops(T, B, H) -> int:
+    """K3's FLOPs: its plain version's one product a step,
+    ``dz [B, 4H] @ RW^T [4H, H]``."""
+    return 8 * T * B * H * H
+
+
 # ------------------------------------------------------------------ kernels
 
 def _entry(name: str, n_ptr: int, n_int: int, with_fb: bool):
@@ -263,6 +276,7 @@ def _launch(xz, rw, pw, h0, c0, forget_bias):
     _call("lstm_fwd_infer", _entry("lstm_fwd_infer", 7, 3, True),
           (xz, rw, pw, h0, c0, hs, cT), (T, B, H), (float(forget_bias),), xz)
     lstm_recurrence.launches += 1
+    count_kernel_flops("lstm_fwd_infer", lstm_recurrence_flops(T, B, H))
     return hs, hs[-1], cT
 
 
@@ -303,6 +317,7 @@ def lstm_fwd_train(xz, rw, pw, h0, c0, *, forget_bias: float = 0.0):
           (xz, rw, pw, h0, c0, hs, gates, cs), (T, B, H),
           (float(forget_bias),), xz)
     lstm_fwd_train.launches += 1
+    count_kernel_flops("lstm_fwd_train", lstm_recurrence_flops(T, B, H))
     return hs, gates, cs
 
 
@@ -322,6 +337,7 @@ def lstm_bwd(eps, gates, cs, c0, rw, pw, dh_T, dc_T):
           (eps, gates, cs, c0, rw.t().contiguous(), pw, dh_T, dc_T, dz, dh0,
            dc0), (T, B, H4 // 4), (), eps)
     lstm_bwd.launches += 1
+    count_kernel_flops("lstm_bwd", lstm_bwd_flops(T, B, H4 // 4))
     return dz, dh0, dc0
 
 

@@ -342,12 +342,29 @@ def data_parallel_trainer(net, n_model: int = 1,
     :func:`initialize` first; without a group it is world 1), its mesh
     ``n_model`` ranks wide on the model axis (tensor parallelism) and the
     rest of the world on the data axis. ``device`` defaults to the net's.
-    Every rank then feeds the same global batch to ``fit_batch``."""
+    Every rank then feeds the same global batch to ``fit_batch``.
+    ``tuned`` (an ``autotune.TunedConfig``) supplies ``n_model`` (its tp
+    width) and the knobs left at their defaults; a pipeline plan raises,
+    as this flat mesh cannot carry it."""
     from deeplearning4j_tpu_torch.parallel.mesh import MeshContext
     from deeplearning4j_tpu_torch.parallel.trainer import ParallelTrainer
+    if tuned is not None:
+        if tuned.pp > 1:
+            raise ValueError(
+                f"TunedConfig plans pp={tuned.pp}; data_parallel_trainer "
+                "builds a flat data x model mesh and cannot run a pipeline "
+                "schedule (build a PipelineTrainer from tuned.candidate)")
+        if n_model == 1:
+            n_model = tuned.tp
     ctx = MeshContext.create(n_model=n_model,
+                             n_seq=tuned.sp if tuned is not None else 1,
                              device=device if device is not None
                              else net.device)
+    if tuned is not None and ctx.world != tuned.device_count:
+        logger.warning(
+            "TunedConfig was searched for %d rank(s) but the group has %d: "
+            "the tuned knobs still apply, but autotune() at this width may "
+            "choose differently", tuned.device_count, ctx.world)
     return ParallelTrainer(
         net, ctx, gradient_accumulation=gradient_accumulation,
         weight_update_sharding=weight_update_sharding,

@@ -80,8 +80,9 @@ ranks of a replica draw the same masks. ZeRO composes with an sp axis
 axis), not with a model axis, as in the JAX package.
 
 The port's trainer updates the net's tensors in place, so
-``donate_params`` changes nothing. ``tuned=`` waits for the autotuner
-(ROADMAP A7.4). ``step_program`` / ``shardcheck`` analyse the JAX step's
+``donate_params`` changes nothing. ``tuned=`` (an
+``autotune.TunedConfig``) fills the mesh and the knobs left at their
+defaults, as in the JAX package. ``step_program`` / ``shardcheck`` analyse the JAX step's
 compiled program (``analysis/shardcheck``) and are not ported.
 """
 
@@ -119,12 +120,6 @@ from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 from deeplearning4j_tpu_torch.resilience.sentinel import (
     guarded_in_place, nonfinite_flag,
 )
-
-
-def tuned_not_ported():
-    return NotImplementedError(
-        "tuned= takes a TunedConfig from the autotuner, which is not "
-        "ported yet (ROADMAP A7.4)")
 
 
 def layers_of(net) -> list:
@@ -190,7 +185,18 @@ class ParallelTrainer:
                  precision=None,
                  tuned=None, device=None):
         if tuned is not None:
-            raise tuned_not_ported()
+            # the autotuner's configuration (autotune.TunedConfig): its
+            # mesh when none is given, and each knob left at its default;
+            # explicit arguments win
+            if mesh is None:
+                mesh = tuned.mesh_context(
+                    device=device if device is not None else net.device)
+            if gradient_accumulation == 1:
+                gradient_accumulation = tuned.gradient_accumulation
+            if weight_update_sharding is None:
+                weight_update_sharding = tuned.weight_update_sharding
+            if precision is None:
+                precision = tuned.precision
         net._check_init()
         self.net = net
         self.mesh = mesh if mesh is not None else MeshContext.create(

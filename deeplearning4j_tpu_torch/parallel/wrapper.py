@@ -51,7 +51,7 @@ from deeplearning4j_tpu_torch.parallel.mesh import (
     MeshContext, WeightUpdateSharding, copy_flat_into,
 )
 from deeplearning4j_tpu_torch.parallel.trainer import (
-    check_data_mesh, check_mesh_device, tuned_not_ported,
+    check_data_mesh, check_mesh_device,
 )
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
@@ -92,7 +92,20 @@ class ParallelWrapper:
                  precision=None,
                  tuned=None, device=None):
         if tuned is not None:
-            raise tuned_not_ported()
+            # the autotuner's configuration: its mesh, its dp width as the
+            # workers, its accumulation as the averaging frequency, its
+            # sharding and precision, each where left at its default
+            if mesh is None:
+                mesh = tuned.mesh_context(
+                    device=device if device is not None else net.device)
+            if workers is None:
+                workers = tuned.dp
+            if averaging_frequency == 1:
+                averaging_frequency = tuned.gradient_accumulation
+            if weight_update_sharding is None:
+                weight_update_sharding = tuned.weight_update_sharding
+            if precision is None:
+                precision = tuned.precision
         net._check_init()
         self.net = net
         self.mesh = mesh if mesh is not None else MeshContext.create(

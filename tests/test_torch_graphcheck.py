@@ -9,8 +9,8 @@ to the port through its JSON (``load_config_dict`` for a graph built
 without its builder, ``from_json`` for the rest) and validated by both
 with the same arguments (a JAX iterator becomes the port's, or an object
 with ``attach``): the findings' (rule, severity, location) lists are
-equal. The GC016 fixtures raise in the port: the autotuner is not ported
-(ROADMAP A7.4). ``memory_report`` equals the JAX package's on every
+equal, the GC016 fixtures' too (the autotuner's analytic verdict at
+``autotune_devices=``). ``memory_report`` equals the JAX package's on every
 ``KNOWN_GOOD`` config, each byte field, entry and KV field as an exact
 integer; so do ``kv_pool_plan`` and ``kv_cache_bytes``. The cases of
 ``tests/test_graphcheck.py`` follow on the port's own configs (the JAX
@@ -112,12 +112,6 @@ def triples(findings):
 def assert_same_findings(conf, kw):
     want = triples(jvalidate(conf, **kw))
     port = port_conf(conf)
-    if "autotune_devices" in kw:
-        with pytest.raises(NotImplementedError, match="A7.4"):
-            validate_config(port, **port_kwargs(kw))
-        kw = {k: v for k, v in kw.items() if k != "autotune_devices"}
-        want = [t for t in triples(jvalidate(conf, **kw))
-                if t[0] != "GC016"]
     got = validate_config(port, **port_kwargs(kw))
     assert triples(got) == want
     for f in got:
@@ -130,8 +124,7 @@ def assert_same_findings(conf, kw):
 def test_known_bad_findings_equal_the_jax_packages(name, rule, make):
     conf, kw = make()
     got = assert_same_findings(conf, kw)
-    if rule != "GC016":
-        assert rule in {f.rule for f in got}
+    assert rule in {f.rule for f in got}
 
 
 @pytest.mark.parametrize("name,make", fixtures.KNOWN_GOOD,

@@ -98,6 +98,40 @@ CASES = {
 }
 
 
+def c31_conf(seed):
+    """C31's MoE MLP, the card's ``moe_dp`` net at its widths
+    (``chip_smoke.moe_dp_conf``: Dense(512, relu) -> 8 experts of 2048 ->
+    Output(96), Adam 1e-3), built by the port from ``seed``."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType as PInputType, NeuralNetConfiguration as PConf,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        DenseLayer as PDense, OutputLayer as POutput,
+    )
+    return (PConf.builder().seed(seed)
+            .updater("adam", learning_rate=1e-3).weight_init("xavier")
+            .list()
+            .layer(PDense(n_out=512, activation="relu"))
+            .layer(pexpert.MoELayer(n_experts=8, hidden=2048,
+                                    capacity_factor=1.0,
+                                    aux_loss_weight=1e-2,
+                                    activation="relu"))
+            .layer(POutput(n_out=96, activation="softmax", loss="mcxent"))
+            .set_input_type(PInputType.feed_forward(512)).build())
+
+
+def c31_batches(seed, rows=2048, n=3):
+    r = np.random.default_rng(seed)
+    return [[r.standard_normal((rows, 512), dtype=np.float32),
+             np.eye(96, dtype=np.float32)[r.integers(0, 96, rows)]]
+            for _ in range(n)]
+
+
+#: C31's runs at dp = 2: a seed whose net crosses (one expert unit before
+#: the third step), and one whose does not
+C31_SEEDS = {"c31_cross": 23, "c31_none": 22}
+
+
 def no_moe_conf():
     return (NeuralNetConfiguration.builder().seed(5)
             .updater("sgd", learning_rate=0.1)
@@ -120,6 +154,10 @@ def group(tmp_path_factory):
                       args=dict(conf=no_moe_conf().to_json(),
                                 params=jax_params(no_moe_conf()),
                                 batches=B_MLP, layout=(4, 1, 1))))
+    cases += [dict(name=name, fn="moe_crossings",
+                   args=dict(conf=c31_conf(seed).to_json(),
+                             batches=c31_batches(seed + 1)))
+              for name, seed in C31_SEEDS.items()]
     return W.run_group(cases, tmp, world=4)
 
 
@@ -248,3 +286,32 @@ def test_dispatch_collectives_run_only_for_an_moe_net(group):
         assert {b for _, b in got["gathers"]} == {E * 8}
     none = W.result(group, "no_moe")
     assert none["gathers"] == [] and none["sums"] == []
+
+
+# ---------------------------------------------------------------------------
+# C31: the MoE MLP's Adam path, gated by its crossed units
+# ---------------------------------------------------------------------------
+
+def test_c31_elements_outside_lie_in_crossed_units(group):
+    """A mesh run whose net puts an expert unit's ReLU pre-activation on
+    the other side of 0 (against the plain run, on a token both keep)
+    before a step: every W1 / b1 / W2 element outside rtol 2e-4 / atol
+    2e-5 of the plain run lies in a crossed unit's column, entry or row,
+    the other leaves hold at most C23's 64, and there are some."""
+    for rank in range(4):
+        got = W.result(group, "c31_cross", rank)
+        assert got["crossed_expert_units"] >= 1, got
+        assert got["expert_outside"] > 0, got
+        assert got["unexplained"] == 0, got
+        assert got["other_outside"] <= 64, got
+        assert got["holds"], got
+
+
+def test_c31_no_crossing_leaves_no_element_outside(group):
+    """A mesh run with no crossing holds every element of every leaf."""
+    for rank in range(4):
+        got = W.result(group, "c31_none", rank)
+        assert got["crossed_dense_units"] == 0, got
+        assert got["crossed_expert_units"] == 0, got
+        assert got["expert_outside"] == 0 and got["other_outside"] == 0, got
+        assert got["holds"], got

@@ -475,7 +475,7 @@ def test_create_trainer_builds_each_strategy_and_runs_hooks(group):
     ("unknown", "ValueError", "Unknown training strategy"),
     ("workers", "ValueError", "3 workers"),
     ("zero_workers", "ValueError", "3 workers"),
-    ("tuned", "NotImplementedError", "A7.4"),
+    ("tuned", "ValueError", "TunedConfig plans pp=2"),
     ("n_model", "ValueError", "n_model=3"),
     ("zero1_model", "ValueError", "zero1 weight-update sharding"),
     ("n_data", "ValueError", "world 2"),
@@ -485,6 +485,18 @@ def test_create_trainer_builds_each_strategy_and_runs_hooks(group):
 def test_refusals_at_world_2(group, label, kind, words):
     err = W.result(group, "strategies")["errors"][label]
     assert err is not None and err[0] == kind and words in err[1], err
+
+
+def test_tuned_configs_are_accepted_at_world_2(group):
+    """``tuned=`` (an ``autotune.TunedConfig``) as the JAX trainers take
+    it: the mesh and the knobs left at their defaults come from it,
+    explicit arguments win, the wrapper takes its dp as the workers and
+    its accumulation as the averaging frequency."""
+    got = W.result(group, "strategies")["accepted"]
+    assert got["trainer"] == (2, 2, "zero1", "bfloat16")
+    assert got["explicit"] == ("off", "float32")
+    assert got["wrapper"] == (2, 3)
+    assert got["data_parallel"] == (2, 2)
 
 
 def test_parallel_trainer_phases_sum_to_wall(group):

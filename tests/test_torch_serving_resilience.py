@@ -816,14 +816,23 @@ def test_batch_level_failure_falls_back_to_singletons(iris_zip, tmp_path):
 
 def test_unported_paths_raise_naming_their_roadmap_item(tmp_path,
                                                         iris_zip):
-    """``tuned=`` still waits for the autotuner (A7.4); the two ``.h5``
-    requests that once refused naming A7.1 are served: an ``.h5`` batch
-    file (its first dataset, written by the port's ``Hdf5Writer``)
-    answers as its ``.npy`` twin does, and a Keras ``.h5`` model path
-    imports and answers its golden outputs."""
+    """``tuned=`` takes the autotuner's config, as the JAX gateway does:
+    the batching scheduler's ``max_batch`` becomes its top serving bucket
+    (an explicit one wins); the two ``.h5`` requests that once refused
+    naming A7.1 are served: an ``.h5`` batch file (its first dataset,
+    written by the port's ``Hdf5Writer``) answers as its ``.npy`` twin
+    does, and a Keras ``.h5`` model path imports and answers its golden
+    outputs."""
+    from deeplearning4j_tpu_torch.autotune import TunedConfig
     model, x = iris_zip
-    with pytest.raises(NotImplementedError, match="A7.4"):
-        Server(tuned=object())
+    tuned = TunedConfig(dp=2, global_batch=16, device_count=2,
+                        serve_buckets=(1, 2, 4, 8))
+    for kw, want in (({}, 8), ({"max_batch": 4}, 4)):
+        tuned_srv = Server(tuned=tuned, **kw)
+        try:
+            assert tuned_srv._batcher.max_batch == want
+        finally:
+            tuned_srv.drain(grace_s=5.0)
     h5 = tmp_path / "x.h5"
     with Hdf5Writer(str(h5)) as w:
         w.write_dataset("/features", np.load(x))

@@ -629,6 +629,7 @@ def case_strategies(batches):
         DelayedSyncTrainer, MeshContext, ParallelTrainer, ParallelWrapper,
         multihost,
     )
+    from deeplearning4j_tpu_torch.autotune import TunedConfig
     from deeplearning4j_tpu_torch.parallel.strategy import (
         TrainingHook, create_trainer,
     )
@@ -663,8 +664,9 @@ def case_strategies(batches):
             ("zero_workers", lambda: ParallelWrapper(
                 build("mlp"), workers=3, mesh=mesh,
                 weight_update_sharding="zero1")),
-            ("tuned", lambda: ParallelTrainer(build("mlp"), mesh,
-                                              tuned=object())),
+            ("tuned", lambda: multihost.data_parallel_trainer(
+                build("mlp"), tuned=TunedConfig(dp=1, pp=2,
+                                                device_count=2))),
             ("n_model", lambda: MeshContext.create(n_model=3,
                                                    device="cpu")),
             ("zero1_model", lambda: ParallelTrainer(
@@ -680,8 +682,27 @@ def case_strategies(batches):
             errors[label] = None
         except Exception as e:   # the type and message are the result
             errors[label] = (type(e).__name__, str(e))
+    # tuned= fills the mesh and the knobs left at their defaults; an
+    # explicit argument wins
+    tuned = TunedConfig(dp=2, gradient_accumulation=2, precision="bf16",
+                        weight_update_sharding="zero1", device_count=2)
+    tr = ParallelTrainer(build("mlp"), tuned=tuned, device="cpu")
+    tr2 = ParallelTrainer(build("mlp"), tuned=tuned, precision="fp32",
+                          weight_update_sharding="off", device="cpu")
+    pw = ParallelWrapper(build("mlp"), tuned=TunedConfig(
+        dp=2, gradient_accumulation=3, device_count=2), device="cpu")
+    dpt = multihost.data_parallel_trainer(build("mlp"), tuned=TunedConfig(
+        dp=2, gradient_accumulation=2, device_count=2))
+    accepted = dict(
+        trainer=(tr.mesh.n_data, tr.gradient_accumulation,
+                 tr.weight_update_sharding.mode,
+                 str(tr.precision.compute_dtype)),
+        explicit=(tr2.weight_update_sharding.mode,
+                  str(tr2.precision.compute_dtype)),
+        wrapper=(pw.workers, pw.averaging_frequency),
+        data_parallel=(dpt.mesh.n_data, dpt.gradient_accumulation))
     sl = multihost.local_batch_slice(8)
-    return dict(types=types, calls=calls, errors=errors,
+    return dict(types=types, calls=calls, errors=errors, accepted=accepted,
                 local_slice=(sl.start, sl.stop),
                 process=(multihost.effective_process_count(),
                          multihost.effective_process_index()),
@@ -1546,6 +1567,62 @@ def case_moe_data(conf, params, batches, layout=(2, 1, 1), steps=1,
             else net.states) if isinstance(s, dict) and "aux_loss" in s]
     return dict(losses=losses, params=flat(net), aux=aux,
                 coords=mesh.coords, gathers=gathers, sums=sums)
+
+
+def case_moe_crossings(conf, batches, layout=(2, 1, 1), steps=1):
+    """C31's gate on an MoE MLP (``Dense(relu) -> MoELayer``, the net the
+    port inits from ``conf``'s seed): the plain ``fit_batch`` of each
+    global batch, then ``ParallelTrainer`` on a mesh of ``layout``; before
+    each mesh step the units whose ReLU pre-activation has another sign
+    than before the plain step (``chip_smoke.Crossings``), and after
+    the run ``chip_smoke.moe_crossing_gate``."""
+    import torch
+
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.nn.updater import tree_map
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+    run = batches_of(batches) * steps
+    plain, snaps = conf_net(conf), []
+    for b in run:
+        snaps.append(tree_map(lambda t: t.detach().clone(), plain.params))
+        plain.fit_batch(b)
+    net = conf_net(conf)
+    mesh = mesh_for(layout)
+    tr = ParallelTrainer(net, mesh)
+    crossed = cs.Crossings(snaps, mesh.n_data, net.layers[1].capacity_factor)
+    for i, b in enumerate(run):
+        crossed.before(i, net.params, torch.as_tensor(b.features))
+        tr.fit_batch(b)
+    gate = cs.moe_crossing_gate(net.params, plain.params, crossed.units)
+    return dict(gate, per_step=crossed.per_step,
+                crossed_expert=crossed.units["expert"].nonzero().tolist())
+
+
+def case_autotune(conf, global_batch=16):
+    """The autotuner over this group (every rank searches, probes and
+    picks together; real probes, ``top_k=1``), then its trainer against a
+    hand-built ``ParallelTrainer(**tuned.trainer_kwargs())`` for 3 steps
+    of the probe batch, each on a fresh net: the tuned config's dict, the
+    two runs' loss bytes and params."""
+    from deeplearning4j_tpu_torch.autotune import autotune
+    from deeplearning4j_tpu_torch.autotune.probe import synthesize_batch
+    from deeplearning4j_tpu_torch.parallel import MeshContext, ParallelTrainer
+    tuned = autotune(conf_net(conf), global_batch=global_batch, top_k=1,
+                     probe_steps=1)
+    ds = synthesize_batch(conf_net(conf).conf, global_batch)
+
+    def run(build):
+        net = conf_net(conf)
+        tr = build(net)
+        losses = [tr.fit_batch(ds) for _ in range(3)]
+        return f32_bytes(losses), flat(net)
+    tuned_run = run(lambda n: tuned.trainer(n))
+    hand_run = run(lambda n: ParallelTrainer(
+        n, MeshContext.create(n_data=tuned.dp, n_model=tuned.tp,
+                              n_seq=tuned.sp, device="cpu"),
+        **tuned.trainer_kwargs()))
+    return dict(tuned=tuned.to_dict(), tuned_run=tuned_run,
+                hand_run=hand_run)
 
 
 def case_moe_refusals(conf, batches):
