@@ -326,9 +326,30 @@ Phases, each printing JSON lines:
    ``CompileWatcher`` installed before the build counts exactly the
    nvcc builds that ran and the CUDA-graph captures the engines and
    gateways reported over the whole run;
-18. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+18. input_path — the streaming input pipeline (ROADMAP A7.6a) feeding
+   the full-width GPT's and char-RNN's training: ``ComputationGraph.fit``
+   of ``StreamingInputPipeline(char_lm_sources(...))`` at [32, 256]
+   (4 sources x 2 batches) bit for bit the fit of the same batches in
+   shard-major order (ROADMAP C32) through a ``ListDataSetIterator``,
+   8 K4, K5 and K6 a step read by symbol in a trace; 8 steps through a
+   ``decode_fn`` that sleeps 50 ms a batch, sync and through the
+   pipeline (2 decoders): the pipeline's input stall strictly below the
+   sync run's, losses bitwise; a shuffled run (window 4, seed 7) broken
+   after 3 batches and resumed in a fresh pipeline from
+   ``cursor_state()``, bit for bit the unbroken run; the char-RNN's
+   [32, 200] (2 sources x 1 batch) through the pipeline bit for bit its
+   plain fit, 8 K2 and 8 K3 a ``fit_batch``; the world-2 ranks'
+   ``multihost.input_pipeline`` (read in ``train_parallel``'s
+   processes: each rank stages [16, 256, 96] on the card, its sources
+   ``d::2``, and ``ParallelTrainer.fit`` is bit for bit the same ranks
+   fed the global [32, 256] batches, 8 K4-K6 a rank a step, and within
+   the data-parallel gates of the plain world-1 steps); the native IDX
+   parser loaded, byte-identical to the Python parse on MNIST-shaped
+   files written from the synthetic MNIST, and ``IdxPair`` sources
+   decoding into ``load_mnist``'s arrays on those files;
+19. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-19. last line ``{"ok": true, "device": {...}}``.
+20. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -351,6 +372,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import struct
 import tempfile
 import threading
 import time
@@ -882,7 +904,10 @@ IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
                         "profiling/cost.py", "profiling/watchers.py",
                         "autotune/__init__.py", "autotune/config.py",
                         "autotune/model.py", "autotune/probe.py",
-                        "autotune/space.py", "autotune/tuner.py")
+                        "autotune/space.py", "autotune/tuner.py",
+                        "native_loader.py", "datasets/native_io.py",
+                        "datasets/cloud_io.py", "datasets/records.py",
+                        "datasets/fetchers.py", "datasets/pipeline.py")
 
 
 def import_rule() -> dict:
@@ -6350,6 +6375,73 @@ def par_moe_dp() -> dict:
     return rec
 
 
+#: the world-2 ranks' input path (ROADMAP A7.6a): INPUT_W2_SOURCES
+#: in-memory sources of one [INPUT_W2_ROWS, 256] GPT batch each; rank d
+#: reads the sources d::2
+INPUT_W2_SOURCES, INPUT_W2_ROWS = 4, 16
+
+
+def par_input_path() -> dict:
+    """``multihost.input_pipeline`` on the world-2 group's data axis: each
+    rank stages its sources' [16, 256, 96] batches on the card (marked as
+    its rows) and ``ParallelTrainer.fit`` trains on them; against the
+    same ranks fed the global [32, 256] batches (each the two ranks'
+    sources concatenated in data-index order) through a
+    ``ListDataSetIterator`` (bitwise), and against the plain world-1
+    steps of the global batches (the tp / sp modes' gates)."""
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshContext, ParallelTrainer, multihost,
+    )
+    mesh = MeshContext.create()
+    sources = text_batches(INPUT_W2_SOURCES, INPUT_W2_ROWS,
+                           SLICE["seq_len"], SEED + 23)
+    n = mesh.n_data
+    glob = [DataSet.merge(sources[i:i + n])
+            for i in range(0, len(sources), n)]
+
+    def run(data):
+        net = par_gpt()
+        tr = ParallelTrainer(net, mesh)
+        losses, staged, fit_batch = [], [], tr.fit_batch
+
+        def spy(batch):
+            staged.append(dict(shape=list(batch.features.shape),
+                               device=str(getattr(batch.features, "device",
+                                                  "host")),
+                               data_ranks=batch.data_ranks))
+            loss = fit_batch(batch)
+            losses.append(float(loss))
+            return loss
+        tr.fit_batch = spy
+        tr.fit(data)
+        torch.cuda.synchronize()
+        return losses, net, staged
+
+    reset_counts()
+    t0 = time.perf_counter()
+    losses, net, staged = run(multihost.input_pipeline(sources, mesh))
+    wall = time.perf_counter() - t0
+    launched = counts()
+    ref_losses, ref_net, ref_staged = uncounted(run,
+                                                ListDataSetIterator(glob))
+
+    def plain_steps():
+        net = par_gpt()
+        return [float(net.fit_batch(b)) for b in glob], net
+    plain_losses, plain_net = uncounted(plain_steps)
+    flat = torch.cat([p.reshape(-1) for p in
+                      tree_leaves(net.params)]).cpu().numpy()
+    return dict(
+        data_index=mesh.data_index, staged=staged, ref_staged=ref_staged,
+        sources_read=list(range(INPUT_W2_SOURCES))[mesh.data_index::n],
+        losses=losses, ref_losses=ref_losses,
+        bitwise_global=(losses == ref_losses
+                        and params_equal(net, ref_net)),
+        plain=mesh_parity(losses, net, plain_losses, plain_net),
+        params_sha256=hashlib.sha256(flat.tobytes()).hexdigest(),
+        launches=launched, steps=len(losses), fit_seconds=wall)
+
+
 def par_rank(rank, world, init, out):
     """One rank of the world-2 group (this script run with
     ``--parallel-rank``): the GPT through ParallelTrainer in the off,
@@ -6360,7 +6452,8 @@ def par_rank(rank, world, init, out):
     loss and params for the world-1 restore. Writes its record to
     ``<out>/rank<r>.json``, then runs the elastic case in the same
     process (``par_elastic_rank``: rank 1 ends there, killed). The MoE
-    MLP over the data axis (``par_moe_dp``) runs after the ep mode."""
+    MLP over the data axis (``par_moe_dp``) runs after the ep mode, the
+    input pipeline over the data axis (``par_input_path``) after it."""
     from deeplearning4j_tpu_torch.parallel import (
         MeshContext, ParallelTrainer, multihost,
     )
@@ -6436,6 +6529,7 @@ def par_rank(rank, world, init, out):
         rec["pp_char_rnn"] = par_pp_char_rnn()
         rec["ep"] = par_ep()
         rec["moe_dp"] = par_moe_dp()
+        rec["input_path"] = par_input_path()
     finally:
         multihost.shutdown()
     (out / f"rank{rank}.json").write_text(json.dumps(rec))
@@ -6963,6 +7057,326 @@ def train_parallel(smi):
           <= TOL_PAR_RTOL * abs(w2["world2_next_loss"]),
           f"the world-1 restore's next step: {w2}")
     return launched
+
+
+#: the input_path phase (ROADMAP A7.6a): the GPT's char_lm_sources at
+#: [TRAIN_BATCH, 256], INPUT_SOURCES sources of INPUT_PER_SOURCE batches;
+#: the stall case's decode_fn sleeps INPUT_DECODE_S a batch over
+#: INPUT_STALL_STEPS steps with INPUT_DECODERS decoders; the shuffled run
+#: (INPUT_SHUFFLE) is broken after INPUT_BREAK batches; the char-RNN's
+#: [32, 200] from INPUT_RNN_SOURCES sources of one batch
+INPUT_SOURCES, INPUT_PER_SOURCE = 4, 2
+INPUT_STALL_STEPS, INPUT_DECODE_S, INPUT_DECODERS = 8, 0.05, 2
+INPUT_SHUFFLE, INPUT_BREAK = dict(shuffle_window=4, shuffle_seed=7), 3
+INPUT_RNN_SOURCES = 2
+#: one f32 ulp at 1.0: load_mnist divides the bytes by 255 in f32, the
+#: IDX parsers multiply by 1/255 in f64 and round once
+INPUT_MNIST_ULP = float(np.spacing(np.float32(1.0)))
+
+
+def spied_fit(net, fit):
+    """Run ``fit(net)`` with ``net.fit_batch`` spied on: (each step's
+    loss, each step's kernel launches)."""
+    losses, launches, fit_batch = [], [], net.fit_batch
+
+    def spy(batch):
+        before = counts()
+        loss = fit_batch(batch)
+        after = counts()
+        losses.append(float(loss))
+        launches.append({k: after[k] - before[k] for k in after})
+        return loss
+    net.fit_batch = spy
+    try:
+        fit(net)
+    finally:
+        del net.fit_batch
+    torch.cuda.synchronize()
+    return losses, launches
+
+
+def input_stall_case(order, tmp):
+    """INPUT_STALL_STEPS GPT steps whose batches come from .npz files
+    through a decode_fn that sleeps INPUT_DECODE_S: once decoded on the
+    training thread (a sync iterator), once through the pipeline
+    (INPUT_DECODERS decoders). Each run's input stall (TrainingStats'
+    time blocked in next()), the pipeline's own and its h2d seconds."""
+    from deeplearning4j_tpu_torch.datasets import (
+        ExistingDataSetIterator, StreamingInputPipeline,
+    )
+    paths = []
+    for i, b in enumerate(order[:INPUT_STALL_STEPS]):
+        path = tmp / f"batch{i}.npz"
+        np.savez(path, features=b.features, labels=b.labels)
+        paths.append(str(path))
+
+    def decode(payload, source):
+        time.sleep(INPUT_DECODE_S)
+        with np.load(payload) as z:
+            return DataSet(z["features"], z["labels"])
+
+    def run(it):
+        net = par_gpt()
+        stats, losses = TrainingStats(), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while True:
+            with stats.phase("data_wait"):
+                if not it.has_next():
+                    break
+                ds = it.next()
+            losses.append(float(net.fit_batch(ds)))
+        torch.cuda.synchronize()
+        return losses, net, stats.export()["input_stall_s"], \
+            time.perf_counter() - t0
+
+    # the sync run is the stall's baseline, not the path: its launches
+    # are not counted
+    sync = uncounted(run, ExistingDataSetIterator(decode(p, p)
+                                                  for p in paths))
+    h2d = get_registry().counter("input_h2d_seconds_total")
+    h2d0 = h2d.value
+    pipe = StreamingInputPipeline(paths, decode_fn=decode, num_shards=1,
+                                  shard_index=0,
+                                  decode_workers=INPUT_DECODERS)
+    piped = run(pipe)
+    pipe.close()
+    return dict(steps=len(piped[0]), decode_s=INPUT_DECODE_S,
+                decoders=INPUT_DECODERS,
+                sync_stall_s=sync[2], pipeline_stall_s=piped[2],
+                pipeline_own_stall_s=pipe.stall_s,
+                input_h2d_seconds_total=h2d.value - h2d0,
+                sync_wall_s=sync[3], pipeline_wall_s=piped[3],
+                losses_bitwise=sync[0] == piped[0]
+                and params_equal(sync[1], piped[1]))
+
+
+def input_shuffle_case(sources):
+    """The shuffled stream (INPUT_SHUFFLE) fed to ``fit`` whole, and the
+    same stream broken after INPUT_BREAK batches and resumed in a fresh
+    pipeline from ``cursor_state()``: losses and params bit for bit."""
+    from deeplearning4j_tpu_torch.datasets import StreamingInputPipeline
+
+    def pipe():
+        return StreamingInputPipeline(sources, num_shards=1, shard_index=0,
+                                      **INPUT_SHUFFLE)
+    whole = par_gpt()
+    losses, _ = spied_fit(whole, lambda net: net.fit(pipe()))
+    broken = par_gpt()
+    first = pipe()
+    head = [float(broken.fit_batch(first.next()))
+            for _ in range(INPUT_BREAK)]
+    state = first.cursor_state()
+    first.close()
+    tail, _ = spied_fit(broken, lambda net: net.fit(
+        pipe().restore_cursor(state)))
+    return dict(losses=losses, resumed=head + tail, cursor=state,
+                bitwise=head + tail == losses and params_equal(whole, broken))
+
+
+def input_native_case(tmp):
+    """MNIST-shaped IDX files written from the synthetic MNIST: the native
+    parser against the Python parse, byte for byte; ``IdxPair`` sources
+    through the pipeline against ``load_mnist`` on those files."""
+    from deeplearning4j_tpu_torch.datasets import (
+        IdxPair, StreamingInputPipeline, mnist, native_io,
+    )
+    from deeplearning4j_tpu_torch.datasets.pipeline import (
+        _idx_read_python, read_idx,
+    )
+    imgs, labels = mnist._synthetic_mnist(1000, seed=SEED)
+    u8 = np.round(imgs * 255).astype(np.uint8)
+    files = {"train-images-idx3-ubyte": u8,
+             "train-labels-idx1-ubyte": labels.astype(np.uint8)}
+    for name, arr in files.items():
+        with open(tmp / name, "wb") as f:
+            f.write(struct.pack(">BBBB", 0, 0, 0x08, arr.ndim))
+            f.write(struct.pack(f">{arr.ndim}I", *arr.shape))
+            f.write(arr.tobytes())
+    available = native_io.available()
+    same = {}
+    for name in files:
+        for scale in (1.0, 1.0 / 255.0):
+            fast = native_io.idx_read(tmp / name, scale)
+            slow = _idx_read_python(tmp / name, scale)
+            same[f"{name}@{scale:.6f}"] = (
+                fast is not None and fast.tobytes() == slow.tobytes()
+                and read_idx(tmp / name, scale).tobytes() == slow.tobytes())
+    saved = mnist._SEARCH_PATHS
+    mnist._SEARCH_PATHS = [tmp]
+    try:
+        x, y, synthetic = mnist.load_mnist(True, 1000)
+    finally:
+        mnist._SEARCH_PATHS = saved
+    pair = IdxPair(str(tmp / "train-images-idx3-ubyte"),
+                   str(tmp / "train-labels-idx1-ubyte"))
+    pipe = StreamingInputPipeline([pair], batch_size=250, num_shards=1,
+                                  shard_index=0)
+    got = list(pipe)
+    pipe.close()
+    feats = torch.cat([b.features for b in got]).cpu().numpy()
+    labs = torch.cat([b.labels for b in got]).cpu().numpy()
+    return dict(native_available=available, files=len(files),
+                byte_identical=same, load_mnist_synthetic=synthetic,
+                idx_pair_batches=len(got),
+                idx_pair_on_card=all(b.features.is_cuda for b in got),
+                labels_equal=bool(np.array_equal(labs, y)),
+                features_max_abs_diff=float(np.abs(feats - x).max()),
+                tol_features=INPUT_MNIST_ULP)
+
+
+def input_path(smi):
+    """The streaming input pipeline feeding training on the card (ROADMAP
+    A7.6a): the GPT and the char-RNN through ``StreamingInputPipeline``
+    over ``char_lm_sources`` against their plain fits of the same batches
+    in shard-major order (C32); the input stall, sync against the
+    pipeline; a shuffled resume; the world-2 ranks' run (read from
+    ``train_parallel``'s processes); native IO. Returns the launch counts
+    of the pipeline-fed runs."""
+    from deeplearning4j_tpu_torch.datasets import StreamingInputPipeline
+    from deeplearning4j_tpu_torch.models.gpt import char_lm_sources
+    L, B, T = SLICE["n_layers"], TRAIN_BATCH, SLICE["seq_len"]
+    n_batches = INPUT_SOURCES * INPUT_PER_SOURCE
+    text = synthetic_char_text(n_batches * B * (T + 1) + 1, seed=SEED + 21)
+    sources, cs = char_lm_sources(text, T, B, INPUT_SOURCES,
+                                  charset=CHARSET)
+    plain = char_lm_batches(text, T, B, charset=cs)
+    order = [b for s in range(INPUT_SOURCES)
+             for b in plain[s::INPUT_SOURCES]]
+    check(len(plain) == n_batches and cs == CHARSET,
+          f"{len(plain)} char batches of {B} x {T}")
+    rec = dict(phase="input_path", nvidia_smi=smi, config=SLICE,
+               batch=[B, T, len(CHARSET)], sources=INPUT_SOURCES,
+               batches_per_source=INPUT_PER_SOURCE)
+    launched = {k: 0 for k in KERNELS}
+
+    def add(c):
+        for k, n in c.items():
+            launched[k] += n
+
+    # the GPT: the pipeline against the shard-major ListDataSetIterator
+    ref = par_gpt()
+    ref_losses, _ = uncounted(spied_fit, ref, lambda net: net.fit(
+        ListDataSetIterator(order)))
+    net = par_gpt()
+    reset_counts()
+    t0 = time.perf_counter()
+    (losses, steps), _, traced = traced_window(lambda: spied_fit(
+        net, lambda n: n.fit(StreamingInputPipeline(
+            sources, num_shards=1, shard_index=0))))
+    fit_s = time.perf_counter() - t0
+    gpt_launched = counts()
+    add(gpt_launched)
+    per_step = {k: L for k in ("flash_attn_fwd", "flash_attn_dq",
+                               "flash_attn_dkv")}
+    traced_sym = {k: sum(c for name, c, _ in traced if k in name)
+                  for k in ATTENTION_KERNELS}
+    rec["gpt"] = dict(
+        losses=losses, ref_losses=ref_losses,
+        shard_major_is_plain_order=_bytes_equal(order, plain),
+        bitwise=losses == ref_losses and params_equal(net, ref),
+        launches=gpt_launched, launches_per_step=steps,
+        traced=traced_sym, fit_seconds=fit_s)
+    check(rec["gpt"]["bitwise"], "the GPT fed by the pipeline is not its "
+          f"shard-major fit bit for bit: {losses} vs {ref_losses}")
+    check(len(steps) == n_batches and all(
+        {k: st[k] for k in per_step} == per_step for st in steps),
+          f"GPT launches per step through the pipeline: {steps}")
+    check(traced_sym == {k: L * n_batches for k in ATTENTION_KERNELS},
+          f"the GPT fit's trace holds {traced_sym}, not {L} of each a "
+          f"step over {n_batches} steps")
+    del ref, net
+
+    # the stall: a 50 ms decode, on the training thread and in the pool
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_input_"))
+    try:
+        reset_counts()
+        stall = input_stall_case(order, tmp)
+        add(counts())
+        rec["stall"] = stall
+        check(stall["losses_bitwise"] and stall["steps"] == INPUT_STALL_STEPS,
+              f"the stall case's runs differ: {stall}")
+        check(stall["pipeline_stall_s"] < stall["sync_stall_s"],
+              f"the pipeline's input stall {stall['pipeline_stall_s']} s is "
+              f"not below the sync run's {stall['sync_stall_s']} s")
+        reset_counts()
+        rec["shuffle"] = input_shuffle_case(sources)
+        add(counts())
+        check(rec["shuffle"]["bitwise"], "the resumed shuffled stream is "
+              f"not the unbroken one bit for bit: {rec['shuffle']}")
+        rec["native_io"] = input_native_case(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    nat = rec["native_io"]
+    check(nat["native_available"] and all(nat["byte_identical"].values()),
+          f"native IO: {nat}")
+    check(not nat["load_mnist_synthetic"] and nat["labels_equal"]
+          and nat["idx_pair_on_card"]
+          and nat["features_max_abs_diff"] <= nat["tol_features"],
+          f"IdxPair sources against load_mnist: {nat}")
+
+    # the char-RNN: its tBPTT windows through the pipeline
+    (Bt, Tt), W = LSTM_TRAIN_BATCH, LSTM_SLICE["layers"]
+    n_win = Tt // char_rnn_lstm(**LSTM_SLICE).training.tbptt_fwd_length
+    rtext = synthetic_char_text(INPUT_RNN_SOURCES * Bt * (Tt + 1) + 1,
+                                seed=SEED + 22)
+    rsources, _ = char_lm_sources(rtext, Tt, Bt, INPUT_RNN_SOURCES,
+                                  charset=CHARSET)
+    rplain = char_lm_batches(rtext, Tt, Bt, charset=CHARSET)
+    rorder = [b for s in range(INPUT_RNN_SOURCES)
+              for b in rplain[s::INPUT_RNN_SOURCES]]
+    rref = par_char_rnn()
+    rref_losses, _ = uncounted(spied_fit, rref, lambda n: n.fit(
+        ListDataSetIterator(rorder)))
+    rnet = par_char_rnn()
+    reset_counts()
+    rlosses, rsteps = spied_fit(rnet, lambda n: n.fit(StreamingInputPipeline(
+        rsources, num_shards=1, shard_index=0)))
+    add(counts())
+    rec["char_rnn"] = dict(losses=rlosses, ref_losses=rref_losses,
+                           launches_per_fit_batch=rsteps,
+                           bitwise=rlosses == rref_losses
+                           and params_equal(rnet, rref))
+    want = {"lstm_fwd_train": n_win * W, "lstm_bwd": n_win * W}
+    check(rec["char_rnn"]["bitwise"] and len(rsteps) == INPUT_RNN_SOURCES,
+          f"the char-RNN through the pipeline: {rec['char_rnn']}")
+    check(all({k: st[k] for k in want} == want for st in rsteps),
+          f"char-RNN launches per fit_batch {rsteps} != {want}")
+
+    # world 2: the ranks of train_parallel's group
+    ranks = [r["input_path"] for r in LIVE["world2"]["ranks"]]
+    rec["world2"] = ranks
+    lr = gpt_decoder(**SLICE).training.updater.learning_rate
+    for d, r in enumerate(ranks):
+        check(r["data_index"] == d and r["sources_read"] == [d, d + 2]
+              and all(st["shape"] == [INPUT_W2_ROWS, T, len(CHARSET)]
+                      and st["device"].startswith("cuda")
+                      and st["data_ranks"] == 2 for st in r["staged"])
+              and all(st["shape"][0] == 2 * INPUT_W2_ROWS
+                      for st in r["ref_staged"]),
+              f"world-2 rank {d} staged {r['staged']}")
+        check(r["bitwise_global"], f"world-2 rank {d}: the pipeline-fed "
+              f"trainer is not the global-batch one bit for bit: "
+              f"{r['losses']} vs {r['ref_losses']}")
+        got = r["plain"]
+        check(got["loss_max_rel"] <= TOL_MESH_LOSS
+              and got["params_outside_gate"] <= PAR_MESH_FLIPS
+              and got["params_max_abs_diff"]
+              <= 2 * lr * r["steps"] + TOL_PAR_ATOL,
+              f"world-2 rank {d} against the plain world-1 steps: {got}")
+        check(all(r["launches"][k] == L * r["steps"] for k in per_step),
+              f"world-2 rank {d}: {r['launches']}")
+    check(ranks[0]["params_sha256"] == ranks[1]["params_sha256"],
+          "world 2: the two ranks' params differ after the input path")
+    add(ranks[0]["launches"])     # rank 0's, as train_parallel counts
+    rec["main_path_launches"] = launched
+    emit(rec)
+    return launched
+
+
+def _bytes_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.features.tobytes() == y.features.tobytes() for x, y in zip(a, b))
 
 
 def analysis(smi):
@@ -7615,7 +8029,11 @@ def main() -> int:
     # full-width GPT (K4-K6 in each probe, bf16 among them) --------------
     tuned_launched = timed("cost_autotune", cost_autotune, smi)
 
-    # ---- 18. summary of every ported kernel -------------------------------
+    # ---- 18. the input path: the streaming pipeline feeding the GPT's and
+    # the char-RNN's training (K2-K6), the world-2 ranks' rows, native IO
+    fed = timed("input_path", input_path, smi)
+
+    # ---- 19. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -7625,7 +8043,8 @@ def main() -> int:
              launches=flash_launches + train_path["flash_attn_fwd"]
              + served["flash_attn_fwd"] + tf_gpt["flash_attn_fwd"]
              + fleet_launched["flash_attn_fwd"] + par["flash_attn_fwd"]
-             + tuned_launched["flash_attn_fwd"],
+             + tuned_launched["flash_attn_fwd"] + fed["flash_attn_fwd"],
+             launches_input_path=fed["flash_attn_fwd"],
              launches_train_parallel=par["flash_attn_fwd"],
              launches_cost_autotune=tuned_launched["flash_attn_fwd"],
              launches_serve_fleet=fleet_launched["flash_attn_fwd"],
@@ -7678,7 +8097,9 @@ def main() -> int:
              source="deeplearning4j_tpu_torch/csrc/flash_attn_dq.cu",
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:152",
              launches=train_path["flash_attn_dq"] + tf_gpt["flash_attn_dq"]
-             + par["flash_attn_dq"] + tuned_launched["flash_attn_dq"],
+             + par["flash_attn_dq"] + tuned_launched["flash_attn_dq"]
+             + fed["flash_attn_dq"],
+             launches_input_path=fed["flash_attn_dq"],
              launches_train_parallel=par["flash_attn_dq"],
              launches_cost_autotune=tuned_launched["flash_attn_dq"],
              launches_bf16_train_features=tf_gpt["flash_attn_dq"],
@@ -7703,7 +8124,8 @@ def main() -> int:
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:192",
              launches=train_path["flash_attn_dkv"]
              + tf_gpt["flash_attn_dkv"] + par["flash_attn_dkv"]
-             + tuned_launched["flash_attn_dkv"],
+             + tuned_launched["flash_attn_dkv"] + fed["flash_attn_dkv"],
+             launches_input_path=fed["flash_attn_dkv"],
              launches_train_parallel=par["flash_attn_dkv"],
              launches_cost_autotune=tuned_launched["flash_attn_dkv"],
              launches_bf16_train_features=tf_gpt["flash_attn_dkv"],
@@ -7732,7 +8154,8 @@ def main() -> int:
              launches=lstm_train_path["lstm_fwd_train"]
              + fitted["lstm_fwd_train"] + tf_lstm["lstm_fwd_train"]
              + par["lstm_fwd_train"] + keras["lstm_fwd_train"]
-             + fitted_keras["lstm_fwd_train"],
+             + fitted_keras["lstm_fwd_train"] + fed["lstm_fwd_train"],
+             launches_input_path=fed["lstm_fwd_train"],
              launches_keras_transfer=keras["lstm_fwd_train"],
              launches_serve_server_keras_fit=fitted_keras["lstm_fwd_train"],
              launches_train_parallel=par["lstm_fwd_train"],
@@ -7764,7 +8187,8 @@ def main() -> int:
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:161",
              launches=lstm_train_path["lstm_bwd"] + fitted["lstm_bwd"]
              + tf_lstm["lstm_bwd"] + par["lstm_bwd"] + keras["lstm_bwd"]
-             + fitted_keras["lstm_bwd"],
+             + fitted_keras["lstm_bwd"] + fed["lstm_bwd"],
+             launches_input_path=fed["lstm_bwd"],
              launches_keras_transfer=keras["lstm_bwd"],
              launches_serve_server_keras_fit=fitted_keras["lstm_bwd"],
              launches_train_parallel=par["lstm_bwd"],

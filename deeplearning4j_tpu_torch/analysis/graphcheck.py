@@ -639,10 +639,10 @@ def _check_input(findings: List[Finding], axes: Dict[str, int],
         "loads and copies the whole global batch to its card, and the "
         "step keeps 1/dp of it — host work and a copy per step at the "
         "batch sizes where input is the bottleneck",
-        "feed each rank an iterator that shards its sources and exposes "
-        "attach() or places_sharded; the port's ListDataSetIterator and "
-        "DevicePrefetchIterator hand every rank the global batch, which "
-        "ParallelTrainer then cuts to the rank's rows"))
+        "feed training through datasets/pipeline.StreamingInputPipeline "
+        "(multihost.input_pipeline: each data rank reads a disjoint shard "
+        "of the sources, and each batch lands on its card as the rank's "
+        "rows, which the trainer does not cut again)"))
 
 
 def _check_elastic(findings: List[Finding],

@@ -1,6 +1,5 @@
-"""Data containers and iterators (the JAX package's ``datasets/``; so far
-``DataSet``, ``MultiDataSet``, the iterators of ``iterator.py``, MNIST
-and Iris)."""
+"""Data containers, iterators, record readers, dataset fetchers and the
+streaming input pipeline (the JAX package's ``datasets/``)."""
 
 from deeplearning4j_tpu_torch.datasets.dataset import (  # noqa: F401
     DataSet,
@@ -15,6 +14,11 @@ from deeplearning4j_tpu_torch.datasets.iterator import (  # noqa: F401
     MultipleEpochsIterator,
     SamplingDataSetIterator,
 )
+from deeplearning4j_tpu_torch.datasets.pipeline import (  # noqa: F401
+    IdxPair,
+    StreamingInputPipeline,
+    shard_sources,
+)
 from deeplearning4j_tpu_torch.datasets.iris import (  # noqa: F401
     IrisDataSetIterator,
     load_iris,
@@ -22,4 +26,21 @@ from deeplearning4j_tpu_torch.datasets.iris import (  # noqa: F401
 from deeplearning4j_tpu_torch.datasets.mnist import (  # noqa: F401
     MnistDataSetIterator,
     load_mnist,
+)
+from deeplearning4j_tpu_torch.datasets.fetchers import (  # noqa: F401
+    CifarDataSetIterator,
+    CurvesDataSetIterator,
+    LFWDataSetIterator,
+)
+from deeplearning4j_tpu_torch.datasets.records import (  # noqa: F401
+    CollectionRecordReader,
+    CollectionSequenceRecordReader,
+    CSVRecordReader,
+    CSVSequenceRecordReader,
+    ImageRecordReader,
+    LineRecordReader,
+    RecordReader,
+    RecordReaderDataSetIterator,
+    RecordReaderMultiDataSetIterator,
+    SequenceRecordReaderDataSetIterator,
 )

@@ -1,8 +1,18 @@
 """DataSet containers (the JAX package's ``datasets/dataset.py``).
 
 ND4J's ``DataSet`` (features, labels, feature mask, label mask) and
-``MultiDataSet`` (lists of each). Arrays are host-side numpy; the
-containers move them to the net's device at the step.
+``MultiDataSet`` (lists of each). Arrays are host-side numpy (or tensors
+a device stage put on the card); the containers move them to the net's
+device at the step.
+
+``data_ranks`` says whose rows a batch holds. ``None`` (the default): a
+global batch, which ``ParallelTrainer`` cuts to each data rank's rows.
+``n``: this data rank's rows of a global batch spread over ``n`` data
+ranks, as the streaming input pipeline stages them for a mesh and
+``multihost.global_array`` marks them; the trainer cuts no rows of such
+a batch (only its microbatches, and T on an sp axis). Cutting a batch's
+rows (``batch_by``, ``split_test_and_train``, ``shuffle``) makes batches
+without the mark.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ class DataSet:
     labels: np.ndarray
     features_mask: Optional[np.ndarray] = None
     labels_mask: Optional[np.ndarray] = None
+    data_ranks: Optional[int] = field(default=None, compare=False)
 
     def num_examples(self) -> int:
         return int(self.features.shape[0])
@@ -66,6 +77,12 @@ class DataSet:
              if datasets[0].labels_mask is not None else None))
 
 
+def global_rows(batch) -> int:
+    """The rows of the global batch ``batch`` belongs to: its own, or,
+    marked ``data_ranks = n``, n times its own."""
+    return batch.num_examples() * (batch.data_ranks or 1)
+
+
 @dataclass
 class MultiDataSet:
     """Multiple-input/multiple-output batch for ComputationGraph training
@@ -74,6 +91,7 @@ class MultiDataSet:
     labels: List[np.ndarray] = field(default_factory=list)
     features_masks: Optional[List[Optional[np.ndarray]]] = None
     labels_masks: Optional[List[Optional[np.ndarray]]] = None
+    data_ranks: Optional[int] = field(default=None, compare=False)
 
     def num_examples(self) -> int:
         return int(self.features[0].shape[0])

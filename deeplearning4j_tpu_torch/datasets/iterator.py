@@ -9,8 +9,9 @@ AsyncDataSetIterator.java:33-75), the adapters under datasets/iterator/
 ``DevicePrefetchIterator``, which stages each batch in card memory from
 its producer thread: the batch is cast on the host, copied into pinned
 memory and sent to the card on a side stream, so the copy overlaps the
-previous step; the consumer's stream waits on the copy's event. ``fit()``
-wraps an iterator in ``AsyncDataSetIterator`` as
+previous step; the consumer's stream waits on the copy's event
+(``DeviceStager``, which the streaming input pipeline's device stage
+shares). ``fit()`` wraps an iterator in ``AsyncDataSetIterator`` as
 MultiLayerNetwork.fit does (ref: MultiLayerNetwork.java:951).
 """
 
@@ -23,7 +24,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 
 
 class DataSetIterator:
@@ -318,23 +319,103 @@ class AsyncDataSetIterator(DataSetIterator):
         return self._base.batch_size()
 
 
+class DeviceStager:
+    """Stages host batches on a device: the host-to-card double buffer
+    that ``DevicePrefetchIterator`` and the streaming input pipeline's
+    device stage (``datasets/pipeline.py``) share.
+
+    :meth:`stage` runs on the producer's thread: each array is cast on the
+    host first (numpy has no bf16, so the cast runs in torch on the host
+    tensor, and a bf16 batch crosses PCIe at half the bytes), copied into
+    pinned memory and sent to the card with a non-blocking copy on the
+    stager's own CUDA stream, which it makes once, on the device, at its
+    first batch; so the copy overlaps the step that runs meanwhile. The
+    event recorded after the copies travels with the batch: :meth:`ready`,
+    on the consumer's thread, makes the consumer's current stream wait on
+    it and marks each tensor as used by that stream, so the caching
+    allocator does not hand its memory back to the side stream while the
+    step reads it. Each batch gets its own pinned buffers, which the
+    pinned allocator keeps until their copy is done, so no buffer is
+    rewritten while its copy is in flight.
+
+    On the CPU the arrays become host tensors (cast the same way). Masks
+    are not cast; features and labels are. A batch's ``data_ranks`` mark
+    travels with it."""
+
+    def __init__(self, device, dtype: Optional[str] = None):
+        self.device = torch.device(device)
+        self.dtype = None if dtype is None else getattr(torch, str(dtype))
+        self._stream = None
+
+    def _put(self, arr, cast: bool):
+        if arr is None:
+            return None
+        t = torch.as_tensor(np.asarray(arr)) if not isinstance(
+            arr, torch.Tensor) else arr
+        if cast and self.dtype is not None and t.is_floating_point():
+            t = t.to(self.dtype)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _copy(self, ds):
+        if isinstance(ds, MultiDataSet):
+            return MultiDataSet(
+                [self._put(f, True) for f in ds.features],
+                [self._put(y, True) for y in ds.labels],
+                None if ds.features_masks is None
+                else [self._put(m, False) for m in ds.features_masks],
+                None if ds.labels_masks is None
+                else [self._put(m, False) for m in ds.labels_masks],
+                data_ranks=ds.data_ranks)
+        return DataSet(self._put(ds.features, True),
+                       self._put(ds.labels, True),
+                       self._put(ds.features_mask, False),
+                       self._put(ds.labels_mask, False),
+                       data_ranks=ds.data_ranks)
+
+    def stage(self, ds):
+        """(the batch's tensors on the device, the copy's event or None)."""
+        if self.device.type != "cuda":
+            return self._copy(ds), None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stream):
+            staged = self._copy(ds)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return staged, done
+
+    def ready(self, item):
+        """The staged batch of :meth:`stage`'s ``item``, safe to read on
+        the calling thread's current stream."""
+        ds, done = item
+        if done is None:
+            return ds
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(done)
+        for t in _tensors(ds):
+            t.record_stream(stream)
+        return ds
+
+
+def _tensors(ds) -> list:
+    """Every array of a DataSet or MultiDataSet (masks too)."""
+    if isinstance(ds, MultiDataSet):
+        arrays = [*ds.features, *ds.labels, *(ds.features_masks or ()),
+                  *(ds.labels_masks or ())]
+    else:
+        arrays = [ds.features, ds.labels, ds.features_mask, ds.labels_mask]
+    return [a for a in arrays if a is not None]
+
+
 class DevicePrefetchIterator(AsyncDataSetIterator):
     """Async prefetch that also stages each batch in device memory (with
     an optional cast of its float arrays) from the producer thread: a
     double-buffered host-to-card feed (SURVEY section 7; the reference's
-    device-affinity prefetch is AsyncDataSetIterator.java:45).
-
-    Each array is cast on the host first (numpy has no bf16, so the cast
-    runs in torch on the host tensor, and a bf16 batch crosses PCIe at
-    half the bytes), copied into pinned memory and sent to the card with
-    a non-blocking copy on the producer's own CUDA stream, so the copy
-    overlaps the step that runs meanwhile. The event recorded after the
-    copies travels with the batch: ``next()`` makes the consumer's
-    current stream wait on it and marks each tensor as used by that
-    stream, so the caching allocator does not hand its memory back to the
-    side stream while the step reads it. Each batch gets its own pinned
-    buffers, which the pinned allocator keeps until their copy is done,
-    so no buffer is rewritten while its copy is in flight.
+    device-affinity prefetch is AsyncDataSetIterator.java:45), through a
+    :class:`DeviceStager` (pinned memory, a side stream, an event the
+    consumer's stream waits on).
 
     ``device=None`` is the card and raises without one; ``"cpu"`` stages
     host tensors (the tests). Feature masks are not cast (labels are, as
@@ -345,48 +426,14 @@ class DevicePrefetchIterator(AsyncDataSetIterator):
     def __init__(self, base: DataSetIterator, queue_size: int = 2,
                  dtype: Optional[str] = None, device=None):
         from deeplearning4j_tpu_torch.device import resolve_device
-        self._dtype = None if dtype is None else getattr(torch, str(dtype))
-        self._device = resolve_device(device)
-        self._stream = (torch.cuda.Stream(self._device)
-                        if self._device.type == "cuda" else None)
+        self._stager = DeviceStager(resolve_device(device), dtype)
         super().__init__(base, queue_size=queue_size)
 
     def async_supported(self) -> bool:
         return False
 
-    def _put(self, arr, cast: bool):
-        if arr is None:
-            return None
-        t = torch.as_tensor(np.asarray(arr)) if not isinstance(
-            arr, torch.Tensor) else arr
-        if cast and self._dtype is not None and t.is_floating_point():
-            t = t.to(self._dtype)
-        if self._stream is None:
-            return t.to(self._device)
-        return t.pin_memory().to(self._device, non_blocking=True)
-
     def _produce(self, ds: DataSet):
-        if self._stream is None:
-            return self._stage(ds), None
-        with torch.cuda.stream(self._stream):
-            staged = self._stage(ds)
-            done = torch.cuda.Event()
-            done.record(self._stream)
-        return staged, done
-
-    def _stage(self, ds: DataSet) -> DataSet:
-        return DataSet(self._put(ds.features, True),
-                       self._put(ds.labels, True),
-                       self._put(ds.features_mask, False),
-                       self._put(ds.labels_mask, False))
+        return self._stager.stage(ds)
 
     def _consume(self, item) -> DataSet:
-        ds, done = item
-        if done is not None:
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(done)
-            for t in (ds.features, ds.labels, ds.features_mask,
-                      ds.labels_mask):
-                if t is not None:
-                    t.record_stream(stream)
-        return ds
+        return self._stager.ready(item)

@@ -2,7 +2,8 @@
 copy): ``load_mnist`` and ``MnistDataSetIterator``.
 
 The IDX files are read where they are found (``$MNIST_DIR``,
-``~/.deeplearning4j_tpu/mnist`` or ``/tmp/mnist``; plain or ``.gz``).
+``~/.deeplearning4j_tpu/mnist`` or ``/tmp/mnist``, else fetched from
+``$DL4J_TPU_DATA_URL`` through ``cloud_io``; plain or ``.gz``).
 Without them a deterministic synthetic stand-in with MNIST's shapes is
 generated (``is_synthetic`` says which): each class a blurred random
 template plus noise. The test split draws its templates from ``seed + 1``,
@@ -12,9 +13,7 @@ split scores chance on the other by construction.
 
 from __future__ import annotations
 
-import gzip
 import os
-import struct
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -45,21 +44,18 @@ def _find(names) -> Optional[Path]:
             p = base / n
             if p.exists():
                 return p
-    return None
+    # the cloud fallback (ref: the deeplearning4j-aws S3 dataset readers):
+    # DL4J_TPU_DATA_URL=gs://bucket/prefix (or s3://...) fetches into the
+    # local cache once and reuses it thereafter
+    from deeplearning4j_tpu_torch.datasets import cloud_io
+    return cloud_io.search_data_url(*names)
 
 
 def _read_idx(path: Path) -> np.ndarray:
-    """An unsigned-byte IDX file as its uint8 array."""
-    opener = gzip.open if path.suffix == ".gz" else open
-    with opener(path, "rb") as f:
-        data = f.read()
-    if len(data) < 4 or data[:2] != b"\x00\x00" or data[2] != 0x08:
-        raise ValueError(
-            f"{path}: not an unsigned-byte IDX file (magic {data[:4]!r})")
-    ndim = data[3]
-    dims = struct.unpack(f">{ndim}I", data[4:4 + 4 * ndim])
-    return np.frombuffer(data, dtype=np.uint8,
-                         offset=4 + 4 * ndim).reshape(dims)
+    """An unsigned-byte IDX file as its uint8 array: the shared validated
+    parser's raw mode (a zero-copy view of the file's bytes)."""
+    from deeplearning4j_tpu_torch.datasets import pipeline
+    return pipeline.read_idx(path, scale=None)
 
 
 def _synthetic_mnist(n: int, seed: int = 123

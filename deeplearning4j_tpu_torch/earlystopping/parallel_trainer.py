@@ -62,5 +62,10 @@ class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
             collect_training_stats=collect_training_stats,
             weight_update_sharding=weight_update_sharding,
             precision=precision, device=device)
+        if hasattr(train_data, "attach"):
+            # the loop iterates train_data itself, never through
+            # ParallelTrainer.fit: bind a streaming pipeline's device
+            # stage to the mesh here, as fit does
+            train_data.attach(mesh=trainer.mesh)
         super().__init__(config, _ParallelNetAdapter(trainer), train_data)
         self.trainer = trainer

@@ -9,14 +9,14 @@ kernel) and a time-distributed MLP, each wrapped in a residual add
 weight-tied LM head (``TiedRnnOutputLayer``).
 
 The character data path (``char_vocab``, ``char_lm_batches``,
-``synthetic_char_text``) is the JAX package's, in numpy: one-hot char
-windows with next-char targets, the batches ``fit`` trains on. Not ported
-yet: ``char_lm_sources`` (the streaming pipeline).
+``synthetic_char_text``, ``char_lm_sources``) is the JAX package's, in
+numpy: one-hot char windows with next-char targets, the batches ``fit``
+trains on, directly or as the streaming input pipeline's sources.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -220,3 +220,30 @@ def synthetic_char_text(n_chars: int, seed: int = 0,
         parts.append(gram)
         n += len(gram)
     return "".join(parts)[:n_chars]
+
+
+def char_lm_sources(text: str, seq_len: int, batch_size: int,
+                    n_sources: int,
+                    charset: Optional[str] = None
+                    ) -> Tuple[Sequence[Callable], str]:
+    """``text``'s batch stream (``char_lm_batches``) dealt into
+    ``n_sources`` zero-argument callables, the sources of
+    ``datasets/pipeline.StreamingInputPipeline`` (its callable-source
+    kind, run in the decode pool). Returns (sources, charset).
+
+    Source ``s`` returns the batches ``s, s + n, s + 2n, ...`` (``n =
+    n_sources``), and the pipeline emits its sources in order, so the
+    stream it emits is SHARD-MAJOR: b0, b_n, b_2n, ..., then b1, b_{n+1},
+    ..., not the plain in-order stream (the JAX docstring says it is; the
+    JAX package's own test pins the shard-major order). A fit through
+    the pipeline is bitwise the fit of ``char_lm_batches`` in that
+    order."""
+    cs = charset if charset is not None else char_vocab(text)
+    batches = char_lm_batches(text, seq_len, batch_size, charset=cs)
+
+    def make(shard: int) -> Callable:
+        def load():
+            return batches[shard::n_sources]
+        return load
+
+    return [make(s) for s in range(n_sources)], cs

@@ -29,7 +29,7 @@ from typing import Optional, Union
 
 import torch
 
-from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, global_rows
 from deeplearning4j_tpu_torch.datasets.iterator import (
     AsyncDataSetIterator, DataSetIterator,
 )
@@ -85,7 +85,7 @@ class DelayedSyncTrainer:
         check_trainable(net.conf.training)
         rows = self.mesh.local_rows(batch)
         dev = net._split(rows) if self._is_graph else net._batch(rows)
-        net.last_batch_size = batch.num_examples()
+        net.last_batch_size = global_rows(batch)
         net.last_grads = None   # the step collects no gradients
         if not net._tbptt_applies(batch):
             f, l, fm, lm = dev

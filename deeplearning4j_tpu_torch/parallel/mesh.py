@@ -730,6 +730,37 @@ class MeshContext:
         d = self.data_index
         return slice(d * per, (d + 1) * per)
 
+    def rank_rows(self, global_batch: int, microbatches: int = 1):
+        """This rank's rows of a global batch of ``global_batch`` rows
+        trained in ``microbatches`` microbatches: its data index's share of
+        each microbatch, in microbatch order (``batch_slice`` for one, else
+        an index array). A trainer that cuts these rows, marked
+        ``data_ranks``, into its microbatches hands each rank the rows the
+        global batch's microbatches give it."""
+        k = microbatches
+        if global_batch % (k * self.n_data):
+            raise ValueError(
+                f"global batch {global_batch} not divisible into {k} "
+                f"microbatches over the {self.n_data}-way data axis")
+        if k == 1:
+            return self.batch_slice(global_batch)
+        mb = global_batch // k
+        per = mb // self.n_data
+        start = self.data_index * per
+        return np.concatenate([np.arange(i * mb + start, i * mb + start + per)
+                               for i in range(k)])
+
+    def holds_local_rows(self, batch) -> bool:
+        """True when ``batch`` is marked ``data_ranks`` (this data rank's
+        rows of a global batch, cut already); a mark of another width than
+        the data axis raises."""
+        marked = batch.data_ranks
+        if marked is not None and marked != self.n_data:
+            raise ValueError(
+                f"the batch holds one rank's rows of {marked} data ranks, "
+                f"but the mesh's data axis is {self.n_data} wide")
+        return marked is not None
+
     def seq_slice(self, T: int) -> slice:
         """This rank's time steps of a sequence of ``T`` split over 'sp'."""
         per = T // self.n_seq
@@ -763,10 +794,11 @@ class MeshContext:
         """``batch`` (a DataSet or MultiDataSet) cut to this rank's rows
         and, with ``seq`` where it splits on T, time steps (its rank-3
         arrays and the ``[B, T]`` masks of that T); the batch itself on a
-        mesh of one rank."""
+        mesh of one rank. A batch marked ``data_ranks`` holds this rank's
+        rows already: no rows are cut."""
         if self.world == 1:
             return batch
-        if self.n_data > 1:
+        if self.n_data > 1 and not self.holds_local_rows(batch):
             batch = take_rows(batch, self.batch_slice(batch.num_examples()))
         T = self.seq_length(batch) if seq else None
         return batch if T is None else take_steps(batch, T,
@@ -1081,8 +1113,9 @@ def _map_batch(batch, features, labels, masks):
     raise TypeError(f"cannot cut a {type(batch).__name__}")
 
 
-def take_rows(batch, rows: slice):
-    """A DataSet's or MultiDataSet's rows ``rows`` (masks too)."""
+def take_rows(batch, rows):
+    """A DataSet's or MultiDataSet's rows ``rows``, a slice or an index
+    array (masks too)."""
     def cut(a):
         return a[rows]
     return _map_batch(batch, cut, cut, cut)

@@ -49,8 +49,15 @@ of its collectives). :func:`set_topology_override` installs the
 surviving world, which the ``effective_*`` forms, ``local_batch_slice``,
 ``MeshContext.create`` and the sharded checkpoint's writer read;
 :func:`set_rendezvous_epoch` the lease's epoch, which every checkpoint's
-topology record carries. The streaming input pipeline
-(``input_pipeline``, ``shard_sources``) waits for ROADMAP A7.6.
+topology record carries.
+
+**The input half**: :func:`input_pipeline` is a
+``datasets/pipeline.StreamingInputPipeline`` over this rank's disjoint
+shard of a source list (:func:`shard_sources`). With a mesh the shard is
+the rank's DATA index of the mesh's data axis, not its process rank: the
+model, sp and pp ranks of one replica read the same rows. Each batch it
+stages is this data rank's rows, marked so that ``ParallelTrainer`` cuts
+no rows again; :func:`global_array` marks a batch a caller read itself.
 """
 
 from __future__ import annotations
@@ -295,18 +302,84 @@ def local_batch_slice(global_batch: int) -> slice:
     return slice(k * per, (k + 1) * per)
 
 
-def shard_sources(sources):
-    """Waits for the streaming input pipeline (ROADMAP A7.6)."""
-    raise NotImplementedError(
-        "shard_sources needs datasets/pipeline.py, which is not ported yet "
-        "(ROADMAP A7.6)")
+def shard_sources(sources, mesh=None):
+    """This rank's disjoint strided shard of a dataset source list: shard
+    ``mesh.data_index`` of ``mesh.n_data`` with a mesh (the ranks of one
+    replica read the same sources), else shard
+    ``effective_process_index()`` of ``effective_process_count()`` (the
+    JAX package's per-process contract; after an elastic resize the
+    survivors re-partition the same list). World 1: the identity.
+    Uneven shards warn (``datasets/pipeline.shard_sources``)."""
+    from deeplearning4j_tpu_torch.datasets.pipeline import (
+        shard_sources as _shard,
+    )
+    if mesh is not None:
+        return _shard(sources, mesh.n_data, mesh.data_index)
+    return _shard(sources, effective_process_count(),
+                  effective_process_index())
 
 
 def input_pipeline(sources, mesh=None, **kwargs):
-    """Waits for the streaming input pipeline (ROADMAP A7.6)."""
-    raise NotImplementedError(
-        "input_pipeline needs datasets/pipeline.py, which is not ported yet "
-        "(ROADMAP A7.6)")
+    """A ``StreamingInputPipeline`` over this rank's shard of
+    ``sources``: shard ``mesh.data_index`` of ``mesh.n_data`` with a
+    mesh, which also binds the device stage (each batch lands on the
+    mesh's device as this data rank's rows, marked ``data_ranks``); else
+    shard ``effective_process_index()`` of ``effective_process_count()``,
+    and a trainer's ``fit`` binds its own mesh. Every rank runs the same
+    call on the same source list and hands the result to
+    ``ParallelTrainer.fit`` (or ``data_parallel_trainer(...).fit``) as it
+    is. ``kwargs`` go to the pipeline (``num_shards`` / ``shard_index``
+    override the shard)."""
+    from deeplearning4j_tpu_torch.datasets.pipeline import (
+        StreamingInputPipeline,
+    )
+    if mesh is not None:
+        kwargs.setdefault("num_shards", mesh.n_data)
+        kwargs.setdefault("shard_index", mesh.data_index)
+    else:
+        kwargs.setdefault("num_shards", effective_process_count())
+        kwargs.setdefault("shard_index", effective_process_index())
+    return StreamingInputPipeline(sources, mesh=mesh, **kwargs)
+
+
+def global_array(local_data, mesh):
+    """This rank's LOCAL batch of a global one, marked as such: the
+    counterpart of the JAX package's ``make_array_from_process_local_data``
+    (``global_array(local_data, sharding)``). ``local_data`` is a
+    ``DataSet`` or ``MultiDataSet`` holding this data rank's rows; the
+    result holds the same rows as tensors on ``mesh.device``, marked
+    ``data_ranks = mesh.n_data``, and ``ParallelTrainer`` (or a pipeline
+    trainer) takes it as this rank's share of the global batch, the ranks'
+    local batches concatenated in data-index order, cutting no rows.
+
+    Where it differs from the JAX function: nothing global is assembled.
+    The JAX function returns one ``jax.Array`` whose shards are the
+    processes' rows; here every rank keeps its own rows, no rows move
+    between ranks (as in JAX), and the mark is what tells the trainer
+    that the rows are already cut. So under gradient accumulation (or a
+    pipeline's microbatches) k > 1, microbatch i of the global batch is
+    the ranks' local microbatches i concatenated, not rows
+    [i * B / k, (i + 1) * B / k) of the concatenation as in JAX, whose
+    step moves rows between devices: the same rows in another grouping,
+    which a net with batch norm or MoE trains to another update. A bare
+    array is refused: the mark lives on the batch."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet, MultiDataSet,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import _map_batch
+    if not isinstance(local_data, (DataSet, MultiDataSet)):
+        raise TypeError(
+            f"global_array takes this rank's DataSet or MultiDataSet, not "
+            f"a {type(local_data).__name__}: the local-rows mark lives on "
+            "the batch")
+    dev = mesh.device
+
+    def put(a):
+        return torch.as_tensor(a).to(dev)
+    return dataclasses.replace(_map_batch(local_data, put, put, put),
+                               data_ranks=mesh.n_data)
 
 
 def serve_coordination(port: int, num_processes: int) -> None:

@@ -428,11 +428,22 @@ class _StageTrainer:
         return net.params
 
     # -------------------------------------------------------------- batches
-    def _rows(self, m: int, b_mb: int) -> slice:
-        """This rank's rows of microbatch ``m``: its data index's share."""
+    def _rows(self, m: int, b_mb: int, local: bool) -> slice:
+        """This rank's rows of microbatch ``m``: its data index's share of
+        a global batch, or rows [m * b_mb / dp, (m + 1) * b_mb / dp) of a
+        batch marked ``data_ranks`` (this rank's rows already, as
+        ``ParallelTrainer`` cuts one)."""
         per = b_mb // self.dp
+        if local:
+            return slice(m * per, (m + 1) * per)
         d = self.mesh.data_index
         return slice(m * b_mb + d * per, m * b_mb + (d + 1) * per)
+
+    def _global_rows(self, batch) -> int:
+        """The rows of the global batch ``batch`` stands for: its own, or
+        dp times its own where it is marked ``data_ranks``."""
+        B = self._validate(batch)
+        return B * self.dp if self.mesh.holds_local_rows(batch) else B
 
     def _check_rows(self, B: int) -> int:
         if B % self.M != 0:
@@ -586,7 +597,7 @@ class _StageTrainer:
         check_trainable(net.conf.training)
         if not self._sharded:
             self._shard()
-        B = self._validate(batch)
+        B = self._global_rows(batch)
         b_mb = self._check_rows(B)
         feats = batch.features
         if self._tbptt and not isinstance(batch, MultiDataSet) \
@@ -647,7 +658,8 @@ class _StageTrainer:
             end = min(start + fwd, T)
             t0 = time.perf_counter()
             window = DataSet(batch.features[:, start:end],
-                             batch.labels[:, start:end])
+                             batch.labels[:, start:end],
+                             data_ranks=batch.data_ranks)
             xs, ys = self._microbatches(window, b_mb)
             if stats:
                 self._sync()
@@ -679,6 +691,10 @@ class _StageTrainer:
         net = self.net
         if isinstance(data, (DataSet, MultiDataSet)):
             data = [data]
+        elif hasattr(data, "attach"):
+            # a streaming input pipeline: its batches land on the card as
+            # this data rank's rows of each of the M microbatches
+            data.attach(mesh=self.mesh, microbatches=self.M)
         stats = self.training_stats
         for _ in range(epochs):
             net._notify_epoch("on_epoch_start")
@@ -828,12 +844,13 @@ class PipelineTrainer(_StageTrainer):
         labels) on the card, this rank's rows of each; None where the
         stage takes none."""
         net = self.net
+        local = self.mesh.holds_local_rows(batch)
         xs = ys = None
         if self.p == 0:
-            xs = [net._to_tensor(batch.features[self._rows(m, b_mb)])
+            xs = [net._to_tensor(batch.features[self._rows(m, b_mb, local)])
                   for m in range(self.M)]
         if self.p == self.S - 1:
-            ys = [torch.as_tensor(batch.labels[self._rows(m, b_mb)],
+            ys = [torch.as_tensor(batch.labels[self._rows(m, b_mb, local)],
                                   device=net.device) for m in range(self.M)]
         return xs, ys
 
@@ -1120,15 +1137,16 @@ class GraphPipelineTrainer(_StageTrainer):
         else:
             feats, labels = [batch.features], [batch.labels]
         rt = net.conf.resolved_types
+        local = self.mesh.holds_local_rows(batch)
         xs = ys = None
         if self.p == 0:
             # each input in its declared per-sample shape
-            xs = [{n: net._to_tensor(f[self._rows(m, b_mb)]).reshape(
+            xs = [{n: net._to_tensor(f[self._rows(m, b_mb, local)]).reshape(
                       _type_shape(rt[n], -1))
                    for n, f in zip(self.in_names, feats)}
                   for m in range(self.M)]
         if self.p == self.S - 1:
-            ys = [{o: torch.as_tensor(l[self._rows(m, b_mb)],
+            ys = [{o: torch.as_tensor(l[self._rows(m, b_mb, local)],
                                       device=net.device)
                    for o, l in zip(self.out_names, labels)}
                   for m in range(self.M)]

@@ -95,7 +95,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, global_rows
 from deeplearning4j_tpu_torch.datasets.iterator import (
     AsyncDataSetIterator, DataSetIterator,
 )
@@ -318,7 +318,14 @@ class ParallelTrainer:
         """(this rank's part, split on T) of each microbatch of the
         global ``batch``: the rows of its data index and, on an sp axis,
         its time steps of a batch whose T divides the axis (not under
-        tBPTT, whose windows cut the whole sequence)."""
+        tBPTT, whose windows cut the whole sequence). A batch marked
+        ``data_ranks`` (the input pipeline's, ``multihost.global_array``'s)
+        holds this rank's rows already: only its microbatches are cut,
+        microbatch i its rows [i * B / k, (i + 1) * B / k). The step is,
+        bit for bit, that of the global batch whose microbatch i is the
+        ranks' microbatches i in data-index order (no rows move between
+        ranks; ``multihost.global_array`` says how that differs from
+        JAX's at k > 1)."""
         mesh = self.mesh
         k, n_data, d = (self.gradient_accumulation, mesh.n_data,
                         mesh.data_index)
@@ -327,16 +334,18 @@ class ParallelTrainer:
             raise ValueError(f"batch size {B} not divisible by "
                              f"gradient_accumulation={k}")
         mb = B // k
-        if mb % n_data:
+        local = mesh.holds_local_rows(batch)
+        if not local and mb % n_data:
             raise ValueError(
                 f"microbatch of {mb} rows not divisible by the "
                 f"{n_data}-way data axis")
-        if k == 1 and n_data == 1:
+        if k == 1 and (local or n_data == 1):
             micro = [batch]
         else:
-            per = mb // n_data
-            micro = [take_rows(batch, slice(i * mb + d * per,
-                                            i * mb + (d + 1) * per))
+            per = mb if local else mb // n_data
+            off = 0 if local else d * per
+            micro = [take_rows(batch, slice(i * mb + off,
+                                            i * mb + off + per))
                      for i in range(k)]
         T = None if tbptt else mesh.seq_length(batch)
         if T is None:
@@ -574,7 +583,7 @@ class ParallelTrainer:
         batch, as a device scalar."""
         net = self.net
         loss, bad, tbptt = self._train(batch)
-        net.last_batch_size = batch.num_examples()
+        net.last_batch_size = global_rows(batch)
         net.last_grads = None   # the step collects no gradients
         if tbptt:
             return loss
@@ -595,6 +604,14 @@ class ParallelTrainer:
             for _ in range(epochs):
                 self.fit_batch(data)
             return self
+        if hasattr(data, "attach"):
+            # a streaming input pipeline: bind its device stage to this
+            # mesh, so each batch lands on the card as this rank's rows
+            # (marked: the step cuts no rows again). A scan window keeps
+            # its batches on the host, as the JAX trainer's stacks them
+            data.attach(mesh=self.mesh,
+                        place=False if scan_window > 1 else None,
+                        microbatches=self.gradient_accumulation)
         it = (AsyncDataSetIterator(data)
               if use_async and data.async_supported() else data)
         stats = self.training_stats
@@ -634,7 +651,7 @@ class ParallelTrainer:
                                for b in batches], np.float32)
         t0 = time.perf_counter()
         losses = torch.stack([self._train(b)[0] for b in batches])
-        net.last_batch_size = batches[-1].num_examples()
+        net.last_batch_size = global_rows(batches[-1])
         net.last_grads = None
         if net.listeners:
             emit_scan_burst(net, losses, len(batches), t0)

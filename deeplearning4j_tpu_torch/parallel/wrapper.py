@@ -270,6 +270,11 @@ class ParallelWrapper:
         if isinstance(iterator, DataSet):
             iterator = ListDataSetIterator(iterator.batch_by(
                 max(1, iterator.num_examples() // self.workers)))
+        if hasattr(iterator, "attach"):
+            # a streaming input pipeline: keep its batches on the host;
+            # the workers' batches are dealt round robin and each worker
+            # copies its own
+            iterator.attach(place=False)
         it = (AsyncDataSetIterator(iterator, queue_size=self.prefetch_buffer)
               if iterator.async_supported() else iterator)
         try:

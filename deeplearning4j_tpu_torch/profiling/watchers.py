@@ -1,14 +1,15 @@
 """Feeders for the metrics registry: the compile watcher and the
 device-memory watermark (the JAX package's ``profiling/watchers.py``).
 
-The port compiles in two places, and each reports through
+The port compiles in three places, and each reports through
 :func:`report_compile`: an ``nvcc`` build of a kernel library
 (``ops/cuda_build.build_libraries``, only when a build runs, not when a
-built library loads), and a CUDA-graph capture (the serving engine's step
+built library loads), a CUDA-graph capture (the serving engine's step
 runners, ``keras/generation.py``, and the gateway's predict runners,
-``keras/batching.py``). ``CompileWatcher.install()`` adds itself to that
-hook list and counts and times each compile into the registry and the
-span tracer's timeline; ``wrap()`` warns when a watched function is
+``keras/batching.py``), and a ``g++`` build of a host library
+(``native_loader.build_native``). ``CompileWatcher.install()`` adds
+itself to that hook list and counts and times each compile into the
+registry and the span tracer's timeline; ``wrap()`` warns when a watched function is
 called with a new argument shape signature.
 
 ``DeviceMemoryWatermark`` samples ``torch.cuda.memory_stats`` in a thread
@@ -33,6 +34,7 @@ logger = logging.getLogger(__name__)
 COMPILE_KINDS = {
     "nvcc": ("nvcc_build", "compile:nvcc"),
     "cuda_graph": ("cuda_graph_capture", "compile:cuda_graph"),
+    "gxx": ("native_build", "compile:gxx"),
 }
 
 _COMPILE_TIME_BUCKETS = (0.01, 0.05, 0.2, 1.0, 5.0, 20.0, 60.0, 300.0)
@@ -55,7 +57,8 @@ def report_compile(kind: str, seconds: float, label: str = "") -> None:
 class CompileWatcher:
     """Counts and times the port's compiles. Counters
     ``<stem>_total`` and ``<stem>_seconds_total`` for each kind
-    (``nvcc_build``, ``cuda_graph_capture``), a ``compile_seconds``
+    (``nvcc_build``, ``cuda_graph_capture``, ``native_build``), a
+    ``compile_seconds``
     histogram, and a span on the tracer's timeline a compile.
     ``install()`` and ``uninstall()`` are idempotent. A compile longer
     than ``warn_compile_s`` logs a warning."""
@@ -102,8 +105,8 @@ class CompileWatcher:
             f"{stem}_seconds_total",
             help=f"cumulative seconds in {span_name}").inc(seconds)
         self.registry.histogram(
-            "compile_seconds", help="seconds a compile (nvcc build or "
-            "CUDA-graph capture)", buckets=_COMPILE_TIME_BUCKETS
+            "compile_seconds", help="seconds a compile (nvcc or g++ build, "
+            "or CUDA-graph capture)", buckets=_COMPILE_TIME_BUCKETS
         ).observe(seconds)
         # the timeline's span, backdated by the compile's length
         self.tracer.complete(span_name, self.tracer._now_us() - seconds * 1e6,

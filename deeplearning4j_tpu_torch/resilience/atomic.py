@@ -1,7 +1,6 @@
 """Crash-safe file primitives: atomic write + checksums (the JAX
 package's ``resilience/atomic.py``: it imports no JAX, and the port keeps
-its own copy of the parts a path here uses — ``atomic_path(unique=True)``
-comes with its first caller).
+its own copy of the parts a path here uses).
 
 ``replace_bytes`` is the light form for records that are rewritten
 sub-second or superseded by the next write (the elastic lease, join
@@ -32,6 +31,7 @@ commit point so chaos tests exercise the real code path.
 from __future__ import annotations
 
 import os
+import threading
 import zlib
 from contextlib import contextmanager
 from pathlib import Path
@@ -76,17 +76,25 @@ def fsync_dir(path: Union[str, Path]) -> None:
 
 
 @contextmanager
-def atomic_path(path: Union[str, Path]):
+def atomic_path(path: Union[str, Path], unique: bool = False):
     """Stream-friendly atomic commit: yields a tmp path for the caller
     to write (e.g. a zipfile), then fsync + rename + dir-fsync on clean
     exit. The tmp name is deterministic (``<name>.tmp``): one writer per
     archive, and a stable name is what the torn-write chaos keys on.
 
+    ``unique=True`` suffixes the tmp name with the pid and thread, so
+    writers of the same final path that do not see each other (two
+    processes filling one dataset cache, ``datasets/cloud_io.
+    fetch_to_cache``) each commit their own complete bytes: the last
+    rename wins whole, and nobody renames a rival's half-written tmp.
+
     On an exception inside the block the tmp file is removed and the
     final path is untouched.
     """
     path = Path(path)
-    tmp = path.with_name(path.name + ".tmp")
+    suffix = (f".{os.getpid()}-{threading.get_ident()}.tmp"
+              if unique else ".tmp")
+    tmp = path.with_name(path.name + suffix)
     try:
         yield tmp
         with open(tmp, "rb+") as f:

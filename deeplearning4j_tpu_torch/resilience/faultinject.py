@@ -4,8 +4,9 @@ engine, of a checkpoint's commit, of the Keras gateway and its predict
 batching, the replica kinds a gateway consults, and the ``nan`` kind of
 a training loop, ``poison_batch``, and the fault-tolerant trainer's
 ``raise``), the fleet's overload kinds (``flap_replica``,
-``load_spike``) and the elastic trainer's host kinds. The broker and
-input-pipeline kinds wait for the paths they test (ROADMAP A7).
+``load_spike``), the elastic trainer's host kinds and the streaming input
+pipeline's kinds (``slow_input``, ``io_error``). The broker kinds wait
+for the path they test (ROADMAP A7).
 
 Training fault kinds:
 
@@ -76,6 +77,19 @@ Fleet overload kinds (the autoscaler's and the flap quarantine's seams):
   ``duration``, the window to spread it over) to the chaos harness,
   which fires that many concurrent requests.
 
+Input-pipeline fault kinds (``datasets/pipeline.py``'s seams):
+
+- ``slow_input``       — the Nth pipeline ``next()`` stalls ``duration``
+  seconds before the consumer dequeues (``on_input_next``); the stall
+  must land in ``input_stall_s`` (and ``input_stall_seconds_total``)
+  with the open-span stack naming ``input:wait``: a starved trainer is
+  a measurement, never a mystery hang.
+- ``io_error``         — the Nth reader-worker read attempt raises
+  (``on_reader_read``: a flaky object store, a lost NFS mount); the
+  pipeline's bounded-backoff retry must absorb it, counted in
+  ``input_read_retries_total``, or surface a clean in-order error when
+  its retries are spent.
+
 Checkpoint fault kind:
 
 - ``truncate_checkpoint`` — tear the ``at_call``-th checkpoint commit.
@@ -129,7 +143,8 @@ from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
 _KINDS = ("raise", "nan", "poison_decode", "evict_cache", "evict_page",
           "corrupt_page_table", "truncate_checkpoint", "hang_backend",
-          "burst", "poison_row", "slow_batch", "kill_host", "slow_host",
+          "burst", "poison_row", "slow_batch", "slow_input", "io_error",
+          "kill_host", "slow_host",
           "kill_coordinator", "rejoin_host", "partition_host",
           "kill_replica", "partition_replica", "slow_replica",
           "flap_replica", "load_spike")
@@ -153,17 +168,19 @@ class KilledByFault(RuntimeError):
 class Fault:
     """One scheduled fault. ``at_call`` arms it at the Nth request
     (``poison_decode``, ``poison_row``, the replica kinds), dispatch
-    (``hang_backend``, ``slow_batch``), commit or decode iteration (the
-    others), 1-based; ``step`` is the training step of ``raise``, ``nan``
+    (``hang_backend``, ``slow_batch``), pipeline ``next()``
+    (``slow_input``), reader read attempt (``io_error``), commit or decode
+    iteration (the others), 1-based; ``step`` is the training step of ``raise``, ``nan``
     and the host kinds, the poisoned request's decode step (or a
     mid-stream ``kill_replica``'s token); ``rank`` the target row's age
     rank (``evict_page``, ``corrupt_page_table``; -1 = the oldest), the
     target replica, or the rank a ``rejoin_host`` joins as; ``mode`` how
     a ``truncate_checkpoint`` tears its commit (``"crash"`` or
     ``"torn"``); ``duration`` the stall of ``hang_backend`` /
-    ``slow_batch`` / ``slow_replica`` / ``slow_host``, the window of
-    ``partition_replica`` / ``partition_host``, a ``flap_replica``
-    incarnation's life after admission and a ``load_spike``'s spread;
+    ``slow_batch`` / ``slow_input`` / ``slow_replica`` / ``slow_host``,
+    the window of ``partition_replica`` / ``partition_host``, a
+    ``flap_replica`` incarnation's life after admission and a
+    ``load_spike``'s spread;
     ``count`` a ``burst``'s or ``load_spike``'s size and a
     ``flap_replica``'s incarnations; ``fires`` the incarnations a
     ``flap_replica`` consumed."""
@@ -202,6 +219,8 @@ _commit_calls = 0
 _dispatch_calls = 0
 _predict_loads = 0
 _batch_dispatches = 0
+_input_nexts = 0
+_reader_reads = 0
 #: per-replica-rank admitted-request counters (``kill_replica`` /
 #: ``partition_replica`` / ``slow_replica`` at_call addressing)
 _replica_requests: Dict[int, int] = {}
@@ -222,7 +241,7 @@ def set_schedule(schedule: Optional[FaultSchedule]) -> None:
     ``at_call`` indices are relative to arming time."""
     global _schedule, _gen_submits, _decode_iters, _page_iters, _pt_iters
     global _commit_calls, _dispatch_calls, _predict_loads, _batch_dispatches
-    global _partition_until
+    global _partition_until, _input_nexts, _reader_reads
     with _lock:
         _schedule = schedule
         _partition_until = None
@@ -233,6 +252,8 @@ def set_schedule(schedule: Optional[FaultSchedule]) -> None:
         _dispatch_calls = 0
         _predict_loads = 0
         _batch_dispatches = 0
+        _input_nexts = 0
+        _reader_reads = 0
         _gen_submits = 0
         _decode_iters = 0
         _page_iters = 0
@@ -457,6 +478,42 @@ def poison_predict(features: np.ndarray) -> np.ndarray:
         poisoned = poisoned.astype(np.float32)
     poisoned.flat[0] = np.nan
     return poisoned
+
+
+def on_input_next() -> float:
+    """Called by the input pipeline's consumer per ``next()``: the stall
+    (seconds) a scheduled ``slow_input`` fault injects into this
+    (``at_call``-th) call, 0.0 for none. The caller sleeps INSIDE its
+    ``input:wait`` span, so the stall is measured as input stall and
+    named by the open-span stack."""
+    global _input_nexts
+    with _lock:
+        if _schedule is None:
+            return 0.0
+        _input_nexts += 1
+        for f in _schedule.pending():
+            if f.kind == "slow_input" and f.at_call == _input_nexts:
+                _fire(f, next=_input_nexts, duration=f.duration)
+                return max(0.0, f.duration)
+        return 0.0
+
+
+def on_reader_read(source=None) -> None:
+    """Called by the pipeline's reader workers per read ATTEMPT: a
+    scheduled ``io_error`` fault raises ``FaultInjected`` on its Nth
+    attempt (a flaky object store). The bounded-backoff retry loop sits
+    around this call, so consecutive scheduled faults spend the retries
+    as a persistent outage would."""
+    global _reader_reads
+    with _lock:
+        if _schedule is None:
+            return
+        _reader_reads += 1
+        for f in _schedule.pending():
+            if f.kind == "io_error" and f.at_call == _reader_reads:
+                _fire(f, read=_reader_reads, source=str(source)[:120])
+                raise FaultInjected(
+                    f"injected io_error at reader read {_reader_reads}")
 
 
 def on_batch_dispatch(key: str = "") -> None:

@@ -69,7 +69,7 @@ def test_compile_watcher_counts_compiles():
         w.uninstall()
     report_compile("nvcc", 1.0, "after")
     assert not w.installed
-    assert w.counts() == {"nvcc": 1, "cuda_graph": 2}
+    assert w.counts() == {"nvcc": 1, "cuda_graph": 2, "gxx": 0}
     assert reg.counter("nvcc_build_seconds_total").value == 2.5
     assert reg.counter("cuda_graph_capture_seconds_total").value == 0.75
     assert reg.get("compile_seconds").count == 3

@@ -659,9 +659,13 @@ def test_multihost_helpers_and_refusals():
                              host_service=False)
     with pytest.raises(ValueError, match="tcp:// or file://"):
         multihost.initialize("env://", 1, 0, device="cpu", elastic=True)
-    for fn in (multihost.shard_sources, multihost.input_pipeline):
-        with pytest.raises(NotImplementedError, match="A7.6"):
-            fn([])
+    # the input half (ROADMAP A7.6a), as the JAX package's: world 1 reads
+    # every source, and a pipeline comes back
+    from deeplearning4j_tpu_torch.datasets.pipeline import (
+        StreamingInputPipeline,
+    )
+    assert multihost.shard_sources(list(range(5))) == list(range(5))
+    assert isinstance(multihost.input_pipeline([]), StreamingInputPipeline)
     tr = multihost.data_parallel_trainer(_port_mlp(),
                                          gradient_accumulation=2)
     assert tr.mesh.n_data == 1 and tr.gradient_accumulation == 2

@@ -198,6 +198,27 @@ def mlp_conf(seed=12345, lr=0.05, updater="adam", hidden=16, n_in=4,
             .set_input_type(InputType.feed_forward(n_in)).build())
 
 
+def mlp_bn_conf(seed=12345, lr=0.05, hidden=16, n_in=4, n_out=3):
+    """``mlp_conf``'s stack with batch norm after the first layer."""
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers.core import (
+        DenseLayer, OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.normalization import (
+        BatchNormalization,
+    )
+    return (NeuralNetConfiguration.builder().seed(seed)
+            .updater("adam", learning_rate=lr).weight_init("xavier").list()
+            .layer(DenseLayer(n_out=hidden, activation="relu"))
+            .layer(BatchNormalization())
+            .layer(DenseLayer(n_out=hidden, activation="tanh"))
+            .layer(OutputLayer(n_out=n_out, activation="softmax"))
+            .set_input_type(InputType.feed_forward(n_in)).build())
+
+
 def lenet_bn_conf(seed=12345, lr=0.01):
     """LeNet-5's stack at 16 x 16 x 1, narrowed, with batch norm after the
     first convolution."""
@@ -252,8 +273,8 @@ def attn_conf(seed=5, causal=False, T=16, F=8, K=5, lr=0.05):
 
 
 def build(kind: str, params=None, **kw):
-    """A port net on the CPU: ``kind`` "mlp", "lenet_bn"
-    (``lenet_bn_conf``), "gpt" (``gpt_tiny``) or "char_rnn"
+    """A port net on the CPU: ``kind`` "mlp", "mlp_bn" (``mlp_bn_conf``),
+    "lenet_bn" (``lenet_bn_conf``), "gpt" (``gpt_tiny``) or "char_rnn"
     (``char_rnn_lstm``), with ``params`` (numpy, the JAX net's layout)
     carried in when given."""
     from deeplearning4j_tpu_torch.convert import params_from_jax
@@ -261,6 +282,8 @@ def build(kind: str, params=None, **kw):
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     if kind == "mlp":
         conf, cls = mlp_conf(**kw), MultiLayerNetwork
+    elif kind == "mlp_bn":
+        conf, cls = mlp_bn_conf(**kw), MultiLayerNetwork
     elif kind == "lenet_bn":
         conf, cls = lenet_bn_conf(**kw), MultiLayerNetwork
     elif kind == "gpt":
@@ -1650,6 +1673,234 @@ def case_moe_refusals(conf, batches):
                                                  device="cpu")),
         pp_in_parallel=_err(lambda: ParallelTrainer(
             conf_net(conf), MeshContext.create(n_pipe=2, device="cpu"))))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cases: the streaming input pipeline (datasets/pipeline.py, multihost)
+# ---------------------------------------------------------------------------
+
+def case_input_pipeline(kind, net_kw, params, sources, gpt_sources=None,
+                        gpt_params=None):
+    """``ParallelTrainer`` at dp = 2 fed four ways, one step a batch:
+    ``multihost.input_pipeline(sources, mesh)`` (this rank reads the
+    sources ``d::2`` and stages its rows, marked), a pipeline of global
+    batches (``num_shards=1``: the rank's rows cut on the host), each
+    local batch through ``multihost.global_array``, and the reference:
+    the global batches (the ranks' sources concatenated in data-index
+    order) through a ``ListDataSetIterator``, the trainer cutting the
+    rows. Each run's losses (f32 bytes) and params, and what the
+    pipeline staged. With ``gpt_sources``, the tiny GPT the same way
+    (the pipeline against the global batches)."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.pipeline import (
+        StreamingInputPipeline,
+    )
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer, multihost
+    mesh = mesh_for((2, 1, 1))
+    n = mesh.n_data
+    local = datasets(sources)
+    glob = [DataSet.merge(local[i:i + n]) for i in range(0, len(local), n)]
+
+    def run(data, k="mlp", kw=net_kw, p=params, staged=None):
+        net = build(k, p, **kw)
+        tr = ParallelTrainer(net, mesh)
+        losses, fit_batch = [], tr.fit_batch
+
+        def spy(batch):
+            if staged is not None:
+                staged.append(dict(
+                    rows=int(batch.num_examples()),
+                    data_ranks=batch.data_ranks,
+                    tensor=isinstance(batch.features, torch.Tensor),
+                    first=float(batch.features[0, 0])))
+            loss = fit_batch(batch)
+            losses.append(loss)
+            return loss
+        tr.fit_batch = spy
+        if isinstance(data, list):
+            for b in data:
+                tr.fit_batch(b)
+        else:
+            tr.fit(data)
+        return dict(losses=f32_bytes(losses), params=flat(net),
+                    last_batch_size=net.last_batch_size)
+
+    staged = []
+    out = dict(
+        coords=mesh.coords,
+        pipeline=run(multihost.input_pipeline(local, mesh), staged=staged),
+        global_pipeline=run(StreamingInputPipeline(
+            glob, num_shards=1, shard_index=0)),
+        global_array=run([multihost.global_array(b, mesh) for b in
+                          local[mesh.data_index::n]]),
+        reference=run(ListDataSetIterator(glob)))
+    out["staged"] = staged
+    out["shard_sources_mesh"] = multihost.shard_sources(list(range(4)), mesh)
+    if gpt_sources is not None:
+        gl = datasets(gpt_sources)
+        gg = [DataSet.merge(gl[i:i + n]) for i in range(0, len(gl), n)]
+        kw = dict(vocab_size=16, seq_len=8)
+        out["gpt_pipeline"] = run(multihost.input_pipeline(gl, mesh), "gpt",
+                                  kw, gpt_params)
+        out["gpt_reference"] = run(ListDataSetIterator(gg), "gpt", kw,
+                                   gpt_params)
+    dist.barrier()
+    return out
+
+
+def case_input_replica_rows(sources):
+    """On a mesh with a model axis (1 x 2: one replica over two ranks),
+    the rows ``multihost.input_pipeline`` stages on each rank (the same:
+    sharded by data index), against the process shard
+    ``multihost.shard_sources`` takes without a mesh (each rank its own),
+    and the error of a pipeline sharded by process (built without the
+    mesh) that ``ParallelTrainer.fit`` binds to that mesh."""
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer, multihost
+    mesh = mesh_for((1, 2, 1))
+    pipe = multihost.input_pipeline(datasets(sources), mesh)
+    tags = [float(b.features[0, 0]) for b in pipe]
+    pipe.close()
+    by_process = multihost.input_pipeline(datasets(sources))
+    tr = ParallelTrainer(build("mlp", hidden=8), mesh)
+    refused = _err(lambda: tr.fit(by_process))
+    by_process.close()
+    return dict(coords=mesh.coords, tags=tags,
+                shard_mesh=multihost.shard_sources(list(range(8)), mesh),
+                shard_process=multihost.shard_sources(list(range(8))),
+                refused=refused, steps=tr.net.iteration_count)
+
+
+def _interleaved(local, n, k):
+    """The global batches ``n`` data ranks' local batches (``local[j * n
+    + d]``, rank d's j-th) stand for under ``k`` microbatches: microbatch
+    i of each is the ranks' microbatches i concatenated in data-index
+    order."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    out = []
+    for j in range(0, len(local), n):
+        ranks = local[j:j + n]
+        per = ranks[0].num_examples() // k
+        rows = [r_ for i in range(k) for r_ in
+                (DataSet(b.features[i * per:(i + 1) * per],
+                         b.labels[i * per:(i + 1) * per]) for b in ranks)]
+        out.append(DataSet.merge(rows))
+    return out
+
+
+def _fitted(tr, data, staged=None):
+    """Fit ``tr`` on ``data`` (a list, one ``fit_batch`` a batch, or an
+    iterator through ``fit``): (losses as f32 bytes, what each step was
+    handed: its rows, mark and first feature)."""
+    losses, fit_batch = [], tr.fit_batch
+
+    def spy(batch):
+        if staged is not None:
+            staged.append(dict(rows=int(batch.num_examples()),
+                               data_ranks=batch.data_ranks,
+                               first=float(batch.features[0, 0])))
+        loss = fit_batch(batch)
+        losses.append(loss)
+        return loss
+    tr.fit_batch = spy
+    if isinstance(data, list):
+        for b in data:
+            tr.fit_batch(b)
+    else:
+        tr.fit(data)
+    return f32_bytes(losses)
+
+
+def case_input_accumulation(sources, kinds=("mlp", "mlp_bn"), k=2):
+    """``ParallelTrainer`` at dp = 2 under gradient accumulation ``k``,
+    for each net kind: each rank's local batch through
+    ``multihost.global_array`` against the global batches whose
+    microbatch i is the ranks' microbatches i (``_interleaved``), and a
+    pipeline of the ranks' batches concatenated (``num_shards=1``: each
+    rank's rows of every microbatch cut on the host) against those
+    global batches through a ``ListDataSetIterator``. Each run's losses,
+    params and ``last_batch_size``."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.pipeline import (
+        StreamingInputPipeline,
+    )
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer, multihost
+    mesh = mesh_for((2, 1, 1))
+    n, d = mesh.n_data, mesh.data_index
+    local = datasets(sources)
+    concat = [DataSet.merge(local[i:i + n]) for i in range(0, len(local), n)]
+    out = {}
+    for kind in kinds:
+        def run(data):
+            tr = ParallelTrainer(build(kind, hidden=8), mesh,
+                                 gradient_accumulation=k)
+            losses = _fitted(tr, data)
+            return dict(losses=losses, params=flat(tr.net),
+                        last_batch_size=tr.net.last_batch_size)
+        out[kind] = dict(
+            global_array=run([multihost.global_array(b, mesh)
+                              for b in local[d::n]]),
+            interleaved=run(_interleaved(local, n, k)),
+            global_pipeline=run(StreamingInputPipeline(
+                concat, num_shards=1, shard_index=0)),
+            concat=run(ListDataSetIterator(concat)))
+    dist.barrier()
+    return out
+
+
+def case_input_pipe_stages(sources, kinds=("mlp", "mlp_bn"), M=2):
+    """The pipeline trainer on a 2 x 2 (dp x pp) mesh, ``M``
+    microbatches, for each net kind: ``multihost.input_pipeline(sources,
+    mesh)`` (the two stages of a replica read the same sources, this data
+    index's) and each rank's local batches through
+    ``multihost.global_array``, against the global batches whose
+    microbatch i is the replicas' microbatches i (``_interleaved``); a
+    pipeline of the replicas' batches concatenated (``num_shards=1``)
+    against those batches as a list. Each run's losses and, after
+    ``gather_params``, params; what the input pipeline staged."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.pipeline import (
+        StreamingInputPipeline,
+    )
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.parallel.pipeline import PipelineTrainer
+    mesh = pipe_mesh((2, 2))
+    n, d = mesh.n_data, mesh.data_index
+    local = datasets(sources)
+    concat = [DataSet.merge(local[i:i + n]) for i in range(0, len(local), n)]
+    out = dict(coords=(d, mesh.pipe_index))
+    for kind in kinds:
+        def run(data, staged=None):
+            tr = PipelineTrainer(build(kind, hidden=8), mesh,
+                                 n_microbatches=M)
+            losses = _fitted(tr, data, staged)
+            tr.gather_params()
+            return dict(losses=losses, params=flat(tr.net),
+                        last_batch_size=tr.net.last_batch_size)
+        staged = []
+        out[kind] = dict(
+            pipeline=run(multihost.input_pipeline(local, mesh), staged),
+            global_array=run([multihost.global_array(b, mesh)
+                              for b in local[d::n]]),
+            interleaved=run(_interleaved(local, n, M)),
+            global_pipeline=run(StreamingInputPipeline(
+                concat, num_shards=1, shard_index=0)),
+            concat=run(concat),
+            staged=staged)
+    dist.barrier()
     return out
 
 
