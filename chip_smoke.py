@@ -347,9 +347,53 @@ Phases, each printing JSON lines:
    parser loaded, byte-identical to the Python parse on MNIST-shaped
    files written from the synthetic MNIST, and ``IdxPair`` sources
    decoding into ``load_mnist``'s arrays on those files;
-19. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+19. pretrain — layerwise pretraining (ROADMAP A7.5) at full width on
+   the binarized MNIST stand-in: the VAE of dl4j-examples'
+   ``VariationalAutoEncoderExample`` (784 -> 256, 256 -> z 2 -> 256, 256
+   -> 784 Bernoulli logits, leaky ReLU, RMSProp) as a
+   ``MultiLayerNetwork``, 20 ``pretrain`` steps of 128; the encoder half
+   of ``DeepAutoEncoderExample`` as a ``ComputationGraph`` (binary RBMs,
+   CD-1, at 1000, 500, 250 and 100, an ``AutoEncoder`` at 30, an
+   ``OutputLayer(10)``; Nesterov), one ``pretrain`` epoch of 8 batches of
+   128 then 2 ``fit_batch`` steps; the VAE's SGD twin. Each is run on
+   the card with its draws (``nn/layers/draws``) recorded and each step
+   held against the same step on the CPU from the card's state (the
+   step's draws replayed: loss within 1e-5, params within rtol 2e-4 /
+   atol 2e-5), again from the same generator state (bit for bit the
+   first, timed with CUDA events a pretrain step a layer), and on the
+   CPU through the whole run with the card's draws replayed: every
+   layer's first loss within 1e-5, every param of the stack and of the
+   SGD twin within rtol 2e-4 / atol 2e-5 (the RMSProp VAE's sign-like
+   first steps carry a rounding difference on, C23: its count is
+   printed), the output layer untouched bit for bit, the VAE's negative
+   ELBO falling; the peak memory. No kernel of K1-K6 is launched on
+   this path;
+20. stream_ui — the streaming routes and the training UI (ROADMAP
+   A7.6b): an ``NDArrayServer`` on localhost with a ``ServeRoute`` over
+   the full-width char-RNN's ``output()`` at [32, 64, 96] and one over
+   the GPT's at [8, 256]: every published answer bit for bit this
+   process's direct ``output()``, a traced round trip holding 2 K1 or
+   8 K4, ms a round trip against the direct ``output()``; a
+   ``StreamingPipeline`` training the char-RNN on two [32, 200] batches
+   from two topics, its scores and params bit for bit a plain
+   ``fit_batch`` of the same batches, 8 K2 and 8 K3 a ``fit_batch``; a
+   ``StatsListener(frequency=1, histogram_frequency=2)`` on 4
+   ``fit_batch`` steps of the GPT at [32, 256], writing to a
+   ``FileStatsStorage`` a ``UIServer`` serves and through a
+   ``RemoteStatsStorageRouter`` posting to it: losses bit for bit the
+   same steps without the listener, 8 K4, K5 and K6 a step, each
+   report's param norms within 1e-5 of ``torch.linalg.vector_norm`` on
+   the card and a grad norm for every param, ``/api/session``,
+   ``/api/histograms``, ``/api/metrics``, ``/healthz`` and ``/readyz``
+   answering 200, the file's replay and the remote posts byte for byte
+   the storage's reports, the native stats codec loaded and byte for
+   byte the Python encoder; ms a step with and without the listener and
+   the report's copy off the card; LeNet's conv listener rendering its
+   four rank-4 layers and its flow snapshot, both posted to the UI;
+   threads back to their baseline;
+21. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-20. last line ``{"ok": true, "device": {...}}``.
+22. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -907,7 +951,14 @@ IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
                         "autotune/space.py", "autotune/tuner.py",
                         "native_loader.py", "datasets/native_io.py",
                         "datasets/cloud_io.py", "datasets/records.py",
-                        "datasets/fetchers.py", "datasets/pipeline.py")
+                        "datasets/fetchers.py", "datasets/pipeline.py",
+                        "nn/layers/variational.py", "nn/layers/draws.py",
+                        "streaming/__init__.py",
+                        "streaming/ndarray_channel.py",
+                        "streaming/pipeline.py", "ui/__init__.py",
+                        "ui/codec.py", "ui/stats.py", "ui/storage.py",
+                        "ui/components.py", "ui/listeners.py",
+                        "ui/server.py")
 
 
 def import_rule() -> dict:
@@ -7827,6 +7878,694 @@ def cost_autotune(smi) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# pretrain: layerwise pretraining at full width (ROADMAP A7.5)
+# ---------------------------------------------------------------------------
+
+#: the pretrain phase: the VAE of dl4j-examples' VariationalAutoEncoderExample
+#: (784 -> 256, 256 -> z 2 -> 256, 256 -> 784 Bernoulli logits, leaky ReLU,
+#: RMSProp) for VAE_STEPS pretrain steps of PRETRAIN_BATCH binarized
+#: MNIST stand-in images; the RBM stack of DeepAutoEncoderExample's
+#: encoder half (1000, 500, 250, 100, binary, CD-1), an AutoEncoder at 30
+#: and an OutputLayer(10) as a ComputationGraph: one pretrain epoch of
+#: STACK_BATCHES batches, then STACK_FIT fit_batch steps
+PRETRAIN_BATCH, VAE_STEPS, STACK_BATCHES, STACK_FIT = 128, 20, 8, 2
+VAE_LR = 1e-3
+STACK_RBMS, STACK_AE = (1000, 500, 250, 100), 30
+# Nesterov momentum, whose update is linear in the gradient: the CPU
+# twin's params are held element by element (an adaptive rule's first
+# step takes the sign of a gradient that may be rounding noise, C23)
+STACK_LR = 0.01
+# each pretrained layer on the card against its CPU twin with the card's
+# draws carried across: the first loss (relative) and the params after
+# the run (the parallel trainers' gates)
+TOL_PRETRAIN_LOSS = 1e-5
+TOL_PRETRAIN_RTOL, TOL_PRETRAIN_ATOL = 2e-4, 2e-5
+
+
+def vae_conf(updater="rmsprop"):
+    from deeplearning4j_tpu_torch.nn.layers import VariationalAutoencoder
+    return (NeuralNetConfiguration.builder().seed(SEED)
+            .updater(updater, learning_rate=VAE_LR).weight_init("xavier")
+            .list()
+            .layer(VariationalAutoencoder(
+                n_out=2, encoder_layer_sizes=(256, 256),
+                decoder_layer_sizes=(256, 256), activation="leakyrelu",
+                pzx_activation="identity",
+                reconstruction_distribution="bernoulli"))
+            .set_input_type(InputType.feed_forward(784)).build())
+
+
+def stack_conf():
+    from deeplearning4j_tpu_torch.nn.layers import RBM, AutoEncoder
+    b = (NeuralNetConfiguration.builder().seed(SEED)
+         .updater("nesterovs", learning_rate=STACK_LR)
+         .weight_init("xavier").graph_builder().add_inputs("in"))
+    prev = "in"
+    for i, n in enumerate(STACK_RBMS):
+        b.add_layer(f"rbm{i}", RBM(n_out=n, activation="sigmoid",
+                                   hidden_unit="binary",
+                                   visible_unit="binary", k=1), prev)
+        prev = f"rbm{i}"
+    b.add_layer("ae", AutoEncoder(n_out=STACK_AE, activation="sigmoid"),
+                prev)
+    b.add_layer("out", OutputLayer(n_out=10, activation="softmax",
+                                   loss="mcxent"), "ae")
+    return (b.set_outputs("out")
+            .set_input_types(InputType.feed_forward(784)).build())
+
+
+def pretrain_batches(n):
+    """``n`` [PRETRAIN_BATCH, 784] batches of the MNIST stand-in,
+    binarized at 0.5 (the examples' binarized MNIST), one-hot labels."""
+    from deeplearning4j_tpu_torch.datasets.mnist import load_mnist
+    imgs, labels, _ = load_mnist(True, n * PRETRAIN_BATCH, seed=SEED)
+    x = (imgs.reshape(len(imgs), -1) > 0.5).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[labels]
+    return [DataSet(x[i:i + PRETRAIN_BATCH], y[i:i + PRETRAIN_BATCH])
+            for i in range(0, n * PRETRAIN_BATCH, PRETRAIN_BATCH)]
+
+
+class DrawTape:
+    """The pretraining draws (``nn/layers/draws``) of one run: ``run(fn,
+    "record")`` keeps a host copy of each in order, ``run(fn, "replay")``
+    hands them out again on another device, each checked for its kind and
+    shape, so the CPU twin draws nothing of its own (torch's CUDA and CPU
+    generators draw other bits)."""
+
+    KINDS = ("normal", "keep_mask", "uniform")
+
+    def __init__(self):
+        self.tape = []
+
+    def run(self, fn, mode):
+        from deeplearning4j_tpu_torch.nn.layers import draws
+
+        def record(kind, real):
+            def draw(*args):
+                out = real(*args)
+                self.tape.append((kind, out.cpu()))
+                return out
+            return draw
+
+        def replay(kind, real):
+            def draw(gen, *args):
+                # (shape, dtype, device), or keep_mask's (p, shape, device)
+                shape = args[1] if kind == "keep_mask" else args[0]
+                device = args[-1]
+                check(self.tape, f"the replay drew an extra {kind}")
+                k, t = self.tape.pop(0)
+                check(k == kind and tuple(t.shape) == tuple(shape),
+                      f"replayed {k} {tuple(t.shape)} for a {kind} "
+                      f"{tuple(shape)}")
+                return t.to(device)
+            return draw
+        make = record if mode == "record" else replay
+        saved = {k: getattr(draws, k) for k in self.KINDS}
+        for k in self.KINDS:
+            setattr(draws, k, make(k, saved[k]))
+        try:
+            return fn()
+        finally:
+            for k, f in saved.items():
+                setattr(draws, k, f)
+
+
+def _cpu_tree(tree):
+    """A CPU copy of a params dict or an optimizer state (its host count
+    kept as it is)."""
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree
+
+
+class StepTwin:
+    """Each pretrain step of a card run held against the same step on the
+    CPU from the card's state: the card's params and optimizer state
+    copied to the CPU before the step, the card's draws of the step
+    recorded and replayed there; the step's loss (relative) and the
+    params after it (rtol / atol) compared."""
+
+    def __init__(self):
+        self.steps = collections.defaultdict(int)
+        self.loss_rel, self.outside, self.worst = {}, {}, {}
+
+    def step(self, key, real_step, p, opt, x, rng):
+        p_cpu, opt_cpu, x_cpu = _cpu_tree(p), _cpu_tree(opt), x.cpu()
+        tape = DrawTape()
+        loss = tape.run(lambda: real_step(p, opt, x, rng), "record")
+        # the replay hands out the card's draws: the CPU generator given
+        # here is never drawn from
+        loss_cpu = tape.run(lambda: real_step(p_cpu, opt_cpu, x_cpu,
+                                              torch.Generator()), "replay")
+        check(not tape.tape, f"{key}: card draws left over at a step")
+        rel = abs(float(loss) - float(loss_cpu)) / max(abs(float(loss_cpu)),
+                                                       1e-30)
+        out, worst = 0, 0.0
+        for n, t in p.items():
+            a, c = t.detach().cpu().double(), p_cpu[n].double()
+            out += int(((a - c).abs() > TOL_PRETRAIN_ATOL
+                        + TOL_PRETRAIN_RTOL * c.abs()).sum())
+            worst = max(worst, float((a - c).abs().max()))
+        self.steps[key] += 1
+        self.loss_rel[key] = max(self.loss_rel.get(key, 0.0), rel)
+        self.outside[key] = self.outside.get(key, 0) + out
+        self.worst[key] = max(self.worst.get(key, 0.0), worst)
+        return loss
+
+    def record(self) -> dict:
+        return {k: dict(steps=n, loss_max_rel=self.loss_rel[k],
+                        params_outside_gate=self.outside[k],
+                        params_max_abs_diff=self.worst[k])
+                for k, n in self.steps.items()}
+
+
+def spied_pretrain(fn, timed=False, twin=None):
+    """Run ``fn`` with each pretrain step spied on: {layer: [loss, ...]}
+    (device scalars read at the end) and, ``timed``, {layer: [ms, ...]}
+    from CUDA events around each step; with a ``StepTwin``, each step is
+    held against its CPU twin. A layer is named by its class and
+    width."""
+    from deeplearning4j_tpu_torch.nn import graph as graph_mod
+    from deeplearning4j_tpu_torch.nn import multilayer as mln_mod
+    real = mln_mod.make_pretrain_step
+    losses = collections.defaultdict(list)
+    events = collections.defaultdict(list)
+
+    def make(layer, tx):
+        step = real(layer, tx)
+        key = f"{type(layer).__name__}{layer.n_out}"
+
+        def spy(p, opt, x, rng):
+            if twin is not None:
+                loss = twin.step(key, step, p, opt, x, rng)
+            elif timed:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                loss = step(p, opt, x, rng)
+                e1.record()
+                events[key].append((e0, e1))
+            else:
+                loss = step(p, opt, x, rng)
+            losses[key].append(loss)
+            return loss
+        return spy
+    mln_mod.make_pretrain_step = graph_mod.make_pretrain_step = make
+    try:
+        fn()
+    finally:
+        mln_mod.make_pretrain_step = graph_mod.make_pretrain_step = real
+    torch.cuda.synchronize()
+    return ({k: [float(v) for v in vs] for k, vs in losses.items()},
+            {k: [a.elapsed_time(b) for a, b in vs]
+             for k, vs in events.items()})
+
+
+def pretrain_params(net):
+    """{layer: {param: CPU copy}} of either container."""
+    items = (net.params.items() if isinstance(net.params, dict)
+             else enumerate(net.params))
+    return {str(k): {n: t.detach().cpu().clone() for n, t in p.items()}
+            for k, p in items}
+
+
+def pretrain_case(name, build, batches, pretrainable, frozen, whole_run):
+    """Pretrain the net ``build(device)`` makes on ``batches`` three
+    times: on the card with each step held against its CPU twin from the
+    card's state (``StepTwin``) and the run's draws recorded, on the card
+    again from the same generator state (timed), and on the CPU through
+    the whole run with the card's draws replayed. ``pretrainable`` /
+    ``frozen``: the layer keys the walk trains / must leave as they were.
+    ``whole_run``: hold the whole run's params to the CPU run's too (an
+    update linear in the gradient); else they are reported (an adaptive
+    rule's sign-like steps carry a rounding difference on, C23). Returns
+    (record, the timed card net, the first run's losses by layer)."""
+    it = ListDataSetIterator(batches)
+    # the peak above what earlier phases left allocated
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tape, twin = DrawTape(), StepTwin()
+    net_a = build("cuda")
+    init = pretrain_params(net_a)
+    losses_a, _ = spied_pretrain(
+        lambda: tape.run(lambda: net_a.pretrain(it), "record"), twin=twin)
+    n_draws = len(tape.tape)
+    net_b = build("cuda")
+    t0 = time.perf_counter()
+    losses_b, step_ms = spied_pretrain(lambda: net_b.pretrain(it),
+                                       timed=True)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    cpu = build("cpu")
+    losses_c, _ = spied_pretrain(
+        lambda: tape.run(lambda: cpu.pretrain(it), "replay"))
+    check(not tape.tape, f"{name}: {len(tape.tape)} card draws left over")
+    pa, pb, pc = (pretrain_params(n) for n in (net_a, net_b, cpu))
+    bitwise = losses_a == losses_b and all(
+        torch.equal(pa[k][n], pb[k][n]) for k in pa for n in pa[k])
+    steps = twin.record()
+    layers = {}
+    for key, cpu_losses in losses_c.items():
+        card = losses_a[key]
+        layers[key] = dict(
+            steps=len(card), first_loss=card[0],
+            first_loss_rel_err=abs(card[0] - cpu_losses[0])
+            / max(abs(cpu_losses[0]), 1e-30),
+            last_loss=card[-1], cpu_last_loss=cpu_losses[-1],
+            each_step_vs_cpu=steps[key],
+            ms_per_step=float(np.mean(step_ms[key])),
+            ms_per_step_min=float(np.min(step_ms[key])))
+    outside, worst = 0, 0.0
+    for k in pretrainable:
+        for n in pa[k]:
+            a, c = pa[k][n].double(), pc[k][n].double()
+            bad = (a - c).abs() > TOL_PRETRAIN_ATOL + TOL_PRETRAIN_RTOL \
+                * c.abs()
+            outside += int(bad.sum())
+            worst = max(worst, float((a - c).abs().max()))
+    moved = {k: any(not torch.equal(pa[k][n], init[k][n]) for n in pa[k])
+             for k in pretrainable}
+    untouched = all(torch.equal(pa[k][n], init[k][n]) for k in frozen
+                    for n in pa[k])
+    rec = dict(name=name, layers=layers, draws=n_draws,
+               two_card_runs_bitwise=bitwise, whole_run_gated=whole_run,
+               whole_run_params_outside_gate=outside,
+               whole_run_params_max_abs_diff=worst,
+               pretrainable_moved=moved, frozen_untouched=untouched,
+               peak_bytes_above_start=peak, wall_seconds=wall_s)
+    check(bitwise, f"{name}: two card runs from one generator state "
+                   f"differ: {losses_a} vs {losses_b}")
+    check(all(v["first_loss_rel_err"] <= TOL_PRETRAIN_LOSS
+              for v in layers.values()),
+          f"{name}: first losses against the CPU twin: {layers}")
+    check(all(v["loss_max_rel"] <= TOL_PRETRAIN_LOSS
+              and v["params_outside_gate"] == 0 for v in steps.values()),
+          f"{name}: a step against its CPU twin from the card's state: "
+          f"{steps}")
+    check(not whole_run or outside == 0,
+          f"{name}: {outside} params outside rtol {TOL_PRETRAIN_RTOL} / "
+          f"atol {TOL_PRETRAIN_ATOL} of the whole CPU run (max |d| "
+          f"{worst})")
+    check(all(moved.values()) and untouched,
+          f"{name}: pretrained layers moved {moved}, the others untouched "
+          f"{untouched}")
+    return rec, net_b, losses_a
+
+
+def pretrain_phase(smi):
+    """Layerwise pretraining on the card (ROADMAP A7.5): the VAE net and
+    the RBM / AutoEncoder stack, each against its CPU twin with the
+    card's draws carried across; no kernel of K1-K6 lies on this path.
+    Returns the path's launch counts."""
+    reset_counts()
+    vae, _, vae_losses = pretrain_case(
+        "vae", lambda d: MultiLayerNetwork(vae_conf(), device=d).init(),
+        pretrain_batches(VAE_STEPS), ["0"], [], whole_run=False)
+    elbo = vae_losses["VariationalAutoencoder2"]
+    vae["elbo_first4_mean"] = float(np.mean(elbo[:4]))
+    vae["elbo_last4_mean"] = float(np.mean(elbo[-4:]))
+    emit(dict(phase="pretrain", nvidia_smi=smi, batch=PRETRAIN_BATCH,
+              **vae))
+    # its SGD twin: an update linear in the gradient, whose whole run is
+    # held to the CPU's on every element (the RMSProp run's first steps
+    # are sign-like, so its rounding differences grow over the run, C23)
+    sgd, _, _ = pretrain_case(
+        "vae_sgd", lambda d: MultiLayerNetwork(vae_conf("sgd"),
+                                               device=d).init(),
+        pretrain_batches(VAE_STEPS), ["0"], [], whole_run=True)
+    emit(dict(phase="pretrain", nvidia_smi=smi, batch=PRETRAIN_BATCH,
+              **sgd))
+    check(vae["elbo_last4_mean"] < vae["elbo_first4_mean"],
+          f"the VAE's negative ELBO does not fall: {elbo}")
+    stack_batches = pretrain_batches(STACK_BATCHES)
+    names = [f"rbm{i}" for i in range(len(STACK_RBMS))] + ["ae"]
+    stack, net, _ = pretrain_case(
+        "rbm_stack", lambda d: ComputationGraph(stack_conf(),
+                                                device=d).init(),
+        stack_batches, names, ["out"], whole_run=True)
+    fit = [float(net.fit_batch(b)) for b in stack_batches[:STACK_FIT]]
+    stack["fit_losses"] = fit
+    check(all(np.isfinite(fit)), f"the pretrained stack's fit: {fit}")
+    launched = counts()
+    stack["launches"] = launched
+    emit(dict(phase="pretrain", nvidia_smi=smi, batch=PRETRAIN_BATCH,
+              **stack))
+    check(all(v == 0 for v in launched.values()),
+          f"the pretraining path launched a kernel of K1-K6: {launched}")
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# stream_ui: the streaming routes and the training UI (ROADMAP A7.6b)
+# ---------------------------------------------------------------------------
+
+#: round trips through a ServeRoute per model before and after the traced
+#: one, and the GPT's serving rows; the char-RNN's streamed training
+#: batches ([32, 200]); the GPT's watched steps ([32, 256])
+STREAM_CALLS, STREAM_GPT_ROWS = 5, 8
+STREAM_TRAIN_BATCHES, WATCH_STEPS = 2, 4
+# a report's param norm (numpy, f32, from the host copy) against
+# torch.linalg.vector_norm on the card
+TOL_REPORT_NORM = 1e-5
+
+
+def stream_serve_case(broker, name, net, x, symbol, per_call):
+    """A ``ServeRoute`` over ``net.output`` on the card: each published
+    answer bit for bit this process's direct ``output()``, the kernel
+    ``symbol`` read ``per_call`` times a round trip in a trace, ms a round
+    trip against the direct ``output()``."""
+    from deeplearning4j_tpu_torch.streaming import (
+        NDArrayConsumer, NDArrayPublisher, ServeRoute,
+    )
+    direct = uncounted(lambda: net.output(x).cpu().numpy())
+    route = ServeRoute(net, broker.host, broker.port, in_topic=f"{name}.in",
+                       out_topic=f"{name}.out").start()
+    pub = NDArrayPublisher(broker.host, broker.port, f"{name}.in")
+    sub = NDArrayConsumer(broker.host, broker.port, f"{name}.out",
+                          timeout=120.0)
+
+    def round_trip():
+        pub.publish(x)
+        return sub.get_array()
+    try:
+        answers = [round_trip() for _ in range(STREAM_CALLS)]
+        got, traced = traced_kernels(round_trip, [symbol])
+        answers.append(got)
+        times = []
+        for _ in range(STREAM_CALLS):
+            t0 = time.perf_counter()
+            answers.append(round_trip())
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        route.stop()
+        pub.close()
+        sub.close()
+    direct_ms = uncounted(host_ms, lambda: net.output(x).cpu())
+    rec = dict(model=name, shape=list(x.shape), calls=len(answers),
+               bitwise=all(a.dtype == direct.dtype
+                           and a.tobytes() == direct.tobytes()
+                           for a in answers),
+               traced=traced, round_trip_ms=float(np.median(times)),
+               direct_output_ms=direct_ms)
+    check(rec["bitwise"], f"{name}: a published answer is not the direct "
+                          "output() bit for bit")
+    check(traced[symbol] == per_call,
+          f"{name}: a traced round trip holds {traced} ({symbol} "
+          f"{per_call} expected)")
+    return rec
+
+
+class _Tee:
+    """A stats router writing each record to a ``FileStatsStorage`` and,
+    under the session ``<id>-remote``, to a ``RemoteStatsStorageRouter``."""
+
+    def __init__(self, storage, router):
+        self.storage, self.router = storage, router
+
+    def put_init_report(self, report):
+        import dataclasses
+        self.storage.put_init_report(report)
+        self.router.put_init_report(dataclasses.replace(
+            report, session_id=report.session_id + "-remote"))
+
+    def put_report(self, session_id, report):
+        self.storage.put_report(session_id, report)
+        self.router.put_report(session_id + "-remote", report)
+
+
+class _NormCheck:
+    """A listener after the ``StatsListener``: the last report's param
+    norms against ``torch.linalg.vector_norm`` on the card, and a grad
+    norm present for every param."""
+
+    def __init__(self, storage, session):
+        self.storage, self.session = storage, session
+        self.worst, self.missing_grads, self.reports = 0.0, [], 0
+
+    def iteration_done(self, model, iteration, score):
+        rep = self.storage.get_reports(self.session)[-1]
+        check(rep.iteration == iteration, f"report {rep.iteration} at "
+                                          f"iteration {iteration}")
+        self.reports += 1
+        for node, params in model.params.items():
+            for pname, t in params.items():
+                key = f"{node}.{pname}"
+                want = float(torch.linalg.vector_norm(t.float()))
+                got = float(rep.series[f"param_norm:{key}"][0])
+                self.worst = max(self.worst, abs(got - want)
+                                 / max(abs(want), 1e-30))
+                if f"grad_norm:{key}" not in rep.series:
+                    self.missing_grads.append(key)
+
+
+def _http(url):
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.status, r.read()
+
+
+def stream_watch_case(tmp):
+    """``StatsListener(frequency=1, histogram_frequency=2)`` on WATCH_STEPS
+    ``fit_batch`` steps of the full-width GPT, writing to a
+    ``FileStatsStorage`` a ``UIServer`` serves and, through a
+    ``RemoteStatsStorageRouter``, posting to that server; against the
+    same steps without the listener. Returns (record, the UI server, its
+    storage, the path's launches)."""
+    from deeplearning4j_tpu_torch.ui import (
+        FileStatsStorage, RemoteStatsStorageRouter, StatsListener, UIServer,
+        codec,
+    )
+    batches = text_batches(WATCH_STEPS, TRAIN_BATCH, SLICE["seq_len"],
+                           SEED + 31)
+
+    def steps(net):
+        losses, ms, launches = [], [], []
+        for b in batches:
+            before = counts()
+            t0 = time.perf_counter()
+            losses.append(float(net.fit_batch(b)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = counts()
+            launches.append({k: after[k] - before[k] for k in after})
+        return losses, ms, launches
+    plain_losses, plain_ms, _ = uncounted(steps, par_gpt())
+    path = tmp / "stats.bin"
+    storage = FileStatsStorage(str(path))
+    ui = UIServer(port=0, storage=storage).start()
+    router = RemoteStatsStorageRouter(ui.url)
+    listener = StatsListener(_Tee(storage, router), session_id="gpt",
+                             frequency=1, histogram_frequency=2)
+    norms = _NormCheck(storage, "gpt")
+    net = par_gpt()
+    net.set_listeners(listener, norms)
+    copy_ms = []
+    real = listener.iteration_done
+
+    def timed_report(*a):
+        real(*a)
+        copy_ms.append(listener.last_copy_s * 1e3)
+    listener.iteration_done = timed_report
+    reset_counts()
+    losses, ms, launches = steps(net)
+    launched = counts()
+    router.flush(timeout=60.0)
+    per_step = {k: SLICE["n_layers"] for k in ("flash_attn_fwd",
+                                               "flash_attn_dq",
+                                               "flash_attn_dkv")}
+    answers = {p: _http(ui.url + p) for p in (
+        "/api/session?id=gpt", "/api/session?id=gpt-remote",
+        "/api/histograms?id=gpt", "/api/metrics", "/healthz", "/readyz")}
+    sess = json.loads(answers["/api/session?id=gpt"][1])
+    remote = json.loads(answers["/api/session?id=gpt-remote"][1])
+    hist = json.loads(answers["/api/histograms?id=gpt"][1])
+    live = {s: [r.encode() for r in storage.get_reports(s)]
+            for s in ("gpt", "gpt-remote")}
+    replay = FileStatsStorage(str(path))
+    replayed = {s: [r.encode() for r in replay.get_reports(s)]
+                for s in ("gpt", "gpt-remote")}
+    replay.close()
+    reports = storage.get_reports("gpt")
+    py_equal = all(codec._encode_python(
+        r.iteration, r.timestamp_ms, r.score, r.samples_per_sec,
+        r.batches_per_sec, list(r.series),
+        [np.ascontiguousarray(np.asarray(v, np.float32).ravel())
+         for v in r.series.values()]) == r.encode() for r in reports)
+    rec = dict(
+        steps=WATCH_STEPS, batch=[TRAIN_BATCH, SLICE["seq_len"]],
+        losses=losses, plain_losses=plain_losses,
+        losses_bitwise=losses == plain_losses,
+        launches_per_step=launches, reports=norms.reports,
+        param_norm_worst_rel=norms.worst,
+        grads_missing=norms.missing_grads,
+        series_per_report=len(reports[-1].series),
+        report_bytes=[len(b) for b in live["gpt"]],
+        report_copy_ms=copy_ms,
+        ms_per_step_listener=ms, ms_per_step_plain=plain_ms,
+        endpoints={p: a[0] for p, a in answers.items()},
+        session_reports=len(sess["reports"]),
+        remote_reports=len(remote["reports"]),
+        histogram_iterations=hist["iterations"],
+        replay_equals_storage=replayed == live,
+        remote_bytes_equal=live["gpt"] == live["gpt-remote"],
+        native_codec=codec.native_available(),
+        native_bytes_equal_python=py_equal)
+    router.close()
+    check(rec["losses_bitwise"], f"the watched GPT's losses {losses} are not "
+                                 f"the unwatched {plain_losses} bit for bit")
+    check(all({k: st[k] for k in per_step} == per_step for st in launches),
+          f"watched GPT launches per step: {launches}")
+    check(norms.reports == WATCH_STEPS
+          and norms.worst <= TOL_REPORT_NORM and not norms.missing_grads,
+          f"reports {norms.reports}, param norms {norms.worst} from "
+          f"vector_norm, grads missing {norms.missing_grads[:4]}")
+    check(all(c == 200 for c in rec["endpoints"].values())
+          and rec["session_reports"] == rec["remote_reports"] == WATCH_STEPS
+          and hist["iterations"] == [2, 4] and hist["param"],
+          f"the UI's answers: {rec['endpoints']}, {rec['session_reports']} "
+          f"/ {rec['remote_reports']} reports, histograms at "
+          f"{hist['iterations']}")
+    check(rec["replay_equals_storage"] and rec["remote_bytes_equal"],
+          "the file's replay, or the remote posts, differ from the "
+          "storage's reports")
+    check(rec["native_codec"] and py_equal, "the native stats codec did "
+          "not load, or its bytes differ from the Python encoder's")
+    return rec, ui, storage, launched
+
+
+def stream_ui(smi):
+    """The streaming routes and the training UI on the card (ROADMAP
+    A7.6b): ``ServeRoute`` over the char-RNN (K1) and the GPT (K4), a
+    ``StreamingPipeline`` training the char-RNN (K2, K3), a
+    ``StatsListener`` watching the GPT's training (K4-K6) through a
+    ``UIServer``, the conv and flow listeners on LeNet, the native stats
+    codec. Returns the path's launch counts."""
+    from deeplearning4j_tpu_torch.streaming import (
+        NDArrayPublisher, NDArrayServer, StreamingPipeline,
+    )
+    from deeplearning4j_tpu_torch.ui import (
+        ConvolutionalIterationListener, FlowIterationListener,
+    )
+    launched = {k: 0 for k in KERNELS}
+
+    def add(c):
+        for k, n in c.items():
+            launched[k] += n
+    baseline = set(threading.enumerate())
+    rec = dict(phase="stream_ui", nvidia_smi=smi)
+    broker = NDArrayServer()
+    try:
+        # serving: the char-RNN (K1) and the GPT (K4) behind ServeRoutes
+        V = LSTM_SLICE["vocab_size"]
+        rng = np.random.default_rng(SEED + 41)
+        rnn = par_char_rnn()
+        x_rnn = np.eye(V, dtype=np.float32)[rng.integers(0, V, LSTM_BATCH)]
+        reset_counts()
+        rec["serve_char_rnn"] = stream_serve_case(
+            broker, "char_rnn", rnn, x_rnn, "lstm_fwd_infer_kernel",
+            LSTM_SLICE["layers"])
+        got = counts()
+        add(got)
+        calls = rec["serve_char_rnn"]["calls"]
+        check(got == dict({k: 0 for k in KERNELS},
+                          lstm_fwd_infer=LSTM_SLICE["layers"] * calls),
+              f"the char-RNN route's launches: {got}")
+        gpt = par_gpt()
+        x_gpt = np.eye(V, dtype=np.float32)[rng.integers(
+            0, V, (STREAM_GPT_ROWS, SLICE["seq_len"]))]
+        reset_counts()
+        rec["serve_gpt"] = stream_serve_case(
+            broker, "gpt", gpt, x_gpt, "flash_fwd_kernel", SLICE["n_layers"])
+        got = counts()
+        add(got)
+        calls = rec["serve_gpt"]["calls"]
+        check(got == dict({k: 0 for k in KERNELS},
+                          flash_attn_fwd=SLICE["n_layers"] * calls),
+              f"the GPT route's launches: {got}")
+        del gpt
+
+        # training: the char-RNN fed from two topics
+        Bt, Tt = LSTM_TRAIN_BATCH
+        batches = text_batches(STREAM_TRAIN_BATCHES, Bt, Tt, SEED + 42)
+        twin = par_char_rnn()
+        plain = uncounted(lambda: [float(twin.fit_batch(b))
+                                   for b in batches])
+        px = NDArrayPublisher(broker.host, broker.port, "train.features")
+        py = NDArrayPublisher(broker.host, broker.port, "train.labels")
+        for b in batches:
+            px.publish(b.features)
+            py.publish(b.labels)
+        pipe = StreamingPipeline(rnn, broker.host, broker.port)
+        reset_counts()
+        scores = []
+        _, steps = spied_fit(rnn, lambda n: scores.extend(
+            pipe.run(STREAM_TRAIN_BATCHES)))
+        add(counts())
+        pipe.close()
+        px.close()
+        py.close()
+        n_win = Tt // char_rnn_lstm(**LSTM_SLICE).training.tbptt_fwd_length
+        want = {"lstm_fwd_train": n_win * LSTM_SLICE["layers"],
+                "lstm_bwd": n_win * LSTM_SLICE["layers"]}
+        rec["train_char_rnn"] = dict(
+            scores=scores, plain=plain, launches_per_fit_batch=steps,
+            bitwise=scores == plain and params_equal(rnn, twin))
+        check(rec["train_char_rnn"]["bitwise"], "the streamed char-RNN's "
+              f"scores {scores} are not the plain fit_batch's {plain}")
+        check(len(steps) == STREAM_TRAIN_BATCHES
+              and all({k: st[k] for k in want} == want for st in steps),
+              f"streamed char-RNN launches per fit_batch {steps} != {want}")
+        del rnn, twin
+    finally:
+        broker.stop()
+
+    # watching: the GPT's training through the UI
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_ui_"))
+    ui = storage = None
+    try:
+        watch, ui, storage, got = stream_watch_case(tmp)
+        add(got)
+        rec["watch_gpt"] = watch
+
+        # the conv and flow listeners on LeNet
+        net = MultiLayerNetwork(lenet_mnist(), device="cuda").init()
+        conv = ConvolutionalIterationListener(frequency=1)
+        flow = FlowIterationListener()
+        net.set_listeners(conv, flow)
+        imgs = MnistDataSetIterator(LENET_BATCH, num_examples=LENET_BATCH,
+                                    flatten=False)
+        net.fit_batch(next(iter(imgs)))
+        ui.post_flow(flow.snapshot)
+        ui.post_conv_activations(conv.renders)
+        served_flow = json.loads(_http(ui.url + "/api/flow")[1])
+        acts = json.loads(_http(ui.url + "/api/activations")[1])
+        rec["lenet_listeners"] = dict(
+            renders={str(k): list(g.shape) for k, g in conv.renders.items()},
+            flow_nodes=len(flow.snapshot["nodes"]),
+            served_flow_nodes=len(served_flow["nodes"]),
+            served_activations=sorted(acts))
+        check(len(conv.renders) >= 2 and all(
+            g.size and g.max() == 1.0 for g in conv.renders.values()),
+              f"the conv listener's renders: {rec['lenet_listeners']}")
+        check(served_flow["nodes"] == flow.snapshot["nodes"]
+              and set(acts) == {str(k) for k in conv.renders},
+              f"the UI's flow / activations: {rec['lenet_listeners']}")
+    finally:
+        if ui is not None:
+            ui.stop()
+        if storage is not None:
+            storage.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = [t.name for t in set(threading.enumerate()) - baseline
+            if t.is_alive()]
+    rec["threads_left"] = left
+    rec["main_path_launches"] = launched
+    emit(rec)
+    check(not left, f"stream_ui left threads behind: {left}")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -8033,6 +8772,15 @@ def main() -> int:
     # the char-RNN's training (K2-K6), the world-2 ranks' rows, native IO
     fed = timed("input_path", input_path, smi)
 
+    # ---- 19. layerwise pretraining: the VAE and the RBM / AutoEncoder
+    # stack against their CPU twins (no kernel of K1-K6 on this path) -----
+    timed("pretrain", pretrain_phase, smi)
+
+    # ---- 20. the streaming routes and the training UI: ServeRoutes over
+    # the char-RNN (K1) and the GPT (K4), a StreamingPipeline (K2, K3), a
+    # StatsListener on the GPT's training (K4-K6) served by a UIServer ---
+    streamed = timed("stream_ui", stream_ui, smi)
+
     # ---- 19. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
@@ -8043,7 +8791,9 @@ def main() -> int:
              launches=flash_launches + train_path["flash_attn_fwd"]
              + served["flash_attn_fwd"] + tf_gpt["flash_attn_fwd"]
              + fleet_launched["flash_attn_fwd"] + par["flash_attn_fwd"]
-             + tuned_launched["flash_attn_fwd"] + fed["flash_attn_fwd"],
+             + tuned_launched["flash_attn_fwd"] + fed["flash_attn_fwd"]
+             + streamed["flash_attn_fwd"],
+             launches_stream_ui=streamed["flash_attn_fwd"],
              launches_input_path=fed["flash_attn_fwd"],
              launches_train_parallel=par["flash_attn_fwd"],
              launches_cost_autotune=tuned_launched["flash_attn_fwd"],
@@ -8075,7 +8825,8 @@ def main() -> int:
              # and the imported Keras models
              launches=lstm_launches + lstm_train_path["lstm_fwd_infer"]
              + served["lstm_fwd_infer"] + fleet_launched["lstm_fwd_infer"]
-             + keras["lstm_fwd_infer"],
+             + keras["lstm_fwd_infer"] + streamed["lstm_fwd_infer"],
+             launches_stream_ui=streamed["lstm_fwd_infer"],
              launches_keras_transfer=keras["lstm_fwd_infer"],
              launches_serve_fleet=fleet_launched["lstm_fwd_infer"],
              replays_serve_fleet_traced_wave=fleet["traced"]["char_rnn"],
@@ -8098,7 +8849,8 @@ def main() -> int:
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:152",
              launches=train_path["flash_attn_dq"] + tf_gpt["flash_attn_dq"]
              + par["flash_attn_dq"] + tuned_launched["flash_attn_dq"]
-             + fed["flash_attn_dq"],
+             + fed["flash_attn_dq"] + streamed["flash_attn_dq"],
+             launches_stream_ui=streamed["flash_attn_dq"],
              launches_input_path=fed["flash_attn_dq"],
              launches_train_parallel=par["flash_attn_dq"],
              launches_cost_autotune=tuned_launched["flash_attn_dq"],
@@ -8124,7 +8876,9 @@ def main() -> int:
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:192",
              launches=train_path["flash_attn_dkv"]
              + tf_gpt["flash_attn_dkv"] + par["flash_attn_dkv"]
-             + tuned_launched["flash_attn_dkv"] + fed["flash_attn_dkv"],
+             + tuned_launched["flash_attn_dkv"] + fed["flash_attn_dkv"]
+             + streamed["flash_attn_dkv"],
+             launches_stream_ui=streamed["flash_attn_dkv"],
              launches_input_path=fed["flash_attn_dkv"],
              launches_train_parallel=par["flash_attn_dkv"],
              launches_cost_autotune=tuned_launched["flash_attn_dkv"],
@@ -8154,7 +8908,9 @@ def main() -> int:
              launches=lstm_train_path["lstm_fwd_train"]
              + fitted["lstm_fwd_train"] + tf_lstm["lstm_fwd_train"]
              + par["lstm_fwd_train"] + keras["lstm_fwd_train"]
-             + fitted_keras["lstm_fwd_train"] + fed["lstm_fwd_train"],
+             + fitted_keras["lstm_fwd_train"] + fed["lstm_fwd_train"]
+             + streamed["lstm_fwd_train"],
+             launches_stream_ui=streamed["lstm_fwd_train"],
              launches_input_path=fed["lstm_fwd_train"],
              launches_keras_transfer=keras["lstm_fwd_train"],
              launches_serve_server_keras_fit=fitted_keras["lstm_fwd_train"],
@@ -8187,7 +8943,9 @@ def main() -> int:
              replaces="deeplearning4j_tpu/ops/pallas_kernels.py:161",
              launches=lstm_train_path["lstm_bwd"] + fitted["lstm_bwd"]
              + tf_lstm["lstm_bwd"] + par["lstm_bwd"] + keras["lstm_bwd"]
-             + fitted_keras["lstm_bwd"] + fed["lstm_bwd"],
+             + fitted_keras["lstm_bwd"] + fed["lstm_bwd"]
+             + streamed["lstm_bwd"],
+             launches_stream_ui=streamed["lstm_bwd"],
              launches_input_path=fed["lstm_bwd"],
              launches_keras_transfer=keras["lstm_bwd"],
              launches_serve_server_keras_fit=fitted_keras["lstm_bwd"],

@@ -1,14 +1,17 @@
 """Build and load the host-side C++ libraries of ``native/`` (the JAX
 package's ``native_loader.py``, with a build directory of its own).
 
-``native/<name>.cc`` is compiled once, at first use, with ``g++ -O2
+``native/<source>.cc`` is compiled once, at first use, with ``g++ -O2
 -shared -fPIC`` (the flags of ``native/build.sh``) into
 ``deeplearning4j_tpu_torch/_build/`` under a name that hashes the source
 and the flags, so an edited source is rebuilt, and loaded with
 ``ctypes``. A build that runs is reported to the compile watchers
 (``profiling/watchers.report_compile``, kind ``"gxx"``), as the kernels'
 ``nvcc`` builds are. The ``native/`` tree is read, never written: the
-JAX package's own ``native_lib/`` is not touched.
+JAX package's own ``native_lib/`` is not touched. A library is named as
+the JAX package names it; ``SOURCES`` maps each name to its source file
+where the two differ (``statscodec`` is built from ``stats_codec.cc``, as
+``native/build.sh`` builds it).
 
 Where there is no compiler, or the compile fails, ``load_native`` returns
 None and the caller takes its documented Python path (``datasets/
@@ -33,23 +36,31 @@ NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
 
+#: library name -> source stem under ``native/`` where they differ
+SOURCES = {"statscodec": "stats_codec"}
+
 logger = logging.getLogger(__name__)
 _cache: Dict[str, Optional[ctypes.CDLL]] = {}
 _lock = threading.Lock()
 
 
+def source_path(name: str) -> Path:
+    """The source ``lib<name>`` is built from."""
+    return NATIVE_DIR / f"{SOURCES.get(name, name)}.cc"
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``native/<name>.cc`` lives."""
-    src = (NATIVE_DIR / f"{name}.cc").read_bytes()
+    """Where the library built from ``source_path(name)`` lives."""
+    src = source_path(name).read_bytes()
     digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build_native(name: str) -> Optional[Path]:
-    """Compile ``native/<name>.cc`` unless its library is built; the
+    """Compile ``source_path(name)`` unless its library is built; the
     library's path, or None when there is no source or ``g++``, or the
     compile fails (its output is kept beside the library as ``.log``)."""
-    if not (NATIVE_DIR / f"{name}.cc").exists():
+    if not source_path(name).exists():
         return None
     path = library_path(name)
     if path.exists():
@@ -63,7 +74,7 @@ def build_native(name: str) -> Optional[Path]:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [gxx, *GXX_FLAGS, str(NATIVE_DIR / f"{name}.cc"), "-o", str(tmp)],
+            [gxx, *GXX_FLAGS, str(source_path(name)), "-o", str(tmp)],
             capture_output=True, text=True, timeout=120, check=False)
     except (OSError, subprocess.TimeoutExpired) as e:
         logger.warning("g++ %s.cc did not run: %s", name, e)

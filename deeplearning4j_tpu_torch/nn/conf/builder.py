@@ -104,8 +104,10 @@ class TrainingConfig:
     dtype, the optimizer, gradient normalization, the precision policy and
     the backprop style. ``iterations``, ``max_num_line_search_iterations``,
     ``minibatch``, ``backprop`` and ``pretrain`` are carried so the JAX
-    package's configs load; the containers refuse their non-default
-    values (``netcommon.check_trainable``)."""
+    package's configs load. Like the JAX package, the containers read
+    neither ``backprop`` nor ``pretrain``: ``fit`` trains by backprop
+    whatever they say, and layerwise pretraining runs only when
+    ``pretrain(iterator)`` is called (ROADMAP C33)."""
     seed: int = 12345
     # sgd | line_gradient_descent | conjugate_gradient | lbfgs
     optimization_algo: str = "sgd"
@@ -263,6 +265,12 @@ class ListBuilder:
         training.backprop_type = t
         training.tbptt_fwd_length = fwd
         training.tbptt_bwd_length = bwd
+        return self
+
+    def pretrain(self, flag: bool) -> "ListBuilder":
+        """Sets ``training.pretrain``, which is carried and not read
+        (ROADMAP C33): ``net.pretrain(iterator)`` pretrains."""
+        self._parent._training.pretrain = flag
         return self
 
     def validate(self, mesh=None, batch_size: Optional[int] = None,

@@ -19,7 +19,9 @@ between them, as ``MultiLayerNetwork`` does. Dropout draws from one
 single-card training features are those of ``MultiLayerNetwork``: the
 precision policy (bf16 compute on f32 masters), ``remat``, listeners,
 the divergence sentinel, ``fit(scan_window=N)``, ``fit``'s asynchronous
-prefetch and the line-search solvers. ``evaluate``, ``evaluate_roc``,
+prefetch and the line-search solvers. ``pretrain`` / ``pretrain_layer``
+train the AutoEncoder, RBM and VAE nodes greedily, each on a walk of its
+ancestors (``_activations_to``). ``evaluate``, ``evaluate_roc``,
 ``evaluate_roc_multi_class`` and ``evaluate_regression`` drive
 ``output()`` over an iterator. Incremental decode has the dense step
 (``decode_fns``) and the block-paged one the serving engine runs
@@ -41,7 +43,7 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
 )
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.graph import (
-    ElementWiseVertex, LastTimeStepVertex,
+    DuplicateToTimeSeriesVertex, ElementWiseVertex, LastTimeStepVertex,
 )
 from deeplearning4j_tpu_torch.nn.conf.graph_builder import (
     ComputationGraphConfiguration,
@@ -54,11 +56,13 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.shape import TimeDistributedLayer
-from deeplearning4j_tpu_torch.nn.multilayer import _sum_aux_losses
+from deeplearning4j_tpu_torch.nn.multilayer import (
+    PRETRAINABLE, _sum_aux_losses,
+)
 from deeplearning4j_tpu_torch.nn.netcommon import (
     SGD_ALGOS, CostAnalysisMixin, EvalMixin, NetCommonMixin, ScanFitMixin,
-    batch_sum_kwargs, cast_batch, check_trainable, compute_dtype, flat_params,
-    policy_value_and_grad, remat_call, set_flat_params,
+    batch_sum_kwargs, cast_batch, compute_dtype, flat_params,
+    make_pretrain_step, policy_value_and_grad, remat_call, set_flat_params,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer, l1_l2_penalty,
@@ -205,7 +209,8 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin,
                  carries: Optional[Dict[str, Any]] = None, *,
                  train: bool = False,
                  rng: Optional[torch.Generator] = None,
-                 stop_before_loss: bool = False):
+                 stop_before_loss: bool = False,
+                 subset: Optional[set] = None):
         """Walk the DAG in topological order. Each node takes the mask of
         its FIRST input. Returns (activations, masks, new states).
 
@@ -218,7 +223,8 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin,
         per-layer-node RNN carry dict (tBPTT, rnn_time_step). When given,
         layers with ``supports_carry`` run ``scan`` from their carry, after
         their input dropout, and the new carries come back as a fourth
-        value."""
+        value. ``subset``: walk only these nodes (a layerwise pretraining
+        target's ancestors)."""
         acts: Dict[str, Tensor] = {}
         out_masks: Dict[str, Optional[Tensor]] = {}
         new_states: Dict[str, Dict[str, Tensor]] = {}
@@ -232,6 +238,8 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin,
         split = _tp.seq_split(mesh)
         shard: Dict[str, bool] = {}
         for name in self.conf.topological_order:
+            if subset is not None and name not in subset:
+                continue
             node = self.conf.nodes[name]
             if node.kind == "input":
                 acts[name] = inputs[name]
@@ -472,7 +480,6 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin,
         (dropout on). Gradients mirror the params; a tied head's gradient
         lands in the tied node's ``W``."""
         self._check_init()
-        check_trainable(self.conf.training)
         inputs, labels, masks, lmasks = cast_batch(self.conf.training,
                                                    self._split(data))
         loss, new_states, grads = policy_value_and_grad(
@@ -506,7 +513,6 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin,
         last step's as a float. Listeners hear of each step, and the
         sentinel gets each step's flag."""
         self._check_init()
-        check_trainable(self.conf.training)
         if self.conf.training.optimization_algo not in SGD_ALGOS:
             from deeplearning4j_tpu_torch.optimize.solvers import (
                 solver_fit_batch,
@@ -518,6 +524,7 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin,
         with get_tracer().span("fit_batch", it=self.iteration_count + 1):
             loss, bad = self._train_batch(data)
         self.last_batch_size = data.num_examples()
+        self.last_input = data.features   # for visualization listeners
         self.score_value = loss
         self.iteration_count += 1
         self._observe_sentinel(bad)
@@ -695,6 +702,85 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin,
             if it is not data:
                 it.close()
         return self
+
+    # --------------------------------------------------------------- pretrain
+    def _ancestors(self, target: str) -> set:
+        """The ancestor closure of ``target`` (itself excluded), for
+        partial walks. It includes the nodes a vertex reads at run time
+        (a ``DuplicateToTimeSeriesVertex``'s named T source), so a subset
+        walk can resolve them."""
+        seen: set = set()
+        stack = list(self.conf.nodes[target].inputs)
+        while stack:
+            n = stack.pop()
+            if n in seen:
+                continue
+            seen.add(n)
+            node = self.conf.nodes[n]
+            stack.extend(node.inputs)
+            if (node.kind == "vertex"
+                    and isinstance(node.vertex, DuplicateToTimeSeriesVertex)
+                    and isinstance(node.vertex.timesteps, str)):
+                stack.append(node.vertex.timesteps)
+        return seen
+
+    @torch.no_grad()
+    def _activations_to(self, target: str, in_map: Dict[str, Tensor],
+                        masks: Optional[Dict[str, Tensor]] = None) -> Tensor:
+        """The inference activations feeding node ``target``, after its
+        preprocessor (the graph's feedForwardToLayer): a walk of the
+        target's ancestors only, mask-aware, without gradients. Each
+        target's ancestor set is kept, as the JAX container keeps its
+        jitted walk per target."""
+        node = self.conf.nodes[target]
+        if node.kind != "layer":
+            raise ValueError(f"Node {target!r} is not a layer node")
+        if len(node.inputs) != 1:
+            raise ValueError(
+                f"Node {target!r} has {len(node.inputs)} inputs; layerwise "
+                "pretraining needs a single-input node (pretraining on "
+                "inputs[0] alone would silently use the wrong objective)")
+        cache = self.__dict__.setdefault("_act_to_subsets", {})
+        if target not in cache:
+            cache[target] = self._ancestors(target)
+        acts, _, _ = self._forward(self.params, self.states, in_map, masks,
+                                   train=False, rng=None,
+                                   stop_before_loss=True,
+                                   subset=cache[target])
+        h = acts[node.inputs[0]]
+        if node.preprocessor is not None:
+            h = node.preprocessor.transform(h, None)
+        return h
+
+    def pretrain(self, iterator, epochs: int = 1) -> None:
+        """Greedy layerwise pretraining over the topological order (ref:
+        ComputationGraph.pretrain:527-545)."""
+        self._check_init()
+        for name in self._layer_nodes:
+            self.pretrain_layer(name, iterator, epochs=epochs)
+
+    def pretrain_layer(self, name: str, iterator, epochs: int = 1) -> None:
+        """Pretrain one layer node on the activations of the subgraph
+        below it (ref: ComputationGraph.pretrainLayer:547-579): a fresh
+        optimizer from the config's updater, one bare update a batch
+        (``netcommon.make_pretrain_step``) written into the node's tensors
+        in place. A layer that cannot pretrain (not an AE, RBM or VAE) is
+        skipped, as the reference does. ``score_value`` holds the last
+        step's loss; no listener hears of it."""
+        self._check_init()
+        layer = self.conf.nodes[name].layer
+        if not isinstance(layer, PRETRAINABLE):
+            return
+        tx = build_optimizer(self.conf.training)
+        layer_opt = tx.init(self.params[name])
+        step = make_pretrain_step(layer, tx)
+        for _ in range(epochs):
+            iterator.reset()
+            for batch in iterator:
+                inputs, _, masks, _ = self._split(batch)
+                x = self._activations_to(name, inputs, masks)
+                self.score_value = step(self.params[name], layer_opt, x,
+                                        self._rng)
 
     # ------------------------------------------------------- rnn statefulness
     def rnn_clear_previous_state(self) -> None:

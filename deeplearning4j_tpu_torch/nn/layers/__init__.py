@@ -18,7 +18,9 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (  # noqa: F401
     ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
+    RBM,
     ActivationLayer,
+    AutoEncoder,
     CenterLossOutputLayer,
     DenseLayer,
     DropoutLayer,
@@ -53,4 +55,7 @@ from deeplearning4j_tpu_torch.nn.layers.shape import (  # noqa: F401
     ReshapeLayer,
     TimeDistributedLayer,
     ZeroPadding1DLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.variational import (  # noqa: F401
+    VariationalAutoencoder,
 )

@@ -1,6 +1,7 @@
 """Feed-forward layers (the JAX package's ``nn/layers/core.py``): Dense,
-Output, Loss, Activation, Dropout, Embedding and CenterLossOutput. The
-pretraining layers (AutoEncoder, RBM) wait for ROADMAP A7.
+Output, Loss, Activation, Dropout, Embedding, the pretraining layers
+AutoEncoder and RBM (whose random draws go through ``draws``), and
+CenterLossOutput.
 
 Loss heads compute their loss from the layer's *input* (``compute_loss``),
 as the containers hand it over; dropout never fires inside a loss.
@@ -14,11 +15,12 @@ activation (an output layer's softmax too) on the whole activation.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.layers import draws
 from deeplearning4j_tpu_torch.nn.layers.base import (
     BaseLayerConf, Params, register_layer,
 )
@@ -173,6 +175,121 @@ class EmbeddingLayer(BaseLayerConf):
             out = active_model_context().gather_model(out)
         out = out + params["b"]
         return get_activation(self.activation)(out), state
+
+
+@register_layer
+@dataclass
+class AutoEncoder(BaseLayerConf):
+    """Denoising autoencoder (ref: nn/layers/feedforward/autoencoder/
+    AutoEncoder.java). Params: W (tied decode via W^T), b (hidden), vb
+    (visible), PretrainParamInitializer's W/b/vb contract."""
+    n_out: int = 0
+    corruption_level: float = 0.3
+    loss: str = "mse"
+
+    def infer_output_type(self, in_type: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    def param_order(self) -> List[str]:
+        return ["W", "b", "vb"]
+
+    def init_params(self, gen, dtype=torch.float32) -> Params:
+        return {
+            "W": self._init_w(gen, (self.n_in, self.n_out), self.n_in,
+                              self.n_out, dtype),
+            "b": self._init_b((self.n_out,), dtype),
+            "vb": self._init_b((self.n_in,), dtype),
+        }
+
+    def encode(self, params, x):
+        return get_activation(self.activation)(x @ params["W"] + params["b"])
+
+    def decode(self, params, h):
+        return get_activation(self.activation)(h @ params["W"].T
+                                               + params["vb"])
+
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        x = self._dropout_input(x, train, rng)
+        return self.encode(params, x), state
+
+    def pretrain_loss(self, params, x, *, rng):
+        """Denoising reconstruction loss for layerwise pretraining (ref:
+        AutoEncoder.computeGradientAndScore): the input corrupted by a
+        keep-mask drawn from ``rng`` (``draws.keep_mask``), encoded,
+        decoded and held to the clean input."""
+        if self.corruption_level > 0 and rng is not None:
+            keep = draws.keep_mask(rng, 1.0 - self.corruption_level,
+                                   x.shape, x.device)
+            corrupted = torch.where(keep, x, 0.0)
+        else:
+            corrupted = x
+        recon = self.decode(params, self.encode(params, corrupted))
+        return ((recon - x) ** 2).sum(-1).mean()
+
+
+@register_layer
+@dataclass
+class RBM(BaseLayerConf):
+    """Restricted Boltzmann machine with CD-k pretraining (ref:
+    nn/layers/feedforward/rbm/RBM.java; conf nn/conf/layers/RBM.java,
+    HiddenUnit/VisibleUnit BINARY|GAUSSIAN). The forward is propup
+    (sigmoid, or identity for non-binary hidden units), used as a
+    feed-forward layer after pretraining, as the reference does."""
+    n_out: int = 0
+    hidden_unit: str = "binary"    # binary | gaussian | relu
+    visible_unit: str = "binary"
+    k: int = 1                      # CD-k steps
+
+    def infer_output_type(self, in_type: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    def param_order(self) -> List[str]:
+        return ["W", "b", "vb"]
+
+    def init_params(self, gen, dtype=torch.float32) -> Params:
+        return {
+            "W": self._init_w(gen, (self.n_in, self.n_out), self.n_in,
+                              self.n_out, dtype),
+            "b": self._init_b((self.n_out,), dtype),
+            "vb": self._init_b((self.n_in,), dtype),
+        }
+
+    def _hid_mean(self, params, v):
+        pre = v @ params["W"] + params["b"]
+        return torch.sigmoid(pre) if self.hidden_unit == "binary" else pre
+
+    def _vis_mean(self, params, h):
+        pre = h @ params["W"].T + params["vb"]
+        return torch.sigmoid(pre) if self.visible_unit == "binary" else pre
+
+    def apply(self, params, x, *, state, train=False, rng=None, mask=None):
+        x = self._dropout_input(x, train, rng)
+        return self._hid_mean(params, x), state
+
+    def cd_gradients(self, params, v0, *, rng) -> Tuple[Params, torch.Tensor]:
+        """One CD-k estimate: (gradients, reconstruction error). Hand-coded
+        because contrastive divergence is not an autodiff loss (ref:
+        RBM.computeGradientAndScore); binary hidden units are sampled
+        against ``draws.uniform`` from ``rng``, one draw a CD step."""
+        h0 = self._hid_mean(params, v0)
+        hk_mean, vk = h0, v0
+        for _ in range(self.k):
+            if self.hidden_unit == "binary":
+                u = draws.uniform(rng, hk_mean.shape, hk_mean.dtype,
+                                  hk_mean.device)
+                h_sample = (u < hk_mean).to(v0.dtype)
+            else:
+                h_sample = hk_mean
+            vk = self._vis_mean(params, h_sample)
+            hk_mean = self._hid_mean(params, vk)
+        n = v0.shape[0]
+        grads = {
+            "W": -(v0.T @ h0 - vk.T @ hk_mean) / n,
+            "b": -(h0 - hk_mean).mean(0),
+            "vb": -(v0 - vk).mean(0),
+        }
+        err = ((v0 - vk) ** 2).sum(-1).mean()
+        return grads, err
 
 
 @register_layer

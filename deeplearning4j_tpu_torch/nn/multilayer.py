@@ -31,8 +31,10 @@ in the backward (``netcommon.remat_call``). ``set_listeners`` /
 runs windows of N steps with one host read, ``fit`` prefetches through an
 ``AsyncDataSetIterator`` (``use_async``), and an ``optimization_algo``
 other than SGD trains through the line-search solvers
-(``optimize/solvers``). Layerwise pretraining raises
-``NotImplementedError`` naming ROADMAP A7. ``evaluate``,
+(``optimize/solvers``). ``pretrain(iterator)`` trains each AutoEncoder,
+RBM or VAE layer in turn on the stack below it (greedy layerwise, a bare
+update, in place); like the JAX container, ``fit`` reads neither
+``training.pretrain`` nor ``training.backprop`` (ROADMAP C33). ``evaluate``,
 ``evaluate_roc``, ``evaluate_roc_multi_class`` and
 ``evaluate_regression`` drive ``output()`` over an iterator. A
 ``CenterLossOutputLayer`` head's centers move by their moving average
@@ -52,11 +54,16 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
 )
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.layers.core import CenterLossOutputLayer
+from deeplearning4j_tpu_torch.nn.layers.core import (
+    RBM, AutoEncoder, CenterLossOutputLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.variational import (
+    VariationalAutoencoder,
+)
 from deeplearning4j_tpu_torch.nn.netcommon import (
     SGD_ALGOS, CostAnalysisMixin, EvalMixin, NetCommonMixin, ScanFitMixin,
-    batch_sum_kwargs, cast_batch, check_trainable, compute_dtype, flat_params,
-    policy_value_and_grad, remat_call, set_flat_params,
+    batch_sum_kwargs, cast_batch, compute_dtype, flat_params,
+    make_pretrain_step, policy_value_and_grad, remat_call, set_flat_params,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer, l1_l2_penalty,
@@ -65,6 +72,9 @@ from deeplearning4j_tpu_torch.parallel import tensor as _tp
 from deeplearning4j_tpu_torch.profiling.tracer import get_tracer
 
 Tensor = torch.Tensor
+
+#: the layers layerwise pretraining trains (the rest it walks past)
+PRETRAINABLE = (RBM, AutoEncoder, VariationalAutoencoder)
 
 
 def _sum_aux_losses(states):
@@ -358,7 +368,6 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin,
         (``_batch``'s tuple) at the current params, training mode, under
         the precision policy (gradients and score in f32)."""
         self._check_init()
-        check_trainable(self.conf.training)
         batch = cast_batch(self.conf.training, batch)
         loss, (new_states, _, h), grads = policy_value_and_grad(
             lambda p: self._loss_fn(p, self.states, *batch, rng=self._rng),
@@ -401,7 +410,6 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin,
         last step's as a float. Listeners hear of each step, and the
         sentinel gets each step's flag."""
         self._check_init()
-        check_trainable(self.conf.training)
         if self.conf.training.optimization_algo not in SGD_ALGOS:
             from deeplearning4j_tpu_torch.optimize.solvers import (
                 solver_fit_batch,
@@ -562,10 +570,51 @@ class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin,
                 it.close()
         return self
 
+    # --------------------------------------------------------------- pretrain
     def pretrain(self, iterator, epochs: int = 1) -> None:
-        raise NotImplementedError(
-            "layerwise pretraining needs the AE/RBM/VAE layers, which are "
-            "not ported yet (ROADMAP A7)")
+        """Greedy layerwise pretraining of the AE / RBM / VAE layers (ref:
+        MultiLayerNetwork.pretrain: walks the layers and trains each
+        pretrainable one on the activations of the stack below it). Each
+        layer gets a fresh optimizer from the config's updater and one
+        bare update a batch (``netcommon.make_pretrain_step``), written
+        into its tensors in place; the draws come from the net's
+        generator. ``score_value`` holds the last step's loss; no listener
+        hears of it, as in the JAX container."""
+        self._check_init()
+        for idx, layer in enumerate(self.layers):
+            if not isinstance(layer, PRETRAINABLE):
+                continue
+            tx = build_optimizer(self.conf.training)
+            layer_opt = tx.init(self.params[idx])
+            step = make_pretrain_step(layer, tx)
+            for _ in range(epochs):
+                iterator.reset()
+                for batch in iterator:
+                    x = self._to_tensor(batch.features)
+                    if idx > 0:
+                        x = self._activate_to(idx, x)
+                    self.score_value = step(self.params[idx], layer_opt, x,
+                                            self._rng)
+
+    @torch.no_grad()
+    def _activate_to(self, layer_index: int, x: Tensor) -> Tensor:
+        """The inference activations feeding layer ``layer_index``, its
+        preprocessor applied (ref: MultiLayerNetwork.feedForwardToLayer):
+        layerwise pretraining's and ``TransferLearningHelper.featurize``'s
+        input."""
+        h = x
+        in_types = self.conf.input_types
+        for i in range(layer_index):
+            if i in self.conf.preprocessors:
+                it = in_types[i] if in_types else None
+                h = self.conf.preprocessors[i].transform(h, it)
+            h, _ = self.layers[i].apply(self.params[i], h,
+                                        state=self.states[i], train=False,
+                                        rng=None)
+        if layer_index in self.conf.preprocessors:
+            it = in_types[layer_index] if in_types else None
+            h = self.conf.preprocessors[layer_index].transform(h, it)
+        return h
 
     # ------------------------------------------------------- rnn statefulness
     def rnn_clear_previous_state(self) -> None:

@@ -1,8 +1,8 @@
 """What the two containers share in training (the JAX package's
 ``nn/netcommon.py`` and the training-step helpers of its containers): the
 lazily read score, the gradient of a loss over a params container (under
-the precision policy), remat of one layer call, the refusal of the
-training settings whose paths are not ported (layerwise pretraining), the
+the precision policy), remat of one layer call, the layerwise pretraining
+step (``make_pretrain_step``), the
 flat parameter vector both containers read and write in place, the
 listeners, the divergence sentinel's guarded update, ``fit(scan_window >
 1)`` and the evaluation loops."""
@@ -31,16 +31,37 @@ from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
 SGD_ALGOS = ("sgd", "stochastic_gradient_descent")
 
 
-def check_trainable(training: TrainingConfig) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, on a training
-    setting whose path is not ported: layerwise pretraining. (The JAX
-    package reads ``iterations`` and ``max_num_line_search_iterations``
-    in its solvers only, and ``minibatch`` nowhere outside its builder;
-    the port does the same.)"""
-    if training.pretrain or not training.backprop:
-        raise NotImplementedError(
-            f"pretrain={training.pretrain}, backprop={training.backprop}: "
-            "layerwise pretraining is not ported yet (ROADMAP A7)")
+def make_pretrain_step(layer, tx: Updater) -> Callable:
+    """The single-layer pretraining step of the greedy layerwise walk both
+    containers run (the JAX package's ``make_pretrain_step``; ref:
+    MultiLayerNetwork.pretrain / ComputationGraph.pretrainLayer:547-579):
+    an RBM steps on its hand-coded CD gradients, an AE or VAE on the
+    gradient of its reconstruction / ELBO loss.
+
+    Returns ``step(params, opt_state, x, rng) -> loss``: ``tx``'s bare
+    update (no regularization, clipping, frozen mask or sentinel: the JAX
+    step applies ``tx.update`` alone) is added to ``params``' tensors in
+    place and ``opt_state`` advances in place; ``rng`` is the generator
+    the layer's draws come from. The loss comes back as a device
+    scalar."""
+    def apply(params, grads, opt_state):
+        with torch.no_grad():
+            for name, u in tx.update(grads, opt_state).items():
+                params[name].add_(u)
+
+    if hasattr(layer, "cd_gradients"):  # RBM: contrastive divergence
+        def step(params, opt_state, x, rng):
+            with torch.no_grad():
+                grads, err = layer.cd_gradients(params, x, rng=rng)
+            apply(params, grads, opt_state)
+            return err
+    else:
+        def step(params, opt_state, x, rng):
+            loss, _, grads = value_and_grad(
+                lambda p: (layer.pretrain_loss(p, x, rng=rng), None), params)
+            apply(params, grads, opt_state)
+            return loss
+    return step
 
 
 def flat_params(tensors: Sequence[torch.Tensor]) -> np.ndarray:

@@ -312,21 +312,8 @@ class TransferLearningHelper:
     def featurize(self, features) -> Tensor:
         """Activations at the frozen/unfrozen boundary, in inference mode
         (ref: MultiLayerNetwork.feedForwardToLayer)."""
-        net, split = self.net, self._split
-        conf, in_types = net.conf, net.conf.input_types
-        h = net._to_tensor(features)
-        with torch.no_grad():
-            for i in range(split):
-                if i in conf.preprocessors:
-                    h = conf.preprocessors[i].transform(
-                        h, in_types[i] if in_types else None)
-                h, _ = net.layers[i].apply(net.params[i], h,
-                                           state=net.states[i], train=False,
-                                           rng=None)
-            if split in conf.preprocessors:
-                h = conf.preprocessors[split].transform(
-                    h, in_types[split] if in_types else None)
-        return h
+        net = self.net
+        return net._activate_to(self._split, net._to_tensor(features))
 
     def unfrozen_net(self) -> MultiLayerNetwork:
         """A standalone net of the unfrozen top layers sharing params."""

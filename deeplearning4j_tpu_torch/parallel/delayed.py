@@ -34,7 +34,7 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
     AsyncDataSetIterator, DataSetIterator,
 )
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    check_trainable, derived_stream, detach, value_and_grad,
+    derived_stream, detach, value_and_grad,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     compute_updates, tree_leaves,
@@ -82,7 +82,6 @@ class DelayedSyncTrainer:
 
     def _fit_batch(self, batch) -> torch.Tensor:
         net = self.net
-        check_trainable(net.conf.training)
         rows = self.mesh.local_rows(batch)
         dev = net._split(rows) if self._is_graph else net._batch(rows)
         net.last_batch_size = global_rows(batch)

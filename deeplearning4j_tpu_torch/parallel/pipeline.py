@@ -75,9 +75,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     FeedForwardToRnnPreProcessor, RnnToFeedForwardPreProcessor,
 )
-from deeplearning4j_tpu_torch.nn.netcommon import (
-    check_trainable, derived_stream,
-)
+from deeplearning4j_tpu_torch.nn.netcommon import derived_stream
 from deeplearning4j_tpu_torch.nn.updater import (
     Updater, compute_updates, l1_l2_penalty, tree_leaves, tree_map,
 )
@@ -594,7 +592,6 @@ class _StageTrainer:
         every rank. Returns the loss (the mean over the windows under
         tBPTT) as a device scalar."""
         net = self.net
-        check_trainable(net.conf.training)
         if not self._sharded:
             self._shard()
         B = self._global_rows(batch)

@@ -100,7 +100,7 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
     AsyncDataSetIterator, DataSetIterator,
 )
 from deeplearning4j_tpu_torch.nn.netcommon import (
-    ScanFitMixin, check_trainable, derived_stream, emit_scan_burst,
+    ScanFitMixin, derived_stream, emit_scan_burst,
     global_batch_stats, value_and_grad,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
@@ -550,7 +550,6 @@ class ParallelTrainer:
         """Shard ``batch`` and run its step (no bookkeeping). Returns
         (loss, bad flag or None, whether it ran tBPTT windows)."""
         net = self.net
-        check_trainable(net.conf.training)
         if self.weight_update_sharding.enabled and not self._sharded:
             # a gather_opt_state() between fits: shard again
             self._shard_opt_state()

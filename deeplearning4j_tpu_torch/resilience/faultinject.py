@@ -4,9 +4,10 @@ engine, of a checkpoint's commit, of the Keras gateway and its predict
 batching, the replica kinds a gateway consults, and the ``nan`` kind of
 a training loop, ``poison_batch``, and the fault-tolerant trainer's
 ``raise``), the fleet's overload kinds (``flap_replica``,
-``load_spike``), the elastic trainer's host kinds and the streaming input
-pipeline's kinds (``slow_input``, ``io_error``). The broker kinds wait
-for the path they test (ROADMAP A7).
+``load_spike``), the elastic trainer's host kinds, the streaming input
+pipeline's kinds (``slow_input``, ``io_error``) and the streaming
+broker's wire kinds (``drop_connection``, ``slow_loris``,
+``corrupt_frame``).
 
 Training fault kinds:
 
@@ -90,6 +91,22 @@ Input-pipeline fault kinds (``datasets/pipeline.py``'s seams):
   ``input_read_retries_total``, or surface a clean in-order error when
   its retries are spent.
 
+Streaming wire fault kinds (``streaming/ndarray_channel.py``'s seams):
+
+- ``drop_connection``  — at the consumer's Nth recv (``on_stream_recv``)
+  close its socket under it; the reconnect / backoff path must recover
+  the stream. ``mode="pub"`` targets the publisher's Nth send instead
+  (``on_pub_send``: its reconnect path is symmetric but separately
+  counted).
+- ``slow_loris``       — the Nth ``_send_array`` dribbles its frame
+  header byte by byte over ``duration`` seconds (``slow_loris_s``); the
+  receiver's header or mid-frame timeout must reclaim its thread.
+- ``corrupt_frame``    — corrupt the Nth frame on the wire
+  (``corrupt_wire``). ``mode="length"`` rewrites the length header to a
+  multi-GB claim, ``mode="crc"`` flips a payload byte (the CRC-32
+  trailer must catch it), ``mode="truncate"`` halves the frame (the
+  receiver must see a clean truncation error, never a garbage array).
+
 Checkpoint fault kind:
 
 - ``truncate_checkpoint`` — tear the ``at_call``-th checkpoint commit.
@@ -127,6 +144,7 @@ Faults fire once each (``flap_replica`` once per incarnation, up to
 
 from __future__ import annotations
 
+import struct
 import threading
 import time
 from dataclasses import dataclass, field
@@ -147,7 +165,8 @@ _KINDS = ("raise", "nan", "poison_decode", "evict_cache", "evict_page",
           "kill_host", "slow_host",
           "kill_coordinator", "rejoin_host", "partition_host",
           "kill_replica", "partition_replica", "slow_replica",
-          "flap_replica", "load_spike")
+          "flap_replica", "load_spike", "drop_connection", "slow_loris",
+          "corrupt_frame")
 
 #: the exit code of a ``kill_host`` hard exit: distinct, so a launcher can
 #: tell a victim that died by the fault from one that died of a bug
@@ -169,14 +188,18 @@ class Fault:
     """One scheduled fault. ``at_call`` arms it at the Nth request
     (``poison_decode``, ``poison_row``, the replica kinds), dispatch
     (``hang_backend``, ``slow_batch``), pipeline ``next()``
-    (``slow_input``), reader read attempt (``io_error``), commit or decode
-    iteration (the others), 1-based; ``step`` is the training step of ``raise``, ``nan``
+    (``slow_input``), reader read attempt (``io_error``), consumer recv or
+    publisher send (``drop_connection``), wire frame (``slow_loris``,
+    ``corrupt_frame``), commit or decode iteration (the others), 1-based; ``step`` is the training step of ``raise``, ``nan``
     and the host kinds, the poisoned request's decode step (or a
     mid-stream ``kill_replica``'s token); ``rank`` the target row's age
     rank (``evict_page``, ``corrupt_page_table``; -1 = the oldest), the
     target replica, or the rank a ``rejoin_host`` joins as; ``mode`` how
     a ``truncate_checkpoint`` tears its commit (``"crash"`` or
-    ``"torn"``); ``duration`` the stall of ``hang_backend`` /
+    ``"torn"``), a ``drop_connection``'s side (``"pub"``: the
+    publisher's) or a ``corrupt_frame``'s corruption (``"length"``,
+    ``"crc"``, ``"truncate"``); ``duration`` the stall of a
+    ``slow_loris`` frame, of ``hang_backend`` /
     ``slow_batch`` / ``slow_input`` / ``slow_replica`` / ``slow_host``,
     the window of ``partition_replica`` / ``partition_host``, a
     ``flap_replica`` incarnation's life after admission and a
@@ -221,6 +244,10 @@ _predict_loads = 0
 _batch_dispatches = 0
 _input_nexts = 0
 _reader_reads = 0
+_recv_calls = 0
+_pub_calls = 0
+_frame_sends = 0
+_loris_sends = 0
 #: per-replica-rank admitted-request counters (``kill_replica`` /
 #: ``partition_replica`` / ``slow_replica`` at_call addressing)
 _replica_requests: Dict[int, int] = {}
@@ -242,6 +269,7 @@ def set_schedule(schedule: Optional[FaultSchedule]) -> None:
     global _schedule, _gen_submits, _decode_iters, _page_iters, _pt_iters
     global _commit_calls, _dispatch_calls, _predict_loads, _batch_dispatches
     global _partition_until, _input_nexts, _reader_reads
+    global _recv_calls, _pub_calls, _frame_sends, _loris_sends
     with _lock:
         _schedule = schedule
         _partition_until = None
@@ -254,6 +282,10 @@ def set_schedule(schedule: Optional[FaultSchedule]) -> None:
         _batch_dispatches = 0
         _input_nexts = 0
         _reader_reads = 0
+        _recv_calls = 0
+        _pub_calls = 0
+        _frame_sends = 0
+        _loris_sends = 0
         _gen_submits = 0
         _decode_iters = 0
         _page_iters = 0
@@ -750,3 +782,82 @@ def load_spike_spec() -> Optional[dict]:
                 return {"count": int(f.count),
                         "duration": max(0.0, float(f.duration))}
         return None
+
+
+def on_stream_recv() -> bool:
+    """Called by the streaming consumer before each blocking recv;
+    returns True when the scheduled ``drop_connection`` fault fires (the
+    caller closes its own socket to simulate the drop). Entries with
+    ``mode="pub"`` belong to ``on_pub_send`` and are skipped here."""
+    global _recv_calls
+    with _lock:
+        if _schedule is None:
+            return False
+        _recv_calls += 1
+        for f in _schedule.pending():
+            if (f.kind == "drop_connection" and f.mode != "pub"
+                    and f.at_call == _recv_calls):
+                _fire(f, recv=_recv_calls)
+                return True
+        return False
+
+
+def on_pub_send() -> bool:
+    """Called by the streaming publisher before each send; returns True
+    when a ``drop_connection`` fault with ``mode="pub"`` fires (the
+    publisher closes its own socket to simulate a dropped stream)."""
+    global _pub_calls
+    with _lock:
+        if _schedule is None:
+            return False
+        _pub_calls += 1
+        for f in _schedule.pending():
+            if (f.kind == "drop_connection" and f.mode == "pub"
+                    and f.at_call == _pub_calls):
+                _fire(f, send=_pub_calls)
+                return True
+        return False
+
+
+def corrupt_wire(frame: bytes) -> bytes:
+    """Called by ``_send_array`` with the complete wire frame (length
+    word + payload [+ CRC trailer]); a scheduled ``corrupt_frame`` fault
+    returns a corrupted frame for its Nth send."""
+    global _frame_sends
+    with _lock:
+        hit = None
+        if _schedule is not None:
+            _frame_sends += 1
+            for f in _schedule.pending():
+                if f.kind == "corrupt_frame" and f.at_call == _frame_sends:
+                    hit = f
+                    break
+            if hit is not None:
+                _fire(hit, mode=hit.mode, send=_frame_sends)
+    if hit is None:
+        return frame
+    if hit.mode == "length":
+        # keep the v2 flag bit if present; claim a multi-GB payload
+        (hdr,) = struct.unpack(">Q", frame[:8])
+        flag = hdr & (1 << 63)
+        return struct.pack(">Q", flag | (1 << 40)) + frame[8:]
+    if hit.mode == "crc":
+        i = min(8 + max(0, (len(frame) - 8) // 2), len(frame) - 1)
+        return frame[:i] + bytes([frame[i] ^ 0xFF]) + frame[i + 1:]
+    return frame[:max(9, len(frame) // 2)]  # truncate
+
+
+def slow_loris_s() -> float:
+    """Called by ``_send_array`` per frame; returns the total stall to
+    spread over the frame header's bytes when a ``slow_loris`` fault is
+    scheduled for this (``at_call``-th) send; 0.0 sends normally."""
+    global _loris_sends
+    with _lock:
+        if _schedule is None:
+            return 0.0
+        _loris_sends += 1
+        for f in _schedule.pending():
+            if f.kind == "slow_loris" and f.at_call == _loris_sends:
+                _fire(f, duration=f.duration)
+                return max(0.0, f.duration)
+        return 0.0

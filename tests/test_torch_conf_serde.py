@@ -255,10 +255,12 @@ def test_lr_schedule_keys_round_trip_as_ints():
 ])
 def test_jax_only_training_fields_load_and_are_refused(field, value, item):
     """A JAX config with a solver or pretraining setting loads into the
-    port. The solver settings train (the port reads them as the JAX
-    package does: ``iterations`` and ``max_num_line_search_iterations``
-    in the line-search solvers only, ``minibatch`` nowhere); training
-    with a pretraining setting raises, naming ROADMAP A7."""
+    port, and each trains as the JAX package trains it: the port reads
+    ``iterations`` and ``max_num_line_search_iterations`` in the
+    line-search solvers only, ``minibatch`` nowhere, and (since ROADMAP
+    A7.5) ``backprop`` and ``pretrain`` nowhere (C33): ``fit_batch`` steps
+    by backprop whatever they say. ``item`` names the ROADMAP item that
+    ported each setting's path."""
     jconf = _mlp_conf(JAX)
     setattr(jconf.training, field, value)
     conf = MultiLayerConfiguration.from_json(jconf.to_json())
@@ -266,10 +268,6 @@ def test_jax_only_training_fields_load_and_are_refused(field, value, item):
     net = MultiLayerNetwork(conf, device="cpu").init()
     x = np.zeros((2, 8), np.float32)
     y = np.eye(3, dtype=np.float32)[[0, 1]]
-    if item == "A7":
-        with pytest.raises(NotImplementedError, match=item):
-            net.fit_batch(DataSet(x, y))
-        return
     assert np.isfinite(float(net.fit_batch(DataSet(x, y))))
     assert net.iteration_count == 1
 
