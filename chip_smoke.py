@@ -391,9 +391,33 @@ Phases, each printing JSON lines:
    the report's copy off the card; LeNet's conv listener rendering its
    four rank-4 layers and its flow snapshot, both posted to the UI;
    threads back to their baseline;
-21. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+21. nlp — the NLP stack (ROADMAP A7.6c) at word2vec's widths on a seeded
+   synthetic corpus at text8's vocabulary (71,290 types after
+   ``min_word_frequency=5``, Zipf-like counts, 2,000 sentences of 1,000
+   tokens in 8 topics; cuts: 17M tokens -> 2M, 15 iterations -> 1):
+   ``Word2Vec`` CBOW-NS at demo-word.sh's settings (D 200, window 8,
+   negative 25, sample 1e-4, batch 512) over the corpus, skip-gram NS
+   and skip-gram HS over its first 32 sentences; ``Glove`` at demo.sh's
+   (D 50, window 15, x_max 10) over the first 200 sentences, 3 epochs;
+   ``ParagraphVectors`` DBOW over 2,000 and DM over 200 documents of 100
+   tokens at ParagraphVectorsTextExample's settings, then
+   ``infer_vector`` (50 steps) against the CPU with ``lt.syn1neg``
+   unchanged bit for bit. Each run's first 50 steps are held one by one
+   against the same step on the CPU from the card's state (the rows the
+   batch touches within 1e-5 x max(1, max |x|), the others bit for bit,
+   the first step twice bit for bit), its first 200 against a CPU replay
+   from its first state at rtol 2e-4 / atol 2e-5; CBOW's topics: each
+   topic's tail words closer to each other than words across topics;
+   ms a step (CUDA events), pairs/s, host seconds for pairs and
+   negatives, peak memory. ``TreeVectorizer`` at dim 200 over the
+   sentiment fixture within 1e-5 of the CPU's, ms a tree; the
+   serializer's binary, text and full-model files of the card-trained
+   tables read back and rewritten byte for byte, ``words_nearest`` on
+   the read-back table that of the trained one. No kernel of K1-K6 is
+   launched on this path;
+22. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-22. last line ``{"ok": true, "device": {...}}``.
+23. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -958,7 +982,15 @@ IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
                         "streaming/pipeline.py", "ui/__init__.py",
                         "ui/codec.py", "ui/stats.py", "ui/storage.py",
                         "ui/components.py", "ui/listeners.py",
-                        "ui/server.py")
+                        "ui/server.py", "nlp/__init__.py",
+                        "nlp/tokenization.py", "nlp/vocab.py",
+                        "nlp/lookup.py", "nlp/sequencevectors.py",
+                        "nlp/word2vec.py", "nlp/paragraph_vectors.py",
+                        "nlp/glove.py", "nlp/serializer.py",
+                        "nlp/vectorizers.py", "nlp/tokenization_ext.py",
+                        "nlp/ja_lexicon.py", "nlp/lattice_tokenizer.py",
+                        "nlp/annotators.py", "nlp/treeparser.py",
+                        "nlp/sentiment.py")
 
 
 def import_rule() -> dict:
@@ -8566,6 +8598,592 @@ def stream_ui(smi):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# nlp: the embedding trainers at word2vec's widths (ROADMAP A7.6c)
+# ---------------------------------------------------------------------------
+
+#: the synthetic corpus, in place of text8 (not in the repository): 71,290
+#: word types (text8's vocabulary at word2vec's -min-count 5) with
+#: Zipf-like counts, every type at least 5 times, over 2,000 sentences of
+#: 1,000 tokens (word2vec's MAX_SENTENCE_LENGTH) in 8 topics: 1,290 head
+#: words shared by all and 8 tails of 8,750 words, each its topic's alone;
+#: half the tokens are head words. Cuts: text8's 17,005,207 tokens ->
+#: 2,000,000, -iter 15 -> 1 epoch.
+NLP_V, NLP_HEAD, NLP_TOPICS = 71_290, 1_290, 8
+NLP_SENT_LEN, NLP_SENTENCES, NLP_MIN_COUNT = 1_000, 2_000, 5
+#: word2vec's demo-word.sh (-cbow 1 -size 200 -window 8 -negative 25 -hs 0
+#: -sample 1e-4; word2vec.c's default alpha, 0.05 for CBOW and 0.025 for
+#: skip-gram); the JAX package's default batch of 512 pairs
+W2V_SETTINGS = dict(layer_size=200, window=8, negative=25, sampling=1e-4,
+                    min_word_frequency=NLP_MIN_COUNT, batch_size=512,
+                    epochs=1, seed=SEED)
+#: the skip-gram runs train on the first 32 sentences (32,000 tokens, ~350
+#: steps) over the whole corpus's vocabulary (a cut of steps, not of V)
+NLP_SG_SENTENCES = 32
+#: GloVe's demo.sh (VECTOR_SIZE=50 WINDOW_SIZE=15 X_MAX=10
+#: VOCAB_MIN_COUNT=5, alpha 0.75, eta 0.05) over the first 200 sentences
+#: (the co-occurrence table is a host dict loop), 3 epochs of 8,192
+#: entries (MAX_ITER=15 -> 3)
+GLOVE_SETTINGS = dict(layer_size=50, window=15, x_max=10.0, alpha=0.75,
+                      min_word_frequency=NLP_MIN_COUNT, learning_rate=0.05,
+                      batch_size=8192, epochs=3, seed=SEED)
+GLOVE_SENTENCES = 200
+#: dl4j-examples' ParagraphVectorsTextExample (layerSize 100, windowSize 5,
+#: learningRate 0.025, 1 epoch, trainWordVectors false); the JAX
+#: package's 5 negatives. Documents: 100-token pieces of the corpus, 2,000
+#: for PV-DBOW and the first 200 of them for PV-DM.
+PV_SETTINGS = dict(layer_size=100, window=5, learning_rate=0.025, epochs=1,
+                   negative=5, batch_size=512, seed=SEED, train_words=False)
+PV_DOC_LEN, PV_DBOW_DOCS, PV_DM_DOCS, PV_INFER_STEPS = 100, 2_000, 200, 50
+TREE_DIM = 200
+#: each run's first NLP_CHECK steps held one by one against the CPU from
+#: the card's state; its first NLP_WHOLE steps replayed on the CPU from the
+#: run's first state and held at the param gate
+NLP_CHECK, NLP_WHOLE = 50, 200
+TOL_NLP_STEP = 1e-5
+TOL_NLP_RTOL, TOL_NLP_ATOL = 2e-4, 2e-5
+#: the topic check: each topic's 100 most frequent tail words
+NLP_TOPIC_WORDS = 100
+
+#: step -> its table arguments, the tables it returns (in place), and for
+#: each table the batch arguments that index its rows
+NLP_STEPS = {
+    "_sgns_step": ((0, 1), (0, 1), {0: (2,), 1: (3, 4)}),
+    "_hs_step": ((0, 1), (0, 1), {0: (2,), 1: (3,)}),
+    "_cbow_ns_step": ((0, 1), (0, 1), {0: (2,), 1: (4, 5)}),
+    "_dm_step": ((0, 2, 3), (0, 3), {0: (1,), 2: (4,), 3: (6, 7)}),
+    "_glove_step": (tuple(range(8)), tuple(range(8)),
+                    {t: (8 + t % 2,) for t in range(8)}),
+}
+
+
+def nlp_corpus():
+    """(sentences as token lists, the head / tail counts): the synthetic
+    corpus of ``NLP_V`` types, each type's count fixed, each topic's
+    sentences a shuffle of its tail's tokens and an eighth of the head's.
+    Head word r is ``h<r>``, topic k's tail word r ``t<k>w<r>`` (rank 0
+    the most frequent)."""
+    rng = np.random.default_rng(SEED + 24)
+    n_tok = NLP_SENT_LEN * NLP_SENTENCES
+    tail_n = (NLP_V - NLP_HEAD) // NLP_TOPICS
+
+    def zipf(n, total):
+        w = 1.0 / np.arange(1, n + 1)
+        c = NLP_MIN_COUNT + np.floor((total - NLP_MIN_COUNT * n) * w
+                                     / w.sum()).astype(np.int64)
+        c[0] += total - c.sum()
+        return c
+    head = zipf(NLP_HEAD, n_tok // 2)
+    tail = zipf(tail_n, (n_tok - n_tok // 2) // NLP_TOPICS)
+    heads = rng.permutation(np.repeat(np.arange(NLP_HEAD), head))
+    per = NLP_SENTENCES // NLP_TOPICS
+    ids = np.empty((NLP_SENTENCES, NLP_SENT_LEN), np.int64)
+    for k in range(NLP_TOPICS):
+        own = NLP_HEAD + k * tail_n + np.repeat(np.arange(tail_n), tail)
+        pool = rng.permutation(np.concatenate([heads[k::NLP_TOPICS], own]))
+        ids[k::NLP_TOPICS] = pool.reshape(per, NLP_SENT_LEN)
+    names = np.array([f"h{r}" for r in range(NLP_HEAD)]
+                     + [f"t{k}w{r}" for k in range(NLP_TOPICS)
+                        for r in range(tail_n)])
+    return [names[row].tolist() for row in ids], head, tail
+
+
+class NlpStepSpy:
+    """Stands in for one step function of ``nlp`` in the modules that call
+    it. Each of a run's first ``check`` steps is held against the same
+    step on the CPU from the card's state: the rows the batch touches are
+    copied off the card before the step, the CPU runs the step on them
+    (indices remapped to the copy), and the card's rows after it must be
+    within TOL_NLP_STEP x max(1, max |x|), every other row (and a table
+    the step only reads) bit for bit as it was. The first step is run
+    twice from one state on the card, bit for bit. The run's first state
+    and its state after ``whole`` steps are copied off the card, with
+    every step's batch, for ``replay``. Later steps are timed with CUDA
+    events."""
+
+    def __init__(self, name, check=NLP_CHECK, whole=NLP_WHOLE):
+        self.name = name
+        self.tables, self.returns, self.index = NLP_STEPS[name]
+        self.check, self.whole = check, whole
+        self.calls, self.worst, self.worst_rel = 0, 0.0, 0.0
+        self.untouched_equal, self.repeat_bitwise = True, None
+        self.first, self.after_whole, self.batches = None, None, []
+        self.events, self.t_timed, self.tail_pairs = [], None, 0
+        # the pairs (windows, entries) of a step: the rows of the last
+        # batch argument that indexes the last table
+        last = max(self.index)
+        self.pairs_arg = self.index[last][-1]
+
+    def install(self, modules):
+        """Stand in for the step in each of ``modules`` that holds it."""
+        self.modules = [m for m in modules if hasattr(m, self.name)]
+        self.real = getattr(self.modules[0], self.name)
+        for mod in self.modules:
+            setattr(mod, self.name, self)
+        return self
+
+    def remove(self):
+        for mod in self.modules:
+            setattr(mod, self.name, self.real)
+
+    def _rows(self, args):
+        out = {}
+        for t, pos in self.index.items():
+            parts = [torch.as_tensor(args[p], device=args[t].device)
+                     .reshape(-1).long() for p in pos]
+            out[t] = torch.unique(torch.cat(parts))
+        return out
+
+    def _cpu_twin(self, args, rows):
+        """The step's arguments on the CPU over the touched rows only."""
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) and i not in self.tables
+               else a for i, a in enumerate(args)]
+        for t, pos in self.index.items():
+            cpu[t] = args[t][rows[t]].cpu()
+            for p in pos:
+                if isinstance(args[p], int):
+                    cpu[p] = 0
+                else:
+                    cpu[p] = torch.searchsorted(
+                        rows[t], args[p].long()).cpu()
+        return cpu
+
+    def __call__(self, *args, **kw):
+        n = self.calls
+        self.calls += 1
+        if n == 0:
+            self.first = [args[t].cpu().clone() for t in self.tables]
+        if n < self.whole:
+            self.batches.append([a.cpu() if isinstance(a, torch.Tensor)
+                                 else a for i, a in enumerate(args)
+                                 if i not in self.tables])
+        if n >= self.check:
+            if self.t_timed is None:
+                torch.cuda.synchronize()
+                self.t_timed = time.perf_counter()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = self.real(*args, **kw)
+            e1.record()
+            self.events.append((e0, e1))
+            self.tail_pairs += int(args[self.pairs_arg].shape[0])
+        else:
+            rows = self._rows(args)
+            twin = self._cpu_twin(args, rows)
+            snap = {t: args[t].clone() for t in self.tables}
+            out = self.real(*args, **kw)
+            want = self.real(*twin, **kw)
+            outs = dict(zip(self.returns, out))
+            for j, t in enumerate(self.returns):
+                got = outs[t][rows[t]].cpu()
+                err = float((got - want[j]).abs().max())
+                scale = max(1.0, float(want[j].abs().max()))
+                self.worst = max(self.worst, err)
+                self.worst_rel = max(self.worst_rel, err / scale)
+                keep = torch.ones(outs[t].shape[0], dtype=torch.bool,
+                                  device=outs[t].device)
+                keep[rows[t]] = False
+                self.untouched_equal &= torch.equal(outs[t][keep],
+                                                    snap[t][keep])
+            for t in self.tables:
+                if t not in self.returns:
+                    self.untouched_equal &= torch.equal(args[t], snap[t])
+            if n == 0:
+                again = list(args)
+                for t in self.tables:
+                    again[t] = snap[t].clone()
+                rep = self.real(*again, **kw)
+                self.repeat_bitwise = all(torch.equal(a, b)
+                                          for a, b in zip(rep, out))
+        if n == self.whole - 1:
+            self.after_whole = [o.cpu().clone() for o in out]
+        return out
+
+    def replay(self) -> dict:
+        """The run's first ``whole`` steps on the CPU from its first state,
+        against the card's state after them: elements outside rtol
+        TOL_NLP_RTOL / atol TOL_NLP_ATOL and the largest difference."""
+        state = {t: a.clone() for t, a in zip(self.tables, self.first)}
+        n = min(self.whole, len(self.batches))
+        for batch in self.batches[:n]:
+            it = iter(batch)
+            args = [state[i] if i in state else next(it)
+                    for i in range(len(self.tables) + len(batch))]
+            for t, o in zip(self.returns, self.real(*args)):
+                state[t] = o
+        outside, worst = 0, 0.0
+        for t, card in zip(self.returns, self.after_whole or []):
+            d = (card.double() - state[t].double()).abs()
+            outside += int((d > TOL_NLP_ATOL + TOL_NLP_RTOL
+                            * state[t].double().abs()).sum())
+            worst = max(worst, float(d.max()))
+        return dict(steps=n, outside_gate=outside, max_abs_diff=worst)
+
+    def record(self) -> dict:
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        return dict(steps=self.calls, checked_steps=min(self.calls,
+                                                        self.check),
+                    step_max_abs_err=self.worst,
+                    step_max_err_over_scale=self.worst_rel,
+                    untouched_rows_bitwise=self.untouched_equal,
+                    repeat_bitwise=self.repeat_bitwise,
+                    ms_per_step=float(np.mean(ms)) if ms else None,
+                    ms_per_step_median=float(np.median(ms)) if ms else None,
+                    timed_steps=len(ms))
+
+
+class HostClock:
+    """Seconds spent in host functions, wrapped where the trainers call
+    them (a module's function, a table's method), and with ``count`` the
+    items their results hold."""
+
+    def __init__(self):
+        self.seconds = collections.defaultdict(float)
+        self.items = collections.defaultdict(int)
+        self.undo = []
+
+    def wrap(self, owner, name, key, count=None):
+        real = getattr(owner, name)
+
+        def timed_call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            self.seconds[key] += time.perf_counter() - t0
+            if count is not None:
+                self.items[key] += count(out)
+            return out
+        self.undo.append((owner, name, real, name in vars(owner)))
+        setattr(owner, name, timed_call)
+
+    def remove(self):
+        for owner, name, real, own in reversed(self.undo):
+            if own:
+                setattr(owner, name, real)
+            else:
+                delattr(owner, name)
+        self.undo = []
+
+
+def nlp_run(name, step, modules, fit, table, n_check=NLP_CHECK,
+            n_whole=NLP_WHOLE):
+    """Run ``fit()`` on the card with ``step`` spied on (``NlpStepSpy``),
+    the host pair builders and ``table``'s negative draws clocked, and
+    the pairs (windows, co-occurrence entries) counted: the run's
+    record."""
+    from deeplearning4j_tpu_torch.nlp import paragraph_vectors as ppv
+    from deeplearning4j_tpu_torch.nlp import sequencevectors as psv
+    spy = NlpStepSpy(step, n_check, n_whole).install(modules)
+    clock = HostClock()
+    clock.wrap(psv, "_skipgram_pairs", "pairs", lambda out: len(out[0]))
+    clock.wrap(psv, "_cbow_windows", "pairs", lambda out: len(out[2]))
+    clock.wrap(ppv, "_cbow_windows", "pairs", lambda out: len(out[2]))
+    if table is not None:
+        clock.wrap(table, "sample_negatives", "negatives")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        fit(clock)
+        torch.cuda.synchronize()
+    finally:
+        spy.remove()
+        clock.remove()
+    t1 = time.perf_counter()
+    rec = dict(run=name, **spy.record())
+    t_r = time.perf_counter()
+    rec["whole_run"] = spy.replay() if n_whole else None
+    rec["replay_seconds"] = time.perf_counter() - t_r
+    tail_s = t1 - spy.t_timed if spy.t_timed else None
+    n_pairs = clock.items["pairs"]
+    rec.update(fit_seconds=t1 - t0, pairs=n_pairs,
+               pairs_per_s=n_pairs / (t1 - t0),
+               tail_pairs_per_s=spy.tail_pairs / tail_s if tail_s else None,
+               host_pair_seconds=clock.seconds["pairs"],
+               host_negative_seconds=clock.seconds["negatives"],
+               host_index_seconds=clock.seconds["index"],
+               peak_bytes_above_start=torch.cuda.max_memory_allocated()
+               - base)
+    check(spy.calls >= n_whole and spy.calls > 0,
+          f"nlp {name}: {spy.calls} steps, fewer than {n_whole}")
+    check(rec["step_max_err_over_scale"] <= TOL_NLP_STEP
+          and rec["untouched_rows_bitwise"] and rec["repeat_bitwise"],
+          f"nlp {name}: a step against its CPU twin from the card's "
+          f"state: {rec}")
+    check(not n_whole or rec["whole_run"]["outside_gate"] == 0,
+          f"nlp {name}: the first {n_whole} steps against the CPU's: "
+          f"{rec}")
+    return rec
+
+
+def nlp_topics(lt) -> dict:
+    """Mean cosine between each topic's most frequent tail words, and
+    across topics."""
+    vecs, topic = [], []
+    for k in range(NLP_TOPICS):
+        for r in range(NLP_TOPIC_WORDS):
+            vecs.append(lt.get_word_vector(f"t{k}w{r}"))
+            topic.append(k)
+    e = np.stack(vecs).astype(np.float64)
+    e /= np.maximum(np.linalg.norm(e, axis=1, keepdims=True), 1e-12)
+    sims = e @ e.T
+    topic = np.array(topic)
+    same = topic[:, None] == topic[None, :]
+    off = ~np.eye(len(topic), dtype=bool)
+    within = [float(sims[(topic[:, None] == k) & (topic[None, :] == k)
+                         & off].mean()) for k in range(NLP_TOPICS)]
+    return dict(within=within, across=float(sims[~same].mean()))
+
+
+def nlp_phase(smi):
+    """The NLP stack on the card (ROADMAP A7.6c) at word2vec's widths on
+    the synthetic corpus: Word2Vec CBOW-NS, skip-gram NS and skip-gram HS,
+    GloVe, ParagraphVectors DBOW and DM with ``infer_vector``, each step
+    spied on (``NlpStepSpy``); ``TreeVectorizer`` at dim 200 against the
+    CPU; the serializer's round trips. No kernel of K1-K6 lies on this
+    path. Returns the path's launch counts."""
+    import zlib
+    from deeplearning4j_tpu_torch.nlp import (
+        Glove, InMemoryLookupTable, ParagraphVectors, TreeVectorizer,
+        Word2Vec, WordVectorSerializer,
+    )
+    from deeplearning4j_tpu_torch.nlp import glove as pglove
+    from deeplearning4j_tpu_torch.nlp import paragraph_vectors as ppv
+    from deeplearning4j_tpu_torch.nlp import sequencevectors as psv
+    reset_counts()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sents, head, tail = nlp_corpus()
+    corpus = dict(types=NLP_V, tokens=NLP_SENT_LEN * NLP_SENTENCES,
+                  sentences=NLP_SENTENCES, sentence_len=NLP_SENT_LEN,
+                  topics=NLP_TOPICS, head_words=NLP_HEAD,
+                  head_count_max=int(head.max()),
+                  tail_count_max=int(tail.max()),
+                  count_min=int(min(head.min(), tail.min())),
+                  build_seconds=time.perf_counter() - t0,
+                  cuts=["text8 (17,005,207 tokens, not in the repository) "
+                        "-> a synthetic corpus of 2,000,000 tokens at its "
+                        "vocabulary size", "-iter 15 -> 1 epoch",
+                        f"skip-gram runs: the first {NLP_SG_SENTENCES} "
+                        "sentences", f"GloVe: the first {GLOVE_SENTENCES} "
+                        "sentences, MAX_ITER 15 -> 3",
+                        f"PV: {PV_DBOW_DOCS} / {PV_DM_DOCS} documents of "
+                        f"{PV_DOC_LEN} tokens"])
+    runs = {}
+
+    def w2v_run(name, algo_kw, lr, sentences, vocab=None):
+        """One Word2Vec run; ``vocab``: an earlier run's vocabulary of the
+        whole corpus, in place of counting it again (``build_vocab``'s
+        table built over it: the same words, counts and codes)."""
+        w2v = Word2Vec(**{**W2V_SETTINGS, **algo_kw, "learning_rate": lr})
+        t_v = time.perf_counter()
+        if vocab is None:
+            w2v.build_vocab(sents)
+        else:
+            w2v.vocab = vocab
+            w2v.lookup_table = InMemoryLookupTable(
+                vocab, w2v.layer_size, w2v.seed, use_hs=w2v.use_hs,
+                negative=w2v.negative)
+        vocab_s = time.perf_counter() - t_v
+        lt = w2v.lookup_table
+        check(len(w2v.vocab) == NLP_V, f"vocab {len(w2v.vocab)} != {NLP_V}")
+        step = ("_cbow_ns_step" if algo_kw.get("elements_algo") == "cbow"
+                else "_hs_step" if algo_kw.get("negative") == 0
+                else "_sgns_step")
+
+        def fit(clock):
+            clock.wrap(w2v, "_index_sequences", "index")
+            w2v.fit(sentences)
+        rec = nlp_run(name, step, [psv], fit, lt)
+        rec.update(vocab_seconds=vocab_s, vocab=len(w2v.vocab),
+                   learning_rate=lr)
+        return rec, w2v
+
+    rec, cbow = w2v_run("cbow_ns", dict(elements_algo="cbow"), 0.05, sents)
+    topics = nlp_topics(cbow.lookup_table)
+    rec["topics"] = topics
+    emit(dict(phase="nlp", nvidia_smi=smi, **rec))
+    runs["cbow_ns"] = rec
+    check(min(topics["within"]) > topics["across"],
+          f"CBOW: a topic's tail words are no closer than words across "
+          f"topics: {topics}")
+    sg_sents = sents[:NLP_SG_SENTENCES]
+    for name, kw in (("sg_ns", {}), ("sg_hs", dict(negative=0))):
+        rec, _ = w2v_run(name, kw, 0.025, sg_sents, vocab=cbow.vocab)
+        emit(dict(phase="nlp", nvidia_smi=smi, **rec))
+        runs[name] = rec
+
+    # GloVe at demo.sh's settings
+    glove = Glove(**GLOVE_SETTINGS)
+
+    def glove_fit(clock):
+        # each epoch trains every co-occurrence entry once
+        clock.wrap(glove, "_cooccurrences", "pairs",
+                   lambda out: len(out[2]) * GLOVE_SETTINGS["epochs"])
+        glove.fit(sents[:GLOVE_SENTENCES])
+    rec = nlp_run("glove", "_glove_step", [pglove], glove_fit, None)
+    rec.update(vocab=len(glove.vocab),
+               entries=rec["pairs"] // GLOVE_SETTINGS["epochs"])
+    emit(dict(phase="nlp", nvidia_smi=smi, **rec))
+    runs["glove"] = rec
+
+    # ParagraphVectors at the example's settings
+    docs = [" ".join(s[i:i + PV_DOC_LEN]) for s in sents
+            for i in range(0, NLP_SENT_LEN, PV_DOC_LEN)][:PV_DBOW_DOCS]
+    pvs = {}
+    for algo, n_docs, step in (("dbow", PV_DBOW_DOCS, "_sgns_step"),
+                               ("dm", PV_DM_DOCS, "_dm_step")):
+        pv = ParagraphVectors(sequence_algo=algo, **PV_SETTINGS)
+        pv.build_vocab([d.split() for d in docs[:n_docs]])
+        lt = pv.lookup_table
+        syn0 = lt.syn0.copy()
+
+        def pv_fit(clock, pv=pv, n_docs=n_docs):
+            # DBOW trains a pair a token; DM a window a token (clocked)
+            if algo == "dbow":
+                clock.items["pairs"] = sum(len(d.split())
+                                           for d in docs[:n_docs])
+            pv.fit_documents(docs[:n_docs])
+        rec = nlp_run(f"pv_{algo}", step, [psv, ppv], pv_fit, lt)
+        rec.update(documents=n_docs, vocab=len(pv.vocab),
+                   syn0_unchanged=bool(np.array_equal(lt.syn0, syn0)))
+        check(rec["syn0_unchanged"], f"PV-{algo} changed lt.syn0")
+        pvs[algo] = pv
+        runs[f"pv_{algo}"] = rec
+        emit(dict(phase="nlp", nvidia_smi=smi, **rec))
+
+    # infer_vector on the card against the same model on the CPU
+    pv = pvs["dbow"]
+    lt = pv.lookup_table
+    frozen = lt.syn1neg.copy()
+    cpu_pv = ParagraphVectors(sequence_algo="dbow", **dict(PV_SETTINGS),
+                              device="cpu")
+    cpu_pv.vocab, cpu_pv.lookup_table = pv.vocab, lt
+    text = docs[7]
+    spy = NlpStepSpy("_sgns_step", check=PV_INFER_STEPS,
+                     whole=0).install([psv, ppv])
+    try:
+        t0 = time.perf_counter()
+        card_v = pv.infer_vector(text, steps=PV_INFER_STEPS)
+        infer_s = time.perf_counter() - t0
+    finally:
+        spy.remove()
+    cpu_v = cpu_pv.infer_vector(text, steps=PV_INFER_STEPS)
+    infer = dict(steps=spy.calls, seconds=infer_s,
+                 step_max_err_over_scale=spy.worst_rel,
+                 max_abs_err_vs_cpu=float(np.abs(card_v - cpu_v).max()),
+                 syn1neg_unchanged=bool(np.array_equal(lt.syn1neg, frozen)))
+    emit(dict(phase="nlp", nvidia_smi=smi, run="pv_infer_vector", **infer))
+    check(spy.calls == PV_INFER_STEPS and infer["syn1neg_unchanged"]
+          and spy.worst_rel <= TOL_NLP_STEP
+          and infer["max_abs_err_vs_cpu"] <= TOL_NLP_RTOL
+          * max(1.0, float(np.abs(cpu_v).max())),
+          f"infer_vector on the card against the CPU: {infer}")
+
+    # TreeVectorizer at dim 200 over the sentiment fixture's sentences
+    def lookup(tok):
+        g = np.random.default_rng(zlib.crc32(tok.lower().encode()))
+        return g.standard_normal(TREE_DIM).astype(np.float32)
+    texts = [ln.rstrip("\n").split("\t", 1)[1] for ln in open(
+        Path(__file__).resolve().parent / "tests" / "fixtures"
+        / "sentiment_gold.txt", encoding="utf-8")
+        if ln.strip() and not ln.startswith("#")]
+    tv = TreeVectorizer(lookup, TREE_DIM, seed=SEED)
+    tv_cpu = TreeVectorizer(lookup, TREE_DIM, seed=0, device="cpu")
+    tv_cpu.W.copy_(tv.W.cpu())
+    tv_cpu.b.copy_(tv.b.cpu())
+    tv.vectorize(texts[0])          # first call outside the timing
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_trees = [t for text in texts for t in tv.vectorize(text)]
+    tree_s = time.perf_counter() - t0
+    cpu_trees = [t for text in texts for t in tv_cpu.vectorize(text)]
+    tree_err, nodes = 0.0, 0
+    for a, b in zip(card_trees, cpu_trees):
+        check(a.to_penn() == b.to_penn(), "TreeVectorizer: trees differ")
+        for na, nb in zip(a.preorder(), b.preorder()):
+            tree_err = max(tree_err, float(np.abs(na.vector
+                                                  - nb.vector).max()))
+            nodes += 1
+    trees = dict(texts=len(texts), trees=len(card_trees), nodes=nodes,
+                 dim=TREE_DIM, max_abs_err_vs_cpu=tree_err,
+                 ms_per_tree=tree_s * 1e3 / len(card_trees))
+    emit(dict(phase="nlp", nvidia_smi=smi, run="tree_vectorizer", **trees))
+    check(len(card_trees) == len(cpu_trees) and tree_err <= TOL_NLP_STEP,
+          f"TreeVectorizer on the card against the CPU: {trees}")
+
+    # the serializer: the card-trained tables written, read back, rewritten
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_nlp_"))
+    try:
+        t0 = time.perf_counter()
+        lt = cbow.lookup_table
+        ser = {}
+        for name, table in (("cbow.bin", lt), ("glove.txt",
+                                                glove.lookup_table)):
+            t1 = time.perf_counter()
+            WordVectorSerializer.write_word2vec_format(table, tmp / name)
+            t2 = time.perf_counter()
+            back = WordVectorSerializer.read_word2vec_format(tmp / name)
+            t3 = time.perf_counter()
+            WordVectorSerializer.write_word2vec_format(back, tmp / f"2{name}")
+            ser[name] = dict(
+                bytes=(tmp / name).stat().st_size,
+                write_s=t2 - t1, read_s=t3 - t2,
+                rewrite_byte_for_byte=(tmp / name).read_bytes()
+                == (tmp / f"2{name}").read_bytes(),
+                words_equal=[w.word for w in back.vocab.vocab_words()]
+                == [w.word for w in table.vocab.vocab_words()])
+            if name.endswith(".bin"):
+                ser[name]["syn0_bitwise"] = bool(np.array_equal(back.syn0,
+                                                                table.syn0))
+                probe = [f"t{k}w0" for k in range(NLP_TOPICS)] + ["h0"]
+                ser[name]["words_nearest_equal"] = all(
+                    back.words_nearest(w, 10) == table.words_nearest(w, 10)
+                    for w in probe)
+        t1 = time.perf_counter()
+        WordVectorSerializer.write_full_model(lt, tmp / "cbow.zip")
+        t2 = time.perf_counter()
+        full = WordVectorSerializer.read_full_model(tmp / "cbow.zip")
+        t3 = time.perf_counter()
+        ser["cbow.zip"] = dict(
+            bytes=(tmp / "cbow.zip").stat().st_size,
+            write_s=t2 - t1, read_s=t3 - t2,
+            tables_bitwise=all(np.array_equal(getattr(full, n),
+                                              getattr(lt, n))
+                               for n in ("syn0", "syn1", "syn1neg")),
+            vocab_equal=[(w.word, w.count, w.codes, w.points)
+                         for w in full.vocab.vocab_words()]
+            == [(w.word, w.count, w.codes, w.points)
+                for w in lt.vocab.vocab_words()])
+        ser["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(dict(phase="nlp", nvidia_smi=smi, run="serializer", **ser))
+    check(all(v.get(k, True) for k in ("rewrite_byte_for_byte",
+                                       "words_equal", "syn0_bitwise",
+                                       "words_nearest_equal",
+                                       "tables_bitwise", "vocab_equal")
+              for v in ser.values() if isinstance(v, dict)),
+          f"the serializer's round trips: {ser}")
+
+    launched = counts()
+    emit(dict(phase="nlp", nvidia_smi=smi, run="summary", corpus=corpus,
+              settings=dict(word2vec=W2V_SETTINGS, glove=GLOVE_SETTINGS,
+                            paragraph_vectors=PV_SETTINGS),
+              gates=dict(step=TOL_NLP_STEP, whole_rtol=TOL_NLP_RTOL,
+                         whole_atol=TOL_NLP_ATOL, check_steps=NLP_CHECK,
+                         whole_steps=NLP_WHOLE),
+              ms_per_step={k: v["ms_per_step"] for k, v in runs.items()},
+              pairs_per_s={k: v["pairs_per_s"] for k, v in runs.items()},
+              host_pair_seconds={k: v["host_pair_seconds"]
+                                 for k, v in runs.items()},
+              launches=launched, phase_s=time.perf_counter() - t_phase))
+    check(all(v == 0 for v in launched.values()),
+          f"the NLP path launched a kernel of K1-K6: {launched}")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -8781,7 +9399,12 @@ def main() -> int:
     # StatsListener on the GPT's training (K4-K6) served by a UIServer ---
     streamed = timed("stream_ui", stream_ui, smi)
 
-    # ---- 19. summary of every ported kernel -------------------------------
+    # ---- 21. the NLP stack: Word2Vec (CBOW-NS, skip-gram NS and HS),
+    # GloVe, ParagraphVectors, TreeVectorizer and the serializer at
+    # word2vec's widths (no kernel of K1-K6 on this path) -----------------
+    timed("nlp", nlp_phase, smi)
+
+    # ---- 22. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",

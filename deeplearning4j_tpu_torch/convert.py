@@ -21,8 +21,13 @@ compare the two nets' params, gradients or states by name.
 as its flattened leaves (``jax.tree_util.tree_leaves(opt_state)`` as
 numpy), into a port net's updater state, and ``opt_state_to_jax(net)``
 gives a port net's state as those leaves, for ``tree_unflatten`` with the
-JAX net's treedef (``Updater.optax_layout`` holds the map). This module
-imports nothing of the JAX package: it reads arrays.
+JAX net's treedef (``Updater.optax_layout`` holds the map).
+``lookup_table_from_jax(table)`` carries a JAX ``InMemoryLookupTable``
+(its vocab words with counts, codes and points; ``syn0`` / ``syn1`` /
+``syn1neg`` and the negative-sampling CDF as numpy copies) into the
+port's, and ``tree_vectorizer_from_jax(jax_tv, tv)`` copies a JAX
+``TreeVectorizer``'s ``W`` and ``b`` into the port's, on its device. This
+module imports nothing of the JAX package: it reads arrays.
 """
 
 from __future__ import annotations
@@ -129,3 +134,34 @@ def opt_state_to_jax(net) -> List[np.ndarray]:
     """``net.opt_state`` as optax's flattened leaves (numpy arrays; bf16
     moments as float32)."""
     return [params_to_numpy(t) for t in net._tx.optax_leaves(net.opt_state)]
+
+
+def lookup_table_from_jax(table):
+    """The port's ``nlp.lookup.InMemoryLookupTable`` holding a copy of the
+    JAX package's ``table``: the same words in the same order with their
+    counts, Huffman codes and points, the same vocab total, and numpy
+    copies of its weights and negative-sampling CDF."""
+    from deeplearning4j_tpu_torch.nlp.lookup import InMemoryLookupTable
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabCache, VocabWord
+    cache = VocabCache()
+    for w in table.vocab.vocab_words():
+        cache.add(VocabWord(w.word, w.count, codes=list(w.codes),
+                            points=list(w.points)))
+    cache.total_word_count = table.vocab.total_word_count
+    out = InMemoryLookupTable(cache, table.vector_length, use_hs=table.use_hs,
+                              negative=table.negative)
+    for name in ("syn0", "syn1", "syn1neg", "_neg_cdf"):
+        setattr(out, name, np.array(getattr(table, name), copy=True))
+    return out
+
+
+def tree_vectorizer_from_jax(jax_tv, tv) -> None:
+    """Copy a JAX ``TreeVectorizer``'s composition weights ``W`` [2D, D]
+    and ``b`` [D] into the port's ``tv`` in place, on its device."""
+    for name in ("W", "b"):
+        dst = getattr(tv, name)
+        src = np.asarray(getattr(jax_tv, name), np.float32)
+        if src.shape != tuple(dst.shape):
+            raise ValueError(f"TreeVectorizer.{name}: {src.shape} does not "
+                             f"match {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(src, copy=True)))

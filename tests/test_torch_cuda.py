@@ -1606,6 +1606,121 @@ def test_parallel_trainers_at_world_1_over_nccl(card, tmp_path):
     assert not dist.is_initialized()
 
 
+# ------------------------------------------------------------------ nlp
+# the embedding trainers' steps on the card against the same steps on the
+# CPU (plain PyTorch on the card: no kernel of K1-K6 lies on this path)
+
+NLP_V, NLP_D, NLP_B, NLP_K = 3000, 200, 512, 25
+
+
+def _nlp_tables(n, shape, seed):
+    g = np.random.default_rng(seed)
+    return [(g.normal(size=shape) * 0.3).astype(np.float32) for _ in range(n)]
+
+
+def _nlp_case(step, seed=0):
+    """(function, table arrays, batch arrays, lr) at word2vec's widths,
+    indices drawn from a Zipf-like law so that most of them repeat."""
+    from deeplearning4j_tpu_torch.nlp import glove, paragraph_vectors
+    from deeplearning4j_tpu_torch.nlp import sequencevectors as sv
+    g = np.random.default_rng(seed + 1)
+    V, D, B, K = NLP_V, NLP_D, NLP_B, NLP_K
+    p = 1.0 / np.arange(1, V + 1)
+    p /= p.sum()
+
+    def idx(*shape):
+        return g.choice(V, size=shape, p=p).astype(np.int32)
+    if step == "sgns":
+        return (sv._sgns_step, _nlp_tables(2, (V, D), seed),
+                [idx(B), idx(B), idx(B, K)], 0.025)
+    if step == "hs":
+        L = 17
+        mask = (np.arange(L)[None, :] < g.integers(5, L + 1, (B, 1))
+                ).astype(np.float32)
+        codes = (g.random((B, L)) < 0.5).astype(np.float32) * mask
+        return (sv._hs_step, _nlp_tables(2, (V, D), seed),
+                [idx(B), idx(B, L) * (mask > 0), codes, mask], 0.025)
+    if step in ("cbow", "dm"):
+        W = 16
+        mask = (np.arange(W)[None, :] < g.integers(1, W + 1, (B, 1))
+                ).astype(np.float32)
+        batch = [(idx(B, W) * (mask > 0)).astype(np.int32), mask, idx(B),
+                 idx(B, K)]
+        if step == "cbow":
+            return sv._cbow_ns_step, _nlp_tables(2, (V, D), seed), batch, \
+                0.025
+        tables = _nlp_tables(3, (V, D), seed)
+        tables[0] = tables[0][:40]          # doc vectors
+        return paragraph_vectors._dm_step, tables, batch, 0.025
+    rows = [idx(8192), idx(8192)]
+    x = g.uniform(0.05, 40.0, 8192).astype(np.float32)
+    tables = _nlp_tables(2, (V, 50), seed) + [
+        np.zeros(V, np.float32), np.zeros(V, np.float32),
+        np.ones((V, 50), np.float32), np.ones((V, 50), np.float32),
+        np.ones(V, np.float32), np.ones(V, np.float32)]
+    return glove._glove_step, tables, rows + [
+        np.log(x), np.minimum(1.0, (x / 10.0) ** 0.75).astype(np.float32)], \
+        0.05
+
+
+def _nlp_run(step, device, seed=0, n=3):
+    fn, tables, batch, lr = _nlp_case(step, seed)
+    t = [torch.tensor(a, device=device) for a in tables]
+    b = [torch.as_tensor(a, device=device) for a in batch]
+    for _ in range(n):
+        if step == "dm":
+            t[0], t[2] = fn(t[0], 7, t[1], t[2], *b, lr)
+        else:
+            t = list(fn(*t, *b, lr))
+    return [x.cpu().numpy() for x in t]
+
+
+@pytest.mark.parametrize("step", ["sgns", "hs", "cbow", "dm", "glove"])
+def test_nlp_step_on_the_card_matches_the_cpu(card, step):
+    """Three chained steps on the card within 1e-5 x max(1, max |x|) of
+    the same steps on the CPU; two card runs bit for bit (the scatter
+    sums each row's updates in batch order, without atomics)."""
+    got = _nlp_run(step, card)
+    want = _nlp_run(step, "cpu")
+    for a, b in zip(got, want):
+        tol = 1e-5 * max(1.0, float(np.abs(b).max()))
+        assert float(np.abs(a - b).max()) <= tol
+    again = _nlp_run(step, card)
+    assert all(np.array_equal(a, b) for a, b in zip(got, again))
+
+
+def test_nlp_trainers_on_the_card_match_the_cpu(card):
+    """Word2Vec (CBOW), ParagraphVectors (DBOW, then ``infer_vector``),
+    GloVe and TreeVectorizer with ``device=None`` train on the card and
+    agree with ``device="cpu"``; the lookup tables stay numpy."""
+    from deeplearning4j_tpu_torch.nlp import (
+        Glove, ParagraphVectors, TreeVectorizer, Word2Vec)
+    g = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(60)]
+    sents = [" ".join(g.choice(words, 12)) for _ in range(80)]
+    out = {}
+    for dev in (None, "cpu"):
+        w2v = Word2Vec(layer_size=32, window=3, epochs=2, seed=1,
+                       elements_algo="cbow", batch_size=64, device=dev)
+        w2v.fit(sents)
+        pv = ParagraphVectors(layer_size=16, epochs=2, seed=2,
+                              batch_size=64, device=dev)
+        pv.fit_documents(sents[:30])
+        syn1neg = pv.lookup_table.syn1neg.copy()
+        iv = pv.infer_vector(sents[3])
+        assert np.array_equal(pv.lookup_table.syn1neg, syn1neg)
+        gl = Glove(layer_size=8, window=3, epochs=2, seed=3, device=dev)
+        gl.fit(sents)
+        tv = TreeVectorizer(w2v.get_word_vector, 32, device=dev)
+        (tree,) = tv.vectorize("The dog chased the cat.")
+        assert (tv.W.device.type == "cuda") == (dev is None)
+        assert isinstance(w2v.lookup_table.syn0, np.ndarray)
+        out[dev] = [w2v.lookup_table.syn0, w2v.lookup_table.syn1neg,
+                    pv.doc_vectors, iv, gl.lookup_table.syn0, tree.vector]
+    for a, b in zip(out[None], out["cpu"]):
+        assert float(np.abs(a - b).max()) <= 1e-4 * float(np.abs(b).max())
+
+
 # --------------------------------------------------------------- imports
 # (no card needed: this runs wherever the file does)
 
@@ -1652,7 +1767,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "keras/keras_import.py", "nn/transferlearning.py",
                    "earlystopping/trainer.py",
                    "earlystopping/parallel_trainer.py",
-                   "gradientcheck/check.py"):
+                   "gradientcheck/check.py", "nlp/__init__.py",
+                   "nlp/sequencevectors.py", "nlp/word2vec.py",
+                   "nlp/paragraph_vectors.py", "nlp/glove.py",
+                   "nlp/treeparser.py", "nlp/serializer.py",
+                   "nlp/lookup.py", "nlp/vocab.py", "nlp/tokenization.py",
+                   "nlp/tokenization_ext.py", "nlp/vectorizers.py",
+                   "nlp/ja_lexicon.py", "nlp/lattice_tokenizer.py",
+                   "nlp/annotators.py", "nlp/sentiment.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     # h5py too: the port reads HDF5 itself (keras/hdf5.py)
     banned = ("jax", "jaxlib", "deeplearning4j_tpu", "h5py")

@@ -727,10 +727,15 @@ def test_structured_errors_match_the_jax_fleet(tmp_path):
 
 
 def _membership_script(which, fdir, model):
-    """Admit 0, admit 1, partition 1 (its heartbeat suppressed for 2 s),
-    readmit 1, drain 0: the lease's (epoch, world) after each step."""
+    """Admit 0, admit 1, partition 1 (its heartbeat suppressed until the
+    schedule is cleared), heal it, readmit 1, drain 0: the lease's
+    (epoch, world) after each step. The partition is held open until the
+    router has dropped rank 1, so no timing decides whether the [0]
+    world is seen; the 3 s heartbeat timeout keeps a healthy replica
+    whose 0.2 s heartbeat thread is starved on a loaded host from being
+    dropped as well."""
     Router, Rep, Client, fi, kw = FLEETS[which]
-    router = Router(fdir, poll_s=0.1, heartbeat_timeout_s=1.0,
+    router = Router(fdir, poll_s=0.1, heartbeat_timeout_s=3.0,
                     metrics_port=None)
     reps, seen = {}, []
 
@@ -749,7 +754,7 @@ def _membership_script(which, fdir, model):
         reps[1] = Rep(fdir, 1, model=model, **kw)
         settle([0, 1])
         fi.set_schedule(fi.FaultSchedule([fi.Fault(
-            "partition_replica", rank=1, at_call=1, duration=2.0)]))
+            "partition_replica", rank=1, at_call=1, duration=0.0)]))
         # an admitted request on rank 1 opens its partition window (a
         # probe would not count; a missing file is answered, not served)
         cli = Client(reps[1].host, reps[1].port)
@@ -759,6 +764,7 @@ def _membership_script(which, fdir, model):
             pass
         cli.close()
         settle([0])
+        fi.clear()          # the partition heals: rank 1 beats again
         settle([0, 1])
         reps.pop(0).drain(grace_s=5.0)
         settle([1])
