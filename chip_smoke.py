@@ -415,9 +415,33 @@ Phases, each printing JSON lines:
    tables read back and rewritten byte for byte, ``words_nearest`` on
    the read-back table that of the trained one. No kernel of K1-K6 is
    launched on this path;
-22. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+22. cluster_graph — clustering, t-SNE, the graph embeddings and
+   SparkWord2Vec (ROADMAP A7.6d) on a seeded stochastic block model at
+   BlogCatalog's size (10,312 vertices, 333,983 edges, 39 groups; cut:
+   BlogCatalog is not in the repository): ``DeepWalk`` at the DeepWalk
+   paper's widths (d 128, window 10, walks of 40; gamma 80 -> 1) and
+   ``Node2Vec`` at node2vec's (d 128, k 10, p = q = 0.25, 5 negatives;
+   r 10 -> 1, l 80 -> 40), each run's first 20 steps held one by one
+   against the CPU from the card's state (1e-6 x max(1, max |x|)) and
+   its first 50 replayed; ``KMeansClustering(k=39)`` on the DeepWalk
+   vectors (purity against the planted groups), ``VPTree`` top-10 over
+   them (the share of neighbours in the same group) and over a seeded
+   71,290 x 200 table (1,024 queries), ``Tsne`` (perplexity 30, 500
+   iterations) of the DeepWalk vectors posted to a ``UIServer`` and read
+   back over ``GET /api/tsne``, each card call of ``_lloyd_step``,
+   ``_topk_neighbors``, ``_binary_search_perplexity`` and ``_tsne_grad``
+   against its CPU twin (assignments and neighbours away from
+   near-ties); ``SparkWord2Vec`` at world 2 in two processes of this
+   script (``--spark-rank``) over gloo on this card at the nlp phase's
+   skip-gram NS widths: its first steps against the world-1 step from the
+   same state on the card and on the CPU, the ranks' tables bit for bit,
+   the fit within 1e-4 of max |x| of the single-process fit with the same
+   trim; ms a step, the combine's bytes a step, the host's share (walks,
+   pairs, Huffman), peak memory, the phase's seconds (at most 90). No
+   kernel of K1-K6 is launched on this path;
+23. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-23. last line ``{"ok": true, "device": {...}}``.
+24. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -723,7 +747,8 @@ KERNELS = {"flash_attn_fwd": flash_attention,
 #: what earlier phases measured on their live nets, for the analysis
 #: phase's memory plan to be held against: the GPT training net's param
 #: and moment bytes and its step's peak, ResNet-50's peaks, the serving
-#: engine's pool, the Keras twin's imported config
+#: engine's pool, the Keras twin's imported config; and the nlp phase's
+#: vocabulary, for cluster_graph's SparkWord2Vec
 LIVE: dict = {}
 
 
@@ -990,7 +1015,14 @@ IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
                         "nlp/vectorizers.py", "nlp/tokenization_ext.py",
                         "nlp/ja_lexicon.py", "nlp/lattice_tokenizer.py",
                         "nlp/annotators.py", "nlp/treeparser.py",
-                        "nlp/sentiment.py")
+                        "nlp/sentiment.py", "nlp/distributed.py",
+                        "util/__init__.py", "util/math_utils.py",
+                        "util/time_series.py", "util/viterbi.py",
+                        "clustering/__init__.py", "clustering/distance.py",
+                        "clustering/kmeans.py", "clustering/knn.py",
+                        "clustering/tsne.py", "graph/__init__.py",
+                        "graph/graph.py", "graph/walks.py",
+                        "graph/deepwalk.py", "graph/node2vec.py")
 
 
 def import_rule() -> dict:
@@ -8866,9 +8898,10 @@ class HostClock:
 
 
 def nlp_run(name, step, modules, fit, table, n_check=NLP_CHECK,
-            n_whole=NLP_WHOLE):
-    """Run ``fit()`` on the card with ``step`` spied on (``NlpStepSpy``),
-    the host pair builders and ``table``'s negative draws clocked, and
+            n_whole=NLP_WHOLE, tol=TOL_NLP_STEP):
+    """Run ``fit()`` on the card with ``step`` spied on (``NlpStepSpy``;
+    its checked steps held within ``tol`` of max(1, max |x|)), the host
+    pair functions and ``table``'s negative draws clocked, and
     the pairs (windows, co-occurrence entries) counted: the run's
     record."""
     from deeplearning4j_tpu_torch.nlp import paragraph_vectors as ppv
@@ -8907,7 +8940,7 @@ def nlp_run(name, step, modules, fit, table, n_check=NLP_CHECK,
                - base)
     check(spy.calls >= n_whole and spy.calls > 0,
           f"nlp {name}: {spy.calls} steps, fewer than {n_whole}")
-    check(rec["step_max_err_over_scale"] <= TOL_NLP_STEP
+    check(rec["step_max_err_over_scale"] <= tol
           and rec["untouched_rows_bitwise"] and rec["repeat_bitwise"],
           f"nlp {name}: a step against its CPU twin from the card's "
           f"state: {rec}")
@@ -9001,6 +9034,7 @@ def nlp_phase(smi):
         return rec, w2v
 
     rec, cbow = w2v_run("cbow_ns", dict(elements_algo="cbow"), 0.05, sents)
+    LIVE["nlp_vocab"] = cbow.vocab      # cluster_graph's SparkWord2Vec
     topics = nlp_topics(cbow.lookup_table)
     rec["topics"] = topics
     emit(dict(phase="nlp", nvidia_smi=smi, **rec))
@@ -9181,6 +9215,592 @@ def nlp_phase(smi):
               launches=launched, phase_s=time.perf_counter() - t_phase))
     check(all(v == 0 for v in launched.values()),
           f"the NLP path launched a kernel of K1-K6: {launched}")
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# cluster_graph: clustering, t-SNE, the graph embeddings and SparkWord2Vec
+# (ROADMAP A7.6d)
+# ---------------------------------------------------------------------------
+
+#: a seeded stochastic block model at the size of BlogCatalog, the graph of
+#: the DeepWalk paper (Perozzi et al. 2014, §5) and of the node2vec paper
+#: (Grover & Leskovec 2016, §4.3): 10,312 vertices, 333,983 undirected
+#: edges (mean degree 64.8), 39 planted groups; each edge joins two
+#: members of a group with probability SBM_P_IN. BlogCatalog is not in the
+#: repository: the SBM is a cut.
+SBM_V, SBM_E, SBM_GROUPS, SBM_P_IN = 10_312, 333_983, 39, 0.8
+#: DeepWalk's §5 settings (d 128, window 10, walk length 40) with
+#: word2vec's alpha 0.025 and the JAX package's batch of 512; gamma cut
+#: from 80 walks a vertex to 1
+DW_SETTINGS = dict(vector_size=128, window_size=10, learning_rate=0.025,
+                   walks_per_vertex=1, batch_size=512, seed=SEED)
+DW_WALK_LENGTH = 40
+#: node2vec's §4.3 settings (d 128, k 10) at p = q = 0.25, 5 negatives,
+#: the JAX package's batch of 1,024; r cut from 10 to 1 and l from 80 to
+#: 40 (at l 80 the phase ran 94.9 s of its 90 on an H100 80GB HBM3 at
+#: 700 W, 25.3 s of it node2vec's)
+N2V_SETTINGS = dict(vector_size=128, window_size=10, walk_length=40,
+                    walks_per_vertex=1, p=0.25, q=0.25, negative=5,
+                    learning_rate=0.025, batch_size=1024, seed=SEED)
+TSNE_SETTINGS = dict(perplexity=30.0, max_iter=500, seed=SEED)
+#: VPTree: top-10 neighbours (besides the vertex itself) of every vertex,
+#: and of 1,024 queries into a seeded table at the nlp phase's widths
+CG_K, CG_TABLE_QUERIES = 10, 1_024
+#: SparkWord2Vec: the nlp phase's skip-gram NS run (W2V_SETTINGS, alpha
+#: 0.025, its first NLP_SG_SENTENCES sentences) at world 2 over gloo
+SPARK_WORLD, SPARK_CHECK = 2, 3
+SPARK_SETTINGS = {**W2V_SETTINGS, "learning_rate": 0.025}
+#: a card step against its CPU twin, of max(1, max |x|); the Spark fit
+#: against the single-process fit with the same trim, of max |x|
+TOL_CG_STEP, TOL_SPARK_FIT = 1e-6, 1e-4
+#: the trainers' first CG_CHECK steps held against the CPU one by one,
+#: their first CG_WHOLE replayed on the CPU; a row-wise function's CPU twin
+#: runs on its first CG_TWIN_ROWS rows
+CG_CHECK, CG_WHOLE, CG_TWIN_ROWS = 20, 50, 256
+CG_BUDGET_S = 90.0
+
+
+def sbm_graph():
+    """(the port's ``Graph``, each vertex's planted group): SBM_E distinct
+    undirected edges, no self-loops, drawn in bulk from the seed."""
+    from deeplearning4j_tpu_torch.graph import Graph
+    rng = np.random.default_rng(SEED + 25)
+    group = rng.integers(0, SBM_GROUPS, SBM_V)
+    order = np.argsort(group, kind="stable")
+    size = np.bincount(group, minlength=SBM_GROUPS)
+    first = np.concatenate([[0], np.cumsum(size)[:-1]])
+    keys = np.zeros(0, np.int64)
+    while len(keys) < SBM_E:
+        n = 2 * (SBM_E - len(keys))
+        u = rng.integers(0, SBM_V, n)
+        mate = order[first[group[u]]
+                     + (rng.random(n) * size[group[u]]).astype(np.int64)]
+        v = np.where(rng.random(n) < SBM_P_IN, mate,
+                     rng.integers(0, SBM_V, n))
+        ok = u != v
+        new = np.minimum(u, v)[ok] * SBM_V + np.maximum(u, v)[ok]
+        keys = np.unique(np.concatenate([keys, new]))
+    keys = rng.permutation(keys)[:SBM_E]
+    g = Graph(SBM_V)
+    for a, b in zip((keys // SBM_V).tolist(), (keys % SBM_V).tolist()):
+        g.add_edge(a, b)
+    return g, group
+
+
+class CardTwin:
+    """Stands in for a device function of the clustering package in the
+    modules that call it. Every call is timed with CUDA events; the calls
+    numbered in ``at`` are run again on the CPU from the same inputs
+    (a row-wise function's first ``rows`` rows only) and held by
+    ``hold(card_outputs, cpu_outputs, cpu_args)``, which returns the
+    error over its scale and the assignments or neighbours that differ
+    away from near-ties."""
+
+    def __init__(self, modules, name, hold, at=(0,), rows=None):
+        self.modules = [m for m in modules if hasattr(m, name)]
+        self.name, self.hold, self.at, self.rows = name, hold, set(at), rows
+        self.real = getattr(self.modules[0], name)
+        self.calls, self.events = 0, []
+        self.worst, self.mismatched = 0.0, 0
+
+    def __enter__(self):
+        for mod in self.modules:
+            setattr(mod, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.modules:
+            setattr(mod, self.name, self.real)
+
+    def __call__(self, *args, **kw):
+        n = self.calls
+        self.calls += 1
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = self.real(*args, **kw)
+        e1.record()
+        self.events.append((e0, e1))
+        if n in self.at:
+            args = list(args)
+            card = out if isinstance(out, tuple) else (out,)
+            if self.rows is not None:
+                args[0] = args[0][:self.rows]
+                card = tuple(o[:self.rows] for o in card)
+            cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
+                   for a in args]
+            want = self.real(*cpu, **kw)
+            err, bad = self.hold([o.cpu() for o in card],
+                                 want if isinstance(want, tuple) else (want,),
+                                 cpu)
+            self.worst, self.mismatched = max(self.worst, err), \
+                self.mismatched + bad
+        return out
+
+    def record(self) -> dict:
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        return dict(calls=self.calls, checked=sorted(self.at),
+                    max_err_over_scale=self.worst,
+                    mismatched=self.mismatched,
+                    ms_mean=float(np.mean(ms)) if ms else None,
+                    ms_total=float(np.sum(ms)))
+
+
+def _over(got, want, scale=None) -> float:
+    got, want = got.double(), want.double()
+    if scale is None:
+        scale = max(1.0, float(want.abs().max()))
+    return float((got - want).abs().max()) / scale
+
+
+def _sq_scale(*xs) -> float:
+    return max(1.0, max(float((x.double() ** 2).sum(1).max()) for x in xs))
+
+
+def _clear_gaps(d, tol):
+    """Positions of sorted distance rows apart from both neighbours by
+    more than ``tol``."""
+    pad = torch.full((d.shape[0], 1), float("inf"), dtype=d.dtype)
+    return torch.minimum(torch.diff(torch.cat([-pad, d], 1), dim=1),
+                         torch.diff(torch.cat([d, pad], 1), dim=1)) > tol
+
+
+def hold_lloyd(card, cpu, args):
+    """Centers and inertia of max(1, max |x|); assignments where the best
+    and second-best distances differ by more than the tolerance."""
+    from deeplearning4j_tpu_torch.clustering import distance
+    x, centers, _, cosine = args
+    d = (distance.cosine_dist if cosine else distance.pairwise_sq_dist)(
+        x, centers)
+    part = torch.sort(d.double(), dim=1).values
+    scale = 1.0 if cosine else _sq_scale(x, centers)
+    clear = part[:, 1] - part[:, 0] > TOL_CG_STEP * scale
+    bad = int((card[1][clear] != cpu[1][clear]).sum())
+    return max(_over(card[0], cpu[0]), _over(card[2], cpu[2])), bad
+
+
+def hold_topk(card, cpu, args):
+    """Squared distances of max(1, max ||x||^2) (cosine distances of 1);
+    neighbours away from near-ties."""
+    q, pts, _, cosine = args
+    if cosine:
+        dc, dw, scale = card[0], cpu[0], 1.0
+    else:
+        dc, dw, scale = card[0].double() ** 2, cpu[0].double() ** 2, \
+            _sq_scale(q, pts)
+    clear = _clear_gaps(dw, TOL_CG_STEP * scale)
+    return _over(dc, dw, scale), int((card[1][clear] != cpu[1][clear]).sum())
+
+
+def hold_values(card, cpu, args):
+    return max(_over(c, w) for c, w in zip(card, cpu)), 0
+
+
+class SparkStepSpy:
+    """Stands in for ``sequencevectors._sgns_step`` in a SparkWord2Vec rank:
+    records the whole batch the trainer hands ``_put_batch`` (before it
+    keeps this rank's chunk), counts the bytes of the combine's
+    collectives, times every step with CUDA events, and holds each of the
+    first ``check`` steps, from the card's state before it, against the
+    world-1 step on the whole batch on the card and on the CPU."""
+
+    def __init__(self, w2v, module, check=SPARK_CHECK):
+        self.w2v, self.module, self.check = w2v, module, check
+        self.real = module._sgns_step
+        self.pending, self.events = [], []
+        self.calls, self.bytes = 0, 0
+        self.err_world1, self.err_cpu = 0.0, 0.0
+        put, mesh = w2v._put_batch, w2v._mesh
+
+        def put_batch(arr):
+            self.pending.append(np.asarray(arr))
+            return put(arr)
+
+        def counted(fn, nbytes):
+            def call(t, *a, **kw):
+                self.bytes += nbytes(t)
+                return fn(t, *a, **kw)
+            return call
+        w2v._put_batch = put_batch
+        mesh.all_gather = counted(mesh.all_gather, lambda t: t.numel()
+                                  * t.element_size() * mesh.world)
+        mesh.all_reduce_ = counted(mesh.all_reduce_,
+                                   lambda t: t.numel() * t.element_size())
+        module._sgns_step = self
+
+    def remove(self):
+        self.module._sgns_step = self.real
+
+    def __call__(self, *args, **kw):
+        n, batch, self.pending = self.calls, self.pending, []
+        self.calls += 1
+        if n < self.check:
+            snap = [args[0].clone(), args[1].clone()]
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = self.real(*args, **kw)
+        e1.record()
+        self.events.append((e0, e1))
+        if n < self.check:
+            lr = args[-1]
+            whole = self.real(*[s.clone() for s in snap],
+                              *[torch.as_tensor(b, device=snap[0].device)
+                                for b in batch], lr)
+            cpu = self.real(*[s.cpu() for s in snap],
+                            *[torch.as_tensor(b) for b in batch], lr)
+            for o, w, c in zip(out, whole, cpu):
+                self.err_world1 = max(self.err_world1, _over(o, w))
+                self.err_cpu = max(self.err_cpu, _over(o.cpu(), c))
+        return out
+
+    def record(self) -> dict:
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        return dict(steps=self.calls, checked_steps=min(self.calls,
+                                                        self.check),
+                    max_err_over_scale_world1=self.err_world1,
+                    max_err_over_scale_cpu=self.err_cpu,
+                    ms_per_step=float(np.mean(ms)) if ms else None,
+                    ms_per_step_median=float(np.median(ms)) if ms else None,
+                    combine_bytes_per_step=self.bytes / max(1, self.calls))
+
+
+def spark_rank(rank, world, init, out):
+    """One rank of the SparkWord2Vec group (this script run with
+    ``--spark-rank``): the skip-gram NS fit over gloo on the card from the
+    vocabulary the phase pickled, every step spied on
+    (``SparkStepSpy``); writes its tables and its record."""
+    import pickle
+    from deeplearning4j_tpu_torch.nlp import InMemoryLookupTable, SparkWord2Vec
+    from deeplearning4j_tpu_torch.nlp import sequencevectors as psv
+    from deeplearning4j_tpu_torch.parallel import multihost
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out)
+    t0 = time.perf_counter()
+    multihost.initialize(init, world, rank, backend="gloo")
+    try:
+        rec = dict(rank=rank, world=world, join_s=time.perf_counter() - t0)
+        vocab = pickle.loads((out / "vocab.pkl").read_bytes())
+        sents = nlp_corpus()[0][:NLP_SG_SENTENCES]
+        w2v = SparkWord2Vec(**SPARK_SETTINGS)
+        w2v.vocab = vocab
+        w2v.lookup_table = InMemoryLookupTable(
+            vocab, w2v.layer_size, w2v.seed, use_hs=w2v.use_hs,
+            negative=w2v.negative)
+        spy = SparkStepSpy(w2v, psv)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        try:
+            w2v.fit(sents)
+            torch.cuda.synchronize()
+        finally:
+            spy.remove()
+        rec.update(fit_s=time.perf_counter() - t1, n_dev=w2v._n_dev,
+                   backend=w2v._mesh.backend, **spy.record())
+        lt = w2v.lookup_table
+        for name in ("syn0", "syn1neg"):
+            np.save(out / f"{name}_r{rank}.npy", getattr(lt, name))
+    finally:
+        multihost.shutdown()
+    (out / f"spark_r{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def spark_group(tmp, vocab, sents):
+    """SparkWord2Vec at world 2 in two processes of this script on this
+    card over gloo, against the single-process fit with the same trim."""
+    import pickle
+    from deeplearning4j_tpu_torch.nlp import InMemoryLookupTable, Word2Vec
+    out = tmp / "spark"
+    out.mkdir()
+    (out / "vocab.pkl").write_bytes(pickle.dumps(vocab))
+    init = f"file://{tmp}/rdv_spark"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--spark-rank",
+         str(r), str(SPARK_WORLD), init, str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(SPARK_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"spark rank {r} exited {p.returncode}: "
+              f"{logs[r][-3000:]}")
+    ranks = [json.loads((out / f"spark_r{r}.json").read_text())
+             for r in range(SPARK_WORLD)]
+    rec = dict(group_s=time.perf_counter() - t0, ranks=ranks)
+    tables = {n: [np.load(out / f"{n}_r{r}.npy") for r in range(SPARK_WORLD)]
+              for n in ("syn0", "syn1neg")}
+    rec["ranks_bitwise"] = all(np.array_equal(t[0], x) for t in
+                               tables.values() for x in t[1:])
+
+    class TrimmedWord2Vec(Word2Vec):
+        """The single-process fit with SparkWord2Vec's trim."""
+
+        def _adjust_selection(self, sel):
+            return sel[:len(sel) // SPARK_WORLD * SPARK_WORLD]
+    w2v = TrimmedWord2Vec(**SPARK_SETTINGS)
+    w2v.vocab = vocab
+    w2v.lookup_table = InMemoryLookupTable(
+        vocab, w2v.layer_size, w2v.seed, use_hs=w2v.use_hs,
+        negative=w2v.negative)
+    t1 = time.perf_counter()
+    w2v.fit(sents)
+    torch.cuda.synchronize()
+    rec["single_fit_s"] = time.perf_counter() - t1
+    rec["fit_err_over_max"] = max(
+        float(np.abs(tables[n][0].astype(np.float64)
+                     - getattr(w2v.lookup_table, n)).max())
+        / float(np.abs(getattr(w2v.lookup_table, n)).max())
+        for n in tables)
+    return rec
+
+
+def cluster_graph(smi):
+    """Clustering, t-SNE, the graph embeddings and SparkWord2Vec on the card
+    (ROADMAP A7.6d), on a stochastic block model at BlogCatalog's size:
+    DeepWalk and node2vec at their papers' widths (each trainer's first
+    steps held against the CPU one by one and replayed), KMeansClustering
+    (k = 39) on the DeepWalk vectors against the planted groups, VPTree
+    top-10 over them and over a seeded table at the nlp phase's widths,
+    t-SNE of the DeepWalk vectors posted to a ``UIServer`` and read back
+    over ``GET /api/tsne``, and SparkWord2Vec at world 2 over gloo. No
+    kernel of K1-K6 lies on this path. Returns the path's launch
+    counts."""
+    from deeplearning4j_tpu_torch.clustering import (
+        KMeansClustering, Tsne, VPTree)
+    from deeplearning4j_tpu_torch.clustering import kmeans as pkm
+    from deeplearning4j_tpu_torch.clustering import knn as pknn
+    from deeplearning4j_tpu_torch.clustering import tsne as ptsne
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Node2Vec
+    from deeplearning4j_tpu_torch.graph import deepwalk as pdw
+    from deeplearning4j_tpu_torch.graph import node2vec as pn2v
+    from deeplearning4j_tpu_torch.graph import walks as pwalks
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.ui.server import UIServer
+    reset_counts()
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base, peak = torch.cuda.memory_allocated(), [0]
+
+    def note_peak():
+        torch.cuda.synchronize()
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+
+    t0 = time.perf_counter()
+    g, group = sbm_graph()
+    deg = np.array([g.get_vertex_degree(v) for v in range(SBM_V)])
+    graph = dict(vertices=SBM_V, edges=SBM_E, groups=SBM_GROUPS,
+                 p_in=SBM_P_IN, mean_degree=float(deg.mean()),
+                 max_degree=int(deg.max()), isolated=int((deg == 0).sum()),
+                 build_s=time.perf_counter() - t0,
+                 cuts=["BlogCatalog (not in the repository) -> a seeded "
+                       "SBM at its size", "DeepWalk: gamma 80 -> 1 walk a "
+                       "vertex", "node2vec: r 10 -> 1 walk a vertex, "
+                       "l 80 -> 40"])
+    emit(dict(phase="cluster_graph", nvidia_smi=smi, run="graph", **graph))
+    runs, clocks = {}, {}
+
+    def host_share(name, keys):
+        """The host's seconds (walks, pairs, Huffman) over the fit's."""
+        sec = {k: clocks[name].seconds[k] for k in keys}
+        runs[name].update(host_seconds=sec, host_share=sum(sec.values())
+                          / runs[name]["fit_seconds"])
+
+    # DeepWalk: hierarchical softmax over degree-Huffman codes
+    dw = DeepWalk(**DW_SETTINGS)
+
+    def dw_fit(clock):
+        clocks["deepwalk"] = clock
+        clock.wrap(pdw, "_skipgram_pairs", "pairs", lambda out: len(out[0]))
+        clock.wrap(pwalks.RandomWalkIterator, "walks", "walks")
+        clock.wrap(pdw, "GraphHuffman", "huffman")
+        clock.wrap(pdw, "huffman_arrays", "huffman")
+        dw.fit(g, walk_length=DW_WALK_LENGTH)
+    rec = nlp_run("deepwalk", "_hs_step", [pdw], dw_fit, None, CG_CHECK,
+                  CG_WHOLE, TOL_CG_STEP)
+    note_peak()
+    runs["deepwalk"] = rec
+    host_share("deepwalk", ("walks", "pairs", "huffman"))
+    emit(dict(phase="cluster_graph", nvidia_smi=smi, **rec))
+    vecs = dw.vertex_vectors
+
+    # node2vec: SGNS over second-order walks
+    n2v = Node2Vec(**N2V_SETTINGS)
+
+    def n2v_fit(clock):
+        clocks["node2vec"] = clock
+        clock.wrap(pn2v, "_skipgram_pairs", "pairs", lambda out: len(out[0]))
+        clock.wrap(pn2v, "node2vec_walks", "walks")
+        n2v.fit(g)
+    rec = nlp_run("node2vec", "_sgns_step", [pn2v], n2v_fit, None, CG_CHECK,
+                  CG_WHOLE, TOL_CG_STEP)
+    note_peak()
+    runs["node2vec"] = rec
+    host_share("node2vec", ("walks", "pairs"))
+    emit(dict(phase="cluster_graph", nvidia_smi=smi, **rec))
+
+    def same_group_share(idx):
+        return float((group[idx] == group[:, None]).mean())
+
+    # k-means (k = 39) on the DeepWalk vectors
+    t0 = time.perf_counter()
+    with CardTwin([pkm], "_lloyd_step", hold_lloyd, at=(0, 1)) as twin:
+        km = KMeansClustering(SBM_GROUPS, seed=SEED).fit(vecs)
+    fit_s = time.perf_counter() - t0
+    purity = sum(np.bincount(group[km.labels_ == c]).max(initial=0)
+                 for c in range(SBM_GROUPS)) / SBM_V
+    runs["kmeans"] = dict(run="kmeans", k=SBM_GROUPS, n_iter=km.n_iter_,
+                          inertia=km.inertia_, purity=float(purity),
+                          fit_s=fit_s, **twin.record())
+    note_peak()
+    emit(dict(phase="cluster_graph", nvidia_smi=smi, **runs["kmeans"]))
+
+    # VPTree: every vertex's top 10 (and itself), and a table at the nlp
+    # phase's widths
+    with CardTwin([pknn], "_topk_neighbors", hold_topk,
+                  rows=CG_TWIN_ROWS) as twin:
+        t0 = time.perf_counter()
+        idx, _ = VPTree(vecs).search(vecs, CG_K + 1)
+        vp_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED + 26)
+        table = rng.normal(size=(NLP_V, W2V_SETTINGS["layer_size"])).astype(
+            np.float32)
+        queries = table[:CG_TABLE_QUERIES] + rng.normal(
+            scale=0.01, size=(CG_TABLE_QUERIES, table.shape[1])).astype(
+            np.float32)
+        t0 = time.perf_counter()
+        tidx, _ = VPTree(table).search(queries, CG_K)
+        vt_s = time.perf_counter() - t0
+    self_first = float((idx[:, 0] == np.arange(SBM_V)).mean())
+    runs["vptree"] = dict(
+        run="vptree", k=CG_K, vertices_s=vp_s, table_s=vt_s,
+        table=list(table.shape), table_queries=CG_TABLE_QUERIES,
+        self_first=self_first,
+        same_group_share=same_group_share(idx[:, 1:]),
+        chance_share=float((np.bincount(group) ** 2).sum()) / SBM_V ** 2,
+        table_self_first=float((tidx[:, 0] == np.arange(
+            CG_TABLE_QUERIES)).mean()), **twin.record())
+    note_peak()
+    emit(dict(phase="cluster_graph", nvidia_smi=smi, **runs["vptree"]))
+
+    # t-SNE of the DeepWalk vectors, posted to the UI and read back
+    last = TSNE_SETTINGS["max_iter"]
+    with CardTwin([ptsne], "_binary_search_perplexity", hold_values,
+                  rows=CG_TWIN_ROWS) as bsp, \
+            CardTwin([ptsne], "_tsne_grad", hold_values,
+                     at=(last,)) as grad:
+        ts = Tsne(**TSNE_SETTINGS)
+        t0 = time.perf_counter()
+        emb = ts.fit(vecs)
+        tsne_s = time.perf_counter() - t0
+    note_peak()
+    ui = UIServer(port=0).start()
+    try:
+        ui.post_tsne(emb, labels=group)
+        with urllib.request.urlopen(f"{ui.url}/api/tsne", timeout=30) as r:
+            got = json.loads(r.read())
+    finally:
+        ui.stop()
+    means = np.stack([emb[group == k].mean(0) for k in range(SBM_GROUPS)])
+    spread = float(np.mean([emb[group == k].std()
+                            for k in range(SBM_GROUPS)]))
+    gaps = np.linalg.norm(means[:, None] - means[None], axis=-1)
+    runs["tsne"] = dict(
+        run="tsne", fit_s=tsne_s, kl=ts.kl_divergence_,
+        finite=bool(np.isfinite(emb).all()),
+        median_group_gap_over_spread=float(
+            np.median(gaps[np.triu_indices(SBM_GROUPS, 1)]) / spread),
+        ui_round_trip=bool(
+            got["x"] == [float(v) for v in emb[:, 0]]
+            and got["y"] == [float(v) for v in emb[:, 1]]
+            and got["labels"] == [str(v) for v in group]),
+        perplexity_search=bsp.record(), grad=grad.record())
+    emit(dict(phase="cluster_graph", nvidia_smi=smi, **runs["tsne"]))
+
+    # SparkWord2Vec at world 2 over gloo against the single-process fit,
+    # over the nlp phase's vocabulary (built here when this phase runs
+    # alone)
+    t0 = time.perf_counter()
+    sents = nlp_corpus()[0]
+    vocab = LIVE.get("nlp_vocab")
+    if vocab is None:
+        w2v = Word2Vec(**SPARK_SETTINGS)
+        w2v.build_vocab(sents)
+        vocab = w2v.vocab
+    vocab_s = time.perf_counter() - t0
+    tmp = Path(tempfile.mkdtemp(prefix="cluster_graph_"))
+    try:
+        rec = spark_group(tmp, vocab, sents[:NLP_SG_SENTENCES])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    note_peak()
+    rec.update(run="spark_word2vec", world=SPARK_WORLD, vocab_s=vocab_s)
+    runs["spark"] = rec
+    emit(dict(phase="cluster_graph", nvidia_smi=smi, **rec))
+
+    launched = counts()
+    phase_s = time.perf_counter() - t_phase
+    host = {k: runs[k]["host_share"] for k in ("deepwalk", "node2vec")}
+    emit(dict(phase="cluster_graph", nvidia_smi=smi, run="summary",
+              graph=graph, settings=dict(deepwalk=DW_SETTINGS,
+                                         deepwalk_walk=DW_WALK_LENGTH,
+                                         node2vec=N2V_SETTINGS,
+                                         tsne=TSNE_SETTINGS,
+                                         spark=SPARK_SETTINGS),
+              gates=dict(step=TOL_CG_STEP, spark_fit=TOL_SPARK_FIT,
+                         check_steps=CG_CHECK, whole_steps=CG_WHOLE,
+                         budget_s=CG_BUDGET_S),
+              ms_per_step={k: runs[k]["ms_per_step"] for k in
+                           ("deepwalk", "node2vec")},
+              spark_ms_per_step=[r["ms_per_step"] for r in rec["ranks"]],
+              spark_combine_bytes_per_step=[r["combine_bytes_per_step"]
+                                            for r in rec["ranks"]],
+              host_share=host, peak_bytes=peak[0],
+              peak_bytes_above_start=peak[0] - base, launches=launched,
+              phase_s=phase_s))
+    check(all(v == 0 for v in launched.values()),
+          f"the cluster_graph path launched a kernel of K1-K6: {launched}")
+    for name in ("kmeans", "vptree"):
+        r = runs[name]
+        check(r["max_err_over_scale"] <= TOL_CG_STEP and r["mismatched"] == 0
+              and r["calls"] > 0,
+              f"{name}: a card call against its CPU twin: {r}")
+    for r in (runs["tsne"]["perplexity_search"], runs["tsne"]["grad"]):
+        check(r["max_err_over_scale"] <= TOL_CG_STEP and r["calls"] > 0,
+              f"t-SNE: a card call against its CPU twin: {r}")
+    check(runs["kmeans"]["purity"] > 0.5,
+          f"k-means on the DeepWalk vectors: purity {runs['kmeans']}")
+    check(runs["vptree"]["self_first"] == 1.0
+          and runs["vptree"]["table_self_first"] == 1.0
+          and runs["vptree"]["same_group_share"]
+          > 5 * runs["vptree"]["chance_share"],
+          f"VPTree neighbours: {runs['vptree']}")
+    check(runs["tsne"]["finite"] and runs["tsne"]["ui_round_trip"],
+          f"t-SNE: {runs['tsne']}")
+    for r in rec["ranks"]:
+        check(r["n_dev"] == SPARK_WORLD and r["backend"] == "gloo"
+              and r["steps"] > 0
+              and r["max_err_over_scale_world1"] <= TOL_CG_STEP
+              and r["max_err_over_scale_cpu"] <= TOL_CG_STEP,
+              f"SparkWord2Vec rank {r['rank']}: a step against the world-1 "
+              f"step from the same state: {r}")
+    check(rec["ranks_bitwise"] and rec["fit_err_over_max"] <= TOL_SPARK_FIT,
+          f"SparkWord2Vec against the single-process fit: {rec}")
+    check(phase_s <= CG_BUDGET_S,
+          f"the cluster_graph phase took {phase_s:.1f} s, over its "
+          f"{CG_BUDGET_S} s budget")
     return launched
 
 
@@ -9404,7 +10024,12 @@ def main() -> int:
     # word2vec's widths (no kernel of K1-K6 on this path) -----------------
     timed("nlp", nlp_phase, smi)
 
-    # ---- 22. summary of every ported kernel -------------------------------
+    # ---- 22. clustering, t-SNE, the graph embeddings and SparkWord2Vec on a
+    # stochastic block model at BlogCatalog's size (no kernel of K1-K6 on
+    # this path) --------------------------------------------------------
+    timed("cluster_graph", cluster_graph, smi)
+
+    # ---- 23. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -9606,4 +10231,8 @@ if __name__ == "__main__":
         # one rank of train_parallel's world-2 group
         sys.exit(par_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                           sys.argv[5]))
+    if sys.argv[1:2] == ["--spark-rank"]:
+        # one rank of cluster_graph's SparkWord2Vec group
+        sys.exit(spark_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                            sys.argv[5]))
     sys.exit(main())

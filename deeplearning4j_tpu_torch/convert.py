@@ -26,8 +26,14 @@ JAX net's treedef (``Updater.optax_layout`` holds the map).
 (its vocab words with counts, codes and points; ``syn0`` / ``syn1`` /
 ``syn1neg`` and the negative-sampling CDF as numpy copies) into the
 port's, and ``tree_vectorizer_from_jax(jax_tv, tv)`` copies a JAX
-``TreeVectorizer``'s ``W`` and ``b`` into the port's, on its device. This
-module imports nothing of the JAX package: it reads arrays.
+``TreeVectorizer``'s ``W`` and ``b`` into the port's, on its device.
+``deepwalk_from_jax(jax_dw, dw)`` copies a JAX ``DeepWalk``'s vertex and
+inner-node vectors and its Huffman rows (codes, points, the vertex -> row
+map) into the port's, ``node2vec_from_jax`` a ``Node2Vec``'s vertex
+vectors and ``kmeans_from_jax`` a fitted ``KMeansClustering``'s centers,
+labels, inertia and iteration count, so that the port's queries
+(``similarity``, ``verticesNearest``, ``predict``) answer for the JAX
+model. This module imports nothing of the JAX package: it reads arrays.
 """
 
 from __future__ import annotations
@@ -136,18 +142,25 @@ def opt_state_to_jax(net) -> List[np.ndarray]:
     return [params_to_numpy(t) for t in net._tx.optax_leaves(net.opt_state)]
 
 
+def _vocab_from_jax(vocab):
+    """The port's ``VocabCache`` holding a JAX vocab's words in its order,
+    with their counts, Huffman codes and points, and its total."""
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabCache, VocabWord
+    cache = VocabCache()
+    for w in vocab.vocab_words():
+        cache.add(VocabWord(w.word, w.count, codes=list(w.codes),
+                            points=list(w.points)))
+    cache.total_word_count = vocab.total_word_count
+    return cache
+
+
 def lookup_table_from_jax(table):
     """The port's ``nlp.lookup.InMemoryLookupTable`` holding a copy of the
     JAX package's ``table``: the same words in the same order with their
     counts, Huffman codes and points, the same vocab total, and numpy
     copies of its weights and negative-sampling CDF."""
     from deeplearning4j_tpu_torch.nlp.lookup import InMemoryLookupTable
-    from deeplearning4j_tpu_torch.nlp.vocab import VocabCache, VocabWord
-    cache = VocabCache()
-    for w in table.vocab.vocab_words():
-        cache.add(VocabWord(w.word, w.count, codes=list(w.codes),
-                            points=list(w.points)))
-    cache.total_word_count = table.vocab.total_word_count
+    cache = _vocab_from_jax(table.vocab)
     out = InMemoryLookupTable(cache, table.vector_length, use_hs=table.use_hs,
                               negative=table.negative)
     for name in ("syn0", "syn1", "syn1neg", "_neg_cdf"):
@@ -165,3 +178,28 @@ def tree_vectorizer_from_jax(jax_tv, tv) -> None:
             raise ValueError(f"TreeVectorizer.{name}: {src.shape} does not "
                              f"match {tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(np.array(src, copy=True)))
+
+
+def deepwalk_from_jax(jax_dw, dw) -> None:
+    """Copy a JAX ``DeepWalk``'s ``vertex_vectors``, ``_syn1`` and Huffman
+    rows (``GraphHuffman``'s cache and vertex -> row map) into the port's
+    ``dw`` (``initialize``d on the port's copy of the graph, for the
+    queries that walk it)."""
+    from deeplearning4j_tpu_torch.graph.deepwalk import GraphHuffman
+    dw.huffman = GraphHuffman.from_cache(_vocab_from_jax(jax_dw.huffman.cache))
+    dw.vertex_vectors = np.array(jax_dw.vertex_vectors, np.float32)
+    dw._syn1 = np.array(jax_dw._syn1, np.float32)
+
+
+def node2vec_from_jax(jax_n2v, n2v) -> None:
+    """Copy a JAX ``Node2Vec``'s ``vertex_vectors`` into the port's."""
+    n2v.vertex_vectors = np.array(jax_n2v.vertex_vectors, np.float32)
+
+
+def kmeans_from_jax(jax_km, km) -> None:
+    """Copy a fitted JAX ``KMeansClustering``'s ``cluster_centers_``,
+    ``labels_``, ``inertia_`` and ``n_iter_`` into the port's ``km``."""
+    km.cluster_centers_ = np.array(jax_km.cluster_centers_, np.float32)
+    km.labels_ = np.array(jax_km.labels_)
+    km.inertia_ = float(jax_km.inertia_)
+    km.n_iter_ = int(jax_km.n_iter_)

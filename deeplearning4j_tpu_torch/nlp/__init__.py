@@ -13,7 +13,9 @@ products and a deterministic scatter of each touched row's summed
 update. The text modules (tokenizers, annotators, the lattice tokenizer,
 the tree parser, sentiment, the serializer) run on the host, as in the
 JAX package. ``SparkSequenceVectors`` / ``SparkWord2Vec``
-(``nlp/distributed.py``) are not ported yet.
+(``nlp/distributed.py``) train data-parallel over a ``torch.distributed``
+group, each rank on its chunk of every batch, the touched rows' updates
+combined across the ranks before they are applied.
 """
 
 from deeplearning4j_tpu_torch.nlp.tokenization import (  # noqa: F401
@@ -37,6 +39,10 @@ from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec  # noqa: F401
 from deeplearning4j_tpu_torch.nlp.paragraph_vectors import ParagraphVectors  # noqa: F401
 from deeplearning4j_tpu_torch.nlp.glove import Glove  # noqa: F401
 from deeplearning4j_tpu_torch.nlp.serializer import WordVectorSerializer  # noqa: F401
+from deeplearning4j_tpu_torch.nlp.distributed import (  # noqa: F401
+    SparkSequenceVectors,
+    SparkWord2Vec,
+)
 from deeplearning4j_tpu_torch.nlp.tokenization_ext import (  # noqa: F401
     JapaneseTokenizerFactory,
     KoreanTokenizerFactory,

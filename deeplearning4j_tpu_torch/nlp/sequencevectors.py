@@ -68,7 +68,7 @@ def _add_rows(mat, rows, delta):
     return mat
 
 
-def _scatter_mean_add(mat, idx, upd, power: float = 0.5):
+def _scatter_mean_add(mat, idx, upd, power: float = 0.5, combine=None):
     """mat[idx] += sum of upd rows, scaled 1/count**power per index.
 
     The reference's hogwild threads apply each pair's update sequentially
@@ -79,19 +79,27 @@ def _scatter_mean_add(mat, idx, upd, power: float = 0.5):
     (power=1) starves progress to one effective update per batch. The
     default 1/sqrt(count) is the stable compromise (tests compare it
     with both alternatives) and approaches the plain sum when indices
-    are unique (large vocabs). In place; returns ``mat``."""
+    are unique (large vocabs). In place; returns ``mat``.
+
+    ``combine(rows, sums, counts, n_rows)``, where given, turns this
+    process's (rows, sums, counts) into those of the whole batch before
+    the scale (``nlp/distributed.py``: the ranks' chunks of one batch);
+    None is the identity."""
     rows, sums, cnt = _row_sums(idx, upd)
+    if combine is not None:
+        rows, sums, cnt = combine(rows, sums, cnt, mat.shape[0])
     return _add_rows(mat, rows, sums / cnt.clamp(min=1.0)[:, None] ** power)
 
 
 def _sgns_step(syn0, syn1neg, centers, contexts, negs, lr,
-               dup_power: float = 0.5):
+               dup_power: float = 0.5, combine=None):
     """One batched skip-gram negative-sampling update.
 
     For each pair (c, o) with K negatives n_k: standard SGNS gradients
     (ref: SkipGram.java iterateSample — per-pair scalar loop there).
     ``dup_power`` exposes the duplicate-index scaling for the convergence
-    comparison test; production callers use the 0.5 default.
+    comparison test; production callers use the 0.5 default. ``combine``
+    as ``_scatter_mean_add``'s, for both tables.
     """
     v = syn0[centers]                                   # [B, D]
     targets = torch.cat([contexts[:, None], negs], dim=1)    # [B, 1+K]
@@ -103,13 +111,14 @@ def _sgns_step(syn0, syn1neg, centers, contexts, negs, lr,
     g = (labels - score) * lr                           # [B, 1+K]
     dv = torch.einsum("bk,bkd->bd", g, u)
     du = g[..., None] * v[:, None, :]                   # [B, 1+K, D]
-    syn0 = _scatter_mean_add(syn0, centers, dv, dup_power)
+    syn0 = _scatter_mean_add(syn0, centers, dv, dup_power, combine)
     syn1neg = _scatter_mean_add(syn1neg, targets.reshape(-1),
-                                du.reshape(-1, du.shape[-1]), dup_power)
+                                du.reshape(-1, du.shape[-1]), dup_power,
+                                combine)
     return syn0, syn1neg
 
 
-def _hs_step(syn0, syn1, centers, points, codes, mask, lr):
+def _hs_step(syn0, syn1, centers, points, codes, mask, lr, combine=None):
     """One batched hierarchical-softmax update. points/codes/mask are the
     context word's padded Huffman path ([B, L]); label = 1 - code
     (word2vec convention, ref: SkipGram.java / Huffman path usage)."""
@@ -119,16 +128,19 @@ def _hs_step(syn0, syn1, centers, points, codes, mask, lr):
     g = ((1.0 - codes) - score) * lr * mask             # [B, L]
     dv = torch.einsum("bl,bld->bd", g, u)
     du = g[..., None] * v[:, None, :]
-    syn0 = _scatter_mean_add(syn0, centers, dv)
+    syn0 = _scatter_mean_add(syn0, centers, dv, combine=combine)
     # Padded path slots (index 0, mask 0) must not inflate the count
     # normalizer for syn1 row 0 — weight counts by the mask.
     rows, sums, cnt = _row_sums(points, du.reshape(-1, du.shape[-1]), mask)
+    if combine is not None:
+        rows, sums, cnt = combine(rows, sums, cnt, syn1.shape[0])
     syn1 = _add_rows(syn1, rows,
                      sums / torch.sqrt(cnt.clamp(min=1.0))[:, None])
     return syn0, syn1
 
 
-def _cbow_ns_core(cvecs, ctx_mask, syn1neg, centers, negs, lr):
+def _cbow_ns_core(cvecs, ctx_mask, syn1neg, centers, negs, lr,
+                  combine=None):
     """CBOW-NS over gathered context vectors ``cvecs`` [B, W, D]: h = the
     masked mean of the context predicts the center word. Updates
     ``syn1neg`` in place; returns (dh [B, D], syn1neg)."""
@@ -144,23 +156,26 @@ def _cbow_ns_core(cvecs, ctx_mask, syn1neg, centers, negs, lr):
     dh = torch.einsum("bk,bkd->bd", g, u)                    # [B, D]
     du = g[..., None] * h[:, None, :]
     syn1neg = _scatter_mean_add(syn1neg, targets.reshape(-1),
-                                du.reshape(-1, du.shape[-1]))
+                                du.reshape(-1, du.shape[-1]),
+                                combine=combine)
     return dh, syn1neg
 
 
 def _cbow_ns_step(syn0, syn1neg, ctx, ctx_mask, centers, negs, lr,
-                  update_inputs=True):
+                  update_inputs=True, combine=None):
     """Batched CBOW with negative sampling: h = mean of context vectors
     predicts the center word (ref: CBOW.java). The input-side gradient is
     applied to every real context word (word2vec cbow_mean semantics)."""
     dh, syn1neg = _cbow_ns_core(syn0[ctx], ctx_mask, syn1neg, centers, negs,
-                                lr)
+                                lr, combine)
     if update_inputs:
         dctx = dh[:, None, :] * ctx_mask[..., None]     # [B, W, D]
         # Padded ctx slots point at word 0 but carry zero updates; the
         # count normalizer must not count them, so weight it by the mask.
         rows, sums, cnt = _row_sums(ctx, dctx.reshape(-1, dctx.shape[-1]),
                                     ctx_mask)
+        if combine is not None:
+            rows, sums, cnt = combine(rows, sums, cnt, syn0.shape[0])
         syn0 = _add_rows(syn0, rows,
                          sums / torch.sqrt(cnt.clamp(min=1.0))[:, None])
     return syn0, syn1neg
@@ -297,6 +312,11 @@ class SequenceVectors:
         """Hook to align batch size with the device count."""
         return sel
 
+    def _step_kwargs(self) -> dict:
+        """Keyword arguments every step call gets: a sharded trainer's
+        cross-rank ``combine``; none in one process."""
+        return {}
+
     # -- training -----------------------------------------------------
     def fit(self, token_sequences: Sequence[Sequence[str]]) -> None:
         if self.vocab is None:
@@ -310,6 +330,7 @@ class SequenceVectors:
         syn1neg = self._put_table(lt.syn1neg)
         if self.use_hs:
             w_codes, w_points, w_mask = huffman_arrays(self.vocab)
+        step_kw = self._step_kwargs()
 
         total_steps = max(1, self.epochs)
         for epoch in range(self.epochs):
@@ -331,7 +352,7 @@ class SequenceVectors:
                     syn0, syn1neg = _cbow_ns_step(
                         syn0, syn1neg, self._put_batch(ctx[sel]),
                         self._put_batch(mask[sel]), self._put_batch(cents[sel]),
-                        self._put_batch(negs), lr)
+                        self._put_batch(negs), lr, **step_kw)
             else:
                 cs, os_ = _skipgram_pairs(seqs, self.window, rng)
                 order = rng.permutation(len(cs))
@@ -346,13 +367,14 @@ class SequenceVectors:
                         syn0, syn1 = _hs_step(
                             syn0, syn1, self._put_batch(cs[sel]),
                             self._put_batch(pts), self._put_batch(cds),
-                            self._put_batch(msk), lr)
+                            self._put_batch(msk), lr, **step_kw)
                     else:
                         negs = lt.sample_negatives(
                             rng, (len(sel), max(1, self.negative)))
                         syn0, syn1neg = _sgns_step(
                             syn0, syn1neg, self._put_batch(cs[sel]),
-                            self._put_batch(os_[sel]), self._put_batch(negs), lr)
+                            self._put_batch(os_[sel]), self._put_batch(negs), lr,
+                            **step_kw)
         lt.syn0 = syn0.cpu().numpy()
         lt.syn1 = syn1.cpu().numpy()
         lt.syn1neg = syn1neg.cpu().numpy()

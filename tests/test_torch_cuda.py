@@ -1721,6 +1721,147 @@ def test_nlp_trainers_on_the_card_match_the_cpu(card):
         assert float(np.abs(a - b).max()) <= 1e-4 * float(np.abs(b).max())
 
 
+# ------------------------------------------------------- cluster / graph
+# clustering, t-SNE, the graph embeddings and SparkWord2Vec's combine on
+# the card against the same functions on the CPU (plain PyTorch on the
+# card: no kernel of K1-K6 lies on this path)
+
+def _scaled_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()) / max(1.0,
+                                                 float(np.abs(want).max()))
+
+
+def _blob_points(n=600, d=32, k=6, seed=0):
+    g = np.random.default_rng(seed)
+    centers = g.normal(size=(k, d)) * 4
+    return (centers[g.integers(0, k, n)]
+            + g.normal(size=(n, d))).astype(np.float32)
+
+
+def _clear_rows(dist, tol):
+    part = np.sort(np.asarray(dist, np.float64), axis=1)
+    return part[:, 1] - part[:, 0] > tol
+
+
+def test_cluster_functions_on_the_card_match_the_cpu(card):
+    """``_lloyd_step``, ``_topk_neighbors``, ``_binary_search_perplexity``
+    and ``_tsne_grad`` on the card within 1e-6 of max(1, max |x|) of the
+    CPU (squared distances of max ||x||^2); assignments and neighbours
+    equal away from near-ties; the card twice bit for bit."""
+    from deeplearning4j_tpu_torch.clustering import distance, kmeans, knn, tsne
+    x = _blob_points()
+    xs = float((x.astype(np.float64) ** 2).sum(1).max())
+    tol = 1e-6
+    c0 = torch.as_tensor(x[:6].copy())
+    for cosine in (False, True):
+        got = kmeans._lloyd_step(torch.as_tensor(x, device=card),
+                                 c0.to(card), 6, cosine)
+        again = kmeans._lloyd_step(torch.as_tensor(x, device=card),
+                                   c0.to(card), 6, cosine)
+        want = kmeans._lloyd_step(torch.as_tensor(x), c0, 6, cosine)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert _scaled_err(got[0].cpu(), want[0]) <= tol
+        d = (distance.cosine_dist if cosine else distance.pairwise_sq_dist)(
+            torch.as_tensor(x), c0)
+        clear = _clear_rows(d, tol * (1.0 if cosine else max(1.0, xs)))
+        assert clear.mean() > 0.9
+        assert np.array_equal(got[1].cpu().numpy()[clear],
+                              want[1].numpy()[clear])
+        got_d, got_i = knn._topk_neighbors(torch.as_tensor(x[:64], device=card),
+                                           torch.as_tensor(x, device=card),
+                                           10, cosine)
+        want_d, want_i = knn._topk_neighbors(torch.as_tensor(x[:64]),
+                                             torch.as_tensor(x), 10, cosine)
+        sq = (lambda t: t.double() ** 2) if not cosine else (lambda t: t)
+        scale = 1.0 if cosine else max(1.0, xs)
+        assert float((sq(got_d.cpu()) - sq(want_d)).abs().max()) <= \
+            tol * scale
+        assert torch.equal(got_i[:, 0].cpu(), want_i[:, 0])   # itself
+    d2 = distance.pairwise_sq_dist(torch.as_tensor(x), torch.as_tensor(x))
+    d2.fill_diagonal_(float("inf"))
+    target = torch.log(torch.tensor(30.0))
+    got = tsne._binary_search_perplexity(d2.to(card), target.to(card))
+    want = tsne._binary_search_perplexity(d2, target)
+    assert _scaled_err(got.cpu(), want) <= tol
+    y = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(len(x), 2)).astype(np.float32))
+    p = (want + want.T) / (2.0 * len(x))
+    g_card, kl_card = tsne._tsne_grad(y.to(card), p.to(card))
+    g_cpu, kl_cpu = tsne._tsne_grad(y, p)
+    assert _scaled_err(g_card.cpu(), g_cpu) <= tol
+    assert abs(float(kl_card) - float(kl_cpu)) <= tol * max(
+        1.0, abs(float(kl_cpu)))
+
+
+def test_cluster_and_graph_trainers_on_the_card_match_the_cpu(card):
+    """KMeansClustering, VPTree, a short Tsne, DeepWalk and Node2Vec with
+    ``device=None`` on the card against ``device="cpu"`` (whole fits
+    within 1e-4 of the largest |x|; the vectors stay numpy)."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering, Tsne, VPTree
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph, Node2Vec
+    x = _blob_points(300, 16)
+    g3 = np.random.default_rng(6)
+    blobs = np.concatenate([c + g3.normal(size=(50, 10)) for c in (
+        [5.0] * 10, [-5.0] * 10, [5.0] * 5 + [-5.0] * 5)]).astype(np.float32)
+    g = Graph(60)
+    rng = np.random.default_rng(2)
+    for a, b in rng.integers(0, 60, (400, 2)):
+        if (a < 30) == (b < 30) or rng.random() < 0.05:
+            g.add_edge(int(a), int(b))
+    out = {}
+    for dev in (None, "cpu"):
+        km = KMeansClustering(6, seed=3, device=dev).fit(x)
+        idx, dist = VPTree(x, device=dev).search(x[:20], 5)
+        # a short fit where the gains rule stays smooth (an input changed
+        # by 1e-6 of itself moves y by ~1e-6; see test_torch_clustering)
+        ts = Tsne(perplexity=30, max_iter=20, learning_rate=1.0, seed=7,
+                  device=dev)
+        y = ts.fit(blobs)
+        dw = DeepWalk(vector_size=32, window_size=4, walks_per_vertex=2,
+                      epochs=2, batch_size=64, seed=5, device=dev)
+        dw.fit(g, walk_length=12)
+        n2v = Node2Vec(vector_size=32, window_size=4, walk_length=12,
+                       p=0.25, q=0.25, batch_size=128, seed=6,
+                       device=dev).fit(g)
+        assert isinstance(dw.vertex_vectors, np.ndarray)
+        out[dev] = [km.cluster_centers_, y, dw.vertex_vectors, dw._syn1,
+                    n2v.vertex_vectors]
+        out[f"vp_{dev}"] = (idx[:, 0], dist.astype(np.float64) ** 2)
+    assert np.array_equal(out["vp_None"][0], out["vp_cpu"][0])
+    # squared distances of max ||x||^2 (the matmul form cancels, and its
+    # square root magnifies a residue near 0)
+    xs = float((x.astype(np.float64) ** 2).sum(1).max())
+    assert float(np.abs(out["vp_None"][1] - out["vp_cpu"][1]).max()) <= \
+        1e-6 * max(1.0, xs)
+    for a, b in zip(out[None], out["cpu"]):
+        assert float(np.abs(a - b).max()) <= 1e-4 * float(np.abs(b).max())
+
+
+def test_spark_combine_over_gloo_on_the_card_is_exact(card, tmp_path):
+    """``SparkSequenceVectors._combine`` over a world-1 gloo group with
+    CUDA tensors (gloo stages them through host memory): each step with
+    the combine bit for bit the step without it."""
+    from deeplearning4j_tpu_torch.nlp import SparkSequenceVectors
+    from deeplearning4j_tpu_torch.nlp import sequencevectors as sv
+    from deeplearning4j_tpu_torch.parallel import multihost
+    import torch.distributed as dist
+    assert multihost.initialize(f"file://{tmp_path}/rdv", 1, 0,
+                                backend="gloo") == "gloo"
+    try:
+        trainer = SparkSequenceVectors(device=card)
+        for step in ("sgns", "hs", "cbow"):
+            fn, tables, batch, lr = _nlp_case(step)
+            t = [torch.tensor(a, device=card) for a in tables]
+            b = [torch.as_tensor(a, device=card) for a in batch]
+            plain = fn(*[x.clone() for x in t], *b, lr)
+            combined = fn(*t, *b, lr, combine=trainer._combine)
+            assert all(torch.equal(p, c) for p, c in zip(plain, combined))
+    finally:
+        multihost.shutdown()
+    assert not dist.is_initialized()
+
+
 # --------------------------------------------------------------- imports
 # (no card needed: this runs wherever the file does)
 
@@ -1774,7 +1915,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "nlp/lookup.py", "nlp/vocab.py", "nlp/tokenization.py",
                    "nlp/tokenization_ext.py", "nlp/vectorizers.py",
                    "nlp/ja_lexicon.py", "nlp/lattice_tokenizer.py",
-                   "nlp/annotators.py", "nlp/sentiment.py"):
+                   "nlp/annotators.py", "nlp/sentiment.py",
+                   "nlp/distributed.py", "util/__init__.py",
+                   "util/time_series.py", "util/viterbi.py",
+                   "clustering/__init__.py", "clustering/distance.py",
+                   "clustering/kmeans.py", "clustering/knn.py",
+                   "clustering/tsne.py", "graph/__init__.py",
+                   "graph/graph.py", "graph/walks.py", "graph/deepwalk.py",
+                   "graph/node2vec.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     # h5py too: the port reads HDF5 itself (keras/hdf5.py)
     banned = ("jax", "jaxlib", "deeplearning4j_tpu", "h5py")

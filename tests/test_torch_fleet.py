@@ -740,12 +740,21 @@ def _membership_script(which, fdir, model):
     reps, seen = {}, []
 
     def settle(world):
+        """Wait until the router's membership and the lease on disk both
+        show ``world`` (the router writes the lease just after it changes
+        its membership, so a read between the two finds the older lease,
+        or none before the first), then record the lease."""
+        read = read_lease if which == "port" else jfleet.read_lease
         t_end = time.monotonic() + 30.0
-        while router.replicas() != world and time.monotonic() < t_end:
+        while True:
+            lease = read(fdir)
+            if (router.replicas() == world and lease is not None
+                    and lease["world"] == world) or \
+                    time.monotonic() >= t_end:
+                break
             time.sleep(0.05)
         assert router.replicas() == world, (which, router.replicas())
-        lease = (read_lease if which == "port" else
-                 jfleet.read_lease)(fdir)
+        assert lease is not None and lease["world"] == world, (which, lease)
         seen.append((lease["epoch"], lease["world"]))
 
     try:

@@ -1904,6 +1904,42 @@ def case_input_pipe_stages(sources, kinds=("mlp", "mlp_bn"), M=2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# cases: SparkWord2Vec / SparkSequenceVectors (nlp/distributed.py)
+# ---------------------------------------------------------------------------
+
+def case_spark_w2v(kw, sentences):
+    """``SparkWord2Vec(**kw)`` fitted over the whole group on the CPU: its
+    rank count and its tables."""
+    from deeplearning4j_tpu_torch.nlp import SparkWord2Vec
+    w2v = SparkWord2Vec(**kw, device="cpu")
+    w2v.fit(list(sentences))
+    lt = w2v.lookup_table
+    return dict(n_dev=w2v._n_dev, syn0=lt.syn0, syn1=lt.syn1,
+                syn1neg=lt.syn1neg)
+
+
+def case_spark_step(step, tables, batch, lr, ranks=(0, 1)):
+    """One ``step`` ("sgns", "hs" or "cbow") of a ``SparkSequenceVectors``
+    over the sub-group of ``ranks``: each of them hands the step its chunk
+    of ``batch`` and the trainer's cross-rank ``combine``. The tables
+    after it on a rank of the sub-group (None on the others)."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.nlp import SparkSequenceVectors
+    from deeplearning4j_tpu_torch.nlp import sequencevectors as sv
+    group = dist.new_group(list(ranks))
+    if _rank() not in ranks:
+        return None
+    trainer = SparkSequenceVectors(device="cpu", group=group)
+    fn = {"sgns": sv._sgns_step, "hs": sv._hs_step,
+          "cbow": sv._cbow_ns_step}[step]
+    out = fn(*[torch.tensor(a) for a in tables],
+             *[trainer._put_batch(a) for a in batch], lr,
+             **trainer._step_kwargs())
+    return dict(n_dev=trainer._n_dev, tables=[t.numpy() for t in out])
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
