@@ -439,9 +439,25 @@ Phases, each printing JSON lines:
    trim; ms a step, the combine's bytes a step, the host's share (walks,
    pairs, Huffman), peak memory, the phase's seconds (at most 90). No
    kernel of K1-K6 is launched on this path;
-23. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+23. shardcheck — the SC rules (ROADMAP A8.1, ``analysis/shardcheck``)
+   over records of real steps on the card, each taken from a snapshot of
+   the state and put back: ``net.shardcheck`` on the full-width GPT at
+   [32, 256] in f32 and in bf16 (K4, K5 and K6 recorded 8 times a step,
+   in the policy's dtype, as the kernel, never the plain version) and on
+   the char-RNN at [32, 200] (K2 / K3 over its four tBPTT windows):
+   nothing above INFO, the net bit for bit as it was, its next
+   ``fit_batch`` bit for bit that of a twin never checked; in two
+   processes of this script (``--shardcheck-rank``) over gloo on this
+   card, the contracts on the GPT (off, zero1 and zero2 in f32, zero2
+   with accumulation 2, zero2 in bf16, an sp = 2 ring), the recorded
+   comm bytes and each SC007 delta against the cost model, the fixtures'
+   self-check (every known-bad step firing its rule, every known-good
+   one silent) and ``cost_analysis()["comm_bytes_hlo"]``; the serving
+   engine's decode bucket (8 rows) of the full-width GPT clean under
+   SC009 / SC010, its pool and static buffers put back. At most 60 s;
+24. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-24. last line ``{"ok": true, "device": {...}}``.
+25. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -1022,7 +1038,9 @@ IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
                         "clustering/kmeans.py", "clustering/knn.py",
                         "clustering/tsne.py", "graph/__init__.py",
                         "graph/graph.py", "graph/walks.py",
-                        "graph/deepwalk.py", "graph/node2vec.py")
+                        "graph/deepwalk.py", "graph/node2vec.py",
+                        "analysis/shardcheck.py", "analysis/steprecord.py",
+                        "analysis/fixtures.py")
 
 
 def import_rule() -> dict:
@@ -9232,15 +9250,19 @@ def nlp_phase(smi):
 SBM_V, SBM_E, SBM_GROUPS, SBM_P_IN = 10_312, 333_983, 39, 0.8
 #: DeepWalk's §5 settings (d 128, window 10, walk length 40) with
 #: word2vec's alpha 0.025 and the JAX package's batch of 512; gamma cut
-#: from 80 walks a vertex to 1
+#: from 80 walks a vertex to 1 (at t 20 the k-means purity of its vectors
+#: fell from 0.88 to 0.07 on an H100 80GB HBM3 at 700 W: t stays 40)
 DW_SETTINGS = dict(vector_size=128, window_size=10, learning_rate=0.025,
                    walks_per_vertex=1, batch_size=512, seed=SEED)
 DW_WALK_LENGTH = 40
 #: node2vec's §4.3 settings (d 128, k 10) at p = q = 0.25, 5 negatives,
 #: the JAX package's batch of 1,024; r cut from 10 to 1 and l from 80 to
-#: 40 (at l 80 the phase ran 94.9 s of its 90 on an H100 80GB HBM3 at
-#: 700 W, 25.3 s of it node2vec's)
-N2V_SETTINGS = dict(vector_size=128, window_size=10, walk_length=40,
+#: 20. At node2vec's l 40 and SparkWord2Vec over 32 sentences the phase
+#: ran 70.3 s of its 90 on an H100 80GB HBM3 at 700 W
+#: (20.3 s DeepWalk's fit, 15.4 s node2vec's, 23.3 s the Spark group's,
+#: all three host-bound by the step's launch) and 92.2 s in another
+#: H100 run
+N2V_SETTINGS = dict(vector_size=128, window_size=10, walk_length=20,
                     walks_per_vertex=1, p=0.25, q=0.25, negative=5,
                     learning_rate=0.025, batch_size=1024, seed=SEED)
 TSNE_SETTINGS = dict(perplexity=30.0, max_iter=500, seed=SEED)
@@ -9248,8 +9270,9 @@ TSNE_SETTINGS = dict(perplexity=30.0, max_iter=500, seed=SEED)
 #: and of 1,024 queries into a seeded table at the nlp phase's widths
 CG_K, CG_TABLE_QUERIES = 10, 1_024
 #: SparkWord2Vec: the nlp phase's skip-gram NS run (W2V_SETTINGS, alpha
-#: 0.025, its first NLP_SG_SENTENCES sentences) at world 2 over gloo
-SPARK_WORLD, SPARK_CHECK = 2, 3
+#: 0.025) over its first SPARK_SENTENCES sentences (16,000 tokens, half
+#: of the nlp phase's skip-gram cut) at world 2 over gloo
+SPARK_WORLD, SPARK_CHECK, SPARK_SENTENCES = 2, 3, 16
 SPARK_SETTINGS = {**W2V_SETTINGS, "learning_rate": 0.025}
 #: a card step against its CPU twin, of max(1, max |x|); the Spark fit
 #: against the single-process fit with the same trim, of max |x|
@@ -9483,7 +9506,7 @@ def spark_rank(rank, world, init, out):
     try:
         rec = dict(rank=rank, world=world, join_s=time.perf_counter() - t0)
         vocab = pickle.loads((out / "vocab.pkl").read_bytes())
-        sents = nlp_corpus()[0][:NLP_SG_SENTENCES]
+        sents = nlp_corpus()[0][:SPARK_SENTENCES]
         w2v = SparkWord2Vec(**SPARK_SETTINGS)
         w2v.vocab = vocab
         w2v.lookup_table = InMemoryLookupTable(
@@ -9607,8 +9630,9 @@ def cluster_graph(smi):
                  build_s=time.perf_counter() - t0,
                  cuts=["BlogCatalog (not in the repository) -> a seeded "
                        "SBM at its size", "DeepWalk: gamma 80 -> 1 walk a "
-                       "vertex", "node2vec: r 10 -> 1 walk a vertex, "
-                       "l 80 -> 40"])
+                       "vertex", "node2vec: r 10 -> 1 walk a "
+                       "vertex, l 80 -> 20", "SparkWord2Vec: "
+                       f"{NLP_SG_SENTENCES} -> {SPARK_SENTENCES} sentences"])
     emit(dict(phase="cluster_graph", nvidia_smi=smi, run="graph", **graph))
     runs, clocks = {}, {}
 
@@ -9742,7 +9766,7 @@ def cluster_graph(smi):
     vocab_s = time.perf_counter() - t0
     tmp = Path(tempfile.mkdtemp(prefix="cluster_graph_"))
     try:
-        rec = spark_group(tmp, vocab, sents[:NLP_SG_SENTENCES])
+        rec = spark_group(tmp, vocab, sents[:SPARK_SENTENCES])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     note_peak()
@@ -9802,6 +9826,308 @@ def cluster_graph(smi):
           f"the cluster_graph phase took {phase_s:.1f} s, over its "
           f"{CG_BUDGET_S} s budget")
     return launched
+
+
+# ---------------------------------------------------------------------------
+# shardcheck: the SC rules over recorded steps on the card
+# ---------------------------------------------------------------------------
+
+#: the phase's budget (seconds) and its group's world
+SC_BUDGET_S = 60.0
+SC_WORLD = 2
+
+#: the K-name of each kernel wrapper (the record's sites)
+SC_SITES = {"flash_attn_fwd": "K4", "flash_attn_dq": "K5",
+            "flash_attn_dkv": "K6", "lstm_fwd_infer": "K1",
+            "lstm_fwd_train": "K2", "lstm_bwd": "K3"}
+
+
+def sc_snapshot(net) -> dict:
+    """What a checked step must leave bit for bit: clones of the params,
+    layer states and updater state, the step count, the dropout and the
+    CUDA generators' states."""
+    def clone(tree):
+        return [t.clone() if torch.is_tensor(t) else t
+                for t in tree_leaves(tree)]
+    return dict(params=clone(net.params), states=clone(net.states),
+                opt={k: clone(v) for k, v in net.opt_state.items()},
+                iteration=net.iteration_count,
+                rng=net._rng.get_state(), cuda_rng=torch.cuda.get_rng_state())
+
+
+def sc_same(a: dict, b: dict) -> bool:
+    def same(x, y):
+        if torch.is_tensor(x):
+            return torch.is_tensor(y) and x.dtype == y.dtype \
+                and x.shape == y.shape and bool(torch.equal(x, y))
+        return x == y
+
+    def same_list(xs, ys):
+        return len(xs) == len(ys) and all(same(x, y) for x, y in zip(xs, ys))
+    return (same_list(a["params"], b["params"])
+            and same_list(a["states"], b["states"])
+            and sorted(a["opt"]) == sorted(b["opt"])
+            and all(same_list(a["opt"][k], b["opt"][k]) for k in a["opt"])
+            and a["iteration"] == b["iteration"]
+            and same(a["rng"], b["rng"])
+            and same(a["cuda_rng"], b["cuda_rng"]))
+
+
+def sc_net_case(name, make, batch, sites, dtype) -> dict:
+    """``net.shardcheck`` at full width on the card: the record's kernel
+    sites (``sites`` a step, in ``dtype``, each a launch of the kernel),
+    nothing above INFO, the net bit for bit as it was, and its next
+    ``fit_batch`` bit for bit that of a twin never checked."""
+    from deeplearning4j_tpu_torch.analysis import shardcheck as sc
+    net, twin = make(), make()
+    before = sc_snapshot(net)
+    start = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    program = sc.net_step_program(net, batch)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    launched = {SC_SITES[k]: v - start[k] for k, v in counts().items()
+                if v - start[k]}
+    findings = sc.check_step_program(program, **net.shardcheck_context())
+    kept = sc_same(before, sc_snapshot(net))
+    loss, twin_loss = net.fit_batch(batch), twin.fit_batch(batch)
+    next_same = (np.float32(float(loss)).tobytes()
+                 == np.float32(float(twin_loss)).tobytes()
+                 and params_equal(net, twin))
+    rec = dict(
+        name=name, record_s=record_s, ops=len(program.ops),
+        saw_backward=program.saw_backward(),
+        sites=dict(program.kernel_counts()),
+        site_dtypes=sorted({dt for _, dt in program.kernel_dtypes()}),
+        impls=sorted({k.impl for k in program.kernel_sites}),
+        launched_in_record=launched, updates=program.updates,
+        host_reads=[f"{h.op} {h.dtype}{h.shape}" for h in program.host_reads],
+        significant=[str(f) for f in findings if f.severity != "info"],
+        census=[f.message for f in findings if f.rule == "SC002"],
+        state_bitwise=kept, next_step_bitwise=next_same,
+        json_bytes=len(program.to_json()))
+    check(not rec["significant"],
+          f"shardcheck {name}: findings above INFO: {rec['significant']}")
+    check(rec["sites"] == sites and rec["site_dtypes"] == [dtype]
+          and rec["impls"] == ["kernel"] and launched == sites,
+          f"shardcheck {name}: the record's kernel sites are not "
+          f"{sites} in {dtype}, each a launch: {rec}")
+    check(rec["saw_backward"],
+          f"shardcheck {name}: the record holds no backward op")
+    check(kept and next_same,
+          f"shardcheck {name}: the checked net is not bit for bit as it "
+          f"was (state {kept}, next step {next_same})")
+    return rec
+
+
+def sc_decode_case() -> dict:
+    """The serving engine's decode bucket (8 rows) of the full-width GPT
+    under SC009 / SC010: its runner's step recorded eagerly on the static
+    buffers (never inside the capture), the pool and the buffers put
+    back bit for bit."""
+    from deeplearning4j_tpu_torch.analysis import shardcheck as sc
+    from deeplearning4j_tpu_torch.keras.generation import StepRunner
+    net = par_gpt()
+    pl = net.kv_page_len()
+    rows = 8
+    ppr = net.decode_max_len() // pl
+    pool = net.init_kv_page_pool(rows * ppr + 1, pl)
+    runner = StepRunner(net, "decode", rows, pl, pool=pool)
+    rng = np.random.default_rng(SEED)
+    x = np.eye(SLICE["vocab_size"], dtype=np.float32)[
+        rng.integers(0, SLICE["vocab_size"], (rows, 1))]
+    runner(net.params, net.states, pool, x, np.zeros(rows, np.int64),
+           np.zeros((rows, ppr), np.int64))
+    leaves = [t for kv in pool.values() for t in kv.values()]
+    # the graph's static buffers (a CPU runner has none)
+    bufs = [getattr(runner, a) for a in ("_x", "_aux", "_tbl")
+            if hasattr(runner, a)]
+    before = [t.clone() for t in leaves + bufs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    program = runner.step_program(net.params, net.states, pool)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    ctx = StepRunner.shardcheck_context(net)
+    findings = sc.check_step_program(program, **ctx)
+    after = leaves + bufs
+    gathers = sum(1 for o in program.ops if o.base == "index" and o.reads
+                  and any(program.state[i].role == "pool" for i in o.reads))
+    rec = dict(rows=rows, page_len=pl, pages=rows * ppr + 1,
+               pool_leaves=len(leaves), claim=ctx, record_s=record_s,
+               ops=len(program.ops), page_table_gathers=gathers,
+               pool_kept=sum(s.kept for s in program.leaves("pool")),
+               significant=[str(f) for f in findings
+                            if f.severity != "info"],
+               restored=all(torch.equal(a, b)
+                            for a, b in zip(before, after)))
+    check(not rec["significant"] and rec["restored"]
+          and gathers >= len(leaves) and rec["pool_kept"] == len(leaves),
+          f"shardcheck: the engine's decode bucket: {rec}")
+    return rec
+
+
+def shardcheck_rank(rank, world, init, out):
+    """One rank of the shardcheck phase's group (this script run with
+    ``--shardcheck-rank``): the contracts on the full-width GPT over gloo
+    on this card (``analysis/fixtures.CONTRACT_LAYOUTS`` and the sp = 2
+    ring), the recorded comm bytes and SC007's delta of each, the
+    fixtures' self-check on the card, and (rank 0) the GPT's
+    ``cost_analysis()["comm_bytes_hlo"]``. Writes ``<out>/sc_r<r>.json``."""
+    from deeplearning4j_tpu_torch.analysis import fixtures as fx
+    from deeplearning4j_tpu_torch.analysis import shardcheck as sc
+    from deeplearning4j_tpu_torch.parallel import multihost
+    from deeplearning4j_tpu_torch.profiling.cost import (
+        dp_comm_bytes_per_update,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out)
+    t0 = time.perf_counter()
+    multihost.initialize(init, world, rank, backend="gloo")
+    rec = dict(rank=rank, world=world, join_s=time.perf_counter() - t0,
+               contracts=[])
+    try:
+        from deeplearning4j_tpu_torch.parallel.mesh import MeshContext
+        device = MeshContext.create().device
+        reset_counts()
+        batch = text_batches(1, TRAIN_BATCH, SLICE["seq_len"], SEED)[0]
+        sp_batch = text_batches(1, PAR_MESH_BATCH, SLICE["seq_len"],
+                                SEED)[0]
+        layouts = [(label, wus, k, prec, fn, None)
+                   for label, wus, k, prec, fn in fx.CONTRACT_LAYOUTS]
+        layouts.append(("sp=2: the ring formed", "off", 1, None,
+                        fx.sp_problems, "sp"))
+        for label, wus, k, prec, problems, axis in layouts:
+            t1 = time.perf_counter()
+            net = par_gpt(precision=prec) if prec else par_gpt()
+            program, ctx = fx.trainer_program(
+                net, sp_batch if axis else batch, wus, k, prec,
+                mesh=fx._sc_mesh(device, n_seq=2) if axis else None)
+            torch.cuda.synchronize()
+            findings = sc.check_step_program(program, **ctx)
+            n = sum(ctx["param_leaf_sizes"])
+            rec["contracts"].append(dict(
+                label=label, mode=wus, accumulation=k, precision=prec,
+                sp=ctx["sp"], problems=problems(program, ctx),
+                comm_bytes=sc.program_comm_bytes(program),
+                predicted_bytes=max(1, program.updates)
+                * dp_comm_bytes_per_update(n, ctx["dp"], 4, k, wus),
+                sc007=[f.message for f in findings if f.rule == "SC007"],
+                census=[f.message for f in findings if f.rule == "SC002"],
+                sites=dict(program.kernel_counts()),
+                site_dtypes=sorted({dt for _, dt in
+                                    program.kernel_dtypes()}),
+                impls=sorted({s.impl for s in program.kernel_sites}),
+                host_reads=sum(not h.host_staged
+                               for h in program.host_reads),
+                staged_copies=sum(h.host_staged
+                                  for h in program.host_reads),
+                record_s=time.perf_counter() - t1))
+            del net, program
+        lines = []
+        t1 = time.perf_counter()
+        rec["self_check"] = sc.self_check(report=lines.append,
+                                          device=device)
+        rec["self_check_s"] = time.perf_counter() - t1
+        rec["self_check_report"] = lines
+        if rank == 0:
+            rec["comm_bytes_hlo"] = par_gpt().cost_analysis(batch)[
+                "comm_bytes_hlo"]
+        rec["launches"] = counts()
+    finally:
+        multihost.shutdown()
+    (out / f"sc_r{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def shardcheck_phase(smi):
+    """The SC rules over recorded steps on the card (see the module
+    docstring, phase 23). Returns the phase's launch counts (this
+    process's and its two ranks')."""
+    reset_counts()
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_shardcheck_"))
+    init = f"file://{tmp}/rdv_shardcheck"
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--shardcheck-rank",
+         str(r), str(SC_WORLD), init, str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(SC_WORLD)]
+    try:
+        gpt_sites = {k: SLICE["n_layers"] for k in ("K4", "K5", "K6")}
+        batch = text_batches(1, TRAIN_BATCH, SLICE["seq_len"], SEED)[0]
+        Bl, Tl = LSTM_TRAIN_BATCH
+        windows = -(-Tl // char_rnn_lstm(
+            **LSTM_SLICE).training.tbptt_fwd_length)
+        rnn_sites = {k: LSTM_SLICE["layers"] * windows
+                     for k in ("K2", "K3")}
+        nets = [sc_net_case("gpt_f32", par_gpt, batch, gpt_sites, "f32"),
+                sc_net_case("gpt_bf16", lambda: par_gpt(precision="bf16"),
+                            batch, gpt_sites, "bf16"),
+                sc_net_case("char_rnn", par_char_rnn,
+                            text_batches(1, Bl, Tl, SEED)[0], rnn_sites,
+                            "f32")]
+        decode = sc_decode_case()
+        logs = [p.communicate(timeout=300)[0].decode(errors="replace")
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"shardcheck rank {r} exited "
+              f"{p.returncode}: {logs[r][-3000:]}")
+    ranks = [json.loads((tmp / f"sc_r{r}.json").read_text())
+             for r in range(SC_WORLD)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    launched = counts()
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launched[k] += v
+    phase_s = time.perf_counter() - t_phase
+    r0 = ranks[0]
+    emit(dict(phase="shardcheck", nvidia_smi=smi, nets=nets, decode=decode,
+              contracts=r0["contracts"],
+              sc007={c["label"]: c["sc007"] for c in r0["contracts"]},
+              comm_bytes={c["label"]: [c["comm_bytes"], c["predicted_bytes"]]
+                          for c in r0["contracts"]},
+              comm_bytes_hlo=r0["comm_bytes_hlo"],
+              self_check=[r["self_check"] for r in ranks],
+              self_check_s=[r["self_check_s"] for r in ranks],
+              self_check_report=r0["self_check_report"],
+              join_s=[r["join_s"] for r in ranks], launches=launched,
+              budget_s=SC_BUDGET_S, phase_s=phase_s))
+    for r in ranks:
+        check(r["self_check"] == 0,
+              f"shardcheck rank {r['rank']}: the fixtures' self-check "
+              f"failed: {r['self_check_report']}")
+        for c in r["contracts"]:
+            # the sp ring attends blockwise (parallel/sequence.py): no
+            # flash kernel on that step, as the JAX ring calls no Pallas
+            # kernel
+            ring = c["sp"] > 1
+            want = {k: n * c["accumulation"] for k, n in gpt_sites.items()}
+            # the ring's shifts stage through host buffers (gloo on
+            # CUDA tensors): their copies are tagged, never the step's
+            check(not c["problems"] and c["host_reads"] == 0
+                  and (c["staged_copies"] > 0) == ring
+                  and c["sites"] == ({} if ring else want)
+                  and c["impls"] == ([] if ring else ["kernel"])
+                  and c["site_dtypes"] == ([] if ring else [
+                      "bf16" if c["precision"] else "f32"]),
+                  f"shardcheck rank {r['rank']}: contract {c['label']}: "
+                  f"{c}")
+    check(r0["comm_bytes_hlo"] == 0,
+          f"the single GPT's comm_bytes_hlo is {r0['comm_bytes_hlo']}, "
+          "not 0")
+    check(phase_s <= SC_BUDGET_S,
+          f"the shardcheck phase took {phase_s:.1f} s, over its "
+          f"{SC_BUDGET_S} s budget")
+    return launched
+
 
 
 def main() -> int:
@@ -10029,7 +10355,12 @@ def main() -> int:
     # this path) --------------------------------------------------------
     timed("cluster_graph", cluster_graph, smi)
 
-    # ---- 23. summary of every ported kernel -------------------------------
+    # ---- 23. shardcheck: the SC rules over recorded steps of the GPT and
+    # the char-RNN (K2-K6 recorded), the contracts at world 2 over gloo,
+    # the engine's decode bucket --------------------------------------
+    checked = timed("shardcheck", shardcheck_phase, smi)
+
+    # ---- 24. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -10040,7 +10371,8 @@ def main() -> int:
              + served["flash_attn_fwd"] + tf_gpt["flash_attn_fwd"]
              + fleet_launched["flash_attn_fwd"] + par["flash_attn_fwd"]
              + tuned_launched["flash_attn_fwd"] + fed["flash_attn_fwd"]
-             + streamed["flash_attn_fwd"],
+             + streamed["flash_attn_fwd"] + checked["flash_attn_fwd"],
+             launches_shardcheck=checked["flash_attn_fwd"],
              launches_stream_ui=streamed["flash_attn_fwd"],
              launches_input_path=fed["flash_attn_fwd"],
              launches_train_parallel=par["flash_attn_fwd"],
@@ -10073,7 +10405,8 @@ def main() -> int:
              # and the imported Keras models
              launches=lstm_launches + lstm_train_path["lstm_fwd_infer"]
              + served["lstm_fwd_infer"] + fleet_launched["lstm_fwd_infer"]
-             + keras["lstm_fwd_infer"] + streamed["lstm_fwd_infer"],
+             + keras["lstm_fwd_infer"] + streamed["lstm_fwd_infer"]
+             + checked["lstm_fwd_infer"],
              launches_stream_ui=streamed["lstm_fwd_infer"],
              launches_keras_transfer=keras["lstm_fwd_infer"],
              launches_serve_fleet=fleet_launched["lstm_fwd_infer"],
@@ -10097,7 +10430,9 @@ def main() -> int:
              replaces="deeplearning4j_tpu/ops/pallas_attention.py:152",
              launches=train_path["flash_attn_dq"] + tf_gpt["flash_attn_dq"]
              + par["flash_attn_dq"] + tuned_launched["flash_attn_dq"]
-             + fed["flash_attn_dq"] + streamed["flash_attn_dq"],
+             + fed["flash_attn_dq"] + streamed["flash_attn_dq"]
+             + checked["flash_attn_dq"],
+             launches_shardcheck=checked["flash_attn_dq"],
              launches_stream_ui=streamed["flash_attn_dq"],
              launches_input_path=fed["flash_attn_dq"],
              launches_train_parallel=par["flash_attn_dq"],
@@ -10125,7 +10460,8 @@ def main() -> int:
              launches=train_path["flash_attn_dkv"]
              + tf_gpt["flash_attn_dkv"] + par["flash_attn_dkv"]
              + tuned_launched["flash_attn_dkv"] + fed["flash_attn_dkv"]
-             + streamed["flash_attn_dkv"],
+             + streamed["flash_attn_dkv"] + checked["flash_attn_dkv"],
+             launches_shardcheck=checked["flash_attn_dkv"],
              launches_stream_ui=streamed["flash_attn_dkv"],
              launches_input_path=fed["flash_attn_dkv"],
              launches_train_parallel=par["flash_attn_dkv"],
@@ -10157,7 +10493,8 @@ def main() -> int:
              + fitted["lstm_fwd_train"] + tf_lstm["lstm_fwd_train"]
              + par["lstm_fwd_train"] + keras["lstm_fwd_train"]
              + fitted_keras["lstm_fwd_train"] + fed["lstm_fwd_train"]
-             + streamed["lstm_fwd_train"],
+             + streamed["lstm_fwd_train"] + checked["lstm_fwd_train"],
+             launches_shardcheck=checked["lstm_fwd_train"],
              launches_stream_ui=streamed["lstm_fwd_train"],
              launches_input_path=fed["lstm_fwd_train"],
              launches_keras_transfer=keras["lstm_fwd_train"],
@@ -10192,7 +10529,8 @@ def main() -> int:
              launches=lstm_train_path["lstm_bwd"] + fitted["lstm_bwd"]
              + tf_lstm["lstm_bwd"] + par["lstm_bwd"] + keras["lstm_bwd"]
              + fitted_keras["lstm_bwd"] + fed["lstm_bwd"]
-             + streamed["lstm_bwd"],
+             + streamed["lstm_bwd"] + checked["lstm_bwd"],
+             launches_shardcheck=checked["lstm_bwd"],
              launches_stream_ui=streamed["lstm_bwd"],
              launches_input_path=fed["lstm_bwd"],
              launches_keras_transfer=keras["lstm_bwd"],
@@ -10231,6 +10569,10 @@ if __name__ == "__main__":
         # one rank of train_parallel's world-2 group
         sys.exit(par_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                           sys.argv[5]))
+    if sys.argv[1:2] == ["--shardcheck-rank"]:
+        # one rank of the shardcheck phase's world-2 group
+        sys.exit(shardcheck_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4], sys.argv[5]))
     if sys.argv[1:2] == ["--spark-rank"]:
         # one rank of cluster_graph's SparkWord2Vec group
         sys.exit(spark_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],

@@ -14,10 +14,18 @@ JAX package's ``analysis/``, the config layer of it):
   with the ZeRO terms, the serving KV pool) and ``kv_pool_plan``, the
   sizing rule of the serving engine's page pool.
 - ``findings``: ``Finding``, ``Severity``, ``max_severity``.
+- ``shardcheck``: the SC rules SC001-SC010 over a step program, here a
+  record of one real step (``record_step_program``; the containers',
+  the data-parallel trainers' and the serving engine's decode runner's
+  ``step_program`` / ``shardcheck``), with ``check_step_program``,
+  ``program_comm_bytes`` and the command line (``python -m
+  deeplearning4j_tpu_torch.analysis.shardcheck --self-check``). Its
+  fixtures are ``fixtures.SC_KNOWN_BAD`` / ``SC_KNOWN_GOOD``; the hooks a
+  running step reports through are ``steprecord``.
 
-The JAX package's ``jaxlint`` and ``shardcheck`` analyse JAX source and
-compiled XLA programs and have no counterpart here. The names below load
-on first use, so importing the package (as the containers do for
+The JAX package's ``jaxlint`` and ``source_lint`` lint JAX source and have
+no counterpart here yet (ROADMAP A8.2). The names below load on first
+use, so importing the package (as the containers do for
 ``memory.default_kv_page_len``) pulls in no config module.
 """
 
@@ -28,6 +36,13 @@ _EXPORTS = {
     "validate_config": "graphcheck",
     "MemoryReport": "memory", "memory_report": "memory",
     "kv_pool_plan": "memory",
+    "StepProgram": "shardcheck", "StepSnapshot": "shardcheck",
+    "record_step_program": "shardcheck",
+    "check_step_program": "shardcheck",
+    "program_comm_bytes": "shardcheck", "net_step_program": "shardcheck",
+    "param_leaf_sizes": "shardcheck",
+    "SC_KNOWN_BAD": "fixtures", "SC_KNOWN_GOOD": "fixtures",
+    "SC_GOOD_FOR": "fixtures",
 }
 
 __all__ = list(_EXPORTS)

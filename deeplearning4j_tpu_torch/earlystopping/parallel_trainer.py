@@ -7,8 +7,8 @@ plumbing to pull scores out of the worker pool). Here the "wrapper" is the
 port's ``ParallelTrainer`` over ``torch.distributed`` (one process per
 rank, every rank running this loop on the same global batches), so the
 early-stopping loop is the single-device one with the batch step routed
-through the trainer. The JAX package's ``shardcheck`` (a static check of
-compiled JAX programs) has no counterpart here."""
+through the trainer. ``shardcheck`` holds the trainer's step to the SC
+rules (``analysis/shardcheck``)."""
 
 from __future__ import annotations
 
@@ -69,3 +69,9 @@ class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
             train_data.attach(mesh=trainer.mesh)
         super().__init__(config, _ParallelNetAdapter(trainer), train_data)
         self.trainer = trainer
+
+    def shardcheck(self, batch, **overrides):
+        """The SC rules over a record of the underlying trainer's step
+        (``analysis/shardcheck``): the early-stopping loop drives the same
+        ``ParallelTrainer`` step a batch."""
+        return self.trainer.shardcheck(batch, **overrides)

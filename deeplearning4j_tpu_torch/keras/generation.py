@@ -174,7 +174,11 @@ class StepRunner:
     [1, V], caches)``; decode ``runner(params, states, pool, x,
     positions, table)`` -> ``(probs [rows, V], pool)`` with the pool
     updated in place. Inputs are numpy arrays (x float32, the rest
-    int64); probabilities come back as numpy arrays."""
+    int64); probabilities come back as numpy arrays.
+
+    ``step_program`` records a decode runner's step for shardcheck
+    (SC009 / SC010: the pool updated in place, read through the page
+    table)."""
 
     WARMUP = 2
 
@@ -182,6 +186,7 @@ class StepRunner:
                  pool=None, on_capture=None):
         self.kind = kind
         self.bucket = bucket
+        self._tbl_shape = None
         self.nbytes = 0
         self.on_capture = on_capture
         self.graphed = model.device.type == "cuda"
@@ -194,6 +199,8 @@ class StepRunner:
             self._fn = model.paged_decode_fn(page_len)
             x_shape, aux_shape = (bucket, 1, vocab), (bucket,)
             tbl_shape = (bucket, model.decode_max_len() // page_len)
+            self._tbl_shape = tbl_shape
+        self._shapes = (x_shape, aux_shape)
         self._dtype = model.dtype
         self._graph = None
         if not self.graphed:
@@ -214,6 +221,65 @@ class StepRunner:
                             self._aux)[0]
         return self._fn(params, states, pool, self._x, self._aux,
                         self._tbl)[0]
+
+    def step_program(self, params, states, pool):
+        """Record this decode runner's step (``analysis/shardcheck``): the
+        step the graph captures, run eagerly (on the card on the static
+        buffers, never inside a capture), on position 0 and table 0, so
+        that its writes land in scratch page 0, as the warm-up's do. The
+        static buffers and page 0 are put back as they were."""
+        from deeplearning4j_tpu_torch.analysis import shardcheck
+        if self.kind != "decode":
+            raise ValueError("step_program records a decode runner (SC009 "
+                             "/ SC010 are the decode step's contracts)")
+        leaf = next(iter(next(iter(pool.values())).values()))
+        dev, dtype = leaf.device, self._dtype
+        if self.graphed:
+            bufs = (self._x, self._aux, self._tbl)
+        else:
+            bufs = (torch.empty(self._shapes[0], dtype=dtype, device=dev),
+                    torch.empty(self._shapes[1], dtype=torch.int64,
+                                device=dev),
+                    torch.empty(self._tbl_shape, dtype=torch.int64,
+                                device=dev))
+        saved = [t.clone() for t in bufs]
+        page0 = [(t, t[0].clone()) for kv in pool.values()
+                 for t in kv.values()]
+        out = {}
+
+        def step():
+            probs, out["pool"] = self._fn(params, states, pool, *bufs)
+            return probs
+        try:
+            for t in bufs:
+                t.zero_()
+            with torch.no_grad():
+                return shardcheck.record_step_program(
+                    step, state=lambda: {"params": params,
+                                         "pool": out.get("pool", pool)})
+        finally:
+            with torch.no_grad():
+                for t, v in zip(bufs, saved):
+                    t.copy_(v)
+                for t, v in page0:
+                    t[0].copy_(v)
+
+    @staticmethod
+    def shardcheck_context(model) -> dict:
+        """What a paged decode step claims: every pool leaf (k and v of
+        each attention node) read through the page table and updated in
+        place."""
+        n = 2 * len(model.kv_cache_nodes())
+        return dict(expect_cache_alias=n, expect_paged_gather=n)
+
+    def shardcheck(self, model, pool, **overrides):
+        """SC009 / SC010 over a record of this decode runner's step on
+        ``model``'s params and states and ``pool``."""
+        from deeplearning4j_tpu_torch.analysis import shardcheck
+        ctx = self.shardcheck_context(model)
+        ctx.update(overrides)
+        return shardcheck.check_step_program(
+            self.step_program(model.params, model.states, pool), **ctx)
 
     def capture(self, params, states, pool) -> None:
         """(Re-)capture the step's graph against these tensors."""

@@ -61,7 +61,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
 )
 from deeplearning4j_tpu_torch.nn.netcommon import (
     SGD_ALGOS, CostAnalysisMixin, EvalMixin, NetCommonMixin, ScanFitMixin,
-    batch_sum_kwargs, cast_batch, compute_dtype, flat_params,
+    ShardCheckMixin, batch_sum_kwargs, cast_batch, compute_dtype, flat_params,
     make_pretrain_step, policy_value_and_grad, remat_call, set_flat_params,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
@@ -93,7 +93,7 @@ def _time_slice(d: Optional[Dict[str, Tensor]], lo: int, hi: int,
 
 
 class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin,
-                       CostAnalysisMixin):
+                       CostAnalysisMixin, ShardCheckMixin):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
         self.device = resolve_device(device)

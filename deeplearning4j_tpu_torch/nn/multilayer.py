@@ -62,7 +62,7 @@ from deeplearning4j_tpu_torch.nn.layers.variational import (
 )
 from deeplearning4j_tpu_torch.nn.netcommon import (
     SGD_ALGOS, CostAnalysisMixin, EvalMixin, NetCommonMixin, ScanFitMixin,
-    batch_sum_kwargs, cast_batch, compute_dtype, flat_params,
+    ShardCheckMixin, batch_sum_kwargs, cast_batch, compute_dtype, flat_params,
     make_pretrain_step, policy_value_and_grad, remat_call, set_flat_params,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
@@ -99,7 +99,7 @@ def _window(a, lo: int, hi: int):
 
 
 class MultiLayerNetwork(NetCommonMixin, EvalMixin, ScanFitMixin,
-                        CostAnalysisMixin):
+                        CostAnalysisMixin, ShardCheckMixin):
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.conf = conf
         self.layers = conf.layers

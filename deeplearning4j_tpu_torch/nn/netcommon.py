@@ -5,7 +5,7 @@ the precision policy), remat of one layer call, the layerwise pretraining
 step (``make_pretrain_step``), the
 flat parameter vector both containers read and write in place, the
 listeners, the divergence sentinel's guarded update, ``fit(scan_window >
-1)`` and the evaluation loops."""
+1)``, ``shardcheck`` and the evaluation loops."""
 
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from deeplearning4j_tpu_torch.analysis import steprecord
 from deeplearning4j_tpu_torch.nn.conf.builder import TrainingConfig
 from deeplearning4j_tpu_torch.nn.updater import (
     PrecisionPolicy, Updater, cast_floats, compute_updates,
@@ -315,6 +316,7 @@ class NetCommonMixin:
         were (``resilience/sentinel.guarded_in_place``). Returns the
         step's bad flag (a device bool), or None without a sentinel."""
         training = self.conf.training
+        steprecord.note_update()
         if self._sentinel is None:
             compute_updates(self._tx, grads, self.opt_state, self.params,
                             layers, training)
@@ -462,6 +464,37 @@ class CostAnalysisMixin:
     def cost_analysis(self, batch, peak=None) -> dict:
         from deeplearning4j_tpu_torch.profiling.cost import train_step_cost
         return train_step_cost(self, batch, peak=peak)
+
+
+class ShardCheckMixin:
+    """``shardcheck(batch)`` for both containers: the SC rules
+    (``analysis/shardcheck``) over a record of the container's own
+    training step on ``batch``, taken from a snapshot of the net and put
+    back bit for bit: the state updated in place (SC005), no host read in
+    the step (SC006), the precision boundary (SC004), the collective
+    census (SC002). The ZeRO layout rules live on the data-parallel
+    trainers' ``shardcheck`` (the container's own step runs on one
+    device). Costs one step; the next ``fit_batch`` is the one the net
+    would have taken."""
+
+    def shardcheck_context(self) -> dict:
+        """What the container's own step claims: one device, its
+        precision policy, the state updated in place."""
+        from deeplearning4j_tpu_torch.analysis.shardcheck import (
+            param_leaf_sizes,
+        )
+        return dict(weight_update_sharding="off", dp=1,
+                    precision=getattr(self.conf.training, "precision",
+                                      None),
+                    expect_donation=True,
+                    param_leaf_sizes=param_leaf_sizes(self.params))
+
+    def shardcheck(self, batch, **overrides):
+        from deeplearning4j_tpu_torch.analysis import shardcheck
+        ctx = self.shardcheck_context()
+        ctx.update(overrides)
+        return shardcheck.check_step_program(
+            shardcheck.net_step_program(self, batch), **ctx)
 
 
 class EvalMixin:

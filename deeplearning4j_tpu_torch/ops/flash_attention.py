@@ -46,8 +46,8 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.analysis.steprecord import note_launch
 from deeplearning4j_tpu_torch.ops.cuda_build import load_library
-from deeplearning4j_tpu_torch.profiling.cost import count_kernel_flops
 
 NEG_INF = -1e30
 #: the widest head dim whose output row one block holds in registers (the
@@ -232,7 +232,8 @@ def _launch(q, k, v, causal, kv_mask):
                                 _ptr(mask), out.data_ptr(), lse.data_ptr()],
           q, causal)
     flash_attention.launches += 1
-    count_kernel_flops("flash_attn_fwd", flash_fwd_flops(B, H, T, D))
+    note_launch("flash_attn_fwd", "kernel", flash_fwd_flops(B, H, T, D),
+                q, k, v)
     return out, lse
 
 
@@ -272,13 +273,16 @@ def flash_attention_dq(q, k, v, d_out, lse, dvec, *, causal: bool = False,
     for CUDA tensors, the plain version for CPU tensors."""
     check_bwd_inputs(q, k, v, d_out, lse, dvec, kv_mask)
     if q.device.type == "cpu":
+        note_launch("flash_attn_dq", "plain", flash_dq_flops(*q.shape),
+                    q, k, v, d_out)
         return attention_bwd_plain(q, k, v, d_out, lse, dvec, causal=causal,
                                    kv_mask=kv_mask, want_dkv=False)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("flash_attn_dq", q, k, v, d_out, lse, dvec, causal, kv_mask,
                 (dq,))
     flash_attention_dq.launches += 1
-    count_kernel_flops("flash_attn_dq", flash_dq_flops(*q.shape))
+    note_launch("flash_attn_dq", "kernel", flash_dq_flops(*q.shape),
+                q, k, v, d_out)
     return dq
 
 
@@ -289,6 +293,8 @@ def flash_attention_dkv(q, k, v, d_out, lse, dvec, *, causal: bool = False,
     CPU tensors."""
     check_bwd_inputs(q, k, v, d_out, lse, dvec, kv_mask)
     if q.device.type == "cpu":
+        note_launch("flash_attn_dkv", "plain", flash_dkv_flops(*q.shape),
+                    q, k, v, d_out)
         return attention_bwd_plain(q, k, v, d_out, lse, dvec, causal=causal,
                                    kv_mask=kv_mask, want_dq=False)[1:]
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -296,7 +302,8 @@ def flash_attention_dkv(q, k, v, d_out, lse, dvec, *, causal: bool = False,
     _bwd_launch("flash_attn_dkv", q, k, v, d_out, lse, dvec, causal, kv_mask,
                 (dk, dv))
     flash_attention_dkv.launches += 1
-    count_kernel_flops("flash_attn_dkv", flash_dkv_flops(*q.shape))
+    note_launch("flash_attn_dkv", "kernel", flash_dkv_flops(*q.shape),
+                q, k, v, d_out)
     return dk, dv
 
 
@@ -311,6 +318,8 @@ class FlashAttentionFunction(torch.autograd.Function):
         if q.device.type == "cuda":
             out, lse = _launch(q, k, v, causal, kv_mask)
         else:
+            note_launch("flash_attn_fwd", "plain", flash_fwd_flops(*q.shape),
+                        q, k, v)
             out, lse = flash_attention_plain(q, k, v, causal=causal,
                                              kv_mask=kv_mask)
         # kept only when a backward can run (grad mode on, an input

@@ -66,8 +66,8 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.analysis.steprecord import note_launch
 from deeplearning4j_tpu_torch.ops.cuda_build import load_library
-from deeplearning4j_tpu_torch.profiling.cost import count_kernel_flops
 
 #: the widest H the kernels launch at: K1/K2's streaming body keeps two
 #: buffers of h and one of c (3H floats) and 3 x 4 x 256 partial sums in
@@ -276,7 +276,8 @@ def _launch(xz, rw, pw, h0, c0, forget_bias):
     _call("lstm_fwd_infer", _entry("lstm_fwd_infer", 7, 3, True),
           (xz, rw, pw, h0, c0, hs, cT), (T, B, H), (float(forget_bias),), xz)
     lstm_recurrence.launches += 1
-    count_kernel_flops("lstm_fwd_infer", lstm_recurrence_flops(T, B, H))
+    note_launch("lstm_fwd_infer", "kernel", lstm_recurrence_flops(T, B, H),
+                xz, rw)
     return hs, hs[-1], cT
 
 
@@ -306,6 +307,9 @@ def lstm_fwd_train(xz, rw, pw, h0, c0, *, forget_bias: float = 0.0):
     ``cs[-1]``."""
     check_inputs(xz, rw, pw, h0, c0)
     if xz.device.type == "cpu":
+        T, B, H4 = xz.shape
+        note_launch("lstm_fwd_train", "plain",
+                    lstm_recurrence_flops(T, B, H4 // 4), xz, rw)
         return lstm_fwd_train_plain(xz, rw, pw, h0, c0,
                                     forget_bias=forget_bias)
     T, B, H4 = xz.shape
@@ -317,7 +321,8 @@ def lstm_fwd_train(xz, rw, pw, h0, c0, *, forget_bias: float = 0.0):
           (xz, rw, pw, h0, c0, hs, gates, cs), (T, B, H),
           (float(forget_bias),), xz)
     lstm_fwd_train.launches += 1
-    count_kernel_flops("lstm_fwd_train", lstm_recurrence_flops(T, B, H))
+    note_launch("lstm_fwd_train", "kernel", lstm_recurrence_flops(T, B, H),
+                xz, rw)
     return hs, gates, cs
 
 
@@ -328,6 +333,9 @@ def lstm_bwd(eps, gates, cs, c0, rw, pw, dh_T, dc_T):
     then cs[:-1]). Returns ``(dz [T, B, 4H], dh0, dc0)``."""
     check_bwd_inputs(eps, gates, cs, c0, rw, pw, dh_T, dc_T)
     if eps.device.type == "cpu":
+        T, B, H4 = gates.shape
+        note_launch("lstm_bwd", "plain", lstm_bwd_flops(T, B, H4 // 4),
+                    eps, gates)
         c_prev = torch.cat([c0[None], cs[:-1]])
         return lstm_bwd_plain(eps, gates, cs, c_prev, rw, pw, dh_T, dc_T)
     T, B, H4 = gates.shape
@@ -337,7 +345,8 @@ def lstm_bwd(eps, gates, cs, c0, rw, pw, dh_T, dc_T):
           (eps, gates, cs, c0, rw.t().contiguous(), pw, dh_T, dc_T, dz, dh0,
            dc0), (T, B, H4 // 4), (), eps)
     lstm_bwd.launches += 1
-    count_kernel_flops("lstm_bwd", lstm_bwd_flops(T, B, H4 // 4))
+    note_launch("lstm_bwd", "kernel", lstm_bwd_flops(T, B, H4 // 4),
+                eps, gates)
     return dz, dh0, dc0
 
 
@@ -359,6 +368,9 @@ class FusedLSTMFunction(torch.autograd.Function):
             if xz.device.type == "cuda":
                 hs, _, cT = _launch(xz, rw, pw, h0, c0, forget_bias)
             else:
+                T, B, H4 = xz.shape
+                note_launch("lstm_fwd_infer", "plain",
+                            lstm_recurrence_flops(T, B, H4 // 4), xz, rw)
                 hs, _, cT = lstm_recurrence_plain(xz, rw, pw, h0, c0,
                                                   forget_bias=forget_bias)
             return hs, cT

@@ -70,6 +70,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.analysis import steprecord
 from deeplearning4j_tpu_torch.device import resolve_device
 
 Tensor = torch.Tensor
@@ -194,8 +195,40 @@ def _group_world(group) -> Tuple[int, int, bool]:
     return dist.get_world_size(group), dist.get_rank(group), True
 
 
-def _collective(fn, *args, **kwargs):
-    """Run one ``torch.distributed`` collective; a failure in elastic mode
+def _note_collective(fn, args, kwargs, axis: Optional[str],
+                     staged: bool) -> None:
+    """Report one collective to the step's listeners (``analysis/
+    steprecord``): its kind, the mesh axis it runs over, the group's size,
+    its logical full payload and, when ``staged``, the host buffers its
+    tensors travel through."""
+    group = kwargs.get("group")
+    buffers = args[:1]
+    if fn is dist.batch_isend_irecv:
+        buffers = tuple(op.tensor for op in args[0])
+        kind, t, group = "collective-permute", buffers[0], args[0][0].group
+    elif fn is dist.all_reduce:
+        kind, t = "all-reduce", args[0]
+    elif fn is _REDUCE_SCATTER:
+        kind, t = "reduce-scatter", args[1]
+    elif fn is _ALL_GATHER:
+        kind, t = "all-gather", args[0]
+    elif fn is dist.broadcast:
+        kind, t = "broadcast", args[0]
+    elif fn is dist.isend:
+        kind, t = "send", args[0]
+    elif fn is dist.recv:
+        kind, t = "recv", args[0]
+    else:
+        raise ValueError(f"no collective kind for {fn!r}")
+    steprecord.note_collective(kind, axis, dist.get_world_size(group), t,
+                               buffers if staged else ())
+
+
+def _collective(fn, *args, axis: Optional[str] = None, staged: bool = False,
+                **kwargs):
+    """Run one ``torch.distributed`` collective over the mesh ``axis``
+    (reported to the step's listeners, ``staged`` when its tensors are
+    host buffers staged here); a failure in elastic mode
     is counted before it goes on. None is issued once an elastic resize
     quarantined the group: that raises at once, where the collective
     would wait on a dead peer for the group's timeout."""
@@ -204,6 +237,8 @@ def _collective(fn, *args, **kwargs):
         raise RuntimeError(
             "the process group was quarantined by an elastic resize: no "
             "collective runs on it again")
+    if steprecord.recording():
+        _note_collective(fn, args, kwargs, axis, staged)
     try:
         return fn(*args, **kwargs)
     except Exception as e:
@@ -217,17 +252,17 @@ class _SumOverRanks(torch.autograd.Function):
     the same all-reduce in the backward."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
+    def forward(ctx, t, group, axis):
+        ctx.group, ctx.axis = group, axis
         out = t.clone()
-        _collective(dist.all_reduce, out, group=group)
+        _collective(dist.all_reduce, out, group=group, axis=axis)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        _collective(dist.all_reduce, grad, group=ctx.group)
-        return grad, None
+        _collective(dist.all_reduce, grad, group=ctx.group, axis=ctx.axis)
+        return grad, None, None
 
 
 class _SumForward(torch.autograd.Function):
@@ -236,14 +271,14 @@ class _SumForward(torch.autograd.Function):
     of the L1/L2 penalty)."""
 
     @staticmethod
-    def forward(ctx, t, group):
+    def forward(ctx, t, group, axis):
         out = t.clone()
-        _collective(dist.all_reduce, out, group=group)
+        _collective(dist.all_reduce, out, group=group, axis=axis)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -252,23 +287,23 @@ class _CopyToGroup(torch.autograd.Function):
     ranks each see the gradient of their own columns only."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
+    def forward(ctx, t, group, axis):
+        ctx.group, ctx.axis = group, axis
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        _collective(dist.all_reduce, grad, group=ctx.group)
-        return grad, None
+        _collective(dist.all_reduce, grad, group=ctx.group, axis=ctx.axis)
+        return grad, None, None
 
 
-def _gather_dim(t: Tensor, dim: int, group, n: int) -> Tensor:
+def _gather_dim(t: Tensor, dim: int, group, n: int, axis: str) -> Tensor:
     """Every rank's ``t`` concatenated on ``dim`` in group-rank order."""
     src = t.movedim(dim, 0).contiguous()
     out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                       dtype=t.dtype, device=t.device)
-    _collective(_ALL_GATHER, out, src, group=group)
+    _collective(_ALL_GATHER, out, src, group=group, axis=axis)
     return out.movedim(0, dim)
 
 
@@ -279,14 +314,14 @@ class _GatherDim(torch.autograd.Function):
     gather of column shards)."""
 
     @staticmethod
-    def forward(ctx, t, dim, group, n, index):
+    def forward(ctx, t, dim, group, n, index, axis):
         ctx.dim, ctx.index, ctx.size = dim, index, t.shape[dim]
-        return _gather_dim(t, dim, group, n)
+        return _gather_dim(t, dim, group, n, axis)
 
     @staticmethod
     def backward(ctx, grad):
         return (grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size)
-                .contiguous(), None, None, None, None)
+                .contiguous(), None, None, None, None, None)
 
 
 class _GatherReduceScatter(torch.autograd.Function):
@@ -296,17 +331,17 @@ class _GatherReduceScatter(torch.autograd.Function):
     is the sum over the ranks."""
 
     @staticmethod
-    def forward(ctx, t, dim, group, n):
-        ctx.dim, ctx.group, ctx.n = dim, group, n
-        return _gather_dim(t, dim, group, n)
+    def forward(ctx, t, dim, group, n, axis):
+        ctx.dim, ctx.group, ctx.n, ctx.axis = dim, group, n, axis
+        return _gather_dim(t, dim, group, n, axis)
 
     @staticmethod
     def backward(ctx, grad):
         g = grad.movedim(ctx.dim, 0).contiguous()
         out = torch.empty((g.shape[0] // ctx.n,) + tuple(g.shape[1:]),
                           dtype=g.dtype, device=g.device)
-        _collective(_REDUCE_SCATTER, out, g, group=ctx.group)
-        return out.movedim(0, ctx.dim), None, None, None
+        _collective(_REDUCE_SCATTER, out, g, group=ctx.group, axis=ctx.axis)
+        return out.movedim(0, ctx.dim), None, None, None, None
 
 
 def _staged(t: Tensor, stage: bool) -> Tensor:
@@ -326,7 +361,8 @@ def _shift(t: Tensor, group, send_to: int, recv_from: int,
     buf = torch.empty_like(src)
     ops = [dist.P2POp(dist.isend, src, send_to, group=group),
            dist.P2POp(dist.irecv, buf, recv_from, group=group)]
-    for work in _collective(dist.batch_isend_irecv, ops):
+    for work in _collective(dist.batch_isend_irecv, ops, axis="sp",
+                            staged=stage):
         work.wait()
     return buf.to(t.device) if stage else buf
 
@@ -813,7 +849,7 @@ class MeshContext:
         if run:
             _collective(dist.all_reduce, t,
                         op=(dist.ReduceOp.MAX if op == "max"
-                            else dist.ReduceOp.SUM), group=group)
+                            else dist.ReduceOp.SUM), group=group, axis=axis)
         return t
 
     def sum_over_ranks(self, t: Tensor, axis: str = "data") -> Tensor:
@@ -822,7 +858,7 @@ class MeshContext:
         run, group, _ = self._axis(axis)
         if not run:
             return t
-        return _SumOverRanks.apply(t, group)
+        return _SumOverRanks.apply(t, group, axis)
 
     def sum_over_replicas(self, t: Tensor) -> Tensor:
         """:meth:`sum_over_ranks` over the data x sp group: a global-batch
@@ -838,7 +874,7 @@ class MeshContext:
             return flat.clone()
         out = torch.empty(flat.numel() // n, dtype=flat.dtype,
                           device=flat.device)
-        _collective(_REDUCE_SCATTER, out, flat, group=group)
+        _collective(_REDUCE_SCATTER, out, flat, group=group, axis=axis)
         return out
 
     def all_gather(self, row: Tensor, axis: str = "data") -> Tensor:
@@ -848,7 +884,8 @@ class MeshContext:
             return row.clone()
         out = torch.empty(row.numel() * n, dtype=row.dtype,
                           device=row.device)
-        _collective(_ALL_GATHER, out, row.contiguous(), group=group)
+        _collective(_ALL_GATHER, out, row.contiguous(), group=group,
+                    axis=axis)
         return out
 
     def broadcast_(self, t: Tensor, src: int = 0,
@@ -860,7 +897,7 @@ class MeshContext:
             _collective(dist.broadcast, t,
                         src=dist.get_global_rank(group, src)
                         if group is not None else src,
-                        group=group)
+                        group=group, axis=axis)
         return t
 
     def any_flag(self, flag: Tensor, axis: str = "data") -> Tensor:
@@ -891,18 +928,19 @@ class MeshContext:
         run, group, n = self._axis("model")
         if not run:
             return t
-        return _GatherDim.apply(t, t.dim() - 1, group, n, self.model_index)
+        return _GatherDim.apply(t, t.dim() - 1, group, n, self.model_index,
+                                "model")
 
     def copy_to(self, t: Tensor, axis: str) -> Tensor:
         """``t`` as it is; its gradient all-reduced over ``axis``."""
         run, group, _ = self._axis(axis)
-        return _CopyToGroup.apply(t, group) if run else t
+        return _CopyToGroup.apply(t, group, axis) if run else t
 
     def sum_value(self, t: Tensor, axis: str) -> Tensor:
         """``t`` summed over ``axis``, its gradient passed through: a
         value every rank of the axis goes on with as a replicated one."""
         run, group, _ = self._axis(axis)
-        return _SumForward.apply(t, group) if run else t
+        return _SumForward.apply(t, group, axis) if run else t
 
     def copy_to_model(self, t: Tensor) -> Tensor:
         """``t`` as it is; its gradient all-reduced over the model axis."""
@@ -918,7 +956,7 @@ class MeshContext:
         run, group, n = self._axis("sp")
         if not run:
             return t
-        return _GatherReduceScatter.apply(t, dim, group, n)
+        return _GatherReduceScatter.apply(t, dim, group, n, "sp")
 
     def take_seq(self, t: Tensor, dim: int = 1) -> Tensor:
         """This rank's time steps of a whole sequence on ``dim``."""
@@ -956,8 +994,10 @@ class MeshContext:
     def _post(self, t: Tensor, peer: int, tag: int) -> None:
         """``t`` sent to the global rank ``peer`` under ``tag``, not waited
         for: the work and its buffer are kept until :meth:`wait_sends`."""
-        src = _staged(t, self._stages_via_host(t.device))
-        work = _collective(dist.isend, src, peer, group=self.group, tag=tag)
+        host = self._stages_via_host(t.device)
+        src = _staged(t, host)
+        work = _collective(dist.isend, src, peer, group=self.group, tag=tag,
+                           axis="pp", staged=host)
         self._sends.append((work, src))
 
     def _take(self, shape, dtype, device, peer: int, tag: int) -> Tensor:
@@ -965,7 +1005,8 @@ class MeshContext:
         host = self._stages_via_host(torch.device(device))
         buf = torch.empty(shape, dtype=dtype,
                           device="cpu" if host else device)
-        _collective(dist.recv, buf, peer, group=self.group, tag=tag)
+        _collective(dist.recv, buf, peer, group=self.group, tag=tag,
+                    axis="pp", staged=host)
         return buf.to(device) if host else buf
 
     def wait_sends(self) -> None:

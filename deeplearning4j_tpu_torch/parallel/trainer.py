@@ -80,10 +80,14 @@ ranks of a replica draw the same masks. ZeRO composes with an sp axis
 axis), not with a model axis, as in the JAX package.
 
 The port's trainer updates the net's tensors in place, so
-``donate_params`` changes nothing. ``tuned=`` (an
-``autotune.TunedConfig``) fills the mesh and the knobs left at their
-defaults, as in the JAX package. ``step_program`` / ``shardcheck`` analyse the JAX step's
-compiled program (``analysis/shardcheck``) and are not ported.
+``donate_params`` changes nothing (shardcheck's SC005 holds every step to
+that). ``tuned=`` (an ``autotune.TunedConfig``) fills the mesh and the
+knobs left at their defaults, as in the JAX package. ``step_program``
+records one real step (``analysis/shardcheck``): the body of ``fit_batch``'s
+``step`` span, from the placed microbatches to the settled states, run
+on a snapshot of the net and the trainer that is then put back bit for
+bit; ``shardcheck`` runs the SC rules over it against the layout the
+trainer claims.
 """
 
 from __future__ import annotations
@@ -95,6 +99,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.analysis import steprecord
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, global_rows
 from deeplearning4j_tpu_torch.datasets.iterator import (
     AsyncDataSetIterator, DataSetIterator,
@@ -204,6 +209,7 @@ class ParallelTrainer:
         check_mesh_device(net, self.mesh)
         check_no_pipe_or_expert(self.mesh, "ParallelTrainer")
         self.gradient_accumulation = max(1, int(gradient_accumulation))
+        self._donate = bool(donate_params)
         self.weight_update_sharding = WeightUpdateSharding.parse(
             weight_update_sharding)
         self.mesh.validate_weight_update_sharding(
@@ -457,6 +463,7 @@ class ParallelTrainer:
         Returns (loss over the ranks and microbatches, bad flag)."""
         if k > 1:
             acc.div_(k)
+        steprecord.note_update()
         loss = self.mesh.all_reduce_(total.reshape(1), axis="replicas") \
             .reshape(()).div(self.mesh.n_data)
         if k > 1:
@@ -475,14 +482,15 @@ class ParallelTrainer:
         """One update on the microbatches' whole sequences."""
         net = self.net
         states, acc, total = net.states, None, None
-        for (f, l, fm, lm), split in micro:
-            with sequence_parallel_scope(self.mesh, seq_split=split):
-                loss, aux, grads = self._value_and_grad(
-                    lambda p, s=states: net._loss_fn(
-                        p, s, f, l, fm, lm, rng=net._rng, train=True))
-            states = aux if self._is_graph else aux[0]
-            acc, total = self._accumulate(acc, total, loss, grads)
-            del grads
+        for i, ((f, l, fm, lm), split) in enumerate(micro):
+            with steprecord.microbatch(i):
+                with sequence_parallel_scope(self.mesh, seq_split=split):
+                    loss, aux, grads = self._value_and_grad(
+                        lambda p, s=states: net._loss_fn(
+                            p, s, f, l, fm, lm, rng=net._rng, train=True))
+                states = aux if self._is_graph else aux[0]
+                acc, total = self._accumulate(acc, total, loss, grads)
+                del grads
         loss, bad = self._synced_update(acc, total, len(micro))
         self._settle_states(bad, states)
         return loss, bad
@@ -507,13 +515,14 @@ class ParallelTrainer:
             acc = wtotal = None
             for i, m in enumerate(micro):
                 window = net._tbptt_windows(m, start, end)
-                with sequence_parallel_scope(self.mesh, seq_split=False):
-                    loss, (states, nc), grads = self._value_and_grad(
-                        lambda p, c=carries[i]: net._tbptt_loss(p, *window,
-                                                                c))
-                net.states = states   # the next microbatch's _tbptt_loss
-                acc, wtotal = self._accumulate(acc, wtotal, loss, grads)
-                del grads
+                with steprecord.microbatch(i):
+                    with sequence_parallel_scope(self.mesh, seq_split=False):
+                        loss, (states, nc), grads = self._value_and_grad(
+                            lambda p, c=carries[i]: net._tbptt_loss(
+                                p, *window, c))
+                    net.states = states   # the next microbatch's loss
+                    acc, wtotal = self._accumulate(acc, wtotal, loss, grads)
+                    del grads
                 new_carries.append(nc)
             net.states = old_states
             loss, bad = self._synced_update(acc, wtotal, len(micro))
@@ -546,35 +555,99 @@ class ParallelTrainer:
             yield
 
     # -------------------------------------------------------------------- fit
-    def _train(self, batch):
-        """Shard ``batch`` and run its step (no bookkeeping). Returns
-        (loss, bad flag or None, whether it ran tBPTT windows)."""
-        net = self.net
+    def _ensure_layout(self) -> None:
         if self.weight_update_sharding.enabled and not self._sharded:
             # a gather_opt_state() between fits: shard again
             self._shard_opt_state()
         if self.mesh.n_model > 1 and not self._model_sharded:
             self._shard_model()     # a gather_params() between fits
+
+    def _place(self, batch, tbptt: bool) -> list:
+        """This rank's microbatches of ``batch`` on the card (the
+        ``shard`` phase)."""
+        return [(self._to_device(rows), split) for rows, split
+                in self._micro_batches(batch, tbptt)]
+
+    def _run(self, micro, tbptt: bool):
+        """The step on placed microbatches, from the first forward to the
+        settled states (the ``step`` phase, and the window
+        ``step_program`` records). Returns (loss, bad flag or None)."""
+        with self._rank_step():
+            if tbptt:
+                return self._tbptt_step(micro), None
+            return self._standard_step(micro)
+
+    def _train(self, batch):
+        """Shard ``batch`` and run its step (no bookkeeping). Returns
+        (loss, bad flag or None, whether it ran tBPTT windows)."""
+        self._ensure_layout()
         stats = self.training_stats
         tracer = get_tracer()
         tbptt = self._tbptt(batch)
         with tracer.span("shard"):
             t0 = time.perf_counter()
-            micro = [(self._to_device(rows), split) for rows, split
-                     in self._micro_batches(batch, tbptt)]
+            micro = self._place(batch, tbptt)
             if stats:
                 self._sync()
                 stats.record("shard", time.perf_counter() - t0)
-        with tracer.span("step"), self._rank_step():
+        with tracer.span("step"):
             t0 = time.perf_counter()
-            if tbptt:
-                loss, bad = self._tbptt_step(micro), None
-            else:
-                loss, bad = self._standard_step(micro)
+            loss, bad = self._run(micro, tbptt)
             if stats:
                 self._sync()
                 stats.record("step", time.perf_counter() - t0)
         return loss, bad, tbptt
+
+    # ------------------------------------------------------------ shardcheck
+    def _step_state(self) -> dict:
+        return {"params": self.net.params, "updater": self.net.opt_state,
+                "anchor": self._anchor}
+
+    def step_program(self, batch):
+        """Record THIS trainer's step on the global ``batch``
+        (``analysis/shardcheck``): the ``step`` phase of ``fit_batch``,
+        the shard phase outside it, as JAX's ``_shard_batch_args`` sits
+        outside its jitted step. Every rank calls it (the step's
+        collectives run). The net, its updater state, ZeRO's anchor, the
+        dropout streams and the generators are put back bit for bit."""
+        from deeplearning4j_tpu_torch.analysis import shardcheck
+        self._ensure_layout()
+        tbptt = self._tbptt(batch)
+        micro = self._place(batch, tbptt)
+        with shardcheck.StepSnapshot(
+                [self.net], self, ("_anchor", "_stream", "training_stats")):
+            return shardcheck.record_step_program(
+                self._run, micro, tbptt, state=self._step_state)
+
+    def shardcheck_context(self) -> dict:
+        """The layout ``analysis/shardcheck`` holds this trainer's step
+        to — what the step CLAIMS to be."""
+        from deeplearning4j_tpu_torch.analysis.shardcheck import (
+            param_leaf_sizes,
+        )
+        return dict(
+            weight_update_sharding=self.weight_update_sharding.mode,
+            dp=self.mesh.n_data,
+            gradient_accumulation=self.gradient_accumulation,
+            sp=self.mesh.n_seq,
+            precision=self.precision,
+            expect_donation=self._donate,
+            param_leaf_sizes=param_leaf_sizes(self.net.params))
+
+    def shardcheck(self, batch, **overrides):
+        """The SC rules over a record of this trainer's step: the
+        reduce-scatter under zero1/zero2 (SC001), the collective census
+        (SC002), no gather inside a microbatch (SC003), the precision
+        boundary (SC004), the state updated in place (SC005), no host
+        read (SC006), the comm bytes against the cost model (SC007), the
+        sp ring (SC008). Returns the findings; the net is left as it
+        was."""
+        from deeplearning4j_tpu_torch.analysis.shardcheck import (
+            check_step_program,
+        )
+        ctx = self.shardcheck_context()
+        ctx.update(overrides)
+        return check_step_program(self.step_program(batch), **ctx)
 
     def fit_batch(self, batch):
         """One synchronized step on one global batch (one per time window

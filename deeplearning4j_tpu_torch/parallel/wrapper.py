@@ -29,7 +29,8 @@ as the JAX wrapper does. After ``fit_batch`` / ``fit`` the wrapped net
 takes global worker 0's state (broadcast from rank 0), as the reference
 copies the averaged params into the source model. For the synchronous
 mode use ``ParallelTrainer`` (``averaging_frequency=1`` with lower
-variance).
+variance). ``step_program`` / ``shardcheck`` record one parallel
+iteration and hold it to the SC rules (``analysis/shardcheck``).
 """
 
 from __future__ import annotations
@@ -198,23 +199,31 @@ class ParallelWrapper:
         for tensors in per_replica:
             copy_flat_into(flat, tensors)
 
+    def _iteration_step(self, batches: List[DataSet]) -> torch.Tensor:
+        """The parallel iteration's step (the window ``step_program``
+        records): global worker w fits ``batches[w]``, the average when it
+        is due, and the workers' summed score (on the device)."""
+        net = self.net
+        if self.workers > 1:
+            for j, r in enumerate(self._replicas):
+                r._rng.manual_seed(stream_seed(
+                    net, self._first + j, net.iteration_count))
+        losses = [r.fit_batch(batches[self._first + j])
+                  for j, r in enumerate(self._replicas)]
+        self._iter_since_avg += 1
+        if self._iter_since_avg >= self.averaging_frequency:
+            self._average()
+            self._iter_since_avg = 0
+        score = torch.stack([l.float() for l in losses]).sum()
+        self.mesh.all_reduce_(score.reshape(1))
+        return score
+
     def _parallel_iteration(self, batches: List[DataSet]) -> None:
         """One parallel iteration: global worker w fits ``batches[w]``."""
         net = self.net
         self._attach_sentinels()
         with get_tracer().span("parallel_iteration", workers=self.workers):
-            if self.workers > 1:
-                for j, r in enumerate(self._replicas):
-                    r._rng.manual_seed(stream_seed(
-                        net, self._first + j, net.iteration_count))
-            losses = [r.fit_batch(batches[self._first + j])
-                      for j, r in enumerate(self._replicas)]
-            self._iter_since_avg += 1
-            if self._iter_since_avg >= self.averaging_frequency:
-                self._average()
-                self._iter_since_avg = 0
-            score = torch.stack([l.float() for l in losses]).sum()
-            self.mesh.all_reduce_(score.reshape(1))
+            score = self._iteration_step(batches)
         net.iteration_count += 1
         if self._collector is not None:
             flags = self._collector.flags
@@ -247,18 +256,56 @@ class ParallelWrapper:
         net.opt_state["count"] = (count.clone() if isinstance(
             count, torch.Tensor) else count)
 
+    # ------------------------------------------------------------ shardcheck
+    def _worker_batches(self, batch: DataSet) -> List[DataSet]:
+        n = batch.num_examples()
+        if n % self.workers:
+            raise ValueError(
+                f"global batch of {n} examples not divisible by "
+                f"workers={self.workers}")
+        return batch.batch_by(n // self.workers)
+
+    def step_program(self, batch: DataSet):
+        """Record one parallel iteration on the global ``batch``
+        (``analysis/shardcheck``): this rank's replicas' steps, the
+        average and the score's reduction. Every rank calls it. The
+        replicas, the net and the generators are put back bit for
+        bit."""
+        from deeplearning4j_tpu_torch.analysis import shardcheck
+        batches = self._worker_batches(batch)
+        self._attach_sentinels()
+        reps = self._replicas
+        with shardcheck.StepSnapshot([self.net] + reps, self,
+                                     ("_iter_since_avg",)):
+            return shardcheck.record_step_program(
+                self._iteration_step, batches, state=lambda: {
+                    "params": [r.params for r in reps],
+                    "updater": [r.opt_state for r in reps]})
+
+    def shardcheck(self, batch: DataSet, **overrides):
+        """The SC rules over a record of one parallel iteration: the
+        state updated in place (SC005), no host read (SC006), the
+        precision boundary (SC004), the collective census (SC002). The
+        wrapper has no reduce-scatter contract, so the zero-mode rules
+        run as 'off', and parameter averaging is not the dp gradient
+        exchange the SC007 ring model predicts, so SC007 is skipped."""
+        from deeplearning4j_tpu_torch.analysis import shardcheck
+        ctx = dict(weight_update_sharding="off", dp=self.mesh.n_data,
+                   gradient_accumulation=1, precision=self.precision,
+                   expect_donation=True, check_cost=False,
+                   param_leaf_sizes=shardcheck.param_leaf_sizes(
+                       self.net.params))
+        ctx.update(overrides)
+        return shardcheck.check_step_program(self.step_program(batch),
+                                             **ctx)
+
     # ------------------------------------------------------------------- fit
     def fit_batch(self, batch: DataSet) -> float:
         """One parallel iteration on one global minibatch split evenly over
         the workers (the per-batch seam FaultTolerantTrainer drives), then
         the net takes worker 0's state so a checkpoint sees current
         weights. A batch that does not divide by ``workers`` is refused."""
-        n = batch.num_examples()
-        if n % self.workers:
-            raise ValueError(
-                f"global batch of {n} examples not divisible by "
-                f"workers={self.workers}")
-        self._parallel_iteration(batch.batch_by(n // self.workers))
+        self._parallel_iteration(self._worker_batches(batch))
         self._sync_to_net()
         return self.net.score_value
 

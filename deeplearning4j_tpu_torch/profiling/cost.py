@@ -6,11 +6,12 @@ The JAX package reads XLA's compile-time cost model. PyTorch has none, so
 loss on its own device under ``torch.utils.flop_counter.FlopCounterMode``
 and adds what the hand-written kernels did. The counter sees aten ops
 only; K1-K6 launch through ``ctypes`` and are invisible to it. So each
-kernel wrapper reports its FLOP formula through :func:`count_kernel_flops`
-when it launches: the count its plain version gives under the same
-counter at the same shapes (full ``T x T`` products for causal attention,
-the backward's recompute of P). The count is therefore the same on the
-card and on the CPU, whichever path runs.
+kernel wrapper reports its FLOP formula through
+``analysis/steprecord.note_launch`` when it launches, and
+:class:`counting_step` adds it: the count its plain version gives under
+the same counter at the same shapes (full ``T x T`` products for causal
+attention, the backward's recompute of P). The count is therefore the
+same on the card and on the CPU, whichever path runs.
 
 ``weight_update_cost(net, dp, ...)`` models the data-parallel trainers'
 weight-update traffic and per-rank updater-state / gradient bytes for the
@@ -20,7 +21,9 @@ three layouts (replicated, ``zero1``, ``zero2``).
 from __future__ import annotations
 
 import weakref
-from typing import Dict, List, Optional
+from typing import Dict, Optional
+
+from deeplearning4j_tpu_torch.analysis import steprecord
 
 # Peak dense matmul FLOP/s per device, by device-kind substring; the
 # first match wins. The H100 row is NVIDIA's published dense figure for
@@ -72,32 +75,51 @@ def analytic_mfu(flops_per_step: float, step_seconds: float,
 # the kernels' FLOPs
 # ---------------------------------------------------------------------------
 
-_KERNEL_SINKS: List[Dict[str, float]] = []
+class counting_step(steprecord.Listener):
+    """``with counting_step() as count:`` adds up what a step reports
+    while the block runs: ``count.flops``, the FLOPs of the kernels it
+    launched, by kernel name (a plain version's ops are FlopCounterMode's
+    to count), and ``count.comm_bytes``, the ring-model bytes
+    (:func:`ring_bytes`) a rank moves in its collectives."""
 
-
-def count_kernel_flops(name: str, flops: float) -> None:
-    """Called by a kernel wrapper when it launches its kernel: adds the
-    kernel's FLOPs to every count in progress (:func:`counting_kernels`)."""
-    for sink in _KERNEL_SINKS:
-        sink[name] = sink.get(name, 0.0) + float(flops)
-
-
-class counting_kernels:
-    """``with counting_kernels() as flops:`` collects the FLOPs the kernel
-    wrappers report while the block runs, by kernel name."""
-
-    def __enter__(self) -> Dict[str, float]:
-        self._sink: Dict[str, float] = {}
-        _KERNEL_SINKS.append(self._sink)
-        return self._sink
+    def __enter__(self) -> "counting_step":
+        self.flops: Dict[str, float] = {}
+        self.comm_bytes = 0
+        steprecord.RECORDERS.append(self)
+        return self
 
     def __exit__(self, *exc) -> None:
-        _KERNEL_SINKS.remove(self._sink)
+        steprecord.RECORDERS.remove(self)
+
+    def note_launch(self, wrapper, impl, flops, tensors, microbatch) -> None:
+        if impl == "kernel":
+            self.flops[wrapper] = self.flops.get(wrapper, 0.0) + flops
+
+    def note_collective(self, kind, axis, group_size, payload, microbatch,
+                        host_buffers) -> None:
+        self.comm_bytes += ring_bytes(
+            kind, group_size, payload.numel() * payload.element_size())
 
 
 # ---------------------------------------------------------------------------
 # data-parallel weight-update cost model (replicated vs zero1 / zero2)
 # ---------------------------------------------------------------------------
+
+def ring_bytes(kind: str, group_size: int, payload_bytes: int) -> int:
+    """Bytes a rank moves in one collective on the standard ring model
+    (the JAX package's ``CollectiveOp.ring_bytes``): an all-reduce
+    ``2 (g-1)/g`` of its payload, a reduce-scatter, all-gather or
+    broadcast ``(g-1)/g``, a point-to-point op one payload (counted at the
+    sender, so a receive moves nothing). A group of one rank moves
+    nothing."""
+    g = int(group_size)
+    if g <= 1 or kind == "recv":
+        return 0
+    if kind in ("collective-permute", "send"):
+        return int(payload_bytes)
+    unit = int(payload_bytes) * (g - 1) // g
+    return 2 * unit if kind == "all-reduce" else unit
+
 
 def dp_comm_bytes_per_update(param_count: int, dp: int,
                              dtype_bytes: int = 4,
@@ -235,11 +257,13 @@ def _step_key(net) -> tuple:
 
 
 def _count_step(net, batch) -> tuple:
-    """(FLOPs, saved-activation bytes) of one forward and backward of the
-    net's loss on ``batch``: the aten ops FlopCounterMode sees plus the
-    kernels' formulas, and the bytes of the tensors autograd saves for
-    the backward (each storage once). Leaves the net as it found it: no
-    update runs, and the dropout stream is put back."""
+    """(FLOPs, saved-activation bytes, comm bytes) of one forward and
+    backward of the net's loss on ``batch``: the aten ops FlopCounterMode
+    sees plus the kernels' formulas, the bytes of the tensors autograd
+    saves for the backward (each storage once), and the ring-model bytes
+    of the collectives the pass issued (:class:`counting_step`). Leaves
+    the net as it found it: no update runs, and the dropout stream is put
+    back."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -257,15 +281,15 @@ def _count_step(net, batch) -> tuple:
     rng = getattr(net, "_rng", None)
     rng_state = rng.get_state() if rng is not None else None
     try:
-        with counting_kernels() as kernel_flops, \
+        with counting_step() as count, \
                 FlopCounterMode(display=False) as counter, \
                 torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
             net.compute_gradient_and_score(batch)
     finally:
         if rng is not None:
             rng.set_state(rng_state)
-    return (float(counter.get_total_flops()) + sum(kernel_flops.values()),
-            float(sum(saved.values())))
+    return (float(counter.get_total_flops()) + sum(count.flops.values()),
+            float(sum(saved.values())), count.comm_bytes)
 
 
 def _batch_bytes(batch) -> float:
@@ -304,7 +328,11 @@ def train_step_cost(net, batch, peak: Optional[float] = None) -> dict:
     by the update (2 P b); each updater moment read and written (2 K P b);
     the tensors autograd saves written by the forward and read by the
     backward (2 A, each storage once); the batch read once.
-    ``comm_bytes_hlo`` is None: no compiled program is parsed.
+    ``comm_bytes_hlo`` (the JAX package's key): the per-rank ring-model
+    bytes of the collectives the counted pass issued (:func:`ring_bytes`,
+    as ``analysis/shardcheck.program_comm_bytes`` counts a recorded
+    step): 0 for a single net, whose step issues none, as the JAX
+    single-device program has none.
 
     Memoized on (the net, weakly; the batch signature; ``peak``). An entry
     is dropped when the net's step changes (its precision, remat, sentinel
@@ -322,7 +350,7 @@ def train_step_cost(net, batch, peak: Optional[float] = None) -> dict:
     if hit is not None:
         return dict(hit)
     from deeplearning4j_tpu_torch.analysis.memory import UPDATER_STATE_SLOTS
-    flops, saved = _count_step(net, batch)
+    flops, saved, comm_bytes = _count_step(net, batch)
     census = param_census(net)
     pb = census["param_count"] * census["dtype_bytes"]
     slots = UPDATER_STATE_SLOTS.get(census["updater"].lower(), 2)
@@ -335,7 +363,7 @@ def train_step_cost(net, batch, peak: Optional[float] = None) -> dict:
         "flops_per_step": flops,
         "flops_per_example": flops / n_examples if n_examples else None,
         "bytes_accessed": bytes_accessed,
-        "comm_bytes_hlo": None,
+        "comm_bytes_hlo": comm_bytes,
         "arithmetic_intensity": (flops / bytes_accessed
                                  if bytes_accessed else None),
         "batch": n_examples,

@@ -18,6 +18,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from deeplearning4j_tpu.profiling import cost as jcost
 
+from deeplearning4j_tpu_torch.analysis import steprecord
 from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
 from deeplearning4j_tpu_torch.models.gpt import gpt_decoder
@@ -170,7 +171,9 @@ def test_lenet_train_step_cost_matches_hand_count():
     assert c["arithmetic_intensity"] == pytest.approx(
         flops / c["bytes_accessed"])
     assert c["batch"] == B
-    assert c["comm_bytes_hlo"] is None
+    # a single net's step issues no collective: 0, as the JAX package's
+    # single-device program (the collectives the counted pass issued)
+    assert c["comm_bytes_hlo"] == 0
     assert c["device_kind"] == "cpu"
     assert c["peak_flops_per_chip"] == 1e12
     assert analytic_mfu(flops, 0.01, c["peak_flops_per_chip"]) \
@@ -299,15 +302,16 @@ def test_kernel_flops_reach_the_step_count_when_a_kernel_reports():
     (the card's path, where the counter sees no kernel)."""
     net = MultiLayerNetwork(small_mlp(), device="cpu").init()
     ds = small_batch()
-    base, _ = cost._count_step(net, ds)
+    base = cost._count_step(net, ds)[0]
     real = net.compute_gradient_and_score
 
     def reporting(batch):
-        cost.count_kernel_flops("flash_attn_fwd", 1234)
+        steprecord.note_launch("flash_attn_fwd", "kernel", 1234)
+        steprecord.note_launch("flash_attn_fwd", "plain", 99)
         return real(batch)
     net.compute_gradient_and_score = reporting
     assert cost._count_step(net, ds)[0] == base + 1234
-    cost.count_kernel_flops("flash_attn_fwd", 1)   # nothing counting
+    steprecord.note_launch("flash_attn_fwd", "kernel", 1)  # nothing counting
 
 
 # ----------------------------------------------- the count of whole nets

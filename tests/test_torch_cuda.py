@@ -1922,10 +1922,53 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "clustering/kmeans.py", "clustering/knn.py",
                    "clustering/tsne.py", "graph/__init__.py",
                    "graph/graph.py", "graph/walks.py", "graph/deepwalk.py",
-                   "graph/node2vec.py"):
+                   "graph/node2vec.py", "analysis/shardcheck.py",
+                   "analysis/steprecord.py", "analysis/fixtures.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     # h5py too: the port reads HDF5 itself (keras/hdf5.py)
     banned = ("jax", "jaxlib", "deeplearning4j_tpu", "h5py")
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if m.split(".")[0] in banned]
     assert not bad, bad
+
+
+def test_shardcheck_records_the_kernels_on_the_card(card):
+    """``net.shardcheck`` on the card: K4, K5 and K6 recorded once an
+    attention layer as launches of the kernels (never the plain
+    versions), nothing above INFO, and the net left as it was: its next
+    ``fit_batch`` equals that of a twin never checked, bit for bit."""
+    from deeplearning4j_tpu_torch.analysis import shardcheck
+    rng = np.random.default_rng(2)
+    eye = np.eye(16, dtype=np.float32)
+    tok = rng.integers(0, 16, (3, 17))
+    ds = DataSet(eye[tok[:, :-1]], eye[tok[:, 1:]])
+    net, twin = (ComputationGraph(gpt_tiny(vocab_size=16, seq_len=16),
+                                  device=card).init() for _ in range(2))
+    before = flash_attention.launches
+    program = shardcheck.net_step_program(net, ds)
+    assert flash_attention.launches - before == 2
+    assert dict(program.kernel_counts()) == {"K4": 2, "K5": 2, "K6": 2}
+    assert {k.impl for k in program.kernel_sites} == {"kernel"}
+    assert program.saw_backward() and program.host_reads == []
+    assert not [f for f in net.shardcheck(ds) if f.severity != "info"]
+    a, b = net.fit_batch(ds), twin.fit_batch(ds)
+    assert float(a) == float(b)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(net.params),
+                                                tree_leaves(twin.params)))
+
+
+def test_shardcheck_decode_runner_on_the_card(card):
+    """The engine's graphed decode runner, recorded eagerly on its static
+    buffers: SC009 / SC010 clean, and the pool and buffers put back."""
+    net = ComputationGraph(gpt_tiny(vocab_size=16, seq_len=16),
+                           device=card).init()
+    pl = net.kv_page_len()
+    ppr = net.decode_max_len() // pl
+    pool = net.init_kv_page_pool(4 * ppr + 1, pl)
+    runner = StepRunner(net, "decode", 4, pl, pool=pool)
+    tensors = [t for kv in pool.values() for t in kv.values()] + [
+        runner._x, runner._aux, runner._tbl]
+    before = [t.clone() for t in tensors]
+    assert not [f for f in runner.shardcheck(net, pool)
+                if f.severity != "info"]
+    assert all(torch.equal(a, b) for a, b in zip(before, tensors))

@@ -1940,6 +1940,145 @@ def case_spark_step(step, tables, batch, lr, ranks=(0, 1)):
     return dict(n_dev=trainer._n_dev, tables=[t.numpy() for t in out])
 
 
+# ---------------------------------------------------------------------------
+# cases: shardcheck over recorded steps (analysis/shardcheck, fixtures)
+# ---------------------------------------------------------------------------
+
+def _sc_entry(program, ctx) -> dict:
+    """A fixture's record (as JSON), its claim (the precision as its
+    compute dtype, the baseline as its JSON) and its findings."""
+    from deeplearning4j_tpu_torch.analysis.shardcheck import (
+        check_step_program,
+    )
+    claim = {k: v for k, v in ctx.items() if k != "baseline"}
+    if claim.get("precision") is not None:
+        claim["precision"] = str(getattr(claim["precision"],
+                                         "compute_dtype",
+                                         claim["precision"]))
+    return dict(json=program.to_json(), ctx=claim,
+                baseline=(ctx["baseline"].to_json()
+                          if ctx.get("baseline") is not None else None),
+                findings=[(f.rule, f.severity, f.message)
+                          for f in check_step_program(program, **ctx)])
+
+
+def case_shardcheck_fixtures(params=None):
+    """Every known-bad and known-good fixture of the port's
+    ``analysis/fixtures`` at dp = 2 (the nets carrying ``params``), and
+    the command line's two gates run in this group."""
+    from deeplearning4j_tpu_torch.analysis import fixtures as F
+    from deeplearning4j_tpu_torch.analysis import shardcheck as S
+    F.SC_PARAMS.clear()
+    F.SC_PARAMS.update(params or {})
+    out = {"bad": {}, "good": {}}
+    for name, _rule, make in F.SC_KNOWN_BAD:
+        out["bad"][name] = _sc_entry(*make("cpu"))
+    for name, make in F.SC_KNOWN_GOOD:
+        out["good"][name] = _sc_entry(*make("cpu"))
+    lines = []
+    out["self_check"] = S.self_check(report=lines.append, device="cpu")
+    out["contracts"] = S.contracts(report=lines.append, device="cpu")
+    out["report"] = lines
+    donate_off = F._sc_trainer_program("cpu", "zero1", 1, None, False)
+    out["donate_off"] = _sc_entry(*donate_off)
+    return out
+
+
+def _trainer_state(tr) -> dict:
+    """The net's params, states and updater state (whole), iteration
+    count and generator state, as numpy: what a checked step must leave
+    bit for bit."""
+    net = tr.net
+    opt = {k: ([t.numpy().copy() for t in _leaves(v)]
+               if k != "count" else np.asarray(
+                   v.numpy() if hasattr(v, "numpy") else v))
+           for k, v in net.opt_state.items()}
+    return dict(params=flat(net),
+                states=[t.numpy().copy() for t in _leaves(net.states)],
+                opt=opt, iteration=net.iteration_count,
+                rng=net._rng.get_state().numpy().copy(),
+                score=net._score_raw if isinstance(net._score_raw, float)
+                else float(net._score_raw))
+
+
+def case_shardcheck_steps(params, batches, tbptt_batch):
+    """Real steps under shardcheck at dp = 2: for each layout a trainer
+    that was checked and its twin that was not, stepped on ``batches``
+    (the state right after the check, the losses, params and updater
+    state after); the wrapper's and the early-stopping trainer's
+    findings; a trainer under a divergence sentinel; a tBPTT trainer."""
+    from deeplearning4j_tpu_torch.analysis import fixtures as F
+    from deeplearning4j_tpu_torch.analysis.shardcheck import (
+        check_step_program,
+    )
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.earlystopping.config import (
+        EarlyStoppingConfiguration,
+    )
+    from deeplearning4j_tpu_torch.earlystopping.parallel_trainer import (
+        EarlyStoppingParallelTrainer,
+    )
+    from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshContext, ParallelTrainer, ParallelWrapper,
+    )
+    from deeplearning4j_tpu_torch.resilience.sentinel import (
+        DivergenceSentinel,
+    )
+    F.SC_PARAMS.clear()
+    F.SC_PARAMS.update({"mlp": params})
+    ds = datasets(batches)
+
+    def findings(fs):
+        return [(f.rule, f.severity, f.message) for f in fs]
+    out = {"bitwise": {}}
+    for wus, k in (("off", 1), ("zero1", 1), ("zero2", 2)):
+        mesh = MeshContext.create(device="cpu")
+        checked = ParallelTrainer(F._sc_net("cpu"), mesh,
+                                  gradient_accumulation=k,
+                                  weight_update_sharding=wus)
+        twin = ParallelTrainer(F._sc_net("cpu"), mesh, gradient_accumulation=k,
+                               weight_update_sharding=wus)
+        before = _trainer_state(checked)
+        got = findings(checked.shardcheck(ds[0]))
+        after = _trainer_state(checked)
+        runs = []
+        for tr in (checked, twin):
+            losses = [tr.fit_batch(b) for b in ds]
+            tr.gather_opt_state()
+            runs.append(dict(losses=f32_bytes(losses), **_trainer_state(tr)))
+        out["bitwise"][f"{wus}-k{k}"] = dict(
+            findings=got, before=before, after=after, checked=runs[0],
+            twin=runs[1])
+    wrapper = ParallelWrapper(F._sc_net("cpu"), workers=2,
+                              mesh=MeshContext.create(device="cpu"))
+    out["wrapper"] = findings(wrapper.shardcheck(ds[0]))
+    est = EarlyStoppingParallelTrainer(
+        EarlyStoppingConfiguration(), F._sc_net("cpu"),
+        ListDataSetIterator([ds[0]]), mesh=MeshContext.create(device="cpu"),
+        weight_update_sharding="zero1")
+    out["early_stopping"] = findings(est.shardcheck(ds[0]))
+    guarded = F._sc_net("cpu")
+    guarded.set_divergence_sentinel(DivergenceSentinel("skip_batch", lag=1))
+    tr = ParallelTrainer(guarded, MeshContext.create(device="cpu"),
+                         weight_update_sharding="zero1")
+    program = tr.step_program(ds[0])
+    out["sentinel"] = dict(findings=findings(check_step_program(
+        program, **tr.shardcheck_context())),
+        host_reads=[(h.op, h.dtype) for h in program.host_reads])
+    rnn = MultiLayerNetwork(char_rnn_lstm(16, 8, 2), device="cpu").init()
+    tr = ParallelTrainer(rnn, MeshContext.create(device="cpu"))
+    program = tr.step_program(datasets([tbptt_batch])[0])
+    out["tbptt"] = dict(
+        findings=findings(check_step_program(
+            program, **tr.shardcheck_context())),
+        updates=program.updates, kernels=dict(program.kernel_counts()))
+    return out
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
