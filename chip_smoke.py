@@ -455,9 +455,22 @@ Phases, each printing JSON lines:
    one silent) and ``cost_analysis()["comm_bytes_hlo"]``; the serving
    engine's decode bucket (8 rows) of the full-width GPT clean under
    SC009 / SC010, its pool and static buffers put back. At most 60 s;
-24. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
+24. analyze — the analysis suite standing alone on this machine, which has
+   no JAX: ``python -m deeplearning4j_tpu_torch.analysis.analyze --json``
+   (graphcheck, torchlint, lockcheck, shardcheck on the card, postmortem:
+   every self-check passing, the torchlint and lockcheck sweeps of the
+   port clean), run beside the rest of the phase; torchlint's
+   captured-code pairs (TL001, TL003-TL007) under ``torch.cuda.graph``
+   (each bad body raising at capture or replaying unequal to eager on a
+   new input, each good twin replaying equal to eager bit for bit); the
+   guarded tBPTT step of the full-width char-RNN at [32, 200] under
+   ``skip_batch`` at lag 0 and 1 recorded (K2 / K3 as kernels over its
+   four window programs, the sentinel's drains between them, nothing
+   above INFO, the net bit for bit an unchecked twin's after its next
+   ``fit_batch``). At most 40 s;
+25. a ``{"kernels": [...]}`` summary line (K2-K6 with their bf16 times,
    bounds and library times at this slice's shapes);
-25. last line ``{"ok": true, "device": {...}}``.
+26. last line ``{"ok": true, "device": {...}}``.
 
 Every kernel, plain version and library call is timed by its kernels'
 durations in a profiler trace (``device_ms``): K4 runs in less time than
@@ -475,6 +488,7 @@ it exits 2 and prints no result.
 import collections
 import hashlib
 import json
+import os
 import re
 import shutil
 import socket
@@ -1040,7 +1054,10 @@ IMPORT_RULE_REQUIRED = ("parallel/__init__.py", "parallel/mesh.py",
                         "graph/graph.py", "graph/walks.py",
                         "graph/deepwalk.py", "graph/node2vec.py",
                         "analysis/shardcheck.py", "analysis/steprecord.py",
-                        "analysis/fixtures.py")
+                        "analysis/fixtures.py", "analysis/source_lint.py",
+                        "analysis/torchlint.py", "analysis/lockcheck.py",
+                        "analysis/analyze.py", "analysis/ranks.py",
+                        "profiling/postmortem.py")
 
 
 def import_rule() -> dict:
@@ -10129,6 +10146,138 @@ def shardcheck_phase(smi):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# analyze: the analysis suite standing alone on the card's machine
+# ---------------------------------------------------------------------------
+
+AN_BUDGET_S = 40.0
+AN_LAGS = (0, 1)
+
+
+def an_tbptt_case(lag) -> dict:
+    """The guarded tBPTT step of the full-width char-RNN recorded under
+    ``skip_batch`` at ``lag``: K2 / K3 as kernels in each of its window
+    programs, the sentinel's drains between them (``windows - lag`` reads
+    of a flag), nothing above INFO, the net as it was and its next
+    ``fit_batch`` bit for bit that of an unchecked twin."""
+    from deeplearning4j_tpu_torch.analysis import shardcheck as sc
+    from deeplearning4j_tpu_torch.resilience.sentinel import (
+        DivergenceSentinel,
+    )
+
+    def make():
+        net = par_char_rnn()
+        net.set_divergence_sentinel(DivergenceSentinel("skip_batch",
+                                                       lag=lag))
+        return net
+    Bl, Tl = LSTM_TRAIN_BATCH
+    windows = -(-Tl // char_rnn_lstm(**LSTM_SLICE).training.tbptt_fwd_length)
+    sites = {k: LSTM_SLICE["layers"] * windows for k in ("K2", "K3")}
+    batch = text_batches(1, Bl, Tl, SEED)[0]
+    net, twin = make(), make()
+    before = sc_snapshot(net)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    program = sc.net_step_program(net, batch)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    findings = sc.check_step_program(program, **net.shardcheck_context())
+    kept = sc_same(before, sc_snapshot(net))
+    between = sc.between_windows(program)
+    loss, twin_loss = net.fit_batch(batch), twin.fit_batch(batch)
+    next_same = (np.float32(float(loss)).tobytes()
+                 == np.float32(float(twin_loss)).tobytes()
+                 and params_equal(net, twin))
+    rec = dict(
+        lag=lag, windows=program.windows, record_s=record_s,
+        ops=len(program.ops), sites=dict(program.kernel_counts()),
+        impls=sorted({k.impl for k in program.kernel_sites}),
+        drains=sum(h.op.startswith("_local_scalar_dense") for h in between),
+        between_windows=[f"{h.op} {h.dtype}{h.shape}" for h in between],
+        inside_windows=[f"{h.op} w{h.window}" for h in program.host_reads
+                        if h.window is not None],
+        sc006=[f"{f.severity}: {f.message}" for f in findings
+               if f.rule == "SC006"],
+        significant=[str(f) for f in findings if f.severity != "info"],
+        state_bitwise=kept, next_step_bitwise=next_same)
+    check(not rec["significant"] and not rec["inside_windows"],
+          f"analyze: the guarded tBPTT record at lag {lag} is not clean: "
+          f"{rec}")
+    check(rec["windows"] == windows and rec["sites"] == sites
+          and rec["impls"] == ["kernel"]
+          and rec["drains"] == windows - lag,
+          f"analyze: the guarded tBPTT record at lag {lag}: want {windows} "
+          f"windows, sites {sites} as kernels, {windows - lag} drains "
+          f"between windows: {rec}")
+    check(kept and next_same,
+          f"analyze: the checked net at lag {lag} is not bit for bit as it "
+          f"was (state {kept}, next step {next_same})")
+    return rec
+
+
+def analyze_phase(smi):
+    """The analysis suite on the card's machine (see the module docstring,
+    phase 24): the umbrella in a subprocess beside the capture hazards and
+    the guarded tBPTT records. Returns the phase's launch counts."""
+    from deeplearning4j_tpu_torch.analysis import fixtures as fx
+    reset_counts()
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    umbrella = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.analysis.analyze",
+         "--json"], cwd=str(root), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    try:
+        t0 = time.perf_counter()
+        hazards = [fx.capture_outcome(rule, which)
+                   for rule in fx.TL_CAPTURE_RULES
+                   for which in ("bad", "good")]
+        hazards_s = time.perf_counter() - t0
+        tbptt = [an_tbptt_case(lag) for lag in AN_LAGS]
+        out, err = umbrella.communicate(timeout=300)
+    finally:
+        if umbrella.poll() is None:
+            umbrella.kill()
+            umbrella.wait()
+    launched = counts()
+    phase_s = time.perf_counter() - t_phase
+    try:
+        report = json.loads(out.decode())
+    except ValueError:
+        report = None
+    check(report is not None, f"analyze: the umbrella printed no report "
+          f"(exit {umbrella.returncode}): {out[-2000:]!r} {err[-2000:]!r}")
+    steps = {(r["layer"], r["step"]): r for r in report["steps"]}
+    emit(dict(phase="analyze", nvidia_smi=smi, verdict=report["verdict"],
+              exit_code=report["exit_code"], umbrella_s=report["seconds"],
+              steps=[dict(layer=r["layer"], step=r["step"], rc=r["rc"],
+                          seconds=r["seconds"],
+                          tail=r["output"].splitlines()[-1:])
+                     for r in report["steps"]],
+              hazards=hazards, hazards_s=hazards_s, tbptt=tbptt,
+              launches=launched, budget_s=AN_BUDGET_S, phase_s=phase_s))
+    check(umbrella.returncode == 0 == report["exit_code"]
+          and all(r["rc"] == 0 for r in report["steps"])
+          and len(steps) == 7,
+          f"analyze: the umbrella is not clean on this machine: "
+          f"{[(r['layer'], r['step'], r['rc'], r['output'][-1500:]) for r in report['steps'] if r['rc']]}")
+    check(steps["torchlint", "sweep"]["output"] == "torchlint: clean"
+          and steps["lockcheck", "sweep"]["output"] == "lockcheck: clean",
+          "analyze: the port's torchlint / lockcheck sweeps are not clean")
+    bad = [h for h in hazards if not h["hazard_shown"]]
+    check(not bad, f"analyze: capture fixtures that did not show what they "
+          f"promise: {bad}")
+    check(launched["lstm_fwd_train"] > 0 and launched["lstm_bwd"] > 0,
+          f"analyze: K2 / K3 were not launched in the phase: {launched}")
+    check(phase_s <= AN_BUDGET_S,
+          f"the analyze phase took {phase_s:.1f} s, over its "
+          f"{AN_BUDGET_S} s budget")
+    return launched
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -10360,7 +10509,12 @@ def main() -> int:
     # the engine's decode bucket --------------------------------------
     checked = timed("shardcheck", shardcheck_phase, smi)
 
-    # ---- 24. summary of every ported kernel -------------------------------
+    # ---- 24. analyze: the umbrella on this machine (no JAX), torchlint's
+    # capture hazards under torch.cuda.graph, the guarded tBPTT record
+    # (K2 / K3) --------------------------------------------------------
+    analyzed = timed("analyze", analyze_phase, smi)
+
+    # ---- 25. summary of every ported kernel -------------------------------
     emit({"kernels": [
         dict(name="flash_attn_fwd", route="cuda",
              source="deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -10493,7 +10647,9 @@ def main() -> int:
              + fitted["lstm_fwd_train"] + tf_lstm["lstm_fwd_train"]
              + par["lstm_fwd_train"] + keras["lstm_fwd_train"]
              + fitted_keras["lstm_fwd_train"] + fed["lstm_fwd_train"]
-             + streamed["lstm_fwd_train"] + checked["lstm_fwd_train"],
+             + streamed["lstm_fwd_train"] + checked["lstm_fwd_train"]
+             + analyzed["lstm_fwd_train"],
+             launches_analyze=analyzed["lstm_fwd_train"],
              launches_shardcheck=checked["lstm_fwd_train"],
              launches_stream_ui=streamed["lstm_fwd_train"],
              launches_input_path=fed["lstm_fwd_train"],
@@ -10529,7 +10685,9 @@ def main() -> int:
              launches=lstm_train_path["lstm_bwd"] + fitted["lstm_bwd"]
              + tf_lstm["lstm_bwd"] + par["lstm_bwd"] + keras["lstm_bwd"]
              + fitted_keras["lstm_bwd"] + fed["lstm_bwd"]
-             + streamed["lstm_bwd"] + checked["lstm_bwd"],
+             + streamed["lstm_bwd"] + checked["lstm_bwd"]
+             + analyzed["lstm_bwd"],
+             launches_analyze=analyzed["lstm_bwd"],
              launches_shardcheck=checked["lstm_bwd"],
              launches_stream_ui=streamed["lstm_bwd"],
              launches_input_path=fed["lstm_bwd"],

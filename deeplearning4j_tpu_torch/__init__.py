@@ -12,12 +12,19 @@ in the JAX package's zip format, so checkpoints cross in both directions.
 
 __version__ = "0.1.0"
 
-from deeplearning4j_tpu_torch.nn.conf import (  # noqa: F401
-    InputType,
-    MultiLayerConfiguration,
-    NeuralNetConfiguration,
-)
-from deeplearning4j_tpu_torch.nn.graph import ComputationGraph  # noqa: F401
-from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: F401
-    MultiLayerNetwork,
-)
+#: the package's names, loaded on first use: a submodule that needs no
+#: torch (the source lints, the analysis umbrella) starts without it
+_EXPORTS = {"InputType": "nn.conf", "MultiLayerConfiguration": "nn.conf",
+            "NeuralNetConfiguration": "nn.conf",
+            "ComputationGraph": "nn.graph",
+            "MultiLayerNetwork": "nn.multilayer"}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

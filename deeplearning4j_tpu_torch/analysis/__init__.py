@@ -21,12 +21,28 @@ JAX package's ``analysis/``, the config layer of it):
   ``program_comm_bytes`` and the command line (``python -m
   deeplearning4j_tpu_torch.analysis.shardcheck --self-check``). Its
   fixtures are ``fixtures.SC_KNOWN_BAD`` / ``SC_KNOWN_GOOD``; the hooks a
-  running step reports through are ``steprecord``.
+  running step reports through are ``steprecord``. ``ranks`` starts its
+  self-check's or contracts' gloo ranks without importing torch.
 
-The JAX package's ``jaxlint`` and ``source_lint`` lint JAX source and have
-no counterpart here yet (ROADMAP A8.2). The names below load on first
-use, so importing the package (as the containers do for
-``memory.default_kv_page_len``) pulls in no config module.
+- ``torchlint``: the counterpart of the JAX package's ``jaxlint``, an
+  ``ast`` lint of the port's own source (TL000-TL011): code a CUDA graph
+  captures (``with torch.cuda.graph`` blocks, what they call, the
+  ``torch.compile`` / ``make_graphed_callables`` targets, the seams in
+  ``SEAMS``) and ``torch.autograd.Function`` subclasses.
+- ``lockcheck``: the JAX package's concurrency lint (LC000-LC008), the
+  port's own copy; ``source_lint`` holds the suppression grammar and the
+  stale pass both lints share.
+- ``fixtures``: the four fixture families of the self-checks (GC, TL,
+  LC, SC).
+- ``analyze``: the umbrella, ``python -m
+  deeplearning4j_tpu_torch.analysis.analyze [--device cpu]``, which runs
+  graphcheck, torchlint, lockcheck, shardcheck and postmortem
+  (``profiling/postmortem``) side by side, each through its own command
+  line, and exits 0 clean, 1 on findings, 2 when a self-check broke.
+
+The names below load on first use, so importing the package (as the
+containers do for ``memory.default_kv_page_len``) pulls in no config
+module.
 """
 
 _EXPORTS = {
@@ -42,7 +58,14 @@ _EXPORTS = {
     "program_comm_bytes": "shardcheck", "net_step_program": "shardcheck",
     "param_leaf_sizes": "shardcheck",
     "SC_KNOWN_BAD": "fixtures", "SC_KNOWN_GOOD": "fixtures",
-    "SC_GOOD_FOR": "fixtures",
+    "SC_GOOD_FOR": "fixtures", "between_windows": "shardcheck",
+    "KNOWN_BAD": "fixtures", "KNOWN_GOOD": "fixtures",
+    "KNOWN_GOOD_FOR": "fixtures", "TL_FIXTURES": "fixtures",
+    "LC_FIXTURES": "fixtures", "capture_outcome": "fixtures",
+    "SEAMS": "torchlint", "Seam": "torchlint",
+    "LintContext": "source_lint", "collect_suppressions": "source_lint",
+    "stale_suppression_pass": "source_lint",
+    "run_layers": "analyze",
 }
 
 __all__ = list(_EXPORTS)

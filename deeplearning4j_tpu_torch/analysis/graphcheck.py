@@ -1277,13 +1277,47 @@ def _parse_mesh(spec: Optional[str]) -> Optional[Dict[str, int]]:
     return axes
 
 
+def self_check(report=print) -> int:
+    """Validate the analyzer against its fixtures
+    (``analysis/fixtures.KNOWN_BAD`` / ``KNOWN_GOOD``): each known-bad
+    config must produce its rule, each known-good one nothing. 0 when all
+    hold, 1 otherwise."""
+    from deeplearning4j_tpu_torch.analysis.fixtures import (
+        KNOWN_BAD, KNOWN_GOOD,
+    )
+    ok = True
+    for name, rule, make in KNOWN_BAD:
+        conf, kw = make()
+        rules = {f.rule for f in validate_config(conf, **kw)}
+        if rule in rules:
+            report(f"  known-bad  {name:<28} rejected with {rule} (ok)")
+        else:
+            ok = False
+            report(f"  known-bad  {name:<28} FAILED: wanted {rule}, "
+                   f"got {sorted(rules) or 'no findings'}")
+    for name, make in KNOWN_GOOD:
+        conf, kw = make()
+        findings = validate_config(conf, **kw)
+        if findings:
+            ok = False
+            report(f"  known-good {name:<28} FAILED: unexpected findings")
+            for f in findings:
+                report(f"    {f}")
+        else:
+            report(f"  known-good {name:<28} clean (ok)")
+    report("graphcheck self-check: " + ("PASS" if ok else "FAIL"))
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     """``python -m deeplearning4j_tpu_torch.analysis.graphcheck model.json
     [--mesh dp=8,pp=2] [--batch-size N] [--memory]``: load a serialized
     ``MultiLayerConfiguration`` or ``ComputationGraphConfiguration``
     (JSON or YAML, dispatched on its ``format`` tag), run every rule,
     print the findings (and with ``--memory`` the MemoryReport). Exits 1
-    when a finding is an ERROR, 0 otherwise, 2 on a usage error."""
+    when a finding is an ERROR, 0 otherwise, 2 on a usage error.
+    ``--self-check`` validates the analyzer against its fixtures
+    (:func:`self_check`) instead."""
     import argparse
     import json
     from deeplearning4j_tpu_torch.analysis.findings import (
@@ -1292,14 +1326,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m deeplearning4j_tpu_torch.analysis.graphcheck",
         description="Static validation of a serialized model config.")
-    ap.add_argument("config", help="serialized config (.json/.yaml)")
+    ap.add_argument("config", nargs="?",
+                    help="serialized config (.json/.yaml)")
     ap.add_argument("--mesh", default=None,
                     help="mesh axes, e.g. dp=8,pp=2,ep=4")
     ap.add_argument("--batch-size", type=int, default=None,
                     help="global batch size for the dp / memory checks")
     ap.add_argument("--memory", action="store_true",
                     help="print the MemoryReport too")
+    ap.add_argument("--self-check", action="store_true",
+                    help="validate the analyzer against its known-bad / "
+                         "known-good fixtures")
     args = ap.parse_args(argv)
+    if args.self_check:
+        return self_check()
+    if not args.config:
+        ap.error("a config file (or --self-check) is required")
     with open(args.config, "r", encoding="utf-8") as fh:
         text = fh.read()
     if args.config.endswith((".yaml", ".yml")):

@@ -27,7 +27,14 @@ JSON:
   dtype after (the params, the updater state, ZeRO's gradient anchor, a
   decode step's KV cache or page pool);
 - ``microbatches`` and ``updates``: the accumulation microbatches and the
-  optimizer updates the window ran.
+  optimizer updates the window ran;
+- ``windows``: the window programs of a tBPTT step (0 for a step of one
+  program). A tBPTT record spans every window of the batch, and
+  ``steprecord.window(i)`` marks each as its own program, as the
+  reference jits one window a call. Each host read notes the window it
+  ran in, and whether the divergence sentinel made it
+  (``steprecord.drain``): the sentinel's drain of a window's flag runs
+  after the window's program, outside every window.
 
 Rules (the JAX package's ids, names and severities; what each reads in
 the record):
@@ -54,7 +61,11 @@ the record):
 - SC005 donation-dropped (error): a param, updater or anchor leaf whose
   storage the step replaced. The port updates in place; JAX's donation
   is the storage identity here.
-- SC006 host-transfer (error): a host read inside the step. A
+- SC006 host-transfer (error): a host read inside the step. In a tBPTT
+  record the sentinel's drains outside every window program are
+  reported as info (the reference drains between its jitted windows);
+  any other read, inside a window or before or after the windows, is
+  the step's. A
   collective's own transport is the collective's: gloo stages its
   collectives on CUDA tensors through host memory inside the backend,
   and the port stages gloo's point-to-point ops itself
@@ -278,6 +289,8 @@ class HostRead:
     shape: List[int]
     microbatch: Optional[int] = None
     host_staged: bool = False      # a collective's host staging copy
+    window: Optional[int] = None   # the tBPTT window program it ran in
+    drain: bool = False            # the divergence sentinel's drain
 
 
 @dataclass
@@ -314,11 +327,12 @@ class StepProgram:
     boundary: Dict[str, List[str]] = field(default_factory=dict)
     microbatches: int = 1
     updates: int = 0
+    windows: int = 0
     meta: Dict[str, Any] = field(default_factory=dict)
 
     # --------------------------------------------------------- JSON
     _KEYS = ("ops", "collectives", "kernel_sites", "host_reads", "state",
-             "boundary", "microbatches", "updates", "meta")
+             "boundary", "microbatches", "updates", "windows", "meta")
 
     def to_json(self) -> str:
         d = {k: getattr(self, k) for k in self._KEYS}
@@ -351,7 +365,8 @@ class StepProgram:
                 state=[StateLeaf(**s) for s in d["state"]],
                 boundary=dict(d["boundary"]),
                 microbatches=int(d["microbatches"]),
-                updates=int(d["updates"]), meta=dict(d["meta"]))
+                updates=int(d["updates"]),
+                windows=int(d.get("windows", 0)), meta=dict(d["meta"]))
         except (KeyError, TypeError) as e:
             raise ValueError(f"not a step program: {e!r}") from None
 
@@ -427,6 +442,9 @@ class _Recorder(steprecord.Listener):
     def note_microbatch(self, index: int) -> None:
         self.microbatches = max(self.microbatches, index + 1)
 
+    def note_window(self, index: int) -> None:
+        self.program.windows = max(self.program.windows, index + 1)
+
     def note_update(self) -> None:
         self.program.updates += 1
 
@@ -488,7 +506,9 @@ class _Recorder(steprecord.Listener):
         j = len(self.program.ops) - 1
         if host is not None:
             self.reads[j] = HostRead(name, dtype_name(host.dtype),
-                                     list(host.shape), mb)
+                                     list(host.shape), mb,
+                                     window=steprecord.current_window(),
+                                     drain=steprecord.draining())
             self.program.host_reads.append(self.reads[j])
         # a staged buffer read back (a receive's copy to the device)
         back = self.staged.intersection(in_ptrs)
@@ -972,9 +992,29 @@ def _check_sc005(findings, program: StepProgram,
             "step", "see SC005"))
 
 
+def between_windows(program: StepProgram) -> List[HostRead]:
+    """The host reads of a tBPTT record that the divergence sentinel's
+    drains made outside every window program (none for a step of one
+    program)."""
+    if not program.windows:
+        return []
+    return [h for h in program.host_reads
+            if h.drain and h.window is None and not h.host_staged]
+
+
 def _check_sc006(findings, program: StepProgram) -> None:
-    hits = [h for h in program.host_reads if not h.host_staged]
-    staged = len(program.host_reads) - len(hits)
+    between = between_windows(program)
+    apart = {id(h) for h in between}
+    hits = [h for h in program.host_reads
+            if not h.host_staged and id(h) not in apart]
+    staged = sum(h.host_staged for h in program.host_reads)
+    if between:
+        findings.append(Finding(
+            "SC006", Severity.INFO, "<program>",
+            f"{len(between)} host reads are the divergence sentinel's "
+            f"drains, outside the step's {program.windows} window "
+            "programs (the reference drains between its jitted windows)",
+            ""))
     if staged:
         findings.append(Finding(
             "SC006", Severity.INFO, "<program>",
@@ -1306,8 +1346,16 @@ def contracts(report=print, device=None) -> int:
 def _rank_main(job: str, rank: int, world: int, init: str,
                device: str) -> int:
     """One rank of ``--self-check`` / ``--contracts``: joins the gloo
-    group and runs the job; rank 0 prints."""
+    group and runs the job; rank 0 prints. Exits 2 where ``device`` is
+    the card and there is none."""
+    import sys
+    from deeplearning4j_tpu_torch.device import resolve_device
     from deeplearning4j_tpu_torch.parallel import multihost
+    try:
+        resolve_device(None if device == "cuda" else device)
+    except RuntimeError as e:
+        print(f"shardcheck: {e}", file=sys.stderr)
+        return 2
     torch.set_num_threads(1)
     multihost.initialize(init, world_size=world, rank=rank, device=device,
                          backend="gloo", timeout_s=300.0)
@@ -1318,46 +1366,6 @@ def _rank_main(job: str, rank: int, world: int, init: str,
     finally:
         multihost.shutdown()
     return rc
-
-
-def spawn(job: str, device=None, world: int = 2,
-          timeout: float = 900.0) -> int:
-    """Run ``job`` ("self-check" or "contracts") on ``world`` gloo ranks
-    of this module: every rank on the one card (``device=None``, raising
-    where there is none) or on the CPU (``device="cpu"``); returns the
-    worst exit code. Rank 0's report goes to stdout."""
-    import os
-    import subprocess
-    import sys
-    import tempfile
-    from pathlib import Path
-    from deeplearning4j_tpu_torch.device import resolve_device
-    device = resolve_device(device).type
-    root = Path(__file__).resolve().parents[2]
-    with tempfile.TemporaryDirectory(prefix="shardcheck-") as tmp:
-        init = "file://" + os.path.join(tmp, "rendezvous")
-        env = dict(os.environ, OMP_NUM_THREADS="1",
-                   PYTHONPATH=os.pathsep.join(
-                       [str(root)] + [p for p in os.environ.get(
-                           "PYTHONPATH", "").split(os.pathsep) if p]))
-        if device == "cpu":
-            env["CUDA_VISIBLE_DEVICES"] = ""
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "deeplearning4j_tpu_torch.analysis."
-             "shardcheck", "--rank-job", job, str(r), str(world), init,
-             device], cwd=str(root), env=env,
-            stdout=None if r == 0 else subprocess.DEVNULL)
-            for r in range(world)]
-        rcs = []
-        try:
-            for p in procs:
-                rcs.append(p.wait(timeout=timeout))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-    return max(rcs) if len(rcs) == world else 1
 
 
 def main(argv=None) -> int:
@@ -1408,6 +1416,7 @@ def main(argv=None) -> int:
             device = resolve_device(args.device).type
         except RuntimeError as e:
             ap.error(str(e))
+        from deeplearning4j_tpu_torch.analysis.ranks import spawn
         return spawn("self-check" if args.self_check else "contracts",
                      device)
     if not args.program:

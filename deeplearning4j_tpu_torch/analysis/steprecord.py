@@ -1,6 +1,7 @@
 """The hooks through which a running step reports what it does: the
 collectives ``parallel/mesh._collective`` issues, the kernel wrappers'
-launches, the optimizer updates and the accumulation microbatches.
+launches, the optimizer updates, the accumulation microbatches, the
+windows of a tBPTT step and the divergence sentinel's drains.
 
 Two kinds of listener read them: shardcheck's record of a step
 (``analysis/shardcheck.record_step_program``) and the cost count of a
@@ -16,7 +17,7 @@ import contextlib
 
 #: the listeners open now
 RECORDERS: list = []
-_PHASE = {"microbatch": None}
+_PHASE = {"microbatch": None, "window": None, "drain": False}
 
 
 class Listener:
@@ -24,6 +25,9 @@ class Listener:
     keeps it."""
 
     def note_microbatch(self, index: int) -> None:
+        pass
+
+    def note_window(self, index: int) -> None:
         pass
 
     def note_update(self) -> None:
@@ -59,6 +63,42 @@ def microbatch(index: int):
         yield
     finally:
         _PHASE["microbatch"] = saved
+
+
+def current_window():
+    return _PHASE["window"]
+
+
+@contextlib.contextmanager
+def window(index: int):
+    """Within the block the step's ops belong to window ``index`` of a
+    tBPTT step. Each window is a program of its own, as the reference
+    jits one window; what runs between two blocks (the divergence
+    sentinel's drain of a window's flag) runs between programs."""
+    saved = _PHASE["window"]
+    _PHASE["window"] = int(index)
+    for rec in RECORDERS:
+        rec.note_window(int(index))
+    try:
+        yield
+    finally:
+        _PHASE["window"] = saved
+
+
+def draining() -> bool:
+    return _PHASE["drain"]
+
+
+@contextlib.contextmanager
+def drain():
+    """Within the block the divergence sentinel reads a step's flags on
+    the host (``NetCommonMixin._observe_sentinel``)."""
+    saved = _PHASE["drain"]
+    _PHASE["drain"] = True
+    try:
+        yield
+    finally:
+        _PHASE["drain"] = saved
 
 
 def note_update() -> None:

@@ -70,7 +70,7 @@ def build_native(name: str) -> Optional[Path]:
         return None
     from deeplearning4j_tpu_torch.profiling.watchers import report_compile
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
@@ -91,16 +91,19 @@ def build_native(name: str) -> Optional[Path]:
 
 
 def load_native(name: str) -> Optional[ctypes.CDLL]:
-    """``lib<name>`` loaded (built first if need be), or None; the
-    outcome is kept for the process."""
-    with _lock:
-        if name not in _cache:
-            path = build_native(name)
-            lib = None
-            if path is not None:
-                try:
-                    lib = ctypes.CDLL(str(path))
-                except OSError as e:
-                    logger.warning("cannot load %s: %s", path, e)
-            _cache[name] = lib
+    """``lib<name>`` loaded (built first if need be), or None; the first
+    outcome is kept for the process. The build runs outside the lock, so
+    a caller of a library already loaded never waits for another's
+    ``g++``; two threads that build one name at once each build it into
+    a file of their own, and the one renamed last stays."""
+    if name in _cache:
         return _cache[name]
+    path = build_native(name)
+    lib = None
+    if path is not None:
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            logger.warning("cannot load %s: %s", path, e)
+    with _lock:
+        return _cache.setdefault(name, lib)

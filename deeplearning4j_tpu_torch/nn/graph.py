@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.analysis import steprecord
 from deeplearning4j_tpu_torch.analysis.memory import default_kv_page_len
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterator import (
@@ -655,13 +656,18 @@ class ComputationGraph(NetCommonMixin, EvalMixin, ScanFitMixin,
         total, windows = 0.0, 0
         for start in range(0, T, fwd):
             end = min(start + fwd, T)
-            loss, (new_states, new_carries), grads = policy_value_and_grad(
-                lambda p: self._tbptt_loss(
-                    p, *self._tbptt_windows(batch, start, end), carries),
-                self.params, training)
-            bad = self._step(grads, new_states, loss)
-            carries = self._guard_tree(bad, carries, new_carries)
-            total = total + loss    # on the device: no sync per window
+            # each window is a program of its own (the reference jits one
+            # window); the sentinel drains its flag between two of them
+            with steprecord.window(windows):
+                loss, (new_states, new_carries), grads = \
+                    policy_value_and_grad(
+                        lambda p: self._tbptt_loss(
+                            p, *self._tbptt_windows(batch, start, end),
+                            carries),
+                        self.params, training)
+                bad = self._step(grads, new_states, loss)
+                carries = self._guard_tree(bad, carries, new_carries)
+                total = total + loss    # on the device: no sync per window
             windows += 1
             self.iteration_count += 1
             self.score_value = loss

@@ -306,7 +306,8 @@ class NetCommonMixin:
         """Hand the just-completed step's flag to the sentinel (which may
         raise per its policy)."""
         if self._sentinel is not None and flag is not None:
-            self._sentinel.observe(flag, self.iteration_count)
+            with steprecord.drain():
+                self._sentinel.observe(flag, self.iteration_count)
 
     def _update(self, grads, loss, layers) -> Any:
         """Apply one update to the params and the optimizer state in

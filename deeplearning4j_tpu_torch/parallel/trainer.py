@@ -511,25 +511,30 @@ class ParallelTrainer:
         total, windows = 0.0, 0
         for start in range(0, T, fwd):
             end = min(start + fwd, T)
-            old_states, new_carries = net.states, []
-            acc = wtotal = None
-            for i, m in enumerate(micro):
-                window = net._tbptt_windows(m, start, end)
-                with steprecord.microbatch(i):
-                    with sequence_parallel_scope(self.mesh, seq_split=False):
-                        loss, (states, nc), grads = self._value_and_grad(
-                            lambda p, c=carries[i]: net._tbptt_loss(
-                                p, *window, c))
-                    net.states = states   # the next microbatch's loss
-                    acc, wtotal = self._accumulate(acc, wtotal, loss, grads)
-                    del grads
-                new_carries.append(nc)
-            net.states = old_states
-            loss, bad = self._synced_update(acc, wtotal, len(micro))
-            self._settle_states(bad, states)
-            carries = [net._guard_tree(bad, c, nc)
-                       for c, nc in zip(carries, new_carries)]
-            total = total + loss
+            # each window is a program of its own (the net's _fit_tbptt)
+            with steprecord.window(windows):
+                old_states, new_carries = net.states, []
+                acc = wtotal = None
+                for i, m in enumerate(micro):
+                    window = net._tbptt_windows(m, start, end)
+                    with steprecord.microbatch(i):
+                        with sequence_parallel_scope(self.mesh,
+                                                     seq_split=False):
+                            loss, (states, nc), grads = \
+                                self._value_and_grad(
+                                    lambda p, c=carries[i]: net._tbptt_loss(
+                                        p, *window, c))
+                        net.states = states   # the next microbatch's loss
+                        acc, wtotal = self._accumulate(acc, wtotal, loss,
+                                                       grads)
+                        del grads
+                    new_carries.append(nc)
+                net.states = old_states
+                loss, bad = self._synced_update(acc, wtotal, len(micro))
+                self._settle_states(bad, states)
+                carries = [net._guard_tree(bad, c, nc)
+                           for c, nc in zip(carries, new_carries)]
+                total = total + loss
             windows += 1
             net.iteration_count += 1
             net.score_value = loss

@@ -1923,7 +1923,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "clustering/tsne.py", "graph/__init__.py",
                    "graph/graph.py", "graph/walks.py", "graph/deepwalk.py",
                    "graph/node2vec.py", "analysis/shardcheck.py",
-                   "analysis/steprecord.py", "analysis/fixtures.py"):
+                   "analysis/steprecord.py", "analysis/fixtures.py",
+                   "analysis/source_lint.py", "analysis/torchlint.py",
+                   "analysis/lockcheck.py", "analysis/analyze.py",
+                   "analysis/ranks.py", "profiling/postmortem.py"):
         assert f"deeplearning4j_tpu_torch/{module}" in names, module
     # h5py too: the port reads HDF5 itself (keras/hdf5.py)
     banned = ("jax", "jaxlib", "deeplearning4j_tpu", "h5py")
@@ -1972,3 +1975,53 @@ def test_shardcheck_decode_runner_on_the_card(card):
     assert not [f for f in runner.shardcheck(net, pool)
                 if f.severity != "info"]
     assert all(torch.equal(a, b) for a, b in zip(before, tensors))
+
+
+@pytest.mark.parametrize("rule", ["TL001", "TL003", "TL004", "TL005",
+                                  "TL006", "TL007"])
+def test_capture_hazards_show_on_the_card(card, rule):
+    """torchlint's captured-code pairs under ``torch.cuda.graph``: each bad
+    body raises at capture or replays unequal to eager on a new input;
+    each good twin captures and replays equal to eager, bit for bit; the
+    card works on after a failed capture."""
+    from deeplearning4j_tpu_torch.analysis import fixtures
+    bad = fixtures.capture_outcome(rule, "bad", device=card)
+    good = fixtures.capture_outcome(rule, "good", device=card)
+    assert bad["hazard_shown"], bad
+    assert good["captured"] and good["replay_equal"], good
+    x = torch.ones(8, device=card)
+    assert float((x * 2).sum()) == 16.0
+
+
+@pytest.mark.parametrize("lag", [0, 1])
+def test_guarded_tbptt_record_on_the_card(card, lag):
+    """The guarded tBPTT step recorded on the card: K2 / K3 launched as
+    kernels, the sentinel's drains between the window programs (``windows
+    - lag`` reads of a flag), nothing above INFO, and the net's next
+    ``fit_batch`` bit for bit that of an unchecked twin."""
+    from deeplearning4j_tpu_torch.analysis import shardcheck
+    from deeplearning4j_tpu_torch.resilience.sentinel import (
+        DivergenceSentinel,
+    )
+    rng = np.random.default_rng(3)
+    eye = np.eye(16, dtype=np.float32)
+    ds = DataSet(eye[rng.integers(0, 16, (4, 120))],
+                 eye[rng.integers(0, 16, (4, 120))])
+    net, twin = (MultiLayerNetwork(char_rnn_lstm(16, 8, 2),
+                                   device=card).init() for _ in range(2))
+    for n in (net, twin):
+        n.set_divergence_sentinel(DivergenceSentinel("skip_batch", lag=lag))
+    program = shardcheck.net_step_program(net, ds)
+    assert program.windows == 3
+    assert dict(program.kernel_counts()) == {"K2": 6, "K3": 6}
+    assert {k.impl for k in program.kernel_sites} == {"kernel"}
+    reads = [h.op for h in shardcheck.between_windows(program)]
+    assert reads.count("_local_scalar_dense.default") == 3 - lag
+    assert all(h.window is None for h in program.host_reads)
+    findings = shardcheck.check_step_program(program,
+                                             **net.shardcheck_context())
+    assert not [f for f in findings if f.severity != "info"]
+    a, b = net.fit_batch(ds), twin.fit_batch(ds)
+    assert float(a) == float(b)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(net.params),
+                                                tree_leaves(twin.params)))

@@ -17,7 +17,9 @@ integer; so do ``kv_pool_plan`` and ``kv_cache_bytes``. The cases of
 ``Mesh`` case as a ``MeshContext`` one), then the ZeRO and KV cases of
 ``test_zero1.py``, ``test_zero2.py`` and ``test_generation.py`` (the
 last against the port's serving engine on ``gpt_tiny``), and the CLI's
-file mode.
+file mode. The port's own GC family (``deeplearning4j_tpu_torch.analysis.
+fixtures``: the same makers, built with the port's builders) finds what
+the JAX fixture of the same name finds, and ``--self-check`` passes.
 """
 
 import json
@@ -35,6 +37,7 @@ import deeplearning4j_tpu_torch.parallel.expert  # noqa: F401 (MoELayer)
 from deeplearning4j_tpu_torch.analysis import (
     check_graph, check_multilayer, memory_report, validate_config,
 )
+from deeplearning4j_tpu_torch.analysis import fixtures as pfix
 from deeplearning4j_tpu_torch.analysis import graphcheck, memory
 from deeplearning4j_tpu_torch.analysis.findings import (
     Severity, has_errors, max_severity,
@@ -132,6 +135,56 @@ def test_known_bad_findings_equal_the_jax_packages(name, rule, make):
 def test_known_good_validates_clean_as_in_the_jax_package(name, make):
     conf, kw = make()
     assert assert_same_findings(conf, kw) == []
+
+
+# ---------------------------------------------------------------------------
+# the port's own GC fixture family and graphcheck's --self-check
+# ---------------------------------------------------------------------------
+
+PORT_BAD = {name: (rule, make) for name, rule, make in pfix.KNOWN_BAD}
+PORT_GOOD = dict(pfix.KNOWN_GOOD)
+
+
+def test_the_ports_gc_family_names_the_jax_fixtures():
+    assert [(n, r) for n, r, _ in pfix.KNOWN_BAD] \
+        == [(n, r) for n, r, _ in fixtures.KNOWN_BAD]
+    assert [n for n, _ in pfix.KNOWN_GOOD] \
+        == [n for n, _ in fixtures.KNOWN_GOOD]
+    assert pfix.KNOWN_GOOD_FOR == fixtures.KNOWN_GOOD_FOR
+
+
+@pytest.mark.parametrize("name,rule,make", fixtures.KNOWN_BAD,
+                         ids=[n for n, _, _ in fixtures.KNOWN_BAD])
+def test_port_known_bad_fixture_finds_what_the_jax_fixture_finds(name, rule,
+                                                                 make):
+    """The port's maker, built with the port's builders, validated by the
+    port: the (rule, severity, location) list of the JAX fixture of the
+    same name validated by the JAX package."""
+    conf, kw = make()
+    want = triples(jvalidate(conf, **kw))
+    port_rule, port_make = PORT_BAD[name]
+    pconf, pkw = port_make()
+    got = validate_config(pconf, **pkw)
+    assert port_rule == rule and rule in {f.rule for f in got}
+    assert triples(got) == want
+
+
+@pytest.mark.parametrize("name,make", fixtures.KNOWN_GOOD,
+                         ids=[n for n, _ in fixtures.KNOWN_GOOD])
+def test_port_known_good_fixture_is_clean_as_the_jax_fixture(name, make):
+    conf, kw = make()
+    assert triples(jvalidate(conf, **kw)) == []
+    pconf, pkw = PORT_GOOD[name]()
+    assert triples(validate_config(pconf, **pkw)) == []
+
+
+def test_cli_self_check_passes(capsys):
+    assert graphcheck.main(["--self-check"]) == 0
+    out = capsys.readouterr().out
+    assert out.rstrip().endswith("graphcheck self-check: PASS")
+    assert out.count("(ok)") == len(pfix.KNOWN_BAD) + len(pfix.KNOWN_GOOD)
+    with pytest.raises(SystemExit):
+        graphcheck.main([])              # neither a file nor --self-check
 
 
 # ---------------------------------------------------------------------------

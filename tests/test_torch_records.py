@@ -472,6 +472,34 @@ def test_a_build_is_reported_to_the_compile_watchers(tmp_path, monkeypatch):
     assert w.counts() == {"nvcc": 0, "cuda_graph": 0, "gxx": 1}
 
 
+def test_a_build_blocks_no_caller_of_a_loaded_library(monkeypatch):
+    """``load_native`` builds outside its lock: while one thread's build
+    of a library runs, a caller of a library already loaded returns at
+    once, and the build's outcome is kept once it ends."""
+    import threading
+    import time
+    native_loader.load_native("dataloader")        # loaded, cached
+    started, release = threading.Event(), threading.Event()
+
+    def slow_build(name):
+        started.set()
+        release.wait(30)
+        return None
+    monkeypatch.setattr(native_loader, "build_native", slow_build)
+    slow = threading.Thread(target=native_loader.load_native,
+                            args=("slow",))
+    slow.start()
+    try:
+        assert started.wait(30)
+        t0 = time.perf_counter()
+        assert native_loader.load_native("dataloader") is not None
+        assert time.perf_counter() - t0 < 1.0
+    finally:
+        release.set()
+        slow.join(30)
+    assert native_loader._cache.pop("slow") is None
+
+
 @pytest.mark.parametrize("scale", [1.0, 1.0 / 255.0])
 def test_idx_native_matches_python_bitwise(mnist_shaped, scale):
     d, imgs, labels = mnist_shaped

@@ -748,12 +748,19 @@ def test_tbptt_trainer_step_is_one_update_a_window(group):
 
 
 @pytest.mark.parametrize("lag", [0, 1])
-def test_sc006_finds_the_guarded_tbptt_steps_host_reads(lag):
+def test_guarded_tbptt_step_drains_between_its_window_programs(lag):
     """ROADMAP C37: a tBPTT step under a divergence sentinel hands each
-    window's flag to the sentinel inside the step, and the sentinel reads
-    the flags older than ``lag`` on the host there (``resilience/
-    sentinel.py _handle``): SC006 fires, a read a window past the lag.
-    Past ``lag`` windows nothing is drained inside the step."""
+    window's flag to the sentinel between windows, as the JAX package
+    does between its jitted windows, and the sentinel reads the flags
+    older than ``lag`` on the host there (``resilience/sentinel.py
+    _handle``). The record marks each window as a program of its own
+    (``steprecord.window``) and each read the sentinel makes as its drain
+    (``steprecord.drain``), so those drains, ``windows - lag`` of them,
+    fall between programs: SC006 reports them as info and the step is
+    clean above INFO. A host read planted inside a window's loss still
+    fires SC006, once a window, and so does one planted before the first
+    window, outside every window program."""
+    import torch
     from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_lstm
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.resilience.sentinel import (
@@ -765,12 +772,45 @@ def test_sc006_finds_the_guarded_tbptt_steps_host_reads(lag):
     net = MultiLayerNetwork(char_rnn_lstm(16, 8, 2), device="cpu").init()
     net.set_divergence_sentinel(DivergenceSentinel("skip_batch", lag=lag))
     program = sc.net_step_program(net, batch)
-    assert [h.op for h in program.host_reads] \
+    assert program.windows == windows and program.updates == windows
+    assert [h.op for h in sc.between_windows(program)] \
         == ["_local_scalar_dense.default"] * (windows - lag)
-    assert ("SC006", "error") in significant(net.shardcheck(batch))
-    net.set_divergence_sentinel(DivergenceSentinel("skip_batch",
-                                                   lag=windows))
-    assert significant(net.shardcheck(batch)) == set()
+    assert [h.window for h in program.host_reads] == [None] * (windows - lag)
+    assert all(h.drain for h in program.host_reads)
+    findings = sc.check_step_program(program, **net.shardcheck_context())
+    assert significant(findings) == set()
+    assert [f.severity for f in findings if f.rule == "SC006"] \
+        == [Severity.INFO]
+    again = sc.StepProgram.from_json(program.to_json())
+    assert again.windows == windows and again.host_reads == program.host_reads
+
+    carries_of = net._initial_carries
+
+    def leaky_carries(*args, **kwargs):
+        out = carries_of(*args, **kwargs)
+        torch.zeros(1).item()            # a host read before the windows
+        return out
+    net._initial_carries = leaky_carries
+    program = sc.net_step_program(net, batch)
+    early = [h for h in program.host_reads if not h.drain]
+    assert [(h.window, h in sc.between_windows(program))
+            for h in early] == [(None, False)]
+    assert ("SC006", "error") in significant(
+        sc.check_step_program(program, **net.shardcheck_context()))
+    net._initial_carries = carries_of
+
+    loss_of = net._tbptt_loss
+
+    def leaky(*args, **kwargs):
+        out = loss_of(*args, **kwargs)
+        out[0].item()                    # a host read inside the window
+        return out
+    net._tbptt_loss = leaky
+    program = sc.net_step_program(net, batch)
+    assert [h.window for h in program.host_reads
+            if h.window is not None] == list(range(windows))
+    assert ("SC006", "error") in significant(
+        sc.check_step_program(program, **net.shardcheck_context()))
 
 
 def test_a_collectives_transport_is_the_collectives_not_the_steps():
